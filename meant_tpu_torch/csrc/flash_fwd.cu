@@ -1,0 +1,498 @@
+// Rotary-fused flash-attention forward for Hopper (sm_90a).
+//
+// Replaces the TPU kernel meant_tpu/ops/flash/kernel.py:_fwd_kernel (the
+// resident forward, launched by _flash_fwd). For each (batch*head, q row) it
+// computes what that kernel computes:
+//   1. rotate q and k in fp32: x*cos + rotate_half(x)*sin, with interleaved
+//      pairs (out[2i] = -x[2i+1], out[2i+1] = x[2i]) and fp32 (s, d) tables
+//      that already carry the xPos scales;
+//   2. round the rotated q and k to the input dtype;
+//   3. QK^T accumulated in fp32, times `scale`;
+//   4. the causal -inf fill (col <= row kept);
+//   5. + (1 - kmask) * -1e9 when a key mask is given, mask row bh / num_heads
+//      (or row 0 for a broadcast mask);
+//   6. softmax in fp32; 7. P rounded to the input dtype;
+//   8. P @ V accumulated in fp32; 9. output in the input dtype.
+//
+// Design. The TPU kernel keeps a whole K/V row resident in VMEM and takes a
+// single-pass softmax. On Hopper K+V for s=512, d=96 in bf16 is already
+// 192 KiB of the 227 KiB a block may hold (fp32 would not fit), so both
+// kernels here walk K/V in 64-row tiles inside the block with an online
+// softmax (running max and denominator per row; the result is the same up
+// to fp32 rounding, except that P is rounded to the input dtype relative to
+// the running max instead of after normalising). One block of 4 warps per
+// (bh, 64-row q tile); causal tiles past the diagonal are skipped; the
+// ragged edge (s=196) is masked in the kernel: rows past s are zero-filled
+// on load and never written, columns past s get -inf. Only the main path's
+// head dim, 96, is instantiated; the kernels are templated on it (any
+// multiple of 16 up to 128 would do) so another width is one case more.
+//
+// * bf16 (the main path): tensor cores through mma.sync m16n8k16 (bf16 in,
+//   fp32 accumulate). Each warp owns 16 q rows; their rotated Q fragments
+//   stay in registers, S = Q K^T and the online softmax stay in registers,
+//   and P goes from the S accumulators straight into the A fragments of
+//   P @ V. Rotated K and transposed V go through shared memory.
+// * fp32 (the tight on-card check): scalar fp32 FMAs from shared memory
+//   (every thread owns 8 q rows x 4 score columns and 8 rows x d/16 output
+//   columns), since the tensor cores would round fp32 to TF32.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the main
+// path's shapes (BH = 640, d = 96, bf16) the launch must move q, k, v and o
+// once -- 252 MB at s=512, about 75 us, and 96 MB at s=196, about 29 us --
+// while its products need 32 GFLOP (causal half) and 9.4 GFLOP, 33 us and
+// 10 us on the tensor cores: both shapes are bound by bytes. Neither kernel
+// pipelines its loads (no cp.async/TMA, no wgmma): that is later work.
+//
+// C interface (loaded with ctypes): meant_flash_fwd returns the
+// cudaError_t of the launch (0 on success); it never synchronises.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBlockQ = 64;              // q rows per block
+constexpr int kBlockK = 64;              // k rows per tile
+constexpr int kThreads = 128;            // 4 warps
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Load rows [row0, row0 + rows) of one (s, D) slice of input dtype T into
+// shared memory of element type S (row stride `stride` elements), rotating
+// each interleaved pair with the fp32 tables and rounding to T. Rows at or
+// past `seq` are zero-filled.
+template <typename T, int D, typename S>
+__device__ __forceinline__ void load_rotated(
+    S* dst, int stride, const T* src, const float* cos_t, const float* sin_t,
+    int row0, int rows, int seq) {
+  constexpr int kPairs = D / 2;
+  for (int e = threadIdx.x; e < rows * kPairs; e += kThreads) {
+    const int r = e / kPairs;
+    const int c = 2 * (e % kPairs);
+    const int g = row0 + r;
+    float y0 = 0.f, y1 = 0.f;
+    if (g < seq) {
+      const float x0 = to_f<T>(src[(size_t)g * D + c]);
+      const float x1 = to_f<T>(src[(size_t)g * D + c + 1]);
+      const float* cs = cos_t + (size_t)g * D + c;
+      const float* sn = sin_t + (size_t)g * D + c;
+      // x*cos + rotate_half(x)*sin, as two products and one add each
+      // (no FMA contraction), as the reference rounds them.
+      y0 = __fadd_rn(__fmul_rn(x0, cs[0]), __fmul_rn(-x1, sn[0]));
+      y1 = __fadd_rn(__fmul_rn(x1, cs[1]), __fmul_rn(x0, sn[1]));
+    }
+    dst[r * stride + c] = from_f<S>(to_f<T>(from_f<T>(y0)));
+    dst[r * stride + c + 1] = from_f<S>(to_f<T>(from_f<T>(y1)));
+  }
+}
+
+// Scaled score with the causal fill and the additive key mask applied.
+__device__ __forceinline__ float masked_score(float acc, float scale, int row,
+                                              int col, int seq, int causal,
+                                              const float* km) {
+  if (col >= seq || (causal && col > row)) return -INFINITY;
+  const float x = acc * scale;
+  return km != nullptr ? x + (1.0f - km[col]) * -1e9f : x;
+}
+
+// Online-softmax step for one row: new running max, and the factor that
+// rescales what was accumulated under the old one.
+__device__ __forceinline__ float rescale(float& m, float tile_max,
+                                         float& m_use) {
+  const float m_new = fmaxf(m, tile_max);
+  m_use = (m_new == -INFINITY) ? 0.f : m_new;
+  const float corr = (m == -INFINITY) ? 0.f : expf(m - m_use);
+  m = m_new;
+  return corr;
+}
+
+__device__ __forceinline__ int num_k_tiles(int seq, int q0, int causal) {
+  const int n = (seq + kBlockK - 1) / kBlockK;
+  return causal ? min(n, (q0 + kBlockQ - 1) / kBlockK + 1) : n;
+}
+
+// ---- bf16: tensor cores (mma.sync m16n8k16) ------------------------------
+
+constexpr int kPadH = 8;  // bf16 elements of padding per shared-memory row
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two bf16 at p, p+1 as one register (p even): the lower index in the low
+// half, as mma.sync fragments hold them.
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+constexpr int mma_smem_bytes() {
+  return (int)sizeof(bf16) * ((kBlockQ + kBlockK) * (D + kPadH) +
+                              D * (kBlockK + kPadH));
+}
+
+// Fragment layout of m16n8k16 (lane = 4 * g + t): A (16x16, row major)
+// holds rows g and g+8 at columns 2t, 2t+1 and 2t+8, 2t+9; B (16x8, column
+// major) holds k rows 2t, 2t+1 and 2t+8, 2t+9 of column g; C (16x8 fp32)
+// holds rows g and g+8 at columns 2t, 2t+1.
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    const float* __restrict__ qcos, const float* __restrict__ qsin,
+    const float* __restrict__ kcos, const float* __restrict__ ksin,
+    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
+    float scale, int causal) {
+  constexpr int kStride = D + kPadH;           // qs / ks row stride
+  constexpr int kStrideV = kBlockK + kPadH;    // vt row stride
+  constexpr int kChunksD = D / 16;             // k-steps of Q K^T
+  constexpr int kTilesS = kBlockK / 8;         // n-tiles of S (8 keys each)
+  constexpr int kTilesO = D / 8;               // n-tiles of O
+  extern __shared__ float smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);    // [kBlockQ][D + pad]
+  bf16* ks = qs + kBlockQ * kStride;           // [kBlockK][D + pad]
+  bf16* vt = ks + kBlockK * kStride;           // [D][kBlockK + pad], V^T
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kBlockQ;
+  const int r0 = warp * 16 + g;                // this lane's first q row
+  const int row[2] = {q0 + r0, q0 + r0 + 8};
+  const size_t base = (size_t)bh * seq * D;
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+
+  load_rotated<bf16, D>(qs, kStride, q + base, qcos, qsin, q0, kBlockQ, seq);
+  __syncthreads();
+  uint32_t qa[kChunksD][4];
+#pragma unroll
+  for (int c = 0; c < kChunksD; ++c) {
+    const bf16* p = qs + r0 * kStride + c * 16 + 2 * t;
+    qa[c][0] = ld_pair(p);
+    qa[c][1] = ld_pair(p + 8 * kStride);
+    qa[c][2] = ld_pair(p + 8);
+    qa[c][3] = ld_pair(p + 8 * kStride + 8);
+  }
+
+  float acc[kTilesO][4];
+#pragma unroll
+  for (int j = 0; j < kTilesO; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  const int n_tiles = num_k_tiles(seq, q0, causal);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kBlockK;
+    __syncthreads();  // the previous tile's ks / vt reads are done
+    load_rotated<bf16, D>(ks, kStride, k + base, kcos, ksin, k0, kBlockK,
+                          seq);
+    for (int e = threadIdx.x; e < kBlockK * D; e += kThreads) {
+      const int r = e / D, d = e % D;
+      vt[d * kStrideV + r] = (k0 + r < seq)
+                                 ? v[base + (size_t)(k0 + r) * D + d]
+                                 : __float2bfloat16_rn(0.f);
+    }
+    __syncthreads();
+
+    float s[kTilesS][4];
+#pragma unroll
+    for (int j = 0; j < kTilesS; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kChunksD; ++c) {
+        const bf16* p = ks + (j * 8 + g) * kStride + c * 16 + 2 * t;
+        mma_bf16(s[j], qa[c], ld_pair(p), ld_pair(p + 8));
+      }
+    }
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kTilesS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        s[j][e] = masked_score(s[j][e], scale, row[h],
+                               k0 + j * 8 + 2 * t + (e & 1), seq, causal, km);
+        mx[h] = fmaxf(mx[h], s[j][e]);
+      }
+    float m_use[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the four lanes of a row group hold the row's other columns
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float corr = rescale(m[h], mx[h], m_use[h]);
+      l[h] *= corr;
+#pragma unroll
+      for (int j = 0; j < kTilesO; ++j) {
+        acc[j][2 * h] *= corr;
+        acc[j][2 * h + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTilesS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p =
+            (s[j][e] == -INFINITY) ? 0.f : expf(s[j][e] - m_use[h]);
+        l[h] += p;
+        s[j][e] = p;
+      }
+
+    // P @ V: S n-tiles 2kc, 2kc+1 are the A fragment of key chunk kc
+#pragma unroll
+    for (int kc = 0; kc < kBlockK / 16; ++kc) {
+      const uint32_t pa[4] = {
+          pack_pair(s[2 * kc][0], s[2 * kc][1]),
+          pack_pair(s[2 * kc][2], s[2 * kc][3]),
+          pack_pair(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+          pack_pair(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+#pragma unroll
+      for (int j = 0; j < kTilesO; ++j) {
+        const bf16* p = vt + (j * 8 + g) * kStrideV + kc * 16 + 2 * t;
+        mma_bf16(acc[j], pa, ld_pair(p), ld_pair(p + 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    if (row[h] >= seq) continue;
+    const float inv = l[h] > 0.f ? 1.0f / l[h] : 0.f;
+    bf16* out = o + base + (size_t)row[h] * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kTilesO; ++j)
+      *reinterpret_cast<uint32_t*>(out + j * 8) =
+          pack_pair(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+  }
+}
+
+// ---- fp32: scalar FMAs ---------------------------------------------------
+
+constexpr int kTx = 16;                  // threads across columns
+constexpr int kTy = kThreads / kTx;      // 8 threads across rows
+constexpr int kRows = kBlockQ / kTy;     // 8 q rows per thread
+constexpr int kCols = kBlockK / kTx;     // 4 score columns per thread
+
+template <int D>
+constexpr int fp32_smem_bytes() {
+  return (int)sizeof(float) *
+         (kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D +
+          kBlockQ * (kBlockK + 1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_fwd_fp32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    const float* __restrict__ qcos, const float* __restrict__ qsin,
+    const float* __restrict__ kcos, const float* __restrict__ ksin,
+    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
+    float scale, int causal) {
+  constexpr int kOut = D / kTx;          // output columns per thread
+  constexpr int kStrideQK = D + 1;       // pad: column walks hit all banks
+  constexpr int kStrideP = kBlockK + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;                                  // [kBlockQ][D+1]
+  float* ks = qs + kBlockQ * kStrideQK;              // [kBlockK][D+1]
+  float* vs = ks + kBlockK * kStrideQK;              // [kBlockK][D]
+  float* ps = vs + kBlockK * D;                      // [kBlockQ][kBlockK+1]
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * kBlockQ;
+  const int tx = threadIdx.x % kTx;
+  const int ty = threadIdx.x / kTx;
+  const size_t base = (size_t)bh * seq * D;
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+
+  load_rotated<float, D>(qs, kStrideQK, q + base, qcos, qsin, q0, kBlockQ,
+                         seq);
+
+  float m[kRows], l[kRows], acc[kRows][kOut];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) acc[i][j] = 0.f;
+  }
+
+  const int n_tiles = num_k_tiles(seq, q0, causal);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kBlockK;
+    __syncthreads();  // the previous tile's ks/vs/ps reads are done
+    load_rotated<float, D>(ks, kStrideQK, k + base, kcos, ksin, k0, kBlockK,
+                           seq);
+    for (int e = threadIdx.x; e < kBlockK * D; e += kThreads) {
+      const int r = e / D;
+      vs[e] = (k0 + r < seq) ? v[base + (size_t)k0 * D + e] : 0.f;
+    }
+    __syncthreads();
+
+    float s[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) s[i][c] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qv[kRows], kv[kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + kTy * i) * kStrideQK + d];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) kv[c] = ks[(tx + kTx * c) * kStrideQK + d];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int row = q0 + ty + kTy * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        s[i][c] = masked_score(s[i][c], scale, row, k0 + tx + kTx * c, seq,
+                               causal, km);
+        mx = fmaxf(mx, s[i][c]);
+      }
+      // the 16 threads of a row sit in one half-warp
+#pragma unroll
+      for (int off = kTx / 2; off > 0; off /= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      float m_use;
+      const float corr = rescale(m[i], mx, m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float p = (s[i][c] == -INFINITY) ? 0.f : expf(s[i][c] - m_use);
+        sum += p;
+        ps[(ty + kTy * i) * kStrideP + tx + kTx * c] = p;
+      }
+#pragma unroll
+      for (int off = kTx / 2; off > 0; off /= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();  // ps complete
+
+    for (int c = 0; c < kBlockK; ++c) {
+      float pv[kRows], vv[kOut];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + kTy * i) * kStrideP + c];
+#pragma unroll
+      for (int j = 0; j < kOut; ++j) vv[j] = vs[c * D + tx + kTx * j];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kOut; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + ty + kTy * i;
+    if (row >= seq) continue;
+    const float inv = l[i] > 0.f ? 1.0f / l[i] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kOut; ++j)
+      o[base + (size_t)row * D + tx + kTx * j] = acc[i][j] * inv;
+  }
+}
+
+// ---- launch --------------------------------------------------------------
+
+// The kernel for an input dtype: tensor cores for bf16, scalar for fp32.
+template <int D> auto kernel_for(const bf16*) { return flash_fwd_mma_kernel<D>; }
+template <int D> auto kernel_for(const float*) { return flash_fwd_fp32_kernel<D>; }
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   const float* qcos, const float* qsin, const float* kcos,
+                   const float* ksin, const float* kmask, int mask_rows,
+                   int bh, int seq, int num_heads, float scale, int causal,
+                   cudaStream_t stream) {
+  constexpr int bytes = std::is_same<T, bf16>::value ? mma_smem_bytes<D>()
+                                                     : fp32_smem_bytes<D>();
+  auto kernel = kernel_for<D>(static_cast<const T*>(nullptr));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (seq + kBlockQ - 1) / kBlockQ);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), qcos, qsin, kcos, ksin,
+      kmask, mask_rows, seq, num_heads, scale, causal);
+  return cudaGetLastError();
+}
+
+constexpr int kHeadDim = 96;  // the only head dim instantiated
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q/k/v/o: (bh, seq, d) contiguous;
+// tables: (seq, d) fp32; kmask: (mask_rows, seq) fp32 or null.
+extern "C" int meant_flash_fwd(int dtype, const void* q, const void* k,
+                               const void* v, void* o, const void* qcos,
+                               const void* qsin, const void* kcos,
+                               const void* ksin, const void* kmask,
+                               int mask_rows, int bh, int seq, int d,
+                               int num_heads, float scale, int causal,
+                               void* stream) {
+  if (bh <= 0 || seq <= 0 || d != kHeadDim || (dtype != 0 && dtype != 1) ||
+      (seq + kBlockQ - 1) / kBlockQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  const auto* qc = static_cast<const float*>(qcos);
+  const auto* qs = static_cast<const float*>(qsin);
+  const auto* kc = static_cast<const float*>(kcos);
+  const auto* kn = static_cast<const float*>(ksin);
+  const auto* km = static_cast<const float*>(kmask);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == 0
+          ? launch<float, kHeadDim>(q, k, v, o, qc, qs, kc, kn, km, mask_rows,
+                                    bh, seq, num_heads, scale, causal, st)
+          : launch<bf16, kHeadDim>(q, k, v, o, qc, qs, kc, kn, km, mask_rows,
+                                   bh, seq, num_heads, scale, causal, st);
+  return (int)err;
+}

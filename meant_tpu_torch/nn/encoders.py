@@ -1,0 +1,106 @@
+"""MEANT encoder blocks (counterpart of meant_tpu/nn/encoders.py).
+
+Block skeleton shared by the language and vision encoders:
+
+    inter = proj_out(dropout?(norm2(attn(proj_in(norm1(x))))))
+    x1    = inter + x
+    inter = ff_out(dropout2?(norm4(gelu(ff_in(norm3(x1))))))
+    out   = inter + x1
+
+The reference passes the padding mask only to its non-flash attention, so
+with `flash=True` the mask is dropped, as in the JAX package at its default
+`mask_in_flash=False`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from meant_tpu_torch.nn.attention_modules import (RotaryAttention,
+                                                  TemporalAttention,
+                                                  XPosAttention)
+from meant_tpu_torch.nn.layers import Linear, gelu, make_norm
+
+
+class _Block(nn.Module):
+    """norm1..norm4 and the four projections of an encoder block."""
+
+    def __init__(self, dim: int, norm: str, ff_norm2: Optional[str],
+                 init_style: str, dtype, device):
+        super().__init__()
+        kw = dict(init_style=init_style, dtype=dtype, device=device)
+        self.norm1 = make_norm(norm, dim, device)
+        self.proj_in = Linear(dim, dim, **kw)
+        self.norm2 = make_norm(norm, dim, device)
+        self.proj_out = Linear(dim, dim, **kw)
+        self.norm3 = make_norm(norm, dim, device)
+        self.ff_in = Linear(dim, dim, **kw)
+        self.norm4 = make_norm(ff_norm2 or norm, dim, device)
+        self.ff_out = Linear(dim, dim, **kw)
+
+    def _feed_forward(self, x1, drop: Optional[nn.Module] = None):
+        inter = self.norm4(gelu(self.ff_in(self.norm3(x1))))
+        if drop is not None:
+            inter = drop(inter)
+        return self.ff_out(inter) + x1
+
+
+class LanguageEncoder(_Block):
+    """ff_dropout defaults to the reference's nn.Dropout() p=0.5."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
+                 ff_dropout: float = 0.5, norm: str = "rms",
+                 ff_norm2: Optional[str] = None, init_style: str = "torch",
+                 flash: bool = False, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__(dim, norm, ff_norm2, init_style, dtype, device)
+        self.flash = flash
+        self.attn = XPosAttention(num_heads, dim, init_style=init_style,
+                                  flash=flash, dtype=dtype, device=device)
+        self.drop1 = nn.Dropout(dropout)
+        self.drop2 = nn.Dropout(ff_dropout)
+
+    def forward(self, x, attention_mask=None):
+        mask = None if self.flash else attention_mask
+        inter = self.attn(self.proj_in(self.norm1(x)), mask)
+        inter = self.proj_out(self.drop1(self.norm2(inter)))
+        return self._feed_forward(inter + x, self.drop2)
+
+
+class VisionEncoder(_Block):
+    def __init__(self, dim: int, num_heads: int, norm: str = "rms",
+                 ff_norm2: Optional[str] = None, init_style: str = "torch",
+                 flash: bool = False, dtype: Optional[torch.dtype] = None,
+                 device=None):
+        super().__init__(dim, norm, ff_norm2, init_style, dtype, device)
+        self.attn = RotaryAttention(num_heads, dim, init_style=init_style,
+                                    flash=flash, dtype=dtype, device=device)
+
+    def forward(self, x):
+        inter = self.attn(self.proj_in(self.norm1(x)))
+        inter = self.proj_out(self.norm2(inter))
+        return self._feed_forward(inter + x)
+
+
+class TemporalEncoder(nn.Module):
+    """temporalEncoder around the antecedent-lag attention, in the 'src'
+    style (LayerNorms, xavier init, src temporal attention with a flat
+    (b, dim) output). The JAX package's paper / slim / src_slim /
+    tweet_price wirings are not ported yet (see ROADMAP)."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        kw = dict(init_style="xavier", dtype=dtype, device=device)
+        self.norm1 = make_norm("layer", dim, device)
+        self.proj_in = Linear(dim, dim, **kw)
+        self.temporal = TemporalAttention(num_heads, dim, variant="src", **kw)
+        self.norm2 = make_norm("layer", dim, device)
+        self.proj_out = Linear(dim, dim, **kw)
+
+    def forward(self, x):
+        x = self.temporal(self.proj_in(self.norm1(x)))
+        return self.proj_out(self.norm2(x))

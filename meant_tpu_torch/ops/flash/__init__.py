@@ -1,0 +1,5 @@
+from .flash_attention import flash_attention
+from .kernel import flash_fwd, flash_mha, flash_mha_reference
+
+__all__ = ["flash_attention", "flash_fwd", "flash_mha",
+           "flash_mha_reference"]

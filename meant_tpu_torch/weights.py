@@ -1,0 +1,89 @@
+"""Carry JAX `meant_src` parameters over to the port.
+
+`state_dict_from_jax(params)` takes the Flax param tree as a nested dict of
+numpy arrays and returns the port's `state_dict`:
+
+* Flax `Dense` kernels are (in, out): `X/dense/kernel` becomes `X.weight`
+  transposed to (out, in); `X/dense/bias` becomes `X.bias`.
+* Norm `scale` / `offset` become `weight` / `bias` (the embedding's
+  `ln_scale` / `ln_bias` become `layer_norm.weight` / `.bias`).
+* Embedding tables become `<name>.weight`; `freqs` buffers copy as they
+  are.
+* `languageEncoders_3` becomes `languageEncoders.3` (a ModuleList).
+
+Every leaf maps to exactly one key; a leaf no rule knows raises.
+`load_jax_params` then loads strictly, so a missing or unused key, or a
+shape that differs, fails.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_EMBED_TABLES = ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings")
+_LIST_RE = re.compile(r"^(languageEncoders|visionEncoders)_(\d+)$")
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, Any]:
+    out = {}
+    for key, val in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(val, Mapping):
+            out.update(_flatten(val, path))
+        else:
+            out[path] = val
+    return out
+
+
+def _torch_key(path: tuple) -> tuple:
+    """JAX param path -> (torch key, transpose?)."""
+    parts = [(f"{m.group(1)}.{m.group(2)}" if (m := _LIST_RE.match(p))
+              else p) for p in path]
+    leaf = parts[-1]
+    if len(parts) >= 2 and parts[-2] == "dense" and leaf in ("kernel",
+                                                               "bias"):
+        return ".".join(parts[:-2] + ["weight" if leaf == "kernel"
+                                      else "bias"]), leaf == "kernel"
+    if leaf in ("scale", "offset"):
+        return ".".join(parts[:-1] + ["weight" if leaf == "scale"
+                                      else "bias"]), False
+    if leaf in ("ln_scale", "ln_bias"):
+        return ".".join(parts[:-1] + ["layer_norm",
+                                      "weight" if leaf == "ln_scale"
+                                      else "bias"]), False
+    if leaf in _EMBED_TABLES:
+        return ".".join(parts + ["weight"]), False
+    if leaf == "freqs":
+        return ".".join(parts), False
+    raise KeyError(f"no rule maps JAX param {'/'.join(path)}")
+
+
+def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays (JAX layout) -> port state_dict (CPU
+    tensors, dtypes kept)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params).items():
+        key, transpose = _torch_key(path)
+        if key in out:
+            raise KeyError(f"two JAX params map to {key}")
+        a = np.asarray(arr)
+        out[key] = torch.tensor(a.T if transpose else a)
+    return out
+
+
+def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> None:
+    """Load JAX params into `model` strictly: every model key filled, every
+    JAX leaf used, every shape equal."""
+    sd = state_dict_from_jax(params)
+    own = model.state_dict()
+    bad = [f"{k}: jax {tuple(v.shape)} vs port {tuple(own[k].shape)}"
+           for k, v in sd.items() if k in own and own[k].shape != v.shape]
+    if bad:
+        raise ValueError("shape mismatch: " + "; ".join(bad))
+    model.load_state_dict(sd, strict=True)
