@@ -5,27 +5,42 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build   -- nvcc builds every kernel of the serving path from csrc/.
+1. build   -- nvcc builds every kernel of the serving and training paths
+              from csrc/, one nvcc per source, all started together.
 2. kernels -- each kernel's wrapper against its plain PyTorch version on
-              the card, at the main path's shapes, fp32 and bf16.
+              the card, at the main path's shapes: the flash forward (K1)
+              and backward (K2) in fp32 and bf16 at both attention shapes,
+              and the fused AdamW (A1) over all 177,607,733 parameters.
 3. slice   -- flagship meant_src (768 wide, 8 heads of 96, 12+12 encoders,
               s=512 text, 196-patch charts, bf16, seeded random weights)
               serves 40 rows through Predictor(batch_size=16): three
-              requests, the last padded. The kernel's launch count must
-              rise by exactly 3 x 24 and the probabilities must be finite
-              and agree with the plain attention (towers and probabilities,
+              requests, the last padded. K1's launch count must rise by
+              exactly 3 x 24 and the probabilities must be finite and
+              agree with the plain attention (towers and probabilities,
               at fixed_proj False and True).
-4. timing  -- median request time, the kernel's time per launch at both
-              shapes beside its bound, its plain version's time and that
-              of rotation + torch's scaled_dot_product_attention (a
-              yardstick the port never calls).
-5. profile -- torch.profiler over 3 forwards of one 16-row request: device
-              time per forward by kind (the flash kernel, matrix products,
-              the rest), the device's idle share, and the top kernels.
+4. train   -- the same model at fixed_proj=True (at False every tower
+              gradient is zero, DEFECTS #15): one step's parameter
+              gradients with the kernels vs the plain attention (8 rows,
+              dropout off, per-tower relative L2); 20 steps of
+              meant_trainer on one replayed 16-row batch at lr 1e-5
+              constant, with exactly 24 K1, 24 K2 and 1 A1 launches per
+              step and a finite, falling loss; step time, samples/s, peak
+              memory and a torch.profiler breakdown of 2 steps; then
+              cli.in_loop_train trains one epoch of a synthetic set,
+              evaluates and saves, and Predictor(checkpoint_path=...)
+              serves 16 rows with the trained model's probabilities.
+5. timing  -- median request time, and each kernel's time per launch
+              beside its bound, its plain version's time and one PyTorch
+              call that computes the same (a yardstick the port never
+              calls): rotation + scaled_dot_product_attention (K1) and its
+              backward (K2), torch.optim.AdamW(fused=True) (A1).
+6. profile -- torch.profiler over 3 forwards of one 16-row request: device
+              time per forward by kind, the device's idle share, and the
+              top kernels.
 
 It prints the card's name and power limit, one JSON line describing each
 kernel, and last `{"ok": true, "device": {...}}`. `--out DIR` also writes
-the full record (with nvcc's register report and the profile) to
+the full record (with nvcc's register report and the profiles) to
 DIR/chip_smoke.json.
 """
 
@@ -36,6 +51,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -45,6 +61,7 @@ import torch
 # tensor-core FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12    # outside the tensor cores
 
 BATCH, LAG, SEQ, IMAGE, PATCH, HEADS, DIM = 16, 5, 512, 224, 16, 8, 768
 HEAD_DIM = DIM // HEADS
@@ -65,6 +82,18 @@ BF16_TOL = 2e-2
 # probabilities (sigmoid outputs; one bf16 step near 0.5 is 3.9e-3).
 TOWER_REL_L2 = 3e-2
 PROBS_ATOL = 2e-2
+# A1 against its plain version: both round every operation to fp32 alike.
+ADAMW_REL_ERR = 1e-6
+# One training step's parameter gradients, K1+K2 vs the plain attention, in
+# bf16 at fixed_proj=True, dropout off: relative L2 per group of parameters
+# (text tower, vision tower, temporal stage and head). The H100 read 1.06e-2,
+# 1.98e-2 and 1.13e-2: bf16 rounding in other places through twelve layers,
+# as the served towers read 1.0e-2 (PERF.md).
+STEP_GRAD_REL_L2 = 5e-2
+GRAD_ROWS = 8              # rows of the gradient comparison
+LEARN_STEPS, LEARN_LR = 20, 1e-5
+PROFILE_STEPS = 2
+KERNELS = ("flash_fwd", "flash_bwd", "adamw")
 
 
 def fail(msg: str):
@@ -194,6 +223,119 @@ def check_kernel(record):
     return errors
 
 
+def backward_case(kind, dtype, gen):
+    """attention_case plus an output gradient dO of q's shape."""
+    c = attention_case(kind, dtype, gen)
+    c["do"] = torch.randn(c["q"].shape, generator=gen, device="cuda").to(
+        dtype)
+    return c
+
+
+def run_bwd_kernel(c):
+    """K2 on (b*h, s, d) views; returns (dq, dk, dv) as (b, h, s, d)."""
+    from meant_tpu_torch.ops.flash import flash_bwd
+    b, h, s, d = c["q"].shape
+    flat = [c[n].reshape(b * h, s, d) for n in ("q", "k", "v", "do")]
+    grads = flash_bwd(*flat, c["mask"], *c["tables"], scale=c["scale"],
+                      causal=c["causal"], num_heads=h)
+    return [g.reshape(b, h, s, d) for g in grads]
+
+
+def run_bwd_plain(c):
+    from meant_tpu_torch.ops.flash import flash_mha_bwd_reference
+    return flash_mha_bwd_reference(c["q"], c["k"], c["v"], c["do"],
+                                   c["mask"], *c["tables"], scale=c["scale"],
+                                   causal=c["causal"])
+
+
+def check_backward(record):
+    """K2 against flash_mha_bwd_reference at both main-path shapes (and the
+    masked text case), fp32 and bf16, gradient by gradient."""
+    from meant_tpu_torch.ops.flash.kernel import (BWD_BF16_ATOL,
+                                                  BWD_BF16_REL_L2)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    errors, rels = {}, {}
+    for kind in ("text", "vision", "text_masked"):
+        for dtype in (torch.float32, torch.bfloat16):
+            c = backward_case(kind, dtype, gen)
+            got = run_bwd_kernel(c)
+            torch.cuda.synchronize()
+            want = run_bwd_plain(c)
+            torch.cuda.synchronize()
+            name = f"{kind}/{str(dtype).split('.')[-1]}"
+            worst = 0.0
+            for g, a, b in zip(("dq", "dk", "dv"), got, want):
+                err = (a.float() - b.float()).abs().max().item()
+                rel = rel_l2(a, b)
+                if dtype == torch.float32:
+                    ok = torch.allclose(a, b, rtol=FP32_RTOL, atol=FP32_ATOL)
+                else:
+                    ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
+                                         atol=BWD_BF16_ATOL)
+                          and rel <= BWD_BF16_REL_L2)
+                ok = ok and bool(torch.isfinite(a).all())
+                print(f"K2 vs plain {name} {g}: max_abs_err {err:.3e} "
+                      f"rel_l2 {rel:.3e} {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    fail(f"K2 disagrees with its plain version ({name} {g}, "
+                         f"max abs err {err}, rel L2 {rel})")
+                errors[f"{name}/{g}"], rels[f"{name}/{g}"] = err, rel
+                worst = max(worst, err)
+            errors[name] = worst
+            del c, got, want
+    record["k2_vs_plain_max_abs_err"] = errors
+    record["k2_vs_plain_rel_l2"] = rels
+    return errors
+
+
+def adamw_case(n: int, gen):
+    """p, g, m, v over n parameters, with |g| above 1 so the clip acts."""
+    p = torch.randn(n, generator=gen, device="cuda")
+    g = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    m = torch.randn(n, generator=gen, device="cuda") * 1e-4
+    v = torch.rand(n, generator=gen, device="cuda") * 1e-7
+    return p, g, m, v
+
+
+ADAMW_ARGS = dict(lr=1e-5, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+                  step=10, max_norm=1.0)
+
+
+def check_adamw(record, n: int) -> float:
+    """A1 against adamw_reference on the card over n parameters, AdamW and
+    coupled Adam; max relative error of p, m and v."""
+    from meant_tpu_torch.ops.adamw import (adamw_reference, update_scalars,
+                                           adamw_update)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst_abs, worst_rel = 0.0, 0.0
+    for coupled in (False, True):
+        p, g, m, v = adamw_case(n, gen)
+        ref = [t.clone() for t in (p, m, v)]
+        norm = torch.linalg.vector_norm(g)
+        args = dict(ADAMW_ARGS, coupled=coupled)
+        adamw_update(p, g, m, v, norm=norm, **args)
+        h = update_scalars(**{k: v_ for k, v_ in args.items()
+                        if k != "max_norm"})
+        adamw_reference(ref[0], g, ref[1], ref[2], h, norm, 1.0)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("p", "m", "v"), (p, m, v), ref):
+            rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+            worst_rel = max(worst_rel, rel)
+            if name == "p":
+                worst_abs = max(worst_abs, (a - b).abs().max().item())
+            label = "Adam (coupled)" if coupled else "AdamW"
+            print(f"A1 vs plain {label} {name}: max relative error "
+                  f"{rel:.3e} over {n} parameters", flush=True)
+            if not (rel <= ADAMW_REL_ERR and torch.isfinite(a).all()):
+                fail(f"A1 disagrees with its plain version ({label} {name}, "
+                     f"max relative error {rel})")
+        del p, g, m, v, ref
+    record.update(a1_vs_plain_max_rel_err=worst_rel,
+                  a1_vs_plain_max_abs_err=worst_abs, a1_params=n)
+    return worst_abs
+
+
 # ---- phase 3: the slice ------------------------------------------------
 
 def build_flagship(**kw):
@@ -280,7 +422,7 @@ def run_slice(record):
     if not ((probs > 0) & (probs < 1)).all():
         fail("sigmoid outputs outside (0, 1)")
     record.update(n_params=n_params, launches=launches,
-                  launches_by_shape={f"s{s} causal={c}": n
+                  launches_by_shape={shape_key(s, c): n
                                      for (s, c), n in by_shape.items()})
 
     # the same weights with the plain attention, at fixed_proj False (the
@@ -310,53 +452,299 @@ def run_slice(record):
     return predictor, chunk, by_shape
 
 
-# ---- phase 4: timing ---------------------------------------------------
+# ---- phase 4: training ---------------------------------------------------
 
-def attention_cost(c) -> tuple:
-    """(bytes, flops) the launch must move and compute: q, k, v read once,
-    o written once, tables and mask read once; QK^T and P@V over the
-    causal triangle (s(s+1)/2 pairs) or the full square."""
+def train_batch(n: int, seed: int):
+    batch = request_batch(n, seed)
+    batch["y"] = np.random.RandomState(seed + 100).randint(
+        0, 2, size=(n,)).astype(np.int32)
+    return batch
+
+
+def to_card(batch):
+    from meant_tpu_torch.data.loader import host_tensor
+    return {k: host_tensor(v).to("cuda") for k, v in batch.items()}
+
+
+def _group(name: str) -> str:
+    if name.startswith(("embedding", "languageEncoders", "lang_proj")):
+        return "text"
+    if name.startswith(("patchEmbed", "visionEncoders", "image_proj")):
+        return "vision"
+    return "temporal_and_head"
+
+
+def step_gradients(model, batch):
+    """Loss and parameter gradients (flat fp32, by group) of one step with
+    dropout off."""
+    from meant_tpu_torch.train.classify import sigmoid_ce_loss
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    out = model(**{k: v for k, v in batch.items() if k != "y"})
+    loss = sigmoid_ce_loss(out, batch["y"])
+    loss.backward()
+    torch.cuda.synchronize()
+    groups = {}
+    for name, p in model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        groups.setdefault(_group(name), []).append(g.reshape(-1).float())
+    return loss.item(), {k: torch.cat(v) for k, v in groups.items()}
+
+
+def reset_counts():
+    from meant_tpu_torch.ops.adamw import fused_adamw
+    from meant_tpu_torch.ops.flash import flash_bwd, flash_fwd
+    for w in (flash_fwd, flash_bwd):
+        w.launches = 0
+        w.launches_by_shape.clear()
+    fused_adamw.launches = 0
+
+
+def read_counts() -> dict:
+    """Launch counts; K2's also by (s, causal), keyed "s<s> causal=<c>"."""
+    from meant_tpu_torch.ops.adamw import fused_adamw
+    from meant_tpu_torch.ops.flash import flash_bwd, flash_fwd
+    return {"K1": flash_fwd.launches, "K2": flash_bwd.launches,
+            "A1": fused_adamw.launches,
+            "K2_by_shape": {shape_key(s, c): n for (s, c), n
+                            in flash_bwd.launches_by_shape.items()}}
+
+
+def shape_key(s: int, causal: bool) -> str:
+    return f"s{s} causal={bool(causal)}"
+
+
+def compare_step_gradients(model, record):
+    """One step's gradients through K1 + K2 vs the plain attention, at the
+    same weights and batch."""
+    batch = to_card(train_batch(GRAD_ROWS, seed=5))
+    reset_counts()
+    loss_k, grads_k = step_gradients(model, batch)
+    counts = read_counts()
+    if (counts["K1"], counts["K2"], counts["A1"]) != (24, 24, 0):
+        fail(f"one step launched {counts}, want 24 K1, 24 K2, 0 A1")
+    plain = build_flagship(flash=False, fixed_proj=True)
+    plain.load_state_dict(model.state_dict())
+    loss_p, grads_p = step_gradients(plain, batch)
+    del plain
+    torch.cuda.empty_cache()
+    res = {"loss_kernels": loss_k, "loss_plain": loss_p}
+    for name, g in grads_k.items():
+        rel = rel_l2(g, grads_p[name])
+        res[f"{name}_grad_rel_l2"] = rel
+        if not (torch.isfinite(g).all() and rel <= STEP_GRAD_REL_L2):
+            fail(f"step gradients of {name} differ from the plain "
+                 f"attention (relative L2 {rel:.3e} > {STEP_GRAD_REL_L2})")
+        if g.norm().item() == 0.0:
+            fail(f"step gradients of {name} are all zero")
+    print(f"train step gradients, kernels vs plain attention "
+          f"({GRAD_ROWS} rows): {json.dumps(res)}", flush=True)
+    record["step_gradients"] = res
+
+
+def learn(model, record):
+    """LEARN_STEPS steps of meant_trainer on one replayed batch: the
+    training main path, counts set to 0 just before and read just after."""
+    from meant_tpu_torch.data.loader import ArrayLoader
+    from meant_tpu_torch.train.classify import meant_trainer
+    host = train_batch(BATCH, seed=1)
+    trainer = meant_trainer({
+        "model": model, "model_name": "meant_src",
+        "train_loader": ArrayLoader(host, BATCH), "lrst": "constant",
+        "lr": LEARN_LR, "seed": 0, "test_model": False})
+    trainer._init_state()
+    n_trainable = trainer.optimizer.flat_p.numel()
+    batch = to_card(host)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(LEARN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).tolist()
+    want = {"K1": 24 * LEARN_STEPS, "K2": 24 * LEARN_STEPS,
+            "A1": LEARN_STEPS}
+    print(f"learn: {LEARN_STEPS} steps of {BATCH} replayed rows at lr "
+          f"{LEARN_LR}: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"launches {counts} (want {want})", flush=True)
+    if {k: counts[k] for k in want} != want:
+        fail(f"the training steps launched {counts}, want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"loss not finite and falling: {losses}")
+    steady = times[1:]
+    median = statistics.median(steady)
+    record["train"] = {
+        "rows": BATCH, "steps": LEARN_STEPS, "lr": LEARN_LR,
+        "losses": losses, "step_ms": times, "step_ms_median": median,
+        "samples_per_s": BATCH / median * 1e3, "peak_memory_bytes": peak,
+        "launches": counts, "trainable_params": n_trainable}
+    print(f"train step (16 rows, host clock, synchronized) median "
+          f"{median:.3f} ms over steps 2-{LEARN_STEPS}: "
+          f"{BATCH / median * 1e3:.2f} samples/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; {n_trainable} trainable parameters",
+          flush=True)
+    record["train_profile"] = profile_calls(
+        lambda: trainer.train_step(batch), PROFILE_STEPS, "step")
+    return counts
+
+
+def train_through_cli(record):
+    """cli.in_loop_train trains one epoch, evaluates and saves; Predictor
+    restores the checkpoint and must give the trained model's
+    probabilities."""
+    from meant_tpu_torch.cli import in_loop_train
+    from meant_tpu_torch.cli.common import base_parser, build_model
+    from meant_tpu_torch.serve import Predictor
+    rows = request_batch(BATCH, seed=2)
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["-rid", "smoke", "-mn", "meant_src", "--seq_len", str(SEQ),
+                "-nec", str(ENCODERS), "--synthetic_n", "64", "-tb",
+                str(BATCH), "-ne", "1", "-fp", d, "-lrst", "constant",
+                "-l", str(LEARN_LR)]
+        reset_counts()
+        results = in_loop_train.main(argv)
+        counts = read_counts()
+        trainer = results["trainer"]
+        steps = trainer.optimizer.step_count
+        if counts["A1"] != steps or counts["K2"] != 24 * steps:
+            fail(f"the CLI's {steps} steps launched {counts}")
+        if results["checkpoint"] is None:
+            fail("the CLI saved no checkpoint")
+        trained = Predictor(trainer.model, "meant_src",
+                            batch_size=BATCH)(rows)
+        del trainer, results["trainer"]
+        restored_model = build_model(base_parser().parse_args(argv))
+        served = Predictor(restored_model, "meant_src",
+                           checkpoint_path=results["checkpoint"],
+                           batch_size=BATCH)(rows)
+    same = bool(np.array_equal(trained, served))
+    print(f"cli.in_loop_train: {steps} steps, launches {counts}, test "
+          f"f1_macro {results['test']['f1_macro']:.4f}; Predictor from its "
+          f"checkpoint: probabilities {'equal' if same else 'DIFFER'}",
+          flush=True)
+    if not same:
+        fail("Predictor(checkpoint_path=...) does not serve the trained "
+             f"model's probabilities (max diff "
+             f"{np.abs(trained - served).max()})")
+    record["cli_train"] = {"steps": steps, "launches": counts,
+                           "history": results["history"],
+                           "test": results["test"]}
+    del restored_model
+    torch.cuda.empty_cache()
+
+
+def run_training(record):
+    model = build_flagship(flash=True, fixed_proj=True)
+    compare_step_gradients(model, record)
+    counts = learn(model, record)
+    del model
+    torch.cuda.empty_cache()
+    train_through_cli(record)
+    return counts
+
+
+# ---- phase 5: timing ---------------------------------------------------
+
+def attention_cost(c, backward: bool = False) -> tuple:
+    """(bytes, flops) the launch must move and compute. Forward: q, k, v
+    read, o written, QK^T and P@V. Backward: q, k, v, dO read, dq, dk, dv
+    written, and five products (S, dP, dV, dQ, dK). Tables and mask read
+    once; products over the causal triangle (s(s+1)/2 pairs) or the full
+    square."""
     q = c["q"]
     bh = q.shape[0] * q.shape[1]
     s, d = c["s"], q.shape[-1]
-    nbytes = 4 * q.numel() * q.element_size()
+    nbytes = (7 if backward else 4) * q.numel() * q.element_size()
     nbytes += sum(t.numel() * 4 for t in c["tables"])
     if c["mask"] is not None:
         nbytes += c["mask"].numel() * 4
     pairs = s * (s + 1) // 2 if c["causal"] else s * s
-    return nbytes, 4 * bh * pairs * d
+    return nbytes, (5 if backward else 2) * 2 * bh * pairs * d
 
 
-def time_kernels(record, errors, launches_by_shape):
-    from meant_tpu_torch.ops.flash import flash_fwd
+def run_library_bwd(c):
+    """Yardstick only: a closure running the backward of the rotation in
+    PyTorch plus scaled_dot_product_attention, from a recorded forward."""
+    leaves = [c[n].detach().requires_grad_(True) for n in ("q", "k", "v")]
+    out = run_library(dict(c, q=leaves[0], k=leaves[1], v=leaves[2]))
+    return lambda: torch.autograd.grad(out, leaves, c["do"],
+                                       retain_graph=True)
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
+               library_ms, nbytes, flops, peak_flops, **extra):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "bytes": nbytes, "flops": flops,
+            **extra}
+
+
+def time_kernels(record, errors, launches_by_shape, bwd_errors,
+                 train_counts, a1_err, n_params):
+    from meant_tpu_torch.ops.adamw import (adamw_reference, update_scalars,
+                                           adamw_update)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for kind, label in (("text", "s512 causal xPos"),
                         ("vision", "s196 pixel rotary")):
-        c = attention_case(kind, torch.bfloat16, gen)
-        before = flash_fwd.launches
-        ms = event_ms(lambda: run_kernel(c), iters=20)
-        timed = flash_fwd.launches - before
-        plain_ms = event_ms(lambda: run_plain(c), iters=5)
-        library_ms = event_ms(lambda: run_library(c), iters=20)
-        nbytes, flops = attention_cost(c)
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        c = backward_case(kind, torch.bfloat16, gen)
         key = (c["s"], c["causal"])
-        rows.append({
-            "name": f"flash_fwd[{label}]", "route": "cuda",
-            "source": "meant_tpu_torch/csrc/flash_fwd.cu",
-            "replaces": "meant_tpu/ops/flash/kernel.py:89",
-            "launches": launches_by_shape.get(key, 0),
-            "max_abs_err": errors[f"{kind}/bfloat16"],
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-            "shape": list(c["q"].shape), "dtype": "bfloat16",
-            "bytes": nbytes, "flops": flops, "timed_launches": timed,
-        })
-        del c
+        nbytes, flops = attention_cost(c)
+        rows.append(kernel_row(
+            f"flash_fwd[{label}]", "meant_tpu_torch/csrc/flash_fwd.cu",
+            "meant_tpu/ops/flash/kernel.py:89",
+            launches_by_shape.get(key, 0), errors[f"{kind}/bfloat16"],
+            event_ms(lambda: run_kernel(c), iters=20),
+            event_ms(lambda: run_plain(c), iters=5),
+            event_ms(lambda: run_library(c), iters=20), nbytes, flops,
+            PEAK_BF16_FLOPS, shape=list(c["q"].shape), dtype="bfloat16"))
+        nbytes, flops = attention_cost(c, backward=True)
+        library = run_library_bwd(c)
+        rows.append(kernel_row(
+            f"flash_bwd[{label}]", "meant_tpu_torch/csrc/flash_bwd.cu",
+            "meant_tpu/ops/flash/kernel.py:321",
+            train_counts["K2_by_shape"].get(shape_key(*key), 0),
+            bwd_errors[f"{kind}/bfloat16"],
+            event_ms(lambda: run_bwd_kernel(c), iters=10),
+            event_ms(lambda: run_bwd_plain(c), iters=3),
+            event_ms(library, iters=10), nbytes, flops, PEAK_BF16_FLOPS,
+            shape=list(c["q"].shape), dtype="bfloat16"))
+        del c, library
+        torch.cuda.empty_cache()
+
+    p, g, m, v = adamw_case(n_params, gen)
+    norm = torch.linalg.vector_norm(g)
+    h = update_scalars(coupled=False, **{k: v_ for k, v_ in
+                                         ADAMW_ARGS.items()
+                                         if k != "max_norm"})
+    ms = event_ms(lambda: adamw_update(p, g, m, v, norm=norm, coupled=False,
+                                       **ADAMW_ARGS), iters=20)
+    plain_ms = event_ms(lambda: adamw_reference(p, g, m, v, h, norm, 1.0),
+                        iters=5)
+    param = torch.nn.Parameter(p)
+    param.grad = g
+    library = torch.optim.AdamW([param], lr=ADAMW_ARGS["lr"],
+                                weight_decay=ADAMW_ARGS["weight_decay"],
+                                fused=True)
+    library_ms = event_ms(library.step, iters=20)
+    rows.append(kernel_row(
+        "adamw", "meant_tpu_torch/csrc/adamw.cu",
+        "scripts/probe_fused_adamw.py:59", train_counts["A1"], a1_err, ms,
+        plain_ms, library_ms, 28 * n_params, 20 * n_params, PEAK_FP32_FLOPS,
+        params=n_params, dtype="float32"))
+    del p, g, m, v, param, library
+    torch.cuda.empty_cache()
     record["kernels"] = rows
     return rows
 
@@ -378,37 +766,40 @@ def time_requests(predictor, chunk, record, iters: int = 7):
           f"{fwd_ms:.3f} ms", flush=True)
 
 
-# ---- phase 5: where a request's device time goes -----------------------
+# ---- phase 6: where a request's device time goes -----------------------
 
 def _kind(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "flash_fwd (K1)"
+    if "flash_bwd" in low:
+        return "flash_bwd (K2)"
+    if "adamw_kernel" in low:
+        return "adamw (A1)"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "sm90", "cublas",
                               "nvjet")):
         return "matrix products"
     return "other (elementwise, norms, copies, reductions)"
 
 
-def profile_forward(predictor, chunk, record):
-    """Device time per forward by kernel and kind, from torch.profiler's
-    device-side events (kernels, copies); the host-side ops above them
-    would count the same time again."""
+def profile_calls(fn, count: int, unit: str) -> dict:
+    """Device time per call of fn by kernel and kind, from torch.profiler's
+    device-side events (kernels, copies; the host-side ops above them
+    would count the same time again), and the device's idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    predictor.forward(chunk)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_FORWARDS):
-            predictor.forward(chunk)
+        for _ in range(count):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_FORWARDS
+        wall_ms = (time.perf_counter() - t0) * 1e3 / count
     kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3 / PROFILE_FORWARDS,
-          e.count // PROFILE_FORWARDS)
+        ((e.key, e.self_device_time_total / 1e3 / count, e.count // count)
          for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         key=lambda r: -r[1])
@@ -420,20 +811,20 @@ def profile_forward(predictor, chunk, record):
     for name, ms, _ in kernels:
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
     idle = max(0.0, 1.0 - busy / wall_ms)
-    record["profile"] = {
-        "forwards": PROFILE_FORWARDS, "rows": BATCH,
-        "device_ops_per_forward": launches,
-        "wall_ms_per_forward": wall_ms, "device_busy_ms_per_forward": busy,
-        "device_idle_share": idle, "by_kind_ms_per_forward": by_kind,
-        "top_kernels": [{"name": k[:120], "ms_per_forward": ms, "calls": n}
-                        for k, ms, n in kernels[:25]]}
-    print(f"profile, per forward of {BATCH} rows: wall {wall_ms:.3f} ms, "
+    print(f"profile, per {unit} of {BATCH} rows: wall {wall_ms:.3f} ms, "
           f"device busy {busy:.3f} ms in {launches} kernels and copies, "
           f"idle share {idle:.3f}", flush=True)
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {kind}: {ms:.3f} ms ({ms / busy:.1%})")
     for name, ms, n in kernels[:12]:
         print(f"  {ms:9.3f} ms x{n:<5} {name[:100]}")
+    return {f"{unit}s": count, "rows": BATCH,
+            f"device_ops_per_{unit}": launches,
+            f"wall_ms_per_{unit}": wall_ms,
+            f"device_busy_ms_per_{unit}": busy, "device_idle_share": idle,
+            f"by_kind_ms_per_{unit}": by_kind,
+            "top_kernels": [{"name": k[:120], f"ms_per_{unit}": ms,
+                             "calls": n} for k, ms, n in kernels[:25]]}
 
 
 def main(argv=None) -> int:
@@ -445,7 +836,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    from meant_tpu_torch.cuda_build import build
+    from meant_tpu_torch.cuda_build import build_all
 
     t_start = time.perf_counter()
     card = card_line()
@@ -455,23 +846,29 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    log = build("flash_fwd")
+    logs = build_all(KERNELS)
     record["build_s"] = time.perf_counter() - t0
-    record["nvcc_log"] = log
+    record["nvcc_log"] = logs
     print(f"phase build: {record['build_s']:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  flash_fwd: {line.strip()}")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
 
     errors = check_kernel(record)
+    bwd_errors = check_backward(record)
     predictor, chunk, by_shape = run_slice(record)
-    rows = time_kernels(record, errors, by_shape)
+    a1_err = check_adamw(record, record["n_params"])
+    train_counts = run_training(record)
+    rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
+                        a1_err, record["n_params"])
     time_requests(predictor, chunk, record)
-    profile_forward(predictor, chunk, record)
+    record["profile"] = profile_calls(lambda: predictor.forward(chunk),
+                                      PROFILE_FORWARDS, "forward")
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms/launch (bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
-              f"{r['plain_ms']:.4f} ms, rotation+SDPA "
+              f"{r['plain_ms']:.4f} ms, library yardstick "
               f"{r['library_ms']:.4f} ms) on {card}", flush=True)
     record["wall_s"] = time.perf_counter() - t_start
     if args.out:

@@ -1,11 +1,13 @@
-"""Shared CLI plumbing (counterpart of meant_tpu/cli/common.py): the flags
-that serving reads, under the JAX package's names, and `build_model` for
-the ported models (`meant_src` only so far)."""
+"""Shared CLI plumbing (counterpart of meant_tpu/cli/common.py): the
+reference's flags under the JAX package's names, the refusal of flags not
+ported yet, the synthetic kwargs-family set, and `build_model` for the
+ported models (`meant_src` only so far)."""
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from meant_tpu_torch.device import resolve_device
@@ -22,30 +24,90 @@ def str2bool(v):
 
 
 def base_parser() -> argparse.ArgumentParser:
+    """The reference's flag set under the JAX package's names
+    (meant_tpu/cli/common.py), plus --device. Flags of slices not ported
+    yet are accepted by the parser and refused by `refuse_unported`."""
     p = argparse.ArgumentParser()
+    # learning-rate schedule and optimizer
+    p.add_argument("-t0", "--t0", type=int, default=7)
+    p.add_argument("-tm", "--tmax", type=int, default=10)
+    p.add_argument("-lrst", "--learning_rate_scheduler_type", type=str,
+                   default="cosine_warm")
+    p.add_argument("-l", "--learning_rate", type=float, default=5e-5)
+    p.add_argument("-o", "--optimizer", type=str, default="AdamW")
+    p.add_argument("-d", "--decay", type=float, default=0.0)
+    p.add_argument("-b1", "--beta_1", type=float, default=0.9)
+    p.add_argument("-b2", "--beta_2", type=float, default=0.999)
+    # training loop
+    p.add_argument("-e", "--epoch", type=int, default=0)
+    p.add_argument("-ne", "--num_epochs", type=int, default=10)
+    p.add_argument("-es", "--early_stopping", type=str2bool, nargs="?",
+                   const=False, default=False)
+    p.add_argument("-s", "--stoppage", type=float, default=1e-4)
+    p.add_argument("-tb", "--train_batch_size", type=int, default=16)
+    p.add_argument("-eb", "--eval_batch_size", type=int, default=1)
+    p.add_argument("-tesb", "--test_batch_size", type=int, default=1)
+    p.add_argument("-testm", "--test_model", type=str2bool, nargs="?",
+                   const=True, default=True)
+    # model
     p.add_argument("-mn", "--model_name", type=str, default="meant")
     p.add_argument("-nc", "--num_classes", type=int, default=2)
+    p.add_argument("-t", "--task", type=str, default="classification")
+    p.add_argument("-cl", "--cache_location", type=str)
+    p.add_argument("-di", "--dimension", type=int, default=128)
+    p.add_argument("-nl", "--num_layers", type=int, default=3)
+    p.add_argument("-do", "--dropout", type=float, default=0.0)
+    p.add_argument("-ptm", "--pretrained_model", type=str, default=None)
+    p.add_argument("-p", "--pretrained", type=str2bool, nargs="?",
+                   const=False, default=False,
+                   help="not ported yet: raises if set")
     p.add_argument("-nec", "--num_encoders", type=int, default=12)
+    p.add_argument("-img", "--image_only", type=str2bool, nargs="?",
+                   const=False, default=False)
+    p.add_argument("-lang", "--language_only", type=str2bool, nargs="?",
+                   const=False, default=False)
+    p.add_argument("-hf", "--hugging_face_model", type=str2bool, nargs="?",
+                   const=False, default=False)
+    p.add_argument("-hfd", "--hugging_face_data", type=str, default=None)
+    p.add_argument("-hft", "--hugging_face_tokenizer", type=str,
+                   default=None)
+    # miscellaneous
+    p.add_argument("-db", "--debug", type=bool, default=False)
+    p.add_argument("-fp", "--file_path", type=str, default=".")
     p.add_argument("-rid", "--run_id", type=str, required=True)
     p.add_argument("-lag", "--lag", type=int, default=5)
+    p.add_argument("-norm", "--normalize", type=str2bool, nargs="?",
+                   const=False, default=False)
+    p.add_argument("-ds", "--dataset", type=str, default="Tempstock")
+    p.add_argument("--data_dir", type=str, default=None,
+                   help="not ported yet: raises if given (synthetic data "
+                        "when omitted)")
     p.add_argument("--bf16", type=str2bool, nargs="?", const=True,
                    default=True, help="bf16 activations (fp32 params)")
     p.add_argument("--flash", type=str, nargs="?", const="auto",
                    default="auto",
-                   help="flash-attention kernel: true/false/auto (auto = on "
-                        "for seq_len >= 256)")
+                   help="flash-attention kernels: true/false/auto (auto = "
+                        "on for seq_len >= 256)")
+    p.add_argument("--track", type=str2bool, nargs="?", const=False,
+                   default=False)
     p.add_argument("--synthetic_n", type=int, default=64,
-                   help="synthetic sample count when no input is given")
+                   help="synthetic sample count when no data is given")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random init")
+                   help="seed of the random init and of dropout")
     p.add_argument("--logits_head", type=str2bool, nargs="?", const=True,
                    default=False,
                    help="classifier emits logits instead of sigmoid outputs")
-    p.add_argument("--scan_layers", type=str2bool, nargs="?", const=True,
-                   default=False, help="not ported yet: raises if set")
+    for flag in ("--buckets", "--hf_cache"):
+        p.add_argument(flag, type=str, default=None,
+                       help="not ported yet: raises if given")
+    for flag in ("--fsdp", "--mu_bf16", "--scan_layers"):
+        p.add_argument(flag, type=str2bool, nargs="?", const=True,
+                       default=False, help="not ported yet: raises if set")
     p.add_argument("--remat", nargs="?", const="full", default=False,
                    choices=["full", "dots"],
                    help="not ported yet: raises if set")
+    p.add_argument("--full_mlm_head", action="store_true",
+                   help="MLM harness flag; no effect here")
     p.add_argument("--seq_len", type=int, default=128)
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--text_dim", type=int, default=768)
@@ -58,6 +120,40 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
+UNPORTED_FLAGS = ("pretrained", "data_dir", "buckets", "hf_cache", "fsdp",
+                  "mu_bf16", "scan_layers", "remat")
+
+
+def refuse_unported(args) -> None:
+    """Raise for any flag of a slice that is not ported yet, rather than
+    ignore it: a run must never claim a configuration it did not use."""
+    for name in UNPORTED_FLAGS:
+        if getattr(args, name, None):
+            raise NotImplementedError(
+                f"--{name} is not ported to meant_tpu_torch yet (see "
+                f"ROADMAP)")
+
+
+def synthetic_batch(args, n: int, seed: int = 0) -> dict:
+    """A synthetic set of the kwargs family (input_ids / pixels / prices /
+    attention_mask), as the JAX serving CLI shapes one
+    (meant_tpu/cli/serve.py:66-73), with random binary labels `y`."""
+    from meant_tpu_torch.train.classify import KWARGS_MODELS
+    if args.model_name not in KWARGS_MODELS:
+        raise NotImplementedError(
+            f"model {args.model_name} is not yet ported (see ROADMAP)")
+    rng = np.random.RandomState(seed)
+    lag, s, size = args.lag, args.seq_len, args.image_size
+    return {
+        "input_ids": rng.randint(2, args.vocab_size - 1,
+                                 size=(n, lag, s)).astype(np.int32),
+        "pixels": rng.randn(n, lag, 3, size, size).astype(np.float32),
+        "prices": rng.randn(n, lag, 5).astype(np.float32),
+        "attention_mask": np.ones((n, lag, s), np.float32),
+        "y": rng.randint(0, args.num_classes, size=(n,)).astype(np.int32),
+    }
+
+
 def build_model(args, device=None):
     """The ported models by the reference's --model_name values, built on
     `device` (args.device, else the card)."""
@@ -68,9 +164,7 @@ def build_model(args, device=None):
         raise NotImplementedError(
             f"model {name} is not yet ported to meant_tpu_torch "
             f"(see ROADMAP)")
-    if getattr(args, "scan_layers", False) or getattr(args, "remat", False):
-        raise NotImplementedError("--scan_layers/--remat are not ported yet "
-                                  "(see ROADMAP)")
+    refuse_unported(args)
     if isinstance(args.flash, str):
         if args.flash.lower() == "auto":
             args.flash = args.seq_len >= 256

@@ -1,0 +1,64 @@
+"""Classifier training harness (counterpart of
+meant_tpu/cli/in_loop_train.py), with the same flag names.
+
+    python -m meant_tpu_torch.cli.in_loop_train -rid 0 -mn meant_src \
+        --seq_len 512 [-ne 10] [-tb 16] [--device cpu]
+
+Data: without --data_dir, a synthetic set of the kwargs family that
+`meant_src` reads (input_ids / pixels / prices / attention_mask, random
+labels; `--synthetic_n` rows) split 60/20/20 as the reference splits. The
+dataset loaders, --buckets, --pretrained grafting, --hf_cache, --fsdp and
+--mu_bf16 are not ported yet and raise. The run trains on the card unless
+--device names another device, saves the checkpoint after training and
+evaluates the test split.
+"""
+
+from __future__ import annotations
+
+import time
+
+from meant_tpu_torch.cli.common import (base_parser, build_model,
+                                        refuse_unported, synthetic_batch)
+from meant_tpu_torch.data.datasets import split_arrays
+from meant_tpu_torch.data.loader import ArrayLoader
+from meant_tpu_torch.train.classify import meant_trainer
+
+
+def main(argv=None) -> dict:
+    """Train as the CLI does; returns the trainer's results (history,
+    checkpoint path, test metrics) with the trainer under "trainer"."""
+    args = base_parser().parse_args(argv)
+    refuse_unported(args)
+    if args.image_only and args.language_only:
+        raise AssertionError(
+            "Cannot be an image only AND a language only task")
+    t0 = time.time()
+    model = build_model(args)
+    print("No --data_dir given: running on a synthetic kwargs-family set "
+          "(smoke mode).")
+    train, val, test = split_arrays(synthetic_batch(args, args.synthetic_n))
+    bs = args.train_batch_size
+    trainer = meant_trainer({
+        "model": model, "model_name": args.model_name,
+        "dataset": args.dataset,
+        "train_loader": ArrayLoader(train, bs, shuffle=True),
+        "val_loader": ArrayLoader(val, bs, drop_remainder=False),
+        "test_loader": ArrayLoader(test, bs, drop_remainder=False),
+        "epochs": args.num_epochs, "epoch": args.epoch,
+        "num_classes": args.num_classes, "lag": args.lag,
+        "file_path": args.file_path, "run_id": args.run_id,
+        "num_encoders": args.num_encoders,
+        "optimizer": args.optimizer, "lr": args.learning_rate,
+        "decay": args.decay, "beta_1": args.beta_1, "beta_2": args.beta_2,
+        "lrst": args.learning_rate_scheduler_type, "t0": args.t0,
+        "tmax": args.tmax, "early_stopping": args.early_stopping,
+        "test_model": args.test_model, "seed": args.seed,
+    })
+    results = trainer.train()
+    print("total time:", time.time() - t0)
+    results["trainer"] = trainer
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -6,23 +6,24 @@ of meant_tpu/cli/serve.py).
 
 `--input` is an .npz whose arrays match the model's batch keys
 (input_ids / pixels / prices / attention_mask); without it a synthetic
-smoke batch is served. Weights are a seeded random init (`--seed`);
-`--checkpoint`, `--int8` and `--export` are not ported yet and raise.
+smoke batch is served. Weights are those of `--checkpoint` (written by the
+port's trainer, `cli/in_loop_train.py`), else a seeded random init
+(`--seed`); `--int8` and `--export` are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from meant_tpu_torch.cli.common import base_parser, build_model
+from meant_tpu_torch.cli.common import (base_parser, build_model,
+                                        synthetic_batch)
 from meant_tpu_torch.serve import Predictor
-from meant_tpu_torch.train.classify import KWARGS_MODELS
 
 
 def serve_parser():
     p = base_parser()
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="not ported yet: raises if given")
+                   help="params of a checkpoint of the port's trainer")
     p.add_argument("--input", type=str, default=None,
                    help=".npz of batch arrays; synthetic smoke if omitted")
     p.add_argument("--output", type=str, default=None,
@@ -35,28 +36,9 @@ def serve_parser():
     return p
 
 
-def _synthetic_batch(args):
-    """Smoke batch of the kwargs family: input_ids / pixels / prices /
-    attention_mask."""
-    if args.model_name not in KWARGS_MODELS:
-        raise NotImplementedError(
-            f"model {args.model_name} is not yet ported (see ROADMAP)")
-    rng = np.random.RandomState(0)
-    n, lag, s, size = args.synthetic_n, args.lag, args.seq_len, \
-        args.image_size
-    return {
-        "input_ids": rng.randint(2, args.vocab_size - 1,
-                                 size=(n, lag, s)).astype(np.int32),
-        "pixels": rng.randn(n, lag, 3, size, size).astype(np.float32),
-        "prices": rng.randn(n, lag, 5).astype(np.float32),
-        "attention_mask": np.ones((n, lag, s), np.float32),
-    }
-
-
 def main(argv=None):
     args = serve_parser().parse_args(argv)
-    for flag, value in (("--checkpoint", args.checkpoint),
-                        ("--int8", args.int8), ("--export", args.export)):
+    for flag, value in (("--int8", args.int8), ("--export", args.export)):
         if value:
             raise NotImplementedError(
                 f"{flag} is not ported to meant_tpu_torch yet (see ROADMAP)")
@@ -66,8 +48,10 @@ def main(argv=None):
             batch = {k: z[k] for k in z.files}
     else:
         print("No --input: synthetic smoke batch.")
-        batch = _synthetic_batch(args)
+        batch = synthetic_batch(args, args.synthetic_n)
+        del batch["y"]
     predictor = Predictor(model, args.model_name,
+                          checkpoint_path=args.checkpoint,
                           batch_size=args.serve_batch,
                           device=next(model.parameters()).device)
     probs = predictor(batch)

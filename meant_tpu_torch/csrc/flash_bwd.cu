@@ -1,0 +1,517 @@
+// Rotary-fused flash-attention backward for Hopper (sm_90a).
+//
+// Replaces the TPU kernel meant_tpu/ops/flash/kernel.py:_bwd_kernel (the
+// resident backward, launched by _flash_bwd through the custom VJP of
+// _make_flash). For each (batch*head) it computes what that kernel
+// computes, with q, k rotated by the fp32 tables and rounded to the input
+// dtype T as in the forward (K1, flash_fwd.cu):
+//   P     = softmax(mask(scale * Qr Kr^T))                 (fp32)
+//   dV    = T(P)^T dO                                       (fp32 sums)
+//   dP    = dO V^T;  delta = rowsum(P o dP)                 (fp32)
+//   dS    = T(P o (dP - delta) * scale)
+//   dQ    = rot^T(dS Kr),  dK = rot^T(dS^T Qr)
+// with rot^T(g) = cos o g - H(sin o g), H the interleaved rotate_half
+// (H(x)[2i] = -x[2i+1], H(x)[2i+1] = x[2i]) and H^T = -H.
+//
+// Design. The TPU kernel accumulates dK/dV by revisiting its output blocks
+// across the q-block grid axis, sound only because a TPU grid runs in
+// order; on a GPU the blocks run in parallel, so that would race. Here two
+// kernels split the work so every output element has one writer and no
+// atomics are needed (the result is deterministic):
+//   * flash_bwd_dq_kernel, one block per (bh, 64-row q tile), walks the K/V
+//     tiles twice. Pass 1 finds each row's max m, denominator l and
+//     delta = sum_j P_ij dP_ij online (delta is accumulated against the
+//     running max and rescaled with l; it is JAX's delta, not FA2's
+//     rowsum(dO o O)). It writes m, 1/l and delta as (3, BH, s) fp32
+//     scratch. Pass 2 recomputes P and dP, forms dS and accumulates dQr in
+//     fp32 registers; the adjoint is applied once at the end.
+//   * flash_bwd_dkdv_kernel, one block per (bh, 64-row k tile), walks the q
+//     tiles (from the diagonal on, when causal), recomputes S^T = Kr Qr^T
+//     and dP^T = V dO^T, takes P from the saved m and 1/l (not from a
+//     log-sum-exp: a fully masked row sits near -1e9, where m + log l would
+//     lose every digit of log l), and accumulates dV and dKr in fp32
+//     registers; the adjoint is applied once at the end.
+// m is stored rather than a log-sum-exp for the same reason. Rows and keys
+// past s (s=196 is ragged) are zero-filled on load, get P = 0 and are
+// never written. Every product is a warp-level C(16 x 8n) += A(16 x K) *
+// B(8n x K)^T with both operands in shared memory, depth contiguous:
+//   * bf16 (the main path): mma.sync m16n8k16, bf16 in, fp32 accumulate;
+//   * fp32 (the tight on-card check): the same fragment layout computed by
+//     scalar fp32 FMAs, since the tensor cores would round fp32 to TF32.
+// P and dS go through a per-warp shared-memory slab in the input dtype,
+// which is exactly where the reference rounds them. The transposed operands
+// (Kr^T for dQ, Qr^T and dO^T for dK and dV) are written transposed while
+// the tiles are loaded. Only head dim 96 is instantiated.
+//
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the main
+// path's shapes (BH = 640, d = 96, bf16): the launch must read q, k, v, dO
+// and the four (s, 96) tables and write dq, dk, dv once: 441 MB at s=512
+// (0.132 ms) and 169 MB at s=196 (0.050 ms). Its five products over the
+// causal triangle are 80.5 GFLOP at s=512 (0.081 ms) and 23.6 GFLOP at
+// s=196 (0.024 ms): bound by bytes. This design does 9 products' worth of
+// tensor-core work (S three times, dP twice) from shared memory without
+// pipelined loads; making it fast (cp.async/TMA, wgmma, fewer passes) is
+// later work.
+//
+// C interface (loaded with ctypes): meant_flash_bwd returns the
+// cudaError_t of the launches (0 on success); it never synchronises.
+
+#include <type_traits>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace meant;
+
+constexpr int kTile = 64;      // q rows (dq kernel) or keys (dk/dv kernel)
+constexpr int kThreads = 128;  // 4 warps, 16 rows each
+
+// Shared-memory row padding in elements. bf16: 8 keep mma.sync's row reads
+// on distinct banks; fp32: 1 makes the row stride odd for the scalar reads.
+template <typename T>
+struct Pad {
+  static constexpr int value = std::is_same<T, bf16>::value ? 8 : 1;
+};
+
+// C (16 x 8*NT) += A (16 x K) * B (8*NT x K)^T. A and B are row-major with
+// the depth K contiguous (row strides lda, ldb elements); A points at this
+// warp's 16 rows, B at the first of its 8*NT rows. Lane (g, t) holds
+// c[j][0..1] at row g, columns 8j+2t, 8j+2t+1 and c[j][2..3] at row g+8.
+template <int NT, int K>
+__device__ __forceinline__ void warp_mm(float (&c)[NT][4], const bf16* A,
+                                        int lda, const bf16* B, int ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < K / 16; ++kc) {
+    const bf16* a = A + g * lda + kc * 16 + 2 * t;
+    const uint32_t af[4] = {ld_pair(a), ld_pair(a + 8 * lda), ld_pair(a + 8),
+                            ld_pair(a + 8 * lda + 8)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bf16* b = B + (j * 8 + g) * ldb + kc * 16 + 2 * t;
+      mma_bf16(c[j], af, ld_pair(b), ld_pair(b + 8));
+    }
+  }
+}
+
+template <int NT, int K>
+__device__ __forceinline__ void warp_mm(float (&c)[NT][4], const float* A,
+                                        int lda, const float* B, int ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a_lo = A + g * lda;
+  const float* a_hi = A + (g + 8) * lda;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float a0 = a_lo[k], a1 = a_hi[k];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = B[(j * 8 + 2 * t) * ldb + k];
+      const float b1 = B[(j * 8 + 2 * t + 1) * ldb + k];
+      c[j][0] = fmaf(a0, b0, c[j][0]);
+      c[j][1] = fmaf(a0, b1, c[j][1]);
+      c[j][2] = fmaf(a1, b0, c[j][2]);
+      c[j][3] = fmaf(a1, b1, c[j][3]);
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&c)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+}
+
+// Rows [row0, row0 + kTile) of one (seq, D) slice into shared memory:
+// rotated with the fp32 tables when cos_t is given (x*cos + H(x)*sin, no FMA
+// contraction, as the reference rounds it), rounded to T, rows at or past
+// seq zero. dst is [kTile][ld]; dstT, when given, receives the transpose
+// [D][ldT] as well.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, int ld, T* dstT, int ldT,
+                                          const T* src, const float* cos_t,
+                                          const float* sin_t, int row0,
+                                          int seq) {
+  constexpr int kPairs = D / 2;
+  for (int e = threadIdx.x; e < kTile * kPairs; e += kThreads) {
+    const int r = e / kPairs;
+    const int c = 2 * (e % kPairs);
+    const int gr = row0 + r;
+    float y0 = 0.f, y1 = 0.f;
+    if (gr < seq) {
+      const float x0 = to_f<T>(src[(size_t)gr * D + c]);
+      const float x1 = to_f<T>(src[(size_t)gr * D + c + 1]);
+      if (cos_t != nullptr) {
+        const float* cs = cos_t + (size_t)gr * D + c;
+        const float* sn = sin_t + (size_t)gr * D + c;
+        y0 = __fadd_rn(__fmul_rn(x0, cs[0]), __fmul_rn(-x1, sn[0]));
+        y1 = __fadd_rn(__fmul_rn(x1, cs[1]), __fmul_rn(x0, sn[1]));
+      } else {
+        y0 = x0;
+        y1 = x1;
+      }
+    }
+    const T v0 = from_f<T>(y0), v1 = from_f<T>(y1);
+    dst[r * ld + c] = v0;
+    dst[r * ld + c + 1] = v1;
+    if (dstT != nullptr) {
+      dstT[c * ldT + r] = v0;
+      dstT[(c + 1) * ldT + r] = v1;
+    }
+  }
+}
+
+// The adjoint of the rotation for one interleaved pair of a gradient row:
+// (cos o g - H(sin o g)) at columns c, c+1, rounded to T.
+template <typename T>
+__device__ __forceinline__ void store_adjoint(T* out, const float* cos_row,
+                                              const float* sin_row, int c,
+                                              float g0, float g1) {
+  out[c] = from_f<T>(__fadd_rn(__fmul_rn(cos_row[c], g0),
+                               __fmul_rn(sin_row[c + 1], g1)));
+  out[c + 1] = from_f<T>(__fsub_rn(__fmul_rn(cos_row[c + 1], g1),
+                                   __fmul_rn(sin_row[c], g0)));
+}
+
+__device__ __forceinline__ float row_sum(float x) {
+  // the four lanes of a row group hold the row's other columns
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float row_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+template <typename T, int D>
+constexpr int dq_smem_bytes() {
+  return (int)sizeof(T) * (4 * kTile * (D + Pad<T>::value) +
+                           D * (kTile + Pad<T>::value) +
+                           kTile * (kTile + Pad<T>::value));
+}
+
+template <typename T, int D>
+constexpr int dkdv_smem_bytes() {
+  return (int)sizeof(T) * (4 * kTile * (D + Pad<T>::value) +
+                           2 * D * (kTile + Pad<T>::value) +
+                           2 * kTile * (kTile + Pad<T>::value)) +
+         3 * kTile * (int)sizeof(float);
+}
+
+// ---- dQ and the row statistics -------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats,
+    const float* __restrict__ qcos, const float* __restrict__ qsin,
+    const float* __restrict__ kcos, const float* __restrict__ ksin,
+    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
+    float scale, int causal) {
+  constexpr int ld = D + Pad<T>::value;       // [row][d] tiles
+  constexpr int ldk = kTile + Pad<T>::value;  // [.][key] tiles
+  constexpr int kNk = kTile / 8;            // n-tiles over keys
+  constexpr int kNd = D / 8;                // n-tiles over d
+  extern __shared__ float smem[];
+  T* qs = reinterpret_cast<T*>(smem);  // [kTile][ld] rotated q
+  T* dos = qs + kTile * ld;            // [kTile][ld] dO
+  T* ks = dos + kTile * ld;            // [kTile][ld] rotated k
+  T* vs = ks + kTile * ld;             // [kTile][ld] v
+  T* kts = vs + kTile * ld;            // [D][ldk] rotated k, transposed
+  T* dss = kts + D * ldk;              // [kTile][ldk] dS, a slab per warp
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const size_t base = (size_t)bh * seq * D;
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+  const T* qw = qs + warp * 16 * ld;
+  const T* dow = dos + warp * 16 * ld;
+  T* dsw = dss + warp * 16 * ldk;
+
+  load_tile<T, D>(qs, ld, nullptr, 0, q + base, qcos, qsin, q0, seq);
+  load_tile<T, D>(dos, ld, nullptr, 0, dout + base, nullptr, nullptr, q0,
+                  seq);
+  const int n_k = (seq + kTile - 1) / kTile;
+  const int n_tiles = causal ? min(n_k, (int)blockIdx.y + 1) : n_k;
+
+  // pass 1: m, l and delta for every row, online over the key tiles
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float dsum[2] = {0.f, 0.f};
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kTile;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<T, D>(ks, ld, nullptr, 0, k + base, kcos, ksin, k0, seq);
+    load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+    __syncthreads();
+    float s[kNk][4], dp[kNk][4];
+    zero(s);
+    zero(dp);
+    warp_mm<kNk, D>(s, qw, ld, ks, ld);
+    warp_mm<kNk, D>(dp, dow, ld, vs, ld);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kNk; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        s[j][e] = masked_score(s[j][e], scale, row[h],
+                               k0 + j * 8 + 2 * t + (e & 1), seq, causal, km);
+        mx[h] = fmaxf(mx[h], s[j][e]);
+      }
+    float m_use[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float corr = rescale(m[h], row_max(mx[h]), m_use[h]);
+      l[h] *= corr;
+      dsum[h] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < kNk; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p =
+            (s[j][e] == -INFINITY) ? 0.f : expf(s[j][e] - m_use[h]);
+        l[h] += p;
+        dsum[h] += p * dp[j][e];
+      }
+  }
+  float m_fin[2], inv_l[2], delta[2];
+  const size_t plane = (size_t)gridDim.x * seq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lt = row_sum(l[h]);
+    m_fin[h] = (m[h] == -INFINITY) ? 0.f : m[h];
+    inv_l[h] = lt > 0.f ? 1.0f / lt : 0.f;
+    delta[h] = row_sum(dsum[h]) * inv_l[h];
+    if (t == 0 && row[h] < seq) {
+      const size_t i = (size_t)bh * seq + row[h];
+      stats[i] = m_fin[h];
+      stats[plane + i] = inv_l[h];
+      stats[2 * plane + i] = delta[h];
+    }
+  }
+
+  // pass 2: dS and dQr = dS Kr
+  float acc[kNd][4];
+  zero(acc);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kTile;
+    __syncthreads();
+    load_tile<T, D>(ks, ld, kts, ldk, k + base, kcos, ksin, k0, seq);
+    load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+    __syncthreads();
+    float s[kNk][4], dp[kNk][4];
+    zero(s);
+    zero(dp);
+    warp_mm<kNk, D>(s, qw, ld, ks, ld);
+    warp_mm<kNk, D>(dp, dow, ld, vs, ld);
+#pragma unroll
+    for (int j = 0; j < kNk; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = j * 8 + 2 * t + (e & 1);
+        const float sc = masked_score(s[j][e], scale, row[h], k0 + col, seq,
+                                      causal, km);
+        const float p =
+            (sc == -INFINITY) ? 0.f : expf(sc - m_fin[h]) * inv_l[h];
+        dsw[(g + 8 * h) * ldk + col] =
+            from_f<T>(p * (dp[j][e] - delta[h]) * scale);
+      }
+    __syncwarp();
+    warp_mm<kNd, kTile>(acc, dsw, ldk, kts, ldk);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= seq) continue;
+    T* out = dq + base + (size_t)row[h] * D;
+    const float* cr = qcos + (size_t)row[h] * D;
+    const float* sr = qsin + (size_t)row[h] * D;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j)
+      store_adjoint<T>(out, cr, sr, j * 8 + 2 * t, acc[j][2 * h],
+                       acc[j][2 * h + 1]);
+  }
+}
+
+// ---- dK and dV -------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ stats, const float* __restrict__ qcos,
+    const float* __restrict__ qsin, const float* __restrict__ kcos,
+    const float* __restrict__ ksin, const float* __restrict__ kmask,
+    int mask_rows, int seq, int num_heads, float scale, int causal) {
+  constexpr int ld = D + Pad<T>::value;
+  constexpr int ldk = kTile + Pad<T>::value;
+  constexpr int kNq = kTile / 8;  // n-tiles over q rows
+  constexpr int kNd = D / 8;
+  extern __shared__ float smem[];
+  T* ks = reinterpret_cast<T*>(smem);  // [kTile][ld] rotated k
+  T* vs = ks + kTile * ld;             // [kTile][ld] v
+  T* qs = vs + kTile * ld;             // [kTile][ld] rotated q
+  T* dos = qs + kTile * ld;            // [kTile][ld] dO
+  T* qts = dos + kTile * ld;           // [D][ldk] rotated q, transposed
+  T* dots = qts + D * ldk;             // [D][ldk] dO, transposed
+  T* ps = dots + D * ldk;              // [kTile][ldk] P^T, a slab per warp
+  T* dss = ps + kTile * ldk;           // [kTile][ldk] dS^T, a slab per warp
+  float* st_m = reinterpret_cast<float*>(dss + kTile * ldk);  // [kTile]
+  float* st_il = st_m + kTile;                                // [kTile]
+  float* st_dl = st_il + kTile;                               // [kTile]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, k0 = blockIdx.y * kTile;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const size_t base = (size_t)bh * seq * D;
+  const size_t plane = (size_t)gridDim.x * seq;
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+  const T* kw = ks + warp * 16 * ld;
+  const T* vw = vs + warp * 16 * ld;
+  T* pw = ps + warp * 16 * ldk;
+  T* dsw = dss + warp * 16 * ldk;
+
+  load_tile<T, D>(ks, ld, nullptr, 0, k + base, kcos, ksin, k0, seq);
+  load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+
+  float dv_acc[kNd][4], dk_acc[kNd][4];
+  zero(dv_acc);
+  zero(dk_acc);
+  const int n_q = (seq + kTile - 1) / kTile;
+  for (int qt = causal ? (int)blockIdx.y : 0; qt < n_q; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<T, D>(qs, ld, qts, ldk, q + base, qcos, qsin, q0, seq);
+    load_tile<T, D>(dos, ld, dots, ldk, dout + base, nullptr, nullptr, q0,
+                    seq);
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+      const bool valid = q0 + i < seq;
+      const size_t r = (size_t)bh * seq + q0 + i;
+      st_m[i] = valid ? stats[r] : 0.f;
+      st_il[i] = valid ? stats[plane + r] : 0.f;  // P = 0 past seq
+      st_dl[i] = valid ? stats[2 * plane + r] : 0.f;
+    }
+    __syncthreads();
+    float s[kNq][4], dp[kNq][4];
+    zero(s);
+    zero(dp);
+    warp_mm<kNq, D>(s, kw, ld, qs, ld);    // S^T: rows keys, columns q
+    warp_mm<kNq, D>(dp, vw, ld, dos, ld);  // dP^T
+#pragma unroll
+    for (int j = 0; j < kNq; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int qi = j * 8 + 2 * t + (e & 1);
+        const float sc = masked_score(s[j][e], scale, q0 + qi, key[h], seq,
+                                      causal, km);
+        const float p =
+            (sc == -INFINITY) ? 0.f : expf(sc - st_m[qi]) * st_il[qi];
+        pw[(g + 8 * h) * ldk + qi] = from_f<T>(p);
+        dsw[(g + 8 * h) * ldk + qi] =
+            from_f<T>(p * (dp[j][e] - st_dl[qi]) * scale);
+      }
+    __syncwarp();
+    warp_mm<kNd, kTile>(dv_acc, pw, ldk, dots, ldk);
+    warp_mm<kNd, kTile>(dk_acc, dsw, ldk, qts, ldk);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= seq) continue;
+    T* dv_row = dv + base + (size_t)key[h] * D;
+    T* dk_row = dk + base + (size_t)key[h] * D;
+    const float* cr = kcos + (size_t)key[h] * D;
+    const float* sr = ksin + (size_t)key[h] * D;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      const int c = j * 8 + 2 * t;
+      dv_row[c] = from_f<T>(dv_acc[j][2 * h]);
+      dv_row[c + 1] = from_f<T>(dv_acc[j][2 * h + 1]);
+      store_adjoint<T>(dk_row, cr, sr, c, dk_acc[j][2 * h],
+                       dk_acc[j][2 * h + 1]);
+    }
+  }
+}
+
+// ---- launch --------------------------------------------------------------
+
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, void* dq, void* dk, void* dv,
+                   float* stats, const float* qcos, const float* qsin,
+                   const float* kcos, const float* ksin, const float* kmask,
+                   int mask_rows, int bh, int seq, int num_heads, float scale,
+                   int causal, cudaStream_t stream) {
+  constexpr int dq_bytes = dq_smem_bytes<T, D>();
+  constexpr int dkdv_bytes = dkdv_smem_bytes<T, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dkdv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (seq + kTile - 1) / kTile);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_bytes, stream>>>(
+      qt, kt, vt, dot, static_cast<T*>(dq), stats, qcos, qsin, kcos, ksin,
+      kmask, mask_rows, seq, num_heads, scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, dkdv_bytes, stream>>>(
+      qt, kt, vt, dot, static_cast<T*>(dk), static_cast<T*>(dv), stats, qcos,
+      qsin, kcos, ksin, kmask, mask_rows, seq, num_heads, scale, causal);
+  return cudaGetLastError();
+}
+
+constexpr int kHeadDim = 96;  // the only head dim instantiated
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q/k/v/dout/dq/dk/dv: (bh, seq, d)
+// contiguous; stats: (3, bh, seq) fp32 scratch; tables: (seq, d) fp32;
+// kmask: (mask_rows, seq) fp32 or null.
+extern "C" int meant_flash_bwd(int dtype, const void* q, const void* k,
+                               const void* v, const void* dout, void* dq,
+                               void* dk, void* dv, void* stats,
+                               const void* qcos, const void* qsin,
+                               const void* kcos, const void* ksin,
+                               const void* kmask, int mask_rows, int bh,
+                               int seq, int d, int num_heads, float scale,
+                               int causal, void* stream) {
+  if (bh <= 0 || seq <= 0 || d != kHeadDim || (dtype != 0 && dtype != 1) ||
+      (seq + kTile - 1) / kTile > 65535)
+    return (int)cudaErrorInvalidValue;
+  const auto* qc = static_cast<const float*>(qcos);
+  const auto* qs = static_cast<const float*>(qsin);
+  const auto* kc = static_cast<const float*>(kcos);
+  const auto* kn = static_cast<const float*>(ksin);
+  const auto* km = static_cast<const float*>(kmask);
+  auto* st = static_cast<float*>(stats);
+  auto str = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == 0
+          ? launch<float, kHeadDim>(q, k, v, dout, dq, dk, dv, st, qc, qs, kc,
+                                    kn, km, mask_rows, bh, seq, num_heads,
+                                    scale, causal, str)
+          : launch<bf16, kHeadDim>(q, k, v, dout, dq, dk, dv, st, qc, qs, kc,
+                                   kn, km, mask_rows, bh, seq, num_heads,
+                                   scale, causal, str);
+  return (int)err;
+}

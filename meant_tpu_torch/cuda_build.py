@@ -2,8 +2,12 @@
 plain C interface, and load them with ctypes.
 
 Each library is built at first use into `meant_tpu_torch/_build/` (listed
-in .gitignore), named by a hash of its source and flags so an edited source
-is rebuilt.
+in .gitignore), named by a hash of its source, the shared headers in
+`csrc/*.cuh` and the flags, so an edited source or header is rebuilt.
+`build_all` starts one nvcc per source at once and waits for them all.
+`KernelLauncher` is the base of every kernel wrapper: it binds the C entry
+point, launches on PyTorch's current stream, raises on a launch error and
+counts launches.
 """
 
 from __future__ import annotations
@@ -13,8 +17,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -38,36 +45,84 @@ def find_nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Build csrc/<name>.cu unless it is built already. Returns nvcc's
-    output (with the -Xptxas -v register/shared-memory report), or "" when
-    there was nothing to build; raises if nvcc fails."""
-    out = _library_path(name)
-    if out.exists():
-        return ""
+def build_all(names: Iterable[str]) -> Dict[str, str]:
+    """Build csrc/<name>.cu for every name not built yet, one nvcc each,
+    all started together. Returns nvcc's output per name (with the -Xptxas
+    -v register/shared-memory report; "" when there was nothing to build);
+    raises if any nvcc fails, after all of them have ended."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-         str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    logs: Dict[str, str] = {}
+    running = {}
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            logs[name] = ""
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        running[name] = (out, tmp, subprocess.Popen(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC_DIR / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in running.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{name}.cu (exit "
+                          f"{proc.returncode}):\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """ctypes handle of csrc/<name>.cu, building it first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build(name)
+        build_all([name])
         lib = ctypes.CDLL(str(_library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+class KernelLauncher:
+    """A C entry point `symbol` of csrc/<library>.cu (argument types
+    `argtypes`, the stream last, a cudaError_t returned), loaded at the
+    first launch. `launches` counts launches that reached the card;
+    `launches_by_shape` splits the same count by the shape key each
+    launch names."""
+
+    symbol = ""
+    library = ""
+    argtypes: list = []
+
+    def __init__(self):
+        self.launches = 0
+        self.launches_by_shape: Counter = Counter()
+        self._fn = None
+
+    def _function(self):
+        if self._fn is None:
+            fn = getattr(load_library(self.library), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def _launch(self, device, *args, shape) -> None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        with torch.cuda.device(device):
+            err = self._function()(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: cudaError "
+                               f"{err}")
+        self.launches += 1
+        self.launches_by_shape[shape] += 1

@@ -5,7 +5,9 @@ Position ids follow RoBERTa: pad tokens get `padding_idx`, real tokens
 `padding_idx + running count`. Ids past the table are CLAMPED to its last
 row, as JAX's gather does: the main path runs s=512 against a 130-row
 position table, so ids reach 513 (torch's own lookup would raise on the CPU
-and trip a device assert on CUDA).
+and trip a device assert on CUDA). Like JAX's gather, whose transpose is a
+scatter that drops out-of-range updates, the clamped ids send no gradient
+to that last row.
 """
 
 from __future__ import annotations
@@ -21,8 +23,13 @@ from meant_tpu_torch.nn.layers import LayerNorm, SeededInit
 
 
 def clamped_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Row lookup with out-of-range ids clamped into [0, rows - 1]."""
-    return F.embedding(ids.clamp(0, table.shape[0] - 1), table)
+    """Row lookup with out-of-range ids clamped into [0, rows - 1]; ids past
+    the last row read it but pass no gradient to it, as in JAX."""
+    rows = table.shape[0]
+    out = F.embedding(ids.clamp(0, rows - 1), table)
+    if torch.is_grad_enabled() and table.requires_grad:
+        out = torch.where((ids >= rows)[..., None], out.detach(), out)
+    return out
 
 
 class RobertaEmbeddings(SeededInit, nn.Module):

@@ -2,8 +2,9 @@
 
 The model runs at a fixed batch size: a partial last batch is padded by
 repeating its first row and the padded rows are dropped from the result.
-Mesh, tensor-parallel and int8 serving, export, and restoring a checkpoint
-are not ported yet (see ROADMAP).
+`checkpoint_path` restores the params of a checkpoint the port's trainer
+wrote (`train/checkpoint.py`). Mesh, tensor-parallel and int8 serving and
+export are not ported yet (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -14,10 +15,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from meant_tpu_torch.data.loader import host_tensor
 from meant_tpu_torch.device import resolve_device
+from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import model_inputs
-
-_INT_KEYS = ("tweets", "input_ids")
 
 
 class Predictor:
@@ -25,29 +26,24 @@ class Predictor:
     probs = predictor(batch_dict)  # numpy arrays with leading dim N
 
     The model serves the weights it holds (JAX weights can be loaded into
-    it with `weights.load_jax_params`). It is moved to `device` (the card
-    unless named) and put in eval mode."""
+    it with `weights.load_jax_params`), or those of `checkpoint_path`, a
+    checkpoint of the port's trainer for the same architecture. It is moved
+    to `device` (the card unless named) and put in eval mode."""
 
     def __init__(self, model: nn.Module, model_name: str,
                  checkpoint_path: Optional[str] = None, batch_size: int = 32,
                  device=None):
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "restoring a checkpoint is not ported yet (ROADMAP: "
-                "checkpoint restore for Predictor)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        if checkpoint_path is not None:
+            self.model.load_state_dict(
+                ckpt.restore(checkpoint_path, self.device)["params"])
         self.model_name = model_name
         self.batch_size = batch_size
 
     def _device_batch(self, batch: Dict[str, np.ndarray]):
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(np.asarray(v))
-            if k in _INT_KEYS and not t.is_floating_point():
-                t = t.to(torch.int64)
-            out[k] = t.to(self.device, non_blocking=True)
-        return out
+        return {k: host_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
 
     @torch.inference_mode()
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:

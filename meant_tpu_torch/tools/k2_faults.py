@@ -1,0 +1,97 @@
+"""Deliberate-fault check of K2's bf16 bars, on the card.
+
+    python -m meant_tpu_torch.tools.k2_faults     (from the repo root)
+
+Builds patched copies of csrc/ (under meant_tpu_torch/_build/faults/) with
+one fault each, runs K2 from them at the main path's two shapes in bf16
+(chip_smoke.py's cases), and prints each gradient's error against
+`flash_mha_bwd_reference` and whether the bars of ops/flash/kernel.py
+catch it. The faults:
+
+* adjoint_sign: the sine term of the rotation's adjoint with the wrong
+  sign, cos*g + H(sin*g) (moves dq and dk, leaves dv and the forward);
+* ds_round_to_zero: dS rounded toward zero instead of to nearest.
+"""
+
+from __future__ import annotations
+
+import json
+import shutil
+
+import torch
+
+import chip_smoke
+from meant_tpu_torch import cuda_build
+from meant_tpu_torch.ops.flash import kernel
+
+_TO_ZERO = """
+template <typename T> __device__ __forceinline__ T to_zero(float x);
+template <> __device__ __forceinline__ float to_zero<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 to_zero<bf16>(float x) {
+  return __float2bfloat16_rz(x);
+}
+
+// ---- dQ and the row statistics"""
+
+FAULTS = {
+    "adjoint_sign": [("__fmul_rn(sin_row[c + 1], g1)));",
+                      "__fmul_rn(-sin_row[c + 1], g1)));")],
+    "ds_round_to_zero": [
+        ("from_f<T>(p * (dp[j][e] - delta[h]) * scale);",
+         "to_zero<T>(p * (dp[j][e] - delta[h]) * scale);"),
+        ("from_f<T>(p * (dp[j][e] - st_dl[qi]) * scale);",
+         "to_zero<T>(p * (dp[j][e] - st_dl[qi]) * scale);"),
+        ("// ---- dQ and the row statistics", _TO_ZERO)],
+}
+
+
+def patched_sources(name: str):
+    """A copy of the package's csrc/ with only this fault applied to
+    flash_bwd.cu."""
+    root = cuda_build.PACKAGE_DIR / "_build" / "faults" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(cuda_build.PACKAGE_DIR / "csrc", root / "csrc")
+    path = root / "csrc" / "flash_bwd.cu"
+    text = path.read_text()
+    for old, new in FAULTS[name]:
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} not found once")
+        text = text.replace(old, new)
+    path.write_text(text)
+    return root
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("k2_faults runs on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name in FAULTS:
+        root = patched_sources(name)
+        cuda_build.CSRC_DIR = root / "csrc"
+        cuda_build.BUILD_DIR = root / "_build"
+        cuda_build._loaded.pop("flash_bwd", None)
+        kernel.flash_bwd._fn = None
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        for kind in ("text", "vision"):
+            c = chip_smoke.backward_case(kind, torch.bfloat16, gen)
+            got = chip_smoke.run_bwd_kernel(c)
+            want = chip_smoke.run_bwd_plain(c)
+            res = {}
+            for g, a, b in zip(("dq", "dk", "dv"), got, want):
+                rel = chip_smoke.rel_l2(a, b)
+                res[g] = {
+                    "rel_l2": rel,
+                    "max_abs": (a.float() - b.float()).abs().max().item(),
+                    "caught_per_element": not torch.allclose(
+                        a.float(), b.float(), rtol=chip_smoke.BF16_TOL,
+                        atol=kernel.BWD_BF16_ATOL),
+                    "caught_rel_l2": rel > kernel.BWD_BF16_REL_L2}
+            print(f"{name} {kind}: {json.dumps(res)}", flush=True)
+            del c, got, want
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

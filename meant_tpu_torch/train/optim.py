@@ -1,0 +1,146 @@
+"""Optimizers and learning-rate schedules (counterpart of
+meant_tpu/train/optim.py), on the fused update kernel A1
+(`ops/adamw.py`).
+
+Reference wiring kept from the JAX package:
+  * AdamW(lr, weight_decay, betas): decoupled decay;
+  * Adam(lr, weight_decay, betas): decay coupled into the gradient before
+    the moment updates (torch semantics);
+  * schedules step once per EPOCH (cosine_warm, cosine, linear, constant)
+    or per step (linear_warmup), as `epoch_schedule` there;
+  * gradient clipping to global norm 1.0 every step, as optax's
+    clip_by_global_norm: g * max_norm / |g| when |g| >= max_norm. (Not
+    torch.nn.utils.clip_grad_norm_, which adds 1e-6 to the norm.)
+
+The JAX package stores the rotary `freqs` tables as params and masks them
+out of the update; in the port they are buffers, not parameters, so the
+optimizer never sees them and the mask is implicit.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Iterable, Optional
+
+import torch
+from torch import nn
+
+from meant_tpu_torch.ops.adamw import adamw_update
+
+
+def epoch_schedule(kind: str, base_lr: float, t0: int = 7, tmax: int = 10,
+                   steps_per_epoch: int = 1, warmup_steps: int = 0,
+                   total_steps: int = 0) -> Callable[[int], float]:
+    """lr as a function of the 0-based step count, reproducing torch's
+    per-epoch schedules (the factor changes only at epoch boundaries);
+    `linear_warmup` is per step (HF get_linear_schedule_with_warmup)."""
+
+    def factor(step: int) -> float:
+        epoch = step // steps_per_epoch
+        if kind == "cosine_warm":
+            return (1 + math.cos(math.pi * (epoch % t0) / t0)) / 2
+        if kind == "cosine":
+            return (1 + math.cos(math.pi * epoch / tmax)) / 2
+        if kind == "linear":
+            # torch LinearLR defaults: start_factor=1/3, total_iters=5
+            return 1.0 / 3 + (2.0 / 3) * (min(epoch, 5) / 5)
+        if kind == "linear_warmup":
+            if step < warmup_steps:
+                return step / max(warmup_steps, 1)
+            denom = max(total_steps - warmup_steps, 1)
+            return max(0.0, (total_steps - step) / denom)
+        if kind == "constant":
+            return 1.0
+        raise ValueError(f"unsupported scheduler {kind}")
+
+    factor(0)  # an unknown kind fails here, not at the first step
+    return lambda step: base_lr * factor(step)
+
+
+class FlatAdam:
+    """AdamW / Adam over every parameter of `params` that requires grad,
+    with one launch of the update kernel per step.
+
+    The parameters must be fp32 and on one device. Their values, their
+    gradients and the two moments live in four flat fp32 buffers; each
+    parameter's `.data` and `.grad` become views into the first two, so
+    autograd accumulates straight into the flat gradient (`zero_grad`
+    zeroes it in place and keeps the views; do not set the gradients to
+    None). The global norm is a device scalar, so a step has no host sync.
+    """
+
+    def __init__(self, params: Iterable[nn.Parameter],
+                 schedule: Callable[[int], float], *, coupled: bool,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0,
+                 clip_norm: Optional[float] = 1.0):
+        self.params = [p for p in params if p.requires_grad]
+        if not self.params:
+            raise ValueError("no trainable parameters")
+        device = self.params[0].device
+        for p in self.params:
+            if p.dtype != torch.float32 or p.device != device:
+                raise ValueError(f"FlatAdam takes fp32 parameters on one "
+                                 f"device, got {p.dtype} on {p.device}")
+        self.schedule, self.coupled = schedule, coupled
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay, self.clip_norm = weight_decay, clip_norm
+        n = sum(p.numel() for p in self.params)
+        self.flat_p = torch.empty(n, dtype=torch.float32, device=device)
+        self.flat_g = torch.zeros_like(self.flat_p)
+        self.m = torch.zeros_like(self.flat_p)
+        self.v = torch.zeros_like(self.flat_p)
+        self.step_count = 0
+        offset = 0
+        with torch.no_grad():
+            for p in self.params:
+                k = p.numel()
+                self.flat_p[offset:offset + k].copy_(p.reshape(-1))
+                p.data = self.flat_p[offset:offset + k].view_as(p)
+                p.grad = self.flat_g[offset:offset + k].view_as(p)
+                offset += k
+
+    def zero_grad(self) -> None:
+        self.flat_g.zero_()
+
+    def step(self) -> None:
+        norm = None
+        if self.clip_norm is not None:
+            norm = torch.linalg.vector_norm(self.flat_g)
+        self.step_count += 1
+        adamw_update(self.flat_p, self.flat_g, self.m, self.v,
+                     lr=self.schedule(self.step_count - 1), b1=self.b1,
+                     b2=self.b2, eps=self.eps,
+                     weight_decay=self.weight_decay, step=self.step_count,
+                     coupled=self.coupled, norm=norm,
+                     max_norm=self.clip_norm or 0.0)
+
+    def state_dict(self) -> dict:
+        return {"m": self.m, "v": self.v, "step": self.step_count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.m.copy_(state["m"])
+        self.v.copy_(state["v"])
+        self.step_count = int(state["step"])
+
+
+def build_optimizer(params: Iterable[nn.Parameter], optimizer: str = "AdamW",
+                    learning_rate: float = 5e-5, decay: float = 0.0,
+                    beta_1: float = 0.9, beta_2: float = 0.999,
+                    lr_scheduler: str = "cosine_warm", t0: int = 7,
+                    tmax: int = 10, steps_per_epoch: int = 1,
+                    warmup_steps: int = 0, total_steps: int = 0,
+                    clip_norm: Optional[float] = 1.0,
+                    mu_dtype=None) -> FlatAdam:
+    """The trainer's optimizer, as the JAX package's build_optimizer builds
+    it (clip, then AdamW or Adam, on an epoch schedule). A bf16 first moment
+    (`mu_dtype`) is not ported yet."""
+    if mu_dtype is not None:
+        raise NotImplementedError("mu_dtype (a bf16 first moment) is not "
+                                  "ported yet (see ROADMAP)")
+    if optimizer not in ("AdamW", "Adam"):
+        raise ValueError("This type of optimizer is not supported.")
+    sched = epoch_schedule(lr_scheduler, learning_rate, t0, tmax,
+                           steps_per_epoch, warmup_steps, total_steps)
+    return FlatAdam(params, sched, coupled=optimizer == "Adam", b1=beta_1,
+                    b2=beta_2, weight_decay=decay, clip_norm=clip_norm)

@@ -1,17 +1,26 @@
-"""The CUDA flash kernel against its plain version, on the card. These tests
+"""The CUDA kernels against their plain versions, on the card: the flash
+forward (K1), the flash backward (K2) and the fused AdamW (A1). These tests
 need an NVIDIA card and nvcc; elsewhere they skip. On the card:
 
-    pytest -m cuda tests/test_torch_cuda.py
+    pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Bars. fp32: rtol 1e-4 / atol 1e-5 (the kernels and the plain versions
+differ only in summation order). bf16: 2e-2 per element and the relative L2
+bars of ops/flash/kernel.py, set from H100 readings (PERF.md). A1: max
+relative error 1e-6 (both sides round every operation to fp32 alike).
 """
 
 import pytest
 import torch
 
 from meant_tpu_torch.ops import lang_freqs, pixel_freqs
-from meant_tpu_torch.ops.flash import (flash_fwd, flash_mha,
+from meant_tpu_torch.ops.adamw import adamw_update, fused_adamw
+from meant_tpu_torch.ops.flash import (flash_bwd, flash_fwd, flash_mha,
+                                       flash_mha_bwd_reference,
                                        flash_mha_reference)
 from meant_tpu_torch.ops.flash.flash_attention import _tables
-from meant_tpu_torch.ops.flash.kernel import BF16_REL_L2
+from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
+                                              BWD_BF16_REL_L2)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,3 +71,111 @@ def test_kernel_matches_plain(cuda, dtype, case, s):
                                    atol=2e-2)
         rel = (out.float() - ref.float()).norm() / ref.float().norm()
         assert rel <= BF16_REL_L2
+
+
+def _bwd_case(cuda, dtype, case, s, gen):
+    d = 96
+    q, k, v, do = (torch.randn(3, 2, s, d, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    causal = case in ("xpos_causal", "masked", "broadcast_mask")
+    if case == "identity":
+        ones = torch.ones(s, d, device=cuda)
+        tables = (ones, torch.zeros_like(ones)) * 2
+    else:
+        freqs = (pixel_freqs(48, device=cuda) if case == "pixel"
+                 else lang_freqs(48, device=cuda))
+        tables = _tables(s, d, freqs, case != "pixel", 512.0)
+    mask = None
+    if case in ("masked", "broadcast_mask", "all_masked_row"):
+        rows = 1 if case == "broadcast_mask" else 3
+        mask = (torch.rand(rows, s, generator=gen, device=cuda) > 0.3).float()
+        mask[:, 0] = 1.0
+        if case == "all_masked_row":
+            mask[1] = 0.0     # every key of batch row 1 masked
+    return q, k, v, do, tables, mask, causal
+
+
+def _assert_grads_close(got, want, dtype):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a).all(), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5,
+                                       msg=lambda m: f"{name}: {m}")
+        else:
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                       atol=BWD_BF16_ATOL,
+                                       msg=lambda m: f"{name}: {m}")
+            rel = (a.float() - b.float()).norm() / b.float().norm().clamp_min(
+                1e-30)
+            assert rel <= BWD_BF16_REL_L2, f"{name}: rel L2 {rel}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["xpos_causal", "pixel", "masked",
+                                  "broadcast_mask", "identity",
+                                  "all_masked_row"])
+@pytest.mark.parametrize("s", [1, 63, 65, 196, 512])
+def test_backward_kernel_matches_plain(cuda, dtype, case, s):
+    gen = torch.Generator(device=cuda).manual_seed(1000 + s)
+    q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, case, s, gen)
+    b, h = q.shape[:2]
+    before = flash_bwd.launches
+    flat = [t.reshape(b * h, s, 96).contiguous() for t in (q, k, v, do)]
+    got = flash_bwd(*flat, mask, *tables, scale=0.1, causal=causal,
+                    num_heads=h)
+    torch.cuda.synchronize()
+    assert flash_bwd.launches == before + 1
+    want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
+                                   causal=causal)
+    _assert_grads_close([g.reshape(b, h, s, 96) for g in got], want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mha_on_cuda_has_grad_fn_and_runs_k2(cuda, dtype):
+    """The repair: on CUDA inputs that require grad, flash_mha's output
+    carries a grad_fn and its backward is K2, with the plain path's
+    gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, "masked",
+                                                  196, gen)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fwd0, bwd0 = flash_fwd.launches, flash_bwd.launches
+    out = flash_mha(*leaves, scale=0.1, causal=causal, attention_mask=mask,
+                    qcos=tables[0], qsin=tables[1], kcos=tables[2],
+                    ksin=tables[3])
+    assert out.grad_fn is not None
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
+                                   causal=causal)
+    _assert_grads_close([t.grad for t in leaves], want, dtype)
+    with torch.no_grad():
+        assert flash_mha(*leaves, scale=0.1, causal=causal).grad_fn is None
+    assert flash_bwd.launches == bwd0 + 1
+
+
+@pytest.mark.parametrize("mode", ["adamw", "adam_coupled", "adamw_wd0",
+                                  "no_clip"])
+@pytest.mark.parametrize("n", [1, 3, 4, 1027, 1 << 20])
+def test_adamw_kernel_matches_plain(cuda, mode, n):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    p = torch.randn(n, generator=gen, device=cuda)
+    g = torch.randn(n, generator=gen, device=cuda) * 0.5
+    m = torch.randn(n, generator=gen, device=cuda) * 0.1
+    v = torch.rand(n, generator=gen, device=cuda) * 0.1
+    norm = None if mode == "no_clip" else torch.linalg.vector_norm(g)
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+              weight_decay=0.0 if mode == "adamw_wd0" else 0.01, step=3,
+              coupled=mode == "adam_coupled", norm=norm, max_norm=1.0)
+    ref = [t.cpu() for t in (p, m, v)]
+    adamw_update(ref[0], g.cpu(), ref[1], ref[2],
+                 **dict(kw, norm=None if norm is None else norm.cpu()))
+    before = fused_adamw.launches
+    adamw_update(p, g, m, v, **kw)
+    torch.cuda.synchronize()
+    assert fused_adamw.launches == before + 1
+    for got, want in zip((p, m, v), ref):
+        err = ((got.cpu() - want).abs() / want.abs().clamp_min(1e-30)).max()
+        assert err <= 1e-6, f"max relative error {err}"

@@ -8,6 +8,7 @@ import torch
 from meant_tpu_torch.cli import serve as serve_cli
 from meant_tpu_torch.models import EmbeddingConfig, meant_src
 from meant_tpu_torch.serve import Predictor
+from meant_tpu_torch.train import checkpoint as ckpt
 
 GEOM = dict(text_dim=32, image_dim=32, price_dim=5, height=32, width=32,
             patch_res=16, lag=5, num_classes=2, num_heads=4, num_encoders=1,
@@ -46,7 +47,7 @@ def test_serve_cli_smoke(tmp_path):
     np.testing.assert_array_equal(np.load(out), probs)
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint", "ckpt"], ["--int8"],
+@pytest.mark.parametrize("flag", [["--scan_layers"], ["--int8"],
                                   ["--export", "x.bin"],
                                   ["-mn", "meant_tweet"]])
 def test_serve_cli_refuses_what_is_not_ported(flag):
@@ -56,11 +57,37 @@ def test_serve_cli_refuses_what_is_not_ported(flag):
         serve_cli.main(argv)
 
 
-def test_predictor_refuses_checkpoint_path():
+def test_predictor_refuses_checkpoint_path(tmp_path):
+    """Predictor restores a checkpoint of the port's trainer; a path that
+    holds none, or one of another architecture, is refused."""
     model = meant_src(embedding=EMB, device="cpu", **GEOM)
-    with pytest.raises(NotImplementedError):
-        Predictor(model, "meant_src", checkpoint_path="somewhere",
+    with pytest.raises(FileNotFoundError):
+        Predictor(model, "meant_src", checkpoint_path=str(tmp_path / "none"),
                   device="cpu")
+    other = meant_src(embedding=EMB, device="cpu",
+                      **dict(GEOM, num_encoders=2))
+    path = str(tmp_path / "models" / "ckpt")
+    ckpt.save(path, {"params": other.state_dict(), "step": 0})
+    with pytest.raises(RuntimeError):
+        Predictor(model, "meant_src", checkpoint_path=path, device="cpu")
+
+
+def test_serve_cli_serves_a_checkpoint(tmp_path):
+    argv = ["-rid", "51", "-mn", "meant_src", "-nec", "1", "--synthetic_n",
+            "6", "--seq_len", "12", "--image_size", "32", "--text_dim", "32",
+            "--image_dim", "32", "--vocab_size", "64", "--num_heads", "4",
+            "--serve_batch", "4", "--device", "cpu"]
+    args = serve_cli.serve_parser().parse_args(argv + ["--seed", "3"])
+    trained = serve_cli.build_model(args)
+    path = str(tmp_path / "models" / "ckpt")
+    ckpt.save(path, {"params": trained.state_dict(), "step": 1})
+    probs = serve_cli.main(argv + ["--checkpoint", path])
+    rows = serve_cli.synthetic_batch(args, 6)
+    del rows["y"]
+    want = Predictor(trained, "meant_src", batch_size=4, device="cpu")(rows)
+    np.testing.assert_array_equal(probs, want)
+    fresh = serve_cli.main(argv)
+    assert not np.array_equal(fresh, probs)
 
 
 def test_entry_points_need_the_card_by_default(monkeypatch):
