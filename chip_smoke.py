@@ -5,12 +5,15 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build   -- nvcc builds every kernel of the serving and training paths
-              from csrc/, one nvcc per source, all started together.
+1. build   -- nvcc builds every kernel of the serving, training and
+              long-sequence paths from csrc/, one nvcc per source, all
+              started together.
 2. kernels -- each kernel's wrapper against its plain PyTorch version on
               the card, at the main path's shapes: the flash forward (K1)
               and backward (K2) in fp32 and bf16 at both attention shapes,
-              and the fused AdamW (A1) over all 177,607,733 parameters.
+              the streaming forward (K3, out and lse) and its dQ (K4) and
+              dK/dV (K5) backward at s=4096, BH=16, in fp32 and bf16, and
+              the fused AdamW (A1) over all 177,607,733 parameters.
 3. slice   -- flagship meant_src (768 wide, 8 heads of 96, 12+12 encoders,
               s=512 text, 196-patch charts, bf16, seeded random weights)
               serves 40 rows through Predictor(batch_size=16): three
@@ -29,12 +32,23 @@ Phases, in order; any failure raises and the script exits non-zero:
               cli.in_loop_train trains one epoch of a synthetic set,
               evaluates and saves, and Predictor(checkpoint_path=...)
               serves 16 rows with the trained model's probabilities.
-5. timing  -- median request time, and each kernel's time per launch
+              No phase of the flagship launches K3, K4 or K5.
+5. long    -- src4096 (bench.py's long-sequence workload: the flagship at
+              s=4096, batch 2, fusion projection of 4096): Predictor serves
+              2 requests of 2 rows with exactly 12 K3 + 12 K1 launches per
+              forward, towers and probabilities against the plain
+              attention; one step's gradients at 1 row and 2 encoders per
+              tower against the plain attention; 10 meant_trainer steps at
+              fixed_proj=True with exactly 12 K3, 12 K1, 12 K4, 12 K5,
+              12 K2 and 1 A1 per step and a finite, falling loss; step time,
+              samples/s, peak memory and a profiled step.
+6. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
-              calls): rotation + scaled_dot_product_attention (K1) and its
-              backward (K2), torch.optim.AdamW(fused=True) (A1).
-6. profile -- torch.profiler over 3 forwards of one 16-row request: device
+              calls): rotation + scaled_dot_product_attention (K1, K3; causal
+              at s=4096 for K3) and its backward (K2; K4 and K5 together),
+              torch.optim.AdamW(fused=True) (A1).
+7. profile -- torch.profiler over 3 forwards of one 16-row request: device
               time per forward by kind, the device's idle share, and the
               top kernels.
 
@@ -93,7 +107,15 @@ STEP_GRAD_REL_L2 = 5e-2
 GRAD_ROWS = 8              # rows of the gradient comparison
 LEARN_STEPS, LEARN_LR = 20, 1e-5
 PROFILE_STEPS = 2
-KERNELS = ("flash_fwd", "flash_bwd", "adamw")
+KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_online", "adamw")
+# src4096 (bench.py:807-817, build_src(4096, batch=2)): the flagship at
+# s=4096 with a fusion projection of max(512, s), batch 2.
+LONG_SEQ, LONG_BATCH = 4096, 2
+LONG_REQUEST_ROWS = 4      # two requests of 2 rows
+LONG_GRAD_ENCODERS = 2     # plain attention at 12 would save ~100 GB
+LONG_STEPS = 10
+LONG_CHECK_BH = 16         # the kernel checks against the plain versions
+LONG_TIME_BH = LONG_BATCH * LAG * HEADS   # 80, the main path's launches
 
 
 def fail(msg: str):
@@ -125,14 +147,15 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
 
 # ---- phase 2: the kernel against its plain version ---------------------
 
-def attention_case(kind: str, dtype, gen):
-    """Inputs of one attention launch at the main path's shapes:
-    (b*lag, heads, s, 96) q/k/v, tables, mask."""
+def attention_case(kind: str, dtype, gen, s=None, bh=BATCH * LAG * HEADS):
+    """Inputs of one attention launch, at the flagship's shapes unless s
+    and bh say otherwise: (bh / heads, heads, s, 96) q/k/v, tables, mask."""
     from meant_tpu_torch.ops import lang_freqs, pixel_freqs
     from meant_tpu_torch.ops.flash.flash_attention import _tables
 
-    s = N_PATCHES if kind == "vision" else SEQ
-    shape = (BATCH * LAG, HEADS, s, HEAD_DIM)
+    if s is None:
+        s = N_PATCHES if kind == "vision" else SEQ
+    shape = (bh // HEADS, HEADS, s, HEAD_DIM)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda") * 2.0
                for _ in range(3))
     q, k, v = (t.to(dtype) for t in (q, k, v))
@@ -144,7 +167,7 @@ def attention_case(kind: str, dtype, gen):
     tables = _tables(s, HEAD_DIM, freqs, xpos, 512.0)
     mask = None
     if kind == "text_masked":
-        lengths = torch.randint(1, s + 1, (BATCH * LAG,), generator=gen,
+        lengths = torch.randint(1, s + 1, (bh // HEADS,), generator=gen,
                                 device="cuda")
         mask = (torch.arange(s, device="cuda")[None, :]
                 < lengths[:, None]).to(torch.float32)
@@ -223,9 +246,9 @@ def check_kernel(record):
     return errors
 
 
-def backward_case(kind, dtype, gen):
+def backward_case(kind, dtype, gen, **shape):
     """attention_case plus an output gradient dO of q's shape."""
-    c = attention_case(kind, dtype, gen)
+    c = attention_case(kind, dtype, gen, **shape)
     c["do"] = torch.randn(c["q"].shape, generator=gen, device="cuda").to(
         dtype)
     return c
@@ -289,6 +312,143 @@ def check_backward(record):
     return errors
 
 
+def run_online_kernel(c):
+    """K3 on (b*h, s, d) views; returns (out (b, h, s, d), lse (b, h, s))."""
+    from meant_tpu_torch.ops.flash import flash_fwd_online
+    b, h, s, d = c["q"].shape
+    flat = [c[n].reshape(b * h, s, d) for n in ("q", "k", "v")]
+    out, lse = flash_fwd_online(*flat, c["mask"], *c["tables"],
+                                scale=c["scale"], causal=c["causal"],
+                                num_heads=h)
+    return out.reshape(b, h, s, d), lse.reshape(b, h, s)
+
+
+def run_online_plain(c):
+    from meant_tpu_torch.ops.flash import flash_mha_online_reference
+    return flash_mha_online_reference(c["q"], c["k"], c["v"], c["mask"],
+                                      *c["tables"], scale=c["scale"],
+                                      causal=c["causal"])
+
+
+def _online_bwd_args(c):
+    b, h, s, d = c["q"].shape
+    return ([c[n].reshape(b * h, s, d) for n in ("q", "k", "v", "do")]
+            + [c["lse"].reshape(b * h, s).contiguous(),
+               c["delta"].reshape(b * h, s).contiguous(), c["mask"],
+               *c["tables"]])
+
+
+def run_online_dq_kernel(c):
+    """K4; returns dq (b, h, s, d)."""
+    from meant_tpu_torch.ops.flash import flash_bwd_dq
+    (dq,) = flash_bwd_dq(*_online_bwd_args(c), scale=c["scale"],
+                         causal=c["causal"], num_heads=c["q"].shape[1])
+    return dq.reshape(c["q"].shape)
+
+
+def run_online_dkdv_kernel(c):
+    """K5; returns (dk, dv), each (b, h, s, d)."""
+    from meant_tpu_torch.ops.flash import flash_bwd_dkdv
+    grads = flash_bwd_dkdv(*_online_bwd_args(c), scale=c["scale"],
+                           causal=c["causal"], num_heads=c["q"].shape[1])
+    return [g.reshape(c["q"].shape) for g in grads]
+
+
+def _online_plain_args(c):
+    return ((c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
+             c["mask"], *c["tables"]),
+            dict(scale=c["scale"], causal=c["causal"]))
+
+
+def run_online_dq_plain(c):
+    from meant_tpu_torch.ops.flash.kernel import (
+        flash_mha_bwd_online_dq_reference)
+    args, kw = _online_plain_args(c)
+    return flash_mha_bwd_online_dq_reference(*args, **kw)
+
+
+def run_online_dkdv_plain(c):
+    from meant_tpu_torch.ops.flash.kernel import (
+        flash_mha_bwd_online_dkdv_reference)
+    args, kw = _online_plain_args(c)
+    return flash_mha_bwd_online_dkdv_reference(*args, **kw)
+
+
+def long_case(kind, dtype, gen, bh):
+    """One text-tower launch of src4096 (s=4096, causal xPos) with dO;
+    `text_masked` has a padding mask of a random length per batch row (at
+    least one key). A batch row with every key masked is checked by
+    tests/test_torch_cuda.py with the pixel rotary: under causal xPos at
+    s=4096 its dq sums terms up to some 300 in size, where one bf16 step
+    of a dS entry moves an element by 0.6 (PERF.md). lse and delta for the
+    backward come from the plain forward and carry a non-zero lse
+    cotangent: delta = rowsum(dO * out) - g_lse."""
+    c = backward_case(kind, dtype, gen, s=LONG_SEQ, bh=bh)
+    out, lse = run_online_plain(c)
+    g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
+    c.update(out=out, lse=lse,
+             delta=(c["do"].float() * out.float()).sum(-1) - g_lse)
+    return c
+
+
+def check_long_kernels(record):
+    """K3 (out and lse), K4 and K5 against their plain versions at
+    s=4096, BH=16, fp32 and bf16, without and with a padding mask: out and
+    the gradients at K1's and K2's bars, lse within LSE_ATOL."""
+    from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
+                                                  BWD_BF16_REL_L2, LSE_ATOL)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    errors, rels = {}, {}
+    for kind in ("text", "text_masked"):
+        for dtype in (torch.float32, torch.bfloat16):
+            c = long_case(kind, dtype, gen, LONG_CHECK_BH)
+            name = f"long_{kind}/{str(dtype).split('.')[-1]}"
+            out, lse = run_online_kernel(c)
+            dq = run_online_dq_kernel(c)
+            dk, dv = run_online_dkdv_kernel(c)
+            torch.cuda.synchronize()
+            want = {"out": c["out"], "dq": run_online_dq_plain(c)}
+            want["dk"], want["dv"] = run_online_dkdv_plain(c)
+            torch.cuda.synchronize()
+            lse_err = (lse - c["lse"]).abs().max().item()
+            ok_lse = lse_err <= LSE_ATOL and bool(torch.isfinite(lse).all())
+            print(f"K3 vs plain {name} lse: max_abs_err {lse_err:.3e} "
+                  f"(bar {LSE_ATOL}) {'ok' if ok_lse else 'FAIL'}",
+                  flush=True)
+            if not ok_lse:
+                fail(f"K3's lse disagrees with its plain version ({name}, "
+                     f"max abs err {lse_err})")
+            errors[f"{name}/lse"] = lse_err
+            for g, a in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+                b = want[g]
+                err = (a.float() - b.float()).abs().max().item()
+                rel = rel_l2(a, b)
+                if dtype == torch.float32:
+                    ok = torch.allclose(a, b, rtol=FP32_RTOL, atol=FP32_ATOL)
+                elif g == "out":
+                    ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
+                                         atol=BF16_TOL)
+                          and rel <= BF16_REL_L2)
+                else:
+                    ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
+                                         atol=BWD_BF16_ATOL)
+                          and rel <= BWD_BF16_REL_L2)
+                ok = ok and bool(torch.isfinite(a).all())
+                kernel = {"out": "K3", "dq": "K4"}.get(g, "K5")
+                print(f"{kernel} vs plain {name} {g}: max_abs_err {err:.3e} "
+                      f"rel_l2 {rel:.3e} {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    fail(f"{kernel} disagrees with its plain version ({name} "
+                         f"{g}, max abs err {err}, rel L2 {rel})")
+                errors[f"{name}/{g}"], rels[f"{name}/{g}"] = err, rel
+            del c, out, lse, dq, dk, dv, want
+            torch.cuda.empty_cache()
+    record["long_kernels_vs_plain_max_abs_err"] = errors
+    record["long_kernels_vs_plain_rel_l2"] = rels
+    return errors
+
+
 def adamw_case(n: int, gen):
     """p, g, m, v over n parameters, with |g| above 1 so the clip acts."""
     p = torch.randn(n, generator=gen, device="cuda")
@@ -338,23 +498,26 @@ def check_adamw(record, n: int) -> float:
 
 # ---- phase 3: the slice ------------------------------------------------
 
-def build_flagship(**kw):
+def build_flagship(seq: int = SEQ, **kw):
+    """The flagship meant_src; at seq > 512 the fusion projection is
+    max(512, seq) wide, as bench.py's build_src makes it."""
     from meant_tpu_torch.models import EmbeddingConfig, meant_src
+    kw.setdefault("num_encoders", ENCODERS)
     return meant_src(text_dim=DIM, image_dim=DIM, price_dim=5, height=IMAGE,
                      width=IMAGE, patch_res=PATCH, lag=LAG, num_classes=2,
                      embedding=EmbeddingConfig(), num_heads=HEADS,
-                     num_encoders=ENCODERS, channels=3, seq_len=SEQ,
-                     dtype=torch.bfloat16, device="cuda", seed=0, **kw)
+                     channels=3, seq_len=max(SEQ, seq), dtype=torch.bfloat16,
+                     device="cuda", seed=0, **kw)
 
 
-def request_batch(n: int, seed: int = 0):
+def request_batch(n: int, seed: int = 0, seq: int = SEQ):
     rng = np.random.RandomState(seed)
     return {
-        "input_ids": rng.randint(2, 64000, size=(n, LAG, SEQ)).astype(
+        "input_ids": rng.randint(2, 64000, size=(n, LAG, seq)).astype(
             np.int32),
         "pixels": rng.randn(n, LAG, 3, IMAGE, IMAGE).astype(np.float32),
         "prices": rng.randn(n, LAG, 5).astype(np.float32),
-        "attention_mask": np.ones((n, LAG, SEQ), np.float32),
+        "attention_mask": np.ones((n, LAG, seq), np.float32),
     }
 
 
@@ -404,10 +567,10 @@ def run_slice(record):
     torch.cuda.synchronize()
 
     # the main path: counts to 0 just before, read just after
-    flash_fwd.launches = 0
-    flash_fwd.launches_by_shape.clear()
+    reset_counts()
     probs = predictor(batch)
     torch.cuda.synchronize()
+    counts = read_counts()
     launches = flash_fwd.launches
     by_shape = dict(flash_fwd.launches_by_shape)
     n_requests = -(-REQUEST_ROWS // BATCH)
@@ -415,8 +578,7 @@ def run_slice(record):
     print(f"served {REQUEST_ROWS} rows in {n_requests} requests: probs "
           f"{probs.shape}, flash_fwd launches {launches} (want {want}), by "
           f"(s, causal) {by_shape}; {n_params} parameters", flush=True)
-    if launches != want:
-        fail(f"flash_fwd launched {launches} times, want {want}")
+    check_counts(counts, {"K1": want}, "serving the flagship")
     if probs.shape != (REQUEST_ROWS, 2) or not np.isfinite(probs).all():
         fail(f"bad probabilities {probs.shape}")
     if not ((probs > 0) & (probs < 1)).all():
@@ -454,8 +616,8 @@ def run_slice(record):
 
 # ---- phase 4: training ---------------------------------------------------
 
-def train_batch(n: int, seed: int):
-    batch = request_batch(n, seed)
+def train_batch(n: int, seed: int, seq: int = SEQ):
+    batch = request_batch(n, seed, seq)
     batch["y"] = np.random.RandomState(seed + 100).randint(
         0, 2, size=(n,)).astype(np.int32)
     return batch
@@ -491,39 +653,54 @@ def step_gradients(model, batch):
     return loss.item(), {k: torch.cat(v) for k, v in groups.items()}
 
 
-def reset_counts():
+def wrappers() -> dict:
+    """Every kernel's wrapper by its name in PERF.md."""
     from meant_tpu_torch.ops.adamw import fused_adamw
-    from meant_tpu_torch.ops.flash import flash_bwd, flash_fwd
-    for w in (flash_fwd, flash_bwd):
+    from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
+                                           flash_bwd_dq, flash_fwd,
+                                           flash_fwd_online)
+    return {"K1": flash_fwd, "K2": flash_bwd, "K3": flash_fwd_online,
+            "K4": flash_bwd_dq, "K5": flash_bwd_dkdv, "A1": fused_adamw}
+
+
+def reset_counts():
+    for w in wrappers().values():
         w.launches = 0
         w.launches_by_shape.clear()
-    fused_adamw.launches = 0
 
 
 def read_counts() -> dict:
-    """Launch counts; K2's also by (s, causal), keyed "s<s> causal=<c>"."""
-    from meant_tpu_torch.ops.adamw import fused_adamw
-    from meant_tpu_torch.ops.flash import flash_bwd, flash_fwd
-    return {"K1": flash_fwd.launches, "K2": flash_bwd.launches,
-            "A1": fused_adamw.launches,
-            "K2_by_shape": {shape_key(s, c): n for (s, c), n
-                            in flash_bwd.launches_by_shape.items()}}
+    """Launch counts; K1's and K2's also by (s, causal), keyed
+    "s<s> causal=<c>"."""
+    counts = {name: w.launches for name, w in wrappers().items()}
+    for name in ("K1", "K2"):
+        counts[f"{name}_by_shape"] = {
+            shape_key(s, c): n
+            for (s, c), n in wrappers()[name].launches_by_shape.items()}
+    return counts
+
+
+def check_counts(counts: dict, want: dict, label: str):
+    """Fail unless every kernel launched exactly as `want` says (0 for the
+    kernels it does not name)."""
+    full = {name: want.get(name, 0) for name in wrappers()}
+    got = {name: counts[name] for name in full}
+    if got != full:
+        fail(f"{label} launched {got}, want {full}")
 
 
 def shape_key(s: int, causal: bool) -> str:
     return f"s{s} causal={bool(causal)}"
 
 
-def compare_step_gradients(model, record):
-    """One step's gradients through K1 + K2 vs the plain attention, at the
-    same weights and batch."""
-    batch = to_card(train_batch(GRAD_ROWS, seed=5))
+def compare_step_gradients(model, batch, want, make_plain, label):
+    """One step's gradients through the kernels (exactly `want` launches)
+    vs the plain attention (`make_plain()`, given the same weights), on the
+    same batch. Returns the record."""
     reset_counts()
     loss_k, grads_k = step_gradients(model, batch)
-    counts = read_counts()
-    if (counts["K1"], counts["K2"], counts["A1"]) != (24, 24, 0):
-        fail(f"one step launched {counts}, want 24 K1, 24 K2, 0 A1")
-    plain = build_flagship(flash=False, fixed_proj=True)
+    check_counts(read_counts(), want, label)
+    plain = make_plain()
     plain.load_state_dict(model.state_dict())
     loss_p, grads_p = step_gradients(plain, batch)
     del plain
@@ -537,20 +714,23 @@ def compare_step_gradients(model, record):
                  f"attention (relative L2 {rel:.3e} > {STEP_GRAD_REL_L2})")
         if g.norm().item() == 0.0:
             fail(f"step gradients of {name} are all zero")
-    print(f"train step gradients, kernels vs plain attention "
-          f"({GRAD_ROWS} rows): {json.dumps(res)}", flush=True)
-    record["step_gradients"] = res
+    rows = len(batch["y"])
+    print(f"{label} gradients, kernels vs plain attention ({rows} rows): "
+          f"{json.dumps(res)}", flush=True)
+    return res
 
 
-def learn(model, record):
-    """LEARN_STEPS steps of meant_trainer on one replayed batch: the
-    training main path, counts set to 0 just before and read just after."""
+def train_steps(model, host, steps, per_step, label):
+    """`steps` steps of meant_trainer on one replayed batch (numpy `host`)
+    at LEARN_LR constant: a training main path, counts set to 0 just before
+    and read just after, exactly `per_step` launches per step and a finite,
+    falling loss. Returns the record, the trainer and the device batch."""
     from meant_tpu_torch.data.loader import ArrayLoader
     from meant_tpu_torch.train.classify import meant_trainer
-    host = train_batch(BATCH, seed=1)
+    rows = len(host["y"])
     trainer = meant_trainer({
         "model": model, "model_name": "meant_src",
-        "train_loader": ArrayLoader(host, BATCH), "lrst": "constant",
+        "train_loader": ArrayLoader(host, rows), "lrst": "constant",
         "lr": LEARN_LR, "seed": 0, "test_model": False})
     trainer._init_state()
     n_trainable = trainer.optimizer.flat_p.numel()
@@ -559,7 +739,7 @@ def learn(model, record):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, times = [], []
-    for _ in range(LEARN_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, _ = trainer.train_step(batch)
@@ -569,30 +749,37 @@ def learn(model, record):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).tolist()
-    want = {"K1": 24 * LEARN_STEPS, "K2": 24 * LEARN_STEPS,
-            "A1": LEARN_STEPS}
-    print(f"learn: {LEARN_STEPS} steps of {BATCH} replayed rows at lr "
+    want = {k: n * steps for k, n in per_step.items()}
+    print(f"{label}: {steps} steps of {rows} replayed rows at lr "
           f"{LEARN_LR}: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"launches {counts} (want {want})", flush=True)
-    if {k: counts[k] for k in want} != want:
-        fail(f"the training steps launched {counts}, want {want}")
+    check_counts(counts, want, f"{label}'s training steps")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"loss not finite and falling: {losses}")
+        fail(f"{label}: loss not finite and falling: {losses}")
     steady = times[1:]
     median = statistics.median(steady)
-    record["train"] = {
-        "rows": BATCH, "steps": LEARN_STEPS, "lr": LEARN_LR,
+    res = {
+        "rows": rows, "steps": steps, "lr": LEARN_LR,
         "losses": losses, "step_ms": times, "step_ms_median": median,
-        "samples_per_s": BATCH / median * 1e3, "peak_memory_bytes": peak,
+        "samples_per_s": rows / median * 1e3, "peak_memory_bytes": peak,
         "launches": counts, "trainable_params": n_trainable}
-    print(f"train step (16 rows, host clock, synchronized) median "
-          f"{median:.3f} ms over steps 2-{LEARN_STEPS}: "
-          f"{BATCH / median * 1e3:.2f} samples/s; peak memory "
+    print(f"{label} step ({rows} rows, host clock, synchronized) median "
+          f"{median:.3f} ms over steps 2-{steps}: "
+          f"{rows / median * 1e3:.2f} samples/s; peak memory "
           f"{peak / 2 ** 30:.2f} GiB; {n_trainable} trainable parameters",
           flush=True)
+    return res, trainer, batch
+
+
+def learn(model, record):
+    """LEARN_STEPS steps of the flagship at batch 16."""
+    res, trainer, batch = train_steps(
+        model, train_batch(BATCH, seed=1), LEARN_STEPS,
+        {"K1": 24, "K2": 24, "A1": 1}, "learn")
+    record["train"] = res
     record["train_profile"] = profile_calls(
         lambda: trainer.train_step(batch), PROFILE_STEPS, "step")
-    return counts
+    return res["launches"]
 
 
 def train_through_cli(record):
@@ -613,7 +800,8 @@ def train_through_cli(record):
         counts = read_counts()
         trainer = results["trainer"]
         steps = trainer.optimizer.step_count
-        if counts["A1"] != steps or counts["K2"] != 24 * steps:
+        if (counts["A1"] != steps or counts["K2"] != 24 * steps
+                or counts["K3"] or counts["K4"] or counts["K5"]):
             fail(f"the CLI's {steps} steps launched {counts}")
         if results["checkpoint"] is None:
             fail("the CLI saved no checkpoint")
@@ -642,7 +830,9 @@ def train_through_cli(record):
 
 def run_training(record):
     model = build_flagship(flash=True, fixed_proj=True)
-    compare_step_gradients(model, record)
+    record["step_gradients"] = compare_step_gradients(
+        model, to_card(train_batch(GRAD_ROWS, seed=5)), {"K1": 24, "K2": 24},
+        lambda: build_flagship(flash=False, fixed_proj=True), "train step")
     counts = learn(model, record)
     del model
     torch.cuda.empty_cache()
@@ -650,7 +840,80 @@ def run_training(record):
     return counts
 
 
-# ---- phase 5: timing ---------------------------------------------------
+# ---- phase 5: the long-sequence path (src4096) ---------------------------
+
+def serve_long(record):
+    """Predictor serves LONG_REQUEST_ROWS rows of src4096 in requests of
+    LONG_BATCH: exactly 12 K3 (text, s=4096) + 12 K1 (vision) per forward;
+    then the towers and probabilities of one request against the plain
+    attention."""
+    from meant_tpu_torch.serve import Predictor
+    model = build_flagship(LONG_SEQ, flash=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    predictor = Predictor(model, "meant_src", batch_size=LONG_BATCH)
+    batch = request_batch(LONG_REQUEST_ROWS, seed=3, seq=LONG_SEQ)
+    chunk = {k: v[:LONG_BATCH] for k, v in batch.items()}
+    predictor(chunk)    # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    probs = predictor(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    n_requests = LONG_REQUEST_ROWS // LONG_BATCH
+    print(f"served src4096: {LONG_REQUEST_ROWS} rows in {n_requests} "
+          f"requests of {LONG_BATCH} in {wall_ms:.3f} ms (host clock): probs "
+          f"{probs.shape}, launches {counts}; {n_params} parameters",
+          flush=True)
+    check_counts(counts, {"K1": n_requests * ENCODERS,
+                          "K3": n_requests * ENCODERS}, "serving src4096")
+    if (probs.shape != (LONG_REQUEST_ROWS, 2) or not np.isfinite(probs).all()
+            or not ((probs > 0) & (probs < 1)).all()):
+        fail(f"bad src4096 probabilities {probs}")
+    plain = build_flagship(LONG_SEQ, flash=False)
+    plain.load_state_dict(model.state_dict())
+    compare_slice("long", towers_and_probs(model, predictor, chunk),
+                  towers_and_probs(plain, Predictor(plain, "meant_src",
+                                                    batch_size=LONG_BATCH),
+                                   chunk), record)
+    del model, plain, predictor
+    torch.cuda.empty_cache()
+    return {"rows": LONG_REQUEST_ROWS, "requests": n_requests,
+            "wall_ms": wall_ms, "launches": counts, "n_params": n_params,
+            "probs": probs.tolist()}
+
+
+def run_long(record):
+    """src4096: serve, one step's gradients against the plain attention at
+    LONG_GRAD_ENCODERS encoders per tower and 1 row, then LONG_STEPS
+    meant_trainer steps at batch 2 and a profiled step."""
+    res = {"serve": serve_long(record)}
+    n = LONG_GRAD_ENCODERS
+    small = build_flagship(LONG_SEQ, flash=True, fixed_proj=True,
+                           num_encoders=n)
+    res["step_gradients"] = compare_step_gradients(
+        small, to_card(train_batch(1, seed=6, seq=LONG_SEQ)),
+        {"K1": n, "K2": n, "K3": n, "K4": n, "K5": n},
+        lambda: build_flagship(LONG_SEQ, flash=False, fixed_proj=True,
+                               num_encoders=n), "src4096 step")
+    del small
+    torch.cuda.empty_cache()
+    model = build_flagship(LONG_SEQ, flash=True, fixed_proj=True)
+    train, trainer, batch = train_steps(
+        model, train_batch(LONG_BATCH, seed=7, seq=LONG_SEQ), LONG_STEPS,
+        {"K1": ENCODERS, "K2": ENCODERS, "K3": ENCODERS, "K4": ENCODERS,
+         "K5": ENCODERS, "A1": 1}, "learn src4096")
+    res["train"] = train
+    res["train_profile"] = profile_calls(
+        lambda: trainer.train_step(batch), 1, "step", LONG_BATCH)
+    record["long"] = res
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    return train["launches"]
+
+
+# ---- phase 6: timing ---------------------------------------------------
 
 def attention_cost(c, backward: bool = False) -> tuple:
     """(bytes, flops) the launch must move and compute. Forward: q, k, v
@@ -749,6 +1012,82 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
     return rows
 
 
+def long_cost(c, kernel: str) -> tuple:
+    """(bytes, flops) a streaming launch must move and compute, each input
+    read once and each output written once: K3 reads q, k, v and writes o
+    and lse; K4 reads q, k, v, dO, lse, delta and writes dq; K5 reads the
+    same and writes dk, dv; the four tables once each. Products over the
+    causal triangle: 2 (K3: S, PV), 3 (K4: S, dP, dS Kr), 4 (K5: S, dP,
+    P^T dO, dS^T Qr)."""
+    q = c["q"]
+    bh, s, d = q.shape[0] * q.shape[1], c["s"], q.shape[-1]
+    tensors = {"K3": 4, "K4": 5, "K5": 6}[kernel]
+    rows = {"K3": 1, "K4": 2, "K5": 2}[kernel]
+    nbytes = (tensors * q.numel() * q.element_size() + rows * bh * s * 4
+              + sum(t.numel() * 4 for t in c["tables"]))
+    pairs = s * (s + 1) // 2 if c["causal"] else s * s
+    products = {"K3": 2, "K4": 3, "K5": 4}[kernel]
+    return nbytes, products * 2 * bh * pairs * d
+
+
+def plain_ms_fitting(fn, big, small, iters: int):
+    """The plain version's ms per call at the main path's BH where its
+    (BH, s, s) fp32 matrices fit on the card, else at LONG_CHECK_BH;
+    returns (ms, BH timed)."""
+    try:
+        return event_ms(lambda: fn(big), iters=iters, warmup=1), (
+            big["q"].shape[0] * big["q"].shape[1])
+    except torch.cuda.OutOfMemoryError:
+        torch.cuda.empty_cache()
+        return event_ms(lambda: fn(small), iters=iters, warmup=1), (
+            small["q"].shape[0] * small["q"].shape[1])
+
+
+def time_long_kernels(long_errors, long_counts):
+    """K3, K4 and K5 at the main path's launch (BH=80, s=4096, bf16,
+    causal xPos): ms per launch, bound, plain version, and the yardstick:
+    rotation + causal SDPA (K3), its backward (K4 and K5 together)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    big = long_case("text", torch.bfloat16, gen, LONG_TIME_BH)
+    small = long_case("text", torch.bfloat16, gen, LONG_CHECK_BH)
+    shape, rows = list(big["q"].shape), []
+    library_fwd = event_ms(lambda: run_library(big), iters=10)
+    library = run_library_bwd(big)
+    library_bwd = event_ms(library, iters=5)
+    del library
+    torch.cuda.empty_cache()
+    plans = (
+        ("K3", "flash_fwd_online", "meant_tpu_torch/csrc/flash_fwd.cu",
+         "meant_tpu/ops/flash/kernel.py:127", run_online_kernel,
+         run_online_plain, "long_text/bfloat16/out", library_fwd, 10),
+        ("K4", "flash_bwd_dq", "meant_tpu_torch/csrc/flash_bwd_online.cu",
+         "meant_tpu/ops/flash/kernel.py:456", run_online_dq_kernel,
+         run_online_dq_plain, "long_text/bfloat16/dq", library_bwd, 5),
+        ("K5", "flash_bwd_dkdv", "meant_tpu_torch/csrc/flash_bwd_online.cu",
+         "meant_tpu/ops/flash/kernel.py:527", run_online_dkdv_kernel,
+         run_online_dkdv_plain, ("long_text/bfloat16/dk",
+                                 "long_text/bfloat16/dv"), library_bwd, 5))
+    for (kernel, name, source, replaces, run, plain, err_keys, library_ms,
+         iters) in plans:
+        ms = event_ms(lambda: run(big), iters=iters)
+        plain_ms, plain_bh = plain_ms_fitting(plain, big, small, iters=2)
+        torch.cuda.empty_cache()
+        keys = err_keys if isinstance(err_keys, tuple) else (err_keys,)
+        nbytes, flops = long_cost(big, kernel)
+        rows.append(kernel_row(
+            f"{name}[s4096 causal xPos]", source, replaces,
+            long_counts[kernel], max(long_errors[k] for k in keys), ms,
+            plain_ms, library_ms, nbytes, flops, PEAK_BF16_FLOPS,
+            shape=shape, dtype="bfloat16", plain_bh=plain_bh,
+            library_call=("rotation + scaled_dot_product_attention"
+                          if kernel == "K3" else
+                          "backward of rotation + scaled_dot_product_"
+                          "attention (dq, dk, dv: K4 and K5 together)")))
+    del big, small
+    torch.cuda.empty_cache()
+    return rows
+
+
 def time_requests(predictor, chunk, record, iters: int = 7):
     predictor(chunk)
     times = []
@@ -766,10 +1105,16 @@ def time_requests(predictor, chunk, record, iters: int = 7):
           f"{fwd_ms:.3f} ms", flush=True)
 
 
-# ---- phase 6: where a request's device time goes -----------------------
+# ---- phase 7: where a request's device time goes -----------------------
 
 def _kind(name: str) -> str:
     low = name.lower()
+    if "flash_fwd_lse" in low:
+        return "flash_fwd_lse (K3)"
+    if "flash_bwd_online_dq" in low:
+        return "flash_bwd_online_dq (K4)"
+    if "flash_bwd_online_dkdv" in low:
+        return "flash_bwd_online_dkdv (K5)"
     if "flash_fwd" in low:
         return "flash_fwd (K1)"
     if "flash_bwd" in low:
@@ -782,7 +1127,7 @@ def _kind(name: str) -> str:
     return "other (elementwise, norms, copies, reductions)"
 
 
-def profile_calls(fn, count: int, unit: str) -> dict:
+def profile_calls(fn, count: int, unit: str, rows: int = BATCH) -> dict:
     """Device time per call of fn by kernel and kind, from torch.profiler's
     device-side events (kernels, copies; the host-side ops above them
     would count the same time again), and the device's idle share."""
@@ -811,14 +1156,14 @@ def profile_calls(fn, count: int, unit: str) -> dict:
     for name, ms, _ in kernels:
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + ms
     idle = max(0.0, 1.0 - busy / wall_ms)
-    print(f"profile, per {unit} of {BATCH} rows: wall {wall_ms:.3f} ms, "
+    print(f"profile, per {unit} of {rows} rows: wall {wall_ms:.3f} ms, "
           f"device busy {busy:.3f} ms in {launches} kernels and copies, "
           f"idle share {idle:.3f}", flush=True)
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {kind}: {ms:.3f} ms ({ms / busy:.1%})")
     for name, ms, n in kernels[:12]:
         print(f"  {ms:9.3f} ms x{n:<5} {name[:100]}")
-    return {f"{unit}s": count, "rows": BATCH,
+    return {f"{unit}s": count, "rows": rows,
             f"device_ops_per_{unit}": launches,
             f"wall_ms_per_{unit}": wall_ms,
             f"device_busy_ms_per_{unit}": busy, "device_idle_share": idle,
@@ -857,11 +1202,14 @@ def main(argv=None) -> int:
 
     errors = check_kernel(record)
     bwd_errors = check_backward(record)
+    long_errors = check_long_kernels(record)
     predictor, chunk, by_shape = run_slice(record)
     a1_err = check_adamw(record, record["n_params"])
     train_counts = run_training(record)
+    long_counts = run_long(record)
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
                         a1_err, record["n_params"])
+    rows[-1:-1] = time_long_kernels(long_errors, long_counts)  # before A1
     time_requests(predictor, chunk, record)
     record["profile"] = profile_calls(lambda: predictor.forward(chunk),
                                       PROFILE_FORWARDS, "forward")

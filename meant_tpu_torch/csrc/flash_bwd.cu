@@ -56,8 +56,6 @@
 // C interface (loaded with ctypes): meant_flash_bwd returns the
 // cudaError_t of the launches (0 on success); it never synchronises.
 
-#include <type_traits>
-
 #include "flash_common.cuh"
 
 namespace {
@@ -67,122 +65,10 @@ using namespace meant;
 constexpr int kTile = 64;      // q rows (dq kernel) or keys (dk/dv kernel)
 constexpr int kThreads = 128;  // 4 warps, 16 rows each
 
-// Shared-memory row padding in elements. bf16: 8 keep mma.sync's row reads
-// on distinct banks; fp32: 1 makes the row stride odd for the scalar reads.
-template <typename T>
-struct Pad {
-  static constexpr int value = std::is_same<T, bf16>::value ? 8 : 1;
-};
-
-// C (16 x 8*NT) += A (16 x K) * B (8*NT x K)^T. A and B are row-major with
-// the depth K contiguous (row strides lda, ldb elements); A points at this
-// warp's 16 rows, B at the first of its 8*NT rows. Lane (g, t) holds
-// c[j][0..1] at row g, columns 8j+2t, 8j+2t+1 and c[j][2..3] at row g+8.
-template <int NT, int K>
-__device__ __forceinline__ void warp_mm(float (&c)[NT][4], const bf16* A,
-                                        int lda, const bf16* B, int ldb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kc = 0; kc < K / 16; ++kc) {
-    const bf16* a = A + g * lda + kc * 16 + 2 * t;
-    const uint32_t af[4] = {ld_pair(a), ld_pair(a + 8 * lda), ld_pair(a + 8),
-                            ld_pair(a + 8 * lda + 8)};
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const bf16* b = B + (j * 8 + g) * ldb + kc * 16 + 2 * t;
-      mma_bf16(c[j], af, ld_pair(b), ld_pair(b + 8));
-    }
-  }
-}
-
-template <int NT, int K>
-__device__ __forceinline__ void warp_mm(float (&c)[NT][4], const float* A,
-                                        int lda, const float* B, int ldb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float* a_lo = A + g * lda;
-  const float* a_hi = A + (g + 8) * lda;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float a0 = a_lo[k], a1 = a_hi[k];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float b0 = B[(j * 8 + 2 * t) * ldb + k];
-      const float b1 = B[(j * 8 + 2 * t + 1) * ldb + k];
-      c[j][0] = fmaf(a0, b0, c[j][0]);
-      c[j][1] = fmaf(a0, b1, c[j][1]);
-      c[j][2] = fmaf(a1, b0, c[j][2]);
-      c[j][3] = fmaf(a1, b1, c[j][3]);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-}
-
-// Rows [row0, row0 + kTile) of one (seq, D) slice into shared memory:
-// rotated with the fp32 tables when cos_t is given (x*cos + H(x)*sin, no FMA
-// contraction, as the reference rounds it), rounded to T, rows at or past
-// seq zero. dst is [kTile][ld]; dstT, when given, receives the transpose
-// [D][ldT] as well.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, int ld, T* dstT, int ldT,
-                                          const T* src, const float* cos_t,
-                                          const float* sin_t, int row0,
-                                          int seq) {
-  constexpr int kPairs = D / 2;
-  for (int e = threadIdx.x; e < kTile * kPairs; e += kThreads) {
-    const int r = e / kPairs;
-    const int c = 2 * (e % kPairs);
-    const int gr = row0 + r;
-    float y0 = 0.f, y1 = 0.f;
-    if (gr < seq) {
-      const float x0 = to_f<T>(src[(size_t)gr * D + c]);
-      const float x1 = to_f<T>(src[(size_t)gr * D + c + 1]);
-      if (cos_t != nullptr) {
-        const float* cs = cos_t + (size_t)gr * D + c;
-        const float* sn = sin_t + (size_t)gr * D + c;
-        y0 = __fadd_rn(__fmul_rn(x0, cs[0]), __fmul_rn(-x1, sn[0]));
-        y1 = __fadd_rn(__fmul_rn(x1, cs[1]), __fmul_rn(x0, sn[1]));
-      } else {
-        y0 = x0;
-        y1 = x1;
-      }
-    }
-    const T v0 = from_f<T>(y0), v1 = from_f<T>(y1);
-    dst[r * ld + c] = v0;
-    dst[r * ld + c + 1] = v1;
-    if (dstT != nullptr) {
-      dstT[c * ldT + r] = v0;
-      dstT[(c + 1) * ldT + r] = v1;
-    }
-  }
-}
-
-// The adjoint of the rotation for one interleaved pair of a gradient row:
-// (cos o g - H(sin o g)) at columns c, c+1, rounded to T.
-template <typename T>
-__device__ __forceinline__ void store_adjoint(T* out, const float* cos_row,
-                                              const float* sin_row, int c,
-                                              float g0, float g1) {
-  out[c] = from_f<T>(__fadd_rn(__fmul_rn(cos_row[c], g0),
-                               __fmul_rn(sin_row[c + 1], g1)));
-  out[c + 1] = from_f<T>(__fsub_rn(__fmul_rn(cos_row[c + 1], g1),
-                                   __fmul_rn(sin_row[c], g0)));
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  // the four lanes of a row group hold the row's other columns
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
+// The shared building blocks (Pad, warp_mm, zero, load_tile,
+// store_adjoint, row_sum, row_max) are in flash_common.cuh; load_tile's
+// default tile is this file's.
+static_assert(kTile == 64 && kThreads == 128, "load_tile's default tile");
 
 template <typename T, int D>
 constexpr int dq_smem_bytes() {

@@ -1,0 +1,373 @@
+// Streaming rotary-fused flash-attention backward for Hopper (sm_90a):
+// dQ (K4) and dK/dV (K5).
+//
+// Replaces the TPU kernels meant_tpu/ops/flash/kernel.py:_bwd_dq_kernel
+// (K4) and _bwd_dkdv_kernel (K5), launched by _flash_bwd_online through the
+// joint (out, lse) custom VJP of _make_flash. Given the forward's per-row
+// log-sum-exp lse (K3, flash_fwd.cu) and delta = rowsum(dO o O) - g_lse
+// (computed outside the kernels, as JAX computes it in XLA), with q, k
+// rotated by the fp32 tables and rounded to the input dtype T as in the
+// forward, for each (batch*head):
+//   P   = exp(mask(scale * Qr Kr^T) - lse)        (fp32; 0 where -inf)
+//   dV  = T(P)^T dO                               (fp32 sums)
+//   dS  = T(P o (dO V^T - delta) * scale)
+//   dQ  = rot^T(dS Kr),  dK = rot^T(dS^T Qr)
+// with rot^T(g) = cos o g - H(sin o g), H the interleaved rotate_half.
+// P comes from lse exactly as the reference takes it. On a batch row whose
+// keys are all masked every score rounds to -1e9 and so does lse, so P is 1
+// for every key there, where the resident backward (K2) has 1/s: the
+// reference's result, kept (ROADMAP §5).
+//
+// Design. These are K2's two kernels (flash_bwd.cu) without its statistics
+// pass: lse and delta are read, not recomputed. Every output element has
+// one writer, no atomics, the result is deterministic:
+//   * flash_bwd_online_dq_kernel (K4), one block per (bh, 64-row q tile),
+//     walks the K/V tiles up to the diagonal, forms dS and accumulates dQr
+//     in fp32 registers; the adjoint is applied once at the end;
+//   * flash_bwd_online_dkdv_kernel (K5), one block per (bh, 64-row k tile),
+//     walks the q tiles from the diagonal, recomputes S^T = Kr Qr^T and
+//     dP^T = V dO^T, and accumulates dV and dKr in fp32 registers.
+// Rows and keys past s are zero-filled on load, get P = 0 and are never
+// written. Every product is the warp-level NT routine of flash_common.cuh:
+// mma.sync m16n8k16 for bf16 (the main path), scalar fp32 FMAs in the same
+// fragment layout for fp32 (the tight on-card check). P and dS pass through
+// a per-warp shared-memory slab in the input dtype, exactly where the
+// reference rounds them. Only head dim 96 is instantiated.
+//
+// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s) at the main
+// path's shapes (text tower of src4096: BH = 80, s = 4096, d = 96, bf16,
+// causal): K4 runs three products over the causal triangle (S, dP, dS Kr),
+// 386.5 GFLOP, 0.39 ms; K5 four (S, dP, P^T dO, dS^T Qr), 515.4 GFLOP,
+// 0.52 ms; both are bound by operations (each moves some 0.3 GB, 0.1 ms).
+// Neither pipelines its loads (no cp.async/TMA, no wgmma): later work.
+//
+// C interface (loaded with ctypes): meant_flash_bwd_dq and
+// meant_flash_bwd_dkdv return the cudaError_t of the launch (0 on
+// success); they never synchronise.
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace meant;
+
+constexpr int kTile = 64;      // q rows (K4) or keys (K5)
+constexpr int kThreads = 128;  // 4 warps, 16 rows each
+static_assert(kTile == 64 && kThreads == 128, "load_tile's default tile");
+
+template <typename T, int D>
+constexpr int dq_smem_bytes() {
+  return (int)sizeof(T) * (4 * kTile * (D + Pad<T>::value) +
+                           D * (kTile + Pad<T>::value) +
+                           kTile * (kTile + Pad<T>::value));
+}
+
+template <typename T, int D>
+constexpr int dkdv_smem_bytes() {
+  return (int)sizeof(T) * (4 * kTile * (D + Pad<T>::value) +
+                           2 * D * (kTile + Pad<T>::value) +
+                           2 * kTile * (kTile + Pad<T>::value)) +
+         2 * kTile * (int)sizeof(float);
+}
+
+// ---- K4: dQ -----------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_online_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq,
+    const float* __restrict__ qcos, const float* __restrict__ qsin,
+    const float* __restrict__ kcos, const float* __restrict__ ksin,
+    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
+    float scale, int causal) {
+  constexpr int ld = D + Pad<T>::value;       // [row][d] tiles
+  constexpr int ldk = kTile + Pad<T>::value;  // [.][key] tiles
+  constexpr int kNk = kTile / 8;              // n-tiles over keys
+  constexpr int kNd = D / 8;                  // n-tiles over d
+  extern __shared__ float smem[];
+  T* qs = reinterpret_cast<T*>(smem);  // [kTile][ld] rotated q
+  T* dos = qs + kTile * ld;            // [kTile][ld] dO
+  T* ks = dos + kTile * ld;            // [kTile][ld] rotated k
+  T* vs = ks + kTile * ld;             // [kTile][ld] v
+  T* kts = vs + kTile * ld;            // [D][ldk] rotated k, transposed
+  T* dss = kts + D * ldk;              // [kTile][ldk] dS, a slab per warp
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const size_t base = (size_t)bh * seq * D;
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+  const T* qw = qs + warp * 16 * ld;
+  const T* dow = dos + warp * 16 * ld;
+  T* dsw = dss + warp * 16 * ldk;
+
+  load_tile<T, D>(qs, ld, nullptr, 0, q + base, qcos, qsin, q0, seq);
+  load_tile<T, D>(dos, ld, nullptr, 0, dout + base, nullptr, nullptr, q0,
+                  seq);
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool valid = row[h] < seq;
+    const size_t i = (size_t)bh * seq + row[h];
+    row_lse[h] = valid ? lse[i] : 0.f;
+    row_delta[h] = valid ? delta[i] : 0.f;
+  }
+  const int n_k = (seq + kTile - 1) / kTile;
+  const int n_tiles = causal ? min(n_k, (int)blockIdx.y + 1) : n_k;
+
+  float acc[kNd][4];
+  zero(acc);
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kTile;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<T, D>(ks, ld, kts, ldk, k + base, kcos, ksin, k0, seq);
+    load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+    __syncthreads();
+    float s[kNk][4], dp[kNk][4];
+    zero(s);
+    zero(dp);
+    warp_mm<kNk, D>(s, qw, ld, ks, ld);
+    warp_mm<kNk, D>(dp, dow, ld, vs, ld);
+#pragma unroll
+    for (int j = 0; j < kNk; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int col = j * 8 + 2 * t + (e & 1);
+        const float sc = masked_score(s[j][e], scale, row[h], k0 + col, seq,
+                                      causal, km);
+        const float p = (sc == -INFINITY) ? 0.f : expf(sc - row_lse[h]);
+        dsw[(g + 8 * h) * ldk + col] =
+            from_f<T>(p * (dp[j][e] - row_delta[h]) * scale);
+      }
+    __syncwarp();
+    warp_mm<kNd, kTile>(acc, dsw, ldk, kts, ldk);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= seq) continue;
+    T* out = dq + base + (size_t)row[h] * D;
+    const float* cr = qcos + (size_t)row[h] * D;
+    const float* sr = qsin + (size_t)row[h] * D;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j)
+      store_adjoint<T>(out, cr, sr, j * 8 + 2 * t, acc[j][2 * h],
+                       acc[j][2 * h + 1]);
+  }
+}
+
+// ---- K5: dK and dV ------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_online_dkdv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+    const float* __restrict__ qcos, const float* __restrict__ qsin,
+    const float* __restrict__ kcos, const float* __restrict__ ksin,
+    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
+    float scale, int causal) {
+  constexpr int ld = D + Pad<T>::value;
+  constexpr int ldk = kTile + Pad<T>::value;
+  constexpr int kNq = kTile / 8;  // n-tiles over q rows
+  constexpr int kNd = D / 8;
+  extern __shared__ float smem[];
+  T* ks = reinterpret_cast<T*>(smem);  // [kTile][ld] rotated k
+  T* vs = ks + kTile * ld;             // [kTile][ld] v
+  T* qs = vs + kTile * ld;             // [kTile][ld] rotated q
+  T* dos = qs + kTile * ld;            // [kTile][ld] dO
+  T* qts = dos + kTile * ld;           // [D][ldk] rotated q, transposed
+  T* dots = qts + D * ldk;             // [D][ldk] dO, transposed
+  T* ps = dots + D * ldk;              // [kTile][ldk] P^T, a slab per warp
+  T* dss = ps + kTile * ldk;           // [kTile][ldk] dS^T, a slab per warp
+  float* st_lse = reinterpret_cast<float*>(dss + kTile * ldk);  // [kTile]
+  float* st_dl = st_lse + kTile;                                 // [kTile]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, k0 = blockIdx.y * kTile;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const size_t base = (size_t)bh * seq * D;
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+  const T* kw = ks + warp * 16 * ld;
+  const T* vw = vs + warp * 16 * ld;
+  T* pw = ps + warp * 16 * ldk;
+  T* dsw = dss + warp * 16 * ldk;
+
+  load_tile<T, D>(ks, ld, nullptr, 0, k + base, kcos, ksin, k0, seq);
+  load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+
+  float dv_acc[kNd][4], dk_acc[kNd][4];
+  zero(dv_acc);
+  zero(dk_acc);
+  const int n_q = (seq + kTile - 1) / kTile;
+  for (int qt = causal ? (int)blockIdx.y : 0; qt < n_q; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile<T, D>(qs, ld, qts, ldk, q + base, qcos, qsin, q0, seq);
+    load_tile<T, D>(dos, ld, dots, ldk, dout + base, nullptr, nullptr, q0,
+                    seq);
+    for (int i = threadIdx.x; i < kTile; i += kThreads) {
+      const bool valid = q0 + i < seq;
+      const size_t r = (size_t)bh * seq + q0 + i;
+      st_lse[i] = valid ? lse[r] : 0.f;
+      st_dl[i] = valid ? delta[r] : 0.f;
+    }
+    __syncthreads();
+    float s[kNq][4], dp[kNq][4];
+    zero(s);
+    zero(dp);
+    warp_mm<kNq, D>(s, kw, ld, qs, ld);    // S^T: rows keys, columns q
+    warp_mm<kNq, D>(dp, vw, ld, dos, ld);  // dP^T
+#pragma unroll
+    for (int j = 0; j < kNq; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int qi = j * 8 + 2 * t + (e & 1);
+        const float sc = masked_score(s[j][e], scale, q0 + qi, key[h], seq,
+                                      causal, km);
+        const float p = (sc == -INFINITY || q0 + qi >= seq)
+                            ? 0.f
+                            : expf(sc - st_lse[qi]);
+        pw[(g + 8 * h) * ldk + qi] = from_f<T>(p);
+        dsw[(g + 8 * h) * ldk + qi] =
+            from_f<T>(p * (dp[j][e] - st_dl[qi]) * scale);
+      }
+    __syncwarp();
+    warp_mm<kNd, kTile>(dv_acc, pw, ldk, dots, ldk);
+    warp_mm<kNd, kTile>(dk_acc, dsw, ldk, qts, ldk);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= seq) continue;
+    T* dv_row = dv + base + (size_t)key[h] * D;
+    T* dk_row = dk + base + (size_t)key[h] * D;
+    const float* cr = kcos + (size_t)key[h] * D;
+    const float* sr = ksin + (size_t)key[h] * D;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      const int c = j * 8 + 2 * t;
+      dv_row[c] = from_f<T>(dv_acc[j][2 * h]);
+      dv_row[c + 1] = from_f<T>(dv_acc[j][2 * h + 1]);
+      store_adjoint<T>(dk_row, cr, sr, c, dk_acc[j][2 * h],
+                       dk_acc[j][2 * h + 1]);
+    }
+  }
+}
+
+// ---- launch --------------------------------------------------------------
+
+constexpr int kHeadDim = 96;  // the only head dim instantiated
+
+struct Args {
+  int dtype;
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta, *qcos, *qsin, *kcos, *ksin, *kmask;
+  int mask_rows, bh, seq, d, num_heads;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+bool invalid(const Args& a) {
+  return a.bh <= 0 || a.seq <= 0 || a.d != kHeadDim ||
+         (a.dtype != 0 && a.dtype != 1) ||
+         (a.seq + kTile - 1) / kTile > 65535;
+}
+
+template <typename T>
+cudaError_t launch_dq(const Args& a, void* dq) {
+  constexpr int bytes = dq_smem_bytes<T, kHeadDim>();
+  auto kernel = flash_bwd_online_dq_kernel<T, kHeadDim>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.seq + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(dq), a.qcos, a.qsin, a.kcos, a.ksin, a.kmask,
+      a.mask_rows, a.seq, a.num_heads, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkdv(const Args& a, void* dk, void* dv) {
+  constexpr int bytes = dkdv_smem_bytes<T, kHeadDim>();
+  auto kernel = flash_bwd_online_dkdv_kernel<T, kHeadDim>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.seq + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.qcos, a.qsin,
+      a.kcos, a.ksin, a.kmask, a.mask_rows, a.seq, a.num_heads, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
+Args make_args(int dtype, const void* q, const void* k, const void* v,
+               const void* dout, const void* lse, const void* delta,
+               const void* qcos, const void* qsin, const void* kcos,
+               const void* ksin, const void* kmask, int mask_rows, int bh,
+               int seq, int d, int num_heads, float scale, int causal,
+               void* stream) {
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return Args{dtype,     q,         k,         v,       dout,
+              f(lse),    f(delta),  f(qcos),   f(qsin), f(kcos),
+              f(ksin),   f(kmask),  mask_rows, bh,      seq,
+              d,         num_heads, scale,     causal,
+              static_cast<cudaStream_t>(stream)};
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q/k/v/dout and the gradients: (bh, seq,
+// d) contiguous; lse, delta: (bh, seq) fp32; tables: (seq, d) fp32; kmask:
+// (mask_rows, seq) fp32 or null.
+
+// K4: dq.
+extern "C" int meant_flash_bwd_dq(int dtype, const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dq, const void* qcos,
+                                  const void* qsin, const void* kcos,
+                                  const void* ksin, const void* kmask,
+                                  int mask_rows, int bh, int seq, int d,
+                                  int num_heads, float scale, int causal,
+                                  void* stream) {
+  const Args a = make_args(dtype, q, k, v, dout, lse, delta, qcos, qsin,
+                           kcos, ksin, kmask, mask_rows, bh, seq, d,
+                           num_heads, scale, causal, stream);
+  if (invalid(a)) return (int)cudaErrorInvalidValue;
+  return (int)(dtype == 0 ? launch_dq<float>(a, dq) : launch_dq<bf16>(a, dq));
+}
+
+// K5: dk and dv.
+extern "C" int meant_flash_bwd_dkdv(int dtype, const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dk, void* dv, const void* qcos,
+                                    const void* qsin, const void* kcos,
+                                    const void* ksin, const void* kmask,
+                                    int mask_rows, int bh, int seq, int d,
+                                    int num_heads, float scale, int causal,
+                                    void* stream) {
+  const Args a = make_args(dtype, q, k, v, dout, lse, delta, qcos, qsin,
+                           kcos, ksin, kmask, mask_rows, bh, seq, d,
+                           num_heads, scale, causal, stream);
+  if (invalid(a)) return (int)cudaErrorInvalidValue;
+  return (int)(dtype == 0 ? launch_dkdv<float>(a, dk, dv)
+                          : launch_dkdv<bf16>(a, dk, dv));
+}

@@ -43,8 +43,24 @@
 // 10 us on the tensor cores: both shapes are bound by bytes. Neither kernel
 // pipelines its loads (no cp.async/TMA, no wgmma): that is later work.
 //
-// C interface (loaded with ctypes): meant_flash_fwd returns the
-// cudaError_t of the launch (0 on success); it never synchronises.
+// K3. The same bodies also replace the streaming forward
+// meant_tpu/ops/flash/kernel.py:_fwd_online_kernel (launched by
+// _flash_fwd_online, the path flash_mha takes past the resident limits, for
+// return_lse and for force_online). That kernel walks k blocks with an
+// online softmax and rounds the unnormalised P at the running max, exactly
+// as the design above does, and writes each row's log-sum-exp beside the
+// output: lse = m_safe + log(max(l, 1e-30)), m_safe = 0 on a row with no
+// finite score. K3 is that, as a second instantiation (kLse) with its own
+// kernels and entry point, meant_flash_fwd_lse; lse is (bh, seq) fp32, rows
+// past seq are not written. K1's code is the kLse = false instantiation and
+// does not change. At its main path's shapes (text tower of src4096: BH =
+// 80, s = 4096, d = 96, bf16, causal) K3 is bound by operations: two
+// products over the causal triangle, 257.7 GFLOP, 0.26 ms at 989 TFLOP/s,
+// against 259 MB of q, k, v, o, lse and tables (0.077 ms).
+//
+// C interface (loaded with ctypes): meant_flash_fwd (K1) and
+// meant_flash_fwd_lse (K3) return the cudaError_t of the launch (0 on
+// success); they never synchronise.
 
 #include <type_traits>
 
@@ -102,12 +118,21 @@ constexpr int mma_smem_bytes() {
                               D * (kBlockK + kPadH));
 }
 
-// Fragment layout of m16n8k16: see flash_common.cuh.
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
+// The log-sum-exp K3 writes for a row whose running max is m and whose
+// denominator (relative to that max, or to 0 when m = -inf) is l, as the
+// TPU kernel writes it: m_safe + log(max(l, 1e-30)).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return (m == -INFINITY ? 0.f : m) + logf(fmaxf(l, 1e-30f));
+}
+
+// Fragment layout of m16n8k16: see flash_common.cuh. The body of K1
+// (kLse false) and of K3 (kLse true: each row's log-sum-exp is written to
+// lse[bh * seq + row] as well).
+template <int D, bool kLse>
+__device__ __forceinline__ void fwd_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o,
-    const float* __restrict__ qcos, const float* __restrict__ qsin,
+    float* __restrict__ lse, const float* __restrict__ qcos, const float* __restrict__ qsin,
     const float* __restrict__ kcos, const float* __restrict__ ksin,
     const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
     float scale, int causal) {
@@ -237,6 +262,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
     for (int j = 0; j < kTilesO; ++j)
       *reinterpret_cast<uint32_t*>(out + j * 8) =
           pack_pair(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+    if constexpr (kLse) {
+      if (t == 0) lse[(size_t)bh * seq + row[h]] = row_lse(m[h], l[h]);
+    }
   }
 }
 
@@ -254,11 +282,11 @@ constexpr int fp32_smem_bytes() {
           kBlockQ * (kBlockK + 1));
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_fwd_fp32_kernel(
+template <int D, bool kLse>
+__device__ __forceinline__ void fwd_fp32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
-    const float* __restrict__ qcos, const float* __restrict__ qsin,
+    float* __restrict__ lse, const float* __restrict__ qcos, const float* __restrict__ qsin,
     const float* __restrict__ kcos, const float* __restrict__ ksin,
     const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
     float scale, int causal) {
@@ -374,41 +402,115 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_fp32_kernel(
 #pragma unroll
     for (int j = 0; j < kOut; ++j)
       o[base + (size_t)row * D + tx + kTx * j] = acc[i][j] * inv;
+    if constexpr (kLse) {
+      if (tx == 0) lse[(size_t)bh * seq + row] = row_lse(m[i], l[i]);
+    }
   }
 }
 
+// ---- the kernels: K1 and K3 share their bodies -----------------------------
+
+#define FLASH_FWD_PARAMS(T)                                                  \
+  const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, \
+      T* __restrict__ o, float* __restrict__ lse,                            \
+      const float* __restrict__ qcos, const float* __restrict__ qsin,        \
+      const float* __restrict__ kcos, const float* __restrict__ ksin,        \
+      const float* __restrict__ kmask, int mask_rows, int seq,               \
+      int num_heads, float scale, int causal
+#define FLASH_FWD_ARGS                                                     \
+  q, k, v, o, lse, qcos, qsin, kcos, ksin, kmask, mask_rows, seq, num_heads, \
+      scale, causal
+
+// K1 (lse unused, null)
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_mma_kernel(FLASH_FWD_PARAMS(bf16)) {
+  fwd_mma<D, false>(FLASH_FWD_ARGS);
+}
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_fp32_kernel(FLASH_FWD_PARAMS(float)) {
+  fwd_fp32<D, false>(FLASH_FWD_ARGS);
+}
+// K3
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_lse_mma_kernel(FLASH_FWD_PARAMS(bf16)) {
+  fwd_mma<D, true>(FLASH_FWD_ARGS);
+}
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_lse_fp32_kernel(FLASH_FWD_PARAMS(float)) {
+  fwd_fp32<D, true>(FLASH_FWD_ARGS);
+}
+
+#undef FLASH_FWD_PARAMS
+#undef FLASH_FWD_ARGS
+
 // ---- launch --------------------------------------------------------------
 
-// The kernel for an input dtype: tensor cores for bf16, scalar for fp32.
-template <int D> auto kernel_for(const bf16*) { return flash_fwd_mma_kernel<D>; }
-template <int D> auto kernel_for(const float*) { return flash_fwd_fp32_kernel<D>; }
+// The kernel for an input dtype: tensor cores for bf16, scalar for fp32;
+// K3 when kLse.
+template <int D, bool kLse> auto kernel_for(const bf16*) {
+  return kLse ? flash_fwd_lse_mma_kernel<D> : flash_fwd_mma_kernel<D>;
+}
+template <int D, bool kLse> auto kernel_for(const float*) {
+  return kLse ? flash_fwd_lse_fp32_kernel<D> : flash_fwd_fp32_kernel<D>;
+}
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const float* qcos, const float* qsin, const float* kcos,
-                   const float* ksin, const float* kmask, int mask_rows,
+                   float* lse, const float* qcos, const float* qsin,
+                   const float* kcos, const float* ksin, const float* kmask, int mask_rows,
                    int bh, int seq, int num_heads, float scale, int causal,
                    cudaStream_t stream) {
   constexpr int bytes = std::is_same<T, bf16>::value ? mma_smem_bytes<D>()
                                                      : fp32_smem_bytes<D>();
-  auto kernel = kernel_for<D>(static_cast<const T*>(nullptr));
+  auto kernel = kernel_for<D, kLse>(static_cast<const T*>(nullptr));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (seq + kBlockQ - 1) / kBlockQ);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qcos, qsin, kcos, ksin,
-      kmask, mask_rows, seq, num_heads, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, qcos, qsin, kcos,
+      ksin, kmask, mask_rows, seq, num_heads, scale, causal);
   return cudaGetLastError();
 }
 
 constexpr int kHeadDim = 96;  // the only head dim instantiated
 
+template <bool kLse>
+int entry(int dtype, const void* q, const void* k, const void* v, void* o,
+          void* lse, const void* qcos, const void* qsin, const void* kcos,
+          const void* ksin, const void* kmask, int mask_rows, int bh,
+          int seq, int d, int num_heads, float scale, int causal,
+          void* stream) {
+  if (bh <= 0 || seq <= 0 || d != kHeadDim || (dtype != 0 && dtype != 1) ||
+      (seq + kBlockQ - 1) / kBlockQ > 65535 || (kLse && lse == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const auto* qc = static_cast<const float*>(qcos);
+  const auto* qs = static_cast<const float*>(qsin);
+  const auto* kc = static_cast<const float*>(kcos);
+  const auto* kn = static_cast<const float*>(ksin);
+  const auto* km = static_cast<const float*>(kmask);
+  auto* ls = static_cast<float*>(lse);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == 0 ? launch<float, kHeadDim, kLse>(q, k, v, o, ls, qc, qs, kc,
+                                                 kn, km, mask_rows, bh, seq,
+                                                 num_heads, scale, causal, st)
+                 : launch<bf16, kHeadDim, kLse>(q, k, v, o, ls, qc, qs, kc,
+                                                kn, km, mask_rows, bh, seq,
+                                                num_heads, scale, causal, st);
+  return (int)err;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/o: (bh, seq, d) contiguous;
 // tables: (seq, d) fp32; kmask: (mask_rows, seq) fp32 or null.
+// K1: the output only.
 extern "C" int meant_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, const void* qcos,
                                const void* qsin, const void* kcos,
@@ -416,20 +518,19 @@ extern "C" int meant_flash_fwd(int dtype, const void* q, const void* k,
                                int mask_rows, int bh, int seq, int d,
                                int num_heads, float scale, int causal,
                                void* stream) {
-  if (bh <= 0 || seq <= 0 || d != kHeadDim || (dtype != 0 && dtype != 1) ||
-      (seq + kBlockQ - 1) / kBlockQ > 65535)
-    return (int)cudaErrorInvalidValue;
-  const auto* qc = static_cast<const float*>(qcos);
-  const auto* qs = static_cast<const float*>(qsin);
-  const auto* kc = static_cast<const float*>(kcos);
-  const auto* kn = static_cast<const float*>(ksin);
-  const auto* km = static_cast<const float*>(kmask);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0
-          ? launch<float, kHeadDim>(q, k, v, o, qc, qs, kc, kn, km, mask_rows,
-                                    bh, seq, num_heads, scale, causal, st)
-          : launch<bf16, kHeadDim>(q, k, v, o, qc, qs, kc, kn, km, mask_rows,
-                                   bh, seq, num_heads, scale, causal, st);
-  return (int)err;
+  return entry<false>(dtype, q, k, v, o, nullptr, qcos, qsin, kcos, ksin,
+                      kmask, mask_rows, bh, seq, d, num_heads, scale, causal,
+                      stream);
+}
+
+// K3: the output and each row's log-sum-exp, lse: (bh, seq) fp32.
+extern "C" int meant_flash_fwd_lse(int dtype, const void* q, const void* k,
+                                   const void* v, void* o, void* lse,
+                                   const void* qcos, const void* qsin,
+                                   const void* kcos, const void* ksin,
+                                   const void* kmask, int mask_rows, int bh,
+                                   int seq, int d, int num_heads, float scale,
+                                   int causal, void* stream) {
+  return entry<true>(dtype, q, k, v, o, lse, qcos, qsin, kcos, ksin, kmask,
+                     mask_rows, bh, seq, d, num_heads, scale, causal, stream);
 }

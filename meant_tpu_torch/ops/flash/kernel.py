@@ -1,17 +1,24 @@
 """Rotary-fused flash attention, forward and backward (counterpart of
-meant_tpu/ops/flash/kernel.py: the resident forward `_fwd_kernel`, K1, and
-the resident backward `_bwd_kernel`, K2, behind `flash_mha`'s custom VJP).
+meant_tpu/ops/flash/kernel.py behind `flash_mha`'s custom VJP): the
+resident path, forward `_fwd_kernel` (K1) and backward `_bwd_kernel` (K2),
+and the streaming path, forward `_fwd_online_kernel` (K3, which also gives
+each row's log-sum-exp) and backward `_bwd_dq_kernel` (K4) and
+`_bwd_dkdv_kernel` (K5). `uses_online` routes a call as the JAX package
+routes it.
 
 On CUDA tensors `flash_mha` launches the hand-written kernels in
-`csrc/flash_fwd.cu` (forward) and `csrc/flash_bwd.cu` (backward, through a
-`torch.autograd.Function` when gradients are needed) or raises; on CPU
+`csrc/flash_fwd.cu` (K1, K3), `csrc/flash_bwd.cu` (K2) and
+`csrc/flash_bwd_online.cu` (K4, K5), the backwards through a
+`torch.autograd.Function` when gradients are needed, or raises; on CPU
 tensors it runs their plain versions `flash_mha_reference` (the same math
-as the JAX package's `_xla_reference`) and `flash_mha_bwd_reference`.
-There is no fallback from a kernel to its plain version.
+as the JAX package's `_xla_reference`), `flash_mha_bwd_reference`,
+`flash_mha_online_reference` and `flash_mha_bwd_online_reference`. There
+is no fallback from a kernel to its plain version.
 
 Left out on purpose (TPU-only in the JAX package): SPMD partitioning,
-interpret mode, the VMEM sizing models and the outside padding to block
-multiples -- the CUDA kernel masks its own ragged edge.
+interpret mode, `block_q` / `block_k`, the VMEM sizing of the blocks and
+the outside padding to block multiples -- the CUDA kernels mask their own
+ragged edge. The one VMEM model kept is the routing rule (`uses_online`).
 """
 
 from __future__ import annotations
@@ -26,6 +33,12 @@ from meant_tpu_torch.ops.attention import attend
 from meant_tpu_torch.ops.rotary import rotate_half
 
 HEAD_DIM = 96                  # the one head dim csrc/flash_*.cu build
+# The JAX package's routing constants (meant_tpu/ops/flash/kernel.py:56-60,
+# 990): K/V stay resident up to K_RESIDENT_LIMIT keys, and the resident
+# backward's VMEM model must leave room for a DEFAULT_BLOCK_Q-row q block.
+K_RESIDENT_LIMIT = 4096
+DEFAULT_BLOCK_Q = 128
+_RES_BWD_BUDGET = int(15.5 * 1024 * 1024)
 # Relative L2 error the bf16 kernel is held to against flash_mha_reference
 # on the card (chip_smoke.py, tests/test_torch_cuda.py). It reads 2.7e-3 to
 # 3.1e-3 at the main path's shapes and the card tests' shapes; a pair of
@@ -40,6 +53,11 @@ BF16_REL_L2 = 5e-3
 # rotation's adjoint 0.49 (PERF.md, tools/k2_faults.py).
 BWD_BF16_ATOL = 2e-2
 BWD_BF16_REL_L2 = 5e-4
+# The streaming kernels (K3, K4, K5) are held to the bars of K1 and K2 on
+# out and the gradients, and K3's log-sum-exp to LSE_ATOL absolute against
+# flash_mha_online_reference on the card (chip_smoke.py,
+# tests/test_torch_cuda.py); PERF.md has the readings.
+LSE_ATOL = 1e-4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -49,11 +67,39 @@ def _dtype_code(q) -> int:
     return _DTYPE_CODES[q.dtype]
 
 
-def _check_launch_inputs(q, others, tables, kmask, num_heads):
-    """What both kernels refuse: q (BH, s, 96) fp32/bf16; every tensor in
-    `others` of q's shape and dtype; tables (s, 96) fp32; kmask (b | 1, s)
-    fp32 or None; all contiguous on q's device. Returns the mask's row
-    count (0 without a mask)."""
+def uses_online(s_k: int, d: int, force_online: Optional[bool] = None,
+                return_lse: bool = False) -> bool:
+    """Whether `flash_mha` takes the streaming path (K3 forward, K4 + K5
+    backward) rather than the resident one (K1, K2): the JAX package's rule
+    (meant_tpu/ops/flash/kernel.py:974-998, with no `block_q`, as
+    `flash_attention` passes none). Streaming when force_online says so,
+    else past K_RESIDENT_LIMIT keys; always for return_lse; and whenever the
+    resident backward's VMEM model (50*s_k*d + 2.36*block_q*s_k bytes in
+    15.5 MiB) leaves no 128-row q block, which at d=96 is s_k >= 3186.
+
+    That model sizes TPU memory and means nothing to the CUDA kernels. The
+    port keeps it because the two paths are not the same function: a batch
+    row whose keys are all masked gets P = 1/s from the resident backward
+    and P = exp(S - lse) = 1 from the streaming one (-1e9 + log s rounds to
+    -1e9 in fp32). Routing as JAX routes keeps the port computing the
+    reference's function at every length."""
+    if return_lse:
+        return True
+    online = force_online if force_online is not None else (
+        s_k > K_RESIDENT_LIMIT)
+    if not online:
+        room = _RES_BWD_BUDGET - 50 * s_k * d
+        cap = (int(room / (2.36 * s_k)) // 128) * 128 if room > 0 else 0
+        online = cap < DEFAULT_BLOCK_Q
+    return online
+
+
+def _check_launch_inputs(q, others, tables, kmask, num_heads, rows=None):
+    """What the kernels refuse: q (BH, s, 96) fp32/bf16; every tensor in
+    `others` of q's shape and dtype; tables (s, 96) fp32; every tensor in
+    `rows` (per-row statistics) (BH, s) fp32; kmask (b | 1, s) fp32 or None;
+    all contiguous on q's device. Returns the mask's row count (0 without a
+    mask)."""
     bh, s, d = q.shape
     _dtype_code(q)
     if d != HEAD_DIM:
@@ -67,7 +113,11 @@ def _check_launch_inputs(q, others, tables, kmask, num_heads):
         if t.shape != (s, d) or t.dtype != torch.float32:
             raise ValueError(f"rotation tables must be ({s}, {d}) fp32, "
                              f"got {tuple(t.shape)} {t.dtype}")
-    tensors = [q, *others.values(), *tables]
+    for name, t in (rows or {}).items():
+        if t.shape != (bh, s) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({bh}, {s}) fp32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    tensors = [q, *others.values(), *tables, *(rows or {}).values()]
     mask_rows = 0
     if kmask is not None:
         mask_rows = kmask.shape[0]
@@ -143,8 +193,81 @@ class FlashBackward(KernelLauncher):
         return dq, dk, dv
 
 
+class FlashForwardOnline(KernelLauncher):
+    """K3: ctypes wrapper of `meant_flash_fwd_lse` (csrc/flash_fwd.cu)."""
+
+    symbol, library = "meant_flash_fwd_lse", "flash_fwd"
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+    def __call__(self, q, k, v, kmask, qcos, qsin, kcos, ksin, *,
+                 scale: float, causal: bool, num_heads: int) -> tuple:
+        """As FlashForward. Returns (out (BH, s, d), lse (BH, s) fp32)."""
+        bh, s, d = q.shape
+        mask_rows = _check_launch_inputs(q, {"k": k, "v": v},
+                                         (qcos, qsin, kcos, ksin), kmask,
+                                         num_heads)
+        out = torch.empty_like(q)
+        lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+        self._launch(
+            q.device, _dtype_code(q), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), qcos.data_ptr(),
+            qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
+            kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
+            s, d, num_heads, float(scale), int(bool(causal)),
+            shape=(s, bool(causal)))
+        return out, lse
+
+
+class _FlashBackwardOnline(KernelLauncher):
+    """K4 and K5 take the same inputs: q/k/v/do (BH, s, d) CUDA,
+    contiguous, fp32 or bf16; lse and delta (BH, s) fp32; tables and kmask
+    as for the forward."""
+
+    library = "flash_bwd_online"
+    n_outputs = 0
+
+    def __call__(self, q, k, v, do, lse, delta, kmask, qcos, qsin, kcos,
+                 ksin, *, scale: float, causal: bool, num_heads: int):
+        bh, s, d = q.shape
+        mask_rows = _check_launch_inputs(
+            q, {"k": k, "v": v, "do": do}, (qcos, qsin, kcos, ksin), kmask,
+            num_heads, rows={"lse": lse, "delta": delta})
+        grads = [torch.empty_like(q) for _ in range(self.n_outputs)]
+        self._launch(
+            q.device, _dtype_code(q), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), qcos.data_ptr(),
+            qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
+            kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
+            s, d, num_heads, float(scale), int(bool(causal)),
+            shape=(s, bool(causal)))
+        return grads
+
+
+class FlashBackwardDQ(_FlashBackwardOnline):
+    """K4: ctypes wrapper of `meant_flash_bwd_dq`
+    (csrc/flash_bwd_online.cu). Returns [dq]."""
+
+    symbol, n_outputs = "meant_flash_bwd_dq", 1
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+class FlashBackwardDKDV(_FlashBackwardOnline):
+    """K5: ctypes wrapper of `meant_flash_bwd_dkdv`
+    (csrc/flash_bwd_online.cu). Returns [dk, dv]."""
+
+    symbol, n_outputs = "meant_flash_bwd_dkdv", 2
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
 flash_fwd = FlashForward()
 flash_bwd = FlashBackward()
+flash_fwd_online = FlashForwardOnline()
+flash_bwd_dq = FlashBackwardDQ()
+flash_bwd_dkdv = FlashBackwardDKDV()
 
 
 def identity_tables(s: int, d: int, device) -> tuple:
@@ -168,6 +291,26 @@ def flash_mha_reference(q, k, v, kmask, qcos, qsin, kcos, ksin, *,
                   scale=scale, causal=causal, attention_mask=kmask)
 
 
+def _scores(qr, kr, kmask, scale, causal):
+    """fp32 scores of rotated q, k: times scale, the causal -inf fill, then
+    + (1 - kmask) * -1e9, in the reference's order."""
+    f32 = torch.float32
+    scores = torch.matmul(qr.to(f32), kr.to(f32).transpose(-1, -2)) * scale
+    if causal:
+        s_q, s_k = scores.shape[-2], scores.shape[-1]
+        row = torch.arange(s_q, device=qr.device)[:, None]
+        col = torch.arange(s_k, device=qr.device)[None, :]
+        scores = scores.masked_fill(col > row, float("-inf"))
+    if kmask is not None:
+        scores = scores + ((1.0 - kmask.to(f32)) * -1e9)[:, None, None, :]
+    return scores
+
+
+def _adjoint(g, cos, sin):
+    """The rotation's adjoint cos*g - rotate_half(sin*g)."""
+    return cos * g - rotate_half(sin * g)
+
+
 def flash_mha_bwd_reference(q, k, v, do, kmask, qcos, qsin, kcos, ksin, *,
                             scale: float, causal: bool) -> tuple:
     """Plain PyTorch version of K2, step by step as the JAX package's
@@ -180,15 +323,7 @@ def flash_mha_bwd_reference(q, k, v, do, kmask, qcos, qsin, kcos, ksin, *,
     f32 = torch.float32
     dt = q.dtype
     qr, kr = _rotate(q, qcos, qsin), _rotate(k, kcos, ksin)
-    scores = torch.matmul(qr.to(f32), kr.to(f32).transpose(-1, -2)) * scale
-    if causal:
-        s_q, s_k = scores.shape[-2], scores.shape[-1]
-        row = torch.arange(s_q, device=q.device)[:, None]
-        col = torch.arange(s_k, device=q.device)[None, :]
-        scores = scores.masked_fill(col > row, float("-inf"))
-    if kmask is not None:
-        scores = scores + ((1.0 - kmask.to(f32)) * -1e9)[:, None, None, :]
-    p = torch.softmax(scores, dim=-1)
+    p = torch.softmax(_scores(qr, kr, kmask, scale, causal), dim=-1)
     dof = do.to(f32)
     dv = torch.matmul(p.to(dt).to(f32).transpose(-1, -2), dof)
     dp = torch.matmul(dof, v.to(f32).transpose(-1, -2))
@@ -196,9 +331,94 @@ def flash_mha_bwd_reference(q, k, v, do, kmask, qcos, qsin, kcos, ksin, *,
     ds = (p * (dp - delta) * scale).to(dt).to(f32)
     dqr = torch.matmul(ds, kr.to(f32))
     dkr = torch.matmul(ds.transpose(-1, -2), qr.to(f32))
-    dq = qcos * dqr - rotate_half(qsin * dqr)
-    dk = kcos * dkr - rotate_half(ksin * dkr)
+    dq = _adjoint(dqr, qcos, qsin)
+    dk = _adjoint(dkr, kcos, ksin)
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_mha_online_reference(q, k, v, kmask, qcos, qsin, kcos, ksin, *,
+                               scale: float, causal: bool) -> tuple:
+    """Plain PyTorch version of K3: (out, lse). out is as
+    `flash_mha_reference`; lse (b, h, s) fp32 is each row's log-sum-exp in
+    the JAX package's form (`_fwd_online_kernel`, kernel.py:198-206):
+    m_safe + log(max(l, 1e-30)), with m the row's max score, m_safe = 0
+    where m = -inf, and l the sum of exp(score - m_safe). (torch.logsumexp
+    gives -inf on a row with no finite score, where this gives
+    log(1e-30).)"""
+    qr, kr = _rotate(q, qcos, qsin), _rotate(k, kcos, ksin)
+    scores = _scores(qr, kr, kmask, scale, causal)
+    m = scores.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    l = torch.exp(scores - m_safe).sum(dim=-1, keepdim=True)
+    lse = (m_safe + torch.log(l.clamp_min(1e-30))).squeeze(-1)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    del scores
+    out = torch.matmul(p.to(torch.float32), v.to(torch.float32))
+    return out.to(q.dtype), lse
+
+
+def _online_p(qr, kr, lse, kmask, scale, causal):
+    """P = exp(S - lse), fp32, 0 where S = -inf (K4's and K5's P)."""
+    scores = _scores(qr, kr, kmask, scale, causal)
+    return torch.exp(scores - lse.to(torch.float32)[..., None])
+
+
+def flash_mha_bwd_online_dq_reference(q, k, v, do, lse, delta, kmask, qcos,
+                                      qsin, kcos, ksin, *, scale: float,
+                                      causal: bool) -> torch.Tensor:
+    """Plain PyTorch version of K4, step by step as the JAX package's
+    `_bwd_dq_kernel` (kernel.py:456-524): P = exp(S - lse); dP = dO V^T;
+    dS = P * (dP - delta) * scale rounded to the input dtype; dQ =
+    rot^T(dS Kr). q/k/v/do: (b, h, s, d); lse, delta: (b, h, s) fp32."""
+    f32, dt = torch.float32, q.dtype
+    qr, kr = _rotate(q, qcos, qsin), _rotate(k, kcos, ksin)
+    p = _online_p(qr, kr, lse, kmask, scale, causal)
+    dp = torch.matmul(do.to(f32), v.to(f32).transpose(-1, -2))
+    ds = (p * (dp - delta.to(f32)[..., None]) * scale).to(dt).to(f32)
+    del p, dp
+    return _adjoint(torch.matmul(ds, kr.to(f32)), qcos, qsin).to(dt)
+
+
+def flash_mha_bwd_online_dkdv_reference(q, k, v, do, lse, delta, kmask,
+                                        qcos, qsin, kcos, ksin, *,
+                                        scale: float, causal: bool) -> tuple:
+    """Plain PyTorch version of K5, step by step as the JAX package's
+    `_bwd_dkdv_kernel` (kernel.py:527-611): P = exp(S - lse); dV = T(P)^T
+    dO; dS as in K4; dK = rot^T(dS^T Qr). Returns (dk, dv)."""
+    f32, dt = torch.float32, q.dtype
+    qr, kr = _rotate(q, qcos, qsin), _rotate(k, kcos, ksin)
+    p = _online_p(qr, kr, lse, kmask, scale, causal)
+    dof = do.to(f32)
+    dv = torch.matmul(p.to(dt).to(f32).transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.to(f32).transpose(-1, -2))
+    ds = (p * (dp - delta.to(f32)[..., None]) * scale).to(dt).to(f32)
+    del p, dp
+    dkr = torch.matmul(ds.transpose(-1, -2), qr.to(f32))
+    return _adjoint(dkr, kcos, ksin).to(dt), dv.to(dt)
+
+
+def flash_mha_bwd_online_reference(q, k, v, do, lse, delta, kmask, qcos,
+                                   qsin, kcos, ksin, *, scale: float,
+                                   causal: bool) -> tuple:
+    """Plain PyTorch version of K4 + K5: (dq, dk, dv) in q's dtype, from
+    the forward's lse and delta = rowsum(dO * out) - g_lse, both (b, h, s)
+    fp32."""
+    args = (q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin)
+    dq = flash_mha_bwd_online_dq_reference(*args, scale=scale, causal=causal)
+    dk, dv = flash_mha_bwd_online_dkdv_reference(*args, scale=scale,
+                                                 causal=causal)
+    return dq, dk, dv
+
+
+def _flat(b, h, s, d, *tensors):
+    """(b, h, s, d) tensors as contiguous (b*h, s, d), as the kernels take
+    them."""
+    return [t.reshape(b * h, s, d).contiguous() for t in tensors]
+
+
+def _contiguous(kmask, *tables):
+    return (None if kmask is None else kmask.contiguous(),
+            *(t.contiguous() for t in tables))
 
 
 def _forward(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
@@ -210,13 +430,9 @@ def _forward(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_mha runs on CUDA or CPU, not {q.device}")
     b, h, s, d = q.shape
-    out = flash_fwd(
-        q.reshape(b * h, s, d).contiguous(),
-        k.reshape(b * h, s, d).contiguous(),
-        v.reshape(b * h, s, d).contiguous(),
-        None if kmask is None else kmask.contiguous(),
-        qcos.contiguous(), qsin.contiguous(), kcos.contiguous(),
-        ksin.contiguous(), scale=scale, causal=causal, num_heads=h)
+    out = flash_fwd(*_flat(b, h, s, d, q, k, v),
+                    *_contiguous(kmask, qcos, qsin, kcos, ksin),
+                    scale=scale, causal=causal, num_heads=h)
     return out.reshape(b, h, s, d)
 
 
@@ -227,12 +443,71 @@ def _backward(q, k, v, do, kmask, qcos, qsin, kcos, ksin, scale, causal):
         return flash_mha_bwd_reference(q, k, v, do, kmask, qcos, qsin, kcos,
                                        ksin, scale=scale, causal=causal)
     b, h, s, d = q.shape
-    flat = (t.reshape(b * h, s, d).contiguous() for t in (q, k, v, do))
-    grads = flash_bwd(
-        *flat, None if kmask is None else kmask.contiguous(),
-        qcos.contiguous(), qsin.contiguous(), kcos.contiguous(),
-        ksin.contiguous(), scale=scale, causal=causal, num_heads=h)
+    grads = flash_bwd(*_flat(b, h, s, d, q, k, v, do),
+                      *_contiguous(kmask, qcos, qsin, kcos, ksin),
+                      scale=scale, causal=causal, num_heads=h)
     return tuple(g.reshape(b, h, s, d) for g in grads)
+
+
+def _forward_online(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
+    """K3 on the card, its plain version on the CPU. (b, h, s, d) in;
+    (out (b, h, s, d), lse (b, h, s) fp32) out."""
+    if q.device.type == "cpu":
+        return flash_mha_online_reference(q, k, v, kmask, qcos, qsin, kcos,
+                                          ksin, scale=scale, causal=causal)
+    b, h, s, d = q.shape
+    out, lse = flash_fwd_online(
+        *_flat(b, h, s, d, q, k, v),
+        *_contiguous(kmask, qcos, qsin, kcos, ksin), scale=scale,
+        causal=causal, num_heads=h)
+    return out.reshape(b, h, s, d), lse.reshape(b, h, s)
+
+
+def _backward_online(q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
+                     scale, causal):
+    """K4 then K5 on the card, their plain versions on the CPU. (b, h, s,
+    d) in and out; lse, delta (b, h, s) fp32."""
+    if q.device.type == "cpu":
+        return flash_mha_bwd_online_reference(
+            q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
+            scale=scale, causal=causal)
+    b, h, s, d = q.shape
+    args = (*_flat(b, h, s, d, q, k, v, do),
+            lse.reshape(b * h, s).contiguous(),
+            delta.reshape(b * h, s).contiguous(),
+            *_contiguous(kmask, qcos, qsin, kcos, ksin))
+    kw = dict(scale=scale, causal=causal, num_heads=h)
+    (dq,) = flash_bwd_dq(*args, **kw)
+    dk, dv = flash_bwd_dkdv(*args, **kw)
+    return tuple(g.reshape(b, h, s, d) for g in (dq, dk, dv))
+
+
+class _FlashAttentionOnline(torch.autograd.Function):
+    """K3 forward, K4 + K5 backward: the JAX package's joint (out, lse)
+    custom VJP (`_make_flash` kernel.py:800-806, 831-849, 905-934). Saves
+    what JAX saves: q, k, v, the mask, the tables, out and lse. The lse
+    cotangent folds into delta = rowsum(dO * out) - g_lse, computed here in
+    plain PyTorch as JAX computes it in XLA (:837-841); it is zero when the
+    caller takes only out. The tables and the mask get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
+        out, lse = _forward_online(q, k, v, kmask, qcos, qsin, kcos, ksin,
+                                   scale, causal)
+        ctx.save_for_backward(q, k, v, kmask, qcos, qsin, kcos, ksin, out,
+                              lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, kmask, qcos, qsin, kcos, ksin, out, lse = ctx.saved_tensors
+        f32 = torch.float32
+        delta = (g.to(f32) * out.to(f32)).sum(dim=-1) - g_lse.to(f32)
+        dq, dk, dv = _backward_online(q, k, v, g, lse, delta, kmask, qcos,
+                                      qsin, kcos, ksin, ctx.scale,
+                                      ctx.causal)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -257,12 +532,17 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_mha(q, k, v, *, scale: float, causal: bool = False,
               attention_mask: Optional[torch.Tensor] = None,
-              qcos=None, qsin=None, kcos=None, ksin=None) -> torch.Tensor:
+              qcos=None, qsin=None, kcos=None, ksin=None,
+              force_online: Optional[bool] = None, return_lse: bool = False):
     """Fused rotary + attention. q/k/v: (b, h, s, d) with one length s; the
     four tables are (s, d) fp32 (identity rotation when None);
-    attention_mask: (b | 1, s) of {0, 1}. When autograd needs gradients of
-    q, k or v the call goes through K1 forward / K2 backward; otherwise
-    (inference) it is the bare forward."""
+    attention_mask: (b | 1, s) of {0, 1}. `uses_online(s, d, force_online,
+    return_lse)` picks the path as the JAX package picks it: resident (K1
+    forward, K2 backward) or streaming (K3 forward, K4 + K5 backward). When
+    autograd needs gradients of q, k or v the call goes through the path's
+    autograd Function; otherwise (inference) it is the bare forward. With
+    return_lse, returns (out, lse (b, h, s, 1) fp32), and gradients flow
+    through both."""
     b, h, s, d = q.shape
     if k.shape[2] != s or v.shape[2] != s:
         raise ValueError("flash_mha takes one sequence length for q, k, v")
@@ -275,7 +555,11 @@ def flash_mha(q, k, v, *, scale: float, causal: bool = False,
     kmask = None
     if attention_mask is not None:
         kmask = attention_mask.to(torch.float32)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, kmask, qcos, qsin, kcos, ksin,
-                                     scale, causal)
-    return _forward(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal)
+    args = (q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal)
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if not uses_online(s, d, force_online, return_lse):
+        return _FlashAttention.apply(*args) if grad else _forward(*args)
+    out, lse = (_FlashAttentionOnline.apply(*args) if grad
+                else _forward_online(*args))
+    return (out, lse[..., None]) if return_lse else out

@@ -35,31 +35,31 @@ template <> __device__ __forceinline__ bf16 to_zero<bf16>(float x) {
 
 // ---- dQ and the row statistics"""
 
+# (file in csrc/, text, replacement); the rotation's adjoint is the shared
+# store_adjoint of flash_common.cuh
 FAULTS = {
-    "adjoint_sign": [("__fmul_rn(sin_row[c + 1], g1)));",
+    "adjoint_sign": [("flash_common.cuh", "__fmul_rn(sin_row[c + 1], g1)));",
                       "__fmul_rn(-sin_row[c + 1], g1)));")],
     "ds_round_to_zero": [
-        ("from_f<T>(p * (dp[j][e] - delta[h]) * scale);",
+        ("flash_bwd.cu", "from_f<T>(p * (dp[j][e] - delta[h]) * scale);",
          "to_zero<T>(p * (dp[j][e] - delta[h]) * scale);"),
-        ("from_f<T>(p * (dp[j][e] - st_dl[qi]) * scale);",
+        ("flash_bwd.cu", "from_f<T>(p * (dp[j][e] - st_dl[qi]) * scale);",
          "to_zero<T>(p * (dp[j][e] - st_dl[qi]) * scale);"),
-        ("// ---- dQ and the row statistics", _TO_ZERO)],
+        ("flash_bwd.cu", "// ---- dQ and the row statistics", _TO_ZERO)],
 }
 
 
 def patched_sources(name: str):
-    """A copy of the package's csrc/ with only this fault applied to
-    flash_bwd.cu."""
+    """A copy of the package's csrc/ with only this fault applied."""
     root = cuda_build.PACKAGE_DIR / "_build" / "faults" / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(cuda_build.PACKAGE_DIR / "csrc", root / "csrc")
-    path = root / "csrc" / "flash_bwd.cu"
-    text = path.read_text()
-    for old, new in FAULTS[name]:
+    for file, old, new in FAULTS[name]:
+        path = root / "csrc" / file
+        text = path.read_text()
         if text.count(old) != 1:
-            raise RuntimeError(f"{name}: {old!r} not found once")
-        text = text.replace(old, new)
-    path.write_text(text)
+            raise RuntimeError(f"{name}: {old!r} not found once in {file}")
+        path.write_text(text.replace(old, new))
     return root
 
 

@@ -1,13 +1,15 @@
 """The CUDA kernels against their plain versions, on the card: the flash
-forward (K1), the flash backward (K2) and the fused AdamW (A1). These tests
+forward (K1), the flash backward (K2), the streaming flash forward (K3) and
+its dQ (K4) and dK/dV (K5) backward, and the fused AdamW (A1). These tests
 need an NVIDIA card and nvcc; elsewhere they skip. On the card:
 
     pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Bars. fp32: rtol 1e-4 / atol 1e-5 (the kernels and the plain versions
 differ only in summation order). bf16: 2e-2 per element and the relative L2
-bars of ops/flash/kernel.py, set from H100 readings (PERF.md). A1: max
-relative error 1e-6 (both sides round every operation to fp32 alike).
+bars of ops/flash/kernel.py, set from H100 readings (PERF.md); K3's lse
+within LSE_ATOL absolute. A1: max relative error 1e-6 (both sides round
+every operation to fp32 alike).
 """
 
 import pytest
@@ -15,12 +17,16 @@ import torch
 
 from meant_tpu_torch.ops import lang_freqs, pixel_freqs
 from meant_tpu_torch.ops.adamw import adamw_update, fused_adamw
-from meant_tpu_torch.ops.flash import (flash_bwd, flash_fwd, flash_mha,
+from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
+                                       flash_bwd_dq, flash_fwd,
+                                       flash_fwd_online, flash_mha,
+                                       flash_mha_bwd_online_reference,
                                        flash_mha_bwd_reference,
+                                       flash_mha_online_reference,
                                        flash_mha_reference)
 from meant_tpu_torch.ops.flash.flash_attention import _tables
 from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
-                                              BWD_BF16_REL_L2)
+                                              BWD_BF16_REL_L2, LSE_ATOL)
 
 pytestmark = pytest.mark.cuda
 
@@ -78,19 +84,21 @@ def _bwd_case(cuda, dtype, case, s, gen):
     q, k, v, do = (torch.randn(3, 2, s, d, generator=gen, device=cuda)
                    .to(dtype) for _ in range(4))
     causal = case in ("xpos_causal", "masked", "broadcast_mask")
+    pixel = case in ("pixel", "all_masked_pixel")
     if case == "identity":
         ones = torch.ones(s, d, device=cuda)
         tables = (ones, torch.zeros_like(ones)) * 2
     else:
-        freqs = (pixel_freqs(48, device=cuda) if case == "pixel"
+        freqs = (pixel_freqs(48, device=cuda) if pixel
                  else lang_freqs(48, device=cuda))
-        tables = _tables(s, d, freqs, case != "pixel", 512.0)
+        tables = _tables(s, d, freqs, not pixel, 512.0)
     mask = None
-    if case in ("masked", "broadcast_mask", "all_masked_row"):
+    if case in ("masked", "broadcast_mask", "all_masked_row",
+                "all_masked_pixel"):
         rows = 1 if case == "broadcast_mask" else 3
         mask = (torch.rand(rows, s, generator=gen, device=cuda) > 0.3).float()
         mask[:, 0] = 1.0
-        if case == "all_masked_row":
+        if case.startswith("all_masked"):
             mask[1] = 0.0     # every key of batch row 1 masked
     return q, k, v, do, tables, mask, causal
 
@@ -154,6 +162,108 @@ def test_flash_mha_on_cuda_has_grad_fn_and_runs_k2(cuda, dtype):
     with torch.no_grad():
         assert flash_mha(*leaves, scale=0.1, causal=causal).grad_fn is None
     assert flash_bwd.launches == bwd0 + 1
+
+
+# The fully masked row of the streaming kernels takes the pixel rotary:
+# xPos without the causal mask (no caller uses it so) grows the scores as
+# base^-(j - i)/512 for keys past the query, some 1e4 at s=4096, where one
+# fp32 step of lse is 1e-2 and -1e9 + score no longer rounds alike.
+ONLINE_CASES = ["xpos_causal", "pixel", "masked", "broadcast_mask",
+                "all_masked_pixel"]
+ONLINE_LENGTHS = [1, 63, 65, 196, 4096]
+
+
+def _assert_out_close(out, ref, dtype):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+        rel = (out.float() - ref.float()).norm() / ref.float().norm()
+        assert rel <= BF16_REL_L2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ONLINE_CASES)
+@pytest.mark.parametrize("s", ONLINE_LENGTHS)
+def test_online_forward_kernel_matches_plain(cuda, dtype, case, s):
+    """K3: out as K1's bars, lse within LSE_ATOL (a fully masked batch row
+    reads -1e9 on both sides)."""
+    gen = torch.Generator(device=cuda).manual_seed(2000 + s)
+    q, k, v, _, tables, mask, causal = _bwd_case(cuda, dtype, case, s, gen)
+    b, h = q.shape[:2]
+    before = flash_fwd_online.launches
+    flat = [t.reshape(b * h, s, 96).contiguous() for t in (q, k, v)]
+    out, lse = flash_fwd_online(*flat, mask, *tables, scale=0.1,
+                                causal=causal, num_heads=h)
+    torch.cuda.synchronize()
+    assert flash_fwd_online.launches == before + 1
+    ref, ref_lse = flash_mha_online_reference(q, k, v, mask, *tables,
+                                              scale=0.1, causal=causal)
+    _assert_out_close(out.reshape(b, h, s, 96), ref, dtype)
+    assert lse.dtype == torch.float32
+    err = (lse.reshape(b, h, s) - ref_lse).abs().max().item()
+    assert err <= LSE_ATOL, f"lse max abs err {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ONLINE_CASES)
+@pytest.mark.parametrize("s", ONLINE_LENGTHS)
+def test_online_backward_kernels_match_plain(cuda, dtype, case, s):
+    """K4 and K5 against flash_mha_bwd_online_reference, from the plain
+    forward's lse and a delta that carries a non-zero lse cotangent."""
+    gen = torch.Generator(device=cuda).manual_seed(3000 + s)
+    q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, case, s, gen)
+    b, h = q.shape[:2]
+    g_lse = torch.randn(b, h, s, generator=gen, device=cuda)
+    out, lse = flash_mha_online_reference(q, k, v, mask, *tables, scale=0.1,
+                                          causal=causal)
+    delta = (do.float() * out.float()).sum(-1) - g_lse
+    args = ([t.reshape(b * h, s, 96).contiguous() for t in (q, k, v, do)]
+            + [lse.reshape(b * h, s), delta.reshape(b * h, s), mask,
+               *tables])
+    before = (flash_bwd_dq.launches, flash_bwd_dkdv.launches)
+    (dq,) = flash_bwd_dq(*args, scale=0.1, causal=causal, num_heads=h)
+    dk, dv = flash_bwd_dkdv(*args, scale=0.1, causal=causal, num_heads=h)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkdv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_mha_bwd_online_reference(q, k, v, do, lse, delta, mask,
+                                          *tables, scale=0.1, causal=causal)
+    _assert_grads_close([g.reshape(b, h, s, 96) for g in (dq, dk, dv)],
+                        want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mha_online_on_cuda_runs_k3_k4_k5(cuda, dtype):
+    """force_online on CUDA inputs that require grad: a grad_fn, K3 forward
+    and K4 + K5 backward, none of K1 or K2, and the plain path's gradients
+    through both out and lse."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, "masked",
+                                                  196, gen)
+    g_lse = torch.randn(*q.shape[:3], 1, generator=gen, device=cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    counters = (flash_fwd, flash_bwd, flash_fwd_online, flash_bwd_dq,
+                flash_bwd_dkdv)
+    before = [c.launches for c in counters]
+    out, lse = flash_mha(*leaves, scale=0.1, causal=causal,
+                         attention_mask=mask, qcos=tables[0],
+                         qsin=tables[1], kcos=tables[2], ksin=tables[3],
+                         force_online=True, return_lse=True)
+    assert out.grad_fn is not None and lse.shape == (*q.shape[:3], 1)
+    torch.autograd.backward((out, lse), (do, g_lse))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [
+        0, 0, 1, 1, 1]
+    # the plain backward from K3's own out and lse
+    delta = (do.float() * out.detach().float()).sum(-1) - g_lse[..., 0]
+    want = flash_mha_bwd_online_reference(q, k, v, do, lse.detach()[..., 0],
+                                          delta, mask, *tables, scale=0.1,
+                                          causal=causal)
+    _assert_grads_close([t.grad for t in leaves], want, dtype)
 
 
 @pytest.mark.parametrize("mode", ["adamw", "adam_coupled", "adamw_wd0",
