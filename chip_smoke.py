@@ -7,12 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
               long-sequence paths from csrc/, one nvcc per source, all
-              started together.
+              started together; cuobjdump must find wgmma (HGMMA) in the
+              streaming backward's library.
 2. kernels -- each kernel's wrapper against its plain PyTorch version on
               the card, at the main path's shapes: the flash forward (K1)
               and backward (K2) in fp32 and bf16 at both attention shapes,
-              the streaming forward (K3, out and lse) and its dQ (K4) and
-              dK/dV (K5) backward at s=4096, BH=16, in fp32 and bf16, and
+              the streaming forward (K3, out and lse), its backward's
+              rotation pass (R1, bit for bit) and its dQ (K4) and dK/dV
+              (K5) backward at s=4096, BH=16, in fp32 and bf16, and
               the fused AdamW (A1) over all 177,607,733 parameters.
 3. slice   -- flagship meant_src (768 wide, 8 heads of 96, 12+12 encoders,
               s=512 text, 196-patch charts, bf16, seeded random weights)
@@ -39,15 +41,15 @@ Phases, in order; any failure raises and the script exits non-zero:
               forward, towers and probabilities against the plain
               attention; one step's gradients at 1 row and 2 encoders per
               tower against the plain attention; 10 meant_trainer steps at
-              fixed_proj=True with exactly 12 K3, 12 K1, 12 K4, 12 K5,
-              12 K2 and 1 A1 per step and a finite, falling loss; step time,
-              samples/s, peak memory and a profiled step.
+              fixed_proj=True with exactly 12 K3, 12 K1, 12 R1, 12 K4,
+              12 K5, 12 K2 and 1 A1 per step and a finite, falling loss;
+              step time, samples/s, peak memory and a profiled step.
 6. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
               calls): rotation + scaled_dot_product_attention (K1, K3; causal
-              at s=4096 for K3) and its backward (K2; K4 and K5 together),
-              torch.optim.AdamW(fused=True) (A1).
+              at s=4096 for K3) and its backward (K2; R1, K4 and K5
+              together), torch.optim.AdamW(fused=True) (A1).
 7. profile -- torch.profiler over 3 forwards of one 16-row request: device
               time per forward by kind, the device's idle share, and the
               top kernels.
@@ -128,6 +130,22 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def count_hgmma(name: str) -> int:
+    """wgmma instructions (HGMMA) in the SASS of the built csrc/<name>.cu,
+    by cuobjdump; fails when there are none."""
+    import os
+    from meant_tpu_torch.cuda_build import _library_path, find_nvcc
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"SASS of {name}: {n} HGMMA (wgmma) instructions", flush=True)
+    if n == 0:
+        fail(f"the built {name} library issues no wgmma")
+    return n
 
 
 def event_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -330,9 +348,29 @@ def run_online_plain(c):
                                       causal=c["causal"])
 
 
-def _online_bwd_args(c):
+def rotate_case(c):
+    """R1 on (b*h, s, d) views of q and k; stores and returns (qr, kr)."""
+    from meant_tpu_torch.ops.flash import rotate_qk
     b, h, s, d = c["q"].shape
-    return ([c[n].reshape(b * h, s, d) for n in ("q", "k", "v", "do")]
+    c["qr"], c["kr"] = rotate_qk(*(c[n].reshape(b * h, s, d)
+                                   for n in ("q", "k")), *c["tables"])
+    return c["qr"], c["kr"]
+
+
+def rotate_plain(c):
+    from meant_tpu_torch.ops.flash.kernel import _rotate
+    b, h, s, d = c["q"].shape
+    qcos, qsin, kcos, ksin = c["tables"]
+    return (_rotate(c["q"].reshape(b * h, s, d), qcos, qsin),
+            _rotate(c["k"].reshape(b * h, s, d), kcos, ksin))
+
+
+def _online_bwd_args(c):
+    """K4's and K5's arguments, q and k as R1 rotated them
+    (rotate_case)."""
+    b, h, s, d = c["q"].shape
+    return ([c["qr"], c["kr"]]
+            + [c[n].reshape(b * h, s, d) for n in ("v", "do")]
             + [c["lse"].reshape(b * h, s).contiguous(),
                c["delta"].reshape(b * h, s).contiguous(), c["mask"],
                *c["tables"]])
@@ -392,9 +430,10 @@ def long_case(kind, dtype, gen, bh):
 
 
 def check_long_kernels(record):
-    """K3 (out and lse), K4 and K5 against their plain versions at
+    """K3 (out and lse), R1, K4 and K5 against their plain versions at
     s=4096, BH=16, fp32 and bf16, without and with a padding mask: out and
-    the gradients at K1's and K2's bars, lse within LSE_ATOL."""
+    the gradients at K1's and K2's bars, lse within LSE_ATOL, R1 bit for
+    bit."""
     from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
                                                   BWD_BF16_REL_L2, LSE_ATOL)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -404,6 +443,7 @@ def check_long_kernels(record):
             c = long_case(kind, dtype, gen, LONG_CHECK_BH)
             name = f"long_{kind}/{str(dtype).split('.')[-1]}"
             out, lse = run_online_kernel(c)
+            rotated = rotate_case(c)
             dq = run_online_dq_kernel(c)
             dk, dv = run_online_dkdv_kernel(c)
             torch.cuda.synchronize()
@@ -419,6 +459,14 @@ def check_long_kernels(record):
                 fail(f"K3's lse disagrees with its plain version ({name}, "
                      f"max abs err {lse_err})")
             errors[f"{name}/lse"] = lse_err
+            rot_err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(rotated, rotate_plain(c)))
+            print(f"R1 vs plain {name}: max_abs_err {rot_err:.3e} (bar 0) "
+                  f"{'ok' if rot_err == 0 else 'FAIL'}", flush=True)
+            if rot_err != 0:
+                fail(f"R1 differs from _rotate ({name}, max abs err "
+                     f"{rot_err})")
+            errors[f"{name}/rot"] = rot_err
             for g, a in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
                 b = want[g]
                 err = (a.float() - b.float()).abs().max().item()
@@ -442,7 +490,7 @@ def check_long_kernels(record):
                     fail(f"{kernel} disagrees with its plain version ({name} "
                          f"{g}, max abs err {err}, rel L2 {rel})")
                 errors[f"{name}/{g}"], rels[f"{name}/{g}"] = err, rel
-            del c, out, lse, dq, dk, dv, want
+            del c, out, lse, rotated, dq, dk, dv, want
             torch.cuda.empty_cache()
     record["long_kernels_vs_plain_max_abs_err"] = errors
     record["long_kernels_vs_plain_rel_l2"] = rels
@@ -658,9 +706,10 @@ def wrappers() -> dict:
     from meant_tpu_torch.ops.adamw import fused_adamw
     from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
                                            flash_bwd_dq, flash_fwd,
-                                           flash_fwd_online)
+                                           flash_fwd_online, rotate_qk)
     return {"K1": flash_fwd, "K2": flash_bwd, "K3": flash_fwd_online,
-            "K4": flash_bwd_dq, "K5": flash_bwd_dkdv, "A1": fused_adamw}
+            "R1": rotate_qk, "K4": flash_bwd_dq, "K5": flash_bwd_dkdv,
+            "A1": fused_adamw}
 
 
 def reset_counts():
@@ -801,7 +850,8 @@ def train_through_cli(record):
         trainer = results["trainer"]
         steps = trainer.optimizer.step_count
         if (counts["A1"] != steps or counts["K2"] != 24 * steps
-                or counts["K3"] or counts["K4"] or counts["K5"]):
+                or counts["K3"] or counts["R1"] or counts["K4"]
+                or counts["K5"]):
             fail(f"the CLI's {steps} steps launched {counts}")
         if results["checkpoint"] is None:
             fail("the CLI saved no checkpoint")
@@ -894,7 +944,7 @@ def run_long(record):
                            num_encoders=n)
     res["step_gradients"] = compare_step_gradients(
         small, to_card(train_batch(1, seed=6, seq=LONG_SEQ)),
-        {"K1": n, "K2": n, "K3": n, "K4": n, "K5": n},
+        {"K1": n, "K2": n, "K3": n, "R1": n, "K4": n, "K5": n},
         lambda: build_flagship(LONG_SEQ, flash=False, fixed_proj=True,
                                num_encoders=n), "src4096 step")
     del small
@@ -902,8 +952,8 @@ def run_long(record):
     model = build_flagship(LONG_SEQ, flash=True, fixed_proj=True)
     train, trainer, batch = train_steps(
         model, train_batch(LONG_BATCH, seed=7, seq=LONG_SEQ), LONG_STEPS,
-        {"K1": ENCODERS, "K2": ENCODERS, "K3": ENCODERS, "K4": ENCODERS,
-         "K5": ENCODERS, "A1": 1}, "learn src4096")
+        {"K1": ENCODERS, "K2": ENCODERS, "K3": ENCODERS, "R1": ENCODERS,
+         "K4": ENCODERS, "K5": ENCODERS, "A1": 1}, "learn src4096")
     res["train"] = train
     res["train_profile"] = profile_calls(
         lambda: trainer.train_step(batch), 1, "step", LONG_BATCH)
@@ -1030,6 +1080,15 @@ def long_cost(c, kernel: str) -> tuple:
     return nbytes, products * 2 * bh * pairs * d
 
 
+def rotation_cost(c) -> tuple:
+    """(bytes, flops) of R1: q and k read, qr and kr written, the four
+    tables read once; three fp32 operations an element."""
+    q = c["q"]
+    nbytes = (4 * q.numel() * q.element_size()
+              + sum(t.numel() * 4 for t in c["tables"]))
+    return nbytes, 2 * 3 * q.numel()
+
+
 def plain_ms_fitting(fn, big, small, iters: int):
     """The plain version's ms per call at the main path's BH where its
     (BH, s, s) fp32 matrices fit on the card, else at LONG_CHECK_BH;
@@ -1044,12 +1103,14 @@ def plain_ms_fitting(fn, big, small, iters: int):
 
 
 def time_long_kernels(long_errors, long_counts):
-    """K3, K4 and K5 at the main path's launch (BH=80, s=4096, bf16,
+    """K3, R1, K4 and K5 at the main path's launch (BH=80, s=4096, bf16,
     causal xPos): ms per launch, bound, plain version, and the yardstick:
-    rotation + causal SDPA (K3), its backward (K4 and K5 together)."""
+    rotation + causal SDPA (K3), its backward (R1, K4 and K5 together);
+    R1 has no single PyTorch call of its own."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     big = long_case("text", torch.bfloat16, gen, LONG_TIME_BH)
     small = long_case("text", torch.bfloat16, gen, LONG_CHECK_BH)
+    rotate_case(big)
     shape, rows = list(big["q"].shape), []
     library_fwd = event_ms(lambda: run_library(big), iters=10)
     library = run_library_bwd(big)
@@ -1083,6 +1144,21 @@ def time_long_kernels(long_errors, long_counts):
                           if kernel == "K3" else
                           "backward of rotation + scaled_dot_product_"
                           "attention (dq, dk, dv: K4 and K5 together)")))
+    nbytes, flops = rotation_cost(big)
+    rows.insert(1, kernel_row(
+        "rotate_qk[s4096 causal xPos]",
+        "meant_tpu_torch/csrc/flash_bwd_online.cu",
+        "meant_tpu/ops/flash/kernel.py:477", long_counts["R1"],
+        long_errors["long_text/bfloat16/rot"],
+        event_ms(lambda: rotate_case(big), iters=20),
+        event_ms(lambda: rotate_plain(big), iters=5), None, nbytes, flops,
+        PEAK_FP32_FLOPS, shape=shape, dtype="bfloat16",
+        library_call=None))
+    backward = sum(r["ms"] for r in rows[1:4])
+    print(f"streaming backward at src4096's launch: R1 + K4 + K5 "
+          f"{backward:.4f} ms against the SDPA backward's "
+          f"{library_bwd:.4f} ms ({backward / library_bwd:.2f}x)",
+          flush=True)
     del big, small
     torch.cuda.empty_cache()
     return rows
@@ -1109,6 +1185,8 @@ def time_requests(predictor, chunk, record, iters: int = 7):
 
 def _kind(name: str) -> str:
     low = name.lower()
+    if "rotate_qk" in low:
+        return "rotate_qk (R1)"
     if "flash_fwd_lse" in low:
         return "flash_fwd_lse (K3)"
     if "flash_bwd_online_dq" in low:
@@ -1199,6 +1277,7 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    record["flash_bwd_online_hgmma"] = count_hgmma("flash_bwd_online")
 
     errors = check_kernel(record)
     bwd_errors = check_backward(record)
@@ -1214,10 +1293,12 @@ def main(argv=None) -> int:
     record["profile"] = profile_calls(lambda: predictor.forward(chunk),
                                       PROFILE_FORWARDS, "forward")
     for r in rows:
+        library = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
         print(f"{r['name']}: {r['ms']:.4f} ms/launch (bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
-              f"{r['plain_ms']:.4f} ms, library yardstick "
-              f"{r['library_ms']:.4f} ms) on {card}", flush=True)
+              f"{r['plain_ms']:.4f} ms, library yardstick {library}) on "
+              f"{card}", flush=True)
     record["wall_s"] = time.perf_counter() - t_start
     if args.out:
         import os

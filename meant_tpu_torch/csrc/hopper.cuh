@@ -1,0 +1,210 @@
+// Hopper (sm_90a) building blocks of the streaming backward's bf16 kernels
+// (flash_bwd_online.cu, K4 and K5): mbarriers, TMA tile loads through a
+// tensor map, and warpgroup matrix products (wgmma) on operands in shared
+// memory laid out with the 64-byte swizzle.
+//
+// Tile layout. A [64 rows][96 columns] bf16 tile lives in shared memory as
+// three boxes of [64][32] (4096 bytes each, columns 0-31, 32-63, 64-95),
+// each written by one TMA load with CU_TENSOR_MAP_SWIZZLE_64B: rows of 64
+// bytes, the 16-byte chunk c of row r stored at chunk c ^ ((r >> 1) & 3).
+// wgmma reads the same bytes two ways (its descriptor's 64-byte swizzle):
+//   * K-major (the 96 columns are the depth K): rows 64 bytes apart, eight-
+//     row groups 512 bytes apart (SBO); the k-th 16-column step starts
+//     (k / 2) boxes and (k % 2) * 32 bytes in;
+//   * MN-major (the 64 rows are the depth K, the columns are N): 32 columns
+//     per box, boxes 4096 bytes apart (LBO), eight-row groups 512 bytes
+//     apart (SBO); the k-th 16-row step starts k * 1024 bytes in, and the
+//     product's transpose-B bit is set.
+// So one copy of a row-major tile serves as both Q K^T's K-major operand
+// and dS K's MN-major operand; no transposed copy is written.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace meant {
+namespace hopper {
+
+constexpr int kKMajor = 0, kMNMajor = 1;  // wgmma's transpose bit
+constexpr int kRows = 64;                  // rows of a tile
+constexpr int kBoxCols = 32;               // bf16 columns of a box (64 B)
+constexpr int kBoxBytes = kRows * kBoxCols * 2;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers --------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (TMA).
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrives and adds `bytes` to the transaction count the phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ---- TMA --------------------------------------------------------------------
+
+// One box of a 3-D tensor map (columns, rows, batch) into shared memory;
+// completion is counted on `bar`. Elements outside the tensor are zero.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Rows [row0, row0 + 64) of head `bh` of a (bh, seq, 96) bf16 tensor as one
+// tile (three boxes); 3 * kBoxBytes bytes counted on `bar`.
+__device__ __forceinline__ void tma_load_tile(uint8_t* tile,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int row0,
+                                              int bh) {
+#pragma unroll
+  for (int b = 0; b < 3; ++b)
+    tma_load_3d(tile + b * kBoxBytes, map, bar, b * kBoxCols, row0, bh);
+}
+
+// ---- wgmma ------------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 64-byte swizzle: start address, leading
+// and stride byte offsets (all in 16-byte units), layout type 2.
+__device__ __forceinline__ uint64_t sw64_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
+// The k-th 16-column depth step of a tile read K-major.
+__device__ __forceinline__ uint64_t kmajor_desc(const uint8_t* tile, int k) {
+  return sw64_desc(tile + (k >> 1) * kBoxBytes + (k & 1) * 32, 16, 512);
+}
+
+// The k-th 16-row depth step of a tile read MN-major (N = the 96 columns).
+__device__ __forceinline__ uint64_t mnmajor_desc(const uint8_t* tile, int k) {
+  return sw64_desc(tile + k * 16 * 2 * kBoxCols, kBoxBytes, 512);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma still uses across the wait that ends it.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int M, int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][R]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[m][i])::"memory");
+}
+
+// D (64 x 64, fp32) = A * B^T (+ D when scale_d), A (64 x 16) and B
+// (64 x 16) both K-major in shared memory, given by their descriptors.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 96, fp32) += A * B, A (64 x 16 bf16) in registers as four
+// mma.sync-style A fragments, B (16 x 96) in shared memory: K-major
+// (TransB = kKMajor) or MN-major (kMNMajor) as its descriptor says.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TransB));
+}
+
+}  // namespace hopper
+}  // namespace meant

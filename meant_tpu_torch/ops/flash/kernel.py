@@ -3,12 +3,13 @@ meant_tpu/ops/flash/kernel.py behind `flash_mha`'s custom VJP): the
 resident path, forward `_fwd_kernel` (K1) and backward `_bwd_kernel` (K2),
 and the streaming path, forward `_fwd_online_kernel` (K3, which also gives
 each row's log-sum-exp) and backward `_bwd_dq_kernel` (K4) and
-`_bwd_dkdv_kernel` (K5). `uses_online` routes a call as the JAX package
-routes it.
+`_bwd_dkdv_kernel` (K5), which take q and k rotated once per backward call
+by a rotation pass (R1, part of K4 and K5's design; it replaces no TPU
+kernel). `uses_online` routes a call as the JAX package routes it.
 
 On CUDA tensors `flash_mha` launches the hand-written kernels in
 `csrc/flash_fwd.cu` (K1, K3), `csrc/flash_bwd.cu` (K2) and
-`csrc/flash_bwd_online.cu` (K4, K5), the backwards through a
+`csrc/flash_bwd_online.cu` (R1, K4, K5), the backwards through a
 `torch.autograd.Function` when gradients are needed, or raises; on CPU
 tensors it runs their plain versions `flash_mha_reference` (the same math
 as the JAX package's `_xla_reference`), `flash_mha_bwd_reference`,
@@ -219,23 +220,47 @@ class FlashForwardOnline(KernelLauncher):
         return out, lse
 
 
+class RotateQK(KernelLauncher):
+    """R1, the rotation pass of the streaming backward: ctypes wrapper of
+    `meant_rotate_qk` (csrc/flash_bwd_online.cu). Its plain version is
+    `_rotate` on each of q and k."""
+
+    symbol, library = "meant_rotate_qk", "flash_bwd_online"
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+
+    def __call__(self, q, k, qcos, qsin, kcos, ksin) -> tuple:
+        """q/k: (BH, s, d) CUDA, contiguous, fp32 or bf16; tables (s, d)
+        fp32. Returns (qr, kr): q and k rotated in fp32 and rounded to
+        their dtype, bit for bit `_rotate`'s."""
+        bh, s, d = q.shape
+        _check_launch_inputs(q, {"k": k}, (qcos, qsin, kcos, ksin), None, 1)
+        qr, kr = torch.empty_like(q), torch.empty_like(k)
+        self._launch(
+            q.device, _dtype_code(q), q.data_ptr(), k.data_ptr(),
+            qr.data_ptr(), kr.data_ptr(), qcos.data_ptr(), qsin.data_ptr(),
+            kcos.data_ptr(), ksin.data_ptr(), bh, s, d, shape=(s,))
+        return qr, kr
+
+
 class _FlashBackwardOnline(KernelLauncher):
-    """K4 and K5 take the same inputs: q/k/v/do (BH, s, d) CUDA,
-    contiguous, fp32 or bf16; lse and delta (BH, s) fp32; tables and kmask
-    as for the forward."""
+    """K4 and K5 take the same inputs: qr/kr (q and k rotated by R1), v and
+    do, (BH, s, d) CUDA, contiguous, fp32 or bf16; lse and delta (BH, s)
+    fp32; tables and kmask as for the forward (the tables serve the
+    rotation's adjoint)."""
 
     library = "flash_bwd_online"
     n_outputs = 0
 
-    def __call__(self, q, k, v, do, lse, delta, kmask, qcos, qsin, kcos,
+    def __call__(self, qr, kr, v, do, lse, delta, kmask, qcos, qsin, kcos,
                  ksin, *, scale: float, causal: bool, num_heads: int):
-        bh, s, d = q.shape
+        bh, s, d = qr.shape
         mask_rows = _check_launch_inputs(
-            q, {"k": k, "v": v, "do": do}, (qcos, qsin, kcos, ksin), kmask,
-            num_heads, rows={"lse": lse, "delta": delta})
-        grads = [torch.empty_like(q) for _ in range(self.n_outputs)]
+            qr, {"kr": kr, "v": v, "do": do}, (qcos, qsin, kcos, ksin),
+            kmask, num_heads, rows={"lse": lse, "delta": delta})
+        grads = [torch.empty_like(qr) for _ in range(self.n_outputs)]
         self._launch(
-            q.device, _dtype_code(q), q.data_ptr(), k.data_ptr(),
+            qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             *(g.data_ptr() for g in grads), qcos.data_ptr(),
             qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
@@ -268,6 +293,7 @@ flash_bwd = FlashBackward()
 flash_fwd_online = FlashForwardOnline()
 flash_bwd_dq = FlashBackwardDQ()
 flash_bwd_dkdv = FlashBackwardDKDV()
+rotate_qk = RotateQK()
 
 
 def identity_tables(s: int, d: int, device) -> tuple:
@@ -465,17 +491,19 @@ def _forward_online(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
 
 def _backward_online(q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
                      scale, causal):
-    """K4 then K5 on the card, their plain versions on the CPU. (b, h, s,
-    d) in and out; lse, delta (b, h, s) fp32."""
+    """R1 (q and k rotated once), then K4 and K5 on the card; their plain
+    versions on the CPU. (b, h, s, d) in and out; lse, delta (b, h, s)
+    fp32."""
     if q.device.type == "cpu":
         return flash_mha_bwd_online_reference(
             q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
             scale=scale, causal=causal)
     b, h, s, d = q.shape
-    args = (*_flat(b, h, s, d, q, k, v, do),
+    q, k, v, do = _flat(b, h, s, d, q, k, v, do)
+    kmask, *tables = _contiguous(kmask, qcos, qsin, kcos, ksin)
+    args = (*rotate_qk(q, k, *tables), v, do,
             lse.reshape(b * h, s).contiguous(),
-            delta.reshape(b * h, s).contiguous(),
-            *_contiguous(kmask, qcos, qsin, kcos, ksin))
+            delta.reshape(b * h, s).contiguous(), kmask, *tables)
     kw = dict(scale=scale, causal=causal, num_heads=h)
     (dq,) = flash_bwd_dq(*args, **kw)
     dk, dv = flash_bwd_dkdv(*args, **kw)

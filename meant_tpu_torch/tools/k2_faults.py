@@ -49,12 +49,13 @@ FAULTS = {
 }
 
 
-def patched_sources(name: str):
-    """A copy of the package's csrc/ with only this fault applied."""
+def patched_sources(name: str, faults=FAULTS):
+    """A copy of the package's csrc/ with only the fault `name` of
+    `faults` applied."""
     root = cuda_build.PACKAGE_DIR / "_build" / "faults" / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(cuda_build.PACKAGE_DIR / "csrc", root / "csrc")
-    for file, old, new in FAULTS[name]:
+    for file, old, new in faults[name]:
         path = root / "csrc" / file
         text = path.read_text()
         if text.count(old) != 1:
@@ -63,32 +64,45 @@ def patched_sources(name: str):
     return root
 
 
+def use_sources(root, library: str, launchers) -> None:
+    """Build and load `library` from the patched copy under root from now
+    on, for every wrapper in `launchers`."""
+    cuda_build.CSRC_DIR = root / "csrc"
+    cuda_build.BUILD_DIR = root / "_build"
+    cuda_build._loaded.pop(library, None)
+    for launcher in launchers:
+        launcher._fn = None
+
+
+def bars(got, want) -> dict:
+    """Each gradient's errors and whether the bf16 bars of
+    ops/flash/kernel.py catch them."""
+    res = {}
+    for g, a, b in zip(("dq", "dk", "dv"), got, want):
+        rel = chip_smoke.rel_l2(a, b)
+        res[g] = {
+            "rel_l2": rel,
+            "max_abs": (a.float() - b.float()).abs().max().item(),
+            "caught_per_element": not torch.allclose(
+                a.float(), b.float(), rtol=chip_smoke.BF16_TOL,
+                atol=kernel.BWD_BF16_ATOL),
+            "caught_rel_l2": rel > kernel.BWD_BF16_REL_L2}
+    return res
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("k2_faults runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     for name in FAULTS:
-        root = patched_sources(name)
-        cuda_build.CSRC_DIR = root / "csrc"
-        cuda_build.BUILD_DIR = root / "_build"
-        cuda_build._loaded.pop("flash_bwd", None)
-        kernel.flash_bwd._fn = None
+        use_sources(patched_sources(name), "flash_bwd", [kernel.flash_bwd])
         gen = torch.Generator(device="cuda").manual_seed(2)
         for kind in ("text", "vision"):
             c = chip_smoke.backward_case(kind, torch.bfloat16, gen)
             got = chip_smoke.run_bwd_kernel(c)
             want = chip_smoke.run_bwd_plain(c)
-            res = {}
-            for g, a, b in zip(("dq", "dk", "dv"), got, want):
-                rel = chip_smoke.rel_l2(a, b)
-                res[g] = {
-                    "rel_l2": rel,
-                    "max_abs": (a.float() - b.float()).abs().max().item(),
-                    "caught_per_element": not torch.allclose(
-                        a.float(), b.float(), rtol=chip_smoke.BF16_TOL,
-                        atol=kernel.BWD_BF16_ATOL),
-                    "caught_rel_l2": rel > kernel.BWD_BF16_REL_L2}
-            print(f"{name} {kind}: {json.dumps(res)}", flush=True)
+            print(f"{name} {kind}: {json.dumps(bars(got, want))}",
+                  flush=True)
             del c, got, want
         torch.cuda.empty_cache()
 

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the flash
-forward (K1), the flash backward (K2), the streaming flash forward (K3) and
-its dQ (K4) and dK/dV (K5) backward, and the fused AdamW (A1). These tests
+forward (K1), the flash backward (K2), the streaming flash forward (K3), its
+rotation pass (R1), dQ (K4) and dK/dV (K5) backward, and the fused AdamW
+(A1). These tests
 need an NVIDIA card and nvcc; elsewhere they skip. On the card:
 
     pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -8,8 +9,8 @@ need an NVIDIA card and nvcc; elsewhere they skip. On the card:
 Bars. fp32: rtol 1e-4 / atol 1e-5 (the kernels and the plain versions
 differ only in summation order). bf16: 2e-2 per element and the relative L2
 bars of ops/flash/kernel.py, set from H100 readings (PERF.md); K3's lse
-within LSE_ATOL absolute. A1: max relative error 1e-6 (both sides round
-every operation to fp32 alike).
+within LSE_ATOL absolute. R1: bit for bit `_rotate`. A1: max relative
+error 1e-6 (both sides round every operation to fp32 alike).
 """
 
 import pytest
@@ -23,10 +24,11 @@ from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
                                        flash_mha_bwd_online_reference,
                                        flash_mha_bwd_reference,
                                        flash_mha_online_reference,
-                                       flash_mha_reference)
+                                       flash_mha_reference, rotate_qk)
 from meant_tpu_torch.ops.flash.flash_attention import _tables
 from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
-                                              BWD_BF16_REL_L2, LSE_ATOL)
+                                              BWD_BF16_REL_L2, LSE_ATOL,
+                                              _rotate)
 
 pytestmark = pytest.mark.cuda
 
@@ -170,7 +172,9 @@ def test_flash_mha_on_cuda_has_grad_fn_and_runs_k2(cuda, dtype):
 # fp32 step of lse is 1e-2 and -1e9 + score no longer rounds alike.
 ONLINE_CASES = ["xpos_causal", "pixel", "masked", "broadcast_mask",
                 "all_masked_pixel"]
-ONLINE_LENGTHS = [1, 63, 65, 196, 4096]
+# 127, 128, 129 and 191, 192, 193 cut K4's and K5's 64-row tiles at a
+# tile's edge, and their ring of three stages where it fills and wraps.
+ONLINE_LENGTHS = [1, 63, 65, 127, 128, 129, 191, 192, 193, 196, 4096]
 
 
 def _assert_out_close(out, ref, dtype):
@@ -217,37 +221,82 @@ def test_online_backward_kernels_match_plain(cuda, dtype, case, s):
     gen = torch.Generator(device=cuda).manual_seed(3000 + s)
     q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, case, s, gen)
     b, h = q.shape[:2]
-    g_lse = torch.randn(b, h, s, generator=gen, device=cuda)
-    out, lse = flash_mha_online_reference(q, k, v, mask, *tables, scale=0.1,
-                                          causal=causal)
-    delta = (do.float() * out.float()).sum(-1) - g_lse
-    args = ([t.reshape(b * h, s, 96).contiguous() for t in (q, k, v, do)]
-            + [lse.reshape(b * h, s), delta.reshape(b * h, s), mask,
-               *tables])
+    args = _online_bwd_args(q, k, v, do, tables, mask, causal, gen)
     before = (flash_bwd_dq.launches, flash_bwd_dkdv.launches)
     (dq,) = flash_bwd_dq(*args, scale=0.1, causal=causal, num_heads=h)
     dk, dv = flash_bwd_dkdv(*args, scale=0.1, causal=causal, num_heads=h)
     torch.cuda.synchronize()
     assert (flash_bwd_dq.launches, flash_bwd_dkdv.launches) == (
         before[0] + 1, before[1] + 1)
+    lse, delta = (t.reshape(b, h, s) for t in args[4:6])
     want = flash_mha_bwd_online_reference(q, k, v, do, lse, delta, mask,
                                           *tables, scale=0.1, causal=causal)
     _assert_grads_close([g.reshape(b, h, s, 96) for g in (dq, dk, dv)],
                         want, dtype)
 
 
+def _online_bwd_args(q, k, v, do, tables, mask, causal, gen):
+    """K4's and K5's arguments: q and k rotated by R1, v, dO, the plain
+    forward's lse and a delta that carries a non-zero lse cotangent, the
+    mask and the tables."""
+    b, h, s, d = q.shape
+    g_lse = torch.randn(b, h, s, generator=gen, device=q.device)
+    out, lse = flash_mha_online_reference(q, k, v, mask, *tables, scale=0.1,
+                                          causal=causal)
+    delta = (do.float() * out.float()).sum(-1) - g_lse
+    flat = [t.reshape(b * h, s, d).contiguous() for t in (q, k, v, do)]
+    return [*rotate_qk(*flat[:2], *tables), *flat[2:],
+            lse.reshape(b * h, s), delta.reshape(b * h, s), mask, *tables]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [193, 4095])
+def test_online_backward_kernels_are_deterministic(cuda, dtype, s):
+    """Every element of dq, dk and dv has one writer and no atomics: two
+    launches of K4 and K5 on the same inputs agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(4000 + s)
+    q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, "masked", s,
+                                                  gen)
+    args = _online_bwd_args(q, k, v, do, tables, mask, causal, gen)
+    runs = []
+    for _ in range(2):
+        (dq,) = flash_bwd_dq(*args, scale=0.1, causal=causal, num_heads=2)
+        runs.append((dq, *flash_bwd_dkdv(*args, scale=0.1, causal=causal,
+                                         num_heads=2)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["xpos_causal", "pixel"])
+@pytest.mark.parametrize("s", [1, 63, 196, 4096])
+def test_rotation_pass_is_rotate(cuda, dtype, case, s):
+    """R1 against `_rotate` (the plain versions' rotation): bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(5000 + s)
+    q, k, _, _, tables, _, _ = _bwd_case(cuda, dtype, case, s, gen)
+    flat = [t.reshape(6, s, 96).contiguous() for t in (q, k)]
+    before = rotate_qk.launches
+    qr, kr = rotate_qk(*flat, *tables)
+    torch.cuda.synchronize()
+    assert rotate_qk.launches == before + 1
+    assert qr.dtype == kr.dtype == dtype
+    assert torch.equal(qr, _rotate(flat[0], *tables[:2]))
+    assert torch.equal(kr, _rotate(flat[1], *tables[2:]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_mha_online_on_cuda_runs_k3_k4_k5(cuda, dtype):
-    """force_online on CUDA inputs that require grad: a grad_fn, K3 forward
-    and K4 + K5 backward, none of K1 or K2, and the plain path's gradients
-    through both out and lse."""
+    """force_online on CUDA inputs that require grad: a grad_fn, K3
+    forward and R1 + K4 + K5 backward, none of K1 or K2, and the plain
+    path's gradients through both out and lse."""
     gen = torch.Generator(device=cuda).manual_seed(8)
     q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, "masked",
                                                   196, gen)
     g_lse = torch.randn(*q.shape[:3], 1, generator=gen, device=cuda)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    counters = (flash_fwd, flash_bwd, flash_fwd_online, flash_bwd_dq,
-                flash_bwd_dkdv)
+    counters = (flash_fwd, flash_bwd, flash_fwd_online, rotate_qk,
+                flash_bwd_dq, flash_bwd_dkdv)
     before = [c.launches for c in counters]
     out, lse = flash_mha(*leaves, scale=0.1, causal=causal,
                          attention_mask=mask, qcos=tables[0],
@@ -257,7 +306,7 @@ def test_flash_mha_online_on_cuda_runs_k3_k4_k5(cuda, dtype):
     torch.autograd.backward((out, lse), (do, g_lse))
     torch.cuda.synchronize()
     assert [c.launches - n for c, n in zip(counters, before)] == [
-        0, 0, 1, 1, 1]
+        0, 0, 1, 1, 1, 1]
     # the plain backward from K3's own out and lse
     delta = (do.float() * out.detach().float()).sum(-1) - g_lse[..., 0]
     want = flash_mha_bwd_online_reference(q, k, v, do, lse.detach()[..., 0],
