@@ -7,15 +7,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
               long-sequence paths from csrc/, one nvcc per source, all
-              started together; cuobjdump must find wgmma (HGMMA) in the
-              streaming backward's library.
+              started together; cuobjdump must find wgmma (HGMMA) in each
+              of the flash_fwd (K3), flash_bwd (K2) and flash_bwd_online
+              (K4, K5) libraries.
 2. kernels -- each kernel's wrapper against its plain PyTorch version on
               the card, at the main path's shapes: the flash forward (K1)
-              and backward (K2) in fp32 and bf16 at both attention shapes,
-              the streaming forward (K3, out and lse), its backward's
-              rotation pass (R1, bit for bit) and its dQ (K4) and dK/dV
-              (K5) backward at s=4096, BH=16, in fp32 and bf16, and
-              the fused AdamW (A1) over all 177,607,733 parameters.
+              and the rotation pass + backward (R1 + K2) in fp32 and bf16
+              at both attention shapes, R1 + the streaming forward (K3,
+              out and lse), R1 (bit for bit) and the streaming dQ (K4)
+              and dK/dV (K5) backward at s=4096, BH=16, in fp32 and bf16,
+              and the fused AdamW (A1) over all 177,607,733 parameters.
 3. slice   -- flagship meant_src (768 wide, 8 heads of 96, 12+12 encoders,
               s=512 text, 196-patch charts, bf16, seeded random weights)
               serves 40 rows through Predictor(batch_size=16): three
@@ -28,8 +29,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               gradients with the kernels vs the plain attention (8 rows,
               dropout off, per-tower relative L2); 20 steps of
               meant_trainer on one replayed 16-row batch at lr 1e-5
-              constant, with exactly 24 K1, 24 K2 and 1 A1 launches per
-              step and a finite, falling loss; step time, samples/s, peak
+              constant, with exactly 24 K1, 24 R1, 24 K2 and 1 A1
+              launches per step and a finite, falling loss; step time, samples/s, peak
               memory and a torch.profiler breakdown of 2 steps; then
               cli.in_loop_train trains one epoch of a synthetic set,
               evaluates and saves, and Predictor(checkpoint_path=...)
@@ -37,19 +38,21 @@ Phases, in order; any failure raises and the script exits non-zero:
               No phase of the flagship launches K3, K4 or K5.
 5. long    -- src4096 (bench.py's long-sequence workload: the flagship at
               s=4096, batch 2, fusion projection of 4096): Predictor serves
-              2 requests of 2 rows with exactly 12 K3 + 12 K1 launches per
-              forward, towers and probabilities against the plain
-              attention; one step's gradients at 1 row and 2 encoders per
-              tower against the plain attention; 10 meant_trainer steps at
-              fixed_proj=True with exactly 12 K3, 12 K1, 12 R1, 12 K4,
-              12 K5, 12 K2 and 1 A1 per step and a finite, falling loss;
+              2 requests of 2 rows with exactly 12 R1 + 12 K3 + 12 K1
+              launches per forward, towers and probabilities against the
+              plain attention; one step's gradients at 1 row and 2
+              encoders per tower against the plain attention; 10
+              meant_trainer steps at fixed_proj=True with exactly 12 K3,
+              12 K1, 36 R1 (before K3, K4 + K5 and K2), 12 K4, 12 K5, 12
+              K2 and 1 A1 per step and a finite, falling loss;
               step time, samples/s, peak memory and a profiled step.
 6. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
-              calls): rotation + scaled_dot_product_attention (K1, K3; causal
-              at s=4096 for K3) and its backward (K2; R1, K4 and K5
-              together), torch.optim.AdamW(fused=True) (A1).
+              calls): rotation + scaled_dot_product_attention (K1; R1 + K3,
+              causal at s=4096) and its backward (R1 + K2; R1, K4 and K5
+              together), torch.optim.AdamW(fused=True) (A1); R1 has rows
+              of its own at each shape.
 7. profile -- torch.profiler over 3 forwards of one 16-row request: device
               time per forward by kind, the device's idle share, and the
               top kernels.
@@ -110,6 +113,7 @@ GRAD_ROWS = 8              # rows of the gradient comparison
 LEARN_STEPS, LEARN_LR = 20, 1e-5
 PROFILE_STEPS = 2
 KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_online", "adamw")
+WGMMA_LIBRARIES = ("flash_fwd", "flash_bwd", "flash_bwd_online")
 # src4096 (bench.py:807-817, build_src(4096, batch=2)): the flagship at
 # s=4096 with a fusion projection of max(512, s), batch 2.
 LONG_SEQ, LONG_BATCH = 4096, 2
@@ -273,12 +277,19 @@ def backward_case(kind, dtype, gen, **shape):
 
 
 def run_bwd_kernel(c):
-    """K2 on (b*h, s, d) views; returns (dq, dk, dv) as (b, h, s, d)."""
+    """R1 then K2 on (b*h, s, d) views, as the resident backward runs them;
+    returns (dq, dk, dv) as (b, h, s, d)."""
+    rotate_case(c)
+    return run_bwd_k2(c)
+
+
+def run_bwd_k2(c):
+    """K2 alone on c's qr and kr (rotate_case); (dq, dk, dv) as above."""
     from meant_tpu_torch.ops.flash import flash_bwd
     b, h, s, d = c["q"].shape
-    flat = [c[n].reshape(b * h, s, d) for n in ("q", "k", "v", "do")]
-    grads = flash_bwd(*flat, c["mask"], *c["tables"], scale=c["scale"],
-                      causal=c["causal"], num_heads=h)
+    flat = [c[n].reshape(b * h, s, d) for n in ("v", "do")]
+    grads = flash_bwd(c["qr"], c["kr"], *flat, c["mask"], *c["tables"],
+                      scale=c["scale"], causal=c["causal"], num_heads=h)
     return [g.reshape(b, h, s, d) for g in grads]
 
 
@@ -304,6 +315,15 @@ def check_backward(record):
             want = run_bwd_plain(c)
             torch.cuda.synchronize()
             name = f"{kind}/{str(dtype).split('.')[-1]}"
+            rot_err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip((c["qr"], c["kr"]),
+                                          rotate_plain(c)))
+            print(f"R1 vs plain {name}: max_abs_err {rot_err:.3e} (bar 0) "
+                  f"{'ok' if rot_err == 0 else 'FAIL'}", flush=True)
+            if rot_err != 0:
+                fail(f"R1 differs from _rotate ({name}, max abs err "
+                     f"{rot_err})")
+            errors[f"{name}/rot"] = rot_err
             worst = 0.0
             for g, a, b in zip(("dq", "dk", "dv"), got, want):
                 err = (a.float() - b.float()).abs().max().item()
@@ -315,7 +335,7 @@ def check_backward(record):
                                          atol=BWD_BF16_ATOL)
                           and rel <= BWD_BF16_REL_L2)
                 ok = ok and bool(torch.isfinite(a).all())
-                print(f"K2 vs plain {name} {g}: max_abs_err {err:.3e} "
+                print(f"R1 + K2 vs plain {name} {g}: max_abs_err {err:.3e} "
                       f"rel_l2 {rel:.3e} {'ok' if ok else 'FAIL'}",
                       flush=True)
                 if not ok:
@@ -331,13 +351,19 @@ def check_backward(record):
 
 
 def run_online_kernel(c):
-    """K3 on (b*h, s, d) views; returns (out (b, h, s, d), lse (b, h, s))."""
+    """R1 then K3 on (b*h, s, d) views, as the streaming forward runs them;
+    returns (out (b, h, s, d), lse (b, h, s))."""
+    rotate_case(c)
+    return run_online_k3(c)
+
+
+def run_online_k3(c):
+    """K3 alone on c's qr and kr (rotate_case); (out, lse) as above."""
     from meant_tpu_torch.ops.flash import flash_fwd_online
     b, h, s, d = c["q"].shape
-    flat = [c[n].reshape(b * h, s, d) for n in ("q", "k", "v")]
-    out, lse = flash_fwd_online(*flat, c["mask"], *c["tables"],
-                                scale=c["scale"], causal=c["causal"],
-                                num_heads=h)
+    out, lse = flash_fwd_online(c["qr"], c["kr"], c["v"].reshape(b * h, s, d),
+                                c["mask"], scale=c["scale"],
+                                causal=c["causal"], num_heads=h)
     return out.reshape(b, h, s, d), lse.reshape(b, h, s)
 
 
@@ -430,10 +456,10 @@ def long_case(kind, dtype, gen, bh):
 
 
 def check_long_kernels(record):
-    """K3 (out and lse), R1, K4 and K5 against their plain versions at
-    s=4096, BH=16, fp32 and bf16, without and with a padding mask: out and
-    the gradients at K1's and K2's bars, lse within LSE_ATOL, R1 bit for
-    bit."""
+    """R1 + K3 (out and lse), R1, K4 and K5 against their plain versions
+    at s=4096, BH=16, fp32 and bf16, without and with a padding mask: out
+    and the gradients at K1's and K2's bars, lse within LSE_ATOL, R1 bit
+    for bit."""
     from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
                                                   BWD_BF16_REL_L2, LSE_ATOL)
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -443,7 +469,7 @@ def check_long_kernels(record):
             c = long_case(kind, dtype, gen, LONG_CHECK_BH)
             name = f"long_{kind}/{str(dtype).split('.')[-1]}"
             out, lse = run_online_kernel(c)
-            rotated = rotate_case(c)
+            rotated = (c["qr"], c["kr"])
             dq = run_online_dq_kernel(c)
             dk, dv = run_online_dkdv_kernel(c)
             torch.cuda.synchronize()
@@ -452,7 +478,7 @@ def check_long_kernels(record):
             torch.cuda.synchronize()
             lse_err = (lse - c["lse"]).abs().max().item()
             ok_lse = lse_err <= LSE_ATOL and bool(torch.isfinite(lse).all())
-            print(f"K3 vs plain {name} lse: max_abs_err {lse_err:.3e} "
+            print(f"R1 + K3 vs plain {name} lse: max_abs_err {lse_err:.3e} "
                   f"(bar {LSE_ATOL}) {'ok' if ok_lse else 'FAIL'}",
                   flush=True)
             if not ok_lse:
@@ -720,12 +746,14 @@ def reset_counts():
 
 def read_counts() -> dict:
     """Launch counts; K1's and K2's also by (s, causal), keyed
-    "s<s> causal=<c>"."""
+    "s<s> causal=<c>", and R1's by s, keyed "s<s>"."""
     counts = {name: w.launches for name, w in wrappers().items()}
     for name in ("K1", "K2"):
         counts[f"{name}_by_shape"] = {
             shape_key(s, c): n
             for (s, c), n in wrappers()[name].launches_by_shape.items()}
+    counts["R1_by_shape"] = {
+        f"s{s}": n for (s,), n in wrappers()["R1"].launches_by_shape.items()}
     return counts
 
 
@@ -824,7 +852,7 @@ def learn(model, record):
     """LEARN_STEPS steps of the flagship at batch 16."""
     res, trainer, batch = train_steps(
         model, train_batch(BATCH, seed=1), LEARN_STEPS,
-        {"K1": 24, "K2": 24, "A1": 1}, "learn")
+        {"K1": 24, "R1": 24, "K2": 24, "A1": 1}, "learn")
     record["train"] = res
     record["train_profile"] = profile_calls(
         lambda: trainer.train_step(batch), PROFILE_STEPS, "step")
@@ -850,8 +878,8 @@ def train_through_cli(record):
         trainer = results["trainer"]
         steps = trainer.optimizer.step_count
         if (counts["A1"] != steps or counts["K2"] != 24 * steps
-                or counts["K3"] or counts["R1"] or counts["K4"]
-                or counts["K5"]):
+                or counts["R1"] != 24 * steps or counts["K3"]
+                or counts["K4"] or counts["K5"]):
             fail(f"the CLI's {steps} steps launched {counts}")
         if results["checkpoint"] is None:
             fail("the CLI saved no checkpoint")
@@ -881,7 +909,8 @@ def train_through_cli(record):
 def run_training(record):
     model = build_flagship(flash=True, fixed_proj=True)
     record["step_gradients"] = compare_step_gradients(
-        model, to_card(train_batch(GRAD_ROWS, seed=5)), {"K1": 24, "K2": 24},
+        model, to_card(train_batch(GRAD_ROWS, seed=5)),
+        {"K1": 24, "R1": 24, "K2": 24},
         lambda: build_flagship(flash=False, fixed_proj=True), "train step")
     counts = learn(model, record)
     del model
@@ -894,7 +923,8 @@ def run_training(record):
 
 def serve_long(record):
     """Predictor serves LONG_REQUEST_ROWS rows of src4096 in requests of
-    LONG_BATCH: exactly 12 K3 (text, s=4096) + 12 K1 (vision) per forward;
+    LONG_BATCH: exactly 12 R1 + 12 K3 (text, s=4096) + 12 K1 (vision) per
+    forward;
     then the towers and probabilities of one request against the plain
     attention."""
     from meant_tpu_torch.serve import Predictor
@@ -917,6 +947,7 @@ def serve_long(record):
           f"{probs.shape}, launches {counts}; {n_params} parameters",
           flush=True)
     check_counts(counts, {"K1": n_requests * ENCODERS,
+                          "R1": n_requests * ENCODERS,
                           "K3": n_requests * ENCODERS}, "serving src4096")
     if (probs.shape != (LONG_REQUEST_ROWS, 2) or not np.isfinite(probs).all()
             or not ((probs > 0) & (probs < 1)).all()):
@@ -944,7 +975,8 @@ def run_long(record):
                            num_encoders=n)
     res["step_gradients"] = compare_step_gradients(
         small, to_card(train_batch(1, seed=6, seq=LONG_SEQ)),
-        {"K1": n, "K2": n, "K3": n, "R1": n, "K4": n, "K5": n},
+        # R1 in front of K3, of K4 + K5 and of K2
+        {"K1": n, "K2": n, "K3": n, "R1": 3 * n, "K4": n, "K5": n},
         lambda: build_flagship(LONG_SEQ, flash=False, fixed_proj=True,
                                num_encoders=n), "src4096 step")
     del small
@@ -952,7 +984,7 @@ def run_long(record):
     model = build_flagship(LONG_SEQ, flash=True, fixed_proj=True)
     train, trainer, batch = train_steps(
         model, train_batch(LONG_BATCH, seed=7, seq=LONG_SEQ), LONG_STEPS,
-        {"K1": ENCODERS, "K2": ENCODERS, "K3": ENCODERS, "R1": ENCODERS,
+        {"K1": ENCODERS, "K2": ENCODERS, "K3": ENCODERS, "R1": 3 * ENCODERS,
          "K4": ENCODERS, "K5": ENCODERS, "A1": 1}, "learn src4096")
     res["train"] = train
     res["train_profile"] = profile_calls(
@@ -1024,15 +1056,33 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
             PEAK_BF16_FLOPS, shape=list(c["q"].shape), dtype="bfloat16"))
         nbytes, flops = attention_cost(c, backward=True)
         library = run_library_bwd(c)
+        library_ms = event_ms(library, iters=10)
+        rotate_case(c)
+        k2_ms = event_ms(lambda: run_bwd_k2(c), iters=10)
+        with_r1 = event_ms(lambda: run_bwd_kernel(c), iters=10)
         rows.append(kernel_row(
             f"flash_bwd[{label}]", "meant_tpu_torch/csrc/flash_bwd.cu",
             "meant_tpu/ops/flash/kernel.py:321",
             train_counts["K2_by_shape"].get(shape_key(*key), 0),
-            bwd_errors[f"{kind}/bfloat16"],
-            event_ms(lambda: run_bwd_kernel(c), iters=10),
-            event_ms(lambda: run_bwd_plain(c), iters=3),
-            event_ms(library, iters=10), nbytes, flops, PEAK_BF16_FLOPS,
-            shape=list(c["q"].shape), dtype="bfloat16"))
+            bwd_errors[f"{kind}/bfloat16"], k2_ms,
+            event_ms(lambda: run_bwd_plain(c), iters=3), library_ms, nbytes,
+            flops, PEAK_BF16_FLOPS, shape=list(c["q"].shape),
+            dtype="bfloat16", r1_plus_k2_ms=with_r1))
+        print(f"resident backward at {label}: K2 {k2_ms:.4f} ms, R1 + K2 "
+              f"{with_r1:.4f} ms against the SDPA backward's "
+              f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)",
+              flush=True)
+        nbytes, flops = rotation_cost(c)
+        rows.append(kernel_row(
+            f"rotate_qk[{label}]",
+            "meant_tpu_torch/csrc/flash_bwd_online.cu",
+            "meant_tpu/ops/flash/kernel.py:340",
+            train_counts["R1_by_shape"].get(f"s{c['s']}", 0),
+            bwd_errors[f"{kind}/bfloat16/rot"],
+            event_ms(lambda: rotate_case(c), iters=20),
+            event_ms(lambda: rotate_plain(c), iters=5), None, nbytes, flops,
+            PEAK_FP32_FLOPS, shape=list(c["q"].shape), dtype="bfloat16",
+            library_call=None))
         del c, library
         torch.cuda.empty_cache()
 
@@ -1064,17 +1114,19 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
 
 def long_cost(c, kernel: str) -> tuple:
     """(bytes, flops) a streaming launch must move and compute, each input
-    read once and each output written once: K3 reads q, k, v and writes o
-    and lse; K4 reads q, k, v, dO, lse, delta and writes dq; K5 reads the
-    same and writes dk, dv; the four tables once each. Products over the
+    read once and each output written once: K3 reads qr, kr, v and writes o
+    and lse (its tables are on R1's row); K4 reads qr, kr, v, dO, lse,
+    delta and the q tables (the adjoint's) and writes dq; K5 reads the same
+    and writes dk, dv; the tables counted as four. Products over the
     causal triangle: 2 (K3: S, PV), 3 (K4: S, dP, dS Kr), 4 (K5: S, dP,
     P^T dO, dS^T Qr)."""
     q = c["q"]
     bh, s, d = q.shape[0] * q.shape[1], c["s"], q.shape[-1]
     tensors = {"K3": 4, "K4": 5, "K5": 6}[kernel]
     rows = {"K3": 1, "K4": 2, "K5": 2}[kernel]
-    nbytes = (tensors * q.numel() * q.element_size() + rows * bh * s * 4
-              + sum(t.numel() * 4 for t in c["tables"]))
+    tables = 0 if kernel == "K3" else sum(t.numel() * 4 for t in c["tables"])
+    nbytes = tensors * q.numel() * q.element_size() + rows * bh * s * 4
+    nbytes += tables
     pairs = s * (s + 1) // 2 if c["causal"] else s * s
     products = {"K3": 2, "K4": 3, "K5": 4}[kernel]
     return nbytes, products * 2 * bh * pairs * d
@@ -1103,10 +1155,11 @@ def plain_ms_fitting(fn, big, small, iters: int):
 
 
 def time_long_kernels(long_errors, long_counts):
-    """K3, R1, K4 and K5 at the main path's launch (BH=80, s=4096, bf16,
-    causal xPos): ms per launch, bound, plain version, and the yardstick:
-    rotation + causal SDPA (K3), its backward (R1, K4 and K5 together);
-    R1 has no single PyTorch call of its own."""
+    """R1 + K3, R1, K4 and K5 at the main path's launch (BH=80, s=4096,
+    bf16, causal xPos): ms per launch, bound, plain version, and the
+    yardstick: rotation + causal SDPA (R1 + K3 together; K3 alone beside
+    it), its backward (R1, K4 and K5 together); R1 has no single PyTorch
+    call of its own."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     big = long_case("text", torch.bfloat16, gen, LONG_TIME_BH)
     small = long_case("text", torch.bfloat16, gen, LONG_CHECK_BH)
@@ -1131,6 +1184,14 @@ def time_long_kernels(long_errors, long_counts):
     for (kernel, name, source, replaces, run, plain, err_keys, library_ms,
          iters) in plans:
         ms = event_ms(lambda: run(big), iters=iters)
+        extra = {}
+        if kernel == "K3":     # the row is R1 + K3; K3 alone beside it
+            extra["k3_alone_ms"] = event_ms(lambda: run_online_k3(big),
+                                            iters=iters)
+            print(f"streaming forward at src4096's launch: R1 + K3 "
+                  f"{ms:.4f} ms (K3 alone {extra['k3_alone_ms']:.4f} ms) "
+                  f"against rotation + causal SDPA's {library_ms:.4f} ms "
+                  f"({ms / library_ms:.2f}x)", flush=True)
         plain_ms, plain_bh = plain_ms_fitting(plain, big, small, iters=2)
         torch.cuda.empty_cache()
         keys = err_keys if isinstance(err_keys, tuple) else (err_keys,)
@@ -1139,7 +1200,7 @@ def time_long_kernels(long_errors, long_counts):
             f"{name}[s4096 causal xPos]", source, replaces,
             long_counts[kernel], max(long_errors[k] for k in keys), ms,
             plain_ms, library_ms, nbytes, flops, PEAK_BF16_FLOPS,
-            shape=shape, dtype="bfloat16", plain_bh=plain_bh,
+            shape=shape, dtype="bfloat16", plain_bh=plain_bh, **extra,
             library_call=("rotation + scaled_dot_product_attention"
                           if kernel == "K3" else
                           "backward of rotation + scaled_dot_product_"
@@ -1148,7 +1209,7 @@ def time_long_kernels(long_errors, long_counts):
     rows.insert(1, kernel_row(
         "rotate_qk[s4096 causal xPos]",
         "meant_tpu_torch/csrc/flash_bwd_online.cu",
-        "meant_tpu/ops/flash/kernel.py:477", long_counts["R1"],
+        "meant_tpu/ops/flash/kernel.py:152", long_counts["R1"],
         long_errors["long_text/bfloat16/rot"],
         event_ms(lambda: rotate_case(big), iters=20),
         event_ms(lambda: rotate_plain(big), iters=5), None, nbytes, flops,
@@ -1189,10 +1250,10 @@ def _kind(name: str) -> str:
         return "rotate_qk (R1)"
     if "flash_fwd_lse" in low:
         return "flash_fwd_lse (K3)"
-    if "flash_bwd_online_dq" in low:
-        return "flash_bwd_online_dq (K4)"
-    if "flash_bwd_online_dkdv" in low:
-        return "flash_bwd_online_dkdv (K5)"
+    # the wgmma bodies are K4/K5 at <false>, K2 at <true> (kStats)
+    if "flash_bwd" in low and ("online" in low or "<false>" in low):
+        return ("flash_bwd dq (K4)" if "_dq_" in low
+                else "flash_bwd dkdv (K5)")
     if "flash_fwd" in low:
         return "flash_fwd (K1)"
     if "flash_bwd" in low:
@@ -1277,7 +1338,7 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    record["flash_bwd_online_hgmma"] = count_hgmma("flash_bwd_online")
+    record["hgmma"] = {name: count_hgmma(name) for name in WGMMA_LIBRARIES}
 
     errors = check_kernel(record)
     bwd_errors = check_backward(record)

@@ -3,59 +3,66 @@
 // Replaces the TPU kernel meant_tpu/ops/flash/kernel.py:_bwd_kernel (the
 // resident backward, launched by _flash_bwd through the custom VJP of
 // _make_flash). For each (batch*head) it computes what that kernel
-// computes, with q, k rotated by the fp32 tables and rounded to the input
-// dtype T as in the forward (K1, flash_fwd.cu):
+// computes, from q and k rotated by the fp32 tables and rounded to the
+// input dtype T once per call by the rotation pass (R1,
+// flash_bwd_online.cu; the bits of the TPU kernel's rotation at :340-341):
 //   P     = softmax(mask(scale * Qr Kr^T))                 (fp32)
 //   dV    = T(P)^T dO                                       (fp32 sums)
 //   dP    = dO V^T;  delta = rowsum(P o dP)                 (fp32)
 //   dS    = T(P o (dP - delta) * scale)
 //   dQ    = rot^T(dS Kr),  dK = rot^T(dS^T Qr)
 // with rot^T(g) = cos o g - H(sin o g), H the interleaved rotate_half
-// (H(x)[2i] = -x[2i+1], H(x)[2i+1] = x[2i]) and H^T = -H.
+// (H(x)[2i] = -x[2i+1], H(x)[2i+1] = x[2i]) and H^T = -H. The tables serve
+// only the adjoint, applied once in each epilogue.
 //
 // Design. The TPU kernel accumulates dK/dV by revisiting its output blocks
 // across the q-block grid axis, sound only because a TPU grid runs in
 // order; on a GPU the blocks run in parallel, so that would race. Here two
 // kernels split the work so every output element has one writer and no
 // atomics are needed (the result is deterministic):
-//   * flash_bwd_dq_kernel, one block per (bh, 64-row q tile), walks the K/V
+//   * the dq kernel, one block per (bh, 64-row q tile), walks the Kr/V
 //     tiles twice. Pass 1 finds each row's max m, denominator l and
 //     delta = sum_j P_ij dP_ij online (delta is accumulated against the
 //     running max and rescaled with l; it is JAX's delta, not FA2's
-//     rowsum(dO o O)). It writes m, 1/l and delta as (3, BH, s) fp32
-//     scratch. Pass 2 recomputes P and dP, forms dS and accumulates dQr in
-//     fp32 registers; the adjoint is applied once at the end.
-//   * flash_bwd_dkdv_kernel, one block per (bh, 64-row k tile), walks the q
-//     tiles (from the diagonal on, when causal), recomputes S^T = Kr Qr^T
-//     and dP^T = V dO^T, takes P from the saved m and 1/l (not from a
+//     rowsum(dO o O), so it needs S and dP on every tile). It writes m, 1/l
+//     and delta as (3, BH, s) fp32 scratch. Pass 2 recomputes S and dP,
+//     forms dS and accumulates dQr in fp32 registers.
+//   * the dk/dv kernel, one block per (bh, 64-row k tile), walks the q tiles
+//     (from the diagonal on, when causal), recomputes S^T = Kr Qr^T and
+//     dP^T = V dO^T, takes P from the saved m and 1/l (not from a
 //     log-sum-exp: a fully masked row sits near -1e9, where m + log l would
-//     lose every digit of log l), and accumulates dV and dKr in fp32
-//     registers; the adjoint is applied once at the end.
-// m is stored rather than a log-sum-exp for the same reason. Rows and keys
-// past s (s=196 is ragged) are zero-filled on load, get P = 0 and are
-// never written. Every product is a warp-level C(16 x 8n) += A(16 x K) *
-// B(8n x K)^T with both operands in shared memory, depth contiguous:
-//   * bf16 (the main path): mma.sync m16n8k16, bf16 in, fp32 accumulate;
-//   * fp32 (the tight on-card check): the same fragment layout computed by
-//     scalar fp32 FMAs, since the tensor cores would round fp32 to TF32.
-// P and dS go through a per-warp shared-memory slab in the input dtype,
-// which is exactly where the reference rounds them. The transposed operands
-// (Kr^T for dQ, Qr^T and dO^T for dK and dV) are written transposed while
-// the tiles are loaded. Only head dim 96 is instantiated.
+//     lose every digit of log l; P is 1/s there, the reference's result),
+//     and accumulates dV and dKr in fp32 registers.
+// Rows and keys past s (s=196 is ragged) get P = 0 and are never written.
+//   * bf16 (the main path): the wgmma bodies of flash_bwd_wgmma.cuh, shared
+//     with the streaming backward's K4 and K5 and instantiated here with the
+//     statistics pass (kStats): a producer warp streams the Kr/V tiles
+//     (twice, for the two passes) or the Qr/dO tiles through TMA into a
+//     ring of stages; S and dP run on wgmma from shared memory; P and dS are
+//     rounded in the registers that become the A fragments of dQr += dS Kr,
+//     dV += T(P^T) dO and dKr += dS^T Qr, exactly where the reference rounds
+//     them; masks only on the diagonal and ragged tiles (at s=196, not
+//     causal, only the last tile).
+//   * fp32 (the tight on-card check): scalar bodies, the warp-level NT
+//     product of flash_common.cuh computed by fp32 FMAs (the tensor cores
+//     would round fp32 to TF32), on synchronous loads with transposed
+//     copies, fed the same Qr and Kr.
+// Only head dim 96 is instantiated.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the main
 // path's shapes (BH = 640, d = 96, bf16): the launch must read q, k, v, dO
 // and the four (s, 96) tables and write dq, dk, dv once: 441 MB at s=512
 // (0.132 ms) and 169 MB at s=196 (0.050 ms). Its five products over the
 // causal triangle are 80.5 GFLOP at s=512 (0.081 ms) and 23.6 GFLOP at
-// s=196 (0.024 ms): bound by bytes. This design does 9 products' worth of
-// tensor-core work (S three times, dP twice) from shared memory without
-// pipelined loads; making it fast (cp.async/TMA, wgmma, fewer passes) is
-// later work.
+// s=196 (0.024 ms): bound by bytes. The design does nine products' worth
+// of tensor-core work (S three times, dP three times, dS Kr, P^T dO,
+// dS^T Qr), since the statistics pass and the dk/dv kernel each recompute
+// S and dP.
 //
 // C interface (loaded with ctypes): meant_flash_bwd returns the
 // cudaError_t of the launches (0 on success); it never synchronises.
 
+#include "flash_bwd_wgmma.cuh"
 #include "flash_common.cuh"
 
 namespace {
@@ -85,16 +92,15 @@ constexpr int dkdv_smem_bytes() {
          3 * kTile * (int)sizeof(float);
 }
 
-// ---- dQ and the row statistics -------------------------------------------
+// ---- fp32: dQ and the row statistics --------------------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ stats,
-    const float* __restrict__ qcos, const float* __restrict__ qsin,
-    const float* __restrict__ kcos, const float* __restrict__ ksin,
-    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
-    float scale, int causal) {
+    const T* __restrict__ qr, const T* __restrict__ kr,
+    const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dq,
+    float* __restrict__ stats, const float* __restrict__ qcos,
+    const float* __restrict__ qsin, const float* __restrict__ kmask,
+    int mask_rows, int seq, int num_heads, float scale, int causal) {
   constexpr int ld = D + Pad<T>::value;       // [row][d] tiles
   constexpr int ldk = kTile + Pad<T>::value;  // [.][key] tiles
   constexpr int kNk = kTile / 8;            // n-tiles over keys
@@ -119,7 +125,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const T* dow = dos + warp * 16 * ld;
   T* dsw = dss + warp * 16 * ldk;
 
-  load_tile<T, D>(qs, ld, nullptr, 0, q + base, qcos, qsin, q0, seq);
+  load_tile<T, D>(qs, ld, nullptr, 0, qr + base, nullptr, nullptr, q0,
+                  seq);
   load_tile<T, D>(dos, ld, nullptr, 0, dout + base, nullptr, nullptr, q0,
                   seq);
   const int n_k = (seq + kTile - 1) / kTile;
@@ -131,7 +138,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();  // the previous tile's reads are done
-    load_tile<T, D>(ks, ld, nullptr, 0, k + base, kcos, ksin, k0, seq);
+    load_tile<T, D>(ks, ld, nullptr, 0, kr + base, nullptr, nullptr, k0,
+                    seq);
     load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
     __syncthreads();
     float s[kNk][4], dp[kNk][4];
@@ -189,7 +197,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();
-    load_tile<T, D>(ks, ld, kts, ldk, k + base, kcos, ksin, k0, seq);
+    load_tile<T, D>(ks, ld, kts, ldk, kr + base, nullptr, nullptr, k0,
+                    seq);
     load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
     __syncthreads();
     float s[kNk][4], dp[kNk][4];
@@ -227,16 +236,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 }
 
-// ---- dK and dV -------------------------------------------------------------
+// ---- fp32: dK and dV -------------------------------------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
-    const float* __restrict__ stats, const float* __restrict__ qcos,
-    const float* __restrict__ qsin, const float* __restrict__ kcos,
-    const float* __restrict__ ksin, const float* __restrict__ kmask,
-    int mask_rows, int seq, int num_heads, float scale, int causal) {
+    const T* __restrict__ qr, const T* __restrict__ kr,
+    const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dk,
+    T* __restrict__ dv, const float* __restrict__ stats,
+    const float* __restrict__ kcos, const float* __restrict__ ksin,
+    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
+    float scale, int causal) {
   constexpr int ld = D + Pad<T>::value;
   constexpr int ldk = kTile + Pad<T>::value;
   constexpr int kNq = kTile / 8;  // n-tiles over q rows
@@ -268,7 +277,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   T* pw = ps + warp * 16 * ldk;
   T* dsw = dss + warp * 16 * ldk;
 
-  load_tile<T, D>(ks, ld, nullptr, 0, k + base, kcos, ksin, k0, seq);
+  load_tile<T, D>(ks, ld, nullptr, 0, kr + base, nullptr, nullptr, k0, seq);
   load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
 
   float dv_acc[kNd][4], dk_acc[kNd][4];
@@ -278,7 +287,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   for (int qt = causal ? (int)blockIdx.y : 0; qt < n_q; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's reads are done
-    load_tile<T, D>(qs, ld, qts, ldk, q + base, qcos, qsin, q0, seq);
+    load_tile<T, D>(qs, ld, qts, ldk, qr + base, nullptr, nullptr, q0,
+                    seq);
     load_tile<T, D>(dos, ld, dots, ldk, dout + base, nullptr, nullptr, q0,
                     seq);
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
@@ -333,47 +343,67 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 
 // ---- launch --------------------------------------------------------------
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* dout, void* dq, void* dk, void* dv,
-                   float* stats, const float* qcos, const float* qsin,
-                   const float* kcos, const float* ksin, const float* kmask,
-                   int mask_rows, int bh, int seq, int num_heads, float scale,
-                   int causal, cudaStream_t stream) {
-  constexpr int dq_bytes = dq_smem_bytes<T, D>();
-  constexpr int dkdv_bytes = dkdv_smem_bytes<T, D>();
+constexpr int kHeadDim = 96;  // the only head dim instantiated
+
+cudaError_t launch_fp32(const float* qr, const float* kr, const float* v,
+                        const float* dout, float* dq, float* dk, float* dv,
+                        float* stats, const float* qcos, const float* qsin,
+                        const float* kcos, const float* ksin,
+                        const float* kmask, int mask_rows, int bh, int seq,
+                        int num_heads, float scale, int causal,
+                        cudaStream_t stream) {
+  constexpr int dq_bytes = dq_smem_bytes<float, kHeadDim>();
+  constexpr int dkdv_bytes = dkdv_smem_bytes<float, kHeadDim>();
+  const auto dq_kernel = flash_bwd_dq_kernel<float, kHeadDim>;
+  const auto dkdv_kernel = flash_bwd_dkdv_kernel<float, kHeadDim>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dq_bytes);
+      dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkdv_bytes);
+  err = cudaFuncSetAttribute(
+      dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (seq + kTile - 1) / kTile);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, dq_bytes, stream>>>(
-      qt, kt, vt, dot, static_cast<T*>(dq), stats, qcos, qsin, kcos, ksin,
-      kmask, mask_rows, seq, num_heads, scale, causal);
+  dq_kernel<<<grid, kThreads, dq_bytes, stream>>>(
+      qr, kr, v, dout, dq, stats, qcos, qsin, kmask, mask_rows, seq,
+      num_heads, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_kernel<T, D><<<grid, kThreads, dkdv_bytes, stream>>>(
-      qt, kt, vt, dot, static_cast<T*>(dk), static_cast<T*>(dv), stats, qcos,
-      qsin, kcos, ksin, kmask, mask_rows, seq, num_heads, scale, causal);
+  dkdv_kernel<<<grid, kThreads, dkdv_bytes, stream>>>(
+      qr, kr, v, dout, dk, dv, stats, kcos, ksin, kmask, mask_rows, seq,
+      num_heads, scale, causal);
   return cudaGetLastError();
 }
 
-constexpr int kHeadDim = 96;  // the only head dim instantiated
+// stats planes: m, 1/l, delta, each (bh, seq)
+cudaError_t launch_bf16(const void* qr, const void* kr, const void* v,
+                        const void* dout, void* dq, void* dk, void* dv,
+                        float* stats, const float* qcos, const float* qsin,
+                        const float* kcos, const float* ksin,
+                        const float* kmask, int mask_rows, int bh, int seq,
+                        int num_heads, float scale, int causal,
+                        cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (!bwd::make_maps(m, qr, kr, v, dout, bh, seq))
+    return cudaErrorInvalidValue;
+  const size_t plane = (size_t)bh * seq;
+  float *row_m = stats, *row_il = stats + plane, *row_delta = stats + 2 * plane;
+  cudaError_t err = bwd::launch_dq<true>(m, row_m, row_il, row_delta, dq,
+                                         qcos, qsin, kmask, mask_rows, bh,
+                                         seq, num_heads, scale, causal,
+                                         stream);
+  if (err != cudaSuccess) return err;
+  return bwd::launch_dkdv<true>(m, row_m, row_il, row_delta, dk, dv, kcos,
+                                ksin, kmask, mask_rows, bh, seq, num_heads,
+                                scale, causal, stream);
+}
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/k/v/dout/dq/dk/dv: (bh, seq, d)
-// contiguous; stats: (3, bh, seq) fp32 scratch; tables: (seq, d) fp32;
-// kmask: (mask_rows, seq) fp32 or null.
-extern "C" int meant_flash_bwd(int dtype, const void* q, const void* k,
+// dtype: 0 = float32, 1 = bfloat16. qr/kr (q and k rotated by R1), v, dout,
+// dq/dk/dv: (bh, seq, d) contiguous; stats: (3, bh, seq) fp32 scratch;
+// tables: (seq, d) fp32, read by the rotation's adjoint; kmask:
+// (mask_rows, seq) fp32 or null.
+extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
                                const void* v, const void* dout, void* dq,
                                void* dk, void* dv, void* stats,
                                const void* qcos, const void* qsin,
@@ -381,23 +411,19 @@ extern "C" int meant_flash_bwd(int dtype, const void* q, const void* k,
                                const void* kmask, int mask_rows, int bh,
                                int seq, int d, int num_heads, float scale,
                                int causal, void* stream) {
-  if (bh <= 0 || seq <= 0 || d != kHeadDim || (dtype != 0 && dtype != 1) ||
-      (seq + kTile - 1) / kTile > 65535)
+  if (bh <= 0 || bh > 65535 || seq <= 0 || d != kHeadDim ||
+      (dtype != 0 && dtype != 1) || (seq + kTile - 1) / kTile > 65535)
     return (int)cudaErrorInvalidValue;
-  const auto* qc = static_cast<const float*>(qcos);
-  const auto* qs = static_cast<const float*>(qsin);
-  const auto* kc = static_cast<const float*>(kcos);
-  const auto* kn = static_cast<const float*>(ksin);
-  const auto* km = static_cast<const float*>(kmask);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto* st = static_cast<float*>(stats);
   auto str = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0
-          ? launch<float, kHeadDim>(q, k, v, dout, dq, dk, dv, st, qc, qs, kc,
-                                    kn, km, mask_rows, bh, seq, num_heads,
-                                    scale, causal, str)
-          : launch<bf16, kHeadDim>(q, k, v, dout, dq, dk, dv, st, qc, qs, kc,
-                                   kn, km, mask_rows, bh, seq, num_heads,
-                                   scale, causal, str);
-  return (int)err;
+  if (dtype == 0)
+    return (int)launch_fp32(f(qr), f(kr), f(v), f(dout),
+                            static_cast<float*>(dq), static_cast<float*>(dk),
+                            static_cast<float*>(dv), st, f(qcos), f(qsin),
+                            f(kcos), f(ksin), f(kmask), mask_rows, bh, seq,
+                            num_heads, scale, causal, str);
+  return (int)launch_bf16(qr, kr, v, dout, dq, dk, dv, st, f(qcos), f(qsin),
+                          f(kcos), f(ksin), f(kmask), mask_rows, bh, seq,
+                          num_heads, scale, causal, str);
 }

@@ -1,0 +1,574 @@
+// The bf16 bodies of the flash backwards on Hopper (sm_90a), shared by the
+// resident backward K2 (flash_bwd.cu) and the streaming backward K4 + K5
+// (flash_bwd_online.cu). Both take q and k rotated once by the rotation
+// pass (R1, flash_bwd_online.cu) and differ only in where P comes from:
+//   * K4, K5 (kStats false): P = exp(S - lse), lse the forward's (K3);
+//   * K2 (kStats true): P = exp(S - m) * (1/l), m and l the row max and
+//     denominator its dq kernel finds in a statistics pass of its own,
+//     which also gives delta = sum_j P_ij dP_ij (the resident VJP saves no
+//     lse: meant_tpu/ops/flash/kernel.py:851-862, :371). On a batch row
+//     whose keys are all masked this is P = 1/s, where K4/K5's is 1.
+//
+// The dq kernel, one block per (bh, 64-row q tile), walks the Kr/V tiles
+// up to the diagonal (K2: twice, the statistics pass then dS), forms dS
+// and accumulates dQr in fp32 registers. The dk/dv kernel, one block per
+// (bh, 64-row k tile), walks the Qr/dO tiles from the diagonal,
+// recomputes S^T = Kr Qr^T and dP^T = V dO^T and accumulates dV and dKr.
+// The rotation's adjoint is applied once in each epilogue. Every output
+// element has one writer, no atomics: the result is deterministic.
+//
+// A block is one consumer warpgroup and one producer warp. The producer
+// brings the block's own two tiles, then the streamed ones, through TMA
+// (hopper.cuh) into a ring of kStages stages, each with a full and an
+// empty mbarrier; the dk/dv producer also stages the streamed rows'
+// statistics, read one tile ahead. The consumers run wgmma: S and dP with
+// both operands K-major in shared memory (m64n64k16); then dQr += dS Kr,
+// dV += T(P^T) dO and dKr += dS^T Qr with A in registers -- the score
+// accumulator rounded to bf16 in place is the A fragment, exactly where
+// the reference rounds P and dS -- and B the streamed row-major tile read
+// MN-major through the transpose bit (m64n96k16). Between the products
+// the consumers issue more instructions than the tensor cores need cycles,
+// so only the diagonal and ragged tiles mask element by element; every
+// other tile takes the key mask as a per-column bias (the same arithmetic,
+// rounded operation by operation as the reference rounds it). The grid is
+// (tile, bh): a head's blocks run together and share its streamed tiles in
+// L2, those with the most tiles to walk first. Rows and keys past s get
+// P = 0 and are never written. Only head dim 96 is instantiated.
+
+#pragma once
+
+#include "flash_common.cuh"
+#include "hopper.cuh"
+
+namespace meant {
+namespace bwd {
+
+using hopper::kTileBytes;
+
+constexpr int kTile = hopper::kRows;     // q rows (dq) or keys (dk/dv)
+constexpr int kHeadDim = hopper::kTileCols;
+constexpr int kStages = 3;               // ring of streamed tiles
+constexpr int kConsumers = 128;          // one warpgroup
+constexpr int kBlock = kConsumers + 32;  // and the producer warp
+constexpr int kNs = kTile / 8;           // n8 blocks of a score
+constexpr int kNd = kHeadDim / 8;        // n8 blocks of a gradient
+
+// Tiles first, each at a multiple of 1024 bytes from the aligned start.
+struct DqSmem {
+  uint8_t q[kTileBytes];           // this block's Qr rows
+  uint8_t dout[kTileBytes];        // and their dO
+  uint8_t k[kStages][kTileBytes];  // the ring: Kr
+  uint8_t v[kStages][kTileBytes];  // and V
+  uint64_t fixed_full, full[kStages], empty[kStages];
+};
+
+struct DkdvSmem {
+  uint8_t k[kTileBytes];              // this block's Kr rows
+  uint8_t v[kTileBytes];              // and their V
+  uint8_t q[kStages][kTileBytes];     // the ring: Qr
+  uint8_t dout[kStages][kTileBytes];  // dO
+  float m[kStages][kTile];            // and the rows' lse (or m),
+  float delta[kStages][kTile];        // delta
+  float il[kStages][kTile];           // and 1/l (K2 only)
+  uint64_t fixed_full, full[kStages], empty[kStages];
+};
+
+// dS = T(p * (dp - delta) * scale) for two neighbouring columns, rounded to
+// nearest as the reference rounds it, packed as one A-fragment register.
+__device__ __forceinline__ uint32_t ds_pair(float p0, float p1, float dp0,
+                                            float dp1, float dl0, float dl1,
+                                            float scale) {
+  return pack_pair(p0 * (dp0 - dl0) * scale, p1 * (dp1 - dl1) * scale);
+}
+
+// exp(score - m), times 1/l for K2: P of one score (masked_score's -inf
+// gives 0 on an edge tile).
+template <bool kStats>
+__device__ __forceinline__ float p_of(float sc, float m, float il) {
+  const float e = expf(__fsub_rn(sc, m));
+  return kStats ? e * il : e;
+}
+
+// Whether a dq tile masks element by element: the diagonal, or ragged.
+__device__ __forceinline__ bool dq_edge(int causal, int tile, int qt, int k0,
+                                        int seq) {
+  return (causal && tile == qt) || k0 + kTile > seq;
+}
+
+// K2's statistics pass over one tile of S and dP (accumulator element
+// 4j + 2h + e: row row[h], column k0 + 8j + 2t + e): the running max m, and
+// the denominator l and sum_j P_ij dP_ij relative to it, over this
+// thread's columns (summed over the row group at the end).
+template <bool kEdge>
+__device__ __forceinline__ void stats_tile(
+    float (&s)[4 * kNs], const float (&dp)[4 * kNs], float (&m)[2],
+    float (&l)[2], float (&dsum)[2], const int (&row)[2], int k0, int t,
+    int seq, int causal, const float* km, float scale) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kNs; ++j) {
+    float bias[2];
+    if (!kEdge) column_bias(bias, km, k0 + j * 8 + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = kEdge ? masked_score(x, scale, row[h], k0 + j * 8 + 2 * t + e,
+                                 seq, causal, km)
+                  : interior_score(x, scale, bias[e]);
+        mx[h] = fmaxf(mx[h], x);
+      }
+  }
+  float m_use[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float corr = rescale(m[h], row_max(mx[h]), m_use[h]);
+    l[h] *= corr;
+    dsum[h] *= corr;
+  }
+#pragma unroll
+  for (int j = 0; j < kNs; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = s[4 * j + 2 * h + e];
+        const float p =
+            (kEdge && x == -INFINITY) ? 0.f : p_of<false>(x, m_use[h], 1.f);
+        l[h] += p;
+        dsum[h] += p * dp[4 * j + 2 * h + e];
+      }
+}
+
+// The dq kernel's dS for one tile as A fragments (ds[k] covers keys
+// 16k..16k+15) from the S and dP accumulators. kEdge: the diagonal or the
+// ragged tile, masked element by element (masked_score); else every score
+// is live and the key mask is a per-column bias.
+template <bool kEdge, bool kStats>
+__device__ __forceinline__ void dq_tile_ds(
+    uint32_t (&ds)[kTile / 16][4], const float (&s)[4 * kNs],
+    const float (&dp)[4 * kNs], const int (&row)[2], const float (&row_m)[2],
+    const float (&row_il)[2], const float (&row_delta)[2], int k0, int t,
+    int seq, int causal, const float* km, float scale) {
+#pragma unroll
+  for (int j = 0; j < kNs; ++j) {
+    float bias[2];
+    if (!kEdge) column_bias(bias, km, k0 + j * 8 + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float acc = s[4 * j + 2 * h + e];
+        if (kEdge) {
+          const float sc = masked_score(acc, scale, row[h],
+                                        k0 + j * 8 + 2 * t + e, seq, causal,
+                                        km);
+          p[e] = (sc == -INFINITY) ? 0.f
+                                   : p_of<kStats>(sc, row_m[h], row_il[h]);
+        } else {
+          p[e] = p_of<kStats>(interior_score(acc, scale, bias[e]), row_m[h],
+                              row_il[h]);
+        }
+      }
+      ds[j >> 1][(j & 1) * 2 + h] =
+          ds_pair(p[0], p[1], dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1],
+                  row_delta[h], row_delta[h], scale);
+    }
+  }
+}
+
+// The dk/dv kernel's T(P^T) and dS^T for one tile as A fragments (q rows
+// 16k..16k+15 in [k]) from the S^T and dP^T accumulators; m_s, il_s and
+// delta_s are the tile's staged rows. kEdge as in dq_tile_ds; key_bias is
+// the mask's bias of this thread's two keys.
+template <bool kEdge, bool kStats>
+__device__ __forceinline__ void dkdv_tile_p_ds(
+    uint32_t (&pt)[kTile / 16][4], uint32_t (&dst)[kTile / 16][4],
+    const float (&s)[4 * kNs], const float (&dp)[4 * kNs],
+    const int (&key)[2], const float (&key_bias)[2], const float* m_s,
+    const float* il_s, const float* delta_s, int q0, int t, int seq,
+    int causal, const float* km, float scale) {
+#pragma unroll
+  for (int j = 0; j < kNs; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = j * 8 + 2 * t;
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float acc = s[4 * j + 2 * h + e];
+        const float il = kStats ? il_s[qi + e] : 1.f;
+        if (kEdge) {
+          const float sc = masked_score(acc, scale, q0 + qi + e, key[h], seq,
+                                        causal, km);
+          p[e] = (sc == -INFINITY || q0 + qi + e >= seq)
+                     ? 0.f
+                     : p_of<kStats>(sc, m_s[qi + e], il);
+        } else {
+          p[e] = p_of<kStats>(interior_score(acc, scale, key_bias[h]),
+                              m_s[qi + e], il);
+        }
+      }
+      pt[j >> 1][(j & 1) * 2 + h] = pack_pair(p[0], p[1]);
+      dst[j >> 1][(j & 1) * 2 + h] =
+          ds_pair(p[0], p[1], dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1],
+                  delta_s[qi], delta_s[qi + 1], scale);
+    }
+}
+
+// dq (K4; K2's dq and statistics when kStats). Grid (q tiles, bh); block
+// kBlock threads. K4 reads row_m = lse and row_delta; K2 writes row_m = m,
+// row_il = 1/l and row_delta = delta of every row below seq.
+template <bool kStats>
+__global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do, float* __restrict__ row_m_g,
+    float* __restrict__ row_il_g, float* __restrict__ row_delta_g,
+    bf16* __restrict__ dq, const float* __restrict__ qcos,
+    const float* __restrict__ qsin, const float* __restrict__ kmask,
+    int mask_rows, int seq, int num_heads, float scale, int causal) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
+  const int n_t = (seq + kTile - 1) / kTile;
+  const int bh = blockIdx.y, qt = n_t - 1 - (int)blockIdx.x;
+  const int q0 = qt * kTile;
+  const int n_tiles = causal ? qt + 1 : n_t;
+  constexpr int kPasses = kStats ? 2 : 1;  // K2 walks the tiles twice
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.fixed_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer: one thread issues TMA
+    if (threadIdx.x == kConsumers) {
+      mbar_arrive_expect_tx(&sm.fixed_full, 2 * kTileBytes);
+      tma_load_tile(sm.q, &tm_q, &sm.fixed_full, q0, bh);
+      tma_load_tile(sm.dout, &tm_do, &sm.fixed_full, q0, bh);
+      for (int it = 0; it < kPasses * n_tiles; ++it) {
+        const int st = it % kStages, k0 = (it % n_tiles) * kTile;
+        if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
+        tma_load_tile(sm.k[st], &tm_k, &sm.full[st], k0, bh);
+        tma_load_tile(sm.v[st], &tm_v, &sm.full[st], k0, bh);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+  // Accumulator element 4j + 2h + e: row 16 warp + g + 8h, column 8j + 2t + e.
+  float dq_acc[4 * kNd], s[4 * kNs], dp[4 * kNs];
+  zero_regs(dq_acc);
+  zero_regs(s);
+  zero_regs(dp);
+  // S and dP of the tile in stage st
+  const auto scores = [&](int st) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk)
+      wgmma_m64n64k16_ss(s, kmajor_desc(sm.q, kk), kmajor_desc(sm.k[st], kk),
+                         kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk)
+      wgmma_m64n64k16_ss(dp, kmajor_desc(sm.dout, kk),
+                         kmajor_desc(sm.v[st], kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+  };
+
+  float row_m[2], row_il[2] = {1.f, 1.f}, row_delta[2];
+  int ring = 0;  // tiles taken from the ring so far
+  mbar_wait(&sm.fixed_full, 0);
+  if constexpr (kStats) {
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float dsum[2] = {0.f, 0.f};
+    for (int it = 0; it < n_tiles; ++it, ++ring) {
+      const int st = ring % kStages, k0 = it * kTile;
+      mbar_wait(&sm.full[st], (ring / kStages) & 1);
+      scores(st);
+      mbar_arrive(&sm.empty[st]);  // the products have read the stage
+      if (dq_edge(causal, it, qt, k0, seq))
+        stats_tile<true>(s, dp, m, l, dsum, row, k0, t, seq, causal, km,
+                         scale);
+      else
+        stats_tile<false>(s, dp, m, l, dsum, row, k0, t, seq, causal, km,
+                          scale);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float lt = row_sum(l[h]);
+      row_m[h] = (m[h] == -INFINITY) ? 0.f : m[h];
+      row_il[h] = lt > 0.f ? 1.0f / lt : 0.f;
+      row_delta[h] = row_sum(dsum[h]) * row_il[h];
+      if (t == 0 && row[h] < seq) {
+        const size_t i = (size_t)bh * seq + row[h];
+        row_m_g[i] = row_m[h];
+        row_il_g[i] = row_il[h];
+        row_delta_g[i] = row_delta[h];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool valid = row[h] < seq;
+      const size_t i = (size_t)bh * seq + row[h];
+      row_m[h] = valid ? row_m_g[i] : 0.f;
+      row_delta[h] = valid ? row_delta_g[i] : 0.f;
+    }
+  }
+
+  for (int it = 0; it < n_tiles; ++it, ++ring) {
+    const int st = ring % kStages, k0 = it * kTile;
+    mbar_wait(&sm.full[st], (ring / kStages) & 1);
+    scores(st);
+    uint32_t ds[kTile / 16][4];  // A fragments of dS, one per 16 keys
+    if (dq_edge(causal, it, qt, k0, seq))
+      dq_tile_ds<true, kStats>(ds, s, dp, row, row_m, row_il, row_delta, k0,
+                               t, seq, causal, km, scale);
+    else
+      dq_tile_ds<false, kStats>(ds, s, dp, row, row_m, row_il, row_delta,
+                                k0, t, seq, causal, km, scale);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_m64n96k16_rs<kMNMajor>(dq_acc, ds[kk], mnmajor_desc(sm.k[st], kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    fence_regs(ds);
+    mbar_arrive(&sm.empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= seq) continue;
+    bf16* out = dq + ((size_t)bh * seq + row[h]) * kHeadDim;
+    const float* cr = qcos + (size_t)row[h] * kHeadDim;
+    const float* sr = qsin + (size_t)row[h] * kHeadDim;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j)
+      store_adjoint<bf16>(out, cr, sr, j * 8 + 2 * t, dq_acc[4 * j + 2 * h],
+                          dq_acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// dk and dv (K5; K2's when kStats). Grid (k tiles, bh); block kBlock
+// threads. Reads row_m (K5: lse; K2: m), row_delta and, for K2, row_il.
+template <bool kStats>
+__global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ row_m_g, const float* __restrict__ row_il_g,
+    const float* __restrict__ row_delta_g, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, const float* __restrict__ kcos,
+    const float* __restrict__ ksin, const float* __restrict__ kmask,
+    int mask_rows, int seq, int num_heads, float scale, int causal) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  DkdvSmem& sm = aligned_smem<DkdvSmem>(smem_raw);
+  const int n_t = (seq + kTile - 1) / kTile;
+  const int bh = blockIdx.y, kt = blockIdx.x;  // low k tiles see most rows
+  const int k0 = kt * kTile;
+  const int q_first = causal ? kt : 0, n_tiles = n_t - q_first;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.fixed_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&sm.full[st], 32);  // the producer warp's lanes
+      mbar_init(&sm.empty[st], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.fixed_full, 2 * kTileBytes);
+      tma_load_tile(sm.k, &tm_k, &sm.fixed_full, k0, bh);
+      tma_load_tile(sm.v, &tm_v, &sm.fixed_full, k0, bh);
+    }
+    // the statistics of rows lane and lane + 32 of a tile, read one tile
+    // ahead so that their latency overlaps the wait for a free stage
+    float rm[2], rd[2], ril[2];
+    const auto fetch = [&](int it) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = (q_first + it) * kTile + lane + 32 * r;
+        const size_t gi = (size_t)bh * seq + i;
+        rm[r] = i < seq ? row_m_g[gi] : 0.f;
+        rd[r] = i < seq ? row_delta_g[gi] : 0.f;
+        if (kStats) ril[r] = i < seq ? row_il_g[gi] : 0.f;
+      }
+    };
+    fetch(0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages, q0 = (q_first + it) * kTile;
+      if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sm.m[st][lane + 32 * r] = rm[r];
+        sm.delta[st][lane + 32 * r] = rd[r];
+        if (kStats) sm.il[st][lane + 32 * r] = ril[r];
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
+        tma_load_tile(sm.q[st], &tm_q, &sm.full[st], q0, bh);
+        tma_load_tile(sm.dout[st], &tm_do, &sm.full[st], q0, bh);
+      } else {
+        mbar_arrive(&sm.full[st]);
+      }
+      if (it + 1 < n_tiles) fetch(it + 1);
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+  float key_bias[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (km != nullptr && key[h] < seq)
+      key_bias[h] = (1.0f - km[key[h]]) * -1e9f;
+  // Accumulator element 4j + 2h + e: key 16 warp + g + 8h, column 8j + 2t + e.
+  float dv_acc[4 * kNd], dk_acc[4 * kNd], s[4 * kNs], dp[4 * kNs];
+  zero_regs(dv_acc);
+  zero_regs(dk_acc);
+  zero_regs(s);
+  zero_regs(dp);
+  mbar_wait(&sm.fixed_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kStages, q0 = (q_first + it) * kTile;
+    mbar_wait(&sm.full[st], (it / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk)  // S^T: rows keys, columns q
+      wgmma_m64n64k16_ss(s, kmajor_desc(sm.k, kk), kmajor_desc(sm.q[st], kk),
+                         kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk)  // dP^T
+      wgmma_m64n64k16_ss(dp, kmajor_desc(sm.v, kk),
+                         kmajor_desc(sm.dout[st], kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    uint32_t pt[kTile / 16][4], dst[kTile / 16][4];  // T(P^T), dS^T
+    if ((causal && it == 0) || q0 + kTile > seq || k0 + kTile > seq)
+      dkdv_tile_p_ds<true, kStats>(pt, dst, s, dp, key, key_bias, sm.m[st],
+                                   sm.il[st], sm.delta[st], q0, t, seq,
+                                   causal, km, scale);
+    else
+      dkdv_tile_p_ds<false, kStats>(pt, dst, s, dp, key, key_bias, sm.m[st],
+                                    sm.il[st], sm.delta[st], q0, t, seq,
+                                    causal, km, scale);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_m64n96k16_rs<kMNMajor>(dv_acc, pt[kk],
+                                   mnmajor_desc(sm.dout[st], kk));
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_m64n96k16_rs<kMNMajor>(dk_acc, dst[kk],
+                                   mnmajor_desc(sm.q[st], kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(pt);
+    fence_regs(dst);
+    mbar_arrive(&sm.empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= seq) continue;
+    bf16* dv_row = dv + ((size_t)bh * seq + key[h]) * kHeadDim;
+    bf16* dk_row = dk + ((size_t)bh * seq + key[h]) * kHeadDim;
+    const float* cr = kcos + (size_t)key[h] * kHeadDim;
+    const float* sr = ksin + (size_t)key[h] * kHeadDim;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      const int c = j * 8 + 2 * t;
+      dv_row[c] = from_f<bf16>(dv_acc[4 * j + 2 * h]);
+      dv_row[c + 1] = from_f<bf16>(dv_acc[4 * j + 2 * h + 1]);
+      store_adjoint<bf16>(dk_row, cr, sr, c, dk_acc[4 * j + 2 * h],
+                          dk_acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ---- launch (host) -------------------------------------------------------------
+
+// Tensor maps of qr, kr, v and dout, (bh, seq, 96) bf16 each.
+inline bool make_maps(CUtensorMap (&m)[4], const void* qr, const void* kr,
+                      const void* v, const void* dout, int bh, int seq) {
+  return hopper::make_map(&m[0], qr, bh, seq) &&
+         hopper::make_map(&m[1], kr, bh, seq) &&
+         hopper::make_map(&m[2], v, bh, seq) &&
+         hopper::make_map(&m[3], dout, bh, seq);
+}
+
+template <bool kStats>
+cudaError_t launch_dq(const CUtensorMap (&m)[4], float* row_m, float* row_il,
+                      float* row_delta, void* dq, const float* qcos,
+                      const float* qsin, const float* kmask, int mask_rows,
+                      int bh, int seq, int num_heads, float scale, int causal,
+                      cudaStream_t stream) {
+  constexpr int bytes = hopper::smem_bytes<DqSmem>();
+  const auto kernel = flash_bwd_dq_wgmma_kernel<kStats>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kTile - 1) / kTile, bh);
+  kernel<<<grid, kBlock, bytes, stream>>>(
+      m[0], m[1], m[2], m[3], row_m, row_il, row_delta,
+      static_cast<bf16*>(dq), qcos, qsin, kmask, mask_rows, seq, num_heads,
+      scale, causal);
+  return cudaGetLastError();
+}
+
+template <bool kStats>
+cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const float* row_m,
+                        const float* row_il, const float* row_delta, void* dk,
+                        void* dv, const float* kcos, const float* ksin,
+                        const float* kmask, int mask_rows, int bh, int seq,
+                        int num_heads, float scale, int causal,
+                        cudaStream_t stream) {
+  constexpr int bytes = hopper::smem_bytes<DkdvSmem>();
+  const auto kernel = flash_bwd_dkdv_wgmma_kernel<kStats>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kTile - 1) / kTile, bh);
+  kernel<<<grid, kBlock, bytes, stream>>>(
+      m[0], m[1], m[2], m[3], row_m, row_il, row_delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), kcos, ksin, kmask,
+      mask_rows, seq, num_heads, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+}  // namespace meant

@@ -71,6 +71,26 @@ __device__ __forceinline__ float masked_score(float acc, float scale, int row,
   return km != nullptr ? x + (1.0f - km[col]) * -1e9f : x;
 }
 
+// The same score on a tile that neither the causal fill nor the ragged
+// edge reaches, the key mask given as a per-column bias (column_bias):
+// scale * acc + bias, rounded operation by operation as the reference
+// rounds it.
+__device__ __forceinline__ float interior_score(float acc, float scale,
+                                                float bias) {
+  return __fadd_rn(__fmul_rn(acc, scale), bias);
+}
+
+// The key mask's bias (1 - kmask) * -1e9 of columns col and col + 1; 0
+// without a mask.
+__device__ __forceinline__ void column_bias(float (&bias)[2], const float* km,
+                                            int col) {
+  bias[0] = bias[1] = 0.f;
+  if (km != nullptr) {
+    bias[0] = (1.0f - km[col]) * -1e9f;
+    bias[1] = (1.0f - km[col + 1]) * -1e9f;
+  }
+}
+
 // Online-softmax step for one row: new running max, and the factor that
 // rescales what was accumulated under the old one.
 __device__ __forceinline__ float rescale(float& m, float tile_max,

@@ -1,6 +1,6 @@
-// Rotary-fused flash-attention forward for Hopper (sm_90a).
+// Rotary-fused flash-attention forwards for Hopper (sm_90a): K1 and K3.
 //
-// Replaces the TPU kernel meant_tpu/ops/flash/kernel.py:_fwd_kernel (the
+// K1 replaces the TPU kernel meant_tpu/ops/flash/kernel.py:_fwd_kernel (the
 // resident forward, launched by _flash_fwd). For each (batch*head, q row) it
 // computes what that kernel computes:
 //   1. rotate q and k in fp32: x*cos + rotate_half(x)*sin, with interleaved
@@ -40,23 +40,42 @@
 // path's shapes (BH = 640, d = 96, bf16) the launch must move q, k, v and o
 // once -- 252 MB at s=512, about 75 us, and 96 MB at s=196, about 29 us --
 // while its products need 32 GFLOP (causal half) and 9.4 GFLOP, 33 us and
-// 10 us on the tensor cores: both shapes are bound by bytes. Neither kernel
-// pipelines its loads (no cp.async/TMA, no wgmma): that is later work.
+// 10 us on the tensor cores: both shapes are bound by bytes. Neither of
+// K1's kernels pipelines its loads (no cp.async/TMA, no wgmma): that is
+// later work.
 //
-// K3. The same bodies also replace the streaming forward
-// meant_tpu/ops/flash/kernel.py:_fwd_online_kernel (launched by
-// _flash_fwd_online, the path flash_mha takes past the resident limits, for
-// return_lse and for force_online). That kernel walks k blocks with an
-// online softmax and rounds the unnormalised P at the running max, exactly
-// as the design above does, and writes each row's log-sum-exp beside the
-// output: lse = m_safe + log(max(l, 1e-30)), m_safe = 0 on a row with no
-// finite score. K3 is that, as a second instantiation (kLse) with its own
-// kernels and entry point, meant_flash_fwd_lse; lse is (bh, seq) fp32, rows
-// past seq are not written. K1's code is the kLse = false instantiation and
-// does not change. At its main path's shapes (text tower of src4096: BH =
-// 80, s = 4096, d = 96, bf16, causal) K3 is bound by operations: two
-// products over the causal triangle, 257.7 GFLOP, 0.26 ms at 989 TFLOP/s,
-// against 259 MB of q, k, v, o, lse and tables (0.077 ms).
+// K3. The streaming forward meant_tpu/ops/flash/kernel.py:_fwd_online_kernel
+// (launched by _flash_fwd_online, the path flash_mha takes past the
+// resident limits, for return_lse and for force_online). That kernel walks
+// k blocks with an online softmax, rounds the unnormalised P at the running
+// max, and writes each row's log-sum-exp beside the output: lse = m_safe +
+// log(max(l, 1e-30)), m_safe = 0 on a row with no finite score. K3 computes
+// that from q and k rotated once by the rotation pass (R1,
+// flash_bwd_online.cu; the bits of the TPU kernel's rotation at :152-155),
+// so it rotates nothing itself; lse is (bh, seq) fp32, rows past seq are not
+// written. At its main path's shapes (text tower of src4096: BH = 80, s =
+// 4096, d = 96, bf16, causal) K3 is bound by operations: two products over
+// the causal triangle, 257.7 GFLOP, 0.26 ms at 989 TFLOP/s, against 189 MB
+// of qr, kr, v, o and lse (0.056 ms).
+// * bf16: a block is kFwdGroups consumer warpgroups of 64 q rows each and a
+//   producer warp. The producer brings the block's Qr rows once, then
+//   streams Kr and V tiles through TMA (hopper.cuh: 3-D tensor maps over
+//   (bh, s, 96), 64-byte swizzle, zero past s) into a ring of kFwdStages
+//   stages with full and empty mbarriers; every consumer warpgroup reads
+//   every stage. One group and two stages were measured fastest (two
+//   groups, which halve the streamed bytes per q row, and three stages
+//   were some 4% slower at src4096's launch: tools/k23_variants.py); one
+//   group of 154 registers leaves room for two blocks an SM. S = Qr
+//   Kr^T runs on wgmma with both operands in shared memory (m64n64k16); the
+//   online softmax stays in the accumulator registers; P, rounded to bf16 in
+//   place at the running max as the reference rounds it, is the A fragment
+//   of O += P V (m64n96k16, V read MN-major through the transpose bit: no
+//   transposed copy). Only the diagonal and ragged tiles mask element by
+//   element (masked_score); every other tile takes the key mask as a
+//   per-column bias, rounded as the reference rounds it. Grid (q blocks,
+//   bh), the blocks with the most tiles to walk first.
+// * fp32 (the tight on-card check): the scalar body above, reading the
+//   pre-rotated tiles.
 //
 // C interface (loaded with ctypes): meant_flash_fwd (K1) and
 // meant_flash_fwd_lse (K3) return the cudaError_t of the launch (0 on
@@ -65,6 +84,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -125,14 +145,12 @@ __device__ __forceinline__ float row_lse(float m, float l) {
   return (m == -INFINITY ? 0.f : m) + logf(fmaxf(l, 1e-30f));
 }
 
-// Fragment layout of m16n8k16: see flash_common.cuh. The body of K1
-// (kLse false) and of K3 (kLse true: each row's log-sum-exp is written to
-// lse[bh * seq + row] as well).
-template <int D, bool kLse>
+// Fragment layout of m16n8k16: see flash_common.cuh. The body of K1.
+template <int D>
 __device__ __forceinline__ void fwd_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ o,
-    float* __restrict__ lse, const float* __restrict__ qcos, const float* __restrict__ qsin,
+    const float* __restrict__ qcos, const float* __restrict__ qsin,
     const float* __restrict__ kcos, const float* __restrict__ ksin,
     const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
     float scale, int causal) {
@@ -262,9 +280,6 @@ __device__ __forceinline__ void fwd_mma(
     for (int j = 0; j < kTilesO; ++j)
       *reinterpret_cast<uint32_t*>(out + j * 8) =
           pack_pair(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
-    if constexpr (kLse) {
-      if (t == 0) lse[(size_t)bh * seq + row[h]] = row_lse(m[h], l[h]);
-    }
   }
 }
 
@@ -308,8 +323,13 @@ __device__ __forceinline__ void fwd_fp32(
   if (kmask != nullptr)
     km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
 
-  load_rotated<float, D>(qs, kStrideQK, q + base, qcos, qsin, q0, kBlockQ,
-                         seq);
+  // K3 (kLse) takes q and k rotated by R1, K1 rotates them here
+  if constexpr (kLse)
+    load_tile<float, D>(qs, kStrideQK, nullptr, 0, q + base, nullptr,
+                        nullptr, q0, seq);
+  else
+    load_rotated<float, D>(qs, kStrideQK, q + base, qcos, qsin, q0, kBlockQ,
+                           seq);
 
   float m[kRows], l[kRows], acc[kRows][kOut];
 #pragma unroll
@@ -324,8 +344,12 @@ __device__ __forceinline__ void fwd_fp32(
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kBlockK;
     __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    load_rotated<float, D>(ks, kStrideQK, k + base, kcos, ksin, k0, kBlockK,
-                           seq);
+    if constexpr (kLse)
+      load_tile<float, D>(ks, kStrideQK, nullptr, 0, k + base, nullptr,
+                          nullptr, k0, seq);
+    else
+      load_rotated<float, D>(ks, kStrideQK, k + base, kcos, ksin, k0,
+                             kBlockK, seq);
     for (int e = threadIdx.x; e < kBlockK * D; e += kThreads) {
       const int r = e / D;
       vs[e] = (k0 + r < seq) ? v[base + (size_t)k0 * D + e] : 0.f;
@@ -408,7 +432,7 @@ __device__ __forceinline__ void fwd_fp32(
   }
 }
 
-// ---- the kernels: K1 and K3 share their bodies -----------------------------
+// ---- K1's kernels, and K3's fp32 kernel -----------------------------------
 
 #define FLASH_FWD_PARAMS(T)                                                  \
   const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, \
@@ -425,19 +449,15 @@ __device__ __forceinline__ void fwd_fp32(
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(FLASH_FWD_PARAMS(bf16)) {
-  fwd_mma<D, false>(FLASH_FWD_ARGS);
+  fwd_mma<D>(q, k, v, o, qcos, qsin, kcos, ksin, kmask, mask_rows, seq,
+             num_heads, scale, causal);
 }
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_fp32_kernel(FLASH_FWD_PARAMS(float)) {
   fwd_fp32<D, false>(FLASH_FWD_ARGS);
 }
-// K3
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_lse_mma_kernel(FLASH_FWD_PARAMS(bf16)) {
-  fwd_mma<D, true>(FLASH_FWD_ARGS);
-}
+// K3 in fp32 (q and k rotated by R1; the tables are null)
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_fwd_lse_fp32_kernel(FLASH_FWD_PARAMS(float)) {
@@ -447,12 +467,198 @@ __global__ void __launch_bounds__(kThreads, 2)
 #undef FLASH_FWD_PARAMS
 #undef FLASH_FWD_ARGS
 
+// ---- K3 in bf16: TMA, mbarriers and wgmma ---------------------------------
+
+constexpr int kHeadDim = 96;                       // the only head dim built
+constexpr int kFwdGroups = 1;                      // consumer warpgroups
+constexpr int kFwdStages = 2;                      // ring of Kr/V tiles
+constexpr int kFwdRows = kBlockQ * kFwdGroups;     // q rows of a block
+constexpr int kFwdBlock = 128 * kFwdGroups + 32;   // and the producer warp
+constexpr int kNs = kBlockK / 8;                   // n8 blocks of a score
+constexpr int kNo = kHeadDim / 8;                  // n8 blocks of the output
+static_assert(kBlockQ == hopper::kRows && kBlockK == hopper::kRows &&
+                  kHeadDim == hopper::kTileCols,
+              "a q or k tile is one [64][96] TMA tile");
+
+// Tiles first, each at a multiple of 1024 bytes from the aligned start.
+struct FwdSmem {
+  uint8_t q[kFwdGroups][hopper::kTileBytes];  // the block's Qr rows
+  uint8_t k[kFwdStages][hopper::kTileBytes];  // the ring: Kr
+  uint8_t v[kFwdStages][hopper::kTileBytes];  // and V
+  uint64_t fixed_full, full[kFwdStages], empty[kFwdStages];
+};
+
+// One tile's online-softmax step for a warpgroup's rows, from the S
+// accumulator (element 4j + 2h + e: row row[h], column k0 + 8j + 2t + e):
+// the scores' running max m, rescaling l and the output o; P = exp(score -
+// m) added to this thread's share of l; and P rounded to bf16 as the A
+// fragments of P V (pa[k] covers keys 16k..16k+15). kEdge: the diagonal or
+// the ragged tile, masked element by element (masked_score); else every
+// score is live (interior_score).
+template <bool kEdge>
+__device__ __forceinline__ void fwd_tile_p(
+    uint32_t (&pa)[kBlockK / 16][4], float (&s)[4 * kNs],
+    float (&o)[4 * kNo], float (&m)[2], float (&l)[2], const int (&row)[2],
+    int k0, int t, int seq, int causal, const float* km, float scale) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kNs; ++j) {
+    const int col = k0 + j * 8 + 2 * t;
+    float bias[2];
+    if (!kEdge) column_bias(bias, km, col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = kEdge ? masked_score(x, scale, row[h], col + e, seq, causal, km)
+                  : interior_score(x, scale, bias[e]);
+        mx[h] = fmaxf(mx[h], x);
+      }
+  }
+  float m_use[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float corr = rescale(m[h], row_max(mx[h]), m_use[h]);
+    l[h] *= corr;
+#pragma unroll
+    for (int j = 0; j < kNo; ++j) {
+      o[4 * j + 2 * h] *= corr;
+      o[4 * j + 2 * h + 1] *= corr;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kNs; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = s[4 * j + 2 * h + e];
+        p[e] = (kEdge && x == -INFINITY) ? 0.f : expf(x - m_use[h]);
+        l[h] += p[e];
+      }
+      pa[j >> 1][(j & 1) * 2 + h] = pack_pair(p[0], p[1]);
+    }
+}
+
+// K3: out and lse. Grid (q blocks of kFwdRows rows, bh); block kFwdBlock
+// threads.
+__global__ void __launch_bounds__(kFwdBlock, 1) flash_fwd_lse_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+    float* __restrict__ lse, const float* __restrict__ kmask, int mask_rows,
+    int seq, int num_heads, float scale, int causal) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  FwdSmem& sm = aligned_smem<FwdSmem>(smem_raw);
+  const int n_t = (seq + kBlockK - 1) / kBlockK;
+  const int n_b = (seq + kFwdRows - 1) / kFwdRows;
+  const int bh = blockIdx.y, q0 = (n_b - 1 - (int)blockIdx.x) * kFwdRows;
+  // the warpgroups whose rows start below seq; a causal walk ends at the
+  // last one's diagonal tile
+  const int groups = min(kFwdGroups, (seq - q0 + kBlockQ - 1) / kBlockQ);
+  const int n_tiles = causal ? q0 / kBlockK + groups : n_t;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.fixed_full, 1);
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], 128 * groups);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kFwdGroups) {  // the producer: one thread
+    if (threadIdx.x == 128 * kFwdGroups) {
+      mbar_arrive_expect_tx(&sm.fixed_full, groups * kTileBytes);
+      for (int w = 0; w < groups; ++w)
+        tma_load_tile(sm.q[w], &tm_q, &sm.fixed_full, q0 + w * kBlockQ, bh);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kFwdStages;
+        if (it >= kFwdStages)
+          mbar_wait(&sm.empty[st], (it / kFwdStages - 1) & 1);
+        mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
+        tma_load_tile(sm.k[st], &tm_k, &sm.full[st], it * kBlockK, bh);
+        tma_load_tile(sm.v[st], &tm_v, &sm.full[st], it * kBlockK, bh);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  if (wg >= groups) return;  // every row of this warpgroup is past seq
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = q0 / kBlockQ + wg;  // this warpgroup's q tile
+  const int row[2] = {qt * kBlockQ + warp * 16 + g,
+                      qt * kBlockQ + warp * 16 + g + 8};
+  const int own_tiles = causal ? qt + 1 : n_tiles;  // up to its diagonal
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+  // Accumulator element 4j + 2h + e: row 16 warp + g + 8h, column 8j + 2t + e.
+  float o_acc[4 * kNo], s[4 * kNs];
+  zero_regs(o_acc);
+  zero_regs(s);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(&sm.fixed_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kFwdStages, k0 = it * kBlockK;
+    // a stage is released only after it arrived, also where this
+    // warpgroup skips it (a causal tile past its diagonal)
+    mbar_wait(&sm.full[st], (it / kFwdStages) & 1);
+    if (it < own_tiles) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk)
+        wgmma_m64n64k16_ss(s, kmajor_desc(sm.q[wg], kk),
+                           kmajor_desc(sm.k[st], kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      uint32_t pa[kBlockK / 16][4];  // A fragments of P, one per 16 keys
+      if ((causal && it == qt) || k0 + kBlockK > seq)
+        fwd_tile_p<true>(pa, s, o_acc, m, l, row, k0, t, seq, causal, km,
+                         scale);
+      else
+        fwd_tile_p<false>(pa, s, o_acc, m, l, row, k0, t, seq, causal, km,
+                          scale);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk)
+        wgmma_m64n96k16_rs<kMNMajor>(o_acc, pa[kk],
+                                     mnmajor_desc(sm.v[st], kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      fence_regs(pa);
+    }
+    mbar_arrive(&sm.empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lt = row_sum(l[h]);
+    if (row[h] >= seq) continue;
+    const float inv = lt > 0.f ? 1.0f / lt : 0.f;
+    bf16* out = o + ((size_t)bh * seq + row[h]) * kHeadDim + 2 * t;
+#pragma unroll
+    for (int j = 0; j < kNo; ++j)
+      *reinterpret_cast<uint32_t*>(out + j * 8) =
+          pack_pair(o_acc[4 * j + 2 * h] * inv, o_acc[4 * j + 2 * h + 1] * inv);
+    if (t == 0) lse[(size_t)bh * seq + row[h]] = row_lse(m[h], lt);
+  }
+}
+
 // ---- launch --------------------------------------------------------------
 
-// The kernel for an input dtype: tensor cores for bf16, scalar for fp32;
-// K3 when kLse.
+// The kernels of one shared-memory body: K1's for both dtypes, and K3's
+// fp32 one when kLse (K3's bf16 kernel has its own launch below).
 template <int D, bool kLse> auto kernel_for(const bf16*) {
-  return kLse ? flash_fwd_lse_mma_kernel<D> : flash_fwd_mma_kernel<D>;
+  static_assert(!kLse, "K3's bf16 kernel is launched by launch_lse_bf16");
+  return flash_fwd_mma_kernel<D>;
 }
 template <int D, bool kLse> auto kernel_for(const float*) {
   return kLse ? flash_fwd_lse_fp32_kernel<D> : flash_fwd_fp32_kernel<D>;
@@ -461,9 +667,9 @@ template <int D, bool kLse> auto kernel_for(const float*) {
 template <typename T, int D, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, const float* qcos, const float* qsin,
-                   const float* kcos, const float* ksin, const float* kmask, int mask_rows,
-                   int bh, int seq, int num_heads, float scale, int causal,
-                   cudaStream_t stream) {
+                   const float* kcos, const float* ksin, const float* kmask,
+                   int mask_rows, int bh, int seq, int num_heads, float scale,
+                   int causal, cudaStream_t stream) {
   constexpr int bytes = std::is_same<T, bf16>::value ? mma_smem_bytes<D>()
                                                      : fp32_smem_bytes<D>();
   auto kernel = kernel_for<D, kLse>(static_cast<const T*>(nullptr));
@@ -478,39 +684,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-constexpr int kHeadDim = 96;  // the only head dim instantiated
+cudaError_t launch_lse_bf16(const void* qr, const void* kr, const void* v,
+                            void* o, float* lse, const float* kmask,
+                            int mask_rows, int bh, int seq, int num_heads,
+                            float scale, int causal, cudaStream_t stream) {
+  CUtensorMap m[3];
+  if (!hopper::make_map(&m[0], qr, bh, seq) ||
+      !hopper::make_map(&m[1], kr, bh, seq) ||
+      !hopper::make_map(&m[2], v, bh, seq))
+    return cudaErrorInvalidValue;
+  constexpr int bytes = hopper::smem_bytes<FwdSmem>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_lse_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kFwdRows - 1) / kFwdRows, bh);
+  flash_fwd_lse_wgmma_kernel<<<grid, kFwdBlock, bytes, stream>>>(
+      m[0], m[1], m[2], static_cast<bf16*>(o), lse, kmask, mask_rows, seq,
+      num_heads, scale, causal);
+  return cudaGetLastError();
+}
 
-template <bool kLse>
-int entry(int dtype, const void* q, const void* k, const void* v, void* o,
-          void* lse, const void* qcos, const void* qsin, const void* kcos,
-          const void* ksin, const void* kmask, int mask_rows, int bh,
-          int seq, int d, int num_heads, float scale, int causal,
-          void* stream) {
-  if (bh <= 0 || seq <= 0 || d != kHeadDim || (dtype != 0 && dtype != 1) ||
-      (seq + kBlockQ - 1) / kBlockQ > 65535 || (kLse && lse == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const auto* qc = static_cast<const float*>(qcos);
-  const auto* qs = static_cast<const float*>(qsin);
-  const auto* kc = static_cast<const float*>(kcos);
-  const auto* kn = static_cast<const float*>(ksin);
-  const auto* km = static_cast<const float*>(kmask);
-  auto* ls = static_cast<float*>(lse);
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      dtype == 0 ? launch<float, kHeadDim, kLse>(q, k, v, o, ls, qc, qs, kc,
-                                                 kn, km, mask_rows, bh, seq,
-                                                 num_heads, scale, causal, st)
-                 : launch<bf16, kHeadDim, kLse>(q, k, v, o, ls, qc, qs, kc,
-                                                kn, km, mask_rows, bh, seq,
-                                                num_heads, scale, causal, st);
-  return (int)err;
+bool invalid(int dtype, int bh, int seq, int d) {
+  return bh <= 0 || bh > 65535 || seq <= 0 || d != kHeadDim ||
+         (dtype != 0 && dtype != 1) || (seq + kBlockQ - 1) / kBlockQ > 65535;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v/o: (bh, seq, d) contiguous;
-// tables: (seq, d) fp32; kmask: (mask_rows, seq) fp32 or null.
-// K1: the output only.
+// kmask: (mask_rows, seq) fp32 or null.
+// K1: the output only; q and k rotated here by the (seq, d) fp32 tables.
 extern "C" int meant_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, const void* qcos,
                                const void* qsin, const void* kcos,
@@ -518,19 +722,36 @@ extern "C" int meant_flash_fwd(int dtype, const void* q, const void* k,
                                int mask_rows, int bh, int seq, int d,
                                int num_heads, float scale, int causal,
                                void* stream) {
-  return entry<false>(dtype, q, k, v, o, nullptr, qcos, qsin, kcos, ksin,
-                      kmask, mask_rows, bh, seq, d, num_heads, scale, causal,
-                      stream);
+  if (invalid(dtype, bh, seq, d)) return (int)cudaErrorInvalidValue;
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const auto st = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 0
+                   ? launch<float, kHeadDim, false>(
+                         q, k, v, o, nullptr, f(qcos), f(qsin), f(kcos),
+                         f(ksin), f(kmask), mask_rows, bh, seq, num_heads,
+                         scale, causal, st)
+                   : launch<bf16, kHeadDim, false>(
+                         q, k, v, o, nullptr, f(qcos), f(qsin), f(kcos),
+                         f(ksin), f(kmask), mask_rows, bh, seq, num_heads,
+                         scale, causal, st));
 }
 
-// K3: the output and each row's log-sum-exp, lse: (bh, seq) fp32.
-extern "C" int meant_flash_fwd_lse(int dtype, const void* q, const void* k,
+// K3: the output and each row's log-sum-exp, lse: (bh, seq) fp32, from qr
+// and kr, q and k rotated by R1.
+extern "C" int meant_flash_fwd_lse(int dtype, const void* qr, const void* kr,
                                    const void* v, void* o, void* lse,
-                                   const void* qcos, const void* qsin,
-                                   const void* kcos, const void* ksin,
                                    const void* kmask, int mask_rows, int bh,
                                    int seq, int d, int num_heads, float scale,
                                    int causal, void* stream) {
-  return entry<true>(dtype, q, k, v, o, lse, qcos, qsin, kcos, ksin, kmask,
-                     mask_rows, bh, seq, d, num_heads, scale, causal, stream);
+  if (invalid(dtype, bh, seq, d) || lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const auto* km = static_cast<const float*>(kmask);
+  auto* ls = static_cast<float*>(lse);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == 0
+                   ? launch<float, kHeadDim, true>(
+                         qr, kr, v, o, ls, nullptr, nullptr, nullptr, nullptr,
+                         km, mask_rows, bh, seq, num_heads, scale, causal, st)
+                   : launch_lse_bf16(qr, kr, v, o, ls, km, mask_rows, bh, seq,
+                                     num_heads, scale, causal, st));
 }

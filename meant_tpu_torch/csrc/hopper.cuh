@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the streaming backward's bf16 kernels
-// (flash_bwd_online.cu, K4 and K5): mbarriers, TMA tile loads through a
-// tensor map, and warpgroup matrix products (wgmma) on operands in shared
-// memory laid out with the 64-byte swizzle.
+// Hopper (sm_90a) building blocks of the flash kernels' bf16 bodies (the
+// streaming forward K3 in flash_fwd.cu; the backwards K2, K4 and K5 through
+// flash_bwd_wgmma.cuh): mbarriers, TMA tile loads through a tensor map and
+// the host code that encodes one, and warpgroup matrix products (wgmma) on
+// operands in shared memory laid out with the 64-byte swizzle.
 //
 // Tile layout. A [64 rows][96 columns] bf16 tile lives in shared memory as
 // three boxes of [64][32] (4096 bytes each, columns 0-31, 32-63, 64-95),
@@ -16,11 +17,18 @@
 //     apart (SBO); the k-th 16-row step starts k * 1024 bytes in, and the
 //     product's transpose-B bit is set.
 // So one copy of a row-major tile serves as both Q K^T's K-major operand
-// and dS K's MN-major operand; no transposed copy is written.
+// and P V's (or dS K's) MN-major operand; no transposed copy is written.
+//
+// The tensor maps come from cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint: the libraries link nothing but the runtime. A
+// 3-D map over (bh, s, 96) zero-fills rows past s within each head, where
+// cp.async would need the fill and the swizzle written by hand.
 
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,9 +39,31 @@ constexpr int kKMajor = 0, kMNMajor = 1;  // wgmma's transpose bit
 constexpr int kRows = 64;                  // rows of a tile
 constexpr int kBoxCols = 32;               // bf16 columns of a box (64 B)
 constexpr int kBoxBytes = kRows * kBoxCols * 2;
+constexpr int kTileCols = 3 * kBoxCols;            // 96, the head dim
+constexpr int kTileBytes = 3 * kBoxBytes;          // one [64][96] tile
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Dynamic shared memory from a 1024-byte boundary (the TMA boxes' and
+// wgmma's swizzle pattern is a function of the address).
+template <typename S>
+__device__ __forceinline__ S& aligned_smem(uint8_t* raw) {
+  const uint32_t pad = (1024 - (smem_u32(raw) & 1023)) & 1023;
+  return *reinterpret_cast<S*>(raw + pad);
+}
+
+// Dynamic shared memory to ask for a struct S placed by aligned_smem.
+template <typename S>
+constexpr int smem_bytes() {
+  return (int)sizeof(S) + 1024;
+}
+
+template <int N>
+__device__ __forceinline__ void zero_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
 // ---- mbarriers --------------------------------------------------------------
@@ -204,6 +234,46 @@ __device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48],
         "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
         "n"(TransB));
+}
+
+// ---- tensor maps (host) -------------------------------------------------------
+
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A (bh, seq, 96) bf16 tensor as a 3-D tensor map of [64 rows][32 columns]
+// boxes with the 64-byte swizzle; reads outside it give zeros.
+inline bool make_map(CUtensorMap* map, const void* ptr, int bh, int seq) {
+  const auto encode = tensor_map_encoder();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)kTileCols, (cuuint64_t)seq,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {
+      kTileCols * sizeof(__nv_bfloat16),
+      (cuuint64_t)seq * kTileCols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[3] = {kBoxCols, kRows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -3,9 +3,10 @@ meant_tpu/ops/flash/kernel.py behind `flash_mha`'s custom VJP): the
 resident path, forward `_fwd_kernel` (K1) and backward `_bwd_kernel` (K2),
 and the streaming path, forward `_fwd_online_kernel` (K3, which also gives
 each row's log-sum-exp) and backward `_bwd_dq_kernel` (K4) and
-`_bwd_dkdv_kernel` (K5), which take q and k rotated once per backward call
-by a rotation pass (R1, part of K4 and K5's design; it replaces no TPU
-kernel). `uses_online` routes a call as the JAX package routes it.
+`_bwd_dkdv_kernel` (K5). K2, K3, K4 and K5 take q and k rotated once per
+call by a rotation pass (R1, part of their design; it replaces no TPU
+kernel); K1 rotates them itself. `uses_online` routes a call as the JAX
+package routes it.
 
 On CUDA tensors `flash_mha` launches the hand-written kernels in
 `csrc/flash_fwd.cu` (K1, K3), `csrc/flash_bwd.cu` (K2) and
@@ -171,20 +172,23 @@ class FlashBackward(KernelLauncher):
     argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
-    def __call__(self, q, k, v, do, kmask, qcos, qsin, kcos, ksin, *,
+    def __call__(self, qr, kr, v, do, kmask, qcos, qsin, kcos, ksin, *,
                  scale: float, causal: bool, num_heads: int) -> tuple:
-        """q/k/v/do: (BH, s, d) CUDA, contiguous, fp32 or bf16; tables and
-        kmask as for the forward. Returns (dq, dk, dv), each (BH, s, d)."""
-        bh, s, d = q.shape
-        mask_rows = _check_launch_inputs(q, {"k": k, "v": v, "do": do},
+        """qr/kr (q and k rotated by R1), v, do: (BH, s, d) CUDA,
+        contiguous, fp32 or bf16; tables (s, d) fp32, read only by the
+        rotation's adjoint; kmask as for the forward. Returns (dq, dk, dv),
+        each (BH, s, d)."""
+        bh, s, d = qr.shape
+        mask_rows = _check_launch_inputs(qr, {"kr": kr, "v": v, "do": do},
                                          (qcos, qsin, kcos, ksin), kmask,
                                          num_heads)
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        dq, dk, dv = (torch.empty_like(qr) for _ in range(3))
         # per row: max, 1/denominator, delta (written by the dq kernel,
         # read by the dk/dv kernel)
-        stats = torch.empty((3, bh, s), dtype=torch.float32, device=q.device)
+        stats = torch.empty((3, bh, s), dtype=torch.float32,
+                            device=qr.device)
         self._launch(
-            q.device, _dtype_code(q), q.data_ptr(), k.data_ptr(),
+            qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), stats.data_ptr(), qcos.data_ptr(),
             qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
@@ -198,22 +202,22 @@ class FlashForwardOnline(KernelLauncher):
     """K3: ctypes wrapper of `meant_flash_fwd_lse` (csrc/flash_fwd.cu)."""
 
     symbol, library = "meant_flash_fwd_lse", "flash_fwd"
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
-    def __call__(self, q, k, v, kmask, qcos, qsin, kcos, ksin, *,
-                 scale: float, causal: bool, num_heads: int) -> tuple:
-        """As FlashForward. Returns (out (BH, s, d), lse (BH, s) fp32)."""
-        bh, s, d = q.shape
-        mask_rows = _check_launch_inputs(q, {"k": k, "v": v},
-                                         (qcos, qsin, kcos, ksin), kmask,
+    def __call__(self, qr, kr, v, kmask, *, scale: float, causal: bool,
+                 num_heads: int) -> tuple:
+        """qr/kr (q and k rotated by R1), v: (BH, s, d) CUDA, contiguous,
+        fp32 or bf16; kmask (b | 1, s) fp32 or None. Returns (out (BH, s,
+        d), lse (BH, s) fp32)."""
+        bh, s, d = qr.shape
+        mask_rows = _check_launch_inputs(qr, {"kr": kr, "v": v}, (), kmask,
                                          num_heads)
-        out = torch.empty_like(q)
-        lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+        out = torch.empty_like(qr)
+        lse = torch.empty((bh, s), dtype=torch.float32, device=qr.device)
         self._launch(
-            q.device, _dtype_code(q), q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(), qcos.data_ptr(),
-            qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
+            qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
             s, d, num_heads, float(scale), int(bool(causal)),
             shape=(s, bool(causal)))
@@ -221,8 +225,8 @@ class FlashForwardOnline(KernelLauncher):
 
 
 class RotateQK(KernelLauncher):
-    """R1, the rotation pass of the streaming backward: ctypes wrapper of
-    `meant_rotate_qk` (csrc/flash_bwd_online.cu). Its plain version is
+    """R1, the rotation pass in front of K2, K3 and K4 + K5: ctypes wrapper
+    of `meant_rotate_qk` (csrc/flash_bwd_online.cu). Its plain version is
     `_rotate` on each of q and k."""
 
     symbol, library = "meant_rotate_qk", "flash_bwd_online"
@@ -463,29 +467,30 @@ def _forward(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
 
 
 def _backward(q, k, v, do, kmask, qcos, qsin, kcos, ksin, scale, causal):
-    """K2 on the card, its plain version on the CPU. (b, h, s, d) in and
-    out."""
+    """R1 (q and k rotated once), then K2 on the card; its plain version on
+    the CPU. (b, h, s, d) in and out."""
     if q.device.type == "cpu":
         return flash_mha_bwd_reference(q, k, v, do, kmask, qcos, qsin, kcos,
                                        ksin, scale=scale, causal=causal)
     b, h, s, d = q.shape
-    grads = flash_bwd(*_flat(b, h, s, d, q, k, v, do),
-                      *_contiguous(kmask, qcos, qsin, kcos, ksin),
+    q, k, v, do = _flat(b, h, s, d, q, k, v, do)
+    kmask, *tables = _contiguous(kmask, qcos, qsin, kcos, ksin)
+    grads = flash_bwd(*rotate_qk(q, k, *tables), v, do, kmask, *tables,
                       scale=scale, causal=causal, num_heads=h)
     return tuple(g.reshape(b, h, s, d) for g in grads)
 
 
 def _forward_online(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
-    """K3 on the card, its plain version on the CPU. (b, h, s, d) in;
-    (out (b, h, s, d), lse (b, h, s) fp32) out."""
+    """R1 (q and k rotated once), then K3 on the card; its plain version on
+    the CPU. (b, h, s, d) in; (out (b, h, s, d), lse (b, h, s) fp32) out."""
     if q.device.type == "cpu":
         return flash_mha_online_reference(q, k, v, kmask, qcos, qsin, kcos,
                                           ksin, scale=scale, causal=causal)
     b, h, s, d = q.shape
-    out, lse = flash_fwd_online(
-        *_flat(b, h, s, d, q, k, v),
-        *_contiguous(kmask, qcos, qsin, kcos, ksin), scale=scale,
-        causal=causal, num_heads=h)
+    q, k, v = _flat(b, h, s, d, q, k, v)
+    kmask, *tables = _contiguous(kmask, qcos, qsin, kcos, ksin)
+    out, lse = flash_fwd_online(*rotate_qk(q, k, *tables), v, kmask,
+                                scale=scale, causal=causal, num_heads=h)
     return out.reshape(b, h, s, d), lse.reshape(b, h, s)
 
 
@@ -511,9 +516,10 @@ def _backward_online(q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
 
 
 class _FlashAttentionOnline(torch.autograd.Function):
-    """K3 forward, K4 + K5 backward: the JAX package's joint (out, lse)
-    custom VJP (`_make_flash` kernel.py:800-806, 831-849, 905-934). Saves
-    what JAX saves: q, k, v, the mask, the tables, out and lse. The lse
+    """R1 + K3 forward, R1 + K4 + K5 backward: the JAX package's joint (out,
+    lse) custom VJP (`_make_flash` kernel.py:800-806, 831-849, 905-934).
+    Saves what JAX saves: q, k, v, the mask, the tables, out and lse (not
+    the forward's Qr and Kr: the backward rotates again). The lse
     cotangent folds into delta = rowsum(dO * out) - g_lse, computed here in
     plain PyTorch as JAX computes it in XLA (:837-841); it is zero when the
     caller takes only out. The tables and the mask get no gradient."""
@@ -539,10 +545,10 @@ class _FlashAttentionOnline(torch.autograd.Function):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K2 backward (the JAX package's custom VJP, `_make_flash`
-    kernel.py:851-862, 916-934). Saves what JAX saves: q, k, v, the mask
-    and the tables; the tables and the mask get no gradient (JAX returns
-    zeros for them)."""
+    """K1 forward, R1 + K2 backward (the JAX package's custom VJP,
+    `_make_flash` kernel.py:851-862, 916-934). Saves what JAX saves: q, k,
+    v, the mask and the tables; the tables and the mask get no gradient
+    (JAX returns zeros for them)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
@@ -566,7 +572,8 @@ def flash_mha(q, k, v, *, scale: float, causal: bool = False,
     four tables are (s, d) fp32 (identity rotation when None);
     attention_mask: (b | 1, s) of {0, 1}. `uses_online(s, d, force_online,
     return_lse)` picks the path as the JAX package picks it: resident (K1
-    forward, K2 backward) or streaming (K3 forward, K4 + K5 backward). When
+    forward, R1 + K2 backward) or streaming (R1 + K3 forward, R1 + K4 + K5
+    backward). When
     autograd needs gradients of q, k or v the call goes through the path's
     autograd Function; otherwise (inference) it is the bare forward. With
     return_lse, returns (out, lse (b, h, s, 1) fp32), and gradients flow

@@ -3,14 +3,15 @@
     python -m meant_tpu_torch.tools.k2_faults     (from the repo root)
 
 Builds patched copies of csrc/ (under meant_tpu_torch/_build/faults/) with
-one fault each, runs K2 from them at the main path's two shapes in bf16
-(chip_smoke.py's cases), and prints each gradient's error against
+one fault each, runs R1 + K2 from them at the main path's two shapes in
+bf16 (chip_smoke.py's cases), and prints each gradient's error against
 `flash_mha_bwd_reference` and whether the bars of ops/flash/kernel.py
 catch it. The faults:
 
 * adjoint_sign: the sine term of the rotation's adjoint with the wrong
   sign, cos*g + H(sin*g) (moves dq and dk, leaves dv and the forward);
-* ds_round_to_zero: dS rounded toward zero instead of to nearest.
+* ds_round_to_zero: dS rounded toward zero instead of to nearest, in the
+  wgmma bodies K2 shares with K4 and K5 (flash_bwd_wgmma.cuh).
 """
 
 from __future__ import annotations
@@ -24,28 +25,28 @@ import chip_smoke
 from meant_tpu_torch import cuda_build
 from meant_tpu_torch.ops.flash import kernel
 
-_TO_ZERO = """
-template <typename T> __device__ __forceinline__ T to_zero(float x);
-template <> __device__ __forceinline__ float to_zero<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ bf16 to_zero<bf16>(float x) {
-  return __float2bfloat16_rz(x);
+_PACK_RZ = """// dS rounded toward zero (the fault).
+__device__ __forceinline__ uint32_t pack_pair_rz(float lo, float hi) {
+  __nv_bfloat162 v = __halves2bfloat162(__float2bfloat16_rz(lo),
+                                        __float2bfloat16_rz(hi));
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ---- dQ and the row statistics"""
+// dS = T(p * (dp - delta) * scale) for two"""
+
+# dS rounded toward zero in the wgmma bodies of K2, K4 and K5
+DS_ROUND_TO_ZERO = [
+    ("flash_bwd_wgmma.cuh", "return pack_pair(p0 * (dp0 - dl0) * scale,",
+     "return pack_pair_rz(p0 * (dp0 - dl0) * scale,"),
+    ("flash_bwd_wgmma.cuh", "// dS = T(p * (dp - delta) * scale) for two",
+     _PACK_RZ)]
 
 # (file in csrc/, text, replacement); the rotation's adjoint is the shared
 # store_adjoint of flash_common.cuh
 FAULTS = {
     "adjoint_sign": [("flash_common.cuh", "__fmul_rn(sin_row[c + 1], g1)));",
                       "__fmul_rn(-sin_row[c + 1], g1)));")],
-    "ds_round_to_zero": [
-        ("flash_bwd.cu", "from_f<T>(p * (dp[j][e] - delta[h]) * scale);",
-         "to_zero<T>(p * (dp[j][e] - delta[h]) * scale);"),
-        ("flash_bwd.cu", "from_f<T>(p * (dp[j][e] - st_dl[qi]) * scale);",
-         "to_zero<T>(p * (dp[j][e] - st_dl[qi]) * scale);"),
-        ("flash_bwd.cu", "// ---- dQ and the row statistics", _TO_ZERO)],
+    "ds_round_to_zero": DS_ROUND_TO_ZERO,
 }
 
 

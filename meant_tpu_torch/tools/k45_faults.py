@@ -3,7 +3,8 @@
     python -m meant_tpu_torch.tools.k45_faults     (from the repo root)
 
 Builds patched copies of csrc/ (under meant_tpu_torch/_build/faults/) with
-one fault each in the wgmma bodies of csrc/flash_bwd_online.cu, runs R1,
+one fault each in the wgmma bodies of csrc/flash_bwd_wgmma.cuh (the
+flash_bwd_online library's K4 and K5; K2 shares them), runs R1,
 K4 and K5 from them at src4096's shapes in bf16 (chip_smoke.py's long
 cases: s=4096, BH=16, causal xPos, without and with a padding mask) and
 prints each gradient's error against the plain versions and whether the
@@ -23,25 +24,14 @@ import torch
 
 import chip_smoke
 from meant_tpu_torch.ops.flash import kernel
-from meant_tpu_torch.tools.k2_faults import bars, patched_sources, use_sources
+from meant_tpu_torch.tools.k2_faults import (DS_ROUND_TO_ZERO, bars,
+                                             patched_sources, use_sources)
 
-_PACK_RZ = """// dS rounded toward zero (the fault).
-__device__ __forceinline__ uint32_t pack_pair_rz(float lo, float hi) {
-  __nv_bfloat162 v = __halves2bfloat162(__float2bfloat16_rz(lo),
-                                        __float2bfloat16_rz(hi));
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// dS = T(p * (dp - delta) * scale) for two"""
-
-SOURCE = "flash_bwd_online.cu"
 FAULTS = {
-    "ds_round_to_zero": [
-        (SOURCE, "return pack_pair(p0 * (dp0 - dl0) * scale,",
-         "return pack_pair_rz(p0 * (dp0 - dl0) * scale,"),
-        (SOURCE, "// dS = T(p * (dp - delta) * scale) for two", _PACK_RZ)],
+    "ds_round_to_zero": DS_ROUND_TO_ZERO,
     "dq_transpose_bit": [
-        (SOURCE, "wgmma_m64n96k16_rs<kMNMajor>(dq_acc, ds[kk],",
+        ("flash_bwd_wgmma.cuh",
+         "wgmma_m64n96k16_rs<kMNMajor>(dq_acc, ds[kk],",
          "wgmma_m64n96k16_rs<kKMajor>(dq_acc, ds[kk],")],
 }
 

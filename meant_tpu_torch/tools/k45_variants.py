@@ -1,5 +1,6 @@
 """Where K4's and K5's time goes, on the card: the shipped bf16 kernels
-against variants built from patched copies of csrc/flash_bwd_online.cu.
+against variants built from patched copies of csrc/ (their wgmma bodies
+are in flash_bwd_wgmma.cuh, shared with K2: tools/k23_variants.py).
 
     python -m meant_tpu_torch.tools.k45_variants     (from the repo root)
 
@@ -12,6 +13,8 @@ chip_smoke.py's long case) with CUDA events, one line per variant:
 * no_exp: P = S - lse instead of exp(S - lse), the exponential's cost
   (wrong results: timing only);
 * two_stages: a ring of two stages instead of three.
+
+The patches are BWD_VARIANTS, which tools/k23_variants.py applies to K2.
 """
 
 from __future__ import annotations
@@ -24,20 +27,18 @@ import chip_smoke
 from meant_tpu_torch.ops.flash import kernel
 from meant_tpu_torch.tools.k2_faults import patched_sources, use_sources
 
-SOURCE = "flash_bwd_online.cu"
-VARIANTS = {
+SOURCE = "flash_bwd_wgmma.cuh"
+BWD_VARIANTS = {
     "shipped": [],
     "masked_everywhere": [
-        (SOURCE, "if ((causal && it == qt) || k0 + kTile > seq)",
-         "if (true)"),
+        (SOURCE, "return (causal && tile == qt) || k0 + kTile > seq;",
+         "return true;"),
         (SOURCE,
          "if ((causal && it == 0) || q0 + kTile > seq || k0 + kTile > seq)",
          "if (true)")],
     "no_exp": [
-        (SOURCE, "return expf(__fsub_rn(", "return (__fsub_rn("),
-        (SOURCE, "p[e] = (sc == -INFINITY) ? 0.f : expf(sc - row_lse[h]);",
-         "p[e] = (sc == -INFINITY) ? 0.f : (sc - row_lse[h]);"),
-        (SOURCE, ": expf(sc - lse_s[qi + e]);", ": (sc - lse_s[qi + e]);")],
+        (SOURCE, "const float e = expf(__fsub_rn(sc, m));",
+         "const float e = __fsub_rn(sc, m);")],
     "two_stages": [
         (SOURCE, "constexpr int kStages = 3;", "constexpr int kStages = 2;")],
 }
@@ -51,7 +52,7 @@ def main() -> None:
                              chip_smoke.LONG_TIME_BH)
     chip_smoke.rotate_case(c)
     card = chip_smoke.card_line()
-    for name, patches in VARIANTS.items():
+    for name, patches in BWD_VARIANTS.items():
         use_sources(patched_sources(f"variant_{name}", {
             f"variant_{name}": patches}), "flash_bwd_online",
             [kernel.rotate_qk, kernel.flash_bwd_dq, kernel.flash_bwd_dkdv])

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the flash
-forward (K1), the flash backward (K2), the streaming flash forward (K3), its
-rotation pass (R1), dQ (K4) and dK/dV (K5) backward, and the fused AdamW
-(A1). These tests
+forward (K1), the flash backward (K2), the streaming flash forward (K3), the
+rotation pass (R1) in front of K2, K3 and the streaming dQ (K4) and dK/dV
+(K5) backward, and the fused AdamW (A1). These tests
 need an NVIDIA card and nvcc; elsewhere they skip. On the card:
 
     pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -121,43 +121,61 @@ def _assert_grads_close(got, want, dtype):
             assert rel <= BWD_BF16_REL_L2, f"{name}: rel L2 {rel}"
 
 
+# 127-129 and 191-193 cut the 64-row tiles at a tile's edge, and the ring
+# of three stages where it fills and wraps; 196 and 512 are the main path's.
+RESIDENT_LENGTHS = [1, 63, 65, 127, 128, 129, 191, 192, 193, 196, 512]
+
+
+def _resident_bwd(q, k, v, do, tables, mask, causal):
+    """R1 then K2, as the resident backward runs them: (dq, dk, dv) as
+    (b, h, s, d)."""
+    b, h, s, d = q.shape
+    flat = [t.reshape(b * h, s, d).contiguous() for t in (q, k, v, do)]
+    grads = flash_bwd(*rotate_qk(*flat[:2], *tables), *flat[2:], mask,
+                      *tables, scale=0.1, causal=causal, num_heads=h)
+    return [g.reshape(b, h, s, d) for g in grads]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["xpos_causal", "pixel", "masked",
                                   "broadcast_mask", "identity",
                                   "all_masked_row"])
-@pytest.mark.parametrize("s", [1, 63, 65, 196, 512])
+@pytest.mark.parametrize("s", RESIDENT_LENGTHS)
 def test_backward_kernel_matches_plain(cuda, dtype, case, s):
+    """R1 + K2 against flash_mha_bwd_reference; a fully masked batch row
+    gets P = 1/s on both sides."""
     gen = torch.Generator(device=cuda).manual_seed(1000 + s)
     q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, case, s, gen)
-    b, h = q.shape[:2]
-    before = flash_bwd.launches
-    flat = [t.reshape(b * h, s, 96).contiguous() for t in (q, k, v, do)]
-    got = flash_bwd(*flat, mask, *tables, scale=0.1, causal=causal,
-                    num_heads=h)
+    before = (rotate_qk.launches, flash_bwd.launches)
+    got = _resident_bwd(q, k, v, do, tables, mask, causal)
     torch.cuda.synchronize()
-    assert flash_bwd.launches == before + 1
+    assert (rotate_qk.launches, flash_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
     want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
                                    causal=causal)
-    _assert_grads_close([g.reshape(b, h, s, 96) for g in got], want, dtype)
+    _assert_grads_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_mha_on_cuda_has_grad_fn_and_runs_k2(cuda, dtype):
     """The repair: on CUDA inputs that require grad, flash_mha's output
-    carries a grad_fn and its backward is K2, with the plain path's
+    carries a grad_fn and its backward is R1 + K2, with the plain path's
     gradients."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, "masked",
                                                   196, gen)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    fwd0, bwd0 = flash_fwd.launches, flash_bwd.launches
+    fwd0, bwd0, rot0 = (flash_fwd.launches, flash_bwd.launches,
+                        rotate_qk.launches)
     out = flash_mha(*leaves, scale=0.1, causal=causal, attention_mask=mask,
                     qcos=tables[0], qsin=tables[1], kcos=tables[2],
                     ksin=tables[3])
     assert out.grad_fn is not None
+    assert rotate_qk.launches == rot0     # K1 rotates q and k itself
     out.backward(do)
     torch.cuda.synchronize()
-    assert (flash_fwd.launches, flash_bwd.launches) == (fwd0 + 1, bwd0 + 1)
+    assert (flash_fwd.launches, flash_bwd.launches, rotate_qk.launches) == (
+        fwd0 + 1, bwd0 + 1, rot0 + 1)
     want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
                                    causal=causal)
     _assert_grads_close([t.grad for t in leaves], want, dtype)
@@ -193,17 +211,16 @@ def _assert_out_close(out, ref, dtype):
 @pytest.mark.parametrize("case", ONLINE_CASES)
 @pytest.mark.parametrize("s", ONLINE_LENGTHS)
 def test_online_forward_kernel_matches_plain(cuda, dtype, case, s):
-    """K3: out as K1's bars, lse within LSE_ATOL (a fully masked batch row
-    reads -1e9 on both sides)."""
+    """R1 + K3: out as K1's bars, lse within LSE_ATOL (a fully masked batch
+    row reads -1e9 on both sides)."""
     gen = torch.Generator(device=cuda).manual_seed(2000 + s)
     q, k, v, _, tables, mask, causal = _bwd_case(cuda, dtype, case, s, gen)
     b, h = q.shape[:2]
-    before = flash_fwd_online.launches
-    flat = [t.reshape(b * h, s, 96).contiguous() for t in (q, k, v)]
-    out, lse = flash_fwd_online(*flat, mask, *tables, scale=0.1,
-                                causal=causal, num_heads=h)
+    before = (rotate_qk.launches, flash_fwd_online.launches)
+    out, lse = _online_fwd(q, k, v, tables, mask, causal)
     torch.cuda.synchronize()
-    assert flash_fwd_online.launches == before + 1
+    assert (rotate_qk.launches, flash_fwd_online.launches) == (
+        before[0] + 1, before[1] + 1)
     ref, ref_lse = flash_mha_online_reference(q, k, v, mask, *tables,
                                               scale=0.1, causal=causal)
     _assert_out_close(out.reshape(b, h, s, 96), ref, dtype)
@@ -233,6 +250,15 @@ def test_online_backward_kernels_match_plain(cuda, dtype, case, s):
                                           *tables, scale=0.1, causal=causal)
     _assert_grads_close([g.reshape(b, h, s, 96) for g in (dq, dk, dv)],
                         want, dtype)
+
+
+def _online_fwd(q, k, v, tables, mask, causal):
+    """R1 then K3, as the streaming forward runs them: (out, lse) on
+    (b*h, s, d) views."""
+    b, h, s, d = q.shape
+    flat = [t.reshape(b * h, s, d).contiguous() for t in (q, k, v)]
+    return flash_fwd_online(*rotate_qk(*flat[:2], *tables), flat[2], mask,
+                            scale=0.1, causal=causal, num_heads=h)
 
 
 def _online_bwd_args(q, k, v, do, tables, mask, causal, gen):
@@ -269,6 +295,28 @@ def test_online_backward_kernels_are_deterministic(cuda, dtype, s):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,s", [("K2", 193), ("K2", 512),
+                                      ("K3", 4095)])
+def test_resident_backward_and_online_forward_are_deterministic(
+        cuda, dtype, kernel, s):
+    """K2's two kernels and K3 write every element once, no atomics: two
+    launches on the same inputs agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(4500 + s)
+    q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, "masked", s,
+                                                  gen)
+    if kernel == "K2":
+        runs = [_resident_bwd(q, k, v, do, tables, mask, causal)
+                for _ in range(2)]
+        names = ("dq", "dk", "dv")
+    else:
+        runs = [_online_fwd(q, k, v, tables, mask, causal) for _ in range(2)]
+        names = ("out", "lse")
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["xpos_causal", "pixel"])
 @pytest.mark.parametrize("s", [1, 63, 196, 4096])
 def test_rotation_pass_is_rotate(cuda, dtype, case, s):
@@ -287,7 +335,7 @@ def test_rotation_pass_is_rotate(cuda, dtype, case, s):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_mha_online_on_cuda_runs_k3_k4_k5(cuda, dtype):
-    """force_online on CUDA inputs that require grad: a grad_fn, K3
+    """force_online on CUDA inputs that require grad: a grad_fn, R1 + K3
     forward and R1 + K4 + K5 backward, none of K1 or K2, and the plain
     path's gradients through both out and lse."""
     gen = torch.Generator(device=cuda).manual_seed(8)
@@ -306,7 +354,7 @@ def test_flash_mha_online_on_cuda_runs_k3_k4_k5(cuda, dtype):
     torch.autograd.backward((out, lse), (do, g_lse))
     torch.cuda.synchronize()
     assert [c.launches - n for c, n in zip(counters, before)] == [
-        0, 0, 1, 1, 1, 1]
+        0, 0, 1, 2, 1, 1]
     # the plain backward from K3's own out and lse
     delta = (do.float() * out.detach().float()).sum(-1) - g_lse[..., 0]
     want = flash_mha_bwd_online_reference(q, k, v, do, lse.detach()[..., 0],

@@ -268,7 +268,7 @@ def test_online_wrappers_reject_bad_inputs(wrapper, bad):
     with pytest.raises((TypeError, ValueError)):
         if wrapper == "fwd":
             kmask = torch.ones(3, 8) if bad == "mask" else None
-            flash_fwd_online(q, q, q, kmask, cos, sin, cos, sin, **kw)
+            flash_fwd_online(q, q, q, kmask, **kw)
         else:
             fn = flash_bwd_dq if wrapper == "dq" else flash_bwd_dkdv
             fn(q, q, q, q, lse, lse, None, cos, sin, cos, sin, **kw)

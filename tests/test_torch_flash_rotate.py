@@ -28,7 +28,8 @@ from jax.experimental import pallas as pl
 from meant_tpu import ops as jops
 from meant_tpu.ops.flash import kernel as jkernel
 from meant_tpu.ops.flash.flash_attention import _tables as j_tables
-from meant_tpu_torch.ops.flash import flash_bwd_dkdv, flash_bwd_dq, rotate_qk
+from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv, flash_bwd_dq,
+                                       flash_fwd_online, rotate_qk)
 from meant_tpu_torch.ops.flash.kernel import _rotate, identity_tables
 
 D = 96
@@ -129,19 +130,24 @@ def _bad_inputs(bad: str):
     return q, k
 
 
-@pytest.mark.parametrize("wrapper", ["rotate", "dq", "dkdv"])
+@pytest.mark.parametrize("wrapper", ["rotate", "fwd_online", "bwd", "dq",
+                                     "dkdv"])
 @pytest.mark.parametrize("bad", ["shape", "dtype", "device"])
 def test_rotated_inputs_are_checked(wrapper, bad):
-    """R1's q and k, and K4's and K5's pre-rotated qr and kr, are refused
-    when one's shape, dtype or device differs from the other's, before
-    anything is built or launched."""
+    """R1's q and k, and the pre-rotated qr and kr of K3, K2, K4 and K5,
+    are refused when one's shape, dtype or device differs from the
+    other's, before anything is built or launched."""
     q, k = _bad_inputs(bad)
     cos, sin = identity_tables(8, D, "cpu")
     lse = torch.zeros(4, 8)
+    kw = dict(scale=1.0, causal=True, num_heads=2)
     with pytest.raises(ValueError):
         if wrapper == "rotate":
             rotate_qk(q, k, cos, sin, cos, sin)
+        elif wrapper == "fwd_online":
+            flash_fwd_online(q, k, q, None, **kw)
+        elif wrapper == "bwd":
+            flash_bwd(q, k, q, q, None, cos, sin, cos, sin, **kw)
         else:
             fn = flash_bwd_dq if wrapper == "dq" else flash_bwd_dkdv
-            fn(q, k, q, q, lse, lse, None, cos, sin, cos, sin, scale=1.0,
-               causal=True, num_heads=2)
+            fn(q, k, q, q, lse, lse, None, cos, sin, cos, sin, **kw)
