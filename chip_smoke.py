@@ -8,29 +8,33 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. build   -- nvcc builds every kernel of the serving, training and
               long-sequence paths from csrc/, one nvcc per source, all
               started together; cuobjdump must find wgmma (HGMMA) in each
-              of the flash_fwd (K3), flash_bwd (K2) and flash_bwd_online
-              (K4, K5) libraries.
+              of the flash_fwd (K1, K3), flash_bwd (K2) and
+              flash_bwd_online (K4, K5) libraries, and in K1's own kernel
+              function.
 2. kernels -- each kernel's wrapper against its plain PyTorch version on
-              the card, at the main path's shapes: the flash forward (K1)
-              and the rotation pass + backward (R1 + K2) in fp32 and bf16
-              at both attention shapes, R1 + the streaming forward (K3,
-              out and lse), R1 (bit for bit) and the streaming dQ (K4)
-              and dK/dV (K5) backward at s=4096, BH=16, in fp32 and bf16,
-              and the fused AdamW (A1) over all 177,607,733 parameters.
+              the card, at the main path's shapes: the rotation pass +
+              flash forward (R1 + K1, bf16 at K1's own relative L2 bar)
+              and R1 + backward (R1 + K2) in fp32 and bf16 at both
+              attention shapes, R1 + the streaming forward (K3, out and
+              lse; bf16 out also against the plain version in K3's tiled
+              order), R1 (bit for bit) and the streaming dQ (K4) and
+              dK/dV (K5) backward at s=4096, BH=16, in fp32 and bf16, and
+              the fused AdamW (A1) over all 177,607,733 parameters.
 3. slice   -- flagship meant_src (768 wide, 8 heads of 96, 12+12 encoders,
               s=512 text, 196-patch charts, bf16, seeded random weights)
               serves 40 rows through Predictor(batch_size=16): three
-              requests, the last padded. K1's launch count must rise by
-              exactly 3 x 24 and the probabilities must be finite and
-              agree with the plain attention (towers and probabilities,
-              at fixed_proj False and True).
+              requests, the last padded. K1's and R1's launch counts must
+              rise by exactly 3 x 24 each and the probabilities must be
+              finite and agree with the plain attention (towers and
+              probabilities, at fixed_proj False and True).
 4. train   -- the same model at fixed_proj=True (at False every tower
               gradient is zero, DEFECTS #15): one step's parameter
               gradients with the kernels vs the plain attention (8 rows,
               dropout off, per-tower relative L2); 20 steps of
               meant_trainer on one replayed 16-row batch at lr 1e-5
-              constant, with exactly 24 K1, 24 R1, 24 K2 and 1 A1
-              launches per step and a finite, falling loss; step time, samples/s, peak
+              constant, with exactly 24 K1, 24 R1 (in front of K1; K2
+              takes their Qr and Kr), 24 K2 and 1 A1 launches per step
+              and a finite, falling loss; step time, samples/s, peak
               memory and a torch.profiler breakdown of 2 steps; then
               cli.in_loop_train trains one epoch of a synthetic set,
               evaluates and saves, and Predictor(checkpoint_path=...)
@@ -38,21 +42,22 @@ Phases, in order; any failure raises and the script exits non-zero:
               No phase of the flagship launches K3, K4 or K5.
 5. long    -- src4096 (bench.py's long-sequence workload: the flagship at
               s=4096, batch 2, fusion projection of 4096): Predictor serves
-              2 requests of 2 rows with exactly 12 R1 + 12 K3 + 12 K1
+              2 requests of 2 rows with exactly 12 K3 + 12 K1 + 24 R1
               launches per forward, towers and probabilities against the
               plain attention; one step's gradients at 1 row and 2
               encoders per tower against the plain attention; 10
               meant_trainer steps at fixed_proj=True with exactly 12 K3,
-              12 K1, 36 R1 (before K3, K4 + K5 and K2), 12 K4, 12 K5, 12
+              12 K1, 36 R1 (before K3, K1 and K4 + K5), 12 K4, 12 K5, 12
               K2 and 1 A1 per step and a finite, falling loss;
               step time, samples/s, peak memory and a profiled step.
 6. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
-              calls): rotation + scaled_dot_product_attention (K1; R1 + K3,
-              causal at s=4096) and its backward (R1 + K2; R1, K4 and K5
-              together), torch.optim.AdamW(fused=True) (A1); R1 has rows
-              of its own at each shape.
+              calls): rotation + scaled_dot_product_attention (R1 + K1,
+              K1 alone beside it; R1 + K3, causal at s=4096) and its
+              backward (R1 + K2; R1, K4 and K5 together),
+              torch.optim.AdamW(fused=True) (A1); R1 has rows of its own
+              at each shape.
 7. profile -- torch.profiler over 3 forwards of one 16-row request: device
               time per forward by kind, the device's idle share, and the
               top kernels.
@@ -90,10 +95,12 @@ REQUEST_ROWS = 40          # three requests at batch 16, the last padded
 PROFILE_FORWARDS = 3
 
 # Bars. fp32: the kernel and the plain version differ only in summation
-# order (online vs two-pass softmax). bf16: P is rounded to bf16 before P@V
-# at a running max in the kernel and after normalising in the plain
-# version, one bf16 step (2^-8 relative) apart; each element is held to
-# 2e-2 relative + absolute, and the whole output to BF16_REL_L2 relative L2.
+# order (online vs two-pass softmax). bf16: each element is held to 2e-2
+# relative + absolute, and the whole output to a relative L2 bar of
+# ops/flash/kernel.py: K1_BF16_REL_L2 for K1, which rounds P after
+# normalising as the plain version does; BF16_REL_L2 for K3, which rounds
+# it at a running max, one bf16 step (2^-8 relative) apart, and
+# K3_TILED_REL_L2 against the plain version in K3's own order.
 FP32_RTOL, FP32_ATOL = 1e-4, 1e-5
 BF16_TOL = 2e-2
 # The slice in bf16, flash kernel vs plain attention through 12 layers:
@@ -136,8 +143,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def count_hgmma(name: str) -> int:
+def count_hgmma(name: str, function: str = "") -> int:
     """wgmma instructions (HGMMA) in the SASS of the built csrc/<name>.cu,
+    or only in its kernel functions whose (mangled) name holds `function`,
     by cuobjdump; fails when there are none."""
     import os
     from meant_tpu_torch.cuda_build import _library_path, find_nvcc
@@ -145,10 +153,15 @@ def count_hgmma(name: str) -> int:
     sass = subprocess.run([tool, "-sass", str(_library_path(name))],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    n = sum("HGMMA" in line for line in sass.splitlines())
-    print(f"SASS of {name}: {n} HGMMA (wgmma) instructions", flush=True)
+    # one section per kernel function, its mangled name on the first line
+    sections = [sec for sec in sass.split("Function : ")[1:]
+                if function in sec.split("\n", 1)[0]]
+    n = sum("HGMMA" in line for sec in sections for line in sec.splitlines())
+    where = f"{name} {function}".strip()
+    print(f"SASS of {where}: {n} HGMMA (wgmma) instructions in "
+          f"{len(sections)} function(s)", flush=True)
     if n == 0:
-        fail(f"the built {name} library issues no wgmma")
+        fail(f"the built {where} issues no wgmma")
     return n
 
 
@@ -205,6 +218,16 @@ def run_kernel(c):
                      qsin=qsin, kcos=kcos, ksin=ksin)
 
 
+def run_k1(c):
+    """K1 alone on c's qr and kr (rotate_case); out as (b, h, s, d)."""
+    from meant_tpu_torch.ops.flash import flash_fwd
+    b, h, s, d = c["q"].shape
+    out = flash_fwd(c["qr"], c["kr"], c["v"].reshape(b * h, s, d),
+                    c["mask"], scale=c["scale"], causal=c["causal"],
+                    num_heads=h)
+    return out.reshape(b, h, s, d)
+
+
 def run_plain(c):
     from meant_tpu_torch.ops.flash import flash_mha_reference
     return flash_mha_reference(c["q"], c["k"], c["v"], c["mask"],
@@ -232,7 +255,9 @@ def rel_l2(out, ref) -> float:
 
 
 def check_kernel(record):
-    from meant_tpu_torch.ops.flash.kernel import BF16_REL_L2
+    """R1 + K1 (flash_mha's resident forward) against flash_mha_reference
+    at both main-path shapes and the masked text case, fp32 and bf16."""
+    from meant_tpu_torch.ops.flash.kernel import K1_BF16_REL_L2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -253,10 +278,10 @@ def check_kernel(record):
                 bar = f"rtol {FP32_RTOL} atol {FP32_ATOL}"
             else:
                 ok = (torch.allclose(out.float(), ref.float(), rtol=BF16_TOL,
-                                     atol=BF16_TOL) and rel <= BF16_REL_L2)
-                bar = f"rtol/atol {BF16_TOL}, rel L2 {BF16_REL_L2}"
+                                     atol=BF16_TOL) and rel <= K1_BF16_REL_L2)
+                bar = f"rtol/atol {BF16_TOL}, rel L2 {K1_BF16_REL_L2}"
             name = f"{kind}/{str(dtype).split('.')[-1]}"
-            print(f"kernel vs plain {name}: max_abs_err {err:.3e} rel_l2 "
+            print(f"R1 + K1 vs plain {name}: max_abs_err {err:.3e} rel_l2 "
                   f"{rel:.3e} ({bar}) {'ok' if ok else 'FAIL'}", flush=True)
             if not ok or not torch.isfinite(out).all():
                 fail(f"kernel disagrees with its plain version ({name}, "
@@ -374,6 +399,16 @@ def run_online_plain(c):
                                       causal=c["causal"])
 
 
+def run_online_tiled_plain(c):
+    """K3's plain version in the kernel's order (64-key tiles, P rounded at
+    the running max): out only."""
+    from meant_tpu_torch.ops.flash.kernel import (
+        flash_mha_online_tiled_reference)
+    return flash_mha_online_tiled_reference(
+        c["q"], c["k"], c["v"], c["mask"], *c["tables"], scale=c["scale"],
+        causal=c["causal"])[0]
+
+
 def rotate_case(c):
     """R1 on (b*h, s, d) views of q and k; stores and returns (qr, kr)."""
     from meant_tpu_torch.ops.flash import rotate_qk
@@ -458,10 +493,12 @@ def long_case(kind, dtype, gen, bh):
 def check_long_kernels(record):
     """R1 + K3 (out and lse), R1, K4 and K5 against their plain versions
     at s=4096, BH=16, fp32 and bf16, without and with a padding mask: out
-    and the gradients at K1's and K2's bars, lse within LSE_ATOL, R1 bit
-    for bit."""
+    at BF16_REL_L2 (and, in bf16, at K3_TILED_REL_L2 against the plain
+    version in K3's tiled order), the gradients at K2's bars, lse within
+    LSE_ATOL, R1 bit for bit."""
     from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
-                                                  BWD_BF16_REL_L2, LSE_ATOL)
+                                                  BWD_BF16_REL_L2,
+                                                  K3_TILED_REL_L2, LSE_ATOL)
     gen = torch.Generator(device="cuda").manual_seed(4)
     errors, rels = {}, {}
     for kind in ("text", "text_masked"):
@@ -485,6 +522,17 @@ def check_long_kernels(record):
                 fail(f"K3's lse disagrees with its plain version ({name}, "
                      f"max abs err {lse_err})")
             errors[f"{name}/lse"] = lse_err
+            if dtype == torch.bfloat16:
+                rel = rel_l2(out, run_online_tiled_plain(c))
+                ok = rel <= K3_TILED_REL_L2
+                print(f"R1 + K3 vs plain in K3's tiled order {name} out: "
+                      f"rel_l2 {rel:.3e} (bar {K3_TILED_REL_L2}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"K3 disagrees with its tiled plain version ({name},"
+                         f" rel L2 {rel})")
+                rels[f"{name}/out_tiled"] = rel
+                torch.cuda.empty_cache()
             rot_err = max((a.float() - b.float()).abs().max().item()
                           for a, b in zip(rotated, rotate_plain(c)))
             print(f"R1 vs plain {name}: max_abs_err {rot_err:.3e} (bar 0) "
@@ -650,9 +698,10 @@ def run_slice(record):
     n_requests = -(-REQUEST_ROWS // BATCH)
     want = n_requests * 2 * ENCODERS
     print(f"served {REQUEST_ROWS} rows in {n_requests} requests: probs "
-          f"{probs.shape}, flash_fwd launches {launches} (want {want}), by "
-          f"(s, causal) {by_shape}; {n_params} parameters", flush=True)
-    check_counts(counts, {"K1": want}, "serving the flagship")
+          f"{probs.shape}, flash_fwd launches {launches} (want {want}, and "
+          f"as many R1), by (s, causal) {by_shape}; {n_params} parameters",
+          flush=True)
+    check_counts(counts, {"K1": want, "R1": want}, "serving the flagship")
     if probs.shape != (REQUEST_ROWS, 2) or not np.isfinite(probs).all():
         fail(f"bad probabilities {probs.shape}")
     if not ((probs > 0) & (probs < 1)).all():
@@ -877,9 +926,10 @@ def train_through_cli(record):
         counts = read_counts()
         trainer = results["trainer"]
         steps = trainer.optimizer.step_count
+        # the evaluation's forwards launch K1 and R1 too
         if (counts["A1"] != steps or counts["K2"] != 24 * steps
-                or counts["R1"] != 24 * steps or counts["K3"]
-                or counts["K4"] or counts["K5"]):
+                or counts["K1"] < 24 * steps or counts["R1"] != counts["K1"]
+                or counts["K3"] or counts["K4"] or counts["K5"]):
             fail(f"the CLI's {steps} steps launched {counts}")
         if results["checkpoint"] is None:
             fail("the CLI saved no checkpoint")
@@ -923,8 +973,8 @@ def run_training(record):
 
 def serve_long(record):
     """Predictor serves LONG_REQUEST_ROWS rows of src4096 in requests of
-    LONG_BATCH: exactly 12 R1 + 12 K3 (text, s=4096) + 12 K1 (vision) per
-    forward;
+    LONG_BATCH: exactly 12 K3 (text, s=4096) + 12 K1 (vision) per forward,
+    each behind its R1;
     then the towers and probabilities of one request against the plain
     attention."""
     from meant_tpu_torch.serve import Predictor
@@ -947,7 +997,7 @@ def serve_long(record):
           f"{probs.shape}, launches {counts}; {n_params} parameters",
           flush=True)
     check_counts(counts, {"K1": n_requests * ENCODERS,
-                          "R1": n_requests * ENCODERS,
+                          "R1": 2 * n_requests * ENCODERS,
                           "K3": n_requests * ENCODERS}, "serving src4096")
     if (probs.shape != (LONG_REQUEST_ROWS, 2) or not np.isfinite(probs).all()
             or not ((probs > 0) & (probs < 1)).all()):
@@ -975,7 +1025,7 @@ def run_long(record):
                            num_encoders=n)
     res["step_gradients"] = compare_step_gradients(
         small, to_card(train_batch(1, seed=6, seq=LONG_SEQ)),
-        # R1 in front of K3, of K4 + K5 and of K2
+        # R1 in front of K3, of K1 (whose Qr, Kr K2 takes) and of K4 + K5
         {"K1": n, "K2": n, "K3": n, "R1": 3 * n, "K4": n, "K5": n},
         lambda: build_flagship(LONG_SEQ, flash=False, fixed_proj=True,
                                num_encoders=n), "src4096 step")
@@ -1046,14 +1096,22 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
         c = backward_case(kind, torch.bfloat16, gen)
         key = (c["s"], c["causal"])
         nbytes, flops = attention_cost(c)
+        with_r1 = event_ms(lambda: run_kernel(c), iters=20)
+        rotate_case(c)
+        k1_ms = event_ms(lambda: run_k1(c), iters=20)
+        library_ms = event_ms(lambda: run_library(c), iters=20)
+        print(f"resident forward at {label}: R1 + K1 {with_r1:.4f} ms (K1 "
+              f"alone {k1_ms:.4f} ms) against rotation + SDPA's "
+              f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)",
+              flush=True)
         rows.append(kernel_row(
             f"flash_fwd[{label}]", "meant_tpu_torch/csrc/flash_fwd.cu",
             "meant_tpu/ops/flash/kernel.py:89",
             launches_by_shape.get(key, 0), errors[f"{kind}/bfloat16"],
-            event_ms(lambda: run_kernel(c), iters=20),
-            event_ms(lambda: run_plain(c), iters=5),
-            event_ms(lambda: run_library(c), iters=20), nbytes, flops,
-            PEAK_BF16_FLOPS, shape=list(c["q"].shape), dtype="bfloat16"))
+            with_r1, event_ms(lambda: run_plain(c), iters=5), library_ms,
+            nbytes, flops, PEAK_BF16_FLOPS, shape=list(c["q"].shape),
+            dtype="bfloat16", k1_alone_ms=k1_ms,
+            library_call="rotation + scaled_dot_product_attention"))
         nbytes, flops = attention_cost(c, backward=True)
         library = run_library_bwd(c)
         library_ms = event_ms(library, iters=10)
@@ -1339,6 +1397,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     record["hgmma"] = {name: count_hgmma(name) for name in WGMMA_LIBRARIES}
+    record["hgmma"]["K1"] = count_hgmma("flash_fwd", "flash_fwd_wgmma_kernel")
 
     errors = check_kernel(record)
     bwd_errors = check_backward(record)

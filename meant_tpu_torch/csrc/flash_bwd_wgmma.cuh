@@ -81,65 +81,14 @@ __device__ __forceinline__ uint32_t ds_pair(float p0, float p1, float dp0,
   return pack_pair(p0 * (dp0 - dl0) * scale, p1 * (dp1 - dl1) * scale);
 }
 
-// exp(score - m), times 1/l for K2: P of one score (masked_score's -inf
-// gives 0 on an edge tile).
-template <bool kStats>
-__device__ __forceinline__ float p_of(float sc, float m, float il) {
-  const float e = expf(__fsub_rn(sc, m));
-  return kStats ? e * il : e;
-}
-
 // Whether a dq tile masks element by element: the diagonal, or ragged.
 __device__ __forceinline__ bool dq_edge(int causal, int tile, int qt, int k0,
                                         int seq) {
   return (causal && tile == qt) || k0 + kTile > seq;
 }
 
-// K2's statistics pass over one tile of S and dP (accumulator element
-// 4j + 2h + e: row row[h], column k0 + 8j + 2t + e): the running max m, and
-// the denominator l and sum_j P_ij dP_ij relative to it, over this
-// thread's columns (summed over the row group at the end).
-template <bool kEdge>
-__device__ __forceinline__ void stats_tile(
-    float (&s)[4 * kNs], const float (&dp)[4 * kNs], float (&m)[2],
-    float (&l)[2], float (&dsum)[2], const int (&row)[2], int k0, int t,
-    int seq, int causal, const float* km, float scale) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < kNs; ++j) {
-    float bias[2];
-    if (!kEdge) column_bias(bias, km, k0 + j * 8 + 2 * t);
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& x = s[4 * j + 2 * h + e];
-        x = kEdge ? masked_score(x, scale, row[h], k0 + j * 8 + 2 * t + e,
-                                 seq, causal, km)
-                  : interior_score(x, scale, bias[e]);
-        mx[h] = fmaxf(mx[h], x);
-      }
-  }
-  float m_use[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float corr = rescale(m[h], row_max(mx[h]), m_use[h]);
-    l[h] *= corr;
-    dsum[h] *= corr;
-  }
-#pragma unroll
-  for (int j = 0; j < kNs; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float x = s[4 * j + 2 * h + e];
-        const float p =
-            (kEdge && x == -INFINITY) ? 0.f : p_of<false>(x, m_use[h], 1.f);
-        l[h] += p;
-        dsum[h] += p * dp[4 * j + 2 * h + e];
-      }
-}
+// P = exp(score - m), times 1/l for K2 (p_of, flash_common.cuh); K2's
+// statistics pass is stats_tile there, shared with K1.
 
 // The dq kernel's dS for one tile as A fragments (ds[k] covers keys
 // 16k..16k+15) from the S and dP accumulators. kEdge: the diagonal or the
@@ -305,11 +254,11 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
       scores(st);
       mbar_arrive(&sm.empty[st]);  // the products have read the stage
       if (dq_edge(causal, it, qt, k0, seq))
-        stats_tile<true>(s, dp, m, l, dsum, row, k0, t, seq, causal, km,
-                         scale);
+        stats_tile<true, true>(s, dp, m, l, dsum, row, k0, t, seq, causal,
+                               km, scale);
       else
-        stats_tile<false>(s, dp, m, l, dsum, row, k0, t, seq, causal, km,
-                          scale);
+        stats_tile<false, true>(s, dp, m, l, dsum, row, k0, t, seq, causal,
+                                km, scale);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

@@ -1,9 +1,9 @@
 // Helpers shared by the flash kernels: the forwards (flash_fwd.cu, K1 and
 // K3) and the backwards (flash_bwd.cu, K2; flash_bwd_online.cu, K4 and K5):
 // dtype conversions, the bf16 tensor-core product mma.sync m16n8k16 and its
-// fragment packing, the score masking and online-softmax rescale the
-// kernels apply exactly alike, and the backwards' warp-level NT product,
-// tile loader and rotation adjoint.
+// fragment packing, the score masking, online-softmax rescale and
+// statistics pass the kernels apply exactly alike, and the backwards'
+// warp-level NT product, tile loader and rotation adjoint.
 //
 // Fragment layout of m16n8k16 (lane = 4 * g + t): A (16x16, row major)
 // holds rows g and g+8 at columns 2t, 2t+1 and 2t+8, 2t+9; B (16x8, column
@@ -100,6 +100,76 @@ __device__ __forceinline__ float rescale(float& m, float tile_max,
   const float corr = (m == -INFINITY) ? 0.f : expf(m - m_use);
   m = m_new;
   return corr;
+}
+
+// Sum and max over the four lanes of a row group, which hold the row's
+// other columns.
+__device__ __forceinline__ float row_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float row_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// exp(score - m), times 1/l when kScaled: P of one score (masked_score's
+// -inf gives 0).
+template <bool kScaled>
+__device__ __forceinline__ float p_of(float sc, float m, float il) {
+  const float e = expf(__fsub_rn(sc, m));
+  return kScaled ? e * il : e;
+}
+
+// One tile's step of a statistics pass (K1's, and K2's dq kernel's), from a
+// score accumulator of N = 4 * (n8 blocks) elements (element 4j + 2h + e:
+// row row[h], column k0 + 8j + 2t + e): the scores masked in place, the
+// running max m, and the denominator l -- and, when kDelta, sum_j P_ij
+// dP_ij from the dP accumulator -- relative to it, over this thread's
+// columns (summed over the row group at the end). kEdge: the diagonal or
+// the ragged tile, masked element by element (masked_score); else every
+// score is live and the key mask is a per-column bias (interior_score).
+template <bool kEdge, bool kDelta, int N>
+__device__ __forceinline__ void stats_tile(
+    float (&s)[N], const float (&dp)[N], float (&m)[2], float (&l)[2],
+    float (&dsum)[2], const int (&row)[2], int k0, int t, int seq,
+    int causal, const float* km, float scale) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    float bias[2];
+    if (!kEdge) column_bias(bias, km, k0 + j * 8 + 2 * t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = kEdge ? masked_score(x, scale, row[h], k0 + j * 8 + 2 * t + e,
+                                 seq, causal, km)
+                  : interior_score(x, scale, bias[e]);
+        mx[h] = fmaxf(mx[h], x);
+      }
+  }
+  float m_use[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float corr = rescale(m[h], row_max(mx[h]), m_use[h]);
+    l[h] *= corr;
+    if (kDelta) dsum[h] *= corr;
+  }
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = s[4 * j + 2 * h + e];
+        const float p =
+            (kEdge && x == -INFINITY) ? 0.f : p_of<false>(x, m_use[h], 1.f);
+        l[h] += p;
+        if (kDelta) dsum[h] += p * dp[4 * j + 2 * h + e];
+      }
 }
 
 // ---- the backwards' building blocks ----------------------------------------
@@ -211,18 +281,6 @@ __device__ __forceinline__ void store_adjoint(T* out, const float* cos_row,
                                __fmul_rn(sin_row[c + 1], g1)));
   out[c + 1] = from_f<T>(__fsub_rn(__fmul_rn(cos_row[c + 1], g1),
                                    __fmul_rn(sin_row[c], g0)));
-}
-
-// Sum and max over the four lanes of a row group, which hold the row's
-// other columns.
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
 }  // namespace meant

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the flash kernels' bf16 bodies (the
-// streaming forward K3 in flash_fwd.cu; the backwards K2, K4 and K5 through
+// forwards K1 and K3 in flash_fwd.cu; the backwards K2, K4 and K5 through
 // flash_bwd_wgmma.cuh): mbarriers, TMA tile loads through a tensor map and
 // the host code that encodes one, and warpgroup matrix products (wgmma) on
 // operands in shared memory laid out with the 64-byte swizzle.

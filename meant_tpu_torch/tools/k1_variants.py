@@ -1,0 +1,165 @@
+"""Where K1's time goes, on the card: the shipped bf16 kernel against
+variants built from patched copies of csrc/.
+
+    python -m meant_tpu_torch.tools.k1_variants
+
+K1 alone (on R1's Qr and Kr) at the flagship's launches (BH=640, bf16:
+s=512 causal xPos and s=196 pixel rotary; chip_smoke.py's cases), with
+CUDA events, one line per variant and shape, with out's relative L2
+against `flash_mha_reference`:
+
+* shipped: the kernel as it is (one consumer warpgroup, a ring of two
+  stages, a statistics pass then P = exp(S - m) * (1/l));
+* three_stages: a ring of three stages;
+* two_groups, two_groups_three_stages: two consumer warpgroups (128 q rows)
+  a block, both reading each stage, with two and three stages;
+* masked_everywhere: every tile masks element by element, as the diagonal
+  and ragged tiles do;
+* division: P = exp(S - m) / l, torch.softmax's division, instead of the
+  product with 1/l (one fp32 rounding less);
+* no_exp: exp(x) replaced by x in both passes (wrong results: timing
+  only);
+* one_pass (s=196 only: four tiles, not causal): no statistics pass; the
+  four S tiles of a row block held in registers (64 x 256 fp32, 128
+  registers a thread), m and l found over them, then P normalised and
+  O += P V from a ring of four stages that holds every Kr and V tile.
+"""
+
+from __future__ import annotations
+
+import json
+
+import torch
+
+import chip_smoke
+from meant_tpu_torch.ops.flash import kernel
+from meant_tpu_torch.tools.k2_faults import patched_sources, use_sources
+
+FWD = "flash_fwd.cu"
+_TWO_GROUPS = (FWD, "constexpr int kResGroups = 1;",
+               "constexpr int kResGroups = 2;")
+_THREE_STAGES = (FWD, "constexpr int kResStages = 2;",
+                 "constexpr int kResStages = 3;")
+# The one-pass body, in front of the statistics pass it switches off.
+_ONE_PASS = """  if constexpr (kStats) {  // one pass: every S tile in registers
+    float sa[4][4 * kNs], unused[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      zero_regs(sa[i]);
+      if (i < n_tiles) {
+        mbar_wait(&sm.full[i], 0);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kHeadDim / 16; ++kk)
+          wgmma_m64n64k16_ss(sa[i], kmajor_desc(sm.q[wg], kk),
+                             kmajor_desc(sm.k[i], kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sa[i]);
+        if (edge_tile(causal, i, qt, i * kBlockK, seq))
+          stats_tile<true, false>(sa[i], sa[i], m, l, unused, row,
+                                  i * kBlockK, t, seq, causal, km, scale);
+        else
+          stats_tile<false, false>(sa[i], sa[i], m, l, unused, row,
+                                   i * kBlockK, t, seq, causal, km, scale);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float lt = row_sum(l[h]);
+      row_m[h] = (m[h] == -INFINITY) ? 0.f : m[h];
+      row_il[h] = lt > 0.f ? 1.0f / lt : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < n_tiles) {
+        uint32_t pa[kBlockK / 16][4];
+#pragma unroll
+        for (int j = 0; j < kNs; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float p[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float x = sa[i][4 * j + 2 * h + e];
+              p[e] = x == -INFINITY ? 0.f
+                                    : p_of<true>(x, row_m[h], row_il[h]);
+            }
+            pa[j >> 1][(j & 1) * 2 + h] = pack_pair(p[0], p[1]);
+          }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 16; ++kk)
+          wgmma_m64n96k16_rs<kMNMajor>(o_acc, pa[kk],
+                                       mnmajor_desc(sm.v[i], kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        fence_regs(pa);
+      }
+    }
+  }
+  if constexpr (false) {
+    // pass 1: each row's max and denominator"""
+K1_VARIANTS = {
+    "shipped": [],
+    "three_stages": [_THREE_STAGES],
+    "two_groups": [_TWO_GROUPS],
+    "two_groups_three_stages": [_TWO_GROUPS, _THREE_STAGES],
+    "masked_everywhere": [
+        (FWD, "return (causal && it == qt) || k0 + kBlockK > seq;",
+         "return true;")],
+    "division": [   # row_il then holds l itself
+        (FWD, "row_il[h] = lt > 0.f ? 1.0f / lt : 0.f;",
+         "row_il[h] = lt > 0.f ? lt : 1.f;"),
+        (FWD, ": p_of<true>(x, row_m[h], row_il[h]);",
+         ": __fdiv_rn(p_of<false>(x, row_m[h], 1.f), row_il[h]);")],
+    "no_exp": [
+        ("flash_common.cuh", "const float e = expf(__fsub_rn(sc, m));",
+         "const float e = __fsub_rn(sc, m);")],
+    "one_pass": [
+        (FWD, "constexpr int kResStages = 2;", "constexpr int kResStages = 4;"),
+        (FWD, "constexpr int kPasses = kStats ? 2 : 1;",
+         "constexpr int kPasses = 1;"),
+        (FWD, "const bool with_v = !kStats || it >= n_tiles;",
+         "const bool with_v = true;"),
+        (FWD, "  if constexpr (kStats) {\n"
+              "    // pass 1: each row's max and denominator", _ONE_PASS),
+        (FWD, "for (int it = 0; it < n_tiles; ++it, ++ring) {\n"
+              "    const int st = ring % kStages, k0 = it * kBlockK;\n"
+              "    // a stage",
+         "for (int it = 0; it < (kStats ? 0 : n_tiles); ++it, ++ring) {\n"
+         "    const int st = ring % kStages, k0 = it * kBlockK;\n"
+         "    // a stage")],
+}
+ONE_TILE_ROW_ONLY = {"one_pass"}   # s <= 256 and not causal
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_variants runs on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = chip_smoke.card_line()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = {kind: chip_smoke.attention_case(kind, torch.bfloat16, gen)
+             for kind in ("text", "vision")}
+    refs = {kind: chip_smoke.run_plain(c) for kind, c in cases.items()}
+    for c in cases.values():
+        chip_smoke.rotate_case(c)
+    for name, patches in K1_VARIANTS.items():
+        label = f"k1_{name}"
+        use_sources(patched_sources(label, {label: patches}), "flash_fwd",
+                    [kernel.flash_fwd, kernel.flash_fwd_online])
+        for kind, c in cases.items():
+            if name in ONE_TILE_ROW_ONLY and (c["causal"] or c["s"] > 256):
+                continue
+            rel = chip_smoke.rel_l2(chip_smoke.run_k1(c), refs[kind])
+            ms = chip_smoke.event_ms(lambda: chip_smoke.run_k1(c), iters=30)
+            print(json.dumps({"kernel": "K1", "variant": name, "shape":
+                              list(c["q"].shape), "causal": c["causal"],
+                              "ms": ms, "rel_l2": rel, "card": card}),
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -47,7 +47,8 @@ K3_VARIANTS = {
     "three_stages": [_THREE_STAGES],
     "two_groups_three_stages": [_TWO_GROUPS, _THREE_STAGES],
     "masked_everywhere": [
-        (FWD, "if ((causal && it == qt) || k0 + kBlockK > seq)", "if (true)")],
+        (FWD, "return (causal && it == qt) || k0 + kBlockK > seq;",
+         "return true;")],
     "no_exp": [
         (FWD, "p[e] = (kEdge && x == -INFINITY) ? 0.f : expf(x - m_use[h]);",
          "p[e] = (kEdge && x == -INFINITY) ? 0.f : (x - m_use[h]);")],

@@ -6,8 +6,11 @@ Builds patched copies of csrc/ (under meant_tpu_torch/_build/faults/) with
 one fault each in K3's wgmma body (csrc/flash_fwd.cu), runs R1 + K3 from
 them at src4096's shapes in bf16 (chip_smoke.py's long cases: s=4096,
 BH=16, causal xPos, without and with a padding mask) and prints out's and
-lse's errors against `flash_mha_online_reference` and whether the bars of
-ops/flash/kernel.py catch them. The faults:
+lse's errors against `flash_mha_online_reference`, out's against
+`flash_mha_online_tiled_reference` (the plain version in K3's order), and
+whether the bars of ops/flash/kernel.py catch them (BF16_REL_L2,
+K3_TILED_REL_L2, LSE_ATOL). The shipped kernel is printed first. The
+faults:
 
 * v_kmajor: O += P V reads V with the transpose bit clear, K-major through
   the MN-major descriptor (moves out, leaves lse);
@@ -15,7 +18,8 @@ ops/flash/kernel.py catch them. The faults:
   rounded, the output kept normalised from tile to tile (rescaled by
   l_old / l_new) and not divided at the end -- the same function, with P
   rounded after normalising instead of at the running max as the
-  reference's streaming kernel rounds it (moves out by rounding only).
+  reference's streaming kernel rounds it (moves out by rounding only: only
+  the tiled bar sees it).
 """
 
 from __future__ import annotations
@@ -87,13 +91,13 @@ _NORMALISED = """  float m_use[2], l_old[2];
   }
 }"""
 FAULTS = {
+    "shipped": [],
     "v_kmajor": [
         (SOURCE, "wgmma_m64n96k16_rs<kMNMajor>(o_acc, pa[kk],",
          "wgmma_m64n96k16_rs<kKMajor>(o_acc, pa[kk],")],
     "p_normalised": [
         (SOURCE, _RUNNING_MAX, _NORMALISED),
-        (SOURCE, "const float inv = lt > 0.f ? 1.0f / lt : 0.f;",
-         "const float inv = 1.f;")],
+        (SOURCE, "(lt > 0.f ? 1.0f / lt : 0.f)", "1.f")],
 }
 
 
@@ -111,6 +115,8 @@ def main() -> None:
                                      chip_smoke.LONG_CHECK_BH)
             out, lse = chip_smoke.run_online_kernel(c)
             rel = chip_smoke.rel_l2(out, c["out"])
+            rel_tiled = chip_smoke.rel_l2(
+                out, chip_smoke.run_online_tiled_plain(c))
             lse_err = (lse - c["lse"]).abs().max().item()
             res = {
                 "rel_l2": rel,
@@ -119,6 +125,8 @@ def main() -> None:
                     out.float(), c["out"].float(), rtol=chip_smoke.BF16_TOL,
                     atol=chip_smoke.BF16_TOL),
                 "caught_rel_l2": rel > kernel.BF16_REL_L2,
+                "rel_l2_tiled": rel_tiled,
+                "caught_tiled": not rel_tiled <= kernel.K3_TILED_REL_L2,
                 "lse_max_abs": lse_err,
                 "caught_lse": lse_err > kernel.LSE_ATOL, "card": card}
             print(f"{name} long_{kind}: {json.dumps(res)}", flush=True)

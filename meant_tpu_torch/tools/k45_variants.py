@@ -37,7 +37,7 @@ BWD_VARIANTS = {
          "if ((causal && it == 0) || q0 + kTile > seq || k0 + kTile > seq)",
          "if (true)")],
     "no_exp": [
-        (SOURCE, "const float e = expf(__fsub_rn(sc, m));",
+        ("flash_common.cuh", "const float e = expf(__fsub_rn(sc, m));",
          "const float e = __fsub_rn(sc, m);")],
     "two_stages": [
         (SOURCE, "constexpr int kStages = 3;", "constexpr int kStages = 2;")],

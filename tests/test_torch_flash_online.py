@@ -38,7 +38,8 @@ from meant_tpu_torch.ops.flash import (flash_bwd_dkdv, flash_bwd_dq,
                                        flash_mha_online_reference,
                                        uses_online)
 from meant_tpu_torch.ops.flash.flash_attention import _tables
-from meant_tpu_torch.ops.flash.kernel import identity_tables
+from meant_tpu_torch.ops.flash.kernel import (
+    _rotate, flash_mha_online_tiled_reference, identity_tables)
 from meant_tpu_torch.train.classify import sigmoid_ce_loss
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
@@ -236,6 +237,54 @@ def test_online_lse_is_the_row_log_sum_exp():
                                rtol=1e-6)
     want = np.cumsum(v.numpy()[0, 0], 0) / np.arange(1, 5)[:, None]
     np.testing.assert_allclose(out.numpy()[0, 0], want, rtol=1e-6)
+
+
+def _rel_l2(a, b) -> float:
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["xpos_masked_s200", "pixel_plain_s200"])
+def test_online_tiled_reference_rounds_as_the_streaming_kernel(case, dtype):
+    """K3's plain version in the kernel's order
+    (`flash_mha_online_tiled_reference`) against `_fwd_online_kernel` in
+    interpret mode at block_k = 64, K3's tile (s=200: three full tiles and a
+    ragged one), on the same pre-rotated q and k with identity tables. fp32:
+    out at rtol 1e-4 / atol 1e-5, lse at 1e-5. bf16: both round the
+    unnormalised P at the running max, out within 1e-3 relative L2 of JAX's
+    (read: 9.1e-5 and 3.3e-5, the CPU's exp and sums);
+    `flash_mha_online_reference` rounds the normalised P and reads 2.9e-3
+    and 2.7e-3, past the bar."""
+    inputs, tables, mask, kw = _case(case, seed=len(case) + 21)
+    b, _, s, _ = inputs[0].shape
+    tdt = getattr(torch, dtype)
+    cos, sin = identity_tables(s, D, "cpu")
+    q, k, v = (torch.as_tensor(a * 4.0).to(tdt) for a in inputs[:3])
+    if tables is not None:
+        tabs = [torch.as_tensor(t) for t in tables]
+        q, k = _rotate(q, *tabs[:2]), _rotate(k, *tabs[2:])
+    tmask = None if mask is None else torch.as_tensor(mask)
+    got, got_lse = flash_mha_online_tiled_reference(
+        q, k, v, tmask, cos, sin, cos, sin, **kw)
+    untiled, _ = flash_mha_online_reference(q, k, v, tmask, cos, sin, cos,
+                                            sin, **kw)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    j = [jnp.asarray(t.float().numpy()).astype(jdt).reshape(b, s, D)
+         for t in (q, k, v)]
+    eye = [jnp.asarray(t.numpy()) for t in (cos, sin)] * 2
+    out, lse = jax.jit(lambda *a: jkernel._flash_fwd_online(
+        *a, None if mask is None else jnp.asarray(mask), *eye,
+        num_heads=1, block_q=40, block_k=64, interpret=True, **kw))(*j)
+    want = np.asarray(out.astype(jnp.float32)).reshape(b, 1, s, D)
+    got, untiled = (t.float().numpy() for t in (got, untiled))
+    np.testing.assert_allclose(got_lse.numpy(),
+                               np.asarray(lse).reshape(b, 1, s), rtol=0,
+                               atol=1e-5)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert _rel_l2(got, want) <= 1e-3
+        assert _rel_l2(untiled, want) > 2e-3
 
 
 def test_online_without_grad_is_the_bare_forward():

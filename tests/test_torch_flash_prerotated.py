@@ -1,10 +1,11 @@
-"""The premise of K3's and K2's redesign, on the CPU: the rotation factors
-out of the JAX package's kernels.
+"""The premise of the port's flash kernels, on the CPU: the rotation
+factors out of the JAX package's kernels.
 
 The port rotates q and k once per call (R1, whose plain version is
-`_rotate`) and hands Qr and Kr to K3 (streaming forward) and K2 (resident
-backward), which rotate nothing; the rotation's adjoint stays in K2's
-epilogue. Here the JAX package's `_flash_fwd_online` and `_flash_bwd`
+`_rotate`) and hands Qr and Kr to K1 (resident forward), K3 (streaming
+forward) and K2 (resident backward, on K1's Qr and Kr), which rotate
+nothing; the rotation's adjoint stays in K2's epilogue. Here the JAX
+package's `_flash_fwd`, `_flash_fwd_online` and `_flash_bwd`
 (meant_tpu/ops/flash/kernel.py, interpret mode, jitted) run once with the
 rotation tables and once on pre-rotated inputs with identity tables
 (cos = 1, sin = 0, an exact no-op), the backward's dq and dk then taken
@@ -15,7 +16,8 @@ x*cos + H(x)*sin into one multiply-add in fp32 (tests/
 test_torch_flash_rotate.py), so the bits the kernels feed their products
 are those of that fused form. Pre-rotated by the same in-kernel
 arithmetic (`_jax_rotate`, a Pallas kernel in interpret mode), the
-factored form gives out, lse and dv bit for bit in fp32 and bf16. Against
+factored form gives out (both forwards), lse and dv bit for bit in fp32
+and bf16. Against
 `_rotate`, which rounds each product as R1 and the TPU kernels do, fp32
 moves by the fused form's rounding only (rtol 1e-5 / atol 1e-5 on out, 1e-5
 on lse; read: 4.4e-6 and 1.9e-6 at s=200). bf16 is not compared with
@@ -103,6 +105,45 @@ def _forward(q, k, v, tables, mask, causal):
         block_k=BLOCK_K, interpret=True))
     out, lse = fn(q, k, v, *map(jnp.asarray, tables))
     return np.asarray(out.astype(jnp.float32)), np.asarray(lse)
+
+
+def _resident_forward(q, k, v, tables, mask, causal):
+    """JAX's resident forward (`_fwd_kernel`): out as fp32 numpy."""
+    fn = jax.jit(lambda *a: jkernel._flash_fwd(
+        *a[:3], None if mask is None else jnp.asarray(mask), *a[3:],
+        scale=SCALE, causal=causal, num_heads=H, block_q=BLOCK_Q,
+        interpret=True))
+    return np.asarray(fn(q, k, v, *map(jnp.asarray, tables))
+                      .astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", CASES)
+def test_resident_forward_on_prerotated_inputs_is_bitwise(case, dtype):
+    """K1's premise (R1, then a resident forward that rotates nothing):
+    `_fwd_kernel` with the tables, and the same kernel on q and k
+    pre-rotated by its own rotation with identity tables, give out bit for
+    bit (a fully masked batch row included)."""
+    jdt = DTYPES[dtype]
+    (q, k, v, _), tables, mask, causal = _case(case, seed=len(case) + 3)
+    q, k, v = (jnp.asarray(a).astype(jdt) for a in (q, k, v))
+    want = _resident_forward(q, k, v, tables, mask, causal)
+    qr, kr = _jax_rotate(q, *tables[:2]), _jax_rotate(k, *tables[2:])
+    got = _resident_forward(qr, kr, v, _identity() * 2, mask, causal)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_resident_forward_on_rotate_matches_in_fp32(case):
+    """The same with q and k pre-rotated by `_rotate` (R1's bits) in fp32:
+    the fused form's rounding only, rtol 1e-5 / atol 1e-5."""
+    (q, k, v, _), tables, mask, causal = _case(case, seed=len(case) + 3)
+    q, k, v = (jnp.asarray(a) for a in (q, k, v))
+    want = _resident_forward(q, k, v, tables, mask, causal)
+    qr = _port_rotate(q, *tables[:2], jnp.float32)
+    kr = _port_rotate(k, *tables[2:], jnp.float32)
+    got = _resident_forward(qr, kr, v, _identity() * 2, mask, causal)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
