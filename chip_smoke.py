@@ -19,7 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               lse; bf16 out also against the plain version in K3's tiled
               order), R1 (bit for bit) and the streaming dQ (K4) and
               dK/dV (K5) backward at s=4096, BH=16, in fp32 and bf16, and
-              the fused AdamW (A1) over all 177,607,733 parameters.
+              the fused AdamW (A1) over all 177,607,733 parameters; R1 +
+              K1 and R1 + K2 also at the paper generation's s=128.
 3. slice   -- flagship meant_src (768 wide, 8 heads of 96, 12+12 encoders,
               s=512 text, 196-patch charts, bf16, seeded random weights)
               serves 40 rows through Predictor(batch_size=16): three
@@ -50,15 +51,38 @@ Phases, in order; any failure raises and the script exits non-zero:
               12 K1, 36 R1 (before K3, K1 and K4 + K5), 12 K4, 12 K5, 12
               K2 and 1 A1 per step and a finite, falling loss;
               step time, samples/s, peak memory and a profiled step.
-6. timing  -- median request time, and each kernel's time per launch
+6. paper   -- the paper generation's `meant` (bench.py's paper128: the same
+              width, s=128 tokens a day, 4-channel charts), built by the
+              CLI's build_model with --flash true: Predictor serves 40
+              rows with exactly 24 R1 + 24 K1 per forward (12 at s=128
+              causal xPos, 12 at s=196) and no K2-K5, towers and
+              probabilities against the plain attention, the request's
+              median time and a profiled forward; one step's gradients
+              against the plain attention (8 rows, dropout off); 20
+              meant_trainer steps on one replayed 16-row batch at the
+              default ff_dropout=0.5 with exactly 24 K1, 24 R1, 24 K2 and
+              1 A1 per step and a finite, falling loss, a profiled step,
+              and the same step at flash=False (timed and profiled
+              only); then
+              cli.in_loop_train --data_dir trains one epoch of an 80-row
+              TempStock-small set of .npy files written here, evaluates
+              and saves, cli.eval on the checkpoint gives the trainer's
+              test confusion matrix, and Predictor(checkpoint_path=...)
+              serves the test rows with the trained probabilities; A1
+              against its plain version at meant's parameter count.
+7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
               calls): rotation + scaled_dot_product_attention (R1 + K1,
-              K1 alone beside it; R1 + K3, causal at s=4096) and its
-              backward (R1 + K2; R1, K4 and K5 together),
-              torch.optim.AdamW(fused=True) (A1); R1 has rows of its own
-              at each shape.
-7. profile -- torch.profiler over 3 forwards of one 16-row request: device
+              K1 alone beside it, at s=512, 196 and 128; R1 + K3, causal
+              at s=4096) and its backward (R1 + K2; R1, K4 and K5
+              together), torch.optim.AdamW(fused=True) (A1, at the
+              flagship's and at meant's parameter count); R1 has rows of
+              its own at each shape. Beside the event time of the
+              resident rows, their device time with the host out of the
+              way (at s=128 a call launches less work than the host takes
+              to issue it).
+8. profile -- torch.profiler over 3 forwards of one 16-row request: device
               time per forward by kind, the device's idle share, and the
               top kernels.
 
@@ -129,6 +153,15 @@ LONG_GRAD_ENCODERS = 2     # plain attention at 12 would save ~100 GB
 LONG_STEPS = 10
 LONG_CHECK_BH = 16         # the kernel checks against the plain versions
 LONG_TIME_BH = LONG_BATCH * LAG * HEADS   # 80, the main path's launches
+# paper128 (bench.py:163-179, build_paper128): meant at the same width, s=128
+# tokens a day (TempStock-small), 4-channel charts, built by the CLI's
+# build_model with --flash true (--flash auto turns the kernels off below
+# 256 tokens, as bench.py's paper128 runs).
+PAPER_SEQ = 128
+PAPER_ARGV = ["-rid", "smoke", "-mn", "meant", "--flash", "true",
+              "--seq_len", str(PAPER_SEQ), "-nec", str(ENCODERS)]
+PAPER_DATA_ROWS = 80       # 48 / 16 / 16 rows after the 60/20/20 split
+PAPER_PLAIN_STEPS = 5      # the flash=False step, timed only
 
 
 def fail(msg: str):
@@ -166,12 +199,16 @@ def count_hgmma(name: str, function: str = "") -> int:
 
 
 def event_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms over `iters` back-to-back calls."""
+    """Mean device time of fn() in ms over `iters` back-to-back calls. A
+    sleep kernel (some 25 ms) holds the stream while the host enqueues the
+    calls, so where a call launches less work than the host takes to issue
+    it the events still bracket the device, not the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -254,17 +291,25 @@ def rel_l2(out, ref) -> float:
     return ((out.float() - ref).norm() / ref.norm()).item()
 
 
+# The resident cases of phase 2: (name, attention_case kind, s), the
+# flagship's s=512 text (also masked) and s=196 charts, and the paper
+# generation's s=128 text (RESIDENT_CASES[-1]).
+RESIDENT_CASES = (("text", "text", SEQ), ("vision", "vision", N_PATCHES),
+                  ("text_masked", "text_masked", SEQ),
+                  ("text_s128", "text", PAPER_SEQ))
+
+
 def check_kernel(record):
     """R1 + K1 (flash_mha's resident forward) against flash_mha_reference
-    at both main-path shapes and the masked text case, fp32 and bf16."""
+    at the main paths' shapes and the masked text case, fp32 and bf16."""
     from meant_tpu_torch.ops.flash.kernel import K1_BF16_REL_L2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors, rels = {}, {}
-    for kind in ("text", "vision", "text_masked"):
+    for case, kind, s in RESIDENT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            c = attention_case(kind, dtype, gen)
+            c = attention_case(kind, dtype, gen, s=s)
             out = run_kernel(c)
             torch.cuda.synchronize()
             ref = run_plain(c)
@@ -280,7 +325,7 @@ def check_kernel(record):
                 ok = (torch.allclose(out.float(), ref.float(), rtol=BF16_TOL,
                                      atol=BF16_TOL) and rel <= K1_BF16_REL_L2)
                 bar = f"rtol/atol {BF16_TOL}, rel L2 {K1_BF16_REL_L2}"
-            name = f"{kind}/{str(dtype).split('.')[-1]}"
+            name = f"{case}/{str(dtype).split('.')[-1]}"
             print(f"R1 + K1 vs plain {name}: max_abs_err {err:.3e} rel_l2 "
                   f"{rel:.3e} ({bar}) {'ok' if ok else 'FAIL'}", flush=True)
             if not ok or not torch.isfinite(out).all():
@@ -326,20 +371,20 @@ def run_bwd_plain(c):
 
 
 def check_backward(record):
-    """K2 against flash_mha_bwd_reference at both main-path shapes (and the
+    """K2 against flash_mha_bwd_reference at the main paths' shapes (and the
     masked text case), fp32 and bf16, gradient by gradient."""
     from meant_tpu_torch.ops.flash.kernel import (BWD_BF16_ATOL,
                                                   BWD_BF16_REL_L2)
     gen = torch.Generator(device="cuda").manual_seed(2)
     errors, rels = {}, {}
-    for kind in ("text", "vision", "text_masked"):
+    for case, kind, s in RESIDENT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            c = backward_case(kind, dtype, gen)
+            c = backward_case(kind, dtype, gen, s=s)
             got = run_bwd_kernel(c)
             torch.cuda.synchronize()
             want = run_bwd_plain(c)
             torch.cuda.synchronize()
-            name = f"{kind}/{str(dtype).split('.')[-1]}"
+            name = f"{case}/{str(dtype).split('.')[-1]}"
             rot_err = max((a.float() - b.float()).abs().max().item()
                           for a, b in zip((c["qr"], c["kr"]),
                                           rotate_plain(c)))
@@ -759,13 +804,14 @@ def _group(name: str) -> str:
     return "temporal_and_head"
 
 
-def step_gradients(model, batch):
+def step_gradients(model, batch, model_name):
     """Loss and parameter gradients (flat fp32, by group) of one step with
     dropout off."""
-    from meant_tpu_torch.train.classify import sigmoid_ce_loss
+    from meant_tpu_torch.train.classify import model_inputs, sigmoid_ce_loss
     model.eval()
     model.zero_grad(set_to_none=True)
-    out = model(**{k: v for k, v in batch.items() if k != "y"})
+    args, kwargs = model_inputs(model_name, batch)
+    out = model(*args, **kwargs)
     loss = sigmoid_ce_loss(out, batch["y"])
     loss.backward()
     torch.cuda.synchronize()
@@ -819,16 +865,17 @@ def shape_key(s: int, causal: bool) -> str:
     return f"s{s} causal={bool(causal)}"
 
 
-def compare_step_gradients(model, batch, want, make_plain, label):
+def compare_step_gradients(model, batch, want, make_plain, label,
+                           model_name="meant_src"):
     """One step's gradients through the kernels (exactly `want` launches)
     vs the plain attention (`make_plain()`, given the same weights), on the
     same batch. Returns the record."""
     reset_counts()
-    loss_k, grads_k = step_gradients(model, batch)
+    loss_k, grads_k = step_gradients(model, batch, model_name)
     check_counts(read_counts(), want, label)
     plain = make_plain()
     plain.load_state_dict(model.state_dict())
-    loss_p, grads_p = step_gradients(plain, batch)
+    loss_p, grads_p = step_gradients(plain, batch, model_name)
     del plain
     torch.cuda.empty_cache()
     res = {"loss_kernels": loss_k, "loss_plain": loss_p}
@@ -846,16 +893,18 @@ def compare_step_gradients(model, batch, want, make_plain, label):
     return res
 
 
-def train_steps(model, host, steps, per_step, label):
+def train_steps(model, host, steps, per_step, label, model_name="meant_src",
+                falling=True):
     """`steps` steps of meant_trainer on one replayed batch (numpy `host`)
     at LEARN_LR constant: a training main path, counts set to 0 just before
-    and read just after, exactly `per_step` launches per step and a finite,
-    falling loss. Returns the record, the trainer and the device batch."""
+    and read just after, exactly `per_step` launches per step and a finite
+    loss, falling unless `falling` is False (a step timed only). Returns
+    the record, the trainer and the device batch."""
     from meant_tpu_torch.data.loader import ArrayLoader
     from meant_tpu_torch.train.classify import meant_trainer
     rows = len(host["y"])
     trainer = meant_trainer({
-        "model": model, "model_name": "meant_src",
+        "model": model, "model_name": model_name,
         "train_loader": ArrayLoader(host, rows), "lrst": "constant",
         "lr": LEARN_LR, "seed": 0, "test_model": False})
     trainer._init_state()
@@ -880,7 +929,8 @@ def train_steps(model, host, steps, per_step, label):
           f"{LEARN_LR}: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"launches {counts} (want {want})", flush=True)
     check_counts(counts, want, f"{label}'s training steps")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+    if not all(np.isfinite(losses)) or (falling
+                                        and not losses[-1] < losses[0]):
         fail(f"{label}: loss not finite and falling: {losses}")
     steady = times[1:]
     median = statistics.median(steady)
@@ -1045,7 +1095,210 @@ def run_long(record):
     return train["launches"]
 
 
-# ---- phase 6: timing ---------------------------------------------------
+# ---- phase 6: the paper generation (meant, bench.py's paper128) ---------
+
+def paper_args(*extra):
+    from meant_tpu_torch.cli.common import base_parser
+    return base_parser().parse_args(PAPER_ARGV + list(extra))
+
+
+def build_paper(flash: bool = True):
+    """meant through the CLI's build_model at paper128's width, seed 0."""
+    from meant_tpu_torch.cli.common import build_model
+    return build_model(paper_args("--flash", str(flash).lower()))
+
+
+def paper_batch(n: int, seed: int, labels: bool = False):
+    """Rows as bench.py's paper128 draws them: tweets, 4-channel charts and
+    an all-ones mask (the flash path drops the mask, so with padding the
+    flash and plain models would compute different functions)."""
+    rng = np.random.RandomState(seed)
+    batch = {
+        "tweets": rng.randint(2, 64000, size=(n, LAG, PAPER_SEQ)).astype(
+            np.int32),
+        "graphs": rng.randn(n, LAG, 4, IMAGE, IMAGE).astype(np.float32),
+        "attention_masks": np.ones((n, LAG, PAPER_SEQ), np.float32)}
+    if labels:
+        batch["y"] = rng.randint(0, 2, size=(n,)).astype(np.int32)
+    return batch
+
+
+def serve_paper(res):
+    """Predictor serves REQUEST_ROWS meant rows in requests of BATCH: exactly
+    24 R1 + 24 K1 per forward (12 at s=128 causal xPos, 12 at s=196), no
+    K2-K5; towers and probabilities against the plain attention; the
+    request's median time and a profiled forward. Returns K1's launches by
+    shape."""
+    from meant_tpu_torch.serve import Predictor
+    model = build_paper()
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    predictor = Predictor(model, "meant", batch_size=BATCH)
+    batch = paper_batch(REQUEST_ROWS, seed=10)
+    chunk = {k: v[:BATCH] for k, v in batch.items()}
+    predictor(chunk)    # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    probs = predictor(batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_requests = -(-REQUEST_ROWS // BATCH)
+    want = n_requests * 2 * ENCODERS
+    print(f"served meant: {REQUEST_ROWS} rows in {n_requests} requests: "
+          f"probs {probs.shape}, launches {counts}; {res['n_params']} "
+          f"parameters", flush=True)
+    check_counts(counts, {"K1": want, "R1": want}, "serving meant")
+    by_shape = {shape_key(PAPER_SEQ, True): n_requests * ENCODERS,
+                shape_key(N_PATCHES, False): n_requests * ENCODERS}
+    if counts["K1_by_shape"] != by_shape:
+        fail(f"meant's K1 launches by shape {counts['K1_by_shape']}, want "
+             f"{by_shape}")
+    if (probs.shape != (REQUEST_ROWS, 2) or not np.isfinite(probs).all()
+            or not ((probs > 0) & (probs < 1)).all()):
+        fail(f"bad meant probabilities {probs}")
+    plain = build_paper(flash=False)
+    plain.load_state_dict(model.state_dict())
+    compare_slice("paper", towers_and_probs(model, predictor, chunk),
+                  towers_and_probs(plain, Predictor(plain, "meant",
+                                                    batch_size=BATCH),
+                                   chunk), res)
+    del plain
+    torch.cuda.empty_cache()
+    res["launches"] = counts
+    time_requests(predictor, chunk, res, label="meant")
+    res["profile"] = profile_calls(lambda: predictor.forward(chunk),
+                                   PROFILE_FORWARDS, "forward")
+    del model, predictor
+    torch.cuda.empty_cache()
+    return counts["K1_by_shape"]
+
+
+def learn_paper(res):
+    """One step's gradients against the plain attention (GRAD_ROWS rows,
+    dropout off), LEARN_STEPS meant_trainer steps at batch 16 with the
+    default ff_dropout=0.5 (exactly 24 K1, 24 R1, 24 K2 and 1 A1 a step,
+    finite falling loss), a profiled step, and the same step at
+    flash=False, timed and profiled only. Returns the steps' counts."""
+    model = build_paper()
+    res["step_gradients"] = compare_step_gradients(
+        model, to_card(paper_batch(GRAD_ROWS, seed=11, labels=True)),
+        {"K1": 24, "R1": 24, "K2": 24}, lambda: build_paper(flash=False),
+        "meant step", model_name="meant")
+    host = paper_batch(BATCH, seed=12, labels=True)
+    train, trainer, batch = train_steps(
+        model, host, LEARN_STEPS, {"K1": 24, "R1": 24, "K2": 24, "A1": 1},
+        "learn meant", model_name="meant")
+    res["train"] = train
+    res["train_profile"] = profile_calls(
+        lambda: trainer.train_step(batch), PROFILE_STEPS, "step")
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    plain, trainer, batch = train_steps(
+        build_paper(flash=False), host, PAPER_PLAIN_STEPS, {"A1": 1},
+        "meant at flash=False (timed only)", model_name="meant",
+        falling=False)
+    plain["profile"] = profile_calls(lambda: trainer.train_step(batch), 1,
+                                     "step")
+    res["plain_train"] = plain
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return train["launches"]
+
+
+def write_tempstock(path: str, n: int, seed: int):
+    """A TempStock-small set at full shape in its layout: graphs_5.npy (n,
+    5, 4, 224, 224) fp32, tweets_5.npy (n, 5, 128) int64 with trailing pad
+    id 1 where attention_masks_5.npy is 0, macds_5.npy (n, 5, 4) and
+    y_resampled_5.npy (n,)."""
+    import os
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, PAPER_SEQ + 1, size=(n, LAG))
+    masks = (np.arange(PAPER_SEQ) < lengths[..., None]).astype(np.float32)
+    tweets = np.where(masks > 0, rng.integers(2, 64000, (n, LAG, PAPER_SEQ)),
+                      1)
+    arrays = {
+        "graphs": rng.standard_normal((n, LAG, 4, IMAGE, IMAGE),
+                                      dtype=np.float32),
+        "tweets": tweets.astype(np.int64), "attention_masks": masks,
+        "macds": rng.standard_normal((n, LAG, 4), dtype=np.float32),
+        "y_resampled": rng.integers(0, 2, size=(n,))}
+    for name, a in arrays.items():
+        np.save(os.path.join(path, f"{name}_{LAG}.npy"), a)
+
+
+def paper_through_cli(res):
+    """cli.in_loop_train -mn meant --flash true --data_dir trains one epoch
+    of a TempStock-small set written here, evaluates and saves; cli.eval on
+    its checkpoint must give the trainer's test confusion matrix, and
+    Predictor(checkpoint_path=...) must serve the test rows with the trained
+    model's probabilities."""
+    import os
+    from meant_tpu_torch.cli import eval as eval_cli
+    from meant_tpu_torch.cli import in_loop_train
+    from meant_tpu_torch.cli.common import build_model
+    from meant_tpu_torch.data.datasets import (load_tempstock_small,
+                                               split_arrays)
+    from meant_tpu_torch.serve import Predictor
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        os.makedirs(data)
+        write_tempstock(data, PAPER_DATA_ROWS, seed=13)
+        argv = PAPER_ARGV + ["--data_dir", data, "-ne", "1", "-tb",
+                             str(BATCH), "-fp", d, "-lrst", "constant", "-l",
+                             str(LEARN_LR)]
+        reset_counts()
+        results = in_loop_train.main(argv)
+        counts = read_counts()
+        trainer = results["trainer"]
+        steps = trainer.optimizer.step_count
+        forwards = steps + len(trainer.val_loader) + len(trainer.test_loader)
+        check_counts(counts, {"K1": 24 * forwards, "R1": 24 * forwards,
+                              "K2": 24 * steps, "A1": steps},
+                     f"the CLI's {steps} meant steps and "
+                     f"{forwards - steps} evaluation forwards")
+        if results["checkpoint"] is None:
+            fail("the CLI saved no meant checkpoint")
+        metrics = eval_cli.main(argv + ["-ptm", results["checkpoint"]])
+        if metrics["confusion"] != results["test"]["confusion"]:
+            fail(f"cli.eval's confusion matrix {metrics['confusion']} is not "
+                 f"the trainer's {results['test']['confusion']}")
+        _, _, test = split_arrays(load_tempstock_small(data))
+        rows = {k: test[k] for k in ("tweets", "graphs", "attention_masks")}
+        trained = Predictor(trainer.model, "meant", batch_size=BATCH)(rows)
+        del trainer, results["trainer"]
+        served = Predictor(build_model(paper_args(*argv[len(PAPER_ARGV):])),
+                           "meant", checkpoint_path=results["checkpoint"],
+                           batch_size=BATCH)(rows)
+    same = bool(np.array_equal(trained, served))
+    print(f"cli.in_loop_train -mn meant --data_dir ({PAPER_DATA_ROWS} rows): "
+          f"{steps} steps, launches {counts}, test confusion "
+          f"{results['test']['confusion']} (cli.eval: the same); Predictor "
+          f"from its checkpoint on {len(trained)} test rows: probabilities "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail("Predictor(checkpoint_path=...) does not serve the trained "
+             f"meant's probabilities (max diff "
+             f"{np.abs(trained - served).max()})")
+    res["cli_train"] = {"steps": steps, "launches": counts,
+                        "history": results["history"],
+                        "test": results["test"], "eval": metrics}
+    torch.cuda.empty_cache()
+
+
+def run_paper(record):
+    """The paper-generation main paths: serve, train, the CLI on
+    TempStock-small files, and A1 at meant's parameter count. Returns the
+    counts the timing rows report."""
+    res = {}
+    record["paper"] = res
+    serve_by_shape = serve_paper(res)
+    train_counts = learn_paper(res)
+    paper_through_cli(res)
+    a1_err = check_adamw(res, res["n_params"])
+    return {"serve_by_shape": serve_by_shape, "train": train_counts,
+            "a1_err": a1_err, "n_params": res["n_params"]}
+
+
+# ---- phase 7: timing ---------------------------------------------------
 
 def attention_cost(c, backward: bool = False) -> tuple:
     """(bytes, flops) the launch must move and compute. Forward: q, k, v
@@ -1086,28 +1339,36 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
 
 
 def time_kernels(record, errors, launches_by_shape, bwd_errors,
-                 train_counts, a1_err, n_params):
-    from meant_tpu_torch.ops.adamw import (adamw_reference, update_scalars,
-                                           adamw_update)
+                 train_counts, a1_err, n_params, paper):
+    """The resident rows (R1 + K1, K2, R1) at the flagship's two shapes and
+    at the paper generation's s=128, each with its own path's launches, then
+    A1 at the flagship's and at meant's parameter count."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    for kind, label in (("text", "s512 causal xPos"),
-                        ("vision", "s196 pixel rotary")):
-        c = backward_case(kind, torch.bfloat16, gen)
+    flagship = {shape_key(*k): n for k, n in launches_by_shape.items()}
+    for case, kind, label, fwd_by_shape, steps in (
+            ("text", "text", "s512 causal xPos", flagship, train_counts),
+            ("vision", "vision", "s196 pixel rotary", flagship,
+             train_counts),
+            ("text_s128", "text", "s128 causal xPos",
+             paper["serve_by_shape"], paper["train"])):
+        s = {name: s for name, _, s in RESIDENT_CASES}[case]
+        c = backward_case(kind, torch.bfloat16, gen, s=s)
         key = (c["s"], c["causal"])
         nbytes, flops = attention_cost(c)
         with_r1 = event_ms(lambda: run_kernel(c), iters=20)
         rotate_case(c)
         k1_ms = event_ms(lambda: run_k1(c), iters=20)
         library_ms = event_ms(lambda: run_library(c), iters=20)
-        print(f"resident forward at {label}: R1 + K1 {with_r1:.4f} ms (K1 "
-              f"alone {k1_ms:.4f} ms) against rotation + SDPA's "
+        print(f"resident forward at {label}: R1 + K1 {with_r1:.4f} ms "
+              f"(K1 alone {k1_ms:.4f} ms) against rotation + SDPA's "
               f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)",
               flush=True)
         rows.append(kernel_row(
             f"flash_fwd[{label}]", "meant_tpu_torch/csrc/flash_fwd.cu",
             "meant_tpu/ops/flash/kernel.py:89",
-            launches_by_shape.get(key, 0), errors[f"{kind}/bfloat16"],
+            fwd_by_shape.get(shape_key(*key), 0),
+            errors[f"{case}/bfloat16"],
             with_r1, event_ms(lambda: run_plain(c), iters=5), library_ms,
             nbytes, flops, PEAK_BF16_FLOPS, shape=list(c["q"].shape),
             dtype="bfloat16", k1_alone_ms=k1_ms,
@@ -1121,8 +1382,8 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
         rows.append(kernel_row(
             f"flash_bwd[{label}]", "meant_tpu_torch/csrc/flash_bwd.cu",
             "meant_tpu/ops/flash/kernel.py:321",
-            train_counts["K2_by_shape"].get(shape_key(*key), 0),
-            bwd_errors[f"{kind}/bfloat16"], k2_ms,
+            steps["K2_by_shape"].get(shape_key(*key), 0),
+            bwd_errors[f"{case}/bfloat16"], k2_ms,
             event_ms(lambda: run_bwd_plain(c), iters=3), library_ms, nbytes,
             flops, PEAK_BF16_FLOPS, shape=list(c["q"].shape),
             dtype="bfloat16", r1_plus_k2_ms=with_r1))
@@ -1131,19 +1392,33 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
               f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)",
               flush=True)
         nbytes, flops = rotation_cost(c)
+        r1_ms = event_ms(lambda: rotate_case(c), iters=20)
+        print(f"rotation pass at {label}: R1 {r1_ms:.4f} ms", flush=True)
         rows.append(kernel_row(
             f"rotate_qk[{label}]",
             "meant_tpu_torch/csrc/flash_bwd_online.cu",
             "meant_tpu/ops/flash/kernel.py:340",
-            train_counts["R1_by_shape"].get(f"s{c['s']}", 0),
-            bwd_errors[f"{kind}/bfloat16/rot"],
-            event_ms(lambda: rotate_case(c), iters=20),
+            steps["R1_by_shape"].get(f"s{c['s']}", 0),
+            bwd_errors[f"{case}/bfloat16/rot"], r1_ms,
             event_ms(lambda: rotate_plain(c), iters=5), None, nbytes, flops,
             PEAK_FP32_FLOPS, shape=list(c["q"].shape), dtype="bfloat16",
             library_call=None))
         del c, library
         torch.cuda.empty_cache()
 
+    rows.append(adamw_row("adamw", n_params, train_counts["A1"], a1_err,
+                          gen))
+    rows.append(adamw_row("adamw[meant]", paper["n_params"],
+                          paper["train"]["A1"], paper["a1_err"], gen))
+    record["kernels"] = rows
+    return rows
+
+
+def adamw_row(name, n_params, launches, err, gen):
+    """A1 over n_params: its ms, its plain version's and
+    torch.optim.AdamW(fused=True)'s."""
+    from meant_tpu_torch.ops.adamw import (adamw_reference, update_scalars,
+                                           adamw_update)
     p, g, m, v = adamw_case(n_params, gen)
     norm = torch.linalg.vector_norm(g)
     h = update_scalars(coupled=False, **{k: v_ for k, v_ in
@@ -1159,15 +1434,14 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
                                 weight_decay=ADAMW_ARGS["weight_decay"],
                                 fused=True)
     library_ms = event_ms(library.step, iters=20)
-    rows.append(kernel_row(
-        "adamw", "meant_tpu_torch/csrc/adamw.cu",
-        "scripts/probe_fused_adamw.py:59", train_counts["A1"], a1_err, ms,
-        plain_ms, library_ms, 28 * n_params, 20 * n_params, PEAK_FP32_FLOPS,
-        params=n_params, dtype="float32"))
+    row = kernel_row(
+        name, "meant_tpu_torch/csrc/adamw.cu",
+        "scripts/probe_fused_adamw.py:59", launches, err, ms, plain_ms,
+        library_ms, 28 * n_params, 20 * n_params, PEAK_FP32_FLOPS,
+        params=n_params, dtype="float32")
     del p, g, m, v, param, library
     torch.cuda.empty_cache()
-    record["kernels"] = rows
-    return rows
+    return row
 
 
 def long_cost(c, kernel: str) -> tuple:
@@ -1283,7 +1557,8 @@ def time_long_kernels(long_errors, long_counts):
     return rows
 
 
-def time_requests(predictor, chunk, record, iters: int = 7):
+def time_requests(predictor, chunk, record, iters: int = 7,
+                  label: str = "flagship"):
     predictor(chunk)
     times = []
     for _ in range(iters):
@@ -1294,13 +1569,13 @@ def time_requests(predictor, chunk, record, iters: int = 7):
     fwd_ms = event_ms(lambda: predictor.forward(chunk), iters=5)
     record.update(request_ms=times, request_ms_median=statistics.median(
         times), forward_device_ms=fwd_ms, rows_per_request=BATCH)
-    print(f"request (16 rows, host clock incl. copies) median "
+    print(f"{label} request (16 rows, host clock incl. copies) median "
           f"{statistics.median(times):.3f} ms over {iters}: "
           f"{[round(t, 3) for t in times]}; forward alone (device events) "
           f"{fwd_ms:.3f} ms", flush=True)
 
 
-# ---- phase 7: where a request's device time goes -----------------------
+# ---- phase 8: where a request's device time goes -----------------------
 
 def _kind(name: str) -> str:
     low = name.lower()
@@ -1406,9 +1681,11 @@ def main(argv=None) -> int:
     a1_err = check_adamw(record, record["n_params"])
     train_counts = run_training(record)
     long_counts = run_long(record)
+    paper = run_paper(record)
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
-                        a1_err, record["n_params"])
-    rows[-1:-1] = time_long_kernels(long_errors, long_counts)  # before A1
+                        a1_err, record["n_params"], paper)
+    at = [r["name"] for r in rows].index("adamw")
+    rows[at:at] = time_long_kernels(long_errors, long_counts)  # before A1
     time_requests(predictor, chunk, record)
     record["profile"] = profile_calls(lambda: predictor.forward(chunk),
                                       PROFILE_FORWARDS, "forward")

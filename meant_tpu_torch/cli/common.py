@@ -1,7 +1,8 @@
 """Shared CLI plumbing (counterpart of meant_tpu/cli/common.py): the
 reference's flags under the JAX package's names, the refusal of flags not
-ported yet, the synthetic kwargs-family set, and `build_model` for the
-ported models (`meant_src` only so far)."""
+ported yet, the CLI's data (`--data_dir` TempStock-small, else a synthetic
+set of the model's family), and `build_model` for the ported models
+(`meant` and its siblings, `meant_src`)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,11 @@ import argparse
 import numpy as np
 import torch
 
+from meant_tpu_torch import models
+from meant_tpu_torch.data.datasets import (load_tempstock_small,
+                                           synthetic_tempstock)
 from meant_tpu_torch.device import resolve_device
+from meant_tpu_torch.train.classify import KWARGS_MODELS, POSITIONAL_MODELS
 
 
 def str2bool(v):
@@ -80,8 +85,8 @@ def base_parser() -> argparse.ArgumentParser:
                    const=False, default=False)
     p.add_argument("-ds", "--dataset", type=str, default="Tempstock")
     p.add_argument("--data_dir", type=str, default=None,
-                   help="not ported yet: raises if given (synthetic data "
-                        "when omitted)")
+                   help="directory with the TempStock-small .npy arrays; "
+                        "synthetic data when omitted")
     p.add_argument("--bf16", type=str2bool, nargs="?", const=True,
                    default=True, help="bf16 activations (fp32 params)")
     p.add_argument("--flash", type=str, nargs="?", const="auto",
@@ -120,8 +125,8 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-UNPORTED_FLAGS = ("pretrained", "data_dir", "buckets", "hf_cache", "fsdp",
-                  "mu_bf16", "scan_layers", "remat")
+UNPORTED_FLAGS = ("pretrained", "buckets", "hf_cache", "fsdp", "mu_bf16",
+                  "scan_layers", "remat")
 
 
 def refuse_unported(args) -> None:
@@ -134,33 +139,76 @@ def refuse_unported(args) -> None:
                 f"ROADMAP)")
 
 
+# the paper generation's --model_name values; train.classify.model_inputs
+# refuses meant_vqa, whose harness is not ported yet
+PAPER_MODELS = POSITIONAL_MODELS + ("meant_vqa",)
+
+
 def synthetic_batch(args, n: int, seed: int = 0) -> dict:
-    """A synthetic set of the kwargs family (input_ids / pixels / prices /
-    attention_mask), as the JAX serving CLI shapes one
-    (meant_tpu/cli/serve.py:66-73), with random binary labels `y`."""
-    from meant_tpu_torch.train.classify import KWARGS_MODELS
-    if args.model_name not in KWARGS_MODELS:
+    """A synthetic batch of the model's family, as the JAX serving CLI
+    shapes one (meant_tpu/cli/serve.py:66-84), with random labels `y`:
+    input_ids / pixels / prices / attention_mask for the kwargs family,
+    tweets / graphs (4 channels) / attention_masks (and prices of width 4
+    for meantPrice) for the paper generation."""
+    name = args.model_name
+    if name not in KWARGS_MODELS + PAPER_MODELS:
         raise NotImplementedError(
-            f"model {args.model_name} is not yet ported (see ROADMAP)")
+            f"model {name} is not yet ported (see ROADMAP)")
     rng = np.random.RandomState(seed)
     lag, s, size = args.lag, args.seq_len, args.image_size
-    return {
-        "input_ids": rng.randint(2, args.vocab_size - 1,
-                                 size=(n, lag, s)).astype(np.int32),
-        "pixels": rng.randn(n, lag, 3, size, size).astype(np.float32),
-        "prices": rng.randn(n, lag, 5).astype(np.float32),
-        "attention_mask": np.ones((n, lag, s), np.float32),
-        "y": rng.randint(0, args.num_classes, size=(n,)).astype(np.int32),
-    }
+    ids = rng.randint(2, args.vocab_size - 1, size=(n, lag, s)).astype(
+        np.int32)
+    if name in KWARGS_MODELS:
+        batch = {"input_ids": ids,
+                 "pixels": rng.randn(n, lag, 3, size, size).astype(
+                     np.float32),
+                 "prices": rng.randn(n, lag, 5).astype(np.float32),
+                 "attention_mask": np.ones((n, lag, s), np.float32)}
+    else:
+        batch = {"tweets": ids,
+                 "graphs": rng.randn(n, lag, 4, size, size).astype(
+                     np.float32),
+                 "attention_masks": np.ones((n, lag, s), np.float32)}
+        if name == "meantPrice":
+            batch["prices"] = rng.randn(n, lag, 4).astype(np.float32)
+    batch["y"] = rng.randint(0, args.num_classes, size=(n,)).astype(np.int32)
+    return batch
+
+
+def dataset_arrays(args) -> dict:
+    """The CLI's data, as the JAX training CLI picks it
+    (meant_tpu/cli/in_loop_train.py:33-43): with --data_dir the
+    TempStock-small arrays, else `synthetic_tempstock` for the paper
+    generation and the synthetic kwargs-family set for meant_src.
+    TempStock-small holds no array meant_src reads, so `-mn meant_src
+    --data_dir` is refused (the JAX CLI fails later, in the forward)."""
+    if args.model_name in KWARGS_MODELS:
+        if args.data_dir:
+            raise ValueError(
+                f"--data_dir loads TempStock-small (tweets, graphs, "
+                f"attention_masks, macds, y), which {args.model_name} does "
+                f"not read (input_ids, pixels, prices, attention_mask)")
+        print("No --data_dir given: running on a synthetic kwargs-family "
+              "set (smoke mode).")
+        return synthetic_batch(args, args.synthetic_n)
+    if args.data_dir:
+        return load_tempstock_small(args.data_dir,
+                                    lag_suffix=f"_{args.lag}",
+                                    normalize=args.normalize)
+    print("No --data_dir given: running on synthetic TempStock-shaped data "
+          "(smoke mode).")
+    return synthetic_tempstock(n=args.synthetic_n, lag=args.lag,
+                               seq=args.seq_len, channels=4,
+                               size=args.image_size,
+                               vocab=args.vocab_size - 1)
 
 
 def build_model(args, device=None):
     """The ported models by the reference's --model_name values, built on
-    `device` (args.device, else the card)."""
-    from meant_tpu_torch.models import EmbeddingConfig, meant_src
-
+    `device` (args.device, else the card), with the JAX CLI's arguments
+    (meant_tpu/cli/common.py:231-252, 274-276)."""
     name = args.model_name
-    if name != "meant_src":
+    if name not in PAPER_MODELS + ("meant_src",):
         raise NotImplementedError(
             f"model {name} is not yet ported to meant_tpu_torch "
             f"(see ROADMAP)")
@@ -172,14 +220,33 @@ def build_model(args, device=None):
             args.flash = args.flash.lower() in ("yes", "true", "t", "y", "1")
     device = resolve_device(device if device is not None
                             else getattr(args, "device", None))
-    size = args.image_size
-    return meant_src(
-        args.text_dim, args.image_dim, 5, size, size, 16, args.lag,
-        args.num_classes,
-        embedding=EmbeddingConfig(vocab_size=args.vocab_size,
-                                  hidden_size=args.text_dim),
-        flash=args.flash, num_heads=args.num_heads,
-        num_encoders=args.num_encoders, channels=3, seq_len=512,
-        logits_head=bool(args.logits_head),
-        dtype=torch.bfloat16 if args.bf16 else None, device=device,
-        seed=args.seed)
+    td, imd, size, lag, nc = (args.text_dim, args.image_dim, args.image_size,
+                              args.lag, args.num_classes)
+    emb = models.EmbeddingConfig(vocab_size=args.vocab_size, hidden_size=td)
+    common = dict(num_heads=args.num_heads, num_encoders=args.num_encoders,
+                  dtype=torch.bfloat16 if args.bf16 else None, device=device,
+                  seed=args.seed)
+    logits_head = bool(args.logits_head)
+    if name == "meant":
+        return models.meant(td, imd, 4, size, size, 16, lag, nc,
+                            embedding=emb, flash=args.flash, channels=4,
+                            logits_head=logits_head, **common)
+    if name == "meant_src":
+        return models.meant_src(td, imd, 5, size, size, 16, lag, nc,
+                                embedding=emb, flash=args.flash, channels=3,
+                                seq_len=512, logits_head=logits_head,
+                                **common)
+    if name == "meant_vision":
+        return models.meant_vision(imd, 4, size, size, 16, lag, nc,
+                                   flash=args.flash, channels=4, **common)
+    if name == "meant_tweet":
+        return models.meant_tweet(td, 4, lag, nc, embedding=emb,
+                                  flash=args.flash, **common)
+    if name == "meant_tweet_no_lag":
+        return models.meant_tweet_no_lag(td, 4, size, size, 16, nc,
+                                         embedding=emb, **common)
+    if name == "meantPrice":
+        return models.meantPrice(td, imd, 4, size, size, 16, lag, nc,
+                                 embedding=emb, **common)
+    return models.meant_vqa(td, imd, 4, size, size, 16, 1, nc,
+                            embedding=emb, flash=args.flash, **common)

@@ -2,14 +2,14 @@
 load a checkpoint of the port's trainer, run the test split, print the F1
 metrics.
 
-    python -m meant_tpu_torch.cli.eval -rid <id> -mn meant_src \
+    python -m meant_tpu_torch.cli.eval -rid <id> [-mn meant] \
         -ptm <checkpoint path> [the data flags of in_loop_train]
 """
 
 from __future__ import annotations
 
 from meant_tpu_torch.cli.common import (base_parser, build_model,
-                                        refuse_unported, synthetic_batch)
+                                        dataset_arrays, refuse_unported)
 from meant_tpu_torch.data.datasets import split_arrays
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.train.classify import meant_trainer
@@ -19,7 +19,7 @@ def main(argv=None) -> dict:
     args = base_parser().parse_args(argv)
     refuse_unported(args)
     model = build_model(args)
-    _, _, test = split_arrays(synthetic_batch(args, args.synthetic_n))
+    _, _, test = split_arrays(dataset_arrays(args))
     loader = ArrayLoader(test, args.train_batch_size, drop_remainder=False)
     trainer = meant_trainer({
         "model": model, "model_name": args.model_name,

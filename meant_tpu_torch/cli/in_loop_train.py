@@ -1,16 +1,20 @@
 """Classifier training harness (counterpart of
 meant_tpu/cli/in_loop_train.py), with the same flag names.
 
-    python -m meant_tpu_torch.cli.in_loop_train -rid 0 -mn meant_src \
-        --seq_len 512 [-ne 10] [-tb 16] [--device cpu]
+    python -m meant_tpu_torch.cli.in_loop_train -rid 0 [-mn meant] \
+        [--data_dir DIR] [--flash true] [-ne 10] [-tb 16] [--device cpu]
 
-Data: without --data_dir, a synthetic set of the kwargs family that
-`meant_src` reads (input_ids / pixels / prices / attention_mask, random
-labels; `--synthetic_n` rows) split 60/20/20 as the reference splits. The
-dataset loaders, --buckets, --pretrained grafting, --hf_cache, --fsdp and
---mu_bf16 are not ported yet and raise. The run trains on the card unless
---device names another device, saves the checkpoint after training and
-evaluates the test split.
+Data (`cli.common.dataset_arrays`): with --data_dir, the TempStock-small
+`.npy` arrays of DIR (`graphs_5.npy`, `tweets_5.npy`,
+`attention_masks_5.npy`, `macds_5.npy`, `y_resampled_5.npy` at lag 5;
+`--normalize` shifts the graphs by their mean), which the paper
+generation reads. Without it, the paper generation gets a synthetic
+TempStock-shaped set and meant_src a synthetic kwargs-family set
+(`--synthetic_n` rows). Either is split 60/20/20 as the reference splits.
+--buckets, --pretrained grafting, --hf_cache, --fsdp and --mu_bf16 are not
+ported yet and raise. The run trains on the card unless --device names
+another device, saves the checkpoint after training and evaluates the test
+split.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from __future__ import annotations
 import time
 
 from meant_tpu_torch.cli.common import (base_parser, build_model,
-                                        refuse_unported, synthetic_batch)
+                                        dataset_arrays, refuse_unported)
 from meant_tpu_torch.data.datasets import split_arrays
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.train.classify import meant_trainer
@@ -34,9 +38,7 @@ def main(argv=None) -> dict:
             "Cannot be an image only AND a language only task")
     t0 = time.time()
     model = build_model(args)
-    print("No --data_dir given: running on a synthetic kwargs-family set "
-          "(smoke mode).")
-    train, val, test = split_arrays(synthetic_batch(args, args.synthetic_n))
+    train, val, test = split_arrays(dataset_arrays(args))
     bs = args.train_batch_size
     trainer = meant_trainer({
         "model": model, "model_name": args.model_name,

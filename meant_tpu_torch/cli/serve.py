@@ -1,14 +1,16 @@
 """Batch-inference CLI around meant_tpu_torch.serve.Predictor (counterpart
 of meant_tpu/cli/serve.py).
 
-    python -m meant_tpu_torch.cli.serve -rid 0 -mn meant_src \\
-        --seq_len 512 --serve_batch 16 [--input batch.npz] [--output p.npy]
+    python -m meant_tpu_torch.cli.serve -rid 0 [-mn meant] \\
+        [--seq_len 128] --serve_batch 16 [--input batch.npz] [--output p.npy]
 
-`--input` is an .npz whose arrays match the model's batch keys
-(input_ids / pixels / prices / attention_mask); without it a synthetic
-smoke batch is served. Weights are those of `--checkpoint` (written by the
-port's trainer, `cli/in_loop_train.py`), else a seeded random init
-(`--seed`); `--int8` and `--export` are not ported yet and raise.
+`--input` is an .npz whose arrays match the model's batch keys (tweets /
+graphs / attention_masks, and prices for meantPrice, for the paper
+generation; input_ids / pixels / prices / attention_mask for meant_src);
+without it a synthetic smoke batch of that shape is served. Weights are
+those of `--checkpoint` (written by the port's trainer,
+`cli/in_loop_train.py`), else a seeded random init (`--seed`); `--int8`
+and `--export` are not ported yet and raise.
 """
 
 from __future__ import annotations

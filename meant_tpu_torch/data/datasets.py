@@ -1,14 +1,58 @@
-"""Deterministic dataset splits (counterpart of the split functions of
-meant_tpu/data/datasets.py): the reference's two sklearn
-train_test_split(random_state=42) calls, reproduced with numpy so index
-membership and order are identical to sklearn's."""
+"""TempStock-small loading, the synthetic TempStock set and deterministic
+splits (counterpart of meant_tpu/data/datasets.py), numpy only.
+
+* `load_tempstock_small` reads the SMOTE-resampled `.npy` arrays
+  (graphs, tweets, attention_masks, macds, y_resampled, each with the lag
+  suffix), optionally shifting the graphs by their global mean.
+* `synthetic_tempstock` draws a TempStock-shaped set from a seed, with a
+  learnable token planted on the target day.
+* Splits are the reference's two sklearn train_test_split(random_state=42)
+  calls, reproduced with numpy so index membership and order are identical
+  to sklearn's.
+"""
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Tuple
 
 import numpy as np
+
+
+def load_tempstock_small(dir_path: str, lag_suffix: str = "_5",
+                         normalize: bool = False) -> Dict[str, np.ndarray]:
+    """`graphs{lag}.npy, tweets{lag}.npy, attention_masks{lag}.npy,
+    macds{lag}.npy, y_resampled{lag}.npy` of `dir_path`, keyed graphs,
+    tweets, attention_masks, macds, y."""
+    def load(name):
+        return np.load(os.path.join(dir_path, f"{name}{lag_suffix}.npy"))
+
+    graphs = load("graphs")
+    if normalize:
+        graphs = graphs - graphs.mean()
+    return {"graphs": graphs, "tweets": load("tweets"),
+            "attention_masks": load("attention_masks"),
+            "macds": load("macds"), "y": load("y_resampled")}
+
+
+def synthetic_tempstock(n: int = 64, lag: int = 5, seq: int = 128,
+                        channels: int = 4, size: int = 224,
+                        vocab: int = 64000, seed: int = 0,
+                        learnable: bool = True) -> Dict[str, np.ndarray]:
+    """A TempStock-shaped set from `seed`; with `learnable`, the target
+    day's first token is 3 for label 1 and 5 for label 0."""
+    rng = np.random.RandomState(seed)
+    tweets = rng.randint(4, vocab, size=(n, lag, seq)).astype(np.int32)
+    graphs = rng.randn(n, lag, channels, size, size).astype(np.float32)
+    macds = rng.randn(n, lag, 4).astype(np.float32)
+    y = rng.randint(0, 2, size=(n,)).astype(np.int32)
+    if learnable:
+        tweets[y == 1, -1, 0] = 3
+        tweets[y == 0, -1, 0] = 5
+    masks = np.ones((n, lag, seq), np.float32)
+    return {"graphs": graphs, "tweets": tweets, "attention_masks": masks,
+            "macds": macds, "y": y}
 
 
 def _sklearn_shuffle_split(n: int, test_size: float,

@@ -85,8 +85,9 @@ class meant_src(nn.Module):
         self.image_proj = SeqProjection(n_patches, fixed=fixed_proj,
                                         dtype=dtype, device=device)
         dim = text_dim + price_dim + image_dim
-        self.temporal_encoding_0 = TemporalEncoder(dim, num_heads,
-                                                   dtype=dtype, device=device)
+        self.temporal_encoding_0 = TemporalEncoder(dim, num_heads, lag,
+                                                   style="src", dtype=dtype,
+                                                   device=device)
         self.mlpHead = MlpHead(dim, num_classes, norm="layer",
                                logits=logits_head, dtype=dtype,
                                device=device)

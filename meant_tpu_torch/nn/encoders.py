@@ -22,7 +22,7 @@ from torch import nn
 from meant_tpu_torch.nn.attention_modules import (RotaryAttention,
                                                   TemporalAttention,
                                                   XPosAttention)
-from meant_tpu_torch.nn.layers import Linear, gelu, make_norm
+from meant_tpu_torch.nn.layers import Linear, SeededInit, gelu, make_norm
 
 
 class _Block(nn.Module):
@@ -85,22 +85,58 @@ class VisionEncoder(_Block):
         return self._feed_forward(inter + x)
 
 
-class TemporalEncoder(nn.Module):
-    """temporalEncoder around the antecedent-lag attention, in the 'src'
-    style (LayerNorms, xavier init, src temporal attention with a flat
-    (b, dim) output). The JAX package's paper / slim / src_slim /
-    tweet_price wirings are not ported yet (see ROADMAP)."""
+_TEMPORAL_STYLES = {
+    # style: (norm_kind, use_temp_embedding, attn_variant, init_style)
+    # paper: positional param + RMSNorm sandwich, paper temporal (b, 1, d).
+    "paper": ("rms", True, "paper", "torch"),
+    # slim (meant_tweet, meant_vision, meantPrice): paper without the norms.
+    "slim": (None, True, "paper", "torch"),
+    # src (meant_src): no positional param, LayerNorms, xavier init, src
+    # temporal (flat (b, d) output).
+    "src": ("layer", False, "src", "xavier"),
+    # meant_price: src without the LayerNorms.
+    "src_slim": (None, False, "src", "xavier"),
+    # meantTweetPrice: positional param + RMSNorm sandwich, src temporal.
+    "tweet_price": ("rms", True, "src", "torch"),
+}
 
-    def __init__(self, dim: int, num_heads: int,
+
+class TemporalEncoder(SeededInit, nn.Module):
+    """temporalEncoder around the antecedent-lag attention, wired per
+    generation by `_TEMPORAL_STYLES`:
+
+        x = x + temp_embedding              # styles with the embedding
+        x = proj_out(drop(norm2(temporal(proj_in(norm1(x))))))
+
+    `temp_embedding` (1, lag, dim) is drawn N(0, 1) from the model's
+    generator. A bf16 `x` plus this fp32 parameter is fp32, as in JAX."""
+
+    def __init__(self, dim: int, num_heads: int, lag: int,
+                 style: str = "paper", dropout: float = 0.0,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
-        kw = dict(init_style="xavier", dtype=dtype, device=device)
-        self.norm1 = make_norm("layer", dim, device)
+        norm_kind, use_embed, variant, init_style = _TEMPORAL_STYLES[style]
+        kw = dict(init_style=init_style, dtype=dtype, device=device)
+        self.temp_embedding = (nn.Parameter(torch.empty(
+            (1, lag, dim), device=device)) if use_embed else None)
+        self.norm1 = make_norm(norm_kind, dim, device) if norm_kind else None
         self.proj_in = Linear(dim, dim, **kw)
-        self.temporal = TemporalAttention(num_heads, dim, variant="src", **kw)
-        self.norm2 = make_norm("layer", dim, device)
+        self.temporal = TemporalAttention(num_heads, dim, variant=variant,
+                                          **kw)
+        self.norm2 = make_norm(norm_kind, dim, device) if norm_kind else None
+        self.drop = nn.Dropout(dropout)
         self.proj_out = Linear(dim, dim, **kw)
 
+    def reset_parameters(self, generator):
+        if self.temp_embedding is not None:
+            self.temp_embedding.normal_(0.0, 1.0, generator=generator)
+
     def forward(self, x):
-        x = self.temporal(self.proj_in(self.norm1(x)))
-        return self.proj_out(self.norm2(x))
+        if self.temp_embedding is not None:
+            x = x + self.temp_embedding
+        if self.norm1 is not None:
+            x = self.norm1(x)
+        x = self.temporal(self.proj_in(x))
+        if self.norm2 is not None:
+            x = self.norm2(x)
+        return self.proj_out(self.drop(x))

@@ -39,6 +39,10 @@ from meant_tpu_torch.utils.metrics import F1Metrics, confusion_delta
 KWARGS_MODELS = ("meant_src", "meant_price", "meant_timesformer",
                  "meant_mean_pooling", "meant_mosi", "mlp", "lstm")
 _NON_INPUT_KEYS = ("y", "_weight", "labels")
+# paper-generation models take positional TempStock-layout inputs (tweets,
+# graphs, attention_masks, prices)
+POSITIONAL_MODELS = ("meant", "meant_vision", "meant_tweet",
+                     "meant_tweet_no_lag", "meantPrice")
 
 
 def model_inputs(model_name: str, batch: Dict[str, Any]) -> tuple:
@@ -46,6 +50,20 @@ def model_inputs(model_name: str, batch: Dict[str, Any]) -> tuple:
     if model_name in KWARGS_MODELS:
         return (), {k: v for k, v in batch.items()
                     if k not in _NON_INPUT_KEYS}
+    if model_name == "meant":
+        return (batch["tweets"], batch["graphs"]), \
+               {"attention_mask": batch.get("attention_masks")}
+    if model_name == "meant_vision":
+        return (batch["graphs"],), {}
+    if model_name == "meant_tweet":
+        return (batch["tweets"],), \
+               {"attention_mask": batch.get("attention_masks")}
+    if model_name == "meant_tweet_no_lag":
+        # single-day ablation: the target day only
+        tw = batch["tweets"]
+        return ((tw[:, -1] if tw.ndim == 3 else tw),), {}
+    if model_name == "meantPrice":
+        return (batch["tweets"], batch["graphs"], batch["prices"]), {}
     raise NotImplementedError(
         f"model {model_name} is not yet ported to meant_tpu_torch "
         f"(see ROADMAP)")

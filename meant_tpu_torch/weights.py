@@ -1,4 +1,4 @@
-"""Carry JAX `meant_src` parameters over to the port.
+"""Carry JAX parameters of the MEANT models over to the port.
 
 `state_dict_from_jax(params)` takes the Flax param tree as a nested dict of
 numpy arrays and returns the port's `state_dict`:
@@ -7,8 +7,9 @@ numpy arrays and returns the port's `state_dict`:
   transposed to (out, in); `X/dense/bias` becomes `X.bias`.
 * Norm `scale` / `offset` become `weight` / `bias` (the embedding's
   `ln_scale` / `ln_bias` become `layer_norm.weight` / `.bias`).
-* Embedding tables become `<name>.weight`; `freqs` buffers copy as they
-  are.
+* Embedding tables become `<name>.weight`; `freqs` buffers,
+  `temp_embedding` and the cls tokens (`txt_classtkn`, `img_classtkn`)
+  copy as they are.
 * `languageEncoders_3` becomes `languageEncoders.3` (a ModuleList).
 
 Every leaf maps to exactly one key; a leaf no rule knows raises.
@@ -27,6 +28,9 @@ from torch import nn
 
 _EMBED_TABLES = ("word_embeddings", "position_embeddings",
                  "token_type_embeddings")
+# leaves whose torch key is their JAX path: rotary buffers, the temporal
+# encoder's positional parameter and the cls tokens
+_AS_THEY_ARE = ("freqs", "temp_embedding", "txt_classtkn", "img_classtkn")
 _LIST_RE = re.compile(r"^(languageEncoders|visionEncoders)_(\d+)$")
 
 
@@ -59,7 +63,7 @@ def _torch_key(path: tuple) -> tuple:
                                       else "bias"]), False
     if leaf in _EMBED_TABLES:
         return ".".join(parts + ["weight"]), False
-    if leaf == "freqs":
+    if leaf in _AS_THEY_ARE:
         return ".".join(parts), False
     raise KeyError(f"no rule maps JAX param {'/'.join(path)}")
 

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: the flash
 forward (K1), the flash backward (K2), the streaming flash forward (K3), the
 rotation pass (R1) in front of K1, K3 and the streaming dQ (K4) and dK/dV
-(K5) backward, and the fused AdamW (A1). These tests
-need an NVIDIA card and nvcc; elsewhere they skip. On the card:
+(K5) backward, and the fused AdamW (A1); and a narrow paper-generation
+`meant` through them. These tests need an NVIDIA card and nvcc; elsewhere
+they skip. On the card:
 
     pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -16,6 +17,9 @@ error 1e-6 (both sides round every operation to fp32 alike).
 import pytest
 import torch
 
+from meant_tpu_torch.data.datasets import synthetic_tempstock
+from meant_tpu_torch.data.loader import ArrayLoader, host_tensor
+from meant_tpu_torch.models import EmbeddingConfig, meant
 from meant_tpu_torch.ops import lang_freqs, pixel_freqs
 from meant_tpu_torch.ops.adamw import adamw_update, fused_adamw
 from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
@@ -31,6 +35,7 @@ from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
                                               LSE_ATOL, _rotate)
 from meant_tpu_torch.tools.k45_masked_row import errors as fp64_errors
 from meant_tpu_torch.tools.k45_masked_row import grads_fp64
+from meant_tpu_torch.train.classify import meant_trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -411,6 +416,46 @@ def test_flash_mha_online_on_cuda_runs_k3_k4_k5(cuda, dtype):
                                           delta, mask, *tables, scale=0.1,
                                           causal=causal)
     _assert_grads_close([t.grad for t in leaves], want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_narrow_meant_launches_k1_r1_then_k2_and_a1(cuda, dtype):
+    """A narrow paper-generation meant (dim 192 in 2 heads of 96, 2 + 2
+    encoders, s=48, 4-channel 32x32 charts) with flash on: a forward
+    launches 2 x encoders K1 and R1 and matches the plain attention at the
+    same weights (fp32 1e-4, bf16 2e-2 on the probabilities); one trainer
+    step launches as many K1, R1 and K2, and one A1."""
+    enc = 2
+    make = lambda flash: meant(
+        192, 192, 4, 32, 32, 16, 5, 2, flash=flash, num_heads=2,
+        num_encoders=enc, dtype=None if dtype == torch.float32 else dtype,
+        embedding=EmbeddingConfig(vocab_size=100, hidden_size=192,
+                                  max_position_embeddings=40),
+        device=cuda, seed=3)
+    model, plain = make(True).eval(), make(False).eval()
+    host = synthetic_tempstock(n=4, seq=48, size=32, vocab=100, seed=2)
+    batch = {k: host_tensor(v).to(cuda) for k, v in host.items()}
+    args = (batch["tweets"], batch["graphs"], batch["attention_masks"])
+    counters = (flash_fwd, rotate_qk, flash_bwd, fused_adamw)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        out = model(*args)
+        want = plain(*args)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [
+        2 * enc, 2 * enc, 0, 0]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    trainer = meant_trainer({"model": model, "model_name": "meant",
+                             "train_loader": ArrayLoader(host, 4)})
+    trainer._init_state()
+    before = [c.launches for c in counters]
+    loss, _ = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [
+        2 * enc, 2 * enc, 2 * enc, 1]
+    assert torch.isfinite(loss)
 
 
 @pytest.mark.parametrize("mode", ["adamw", "adam_coupled", "adamw_wd0",

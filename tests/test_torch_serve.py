@@ -49,7 +49,7 @@ def test_serve_cli_smoke(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--scan_layers"], ["--int8"],
                                   ["--export", "x.bin"],
-                                  ["-mn", "meant_tweet"]])
+                                  ["-mn", "teanet"]])
 def test_serve_cli_refuses_what_is_not_ported(flag):
     argv = ["-rid", "0", "-mn", "meant_src", "--device", "cpu",
             "--seq_len", "12", "--image_size", "32", "-nec", "1"] + flag

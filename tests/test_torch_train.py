@@ -41,7 +41,8 @@ from meant_tpu.train.classify import meant_trainer as j_meant_trainer
 from meant_tpu.train.classify import sigmoid_ce_loss as j_loss
 from meant_tpu_torch.cli import eval as eval_cli
 from meant_tpu_torch.cli import in_loop_train
-from meant_tpu_torch.cli.common import base_parser, build_model
+from meant_tpu_torch.cli.common import (base_parser, build_model,
+                                        synthetic_batch)
 from meant_tpu_torch.data.loader import ArrayLoader, host_tensor
 from meant_tpu_torch.models import EmbeddingConfig, meant_src
 from meant_tpu_torch.serve import Predictor
@@ -195,7 +196,7 @@ def test_trainer_loop_end_to_end_on_cpu(tmp_path):
             "meant_src_1_Tempstock_e2e_2").exists()
     assert trainer.optimizer.step_count == 2 * 3   # 12 train rows / 4
 
-    rows = {k: v[:6] for k, v in in_loop_train.synthetic_batch(
+    rows = {k: v[:6] for k, v in synthetic_batch(
         base_parser().parse_args(argv), 6, seed=9).items() if k != "y"}
     trained = Predictor(trainer.model, "meant_src", batch_size=4,
                         device="cpu")(rows)
@@ -227,7 +228,7 @@ def test_early_stop_patience_five_with_prev_f1_inf(f1s, stop, monkeypatch):
     """The reference's rule: prev_f1 starts at inf, so the first epoch
     counts as no improvement; five epochs without improvement stop."""
     args = base_parser().parse_args(TINY + ["-rid", "es"])
-    loader = ArrayLoader(in_loop_train.synthetic_batch(args, 4), 4)
+    loader = ArrayLoader(synthetic_batch(args, 4), 4)
     trainer = meant_trainer({"model": build_model(args),
                              "model_name": "meant_src",
                              "train_loader": loader, "val_loader": loader,
@@ -243,7 +244,7 @@ def test_early_stop_patience_five_with_prev_f1_inf(f1s, stop, monkeypatch):
 
 def test_nan_loss_raises(monkeypatch):
     args = base_parser().parse_args(TINY + ["-rid", "nan"])
-    loader = ArrayLoader(in_loop_train.synthetic_batch(args, 4), 4)
+    loader = ArrayLoader(synthetic_batch(args, 4), 4)
     model = build_model(args)
     with torch.no_grad():
         model.mlpHead.norm.weight.fill_(float("nan"))
@@ -258,7 +259,7 @@ def test_nan_loss_raises(monkeypatch):
                                   ["--scan_layers"], ["--remat"],
                                   ["--hf_cache", "somewhere"],
                                   ["--pretrained", "true"],
-                                  ["--data_dir", "somewhere"]])
+                                  ["-mn", "teanet"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError):
         in_loop_train.main(TINY + ["-rid", "x"] + flag)
@@ -267,7 +268,7 @@ def test_train_cli_refuses_what_is_not_ported(flag):
 @pytest.mark.parametrize("key", ["mesh", "fsdp", "accumulation_steps"])
 def test_trainer_refuses_what_is_not_ported(key):
     args = base_parser().parse_args(TINY + ["-rid", "x"])
-    loader = ArrayLoader(in_loop_train.synthetic_batch(args, 4), 4)
+    loader = ArrayLoader(synthetic_batch(args, 4), 4)
     with pytest.raises(NotImplementedError):
         meant_trainer({"model": build_model(args), "model_name": "meant_src",
                        "train_loader": loader,
