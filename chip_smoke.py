@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, run in the order 1-6, 9, 7, 8; any failure raises and the script
+exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
               long-sequence paths from csrc/, one nvcc per source, all
@@ -20,7 +21,8 @@ Phases, in order; any failure raises and the script exits non-zero:
               order), R1 (bit for bit) and the streaming dQ (K4) and
               dK/dV (K5) backward at s=4096, BH=16, in fp32 and bf16, and
               the fused AdamW (A1) over all 177,607,733 parameters; R1 +
-              K1 and R1 + K2 also at the paper generation's s=128.
+              K1 and R1 + K2 also at the paper generation's s=128, and at
+              the pretrainers' BH=128 (s=128 causal xPos, s=196).
 3. slice   -- flagship meant_src (768 wide, 8 heads of 96, 12+12 encoders,
               s=512 text, 196-patch charts, bf16, seeded random weights)
               serves 40 rows through Predictor(batch_size=16): three
@@ -70,14 +72,34 @@ Phases, in order; any failure raises and the script exits non-zero:
               test confusion matrix, and Predictor(checkpoint_path=...)
               serves the test rows with the trained probabilities; A1
               against its plain version at meant's parameter count.
+9. pretrain -- bench.py's build_mlm / build_mim (the same width and
+              depth, batch 16, no lag in the batch, so BH = 128): the MLM
+              (vocab 64001, s=128, tied gathered head; 106,644,737
+              parameters) and the MIM (4x224^2 charts, L1 on the -100
+              markers; 58,111,488), each with flash on: one step's
+              gradients against the plain attention, for the MLM the
+              gathered head against the full one, 20 steps on one
+              replayed batch with exactly 12 R1, 12 K1, 12 K2 and 1 A1 a
+              step and a falling loss, a profiled step, the flash=False
+              step (bench.py's setting) timed and profiled only, A1 at
+              the pretrainer's parameter count; then cli.pretrain_mlm on a
+              .csv of 80 texts and cli.pretrain_mim on a .npy of 80
+              charts, one epoch each at the CLIs' defaults (--flash auto
+              runs the kernels, as the JAX harness does), and
+              cli.in_loop_train -mn meant --flash true -p true -ptm from
+              each checkpoint: before the first step the grafted entries
+              (embedding and language tower, or vision tower) equal the
+              checkpoint's and the rest are the fresh init; one epoch
+              trains with meant's launch counts.
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
               calls): rotation + scaled_dot_product_attention (R1 + K1,
               K1 alone beside it, at s=512, 196 and 128; R1 + K3, causal
-              at s=4096) and its backward (R1 + K2; R1, K4 and K5
-              together), torch.optim.AdamW(fused=True) (A1, at the
-              flagship's and at meant's parameter count); R1 has rows of
+              at s=4096; at BH=128 for the pretrainers) and its backward
+              (R1 + K2; R1, K4 and K5 together),
+              torch.optim.AdamW(fused=True) (A1, at the flagship's,
+              meant's and the pretrainers' parameter counts); R1 has rows of
               its own at each shape. Beside the event time of the
               resident rows, their device time with the host out of the
               way (at s=128 a call launches less work than the host takes
@@ -162,6 +184,14 @@ PAPER_ARGV = ["-rid", "smoke", "-mn", "meant", "--flash", "true",
               "--seq_len", str(PAPER_SEQ), "-nec", str(ENCODERS)]
 PAPER_DATA_ROWS = 80       # 48 / 16 / 16 rows after the 60/20/20 split
 PAPER_PLAIN_STEPS = 5      # the flash=False step, timed only
+# pretraining (bench.py:324-387, build_mlm / build_mim): the same width and
+# depth, batch 16, bf16; the MLM at s=128 with the tied gathered head, the
+# MIM on 4x224^2 charts; parameter counts of JAX less the rotary tables the
+# port keeps as buffers
+MLM_PARAMS, MIM_PARAMS = 106_644_737, 58_111_488
+PRETRAIN_LR = 5e-5         # the pretraining CLIs' default -l
+PRETRAIN_DATA_ROWS = 80    # 64 train / 16 val rows (n_val = max(n // 10, 16))
+HEAD_LOSS_REL = 1e-3       # gathered vs full MLM head, relative loss error
 
 
 def fail(msg: str):
@@ -291,12 +321,18 @@ def rel_l2(out, ref) -> float:
     return ((out.float() - ref).norm() / ref.norm()).item()
 
 
-# The resident cases of phase 2: (name, attention_case kind, s), the
-# flagship's s=512 text (also masked) and s=196 charts, and the paper
-# generation's s=128 text (RESIDENT_CASES[-1]).
-RESIDENT_CASES = (("text", "text", SEQ), ("vision", "vision", N_PATCHES),
-                  ("text_masked", "text_masked", SEQ),
-                  ("text_s128", "text", PAPER_SEQ))
+# The resident cases of phase 2: (name, attention_case kind, s, BH), the
+# flagship's s=512 text (also masked) and s=196 charts and the paper
+# generation's s=128 text, at BH = 16 x 5 x 8 = 640, then the pretrainers'
+# s=128 text and s=196 charts at BH = 16 x 8 = 128 (no lag in the batch).
+MAIN_BH = BATCH * LAG * HEADS
+PRETRAIN_BH = BATCH * HEADS
+RESIDENT_CASES = (("text", "text", SEQ, MAIN_BH),
+                  ("vision", "vision", N_PATCHES, MAIN_BH),
+                  ("text_masked", "text_masked", SEQ, MAIN_BH),
+                  ("text_s128", "text", PAPER_SEQ, MAIN_BH),
+                  ("text_s128_bh128", "text", PAPER_SEQ, PRETRAIN_BH),
+                  ("vision_bh128", "vision", N_PATCHES, PRETRAIN_BH))
 
 
 def check_kernel(record):
@@ -307,9 +343,9 @@ def check_kernel(record):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors, rels = {}, {}
-    for case, kind, s in RESIDENT_CASES:
+    for case, kind, s, bh in RESIDENT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            c = attention_case(kind, dtype, gen, s=s)
+            c = attention_case(kind, dtype, gen, s=s, bh=bh)
             out = run_kernel(c)
             torch.cuda.synchronize()
             ref = run_plain(c)
@@ -377,9 +413,9 @@ def check_backward(record):
                                                   BWD_BF16_REL_L2)
     gen = torch.Generator(device="cuda").manual_seed(2)
     errors, rels = {}, {}
-    for case, kind, s in RESIDENT_CASES:
+    for case, kind, s, bh in RESIDENT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            c = backward_case(kind, dtype, gen, s=s)
+            c = backward_case(kind, dtype, gen, s=s, bh=bh)
             got = run_bwd_kernel(c)
             torch.cuda.synchronize()
             want = run_bwd_plain(c)
@@ -801,18 +837,27 @@ def _group(name: str) -> str:
         return "text"
     if name.startswith(("patchEmbed", "visionEncoders", "image_proj")):
         return "vision"
+    if name.startswith(("mlm_head", "decoder")):    # the pretrainers' heads
+        return "head"
     return "temporal_and_head"
 
 
-def step_gradients(model, batch, model_name):
+def classify_loss(model_name):
+    """loss_fn(model, batch) of meant_trainer's objective."""
+    from meant_tpu_torch.train.classify import model_inputs, sigmoid_ce_loss
+
+    def loss_fn(model, batch):
+        args, kwargs = model_inputs(model_name, batch)
+        return sigmoid_ce_loss(model(*args, **kwargs), batch["y"])
+    return loss_fn
+
+
+def step_gradients(model, batch, loss_fn):
     """Loss and parameter gradients (flat fp32, by group) of one step with
     dropout off."""
-    from meant_tpu_torch.train.classify import model_inputs, sigmoid_ce_loss
     model.eval()
     model.zero_grad(set_to_none=True)
-    args, kwargs = model_inputs(model_name, batch)
-    out = model(*args, **kwargs)
-    loss = sigmoid_ce_loss(out, batch["y"])
+    loss = loss_fn(model, batch)
     loss.backward()
     torch.cuda.synchronize()
     groups = {}
@@ -866,16 +911,18 @@ def shape_key(s: int, causal: bool) -> str:
 
 
 def compare_step_gradients(model, batch, want, make_plain, label,
-                           model_name="meant_src"):
+                           model_name="meant_src", loss_fn=None):
     """One step's gradients through the kernels (exactly `want` launches)
     vs the plain attention (`make_plain()`, given the same weights), on the
-    same batch. Returns the record."""
+    same batch, of meant_trainer's objective unless `loss_fn` says another.
+    Returns the record."""
+    loss_fn = loss_fn or classify_loss(model_name)
     reset_counts()
-    loss_k, grads_k = step_gradients(model, batch, model_name)
+    loss_k, grads_k = step_gradients(model, batch, loss_fn)
     check_counts(read_counts(), want, label)
     plain = make_plain()
     plain.load_state_dict(model.state_dict())
-    loss_p, grads_p = step_gradients(plain, batch, model_name)
+    loss_p, grads_p = step_gradients(plain, batch, loss_fn)
     del plain
     torch.cuda.empty_cache()
     res = {"loss_kernels": loss_k, "loss_plain": loss_p}
@@ -887,7 +934,7 @@ def compare_step_gradients(model, batch, want, make_plain, label,
                  f"attention (relative L2 {rel:.3e} > {STEP_GRAD_REL_L2})")
         if g.norm().item() == 0.0:
             fail(f"step gradients of {name} are all zero")
-    rows = len(batch["y"])
+    rows = len(next(iter(batch.values())))
     print(f"{label} gradients, kernels vs plain attention ({rows} rows): "
           f"{json.dumps(res)}", flush=True)
     return res
@@ -896,19 +943,26 @@ def compare_step_gradients(model, batch, want, make_plain, label,
 def train_steps(model, host, steps, per_step, label, model_name="meant_src",
                 falling=True):
     """`steps` steps of meant_trainer on one replayed batch (numpy `host`)
-    at LEARN_LR constant: a training main path, counts set to 0 just before
-    and read just after, exactly `per_step` launches per step and a finite
-    loss, falling unless `falling` is False (a step timed only). Returns
-    the record, the trainer and the device batch."""
+    at LEARN_LR constant (`timed_steps`)."""
     from meant_tpu_torch.data.loader import ArrayLoader
     from meant_tpu_torch.train.classify import meant_trainer
-    rows = len(host["y"])
     trainer = meant_trainer({
         "model": model, "model_name": model_name,
-        "train_loader": ArrayLoader(host, rows), "lrst": "constant",
-        "lr": LEARN_LR, "seed": 0, "test_model": False})
+        "train_loader": ArrayLoader(host, len(host["y"])),
+        "lrst": "constant", "lr": LEARN_LR, "seed": 0, "test_model": False})
+    return timed_steps(trainer, host, steps, per_step, label, falling)
+
+
+def timed_steps(trainer, host, steps, per_step, label, falling=True):
+    """`steps` steps of `trainer` on one replayed batch (numpy `host`): a
+    training main path, counts set to 0 just before and read just after,
+    exactly `per_step` launches per step and a finite loss, falling unless
+    `falling` is False (a step timed only). Returns the record, the trainer
+    and the device batch."""
+    rows = len(next(iter(host.values())))
     trainer._init_state()
     n_trainable = trainer.optimizer.flat_p.numel()
+    lr = trainer.optimizer.schedule(0)
     batch = to_card(host)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -917,16 +971,16 @@ def train_steps(model, host, steps, per_step, label, model_name="meant_src",
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, _ = trainer.train_step(batch)
+        out = trainer.train_step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
+        losses.append(out[0] if isinstance(out, tuple) else out)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).tolist()
     want = {k: n * steps for k, n in per_step.items()}
     print(f"{label}: {steps} steps of {rows} replayed rows at lr "
-          f"{LEARN_LR}: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"{lr}: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"launches {counts} (want {want})", flush=True)
     check_counts(counts, want, f"{label}'s training steps")
     if not all(np.isfinite(losses)) or (falling
@@ -935,7 +989,7 @@ def train_steps(model, host, steps, per_step, label, model_name="meant_src",
     steady = times[1:]
     median = statistics.median(steady)
     res = {
-        "rows": rows, "steps": steps, "lr": LEARN_LR,
+        "rows": rows, "steps": steps, "lr": lr,
         "losses": losses, "step_ms": times, "step_ms_median": median,
         "samples_per_s": rows / median * 1e3, "peak_memory_bytes": peak,
         "launches": counts, "trainable_params": n_trainable}
@@ -1298,6 +1352,238 @@ def run_paper(record):
             "a1_err": a1_err, "n_params": res["n_params"]}
 
 
+# ---- phase 9: pretraining (MLM, MIM) and grafting into meant -------------
+
+def build_pretrainer(kind: str, flash: bool = True):
+    """bench.py's build_mlm / build_mim model: 12 encoders of width 768, 8
+    heads of 96, bf16 activations with fp32 params, seed 0; the MLM at vocab
+    64001 with the tied head, the MIM on 4-channel 224^2 charts."""
+    from meant_tpu_torch import models
+    common = dict(num_encoders=ENCODERS, num_heads=HEADS, flash=flash,
+                  dtype=torch.bfloat16, device="cuda", seed=0)
+    if kind == "mlm":
+        return models.meant_language_pretrainer(
+            embedding=models.EmbeddingConfig(hidden_size=DIM), text_dim=DIM,
+            **common)
+    return models.meant_vision_pretrainer(
+        patch_res=PATCH, channels=4, height=IMAGE, width=IMAGE,
+        image_dim=DIM, **common)
+
+
+def pretrain_batch(kind: str, seed: int = 0) -> dict:
+    """bench.py's rows: 16 texts of 128 ids in [4, 64000) masked by
+    mask_tokens(seed=1) with an all-ones mask, or 16 charts U[0, 1) masked
+    by mask_image(seed=1)."""
+    from meant_tpu_torch.data.masking import mask_image, mask_tokens
+    rng = np.random.RandomState(seed)
+    if kind == "mlm":
+        ids = rng.randint(4, 64000, size=(BATCH, PAPER_SEQ))
+        inputs, labels = mask_tokens(ids, mask_token_id=64000,
+                                     special_ids=(0, 1, 2), seed=1)
+        return {"input_ids": inputs.astype(np.int32),
+                "attention_mask": np.ones((BATCH, PAPER_SEQ), np.float32),
+                "labels": labels.astype(np.int32)}
+    inputs, labels = mask_image(
+        rng.rand(BATCH, 4, IMAGE, IMAGE).astype(np.float32), seed=1)
+    return {"input_ids": inputs, "labels": labels}
+
+
+def pretrainer(kind: str, model, host: dict, **kw):
+    """The pretrainer of `kind` on one replayed batch at PRETRAIN_LR
+    constant (the CLIs' default rate)."""
+    from meant_tpu_torch.train.pretrain import mim_pretrainer, mlm_pretrainer
+    cls = mlm_pretrainer if kind == "mlm" else mim_pretrainer
+    return cls({"model": model, "train_data": [host], "lrst": "constant",
+                "lr": PRETRAIN_LR, "seed": 0, **kw})
+
+
+def pretrain_loss(kind: str, **kw):
+    """loss_fn(model, batch) of the pretrainer's objective."""
+    return lambda model, batch: pretrainer(kind, model, batch, **kw).loss(
+        batch)
+
+
+def learn_pretrain(kind: str, res: dict):
+    """One step's gradients against the plain attention (dropout off), for
+    the MLM the gathered head against the full one, LEARN_STEPS steps on
+    one replayed batch with exactly 12 R1, 12 K1, 12 K2 and 1 A1 a step and
+    a falling loss, a profiled step, and the same step at flash=False (timed
+    and profiled only). Returns the steps' counts."""
+    per_fwd = {"R1": ENCODERS, "K1": ENCODERS}
+    model = build_pretrainer(kind)
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    want_params = MLM_PARAMS if kind == "mlm" else MIM_PARAMS
+    print(f"{kind} pretrainer: {res['n_params']} parameters (want "
+          f"{want_params})", flush=True)
+    if res["n_params"] != want_params:
+        fail(f"the {kind} pretrainer has {res['n_params']} parameters, "
+             f"want {want_params}")
+    host = pretrain_batch(kind)
+    batch = to_card(host)
+    res["step_gradients"] = compare_step_gradients(
+        model, batch, dict(per_fwd, K2=ENCODERS),
+        lambda: build_pretrainer(kind, flash=False), f"{kind} step",
+        loss_fn=pretrain_loss(kind))
+    if kind == "mlm":
+        res["full_head"] = compare_heads(model, batch)
+    train, trainer, batch = timed_steps(
+        pretrainer(kind, model, host), host, LEARN_STEPS,
+        dict(per_fwd, K2=ENCODERS, A1=1), f"learn {kind}")
+    res["train"] = train
+    res["train_profile"] = profile_calls(
+        lambda: trainer.train_step(batch), PROFILE_STEPS, "step")
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    plain, trainer, batch = timed_steps(
+        pretrainer(kind, build_pretrainer(kind, flash=False), host), host,
+        PAPER_PLAIN_STEPS, {"A1": 1},
+        f"{kind} at flash=False (bench.py's setting; timed only)",
+        falling=False)
+    plain["profile"] = profile_calls(lambda: trainer.train_step(batch), 1,
+                                     "step")
+    res["plain_train"] = plain
+    del trainer, batch
+    torch.cuda.empty_cache()
+    res["a1_err"] = check_adamw(res, res["n_params"])
+    return train["launches"]
+
+
+def compare_heads(model, batch) -> dict:
+    """The gathered MLM head against the full (b, s, vocab) one on one
+    batch, kernels on, dropout off: the loss within HEAD_LOSS_REL, each
+    group's gradients within STEP_GRAD_REL_L2."""
+    loss_g, grads_g = step_gradients(model, batch, pretrain_loss("mlm"))
+    loss_f, grads_f = step_gradients(
+        model, batch, pretrain_loss("mlm", gather_masked=False))
+    res = {"loss_gathered": loss_g, "loss_full": loss_f,
+           "loss_rel_err": abs(loss_g - loss_f) / abs(loss_f)}
+    for name, g in grads_g.items():
+        res[f"{name}_grad_rel_l2"] = rel_l2(g, grads_f[name])
+    print(f"mlm gathered head vs full head: {json.dumps(res)}", flush=True)
+    if res["loss_rel_err"] > HEAD_LOSS_REL or any(
+            v > STEP_GRAD_REL_L2 for k, v in res.items()
+            if k.endswith("_grad_rel_l2")):
+        fail(f"the gathered MLM head disagrees with the full one: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def write_pretrain_data(path: str, kind: str) -> str:
+    """PRETRAIN_DATA_ROWS rows in a directory of its own: a .csv of
+    synthetic texts (header, one text a row) or a .npy of 4x224^2 charts."""
+    import os
+    data = os.path.join(path, f"{kind}_data")
+    os.makedirs(data)
+    rng = np.random.RandomState(21)
+    if kind == "mlm":
+        with open(os.path.join(data, "tweets.csv"), "w") as f:
+            f.write("text\n")
+            for _ in range(PRETRAIN_DATA_ROWS):
+                f.write(" ".join(f"w{rng.randint(1000)}" for _ in range(30))
+                        + "\n")
+    else:
+        np.save(os.path.join(data, "charts.npy"), rng.rand(
+            PRETRAIN_DATA_ROWS, 4, IMAGE, IMAGE).astype(np.float32))
+    return data
+
+
+def pretrain_through_cli(kind: str, d: str) -> tuple:
+    """cli.pretrain_mlm / cli.pretrain_mim -ne 1 at their defaults (so
+    --flash auto: the kernels run, as in the JAX harness) on a file written
+    here; exactly 12 R1 + 12 K1 per forward, 12 K2 and 1 A1 per step.
+    Returns the checkpoint path and the record."""
+    from meant_tpu_torch.cli import pretrain_mim, pretrain_mlm
+    cli = pretrain_mlm if kind == "mlm" else pretrain_mim
+    argv = ["-rid", "0", "-nec", str(ENCODERS), "-ne", "1", "-fp", d,
+            "--data_dir", write_pretrain_data(d, kind)]
+    reset_counts()
+    out = cli.main(argv)
+    counts = read_counts()
+    trainer = out["trainer"]
+    steps = trainer.optimizer.step_count
+    forwards = steps + len(trainer.val_data)
+    check_counts(counts, {"R1": ENCODERS * forwards, "K1": ENCODERS * forwards,
+                          "K2": ENCODERS * steps, "A1": steps},
+                 f"cli.pretrain_{kind}'s {steps} steps and "
+                 f"{forwards - steps} evaluation forwards")
+    if out["checkpoint"] is None or not all(
+            np.isfinite(h["train_loss"]) and np.isfinite(h["val_loss"])
+            for h in out["history"]):
+        fail(f"cli.pretrain_{kind}: {out['history']}, checkpoint "
+             f"{out['checkpoint']}")
+    print(f"cli.pretrain_{kind} ({PRETRAIN_DATA_ROWS} rows, defaults): "
+          f"{steps} steps, launches {counts}, history {out['history']}; "
+          f"checkpoint {out['checkpoint']}", flush=True)
+    del trainer, out["trainer"]
+    torch.cuda.empty_cache()
+    return out["checkpoint"], {"steps": steps, "launches": counts,
+                               "history": out["history"]}
+
+
+def finetune_from(checkpoint: str, grafted: tuple, d: str) -> dict:
+    """cli.in_loop_train -mn meant --flash true -p true -ptm <checkpoint>
+    for one epoch: before the first step every entry under `grafted` equals
+    the checkpoint's and every other one is the fresh init; then the epoch
+    trains (finite loss) with meant's launch counts."""
+    from meant_tpu_torch.cli import in_loop_train
+    from meant_tpu_torch.train import checkpoint as ckpt
+    argv = PAPER_ARGV + ["-ne", "1", "-tb", str(BATCH), "-fp", d, "-lrst",
+                         "constant", "-l", str(LEARN_LR), "-p", "true",
+                         "-ptm", checkpoint]
+    trainer = in_loop_train.prepare(argv)
+    fresh = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    source = ckpt.restore(checkpoint, "cuda")["params"]
+    trainer._init_state()
+    n = 0
+    for k, v in trainer.model.state_dict().items():
+        want = source[k] if k.startswith(grafted) else fresh[k]
+        if not torch.equal(v, want):
+            fail(f"after grafting {checkpoint}, {k} is not the "
+                 f"{'checkpoint' if k.startswith(grafted) else 'fresh'} "
+                 f"value")
+        n += k.startswith(grafted)
+    del fresh, source
+    if n == 0:
+        fail(f"nothing under {grafted} was grafted")
+    reset_counts()
+    results = trainer.train()
+    counts = read_counts()
+    steps = trainer.optimizer.step_count
+    forwards = steps + len(trainer.val_loader) + len(trainer.test_loader)
+    check_counts(counts, {"K1": 24 * forwards, "R1": 24 * forwards,
+                          "K2": 24 * steps, "A1": steps},
+                 f"meant from {grafted} of a pretraining checkpoint")
+    loss = results["history"][0]["train_loss"]
+    if not np.isfinite(loss):
+        fail(f"meant from a pretraining checkpoint: loss {loss}")
+    print(f"cli.in_loop_train -mn meant -p true -ptm <{grafted}>: {n} "
+          f"entries grafted exactly, the rest fresh; {steps} steps, loss "
+          f"{loss:.5f}, launches {counts}", flush=True)
+    del trainer, results
+    torch.cuda.empty_cache()
+    return {"grafted_entries": n, "steps": steps, "train_loss": loss,
+            "launches": counts}
+
+
+def run_pretrain(record) -> dict:
+    """Phase 9: the MLM and MIM pretrainers at bench.py's geometry, their
+    CLIs, and meant fine-tuned from each CLI's checkpoint."""
+    res = {"mlm": {}, "mim": {}}
+    record["pretrain"] = res
+    out = {}
+    for kind in ("mlm", "mim"):
+        out[kind] = {"train": learn_pretrain(kind, res[kind]),
+                     "n_params": res[kind]["n_params"],
+                     "a1_err": res[kind]["a1_err"]}
+    with tempfile.TemporaryDirectory() as d:
+        for kind, grafted in (("mlm", ("embedding.", "languageEncoders.")),
+                              ("mim", ("visionEncoders.",))):
+            path, res[kind]["cli"] = pretrain_through_cli(kind, d)
+            with tempfile.TemporaryDirectory() as ft:   # 2 GB of meant
+                res[kind]["finetune"] = finetune_from(path, grafted, ft)
+    return out
+
+
 # ---- phase 7: timing ---------------------------------------------------
 
 def attention_cost(c, backward: bool = False) -> tuple:
@@ -1339,21 +1625,27 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
 
 
 def time_kernels(record, errors, launches_by_shape, bwd_errors,
-                 train_counts, a1_err, n_params, paper):
-    """The resident rows (R1 + K1, K2, R1) at the flagship's two shapes and
-    at the paper generation's s=128, each with its own path's launches, then
-    A1 at the flagship's and at meant's parameter count."""
+                 train_counts, a1_err, n_params, paper, pretrain):
+    """The resident rows (R1 + K1, K2, R1) at the flagship's two shapes, at
+    the paper generation's s=128 and at the pretrainers' BH=128 shapes, each
+    with its own path's launches (the pretrainers' forwards are those of
+    their steps), then A1 at each path's parameter count."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     flagship = {shape_key(*k): n for k, n in launches_by_shape.items()}
+    mlm, mim = pretrain["mlm"]["train"], pretrain["mim"]["train"]
     for case, kind, label, fwd_by_shape, steps in (
             ("text", "text", "s512 causal xPos", flagship, train_counts),
             ("vision", "vision", "s196 pixel rotary", flagship,
              train_counts),
             ("text_s128", "text", "s128 causal xPos",
-             paper["serve_by_shape"], paper["train"])):
-        s = {name: s for name, _, s in RESIDENT_CASES}[case]
-        c = backward_case(kind, torch.bfloat16, gen, s=s)
+             paper["serve_by_shape"], paper["train"]),
+            ("text_s128_bh128", "text", "s128 causal xPos BH128",
+             mlm["K1_by_shape"], mlm),
+            ("vision_bh128", "vision", "s196 pixel rotary BH128",
+             mim["K1_by_shape"], mim)):
+        s, bh = {name: (s, bh) for name, _, s, bh in RESIDENT_CASES}[case]
+        c = backward_case(kind, torch.bfloat16, gen, s=s, bh=bh)
         key = (c["s"], c["causal"])
         nbytes, flops = attention_cost(c)
         with_r1 = event_ms(lambda: run_kernel(c), iters=20)
@@ -1410,6 +1702,9 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
                           gen))
     rows.append(adamw_row("adamw[meant]", paper["n_params"],
                           paper["train"]["A1"], paper["a1_err"], gen))
+    for kind, counts in (("mlm", mlm), ("mim", mim)):
+        rows.append(adamw_row(f"adamw[{kind}]", pretrain[kind]["n_params"],
+                              counts["A1"], pretrain[kind]["a1_err"], gen))
     record["kernels"] = rows
     return rows
 
@@ -1682,8 +1977,9 @@ def main(argv=None) -> int:
     train_counts = run_training(record)
     long_counts = run_long(record)
     paper = run_paper(record)
+    pretrain = run_pretrain(record)
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
-                        a1_err, record["n_params"], paper)
+                        a1_err, record["n_params"], paper, pretrain)
     at = [r["name"] for r in rows].index("adamw")
     rows[at:at] = time_long_kernels(long_errors, long_counts)  # before A1
     time_requests(predictor, chunk, record)

@@ -65,7 +65,8 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("-ptm", "--pretrained_model", type=str, default=None)
     p.add_argument("-p", "--pretrained", type=str2bool, nargs="?",
                    const=False, default=False,
-                   help="not ported yet: raises if set")
+                   help="with -ptm: graft the encoder towers and embedding "
+                        "of that pretraining checkpoint into the model")
     p.add_argument("-nec", "--num_encoders", type=int, default=12)
     p.add_argument("-img", "--image_only", type=str2bool, nargs="?",
                    const=False, default=False)
@@ -112,7 +113,8 @@ def base_parser() -> argparse.ArgumentParser:
                    choices=["full", "dots"],
                    help="not ported yet: raises if set")
     p.add_argument("--full_mlm_head", action="store_true",
-                   help="MLM harness flag; no effect here")
+                   help="MLM harness: compute the head over all (b, s) "
+                        "positions instead of the gathered masked ones")
     p.add_argument("--seq_len", type=int, default=128)
     p.add_argument("--image_size", type=int, default=224)
     p.add_argument("--text_dim", type=int, default=768)
@@ -125,8 +127,8 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-UNPORTED_FLAGS = ("pretrained", "buckets", "hf_cache", "fsdp", "mu_bf16",
-                  "scan_layers", "remat")
+UNPORTED_FLAGS = ("buckets", "hf_cache", "fsdp", "mu_bf16", "scan_layers",
+                  "remat")
 
 
 def refuse_unported(args) -> None:

@@ -11,10 +11,12 @@ Data (`cli.common.dataset_arrays`): with --data_dir, the TempStock-small
 generation reads. Without it, the paper generation gets a synthetic
 TempStock-shaped set and meant_src a synthetic kwargs-family set
 (`--synthetic_n` rows). Either is split 60/20/20 as the reference splits.
---buckets, --pretrained grafting, --hf_cache, --fsdp and --mu_bf16 are not
-ported yet and raise. The run trains on the card unless --device names
-another device, saves the checkpoint after training and evaluates the test
-split.
+`-p true -ptm PATH` grafts the encoder towers and the embedding of a
+pretraining checkpoint (`cli.pretrain_mlm`, `cli.pretrain_mim`) into the
+fresh model before the first step (`train.checkpoint.graft`).
+--buckets, --hf_cache, --fsdp and --mu_bf16 are not ported yet and raise.
+The run trains on the card unless --device names another device, saves the
+checkpoint after training and evaluates the test split.
 """
 
 from __future__ import annotations
@@ -25,18 +27,19 @@ from meant_tpu_torch.cli.common import (base_parser, build_model,
                                         dataset_arrays, refuse_unported)
 from meant_tpu_torch.data.datasets import split_arrays
 from meant_tpu_torch.data.loader import ArrayLoader
+from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import meant_trainer
 
 
-def main(argv=None) -> dict:
-    """Train as the CLI does; returns the trainer's results (history,
-    checkpoint path, test metrics) with the trainer under "trainer"."""
+def prepare(argv=None) -> meant_trainer:
+    """The CLI's trainer, its model built and, with `-p true -ptm PATH`,
+    the checkpoint's towers and embedding grafted in as its `init_params`
+    (loaded when training starts)."""
     args = base_parser().parse_args(argv)
     refuse_unported(args)
     if args.image_only and args.language_only:
         raise AssertionError(
             "Cannot be an image only AND a language only task")
-    t0 = time.time()
     model = build_model(args)
     train, val, test = split_arrays(dataset_arrays(args))
     bs = args.train_batch_size
@@ -56,6 +59,18 @@ def main(argv=None) -> dict:
         "tmax": args.tmax, "early_stopping": args.early_stopping,
         "test_model": args.test_model, "seed": args.seed,
     })
+    if args.pretrained and args.pretrained_model:
+        restored = ckpt.restore(args.pretrained_model, trainer.device)
+        trainer.init_params = ckpt.graft(model.state_dict(),
+                                         restored["params"])
+    return trainer
+
+
+def main(argv=None) -> dict:
+    """Train as the CLI does; returns the trainer's results (history,
+    checkpoint path, test metrics) with the trainer under "trainer"."""
+    t0 = time.time()
+    trainer = prepare(argv)
     results = trainer.train()
     print("total time:", time.time() - t0)
     results["trainer"] = trainer

@@ -9,13 +9,19 @@ splits (counterpart of meant_tpu/data/datasets.py), numpy only.
 * Splits are the reference's two sklearn train_test_split(random_state=42)
   calls, reproduced with numpy so index membership and order are identical
   to sklearn's.
+* `hash_tokenize` is the JAX package's whitespace FNV-1a tokenizer in pure
+  Python (its numpy fallback; JAX's native library gives the same ids on
+  text split by spaces), and `read_csv_texts` reads the pretraining text
+  column of a `.csv` with the standard library, as the JAX MLM harness
+  reads it with pandas.
 """
 
 from __future__ import annotations
 
+import csv
 import math
 import os
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -79,3 +85,55 @@ def split_arrays(arrays: Dict[str, np.ndarray], seed: int = 42):
     tr, va, te = train_val_test_split(n, seed)
     pick = lambda sel: {k: v[sel] for k, v in arrays.items()}
     return pick(tr), pick(va), pick(te)
+
+
+def _fnv1a(b: bytes) -> int:
+    h = 1469598103934665603
+    for c in b:
+        h = ((h ^ c) * 1099511628211) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def fnv1a_tokenize(texts: List[str], max_len: int, vocab: int,
+                   pad_id: int = 1):
+    """Whitespace tokenizer: BOS/EOS id 2 around the first max_len - 2
+    words, each hashed into [4, vocab). Returns (ids (n, max_len) int32,
+    mask (n, max_len) f32)."""
+    n = len(texts)
+    ids = np.full((n, max_len), pad_id, np.int32)
+    mask = np.zeros((n, max_len), np.float32)
+    for i, t in enumerate(texts):
+        toks = [2] + [4 + _fnv1a(w.encode("utf-8", "ignore")) % (vocab - 4)
+                      for w in t.split()][: max_len - 2] + [2]
+        ids[i, : len(toks)] = toks
+        mask[i, : len(toks)] = 1.0
+    return ids, mask
+
+
+def hash_tokenize(vocab_size: int = 64000, max_len: int = 128):
+    """text -> list of ids, BOS and EOS included (`fnv1a_tokenize`): the
+    no-network stand-in for an HF tokenizer."""
+
+    def tok(text: str):
+        ids, mask = fnv1a_tokenize([text], max_len, vocab_size)
+        return ids[0, : int(mask[0].sum())].tolist()
+
+    return tok
+
+
+# pandas.read_csv's default missing-value strings (`na_values`)
+_CSV_NA = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
+
+
+def read_csv_texts(path: str) -> List[str]:
+    """The first column of a `.csv` as `pd.read_csv(path).iloc[:,
+    0].astype(str)` reads it: the first row is the header, blank lines are
+    skipped, quoted fields may hold commas and newlines, and a missing
+    value (an empty cell, "NA", ...) reads "nan", as pandas 2 gives it.
+    A column pandas would parse as numbers keeps its text here."""
+    with open(path, newline="", encoding="utf-8-sig") as f:
+        rows = [row for row in csv.reader(f) if row]
+    return ["nan" if row[0] in _CSV_NA else row[0] for row in rows[1:]]

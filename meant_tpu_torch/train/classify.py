@@ -80,6 +80,17 @@ def sigmoid_ce_loss(out: torch.Tensor, labels: torch.Tensor,
     return (nll * weight).sum() / torch.clamp(weight.sum(), min=1.0)
 
 
+def seed_dropout(device: torch.device, seed: int) -> None:
+    """Seed the default generator of `device`, which dropout draws from."""
+    if device.type == "cuda":
+        index = device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        torch.cuda.default_generators[index].manual_seed(seed)
+    else:
+        torch.default_generator.manual_seed(seed)
+
+
 class meant_trainer:
     """params: dict with the reference's keys: model (built on its device),
     model_name, dataset, train_loader, val_loader, test_loader, epochs,
@@ -133,13 +144,7 @@ class meant_trainer:
         """Load `init_params`, seed dropout, build the optimizer (which
         flattens the parameters into its buffers)."""
         self._apply_init_params()
-        if self.device.type == "cuda":
-            index = self.device.index
-            if index is None:
-                index = torch.cuda.current_device()
-            torch.cuda.default_generators[index].manual_seed(self.seed)
-        else:
-            torch.default_generator.manual_seed(self.seed)
+        seed_dropout(self.device, self.seed)
         self.optimizer = build_optimizer(self.model.parameters(),
                                          **self._opt_kwargs)
 

@@ -8,8 +8,8 @@ numpy arrays and returns the port's `state_dict`:
 * Norm `scale` / `offset` become `weight` / `bias` (the embedding's
   `ln_scale` / `ln_bias` become `layer_norm.weight` / `.bias`).
 * Embedding tables become `<name>.weight`; `freqs` buffers,
-  `temp_embedding` and the cls tokens (`txt_classtkn`, `img_classtkn`)
-  copy as they are.
+  `temp_embedding`, the cls tokens (`txt_classtkn`, `img_classtkn`) and the
+  tied MLM head's `decoder_bias` copy as they are.
 * `languageEncoders_3` becomes `languageEncoders.3` (a ModuleList).
 
 Every leaf maps to exactly one key; a leaf no rule knows raises.
@@ -29,8 +29,9 @@ from torch import nn
 _EMBED_TABLES = ("word_embeddings", "position_embeddings",
                  "token_type_embeddings")
 # leaves whose torch key is their JAX path: rotary buffers, the temporal
-# encoder's positional parameter and the cls tokens
-_AS_THEY_ARE = ("freqs", "temp_embedding", "txt_classtkn", "img_classtkn")
+# encoder's positional parameter, the cls tokens and the tied MLM head's bias
+_AS_THEY_ARE = ("freqs", "temp_embedding", "txt_classtkn", "img_classtkn",
+                "decoder_bias")
 _LIST_RE = re.compile(r"^(languageEncoders|visionEncoders)_(\d+)$")
 
 

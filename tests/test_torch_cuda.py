@@ -458,6 +458,63 @@ def test_narrow_meant_launches_k1_r1_then_k2_and_a1(cuda, dtype):
     assert torch.isfinite(loss)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["mlm", "mim"])
+def test_narrow_pretrainers_launch_k1_r1_then_k2_and_a1(cuda, kind, dtype):
+    """Narrow pretrainers (dim 192 in 2 heads of 96, 2 encoders; the MLM
+    at s=48 over a vocabulary of 100, the MIM on 4-channel 64x64 charts)
+    with flash on: a forward launches one K1 and one R1 per encoder and
+    matches the plain attention at the same weights (fp32 1e-4, bf16 2e-2
+    of the largest output); one pretrainer step launches as many K1, R1
+    and K2, and one A1."""
+    from meant_tpu_torch.data.masking import mask_image, mask_tokens
+    from meant_tpu_torch.models import (meant_language_pretrainer,
+                                        meant_vision_pretrainer)
+    from meant_tpu_torch.train.pretrain import mim_pretrainer, mlm_pretrainer
+    enc, gen = 2, torch.Generator().manual_seed(5)
+    common = dict(num_encoders=enc, num_heads=2, device=cuda, seed=3,
+                  dtype=None if dtype == torch.float32 else dtype)
+    if kind == "mlm":
+        make = lambda flash: meant_language_pretrainer(
+            embedding=EmbeddingConfig(vocab_size=100, hidden_size=192),
+            text_dim=192, flash=flash, ff_dropout=0.0, **common)
+        ids = torch.randint(3, 99, (4, 48), generator=gen).numpy()
+        inputs, labels = mask_tokens(ids, 99, [0, 1, 2], seed=1)
+        host = {"input_ids": inputs, "labels": labels,
+                "attention_mask": (ids > 0).astype("float32")}
+        trainer_cls, args = mlm_pretrainer, ("input_ids", "attention_mask")
+    else:
+        make = lambda flash: meant_vision_pretrainer(
+            patch_res=16, channels=4, height=64, width=64, image_dim=192,
+            flash=flash, **common)
+        inputs, labels = mask_image(
+            torch.rand(4, 4, 64, 64, generator=gen).numpy(), seed=1)
+        host = {"input_ids": inputs, "labels": labels}
+        trainer_cls, args = mim_pretrainer, ("input_ids",)
+    model, plain = make(True).eval(), make(False).eval()
+    batch = {k: host_tensor(v).to(cuda) for k, v in host.items()}
+    counters = (flash_fwd, rotate_qk, flash_bwd, fused_adamw)
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        out = model(*(batch[k] for k in args))
+        want = plain(*(batch[k] for k in args))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [
+        enc, enc, 0, 0]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                               atol=tol * float(want.abs().max()))
+    trainer = trainer_cls({"model": model, "train_data": [host]})
+    trainer._init_state()
+    before = [c.launches for c in counters]
+    loss = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [
+        enc, enc, enc, 1]
+    assert torch.isfinite(loss)
+
+
 @pytest.mark.parametrize("mode", ["adamw", "adam_coupled", "adamw_wd0",
                                   "no_clip"])
 @pytest.mark.parametrize("n", [1, 3, 4, 1027, 1 << 20])

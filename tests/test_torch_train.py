@@ -258,7 +258,7 @@ def test_nan_loss_raises(monkeypatch):
                                   ["--buckets", "128,512"],
                                   ["--scan_layers"], ["--remat"],
                                   ["--hf_cache", "somewhere"],
-                                  ["--pretrained", "true"],
+                                  ["-mn", "meant_timesformer"],
                                   ["-mn", "teanet"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError):
