@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, run in the order 1-6, 9, 7, 8; any failure raises and the script
-exits non-zero:
+Phases, run in the order 1-6, 9, 10, 7, 8; any failure raises and the
+script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
               long-sequence paths from csrc/, one nvcc per source, all
@@ -91,6 +91,27 @@ exits non-zero:
               (embedding and language tower, or vision tower) equal the
               checkpoint's and the rest are the fresh init; one epoch
               trains with meant's launch counts.
+10. levers -- serving and memory levers at the flagship's width: the
+              flagship (fixed_proj=True) served in bf16 and in int8
+              (`Predictor(quantize="int8")`): exactly 24 R1 + 24 K1 a
+              forward either way, int8 within atol 0.05 and argmax
+              agreement 0.9 of bf16, request and forward device times side
+              by side; the int8 product (`torch._int_mm`, zero-padded)
+              int32-equal to its plain version at every shape that forward
+              used; `cli.serve -mn meant --flash true --seq_len 128 --int8`;
+              `cli.serve -mn meant_src --export` writes the flagship's
+              program, and a fresh process that imports no model code
+              loads it (`load_exported`) and serves 16 rows: exactly 24 R1
+              + 24 K1, probabilities within 1e-5 of the live Predictor;
+              src4096 at 2 encoders a tower exported and served (2 K3, 2
+              K1, 4 R1); one training step of the flagship at remat off,
+              "full", "dots" and scan_layers=True, dropout on, one seed:
+              gradients bit for bit (else within 1e-3 relative L2 per
+              group) of remat off, 48 R1 / 48 K1 / 24 K2 a step under
+              remat (24 / 24 / 24 off), 4 trainer steps each for step time
+              and peak memory, which must fall below remat off's; then
+              `cli.in_loop_train -mn meant_src` with `--remat dots` and
+              with `--scan_layers`, one epoch each.
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
@@ -118,6 +139,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -192,6 +214,15 @@ MLM_PARAMS, MIM_PARAMS = 106_644_737, 58_111_488
 PRETRAIN_LR = 5e-5         # the pretraining CLIs' default -l
 PRETRAIN_DATA_ROWS = 80    # 64 train / 16 val rows (n_val = max(n // 10, 16))
 HEAD_LOSS_REL = 1e-3       # gathered vs full MLM head, relative loss error
+# serving and memory levers: int8 against bf16 serving at JAX's own bars
+# (tests/test_quant.py:115-117); an exported program against the live
+# forward at JAX's export round-trip bar; remat's gradients against remat
+# off where the kernels and products are not bit for bit
+INT8_PROBS_ATOL, INT8_ARGMAX = 0.05, 0.9
+EXPORT_ATOL = 1e-5
+REMAT_GRAD_REL_L2 = 1e-3
+REMAT_STEPS = 4
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg: str):
@@ -1584,6 +1615,384 @@ def run_pretrain(record) -> dict:
     return out
 
 
+# ---- phase 10: serving and memory levers ---------------------------------
+
+def int8_counts() -> dict:
+    """The int8 products since the last reset, by (rows, k, n)."""
+    from meant_tpu_torch.nn import quant
+    return dict(quant.products)
+
+
+def reset_int8_counts():
+    from meant_tpu_torch.nn import quant
+    quant.products.clear()
+
+
+def check_int8_products(shapes, res):
+    """(a) The int8 product (cuBLASLt through `torch._int_mm`, zero-padded
+    to the shapes it takes) against its plain version, the fp64 product,
+    which is exact for int8 operands here: int32 equal at every (rows, k,
+    n) the int8 forward used."""
+    from meant_tpu_torch.nn.quant import int8_matmul, int8_matmul_reference
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for m, k, n in sorted(shapes):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        got, want = int8_matmul(a, w), int8_matmul_reference(a, w)
+        exact = bool(torch.equal(got, want))
+        rows.append({"shape": [m, k, n], "exact": exact,
+                     "padded": any(x % 8 for x in (k, n)) or m <= 16})
+        if not exact:
+            fail(f"int8 product at (rows, k, n) = {(m, k, n)} differs from "
+                 f"its plain version by "
+                 f"{(got - want).abs().max().item()}")
+    print(f"int8 product exact at {len(rows)} shapes: "
+          f"{[r['shape'] for r in rows]}", flush=True)
+    res["int8_products_checked"] = rows
+    reset_int8_counts()
+
+
+def serve_int8(res):
+    """(b) The flagship at fixed_proj=True (its probabilities follow the
+    towers) served in bf16 and in int8 at the same weights: exactly 24 R1 +
+    24 K1 a forward either way, int8 within JAX's own bars of bf16
+    (tests/test_quant.py: atol 0.05, argmax agreement >= 0.9), request and
+    forward device times side by side. Returns the int8 product shapes of
+    one forward."""
+    from meant_tpu_torch.serve import Predictor
+    model = build_flagship(flash=True, fixed_proj=True)
+    batch = request_batch(REQUEST_ROWS, seed=20)
+    chunk = {k: v[:BATCH] for k, v in batch.items()}
+    n_requests = -(-REQUEST_ROWS // BATCH)
+    want = n_requests * 2 * ENCODERS
+    probs, shapes = {}, {}
+    for mode in (None, "int8"):
+        label = mode or "bf16"
+        predictor = Predictor(model, "meant_src", batch_size=BATCH,
+                              quantize=mode)
+        predictor(chunk)        # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        reset_int8_counts()
+        probs[label] = predictor(batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        shapes[label] = int8_counts()
+        check_counts(counts, {"K1": want, "R1": want},
+                     f"serving the flagship in {label}")
+        print(f"served {REQUEST_ROWS} rows in {label}: launches {counts}; "
+              f"int8 products {sum(shapes[label].values())}", flush=True)
+        out = res.setdefault(label, {})
+        time_requests(predictor, chunk, out, label=f"flagship {label}")
+        out["profile"] = profile_calls(lambda: predictor.forward(chunk),
+                                       PROFILE_FORWARDS, "forward")
+    per_forward = {k: n // n_requests for k, n in shapes["int8"].items()}
+    if shapes["bf16"] or not per_forward:
+        fail(f"int8 products: bf16 {shapes['bf16']}, int8 {shapes['int8']}")
+    err = float(np.abs(probs["int8"] - probs["bf16"]).max())
+    agree = float((probs["int8"].argmax(-1)
+                   == probs["bf16"].argmax(-1)).mean())
+    res.update(int8_products_per_forward={str(k): n for k, n in
+                                          per_forward.items()},
+               int8_probs_max_abs_err=err, int8_argmax_agreement=agree)
+    print(f"int8 vs bf16 serving: max |dprob| {err:.4e} (bar "
+          f"{INT8_PROBS_ATOL}), argmax agreement {agree:.3f} (bar "
+          f"{INT8_ARGMAX}); {sum(per_forward.values())} int8 products a "
+          f"forward at {len(per_forward)} shapes", flush=True)
+    if not (np.isfinite(probs["int8"]).all() and err <= INT8_PROBS_ATOL
+            and agree >= INT8_ARGMAX):
+        fail("int8 serving is outside JAX's bars against bf16")
+    del model, predictor
+    torch.cuda.empty_cache()
+    return per_forward
+
+
+def serve_paper_int8(res):
+    """(b) `cli.serve -mn meant --flash true --seq_len 128 --int8` at
+    paper128's width: one 16-row request, 24 R1 + 24 K1."""
+    from meant_tpu_torch.cli import serve as serve_cli
+    reset_counts()
+    probs = serve_cli.main(PAPER_ARGV + ["--int8", "--serve_batch",
+                                         str(BATCH), "--synthetic_n",
+                                         str(BATCH)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, {"K1": 2 * ENCODERS, "R1": 2 * ENCODERS},
+                 "cli.serve -mn meant --int8")
+    if probs.shape != (BATCH, 2) or not np.isfinite(probs).all():
+        fail(f"cli.serve --int8 gave {probs}")
+    res["paper_cli_int8"] = {"launches": counts,
+                             "probs_mean": float(probs.mean())}
+    torch.cuda.empty_cache()
+
+
+LOAD_EXPORTED = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from meant_tpu_torch.serve import load_exported
+from meant_tpu_torch.ops.flash import flash_fwd, flash_fwd_online, rotate_qk
+params = torch.load(sys.argv[3], map_location="cuda")
+batch = dict(np.load(sys.argv[4]))
+fn = load_exported(sys.argv[2])
+fn(params, batch)
+torch.cuda.synchronize()
+for w in (flash_fwd, flash_fwd_online, rotate_qk):
+    w.launches = 0
+probs = fn(params, batch)
+torch.cuda.synchronize()
+np.save(sys.argv[5], probs.float().cpu().numpy())
+print(json.dumps({"K1": flash_fwd.launches, "K3": flash_fwd_online.launches,
+                  "R1": rotate_qk.launches, "models_imported": sorted(
+                      m for m in sys.modules
+                      if m.startswith("meant_tpu_torch.models"))}))
+"""
+
+
+def export_flagship(res):
+    """(c) `cli.serve -mn meant_src --export` writes the flagship's program;
+    a fresh process that imports no model code loads it with
+    `load_exported` and serves the CLI's 16 rows with the CLI model's
+    params: exactly 24 R1 + 24 K1 a call, probabilities within EXPORT_ATOL
+    of the live Predictor's."""
+    import contextlib
+    import io
+    import re
+    from meant_tpu_torch.cli import serve as serve_cli
+    from meant_tpu_torch.cli.common import build_model, synthetic_batch
+    from meant_tpu_torch.serve import Predictor
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "flagship.pt2")
+        argv = ["-rid", "smoke", "-mn", "meant_src", "--seq_len", str(SEQ),
+                "-nec", str(ENCODERS), "--serve_batch", str(BATCH),
+                "--synthetic_n", str(BATCH), "--export", path]
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            serve_cli.main(argv)
+        cli_s = time.perf_counter() - t0
+        print(log.getvalue(), end="", flush=True)
+        found = re.search(r"exported program .* in ([0-9.]+) s",
+                          log.getvalue())
+        if not found:
+            fail("cli.serve --export printed no export time")
+        export_s = float(found.group(1))
+        size = os.path.getsize(path)
+        args = serve_cli.serve_parser().parse_args(argv)
+        model = build_model(args)
+        batch = synthetic_batch(args, BATCH)
+        del batch["y"]
+        live = Predictor(model, "meant_src", batch_size=BATCH)(batch)
+        files = [os.path.join(d, f) for f in ("params.pt", "batch.npz",
+                                              "probs.npy")]
+        torch.save(model.state_dict(), files[0])
+        np.savez(files[1], **batch)
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-c", LOAD_EXPORTED, ROOT, path, *files],
+            capture_output=True, text=True, timeout=600)
+        load_s = time.perf_counter() - t0
+        if done.returncode != 0:
+            fail(f"load_exported in a fresh process failed:\n"
+                 f"{done.stderr[-4000:]}")
+        report = json.loads(done.stdout.strip().splitlines()[-1])
+        got = np.load(files[2])
+    err = float(np.abs(got - live).max())
+    res["export"] = dict(cli_s=cli_s, export_s=export_s, artifact_bytes=size,
+                         fresh_process_s=load_s, probs_max_abs_err=err,
+                         **report)
+    print(f"exported flagship: trace + write {export_s:.1f} s, artifact "
+          f"{size} bytes; a fresh process ({load_s:.1f} s) launched "
+          f"{report}; max |dprob| vs the live Predictor {err:.3e} (bar "
+          f"{EXPORT_ATOL})", flush=True)
+    if report["models_imported"]:
+        fail(f"load_exported imported {report['models_imported']}")
+    if (report["K1"], report["R1"], report["K3"]) != (2 * ENCODERS,
+                                                      2 * ENCODERS, 0):
+        fail(f"the exported flagship launched {report}, want 24 K1 + 24 R1")
+    if not err <= EXPORT_ATOL:
+        fail(f"the exported flagship differs from the live Predictor by "
+             f"{err:.3e}")
+
+
+def export_long(res):
+    """(c) src4096 at 2 encoders a tower, exported and served: its program
+    holds the streaming forward, so a call launches K3 (2, and 2 K1 + 4
+    R1), within EXPORT_ATOL of the live Predictor."""
+    from meant_tpu_torch.serve import Predictor, export_forward, load_exported
+    model = build_flagship(seq=LONG_SEQ, flash=True,
+                           num_encoders=LONG_GRAD_ENCODERS)
+    batch = request_batch(LONG_BATCH, seed=21, seq=LONG_SEQ)
+    live = Predictor(model, "meant_src", batch_size=LONG_BATCH)(batch)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "src4096.pt2")
+        t0 = time.perf_counter()
+        export_forward(model, "meant_src", batch, path)
+        export_s = time.perf_counter() - t0
+        fn = load_exported(path)
+        params = model.state_dict()
+        fn(params, batch)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = fn(params, batch).float().cpu().numpy()
+        torch.cuda.synchronize()
+        counts = read_counts()
+    want = {"K3": LONG_GRAD_ENCODERS, "K1": LONG_GRAD_ENCODERS,
+            "R1": 2 * LONG_GRAD_ENCODERS}
+    check_counts(counts, want, "the exported src4096 program")
+    err = float(np.abs(got - live).max())
+    res["export_src4096"] = {"export_s": export_s, "launches": counts,
+                             "probs_max_abs_err": err}
+    print(f"exported src4096 at {LONG_GRAD_ENCODERS} encoders a tower: "
+          f"{export_s:.1f} s; a call launched {counts}; max |dprob| "
+          f"{err:.3e}", flush=True)
+    if not err <= EXPORT_ATOL:
+        fail(f"the exported src4096 program differs by {err:.3e}")
+    del model
+    torch.cuda.empty_cache()
+
+
+REMAT_SETTINGS = (("off", {}), ("full", {"remat": "full"}),
+                  ("dots", {"remat": "dots"}),
+                  ("scan_layers", {"scan_layers": True}))
+
+
+def train_step_grads(model, batch, seed: int = 0):
+    """Loss and gradients (flat fp32 by group) of one training-mode step,
+    dropout on, drawn from `seed`."""
+    from meant_tpu_torch.train.classify import seed_dropout
+    model.train()
+    model.zero_grad(set_to_none=True)
+    seed_dropout(torch.device("cuda"), seed)
+    loss = classify_loss("meant_src")(model, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    groups = {}
+    for name, p in model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        groups.setdefault(_group(name), []).append(g.reshape(-1).float())
+    model.zero_grad(set_to_none=True)
+    return loss.item(), {k: torch.cat(v) for k, v in groups.items()}
+
+
+def remat_steps(res):
+    """(d) The flagship at fixed_proj=True trained at remat off, "full",
+    "dots" and scan_layers=True (so "dots"), the same weights (seed 0):
+    one step's gradients in training mode with dropout on, the same seed,
+    against remat off (bit for bit, else within REMAT_GRAD_REL_L2 per
+    group; remat off's step is also repeated, to show which groups it
+    repeats bit for bit itself); exactly 24 R1 / 24 K1 / 24 K2 a step off and 48 / 48 / 24
+    under remat (the backward re-runs R1 + K1), one A1; REMAT_STEPS
+    trainer steps for step time and peak memory, and a profiled step."""
+    host = train_batch(BATCH, seed=22)
+    batch = to_card(host)
+    base = None
+    for label, kw in REMAT_SETTINGS:
+        model = build_flagship(flash=True, fixed_proj=True, **kw)
+        fwd = 24 if label == "off" else 48
+        reset_counts()
+        loss, grads = train_step_grads(model, batch)
+        check_counts(read_counts(), {"K1": fwd, "R1": fwd, "K2": 24},
+                     f"a training step at remat {label}")
+        out = {"loss": loss}
+        if base is None:
+            base = grads
+            # the same step again: what remat off itself repeats bit for bit
+            _, again = train_step_grads(model, batch)
+            out["repeat_bitwise_equal"] = {
+                name: bool(torch.equal(g, base[name]))
+                for name, g in again.items()}
+            del again
+        else:
+            for name, g in grads.items():
+                same = bool(torch.equal(g, base[name]))
+                rel = 0.0 if same else rel_l2(g, base[name])
+                out[f"{name}_bitwise_equal"] = same
+                out[f"{name}_grad_rel_l2"] = rel
+                if not rel <= REMAT_GRAD_REL_L2:
+                    fail(f"remat {label}: {name} gradients differ from "
+                         f"remat off by {rel:.3e} relative L2")
+        del grads
+        steps, trainer, card_batch = train_steps(
+            model, host, REMAT_STEPS,
+            {"K1": fwd, "R1": fwd, "K2": 24, "A1": 1}, f"remat {label}",
+            falling=False)
+        out.update(step_ms_median=steps["step_ms_median"],
+                   step_ms=steps["step_ms"],
+                   peak_memory_bytes=steps["peak_memory_bytes"],
+                   launches=steps["launches"],
+                   profile=profile_calls(
+                       lambda: trainer.train_step(card_batch), 1, "step"))
+        res[f"remat_{label}"] = out
+        print(f"remat {label}: " + json.dumps(
+            {k: v for k, v in out.items() if k not in ("profile",
+                                                       "launches")}),
+              flush=True)
+        del model, trainer, card_batch
+        torch.cuda.empty_cache()
+    off = res["remat_off"]["peak_memory_bytes"]
+    for label, _ in REMAT_SETTINGS[1:]:
+        if not res[f"remat_{label}"]["peak_memory_bytes"] < off:
+            fail(f"remat {label} peaks at "
+                 f"{res[f'remat_{label}']['peak_memory_bytes']} bytes, not "
+                 f"below remat off's {off}")
+
+
+def remat_through_cli(res):
+    """(e) cli.in_loop_train -mn meant_src with --remat dots, then with
+    --scan_layers: one epoch of a 64-row synthetic set (2 steps), exactly
+    24 K2 and one A1 a step and at least 48 K1 (the evaluation's forwards
+    launch K1 too), as many R1."""
+    from meant_tpu_torch.cli import in_loop_train
+    for flags in (["--remat", "dots"], ["--scan_layers"]):
+        with tempfile.TemporaryDirectory() as d:
+            argv = ["-rid", "smoke", "-mn", "meant_src", "--seq_len",
+                    str(SEQ), "-nec", str(ENCODERS), "--synthetic_n", "64",
+                    "-tb", str(BATCH), "-ne", "1", "-fp", d, "-lrst",
+                    "constant", "-l", str(LEARN_LR), *flags]
+            reset_counts()
+            results = in_loop_train.main(argv)
+            counts = read_counts()
+            trainer = results.pop("trainer")
+            steps = trainer.optimizer.step_count
+            if (trainer.model.languageEncoders.remat != "dots"
+                    or counts["A1"] != steps or counts["K2"] != 24 * steps
+                    or counts["K1"] < 48 * steps
+                    or counts["R1"] != counts["K1"] or counts["K3"]):
+                fail(f"in_loop_train {flags}: {steps} steps launched "
+                     f"{counts}")
+        label = " ".join(flags)
+        res[f"cli {label}"] = {"steps": steps, "launches": counts,
+                               "history": results["history"]}
+        print(f"cli.in_loop_train {label}: {steps} steps, launches "
+              f"{counts}", flush=True)
+        del trainer, results
+        torch.cuda.empty_cache()
+
+
+def run_levers(record) -> dict:
+    """Phase 10: int8 serving, the exported forward, remat and scan_layers
+    at the flagship's width."""
+    res = {}
+    t0 = time.perf_counter()
+    shapes = serve_int8(res)
+    check_int8_products(shapes, res)
+    serve_paper_int8(res)
+    export_flagship(res)
+    export_long(res)
+    remat_steps(res)
+    remat_through_cli(res)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"phase levers: {res['wall_s']:.1f} s", flush=True)
+    record["levers"] = res
+    return res
+
+
 # ---- phase 7: timing ---------------------------------------------------
 
 def attention_cost(c, backward: bool = False) -> tuple:
@@ -1978,6 +2387,7 @@ def main(argv=None) -> int:
     long_counts = run_long(record)
     paper = run_paper(record)
     pretrain = run_pretrain(record)
+    run_levers(record)
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
                         a1_err, record["n_params"], paper, pretrain)
     at = [r["name"] for r in rows].index("adamw")
@@ -1994,7 +2404,6 @@ def main(argv=None) -> int:
               f"{card}", flush=True)
     record["wall_s"] = time.perf_counter() - t_start
     if args.out:
-        import os
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1, default=str)

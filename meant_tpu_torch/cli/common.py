@@ -106,12 +106,21 @@ def base_parser() -> argparse.ArgumentParser:
     for flag in ("--buckets", "--hf_cache"):
         p.add_argument(flag, type=str, default=None,
                        help="not ported yet: raises if given")
-    for flag in ("--fsdp", "--mu_bf16", "--scan_layers"):
+    for flag in ("--fsdp", "--mu_bf16"):
         p.add_argument(flag, type=str2bool, nargs="?", const=True,
                        default=False, help="not ported yet: raises if set")
+    p.add_argument("--scan_layers", type=str2bool, nargs="?", const=True,
+                   default=False,
+                   help="the JAX package's scanned towers (nn/stack.py): "
+                        "one module per block, rematerialised with 'dots' "
+                        "unless --remat says otherwise (meant-family "
+                        "towers)")
     p.add_argument("--remat", nargs="?", const="full", default=False,
                    choices=["full", "dots"],
-                   help="not ported yet: raises if set")
+                   help="rematerialise encoder blocks in training: bare "
+                        "--remat = 'full' (save nothing), '--remat dots' = "
+                        "selective (matrix-product outputs saved; "
+                        "nn/stack.py)")
     p.add_argument("--full_mlm_head", action="store_true",
                    help="MLM harness: compute the head over all (b, s) "
                         "positions instead of the gathered masked ones")
@@ -127,8 +136,12 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-UNPORTED_FLAGS = ("buckets", "hf_cache", "fsdp", "mu_bf16", "scan_layers",
-                  "remat")
+UNPORTED_FLAGS = ("buckets", "hf_cache", "fsdp", "mu_bf16")
+# the models that take --scan_layers / --remat
+# (meant_tpu/cli/common.py:221-230); the TimeSformer ones are not ported yet
+SCAN_MODELS = ("meant", "meant_src", "meant_vision", "meant_tweet",
+               "meant_tweet_no_lag", "meantPrice", "meant_vqa",
+               "meant_timesformer", "meant_mean_pooling", "meant_mosi")
 
 
 def refuse_unported(args) -> None:
@@ -208,8 +221,16 @@ def dataset_arrays(args) -> dict:
 def build_model(args, device=None):
     """The ported models by the reference's --model_name values, built on
     `device` (args.device, else the card), with the JAX CLI's arguments
-    (meant_tpu/cli/common.py:231-252, 274-276)."""
+    (meant_tpu/cli/common.py:219-252, 274-276), `--scan_layers` and
+    `--remat` included."""
     name = args.model_name
+    scan_layers = bool(getattr(args, "scan_layers", False))
+    remat = getattr(args, "remat", False)
+    if (scan_layers or remat) and name not in SCAN_MODELS:
+        # as the JAX CLI: refuse rather than ignore, so a run never claims
+        # a configuration the model did not use
+        raise SystemExit(f"--scan_layers/--remat are only supported by "
+                         f"{'/'.join(SCAN_MODELS)} (got --model_name {name})")
     if name not in PAPER_MODELS + ("meant_src",):
         raise NotImplementedError(
             f"model {name} is not yet ported to meant_tpu_torch "
@@ -227,7 +248,7 @@ def build_model(args, device=None):
     emb = models.EmbeddingConfig(vocab_size=args.vocab_size, hidden_size=td)
     common = dict(num_heads=args.num_heads, num_encoders=args.num_encoders,
                   dtype=torch.bfloat16 if args.bf16 else None, device=device,
-                  seed=args.seed)
+                  seed=args.seed, scan_layers=scan_layers, remat=remat)
     logits_head = bool(args.logits_head)
     if name == "meant":
         return models.meant(td, imd, 4, size, size, 16, lag, nc,

@@ -14,7 +14,9 @@ TempStock-shaped set and meant_src a synthetic kwargs-family set
 `-p true -ptm PATH` grafts the encoder towers and the embedding of a
 pretraining checkpoint (`cli.pretrain_mlm`, `cli.pretrain_mim`) into the
 fresh model before the first step (`train.checkpoint.graft`).
---buckets, --hf_cache, --fsdp and --mu_bf16 are not ported yet and raise.
+`--remat {full,dots}` and `--scan_layers` reach the meant-family towers
+(nn/stack.py); another `-mn` refuses them. --buckets, --hf_cache, --fsdp
+and --mu_bf16 are not ported yet and raise.
 The run trains on the card unless --device names another device, saves the
 checkpoint after training and evaluates the test split.
 """

@@ -13,7 +13,8 @@ checkpoint lands under `{file_path}/models/meant_vision_pretrainer/`.
 
 As in the JAX harness, `--flash` is taken as given: any value but the empty
 string, "false" and the default "auto" included, turns the flash path on
-(ROADMAP §3, reference behaviour).
+(ROADMAP §3, reference behaviour). `--remat` and `--scan_layers` reach the
+tower, as in the JAX harness.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ def build_model(args, images_shape: tuple) -> meant_vision_pretrainer:
         num_encoders=args.num_encoders, patch_res=16, channels=channels,
         height=height, width=width, image_dim=args.image_dim,
         num_heads=args.num_heads, flash=bool(args.flash),
+        scan_layers=bool(args.scan_layers), remat=args.remat,
         dtype=torch.bfloat16 if args.bf16 else None, device=args.device,
         seed=args.seed)
 

@@ -18,7 +18,8 @@ under `{file_path}/models/meant_language_pretrainer/`.
 
 As in the JAX harness, `--flash` is taken as given: any value but the empty
 string, "false" and the default "auto" included, turns the flash path on
-and the padding mask off (ROADMAP §3, reference behaviour).
+and the padding mask off (ROADMAP §3, reference behaviour). `--remat` and
+`--scan_layers` reach the tower, as in the JAX harness.
 """
 
 from __future__ import annotations
@@ -87,9 +88,9 @@ def build_model(args) -> meant_language_pretrainer:
     return meant_language_pretrainer(
         num_encoders=args.num_encoders, embedding=emb,
         text_dim=args.text_dim, num_heads=args.num_heads,
-        flash=bool(args.flash),
-        dtype=torch.bfloat16 if args.bf16 else None, device=args.device,
-        seed=args.seed)
+        flash=bool(args.flash), scan_layers=bool(args.scan_layers),
+        remat=args.remat, dtype=torch.bfloat16 if args.bf16 else None,
+        device=args.device, seed=args.seed)
 
 
 def main(argv=None) -> dict:

@@ -7,8 +7,10 @@ Lag is folded into the batch for the per-day encoders, so each tower sees
 (b * lag, s, d); the temporal stage then sees (b, lag, d). Each model keeps
 the JAX constructor's positional order and field names, adds `device` (the
 card unless named) and `seed` (weights drawn from
-`torch.Generator(device).manual_seed(seed)`), and refuses the JAX levers
-`remat` and `scan_layers` (not ported yet, see ROADMAP).
+`torch.Generator(device).manual_seed(seed)`), and takes the JAX levers
+`remat` (False, True / "full", "dots") and `scan_layers` (nn/stack.py: a
+scanned tower keeps one module per block and rematerialises with "dots"
+when `remat` is off, as JAX's scanned body does).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from meant_tpu_torch.nn.encoders import (LanguageEncoder, TemporalEncoder,
                                          VisionEncoder)
 from meant_tpu_torch.nn.layers import (Linear, SeededInit, init_weights,
                                        make_norm)
+from meant_tpu_torch.nn.stack import run_block, tower_remat
 from meant_tpu_torch.ops.patch import patchify
 
 
@@ -48,36 +51,34 @@ def make_embedding(cfg: EmbeddingConfig, dtype, device) -> RobertaEmbeddings:
         device=device)
 
 
-def refuse_stack_levers(remat: Any, scan_layers: bool) -> None:
-    if remat or scan_layers:
-        raise NotImplementedError(
-            "remat and scan_layers are not ported to meant_tpu_torch yet "
-            "(see ROADMAP)")
-
-
 class LanguageTower(nn.ModuleList):
-    """`num_encoders` LanguageEncoders, unrolled."""
+    """`num_encoders` LanguageEncoders, one module each; in training each
+    block rematerialises per `tower_remat(remat, scan_layers)`."""
 
-    def __init__(self, num_encoders: int, **enc_kwargs):
+    def __init__(self, num_encoders: int, remat: Any = False,
+                 scan_layers: bool = False, **enc_kwargs):
         super().__init__([LanguageEncoder(**enc_kwargs)
                           for _ in range(num_encoders)])
+        self.remat = tower_remat(remat, scan_layers)
 
     def forward(self, x, attention_mask=None):
         for enc in self:
-            x = enc(x, attention_mask)
+            x = run_block(enc, self.remat, x, attention_mask)
         return x
 
 
 class VisionTower(nn.ModuleList):
-    """`num_encoders` VisionEncoders, unrolled."""
+    """`num_encoders` VisionEncoders, as LanguageTower."""
 
-    def __init__(self, num_encoders: int, **enc_kwargs):
+    def __init__(self, num_encoders: int, remat: Any = False,
+                 scan_layers: bool = False, **enc_kwargs):
         super().__init__([VisionEncoder(**enc_kwargs)
                           for _ in range(num_encoders)])
+        self.remat = tower_remat(remat, scan_layers)
 
     def forward(self, x):
         for enc in self:
-            x = enc(x)
+            x = run_block(enc, self.remat, x)
         return x
 
 
@@ -117,7 +118,7 @@ class meant(nn.Module):
 
     With flash=True the language tower drops the padding mask, as the
     reference does. `ff_dropout` defaults to the reference's nn.Dropout()
-    p=0.5 (DEFECTS #22); `remat` and `scan_layers` raise when truthy.
+    p=0.5 (DEFECTS #22).
     """
 
     def __init__(self, text_dim: int, image_dim: int, price_dim: int,
@@ -131,19 +132,20 @@ class meant(nn.Module):
                  dtype: Optional[torch.dtype] = None, device=None,
                  seed: int = 0):
         super().__init__()
-        refuse_stack_levers(remat, scan_layers)
+        stack = dict(remat=remat, scan_layers=scan_layers)
+        self.remat, self.scan_layers = remat, scan_layers
         device = resolve_device(device)
         self.text_dim, self.image_dim, self.patch_res = (text_dim, image_dim,
                                                          patch_res)
         self.embedding = make_embedding(embedding, dtype, device)
         self.languageEncoders = LanguageTower(
             num_encoders, dim=text_dim, num_heads=num_heads, flash=flash,
-            ff_dropout=ff_dropout, dtype=dtype, device=device)
+            ff_dropout=ff_dropout, dtype=dtype, device=device, **stack)
         self.patchEmbed = Linear(image_dim, channels * patch_res ** 2,
                                  dtype=dtype, device=device)
         self.visionEncoders = VisionTower(
             num_encoders, dim=image_dim, num_heads=num_heads, flash=flash,
-            dtype=dtype, device=device)
+            dtype=dtype, device=device, **stack)
         dim = text_dim + image_dim
         self.temporal_encoding_0 = TemporalEncoder(
             dim, num_heads, lag, style="paper", dtype=dtype, device=device)
@@ -179,14 +181,15 @@ class meant_vision(nn.Module):
                  dtype: Optional[torch.dtype] = None, device=None,
                  seed: int = 0):
         super().__init__()
-        refuse_stack_levers(remat, scan_layers)
+        stack = dict(remat=remat, scan_layers=scan_layers)
+        self.remat, self.scan_layers = remat, scan_layers
         device = resolve_device(device)
         self.image_dim, self.patch_res = image_dim, patch_res
         self.patchEmbed = Linear(image_dim, channels * patch_res ** 2,
                                  dtype=dtype, device=device)
         self.visionEncoders = VisionTower(
             num_encoders, dim=image_dim, num_heads=num_heads, flash=flash,
-            dtype=dtype, device=device)
+            dtype=dtype, device=device, **stack)
         self.temporal_encoding_0 = TemporalEncoder(
             image_dim, num_heads, lag, style="slim", dtype=dtype,
             device=device)
@@ -216,13 +219,14 @@ class meant_tweet(nn.Module):
                  remat: Any = False, dtype: Optional[torch.dtype] = None,
                  device=None, seed: int = 0):
         super().__init__()
-        refuse_stack_levers(remat, scan_layers)
+        stack = dict(remat=remat, scan_layers=scan_layers)
+        self.remat, self.scan_layers = remat, scan_layers
         device = resolve_device(device)
         self.text_dim = text_dim
         self.embedding = make_embedding(embedding, dtype, device)
         self.languageEncoders = LanguageTower(
             num_encoders, dim=text_dim, num_heads=num_heads, flash=flash,
-            ff_dropout=ff_dropout, dtype=dtype, device=device)
+            ff_dropout=ff_dropout, dtype=dtype, device=device, **stack)
         self.temporal_encoding_0 = TemporalEncoder(
             text_dim, num_heads, lag, style="slim", dtype=dtype,
             device=device)
@@ -253,13 +257,14 @@ class meant_tweet_no_lag(SeededInit, nn.Module):
                  remat: Any = False, dtype: Optional[torch.dtype] = None,
                  device=None, seed: int = 0):
         super().__init__()
-        refuse_stack_levers(remat, scan_layers)
+        stack = dict(remat=remat, scan_layers=scan_layers)
+        self.remat, self.scan_layers = remat, scan_layers
         device = resolve_device(device)
         self.embedding = make_embedding(embedding, dtype, device)
         self.txt_classtkn = _cls_token((1, 1, text_dim), device)
         self.languageEncoders = LanguageTower(
             num_encoders, dim=text_dim, num_heads=num_heads, norm="layer",
-            ff_dropout=0.0, dtype=dtype, device=device)
+            ff_dropout=0.0, dtype=dtype, device=device, **stack)
         self.mlpHead = MlpHead(text_dim, num_classes, norm="layer",
                                dtype=dtype, device=device)
         init_weights(self, torch.Generator(device=device).manual_seed(seed))
@@ -295,7 +300,8 @@ class meantPrice(SeededInit, nn.Module):
                  dtype: Optional[torch.dtype] = None, device=None,
                  seed: int = 0):
         super().__init__()
-        refuse_stack_levers(remat, scan_layers)
+        stack = dict(remat=remat, scan_layers=scan_layers)
+        self.remat, self.scan_layers = remat, scan_layers
         device = resolve_device(device)
         self.text_dim, self.image_dim, self.patch_res = (text_dim, image_dim,
                                                          patch_res)
@@ -303,13 +309,13 @@ class meantPrice(SeededInit, nn.Module):
         self.txt_classtkn = _cls_token((1, lag, 1, text_dim), device)
         self.languageEncoders = LanguageTower(
             num_encoders, dim=text_dim, num_heads=num_heads, norm="layer",
-            ff_dropout=0.0, dtype=dtype, device=device)
+            ff_dropout=0.0, dtype=dtype, device=device, **stack)
         self.patchEmbed = Linear(image_dim, channels * patch_res ** 2,
                                  dtype=dtype, device=device)
         self.img_classtkn = _cls_token((1, lag, 1, image_dim), device)
         self.visionEncoders = VisionTower(
             num_encoders, dim=image_dim, num_heads=num_heads, norm="layer",
-            dtype=dtype, device=device)
+            dtype=dtype, device=device, **stack)
         dim = text_dim + image_dim + price_dim
         self.temporal_encoding_0 = TemporalEncoder(dim, num_heads, lag,
                                                    style="slim",
@@ -359,18 +365,19 @@ class meant_vqa(nn.Module):
                  ff_dropout: float = 0.5, dtype: Optional[torch.dtype] = None,
                  device=None, seed: int = 0):
         super().__init__()
-        refuse_stack_levers(remat, scan_layers)
+        stack = dict(remat=remat, scan_layers=scan_layers)
+        self.remat, self.scan_layers = remat, scan_layers
         device = resolve_device(device)
         self.patch_res = patch_res
         self.embedding = make_embedding(embedding, dtype, device)
         self.languageEncoders = LanguageTower(
             num_encoders, dim=text_dim, num_heads=num_heads, flash=flash,
-            ff_dropout=ff_dropout, dtype=dtype, device=device)
+            ff_dropout=ff_dropout, dtype=dtype, device=device, **stack)
         self.patchEmbed = Linear(image_dim, channels * patch_res ** 2,
                                  dtype=dtype, device=device)
         self.visionEncoders = VisionTower(
             num_encoders, dim=image_dim, num_heads=num_heads, flash=flash,
-            dtype=dtype, device=device)
+            dtype=dtype, device=device, **stack)
         self.mlpHead = MlpHead(text_dim + image_dim, num_classes, norm="rms",
                                dtype=dtype, device=device)
         init_weights(self, torch.Generator(device=device).manual_seed(seed))

@@ -5,11 +5,14 @@ Reference defect kept behind a flag: the learned sequence projection is
 feature maps every input to its bias, so at `fixed_proj=False` (the
 default, bug-faithful) both towers reach the temporal stage as a constant.
 `fixed_proj=True` drops the LayerNorm.
+
+`flash_text` / `flash_vision` override `flash` per tower (None follows
+`flash`); `remat` and `scan_layers` are the towers' levers (nn/stack.py).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -52,7 +55,8 @@ class meant_src(nn.Module):
 
     Built on `device` (the card unless named) with weights drawn from
     `torch.Generator(device).manual_seed(seed)`. The constructor keeps the
-    JAX package's positional order; `lag` is read from the inputs.
+    JAX package's positional order and fields; `lag` is read from the
+    inputs.
     """
 
     def __init__(self, text_dim: int, image_dim: int, price_dim: int,
@@ -61,27 +65,34 @@ class meant_src(nn.Module):
                  flash: bool = False, num_heads: int = 8,
                  num_encoders: int = 1, channels: int = 3, seq_len: int = 512,
                  fixed_proj: bool = False, logits_head: bool = False,
+                 remat: Any = False, scan_layers: bool = False,
+                 flash_text: Optional[bool] = None,
+                 flash_vision: Optional[bool] = None,
                  dtype: Optional[torch.dtype] = None, device=None,
                  seed: int = 0):
         super().__init__()
         device = resolve_device(device)
+        self.remat, self.scan_layers = remat, scan_layers
+        flash_text = flash if flash_text is None else flash_text
+        flash_vision = flash if flash_vision is None else flash_vision
         self.text_dim, self.image_dim = text_dim, image_dim
         self.patch_res, self.seq_len, self.dtype = patch_res, seq_len, dtype
         n_patches = (height // patch_res) * (width // patch_res)
         tower = dict(norm="layer", ff_norm2="rms", init_style="xavier",
-                     dtype=dtype, device=device)
+                     dtype=dtype, device=device, remat=remat,
+                     scan_layers=scan_layers)
         self.embedding = make_embedding(embedding, dtype, device)
         self.languageEncoders = LanguageTower(
-            num_encoders, dim=text_dim, num_heads=num_heads, flash=flash,
-            **tower)
+            num_encoders, dim=text_dim, num_heads=num_heads,
+            flash=flash_text, **tower)
         self.lang_proj = SeqProjection(seq_len, fixed=fixed_proj,
                                        dtype=dtype, device=device)
         self.patchEmbed = Linear(image_dim, channels * patch_res ** 2,
                                  init_style="torch", dtype=dtype,
                                  device=device)
         self.visionEncoders = VisionTower(
-            num_encoders, dim=image_dim, num_heads=num_heads, flash=flash,
-            **tower)
+            num_encoders, dim=image_dim, num_heads=num_heads,
+            flash=flash_vision, **tower)
         self.image_proj = SeqProjection(n_patches, fixed=fixed_proj,
                                         dtype=dtype, device=device)
         dim = text_dim + price_dim + image_dim

@@ -11,7 +11,8 @@ reference's 1x1 conv) -> pixel shuffle, reconstructing RGB.
 Depth is `num_encoders` in both, as the JAX package builds them (the
 reference's vision pretrainer builds one encoder at any depth, DEFECTS
 #29). Each model takes `device` (the card unless named) and `seed`, and
-refuses `remat` and `scan_layers`, like the port's other models.
+the levers `remat` and `scan_layers` of its tower (nn/stack.py), like the
+port's other models.
 """
 
 from __future__ import annotations
@@ -26,8 +27,7 @@ from torch.nn.functional import pixel_shuffle
 
 from meant_tpu_torch.device import resolve_device
 from meant_tpu_torch.models.meant import (EmbeddingConfig, LanguageTower,
-                                          VisionTower, make_embedding,
-                                          refuse_stack_levers)
+                                          VisionTower, make_embedding)
 from meant_tpu_torch.nn.layers import (LayerNorm, Linear, SeededInit, gelu,
                                        init_weights)
 from meant_tpu_torch.ops.patch import patchify
@@ -93,13 +93,14 @@ class meant_language_pretrainer(nn.Module):
                  dtype: Optional[torch.dtype] = None, device=None,
                  seed: int = 0):
         super().__init__()
-        refuse_stack_levers(remat, scan_layers)
+        self.remat, self.scan_layers = remat, scan_layers
         device = resolve_device(device)
         self.tie_word_embeddings = tie_word_embeddings
         self.embedding = make_embedding(embedding, dtype, device)
         self.languageEncoders = LanguageTower(
             num_encoders, dim=text_dim, num_heads=num_heads, flash=flash,
-            ff_dropout=ff_dropout, dtype=dtype, device=device)
+            ff_dropout=ff_dropout, dtype=dtype, device=device, remat=remat,
+            scan_layers=scan_layers)
         self.mlm_head = RobertaLMHead(text_dim, embedding.vocab_size,
                                       tied=tie_word_embeddings, dtype=dtype,
                                       device=device)
@@ -124,14 +125,14 @@ class meant_vision_pretrainer(nn.Module):
                  remat: Any = False, dtype: Optional[torch.dtype] = None,
                  device=None, seed: int = 0):
         super().__init__()
-        refuse_stack_levers(remat, scan_layers)
+        self.remat, self.scan_layers = remat, scan_layers
         device = resolve_device(device)
         self.patch_res = patch_res
         self.patchEmbed = Linear(image_dim, channels * patch_res ** 2,
                                  dtype=dtype, device=device)
         self.visionEncoders = VisionTower(
             num_encoders, dim=image_dim, num_heads=num_heads, flash=flash,
-            dtype=dtype, device=device)
+            dtype=dtype, device=device, remat=remat, scan_layers=scan_layers)
         self.decoder = Linear(patch_res ** 2 * 3, image_dim, dtype=dtype,
                               device=device)
         init_weights(self, torch.Generator(device=device).manual_seed(seed))

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from meant_tpu_torch.nn.quant import MIN_FEATURES, int8_active, int8_dense
 from meant_tpu_torch.ops.norms import layer_norm, rms_norm
 
 
@@ -37,7 +38,9 @@ def init_weights(root: nn.Module, generator: torch.Generator) -> None:
 
 
 class Linear(SeededInit, nn.Module):
-    """Dense layer y = x W^T + b; weight (features, in_features)."""
+    """Dense layer y = x W^T + b; weight (features, in_features). Inside
+    `nn.quant.int8_inference()` a layer of MIN_FEATURES or more features
+    computes through `int8_dense`."""
 
     def __init__(self, features: int, in_features: int,
                  init_style: str = "torch",
@@ -65,6 +68,8 @@ class Linear(SeededInit, nn.Module):
 
     def forward(self, x):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        if int8_active() and self.weight.shape[0] >= MIN_FEATURES:
+            return int8_dense(x, self.weight, self.bias, out_dtype=dt)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 

@@ -15,7 +15,11 @@ On CUDA tensors `flash_mha` launches the hand-written kernels in
 tensors it runs their plain versions `flash_mha_reference` (the same math
 as the JAX package's `_xla_reference`), `flash_mha_bwd_reference`,
 `flash_mha_online_reference` and `flash_mha_bwd_online_reference`. There
-is no fallback from a kernel to its plain version.
+is no fallback from a kernel to its plain version. The forwards (R1 + K1,
+R1 + K3) are PyTorch custom ops, `meant_tpu_torch::flash_fwd` and
+`meant_tpu_torch::flash_fwd_lse`, which the autograd Functions and the
+inference path call: `torch.export` keeps them in an exported program and
+activation checkpointing sees one operator it can re-run.
 
 Left out on purpose (TPU-only in the JAX package): SPMD partitioning,
 interpret mode, `block_q` / `block_k`, the VMEM sizing of the blocks and
@@ -497,12 +501,26 @@ def _contiguous(kmask, *tables):
             *(t.contiguous() for t in tables))
 
 
-def _rotated_forward(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
-                     causal):
-    """R1 (q and k rotated once), then K1, on the card: out (b, h, s, d) and
-    the (b*h, s, d) Qr and Kr that K2 takes."""
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_mha runs on CUDA or CPU, not {q.device}")
+# The forwards as PyTorch operators, so that autograd, checkpointing and
+# torch.export see one operator each: `meant_tpu_torch::flash_fwd` (R1 +
+# K1) and `meant_tpu_torch::flash_fwd_lse` (R1 + K3). The dispatcher picks
+# the implementation by the tensors' device: the kernels for CUDA tensors,
+# the plain versions for CPU tensors, shapes and dtypes alone for the fake
+# tensors of a trace. A CUDA tensor never reaches a plain version. They are
+# registered with `torch.library.Library`: `torch.library.custom_op` wraps
+# each call in Python layers that cost a `meant` training step 12-19 ms of
+# host time on the H100 (tools/dispatch_cost.py, PERF.md).
+_LIB = torch.library.Library("meant_tpu_torch", "DEF")
+_ARGS = ("Tensor q, Tensor k, Tensor v, Tensor? kmask, Tensor qcos, "
+         "Tensor qsin, Tensor kcos, Tensor ksin, float scale, bool causal")
+_LIB.define(f"flash_fwd({_ARGS}) -> (Tensor, Tensor, Tensor)")
+_LIB.define(f"flash_fwd_lse({_ARGS}) -> (Tensor, Tensor)")
+
+
+def _flash_fwd_cuda(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
+    """R1 (q and k rotated once), then K1: out (b, h, s, d) and the
+    (b*h, s, d) Qr and Kr that K2 takes, of (b, h, s, d) q, k, v; kmask
+    (b | 1, s) fp32 or None; tables (s, d) fp32."""
     b, h, s, d = q.shape
     q, k, v = _flat(b, h, s, d, q, k, v)
     kmask, *tables = _contiguous(kmask, qcos, qsin, kcos, ksin)
@@ -512,28 +530,52 @@ def _rotated_forward(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
     return out.reshape(b, h, s, d), qr, kr
 
 
-def _forward(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
-    """R1 + K1 on the card, their plain version on the CPU. (b, h, s, d) in
-    and out."""
-    if q.device.type == "cpu":
-        return flash_mha_reference(q, k, v, kmask, qcos, qsin, kcos, ksin,
-                                   scale=scale, causal=causal)
-    return _rotated_forward(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
-                            causal)[0]
+def _flash_fwd_plain(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
+    b, h, s, d = q.shape
+    qr, kr = _rotate(q, qcos, qsin), _rotate(k, kcos, ksin)
+    out = attend(qr, kr, v, scale=scale, causal=causal, attention_mask=kmask)
+    return out, qr.reshape(b * h, s, d), kr.reshape(b * h, s, d)
 
 
-def _forward_online(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
-    """R1 (q and k rotated once), then K3 on the card; its plain version on
-    the CPU. (b, h, s, d) in; (out (b, h, s, d), lse (b, h, s) fp32) out."""
-    if q.device.type == "cpu":
-        return flash_mha_online_reference(q, k, v, kmask, qcos, qsin, kcos,
-                                          ksin, scale=scale, causal=causal)
+def _flash_fwd_fake(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
+    b, h, s, d = q.shape
+    return (q.new_empty(q.shape), q.new_empty((b * h, s, d)),
+            q.new_empty((b * h, s, d)))
+
+
+def _flash_fwd_lse_cuda(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
+                        causal):
+    """R1 + K3: (out (b, h, s, d), lse (b, h, s) fp32), inputs as
+    `_flash_fwd_cuda`'s."""
     b, h, s, d = q.shape
     q, k, v = _flat(b, h, s, d, q, k, v)
     kmask, *tables = _contiguous(kmask, qcos, qsin, kcos, ksin)
     out, lse = flash_fwd_online(*rotate_qk(q, k, *tables), v, kmask,
                                 scale=scale, causal=causal, num_heads=h)
     return out.reshape(b, h, s, d), lse.reshape(b, h, s)
+
+
+def _flash_fwd_lse_plain(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
+                         causal):
+    return flash_mha_online_reference(q, k, v, kmask, qcos, qsin, kcos,
+                                      ksin, scale=scale, causal=causal)
+
+
+def _flash_fwd_lse_fake(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
+                        causal):
+    b, h, s, d = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+for _name, _cuda, _plain, _fake in (
+        ("flash_fwd", _flash_fwd_cuda, _flash_fwd_plain, _flash_fwd_fake),
+        ("flash_fwd_lse", _flash_fwd_lse_cuda, _flash_fwd_lse_plain,
+         _flash_fwd_lse_fake)):
+    _LIB.impl(_name, _cuda, "CUDA")
+    _LIB.impl(_name, _plain, "CPU")
+    torch.library.register_fake(f"meant_tpu_torch::{_name}", _fake, lib=_LIB)
+flash_fwd_op = torch.ops.meant_tpu_torch.flash_fwd.default
+flash_fwd_lse_op = torch.ops.meant_tpu_torch.flash_fwd_lse.default
 
 
 def _backward_online(q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
@@ -568,8 +610,8 @@ class _FlashAttentionOnline(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
-        out, lse = _forward_online(q, k, v, kmask, qcos, qsin, kcos, ksin,
-                                   scale, causal)
+        out, lse = flash_fwd_lse_op(q, k, v, kmask, qcos, qsin, kcos, ksin,
+                                    scale, causal)
         ctx.save_for_backward(q, k, v, kmask, qcos, qsin, kcos, ksin, out,
                               lse)
         ctx.scale, ctx.causal = scale, causal
@@ -597,13 +639,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
-        if q.device.type == "cpu":
-            out = flash_mha_reference(q, k, v, kmask, qcos, qsin, kcos, ksin,
-                                      scale=scale, causal=causal)
-            saved = (q, k)
-        else:
-            out, *saved = _rotated_forward(q, k, v, kmask, qcos, qsin, kcos,
-                                           ksin, scale, causal)
+        out, qr, kr = flash_fwd_op(q, k, v, kmask, qcos, qsin, kcos, ksin,
+                                   scale, causal)
+        saved = (q, k) if q.device.type == "cpu" else (qr, kr)
         ctx.save_for_backward(*saved, v, kmask, qcos, qsin, kcos, ksin)
         ctx.scale, ctx.causal = scale, causal
         return out
@@ -655,7 +693,8 @@ def flash_mha(q, k, v, *, scale: float, causal: bool = False,
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v))
     if not uses_online(s, d, force_online, return_lse):
-        return _FlashAttention.apply(*args) if grad else _forward(*args)
+        return (_FlashAttention.apply(*args) if grad
+                else flash_fwd_op(*args)[0])
     out, lse = (_FlashAttentionOnline.apply(*args) if grad
-                else _forward_online(*args))
+                else flash_fwd_lse_op(*args))
     return (out, lse[..., None]) if return_lse else out

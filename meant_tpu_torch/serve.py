@@ -1,14 +1,27 @@
-"""Batch inference (counterpart of meant_tpu/serve.py `Predictor`).
+"""Batch inference and the exported forward (counterpart of
+meant_tpu/serve.py).
 
-The model runs at a fixed batch size: a partial last batch is padded by
-repeating its first row and the padded rows are dropped from the result.
-`checkpoint_path` restores the params of a checkpoint the port's trainer
-wrote (`train/checkpoint.py`). Mesh, tensor-parallel and int8 serving and
-export are not ported yet (see ROADMAP).
+`Predictor` runs the model at a fixed batch size: a partial last batch is
+padded by repeating its first row and the padded rows are dropped from the
+result. `checkpoint_path` restores the params of a checkpoint the port's
+trainer wrote (`train/checkpoint.py`). `quantize="int8"` runs every wide
+Linear through the int8 product (`nn/quant.py`). Mesh and tensor-parallel
+serving are not ported yet (ROADMAP §1 item 10).
+
+`export_forward` writes the fixed-shape forward, fp32/bf16 or int8, as a
+`torch.export` program whose inputs are the params (a state_dict of the
+port) and the batch; the flash forwards stay in it as the custom ops
+`meant_tpu_torch::flash_fwd` / `flash_fwd_lse`, so the served program
+launches the hand-written kernels. `load_exported(path)` returns
+`fn(params, batch) -> probs` and needs none of the model code: it imports
+`meant_tpu_torch.ops.flash`, which registers the ops, and nothing of
+`meant_tpu_torch.models`. A program exported on the card serves on the
+card, as the JAX artifact records its lowering platform.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -17,8 +30,18 @@ from torch import nn
 
 from meant_tpu_torch.data.loader import host_tensor
 from meant_tpu_torch.device import resolve_device
+from meant_tpu_torch.nn.quant import int8_inference
 from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import model_inputs
+
+def _check_quantize(quantize: Optional[str]) -> None:
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantize mode {quantize!r}")
+
+
+def _quant_context(quantize: Optional[str]):
+    return (int8_inference() if quantize == "int8"
+            else contextlib.nullcontext())
 
 
 class Predictor:
@@ -32,7 +55,13 @@ class Predictor:
 
     def __init__(self, model: nn.Module, model_name: str,
                  checkpoint_path: Optional[str] = None, batch_size: int = 32,
-                 device=None):
+                 device=None, mesh=None, tensor_parallel: bool = False,
+                 quantize: Optional[str] = None):
+        if mesh is not None or tensor_parallel:
+            raise NotImplementedError(
+                "Predictor(mesh=, tensor_parallel=) is not ported to "
+                "meant_tpu_torch yet (ROADMAP §1 item 10, parallel layouts)")
+        _check_quantize(quantize)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         if checkpoint_path is not None:
@@ -40,6 +69,7 @@ class Predictor:
                 ckpt.restore(checkpoint_path, self.device)["params"])
         self.model_name = model_name
         self.batch_size = batch_size
+        self.quantize = quantize
 
     def _device_batch(self, batch: Dict[str, np.ndarray]):
         return {k: host_tensor(v).to(self.device, non_blocking=True)
@@ -51,19 +81,89 @@ class Predictor:
         tensor of probabilities."""
         args, kwargs = model_inputs(self.model_name,
                                     self._device_batch(batch))
-        return self.model(*args, **kwargs)
+        with _quant_context(self.quantize):
+            return self.model(*args, **kwargs)
 
     def __call__(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
         n = len(next(iter(batch.values())))
         bs = self.batch_size
         outs = []
         for start in range(0, n, bs):
-            chunk = {k: v[start:start + bs] for k, v in batch.items()}
-            pad = bs - len(next(iter(chunk.values())))
-            if pad:
-                chunk = {k: np.concatenate(
-                    [v, np.repeat(v[:1], pad, axis=0)], axis=0)
-                    for k, v in chunk.items()}
+            chunk = pad_chunk({k: v[start:start + bs]
+                               for k, v in batch.items()}, bs)
             out = self.forward(chunk).float().cpu().numpy()
-            outs.append(out[: bs - pad] if pad else out)
+            rows = min(bs, n - start)
+            outs.append(out[:rows])
         return np.concatenate(outs, axis=0)
+
+
+def pad_chunk(chunk: Dict[str, np.ndarray], size: int) -> dict:
+    """`chunk` padded to `size` rows by repeating its first row."""
+    pad = size - len(next(iter(chunk.values())))
+    if pad <= 0:
+        return chunk
+    return {k: np.concatenate([v, np.repeat(v[:1], pad, axis=0)], axis=0)
+            for k, v in chunk.items()}
+
+
+class _Forward(nn.Module):
+    """forward(params, batch) = the model's forward with `params` in place
+    of its own: the module holds the model outside its registry, so the
+    exported program takes the params as inputs and stores none."""
+
+    def __init__(self, model: nn.Module, model_name: str,
+                 quantize: Optional[str]):
+        super().__init__()
+        self.__dict__["model"] = model
+        self.model_name, self.quantize = model_name, quantize
+
+    def forward(self, params, batch):
+        args, kwargs = model_inputs(self.model_name, batch)
+        with _quant_context(self.quantize):
+            return torch.func.functional_call(self.model, params, args,
+                                              kwargs)
+
+
+def _batch_tensors(batch, device) -> dict:
+    return {k: (v if isinstance(v, torch.Tensor) else host_tensor(v)).to(
+        device) for k, v in sorted(batch.items())}
+
+
+def export_forward(model: nn.Module, model_name: str, sample_batch,
+                   path: Optional[str] = None,
+                   quantize: Optional[str] = None):
+    """Export the model's eval forward (int8 with quantize="int8") at the
+    shapes of `sample_batch` with `torch.export`, gradients off; the params
+    (the model's state_dict) and the batch are the program's inputs.
+    Returns the ExportedProgram and writes it to `path` if given; serve it
+    as `load_exported(path)(params, batch)`."""
+    _check_quantize(quantize)
+    model.eval()
+    device = next(model.parameters()).device
+    params = dict(sorted(model.state_dict().items()))
+    batch = _batch_tensors(sample_batch, device)
+    fwd = _Forward(model, model_name, quantize)
+    with torch.no_grad():
+        fwd(params, batch)      # fills the modules' rotation-table caches
+        program = torch.export.export(fwd, (params, batch))
+    program.example_inputs = None   # the params are the caller's to give
+    if path:
+        torch.export.save(program, path)
+    return program
+
+
+def load_exported(path: str):
+    """Load a program written by `export_forward`; returns fn(params,
+    batch) -> probs (a tensor on the params' device). `params` is a
+    state_dict of the port's model, `batch` numpy arrays or tensors at the
+    exported shapes. No model code is imported."""
+    import meant_tpu_torch.ops.flash  # noqa: F401  (registers the ops)
+
+    module = torch.export.load(path).module()
+
+    def fn(params, batch):
+        params = dict(sorted(params.items()))
+        device = next(iter(params.values())).device
+        with torch.no_grad():
+            return module(params, _batch_tensors(batch, device))
+    return fn

@@ -11,6 +11,11 @@ numpy arrays and returns the port's `state_dict`:
   `temp_embedding`, the cls tokens (`txt_classtkn`, `img_classtkn`) and the
   tied MLM head's `decoder_bias` copy as they are.
 * `languageEncoders_3` becomes `languageEncoders.3` (a ModuleList).
+* The scanned layout of a tower, `languageEncoders_scan/enc/...` (and
+  `visionEncoders_scan`), every leaf with a leading layer axis, is
+  unstacked first (`nn.stack.unstack_encoder_params`): a scanned JAX model
+  and an unrolled one load into the same port model, whose checkpoints have
+  one layout.
 
 Every leaf maps to exactly one key; a leaf no rule knows raises.
 `load_jax_params` then loads strictly, so a missing or unused key, or a
@@ -26,13 +31,27 @@ import numpy as np
 import torch
 from torch import nn
 
+from meant_tpu_torch.nn.stack import unstack_encoder_params
+
 _EMBED_TABLES = ("word_embeddings", "position_embeddings",
                  "token_type_embeddings")
 # leaves whose torch key is their JAX path: rotary buffers, the temporal
 # encoder's positional parameter, the cls tokens and the tied MLM head's bias
 _AS_THEY_ARE = ("freqs", "temp_embedding", "txt_classtkn", "img_classtkn",
                 "decoder_bias")
+_TOWERS = ("languageEncoders", "visionEncoders")
 _LIST_RE = re.compile(r"^(languageEncoders|visionEncoders)_(\d+)$")
+
+
+def _unrolled(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    """`tree` with every scanned tower, at any depth, in the unrolled
+    `<tower>_{i}` layout."""
+    out = {k: _unrolled(v) if isinstance(v, Mapping) else v
+           for k, v in tree.items()}
+    for tower in _TOWERS:
+        if f"{tower}_scan" in out:
+            out = unstack_encoder_params(out, tower)
+    return out
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, Any]:
@@ -73,7 +92,7 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy arrays (JAX layout) -> port state_dict (CPU
     tensors, dtypes kept)."""
     out: Dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(params).items():
+    for path, arr in _flatten(_unrolled(params)).items():
         key, transpose = _torch_key(path)
         if key in out:
             raise KeyError(f"two JAX params map to {key}")

@@ -12,6 +12,15 @@ differ only in summation order). bf16: 2e-2 per element and the relative L2
 bars of ops/flash/kernel.py, set from H100 readings (PERF.md): K1 at
 K1_BF16_REL_L2, K3 at BF16_REL_L2; K3's lse within LSE_ATOL absolute. R1: bit for bit `_rotate`. A1: max relative
 error 1e-6 (both sides round every operation to fp32 alike).
+
+The serving and memory levers on a narrow meant_src (dim 192 in 2 heads of
+96, 2 + 2 encoders): the int8 product int32-equal to its plain version;
+int8 serving within JAX's bars of bf16 (atol 0.05, argmax agreement 0.9)
+with the same K1 and R1 launches; the exported program (resident and
+streaming) within 1e-5 of the live forward, launching the kernels; a
+training step under remat launching R1 + K1 twice and K2 once per
+encoder, its gradients those of remat off (1e-3 relative L2 per
+parameter where not bit for bit).
 """
 
 import pytest
@@ -538,3 +547,102 @@ def test_adamw_kernel_matches_plain(cuda, mode, n):
     for got, want in zip((p, m, v), ref):
         err = ((got.cpu() - want).abs() / want.abs().clamp_min(1e-30)).max()
         assert err <= 1e-6, f"max relative error {err}"
+
+
+def _narrow_src(cuda, seq_len=64, **kw):
+    from meant_tpu_torch.models import meant_src
+    return meant_src(192, 192, 5, 32, 32, 16, 5, 2, flash=True, num_heads=2,
+                     num_encoders=2, seq_len=seq_len, fixed_proj=True,
+                     dtype=torch.bfloat16,
+                     embedding=EmbeddingConfig(vocab_size=100,
+                                               hidden_size=192,
+                                               max_position_embeddings=40),
+                     device=cuda, seed=3, **kw)
+
+
+def _src_rows(n, s, seed=0):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return {"input_ids": rng.randint(2, 100, (n, 5, s)).astype(np.int32),
+            "pixels": rng.randn(n, 5, 3, 32, 32).astype(np.float32),
+            "prices": rng.randn(n, 5, 5).astype(np.float32),
+            "attention_mask": np.ones((n, 5, s), np.float32)}
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (16, 1541, 1541),
+                                   (80, 1541, 1536), (17, 37, 33),
+                                   (300, 768, 768)])
+def test_int8_product_is_exact(cuda, m, k, n):
+    from meant_tpu_torch.nn.quant import int8_matmul, int8_matmul_reference
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    got = int8_matmul(a, w)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, int8_matmul_reference(a, w))
+
+
+def test_int8_serving_tracks_bf16(cuda):
+    import numpy as np
+    from meant_tpu_torch.serve import Predictor
+    model = _narrow_src(cuda)
+    rows = _src_rows(16, 64)
+    probs = {}
+    for mode in (None, "int8"):
+        before = [flash_fwd.launches, rotate_qk.launches]
+        probs[mode] = Predictor(model, "meant_src", batch_size=16,
+                                quantize=mode)(rows)
+        torch.cuda.synchronize()
+        assert [flash_fwd.launches - before[0],
+                rotate_qk.launches - before[1]] == [4, 4]
+    assert np.isfinite(probs["int8"]).all()
+    np.testing.assert_allclose(probs["int8"], probs[None], atol=0.05)
+    agree = (probs["int8"].argmax(-1) == probs[None].argmax(-1)).mean()
+    assert agree >= 0.9
+
+
+@pytest.mark.parametrize("seq_len,kernel", [(64, "K1"), (4096, "K3")])
+def test_exported_forward_launches_the_kernels(cuda, tmp_path, seq_len,
+                                               kernel):
+    import numpy as np
+    from meant_tpu_torch.serve import (Predictor, export_forward,
+                                       load_exported)
+    model = _narrow_src(cuda, seq_len=seq_len)
+    rows = _src_rows(2, seq_len)
+    live = Predictor(model, "meant_src", batch_size=2)(rows)
+    path = str(tmp_path / "forward.pt2")
+    export_forward(model, "meant_src", rows, path)
+    fn = load_exported(path)
+    counters = (flash_fwd, flash_fwd_online, rotate_qk)
+    before = [c.launches for c in counters]
+    got = fn(model.state_dict(), rows).float().cpu().numpy()
+    torch.cuda.synchronize()
+    want = [4, 0, 4] if kernel == "K1" else [2, 2, 4]
+    assert [c.launches - n for c, n in zip(counters, before)] == want
+    np.testing.assert_allclose(got, live, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("lever", [dict(remat="full"), dict(remat="dots"),
+                                   dict(scan_layers=True)],
+                         ids=["full", "dots", "scan_layers"])
+def test_remat_step_reruns_r1_k1_and_keeps_gradients(cuda, lever):
+    from meant_tpu_torch.train.classify import seed_dropout
+    rows = {k: host_tensor(v).to(cuda) for k, v in _src_rows(4, 64).items()}
+    grads, counts = [], []
+    for kw in ({}, lever):
+        model = _narrow_src(cuda, **kw).train()
+        counters = (flash_fwd, rotate_qk, flash_bwd)
+        before = [c.launches for c in counters]
+        seed_dropout(cuda, 5)
+        model(**rows).float().square().sum().backward()
+        torch.cuda.synchronize()
+        counts.append([c.launches - n for c, n in zip(counters, before)])
+        grads.append({n: p.grad.float() for n, p in model.named_parameters()})
+    assert counts == [[4, 4, 4], [8, 8, 4]]
+    for name, g in grads[0].items():
+        other = grads[1][name]
+        if not torch.equal(other, g):
+            rel = ((other - g).norm() / g.norm().clamp_min(1e-30)).item()
+            assert rel <= 1e-3, (name, rel)

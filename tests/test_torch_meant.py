@@ -380,7 +380,25 @@ def test_temp_embedding_draws_normal_from_the_seed():
 
 @pytest.mark.parametrize("lever", [dict(remat="full"),
                                    dict(scan_layers=True)])
-def test_stack_levers_raise(lever):
-    with pytest.raises(NotImplementedError):
-        models.meant(**_port_kwargs(dict(MEANT, embedding=EMB)),
-                     device="cpu", **lever)
+def test_stack_levers_raise(lever, meant_params):
+    """The levers are ported (nn/stack.py): meant builds with them and, in
+    training mode with dropout on at one seed, computes bit for bit what it
+    computes without them, outputs and gradients."""
+    b = _inputs()
+    args, kwargs = _meant_args(b)
+    out = {}
+    for key, kw in (("off", {}), ("on", lever)):
+        model = models.meant(**_port_kwargs(dict(MEANT, embedding=EMB)),
+                             device="cpu", **kw)
+        load_jax_params(model, meant_params)
+        model.train()
+        torch.manual_seed(5)
+        y = model(*(host_tensor(v) for v in args),
+                  **{k: host_tensor(v) for k, v in kwargs.items()})
+        y.sum().backward()
+        out[key] = (y.detach(), {n: p.grad for n, p in
+                                 model.named_parameters()})
+    assert model.languageEncoders.remat in ("full", "dots")
+    assert torch.equal(out["on"][0], out["off"][0])
+    for name, g in out["off"][1].items():
+        assert torch.equal(out["on"][1][name], g), name

@@ -377,12 +377,37 @@ def test_gathered_head_equals_full_head(mlm_params):
                                    atol=1e-7, msg=name)
 
 
-def test_pretrainers_refuse_stack_levers_and_need_the_card(monkeypatch):
+def test_pretrainers_refuse_stack_levers_and_need_the_card(monkeypatch,
+                                                         mlm_params,
+                                                         mim_params):
+    """The levers are ported (nn/stack.py): each pretrainer builds with
+    remat="full" and with scan_layers=True (so "dots") and, in training
+    mode at one seed, computes bit for bit what it computes without them,
+    outputs and gradients. The card and mesh refusals stay."""
+    lang = _mlm_batch()
+    imgs = host_tensor(_mim_batch()["input_ids"])
     for lever in (dict(remat="full"), dict(scan_layers=True)):
-        with pytest.raises(NotImplementedError):
-            _p_language(**lever)
-        with pytest.raises(NotImplementedError):
-            models.meant_vision_pretrainer(**VISION, device="cpu", **lever)
+        for kind in ("mlm", "mim"):
+            got = []
+            for kw in ({}, lever):
+                if kind == "mlm":
+                    model = _port(_p_language(**kw), mlm_params[True])
+                    model.train()
+                    torch.manual_seed(3)
+                    y = model(host_tensor(lang["input_ids"]),
+                              host_tensor(lang["attention_mask"]))
+                else:
+                    model = _port(models.meant_vision_pretrainer(
+                        **VISION, device="cpu", **kw), mim_params)
+                    model.train()
+                    y = model(imgs)
+                y.float().square().mean().backward()
+                got.append((y.detach(), {n: p.grad for n, p in
+                                         model.named_parameters()}))
+            assert model.remat == lever.get("remat", False)
+            assert torch.equal(got[0][0], got[1][0]), (kind, lever)
+            for name, g in got[0][1].items():
+                assert torch.equal(got[1][1][name], g), (kind, lever, name)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         models.meant_language_pretrainer(**LANG)

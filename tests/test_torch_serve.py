@@ -47,8 +47,8 @@ def test_serve_cli_smoke(tmp_path):
     np.testing.assert_array_equal(np.load(out), probs)
 
 
-@pytest.mark.parametrize("flag", [["--scan_layers"], ["--int8"],
-                                  ["--export", "x.bin"],
+@pytest.mark.parametrize("flag", [["--fsdp"], ["--mu_bf16"],
+                                  ["-mn", "meant_timesformer"],
                                   ["-mn", "teanet"]])
 def test_serve_cli_refuses_what_is_not_ported(flag):
     argv = ["-rid", "0", "-mn", "meant_src", "--device", "cpu",

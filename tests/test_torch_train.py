@@ -256,7 +256,8 @@ def test_nan_loss_raises(monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--fsdp"], ["--mu_bf16"],
                                   ["--buckets", "128,512"],
-                                  ["--scan_layers"], ["--remat"],
+                                  ["-mn", "meantTweetPrice"],
+                                  ["-mn", "meant_price"],
                                   ["--hf_cache", "somewhere"],
                                   ["-mn", "meant_timesformer"],
                                   ["-mn", "teanet"]])
