@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, run in the order 1-6, 9, 10, 7, 8; any failure raises and the
-script exits non-zero:
+Phases, run in the order 1-6, 9, 10, 11, 7, 8; any failure raises and
+the script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
               long-sequence paths from csrc/, one nvcc per source, all
@@ -22,7 +22,10 @@ script exits non-zero:
               dK/dV (K5) backward at s=4096, BH=16, in fp32 and bf16, and
               the fused AdamW (A1) over all 177,607,733 parameters; R1 +
               K1 and R1 + K2 also at the paper generation's s=128, and at
-              the pretrainers' BH=128 (s=128 causal xPos, s=196).
+              the pretrainers' BH=128 (s=128 causal xPos, s=196), and at
+              meant_mosi's s=50 with xPos on 30 features (a partial 64-row
+              tile, an identity tail of 66) at BH=128, with and without a
+              padded key mask.
 3. slice   -- flagship meant_src (768 wide, 8 heads of 96, 12+12 encoders,
               s=512 text, 196-patch charts, bf16, seeded random weights)
               serves 40 rows through Predictor(batch_size=16): three
@@ -112,15 +115,39 @@ script exits non-zero:
               and peak memory, which must fall below remat off's; then
               `cli.in_loop_train -mn meant_src` with `--remat dots` and
               with `--scan_layers`, one epoch each.
+11. zoo    -- the rest of the CLI's model zoo at its widths (768, 8
+              heads, 12 text encoders, 224^2 charts, lag 5, batch 16):
+              meant_timesformer (s=512, TimeSformer depth 1) serves one
+              request through Predictor with exactly 12 R1 + 12 K1, towers
+              and probabilities against flash=False, the first encoder's
+              attention on the model's own activations at K1's bar, a
+              profiled forward, int8 serving (the same launches, JAX's bars
+              against bf16), 3 trainer steps with exactly 12 K1, 12 R1, 12
+              K2 and 1 A1 a step, peak memory and a profiled step;
+              meant_mean_pooling (s=512), meant_tweet_price (--flash true,
+              s=128; towers against flash=False) and meant_mosi (built
+              with flash=True, s=50, xPos on 30 features, a TimeSformer of
+              depth 12 over 50 frames of 20 features; towers against
+              flash=False) one request and 2 steps each with the same
+              counts; MOSI's encoder with mask_in_flash=True and a padded
+              mask against flash=False (forward, input and parameter
+              gradients; 1 R1 + 1 K1 + 1 K2); cli.in_loop_train for
+              meant_price, mlp, lstm and teanet (synthetic sets) and teanet
+              --data_dir on TempStock-small files, each with no flash launch
+              and one A1 a step; TSAttention(flash=True) at 256 keys raising
+              on the card; A1 at meant_timesformer's parameter count.
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
               calls): rotation + scaled_dot_product_attention (R1 + K1,
               K1 alone beside it, at s=512, 196 and 128; R1 + K3, causal
-              at s=4096; at BH=128 for the pretrainers) and its backward
+              at s=4096; at BH=128 for the pretrainers; at s=128 with
+              meant_tweet_price's launches; at s=50 with xPos on 30
+              features, BH=128, with meant_mosi's) and its backward
               (R1 + K2; R1, K4 and K5 together),
               torch.optim.AdamW(fused=True) (A1, at the flagship's,
-              meant's and the pretrainers' parameter counts); R1 has rows of
+              meant's, the pretrainers' and meant_timesformer's parameter
+              counts); R1 has rows of
               its own at each shape. Beside the event time of the
               resident rows, their device time with the host out of the
               way (at s=128 a call launches less work than the host takes
@@ -295,11 +322,12 @@ def attention_case(kind: str, dtype, gen, s=None, bh=BATCH * LAG * HEADS):
     if kind == "vision":
         freqs, xpos, causal = pixel_freqs(48, device="cuda"), False, False
     else:
-        freqs, xpos, causal = lang_freqs(48, device="cuda"), True, True
+        rot = 30 if kind.startswith("text_rot30") else 48
+        freqs, xpos, causal = lang_freqs(rot, device="cuda"), True, True
     scale = 1.0 / DIM ** 0.5       # 1/sqrt(dim) in both towers
     tables = _tables(s, HEAD_DIM, freqs, xpos, 512.0)
     mask = None
-    if kind == "text_masked":
+    if kind.endswith("masked"):
         lengths = torch.randint(1, s + 1, (bh // HEADS,), generator=gen,
                                 device="cuda")
         mask = (torch.arange(s, device="cuda")[None, :]
@@ -355,15 +383,21 @@ def rel_l2(out, ref) -> float:
 # The resident cases of phase 2: (name, attention_case kind, s, BH), the
 # flagship's s=512 text (also masked) and s=196 charts and the paper
 # generation's s=128 text, at BH = 16 x 5 x 8 = 640, then the pretrainers'
-# s=128 text and s=196 charts at BH = 16 x 8 = 128 (no lag in the batch).
+# s=128 text and s=196 charts at BH = 16 x 8 = 128 (no lag in the batch),
+# then meant_mosi's text: s=50 (inside one 64-row tile) with xPos on 30
+# features, BH = 16 x 8 = 128, also with a padded key mask.
 MAIN_BH = BATCH * LAG * HEADS
 PRETRAIN_BH = BATCH * HEADS
+MOSI_SEQ, MOSI_BH = 50, BATCH * HEADS
 RESIDENT_CASES = (("text", "text", SEQ, MAIN_BH),
                   ("vision", "vision", N_PATCHES, MAIN_BH),
                   ("text_masked", "text_masked", SEQ, MAIN_BH),
                   ("text_s128", "text", PAPER_SEQ, MAIN_BH),
                   ("text_s128_bh128", "text", PAPER_SEQ, PRETRAIN_BH),
-                  ("vision_bh128", "vision", N_PATCHES, PRETRAIN_BH))
+                  ("vision_bh128", "vision", N_PATCHES, PRETRAIN_BH),
+                  ("text_s50_rot30", "text_rot30", MOSI_SEQ, MOSI_BH),
+                  ("text_s50_rot30_masked", "text_rot30_masked", MOSI_SEQ,
+                   MOSI_BH))
 
 
 def check_kernel(record):
@@ -755,13 +789,15 @@ def request_batch(n: int, seed: int = 0, seq: int = SEQ):
     }
 
 
-def towers_and_probs(model, predictor, chunk):
-    """Probabilities and both towers' outputs of one request."""
+def towers_and_probs(model, predictor, chunk, towers=None):
+    """Probabilities and the towers' outputs of one request; `towers`
+    names them (default: the language and vision encoders)."""
     got = {}
-    hooks = [model.languageEncoders.register_forward_hook(
-                 lambda m, i, o: got.__setitem__("text", o.float())),
-             model.visionEncoders.register_forward_hook(
-                 lambda m, i, o: got.__setitem__("vision", o.float()))]
+    towers = towers or {"text": model.languageEncoders,
+                        "vision": model.visionEncoders}
+    hooks = [module.register_forward_hook(
+                 lambda m, i, o, name=name: got.__setitem__(name, o.float()))
+             for name, module in towers.items()]
     try:
         got["probs"] = predictor.forward(chunk).float()
     finally:
@@ -773,7 +809,7 @@ def towers_and_probs(model, predictor, chunk):
 
 def compare_slice(label, flash_out, plain_out, record):
     res = {}
-    for name in ("text", "vision"):
+    for name in (k for k in flash_out if k != "probs"):
         a, b = flash_out[name], plain_out[name]
         rel = ((a - b).norm() / b.norm()).item()
         res[f"{name}_rel_l2"] = rel
@@ -1993,6 +2029,339 @@ def run_levers(record) -> dict:
     return res
 
 
+# ---- phase 11: the rest of the CLI's model zoo ----------------------------
+
+ZOO_LAUNCHES = {"K1": ENCODERS, "R1": ENCODERS}         # a text tower forward
+ZOO_STEP = {"K1": ENCODERS, "R1": ENCODERS, "K2": ENCODERS, "A1": 1}
+ZOO_STEPS = 3
+ZOO_CLI_ROWS = 64          # 38 / 13 / 13 rows after the 60/20/20 split
+ZOO_DATA_ROWS = 48         # teanet's TempStock-small files
+
+
+def zoo_args(name: str, *extra):
+    """The CLI's arguments for -mn name at its default widths (768, 8 heads,
+    12 encoders, 224^2 charts, lag 5)."""
+    from meant_tpu_torch.cli.common import base_parser
+    return base_parser().parse_args(["-rid", "smoke", "-mn", name, "-nec",
+                                     str(ENCODERS)] + list(extra))
+
+
+def build_zoo(name: str, *extra):
+    from meant_tpu_torch.cli.common import build_model
+    return build_model(zoo_args(name, *extra))
+
+
+def build_mosi(flash: bool):
+    """meant_mosi at the CLI's widths (12 text encoders, a TimeSformer of
+    depth 12 over 50 frames of 20 features), with the flash kernels on or
+    off: the JAX CLI never hands --flash to meant_mosi, so it is built
+    directly."""
+    from meant_tpu_torch import models
+    return models.meant_mosi(DIM, DIM, lag=MOSI_SEQ, num_classes=2,
+                             flash=flash, num_heads=HEADS,
+                             num_encoders=ENCODERS, dtype=torch.bfloat16,
+                             device="cuda", seed=0)
+
+
+def zoo_batch(name: str, n: int, seed: int):
+    """The CLI's synthetic batch of `name` (with labels y); s=512 tokens
+    for the TimeSformer family, 128 for meant_tweet_price, MOSI's 50."""
+    from meant_tpu_torch.cli.common import synthetic_batch
+    seq = {"meant_tweet_price": PAPER_SEQ}.get(name, SEQ)
+    return synthetic_batch(zoo_args(name, "--seq_len", str(seq)), n,
+                           seed=seed)
+
+
+def serve_zoo(name, model, host, want, res, towers=None, plain=None):
+    """One BATCH-row request through Predictor: exactly `want` launches,
+    finite probabilities in (0, 1); the request's times; with `plain` (the
+    same model at flash=False) the towers and probabilities against it."""
+    from meant_tpu_torch.serve import Predictor
+    predictor = Predictor(model, name, batch_size=BATCH)
+    rows = {k: v for k, v in host.items() if k != "y"}
+    predictor(rows)         # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    probs = predictor(rows)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"served {name}: {BATCH} rows, probs {probs.shape}, launches "
+          f"{counts}", flush=True)
+    check_counts(counts, want, f"serving {name}")
+    if (probs.shape != (BATCH, 2) or not np.isfinite(probs).all()
+            or not ((probs > 0) & (probs < 1)).all()):
+        fail(f"bad {name} probabilities {probs}")
+    res["launches"] = counts
+    time_requests(predictor, rows, res, label=name)
+    if plain is not None:
+        plain.load_state_dict(model.state_dict())
+        compare_slice(name, towers_and_probs(model, predictor, rows,
+                                             towers(model)),
+                      towers_and_probs(plain, Predictor(plain, name,
+                                                        batch_size=BATCH),
+                                       rows, towers(plain)), res)
+    return predictor, probs
+
+
+def attention_vs_plain(attn, x, mask, label, res):
+    """The first text encoder's attention on the model's own activations:
+    R1 + K1 (flash_mha) against flash_mha_reference at K1's bar."""
+    from meant_tpu_torch.ops import split_heads
+    from meant_tpu_torch.ops.flash import flash_mha, flash_mha_reference
+    from meant_tpu_torch.ops.flash.flash_attention import _tables
+    from meant_tpu_torch.ops.flash.kernel import K1_BF16_REL_L2
+    with torch.no_grad():
+        q, k, v = (split_heads(p(x), attn.num_heads)
+                   for p in (attn.q, attn.k, attn.v))
+        tables = _tables(q.shape[2], q.shape[3], attn.freqs, True, 512.0)
+        got = flash_mha(q, k, v, scale=attn.scale, causal=attn.causal,
+                        attention_mask=mask, qcos=tables[0],
+                        qsin=tables[1], kcos=tables[2], ksin=tables[3])
+        want = flash_mha_reference(q, k, v, mask, *tables, scale=attn.scale,
+                                   causal=attn.causal)
+    rel = rel_l2(got, want)
+    print(f"{label}: first encoder's attention, R1 + K1 vs plain on the "
+          f"model's activations {tuple(q.shape)}: rel_l2 {rel:.3e} (bar "
+          f"{K1_BF16_REL_L2})", flush=True)
+    if not (rel <= K1_BF16_REL_L2 and torch.isfinite(got).all()):
+        fail(f"{label}: R1 + K1 on the model's activations is off its "
+             f"plain version (relative L2 {rel})")
+    res["first_attention_rel_l2"] = rel
+
+
+def first_attention_input(model, name, host):
+    """The first text encoder's attention, and its input and mask in one
+    eval forward of `host`'s rows."""
+    from meant_tpu_torch.train.classify import model_inputs
+    got = {}
+    attn = model.languageEncoders[0].attn
+    hook = attn.register_forward_pre_hook(
+        lambda m, a: got.update(x=a[0], mask=a[1] if len(a) > 1 else None))
+    model.eval()
+    try:
+        with torch.no_grad():
+            args, kwargs = model_inputs(name, to_card(
+                {k: v for k, v in host.items() if k != "y"}))
+            model(*args, **kwargs)
+    finally:
+        hook.remove()
+    return attn, got["x"], got["mask"]
+
+
+def zoo_timesformer(res):
+    """meant_timesformer at the CLI's widths, s=512, b=16: one request
+    (12 R1 + 12 K1) against flash=False, the first attention at K1's bar,
+    int8 serving, ZOO_STEPS trainer steps (12 K1, 12 R1, 12 K2, 1 A1 a step)
+    with peak memory and a profiled step."""
+    from meant_tpu_torch.serve import Predictor
+    name = "meant_timesformer"
+    model = build_zoo(name, "--seq_len", str(SEQ), "--flash", "true")
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    host = zoo_batch(name, BATCH, seed=30)
+    towers = lambda m: {"text": m.languageEncoders, "vision": m.timesformer}
+    predictor, probs = serve_zoo(
+        name, model, host, ZOO_LAUNCHES, res, towers,
+        plain=build_zoo(name, "--seq_len", str(SEQ), "--flash", "false"))
+    torch.cuda.empty_cache()
+    attention_vs_plain(*first_attention_input(model, name, host), name,
+                       res)
+    res["forward_profile"] = profile_calls(
+        lambda: predictor.forward({k: v for k, v in host.items()
+                                   if k != "y"}), PROFILE_FORWARDS,
+        "forward")
+    # int8 serving of the same weights: the same launches, JAX's bars
+    rows = {k: v for k, v in host.items() if k != "y"}
+    int8 = Predictor(model, name, batch_size=BATCH, quantize="int8")
+    int8(rows)
+    reset_counts()
+    reset_int8_counts()
+    q = int8(rows)
+    torch.cuda.synchronize()
+    counts, products = read_counts(), int8_counts()
+    check_counts(counts, ZOO_LAUNCHES, f"serving {name} in int8")
+    err = float(np.abs(q - probs).max())
+    agree = float((q.argmax(-1) == probs.argmax(-1)).mean())
+    res["int8"] = {"probs_max_abs_err": err, "argmax_agreement": agree,
+                   "int8_products": sum(products.values()),
+                   "int8_shapes": len(products)}
+    print(f"{name} int8 vs bf16: max |dprob| {err:.4e} (bar "
+          f"{INT8_PROBS_ATOL}), argmax agreement {agree:.3f} (bar "
+          f"{INT8_ARGMAX}); {sum(products.values())} int8 products",
+          flush=True)
+    if not (products and np.isfinite(q).all() and err <= INT8_PROBS_ATOL
+            and agree >= INT8_ARGMAX):
+        fail(f"{name} int8 serving is outside JAX's bars against bf16")
+    del predictor, int8
+    train, trainer, batch = train_steps(
+        model, host, ZOO_STEPS, ZOO_STEP, f"learn {name}", model_name=name,
+        falling=False)
+    res["train"] = train
+    res["train_profile"] = profile_calls(
+        lambda: trainer.train_step(batch), 1, "step")
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    return train["launches"]
+
+
+def zoo_model(name, model, host, res, plain=None, towers=None):
+    """One request and ZOO_STEPS - 1 steps (the first one untimed) of a
+    kernel-bearing zoo model: 12 R1 + 12 K1 a forward, 12 K1, 12 R1, 12 K2
+    and 1 A1 a step."""
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    serve_zoo(name, model, host, ZOO_LAUNCHES, res, towers, plain)
+    torch.cuda.empty_cache()
+    train, _, _ = train_steps(model, host, 2, ZOO_STEP, f"learn {name}",
+                              model_name=name, falling=False)
+    res["train"] = train
+    torch.cuda.empty_cache()
+    return res["launches"], train["launches"]
+
+
+def mask_in_flash(res):
+    """MOSI's encoder (LayerNorm + xavier, xPos on 30 features) at width
+    768, s=50, with `mask_in_flash=True` and a padded mask: the forward
+    (1 R1 + 1 K1) and backward (1 K2) against the same weights at
+    flash=False, and against the same flash call without the mask (the
+    mask must reach the kernels)."""
+    from meant_tpu_torch.nn.encoders import LanguageEncoder
+    from meant_tpu_torch.nn.layers import init_weights
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    kw = dict(dim=DIM, num_heads=HEADS, norm="layer", ff_norm2="rms",
+              init_style="xavier", rot_dim=30, ff_dropout=0.0,
+              dtype=torch.bfloat16, device="cuda")
+    flash = LanguageEncoder(flash=True, mask_in_flash=True, **kw)
+    plain = LanguageEncoder(flash=False, **kw)
+    init_weights(flash, gen)
+    plain.load_state_dict(flash.state_dict())
+    x = torch.randn((BATCH, MOSI_SEQ, DIM), generator=gen, device="cuda")
+    lengths = torch.randint(1, MOSI_SEQ + 1, (BATCH,), generator=gen,
+                            device="cuda")
+    mask = (torch.arange(MOSI_SEQ, device="cuda")[None, :]
+            < lengths[:, None]).to(torch.float32)
+    g = torch.randn((BATCH, MOSI_SEQ, DIM), generator=gen, device="cuda")
+    out = {}
+    for label, enc, m in (("flash", flash, mask), ("plain", plain, mask),
+                          ("flash_unmasked", flash, None)):
+        xi = x.clone().requires_grad_(True)
+        enc.zero_grad(set_to_none=True)
+        if label == "flash":
+            reset_counts()
+        y = enc(xi, m)
+        (y.float() * g).sum().backward()
+        torch.cuda.synchronize()
+        if label == "flash":
+            check_counts(read_counts(), {"K1": 1, "R1": 1, "K2": 1},
+                         "mask_in_flash encoder, forward and backward")
+        out[label] = (y.float(), xi.grad.float(),
+                      torch.cat([p.grad.reshape(-1).float()
+                                 for p in enc.parameters()]))
+    rels = {f"{part}_rel_l2": rel_l2(a, b) for part, a, b in zip(
+        ("out", "input_grad", "param_grad"), out["flash"], out["plain"])}
+    moved = rel_l2(out["flash_unmasked"][0], out["flash"][0])
+    res["mask_in_flash"] = dict(rels, unmasked_vs_masked_rel_l2=moved)
+    print(f"mask_in_flash encoder at s={MOSI_SEQ}, rot_dim 30, padded mask "
+          f"(lengths {lengths.tolist()}): flash vs plain {json.dumps(rels)};"
+          f" the mask moves the flash output by {moved:.3e}", flush=True)
+    if not (rels["out_rel_l2"] <= TOWER_REL_L2
+            and rels["input_grad_rel_l2"] <= STEP_GRAD_REL_L2
+            and rels["param_grad_rel_l2"] <= STEP_GRAD_REL_L2
+            and moved > 1e-2):
+        fail(f"mask_in_flash encoder off the plain attention: {rels}, "
+             f"mask effect {moved}")
+
+
+def zoo_cli(res):
+    """cli.in_loop_train of the four models that launch no flash kernel
+    (meant_price, mlp, lstm, teanet; one epoch of a synthetic set at the
+    CLI's defaults: -di 128, -nl 3) and teanet on TempStock-small files:
+    exactly one A1 a step, no flash kernel."""
+    import os
+    from meant_tpu_torch.cli import in_loop_train
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        os.makedirs(data)
+        write_tempstock(data, ZOO_DATA_ROWS, seed=32)
+        for label, name, extra in (
+                ("meant_price", "meant_price", []), ("mlp", "mlp", []),
+                ("lstm", "lstm", []), ("teanet", "teanet", []),
+                ("teanet_data_dir", "teanet", ["--data_dir", data])):
+            argv = ["-rid", "smoke", "-mn", name, "-ne", "1", "-tb",
+                    str(BATCH), "--synthetic_n", str(ZOO_CLI_ROWS), "-fp", d,
+                    "-lrst", "constant"] + extra
+            reset_counts()
+            results = in_loop_train.main(argv)
+            counts = read_counts()
+            steps = results["trainer"].optimizer.step_count
+            check_counts(counts, {"A1": steps}, f"cli.in_loop_train -mn "
+                         f"{label}")
+            loss = results["history"][0]["train_loss"]
+            if steps < 1 or not np.isfinite(loss):
+                fail(f"cli.in_loop_train -mn {label}: {steps} steps, loss "
+                     f"{loss}")
+            runs[label] = {"steps": steps, "launches": counts,
+                           "train_loss": loss, "test": results["test"]}
+            print(f"cli.in_loop_train -mn {label}: {steps} steps, loss "
+                  f"{loss:.5f}, launches {counts}", flush=True)
+            del results
+    res["cli"] = runs
+    torch.cuda.empty_cache()
+
+
+def timesformer_flash_refused(res):
+    """A TimeSformer group of 256 keys (255 patches and the cls key) with
+    flash=True on the card raises: no kernel of the port takes head dim 64
+    with one more key than queries."""
+    from meant_tpu_torch.nn.timesformer import TSAttention
+    attn = TSAttention(64, dim_head=64, heads=2, flash=True,
+                       dtype=torch.bfloat16, device="cuda")
+    x = torch.randn((1, 1 + 255, 64), device="cuda")
+    try:
+        attn(x, group_size=255, num_groups=1, group_axis_first=True)
+    except NotImplementedError as e:
+        res["timesformer_flash_256"] = str(e)
+        print(f"TSAttention(flash=True) at 256 keys on the card raises: {e}",
+              flush=True)
+        return
+    fail("TSAttention(flash=True) at 256 keys ran on the card")
+
+
+def run_zoo(record) -> dict:
+    """Phase 11: the TimeSformer family, meant_tweet_price, meant_mosi and
+    the four models without flash kernels at the CLI's widths."""
+    t0 = time.perf_counter()
+    res = {}
+    record["zoo"] = res
+    out = {"timesformer": zoo_timesformer(res.setdefault(
+        "meant_timesformer", {}))}
+    name = "meant_mean_pooling"
+    zoo_model(name, build_zoo(name, "--seq_len", str(SEQ), "--flash",
+                              "true"), zoo_batch(name, BATCH, seed=33),
+              res.setdefault(name, {}))
+    name = "meant_tweet_price"
+    args = ("--seq_len", str(PAPER_SEQ), "--flash")
+    out["tweet_price"] = zoo_model(
+        name, build_zoo(name, *args, "true"),
+        zoo_batch(name, BATCH, seed=34), res.setdefault(name, {}),
+        plain=build_zoo(name, *args, "false"),
+        towers=lambda m: {"text": m.languageEncoders})
+    out["mosi"] = zoo_model(
+        "meant_mosi", build_mosi(True), zoo_batch("meant_mosi", BATCH,
+                                                  seed=35),
+        res.setdefault("meant_mosi", {}), plain=build_mosi(False),
+        towers=lambda m: {"text": m.languageEncoders,
+                          "vision": m.timesformer})
+    mask_in_flash(res)
+    zoo_cli(res)
+    timesformer_flash_refused(res)
+    out["a1_err"] = check_adamw(res["meant_timesformer"],
+                                res["meant_timesformer"]["n_params"])
+    out["n_params"] = res["meant_timesformer"]["n_params"]
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"phase zoo: {res['wall_s']:.1f} s", flush=True)
+    return out
+
+
 # ---- phase 7: timing ---------------------------------------------------
 
 def attention_cost(c, backward: bool = False) -> tuple:
@@ -2034,11 +2403,12 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
 
 
 def time_kernels(record, errors, launches_by_shape, bwd_errors,
-                 train_counts, a1_err, n_params, paper, pretrain):
+                 train_counts, a1_err, n_params, paper, pretrain, zoo):
     """The resident rows (R1 + K1, K2, R1) at the flagship's two shapes, at
-    the paper generation's s=128 and at the pretrainers' BH=128 shapes, each
-    with its own path's launches (the pretrainers' forwards are those of
-    their steps), then A1 at each path's parameter count."""
+    the paper generation's s=128, at the pretrainers' BH=128 shapes, at
+    meant_tweet_price's s=128 and meant_mosi's s=50 (xPos on 30 features,
+    BH=128), each with its own path's launches (the pretrainers' forwards
+    are those of their steps), then A1 at each path's parameter count."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     flagship = {shape_key(*k): n for k, n in launches_by_shape.items()}
@@ -2052,7 +2422,12 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
             ("text_s128_bh128", "text", "s128 causal xPos BH128",
              mlm["K1_by_shape"], mlm),
             ("vision_bh128", "vision", "s196 pixel rotary BH128",
-             mim["K1_by_shape"], mim)):
+             mim["K1_by_shape"], mim),
+            ("text_s128", "text", "s128 causal xPos meant_tweet_price",
+             zoo["tweet_price"][0]["K1_by_shape"], zoo["tweet_price"][1]),
+            ("text_s50_rot30", "text_rot30",
+             "s50 causal xPos rot30 BH128 meant_mosi",
+             zoo["mosi"][0]["K1_by_shape"], zoo["mosi"][1])):
         s, bh = {name: (s, bh) for name, _, s, bh in RESIDENT_CASES}[case]
         c = backward_case(kind, torch.bfloat16, gen, s=s, bh=bh)
         key = (c["s"], c["causal"])
@@ -2114,6 +2489,8 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
     for kind, counts in (("mlm", mlm), ("mim", mim)):
         rows.append(adamw_row(f"adamw[{kind}]", pretrain[kind]["n_params"],
                               counts["A1"], pretrain[kind]["a1_err"], gen))
+    rows.append(adamw_row("adamw[meant_timesformer]", zoo["n_params"],
+                          zoo["timesformer"]["A1"], zoo["a1_err"], gen))
     record["kernels"] = rows
     return rows
 
@@ -2388,8 +2765,9 @@ def main(argv=None) -> int:
     paper = run_paper(record)
     pretrain = run_pretrain(record)
     run_levers(record)
+    zoo = run_zoo(record)
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
-                        a1_err, record["n_params"], paper, pretrain)
+                        a1_err, record["n_params"], paper, pretrain, zoo)
     at = [r["name"] for r in rows].index("adamw")
     rows[at:at] = time_long_kernels(long_errors, long_counts)  # before A1
     time_requests(predictor, chunk, record)

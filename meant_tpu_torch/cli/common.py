@@ -1,8 +1,8 @@
 """Shared CLI plumbing (counterpart of meant_tpu/cli/common.py): the
 reference's flags under the JAX package's names, the refusal of flags not
 ported yet, the CLI's data (`--data_dir` TempStock-small, else a synthetic
-set of the model's family), and `build_model` for the ported models
-(`meant` and its siblings, `meant_src`)."""
+set of the model's family), and `build_model` for every --model_name of the
+JAX CLI but the HF baselines `bertweet`, `vl_bert` and `vilt`."""
 
 from __future__ import annotations
 
@@ -138,7 +138,7 @@ def base_parser() -> argparse.ArgumentParser:
 
 UNPORTED_FLAGS = ("buckets", "hf_cache", "fsdp", "mu_bf16")
 # the models that take --scan_layers / --remat
-# (meant_tpu/cli/common.py:221-230); the TimeSformer ones are not ported yet
+# (meant_tpu/cli/common.py:221-230)
 SCAN_MODELS = ("meant", "meant_src", "meant_vision", "meant_tweet",
                "meant_tweet_no_lag", "meantPrice", "meant_vqa",
                "meant_timesformer", "meant_mean_pooling", "meant_mosi")
@@ -154,38 +154,59 @@ def refuse_unported(args) -> None:
                 f"ROADMAP)")
 
 
-# the paper generation's --model_name values; train.classify.model_inputs
-# refuses meant_vqa, whose harness is not ported yet
+# the positional --model_name values; train.classify.model_inputs refuses
+# meant_vqa, whose harness is not ported yet
 PAPER_MODELS = POSITIONAL_MODELS + ("meant_vqa",)
+# the price-only models, which read `prices` alone
+PRICE_MODELS = ("meant_price", "mlp", "lstm")
+MOSI_FRAMES = 50
+
+
+def _refuse_hf(name: str) -> None:
+    if name not in KWARGS_MODELS + PAPER_MODELS:
+        raise NotImplementedError(
+            f"model {name} is not yet ported to meant_tpu_torch (ROADMAP "
+            f"§1 item 7: the HF baselines)")
 
 
 def synthetic_batch(args, n: int, seed: int = 0) -> dict:
     """A synthetic batch of the model's family, as the JAX serving CLI
-    shapes one (meant_tpu/cli/serve.py:66-84), with random labels `y`:
-    input_ids / pixels / prices / attention_mask for the kwargs family,
-    tweets / graphs (4 channels) / attention_masks (and prices of width 4
-    for meantPrice) for the paper generation."""
+    shapes one (meant_tpu/cli/serve.py:54-84), with random labels `y`:
+    prices alone (width 5) for the price models; MOSI's 50 frames of
+    pre-embedded text (text_dim floats), video (20) and audio (130) with
+    an all-ones audio mask; input_ids / pixels / prices / attention_mask
+    for the rest of the kwargs family; tweets / graphs (4 channels) /
+    attention_masks for the positional models, with prices of width 4 for
+    meantPrice and teanet and 5 for meant_tweet_price."""
     name = args.model_name
-    if name not in KWARGS_MODELS + PAPER_MODELS:
-        raise NotImplementedError(
-            f"model {name} is not yet ported (see ROADMAP)")
+    _refuse_hf(name)
     rng = np.random.RandomState(seed)
     lag, s, size = args.lag, args.seq_len, args.image_size
-    ids = rng.randint(2, args.vocab_size - 1, size=(n, lag, s)).astype(
-        np.int32)
-    if name in KWARGS_MODELS:
-        batch = {"input_ids": ids,
+    if name in PRICE_MODELS:
+        batch = {"prices": rng.randn(n, lag, 5).astype(np.float32)}
+    elif name == "meant_mosi":
+        f = MOSI_FRAMES
+        batch = {"input_ids": rng.randn(n, f, args.text_dim).astype(
+                     np.float32),
+                 "pixels": rng.randn(n, f, 20).astype(np.float32),
+                 "audio": rng.randn(n, f, 130).astype(np.float32),
+                 "audio_mask": np.ones((n, f), np.float32)}
+    elif name in KWARGS_MODELS:
+        ids = rng.randint(2, args.vocab_size - 1, size=(n, lag, s))
+        batch = {"input_ids": ids.astype(np.int32),
                  "pixels": rng.randn(n, lag, 3, size, size).astype(
                      np.float32),
                  "prices": rng.randn(n, lag, 5).astype(np.float32),
                  "attention_mask": np.ones((n, lag, s), np.float32)}
     else:
-        batch = {"tweets": ids,
+        ids = rng.randint(2, args.vocab_size - 1, size=(n, lag, s))
+        batch = {"tweets": ids.astype(np.int32),
                  "graphs": rng.randn(n, lag, 4, size, size).astype(
                      np.float32),
                  "attention_masks": np.ones((n, lag, s), np.float32)}
-        if name == "meantPrice":
-            batch["prices"] = rng.randn(n, lag, 4).astype(np.float32)
+        if name in ("meantPrice", "meant_tweet_price", "teanet"):
+            width = 5 if name == "meant_tweet_price" else 4
+            batch["prices"] = rng.randn(n, lag, width).astype(np.float32)
     batch["y"] = rng.randint(0, args.num_classes, size=(n,)).astype(np.int32)
     return batch
 
@@ -194,9 +215,20 @@ def dataset_arrays(args) -> dict:
     """The CLI's data, as the JAX training CLI picks it
     (meant_tpu/cli/in_loop_train.py:33-43): with --data_dir the
     TempStock-small arrays, else `synthetic_tempstock` for the paper
-    generation and the synthetic kwargs-family set for meant_src.
-    TempStock-small holds no array meant_src reads, so `-mn meant_src
-    --data_dir` is refused (the JAX CLI fails later, in the forward)."""
+    generation. The kwargs family (meant_src, the price models, the
+    TimeSformer family) gets its synthetic serving set, as do
+    meant_tweet_price and teanet without --data_dir: the JAX CLI hands
+    every model `synthetic_tempstock`, which holds no array the kwargs
+    family or meant_tweet_price reads, and fails in the forward.
+    TempStock-small holds none either, so `--data_dir` is refused for the
+    kwargs family; teanet reads its macds, and meant_tweet_price raises a
+    KeyError for its prices, as meantPrice does."""
+    _refuse_hf(args.model_name)
+    if args.model_name in ("meant_tweet_price", "teanet") and \
+            not args.data_dir:
+        print("No --data_dir given: running on a synthetic set of "
+              f"{args.model_name}'s inputs (smoke mode).")
+        return synthetic_batch(args, args.synthetic_n)
     if args.model_name in KWARGS_MODELS:
         if args.data_dir:
             raise ValueError(
@@ -221,8 +253,8 @@ def dataset_arrays(args) -> dict:
 def build_model(args, device=None):
     """The ported models by the reference's --model_name values, built on
     `device` (args.device, else the card), with the JAX CLI's arguments
-    (meant_tpu/cli/common.py:219-252, 274-276), `--scan_layers` and
-    `--remat` included."""
+    (meant_tpu/cli/common.py:253-306), `--scan_layers` and `--remat`
+    included."""
     name = args.model_name
     scan_layers = bool(getattr(args, "scan_layers", False))
     remat = getattr(args, "remat", False)
@@ -231,10 +263,7 @@ def build_model(args, device=None):
         # a configuration the model did not use
         raise SystemExit(f"--scan_layers/--remat are only supported by "
                          f"{'/'.join(SCAN_MODELS)} (got --model_name {name})")
-    if name not in PAPER_MODELS + ("meant_src",):
-        raise NotImplementedError(
-            f"model {name} is not yet ported to meant_tpu_torch "
-            f"(see ROADMAP)")
+    _refuse_hf(name)
     refuse_unported(args)
     if isinstance(args.flash, str):
         if args.flash.lower() == "auto":
@@ -246,9 +275,10 @@ def build_model(args, device=None):
     td, imd, size, lag, nc = (args.text_dim, args.image_dim, args.image_size,
                               args.lag, args.num_classes)
     emb = models.EmbeddingConfig(vocab_size=args.vocab_size, hidden_size=td)
+    dtype = torch.bfloat16 if args.bf16 else None
+    base = dict(device=device, seed=args.seed)
     common = dict(num_heads=args.num_heads, num_encoders=args.num_encoders,
-                  dtype=torch.bfloat16 if args.bf16 else None, device=device,
-                  seed=args.seed, scan_layers=scan_layers, remat=remat)
+                  dtype=dtype, scan_layers=scan_layers, remat=remat, **base)
     logits_head = bool(args.logits_head)
     if name == "meant":
         return models.meant(td, imd, 4, size, size, 16, lag, nc,
@@ -271,5 +301,32 @@ def build_model(args, device=None):
     if name == "meantPrice":
         return models.meantPrice(td, imd, 4, size, size, 16, lag, nc,
                                  embedding=emb, **common)
-    return models.meant_vqa(td, imd, 4, size, size, 16, 1, nc,
-                            embedding=emb, flash=args.flash, **common)
+    if name == "meant_vqa":
+        return models.meant_vqa(td, imd, 4, size, size, 16, 1, nc,
+                                embedding=emb, flash=args.flash, **common)
+    if name == "meant_tweet_price":
+        return models.meantTweetPrice(
+            td, 5, lag, nc, embedding=emb, flash=args.flash,
+            num_heads=args.num_heads, num_encoders=args.num_encoders,
+            dtype=dtype, **base)
+    if name == "meant_price":
+        # the reference's 8 heads: at price_dim 5 the head dim clamps to 1
+        return models.meant_price(5, lag, nc, num_heads=8, dtype=dtype,
+                                  **base)
+    if name in ("meant_timesformer", "meant_mean_pooling"):
+        cls = getattr(models, name)
+        return cls(td, imd, 5, size, size, 16, lag, nc, embedding=emb,
+                   flash=args.flash, channels=3, **common)
+    if name == "meant_mosi":
+        # as the JAX CLI builds it: --flash does not reach meant_mosi
+        return models.meant_mosi(td, imd, lag=MOSI_FRAMES, num_classes=nc,
+                                 embedding=None, **common)
+    if name == "teanet":
+        return models.teanet(dim=args.dimension, num_heads=4,
+                             num_classes=nc, vocab_size=args.vocab_size,
+                             price_dim=4, num_layers=args.num_layers,
+                             dtype=dtype, **base)
+    if name == "mlp":
+        return models.mlpEncoder(5, nc, args.dimension, args.num_layers,
+                                 **base)
+    return models.LSTMEncoder(5, nc, args.dimension, args.num_layers, **base)

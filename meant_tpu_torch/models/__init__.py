@@ -1,10 +1,18 @@
 from .meant import (EmbeddingConfig, MlpHead, meant, meant_tweet,
                     meant_tweet_no_lag, meant_vision, meant_vqa, meantPrice)
-from .meant_src import SeqProjection, meant_src
+from .meant_src import (LSTMEncoder, SeqProjection, meant_price, meant_src,
+                        meantTweetPrice, mlpEncoder)
+from .meant_timesformer import (AudioEncoder, meant_mean_pooling, meant_mosi,
+                                meant_timesformer)
+from .meant_v2 import meant_v2
 from .pretrainers import (RobertaLMHead, meant_language_pretrainer,
                           meant_vision_pretrainer, pixel_shuffle)
+from .teanet import teanet
 
-__all__ = ["EmbeddingConfig", "MlpHead", "RobertaLMHead", "SeqProjection",
-           "meant", "meantPrice", "meant_language_pretrainer", "meant_src",
-           "meant_tweet", "meant_tweet_no_lag", "meant_vision",
-           "meant_vision_pretrainer", "meant_vqa", "pixel_shuffle"]
+__all__ = ["AudioEncoder", "EmbeddingConfig", "LSTMEncoder", "MlpHead",
+           "RobertaLMHead", "SeqProjection", "meant", "meantPrice",
+           "meantTweetPrice", "meant_language_pretrainer",
+           "meant_mean_pooling", "meant_mosi", "meant_price", "meant_src",
+           "meant_timesformer", "meant_tweet", "meant_tweet_no_lag",
+           "meant_v2", "meant_vision", "meant_vision_pretrainer",
+           "meant_vqa", "mlpEncoder", "pixel_shuffle", "teanet"]

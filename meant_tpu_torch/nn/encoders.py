@@ -9,7 +9,8 @@ Block skeleton shared by the language and vision encoders:
 
 The reference passes the padding mask only to its non-flash attention, so
 with `flash=True` the mask is dropped, as in the JAX package at its default
-`mask_in_flash=False`.
+`mask_in_flash=False`; `mask_in_flash=True` hands it to the flash kernels
+(K1 / K2, or the streaming ones) as their key mask.
 """
 
 from __future__ import annotations
@@ -49,22 +50,27 @@ class _Block(nn.Module):
 
 
 class LanguageEncoder(_Block):
-    """ff_dropout defaults to the reference's nn.Dropout() p=0.5."""
+    """ff_dropout defaults to the reference's nn.Dropout() p=0.5; `causal`
+    and `rot_dim` reach the xPos attention (MOSI rotates 30 features)."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  ff_dropout: float = 0.5, norm: str = "rms",
                  ff_norm2: Optional[str] = None, init_style: str = "torch",
-                 flash: bool = False, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 flash: bool = False, mask_in_flash: bool = False,
+                 causal: bool = True, rot_dim: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None, device=None):
         super().__init__(dim, norm, ff_norm2, init_style, dtype, device)
-        self.flash = flash
+        self.flash, self.mask_in_flash = flash, mask_in_flash
         self.attn = XPosAttention(num_heads, dim, init_style=init_style,
-                                  flash=flash, dtype=dtype, device=device)
+                                  flash=flash, causal=causal,
+                                  rot_dim=rot_dim, dtype=dtype,
+                                  device=device)
         self.drop1 = nn.Dropout(dropout)
         self.drop2 = nn.Dropout(ff_dropout)
 
     def forward(self, x, attention_mask=None):
-        mask = None if self.flash else attention_mask
+        mask = (None if self.flash and not self.mask_in_flash
+                else attention_mask)
         inter = self.attn(self.proj_in(self.norm1(x)), mask)
         inter = self.proj_out(self.drop1(self.norm2(inter)))
         return self._feed_forward(inter + x, self.drop2)

@@ -120,3 +120,42 @@ def unstack_encoder_params(params: Mapping, prefix: str,
                            f"layout")
         out[name] = _tree_map(lambda x, i=i: np.asarray(x)[i], stacked)
     return out
+
+
+# One TimeSformer layer's six components, named as JAX's unrolled layout
+# names them `<component>_{i}` (meant_tpu/nn/stack.py TS_COMPONENTS).
+TS_COMPONENTS = ("time_norm", "time_attn", "space_norm", "space_attn",
+                 "ff_norm", "ff")
+
+
+def stack_timesformer_params(ts_params: Mapping, depth: int,
+                             scan_name: str = "layers_scan") -> dict:
+    """A TimeSformer subtree in JAX's unrolled layout (`time_attn_{i}`, ...)
+    -> its `layers_scan/enc/<component>` layout, every leaf with a leading
+    layer axis. The input is not changed."""
+    out = dict(ts_params)
+    enc = {}
+    for comp in TS_COMPONENTS:
+        trees = [out.pop(f"{comp}_{i}") for i in range(depth)]
+        enc[comp] = _tree_map(lambda *xs: np.stack(xs), *trees)
+    out[scan_name] = {"enc": enc}
+    return out
+
+
+def unstack_timesformer_params(ts_params: Mapping,
+                               depth: Optional[int] = None,
+                               scan_name: str = "layers_scan") -> dict:
+    """Inverse of `stack_timesformer_params`; `depth` defaults to the
+    leading axis of the stacked leaves."""
+    out = dict(ts_params)
+    stacked = out.pop(scan_name)["enc"]
+    if depth is None:
+        leaf = stacked
+        while isinstance(leaf, Mapping):
+            leaf = next(iter(leaf.values()))
+        depth = np.shape(leaf)[0]
+    for comp in TS_COMPONENTS:
+        for i in range(depth):
+            out[f"{comp}_{i}"] = _tree_map(lambda x, i=i: np.asarray(x)[i],
+                                           stacked[comp])
+    return out

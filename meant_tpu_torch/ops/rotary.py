@@ -100,3 +100,59 @@ def rotate_queries_and_keys(q: torch.Tensor, k: torch.Tensor,
     scale = xpos_scale(rot_dim, positions, scale_base)
     return (apply_rotary(q, angles, scale=scale),
             apply_rotary(k, angles, scale=scale ** -1))
+
+
+# ---- the TimeSformer family's rotary -------------------------------------
+#
+# These take precomputed (sin, cos) tables, and the frame table is in the
+# block layout cat(freqs, freqs) while `rotate_half` turns interleaved pairs
+# (the reference's own mix). R1 rotates interleaved-pair tables only, so
+# these stay plain PyTorch and never feed the flash kernels.
+
+
+def axial_rotary_sincos(dim: int, h: int, w: int, max_freq: float = 10.0,
+                        device=None):
+    """2-D axial (sin, cos) tables for h*w patch tokens, each (h*w, dim):
+    dim/4 log-spaced scales from 1 to max_freq/2 times pi over linspace(-1,
+    1) rows (h) and columns (w), the two halves concatenated, then every
+    element repeated twice."""
+    f32 = torch.float32
+    scales = torch.logspace(0.0, math.log(max_freq / 2) / math.log(2),
+                            dim // 4, base=2.0, dtype=f32, device=device)
+    h_seq = torch.linspace(-1.0, 1.0, h, dtype=f32,
+                           device=device)[:, None] * scales * math.pi
+    w_seq = torch.linspace(-1.0, 1.0, w, dtype=f32,
+                           device=device)[:, None] * scales * math.pi
+    x_sinu = h_seq[:, None, :].expand(h, w, dim // 4)
+    y_sinu = w_seq[None, :, :].expand(h, w, dim // 4)
+    sin = torch.cat((torch.sin(x_sinu), torch.sin(y_sinu)), dim=-1)
+    cos = torch.cat((torch.cos(x_sinu), torch.cos(y_sinu)), dim=-1)
+    sin = sin.reshape(h * w, dim // 2).repeat_interleave(2, dim=-1)
+    cos = cos.reshape(h * w, dim // 2).repeat_interleave(2, dim=-1)
+    return sin, cos
+
+
+def frame_rotary_sincos(dim: int, n: int, device=None):
+    """1-D (sin, cos) tables for n frames, each (n, dim), in the block
+    layout cat(angles, angles)."""
+    f32 = torch.float32
+    inv_freqs = 1.0 / (10000.0 ** (torch.arange(0, dim, 2, dtype=f32,
+                                                device=device) / dim))
+    ang = torch.arange(n, dtype=f32, device=device)[:, None] * inv_freqs
+    ang = torch.cat((ang, ang), dim=-1)
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rot_emb_sincos(q: torch.Tensor, k: torch.Tensor, sin: torch.Tensor,
+                         cos: torch.Tensor):
+    """Rotate the leading sin.shape[-1] features of q and k:
+    t * cos + rotate_half(t) * sin, the tail passed through; the result is
+    promoted with the fp32 tables."""
+    rot_dim = sin.shape[-1]
+
+    def rot(t):
+        t_rot, t_pass = t[..., :rot_dim], t[..., rot_dim:]
+        t_rot = t_rot * cos + rotate_half(t_rot) * sin
+        return torch.cat((t_rot, t_pass.to(t_rot.dtype)), dim=-1)
+
+    return rot(q), rot(k)

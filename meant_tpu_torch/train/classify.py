@@ -14,6 +14,14 @@ Semantics kept from the JAX package (and its reference):
   * a checkpoint after training (`train/checkpoint.py`), then an optional
     test pass.
 
+The price baselines `mlp` and `lstm` (PER_DAY_MODELS) give one output
+per lag step (b, lag, c); JAX's trainer cannot take those (its loss
+gathers along the last axis of a (b, 1) label index and fails). Training
+them on the target (last) day's output (`row_outputs`) is this port's own
+choice, not a rule of the JAX package or of its reference. Any other
+model's output goes to the loss as it is. Serving returns the whole
+output.
+
 Dropout draws from the default generator of the model's device, seeded
 from `seed` when the trainer builds its optimizer; torch cannot give the
 bits JAX's dropout draws, so runs agree with the JAX trainer only with
@@ -39,10 +47,14 @@ from meant_tpu_torch.utils.metrics import F1Metrics, confusion_delta
 KWARGS_MODELS = ("meant_src", "meant_price", "meant_timesformer",
                  "meant_mean_pooling", "meant_mosi", "mlp", "lstm")
 _NON_INPUT_KEYS = ("y", "_weight", "labels")
+# price baselines with one output per lag step
+PER_DAY_MODELS = ("mlp", "lstm")
 # paper-generation models take positional TempStock-layout inputs (tweets,
-# graphs, attention_masks, prices)
+# graphs, attention_masks, prices, macds), and so do meant_tweet_price and
+# teanet
 POSITIONAL_MODELS = ("meant", "meant_vision", "meant_tweet",
-                     "meant_tweet_no_lag", "meantPrice")
+                     "meant_tweet_no_lag", "meantPrice", "meant_tweet_price",
+                     "teanet")
 
 
 def model_inputs(model_name: str, batch: Dict[str, Any]) -> tuple:
@@ -64,9 +76,23 @@ def model_inputs(model_name: str, batch: Dict[str, Any]) -> tuple:
         return ((tw[:, -1] if tw.ndim == 3 else tw),), {}
     if model_name == "meantPrice":
         return (batch["tweets"], batch["graphs"], batch["prices"]), {}
+    if model_name == "meant_tweet_price":
+        return (batch["tweets"], batch["prices"]), \
+               {"attention_mask": batch.get("attention_masks")}
+    if model_name == "teanet":
+        # TempStock feeds macds, Stocknet prices
+        price = batch["macds"] if "macds" in batch else batch["prices"]
+        return (batch["tweets"], price), {}
     raise NotImplementedError(
         f"model {model_name} is not yet ported to meant_tpu_torch "
-        f"(see ROADMAP)")
+        f"(ROADMAP §1 item 7: the HF baselines)")
+
+
+def row_outputs(model_name: str, out: torch.Tensor) -> torch.Tensor:
+    """The output the loss reads: the target (last) day's (b, num_classes)
+    of a price baseline's (b, lag, num_classes), any other model's as it
+    is."""
+    return out[:, -1] if model_name in PER_DAY_MODELS else out
 
 
 def sigmoid_ce_loss(out: torch.Tensor, labels: torch.Tensor,
@@ -157,7 +183,8 @@ class meant_trainer:
         self.model.train()
         self.optimizer.zero_grad()
         args, kwargs = model_inputs(self.model_name, batch)
-        out = self.model(*args, **kwargs)
+        out = row_outputs(self.model_name,
+                          self.model(*args, **kwargs))
         loss = sigmoid_ce_loss(out, batch["y"])
         loss.backward()
         self.optimizer.step()
@@ -173,7 +200,8 @@ class meant_trainer:
         c = self.num_classes
         labels, weight = batch["y"].to(torch.int64), batch["_weight"]
         args, kwargs = model_inputs(self.model_name, batch)
-        out = self.model(*args, **kwargs)
+        out = row_outputs(self.model_name,
+                          self.model(*args, **kwargs))
         loss = sigmoid_ce_loss(out, labels, weight)
         real = weight > 0
         idx = torch.where(real, labels, c) * c + out.argmax(dim=-1)

@@ -646,3 +646,58 @@ def test_remat_step_reruns_r1_k1_and_keeps_gradients(cuda, lever):
         if not torch.equal(other, g):
             rel = ((other - g).norm() / g.norm().clamp_min(1e-30)).item()
             assert rel <= 1e-3, (name, rel)
+
+
+# ---- meant_mosi's text tower: s=50 (one partial 64-row tile), xPos on 30
+# features (15 rotated pairs, an identity tail of 66), a padded key mask --
+
+def _rot30_case(cuda, dtype, masked, gen, s=50):
+    q, k, v, do = (torch.randn(4, 2, s, 96, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    tables = _tables(s, 96, lang_freqs(30, device=cuda), True, 512.0)
+    mask = None
+    if masked:
+        lengths = torch.tensor([50, 17, 1, 33], device=cuda)
+        mask = (torch.arange(s, device=cuda)[None, :]
+                < lengths[:, None]).float()
+    return q, k, v, do, tables, mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "padded"])
+def test_rot30_s50_kernels_match_plain(cuda, dtype, masked):
+    """R1 + K1 and R1 + K2 at s=50 with rot_dim 30 against their plain
+    versions at the bars above; the tables' tail is the identity."""
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    q, k, v, do, tables, mask = _rot30_case(cuda, dtype, masked, gen)
+    assert torch.equal(tables[0][:, 30:], torch.ones_like(tables[0][:, 30:]))
+    out = _resident_fwd(q, k, v, tables, mask, True)
+    ref = flash_mha_reference(q, k, v, mask, *tables, scale=0.1, causal=True)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+        rel = (out.float() - ref.float()).norm() / ref.float().norm()
+        assert rel <= K1_BF16_REL_L2, f"rel L2 {rel}"
+    got = _resident_bwd(q, k, v, do, tables, mask, True)
+    want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
+                                   causal=True)
+    _assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("keys", [256, 257, 400])
+def test_timesformer_flash_group_raises_on_the_card(cuda, keys):
+    """A TimeSformer group of 256 keys or more with flash=True has no
+    kernel (head dim 64, one more key than queries): it raises on a CUDA
+    tensor and never falls back to the plain version; 255 keys run the
+    plain attention, as in JAX."""
+    from meant_tpu_torch.nn.timesformer import TSAttention
+    attn = TSAttention(64, dim_head=64, heads=2, flash=True, device=cuda)
+    x = torch.randn((1, keys, 64), device=cuda)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        attn(x, group_size=keys - 1, num_groups=1, group_axis_first=True)
+    short = torch.randn((1, 255, 64), device=cuda)
+    assert torch.isfinite(attn(short, group_size=254, num_groups=1,
+                               group_axis_first=True)).all()

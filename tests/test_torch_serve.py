@@ -48,8 +48,8 @@ def test_serve_cli_smoke(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--fsdp"], ["--mu_bf16"],
-                                  ["-mn", "meant_timesformer"],
-                                  ["-mn", "teanet"]])
+                                  ["-mn", "bertweet"],
+                                  ["-mn", "vilt"]])
 def test_serve_cli_refuses_what_is_not_ported(flag):
     argv = ["-rid", "0", "-mn", "meant_src", "--device", "cpu",
             "--seq_len", "12", "--image_size", "32", "-nec", "1"] + flag

@@ -219,8 +219,7 @@ def test_meant_src_refuses_data_dir(tmp_path):
         eval_cli.main(argv)
 
 
-@pytest.mark.parametrize("name", ["teanet", "meant_timesformer",
-                                  "meant_tweet_price"])
+@pytest.mark.parametrize("name", ["bertweet", "vl_bert", "vilt"])
 def test_unported_names_still_raise(name):
     argv = TINY + ["-rid", "u", "-mn", name]
     with pytest.raises(NotImplementedError):

@@ -257,10 +257,10 @@ def test_nan_loss_raises(monkeypatch):
 @pytest.mark.parametrize("flag", [["--fsdp"], ["--mu_bf16"],
                                   ["--buckets", "128,512"],
                                   ["-mn", "meantTweetPrice"],
-                                  ["-mn", "meant_price"],
+                                  ["-mn", "vl_bert"],
                                   ["--hf_cache", "somewhere"],
-                                  ["-mn", "meant_timesformer"],
-                                  ["-mn", "teanet"]])
+                                  ["-mn", "bertweet"],
+                                  ["-mn", "vilt"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError):
         in_loop_train.main(TINY + ["-rid", "x"] + flag)
