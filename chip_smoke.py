@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, run in the order 1-6, 9, 10, 11, 7, 8; any failure raises and
-the script exits non-zero:
+Phases, run in the order 1-6, 9, 10, 11, 12, 7, 8; any failure raises
+and the script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
               long-sequence paths from csrc/, one nvcc per source, all
@@ -134,8 +134,34 @@ the script exits non-zero:
               gradients; 1 R1 + 1 K1 + 1 K2); cli.in_loop_train for
               meant_price, mlp, lstm and teanet (synthetic sets) and teanet
               --data_dir on TempStock-small files, each with no flash launch
-              and one A1 a step; TSAttention(flash=True) at 256 keys raising
-              on the card; A1 at meant_timesformer's parameter count.
+              and one A1 a step; A1 at meant_timesformer's parameter count
+              (the TimeSformer's flash groups of 256+ keys: phase 12).
+12. shapes -- the head dims and lengths beside the flagship's one length
+              at d=96, and the trainer's extras: wgmma (HGMMA) in every
+              instantiation at d=64 and 128 (K1, K3, K2's two kernels, K4
+              + K5); R1 + K1 and K2 through flash_mha in fp32 and bf16 at
+              the bars in force against their plain versions at d=64
+              (BH=960, s=512 causal xPos and s=196 pixel rotary), d=128
+              (BH=480, s=512), d=48 padded to 64 (BH=64, s=128) and the
+              TimeSformer group (BH=640, 256 queries, 257 keys, d=64, no
+              tables, no mask; the element bars' absolute parts in units
+              of the reference's RMS there); R1 + K3, R1, K4 and K5 at
+              d=128, BH=60, s=4096; `build_model(-mn meant_src
+              --num_heads 12)` serves 40 rows (24 R1 + 24 K1 a request)
+              against flash=False, one step's gradients against the plain
+              attention, 5 trainer steps (24 R1, 24 K1, 24 K2, 1 A1 a
+              step, falling loss); --num_heads 6: a request and 2 steps;
+              `-mn meant_timesformer --image_size 256 --flash true`: a
+              request (12 + 1 R1 and K1: the text encoders and the space
+              group) against flash=False and 2 steps; src4096 at 6 heads
+              and 2 encoders: a request (2 K3, 2 K1, 4 R1) and 2 steps; A1
+              with a bf16 first moment against its plain version over
+              177.6M parameters, the flagship 3 steps with an fp32 and 10
+              with a bf16 first moment (peak memory side by side); batch 8
+              with accumulation_steps=2: the accumulated gradient against
+              batch 16's (5e-2 relative L2 per group) and 10 micro-steps
+              with exactly 5 A1 launches; and, as a reading held to no
+              bar, the gathered MLM head against the full one in fp32.
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
@@ -147,11 +173,11 @@ the script exits non-zero:
               (R1 + K2; R1, K4 and K5 together),
               torch.optim.AdamW(fused=True) (A1, at the flagship's,
               meant's, the pretrainers' and meant_timesformer's parameter
-              counts); R1 has rows of
-              its own at each shape. Beside the event time of the
-              resident rows, their device time with the host out of the
-              way (at s=128 a call launches less work than the host takes
-              to issue it).
+              counts; phase 12's shapes, and A1 with a bf16 first moment);
+              R1 has rows of its own at each shape. Beside the event time
+              of the resident rows, their device time with the host out of
+              the way (at s=128 a call launches less work than the host
+              takes to issue it).
 8. profile -- torch.profiler over 3 forwards of one 16-row request: device
               time per forward by kind, the device's idle share, and the
               top kernels.
@@ -307,33 +333,50 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
 
 # ---- phase 2: the kernel against its plain version ---------------------
 
-def attention_case(kind: str, dtype, gen, s=None, bh=BATCH * LAG * HEADS):
-    """Inputs of one attention launch, at the flagship's shapes unless s
-    and bh say otherwise: (bh / heads, heads, s, 96) q/k/v, tables, mask."""
+def attention_case(kind: str, dtype, gen, s=None, bh=BATCH * LAG * HEADS,
+                   d=HEAD_DIM, s_k=None, heads=HEADS):
+    """Inputs of one attention launch, at the flagship's shapes unless s,
+    bh, the head dim d, the key length s_k and heads say otherwise: (bh /
+    heads, heads, s | s_k, d) q/k/v, tables, mask. Kind "group" is a
+    TimeSformer group (nn/timesformer.py): q scaled by d^-0.5 beforehand,
+    scale 1, no tables (the identity), no mask, not causal."""
     from meant_tpu_torch.ops import lang_freqs, pixel_freqs
     from meant_tpu_torch.ops.flash.flash_attention import _tables
+    from meant_tpu_torch.ops.flash.kernel import identity_tables
 
     if s is None:
         s = N_PATCHES if kind == "vision" else SEQ
-    shape = (bh // HEADS, HEADS, s, HEAD_DIM)
-    q, k, v = (torch.randn(shape, generator=gen, device="cuda") * 2.0
-               for _ in range(3))
+    s_k = s if s_k is None else s_k
+    q, k, v = (torch.randn((bh // heads, heads, n, d), generator=gen,
+                           device="cuda") * 2.0 for n in (s, s_k, s_k))
+    if kind == "group":
+        q = q * d ** -0.5
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    if kind == "vision":
-        freqs, xpos, causal = pixel_freqs(48, device="cuda"), False, False
-    else:
-        rot = 30 if kind.startswith("text_rot30") else 48
-        freqs, xpos, causal = lang_freqs(rot, device="cuda"), True, True
     scale = 1.0 / DIM ** 0.5       # 1/sqrt(dim) in both towers
-    tables = _tables(s, HEAD_DIM, freqs, xpos, 512.0)
+    if kind == "group":
+        tables = (*identity_tables(s, d, "cuda"),
+                  *identity_tables(s_k, d, "cuda"))
+        return dict(q=q, k=k, v=v, tables=tables, mask=None, scale=1.0,
+                    causal=False, s=s, s_k=s_k)
+    if kind == "vision":
+        freqs, xpos, causal = pixel_freqs(d // 2, device="cuda"), False, False
+    else:
+        rot = 30 if kind.startswith("text_rot30") else d // 2
+        freqs, xpos, causal = lang_freqs(rot, device="cuda"), True, True
+    tables = _tables(s, d, freqs, xpos, 512.0)
     mask = None
     if kind.endswith("masked"):
-        lengths = torch.randint(1, s + 1, (bh // HEADS,), generator=gen,
+        lengths = torch.randint(1, s + 1, (bh // heads,), generator=gen,
                                 device="cuda")
         mask = (torch.arange(s, device="cuda")[None, :]
                 < lengths[:, None]).to(torch.float32)
     return dict(q=q, k=k, v=v, tables=tables, mask=mask, scale=scale,
-                causal=causal, s=s)
+                causal=causal, s=s, s_k=s)
+
+
+def flat(t):
+    """(b, h, s, d) as the kernels' (b*h, s, d)."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
 
 
 def run_kernel(c):
@@ -347,11 +390,10 @@ def run_kernel(c):
 def run_k1(c):
     """K1 alone on c's qr and kr (rotate_case); out as (b, h, s, d)."""
     from meant_tpu_torch.ops.flash import flash_fwd
-    b, h, s, d = c["q"].shape
-    out = flash_fwd(c["qr"], c["kr"], c["v"].reshape(b * h, s, d),
-                    c["mask"], scale=c["scale"], causal=c["causal"],
-                    num_heads=h)
-    return out.reshape(b, h, s, d)
+    out = flash_fwd(c["qr"], c["kr"], flat(c["v"]), c["mask"],
+                    scale=c["scale"], causal=c["causal"],
+                    num_heads=c["q"].shape[1])
+    return out.reshape(c["q"].shape)
 
 
 def run_plain(c):
@@ -457,11 +499,10 @@ def run_bwd_kernel(c):
 def run_bwd_k2(c):
     """K2 alone on c's qr and kr (rotate_case); (dq, dk, dv) as above."""
     from meant_tpu_torch.ops.flash import flash_bwd
-    b, h, s, d = c["q"].shape
-    flat = [c[n].reshape(b * h, s, d) for n in ("v", "do")]
-    grads = flash_bwd(c["qr"], c["kr"], *flat, c["mask"], *c["tables"],
-                      scale=c["scale"], causal=c["causal"], num_heads=h)
-    return [g.reshape(b, h, s, d) for g in grads]
+    grads = flash_bwd(c["qr"], c["kr"], flat(c["v"]), flat(c["do"]),
+                      c["mask"], *c["tables"], scale=c["scale"],
+                      causal=c["causal"], num_heads=c["q"].shape[1])
+    return [g.reshape(c[n].shape) for g, n in zip(grads, "qkv")]
 
 
 def run_bwd_plain(c):
@@ -531,11 +572,10 @@ def run_online_kernel(c):
 def run_online_k3(c):
     """K3 alone on c's qr and kr (rotate_case); (out, lse) as above."""
     from meant_tpu_torch.ops.flash import flash_fwd_online
-    b, h, s, d = c["q"].shape
-    out, lse = flash_fwd_online(c["qr"], c["kr"], c["v"].reshape(b * h, s, d),
-                                c["mask"], scale=c["scale"],
-                                causal=c["causal"], num_heads=h)
-    return out.reshape(b, h, s, d), lse.reshape(b, h, s)
+    out, lse = flash_fwd_online(c["qr"], c["kr"], flat(c["v"]), c["mask"],
+                                scale=c["scale"], causal=c["causal"],
+                                num_heads=c["q"].shape[1])
+    return out.reshape(c["q"].shape), lse.reshape(c["q"].shape[:3])
 
 
 def run_online_plain(c):
@@ -558,29 +598,23 @@ def run_online_tiled_plain(c):
 def rotate_case(c):
     """R1 on (b*h, s, d) views of q and k; stores and returns (qr, kr)."""
     from meant_tpu_torch.ops.flash import rotate_qk
-    b, h, s, d = c["q"].shape
-    c["qr"], c["kr"] = rotate_qk(*(c[n].reshape(b * h, s, d)
-                                   for n in ("q", "k")), *c["tables"])
+    c["qr"], c["kr"] = rotate_qk(flat(c["q"]), flat(c["k"]), *c["tables"])
     return c["qr"], c["kr"]
 
 
 def rotate_plain(c):
     from meant_tpu_torch.ops.flash.kernel import _rotate
-    b, h, s, d = c["q"].shape
     qcos, qsin, kcos, ksin = c["tables"]
-    return (_rotate(c["q"].reshape(b * h, s, d), qcos, qsin),
-            _rotate(c["k"].reshape(b * h, s, d), kcos, ksin))
+    return (_rotate(flat(c["q"]), qcos, qsin),
+            _rotate(flat(c["k"]), kcos, ksin))
 
 
 def _online_bwd_args(c):
     """K4's and K5's arguments, q and k as R1 rotated them
     (rotate_case)."""
-    b, h, s, d = c["q"].shape
-    return ([c["qr"], c["kr"]]
-            + [c[n].reshape(b * h, s, d) for n in ("v", "do")]
-            + [c["lse"].reshape(b * h, s).contiguous(),
-               c["delta"].reshape(b * h, s).contiguous(), c["mask"],
-               *c["tables"]])
+    return ([c["qr"], c["kr"], flat(c["v"]), flat(c["do"]),
+             flat(c["lse"]).contiguous(), flat(c["delta"]).contiguous(),
+             c["mask"], *c["tables"]])
 
 
 def run_online_dq_kernel(c):
@@ -596,7 +630,7 @@ def run_online_dkdv_kernel(c):
     from meant_tpu_torch.ops.flash import flash_bwd_dkdv
     grads = flash_bwd_dkdv(*_online_bwd_args(c), scale=c["scale"],
                            causal=c["causal"], num_heads=c["q"].shape[1])
-    return [g.reshape(c["q"].shape) for g in grads]
+    return [g.reshape(c["k"].shape) for g in grads]
 
 
 def _online_plain_args(c):
@@ -619,7 +653,7 @@ def run_online_dkdv_plain(c):
     return flash_mha_bwd_online_dkdv_reference(*args, **kw)
 
 
-def long_case(kind, dtype, gen, bh):
+def long_case(kind, dtype, gen, bh, **shape):
     """One text-tower launch of src4096 (s=4096, causal xPos) with dO;
     `text_masked` has a padding mask of a random length per batch row (at
     least one key). A batch row with every key masked is checked by
@@ -628,7 +662,7 @@ def long_case(kind, dtype, gen, bh):
     of a dS entry moves an element by 0.6 (PERF.md). lse and delta for the
     backward come from the plain forward and carry a non-zero lse
     cotangent: delta = rowsum(dO * out) - g_lse."""
-    c = backward_case(kind, dtype, gen, s=LONG_SEQ, bh=bh)
+    c = backward_case(kind, dtype, gen, s=LONG_SEQ, bh=bh, **shape)
     out, lse = run_online_plain(c)
     g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
     c.update(out=out, lse=lse,
@@ -636,21 +670,23 @@ def long_case(kind, dtype, gen, bh):
     return c
 
 
-def check_long_kernels(record):
+def check_long_kernels(record, bh=LONG_CHECK_BH, kinds=("text",
+                                                       "text_masked"),
+                       tag="long", seed=4, **shape):
     """R1 + K3 (out and lse), R1, K4 and K5 against their plain versions
-    at s=4096, BH=16, fp32 and bf16, without and with a padding mask: out
-    at BF16_REL_L2 (and, in bf16, at K3_TILED_REL_L2 against the plain
-    version in K3's tiled order), the gradients at K2's bars, lse within
-    LSE_ATOL, R1 bit for bit."""
+    at s=4096, BH=16, fp32 and bf16, without and with a padding mask (or at
+    the BH, kinds and head dim given): out at BF16_REL_L2 (and, in bf16,
+    at K3_TILED_REL_L2 against the plain version in K3's tiled order), the
+    gradients at K2's bars, lse within LSE_ATOL, R1 bit for bit."""
     from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
                                                   BWD_BF16_REL_L2,
                                                   K3_TILED_REL_L2, LSE_ATOL)
-    gen = torch.Generator(device="cuda").manual_seed(4)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     errors, rels = {}, {}
-    for kind in ("text", "text_masked"):
+    for kind in kinds:
         for dtype in (torch.float32, torch.bfloat16):
-            c = long_case(kind, dtype, gen, LONG_CHECK_BH)
-            name = f"long_{kind}/{str(dtype).split('.')[-1]}"
+            c = long_case(kind, dtype, gen, bh, **shape)
+            name = f"{tag}_{kind}/{str(dtype).split('.')[-1]}"
             out, lse = run_online_kernel(c)
             rotated = (c["qr"], c["kr"])
             dq = run_online_dq_kernel(c)
@@ -712,8 +748,8 @@ def check_long_kernels(record):
                 errors[f"{name}/{g}"], rels[f"{name}/{g}"] = err, rel
             del c, out, lse, rotated, dq, dk, dv, want
             torch.cuda.empty_cache()
-    record["long_kernels_vs_plain_max_abs_err"] = errors
-    record["long_kernels_vs_plain_rel_l2"] = rels
+    record[f"{tag}_kernels_vs_plain_max_abs_err"] = errors
+    record[f"{tag}_kernels_vs_plain_rel_l2"] = rels
     return errors
 
 
@@ -771,10 +807,11 @@ def build_flagship(seq: int = SEQ, **kw):
     max(512, seq) wide, as bench.py's build_src makes it."""
     from meant_tpu_torch.models import EmbeddingConfig, meant_src
     kw.setdefault("num_encoders", ENCODERS)
+    kw.setdefault("num_heads", HEADS)
     return meant_src(text_dim=DIM, image_dim=DIM, price_dim=5, height=IMAGE,
                      width=IMAGE, patch_res=PATCH, lag=LAG, num_classes=2,
-                     embedding=EmbeddingConfig(), num_heads=HEADS,
-                     channels=3, seq_len=max(SEQ, seq), dtype=torch.bfloat16,
+                     embedding=EmbeddingConfig(), channels=3,
+                     seq_len=max(SEQ, seq), dtype=torch.bfloat16,
                      device="cuda", seed=0, **kw)
 
 
@@ -855,8 +892,8 @@ def run_slice(record):
     if not ((probs > 0) & (probs < 1)).all():
         fail("sigmoid outputs outside (0, 1)")
     record.update(n_params=n_params, launches=launches,
-                  launches_by_shape={shape_key(s, c): n
-                                     for (s, c), n in by_shape.items()})
+                  launches_by_shape={launch_key(k): n
+                                     for k, n in by_shape.items()})
 
     # the same weights with the plain attention, at fixed_proj False (the
     # served model) and True (where the probabilities depend on the towers)
@@ -952,15 +989,16 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    """Launch counts; K1's and K2's also by (s, causal), keyed
-    "s<s> causal=<c>", and R1's by s, keyed "s<s>"."""
+    """Launch counts; K1's and K2's also by shape (`launch_key`), and
+    R1's by (s_q, s_k, d), keyed "s<s>" at the flagship's head dim and one
+    length, else "s<s_q>x<s_k> d<d>"."""
     counts = {name: w.launches for name, w in wrappers().items()}
     for name in ("K1", "K2"):
         counts[f"{name}_by_shape"] = {
-            shape_key(s, c): n
-            for (s, c), n in wrappers()[name].launches_by_shape.items()}
+            launch_key(k): n
+            for k, n in wrappers()[name].launches_by_shape.items()}
     counts["R1_by_shape"] = {
-        f"s{s}": n for (s,), n in wrappers()["R1"].launches_by_shape.items()}
+        r1_key(*k): n for k, n in wrappers()["R1"].launches_by_shape.items()}
     return counts
 
 
@@ -973,8 +1011,22 @@ def check_counts(counts: dict, want: dict, label: str):
         fail(f"{label} launched {got}, want {full}")
 
 
-def shape_key(s: int, causal: bool) -> str:
-    return f"s{s} causal={bool(causal)}"
+def shape_key(s: int, causal: bool, s_k=None, d: int = HEAD_DIM) -> str:
+    """"s<s> causal=<c>" at the flagship's head dim and one length, else
+    "s<s>x<s_k> d<d> causal=<c>" (d the kernel's, after padding)."""
+    if (s_k is None or s_k == s) and d == HEAD_DIM:
+        return f"s{s} causal={bool(causal)}"
+    return f"s{s}x{s_k} d{d} causal={bool(causal)}"
+
+
+def launch_key(key) -> str:
+    """A flash wrapper's launch key (s_q, s_k, d, causal) as shape_key."""
+    s, s_k, d, causal = key
+    return shape_key(s, causal, s_k, d)
+
+
+def r1_key(s: int, s_k: int, d: int) -> str:
+    return f"s{s}" if s == s_k and d == HEAD_DIM else f"s{s}x{s_k} d{d}"
 
 
 def compare_step_gradients(model, batch, want, make_plain, label,
@@ -1007,25 +1059,34 @@ def compare_step_gradients(model, batch, want, make_plain, label,
     return res
 
 
-def train_steps(model, host, steps, per_step, label, model_name="meant_src",
-                falling=True):
-    """`steps` steps of meant_trainer on one replayed batch (numpy `host`)
-    at LEARN_LR constant (`timed_steps`)."""
+def make_trainer(model, host, model_name="meant_src", **extra):
+    """meant_trainer on one replayed batch (numpy `host`) at LEARN_LR
+    constant; `extra` adds trainer parameters (mu_dtype,
+    accumulation_steps)."""
     from meant_tpu_torch.data.loader import ArrayLoader
     from meant_tpu_torch.train.classify import meant_trainer
-    trainer = meant_trainer({
+    return meant_trainer({
         "model": model, "model_name": model_name,
         "train_loader": ArrayLoader(host, len(host["y"])),
-        "lrst": "constant", "lr": LEARN_LR, "seed": 0, "test_model": False})
-    return timed_steps(trainer, host, steps, per_step, label, falling)
+        "lrst": "constant", "lr": LEARN_LR, "seed": 0, "test_model": False,
+        **extra})
 
 
-def timed_steps(trainer, host, steps, per_step, label, falling=True):
+def train_steps(model, host, steps, per_step, label, model_name="meant_src",
+                falling=True, want=None, **extra):
+    """`steps` steps of meant_trainer on one replayed batch (numpy `host`)
+    at LEARN_LR constant (`timed_steps`)."""
+    return timed_steps(make_trainer(model, host, model_name, **extra), host,
+                       steps, per_step, label, falling, want)
+
+
+def timed_steps(trainer, host, steps, per_step, label, falling=True,
+                want=None):
     """`steps` steps of `trainer` on one replayed batch (numpy `host`): a
     training main path, counts set to 0 just before and read just after,
-    exactly `per_step` launches per step and a finite loss, falling unless
-    `falling` is False (a step timed only). Returns the record, the trainer
-    and the device batch."""
+    exactly `per_step` launches per step (or `want` in all) and a finite
+    loss, falling unless `falling` is False (a step timed only). Returns the
+    record, the trainer and the device batch."""
     rows = len(next(iter(host.values())))
     trainer._init_state()
     n_trainable = trainer.optimizer.flat_p.numel()
@@ -1045,7 +1106,8 @@ def timed_steps(trainer, host, steps, per_step, label, falling=True):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     losses = torch.stack(losses).tolist()
-    want = {k: n * steps for k, n in per_step.items()}
+    if want is None:
+        want = {k: n * steps for k, n in per_step.items()}
     print(f"{label}: {steps} steps of {rows} replayed rows at lr "
           f"{lr}: loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"launches {counts} (want {want})", flush=True)
@@ -2308,24 +2370,6 @@ def zoo_cli(res):
     torch.cuda.empty_cache()
 
 
-def timesformer_flash_refused(res):
-    """A TimeSformer group of 256 keys (255 patches and the cls key) with
-    flash=True on the card raises: no kernel of the port takes head dim 64
-    with one more key than queries."""
-    from meant_tpu_torch.nn.timesformer import TSAttention
-    attn = TSAttention(64, dim_head=64, heads=2, flash=True,
-                       dtype=torch.bfloat16, device="cuda")
-    x = torch.randn((1, 1 + 255, 64), device="cuda")
-    try:
-        attn(x, group_size=255, num_groups=1, group_axis_first=True)
-    except NotImplementedError as e:
-        res["timesformer_flash_256"] = str(e)
-        print(f"TSAttention(flash=True) at 256 keys on the card raises: {e}",
-              flush=True)
-        return
-    fail("TSAttention(flash=True) at 256 keys ran on the card")
-
-
 def run_zoo(record) -> dict:
     """Phase 11: the TimeSformer family, meant_tweet_price, meant_mosi and
     the four models without flash kernels at the CLI's widths."""
@@ -2353,12 +2397,511 @@ def run_zoo(record) -> dict:
                           "vision": m.timesformer})
     mask_in_flash(res)
     zoo_cli(res)
-    timesformer_flash_refused(res)
     out["a1_err"] = check_adamw(res["meant_timesformer"],
                                 res["meant_timesformer"]["n_params"])
     out["n_params"] = res["meant_timesformer"]["n_params"]
     res["wall_s"] = time.perf_counter() - t0
     print(f"phase zoo: {res['wall_s']:.1f} s", flush=True)
+    return out
+
+
+# ---- phase 12: shapes and extras -------------------------------------------
+
+# The flash kernels at the head dims and lengths the CLI reaches beside the
+# flagship's one length at d = 96: (name, attention_case kind, s, s_k, BH,
+# d, heads). meant_src --num_heads 12 (width 768, d = 64) at s=512 causal
+# xPos and s=196 pixel rotary, BH = 16 x 5 x 12; --num_heads 6 (d = 128) at
+# s=512, BH = 16 x 5 x 6; --num_heads 16 (d = 48, padded to 64) at s=128
+# on a small BH; the TimeSformer space group of --image_size 256 (256
+# queries and 257 keys at d = 64, q scaled beforehand, no tables, no
+# mask), BH = 16 x 8 heads x 5 frames.
+SHAPE_CASES = (
+    ("text_d64", "text", SEQ, SEQ, BATCH * LAG * 12, 64, 12),
+    ("vision_d64", "vision", N_PATCHES, N_PATCHES, BATCH * LAG * 12, 64, 12),
+    ("text_d128", "text", SEQ, SEQ, BATCH * LAG * 6, 128, 6),
+    ("text_d48", "text", PAPER_SEQ, PAPER_SEQ, 64, 48, 16),
+    ("group_256x257", "group", 256, 257, BATCH * HEADS * LAG, 64, 1))
+SRC12_HEADS, SRC6_HEADS = 12, 6
+SRC12_STEPS = 5
+TS_IMAGE = 256             # meant_timesformer --image_size 256: 256 patches
+TS_LAUNCHES = {"K1": ENCODERS + 1, "R1": ENCODERS + 1}   # + the space group
+MU_STEPS, MU_FP32_STEPS = 10, 3
+ACCUM_K, ACCUM_MICRO, ACCUM_ROWS = 2, 10, 8   # bench.py's "b8 x accum2"
+ACCUM_GRAD_REL_L2 = 5e-2
+LONG6_BH = LONG_BATCH * LAG * SRC6_HEADS      # src4096 at 6 heads: 60
+STEP = {"K1": 2 * ENCODERS, "R1": 2 * ENCODERS, "K2": 2 * ENCODERS,
+        "A1": 1}
+
+
+def group_unit(name: str, ref) -> float:
+    """The unit of the element bars' absolute parts: 1 (the bars in force)
+    but for the TimeSformer group, whose gradients come at scale 1 on a
+    pre-scaled q (dq reaches some 160 with an RMS near 30, where FP32_ATOL
+    is below one fp32 step and BWD_BF16_ATOL below one bf16 step): there
+    the reference's RMS, where that passes 1."""
+    if not name.startswith("group"):
+        return 1.0
+    return max(1.0, ref.float().pow(2).mean().sqrt().item())
+
+
+def run_autograd(c):
+    """flash_mha forward (R1 + K1) and its autograd backward (K2 on K1's Qr
+    and Kr), a head dim the kernels are not built for padded as the
+    wrapper pads it: (out, dq, dk, dv)."""
+    from meant_tpu_torch.ops.flash import flash_mha
+    qcos, qsin, kcos, ksin = c["tables"]
+    leaves = [c[n].detach().requires_grad_(True) for n in "qkv"]
+    out = flash_mha(*leaves, scale=c["scale"], causal=c["causal"],
+                    attention_mask=c["mask"], qcos=qcos, qsin=qsin,
+                    kcos=kcos, ksin=ksin)
+    return (out.detach(), *torch.autograd.grad(out, leaves, c["do"]))
+
+
+def shape_case(name, dtype, gen):
+    _, kind, s, s_k, bh, d, heads = next(c for c in SHAPE_CASES
+                                         if c[0] == name)
+    return backward_case(kind, dtype, gen, s=s, s_k=s_k, bh=bh, d=d,
+                         heads=heads)
+
+
+def check_shapes(record) -> dict:
+    """R1 + K1 and K2 through flash_mha (padding included) against
+    flash_mha_reference and flash_mha_bwd_reference at SHAPE_CASES, fp32
+    and bf16, at the bars in force (fp32 FP32_RTOL / FP32_ATOL; bf16: K1's
+    and K2's; the absolute parts in `group_unit`); R1 bit for bit where d
+    is one of the kernels' own."""
+    from meant_tpu_torch.ops.flash.kernel import (BWD_BF16_ATOL,
+                                                  BWD_BF16_REL_L2, HEAD_DIMS,
+                                                  K1_BF16_REL_L2)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    errors, rels = {}, {}
+    for name, *_ in SHAPE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            c = shape_case(name, dtype, gen)
+            got = run_autograd(c)
+            torch.cuda.synchronize()
+            want = [run_plain(c), *run_bwd_plain(c)]
+            torch.cuda.synchronize()
+            label = f"{name}/{str(dtype).split('.')[-1]}"
+            if c["q"].shape[-1] in HEAD_DIMS:
+                rot_err = max((a.float() - b.float()).abs().max().item()
+                              for a, b in zip(rotate_case(c),
+                                              rotate_plain(c)))
+                print(f"R1 vs plain {label}: max_abs_err {rot_err:.3e} "
+                      f"(bar 0) {'ok' if rot_err == 0 else 'FAIL'}",
+                      flush=True)
+                if rot_err != 0:
+                    fail(f"R1 differs from _rotate ({label})")
+                errors[f"{label}/rot"] = rot_err
+            for g, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+                err = (a.float() - b.float()).abs().max().item()
+                rel = rel_l2(a, b)
+                unit = group_unit(name, b)
+                if dtype == torch.float32:
+                    ok = torch.allclose(a, b, rtol=FP32_RTOL,
+                                        atol=FP32_ATOL * unit)
+                elif g == "out":
+                    ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
+                                         atol=BF16_TOL * unit)
+                          and rel <= K1_BF16_REL_L2)
+                else:
+                    ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
+                                         atol=BWD_BF16_ATOL * unit)
+                          and rel <= BWD_BF16_REL_L2)
+                ok = ok and bool(torch.isfinite(a).all())
+                kernel = "R1 + K1" if g == "out" else "R1 + K2"
+                print(f"{kernel} vs plain {label} {g}: max_abs_err {err:.3e}"
+                      f" rel_l2 {rel:.3e} (|ref| max "
+                      f"{b.abs().max().item():.3e}, atol unit {unit:.3g}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"{kernel} disagrees with its plain version "
+                         f"({label} {g}, max abs err {err}, rel L2 {rel})")
+                errors[f"{label}/{g}"], rels[f"{label}/{g}"] = err, rel
+            del c, got, want
+            torch.cuda.empty_cache()
+    record["shapes_vs_plain_max_abs_err"] = errors
+    record["shapes_vs_plain_rel_l2"] = rels
+    return errors
+
+
+def count_new_hgmma() -> dict:
+    """wgmma in every instantiation at head dims 64 and 128: K1, K3 (the
+    forward body), K2's two kernels and K4 + K5."""
+    counts = {}
+    for d in (64, 128):
+        for label, lib, function in (
+                ("K1", "flash_fwd", f"flash_fwd_wgmma_kernelILi{d}E"),
+                ("K3", "flash_fwd", f"flash_fwd_lse_wgmma_kernelILi{d}E"),
+                ("K2", "flash_bwd", f"ILb1ELi{d}E"),
+                ("K4+K5", "flash_bwd_online", f"ILb0ELi{d}E")):
+            counts[f"{label} d{d}"] = count_hgmma(lib, function)
+    return counts
+
+
+def serve_src_heads(res, heads: int, rows: int, compare: bool):
+    """build_model(-mn meant_src --num_heads heads --flash true) at the
+    flagship's width serves `rows` rows in requests of BATCH (exactly 24 R1
+    + 24 K1 a request); with `compare`, the towers and probabilities of one
+    request against the same weights at flash=False."""
+    from meant_tpu_torch.serve import Predictor
+    label = f"meant_src --num_heads {heads}"
+    args = ("--seq_len", str(SEQ), "--num_heads", str(heads), "--flash")
+    model = build_zoo("meant_src", *args, "true")
+    predictor = Predictor(model, "meant_src", batch_size=BATCH)
+    batch = request_batch(rows, seed=40 + heads)
+    chunk = {k: v[:BATCH] for k, v in batch.items()}
+    predictor(chunk)        # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    probs = predictor(batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = -(-rows // BATCH) * 2 * ENCODERS
+    print(f"served {label}: {rows} rows, launches {counts}", flush=True)
+    check_counts(counts, {"K1": want, "R1": want}, f"serving {label}")
+    if (probs.shape != (rows, 2) or not np.isfinite(probs).all()
+            or not ((probs > 0) & (probs < 1)).all()):
+        fail(f"bad {label} probabilities {probs.shape}")
+    res["serve_launches"] = counts
+    if not compare:
+        del model, predictor
+        torch.cuda.empty_cache()
+        return counts
+    plain = build_zoo("meant_src", *args, "false")
+    plain.load_state_dict(model.state_dict())
+    compare_slice(f"src_heads{heads}",
+                  towers_and_probs(model, predictor, chunk),
+                  towers_and_probs(plain, Predictor(plain, "meant_src",
+                                                    batch_size=BATCH), chunk),
+                  res)
+    del model, plain, predictor
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_src_heads(res, heads: int, rows: int, steps: int, grads: bool):
+    """meant_src at `heads` heads of the flagship's width: serving through
+    the CLI's build_model, then the flagship at fixed_proj=True (the
+    trained configuration): with `grads`, the served towers against
+    flash=False and one step's gradients against the plain attention;
+    `steps` trainer steps with exactly 24 R1, 24 K1, 24 K2 and 1 A1 a step
+    (a falling loss past 2 steps)."""
+    serve = serve_src_heads(res, heads, rows, compare=grads)
+    model = build_flagship(flash=True, fixed_proj=True, num_heads=heads)
+    if grads:
+        res["step_gradients"] = compare_step_gradients(
+            model, to_card(train_batch(GRAD_ROWS, seed=6)),
+            {k: n for k, n in STEP.items() if k != "A1"},
+            lambda: build_flagship(flash=False, fixed_proj=True,
+                                   num_heads=heads),
+            f"meant_src --num_heads {heads} train step")
+    res["train"], _, _ = train_steps(
+        model, train_batch(BATCH, seed=7), steps, STEP,
+        f"learn meant_src --num_heads {heads}", falling=steps > 2)
+    del model
+    torch.cuda.empty_cache()
+    return serve, res["train"]["launches"]
+
+
+def run_timesformer_256(res):
+    """meant_timesformer --image_size 256 --flash true at the CLI's widths:
+    one request (12 R1 + 12 K1 for the text encoders, 1 R1 + 1 K1 for the
+    TimeSformer's space group of 256 queries and 257 keys) against
+    flash=False, and 2 trainer steps with as many K2 and 1 A1 a step."""
+    from meant_tpu_torch.cli.common import synthetic_batch
+    name = "meant_timesformer"
+    extra = ("--seq_len", str(SEQ), "--image_size", str(TS_IMAGE))
+    model = build_zoo(name, *extra, "--flash", "true")
+    host = synthetic_batch(zoo_args(name, *extra), BATCH, seed=36)
+    serve_zoo(name, model, host, TS_LAUNCHES, res,
+              lambda m: {"text": m.languageEncoders, "vision": m.timesformer},
+              plain=build_zoo(name, *extra, "--flash", "false"))
+    torch.cuda.empty_cache()
+    res["train"], _, _ = train_steps(
+        model, host, 2, {**TS_LAUNCHES, "K2": ENCODERS + 1, "A1": 1},
+        f"learn {name} --image_size {TS_IMAGE}", model_name=name,
+        falling=False)
+    del model
+    torch.cuda.empty_cache()
+    return res["launches"], res["train"]["launches"]
+
+
+def check_adamw_bf16(res, n: int) -> float:
+    """A1 with a bf16 first moment against adamw_reference over n
+    parameters: p and v to ADAMW_REL_ERR relative, m equal but for ties
+    (within one bf16 step: both round the same fp32 m')."""
+    from meant_tpu_torch.ops.adamw import (adamw_reference, adamw_update,
+                                           update_scalars)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    p, g, m, v = adamw_case(n, gen)
+    m = m.to(torch.bfloat16)
+    ref = [t.clone() for t in (p, m, v)]
+    norm = torch.linalg.vector_norm(g)
+    adamw_update(p, g, m, v, norm=norm, **ADAMW_ARGS)
+    h = update_scalars(mu_bf16=True, coupled=False,
+                       **{k: x for k, x in ADAMW_ARGS.items()
+                          if k != "max_norm"})
+    adamw_reference(ref[0], g, ref[1], ref[2], h, norm, 1.0)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b in (("p", p, ref[0]), ("v", v, ref[2])):
+        rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+        worst = max(worst, rel)
+        print(f"A1 (bf16 m) vs plain {name}: max relative error {rel:.3e} "
+              f"over {n} parameters", flush=True)
+        if not (rel <= ADAMW_REL_ERR and torch.isfinite(a).all()):
+            fail(f"A1 with a bf16 m disagrees with its plain version "
+                 f"({name}, {rel})")
+    differ = (m != ref[1])
+    step = (ref[1].float().abs() * 2.0 ** -7).clamp_min(1e-38)
+    off = ((m.float() - ref[1].float()).abs() > step).sum().item()
+    print(f"A1 (bf16 m) vs plain m: {differ.sum().item()} of {n} elements "
+          f"differ, {off} by more than one bf16 step", flush=True)
+    if off:
+        fail("A1's bf16 m is off its plain version by more than a tie")
+    res.update(a1_bf16_vs_plain_max_rel_err=worst,
+               a1_bf16_m_differ=differ.sum().item())
+    worst_abs = (p - ref[0]).abs().max().item()
+    del p, g, m, v, ref
+    torch.cuda.empty_cache()
+    return worst_abs
+
+
+def run_mu_bf16(res):
+    """The flagship (fixed_proj=True) trained on one replayed batch with
+    an fp32 first moment (MU_FP32_STEPS steps, for peak memory and step
+    time) and then MU_STEPS steps with mu_dtype=bf16 (24 R1, 24 K1, 24 K2,
+    1 A1 a step; falling loss), each on a fresh model: peak memory side by
+    side."""
+    res["a1_err"] = check_adamw_bf16(res, res["n_params"])
+    host = train_batch(BATCH, seed=1)
+    runs = {}
+    for label, mu_dtype, steps in (("fp32", None, MU_FP32_STEPS),
+                                   ("bf16", torch.bfloat16, MU_STEPS)):
+        model = build_flagship(flash=True, fixed_proj=True)
+        runs[label], trainer, _ = train_steps(
+            model, host, steps, STEP, f"learn with a {label} first moment",
+            mu_dtype=mu_dtype)
+        if trainer.optimizer.m.dtype != (mu_dtype or torch.float32):
+            fail(f"mu_dtype={mu_dtype} left the first moment in "
+                 f"{trainer.optimizer.m.dtype}")
+        del model, trainer
+        torch.cuda.empty_cache()
+    peak = {k: r["peak_memory_bytes"] for k, r in runs.items()}
+    saved = peak["fp32"] - peak["bf16"]
+    print(f"mu_bf16: peak memory {peak['bf16'] / 2 ** 30:.3f} GiB against "
+          f"fp32 m's {peak['fp32'] / 2 ** 30:.3f} GiB ({saved / 2 ** 20:.1f} "
+          f"MiB less; the moment alone is "
+          f"{res['n_params'] * 2 / 2 ** 20:.1f} MiB less); step median "
+          f"{runs['bf16']['step_ms_median']:.3f} ms against "
+          f"{runs['fp32']['step_ms_median']:.3f} ms", flush=True)
+    if saved <= 0:
+        fail("a bf16 first moment did not lower peak memory")
+    res.update(train=runs["bf16"], train_fp32_m=runs["fp32"],
+               peak_saved_bytes=saved)
+    return runs["bf16"]["launches"]
+
+
+def accumulated_gradient(model, host) -> torch.Tensor:
+    """The gradient A1 receives from ACCUM_K micro-steps of meant_trainer's
+    optimizer with accumulation_steps=ACCUM_K, one per ACCUM_ROWS-row half
+    of `host`, dropout off: the running mean that reaches the update,
+    flat fp32."""
+    from meant_tpu_torch.train import optim
+    trainer = make_trainer(model, host, accumulation_steps=ACCUM_K)
+    trainer._init_state()
+    opt, seen = trainer.optimizer, []
+    update = optim.adamw_update
+    optim.adamw_update = lambda p, g, *a, **kw: (seen.append(g.clone()),
+                                                 update(p, g, *a, **kw))
+    loss_fn = classify_loss("meant_src")
+    try:
+        model.eval()
+        for i in range(ACCUM_K):
+            opt.zero_grad()
+            loss_fn(model, to_card({k: v[i * ACCUM_ROWS:(i + 1) * ACCUM_ROWS]
+                                    for k, v in host.items()})).backward()
+            opt.step()
+    finally:
+        optim.adamw_update = update
+    if len(seen) != 1 or opt.step_count != 1:
+        fail(f"{ACCUM_K} micro-steps applied {len(seen)} updates")
+    return seen[0]
+
+
+def run_accumulation(res):
+    """The flagship (fixed_proj=True) at batch ACCUM_ROWS with
+    accumulation_steps=ACCUM_K: the mean of two micro-steps' gradients
+    against one batch-16 gradient of the same rows and weights, per group
+    at ACCUM_GRAD_REL_L2; then ACCUM_MICRO micro-steps with exactly
+    ACCUM_MICRO / ACCUM_K A1 launches and a falling loss."""
+    host = train_batch(ACCUM_K * ACCUM_ROWS, seed=8)
+    model = build_flagship(flash=True, fixed_proj=True)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    _, want = step_gradients(model, to_card(host), classify_loss("meant_src"))
+    model.load_state_dict(state)
+    flat = accumulated_gradient(model, host)
+    got, offset = {}, 0
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            got.setdefault(_group(name), []).append(
+                flat[offset:offset + p.numel()])
+            offset += p.numel()
+    rels = {}
+    for group, parts in got.items():
+        rels[group] = rel_l2(torch.cat(parts), want[group])
+        if not rels[group] <= ACCUM_GRAD_REL_L2:
+            fail(f"accumulated gradient of {group} is off the batch-16 one "
+                 f"(relative L2 {rels[group]:.3e})")
+    print(f"accumulation: the mean of {ACCUM_K} x {ACCUM_ROWS} rows against "
+          f"{ACCUM_K * ACCUM_ROWS} rows, relative L2 per group "
+          f"{json.dumps(rels)}", flush=True)
+    res["grad_rel_l2"] = rels
+    del model, state, want, flat, got
+    torch.cuda.empty_cache()
+    model = build_flagship(flash=True, fixed_proj=True)
+    micro = {k: v[:ACCUM_ROWS] for k, v in host.items()}
+    per = {k: n for k, n in STEP.items() if k != "A1"}
+    want_counts = {**{k: n * ACCUM_MICRO for k, n in per.items()},
+                   "A1": ACCUM_MICRO // ACCUM_K}
+    res["train"], trainer, _ = train_steps(
+        model, micro, ACCUM_MICRO, STEP, f"learn b{ACCUM_ROWS} x accum"
+        f"{ACCUM_K}", want=want_counts, accumulation_steps=ACCUM_K)
+    if trainer.optimizer.step_count != ACCUM_MICRO // ACCUM_K:
+        fail(f"{ACCUM_MICRO} micro-steps applied "
+             f"{trainer.optimizer.step_count} updates")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return res["train"]["launches"]
+
+
+def run_long_heads6(res):
+    """src4096 at --num_heads 6 (d = 128) with LONG_GRAD_ENCODERS encoders a
+    tower, the streaming path at d = 128 from the user's entry points: one
+    request of LONG_BATCH rows through Predictor (exactly 2 K3 + 2 K1 + 4
+    R1) and 2 trainer steps (2 K3, 2 K1, 6 R1, 2 K4, 2 K5, 2 K2 and 1 A1 a
+    step)."""
+    from meant_tpu_torch.serve import Predictor
+    n = LONG_GRAD_ENCODERS
+    model = build_flagship(LONG_SEQ, flash=True, fixed_proj=True,
+                           num_heads=SRC6_HEADS, num_encoders=n)
+    predictor = Predictor(model, "meant_src", batch_size=LONG_BATCH)
+    rows = request_batch(LONG_BATCH, seed=50, seq=LONG_SEQ)
+    predictor(rows)     # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    probs = predictor(rows)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"served src4096 --num_heads {SRC6_HEADS} at {n} encoders: "
+          f"launches {counts}", flush=True)
+    check_counts(counts, {"K3": n, "K1": n, "R1": 2 * n},
+                 f"serving src4096 at {SRC6_HEADS} heads")
+    if not (np.isfinite(probs).all() and ((probs > 0) & (probs < 1)).all()):
+        fail(f"bad src4096 probabilities at {SRC6_HEADS} heads")
+    res["serve_launches"] = counts
+    del predictor
+    res["train"], _, _ = train_steps(
+        model, train_batch(LONG_BATCH, seed=51, seq=LONG_SEQ), 2,
+        {"K3": n, "K1": n, "R1": 3 * n, "K4": n, "K5": n, "K2": n, "A1": 1},
+        f"learn src4096 --num_heads {SRC6_HEADS}", falling=False)
+    del model
+    torch.cuda.empty_cache()
+    return {"R1": counts["R1"] + res["train"]["launches"]["R1"],
+            **{k: res["train"]["launches"][k] for k in ("K4", "K5")},
+            "K3": counts["K3"] + res["train"]["launches"]["K3"]}
+
+
+def time_shapes(out, n_params) -> list:
+    """The rows of the new shapes: R1 + K1, K2 and R1 at d = 64 (s=512 and
+    196, BH = 960), d = 128 (s=512, BH = 480) and the TimeSformer group
+    (256 x 257, d = 64, BH = 640), each with the launches of the run that
+    reaches it (meant_src --num_heads 12, --num_heads 6, meant_timesformer
+    --image_size 256); R1 + K3, R1, K4 and K5 at src4096's launch at 6
+    heads (BH = 60, d = 128) with the launches of that drive; A1 with a
+    bf16 first moment at the flagship's count."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    errors, rows = out["errors"], []
+    for name, label, (serve, steps) in (
+            ("text_d64", "s512 causal xPos d64", out["src12"]),
+            ("vision_d64", "s196 pixel rotary d64", out["src12"]),
+            ("text_d128", "s512 causal xPos d128", out["src6"]),
+            ("group_256x257", "s256x257 d64 TimeSformer group",
+             out["timesformer"])):
+        c = shape_case(name, torch.bfloat16, gen)
+        d = c["q"].shape[-1]
+        key = shape_key(c["s"], c["causal"], c["s_k"], d)
+        bf16 = f"{name}/bfloat16"
+        rows += resident_rows(
+            c, label, serve["K1_by_shape"].get(key, 0),
+            steps["K2_by_shape"].get(key, 0),
+            steps["R1_by_shape"].get(r1_key(c["s"], c["s_k"], d), 0),
+            errors[f"{bf16}/out"],
+            max(errors[f"{bf16}/{g}"] for g in ("dq", "dk", "dv")),
+            errors[f"{bf16}/rot"])
+        del c
+    rows += time_long_kernels(out["long_errors"], out["long6"],
+                              bh=LONG6_BH, small_bh=SRC6_HEADS,
+                              tag="long_d128", label="s4096 causal xPos d128",
+                              d=128, heads=SRC6_HEADS)
+    rows.append(adamw_row("adamw[mu_bf16]", n_params, out["mu_bf16"]["A1"],
+                          out["a1_bf16_err"], gen, mu_bf16=True))
+    return rows
+
+
+def trace_mlm_heads_fp32(res):
+    """The gathered MLM head against the full one of bench.py's build_mlm
+    in fp32 (activations and the flash kernels' fp32 bodies), one batch,
+    dropout off: a reading held to no bar. Agreement to 1e-5 reads the bf16
+    gap (`compare_heads`) as rounding at different GEMM shapes."""
+    from meant_tpu_torch import models
+    model = models.meant_language_pretrainer(
+        embedding=models.EmbeddingConfig(hidden_size=DIM), text_dim=DIM,
+        num_encoders=ENCODERS, num_heads=HEADS, flash=True, dtype=None,
+        device="cuda", seed=0)
+    batch = to_card(pretrain_batch("mlm"))
+    loss_g, grads_g = step_gradients(model, batch, pretrain_loss("mlm"))
+    loss_f, grads_f = step_gradients(
+        model, batch, pretrain_loss("mlm", gather_masked=False))
+    out = {"loss_gathered": loss_g, "loss_full": loss_f,
+           "loss_rel_err": abs(loss_g - loss_f) / abs(loss_f)}
+    for name, g in grads_g.items():
+        out[f"{name}_grad_rel_l2"] = rel_l2(g, grads_f[name])
+    out["agree_to_1e-5"] = all(v <= 1e-5 for k, v in out.items()
+                               if k.endswith(("_rel_l2", "_rel_err")))
+    print(f"mlm gathered head vs full head in fp32 (a reading): "
+          f"{json.dumps(out)}", flush=True)
+    res["mlm_heads_fp32"] = out
+    del model, batch, grads_g, grads_f
+    torch.cuda.empty_cache()
+
+
+def run_shapes(record, n_params: int) -> dict:
+    """Phase 12: the kernels at the new head dims and lengths, the models
+    that reach them, and the trainer's --mu_bf16 and accumulation."""
+    t0 = time.perf_counter()
+    res = {"n_params": n_params}
+    record["shapes"] = res
+    res["hgmma"] = count_new_hgmma()
+    out = {"errors": check_shapes(res)}
+    out["long_errors"] = check_long_kernels(
+        res, bh=LONG6_BH, kinds=("text",), tag="long_d128", seed=13, d=128,
+        heads=SRC6_HEADS)
+    out["src12"] = run_src_heads(res.setdefault("src_heads12", {}),
+                                 SRC12_HEADS, REQUEST_ROWS, SRC12_STEPS, True)
+    out["src6"] = run_src_heads(res.setdefault("src_heads6", {}),
+                                SRC6_HEADS, BATCH, 2, False)
+    out["timesformer"] = run_timesformer_256(
+        res.setdefault("timesformer_256", {}))
+    out["long6"] = run_long_heads6(res.setdefault("long_heads6", {}))
+    mu = res.setdefault("mu_bf16", {"n_params": n_params})
+    out["mu_bf16"] = run_mu_bf16(mu)
+    out["a1_bf16_err"] = mu["a1_err"]
+    out["accumulation"] = run_accumulation(res.setdefault("accumulation", {}))
+    trace_mlm_heads_fp32(res)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"phase shapes: {res['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -2368,16 +2911,18 @@ def attention_cost(c, backward: bool = False) -> tuple:
     """(bytes, flops) the launch must move and compute. Forward: q, k, v
     read, o written, QK^T and P@V. Backward: q, k, v, dO read, dq, dk, dv
     written, and five products (S, dP, dV, dQ, dK). Tables and mask read
-    once; products over the causal triangle (s(s+1)/2 pairs) or the full
-    square."""
-    q = c["q"]
+    once; products over the (row, key) pairs the causal fill keeps
+    (min(row + 1, s_k) a row) or all s_q s_k."""
+    q, k = c["q"], c["k"]
     bh = q.shape[0] * q.shape[1]
-    s, d = c["s"], q.shape[-1]
-    nbytes = (7 if backward else 4) * q.numel() * q.element_size()
+    s, s_k, d = c["s"], c["s_k"], q.shape[-1]
+    nbytes = ((3 * q.numel() + 4 * k.numel()) if backward
+              else (2 * q.numel() + 2 * k.numel())) * q.element_size()
     nbytes += sum(t.numel() * 4 for t in c["tables"])
     if c["mask"] is not None:
         nbytes += c["mask"].numel() * 4
-    pairs = s * (s + 1) // 2 if c["causal"] else s * s
+    pairs = (sum(min(r + 1, s_k) for r in range(s)) if c["causal"]
+             else s * s_k)
     return nbytes, (5 if backward else 2) * 2 * bh * pairs * d
 
 
@@ -2402,6 +2947,57 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
             **extra}
 
 
+def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches,
+                  fwd_err, bwd_err, rot_err) -> list:
+    """The three rows of one resident shape: R1 + K1 (K1 alone beside it)
+    against rotation + SDPA, K2 (R1 + K2 beside it) against the SDPA
+    backward, and R1; each with its launches on the main path, its error
+    against the plain version, its bound and its plain version's time."""
+    rows = []
+    nbytes, flops = attention_cost(c)
+    with_r1 = event_ms(lambda: run_kernel(c), iters=20)
+    rotate_case(c)
+    k1_ms = event_ms(lambda: run_k1(c), iters=20)
+    library_ms = event_ms(lambda: run_library(c), iters=20)
+    print(f"resident forward at {label}: R1 + K1 {with_r1:.4f} ms "
+          f"(K1 alone {k1_ms:.4f} ms) against rotation + SDPA's "
+          f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)", flush=True)
+    rows.append(kernel_row(
+        f"flash_fwd[{label}]", "meant_tpu_torch/csrc/flash_fwd.cu",
+        "meant_tpu/ops/flash/kernel.py:89", fwd_launches, fwd_err, with_r1,
+        event_ms(lambda: run_plain(c), iters=5), library_ms, nbytes, flops,
+        PEAK_BF16_FLOPS, shape=list(c["q"].shape), s_k=c["s_k"],
+        dtype="bfloat16", k1_alone_ms=k1_ms,
+        library_call="rotation + scaled_dot_product_attention"))
+    nbytes, flops = attention_cost(c, backward=True)
+    library = run_library_bwd(c)
+    library_ms = event_ms(library, iters=10)
+    rotate_case(c)
+    k2_ms = event_ms(lambda: run_bwd_k2(c), iters=10)
+    with_r1 = event_ms(lambda: run_bwd_kernel(c), iters=10)
+    rows.append(kernel_row(
+        f"flash_bwd[{label}]", "meant_tpu_torch/csrc/flash_bwd.cu",
+        "meant_tpu/ops/flash/kernel.py:321", bwd_launches, bwd_err, k2_ms,
+        event_ms(lambda: run_bwd_plain(c), iters=3), library_ms, nbytes,
+        flops, PEAK_BF16_FLOPS, shape=list(c["q"].shape), s_k=c["s_k"],
+        dtype="bfloat16", r1_plus_k2_ms=with_r1))
+    print(f"resident backward at {label}: K2 {k2_ms:.4f} ms, R1 + K2 "
+          f"{with_r1:.4f} ms against the SDPA backward's "
+          f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)", flush=True)
+    nbytes, flops = rotation_cost(c)
+    r1_ms = event_ms(lambda: rotate_case(c), iters=20)
+    print(f"rotation pass at {label}: R1 {r1_ms:.4f} ms", flush=True)
+    rows.append(kernel_row(
+        f"rotate_qk[{label}]", "meant_tpu_torch/csrc/flash_bwd_online.cu",
+        "meant_tpu/ops/flash/kernel.py:340", r1_launches, rot_err, r1_ms,
+        event_ms(lambda: rotate_plain(c), iters=5), None, nbytes, flops,
+        PEAK_FP32_FLOPS, shape=list(c["q"].shape), s_k=c["s_k"],
+        dtype="bfloat16", library_call=None))
+    del library
+    torch.cuda.empty_cache()
+    return rows
+
+
 def time_kernels(record, errors, launches_by_shape, bwd_errors,
                  train_counts, a1_err, n_params, paper, pretrain, zoo):
     """The resident rows (R1 + K1, K2, R1) at the flagship's two shapes, at
@@ -2411,7 +3007,7 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
     are those of their steps), then A1 at each path's parameter count."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
-    flagship = {shape_key(*k): n for k, n in launches_by_shape.items()}
+    flagship = {launch_key(k): n for k, n in launches_by_shape.items()}
     mlm, mim = pretrain["mlm"]["train"], pretrain["mim"]["train"]
     for case, kind, label, fwd_by_shape, steps in (
             ("text", "text", "s512 causal xPos", flagship, train_counts),
@@ -2430,57 +3026,13 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
              zoo["mosi"][0]["K1_by_shape"], zoo["mosi"][1])):
         s, bh = {name: (s, bh) for name, _, s, bh in RESIDENT_CASES}[case]
         c = backward_case(kind, torch.bfloat16, gen, s=s, bh=bh)
-        key = (c["s"], c["causal"])
-        nbytes, flops = attention_cost(c)
-        with_r1 = event_ms(lambda: run_kernel(c), iters=20)
-        rotate_case(c)
-        k1_ms = event_ms(lambda: run_k1(c), iters=20)
-        library_ms = event_ms(lambda: run_library(c), iters=20)
-        print(f"resident forward at {label}: R1 + K1 {with_r1:.4f} ms "
-              f"(K1 alone {k1_ms:.4f} ms) against rotation + SDPA's "
-              f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)",
-              flush=True)
-        rows.append(kernel_row(
-            f"flash_fwd[{label}]", "meant_tpu_torch/csrc/flash_fwd.cu",
-            "meant_tpu/ops/flash/kernel.py:89",
-            fwd_by_shape.get(shape_key(*key), 0),
-            errors[f"{case}/bfloat16"],
-            with_r1, event_ms(lambda: run_plain(c), iters=5), library_ms,
-            nbytes, flops, PEAK_BF16_FLOPS, shape=list(c["q"].shape),
-            dtype="bfloat16", k1_alone_ms=k1_ms,
-            library_call="rotation + scaled_dot_product_attention"))
-        nbytes, flops = attention_cost(c, backward=True)
-        library = run_library_bwd(c)
-        library_ms = event_ms(library, iters=10)
-        rotate_case(c)
-        k2_ms = event_ms(lambda: run_bwd_k2(c), iters=10)
-        with_r1 = event_ms(lambda: run_bwd_kernel(c), iters=10)
-        rows.append(kernel_row(
-            f"flash_bwd[{label}]", "meant_tpu_torch/csrc/flash_bwd.cu",
-            "meant_tpu/ops/flash/kernel.py:321",
-            steps["K2_by_shape"].get(shape_key(*key), 0),
-            bwd_errors[f"{case}/bfloat16"], k2_ms,
-            event_ms(lambda: run_bwd_plain(c), iters=3), library_ms, nbytes,
-            flops, PEAK_BF16_FLOPS, shape=list(c["q"].shape),
-            dtype="bfloat16", r1_plus_k2_ms=with_r1))
-        print(f"resident backward at {label}: K2 {k2_ms:.4f} ms, R1 + K2 "
-              f"{with_r1:.4f} ms against the SDPA backward's "
-              f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)",
-              flush=True)
-        nbytes, flops = rotation_cost(c)
-        r1_ms = event_ms(lambda: rotate_case(c), iters=20)
-        print(f"rotation pass at {label}: R1 {r1_ms:.4f} ms", flush=True)
-        rows.append(kernel_row(
-            f"rotate_qk[{label}]",
-            "meant_tpu_torch/csrc/flash_bwd_online.cu",
-            "meant_tpu/ops/flash/kernel.py:340",
+        key = shape_key(c["s"], c["causal"])
+        rows += resident_rows(
+            c, label, fwd_by_shape.get(key, 0),
+            steps["K2_by_shape"].get(key, 0),
             steps["R1_by_shape"].get(f"s{c['s']}", 0),
-            bwd_errors[f"{case}/bfloat16/rot"], r1_ms,
-            event_ms(lambda: rotate_plain(c), iters=5), None, nbytes, flops,
-            PEAK_FP32_FLOPS, shape=list(c["q"].shape), dtype="bfloat16",
-            library_call=None))
-        del c, library
-        torch.cuda.empty_cache()
+            errors[f"{case}/bfloat16"], bwd_errors[f"{case}/bfloat16"],
+            bwd_errors[f"{case}/bfloat16/rot"])
 
     rows.append(adamw_row("adamw", n_params, train_counts["A1"], a1_err,
                           gen))
@@ -2495,16 +3047,19 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
     return rows
 
 
-def adamw_row(name, n_params, launches, err, gen):
-    """A1 over n_params: its ms, its plain version's and
-    torch.optim.AdamW(fused=True)'s."""
+def adamw_row(name, n_params, launches, err, gen, mu_bf16=False):
+    """A1 over n_params (with a bf16 first moment when mu_bf16): its ms,
+    its plain version's and torch.optim.AdamW(fused=True)'s (fp32
+    moments: torch has no bf16 one)."""
     from meant_tpu_torch.ops.adamw import (adamw_reference, update_scalars,
                                            adamw_update)
     p, g, m, v = adamw_case(n_params, gen)
+    if mu_bf16:
+        m = m.to(torch.bfloat16)
     norm = torch.linalg.vector_norm(g)
-    h = update_scalars(coupled=False, **{k: v_ for k, v_ in
-                                         ADAMW_ARGS.items()
-                                         if k != "max_norm"})
+    h = update_scalars(coupled=False, mu_bf16=mu_bf16,
+                       **{k: v_ for k, v_ in ADAMW_ARGS.items()
+                          if k != "max_norm"})
     ms = event_ms(lambda: adamw_update(p, g, m, v, norm=norm, coupled=False,
                                        **ADAMW_ARGS), iters=20)
     plain_ms = event_ms(lambda: adamw_reference(p, g, m, v, h, norm, 1.0),
@@ -2518,8 +3073,9 @@ def adamw_row(name, n_params, launches, err, gen):
     row = kernel_row(
         name, "meant_tpu_torch/csrc/adamw.cu",
         "scripts/probe_fused_adamw.py:59", launches, err, ms, plain_ms,
-        library_ms, 28 * n_params, 20 * n_params, PEAK_FP32_FLOPS,
-        params=n_params, dtype="float32")
+        library_ms, (24 if mu_bf16 else 28) * n_params, 20 * n_params,
+        PEAK_FP32_FLOPS, params=n_params, dtype="float32",
+        m_dtype="bfloat16" if mu_bf16 else "float32")
     del p, g, m, v, param, library
     torch.cuda.empty_cache()
     return row
@@ -2548,10 +3104,10 @@ def long_cost(c, kernel: str) -> tuple:
 def rotation_cost(c) -> tuple:
     """(bytes, flops) of R1: q and k read, qr and kr written, the four
     tables read once; three fp32 operations an element."""
-    q = c["q"]
-    nbytes = (4 * q.numel() * q.element_size()
+    n = c["q"].numel() + c["k"].numel()
+    nbytes = (2 * n * c["q"].element_size()
               + sum(t.numel() * 4 for t in c["tables"]))
-    return nbytes, 2 * 3 * q.numel()
+    return nbytes, 3 * n
 
 
 def plain_ms_fitting(fn, big, small, iters: int):
@@ -2567,15 +3123,17 @@ def plain_ms_fitting(fn, big, small, iters: int):
             small["q"].shape[0] * small["q"].shape[1])
 
 
-def time_long_kernels(long_errors, long_counts):
+def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
+                      small_bh=LONG_CHECK_BH, tag="long",
+                      label="s4096 causal xPos", **shape):
     """R1 + K3, R1, K4 and K5 at the main path's launch (BH=80, s=4096,
-    bf16, causal xPos): ms per launch, bound, plain version, and the
-    yardstick: rotation + causal SDPA (R1 + K3 together; K3 alone beside
-    it), its backward (R1, K4 and K5 together); R1 has no single PyTorch
-    call of its own."""
+    bf16, causal xPos; or the BH and head dim given): ms per launch,
+    bound, plain version, and the yardstick: rotation + causal SDPA (R1 +
+    K3 together; K3 alone beside it), its backward (R1, K4 and K5
+    together); R1 has no single PyTorch call of its own."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    big = long_case("text", torch.bfloat16, gen, LONG_TIME_BH)
-    small = long_case("text", torch.bfloat16, gen, LONG_CHECK_BH)
+    big = long_case("text", torch.bfloat16, gen, bh, **shape)
+    small = long_case("text", torch.bfloat16, gen, small_bh, **shape)
     rotate_case(big)
     shape, rows = list(big["q"].shape), []
     library_fwd = event_ms(lambda: run_library(big), iters=10)
@@ -2586,14 +3144,14 @@ def time_long_kernels(long_errors, long_counts):
     plans = (
         ("K3", "flash_fwd_online", "meant_tpu_torch/csrc/flash_fwd.cu",
          "meant_tpu/ops/flash/kernel.py:127", run_online_kernel,
-         run_online_plain, "long_text/bfloat16/out", library_fwd, 10),
+         run_online_plain, f"{tag}_text/bfloat16/out", library_fwd, 10),
         ("K4", "flash_bwd_dq", "meant_tpu_torch/csrc/flash_bwd_online.cu",
          "meant_tpu/ops/flash/kernel.py:456", run_online_dq_kernel,
-         run_online_dq_plain, "long_text/bfloat16/dq", library_bwd, 5),
+         run_online_dq_plain, f"{tag}_text/bfloat16/dq", library_bwd, 5),
         ("K5", "flash_bwd_dkdv", "meant_tpu_torch/csrc/flash_bwd_online.cu",
          "meant_tpu/ops/flash/kernel.py:527", run_online_dkdv_kernel,
-         run_online_dkdv_plain, ("long_text/bfloat16/dk",
-                                 "long_text/bfloat16/dv"), library_bwd, 5))
+         run_online_dkdv_plain, (f"{tag}_text/bfloat16/dk",
+                                 f"{tag}_text/bfloat16/dv"), library_bwd, 5))
     for (kernel, name, source, replaces, run, plain, err_keys, library_ms,
          iters) in plans:
         ms = event_ms(lambda: run(big), iters=iters)
@@ -2601,7 +3159,7 @@ def time_long_kernels(long_errors, long_counts):
         if kernel == "K3":     # the row is R1 + K3; K3 alone beside it
             extra["k3_alone_ms"] = event_ms(lambda: run_online_k3(big),
                                             iters=iters)
-            print(f"streaming forward at src4096's launch: R1 + K3 "
+            print(f"streaming forward at {label}: R1 + K3 "
                   f"{ms:.4f} ms (K3 alone {extra['k3_alone_ms']:.4f} ms) "
                   f"against rotation + causal SDPA's {library_ms:.4f} ms "
                   f"({ms / library_ms:.2f}x)", flush=True)
@@ -2610,7 +3168,7 @@ def time_long_kernels(long_errors, long_counts):
         keys = err_keys if isinstance(err_keys, tuple) else (err_keys,)
         nbytes, flops = long_cost(big, kernel)
         rows.append(kernel_row(
-            f"{name}[s4096 causal xPos]", source, replaces,
+            f"{name}[{label}]", source, replaces,
             long_counts[kernel], max(long_errors[k] for k in keys), ms,
             plain_ms, library_ms, nbytes, flops, PEAK_BF16_FLOPS,
             shape=shape, dtype="bfloat16", plain_bh=plain_bh, **extra,
@@ -2620,16 +3178,16 @@ def time_long_kernels(long_errors, long_counts):
                           "attention (dq, dk, dv: K4 and K5 together)")))
     nbytes, flops = rotation_cost(big)
     rows.insert(1, kernel_row(
-        "rotate_qk[s4096 causal xPos]",
+        f"rotate_qk[{label}]",
         "meant_tpu_torch/csrc/flash_bwd_online.cu",
         "meant_tpu/ops/flash/kernel.py:152", long_counts["R1"],
-        long_errors["long_text/bfloat16/rot"],
+        long_errors[f"{tag}_text/bfloat16/rot"],
         event_ms(lambda: rotate_case(big), iters=20),
         event_ms(lambda: rotate_plain(big), iters=5), None, nbytes, flops,
         PEAK_FP32_FLOPS, shape=shape, dtype="bfloat16",
         library_call=None))
     backward = sum(r["ms"] for r in rows[1:4])
-    print(f"streaming backward at src4096's launch: R1 + K4 + K5 "
+    print(f"streaming backward at {label}: R1 + K4 + K5 "
           f"{backward:.4f} ms against the SDPA backward's "
           f"{library_bwd:.4f} ms ({backward / library_bwd:.2f}x)",
           flush=True)
@@ -2664,8 +3222,8 @@ def _kind(name: str) -> str:
         return "rotate_qk (R1)"
     if "flash_fwd_lse" in low:
         return "flash_fwd_lse (K3)"
-    # the wgmma bodies are K4/K5 at <false>, K2 at <true> (kStats)
-    if "flash_bwd" in low and ("online" in low or "<false>" in low):
+    # the wgmma bodies are K4/K5 at <false, D>, K2 at <true, D> (kStats)
+    if "flash_bwd" in low and ("online" in low or "<false," in low):
         return ("flash_bwd dq (K4)" if "_dq_" in low
                 else "flash_bwd dkdv (K5)")
     if "flash_fwd" in low:
@@ -2766,10 +3324,13 @@ def main(argv=None) -> int:
     pretrain = run_pretrain(record)
     run_levers(record)
     zoo = run_zoo(record)
+    shapes = run_shapes(record, record["n_params"])
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
                         a1_err, record["n_params"], paper, pretrain, zoo)
     at = [r["name"] for r in rows].index("adamw")
     rows[at:at] = time_long_kernels(long_errors, long_counts)  # before A1
+    rows += time_shapes(shapes, record["n_params"])
+    record["kernels"] = rows
     time_requests(predictor, chunk, record)
     record["profile"] = profile_calls(lambda: predictor.forward(chunk),
                                       PROFILE_FORWARDS, "forward")

@@ -106,9 +106,12 @@ def base_parser() -> argparse.ArgumentParser:
     for flag in ("--buckets", "--hf_cache"):
         p.add_argument(flag, type=str, default=None,
                        help="not ported yet: raises if given")
-    for flag in ("--fsdp", "--mu_bf16"):
-        p.add_argument(flag, type=str2bool, nargs="?", const=True,
-                       default=False, help="not ported yet: raises if set")
+    p.add_argument("--fsdp", type=str2bool, nargs="?", const=True,
+                   default=False, help="not ported yet: raises if set")
+    p.add_argument("--mu_bf16", type=str2bool, nargs="?", const=True,
+                   default=False,
+                   help="store the first Adam moment in bf16 (the trainer's "
+                        "optimizer; the other CLIs take and ignore it)")
     p.add_argument("--scan_layers", type=str2bool, nargs="?", const=True,
                    default=False,
                    help="the JAX package's scanned towers (nn/stack.py): "
@@ -136,7 +139,7 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-UNPORTED_FLAGS = ("buckets", "hf_cache", "fsdp", "mu_bf16")
+UNPORTED_FLAGS = ("buckets", "hf_cache", "fsdp")
 # the models that take --scan_layers / --remat
 # (meant_tpu/cli/common.py:221-230)
 SCAN_MODELS = ("meant", "meant_src", "meant_vision", "meant_tweet",
@@ -166,7 +169,7 @@ def _refuse_hf(name: str) -> None:
     if name not in KWARGS_MODELS + PAPER_MODELS:
         raise NotImplementedError(
             f"model {name} is not yet ported to meant_tpu_torch (ROADMAP "
-            f"§1 item 7: the HF baselines)")
+            f"§1 item 2: the HF baselines)")
 
 
 def synthetic_batch(args, n: int, seed: int = 0) -> dict:

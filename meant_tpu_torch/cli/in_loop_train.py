@@ -15,8 +15,9 @@ TempStock-shaped set and meant_src a synthetic kwargs-family set
 pretraining checkpoint (`cli.pretrain_mlm`, `cli.pretrain_mim`) into the
 fresh model before the first step (`train.checkpoint.graft`).
 `--remat {full,dots}` and `--scan_layers` reach the meant-family towers
-(nn/stack.py); another `-mn` refuses them. --buckets, --hf_cache, --fsdp
-and --mu_bf16 are not ported yet and raise.
+(nn/stack.py); another `-mn` refuses them. `--mu_bf16` stores the first
+Adam moment in bf16 (A1's bf16-m variant). --buckets, --hf_cache and
+--fsdp are not ported yet and raise.
 The run trains on the card unless --device names another device, saves the
 checkpoint after training and evaluates the test split.
 """
@@ -24,6 +25,8 @@ checkpoint after training and evaluates the test split.
 from __future__ import annotations
 
 import time
+
+import torch
 
 from meant_tpu_torch.cli.common import (base_parser, build_model,
                                         dataset_arrays, refuse_unported)
@@ -60,6 +63,7 @@ def prepare(argv=None) -> meant_trainer:
         "lrst": args.learning_rate_scheduler_type, "t0": args.t0,
         "tmax": args.tmax, "early_stopping": args.early_stopping,
         "test_model": args.test_model, "seed": args.seed,
+        "mu_dtype": torch.bfloat16 if args.mu_bf16 else None,
     })
     if args.pretrained and args.pretrained_model:
         restored = ckpt.restore(args.pretrained_model, trainer.device)

@@ -46,8 +46,12 @@
 //   * fp32 (the tight on-card check): scalar bodies, the warp-level NT
 //     product of flash_common.cuh computed by fp32 FMAs (the tensor cores
 //     would round fp32 to TF32), on synchronous loads with transposed
-//     copies, fed the same Qr and Kr.
-// Only head dim 96 is instantiated.
+//     copies, fed the same Qr and Kr; the dk/dv body reads the row
+//     statistics from device memory, which keeps its tiles within a
+//     block's shared memory at D = 128.
+// Head dims 64, 96 and 128 are instantiated (the wrapper pads any other
+// even d up to 128). q has s_q rows and k s_k keys: the dq kernel's grid
+// walks q tiles, the dk/dv kernel's k tiles.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the main
 // path's shapes (BH = 640, d = 96, bf16): the launch must read q, k, v, dO
@@ -88,8 +92,7 @@ template <typename T, int D>
 constexpr int dkdv_smem_bytes() {
   return (int)sizeof(T) * (4 * kTile * (D + Pad<T>::value) +
                            2 * D * (kTile + Pad<T>::value) +
-                           2 * kTile * (kTile + Pad<T>::value)) +
-         3 * kTile * (int)sizeof(float);
+                           2 * kTile * (kTile + Pad<T>::value));
 }
 
 // ---- fp32: dQ and the row statistics --------------------------------------
@@ -100,7 +103,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dq,
     float* __restrict__ stats, const float* __restrict__ qcos,
     const float* __restrict__ qsin, const float* __restrict__ kmask,
-    int mask_rows, int seq, int num_heads, float scale, int causal) {
+    int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
+    int causal) {
   constexpr int ld = D + Pad<T>::value;       // [row][d] tiles
   constexpr int ldk = kTile + Pad<T>::value;  // [.][key] tiles
   constexpr int kNk = kTile / 8;            // n-tiles over keys
@@ -117,19 +121,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const size_t base = (size_t)bh * seq * D;
+  const size_t q_base = (size_t)bh * seq_q * D;
+  const size_t k_base = (size_t)bh * seq_k * D;
   const float* km = nullptr;
   if (kmask != nullptr)
-    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
   const T* qw = qs + warp * 16 * ld;
   const T* dow = dos + warp * 16 * ld;
   T* dsw = dss + warp * 16 * ldk;
 
-  load_tile<T, D>(qs, ld, nullptr, 0, qr + base, nullptr, nullptr, q0,
-                  seq);
-  load_tile<T, D>(dos, ld, nullptr, 0, dout + base, nullptr, nullptr, q0,
-                  seq);
-  const int n_k = (seq + kTile - 1) / kTile;
+  load_tile<T, D>(qs, ld, nullptr, 0, qr + q_base, nullptr, nullptr, q0,
+                  seq_q);
+  load_tile<T, D>(dos, ld, nullptr, 0, dout + q_base, nullptr, nullptr, q0,
+                  seq_q);
+  const int n_k = (seq_k + kTile - 1) / kTile;
   const int n_tiles = causal ? min(n_k, (int)blockIdx.y + 1) : n_k;
 
   // pass 1: m, l and delta for every row, online over the key tiles
@@ -138,9 +143,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();  // the previous tile's reads are done
-    load_tile<T, D>(ks, ld, nullptr, 0, kr + base, nullptr, nullptr, k0,
-                    seq);
-    load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+    load_tile<T, D>(ks, ld, nullptr, 0, kr + k_base, nullptr, nullptr, k0,
+                    seq_k);
+    load_tile<T, D>(vs, ld, nullptr, 0, v + k_base, nullptr, nullptr, k0,
+                    seq_k);
     __syncthreads();
     float s[kNk][4], dp[kNk][4];
     zero(s);
@@ -154,7 +160,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
         s[j][e] = masked_score(s[j][e], scale, row[h],
-                               k0 + j * 8 + 2 * t + (e & 1), seq, causal, km);
+                               k0 + j * 8 + 2 * t + (e & 1), seq_k, causal,
+                               km);
         mx[h] = fmaxf(mx[h], s[j][e]);
       }
     float m_use[2];
@@ -176,15 +183,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       }
   }
   float m_fin[2], inv_l[2], delta[2];
-  const size_t plane = (size_t)gridDim.x * seq;
+  const size_t plane = (size_t)gridDim.x * seq_q;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float lt = row_sum(l[h]);
     m_fin[h] = (m[h] == -INFINITY) ? 0.f : m[h];
     inv_l[h] = lt > 0.f ? 1.0f / lt : 0.f;
     delta[h] = row_sum(dsum[h]) * inv_l[h];
-    if (t == 0 && row[h] < seq) {
-      const size_t i = (size_t)bh * seq + row[h];
+    if (t == 0 && row[h] < seq_q) {
+      const size_t i = (size_t)bh * seq_q + row[h];
       stats[i] = m_fin[h];
       stats[plane + i] = inv_l[h];
       stats[2 * plane + i] = delta[h];
@@ -197,9 +204,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();
-    load_tile<T, D>(ks, ld, kts, ldk, kr + base, nullptr, nullptr, k0,
-                    seq);
-    load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+    load_tile<T, D>(ks, ld, kts, ldk, kr + k_base, nullptr, nullptr, k0,
+                    seq_k);
+    load_tile<T, D>(vs, ld, nullptr, 0, v + k_base, nullptr, nullptr, k0,
+                    seq_k);
     __syncthreads();
     float s[kNk][4], dp[kNk][4];
     zero(s);
@@ -212,8 +220,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
         const int col = j * 8 + 2 * t + (e & 1);
-        const float sc = masked_score(s[j][e], scale, row[h], k0 + col, seq,
-                                      causal, km);
+        const float sc = masked_score(s[j][e], scale, row[h], k0 + col,
+                                      seq_k, causal, km);
         const float p =
             (sc == -INFINITY) ? 0.f : expf(sc - m_fin[h]) * inv_l[h];
         dsw[(g + 8 * h) * ldk + col] =
@@ -225,8 +233,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (row[h] >= seq) continue;
-    T* out = dq + base + (size_t)row[h] * D;
+    if (row[h] >= seq_q) continue;
+    T* out = dq + q_base + (size_t)row[h] * D;
     const float* cr = qcos + (size_t)row[h] * D;
     const float* sr = qsin + (size_t)row[h] * D;
 #pragma unroll
@@ -244,8 +252,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dk,
     T* __restrict__ dv, const float* __restrict__ stats,
     const float* __restrict__ kcos, const float* __restrict__ ksin,
-    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
-    float scale, int causal) {
+    const float* __restrict__ kmask, int mask_rows, int seq_q, int seq_k,
+    int num_heads, float scale, int causal) {
   constexpr int ld = D + Pad<T>::value;
   constexpr int ldk = kTile + Pad<T>::value;
   constexpr int kNq = kTile / 8;  // n-tiles over q rows
@@ -259,45 +267,38 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   T* dots = qts + D * ldk;             // [D][ldk] dO, transposed
   T* ps = dots + D * ldk;              // [kTile][ldk] P^T, a slab per warp
   T* dss = ps + kTile * ldk;           // [kTile][ldk] dS^T, a slab per warp
-  float* st_m = reinterpret_cast<float*>(dss + kTile * ldk);  // [kTile]
-  float* st_il = st_m + kTile;                                // [kTile]
-  float* st_dl = st_il + kTile;                               // [kTile]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, k0 = blockIdx.y * kTile;
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const size_t base = (size_t)bh * seq * D;
-  const size_t plane = (size_t)gridDim.x * seq;
+  const size_t q_base = (size_t)bh * seq_q * D;
+  const size_t k_base = (size_t)bh * seq_k * D;
+  const size_t plane = (size_t)gridDim.x * seq_q;
   const float* km = nullptr;
   if (kmask != nullptr)
-    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
   const T* kw = ks + warp * 16 * ld;
   const T* vw = vs + warp * 16 * ld;
   T* pw = ps + warp * 16 * ldk;
   T* dsw = dss + warp * 16 * ldk;
 
-  load_tile<T, D>(ks, ld, nullptr, 0, kr + base, nullptr, nullptr, k0, seq);
-  load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+  load_tile<T, D>(ks, ld, nullptr, 0, kr + k_base, nullptr, nullptr, k0,
+                  seq_k);
+  load_tile<T, D>(vs, ld, nullptr, 0, v + k_base, nullptr, nullptr, k0,
+                  seq_k);
 
   float dv_acc[kNd][4], dk_acc[kNd][4];
   zero(dv_acc);
   zero(dk_acc);
-  const int n_q = (seq + kTile - 1) / kTile;
+  const int n_q = (seq_q + kTile - 1) / kTile;
   for (int qt = causal ? (int)blockIdx.y : 0; qt < n_q; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's reads are done
-    load_tile<T, D>(qs, ld, qts, ldk, qr + base, nullptr, nullptr, q0,
-                    seq);
-    load_tile<T, D>(dos, ld, dots, ldk, dout + base, nullptr, nullptr, q0,
-                    seq);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool valid = q0 + i < seq;
-      const size_t r = (size_t)bh * seq + q0 + i;
-      st_m[i] = valid ? stats[r] : 0.f;
-      st_il[i] = valid ? stats[plane + r] : 0.f;  // P = 0 past seq
-      st_dl[i] = valid ? stats[2 * plane + r] : 0.f;
-    }
+    load_tile<T, D>(qs, ld, qts, ldk, qr + q_base, nullptr, nullptr, q0,
+                    seq_q);
+    load_tile<T, D>(dos, ld, dots, ldk, dout + q_base, nullptr, nullptr, q0,
+                    seq_q);
     __syncthreads();
     float s[kNq][4], dp[kNq][4];
     zero(s);
@@ -310,13 +311,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
         const int qi = j * 8 + 2 * t + (e & 1);
-        const float sc = masked_score(s[j][e], scale, q0 + qi, key[h], seq,
+        // the row's m, 1/l and delta (P = 0 past seq_q)
+        const bool valid = q0 + qi < seq_q;
+        const size_t r = (size_t)bh * seq_q + q0 + qi;
+        const float st_m = valid ? stats[r] : 0.f;
+        const float st_il = valid ? stats[plane + r] : 0.f;
+        const float st_dl = valid ? stats[2 * plane + r] : 0.f;
+        const float sc = masked_score(s[j][e], scale, q0 + qi, key[h], seq_k,
                                       causal, km);
-        const float p =
-            (sc == -INFINITY) ? 0.f : expf(sc - st_m[qi]) * st_il[qi];
+        const float p = (sc == -INFINITY) ? 0.f : expf(sc - st_m) * st_il;
         pw[(g + 8 * h) * ldk + qi] = from_f<T>(p);
         dsw[(g + 8 * h) * ldk + qi] =
-            from_f<T>(p * (dp[j][e] - st_dl[qi]) * scale);
+            from_f<T>(p * (dp[j][e] - st_dl) * scale);
       }
     __syncwarp();
     warp_mm<kNd, kTile>(dv_acc, pw, ldk, dots, ldk);
@@ -325,9 +331,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (key[h] >= seq) continue;
-    T* dv_row = dv + base + (size_t)key[h] * D;
-    T* dk_row = dk + base + (size_t)key[h] * D;
+    if (key[h] >= seq_k) continue;
+    T* dv_row = dv + k_base + (size_t)key[h] * D;
+    T* dk_row = dk + k_base + (size_t)key[h] * D;
     const float* cr = kcos + (size_t)key[h] * D;
     const float* sr = ksin + (size_t)key[h] * D;
 #pragma unroll
@@ -343,87 +349,74 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 
 // ---- launch --------------------------------------------------------------
 
-constexpr int kHeadDim = 96;  // the only head dim instantiated
-
-cudaError_t launch_fp32(const float* qr, const float* kr, const float* v,
-                        const float* dout, float* dq, float* dk, float* dv,
-                        float* stats, const float* qcos, const float* qsin,
-                        const float* kcos, const float* ksin,
-                        const float* kmask, int mask_rows, int bh, int seq,
-                        int num_heads, float scale, int causal,
-                        cudaStream_t stream) {
-  constexpr int dq_bytes = dq_smem_bytes<float, kHeadDim>();
-  constexpr int dkdv_bytes = dkdv_smem_bytes<float, kHeadDim>();
-  const auto dq_kernel = flash_bwd_dq_kernel<float, kHeadDim>;
-  const auto dkdv_kernel = flash_bwd_dkdv_kernel<float, kHeadDim>;
+template <int D>
+cudaError_t launch_fp32(const bwd::Args& a, void* dq, void* dk, void* dv,
+                        float* stats) {
+  constexpr int dq_bytes = dq_smem_bytes<float, D>();
+  constexpr int dkdv_bytes = dkdv_smem_bytes<float, D>();
+  const auto dq_kernel = flash_bwd_dq_kernel<float, D>;
+  const auto dkdv_kernel = flash_bwd_dkdv_kernel<float, D>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
       dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq + kTile - 1) / kTile);
-  dq_kernel<<<grid, kThreads, dq_bytes, stream>>>(
-      qr, kr, v, dout, dq, stats, qcos, qsin, kmask, mask_rows, seq,
-      num_heads, scale, causal);
+  const auto f = [](const void* p) { return static_cast<const float*>(p); };
+  dq_kernel<<<dim3(a.bh, (a.seq_q + kTile - 1) / kTile), kThreads, dq_bytes,
+              a.stream>>>(
+      f(a.qr), f(a.kr), f(a.v), f(a.dout), static_cast<float*>(dq), stats,
+      a.qcos, a.qsin, a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads,
+      a.scale, a.causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<<<grid, kThreads, dkdv_bytes, stream>>>(
-      qr, kr, v, dout, dk, dv, stats, kcos, ksin, kmask, mask_rows, seq,
-      num_heads, scale, causal);
+  dkdv_kernel<<<dim3(a.bh, (a.seq_k + kTile - 1) / kTile), kThreads,
+                dkdv_bytes, a.stream>>>(
+      f(a.qr), f(a.kr), f(a.v), f(a.dout), static_cast<float*>(dk),
+      static_cast<float*>(dv), stats, a.kcos, a.ksin, a.kmask, a.mask_rows,
+      a.seq_q, a.seq_k, a.num_heads, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-// stats planes: m, 1/l, delta, each (bh, seq)
-cudaError_t launch_bf16(const void* qr, const void* kr, const void* v,
-                        const void* dout, void* dq, void* dk, void* dv,
-                        float* stats, const float* qcos, const float* qsin,
-                        const float* kcos, const float* ksin,
-                        const float* kmask, int mask_rows, int bh, int seq,
-                        int num_heads, float scale, int causal,
-                        cudaStream_t stream) {
+// a's row statistics are the planes m, 1/l, delta, each (bh, seq_q)
+template <int D>
+cudaError_t launch_bf16(const bwd::Args& a, void* dq, void* dk, void* dv) {
   CUtensorMap m[4];
-  if (!bwd::make_maps(m, qr, kr, v, dout, bh, seq))
-    return cudaErrorInvalidValue;
-  const size_t plane = (size_t)bh * seq;
-  float *row_m = stats, *row_il = stats + plane, *row_delta = stats + 2 * plane;
-  cudaError_t err = bwd::launch_dq<true>(m, row_m, row_il, row_delta, dq,
-                                         qcos, qsin, kmask, mask_rows, bh,
-                                         seq, num_heads, scale, causal,
-                                         stream);
+  if (!bwd::make_maps<D>(m, a)) return cudaErrorInvalidValue;
+  cudaError_t err = bwd::launch_dq<true, D>(m, a, dq);
   if (err != cudaSuccess) return err;
-  return bwd::launch_dkdv<true>(m, row_m, row_il, row_delta, dk, dv, kcos,
-                                ksin, kmask, mask_rows, bh, seq, num_heads,
-                                scale, causal, stream);
+  return bwd::launch_dkdv<true, D>(m, a, dk, dv);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. qr/kr (q and k rotated by R1), v, dout,
-// dq/dk/dv: (bh, seq, d) contiguous; stats: (3, bh, seq) fp32 scratch;
-// tables: (seq, d) fp32, read by the rotation's adjoint; kmask:
-// (mask_rows, seq) fp32 or null.
+// dtype: 0 = float32, 1 = bfloat16. qr (q rotated by R1), dout, dq:
+// (bh, seq_q, d); kr (k rotated by R1), v, dk, dv: (bh, seq_k, d); all
+// contiguous, d = 64, 96 or 128; stats: (3, bh, seq_q) fp32 scratch;
+// tables: (seq_q | seq_k, d) fp32, read by the rotation's adjoint; kmask:
+// (mask_rows, seq_k) fp32 or null.
 extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
                                const void* v, const void* dout, void* dq,
                                void* dk, void* dv, void* stats,
                                const void* qcos, const void* qsin,
                                const void* kcos, const void* ksin,
                                const void* kmask, int mask_rows, int bh,
-                               int seq, int d, int num_heads, float scale,
-                               int causal, void* stream) {
-  if (bh <= 0 || bh > 65535 || seq <= 0 || d != kHeadDim ||
-      (dtype != 0 && dtype != 1) || (seq + kTile - 1) / kTile > 65535)
+                               int seq_q, int seq_k, int d, int num_heads,
+                               float scale, int causal, void* stream) {
+  if (bh <= 0 || bh > 65535 || seq_q <= 0 || seq_k <= 0 ||
+      (dtype != 0 && dtype != 1) || (seq_q + kTile - 1) / kTile > 65535 ||
+      (seq_k + kTile - 1) / kTile > 65535)
     return (int)cudaErrorInvalidValue;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto* st = static_cast<float*>(stats);
-  auto str = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_fp32(f(qr), f(kr), f(v), f(dout),
-                            static_cast<float*>(dq), static_cast<float*>(dk),
-                            static_cast<float*>(dv), st, f(qcos), f(qsin),
-                            f(kcos), f(ksin), f(kmask), mask_rows, bh, seq,
-                            num_heads, scale, causal, str);
-  return (int)launch_bf16(qr, kr, v, dout, dq, dk, dv, st, f(qcos), f(qsin),
-                          f(kcos), f(ksin), f(kmask), mask_rows, bh, seq,
-                          num_heads, scale, causal, str);
+  const size_t plane = (size_t)bh * seq_q;
+  const bwd::Args a{qr, kr, v, dout, st, st + plane, st + 2 * plane,
+                    f(qcos), f(qsin), f(kcos), f(ksin), f(kmask), mask_rows,
+                    bh, seq_q, seq_k, num_heads, scale, causal,
+                    static_cast<cudaStream_t>(stream)};
+  return (int)dispatch_head_dim(d, [&](auto head_dim) {
+    constexpr int D = decltype(head_dim)::value;
+    return dtype == 0 ? launch_fp32<D>(a, dq, dk, dv, st)
+                      : launch_bf16<D>(a, dq, dk, dv);
+  });
 }

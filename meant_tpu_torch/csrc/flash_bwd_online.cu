@@ -44,9 +44,11 @@
 // and ragged tiles. Nothing is transposed or rotated in K4 or K5.
 // fp32, the tight on-card check: scalar bodies (the warp-level NT product
 // of flash_common.cuh on synchronous loads with transposed copies), fed
-// the same Qr and Kr.
-// Rows and keys past s get P = 0 and are never written. Only head dim 96
-// is instantiated.
+// the same Qr and Kr; K5's reads the rows' lse and delta from device
+// memory, which keeps its tiles within a block's shared memory at D = 128.
+// Rows past s_q and keys past s_k get P = 0 and are never written. Head
+// dims 64, 96 and 128 are instantiated (the wrapper pads any other even d
+// up to 128); q has s_q rows and k s_k keys, as in the resident kernels.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s) at the main
 // path's shapes (text tower of src4096: BH = 80, s = 4096, d = 96, bf16,
@@ -70,7 +72,6 @@ using namespace meant;
 constexpr int kTile = 64;      // q rows (K4) or keys (K5)
 constexpr int kThreads = 128;  // fp32 bodies: 4 warps, 16 rows each
 static_assert(kTile == 64 && kThreads == 128, "load_tile's default tile");
-constexpr int kHeadDim = 96;   // the only head dim instantiated
 
 // ---- the rotation pass ----------------------------------------------------
 
@@ -79,19 +80,21 @@ struct alignas(16) Pack8 {
   T v[8];
 };
 
-// Qr = T(rot(q)) and Kr = T(rot(k)), eight elements a thread: n_vec
-// vectors per tensor, table_vec per (s, 96) table.
+// Qr = T(rot(q)) and Kr = T(rot(k)), eight elements a thread: q_vec
+// vectors of q and k_vec of k, q_table_vec per (s_q, d) table of q and
+// k_table_vec per (s_k, d) table of k.
 template <typename T>
 __global__ void __launch_bounds__(256) rotate_qk_kernel(
     const T* __restrict__ q, const T* __restrict__ k, T* __restrict__ qr,
     T* __restrict__ kr, const float* __restrict__ qcos,
     const float* __restrict__ qsin, const float* __restrict__ kcos,
-    const float* __restrict__ ksin, long long n_vec, int table_vec) {
+    const float* __restrict__ ksin, long long q_vec, long long k_vec,
+    int q_table_vec, int k_table_vec) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= 2 * n_vec) return;
-  const bool is_k = i >= n_vec;
-  const long long e = is_k ? i - n_vec : i;
-  const int tv = (int)(e % table_vec);
+  if (i >= q_vec + k_vec) return;
+  const bool is_k = i >= q_vec;
+  const long long e = is_k ? i - q_vec : i;
+  const int tv = (int)(e % (is_k ? k_table_vec : q_table_vec));
   const Pack8<T> x = reinterpret_cast<const Pack8<T>*>(is_k ? k : q)[e];
   const Pack8<float> cs =
       reinterpret_cast<const Pack8<float>*>(is_k ? kcos : qcos)[tv];
@@ -122,8 +125,7 @@ template <typename T, int D>
 constexpr int dkdv_smem_bytes() {
   return (int)sizeof(T) * (4 * kTile * (D + Pad<T>::value) +
                            2 * D * (kTile + Pad<T>::value) +
-                           2 * kTile * (kTile + Pad<T>::value)) +
-         2 * kTile * (int)sizeof(float);
+                           2 * kTile * (kTile + Pad<T>::value));
 }
 
 // K4: dQ.
@@ -133,8 +135,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dq_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq,
     const float* __restrict__ qcos, const float* __restrict__ qsin,
-    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
-    float scale, int causal) {
+    const float* __restrict__ kmask, int mask_rows, int seq_q, int seq_k,
+    int num_heads, float scale, int causal) {
   constexpr int ld = D + Pad<T>::value;       // [row][d] tiles
   constexpr int ldk = kTile + Pad<T>::value;  // [.][key] tiles
   constexpr int kNk = kTile / 8;              // n-tiles over keys
@@ -151,26 +153,28 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dq_kernel(
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, q0 = blockIdx.y * kTile;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const size_t base = (size_t)bh * seq * D;
+  const size_t q_base = (size_t)bh * seq_q * D;
+  const size_t k_base = (size_t)bh * seq_k * D;
   const float* km = nullptr;
   if (kmask != nullptr)
-    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
   const T* qw = qs + warp * 16 * ld;
   const T* dow = dos + warp * 16 * ld;
   T* dsw = dss + warp * 16 * ldk;
 
-  load_tile<T, D>(qs, ld, nullptr, 0, qr + base, nullptr, nullptr, q0, seq);
-  load_tile<T, D>(dos, ld, nullptr, 0, dout + base, nullptr, nullptr, q0,
-                  seq);
+  load_tile<T, D>(qs, ld, nullptr, 0, qr + q_base, nullptr, nullptr, q0,
+                  seq_q);
+  load_tile<T, D>(dos, ld, nullptr, 0, dout + q_base, nullptr, nullptr, q0,
+                  seq_q);
   float row_lse[2], row_delta[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const bool valid = row[h] < seq;
-    const size_t i = (size_t)bh * seq + row[h];
+    const bool valid = row[h] < seq_q;
+    const size_t i = (size_t)bh * seq_q + row[h];
     row_lse[h] = valid ? lse[i] : 0.f;
     row_delta[h] = valid ? delta[i] : 0.f;
   }
-  const int n_k = (seq + kTile - 1) / kTile;
+  const int n_k = (seq_k + kTile - 1) / kTile;
   const int n_tiles = causal ? min(n_k, (int)blockIdx.y + 1) : n_k;
 
   float acc[kNd][4];
@@ -178,8 +182,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dq_kernel(
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kTile;
     __syncthreads();  // the previous tile's reads are done
-    load_tile<T, D>(ks, ld, kts, ldk, kr + base, nullptr, nullptr, k0, seq);
-    load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+    load_tile<T, D>(ks, ld, kts, ldk, kr + k_base, nullptr, nullptr, k0,
+                    seq_k);
+    load_tile<T, D>(vs, ld, nullptr, 0, v + k_base, nullptr, nullptr, k0,
+                    seq_k);
     __syncthreads();
     float s[kNk][4], dp[kNk][4];
     zero(s);
@@ -192,8 +198,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dq_kernel(
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
         const int col = j * 8 + 2 * t + (e & 1);
-        const float sc = masked_score(s[j][e], scale, row[h], k0 + col, seq,
-                                      causal, km);
+        const float sc = masked_score(s[j][e], scale, row[h], k0 + col,
+                                      seq_k, causal, km);
         const float p = (sc == -INFINITY) ? 0.f : expf(sc - row_lse[h]);
         dsw[(g + 8 * h) * ldk + col] =
             from_f<T>(p * (dp[j][e] - row_delta[h]) * scale);
@@ -204,8 +210,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dq_kernel(
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (row[h] >= seq) continue;
-    T* out = dq + base + (size_t)row[h] * D;
+    if (row[h] >= seq_q) continue;
+    T* out = dq + q_base + (size_t)row[h] * D;
     const float* cr = qcos + (size_t)row[h] * D;
     const float* sr = qsin + (size_t)row[h] * D;
 #pragma unroll
@@ -222,8 +228,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dkdv_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     const float* __restrict__ kcos, const float* __restrict__ ksin,
-    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
-    float scale, int causal) {
+    const float* __restrict__ kmask, int mask_rows, int seq_q, int seq_k,
+    int num_heads, float scale, int causal) {
   constexpr int ld = D + Pad<T>::value;
   constexpr int ldk = kTile + Pad<T>::value;
   constexpr int kNq = kTile / 8;  // n-tiles over q rows
@@ -237,41 +243,37 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dkdv_kernel(
   T* dots = qts + D * ldk;             // [D][ldk] dO, transposed
   T* ps = dots + D * ldk;              // [kTile][ldk] P^T, a slab per warp
   T* dss = ps + kTile * ldk;           // [kTile][ldk] dS^T, a slab per warp
-  float* st_lse = reinterpret_cast<float*>(dss + kTile * ldk);  // [kTile]
-  float* st_dl = st_lse + kTile;                                 // [kTile]
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, k0 = blockIdx.y * kTile;
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  const size_t base = (size_t)bh * seq * D;
+  const size_t q_base = (size_t)bh * seq_q * D;
+  const size_t k_base = (size_t)bh * seq_k * D;
   const float* km = nullptr;
   if (kmask != nullptr)
-    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
   const T* kw = ks + warp * 16 * ld;
   const T* vw = vs + warp * 16 * ld;
   T* pw = ps + warp * 16 * ldk;
   T* dsw = dss + warp * 16 * ldk;
 
-  load_tile<T, D>(ks, ld, nullptr, 0, kr + base, nullptr, nullptr, k0, seq);
-  load_tile<T, D>(vs, ld, nullptr, 0, v + base, nullptr, nullptr, k0, seq);
+  load_tile<T, D>(ks, ld, nullptr, 0, kr + k_base, nullptr, nullptr, k0,
+                  seq_k);
+  load_tile<T, D>(vs, ld, nullptr, 0, v + k_base, nullptr, nullptr, k0,
+                  seq_k);
 
   float dv_acc[kNd][4], dk_acc[kNd][4];
   zero(dv_acc);
   zero(dk_acc);
-  const int n_q = (seq + kTile - 1) / kTile;
+  const int n_q = (seq_q + kTile - 1) / kTile;
   for (int qt = causal ? (int)blockIdx.y : 0; qt < n_q; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();  // the previous tile's reads are done
-    load_tile<T, D>(qs, ld, qts, ldk, qr + base, nullptr, nullptr, q0, seq);
-    load_tile<T, D>(dos, ld, dots, ldk, dout + base, nullptr, nullptr, q0,
-                    seq);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool valid = q0 + i < seq;
-      const size_t r = (size_t)bh * seq + q0 + i;
-      st_lse[i] = valid ? lse[r] : 0.f;
-      st_dl[i] = valid ? delta[r] : 0.f;
-    }
+    load_tile<T, D>(qs, ld, qts, ldk, qr + q_base, nullptr, nullptr, q0,
+                    seq_q);
+    load_tile<T, D>(dos, ld, dots, ldk, dout + q_base, nullptr, nullptr, q0,
+                    seq_q);
     __syncthreads();
     float s[kNq][4], dp[kNq][4];
     zero(s);
@@ -284,14 +286,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dkdv_kernel(
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
         const int qi = j * 8 + 2 * t + (e & 1);
-        const float sc = masked_score(s[j][e], scale, q0 + qi, key[h], seq,
+        // the row's lse and delta (P = 0 past seq_q)
+        const bool valid = q0 + qi < seq_q;
+        const size_t r = (size_t)bh * seq_q + q0 + qi;
+        const float st_lse = valid ? lse[r] : 0.f;
+        const float st_dl = valid ? delta[r] : 0.f;
+        const float sc = masked_score(s[j][e], scale, q0 + qi, key[h], seq_k,
                                       causal, km);
-        const float p = (sc == -INFINITY || q0 + qi >= seq)
-                            ? 0.f
-                            : expf(sc - st_lse[qi]);
+        const float p =
+            (sc == -INFINITY || !valid) ? 0.f : expf(sc - st_lse);
         pw[(g + 8 * h) * ldk + qi] = from_f<T>(p);
         dsw[(g + 8 * h) * ldk + qi] =
-            from_f<T>(p * (dp[j][e] - st_dl[qi]) * scale);
+            from_f<T>(p * (dp[j][e] - st_dl) * scale);
       }
     __syncwarp();
     warp_mm<kNd, kTile>(dv_acc, pw, ldk, dots, ldk);
@@ -300,9 +306,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dkdv_kernel(
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (key[h] >= seq) continue;
-    T* dv_row = dv + base + (size_t)key[h] * D;
-    T* dk_row = dk + base + (size_t)key[h] * D;
+    if (key[h] >= seq_k) continue;
+    T* dv_row = dv + k_base + (size_t)key[h] * D;
+    T* dk_row = dk + k_base + (size_t)key[h] * D;
     const float* cr = kcos + (size_t)key[h] * D;
     const float* sr = ksin + (size_t)key[h] * D;
 #pragma unroll
@@ -318,126 +324,121 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dkdv_kernel(
 
 // ---- launch ---------------------------------------------------------------
 
-struct Args {
-  int dtype;
-  const void *qr, *kr, *v, *dout;
-  const float *lse, *delta, *qcos, *qsin, *kcos, *ksin, *kmask;
-  int mask_rows, bh, seq, d, num_heads;
-  float scale;
-  int causal;
-  cudaStream_t stream;
-};
-
-bool invalid(const Args& a) {
-  return a.bh <= 0 || a.bh > 65535 || a.seq <= 0 || a.d != kHeadDim ||
-         (a.dtype != 0 && a.dtype != 1) ||
-         (a.seq + kTile - 1) / kTile > 65535;
+bool invalid(int dtype, const bwd::Args& a) {
+  return a.bh <= 0 || a.bh > 65535 || a.seq_q <= 0 || a.seq_k <= 0 ||
+         (dtype != 0 && dtype != 1) ||
+         (a.seq_q + kTile - 1) / kTile > 65535 ||
+         (a.seq_k + kTile - 1) / kTile > 65535;
 }
 
-cudaError_t launch_dq_fp32(const Args& a, void* dq) {
-  constexpr int bytes = dq_smem_bytes<float, kHeadDim>();
-  auto kernel = flash_bwd_online_dq_kernel<float, kHeadDim>;
+template <int D>
+cudaError_t launch_dq_fp32(const bwd::Args& a, void* dq) {
+  constexpr int bytes = dq_smem_bytes<float, D>();
+  auto kernel = flash_bwd_online_dq_kernel<float, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.bh, (a.seq + kTile - 1) / kTile);
+  const dim3 grid(a.bh, (a.seq_q + kTile - 1) / kTile);
   kernel<<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const float*>(a.qr), static_cast<const float*>(a.kr),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(dq), a.qcos, a.qsin, a.kmask,
-      a.mask_rows, a.seq, a.num_heads, a.scale, a.causal);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_dkdv_fp32(const Args& a, void* dk, void* dv) {
-  constexpr int bytes = dkdv_smem_bytes<float, kHeadDim>();
-  auto kernel = flash_bwd_online_dkdv_kernel<float, kHeadDim>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.bh, (a.seq + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const float*>(a.qr), static_cast<const float*>(a.kr),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv),
-      a.kcos, a.ksin, a.kmask, a.mask_rows, a.seq, a.num_heads, a.scale,
+      a.row_m, a.row_delta, static_cast<float*>(dq), a.qcos, a.qsin,
+      a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale,
       a.causal);
   return cudaGetLastError();
 }
 
-cudaError_t launch_dq_bf16(const Args& a, void* dq) {
-  CUtensorMap m[4];
-  if (!bwd::make_maps(m, a.qr, a.kr, a.v, a.dout, a.bh, a.seq))
-    return cudaErrorInvalidValue;
-  return bwd::launch_dq<false>(m, const_cast<float*>(a.lse), nullptr,
-                               const_cast<float*>(a.delta), dq, a.qcos,
-                               a.qsin, a.kmask, a.mask_rows, a.bh, a.seq,
-                               a.num_heads, a.scale, a.causal, a.stream);
+template <int D>
+cudaError_t launch_dkdv_fp32(const bwd::Args& a, void* dk, void* dv) {
+  constexpr int bytes = dkdv_smem_bytes<float, D>();
+  auto kernel = flash_bwd_online_dkdv_kernel<float, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.seq_k + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const float*>(a.qr), static_cast<const float*>(a.kr),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.row_m, a.row_delta, static_cast<float*>(dk), static_cast<float*>(dv),
+      a.kcos, a.ksin, a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads,
+      a.scale, a.causal);
+  return cudaGetLastError();
 }
 
-cudaError_t launch_dkdv_bf16(const Args& a, void* dk, void* dv) {
+template <int D>
+cudaError_t launch_dq_bf16(const bwd::Args& a, void* dq) {
   CUtensorMap m[4];
-  if (!bwd::make_maps(m, a.qr, a.kr, a.v, a.dout, a.bh, a.seq))
-    return cudaErrorInvalidValue;
-  return bwd::launch_dkdv<false>(m, a.lse, nullptr, a.delta, dk, dv, a.kcos,
-                                 a.ksin, a.kmask, a.mask_rows, a.bh, a.seq,
-                                 a.num_heads, a.scale, a.causal, a.stream);
+  if (!bwd::make_maps<D>(m, a)) return cudaErrorInvalidValue;
+  return bwd::launch_dq<false, D>(m, a, dq);
+}
+
+template <int D>
+cudaError_t launch_dkdv_bf16(const bwd::Args& a, void* dk, void* dv) {
+  CUtensorMap m[4];
+  if (!bwd::make_maps<D>(m, a)) return cudaErrorInvalidValue;
+  return bwd::launch_dkdv<false, D>(m, a, dk, dv);
 }
 
 template <typename T>
 cudaError_t launch_rotate(const void* q, const void* k, void* qr, void* kr,
                           const void* qcos, const void* qsin,
                           const void* kcos, const void* ksin, int bh,
-                          int seq, cudaStream_t stream) {
+                          int seq_q, int seq_k, int d, cudaStream_t stream) {
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(qr) | reinterpret_cast<uintptr_t>(kr) |
       reinterpret_cast<uintptr_t>(qcos) | reinterpret_cast<uintptr_t>(qsin) |
       reinterpret_cast<uintptr_t>(kcos) | reinterpret_cast<uintptr_t>(ksin);
   if (align % 16 != 0) return cudaErrorMisalignedAddress;
-  const long long n_vec = (long long)bh * seq * (kHeadDim / 8);
-  const long long blocks = (2 * n_vec + 255) / 256;
+  const long long q_vec = (long long)bh * seq_q * (d / 8);
+  const long long k_vec = (long long)bh * seq_k * (d / 8);
+  const long long blocks = (q_vec + k_vec + 255) / 256;
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   rotate_qk_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<T*>(qr),
-      static_cast<T*>(kr), f(qcos), f(qsin), f(kcos), f(ksin), n_vec,
-      seq * (kHeadDim / 8));
+      static_cast<T*>(kr), f(qcos), f(qsin), f(kcos), f(ksin), q_vec, k_vec,
+      seq_q * (d / 8), seq_k * (d / 8));
   return cudaGetLastError();
 }
 
-Args make_args(int dtype, const void* qr, const void* kr, const void* v,
-               const void* dout, const void* lse, const void* delta,
-               const void* qcos, const void* qsin, const void* kcos,
-               const void* ksin, const void* kmask, int mask_rows, int bh,
-               int seq, int d, int num_heads, float scale, int causal,
-               void* stream) {
-  const auto f = [](const void* p) { return static_cast<const float*>(p); };
-  return Args{dtype,     qr,        kr,        v,       dout,
-              f(lse),    f(delta),  f(qcos),   f(qsin), f(kcos),
-              f(ksin),   f(kmask),  mask_rows, bh,      seq,
-              d,         num_heads, scale,     causal,
-              static_cast<cudaStream_t>(stream)};
+bwd::Args make_args(const void* qr, const void* kr, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    const void* qcos, const void* qsin, const void* kcos,
+                    const void* ksin, const void* kmask, int mask_rows,
+                    int bh, int seq_q, int seq_k, int num_heads, float scale,
+                    int causal, void* stream) {
+  const auto f = [](const void* p) {
+    return const_cast<float*>(static_cast<const float*>(p));
+  };
+  return bwd::Args{qr,        kr,        v,       dout,    f(lse),
+                   nullptr,   f(delta),  f(qcos), f(qsin), f(kcos),
+                   f(ksin),   f(kmask),  mask_rows, bh,    seq_q,
+                   seq_k,     num_heads, scale,   causal,
+                   static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/k and their rotations qr/kr, v, dout
-// and the gradients: (bh, seq, d) contiguous; lse, delta: (bh, seq) fp32;
-// tables: (seq, d) fp32; kmask: (mask_rows, seq) fp32 or null.
+// dtype: 0 = float32, 1 = bfloat16. q, its rotation qr, dout and dq:
+// (bh, seq_q, d); k, kr, v, dk, dv: (bh, seq_k, d); all contiguous, d =
+// 64, 96 or 128; lse, delta: (bh, seq_q) fp32; tables: (seq_q | seq_k, d)
+// fp32; kmask: (mask_rows, seq_k) fp32 or null.
 
 // The rotation pass: qr = T(rot(q)), kr = T(rot(k)).
 extern "C" int meant_rotate_qk(int dtype, const void* q, const void* k,
                                void* qr, void* kr, const void* qcos,
                                const void* qsin, const void* kcos,
-                               const void* ksin, int bh, int seq, int d,
-                               void* stream) {
-  if (bh <= 0 || seq <= 0 || d != kHeadDim || (dtype != 0 && dtype != 1))
+                               const void* ksin, int bh, int seq_q,
+                               int seq_k, int d, void* stream) {
+  if (bh <= 0 || seq_q <= 0 || seq_k <= 0 ||
+      (d != 64 && d != 96 && d != 128) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0 ? launch_rotate<float>(q, k, qr, kr, qcos, qsin,
-                                                 kcos, ksin, bh, seq, s)
-                          : launch_rotate<bf16>(q, k, qr, kr, qcos, qsin,
-                                                kcos, ksin, bh, seq, s));
+  return (int)(dtype == 0
+                   ? launch_rotate<float>(q, k, qr, kr, qcos, qsin, kcos,
+                                          ksin, bh, seq_q, seq_k, d, s)
+                   : launch_rotate<bf16>(q, k, qr, kr, qcos, qsin, kcos,
+                                         ksin, bh, seq_q, seq_k, d, s));
 }
 
 // K4: dq, from the rotated qr and kr; the adjoint reads qcos and qsin.
@@ -447,14 +448,17 @@ extern "C" int meant_flash_bwd_dq(int dtype, const void* qr, const void* kr,
                                   void* dq, const void* qcos,
                                   const void* qsin, const void* kcos,
                                   const void* ksin, const void* kmask,
-                                  int mask_rows, int bh, int seq, int d,
-                                  int num_heads, float scale, int causal,
-                                  void* stream) {
-  const Args a = make_args(dtype, qr, kr, v, dout, lse, delta, qcos, qsin,
-                           kcos, ksin, kmask, mask_rows, bh, seq, d,
-                           num_heads, scale, causal, stream);
-  if (invalid(a)) return (int)cudaErrorInvalidValue;
-  return (int)(dtype == 0 ? launch_dq_fp32(a, dq) : launch_dq_bf16(a, dq));
+                                  int mask_rows, int bh, int seq_q,
+                                  int seq_k, int d, int num_heads,
+                                  float scale, int causal, void* stream) {
+  const bwd::Args a = make_args(qr, kr, v, dout, lse, delta, qcos, qsin,
+                                kcos, ksin, kmask, mask_rows, bh, seq_q,
+                                seq_k, num_heads, scale, causal, stream);
+  if (invalid(dtype, a)) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_head_dim(d, [&](auto head_dim) {
+    constexpr int D = decltype(head_dim)::value;
+    return dtype == 0 ? launch_dq_fp32<D>(a, dq) : launch_dq_bf16<D>(a, dq);
+  });
 }
 
 // K5: dk and dv, from the rotated qr and kr; the adjoint reads kcos, ksin.
@@ -464,13 +468,16 @@ extern "C" int meant_flash_bwd_dkdv(int dtype, const void* qr, const void* kr,
                                     void* dk, void* dv, const void* qcos,
                                     const void* qsin, const void* kcos,
                                     const void* ksin, const void* kmask,
-                                    int mask_rows, int bh, int seq, int d,
-                                    int num_heads, float scale, int causal,
-                                    void* stream) {
-  const Args a = make_args(dtype, qr, kr, v, dout, lse, delta, qcos, qsin,
-                           kcos, ksin, kmask, mask_rows, bh, seq, d,
-                           num_heads, scale, causal, stream);
-  if (invalid(a)) return (int)cudaErrorInvalidValue;
-  return (int)(dtype == 0 ? launch_dkdv_fp32(a, dk, dv)
-                          : launch_dkdv_bf16(a, dk, dv));
+                                    int mask_rows, int bh, int seq_q,
+                                    int seq_k, int d, int num_heads,
+                                    float scale, int causal, void* stream) {
+  const bwd::Args a = make_args(qr, kr, v, dout, lse, delta, qcos, qsin,
+                                kcos, ksin, kmask, mask_rows, bh, seq_q,
+                                seq_k, num_heads, scale, causal, stream);
+  if (invalid(dtype, a)) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_head_dim(d, [&](auto head_dim) {
+    constexpr int D = decltype(head_dim)::value;
+    return dtype == 0 ? launch_dkdv_fp32<D>(a, dk, dv)
+                      : launch_dkdv_bf16<D>(a, dk, dv);
+  });
 }

@@ -26,14 +26,19 @@
 // dV += T(P^T) dO and dKr += dS^T Qr with A in registers -- the score
 // accumulator rounded to bf16 in place is the A fragment, exactly where
 // the reference rounds P and dS -- and B the streamed row-major tile read
-// MN-major through the transpose bit (m64n96k16). Between the products
+// MN-major through the transpose bit (m64nDk16). Between the products
 // the consumers issue more instructions than the tensor cores need cycles,
 // so only the diagonal and ragged tiles mask element by element; every
 // other tile takes the key mask as a per-column bias (the same arithmetic,
 // rounded operation by operation as the reference rounds it). The grid is
 // (tile, bh): a head's blocks run together and share its streamed tiles in
-// L2, those with the most tiles to walk first. Rows and keys past s get
-// P = 0 and are never written. Only head dim 96 is instantiated.
+// L2, those with the most tiles to walk first. Rows past s_q and keys past
+// s_k get P = 0 and are never written; a key tile that no causal q row
+// reaches (s_k > s_q) writes zeros. Both kernels are templates on the head
+// dim D (64, 96 or 128): a [64][D] tile is D / 32 TMA boxes and the
+// gradient products are m64nDk16. At D = 128 the dk/dv kernel holds two
+// 64 x 128 fp32 accumulators (128 registers a thread) beside S and dP, and
+// spills where ptxas says so (chip_smoke.py prints its report).
 
 #pragma once
 
@@ -43,18 +48,16 @@
 namespace meant {
 namespace bwd {
 
-using hopper::kTileBytes;
-
 constexpr int kTile = hopper::kRows;     // q rows (dq) or keys (dk/dv)
-constexpr int kHeadDim = hopper::kTileCols;
 constexpr int kStages = 3;               // ring of streamed tiles
 constexpr int kConsumers = 128;          // one warpgroup
 constexpr int kBlock = kConsumers + 32;  // and the producer warp
 constexpr int kNs = kTile / 8;           // n8 blocks of a score
-constexpr int kNd = kHeadDim / 8;        // n8 blocks of a gradient
 
 // Tiles first, each at a multiple of 1024 bytes from the aligned start.
+template <int D>
 struct DqSmem {
+  static constexpr int kTileBytes = hopper::tile_bytes<D>();
   uint8_t q[kTileBytes];           // this block's Qr rows
   uint8_t dout[kTileBytes];        // and their dO
   uint8_t k[kStages][kTileBytes];  // the ring: Kr
@@ -62,7 +65,9 @@ struct DqSmem {
   uint64_t fixed_full, full[kStages], empty[kStages];
 };
 
+template <int D>
 struct DkdvSmem {
+  static constexpr int kTileBytes = hopper::tile_bytes<D>();
   uint8_t k[kTileBytes];              // this block's Kr rows
   uint8_t v[kTileBytes];              // and their V
   uint8_t q[kStages][kTileBytes];     // the ring: Qr
@@ -83,8 +88,8 @@ __device__ __forceinline__ uint32_t ds_pair(float p0, float p1, float dp0,
 
 // Whether a dq tile masks element by element: the diagonal, or ragged.
 __device__ __forceinline__ bool dq_edge(int causal, int tile, int qt, int k0,
-                                        int seq) {
-  return (causal && tile == qt) || k0 + kTile > seq;
+                                        int seq_k) {
+  return (causal && tile == qt) || k0 + kTile > seq_k;
 }
 
 // P = exp(score - m), times 1/l for K2 (p_of, flash_common.cuh); K2's
@@ -99,7 +104,7 @@ __device__ __forceinline__ void dq_tile_ds(
     uint32_t (&ds)[kTile / 16][4], const float (&s)[4 * kNs],
     const float (&dp)[4 * kNs], const int (&row)[2], const float (&row_m)[2],
     const float (&row_il)[2], const float (&row_delta)[2], int k0, int t,
-    int seq, int causal, const float* km, float scale) {
+    int seq_k, int causal, const float* km, float scale) {
 #pragma unroll
   for (int j = 0; j < kNs; ++j) {
     float bias[2];
@@ -112,8 +117,8 @@ __device__ __forceinline__ void dq_tile_ds(
         const float acc = s[4 * j + 2 * h + e];
         if (kEdge) {
           const float sc = masked_score(acc, scale, row[h],
-                                        k0 + j * 8 + 2 * t + e, seq, causal,
-                                        km);
+                                        k0 + j * 8 + 2 * t + e, seq_k,
+                                        causal, km);
           p[e] = (sc == -INFINITY) ? 0.f
                                    : p_of<kStats>(sc, row_m[h], row_il[h]);
         } else {
@@ -137,8 +142,8 @@ __device__ __forceinline__ void dkdv_tile_p_ds(
     uint32_t (&pt)[kTile / 16][4], uint32_t (&dst)[kTile / 16][4],
     const float (&s)[4 * kNs], const float (&dp)[4 * kNs],
     const int (&key)[2], const float (&key_bias)[2], const float* m_s,
-    const float* il_s, const float* delta_s, int q0, int t, int seq,
-    int causal, const float* km, float scale) {
+    const float* il_s, const float* delta_s, int q0, int t, int seq_q,
+    int seq_k, int causal, const float* km, float scale) {
 #pragma unroll
   for (int j = 0; j < kNs; ++j)
 #pragma unroll
@@ -150,9 +155,9 @@ __device__ __forceinline__ void dkdv_tile_p_ds(
         const float acc = s[4 * j + 2 * h + e];
         const float il = kStats ? il_s[qi + e] : 1.f;
         if (kEdge) {
-          const float sc = masked_score(acc, scale, q0 + qi + e, key[h], seq,
-                                        causal, km);
-          p[e] = (sc == -INFINITY || q0 + qi + e >= seq)
+          const float sc = masked_score(acc, scale, q0 + qi + e, key[h],
+                                        seq_k, causal, km);
+          p[e] = (sc == -INFINITY || q0 + qi + e >= seq_q)
                      ? 0.f
                      : p_of<kStats>(sc, m_s[qi + e], il);
         } else {
@@ -169,8 +174,8 @@ __device__ __forceinline__ void dkdv_tile_p_ds(
 
 // dq (K4; K2's dq and statistics when kStats). Grid (q tiles, bh); block
 // kBlock threads. K4 reads row_m = lse and row_delta; K2 writes row_m = m,
-// row_il = 1/l and row_delta = delta of every row below seq.
-template <bool kStats>
+// row_il = 1/l and row_delta = delta of every row below seq_q.
+template <bool kStats, int D>
 __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
@@ -179,14 +184,18 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
     float* __restrict__ row_il_g, float* __restrict__ row_delta_g,
     bf16* __restrict__ dq, const float* __restrict__ qcos,
     const float* __restrict__ qsin, const float* __restrict__ kmask,
-    int mask_rows, int seq, int num_heads, float scale, int causal) {
+    int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
+    int causal) {
   using namespace hopper;
+  constexpr int kNd = D / 8;               // n8 blocks of a gradient
+  constexpr int kTileBytes = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
-  DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
-  const int n_t = (seq + kTile - 1) / kTile;
-  const int bh = blockIdx.y, qt = n_t - 1 - (int)blockIdx.x;
+  DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
+  const int n_tq = (seq_q + kTile - 1) / kTile;
+  const int n_tk = (seq_k + kTile - 1) / kTile;
+  const int bh = blockIdx.y, qt = n_tq - 1 - (int)blockIdx.x;
   const int q0 = qt * kTile;
-  const int n_tiles = causal ? qt + 1 : n_t;
+  const int n_tiles = causal ? min(qt + 1, n_tk) : n_tk;
   constexpr int kPasses = kStats ? 2 : 1;  // K2 walks the tiles twice
   if (threadIdx.x == 0) {
     mbar_init(&sm.fixed_full, 1);
@@ -201,14 +210,14 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
   if (threadIdx.x >= kConsumers) {  // the producer: one thread issues TMA
     if (threadIdx.x == kConsumers) {
       mbar_arrive_expect_tx(&sm.fixed_full, 2 * kTileBytes);
-      tma_load_tile(sm.q, &tm_q, &sm.fixed_full, q0, bh);
-      tma_load_tile(sm.dout, &tm_do, &sm.fixed_full, q0, bh);
+      tma_load_tile<D>(sm.q, &tm_q, &sm.fixed_full, q0, bh);
+      tma_load_tile<D>(sm.dout, &tm_do, &sm.fixed_full, q0, bh);
       for (int it = 0; it < kPasses * n_tiles; ++it) {
         const int st = it % kStages, k0 = (it % n_tiles) * kTile;
         if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
         mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
-        tma_load_tile(sm.k[st], &tm_k, &sm.full[st], k0, bh);
-        tma_load_tile(sm.v[st], &tm_v, &sm.full[st], k0, bh);
+        tma_load_tile<D>(sm.k[st], &tm_k, &sm.full[st], k0, bh);
+        tma_load_tile<D>(sm.v[st], &tm_v, &sm.full[st], k0, bh);
       }
     }
     return;
@@ -219,7 +228,7 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const float* km = nullptr;
   if (kmask != nullptr)
-    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
   // Accumulator element 4j + 2h + e: row 16 warp + g + 8h, column 8j + 2t + e.
   float dq_acc[4 * kNd], s[4 * kNs], dp[4 * kNs];
   zero_regs(dq_acc);
@@ -229,11 +238,11 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
   const auto scores = [&](int st) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
       wgmma_m64n64k16_ss(s, kmajor_desc(sm.q, kk), kmajor_desc(sm.k[st], kk),
                          kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
       wgmma_m64n64k16_ss(dp, kmajor_desc(sm.dout, kk),
                          kmajor_desc(sm.v[st], kk), kk > 0);
     wgmma_commit();
@@ -253,12 +262,12 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
       mbar_wait(&sm.full[st], (ring / kStages) & 1);
       scores(st);
       mbar_arrive(&sm.empty[st]);  // the products have read the stage
-      if (dq_edge(causal, it, qt, k0, seq))
-        stats_tile<true, true>(s, dp, m, l, dsum, row, k0, t, seq, causal,
+      if (dq_edge(causal, it, qt, k0, seq_k))
+        stats_tile<true, true>(s, dp, m, l, dsum, row, k0, t, seq_k, causal,
                                km, scale);
       else
-        stats_tile<false, true>(s, dp, m, l, dsum, row, k0, t, seq, causal,
-                                km, scale);
+        stats_tile<false, true>(s, dp, m, l, dsum, row, k0, t, seq_k,
+                                causal, km, scale);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -266,8 +275,8 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
       row_m[h] = (m[h] == -INFINITY) ? 0.f : m[h];
       row_il[h] = lt > 0.f ? 1.0f / lt : 0.f;
       row_delta[h] = row_sum(dsum[h]) * row_il[h];
-      if (t == 0 && row[h] < seq) {
-        const size_t i = (size_t)bh * seq + row[h];
+      if (t == 0 && row[h] < seq_q) {
+        const size_t i = (size_t)bh * seq_q + row[h];
         row_m_g[i] = row_m[h];
         row_il_g[i] = row_il[h];
         row_delta_g[i] = row_delta[h];
@@ -276,8 +285,8 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
   } else {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const bool valid = row[h] < seq;
-      const size_t i = (size_t)bh * seq + row[h];
+      const bool valid = row[h] < seq_q;
+      const size_t i = (size_t)bh * seq_q + row[h];
       row_m[h] = valid ? row_m_g[i] : 0.f;
       row_delta[h] = valid ? row_delta_g[i] : 0.f;
     }
@@ -288,16 +297,17 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
     mbar_wait(&sm.full[st], (ring / kStages) & 1);
     scores(st);
     uint32_t ds[kTile / 16][4];  // A fragments of dS, one per 16 keys
-    if (dq_edge(causal, it, qt, k0, seq))
+    if (dq_edge(causal, it, qt, k0, seq_k))
       dq_tile_ds<true, kStats>(ds, s, dp, row, row_m, row_il, row_delta, k0,
-                               t, seq, causal, km, scale);
+                               t, seq_k, causal, km, scale);
     else
       dq_tile_ds<false, kStats>(ds, s, dp, row, row_m, row_il, row_delta,
-                                k0, t, seq, causal, km, scale);
+                                k0, t, seq_k, causal, km, scale);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_m64n96k16_rs<kMNMajor>(dq_acc, ds[kk], mnmajor_desc(sm.k[st], kk));
+      wgmma_m64nNk16_rs<D, kMNMajor>(dq_acc, ds[kk],
+                                     mnmajor_desc(sm.k[st], kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq_acc);
@@ -307,10 +317,10 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (row[h] >= seq) continue;
-    bf16* out = dq + ((size_t)bh * seq + row[h]) * kHeadDim;
-    const float* cr = qcos + (size_t)row[h] * kHeadDim;
-    const float* sr = qsin + (size_t)row[h] * kHeadDim;
+    if (row[h] >= seq_q) continue;
+    bf16* out = dq + ((size_t)bh * seq_q + row[h]) * D;
+    const float* cr = qcos + (size_t)row[h] * D;
+    const float* sr = qsin + (size_t)row[h] * D;
 #pragma unroll
     for (int j = 0; j < kNd; ++j)
       store_adjoint<bf16>(out, cr, sr, j * 8 + 2 * t, dq_acc[4 * j + 2 * h],
@@ -320,7 +330,7 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
 
 // dk and dv (K5; K2's when kStats). Grid (k tiles, bh); block kBlock
 // threads. Reads row_m (K5: lse; K2: m), row_delta and, for K2, row_il.
-template <bool kStats>
+template <bool kStats, int D>
 __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
@@ -330,14 +340,19 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     const float* __restrict__ row_delta_g, bf16* __restrict__ dk,
     bf16* __restrict__ dv, const float* __restrict__ kcos,
     const float* __restrict__ ksin, const float* __restrict__ kmask,
-    int mask_rows, int seq, int num_heads, float scale, int causal) {
+    int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
+    int causal) {
   using namespace hopper;
+  constexpr int kNd = D / 8;               // n8 blocks of a gradient
+  constexpr int kTileBytes = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
-  DkdvSmem& sm = aligned_smem<DkdvSmem>(smem_raw);
-  const int n_t = (seq + kTile - 1) / kTile;
+  DkdvSmem<D>& sm = aligned_smem<DkdvSmem<D>>(smem_raw);
+  const int n_tq = (seq_q + kTile - 1) / kTile;
   const int bh = blockIdx.y, kt = blockIdx.x;  // low k tiles see most rows
   const int k0 = kt * kTile;
-  const int q_first = causal ? kt : 0, n_tiles = n_t - q_first;
+  // the q tiles from the diagonal on (none when s_k > s_q leaves this key
+  // tile past every causal row)
+  const int q_first = causal ? kt : 0, n_tiles = max(0, n_tq - q_first);
   if (threadIdx.x == 0) {
     mbar_init(&sm.fixed_full, 1);
     for (int st = 0; st < kStages; ++st) {
@@ -352,8 +367,8 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     const int lane = threadIdx.x - kConsumers;
     if (lane == 0) {
       mbar_arrive_expect_tx(&sm.fixed_full, 2 * kTileBytes);
-      tma_load_tile(sm.k, &tm_k, &sm.fixed_full, k0, bh);
-      tma_load_tile(sm.v, &tm_v, &sm.fixed_full, k0, bh);
+      tma_load_tile<D>(sm.k, &tm_k, &sm.fixed_full, k0, bh);
+      tma_load_tile<D>(sm.v, &tm_v, &sm.fixed_full, k0, bh);
     }
     // the statistics of rows lane and lane + 32 of a tile, read one tile
     // ahead so that their latency overlaps the wait for a free stage
@@ -362,10 +377,10 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int i = (q_first + it) * kTile + lane + 32 * r;
-        const size_t gi = (size_t)bh * seq + i;
-        rm[r] = i < seq ? row_m_g[gi] : 0.f;
-        rd[r] = i < seq ? row_delta_g[gi] : 0.f;
-        if (kStats) ril[r] = i < seq ? row_il_g[gi] : 0.f;
+        const size_t gi = (size_t)bh * seq_q + i;
+        rm[r] = i < seq_q ? row_m_g[gi] : 0.f;
+        rd[r] = i < seq_q ? row_delta_g[gi] : 0.f;
+        if (kStats) ril[r] = i < seq_q ? row_il_g[gi] : 0.f;
       }
     };
     fetch(0);
@@ -380,8 +395,8 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
       }
       if (lane == 0) {
         mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
-        tma_load_tile(sm.q[st], &tm_q, &sm.full[st], q0, bh);
-        tma_load_tile(sm.dout[st], &tm_do, &sm.full[st], q0, bh);
+        tma_load_tile<D>(sm.q[st], &tm_q, &sm.full[st], q0, bh);
+        tma_load_tile<D>(sm.dout[st], &tm_do, &sm.full[st], q0, bh);
       } else {
         mbar_arrive(&sm.full[st]);
       }
@@ -395,11 +410,11 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   const float* km = nullptr;
   if (kmask != nullptr)
-    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
   float key_bias[2] = {0.f, 0.f};
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    if (km != nullptr && key[h] < seq)
+    if (km != nullptr && key[h] < seq_k)
       key_bias[h] = (1.0f - km[key[h]]) * -1e9f;
   // Accumulator element 4j + 2h + e: key 16 warp + g + 8h, column 8j + 2t + e.
   float dv_acc[4 * kNd], dk_acc[4 * kNd], s[4 * kNs], dp[4 * kNs];
@@ -413,11 +428,11 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     mbar_wait(&sm.full[st], (it / kStages) & 1);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk)  // S^T: rows keys, columns q
+    for (int kk = 0; kk < D / 16; ++kk)  // S^T: rows keys, columns q
       wgmma_m64n64k16_ss(s, kmajor_desc(sm.k, kk), kmajor_desc(sm.q[st], kk),
                          kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk)  // dP^T
+    for (int kk = 0; kk < D / 16; ++kk)  // dP^T
       wgmma_m64n64k16_ss(dp, kmajor_desc(sm.v, kk),
                          kmajor_desc(sm.dout[st], kk), kk > 0);
     wgmma_commit();
@@ -425,23 +440,23 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     fence_regs(s);
     fence_regs(dp);
     uint32_t pt[kTile / 16][4], dst[kTile / 16][4];  // T(P^T), dS^T
-    if ((causal && it == 0) || q0 + kTile > seq || k0 + kTile > seq)
+    if ((causal && it == 0) || q0 + kTile > seq_q || k0 + kTile > seq_k)
       dkdv_tile_p_ds<true, kStats>(pt, dst, s, dp, key, key_bias, sm.m[st],
-                                   sm.il[st], sm.delta[st], q0, t, seq,
-                                   causal, km, scale);
+                                   sm.il[st], sm.delta[st], q0, t, seq_q,
+                                   seq_k, causal, km, scale);
     else
       dkdv_tile_p_ds<false, kStats>(pt, dst, s, dp, key, key_bias, sm.m[st],
-                                    sm.il[st], sm.delta[st], q0, t, seq,
-                                    causal, km, scale);
+                                    sm.il[st], sm.delta[st], q0, t, seq_q,
+                                    seq_k, causal, km, scale);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_m64n96k16_rs<kMNMajor>(dv_acc, pt[kk],
-                                   mnmajor_desc(sm.dout[st], kk));
+      wgmma_m64nNk16_rs<D, kMNMajor>(dv_acc, pt[kk],
+                                     mnmajor_desc(sm.dout[st], kk));
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_m64n96k16_rs<kMNMajor>(dk_acc, dst[kk],
-                                   mnmajor_desc(sm.q[st], kk));
+      wgmma_m64nNk16_rs<D, kMNMajor>(dk_acc, dst[kk],
+                                     mnmajor_desc(sm.q[st], kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
@@ -453,11 +468,11 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (key[h] >= seq) continue;
-    bf16* dv_row = dv + ((size_t)bh * seq + key[h]) * kHeadDim;
-    bf16* dk_row = dk + ((size_t)bh * seq + key[h]) * kHeadDim;
-    const float* cr = kcos + (size_t)key[h] * kHeadDim;
-    const float* sr = ksin + (size_t)key[h] * kHeadDim;
+    if (key[h] >= seq_k) continue;
+    bf16* dv_row = dv + ((size_t)bh * seq_k + key[h]) * D;
+    bf16* dk_row = dk + ((size_t)bh * seq_k + key[h]) * D;
+    const float* cr = kcos + (size_t)key[h] * D;
+    const float* sr = ksin + (size_t)key[h] * D;
 #pragma unroll
     for (int j = 0; j < kNd; ++j) {
       const int c = j * 8 + 2 * t;
@@ -471,51 +486,58 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
 
 // ---- launch (host) -------------------------------------------------------------
 
-// Tensor maps of qr, kr, v and dout, (bh, seq, 96) bf16 each.
-inline bool make_maps(CUtensorMap (&m)[4], const void* qr, const void* kr,
-                      const void* v, const void* dout, int bh, int seq) {
-  return hopper::make_map(&m[0], qr, bh, seq) &&
-         hopper::make_map(&m[1], kr, bh, seq) &&
-         hopper::make_map(&m[2], v, bh, seq) &&
-         hopper::make_map(&m[3], dout, bh, seq);
+// The arguments both kernels take: qr/kr (q and k rotated by R1), v, dout,
+// (bh, seq_q | seq_k, D) bf16; the per-row statistics (bh, seq_q) fp32
+// (row_il null for K4 and K5); the tables, (seq_q | seq_k, D) fp32, read by
+// the rotation's adjoint; kmask (mask_rows, seq_k) fp32 or null.
+struct Args {
+  const void *qr, *kr, *v, *dout;
+  float *row_m, *row_il, *row_delta;
+  const float *qcos, *qsin, *kcos, *ksin, *kmask;
+  int mask_rows, bh, seq_q, seq_k, num_heads;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+// Tensor maps of qr, kr, v and dout, (bh, seq, D) bf16 each.
+template <int D>
+bool make_maps(CUtensorMap (&m)[4], const Args& a) {
+  return hopper::make_map(&m[0], a.qr, a.bh, a.seq_q, D) &&
+         hopper::make_map(&m[1], a.kr, a.bh, a.seq_k, D) &&
+         hopper::make_map(&m[2], a.v, a.bh, a.seq_k, D) &&
+         hopper::make_map(&m[3], a.dout, a.bh, a.seq_q, D);
 }
 
-template <bool kStats>
-cudaError_t launch_dq(const CUtensorMap (&m)[4], float* row_m, float* row_il,
-                      float* row_delta, void* dq, const float* qcos,
-                      const float* qsin, const float* kmask, int mask_rows,
-                      int bh, int seq, int num_heads, float scale, int causal,
-                      cudaStream_t stream) {
-  constexpr int bytes = hopper::smem_bytes<DqSmem>();
-  const auto kernel = flash_bwd_dq_wgmma_kernel<kStats>;
+template <bool kStats, int D>
+cudaError_t launch_dq(const CUtensorMap (&m)[4], const Args& a, void* dq) {
+  constexpr int bytes = hopper::smem_bytes<DqSmem<D>>();
+  const auto kernel = flash_bwd_dq_wgmma_kernel<kStats, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  kernel<<<grid, kBlock, bytes, stream>>>(
-      m[0], m[1], m[2], m[3], row_m, row_il, row_delta,
-      static_cast<bf16*>(dq), qcos, qsin, kmask, mask_rows, seq, num_heads,
-      scale, causal);
+  const dim3 grid((a.seq_q + kTile - 1) / kTile, a.bh);
+  kernel<<<grid, kBlock, bytes, a.stream>>>(
+      m[0], m[1], m[2], m[3], a.row_m, a.row_il, a.row_delta,
+      static_cast<bf16*>(dq), a.qcos, a.qsin, a.kmask, a.mask_rows, a.seq_q,
+      a.seq_k, a.num_heads, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <bool kStats>
-cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const float* row_m,
-                        const float* row_il, const float* row_delta, void* dk,
-                        void* dv, const float* kcos, const float* ksin,
-                        const float* kmask, int mask_rows, int bh, int seq,
-                        int num_heads, float scale, int causal,
-                        cudaStream_t stream) {
-  constexpr int bytes = hopper::smem_bytes<DkdvSmem>();
-  const auto kernel = flash_bwd_dkdv_wgmma_kernel<kStats>;
+template <bool kStats, int D>
+cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const Args& a, void* dk,
+                        void* dv) {
+  constexpr int bytes = hopper::smem_bytes<DkdvSmem<D>>();
+  const auto kernel = flash_bwd_dkdv_wgmma_kernel<kStats, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  kernel<<<grid, kBlock, bytes, stream>>>(
-      m[0], m[1], m[2], m[3], row_m, row_il, row_delta,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), kcos, ksin, kmask,
-      mask_rows, seq, num_heads, scale, causal);
+  const dim3 grid((a.seq_k + kTile - 1) / kTile, a.bh);
+  kernel<<<grid, kBlock, bytes, a.stream>>>(
+      m[0], m[1], m[2], m[3], a.row_m, a.row_il, a.row_delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.kcos, a.ksin,
+      a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale,
+      a.causal);
   return cudaGetLastError();
 }
 

@@ -62,11 +62,13 @@ __device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
 
 // Scaled score with the causal fill and the additive key mask applied, in
 // the reference's order: acc * scale, -inf where col > row, then
-// + (1 - kmask) * -1e9. Columns at or past seq are -inf.
+// + (1 - kmask) * -1e9. Columns (keys) at or past seq_k are -inf; row and
+// col both count from 0, as the reference's causal fill does for any q and
+// k lengths.
 __device__ __forceinline__ float masked_score(float acc, float scale, int row,
-                                              int col, int seq, int causal,
+                                              int col, int seq_k, int causal,
                                               const float* km) {
-  if (col >= seq || (causal && col > row)) return -INFINITY;
+  if (col >= seq_k || (causal && col > row)) return -INFINITY;
   const float x = acc * scale;
   return km != nullptr ? x + (1.0f - km[col]) * -1e9f : x;
 }
@@ -133,7 +135,7 @@ __device__ __forceinline__ float p_of(float sc, float m, float il) {
 template <bool kEdge, bool kDelta, int N>
 __device__ __forceinline__ void stats_tile(
     float (&s)[N], const float (&dp)[N], float (&m)[2], float (&l)[2],
-    float (&dsum)[2], const int (&row)[2], int k0, int t, int seq,
+    float (&dsum)[2], const int (&row)[2], int k0, int t, int seq_k,
     int causal, const float* km, float scale) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -146,7 +148,7 @@ __device__ __forceinline__ void stats_tile(
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * h + e];
         x = kEdge ? masked_score(x, scale, row[h], k0 + j * 8 + 2 * t + e,
-                                 seq, causal, km)
+                                 seq_k, causal, km)
                   : interior_score(x, scale, bias[e]);
         mx[h] = fmaxf(mx[h], x);
       }
@@ -170,6 +172,23 @@ __device__ __forceinline__ void stats_tile(
         l[h] += p;
         if (kDelta) dsum[h] += p * dp[4 * j + 2 * h + e];
       }
+}
+
+// The head dims the kernels are instantiated for: f(integral_constant<D>)
+// for d = D, else cudaErrorInvalidValue (the wrapper pads any other even d
+// up to 128 to the next of them).
+template <typename F>
+cudaError_t dispatch_head_dim(int d, F&& f) {
+  switch (d) {
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 96:
+      return f(std::integral_constant<int, 96>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---- the backwards' building blocks ----------------------------------------

@@ -29,8 +29,8 @@
 // online softmax, rounds the unnormalised P at the running max, divides at
 // the end, and writes each row's log-sum-exp beside the output: lse =
 // m_safe + log(max(l, 1e-30)), m_safe = 0 on a row with no finite score;
-// K3 does the same over 64-key tiles. lse is (bh, seq) fp32; rows past seq
-// are not written.
+// K3 does the same over 64-key tiles. lse is (bh, seq_q) fp32; rows past
+// seq_q are not written.
 //
 // Bounds on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s). K1 at the
 // flagship's launches (BH = 640, d = 96, bf16) must move qr, kr, v and o
@@ -45,13 +45,13 @@
 // bf16 (the main path), one body for both (fwd_wgmma, kStats = K1): a block
 // is kGroups consumer warpgroups of 64 q rows each and a producer warp. The
 // producer brings the block's Qr rows once, then streams Kr (and V)
-// through TMA (hopper.cuh: 3-D tensor maps over (bh, s, 96), 64-byte
+// through TMA (hopper.cuh: 3-D tensor maps over (bh, s, D), 64-byte
 // swizzle, zero past s) into a ring of kStages stages with full and empty
 // mbarriers; every consumer warpgroup reads every stage. K1's producer
 // walks the tiles twice: Kr alone for the statistics pass, then Kr and V.
 // S = Qr Kr^T runs on wgmma with both operands in shared memory
 // (m64n64k16); the softmax stays in the accumulator registers; P, rounded
-// to bf16 in place, is the A fragment of O += P V (m64n96k16, V read
+// to bf16 in place, is the A fragment of O += P V (m64nDk16, V read
 // MN-major through the transpose bit: no transposed copy). K1 releases a
 // statistics-pass stage as soon as its S is read (stats_tile,
 // flash_common.cuh, shared with K2's dq kernel). Only the diagonal and
@@ -65,7 +65,11 @@
 // synchronous loads (every thread owns 8 q rows x 4 score columns and 8
 // rows x d/16 output columns), since the tensor cores would round fp32 to
 // TF32; an online softmax, P in fp32 either way.
-// Only the main path's head dim, 96, is instantiated.
+// Head dims: both bodies are templates on D, built for 64, 96 and 128 (a
+// [64][D] tile is D / 32 TMA boxes; O += P V is m64nDk16); the wrapper pads
+// any other even d up to 128 with zero columns. q and k lengths are
+// separate (s_q rows of q, s_k keys; causal keeps col <= row, both from 0,
+// as the reference does): the grid walks q, the ring walks k.
 //
 // C interface (loaded with ctypes): meant_flash_fwd (K1) and
 // meant_flash_fwd_lse (K3) return the cudaError_t of the launch (0 on
@@ -81,7 +85,6 @@ using namespace meant;
 constexpr int kBlockQ = 64;              // q rows per tile
 constexpr int kBlockK = 64;              // k rows per tile
 constexpr int kThreads = 128;            // the fp32 body's block: 4 warps
-constexpr int kHeadDim = 96;             // the only head dim built
 
 // The log-sum-exp K3 writes for a row whose running max is m and whose
 // denominator (relative to that max, or to 0 when m = -inf) is l, as the
@@ -111,7 +114,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_fp32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
     float* __restrict__ lse, const float* __restrict__ kmask, int mask_rows,
-    int seq, int num_heads, float scale, int causal) {
+    int seq_q, int seq_k, int num_heads, float scale, int causal) {
   constexpr int kOut = D / kTx;          // output columns per thread
   constexpr int kStrideQK = D + 1;       // pad: column walks hit all banks
   constexpr int kStrideP = kBlockK + 1;
@@ -125,13 +128,14 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_fp32_kernel(
   const int q0 = blockIdx.y * kBlockQ;
   const int tx = threadIdx.x % kTx;
   const int ty = threadIdx.x / kTx;
-  const size_t base = (size_t)bh * seq * D;
+  const size_t q_base = (size_t)bh * seq_q * D;
+  const size_t k_base = (size_t)bh * seq_k * D;
   const float* km = nullptr;
   if (kmask != nullptr)
-    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
 
-  load_tile<float, D>(qs, kStrideQK, nullptr, 0, q + base, nullptr, nullptr,
-                      q0, seq);
+  load_tile<float, D>(qs, kStrideQK, nullptr, 0, q + q_base, nullptr,
+                      nullptr, q0, seq_q);
 
   float m[kRows], l[kRows], acc[kRows][kOut];
 #pragma unroll
@@ -142,16 +146,16 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_fp32_kernel(
     for (int j = 0; j < kOut; ++j) acc[i][j] = 0.f;
   }
 
-  const int n_k = (seq + kBlockK - 1) / kBlockK;
+  const int n_k = (seq_k + kBlockK - 1) / kBlockK;
   const int n_tiles = causal ? min(n_k, q0 / kBlockK + 1) : n_k;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kBlockK;
     __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    load_tile<float, D>(ks, kStrideQK, nullptr, 0, k + base, nullptr,
-                        nullptr, k0, seq);
+    load_tile<float, D>(ks, kStrideQK, nullptr, 0, k + k_base, nullptr,
+                        nullptr, k0, seq_k);
     for (int e = threadIdx.x; e < kBlockK * D; e += kThreads) {
       const int r = e / D;
-      vs[e] = (k0 + r < seq) ? v[base + (size_t)k0 * D + e] : 0.f;
+      vs[e] = (k0 + r < seq_k) ? v[k_base + (size_t)k0 * D + e] : 0.f;
     }
     __syncthreads();
 
@@ -178,8 +182,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_fp32_kernel(
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        s[i][c] = masked_score(s[i][c], scale, row, k0 + tx + kTx * c, seq,
-                               causal, km);
+        s[i][c] = masked_score(s[i][c], scale, row, k0 + tx + kTx * c,
+                               seq_k, causal, km);
         mx = fmaxf(mx, s[i][c]);
       }
       // the 16 threads of a row sit in one half-warp
@@ -220,13 +224,13 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_fp32_kernel(
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty + kTy * i;
-    if (row >= seq) continue;
+    if (row >= seq_q) continue;
     const float inv = l[i] > 0.f ? 1.0f / l[i] : 0.f;
 #pragma unroll
     for (int j = 0; j < kOut; ++j)
-      o[base + (size_t)row * D + tx + kTx * j] = acc[i][j] * inv;
+      o[q_base + (size_t)row * D + tx + kTx * j] = acc[i][j] * inv;
     if constexpr (kLse) {
-      if (tx == 0) lse[(size_t)bh * seq + row] = row_lse(m[i], l[i]);
+      if (tx == 0) lse[(size_t)bh * seq_q + row] = row_lse(m[i], l[i]);
     }
   }
 }
@@ -240,37 +244,37 @@ constexpr int kResStages = 2;
 constexpr int kFwdGroups = 1;                      // K3
 constexpr int kFwdStages = 2;
 constexpr int kNs = kBlockK / 8;                   // n8 blocks of a score
-constexpr int kNo = kHeadDim / 8;                  // n8 blocks of the output
-static_assert(kBlockQ == hopper::kRows && kBlockK == hopper::kRows &&
-                  kHeadDim == hopper::kTileCols,
-              "a q or k tile is one [64][96] TMA tile");
+static_assert(kBlockQ == hopper::kRows && kBlockK == hopper::kRows,
+              "a q or k tile is one [64][D] TMA tile");
 
 // Tiles first, each at a multiple of 1024 bytes from the aligned start.
-template <int kGroups, int kStages>
+template <int D, int kGroups, int kStages>
 struct FwdSmem {
-  uint8_t q[kGroups][hopper::kTileBytes];  // the block's Qr rows
-  uint8_t k[kStages][hopper::kTileBytes];  // the ring: Kr
-  uint8_t v[kStages][hopper::kTileBytes];  // and V
+  static constexpr int kTileBytes = hopper::tile_bytes<D>();
+  uint8_t q[kGroups][kTileBytes];  // the block's Qr rows
+  uint8_t k[kStages][kTileBytes];  // the ring: Kr
+  uint8_t v[kStages][kTileBytes];  // and V
   uint64_t fixed_full, full[kStages], empty[kStages];
 };
 
 // Whether a tile masks element by element: the diagonal of q tile qt, or
 // the ragged tile.
 __device__ __forceinline__ bool edge_tile(int causal, int it, int qt, int k0,
-                                          int seq) {
-  return (causal && it == qt) || k0 + kBlockK > seq;
+                                          int seq_k) {
+  return (causal && it == qt) || k0 + kBlockK > seq_k;
 }
 
 // K3's online-softmax step for one tile of a warpgroup's rows, from the S
 // accumulator (element 4j + 2h + e: row row[h], column k0 + 8j + 2t + e):
 // the scores' running max m, rescaling l and the output o; P = exp(score -
 // m) added to this thread's share of l; and P rounded to bf16 as the A
-// fragments of P V (pa[k] covers keys 16k..16k+15). kEdge as in stats_tile.
-template <bool kEdge>
+// fragments of P V (pa[k] covers keys 16k..16k+15). kEdge as in stats_tile;
+// kNo, the n8 blocks of the output, D / 8.
+template <bool kEdge, int kNo>
 __device__ __forceinline__ void fwd_tile_p(
     uint32_t (&pa)[kBlockK / 16][4], float (&s)[4 * kNs],
     float (&o)[4 * kNo], float (&m)[2], float (&l)[2], const int (&row)[2],
-    int k0, int t, int seq, int causal, const float* km, float scale) {
+    int k0, int t, int seq_k, int causal, const float* km, float scale) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int j = 0; j < kNs; ++j) {
@@ -282,7 +286,8 @@ __device__ __forceinline__ void fwd_tile_p(
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = s[4 * j + 2 * h + e];
-        x = kEdge ? masked_score(x, scale, row[h], col + e, seq, causal, km)
+        x = kEdge ? masked_score(x, scale, row[h], col + e, seq_k, causal,
+                                 km)
                   : interior_score(x, scale, bias[e]);
         mx[h] = fmaxf(mx[h], x);
       }
@@ -322,7 +327,7 @@ template <bool kEdge>
 __device__ __forceinline__ void fwd_tile_p_normalised(
     uint32_t (&pa)[kBlockK / 16][4], const float (&s)[4 * kNs],
     const float (&row_m)[2], const float (&row_il)[2], const int (&row)[2],
-    int k0, int t, int seq, int causal, const float* km, float scale) {
+    int k0, int t, int seq_k, int causal, const float* km, float scale) {
 #pragma unroll
   for (int j = 0; j < kNs; ++j) {
     const int col = k0 + j * 8 + 2 * t;
@@ -335,7 +340,8 @@ __device__ __forceinline__ void fwd_tile_p_normalised(
       for (int e = 0; e < 2; ++e) {
         const float acc = s[4 * j + 2 * h + e];
         const float x =
-            kEdge ? masked_score(acc, scale, row[h], col + e, seq, causal, km)
+            kEdge ? masked_score(acc, scale, row[h], col + e, seq_k, causal,
+                                 km)
                   : interior_score(acc, scale, bias[e]);
         p[e] = (kEdge && x == -INFINITY) ? 0.f
                                            : p_of<true>(x, row_m[h], row_il[h]);
@@ -346,26 +352,28 @@ __device__ __forceinline__ void fwd_tile_p_normalised(
 }
 
 // The body of K1 (kStats: a statistics pass, then P normalised; out only)
-// and K3 (one online pass; out and lse). Grid (q blocks of 64 kGroups rows,
-// bh); block 128 kGroups + 32 threads.
-template <bool kStats, int kGroups, int kStages>
+// and K3 (one online pass; out and lse) at head dim D. Grid (q blocks of 64
+// kGroups rows, bh); block 128 kGroups + 32 threads.
+template <bool kStats, int D, int kGroups, int kStages>
 __device__ __forceinline__ void fwd_wgmma(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     bf16* __restrict__ o, float* __restrict__ lse,
-    const float* __restrict__ kmask, int mask_rows, int seq, int num_heads,
-    float scale, int causal) {
+    const float* __restrict__ kmask, int mask_rows, int seq_q, int seq_k,
+    int num_heads, float scale, int causal) {
   using namespace hopper;
   constexpr int kBlockRows = kBlockQ * kGroups;
   constexpr int kPasses = kStats ? 2 : 1;
+  constexpr int kNo = D / 8;                        // n8 blocks of the output
+  constexpr int kTileBytes = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
-  auto& sm = aligned_smem<FwdSmem<kGroups, kStages>>(smem_raw);
-  const int n_t = (seq + kBlockK - 1) / kBlockK;
-  const int n_b = (seq + kBlockRows - 1) / kBlockRows;
+  auto& sm = aligned_smem<FwdSmem<D, kGroups, kStages>>(smem_raw);
+  const int n_t = (seq_k + kBlockK - 1) / kBlockK;
+  const int n_b = (seq_q + kBlockRows - 1) / kBlockRows;
   const int bh = blockIdx.y, q0 = (n_b - 1 - (int)blockIdx.x) * kBlockRows;
-  // the warpgroups whose rows start below seq; a causal walk ends at the
-  // last one's diagonal tile
-  const int groups = min(kGroups, (seq - q0 + kBlockQ - 1) / kBlockQ);
-  const int n_tiles = causal ? q0 / kBlockK + groups : n_t;
+  // the warpgroups whose rows start below seq_q; a causal walk ends at the
+  // last one's diagonal tile (or at the last k tile)
+  const int groups = min(kGroups, (seq_q - q0 + kBlockQ - 1) / kBlockQ);
+  const int n_tiles = causal ? min(n_t, q0 / kBlockK + groups) : n_t;
   if (threadIdx.x == 0) {
     mbar_init(&sm.fixed_full, 1);
     for (int st = 0; st < kStages; ++st) {
@@ -380,30 +388,32 @@ __device__ __forceinline__ void fwd_wgmma(
     if (threadIdx.x == 128 * kGroups) {
       mbar_arrive_expect_tx(&sm.fixed_full, groups * kTileBytes);
       for (int w = 0; w < groups; ++w)
-        tma_load_tile(sm.q[w], tm_q, &sm.fixed_full, q0 + w * kBlockQ, bh);
+        tma_load_tile<D>(sm.q[w], tm_q, &sm.fixed_full, q0 + w * kBlockQ,
+                         bh);
       for (int it = 0; it < kPasses * n_tiles; ++it) {
         const int st = it % kStages, k0 = (it % n_tiles) * kBlockK;
         const bool with_v = !kStats || it >= n_tiles;  // K1's pass 1: Kr
         if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
         mbar_arrive_expect_tx(&sm.full[st], (with_v ? 2 : 1) * kTileBytes);
-        tma_load_tile(sm.k[st], tm_k, &sm.full[st], k0, bh);
-        if (with_v) tma_load_tile(sm.v[st], tm_v, &sm.full[st], k0, bh);
+        tma_load_tile<D>(sm.k[st], tm_k, &sm.full[st], k0, bh);
+        if (with_v) tma_load_tile<D>(sm.v[st], tm_v, &sm.full[st], k0, bh);
       }
     }
     return;
   }
 
   const int wg = threadIdx.x / 128;
-  if (wg >= groups) return;  // every row of this warpgroup is past seq
+  if (wg >= groups) return;  // every row of this warpgroup is past seq_q
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int qt = q0 / kBlockQ + wg;  // this warpgroup's q tile
   const int row[2] = {qt * kBlockQ + warp * 16 + g,
                       qt * kBlockQ + warp * 16 + g + 8};
-  const int own_tiles = causal ? qt + 1 : n_tiles;  // up to its diagonal
+  // up to its diagonal
+  const int own_tiles = causal ? min(qt + 1, n_tiles) : n_tiles;
   const float* km = nullptr;
   if (kmask != nullptr)
-    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq;
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
   // Accumulator element 4j + 2h + e: row 16 warp + g + 8h, column 8j + 2t + e.
   float o_acc[4 * kNo], s[4 * kNs];
   zero_regs(o_acc);
@@ -413,7 +423,7 @@ __device__ __forceinline__ void fwd_wgmma(
   const auto scores = [&](int st) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
       wgmma_m64n64k16_ss(s, kmajor_desc(sm.q[wg], kk),
                          kmajor_desc(sm.k[st], kk), kk > 0);
     wgmma_commit();
@@ -435,11 +445,11 @@ __device__ __forceinline__ void fwd_wgmma(
       }
       scores(st);
       mbar_arrive(&sm.empty[st]);  // the product has read the stage
-      if (edge_tile(causal, it, qt, k0, seq))
-        stats_tile<true, false>(s, s, m, l, unused, row, k0, t, seq, causal,
-                                km, scale);
+      if (edge_tile(causal, it, qt, k0, seq_k))
+        stats_tile<true, false>(s, s, m, l, unused, row, k0, t, seq_k,
+                                causal, km, scale);
       else
-        stats_tile<false, false>(s, s, m, l, unused, row, k0, t, seq,
+        stats_tile<false, false>(s, s, m, l, unused, row, k0, t, seq_k,
                                  causal, km, scale);
     }
 #pragma unroll
@@ -458,27 +468,27 @@ __device__ __forceinline__ void fwd_wgmma(
     if (it < own_tiles) {
       scores(st);
       uint32_t pa[kBlockK / 16][4];  // A fragments of P, one per 16 keys
-      const bool edge = edge_tile(causal, it, qt, k0, seq);
+      const bool edge = edge_tile(causal, it, qt, k0, seq_k);
       if constexpr (kStats) {
         if (edge)
           fwd_tile_p_normalised<true>(pa, s, row_m, row_il, row, k0, t,
-                                      seq, causal, km, scale);
+                                      seq_k, causal, km, scale);
         else
           fwd_tile_p_normalised<false>(pa, s, row_m, row_il, row, k0, t,
-                                       seq, causal, km, scale);
+                                       seq_k, causal, km, scale);
       } else {
         if (edge)
-          fwd_tile_p<true>(pa, s, o_acc, m, l, row, k0, t, seq, causal, km,
-                           scale);
+          fwd_tile_p<true, kNo>(pa, s, o_acc, m, l, row, k0, t, seq_k,
+                                causal, km, scale);
         else
-          fwd_tile_p<false>(pa, s, o_acc, m, l, row, k0, t, seq, causal, km,
-                            scale);
+          fwd_tile_p<false, kNo>(pa, s, o_acc, m, l, row, k0, t, seq_k,
+                                 causal, km, scale);
       }
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockK / 16; ++kk)
-        wgmma_m64n96k16_rs<kMNMajor>(o_acc, pa[kk],
-                                     mnmajor_desc(sm.v[st], kk));
+        wgmma_m64nNk16_rs<D, kMNMajor>(o_acc, pa[kk],
+                                       mnmajor_desc(sm.v[st], kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o_acc);
@@ -490,14 +500,15 @@ __device__ __forceinline__ void fwd_wgmma(
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float lt = kStats ? 1.f : row_sum(l[h]);
-    if (row[h] >= seq) continue;
+    if (row[h] >= seq_q) continue;
     const float inv = kStats ? 1.f : (lt > 0.f ? 1.0f / lt : 0.f);
-    bf16* out = o + ((size_t)bh * seq + row[h]) * kHeadDim + 2 * t;
+    bf16* out = o + ((size_t)bh * seq_q + row[h]) * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < kNo; ++j)
       *reinterpret_cast<uint32_t*>(out + j * 8) =
           pack_pair(o_acc[4 * j + 2 * h] * inv, o_acc[4 * j + 2 * h + 1] * inv);
-    if (!kStats && t == 0) lse[(size_t)bh * seq + row[h]] = row_lse(m[h], lt);
+    if (!kStats && t == 0)
+      lse[(size_t)bh * seq_q + row[h]] = row_lse(m[h], lt);
   }
 }
 
@@ -506,117 +517,130 @@ __device__ __forceinline__ void fwd_wgmma(
       const __grid_constant__ CUtensorMap tm_k,                              \
       const __grid_constant__ CUtensorMap tm_v, bf16 *__restrict__ o,        \
       float *__restrict__ lse, const float *__restrict__ kmask,              \
-      int mask_rows, int seq, int num_heads, float scale, int causal
+      int mask_rows, int seq_q, int seq_k, int num_heads, float scale,       \
+      int causal
 
 // K1: the output (lse unused, null).
-template <int kGroups, int kStages>
+template <int D, int kGroups, int kStages>
 __global__ void __launch_bounds__(128 * kGroups + 32, 1)
     flash_fwd_wgmma_kernel(FWD_WGMMA_PARAMS) {
-  fwd_wgmma<true, kGroups, kStages>(&tm_q, &tm_k, &tm_v, o, lse, kmask,
-                                    mask_rows, seq, num_heads, scale, causal);
+  fwd_wgmma<true, D, kGroups, kStages>(&tm_q, &tm_k, &tm_v, o, lse, kmask,
+                                       mask_rows, seq_q, seq_k, num_heads,
+                                       scale, causal);
 }
 
 // K3: the output and lse.
-template <int kGroups, int kStages>
+template <int D, int kGroups, int kStages>
 __global__ void __launch_bounds__(128 * kGroups + 32, 1)
     flash_fwd_lse_wgmma_kernel(FWD_WGMMA_PARAMS) {
-  fwd_wgmma<false, kGroups, kStages>(&tm_q, &tm_k, &tm_v, o, lse, kmask,
-                                     mask_rows, seq, num_heads, scale,
-                                     causal);
+  fwd_wgmma<false, D, kGroups, kStages>(&tm_q, &tm_k, &tm_v, o, lse, kmask,
+                                        mask_rows, seq_q, seq_k, num_heads,
+                                        scale, causal);
 }
 
 #undef FWD_WGMMA_PARAMS
 
 // ---- launch --------------------------------------------------------------
 
-template <bool kLse>
-cudaError_t launch_fp32(const void* qr, const void* kr, const void* v,
-                        void* o, float* lse, const float* kmask,
-                        int mask_rows, int bh, int seq, int num_heads,
-                        float scale, int causal, cudaStream_t stream) {
-  constexpr int bytes = fp32_smem_bytes<kHeadDim>();
-  const auto kernel = flash_fwd_fp32_kernel<kHeadDim, kLse>;
+// The arguments of one forward launch. qr/kr (q and k rotated by R1), v, o:
+// (bh, seq_q | seq_k, d) contiguous; kmask (mask_rows, seq_k) fp32 or null;
+// lse (bh, seq_q) fp32 (K3) or null (K1).
+struct FwdArgs {
+  const void *qr, *kr, *v;
+  void* o;
+  float* lse;
+  const float* kmask;
+  int mask_rows, bh, seq_q, seq_k, num_heads;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <int D, bool kLse>
+cudaError_t launch_fp32(const FwdArgs& a) {
+  constexpr int bytes = fp32_smem_bytes<D>();
+  const auto kernel = flash_fwd_fp32_kernel<D, kLse>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(bh, (seq + kBlockQ - 1) / kBlockQ);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(qr), static_cast<const float*>(kr),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, kmask,
-      mask_rows, seq, num_heads, scale, causal);
+  dim3 grid(a.bh, (a.seq_q + kBlockQ - 1) / kBlockQ);
+  kernel<<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const float*>(a.qr), static_cast<const float*>(a.kr),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
+      a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale,
+      a.causal);
   return cudaGetLastError();
 }
 
 // K1 (kLse false) or K3 in bf16.
-template <bool kLse, int kGroups, int kStages>
-cudaError_t launch_bf16(const void* qr, const void* kr, const void* v,
-                        void* o, float* lse, const float* kmask,
-                        int mask_rows, int bh, int seq, int num_heads,
-                        float scale, int causal, cudaStream_t stream) {
+template <int D, bool kLse, int kGroups, int kStages>
+cudaError_t launch_bf16(const FwdArgs& a) {
   CUtensorMap m[3];
-  if (!hopper::make_map(&m[0], qr, bh, seq) ||
-      !hopper::make_map(&m[1], kr, bh, seq) ||
-      !hopper::make_map(&m[2], v, bh, seq))
+  if (!hopper::make_map(&m[0], a.qr, a.bh, a.seq_q, D) ||
+      !hopper::make_map(&m[1], a.kr, a.bh, a.seq_k, D) ||
+      !hopper::make_map(&m[2], a.v, a.bh, a.seq_k, D))
     return cudaErrorInvalidValue;
-  constexpr int bytes = hopper::smem_bytes<FwdSmem<kGroups, kStages>>();
+  constexpr int bytes = hopper::smem_bytes<FwdSmem<D, kGroups, kStages>>();
   const auto kernel = [] {
     if constexpr (kLse)
-      return flash_fwd_lse_wgmma_kernel<kGroups, kStages>;
+      return flash_fwd_lse_wgmma_kernel<D, kGroups, kStages>;
     else
-      return flash_fwd_wgmma_kernel<kGroups, kStages>;
+      return flash_fwd_wgmma_kernel<D, kGroups, kStages>;
   }();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int rows = kBlockQ * kGroups;
-  const dim3 grid((seq + rows - 1) / rows, bh);
-  kernel<<<grid, 128 * kGroups + 32, bytes, stream>>>(
-      m[0], m[1], m[2], static_cast<bf16*>(o), lse, kmask, mask_rows, seq,
-      num_heads, scale, causal);
+  const dim3 grid((a.seq_q + rows - 1) / rows, a.bh);
+  kernel<<<grid, 128 * kGroups + 32, bytes, a.stream>>>(
+      m[0], m[1], m[2], static_cast<bf16*>(a.o), a.lse, a.kmask,
+      a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-bool invalid(int dtype, int bh, int seq, int d) {
-  return bh <= 0 || bh > 65535 || seq <= 0 || d != kHeadDim ||
-         (dtype != 0 && dtype != 1) || (seq + kBlockQ - 1) / kBlockQ > 65535;
+// K1 (kLse false) or K3 at a.d's instantiation, fp32 (dtype 0) or bf16.
+template <bool kLse>
+cudaError_t launch(int dtype, int d, const FwdArgs& a) {
+  if (a.bh <= 0 || a.bh > 65535 || a.seq_q <= 0 || a.seq_k <= 0 ||
+      (dtype != 0 && dtype != 1) || (a.seq_q + kBlockQ - 1) / kBlockQ > 65535)
+    return cudaErrorInvalidValue;
+  return dispatch_head_dim(d, [&](auto head_dim) {
+    constexpr int D = decltype(head_dim)::value;
+    if (dtype == 0) return launch_fp32<D, kLse>(a);
+    if constexpr (kLse)
+      return launch_bf16<D, true, kFwdGroups, kFwdStages>(a);
+    else
+      return launch_bf16<D, false, kResGroups, kResStages>(a);
+  });
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. qr/kr (q and k rotated by R1), v, o:
-// (bh, seq, d) contiguous; kmask: (mask_rows, seq) fp32 or null.
+// dtype: 0 = float32, 1 = bfloat16. qr (q rotated by R1), o: (bh, seq_q, d);
+// kr (k rotated by R1), v: (bh, seq_k, d); all contiguous; d = 64, 96 or
+// 128; kmask: (mask_rows, seq_k) fp32 or null.
 // K1: the output only.
 extern "C" int meant_flash_fwd(int dtype, const void* qr, const void* kr,
                                const void* v, void* o, const void* kmask,
-                               int mask_rows, int bh, int seq, int d,
-                               int num_heads, float scale, int causal,
+                               int mask_rows, int bh, int seq_q, int seq_k,
+                               int d, int num_heads, float scale, int causal,
                                void* stream) {
-  if (invalid(dtype, bh, seq, d)) return (int)cudaErrorInvalidValue;
-  const auto* km = static_cast<const float*>(kmask);
-  const auto st = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0
-                   ? launch_fp32<false>(qr, kr, v, o, nullptr, km, mask_rows,
-                                        bh, seq, num_heads, scale, causal, st)
-                   : launch_bf16<false, kResGroups, kResStages>(
-                         qr, kr, v, o, nullptr, km, mask_rows, bh, seq,
-                         num_heads, scale, causal, st));
+  const FwdArgs a{qr, kr, v, o, nullptr, static_cast<const float*>(kmask),
+                  mask_rows, bh, seq_q, seq_k, num_heads, scale, causal,
+                  static_cast<cudaStream_t>(stream)};
+  return (int)launch<false>(dtype, d, a);
 }
 
-// K3: the output and each row's log-sum-exp, lse: (bh, seq) fp32.
+// K3: the output and each row's log-sum-exp, lse: (bh, seq_q) fp32.
 extern "C" int meant_flash_fwd_lse(int dtype, const void* qr, const void* kr,
                                    const void* v, void* o, void* lse,
                                    const void* kmask, int mask_rows, int bh,
-                                   int seq, int d, int num_heads, float scale,
-                                   int causal, void* stream) {
-  if (invalid(dtype, bh, seq, d) || lse == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const auto* km = static_cast<const float*>(kmask);
-  auto* ls = static_cast<float*>(lse);
-  const auto st = static_cast<cudaStream_t>(stream);
-  return (int)(dtype == 0
-                   ? launch_fp32<true>(qr, kr, v, o, ls, km, mask_rows, bh,
-                                       seq, num_heads, scale, causal, st)
-                   : launch_bf16<true, kFwdGroups, kFwdStages>(
-                         qr, kr, v, o, ls, km, mask_rows, bh, seq, num_heads,
-                         scale, causal, st));
+                                   int seq_q, int seq_k, int d, int num_heads,
+                                   float scale, int causal, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{qr, kr, v, o, static_cast<float*>(lse),
+                  static_cast<const float*>(kmask), mask_rows, bh, seq_q,
+                  seq_k, num_heads, scale, causal,
+                  static_cast<cudaStream_t>(stream)};
+  return (int)launch<true>(dtype, d, a);
 }

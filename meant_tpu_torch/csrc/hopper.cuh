@@ -4,12 +4,13 @@
 // the host code that encodes one, and warpgroup matrix products (wgmma) on
 // operands in shared memory laid out with the 64-byte swizzle.
 //
-// Tile layout. A [64 rows][96 columns] bf16 tile lives in shared memory as
-// three boxes of [64][32] (4096 bytes each, columns 0-31, 32-63, 64-95),
+// Tile layout. A [64 rows][D columns] bf16 tile (D = 64, 96 or 128, the
+// head dim) lives in shared memory as D / 32 boxes of [64][32] (4096 bytes
+// each, columns 0-31, 32-63, ...),
 // each written by one TMA load with CU_TENSOR_MAP_SWIZZLE_64B: rows of 64
 // bytes, the 16-byte chunk c of row r stored at chunk c ^ ((r >> 1) & 3).
 // wgmma reads the same bytes two ways (its descriptor's 64-byte swizzle):
-//   * K-major (the 96 columns are the depth K): rows 64 bytes apart, eight-
+//   * K-major (the D columns are the depth K): rows 64 bytes apart, eight-
 //     row groups 512 bytes apart (SBO); the k-th 16-column step starts
 //     (k / 2) boxes and (k % 2) * 32 bytes in;
 //   * MN-major (the 64 rows are the depth K, the columns are N): 32 columns
@@ -21,7 +22,7 @@
 //
 // The tensor maps come from cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint: the libraries link nothing but the runtime. A
-// 3-D map over (bh, s, 96) zero-fills rows past s within each head, where
+// 3-D map over (bh, s, D) zero-fills rows past s within each head, where
 // cp.async would need the fill and the swizzle written by hand.
 
 #pragma once
@@ -39,8 +40,14 @@ constexpr int kKMajor = 0, kMNMajor = 1;  // wgmma's transpose bit
 constexpr int kRows = 64;                  // rows of a tile
 constexpr int kBoxCols = 32;               // bf16 columns of a box (64 B)
 constexpr int kBoxBytes = kRows * kBoxCols * 2;
-constexpr int kTileCols = 3 * kBoxCols;            // 96, the head dim
-constexpr int kTileBytes = 3 * kBoxBytes;          // one [64][96] tile
+
+// The head dims the bodies are instantiated for, and the bytes of one
+// [64][D] tile: D / 32 boxes.
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
+  return D / kBoxCols * kBoxBytes;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -125,14 +132,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Rows [row0, row0 + 64) of head `bh` of a (bh, seq, 96) bf16 tensor as one
-// tile (three boxes); 3 * kBoxBytes bytes counted on `bar`.
+// Rows [row0, row0 + 64) of head `bh` of a (bh, seq, D) bf16 tensor as one
+// tile (D / 32 boxes); tile_bytes<D>() bytes counted on `bar`.
+template <int D>
 __device__ __forceinline__ void tma_load_tile(uint8_t* tile,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int row0,
                                               int bh) {
 #pragma unroll
-  for (int b = 0; b < 3; ++b)
+  for (int b = 0; b < D / kBoxCols; ++b)
     tma_load_3d(tile + b * kBoxBytes, map, bar, b * kBoxCols, row0, bh);
 }
 
@@ -152,7 +160,7 @@ __device__ __forceinline__ uint64_t kmajor_desc(const uint8_t* tile, int k) {
   return sw64_desc(tile + (k >> 1) * kBoxBytes + (k & 1) * 32, 16, 512);
 }
 
-// The k-th 16-row depth step of a tile read MN-major (N = the 96 columns).
+// The k-th 16-row depth step of a tile read MN-major (N = the D columns).
 __device__ __forceinline__ uint64_t mnmajor_desc(const uint8_t* tile, int k) {
   return sw64_desc(tile + k * 16 * 2 * kBoxCols, kBoxBytes, 512);
 }
@@ -207,9 +215,32 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// D (64 x 96, fp32) += A * B, A (64 x 16 bf16) in registers as four
-// mma.sync-style A fragments, B (16 x 96) in shared memory: K-major
-// (TransB = kKMajor) or MN-major (kMNMajor) as its descriptor says.
+// D (64 x N, fp32) += A * B, A (64 x 16 bf16) in registers as four
+// mma.sync-style A fragments, B (16 x N) in shared memory: K-major
+// (TransB = kKMajor) or MN-major (kMNMajor) as its descriptor says. One
+// instruction per N the head dims need (64, 96, 128).
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TransB));
+}
+
 template <int TransB>
 __device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48],
                                                    const uint32_t (&a)[4],
@@ -236,6 +267,51 @@ __device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48],
         "n"(TransB));
 }
 
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TransB));
+}
+
+// The product above at N = the head dim D.
+template <int N, int TransB>
+__device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[N / 2],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  static_assert(N == 64 || N == 96 || N == 128, "no wgmma for this N");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_rs<TransB>(d, a, b);
+  else if constexpr (N == 96)
+    wgmma_m64n96k16_rs<TransB>(d, a, b);
+  else
+    wgmma_m64n128k16_rs<TransB>(d, a, b);
+}
+
 // ---- tensor maps (host) -------------------------------------------------------
 
 inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -256,17 +332,18 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A (bh, seq, 96) bf16 tensor as a 3-D tensor map of [64 rows][32 columns]
+// A (bh, seq, d) bf16 tensor as a 3-D tensor map of [64 rows][32 columns]
 // boxes with the 64-byte swizzle; reads outside it give zeros.
-inline bool make_map(CUtensorMap* map, const void* ptr, int bh, int seq) {
+inline bool make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
+                     int d) {
   const auto encode = tensor_map_encoder();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
     return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)kTileCols, (cuuint64_t)seq,
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq,
                               (cuuint64_t)bh};
   const cuuint64_t strides[2] = {
-      kTileCols * sizeof(__nv_bfloat16),
-      (cuuint64_t)seq * kTileCols * sizeof(__nv_bfloat16)};
+      d * sizeof(__nv_bfloat16),
+      (cuuint64_t)seq * d * sizeof(__nv_bfloat16)};
   const cuuint32_t box[3] = {kBoxCols, kRows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,

@@ -11,12 +11,13 @@ rotary and patches 2-D axial rotary in the (sin, cos) layout of
 does not take, so the rotation stays plain PyTorch.
 
 `flash=True` sends a group of FLASH_MIN_SEQ or more keys (the cls key
-included) to flash attention, as the JAX package does: head dim 64 and one
-more key than queries, a shape the port's kernels are not built for
-(ROADMAP §2 item 3). On a CUDA tensor that branch raises; on the CPU it
-runs the plain version of JAX's kernel. The CLI's geometries never reach
-it: 224^2 charts make space groups of 197 keys and time groups of 6, MOSI
-groups of 21 and 51.
+included) to `flash_mha`, as the JAX package does: head dim 64 and one
+more key than queries, no tables, no mask, q scaled beforehand. On a CUDA
+tensor that is R1 + K1 forward and K2 backward at (g queries, g + 1 keys);
+on the CPU the kernels' plain versions. `--image_size 256` at patch 16
+reaches it (space groups of 256 queries and 257 keys); 224^2 charts make
+space groups of 197 keys and time groups of 6, MOSI groups of 21 and
+51.
 
 `scan_layers` keeps one module per layer, as the towers do (nn/stack.py),
 and rematerialises every layer ("dots" unless `remat` says otherwise), as
@@ -33,6 +34,7 @@ import torch
 from torch import nn
 
 from meant_tpu_torch import ops
+from meant_tpu_torch.ops.flash import flash_mha
 from meant_tpu_torch.nn.layers import (Dense, FlaxLayerNorm, SeededInit,
                                        gelu, init_weights)
 from meant_tpu_torch.nn.stack import remat_spec, run_block
@@ -50,14 +52,9 @@ def _attn(q, k, v):
 
 
 def _flash_group(q, k, v):
-    """JAX's `flash_mha(q, k, v, scale=1.0)` over (groups, s, dh) with one
-    more key than queries. No kernel of the port takes this shape."""
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            f"TimeSformer flash attention over {k.shape[1]} keys at head "
-            f"dim {q.shape[-1]} (one more key than queries) has no CUDA "
-            f"kernel in meant_tpu_torch yet (ROADMAP §2 item 3)")
-    return ops.attend(q[:, None], k[:, None], v[:, None], scale=1.0)[:, 0]
+    """JAX's `flash_mha(q, k, v, scale=1.0)` over (groups, g, dh) queries
+    and (groups, g + 1, dh) keys and values, as one head each."""
+    return flash_mha(q[:, None], k[:, None], v[:, None], scale=1.0)[:, 0]
 
 
 class TSAttention(nn.Module):

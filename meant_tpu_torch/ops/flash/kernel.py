@@ -21,6 +21,16 @@ R1 + K3) are PyTorch custom ops, `meant_tpu_torch::flash_fwd` and
 inference path call: `torch.export` keeps them in an exported program and
 activation checkpointing sees one operator it can re-run.
 
+Shapes the kernels take: q (b, h, s_q, d) and k, v (b, h, s_k, d), the q
+and k lengths separate (causal keeps col <= row, both counted from 0, as
+the JAX kernels do), at head dims 64, 96 and 128 (`HEAD_DIMS`). On the card
+any other even d up to 128 is zero-padded to the next of them (q, k and v
+get zero columns, the tables cos = 1 and sin = 0 there, `scale` stays the
+caller's, the output is sliced back): exact, since the rotation's pairs
+stay whole and the padded lanes add zero to every score. An odd d, or one
+past 128, raises a ValueError on the card (ROADMAP §1); the CPU path takes
+any shape, as JAX does.
+
 Left out on purpose (TPU-only in the JAX package): SPMD partitioning,
 interpret mode, `block_q` / `block_k`, the VMEM sizing of the blocks and
 the outside padding to block multiples -- the CUDA kernels mask their own
@@ -35,10 +45,9 @@ from typing import Optional
 import torch
 
 from meant_tpu_torch.cuda_build import KernelLauncher
-from meant_tpu_torch.ops.attention import attend
 from meant_tpu_torch.ops.rotary import rotate_half
 
-HEAD_DIM = 96                  # the one head dim csrc/flash_*.cu build
+HEAD_DIMS = (64, 96, 128)      # the head dims csrc/flash_*.cu build
 # The JAX package's routing constants (meant_tpu/ops/flash/kernel.py:56-60,
 # 990): K/V stay resident up to K_RESIDENT_LIMIT keys, and the resident
 # backward's VMEM model must leave room for a DEFAULT_BLOCK_Q-row q block.
@@ -109,37 +118,57 @@ def uses_online(s_k: int, d: int, force_online: Optional[bool] = None,
     return online
 
 
-def _check_launch_inputs(q, others, tables, kmask, num_heads, rows=None):
-    """What the kernels refuse: q (BH, s, 96) fp32/bf16; every tensor in
-    `others` of q's shape and dtype; tables (s, 96) fp32; every tensor in
-    `rows` (per-row statistics) (BH, s) fp32; kmask (b | 1, s) fp32 or None;
-    all contiguous on q's device. Returns the mask's row count (0 without a
-    mask)."""
-    bh, s, d = q.shape
+def kernel_head_dim(d: int) -> int:
+    """The head dim a call at head dim d runs at on the card: the least of
+    HEAD_DIMS at or above d (the wrapper pads q, k, v and the tables up to
+    it). Raises for an odd d or one past 128."""
+    if d % 2 or not 0 < d <= HEAD_DIMS[-1]:
+        raise ValueError(
+            f"the flash kernels take an even head dim up to {HEAD_DIMS[-1]} "
+            f"(zero-padded to one of {HEAD_DIMS}), got {d} (ROADMAP §1: "
+            f"flash kernels at odd head dims and past 128)")
+    return next(k for k in HEAD_DIMS if k >= d)
+
+
+def _check_launch_inputs(q, k, q_like=None, k_like=None, tables=(),
+                         kmask=None, num_heads=1, rows=None):
+    """What the kernels refuse: q (BH, s_q, d) and k (BH, s_k, d) of one
+    dtype, fp32 or bf16, d one of HEAD_DIMS; every tensor in `q_like` of
+    q's shape and `k_like` of k's, in their dtype; tables, when given,
+    (qcos, qsin, kcos, ksin) as (s_q, d) and (s_k, d) fp32; every tensor in
+    `rows` (per-row statistics) (BH, s_q) fp32; kmask (b | 1, s_k) fp32 or
+    None; all contiguous on q's device. Returns the mask's row count (0
+    without a mask)."""
+    bh, s_q, d = q.shape
+    s_k = k.shape[1]
     _dtype_code(q)
-    if d != HEAD_DIM:
-        raise ValueError(f"flash kernel is built for head dim {HEAD_DIM}, "
-                         f"got {d}")
-    for name, t in others.items():
-        if t.shape != q.shape or t.dtype != q.dtype:
-            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must "
-                             f"match q {tuple(q.shape)} {q.dtype}")
-    for t in tables:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernels are built for head dims "
+                         f"{HEAD_DIMS}, got {d}")
+    like = [(name, t, q.shape) for name, t in (q_like or {}).items()]
+    like += [(name, t, (bh, s_k, d))
+             for name, t in {"k": k, **(k_like or {})}.items()]
+    for name, t, shape in like:
+        if t.shape != shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must be "
+                             f"{tuple(shape)} {q.dtype}")
+    for t, s in zip(tables, (s_q, s_q, s_k, s_k)):
         if t.shape != (s, d) or t.dtype != torch.float32:
             raise ValueError(f"rotation tables must be ({s}, {d}) fp32, "
                              f"got {tuple(t.shape)} {t.dtype}")
     for name, t in (rows or {}).items():
-        if t.shape != (bh, s) or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be ({bh}, {s}) fp32, got "
+        if t.shape != (bh, s_q) or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be ({bh}, {s_q}) fp32, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    tensors = [q, *others.values(), *tables, *(rows or {}).values()]
+    tensors = [q, *(t for _, t, _ in like), *tables,
+               *(rows or {}).values()]
     mask_rows = 0
     if kmask is not None:
         mask_rows = kmask.shape[0]
-        if (kmask.dim() != 2 or kmask.shape[1] != s
+        if (kmask.dim() != 2 or kmask.shape[1] != s_k
                 or kmask.dtype != torch.float32
                 or mask_rows not in (1, bh // num_heads)):
-            raise ValueError(f"kmask must be (b | 1, {s}) fp32, got "
+            raise ValueError(f"kmask must be (b | 1, {s_k}) fp32, got "
                              f"{tuple(kmask.shape)} {kmask.dtype}")
         tensors.append(kmask)
     for t in tensors:
@@ -155,23 +184,26 @@ class FlashForward(KernelLauncher):
     """K1: ctypes wrapper of `meant_flash_fwd` (csrc/flash_fwd.cu)."""
 
     symbol, library = "meant_flash_fwd", "flash_fwd"
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
     def __call__(self, qr, kr, v, kmask, *, scale: float, causal: bool,
                  num_heads: int) -> torch.Tensor:
-        """qr/kr (q and k rotated by R1), v: (BH, s, d) CUDA, contiguous,
-        fp32 or bf16; kmask (b | 1, s) fp32 or None. Returns (BH, s, d)."""
-        bh, s, d = qr.shape
-        mask_rows = _check_launch_inputs(qr, {"kr": kr, "v": v}, (), kmask,
-                                         num_heads)
+        """qr (q rotated by R1): (BH, s_q, d); kr (k rotated by R1), v:
+        (BH, s_k, d); CUDA, contiguous, fp32 or bf16, d one of HEAD_DIMS;
+        kmask (b | 1, s_k) fp32 or None. Returns (BH, s_q, d). Launches
+        are keyed (s_q, s_k, d, causal)."""
+        bh, s_q, d = qr.shape
+        s_k = kr.shape[1]
+        mask_rows = _check_launch_inputs(qr, kr, k_like={"v": v},
+                                         kmask=kmask, num_heads=num_heads)
         out = torch.empty_like(qr)
         self._launch(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), out.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
-            s, d, num_heads, float(scale), int(bool(causal)),
-            shape=(s, bool(causal)))
+            s_q, s_k, d, num_heads, float(scale), int(bool(causal)),
+            shape=(s_q, s_k, d, bool(causal)))
         return out
 
 
@@ -180,23 +212,26 @@ class FlashBackward(KernelLauncher):
     call = its dq kernel then its dk/dv kernel on the current stream."""
 
     symbol, library = "meant_flash_bwd", "flash_bwd"
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
     def __call__(self, qr, kr, v, do, kmask, qcos, qsin, kcos, ksin, *,
                  scale: float, causal: bool, num_heads: int) -> tuple:
-        """qr/kr (q and k rotated by R1), v, do: (BH, s, d) CUDA,
-        contiguous, fp32 or bf16; tables (s, d) fp32, read only by the
-        rotation's adjoint; kmask as for the forward. Returns (dq, dk, dv),
-        each (BH, s, d)."""
-        bh, s, d = qr.shape
-        mask_rows = _check_launch_inputs(qr, {"kr": kr, "v": v, "do": do},
-                                         (qcos, qsin, kcos, ksin), kmask,
-                                         num_heads)
-        dq, dk, dv = (torch.empty_like(qr) for _ in range(3))
+        """qr (q rotated by R1), do: (BH, s_q, d); kr (k rotated by R1),
+        v: (BH, s_k, d); CUDA, contiguous, fp32 or bf16; tables (s_q | s_k,
+        d) fp32, read only by the rotation's adjoint; kmask as for the
+        forward. Returns (dq, dk, dv) shaped as q, k, v."""
+        bh, s_q, d = qr.shape
+        s_k = kr.shape[1]
+        mask_rows = _check_launch_inputs(
+            qr, kr, q_like={"do": do}, k_like={"v": v},
+            tables=(qcos, qsin, kcos, ksin), kmask=kmask,
+            num_heads=num_heads)
+        dq = torch.empty_like(qr)
+        dk, dv = torch.empty_like(kr), torch.empty_like(kr)
         # per row: max, 1/denominator, delta (written by the dq kernel,
         # read by the dk/dv kernel)
-        stats = torch.empty((3, bh, s), dtype=torch.float32,
+        stats = torch.empty((3, bh, s_q), dtype=torch.float32,
                             device=qr.device)
         self._launch(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
@@ -204,8 +239,8 @@ class FlashBackward(KernelLauncher):
             dv.data_ptr(), stats.data_ptr(), qcos.data_ptr(),
             qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
-            s, d, num_heads, float(scale), int(bool(causal)),
-            shape=(s, bool(causal)))
+            s_q, s_k, d, num_heads, float(scale), int(bool(causal)),
+            shape=(s_q, s_k, d, bool(causal)))
         return dq, dk, dv
 
 
@@ -213,25 +248,25 @@ class FlashForwardOnline(KernelLauncher):
     """K3: ctypes wrapper of `meant_flash_fwd_lse` (csrc/flash_fwd.cu)."""
 
     symbol, library = "meant_flash_fwd_lse", "flash_fwd"
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
     def __call__(self, qr, kr, v, kmask, *, scale: float, causal: bool,
                  num_heads: int) -> tuple:
-        """qr/kr (q and k rotated by R1), v: (BH, s, d) CUDA, contiguous,
-        fp32 or bf16; kmask (b | 1, s) fp32 or None. Returns (out (BH, s,
-        d), lse (BH, s) fp32)."""
-        bh, s, d = qr.shape
-        mask_rows = _check_launch_inputs(qr, {"kr": kr, "v": v}, (), kmask,
-                                         num_heads)
+        """Inputs as K1's. Returns (out (BH, s_q, d), lse (BH, s_q)
+        fp32)."""
+        bh, s_q, d = qr.shape
+        s_k = kr.shape[1]
+        mask_rows = _check_launch_inputs(qr, kr, k_like={"v": v},
+                                         kmask=kmask, num_heads=num_heads)
         out = torch.empty_like(qr)
-        lse = torch.empty((bh, s), dtype=torch.float32, device=qr.device)
+        lse = torch.empty((bh, s_q), dtype=torch.float32, device=qr.device)
         self._launch(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
-            s, d, num_heads, float(scale), int(bool(causal)),
-            shape=(s, bool(causal)))
+            s_q, s_k, d, num_heads, float(scale), int(bool(causal)),
+            shape=(s_q, s_k, d, bool(causal)))
         return out, lse
 
 
@@ -242,47 +277,53 @@ class RotateQK(KernelLauncher):
     and k."""
 
     symbol, library = "meant_rotate_qk", "flash_bwd_online"
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                 + [ctypes.c_void_p])
 
     def __call__(self, q, k, qcos, qsin, kcos, ksin) -> tuple:
-        """q/k: (BH, s, d) CUDA, contiguous, fp32 or bf16; tables (s, d)
-        fp32. Returns (qr, kr): q and k rotated in fp32 and rounded to
-        their dtype, bit for bit `_rotate`'s."""
-        bh, s, d = q.shape
-        _check_launch_inputs(q, {"k": k}, (qcos, qsin, kcos, ksin), None, 1)
+        """q: (BH, s_q, d), k: (BH, s_k, d) CUDA, contiguous, fp32 or
+        bf16; tables (s_q | s_k, d) fp32. Returns (qr, kr): q and k rotated
+        in fp32 and rounded to their dtype, bit for bit `_rotate`'s.
+        Launches are keyed (s_q, s_k, d)."""
+        bh, s_q, d = q.shape
+        s_k = k.shape[1]
+        _check_launch_inputs(q, k, tables=(qcos, qsin, kcos, ksin))
         qr, kr = torch.empty_like(q), torch.empty_like(k)
         self._launch(
             q.device, _dtype_code(q), q.data_ptr(), k.data_ptr(),
             qr.data_ptr(), kr.data_ptr(), qcos.data_ptr(), qsin.data_ptr(),
-            kcos.data_ptr(), ksin.data_ptr(), bh, s, d, shape=(s,))
+            kcos.data_ptr(), ksin.data_ptr(), bh, s_q, s_k, d,
+            shape=(s_q, s_k, d))
         return qr, kr
 
 
 class _FlashBackwardOnline(KernelLauncher):
-    """K4 and K5 take the same inputs: qr/kr (q and k rotated by R1), v and
-    do, (BH, s, d) CUDA, contiguous, fp32 or bf16; lse and delta (BH, s)
-    fp32; tables and kmask as for the forward (the tables serve the
-    rotation's adjoint)."""
+    """K4 and K5 take the same inputs: qr (q rotated by R1) and do, (BH,
+    s_q, d), kr (k rotated by R1) and v, (BH, s_k, d), CUDA, contiguous,
+    fp32 or bf16; lse and delta (BH, s_q) fp32; tables and kmask as for
+    the forward (the tables serve the rotation's adjoint)."""
 
     library = "flash_bwd_online"
-    n_outputs = 0
+    outputs = ()     # which of q and k each gradient is shaped as
 
     def __call__(self, qr, kr, v, do, lse, delta, kmask, qcos, qsin, kcos,
                  ksin, *, scale: float, causal: bool, num_heads: int):
-        bh, s, d = qr.shape
+        bh, s_q, d = qr.shape
+        s_k = kr.shape[1]
         mask_rows = _check_launch_inputs(
-            qr, {"kr": kr, "v": v, "do": do}, (qcos, qsin, kcos, ksin),
-            kmask, num_heads, rows={"lse": lse, "delta": delta})
-        grads = [torch.empty_like(qr) for _ in range(self.n_outputs)]
+            qr, kr, q_like={"do": do}, k_like={"v": v},
+            tables=(qcos, qsin, kcos, ksin), kmask=kmask,
+            num_heads=num_heads, rows={"lse": lse, "delta": delta})
+        grads = [torch.empty_like(qr if o == "q" else kr)
+                 for o in self.outputs]
         self._launch(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             *(g.data_ptr() for g in grads), qcos.data_ptr(),
             qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
-            s, d, num_heads, float(scale), int(bool(causal)),
-            shape=(s, bool(causal)))
+            s_q, s_k, d, num_heads, float(scale), int(bool(causal)),
+            shape=(s_q, s_k, d, bool(causal)))
         return grads
 
 
@@ -290,8 +331,8 @@ class FlashBackwardDQ(_FlashBackwardOnline):
     """K4: ctypes wrapper of `meant_flash_bwd_dq`
     (csrc/flash_bwd_online.cu). Returns [dq]."""
 
-    symbol, n_outputs = "meant_flash_bwd_dq", 1
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+    symbol, outputs = "meant_flash_bwd_dq", ("q",)
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -299,8 +340,8 @@ class FlashBackwardDKDV(_FlashBackwardOnline):
     """K5: ctypes wrapper of `meant_flash_bwd_dkdv`
     (csrc/flash_bwd_online.cu). Returns [dk, dv]."""
 
-    symbol, n_outputs = "meant_flash_bwd_dkdv", 2
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+    symbol, outputs = "meant_flash_bwd_dkdv", ("k", "k")
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -327,16 +368,26 @@ def _rotate(t, cos, sin):
 def flash_mha_reference(q, k, v, kmask, qcos, qsin, kcos, ksin, *,
                         scale: float, causal: bool) -> torch.Tensor:
     """Plain PyTorch version of R1 + K1: rotate in fp32 with the tables,
-    round to the input dtype, then `attend` (the softmax normalised, then
-    rounded to the input dtype, as `_fwd_kernel` rounds it). q/k/v:
-    (b, h, s, d); kmask (b | 1, s_k) float or None."""
-    return attend(_rotate(q, qcos, qsin), _rotate(k, kcos, ksin), v,
-                  scale=scale, causal=causal, attention_mask=kmask)
+    round to the input dtype, then `attend`'s arithmetic (the softmax
+    normalised, then rounded to the input dtype, as `_fwd_kernel` rounds
+    it) with the kernels' causal fill (col <= row from 0, for any q and k
+    lengths). q: (b, h, s_q, d), k/v: (b, h, s_k, d); kmask (b | 1, s_k)
+    float or None."""
+    return _attend_scores(_scores(_rotate(q, qcos, qsin),
+                                  _rotate(k, kcos, ksin), kmask, scale,
+                                  causal), v).to(q.dtype)
+
+
+def _attend_scores(scores, v):
+    """softmax(scores) rounded to v's dtype, times v, in fp32 sums."""
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.matmul(p.to(torch.float32), v.to(torch.float32))
 
 
 def _scores(qr, kr, kmask, scale, causal):
-    """fp32 scores of rotated q, k: times scale, the causal -inf fill, then
-    + (1 - kmask) * -1e9, in the reference's order."""
+    """fp32 scores of rotated q, k: times scale, the causal -inf fill
+    (col > row, both from 0), then + (1 - kmask) * -1e9, in the reference's
+    order."""
     f32 = torch.float32
     scores = torch.matmul(qr.to(f32), kr.to(f32).transpose(-1, -2)) * scale
     if causal:
@@ -360,9 +411,9 @@ def flash_mha_bwd_reference(q, k, v, do, kmask, qcos, qsin, kcos, ksin, *,
     `_bwd_kernel` (meant_tpu/ops/flash/kernel.py:321-390): P recomputed in
     fp32; dV from P rounded to the input dtype; delta = rowsum(P * dP); dS
     rounded to the input dtype before the dQ/dK products; the rotation's
-    adjoint cos*g - rotate_half(sin*g) applied after them. q/k/v/do:
-    (b, h, s, d); kmask (b | 1, s) or None. Returns (dq, dk, dv) in q's
-    dtype."""
+    adjoint cos*g - rotate_half(sin*g) applied after them. q/do: (b, h,
+    s_q, d), k/v: (b, h, s_k, d); kmask (b | 1, s_k) or None. Returns (dq,
+    dk, dv) in q's dtype."""
     f32 = torch.float32
     dt = q.dtype
     qr, kr = _rotate(q, qcos, qsin), _rotate(k, kcos, ksin)
@@ -383,7 +434,8 @@ def flash_mha_online_reference(q, k, v, kmask, qcos, qsin, kcos, ksin, *,
                                scale: float, causal: bool) -> tuple:
     """Plain PyTorch version of K3: (out, lse). out is as
     `flash_mha_reference`; lse (b, h, s) fp32 is each row's log-sum-exp in
-    the JAX package's form (`_fwd_online_kernel`, kernel.py:198-206):
+    the JAX package's form (`_fwd_online_kernel`, kernel.py:198-206), (b,
+    h, s_q):
     m_safe + log(max(l, 1e-30)), with m the row's max score, m_safe = 0
     where m = -inf, and l the sum of exp(score - m_safe). (torch.logsumexp
     gives -inf on a row with no finite score, where this gives
@@ -394,10 +446,7 @@ def flash_mha_online_reference(q, k, v, kmask, qcos, qsin, kcos, ksin, *,
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     l = torch.exp(scores - m_safe).sum(dim=-1, keepdim=True)
     lse = (m_safe + torch.log(l.clamp_min(1e-30))).squeeze(-1)
-    p = torch.softmax(scores, dim=-1).to(v.dtype)
-    del scores
-    out = torch.matmul(p.to(torch.float32), v.to(torch.float32))
-    return out.to(q.dtype), lse
+    return _attend_scores(scores, v).to(q.dtype), lse
 
 
 def flash_mha_online_tiled_reference(q, k, v, kmask, qcos, qsin, kcos,
@@ -490,15 +539,32 @@ def flash_mha_bwd_online_reference(q, k, v, do, lse, delta, kmask, qcos,
     return dq, dk, dv
 
 
-def _flat(b, h, s, d, *tensors):
-    """(b, h, s, d) tensors as contiguous (b*h, s, d), as the kernels take
-    them."""
-    return [t.reshape(b * h, s, d).contiguous() for t in tensors]
+def _flat(dk, *tensors):
+    """(b, h, s, d) tensors as contiguous (b*h, s, dk), as the kernels take
+    them: zero columns appended up to the kernel's head dim dk."""
+    out = []
+    for t in tensors:
+        b, h, s, d = t.shape
+        t = t.reshape(b * h, s, d)
+        out.append(torch.nn.functional.pad(t, (0, dk - d)) if dk > d
+                   else t.contiguous())
+    return out
 
 
-def _contiguous(kmask, *tables):
-    return (None if kmask is None else kmask.contiguous(),
-            *(t.contiguous() for t in tables))
+def _kernel_tables(dk, kmask, qcos, qsin, kcos, ksin):
+    """The mask and the four tables, contiguous; the tables padded to dk
+    columns with the identity rotation (cos = 1, sin = 0)."""
+    pad = torch.nn.functional.pad
+    d = qcos.shape[-1]
+    tables = [pad(t, (0, dk - d), value=value) if dk > d else t.contiguous()
+              for t, value in ((qcos, 1.0), (qsin, 0.0), (kcos, 1.0),
+                               (ksin, 0.0))]
+    return (None if kmask is None else kmask.contiguous(), *tables)
+
+
+def _unpad(d, t):
+    """The first d columns of a kernel's (.., dk) output, contiguous."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 # The forwards as PyTorch operators, so that autograd, checkpointing and
@@ -518,41 +584,46 @@ _LIB.define(f"flash_fwd_lse({_ARGS}) -> (Tensor, Tensor)")
 
 
 def _flash_fwd_cuda(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
-    """R1 (q and k rotated once), then K1: out (b, h, s, d) and the
-    (b*h, s, d) Qr and Kr that K2 takes, of (b, h, s, d) q, k, v; kmask
-    (b | 1, s) fp32 or None; tables (s, d) fp32."""
-    b, h, s, d = q.shape
-    q, k, v = _flat(b, h, s, d, q, k, v)
-    kmask, *tables = _contiguous(kmask, qcos, qsin, kcos, ksin)
+    """R1 (q and k rotated once), then K1: out (b, h, s_q, d) and the
+    (b*h, s_q | s_k, d) Qr and Kr that K2 takes, of (b, h, s_q, d) q and
+    (b, h, s_k, d) k, v; kmask (b | 1, s_k) fp32 or None; tables (s_q |
+    s_k, d) fp32. Any even d up to 128 runs padded (`kernel_head_dim`)."""
+    b, h, s_q, d = q.shape
+    dk = kernel_head_dim(d)
+    q, k, v = _flat(dk, q, k, v)
+    kmask, *tables = _kernel_tables(dk, kmask, qcos, qsin, kcos, ksin)
     qr, kr = rotate_qk(q, k, *tables)
     out = flash_fwd(qr, kr, v, kmask, scale=scale, causal=causal,
                     num_heads=h)
-    return out.reshape(b, h, s, d), qr, kr
+    return (_unpad(d, out).reshape(b, h, s_q, d), _unpad(d, qr),
+            _unpad(d, kr))
 
 
 def _flash_fwd_plain(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
-    b, h, s, d = q.shape
+    b, h, s_q, d = q.shape
     qr, kr = _rotate(q, qcos, qsin), _rotate(k, kcos, ksin)
-    out = attend(qr, kr, v, scale=scale, causal=causal, attention_mask=kmask)
-    return out, qr.reshape(b * h, s, d), kr.reshape(b * h, s, d)
+    out = _attend_scores(_scores(qr, kr, kmask, scale, causal), v)
+    return (out.to(q.dtype), qr.reshape(b * h, s_q, d),
+            kr.reshape(b * h, k.shape[2], d))
 
 
 def _flash_fwd_fake(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
-    b, h, s, d = q.shape
-    return (q.new_empty(q.shape), q.new_empty((b * h, s, d)),
-            q.new_empty((b * h, s, d)))
+    b, h, s_q, d = q.shape
+    return (q.new_empty(q.shape), q.new_empty((b * h, s_q, d)),
+            q.new_empty((b * h, k.shape[2], d)))
 
 
 def _flash_fwd_lse_cuda(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
                         causal):
-    """R1 + K3: (out (b, h, s, d), lse (b, h, s) fp32), inputs as
+    """R1 + K3: (out (b, h, s_q, d), lse (b, h, s_q) fp32), inputs as
     `_flash_fwd_cuda`'s."""
-    b, h, s, d = q.shape
-    q, k, v = _flat(b, h, s, d, q, k, v)
-    kmask, *tables = _contiguous(kmask, qcos, qsin, kcos, ksin)
+    b, h, s_q, d = q.shape
+    dk = kernel_head_dim(d)
+    q, k, v = _flat(dk, q, k, v)
+    kmask, *tables = _kernel_tables(dk, kmask, qcos, qsin, kcos, ksin)
     out, lse = flash_fwd_online(*rotate_qk(q, k, *tables), v, kmask,
                                 scale=scale, causal=causal, num_heads=h)
-    return out.reshape(b, h, s, d), lse.reshape(b, h, s)
+    return _unpad(d, out).reshape(b, h, s_q, d), lse.reshape(b, h, s_q)
 
 
 def _flash_fwd_lse_plain(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
@@ -563,8 +634,9 @@ def _flash_fwd_lse_plain(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
 
 def _flash_fwd_lse_fake(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
                         causal):
-    b, h, s, d = q.shape
-    return q.new_empty(q.shape), q.new_empty((b, h, s), dtype=torch.float32)
+    b, h, s_q, d = q.shape
+    return q.new_empty(q.shape), q.new_empty((b, h, s_q),
+                                             dtype=torch.float32)
 
 
 for _name, _cuda, _plain, _fake in (
@@ -581,22 +653,25 @@ flash_fwd_lse_op = torch.ops.meant_tpu_torch.flash_fwd_lse.default
 def _backward_online(q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
                      scale, causal):
     """R1 (q and k rotated once), then K4 and K5 on the card; their plain
-    versions on the CPU. (b, h, s, d) in and out; lse, delta (b, h, s)
-    fp32."""
+    versions on the CPU. q, do (b, h, s_q, d), k, v (b, h, s_k, d) in and
+    gradients of their shapes out; lse, delta (b, h, s_q) fp32."""
     if q.device.type == "cpu":
         return flash_mha_bwd_online_reference(
             q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
             scale=scale, causal=causal)
-    b, h, s, d = q.shape
-    q, k, v, do = _flat(b, h, s, d, q, k, v, do)
-    kmask, *tables = _contiguous(kmask, qcos, qsin, kcos, ksin)
+    b, h, s_q, d = q.shape
+    dk = kernel_head_dim(d)
+    q_shape, k_shape = q.shape, k.shape
+    q, k, v, do = _flat(dk, q, k, v, do)
+    kmask, *tables = _kernel_tables(dk, kmask, qcos, qsin, kcos, ksin)
     args = (*rotate_qk(q, k, *tables), v, do,
-            lse.reshape(b * h, s).contiguous(),
-            delta.reshape(b * h, s).contiguous(), kmask, *tables)
+            lse.reshape(b * h, s_q).contiguous(),
+            delta.reshape(b * h, s_q).contiguous(), kmask, *tables)
     kw = dict(scale=scale, causal=causal, num_heads=h)
     (dq,) = flash_bwd_dq(*args, **kw)
-    dk, dv = flash_bwd_dkdv(*args, **kw)
-    return tuple(g.reshape(b, h, s, d) for g in (dq, dk, dv))
+    dk_, dv = flash_bwd_dkdv(*args, **kw)
+    return (_unpad(d, dq).reshape(q_shape), _unpad(d, dk_).reshape(k_shape),
+            _unpad(d, dv).reshape(k_shape))
 
 
 class _FlashAttentionOnline(torch.autograd.Function):
@@ -654,12 +729,18 @@ class _FlashAttention(torch.autograd.Function):
             grads = flash_mha_bwd_reference(a, b_, v, do, kmask, qcos, qsin,
                                             kcos, ksin, **kw)
         else:                           # a, b_ are R1's Qr and Kr
-            b, h, s, d = do.shape
-            v, do = _flat(b, h, s, d, v, do)
-            grads = flash_bwd(a, b_, v, do,
-                              *_contiguous(kmask, qcos, qsin, kcos, ksin),
+            b, h, s_q, d = do.shape
+            dk = kernel_head_dim(d)
+            shapes = (do.shape, v.shape, v.shape)
+            v, do = _flat(dk, v, do)
+            qr, kr = (torch.nn.functional.pad(t, (0, dk - d)) if dk > d
+                      else t for t in (a, b_))
+            grads = flash_bwd(qr, kr, v, do,
+                              *_kernel_tables(dk, kmask, qcos, qsin, kcos,
+                                              ksin),
                               num_heads=h, **kw)
-            grads = [g.reshape(b, h, s, d) for g in grads]
+            grads = [_unpad(d, g).reshape(shape)
+                     for g, shape in zip(grads, shapes)]
         return (*grads, None, None, None, None, None, None, None)
 
 
@@ -667,32 +748,35 @@ def flash_mha(q, k, v, *, scale: float, causal: bool = False,
               attention_mask: Optional[torch.Tensor] = None,
               qcos=None, qsin=None, kcos=None, ksin=None,
               force_online: Optional[bool] = None, return_lse: bool = False):
-    """Fused rotary + attention. q/k/v: (b, h, s, d) with one length s; the
-    four tables are (s, d) fp32 (identity rotation when None);
-    attention_mask: (b | 1, s) of {0, 1}. `uses_online(s, d, force_online,
-    return_lse)` picks the path as the JAX package picks it: resident (R1 +
-    K1 forward, K2 backward on the forward's Qr and Kr) or streaming (R1 +
-    K3 forward, R1 + K4 + K5 backward). When
-    autograd needs gradients of q, k or v the call goes through the path's
-    autograd Function; otherwise (inference) it is the bare forward. With
-    return_lse, returns (out, lse (b, h, s, 1) fp32), and gradients flow
-    through both."""
-    b, h, s, d = q.shape
-    if k.shape[2] != s or v.shape[2] != s:
-        raise ValueError("flash_mha takes one sequence length for q, k, v")
+    """Fused rotary + attention. q: (b, h, s_q, d), k/v: (b, h, s_k, d);
+    the tables are (s_q, d) (qcos, qsin) and (s_k, d) (kcos, ksin) fp32
+    (identity rotation when None); attention_mask: (b | 1, s_k) of {0, 1};
+    causal keeps col <= row, both counted from 0, as the JAX package does.
+    On the card d is any even head dim up to 128 (`kernel_head_dim`).
+    `uses_online(s_k, d, force_online, return_lse)` picks the path as the
+    JAX package picks it: resident (R1 + K1 forward, K2 backward on the
+    forward's Qr and Kr) or streaming (R1 + K3 forward, R1 + K4 + K5
+    backward). When autograd needs gradients of q, k or v the call goes
+    through the path's autograd Function; otherwise (inference) it is the
+    bare forward. With return_lse, returns (out, lse (b, h, s_q, 1) fp32),
+    and gradients flow through both."""
+    b, h, s_q, d = q.shape
+    s_k = k.shape[2]
+    if v.shape[2] != s_k:
+        raise ValueError("flash_mha takes k and v of one sequence length")
     if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"flash_mha runs on CUDA or CPU, not {q.device}")
     if qcos is None:
-        qcos, qsin = identity_tables(s, d, q.device)
+        qcos, qsin = identity_tables(s_q, d, q.device)
     if kcos is None:
-        kcos, ksin = identity_tables(s, d, q.device)
+        kcos, ksin = identity_tables(s_k, d, q.device)
     kmask = None
     if attention_mask is not None:
         kmask = attention_mask.to(torch.float32)
     args = (q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal)
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v))
-    if not uses_online(s, d, force_online, return_lse):
+    if not uses_online(s_k, d, force_online, return_lse):
         return (_FlashAttention.apply(*args) if grad
                 else flash_fwd_op(*args)[0])
     out, lse = (_FlashAttentionOnline.apply(*args) if grad

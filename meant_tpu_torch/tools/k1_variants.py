@@ -50,18 +50,18 @@ _ONE_PASS = """  if constexpr (kStats) {  // one pass: every S tile in registers
         mbar_wait(&sm.full[i], 0);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kHeadDim / 16; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           wgmma_m64n64k16_ss(sa[i], kmajor_desc(sm.q[wg], kk),
                              kmajor_desc(sm.k[i], kk), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sa[i]);
-        if (edge_tile(causal, i, qt, i * kBlockK, seq))
+        if (edge_tile(causal, i, qt, i * kBlockK, seq_k))
           stats_tile<true, false>(sa[i], sa[i], m, l, unused, row,
-                                  i * kBlockK, t, seq, causal, km, scale);
+                                  i * kBlockK, t, seq_k, causal, km, scale);
         else
           stats_tile<false, false>(sa[i], sa[i], m, l, unused, row,
-                                   i * kBlockK, t, seq, causal, km, scale);
+                                   i * kBlockK, t, seq_k, causal, km, scale);
       }
     }
 #pragma unroll
@@ -90,8 +90,8 @@ _ONE_PASS = """  if constexpr (kStats) {  // one pass: every S tile in registers
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBlockK / 16; ++kk)
-          wgmma_m64n96k16_rs<kMNMajor>(o_acc, pa[kk],
-                                       mnmajor_desc(sm.v[i], kk));
+          wgmma_m64nNk16_rs<D, kMNMajor>(o_acc, pa[kk],
+                                         mnmajor_desc(sm.v[i], kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o_acc);
@@ -107,7 +107,7 @@ K1_VARIANTS = {
     "two_groups": [_TWO_GROUPS],
     "two_groups_three_stages": [_TWO_GROUPS, _THREE_STAGES],
     "masked_everywhere": [
-        (FWD, "return (causal && it == qt) || k0 + kBlockK > seq;",
+        (FWD, "return (causal && it == qt) || k0 + kBlockK > seq_k;",
          "return true;")],
     "division": [   # row_il then holds l itself
         (FWD, "row_il[h] = lt > 0.f ? 1.0f / lt : 0.f;",

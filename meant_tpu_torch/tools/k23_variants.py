@@ -47,7 +47,7 @@ K3_VARIANTS = {
     "three_stages": [_THREE_STAGES],
     "two_groups_three_stages": [_TWO_GROUPS, _THREE_STAGES],
     "masked_everywhere": [
-        (FWD, "return (causal && it == qt) || k0 + kBlockK > seq;",
+        (FWD, "return (causal && it == qt) || k0 + kBlockK > seq_k;",
          "return true;")],
     "no_exp": [
         (FWD, "p[e] = (kEdge && x == -INFINITY) ? 0.f : expf(x - m_use[h]);",

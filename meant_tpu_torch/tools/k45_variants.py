@@ -31,10 +31,10 @@ SOURCE = "flash_bwd_wgmma.cuh"
 BWD_VARIANTS = {
     "shipped": [],
     "masked_everywhere": [
-        (SOURCE, "return (causal && tile == qt) || k0 + kTile > seq;",
+        (SOURCE, "return (causal && tile == qt) || k0 + kTile > seq_k;",
          "return true;"),
         (SOURCE,
-         "if ((causal && it == 0) || q0 + kTile > seq || k0 + kTile > seq)",
+         "if ((causal && it == 0) || q0 + kTile > seq_q || k0 + kTile > seq_k)",
          "if (true)")],
     "no_exp": [
         ("flash_common.cuh", "const float e = expf(__fsub_rn(sc, m));",

@@ -25,7 +25,10 @@ output.
 Dropout draws from the default generator of the model's device, seeded
 from `seed` when the trainer builds its optimizer; torch cannot give the
 bits JAX's dropout draws, so runs agree with the JAX trainer only with
-dropout off. Data-parallel meshes, FSDP, gradient accumulation and the
+dropout off. `mu_dtype` (a bf16 first moment) and `accumulation_steps`
+(optax.MultiSteps: the running mean of k micro-steps' gradients, one
+update every k-th, leftovers carried into the next epoch) ride on the
+optimizer (`train/optim.py`). Data-parallel meshes, FSDP and the
 confusion-matrix plot are not ported yet (see ROADMAP).
 """
 
@@ -85,7 +88,7 @@ def model_inputs(model_name: str, batch: Dict[str, Any]) -> tuple:
         return (batch["tweets"], price), {}
     raise NotImplementedError(
         f"model {model_name} is not yet ported to meant_tpu_torch "
-        f"(ROADMAP §1 item 7: the HF baselines)")
+        f"(ROADMAP §1 item 2: the HF baselines)")
 
 
 def row_outputs(model_name: str, out: torch.Tensor) -> torch.Tensor:
@@ -122,16 +125,14 @@ class meant_trainer:
     model_name, dataset, train_loader, val_loader, test_loader, epochs,
     num_classes, lag, file_path, run_id, num_encoders, optimizer / lr /
     decay / beta_1 / beta_2 / lr_scheduler (or lrst) / t0 / tmax,
-    early_stopping, test_model, seed, init_params (a state_dict)."""
+    early_stopping, test_model, seed, init_params (a state_dict), mu_dtype
+    (None or torch.bfloat16), accumulation_steps."""
 
     def __init__(self, p: Dict[str, Any]):
         for key in ("mesh", "fsdp"):
             if p.get(key):
                 raise NotImplementedError(f"{key} is not yet ported to "
                                           f"meant_tpu_torch (see ROADMAP)")
-        if p.get("accumulation_steps", 1) > 1:
-            raise NotImplementedError("accumulation_steps > 1 is not yet "
-                                      "ported (see ROADMAP)")
         self.model = p["model"]
         self.model_name = p["model_name"]
         self.dataset = p.get("dataset", "Tempstock")
@@ -156,7 +157,8 @@ class meant_trainer:
             lr_scheduler=p.get("lrst", p.get("lr_scheduler", "cosine_warm")),
             t0=p.get("t0", 7), tmax=p.get("tmax", 10),
             steps_per_epoch=max(len(self.train_loader), 1),
-            mu_dtype=p.get("mu_dtype"))
+            mu_dtype=p.get("mu_dtype"),
+            accumulation_steps=p.get("accumulation_steps", 1))
         self.optimizer = None
         self.history = []
 
@@ -176,8 +178,9 @@ class meant_trainer:
 
     # ---- steps -----------------------------------------------------------
     def train_step(self, batch: Dict[str, torch.Tensor]) -> tuple:
-        """One optimizer step on a device batch; returns the loss and the
-        confusion delta as device tensors (no host sync)."""
+        """One optimizer step (a micro-step under accumulation) on a device
+        batch; returns the loss and the confusion delta as device tensors
+        (no host sync)."""
         if self.optimizer is None:
             self._init_state()
         self.model.train()

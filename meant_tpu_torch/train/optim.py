@@ -15,6 +15,19 @@ Reference wiring kept from the JAX package:
 The JAX package stores the rotary `freqs` tables as params and masks them
 out of the update; in the port they are buffers, not parameters, so the
 optimizer never sees them and the mask is implicit.
+
+Two options of the JAX trainer ride on `FlatAdam`:
+  * `mu_dtype=torch.bfloat16` (--mu_bf16, optax's `mu_dtype`): the first
+    moment is stored in bf16; A1's bf16-m variant reads and widens it,
+    updates in fp32 and stores it rounded to nearest even (ops/adamw.py);
+  * `accumulation_steps=k` (the trainer's `optax.MultiSteps(tx, k)`): each
+    micro-step folds its gradient into the running mean acc + (g - acc) /
+    (n + 1) (optax's use_grad_mean); on the k-th, clip and A1 run once on
+    that mean and the mean goes back to zero. The parameters hold in
+    between and A1 does not launch. The schedule reads the count of
+    applied updates. The mean is one more fp32 flat buffer (0.71 GB at the
+    flagship's 177.6M parameters), updated in plain PyTorch as JAX updates
+    it in XLA.
 """
 
 from __future__ import annotations
@@ -25,7 +38,7 @@ from typing import Callable, Iterable, Optional
 import torch
 from torch import nn
 
-from meant_tpu_torch.ops.adamw import adamw_update
+from meant_tpu_torch.ops.adamw import MU_DTYPE, adamw_update
 
 
 def epoch_schedule(kind: str, base_lr: float, t0: int = 7, tmax: int = 10,
@@ -62,18 +75,22 @@ class FlatAdam:
     with one launch of the update kernel per step.
 
     The parameters must be fp32 and on one device. Their values, their
-    gradients and the two moments live in four flat fp32 buffers; each
-    parameter's `.data` and `.grad` become views into the first two, so
-    autograd accumulates straight into the flat gradient (`zero_grad`
-    zeroes it in place and keeps the views; do not set the gradients to
-    None). The global norm is a device scalar, so a step has no host sync.
+    gradients and the two moments live in four flat buffers (fp32, the
+    first moment in `mu_dtype`); each parameter's `.data` and `.grad`
+    become views into the first two, so autograd accumulates straight into
+    the flat gradient (`zero_grad` zeroes it in place and keeps the views;
+    do not set the gradients to None). The global norm is a device scalar,
+    so a step has no host sync. With `accumulation_steps` k > 1, `step`
+    applies an update on every k-th call only (see the module's notes).
     """
 
     def __init__(self, params: Iterable[nn.Parameter],
                  schedule: Callable[[int], float], *, coupled: bool,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 0.0,
-                 clip_norm: Optional[float] = 1.0):
+                 clip_norm: Optional[float] = 1.0,
+                 mu_dtype: Optional[torch.dtype] = None,
+                 accumulation_steps: int = 1):
         self.params = [p for p in params if p.requires_grad]
         if not self.params:
             raise ValueError("no trainable parameters")
@@ -82,15 +99,26 @@ class FlatAdam:
             if p.dtype != torch.float32 or p.device != device:
                 raise ValueError(f"FlatAdam takes fp32 parameters on one "
                                  f"device, got {p.dtype} on {p.device}")
+        if mu_dtype not in (None, torch.float32, MU_DTYPE):
+            raise ValueError(f"mu_dtype must be None, fp32 or {MU_DTYPE}, "
+                             f"got {mu_dtype}")
+        if accumulation_steps < 1:
+            raise ValueError(f"accumulation_steps must be >= 1, got "
+                             f"{accumulation_steps}")
         self.schedule, self.coupled = schedule, coupled
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.clip_norm = weight_decay, clip_norm
+        self.accumulation_steps = accumulation_steps
         n = sum(p.numel() for p in self.params)
         self.flat_p = torch.empty(n, dtype=torch.float32, device=device)
         self.flat_g = torch.zeros_like(self.flat_p)
-        self.m = torch.zeros_like(self.flat_p)
+        self.m = torch.zeros_like(self.flat_p, dtype=mu_dtype)
         self.v = torch.zeros_like(self.flat_p)
-        self.step_count = 0
+        self.step_count = 0     # applied updates
+        # the running mean of the micro-steps' gradients and their count
+        self.acc = (torch.zeros_like(self.flat_p) if accumulation_steps > 1
+                    else None)
+        self.mini_step = 0
         offset = 0
         with torch.no_grad():
             for p in self.params:
@@ -103,25 +131,48 @@ class FlatAdam:
     def zero_grad(self) -> None:
         self.flat_g.zero_()
 
-    def step(self) -> None:
+    def step(self) -> bool:
+        """One micro-step; returns whether it applied an update (always,
+        without accumulation)."""
+        g = self.flat_g
+        if self.acc is not None:
+            self.acc.add_((g - self.acc) / (self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < self.accumulation_steps:
+                return False
+            self.mini_step = 0
+            g = self.acc
         norm = None
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(self.flat_g)
+            norm = torch.linalg.vector_norm(g)
         self.step_count += 1
-        adamw_update(self.flat_p, self.flat_g, self.m, self.v,
+        adamw_update(self.flat_p, g, self.m, self.v,
                      lr=self.schedule(self.step_count - 1), b1=self.b1,
                      b2=self.b2, eps=self.eps,
                      weight_decay=self.weight_decay, step=self.step_count,
                      coupled=self.coupled, norm=norm,
                      max_norm=self.clip_norm or 0.0)
+        if self.acc is not None:
+            self.acc.zero_()
+        return True
 
     def state_dict(self) -> dict:
-        return {"m": self.m, "v": self.v, "step": self.step_count}
+        state = {"m": self.m, "v": self.v, "step": self.step_count}
+        if self.acc is not None:
+            state.update(acc=self.acc, mini_step=self.mini_step)
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         self.m.copy_(state["m"])
         self.v.copy_(state["v"])
         self.step_count = int(state["step"])
+        if self.acc is not None:
+            if "acc" in state:
+                self.acc.copy_(state["acc"])
+                self.mini_step = int(state["mini_step"])
+            else:
+                self.acc.zero_()
+                self.mini_step = 0
 
 
 def build_optimizer(params: Iterable[nn.Parameter], optimizer: str = "AdamW",
@@ -131,16 +182,17 @@ def build_optimizer(params: Iterable[nn.Parameter], optimizer: str = "AdamW",
                     tmax: int = 10, steps_per_epoch: int = 1,
                     warmup_steps: int = 0, total_steps: int = 0,
                     clip_norm: Optional[float] = 1.0,
-                    mu_dtype=None) -> FlatAdam:
+                    mu_dtype: Optional[torch.dtype] = None,
+                    accumulation_steps: int = 1) -> FlatAdam:
     """The trainer's optimizer, as the JAX package's build_optimizer builds
-    it (clip, then AdamW or Adam, on an epoch schedule). A bf16 first moment
-    (`mu_dtype`) is not ported yet."""
-    if mu_dtype is not None:
-        raise NotImplementedError("mu_dtype (a bf16 first moment) is not "
-                                  "ported yet (see ROADMAP)")
+    it (clip, then AdamW or Adam, on an epoch schedule), with the first
+    moment stored in `mu_dtype` (None or fp32, or torch.bfloat16 for
+    optax's mu_dtype=jnp.bfloat16) and, for accumulation_steps > 1, the
+    trainer's optax.MultiSteps wrapper."""
     if optimizer not in ("AdamW", "Adam"):
         raise ValueError("This type of optimizer is not supported.")
     sched = epoch_schedule(lr_scheduler, learning_rate, t0, tmax,
                            steps_per_epoch, warmup_steps, total_steps)
     return FlatAdam(params, sched, coupled=optimizer == "Adam", b1=beta_1,
-                    b2=beta_2, weight_decay=decay, clip_norm=clip_norm)
+                    b2=beta_2, weight_decay=decay, clip_norm=clip_norm,
+                    mu_dtype=mu_dtype, accumulation_steps=accumulation_steps)

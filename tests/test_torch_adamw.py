@@ -9,6 +9,13 @@ JAX package.
   per-epoch schedule that changes every step here) over 4 steps, with the
   gradient's global norm above and below 1.0.
 * `epoch_schedule` against the JAX schedule, every kind.
+* `build_optimizer(mu_dtype=torch.bfloat16)` against the JAX one with
+  `mu_dtype=jnp.bfloat16` (jitted, as the trainer runs it) over 7 steps:
+  p at the bar below, the bf16 first moment within one bf16 ulp.
+* `build_optimizer(accumulation_steps=k)` against `optax.MultiSteps` of
+  the JAX one at k = 2 and 3 over 7 micro-steps (the leftover included):
+  p at the bar below after every micro-step, and the applied-update count
+  the schedule reads equal.
 
 Bar: 1e-6 relative, plus an absolute 1e-9 for entries that land near 0,
 where the two sides' different order of the last multiply-subtract (A1
@@ -145,8 +152,11 @@ def test_optimizer_keeps_params_and_grads_as_views_of_flat_buffers():
     assert torch.equal(w.detach().reshape(-1), opt.flat_p)
     opt.zero_grad()
     assert w.grad is not None and float(w.grad.abs().sum()) == 0.0
-    with pytest.raises(NotImplementedError):
-        build_optimizer([w], mu_dtype=torch.bfloat16)
+    bf16 = build_optimizer([w], mu_dtype=torch.bfloat16)
+    assert bf16.m.dtype == torch.bfloat16 and bf16.v.dtype == torch.float32
+    assert bf16.m.numel() == 6 and bf16.state_dict()["m"] is bf16.m
+    with pytest.raises(ValueError):
+        build_optimizer([w], mu_dtype=torch.float16)
     with pytest.raises(ValueError):
         build_optimizer([torch.nn.Parameter(
             torch.ones(2, dtype=torch.float64))])
@@ -165,3 +175,107 @@ def test_epoch_schedule_matches_jax(kind):
                                    err_msg=f"step {step}")
     with pytest.raises(ValueError):
         epoch_schedule("exponential", 1e-3)
+
+
+def _optax_state_get(state, name):
+    """The one leaf `name` (mu, count) of an optax state tree."""
+    return optax.tree_utils.tree_get(state, name)
+
+
+def _shapes_params(seed):
+    rng = np.random.RandomState(seed)
+    shapes = {"w": (5, 7), "b": (13,), "s": (3, 2, 4)}
+    return rng, shapes, {k: rng.randn(*s).astype(np.float32)
+                         for k, s in shapes.items()}
+
+
+def _scaled_grads(rng, shapes, norm):
+    grads = {k: rng.randn(*s).astype(np.float32) for k, s in shapes.items()}
+    total = np.sqrt(sum((g.astype(np.float64) ** 2).sum()
+                        for g in grads.values()))
+    return {k: (g * norm / total).astype(np.float32)
+            for k, g in grads.items()}
+
+
+@pytest.mark.parametrize("optimizer,decay", [("AdamW", 0.01), ("Adam", 0.0)])
+def test_bf16_first_moment_matches_optax_mu_dtype(optimizer, decay):
+    rng, shapes, params = _shapes_params(4)
+    kw = dict(optimizer=optimizer, learning_rate=1e-3, decay=decay,
+              beta_1=0.9, beta_2=0.99, lr_scheduler="cosine_warm", t0=3,
+              tmax=4, steps_per_epoch=2)
+    tx = j_build_optimizer(params, mu_dtype=jnp.bfloat16, **kw)
+    update = jax.jit(tx.update)
+    j_params = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(j_params)
+    t_params = {k: torch.nn.Parameter(torch.tensor(v))
+                for k, v in params.items()}
+    opt = build_optimizer(list(t_params.values()), mu_dtype=torch.bfloat16,
+                          **kw)
+    for step, norm in enumerate((3.0, 0.5, 2.0, 0.2, 1.5, 0.7, 4.0)):
+        grads = _scaled_grads(rng, shapes, norm)
+        updates, state = update({k: jnp.asarray(v) for k, v in
+                                 grads.items()}, state, j_params)
+        j_params = optax.apply_updates(j_params, updates)
+        opt.zero_grad()
+        for k, p in t_params.items():
+            p.grad.add_(torch.tensor(grads[k]))
+        opt.step()
+        mu = _optax_state_get(state, "mu")
+        offset = 0
+        for k, p in t_params.items():
+            np.testing.assert_allclose(
+                p.detach().numpy(), np.asarray(j_params[k]), rtol=RTOL,
+                atol=ATOL, err_msg=f"{k} after step {step + 1}")
+            n = p.numel()
+            got = opt.m[offset:offset + n].float().numpy()
+            want = np.asarray(mu[k].astype(jnp.float32)).reshape(-1)
+            offset += n
+            ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want),
+                                                      1e-38))) - 7)
+            assert mu[k].dtype == jnp.bfloat16
+            assert (np.abs(got - want) <= ulp).all(), (k, step)
+    assert opt.m.dtype == torch.bfloat16 and opt.step_count == 7
+
+
+@pytest.mark.parametrize("k_steps", [2, 3])
+def test_accumulation_matches_optax_multisteps(k_steps):
+    rng, shapes, params = _shapes_params(5)
+    kw = dict(optimizer="AdamW", learning_rate=1e-3, decay=0.01,
+              beta_1=0.9, beta_2=0.99, lr_scheduler="cosine_warm", t0=3,
+              tmax=4, steps_per_epoch=2)
+    tx = optax.MultiSteps(j_build_optimizer(params, **kw), k_steps)
+    update = jax.jit(tx.update)
+    j_params = {k: jnp.asarray(v) for k, v in params.items()}
+    state = tx.init(j_params)
+    t_params = {k: torch.nn.Parameter(torch.tensor(v))
+                for k, v in params.items()}
+    opt = build_optimizer(list(t_params.values()),
+                          accumulation_steps=k_steps, **kw)
+    before = {k: p.detach().clone() for k, p in t_params.items()}
+    for micro, norm in enumerate((3.0, 0.5, 2.0, 0.2, 1.5, 0.7, 4.0)):
+        grads = _scaled_grads(rng, shapes, norm)
+        updates, state = update({k: jnp.asarray(v) for k, v in
+                                 grads.items()}, state, j_params)
+        j_params = optax.apply_updates(j_params, updates)
+        opt.zero_grad()
+        for k, p in t_params.items():
+            p.grad.add_(torch.tensor(grads[k]))
+        applied = opt.step()
+        assert applied == ((micro + 1) % k_steps == 0)
+        assert opt.step_count == int(state.gradient_step)
+        assert opt.mini_step == int(state.mini_step)
+        counts = optax.tree_utils.tree_get_all_with_path(
+            state.inner_opt_state, "count")
+        assert counts and all(int(c) == opt.step_count for _, c in counts)
+        for k, p in t_params.items():
+            np.testing.assert_allclose(
+                p.detach().numpy(), np.asarray(j_params[k]), rtol=RTOL,
+                atol=ATOL, err_msg=f"{k} after micro-step {micro + 1}")
+            if not applied:
+                assert torch.equal(p.detach(), before[k])
+            before[k] = p.detach().clone()
+    # 7 micro-steps leave a leftover accumulation behind
+    assert opt.mini_step == 7 % k_steps and opt.step_count == 7 // k_steps
+    state_dict = opt.state_dict()
+    assert state_dict["mini_step"] == opt.mini_step
+    assert state_dict["acc"].abs().sum() > 0

@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain versions, on the card: the flash
 forward (K1), the flash backward (K2), the streaming flash forward (K3), the
 rotation pass (R1) in front of K1, K3 and the streaming dQ (K4) and dK/dV
-(K5) backward, and the fused AdamW (A1); and a narrow paper-generation
-`meant` through them. These tests need an NVIDIA card and nvcc; elsewhere
-they skip. On the card:
+(K5) backward, and the fused AdamW (A1), its bf16-m variant included; at
+head dims 64 and 128 and 48 (padded), with more keys than queries (the
+TimeSformer's groups), and a narrow paper-generation `meant` and
+meant_src trainer (accumulation, a bf16 first moment) through them.
+These tests need an NVIDIA card and nvcc; elsewhere they skip. On the
+card:
 
     pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -242,7 +245,7 @@ ONLINE_LENGTHS = [1, 63, 65, 127, 128, 129, 191, 192, 193, 196, 4033, 4095,
 FP64_LENGTHS = (4033, 4095)
 
 
-def _assert_out_close(out, ref, dtype):
+def _assert_out_close(out, ref, dtype, bar=BF16_REL_L2):
     assert out.shape == ref.shape and out.dtype == ref.dtype
     assert torch.isfinite(out).all()
     if dtype == torch.float32:
@@ -251,7 +254,7 @@ def _assert_out_close(out, ref, dtype):
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                    atol=2e-2)
         rel = (out.float() - ref.float()).norm() / ref.float().norm()
-        assert rel <= BF16_REL_L2
+        assert rel <= bar
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -688,16 +691,232 @@ def test_rot30_s50_kernels_match_plain(cuda, dtype, masked):
 
 
 @pytest.mark.parametrize("keys", [256, 257, 400])
-def test_timesformer_flash_group_raises_on_the_card(cuda, keys):
-    """A TimeSformer group of 256 keys or more with flash=True has no
-    kernel (head dim 64, one more key than queries): it raises on a CUDA
-    tensor and never falls back to the plain version; 255 keys run the
-    plain attention, as in JAX."""
+def test_timesformer_flash_group_runs_on_the_card(cuda, keys):
+    """A TimeSformer group of 256 keys or more with flash=True runs R1 + K1
+    forward and K2 backward (keys - 1 queries, keys keys at head dim 64),
+    with the output and the gradients of x and of every parameter of the
+    same weights at flash=False (fp32: rtol 1e-4 / atol 1e-5 on the
+    output, 1e-4 relative L2 per gradient); 255 keys run the plain
+    attention, as in JAX."""
     from meant_tpu_torch.nn.timesformer import TSAttention
+    gen = torch.Generator(device=cuda).manual_seed(keys)
     attn = TSAttention(64, dim_head=64, heads=2, flash=True, device=cuda)
-    x = torch.randn((1, keys, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        attn(x, group_size=keys - 1, num_groups=1, group_axis_first=True)
+    plain = TSAttention(64, dim_head=64, heads=2, flash=False, device=cuda)
+    plain.load_state_dict(attn.state_dict())
+    x = torch.randn((1, keys, 64), generator=gen, device=cuda)
+    dout = torch.randn((1, keys, 64), generator=gen, device=cuda)
+    call = dict(group_size=keys - 1, num_groups=1, group_axis_first=True)
+    results = []
+    for module in (attn, plain):
+        xx = x.clone().requires_grad_(True)
+        before = (rotate_qk.launches, flash_fwd.launches, flash_bwd.launches)
+        out = module(xx, **call)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        after = (rotate_qk.launches, flash_fwd.launches, flash_bwd.launches)
+        want = (1, 1, 1) if module is attn else (0, 0, 0)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+        results.append([out.detach(), xx.grad] + [
+            p.grad for p in module.parameters()])
+    torch.testing.assert_close(results[0][0], results[1][0], rtol=1e-4,
+                               atol=1e-5)
+    for a, b in zip(results[0][1:], results[1][1:]):
+        assert (a - b).norm() <= 1e-4 * b.norm()
     short = torch.randn((1, 255, 64), device=cuda)
+    before = flash_fwd.launches
     assert torch.isfinite(attn(short, group_size=254, num_groups=1,
                                group_axis_first=True)).all()
+    assert flash_fwd.launches == before
+
+
+# ---- head dims other than 96, and more keys than queries -------------------
+
+def _shape_case(cuda, dtype, d, s_q, s_k, case, gen):
+    """q (3, 2, s_q, d), k, v (3, 2, s_k, d), dO, the tables of each length
+    (identity for "plain"), the (3, s_k) mask of "masked" or None, causal."""
+    q, do = (torch.randn(3, 2, s_q, d, generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(3, 2, s_k, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    causal = case in ("xpos_causal", "masked")
+    if case == "plain":
+        qt = (torch.ones(s_q, d, device=cuda), torch.zeros(s_q, d,
+                                                           device=cuda))
+        kt = (torch.ones(s_k, d, device=cuda), torch.zeros(s_k, d,
+                                                           device=cuda))
+        tables = (*qt, *kt)
+    else:
+        freqs = (pixel_freqs(d // 2, device=cuda) if case == "pixel"
+                 else lang_freqs(d // 2, device=cuda))
+        xpos = case != "pixel"
+        tables = (*_tables(s_q, d, freqs, xpos, 512.0)[:2],
+                  *_tables(s_k, d, freqs, xpos, 512.0)[2:])
+    mask = None
+    if case == "masked":
+        mask = (torch.rand(3, s_k, generator=gen, device=cuda) > 0.3).float()
+        mask[:, 0] = 1.0
+    return q, k, v, do, tables, mask, causal
+
+
+def _autograd_path(q, k, v, do, tables, mask, causal, **kw):
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_mha(*leaves, scale=0.1, causal=causal, attention_mask=mask,
+                    qcos=tables[0], qsin=tables[1], kcos=tables[2],
+                    ksin=tables[3], **kw)
+    out = out[0] if isinstance(out, tuple) else out
+    out.backward(do)
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["xpos_causal", "pixel", "masked"])
+@pytest.mark.parametrize("s", [65, 196])
+@pytest.mark.parametrize("d", [48, 64, 128])
+def test_head_dims_match_plain(cuda, dtype, case, s, d):
+    """flash_mha at head dims 64 and 128 (the kernels' own) and 48 (padded
+    to 64 by the wrapper): R1 + K1 forward and K2 backward, once each,
+    against flash_mha_reference and flash_mha_bwd_reference at the bars
+    above."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + s)
+    q, k, v, do, tables, mask, causal = _shape_case(cuda, dtype, d, s, s,
+                                                    case, gen)
+    before = (rotate_qk.launches, flash_fwd.launches, flash_bwd.launches)
+    out, grads = _autograd_path(q, k, v, do, tables, mask, causal)
+    torch.cuda.synchronize()
+    assert (rotate_qk.launches, flash_fwd.launches, flash_bwd.launches) == \
+        tuple(b + 1 for b in before)
+    ref = flash_mha_reference(q, k, v, mask, *tables, scale=0.1,
+                              causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+        rel = (out.float() - ref.float()).norm() / ref.float().norm()
+        assert rel <= K1_BF16_REL_L2, f"rel L2 {rel}"
+    want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
+                                   causal=causal)
+    _assert_grads_close(grads, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["plain", "xpos_causal", "masked"])
+@pytest.mark.parametrize("lengths", [(256, 257), (399, 400), (130, 70),
+                                     (70, 200), (1, 65)])
+def test_separate_lengths_match_plain(cuda, dtype, case, lengths):
+    """s_q queries against s_k keys at d = 64 (causal keeps col <= row,
+    both from 0): R1 + K1 and K2 against the plain versions."""
+    s_q, s_k = lengths
+    gen = torch.Generator(device=cuda).manual_seed(s_q * 1000 + s_k)
+    q, k, v, do, tables, mask, causal = _shape_case(cuda, dtype, 64, s_q,
+                                                    s_k, case, gen)
+    before = flash_bwd.launches
+    out, grads = _autograd_path(q, k, v, do, tables, mask, causal)
+    torch.cuda.synchronize()
+    assert flash_bwd.launches == before + 1
+    ref = flash_mha_reference(q, k, v, mask, *tables, scale=0.1,
+                              causal=causal)
+    _assert_out_close(out, ref, dtype, K1_BF16_REL_L2)
+    want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
+                                   causal=causal)
+    _assert_grads_close(grads, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [(65, 65), (196, 196), (4096, 4096),
+                                     (256, 257)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_online_kernels_at_head_dims_and_lengths(cuda, dtype, lengths, d):
+    """R1 + K3, K4 and K5 at head dims 64 and 128 and with s_q != s_k:
+    out and lse at K3's bars; the gradients, from the plain forward's lse
+    and a delta with a non-zero lse cotangent, at K2's."""
+    s_q, s_k = lengths
+    gen = torch.Generator(device=cuda).manual_seed(d + s_q + s_k)
+    q, k, v, do, tables, mask, causal = _shape_case(
+        cuda, dtype, d, s_q, s_k, "xpos_causal" if s_q == s_k else "plain",
+        gen)
+    b, h = q.shape[:2]
+    flat = [t.reshape(b * h, *t.shape[2:]).contiguous()
+            for t in (q, k, v, do)]
+    qr, kr = rotate_qk(flat[0], flat[1], *tables)
+    before = (flash_fwd_online.launches, flash_bwd_dq.launches,
+              flash_bwd_dkdv.launches)
+    out, lse = flash_fwd_online(qr, kr, flat[2], mask, scale=0.1,
+                                causal=causal, num_heads=h)
+    ref, ref_lse = flash_mha_online_reference(q, k, v, mask, *tables,
+                                              scale=0.1, causal=causal)
+    _assert_out_close(out.reshape(q.shape), ref, dtype)
+    assert (lse.reshape(b, h, s_q) - ref_lse).abs().max() <= LSE_ATOL
+    g_lse = torch.randn(b, h, s_q, generator=gen, device=cuda)
+    delta = (do.float() * ref.float()).sum(-1) - g_lse
+    args = (qr, kr, flat[2], flat[3], ref_lse.reshape(b * h, s_q),
+            delta.reshape(b * h, s_q), mask, *tables)
+    (dq,) = flash_bwd_dq(*args, scale=0.1, causal=causal, num_heads=h)
+    dk, dv = flash_bwd_dkdv(*args, scale=0.1, causal=causal, num_heads=h)
+    torch.cuda.synchronize()
+    assert (flash_fwd_online.launches, flash_bwd_dq.launches,
+            flash_bwd_dkdv.launches) == tuple(n + 1 for n in before)
+    want = flash_mha_bwd_online_reference(q, k, v, do, ref_lse, delta, mask,
+                                          *tables, scale=0.1, causal=causal)
+    _assert_grads_close([dq.reshape(q.shape), dk.reshape(k.shape),
+                         dv.reshape(v.shape)], want, dtype)
+
+
+@pytest.mark.parametrize("d", [0, 7, 130])
+def test_flash_mha_refuses_odd_and_wide_head_dims_on_the_card(cuda, d):
+    q = torch.zeros(1, 1, 8, max(d, 1), device=cuda)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        flash_mha(q, q, q, scale=1.0)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 1027, 1 << 20])
+def test_adamw_kernel_with_a_bf16_first_moment_matches_plain(cuda, n):
+    """A1's bf16-m variant against its plain version on the CPU: p and v
+    within 1e-6 relative, m bit for bit (both round the same fp32 m' to
+    nearest even)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 7)
+    p = torch.randn(n, generator=gen, device=cuda)
+    g = torch.randn(n, generator=gen, device=cuda) * 0.5
+    m = (torch.randn(n, generator=gen, device=cuda) * 0.1).to(torch.bfloat16)
+    v = torch.rand(n, generator=gen, device=cuda) * 0.1
+    norm = torch.linalg.vector_norm(g)
+    kw = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+              step=3, max_norm=1.0)
+    ref = [t.cpu() for t in (p, m, v)]
+    adamw_update(ref[0], g.cpu(), ref[1], ref[2], norm=norm.cpu(), **kw)
+    before = fused_adamw.launches
+    adamw_update(p, g, m, v, norm=norm, **kw)
+    torch.cuda.synchronize()
+    assert fused_adamw.launches == before + 1 and m.dtype == torch.bfloat16
+    torch.testing.assert_close(m.cpu(), ref[1], rtol=0, atol=0)
+    for got, want in ((p, ref[0]), (v, ref[2])):
+        err = ((got.cpu() - want).abs() / want.abs().clamp_min(1e-30)).max()
+        assert err <= 1e-6, f"max relative error {err}"
+
+
+@pytest.mark.parametrize("extra", [dict(accumulation_steps=2),
+                                   dict(mu_dtype=torch.bfloat16)],
+                         ids=["accumulation", "mu_bf16"])
+def test_narrow_src_trainer_extras_launch_a1_as_optax(cuda, extra):
+    """A narrow meant_src trainer on the card with accumulation_steps=2
+    (A1 on every second micro-step, the parameters held in between) or a
+    bf16 first moment (A1 every step): 4 steps with their launch counts."""
+    import numpy as np
+    model = _narrow_src(cuda)
+    rows = dict(_src_rows(8, 64, seed=5),
+                y=np.array([0, 1] * 4, np.int32))
+    trainer = meant_trainer({"model": model, "model_name": "meant_src",
+                             "train_loader": ArrayLoader(rows, 4),
+                             "lr": 1e-3, "lrst": "constant", **extra})
+    batch = {k: host_tensor(v[:4]).to(cuda) for k, v in rows.items()}
+    trainer._init_state()
+    a1 = fused_adamw.launches
+    for i in range(4):
+        before = trainer.optimizer.flat_p.clone()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        moved = not torch.equal(trainer.optimizer.flat_p, before)
+        assert moved == ("accumulation_steps" not in extra or i % 2 == 1)
+    k = extra.get("accumulation_steps", 1)
+    assert fused_adamw.launches == a1 + 4 // k
+    assert trainer.optimizer.m.dtype == extra.get("mu_dtype", torch.float32)

@@ -47,7 +47,18 @@ def test_serve_cli_smoke(tmp_path):
     np.testing.assert_array_equal(np.load(out), probs)
 
 
-@pytest.mark.parametrize("flag", [["--fsdp"], ["--mu_bf16"],
+def test_serve_cli_takes_and_ignores_mu_bf16():
+    """--mu_bf16 is a training flag of the shared parser: the serving CLI
+    takes it and serves the same probabilities, as JAX's does."""
+    argv = ["-rid", "51", "-mn", "meant_src", "-nec", "1", "--synthetic_n",
+            "6", "--seq_len", "12", "--image_size", "32", "--text_dim", "32",
+            "--image_dim", "32", "--vocab_size", "128", "--num_heads", "4",
+            "--serve_batch", "4", "--device", "cpu"]
+    np.testing.assert_array_equal(serve_cli.main(argv + ["--mu_bf16"]),
+                                  serve_cli.main(argv))
+
+
+@pytest.mark.parametrize("flag", [["--fsdp"],
                                   ["-mn", "bertweet"],
                                   ["-mn", "vilt"]])
 def test_serve_cli_refuses_what_is_not_ported(flag):

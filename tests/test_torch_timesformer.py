@@ -1,6 +1,7 @@
 """The TimeSformer family in the port against the JAX package on the CPU:
-the (sin, cos) rotary helpers, token_shift, TSAttention (with a 257-key
-group through JAX's interpret-mode flash kernel), TimeSformer unrolled,
+the (sin, cos) rotary helpers, token_shift, TSAttention (with 257-key
+groups through JAX's interpret-mode flash kernel, forward and gradients),
+TimeSformer unrolled,
 scanned, rematerialised, with the token shift and with the learned
 positions, `stack_timesformer_params`, a scanned JAX checkpoint loaded into
 the port, meant_timesformer, meant_mean_pooling, meant_mosi, MOSI's audio
@@ -124,6 +125,42 @@ def test_ts_attention_flash_group_of_257_keys_matches_jax():
                                 device="cpu"), params, x,
                 method_kwargs=call)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_ts_attention_flash_groups_of_257_keys_gradients_match_jax():
+    """Space attention over two frames of 256 patches (groups of 256
+    queries and 257 keys) with flash=True and the axial rotary, at narrow
+    widths: the output and the gradients of x and of every parameter
+    through JAX's interpret-mode flash_mha (jax.vjp) against the port's
+    flash_mha on the CPU, 1e-4 (output: rtol 1e-4 / atol 1e-5; gradients:
+    relative L2 per tensor)."""
+    rng = np.random.RandomState(12)
+    x = rng.randn(1, 1 + 2 * 256, 32).astype(np.float32)
+    dout = rng.randn(*x.shape).astype(np.float32)
+    rot = jops.axial_rotary_sincos(16, 16, 16)
+    call = dict(group_size=256, num_groups=2, group_axis_first=True)
+    jm = jts.TSAttention(32, dim_head=16, heads=2, flash=True)
+    params = jm.init(jax.random.PRNGKey(7), jnp.asarray(x), rot_sincos=rot,
+                     **call)["params"]
+    out, vjp = jax.vjp(lambda p, xx: jm.apply({"params": p}, xx,
+                                              rot_sincos=rot, **call),
+                       params, jnp.asarray(x))
+    g_params, g_x = vjp(jnp.asarray(dout))
+    module = pts.TSAttention(32, dim_head=16, heads=2, flash=True,
+                             device="cpu")
+    load_jax_params(module, _np(params))
+    xt = torch.tensor(x, requires_grad=True)
+    got = module(xt, rot_sincos=tuple(torch.as_tensor(np.asarray(t))
+                                      for t in rot), **call)
+    got.backward(torch.as_tensor(dout))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               rtol=1e-4, atol=1e-5)
+    want = state_dict_from_jax(_np(g_params))
+    pairs = [("x", xt.grad.numpy(), np.asarray(g_x))]
+    pairs += [(n, p.grad.numpy(), want[n].numpy())
+              for n, p in module.named_parameters()]
+    for name, a, b in pairs:
+        assert np.linalg.norm(a - b) <= 1e-4 * np.linalg.norm(b), name
 
 
 TS = dict(dim=64, num_frames=LAG, num_classes=3, image_size=32,

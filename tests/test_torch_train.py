@@ -23,7 +23,10 @@ every tower gradient is zero, DEFECTS #15), at shared weights
 
 Then the trainer loop end to end on the CPU through the CLIs: train,
 evaluate, save, Predictor(checkpoint_path=...), resume, the eval CLI, the
-early-stop rule and the NaN guard.
+early-stop rule and the NaN guard; --mu_bf16 (a bf16 first moment through
+train, save and resume) and accumulation_steps=2 (updates on every second
+micro-step, a resume between the two, the leftover carried across
+epochs).
 """
 
 import numpy as np
@@ -254,7 +257,7 @@ def test_nan_loss_raises(monkeypatch):
         trainer.train()
 
 
-@pytest.mark.parametrize("flag", [["--fsdp"], ["--mu_bf16"],
+@pytest.mark.parametrize("flag", [["--fsdp"],
                                   ["--buckets", "128,512"],
                                   ["-mn", "meantTweetPrice"],
                                   ["-mn", "vl_bert"],
@@ -266,11 +269,88 @@ def test_train_cli_refuses_what_is_not_ported(flag):
         in_loop_train.main(TINY + ["-rid", "x"] + flag)
 
 
-@pytest.mark.parametrize("key", ["mesh", "fsdp", "accumulation_steps"])
+@pytest.mark.parametrize("key", ["mesh", "fsdp"])
 def test_trainer_refuses_what_is_not_ported(key):
     args = base_parser().parse_args(TINY + ["-rid", "x"])
     loader = ArrayLoader(synthetic_batch(args, 4), 4)
     with pytest.raises(NotImplementedError):
         meant_trainer({"model": build_model(args), "model_name": "meant_src",
-                       "train_loader": loader,
-                       key: 2 if key == "accumulation_steps" else True})
+                       "train_loader": loader, key: True})
+
+
+def test_train_cli_mu_bf16_trains_with_a_bf16_first_moment(tmp_path):
+    """--mu_bf16 reaches the optimizer as the JAX CLI hands it on
+    (mu_dtype=bf16): the first moment is stored in bf16, the second in
+    fp32, and the checkpoint and resume carry the bf16 moment."""
+    argv = TINY + ["-rid", "mu", "-ne", "1", "-fp", str(tmp_path),
+                   "--mu_bf16"]
+    results = in_loop_train.main(argv)
+    opt = results["trainer"].optimizer
+    assert opt.m.dtype == torch.bfloat16 and opt.v.dtype == torch.float32
+    assert opt.step_count == 3 and float(opt.m.float().abs().sum()) > 0
+    assert all(np.isfinite(h["train_loss"]) for h in results["history"])
+    args = base_parser().parse_args(argv)
+    resumed = meant_trainer({"model": build_model(args),
+                             "model_name": "meant_src",
+                             "train_loader": results["trainer"].train_loader,
+                             "file_path": str(tmp_path), "run_id": "mu",
+                             "num_encoders": 1,
+                             "mu_dtype": torch.bfloat16})
+    resumed.resume(1)
+    assert resumed.optimizer.m.dtype == torch.bfloat16
+    torch.testing.assert_close(resumed.optimizer.m, opt.m, rtol=0, atol=0)
+
+
+def _device_batches(loader):
+    return [{k: host_tensor(v) for k, v in b.items()} for b in loader]
+
+
+def test_trainer_accumulation_updates_every_second_step_and_resumes(
+        tmp_path):
+    """meant_trainer with accumulation_steps=2 (optax.MultiSteps):
+    the parameters hold on the first micro-step of each pair and move on
+    the second, a save between the two micro-steps of a pair carries the
+    running mean and the micro-step through resume (the next micro-step
+    then gives the same parameters bit for bit), and an epoch's leftover
+    micro-step carries into the next."""
+    from meant_tpu_torch.train.classify import seed_dropout
+    args = base_parser().parse_args(TINY + ["-rid", "acc"])
+    loader = ArrayLoader(synthetic_batch(args, 8, seed=3), 4)
+    params = {"model_name": "meant_src", "train_loader": loader,
+              "file_path": str(tmp_path), "run_id": "acc",
+              "num_encoders": 1, "accumulation_steps": 2, "lr": 1e-3,
+              "lrst": "constant"}
+    trainer = meant_trainer({"model": build_model(args), **params})
+    trainer._init_state()
+    opt = trainer.optimizer
+    b0, b1 = _device_batches(loader)
+    before = opt.flat_p.clone()
+    for i, batch in enumerate((b0, b1, b0)):
+        trainer.train_step(batch)
+        moved = not torch.equal(opt.flat_p, before)
+        assert moved == (i == 1), i
+        assert opt.step_count == (1 if i >= 1 else 0)
+        assert opt.mini_step == (0 if i == 1 else 1)
+        before = opt.flat_p.clone()
+    trainer.save(1)
+    resumed = meant_trainer({"model": build_model(args), **params})
+    resumed.resume(1)
+    ropt = resumed.optimizer
+    assert (ropt.mini_step, ropt.step_count) == (1, 1)
+    torch.testing.assert_close(ropt.acc, opt.acc, rtol=0, atol=0)
+    torch.testing.assert_close(ropt.flat_p, opt.flat_p, rtol=0, atol=0)
+    for t in (trainer, resumed):
+        seed_dropout(torch.device("cpu"), 123)
+        t.train_step(b1)
+    assert opt.step_count == ropt.step_count == 2
+    torch.testing.assert_close(ropt.flat_p, opt.flat_p, rtol=0, atol=0)
+    torch.testing.assert_close(ropt.m, opt.m, rtol=0, atol=0)
+
+    # three micro-steps an epoch: one update, the leftover carried over
+    odd = ArrayLoader(synthetic_batch(args, 12, seed=4), 4)
+    looped = meant_trainer({"model": build_model(args), **params,
+                            "train_loader": odd, "epochs": 2,
+                            "test_model": False})
+    looped.train()
+    assert (looped.optimizer.step_count, looped.optimizer.mini_step) == \
+        (3, 0)
