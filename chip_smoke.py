@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, run in the order 1-6, 9, 10, 11, 12, 7, 8; any failure raises
-and the script exits non-zero:
+Phases, run in the order 1-6, 9, 10, 11, 12, 13, 7, 8; any failure
+raises and the script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
               long-sequence paths from csrc/, one nvcc per source, all
@@ -162,6 +162,26 @@ and the script exits non-zero:
               batch 16's (5e-2 relative L2 per group) and 10 micro-steps
               with exactly 5 A1 launches; and, as a reading held to no
               bar, the gathered MLM head against the full one in fp32.
+13. hf_vqa -- meant_vqa at bench.py's VQA geometry (768 wide, 12 + 12
+              encoders, s=40 questions, 4x224^2 charts, batch 64, 3130
+              answers, soft targets with a second annotator at 1/3, bf16,
+              flash on as the VQA CLI runs it): one step's gradients
+              against the plain attention, 3 vqa_trainer steps on one
+              replayed batch with exactly 24 R1, 24 K1 (12 at s=40, 12 at
+              s=196), 24 K2 and 1 A1 a step and a finite, falling loss, a
+              profiled step, and the flash=False step (bench.py's setting)
+              timed and profiled only; cli.vqa one epoch at -tb 16 on its
+              synthetic set (s=24) and on a vqa_prepared.npz written here
+              (s=40), each with its launches by shape and a checkpoint;
+              bertweet, vl_bert and vilt (vilt at --seq_len 40, the others
+              at 128) at the CLI's widths: 3 trainer steps on the CLI's
+              synthetic batch (1 A1 a step, no flash kernel), a profiled
+              step, cli.in_loop_train on a TempStock-small directory
+              written here (3 steps, 1 A1 each, no flash kernel) and
+              Predictor(checkpoint_path=...) serving the trained
+              probabilities; cli.tweet_eval (bertweet, s=128, batch 16, 2
+              epochs) with its mean step latency; A1 against its plain
+              version at each of the four new parameter counts.
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
@@ -172,8 +192,10 @@ and the script exits non-zero:
               features, BH=128, with meant_mosi's) and its backward
               (R1 + K2; R1, K4 and K5 together),
               torch.optim.AdamW(fused=True) (A1, at the flagship's,
-              meant's, the pretrainers' and meant_timesformer's parameter
-              counts; phase 12's shapes, and A1 with a bf16 first moment);
+              meant's, the pretrainers', meant_timesformer's and phase
+              13's parameter counts; phase 12's shapes, and A1 with a bf16
+              first moment); R1 + K1 and K2 also at meant_vqa's s=40 and
+              s=196 (BH=512) and the VQA CLI's s=24;
               R1 has rows of its own at each shape. Beside the event time
               of the resident rows, their device time with the host out of
               the way (at s=128 a call launches less work than the host
@@ -427,10 +449,18 @@ def rel_l2(out, ref) -> float:
 # generation's s=128 text, at BH = 16 x 5 x 8 = 640, then the pretrainers'
 # s=128 text and s=196 charts at BH = 16 x 8 = 128 (no lag in the batch),
 # then meant_mosi's text: s=50 (inside one 64-row tile) with xPos on 30
-# features, BH = 16 x 8 = 128, also with a padded key mask.
+# features, BH = 16 x 8 = 128, also with a padded key mask, then
+# meant_vqa's s=40 text and s=196 charts at BH = 512 and the VQA CLI's
+# s=24 text at BH = 128.
 MAIN_BH = BATCH * LAG * HEADS
 PRETRAIN_BH = BATCH * HEADS
 MOSI_SEQ, MOSI_BH = 50, BATCH * HEADS
+# meant_vqa at bench.py's VQA geometry: s=40 questions and s=196 charts at
+# BH = 64 x 8 = 512, no lag; the VQA CLI's synthetic 24-token questions at
+# -tb 16, BH = 128. Both lengths are below one 64-row tile.
+VQA_SEQ, VQA_BATCH = 40, 64
+VQA_BH = VQA_BATCH * HEADS
+VQA_CLI_SEQ = 24
 RESIDENT_CASES = (("text", "text", SEQ, MAIN_BH),
                   ("vision", "vision", N_PATCHES, MAIN_BH),
                   ("text_masked", "text_masked", SEQ, MAIN_BH),
@@ -439,7 +469,10 @@ RESIDENT_CASES = (("text", "text", SEQ, MAIN_BH),
                   ("vision_bh128", "vision", N_PATCHES, PRETRAIN_BH),
                   ("text_s50_rot30", "text_rot30", MOSI_SEQ, MOSI_BH),
                   ("text_s50_rot30_masked", "text_rot30_masked", MOSI_SEQ,
-                   MOSI_BH))
+                   MOSI_BH),
+                  ("text_s40_bh512", "text", VQA_SEQ, VQA_BH),
+                  ("vision_bh512", "vision", N_PATCHES, VQA_BH),
+                  ("text_s24_bh128", "text", VQA_CLI_SEQ, PRETRAIN_BH))
 
 
 def check_kernel(record):
@@ -1387,17 +1420,17 @@ def learn_paper(res):
     return train["launches"]
 
 
-def write_tempstock(path: str, n: int, seed: int):
+def write_tempstock(path: str, n: int, seed: int, seq: int = PAPER_SEQ):
     """A TempStock-small set at full shape in its layout: graphs_5.npy (n,
-    5, 4, 224, 224) fp32, tweets_5.npy (n, 5, 128) int64 with trailing pad
-    id 1 where attention_masks_5.npy is 0, macds_5.npy (n, 5, 4) and
+    5, 4, 224, 224) fp32, tweets_5.npy (n, 5, seq) int64 (128 tokens a day
+    unless `seq` says otherwise) with trailing pad id 1 where
+    attention_masks_5.npy is 0, macds_5.npy (n, 5, 4) and
     y_resampled_5.npy (n,)."""
     import os
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(1, PAPER_SEQ + 1, size=(n, LAG))
-    masks = (np.arange(PAPER_SEQ) < lengths[..., None]).astype(np.float32)
-    tweets = np.where(masks > 0, rng.integers(2, 64000, (n, LAG, PAPER_SEQ)),
-                      1)
+    lengths = rng.integers(1, seq + 1, size=(n, LAG))
+    masks = (np.arange(seq) < lengths[..., None]).astype(np.float32)
+    tweets = np.where(masks > 0, rng.integers(2, 64000, (n, LAG, seq)), 1)
     arrays = {
         "graphs": rng.standard_normal((n, LAG, 4, IMAGE, IMAGE),
                                       dtype=np.float32),
@@ -2905,6 +2938,304 @@ def run_shapes(record, n_params: int) -> dict:
     return out
 
 
+# ---- phase 13: VQA, the HF baselines and tweet_eval --------------------
+
+# bench.py's vqa cell (build_vqa, bench.py:390-434): meant_vqa-12 at 768
+# wide, 8 heads of 96, s=40 questions (VQA_SEQ), 4x224^2 charts, batch 64,
+# 3130 answers, soft targets with a second annotator at 1/3, bf16 with fp32
+# params. The VQA CLI runs -tb 16 over 64 rows: 16 val, 16 test, 32 train.
+VQA_CLASSES = 3130
+VQA_CLI_ROWS = 64
+VQA_STEP = {"K1": 2 * ENCODERS, "R1": 2 * ENCODERS, "K2": 2 * ENCODERS,
+            "A1": 1}
+VQA_STEPS = 3
+VQA_LR = 5e-5                         # the VQA CLI's default -l
+# the HF baselines at the CLI's widths (768, -nec 12, --num_heads 8, vocab
+# 64001, batch 16); ViLT's text position table holds 40 tokens
+HF_SEQ = {"bertweet": PAPER_SEQ, "vl_bert": PAPER_SEQ, "vilt": 40}
+HF_STEPS = 3
+HF_DATA_ROWS = 80                     # 48 / 16 / 16 rows: 3 steps at 16
+TWEET_EVAL_EPOCHS = 2
+
+
+def vqa_model(flash: bool):
+    """bench.py's build_vqa model, seeded, on the card."""
+    from meant_tpu_torch.models import EmbeddingConfig, meant_vqa
+    return meant_vqa(DIM, DIM, 4, IMAGE, IMAGE, PATCH, 1, VQA_CLASSES,
+                     embedding=EmbeddingConfig(), flash=flash,
+                     num_heads=HEADS, num_encoders=ENCODERS,
+                     dtype=torch.bfloat16, device="cuda", seed=0)
+
+
+def vqa_batch(n: int = VQA_BATCH, s: int = VQA_SEQ, seed: int = 0) -> dict:
+    """bench.py's VQA batch (its RandomState draws, in its order): one-hot
+    targets with a second annotator's answer at 1/3."""
+    rng = np.random.RandomState(seed)
+    labels = np.zeros((n, VQA_CLASSES), np.float32)
+    hard = rng.randint(0, VQA_CLASSES, size=n)
+    labels[np.arange(n), hard] = 1.0
+    soft = rng.randint(0, VQA_CLASSES, size=n)
+    labels[np.arange(n), soft] = np.maximum(labels[np.arange(n), soft],
+                                            1 / 3)
+    return {"language_input_ids": rng.randint(2, 64000, size=(n, s)).astype(
+                np.int32),
+            "pixel_values": rng.randn(n, 4, IMAGE, IMAGE).astype(np.float32),
+            "attention_mask": np.ones((n, s), np.float32),
+            "pixel_mask": np.ones((n, IMAGE, IMAGE), np.float32),
+            "labels": labels}
+
+
+def vqa_loss(model, batch):
+    """The VQA trainer's objective on a device batch."""
+    from meant_tpu_torch.train.vqa import soft_target_ce
+    out = model(batch["language_input_ids"], batch["pixel_values"],
+                attention_mask=batch["attention_mask"])
+    return soft_target_ce(out, batch["labels"])
+
+
+def vqa_trainer_on(model, host):
+    """vqa_trainer on one replayed batch (numpy `host`) at VQA_LR
+    constant."""
+    from meant_tpu_torch.data.loader import ArrayLoader
+    from meant_tpu_torch.train.vqa import vqa_trainer
+    return vqa_trainer({
+        "model": model, "model_name": "meant_vqa",
+        "train_loader": ArrayLoader(host, len(host["labels"])),
+        "num_classes": VQA_CLASSES, "lr": VQA_LR, "lrst": "constant",
+        "seed": 0, "test_model": False})
+
+
+def check_by_shape(counts: dict, want: dict, label: str):
+    """Fail unless K1's and K2's launches by shape are exactly `want`
+    ({kernel: {shape_key: n}})."""
+    for name, shapes in want.items():
+        if counts[f"{name}_by_shape"] != shapes:
+            fail(f"{label}: {name} launched {counts[f'{name}_by_shape']}, "
+                 f"want {shapes}")
+
+
+def learn_vqa(res) -> dict:
+    """One step's gradients against the plain attention, VQA_STEPS trainer
+    steps at batch 64 (24 R1, 24 K1, 24 K2, 1 A1 a step; K1 and K2 12 at
+    s=40 and 12 at s=196), a profiled step, then the same steps at
+    flash=False (bench.py's setting), timed and profiled only."""
+    model = vqa_model(flash=True)
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    res["step_gradients"] = compare_step_gradients(
+        model, to_card(vqa_batch(GRAD_ROWS, seed=41)),
+        {k: n for k, n in VQA_STEP.items() if k != "A1"},
+        lambda: vqa_model(flash=False), "meant_vqa step",
+        loss_fn=vqa_loss)
+    host = vqa_batch()
+    train, trainer, batch = timed_steps(vqa_trainer_on(model, host), host,
+                                        VQA_STEPS, VQA_STEP,
+                                        "learn meant_vqa")
+    per_shape = {shape_key(VQA_SEQ, True): ENCODERS * VQA_STEPS,
+                 shape_key(N_PATCHES, False): ENCODERS * VQA_STEPS}
+    check_by_shape(train["launches"], {"K1": per_shape, "K2": per_shape},
+                   "meant_vqa's steps")
+    res["train"] = train
+    res["train_profile"] = profile_calls(lambda: trainer.train_step(batch),
+                                         1, "step", rows=VQA_BATCH)
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    plain = vqa_model(flash=False)
+    res["train_flash_off"], trainer, batch = timed_steps(
+        vqa_trainer_on(plain, host), host, VQA_STEPS, {"A1": 1},
+        "meant_vqa at flash=False", falling=False)
+    res["train_flash_off_profile"] = profile_calls(
+        lambda: trainer.train_step(batch), 1, "step", rows=VQA_BATCH)
+    del plain, trainer, batch
+    torch.cuda.empty_cache()
+    return train["launches"]
+
+
+def write_vqa_npz(path: str, n: int, seed: int):
+    """A vqa_prepared.npz at bench.py's VQA geometry (s=40, 3130 answers)."""
+    import os
+    b = vqa_batch(n, seed=seed)
+    np.savez(os.path.join(path, "vqa_prepared.npz"),
+             input_ids=b["language_input_ids"], images=b["pixel_values"],
+             attention_mask=b["attention_mask"], pixel_mask=b["pixel_mask"],
+             soft_targets=b["labels"])
+
+
+def vqa_through_cli(res) -> dict:
+    """cli.vqa one epoch at -tb 16 and -nc 3130: the synthetic set (s=24)
+    and a vqa_prepared.npz written here (s=40); the default --flash takes
+    the flash path (the raw string), K1 and K2 at the question length and
+    at s=196, a checkpoint written. Returns the synthetic run's counts."""
+    import os
+    from meant_tpu_torch.cli import vqa as vqa_cli
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        write_vqa_npz(d, VQA_CLI_ROWS, seed=42)
+        for label, s, extra in (("synthetic", VQA_CLI_SEQ, []),
+                                ("npz", VQA_SEQ, ["--data_dir", d])):
+            argv = ["-rid", "smoke", "-nec", str(ENCODERS), "-nc",
+                    str(VQA_CLASSES), "--synthetic_n", str(VQA_CLI_ROWS),
+                    "-tb", str(BATCH), "-ne", "1", "-fp", d] + extra
+            reset_counts()
+            results = vqa_cli.main(argv)
+            counts = read_counts()
+            trainer = results["trainer"]
+            steps = trainer.optimizer.step_count
+            forwards = steps + len(trainer.val_loader) + len(
+                trainer.test_loader)
+            check_counts(counts, {"K1": 24 * forwards, "R1": 24 * forwards,
+                                  "K2": 24 * steps, "A1": steps},
+                         f"cli.vqa ({label}): {steps} steps and "
+                         f"{forwards - steps} evaluation forwards")
+            check_by_shape(counts, {
+                "K1": {shape_key(s, True): ENCODERS * forwards,
+                       shape_key(N_PATCHES, False): ENCODERS * forwards},
+                "K2": {shape_key(s, True): ENCODERS * steps,
+                       shape_key(N_PATCHES, False): ENCODERS * steps}},
+                f"cli.vqa ({label})")
+            path = results["checkpoint"]
+            loss = results["history"][0]["train_loss"]
+            if (path is None or not os.path.exists(path)
+                    or not np.isfinite(loss)):
+                fail(f"cli.vqa ({label}): checkpoint {path}, loss {loss}")
+            runs[label] = {"steps": steps, "launches": counts,
+                           "history": results["history"],
+                           "checkpoint": os.path.basename(path),
+                           "test_f1_macro": results["test"]["f1_macro"]}
+            print(f"cli.vqa ({label}, s={s}): {steps} steps, loss "
+                  f"{loss:.5f}, launches {counts}, checkpoint "
+                  f"{os.path.basename(path)}", flush=True)
+            del results, trainer
+            torch.cuda.empty_cache()
+    res["cli"] = runs
+    return runs["synthetic"]["launches"]
+
+
+def hf_args(name: str, *extra):
+    return zoo_args(name, "--seq_len", str(HF_SEQ[name]), *extra)
+
+
+def hf_baseline(name: str, res) -> int:
+    """-mn name at the CLI's widths: HF_STEPS meant_trainer steps on the
+    CLI's synthetic batch (one A1 a step, no flash kernel; every parameter
+    finite after them, through the finfo.min masks), a profiled step; then
+    cli.in_loop_train on a TempStock-small directory written here (3 steps,
+    evaluation, a checkpoint; exactly one A1 a step and no other launch)
+    and Predictor(checkpoint_path=...) serving one request with the trained
+    model's probabilities. Returns the CLI's steps."""
+    import os
+    from meant_tpu_torch.cli import in_loop_train
+    from meant_tpu_torch.cli.common import build_model, synthetic_batch
+    from meant_tpu_torch.serve import Predictor
+    model = build_model(hf_args(name))
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    host = synthetic_batch(hf_args(name), BATCH, seed=43)
+    train, trainer, batch = train_steps(model, host, HF_STEPS, {"A1": 1},
+                                        f"learn {name}", model_name=name,
+                                        falling=False)
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        fail(f"{name}: a parameter is not finite after {HF_STEPS} steps")
+    res["train"] = train
+    res["train_profile"] = profile_calls(lambda: trainer.train_step(batch),
+                                         1, "step")
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        os.makedirs(data)
+        write_tempstock(data, HF_DATA_ROWS, seed=44, seq=HF_SEQ[name])
+        argv = ["-rid", "smoke", "-mn", name, "-nec", str(ENCODERS),
+                "--seq_len", str(HF_SEQ[name]), "--data_dir", data, "-ne",
+                "1", "-tb", str(BATCH), "-fp", d, "-lrst", "constant"]
+        reset_counts()
+        results = in_loop_train.main(argv)
+        counts = read_counts()
+        trainer = results["trainer"]
+        steps = trainer.optimizer.step_count
+        check_counts(counts, {"A1": steps}, f"cli.in_loop_train -mn {name}")
+        loss = results["history"][0]["train_loss"]
+        if (steps != HF_STEPS or not np.isfinite(loss)
+                or results["checkpoint"] is None):
+            fail(f"cli.in_loop_train -mn {name}: {steps} steps, loss {loss},"
+                 f" checkpoint {results['checkpoint']}")
+        rows = {k: v[:BATCH] for k, v in host.items() if k != "y"}
+        trained = Predictor(trainer.model, name, batch_size=BATCH)(rows)
+        del trainer, results["trainer"]
+        torch.cuda.empty_cache()
+        reset_counts()
+        served = Predictor(build_model(hf_args(name)), name,
+                           checkpoint_path=results["checkpoint"],
+                           batch_size=BATCH)(rows)
+        check_counts(read_counts(), {}, f"serving {name}")
+    same = bool(np.array_equal(trained, served))
+    print(f"cli.in_loop_train -mn {name} --data_dir ({HF_DATA_ROWS} rows, "
+          f"s={HF_SEQ[name]}): {steps} steps, loss {loss:.5f}, launches "
+          f"{counts}; Predictor from its checkpoint: probabilities "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if not (same and served.shape == (BATCH, 2)
+            and ((served > 0) & (served < 1)).all()):
+        fail(f"{name}: Predictor(checkpoint_path=...) served {served}, the "
+             f"trained model {trained}")
+    res["cli"] = {"steps": steps, "launches": counts,
+                  "history": results["history"], "test": results["test"]}
+    torch.cuda.empty_cache()
+    return steps
+
+
+def tweet_eval_through_cli(res):
+    """cli.tweet_eval: bertweet at s=128, batch 16, TWEET_EVAL_EPOCHS epochs
+    of the synthetic set, one A1 a step and no other launch; its mean step
+    latency."""
+    from meant_tpu_torch.cli import tweet_eval
+    argv = ["-rid", "smoke", "-nec", str(ENCODERS), "--synthetic_n",
+            str(VQA_CLI_ROWS), "-tb", str(BATCH), "-ne",
+            str(TWEET_EVAL_EPOCHS)]
+    reset_counts()
+    results = tweet_eval.main(argv)
+    counts = read_counts()
+    trainer = results["trainer"]
+    steps = trainer.optimizer.step_count
+    check_counts(counts, {"A1": steps}, "cli.tweet_eval")
+    losses = [h["train_loss"] for h in results["history"]]
+    if len(losses) != TWEET_EVAL_EPOCHS or not np.all(np.isfinite(losses)):
+        fail(f"cli.tweet_eval: epochs {losses}")
+    ms = [t * 1e3 for t in trainer.latencies]
+    res["tweet_eval"] = {"steps": steps, "launches": counts,
+                         "history": results["history"], "step_ms": ms,
+                         "step_ms_mean": float(np.mean(ms)),
+                         "step_ms_median": statistics.median(ms[1:])}
+    print(f"cli.tweet_eval: {steps} steps over {TWEET_EVAL_EPOCHS} epochs, "
+          f"losses {losses}, mean step latency {np.mean(ms):.3f} ms (median "
+          f"of steps 2-{steps} {statistics.median(ms[1:]):.3f} ms)",
+          flush=True)
+    del results, trainer
+    torch.cuda.empty_cache()
+
+
+def run_hf_vqa(record) -> dict:
+    """Phase 13: meant_vqa's training at bench.py's geometry, cli.vqa, the
+    HF baselines through cli.in_loop_train and Predictor, and
+    cli.tweet_eval; A1 at each new parameter count. Returns what the
+    timing rows report."""
+    t0 = time.perf_counter()
+    res = {}
+    record["hf_vqa"] = res
+    vqa = res.setdefault("meant_vqa", {})
+    out = {"vqa_train": learn_vqa(vqa), "vqa_cli": vqa_through_cli(vqa)}
+    out["a1"] = {"meant_vqa": (vqa["n_params"],
+                               vqa["train"]["launches"]["A1"],
+                               check_adamw(vqa, vqa["n_params"]))}
+    for name in HF_SEQ:
+        r = res.setdefault(name, {})
+        steps = hf_baseline(name, r)
+        out["a1"][name] = (r["n_params"],
+                           r["train"]["launches"]["A1"] + steps,
+                           check_adamw(r, r["n_params"]))
+    tweet_eval_through_cli(res)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"phase hf_vqa: {res['wall_s']:.1f} s", flush=True)
+    return out
+
+
 # ---- phase 7: timing ---------------------------------------------------
 
 def attention_cost(c, backward: bool = False) -> tuple:
@@ -2999,12 +3330,15 @@ def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches,
 
 
 def time_kernels(record, errors, launches_by_shape, bwd_errors,
-                 train_counts, a1_err, n_params, paper, pretrain, zoo):
+                 train_counts, a1_err, n_params, paper, pretrain, zoo,
+                 hf_vqa):
     """The resident rows (R1 + K1, K2, R1) at the flagship's two shapes, at
     the paper generation's s=128, at the pretrainers' BH=128 shapes, at
-    meant_tweet_price's s=128 and meant_mosi's s=50 (xPos on 30 features,
-    BH=128), each with its own path's launches (the pretrainers' forwards
-    are those of their steps), then A1 at each path's parameter count."""
+    meant_tweet_price's s=128, meant_mosi's s=50 (xPos on 30 features,
+    BH=128), meant_vqa's s=40 and s=196 at BH=512 and the VQA CLI's s=24,
+    each with its own path's launches (the pretrainers' and meant_vqa's
+    forwards are those of their steps), then A1 at each path's parameter
+    count."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     flagship = {launch_key(k): n for k, n in launches_by_shape.items()}
@@ -3023,7 +3357,13 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
              zoo["tweet_price"][0]["K1_by_shape"], zoo["tweet_price"][1]),
             ("text_s50_rot30", "text_rot30",
              "s50 causal xPos rot30 BH128 meant_mosi",
-             zoo["mosi"][0]["K1_by_shape"], zoo["mosi"][1])):
+             zoo["mosi"][0]["K1_by_shape"], zoo["mosi"][1]),
+            ("text_s40_bh512", "text", "s40 causal xPos BH512 meant_vqa",
+             hf_vqa["vqa_train"]["K1_by_shape"], hf_vqa["vqa_train"]),
+            ("vision_bh512", "vision", "s196 pixel rotary BH512 meant_vqa",
+             hf_vqa["vqa_train"]["K1_by_shape"], hf_vqa["vqa_train"]),
+            ("text_s24_bh128", "text", "s24 causal xPos BH128 cli.vqa",
+             hf_vqa["vqa_cli"]["K1_by_shape"], hf_vqa["vqa_cli"])):
         s, bh = {name: (s, bh) for name, _, s, bh in RESIDENT_CASES}[case]
         c = backward_case(kind, torch.bfloat16, gen, s=s, bh=bh)
         key = shape_key(c["s"], c["causal"])
@@ -3043,6 +3383,8 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
                               counts["A1"], pretrain[kind]["a1_err"], gen))
     rows.append(adamw_row("adamw[meant_timesformer]", zoo["n_params"],
                           zoo["timesformer"]["A1"], zoo["a1_err"], gen))
+    for name, (count, launches, err) in hf_vqa["a1"].items():
+        rows.append(adamw_row(f"adamw[{name}]", count, launches, err, gen))
     record["kernels"] = rows
     return rows
 
@@ -3325,8 +3667,10 @@ def main(argv=None) -> int:
     run_levers(record)
     zoo = run_zoo(record)
     shapes = run_shapes(record, record["n_params"])
+    hf_vqa = run_hf_vqa(record)
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
-                        a1_err, record["n_params"], paper, pretrain, zoo)
+                        a1_err, record["n_params"], paper, pretrain, zoo,
+                        hf_vqa)
     at = [r["name"] for r in rows].index("adamw")
     rows[at:at] = time_long_kernels(long_errors, long_counts)  # before A1
     rows += time_shapes(shapes, record["n_params"])

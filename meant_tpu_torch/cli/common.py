@@ -2,7 +2,7 @@
 reference's flags under the JAX package's names, the refusal of flags not
 ported yet, the CLI's data (`--data_dir` TempStock-small, else a synthetic
 set of the model's family), and `build_model` for every --model_name of the
-JAX CLI but the HF baselines `bertweet`, `vl_bert` and `vilt`."""
+JAX CLI."""
 
 from __future__ import annotations
 
@@ -157,19 +157,20 @@ def refuse_unported(args) -> None:
                 f"ROADMAP)")
 
 
+def reject_stack_flags(args, harness: str) -> None:
+    """--scan_layers / --remat reach meant-family towers only: a harness
+    that builds an HF backbone refuses them rather than ignore them."""
+    if getattr(args, "scan_layers", False) or getattr(args, "remat", False):
+        raise SystemExit(f"--scan_layers/--remat are not supported by the "
+                         f"{harness} harness (no meant-family towers)")
+
+
 # the positional --model_name values; train.classify.model_inputs refuses
-# meant_vqa, whose harness is not ported yet
+# meant_vqa, which trains through its own harness (cli/vqa.py)
 PAPER_MODELS = POSITIONAL_MODELS + ("meant_vqa",)
 # the price-only models, which read `prices` alone
 PRICE_MODELS = ("meant_price", "mlp", "lstm")
 MOSI_FRAMES = 50
-
-
-def _refuse_hf(name: str) -> None:
-    if name not in KWARGS_MODELS + PAPER_MODELS:
-        raise NotImplementedError(
-            f"model {name} is not yet ported to meant_tpu_torch (ROADMAP "
-            f"§1 item 2: the HF baselines)")
 
 
 def synthetic_batch(args, n: int, seed: int = 0) -> dict:
@@ -179,10 +180,10 @@ def synthetic_batch(args, n: int, seed: int = 0) -> dict:
     pre-embedded text (text_dim floats), video (20) and audio (130) with
     an all-ones audio mask; input_ids / pixels / prices / attention_mask
     for the rest of the kwargs family; tweets / graphs (4 channels) /
-    attention_masks for the positional models, with prices of width 4 for
-    meantPrice and teanet and 5 for meant_tweet_price."""
+    attention_masks for the positional models (the HF baselines included),
+    with prices of width 4 for meantPrice and teanet and 5 for
+    meant_tweet_price."""
     name = args.model_name
-    _refuse_hf(name)
     rng = np.random.RandomState(seed)
     lag, s, size = args.lag, args.seq_len, args.image_size
     if name in PRICE_MODELS:
@@ -226,7 +227,6 @@ def dataset_arrays(args) -> dict:
     TempStock-small holds none either, so `--data_dir` is refused for the
     kwargs family; teanet reads its macds, and meant_tweet_price raises a
     KeyError for its prices, as meantPrice does."""
-    _refuse_hf(args.model_name)
     if args.model_name in ("meant_tweet_price", "teanet") and \
             not args.data_dir:
         print("No --data_dir given: running on a synthetic set of "
@@ -254,10 +254,10 @@ def dataset_arrays(args) -> dict:
 
 
 def build_model(args, device=None):
-    """The ported models by the reference's --model_name values, built on
+    """The models by the reference's --model_name values, built on
     `device` (args.device, else the card), with the JAX CLI's arguments
     (meant_tpu/cli/common.py:253-306), `--scan_layers` and `--remat`
-    included."""
+    included. A name the JAX CLI does not build raises."""
     name = args.model_name
     scan_layers = bool(getattr(args, "scan_layers", False))
     remat = getattr(args, "remat", False)
@@ -266,7 +266,8 @@ def build_model(args, device=None):
         # a configuration the model did not use
         raise SystemExit(f"--scan_layers/--remat are only supported by "
                          f"{'/'.join(SCAN_MODELS)} (got --model_name {name})")
-    _refuse_hf(name)
+    if name not in KWARGS_MODELS + PAPER_MODELS:
+        raise NotImplementedError(f"model {name} is not supported")
     refuse_unported(args)
     if isinstance(args.flash, str):
         if args.flash.lower() == "auto":
@@ -332,4 +333,11 @@ def build_model(args, device=None):
     if name == "mlp":
         return models.mlpEncoder(5, nc, args.dimension, args.num_layers,
                                  **base)
-    return models.LSTMEncoder(5, nc, args.dimension, args.num_layers, **base)
+    if name == "lstm":
+        return models.LSTMEncoder(5, nc, args.dimension, args.num_layers,
+                                  **base)
+    hf = {"bertweet": models.bertweet_wrapper,
+          "vl_bert": models.vl_BERT_Wrapper, "vilt": models.ViltWrapper}
+    return hf[name](input_dim=td, output_dim=nc, vocab_size=args.vocab_size,
+                    num_layers=args.num_encoders, num_heads=args.num_heads,
+                    dtype=dtype, **base)

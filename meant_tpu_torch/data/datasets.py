@@ -11,9 +11,9 @@ splits (counterpart of meant_tpu/data/datasets.py), numpy only.
   to sklearn's.
 * `hash_tokenize` is the JAX package's whitespace FNV-1a tokenizer in pure
   Python (its numpy fallback; JAX's native library gives the same ids on
-  text split by spaces), and `read_csv_texts` reads the pretraining text
-  column of a `.csv` with the standard library, as the JAX MLM harness
-  reads it with pandas.
+  text split by spaces), and `read_csv_texts` reads a column of a `.csv`
+  (the pretraining texts, tweet_eval's text and label) with the standard
+  library, as the JAX harnesses read it with pandas.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from __future__ import annotations
 import csv
 import math
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -128,12 +128,15 @@ _CSV_NA = frozenset((
     "nan", "null"))
 
 
-def read_csv_texts(path: str) -> List[str]:
-    """The first column of a `.csv` as `pd.read_csv(path).iloc[:,
-    0].astype(str)` reads it: the first row is the header, blank lines are
-    skipped, quoted fields may hold commas and newlines, and a missing
-    value (an empty cell, "NA", ...) reads "nan", as pandas 2 gives it.
-    A column pandas would parse as numbers keeps its text here."""
+def read_csv_texts(path: str, column: Union[int, str] = 0) -> List[str]:
+    """One column of a `.csv` (the first, or the one whose header is
+    `column`) as `pd.read_csv(path)[column].astype(str)` reads it: the
+    first row is the header, blank lines are skipped, quoted fields may
+    hold commas and newlines, and a missing value (an empty cell, "NA",
+    ...) reads "nan", as pandas 2 gives it. A column pandas would parse as
+    numbers keeps its text here."""
     with open(path, newline="", encoding="utf-8-sig") as f:
         rows = [row for row in csv.reader(f) if row]
-    return ["nan" if row[0] in _CSV_NA else row[0] for row in rows[1:]]
+    i = column if isinstance(column, int) else rows[0].index(column)
+    cells = [row[i] if i < len(row) else "" for row in rows[1:]]
+    return ["nan" if c in _CSV_NA else c for c in cells]

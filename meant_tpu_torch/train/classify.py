@@ -53,11 +53,12 @@ _NON_INPUT_KEYS = ("y", "_weight", "labels")
 # price baselines with one output per lag step
 PER_DAY_MODELS = ("mlp", "lstm")
 # paper-generation models take positional TempStock-layout inputs (tweets,
-# graphs, attention_masks, prices, macds), and so do meant_tweet_price and
-# teanet
+# graphs, attention_masks, prices, macds), and so do meant_tweet_price,
+# teanet and the HF baselines (the target day's tweets, and charts)
+HF_MODELS = ("bertweet", "vl_bert", "vilt")
 POSITIONAL_MODELS = ("meant", "meant_vision", "meant_tweet",
                      "meant_tweet_no_lag", "meantPrice", "meant_tweet_price",
-                     "teanet")
+                     "teanet") + HF_MODELS
 
 
 def model_inputs(model_name: str, batch: Dict[str, Any]) -> tuple:
@@ -73,6 +74,9 @@ def model_inputs(model_name: str, batch: Dict[str, Any]) -> tuple:
     if model_name == "meant_tweet":
         return (batch["tweets"],), \
                {"attention_mask": batch.get("attention_masks")}
+    if model_name in ("bertweet", "bert", "finbert"):
+        # the HF text baselines run on the target day only
+        return (batch["tweets"][:, -1],), {}
     if model_name == "meant_tweet_no_lag":
         # single-day ablation: the target day only
         tw = batch["tweets"]
@@ -82,13 +86,16 @@ def model_inputs(model_name: str, batch: Dict[str, Any]) -> tuple:
     if model_name == "meant_tweet_price":
         return (batch["tweets"], batch["prices"]), \
                {"attention_mask": batch.get("attention_masks")}
+    if model_name in ("vl_bert", "vilt"):
+        # the multimodal HF baselines: the target day only
+        return (batch["tweets"][:, -1], batch["graphs"][:, -1]), {}
     if model_name == "teanet":
         # TempStock feeds macds, Stocknet prices
         price = batch["macds"] if "macds" in batch else batch["prices"]
         return (batch["tweets"], price), {}
-    raise NotImplementedError(
-        f"model {model_name} is not yet ported to meant_tpu_torch "
-        f"(ROADMAP §1 item 2: the HF baselines)")
+    # meant_vqa runs through its own harness (train/vqa.py), as in JAX
+    raise NotImplementedError(f"model {model_name} has no batch dispatch "
+                              f"in the classification trainer")
 
 
 def row_outputs(model_name: str, out: torch.Tensor) -> torch.Tensor:

@@ -10,14 +10,18 @@ numpy arrays and returns the port's `state_dict`:
 * The attention's `DenseGeneral` kernels (`query` / `key` / `value` (in,
   heads, dh), `out` (heads, dh, out)) become (out, in) matrices, their
   (heads, dh) biases vectors.
+* A Flax `Conv` kernel (kh, kw, cin, cout) becomes torch's (cout, cin, kh,
+  kw) (ViLT's patch projection).
 * Norm `scale` / `offset` (the package's norms) and `scale` / `bias`
   (Flax's `nn.LayerNorm`) become `weight` / `bias` (the embedding's
   `ln_scale` / `ln_bias` become `layer_norm.weight` / `.bias`).
-* Embedding tables (the RoBERTa ones and Flax `nn.Embed`'s `embedding`)
-  become `<name>.weight`; `freqs` buffers, `temp_embedding`, the cls
-  tokens and embeddings (`txt_classtkn`, `img_classtkn`, `cls_token`,
-  `cls_emb`), the TimeSformer's `pos_emb` and the tied MLM head's
-  `decoder_bias` copy as they are.
+* Embedding tables (the RoBERTa and BERT ones, VisualBERT's visual
+  position and token-type tables, ViLT's (1, g^2 + 1, d) position table,
+  and Flax `nn.Embed`'s `embedding`) become `<name>.weight`; `freqs`
+  buffers, `temp_embedding`, the cls tokens and embeddings
+  (`txt_classtkn`, `img_classtkn`, `cls_token`, `cls_emb`), the
+  TimeSformer's `pos_emb` and the tied MLM head's `decoder_bias` copy as
+  they are.
 * `languageEncoders_3` becomes `languageEncoders.3` (a ModuleList), and a
   TimeSformer layer's `time_attn_3` (and its other components) becomes
   `layers.3.time_attn`.
@@ -46,7 +50,8 @@ from meant_tpu_torch.nn.stack import (TS_COMPONENTS, unstack_encoder_params,
                                       unstack_timesformer_params)
 
 _EMBED_TABLES = ("word_embeddings", "position_embeddings",
-                 "token_type_embeddings")
+                 "token_type_embeddings", "visual_position_embeddings",
+                 "visual_token_type_embeddings")
 # leaves whose torch key is their JAX path: rotary buffers, the temporal
 # encoder's positional parameter, the cls tokens and embeddings, the
 # TimeSformer's positional parameter and the tied MLM head's bias
@@ -97,9 +102,12 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, Any]:
 
 
 def _as_matrix(kernel: np.ndarray, projection: str) -> np.ndarray:
-    """A Flax kernel as the port's (out, in) weight: a Dense kernel (in,
-    out) transposed; a DenseGeneral one, (in, heads, dh) or for `out`
-    (heads, dh, out), flattened to (in, out) first."""
+    """A Flax kernel as the port's weight: a Dense kernel (in, out)
+    transposed to (out, in); a DenseGeneral one, (in, heads, dh) or for
+    `out` (heads, dh, out), flattened to (in, out) first; a Conv kernel
+    (kh, kw, cin, cout) as (cout, cin, kh, kw)."""
+    if kernel.ndim == 4:
+        return kernel.transpose(3, 2, 0, 1)
     if kernel.ndim == 3:
         kernel = (kernel.reshape(-1, kernel.shape[-1]) if projection == "out"
                   else kernel.reshape(kernel.shape[0], -1))

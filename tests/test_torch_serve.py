@@ -58,9 +58,7 @@ def test_serve_cli_takes_and_ignores_mu_bf16():
                                   serve_cli.main(argv))
 
 
-@pytest.mark.parametrize("flag", [["--fsdp"],
-                                  ["-mn", "bertweet"],
-                                  ["-mn", "vilt"]])
+@pytest.mark.parametrize("flag", [["--fsdp"]])
 def test_serve_cli_refuses_what_is_not_ported(flag):
     argv = ["-rid", "0", "-mn", "meant_src", "--device", "cpu",
             "--seq_len", "12", "--image_size", "32", "-nec", "1"] + flag

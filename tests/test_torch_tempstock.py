@@ -219,19 +219,13 @@ def test_meant_src_refuses_data_dir(tmp_path):
         eval_cli.main(argv)
 
 
-@pytest.mark.parametrize("name", ["bertweet", "vl_bert", "vilt"])
-def test_unported_names_still_raise(name):
-    argv = TINY + ["-rid", "u", "-mn", name]
-    with pytest.raises(NotImplementedError):
-        build_model(base_parser().parse_args(argv))
-    with pytest.raises(NotImplementedError):
-        in_loop_train.main(argv)
-    with pytest.raises(NotImplementedError):
-        serve_cli.main(argv)
-
-
-def test_meant_vqa_builds_but_its_harness_is_not_ported():
+def test_model_inputs_refuses_meant_vqa_in_both_packages():
+    """meant_vqa builds, but trains only through its own harness
+    (cli/vqa.py): the classification dispatch refuses it, as JAX's
+    does."""
     args = base_parser().parse_args(TINY + ["-rid", "v", "-mn", "meant_vqa"])
     assert isinstance(build_model(args), models.meant_vqa)
     with pytest.raises(NotImplementedError):
         model_inputs("meant_vqa", synthetic_batch(args, 2))
+    with pytest.raises(ValueError):
+        j_model_inputs("meant_vqa", synthetic_batch(args, 2))

@@ -260,10 +260,7 @@ def test_nan_loss_raises(monkeypatch):
 @pytest.mark.parametrize("flag", [["--fsdp"],
                                   ["--buckets", "128,512"],
                                   ["-mn", "meantTweetPrice"],
-                                  ["-mn", "vl_bert"],
-                                  ["--hf_cache", "somewhere"],
-                                  ["-mn", "bertweet"],
-                                  ["-mn", "vilt"]])
+                                  ["--hf_cache", "somewhere"]])
 def test_train_cli_refuses_what_is_not_ported(flag):
     with pytest.raises(NotImplementedError):
         in_loop_train.main(TINY + ["-rid", "x"] + flag)
