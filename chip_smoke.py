@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, run in the order 1-6, 9, 10, 11, 12, 13, 7, 8; any failure
+Phases, run in the order 1-6, 9, 10, 11, 12, 13, 14, 7, 8; any failure
 raises and the script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
@@ -182,6 +182,31 @@ raises and the script exits non-zero:
               probabilities; cli.tweet_eval (bertweet, s=128, batch 16, 2
               epochs) with its mean step latency; A1 against its plain
               version at each of the four new parameter counts.
+14. ner   -- token classification and the last harnesses, where A1 is
+              the one kernel (RoBERTa's attention is plain, as in JAX; no
+              R1 or K1-K5 launch): bench.py's ner cell (TokenClassifier 768
+              wide, 12 layers, vocab 64001, 9 tags, s=256, batch 32, bf16)
+              8 ner_trainer steps on one batch, one A1 with no norm a step,
+              a finite, falling loss, a profiled step; cli.hug_train -mn
+              roberta_tweet -nc 15 (1024 wide, 24 layers, 16 heads, vocab
+              50265, s=128, -tb 16) --pretrained from a roberta_tweet.bin
+              written here (the backbone bit for bit before the first
+              step), one epoch and a checkpoint; cli.tweet7 --crf
+              --impl_crf -nc 15 (768, 12 layers, 8 heads) one epoch, its
+              rows decoded under the BIO mask with no forbidden
+              transition, the CRF's NLL and decode beside a step;
+              cli.checkpoint_train then --epoch 1 (epoch 1's checkpoint bit
+              for bit before the first step); cli.in_loop_genia -js 2,
+              cli.hug_pretrain_mlm with and without --fixed_loss,
+              cli.hug_train -t classification -mn bertweet,
+              cli.run_other_models -mn meant_tweet and cli.train_legacy on
+              .npz shards, one A1 a step each; a hub-layout
+              vinai/bertweet-base (3 safetensors shards, the word table in
+              bf16, written by this script's own writer) grafted by
+              cli.in_loop_train --hf_cache into -mn bertweet --num_heads 12
+              and -mn meant, bit for bit, then one epoch each; A1 against
+              its plain version at the two new parameter counts, clipped
+              and with no norm.
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
@@ -193,8 +218,8 @@ raises and the script exits non-zero:
               (R1 + K2; R1, K4 and K5 together),
               torch.optim.AdamW(fused=True) (A1, at the flagship's,
               meant's, the pretrainers', meant_timesformer's and phase
-              13's parameter counts; phase 12's shapes, and A1 with a bf16
-              first moment); R1 + K1 and K2 also at meant_vqa's s=40 and
+              13's parameter counts, and with no norm at phase 14's; phase
+              12's shapes, and A1 with a bf16 first moment); R1 + K1 and K2 also at meant_vqa's s=40 and
               s=196 (BH=512) and the VQA CLI's s=24;
               R1 has rows of its own at each shape. Beside the event time
               of the resident rows, their device time with the host out of
@@ -799,9 +824,10 @@ ADAMW_ARGS = dict(lr=1e-5, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
                   step=10, max_norm=1.0)
 
 
-def check_adamw(record, n: int) -> float:
+def check_adamw(record, n: int, clip: bool = True) -> float:
     """A1 against adamw_reference on the card over n parameters, AdamW and
-    coupled Adam; max relative error of p, m and v."""
+    coupled Adam, clipped to norm 1 or (clip=False, the NER trainer's
+    default) with no norm; max relative error of p, m and v."""
     from meant_tpu_torch.ops.adamw import (adamw_reference, update_scalars,
                                            adamw_update)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -809,7 +835,7 @@ def check_adamw(record, n: int) -> float:
     for coupled in (False, True):
         p, g, m, v = adamw_case(n, gen)
         ref = [t.clone() for t in (p, m, v)]
-        norm = torch.linalg.vector_norm(g)
+        norm = torch.linalg.vector_norm(g) if clip else None
         args = dict(ADAMW_ARGS, coupled=coupled)
         adamw_update(p, g, m, v, norm=norm, **args)
         h = update_scalars(**{k: v_ for k, v_ in args.items()
@@ -821,7 +847,8 @@ def check_adamw(record, n: int) -> float:
             worst_rel = max(worst_rel, rel)
             if name == "p":
                 worst_abs = max(worst_abs, (a - b).abs().max().item())
-            label = "Adam (coupled)" if coupled else "AdamW"
+            label = (("Adam (coupled)" if coupled else "AdamW")
+                     + ("" if clip else ", no clip"))
             print(f"A1 vs plain {label} {name}: max relative error "
                   f"{rel:.3e} over {n} parameters", flush=True)
             if not (rel <= ADAMW_REL_ERR and torch.isfinite(a).all()):
@@ -3236,6 +3263,454 @@ def run_hf_vqa(record) -> dict:
     return out
 
 
+# ---- phase 14: token classification, the last harnesses, HF caches ------
+
+# bench.py's ner cell (build_ner, bench.py:472-502): TokenClassifier 768
+# wide, 12 layers of 12 heads, vocab 64001, 9 tags, bf16 with fp32 params,
+# s=256, batch 32, about 45% of the positions labelled (never the first or
+# the last), ner_trainer's lr 5e-5 unclipped; 8 steps on the one batch, cut
+# from a benchmark's run length. Adam's first update is lr times the sign
+# of every gradient entry, so over 134M parameters the loss rises for a
+# step or two before it falls (tools/ner_first_steps.py): 3 steps would not
+# see it fall.
+NER_BATCH, NER_SEQ, NER_TAGS, NER_STEPS = 32, 256, 9, 8
+NER_CLI_ROWS = 64          # the harnesses' synthetic sets (--synthetic_n)
+CACHE_ROWS = 32            # the --hf_cache runs: 19 train rows, one step
+# `hug_train -mn roberta_tweet` at its config's widths (1024 wide, 24
+# layers of 16 heads, vocab 50265, 15 tags), s=128, -tb 16
+ROBERTA_TWEET = {"vocab_size": 50265, "hidden_size": 1024,
+                 "num_hidden_layers": 24, "num_attention_heads": 16}
+# vinai/bertweet-base's geometry, whose cache the phase writes
+BERTWEET = {"model_type": "roberta", "vocab_size": 64001,
+            "hidden_size": DIM, "num_hidden_layers": ENCODERS,
+            "num_attention_heads": 12, "intermediate_size": 4 * DIM,
+            "max_position_embeddings": 130, "type_vocab_size": 1,
+            "pad_token_id": 1}
+CRF_TIMING_ITERS = 5
+# HF RoBERTa names -> the port's RobertaModel names, in this order
+HF_TO_PORT = (("embeddings.LayerNorm", "embeddings.layer_norm"),
+              ("attention.self.", "attention."),
+              ("attention.output.dense", "attention.out"),
+              ("attention.output.LayerNorm", "attention_norm"),
+              ("intermediate.dense", "intermediate"),
+              ("output.dense", "output"),
+              ("output.LayerNorm", "output_norm"),
+              ("encoder.layer.", "layer_"), ("pooler.dense", "pooler"))
+
+
+def ner_batch() -> dict:
+    """bench.py's build_ner batch, drawn in its order."""
+    b, s = NER_BATCH, NER_SEQ
+    rng = np.random.RandomState(0)
+    labels = rng.randint(0, NER_TAGS, size=(b, s)).astype(np.int32)
+    labels[rng.rand(b, s) >= 0.45] = -100
+    labels[:, 0] = -100
+    labels[:, -1] = -100
+    return {"input_ids": rng.randint(2, 64000, size=(b, s)).astype(np.int32),
+            "attention_mask": np.ones((b, s), np.float32),
+            "labels": labels}
+
+
+def learn_ner(res) -> int:
+    """NER_STEPS ner_trainer steps at bench.py's ner geometry on one
+    replayed batch: one A1 (with no norm) a step and no other launch, a
+    finite, falling loss; a profiled step. Returns the A1 launches."""
+    from meant_tpu_torch.data.loader import ArrayLoader
+    from meant_tpu_torch.train.ner import TokenClassifier, ner_trainer
+    model = TokenClassifier(num_labels=NER_TAGS, vocab_size=64001,
+                            hidden_size=DIM, num_layers=ENCODERS,
+                            num_heads=12, dtype=torch.bfloat16,
+                            device="cuda", seed=0)
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+    host = ner_batch()
+    trainer = ner_trainer({"model": model,
+                           "train_data": ArrayLoader(host, NER_BATCH),
+                           "lrst": "constant", "seed": 0})
+    train, trainer, batch = timed_steps(trainer, host, NER_STEPS, {"A1": 1},
+                                        "learn ner (bench.py's ner cell)")
+    if trainer.optimizer.clip_norm is not None:
+        fail("ner_trainer clips its gradient")
+    res["train"] = train
+    res["train_profile"] = profile_calls(lambda: trainer.train_step(batch),
+                                         1, "step", rows=NER_BATCH)
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+    return train["launches"]["A1"]
+
+
+def cli_run(label: str, main, argv, res) -> dict:
+    """main(argv) with the counts set to 0 just before and read just after:
+    exactly one A1 a step and no other launch, at least one step, a finite
+    first-epoch loss. Returns the results."""
+    reset_counts()
+    results = main(argv)
+    counts = read_counts()
+    steps = results["trainer"].optimizer.step_count
+    check_counts(counts, {"A1": steps}, label)
+    loss = results["history"][0]["train_loss"]
+    if steps < 1 or not np.isfinite(loss):
+        fail(f"{label}: {steps} steps, loss {loss}")
+    res[label] = {"steps": steps, "launches": counts,
+                  "history": results["history"],
+                  "checkpoint": results.get("checkpoint")}
+    print(f"{label}: {steps} steps, loss {loss:.5f}, launches {counts}",
+          flush=True)
+    return results
+
+
+def host_ms(fn, iters: int = CRF_TIMING_ITERS) -> float:
+    """Median host-clock ms of fn(), the device synchronized around each
+    call (one warm-up call first)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def tweet7_crf(res, d: str):
+    """cli.tweet7 --crf --impl_crf -nc 15 at the CLI's widths: one epoch
+    (one A1 a step); every row of its set decoded by viterbi under the BIO
+    mask takes no transition the mask forbids; the CRF's NLL (forward and
+    backward) and decode beside a whole step, and a profiled step."""
+    from meant_tpu_torch.cli import in_loop_genia, tweet7
+    from meant_tpu_torch.data.loader import host_tensor
+    argv = ["-rid", "smoke", "--crf", "--impl_crf", "-nc", "15", "-tb",
+            str(BATCH), "-ne", "1", "--synthetic_n", str(NER_CLI_ROWS),
+            "-fp", d]
+    results = cli_run("cli.tweet7 --crf --impl_crf", tweet7.main, argv, res)
+    trainer = results["trainer"]
+    model, cm = trainer.model, trainer.constraint_mask
+    if cm is None:
+        fail("cli.tweet7 -nc 15 decodes without the BIO mask")
+    data = in_loop_genia.load_data(tweet7.tweet7_parser().parse_args(argv))
+    T = model.crf.num_tags
+    for i in range(0, NER_CLI_ROWS, BATCH):
+        ids = host_tensor(data["input_ids"][i:i + BATCH]).cuda()
+        mask = host_tensor(data["attention_mask"][i:i + BATCH]).cuda()
+        paths, _ = model.decode(ids, mask, constraint_mask=cm)
+        for row, m in zip(paths.cpu().numpy(), mask.cpu().numpy()):
+            tags = row[m > 0]
+            if not (cm[T, tags[0]] and cm[tags[-1], T + 1]
+                    and all(cm[a, b] for a, b in zip(tags, tags[1:]))):
+                fail(f"viterbi decoded a forbidden path {tags.tolist()}")
+    batch = {k: host_tensor(v[:BATCH]).cuda() for k, v in data.items()}
+    with torch.no_grad():
+        model.eval()
+        emissions = model.token_classifier(batch["input_ids"],
+                                           batch["attention_mask"])
+    leaf = emissions.float().requires_grad_(True)
+    crf = model.crf
+    timing = {
+        "step_ms": host_ms(lambda: trainer.train_step(batch)),
+        "nll_fwd_bwd_ms": host_ms(lambda: crf.neg_log_likelihood(
+            leaf, batch["labels"], batch["attention_mask"]).backward()),
+        "decode_ms": host_ms(lambda: crf.viterbi(
+            emissions, batch["attention_mask"], constraint_mask=cm))}
+    timing["crf_share_of_step"] = timing["nll_fwd_bwd_ms"] / \
+        timing["step_ms"]
+    res["crf"] = timing
+    res["crf_step_profile"] = profile_calls(
+        lambda: trainer.train_step(batch), 1, "step")
+    print(f"CRF at b={BATCH}, s={PAPER_SEQ}, 15 tags (host clock, "
+          f"synchronized, median of {CRF_TIMING_ITERS}): "
+          f"{json.dumps(timing)}", flush=True)
+    del results, trainer, model, batch
+    torch.cuda.empty_cache()
+
+
+def checkpoint_resume(res, d: str):
+    """cli.checkpoint_train one epoch, then --epoch 1: before its first step
+    the model holds epoch 1's checkpoint bit for bit; it trains on."""
+    from meant_tpu_torch.cli import checkpoint_train
+    from meant_tpu_torch.cli.in_loop_genia import finish
+    from meant_tpu_torch.train import checkpoint as ckpt
+    argv = ["-rid", "smoke", "-ne", "1", "-tb", str(BATCH),
+            "--synthetic_n", str(NER_CLI_ROWS), "-fp", d]
+    first = cli_run("cli.checkpoint_train", checkpoint_train.main, argv,
+                    res)
+    saved = ckpt.restore(first["checkpoint"], "cuda")["params"]
+    trainer, val_loader, nl = checkpoint_train.prepare(argv + ["--epoch",
+                                                               "1"])
+    trainer._init_state()
+    now = trainer.model.state_dict()
+    if not all(torch.equal(now[k], v) for k, v in saved.items()):
+        fail("checkpoint_train --epoch 1 did not load epoch 1's checkpoint")
+    cli_run("cli.checkpoint_train --epoch 1",
+            lambda _: finish(trainer, val_loader, nl), None, res)
+    print(f"checkpoint_train --epoch 1 resumed from "
+          f"{os.path.basename(first['checkpoint'])} bit for bit", flush=True)
+    del first, trainer, saved, now
+    torch.cuda.empty_cache()
+
+
+def write_legacy_shards(path: str):
+    """Two .npz ticker shards of 16 TempStock-shaped rows at the CLI's
+    widths."""
+    from meant_tpu_torch.data.datasets import synthetic_tempstock
+    for i in range(2):
+        np.savez(os.path.join(path, f"ticker{i}.npz"), **synthetic_tempstock(
+            n=BATCH, lag=LAG, seq=PAPER_SEQ, channels=4, size=IMAGE,
+            vocab=64000))
+
+
+def other_harnesses(res, d: str):
+    """in_loop_genia -js 2, hug_pretrain_mlm with and without --fixed_loss,
+    hug_train -t classification -mn bertweet, run_other_models -mn
+    meant_tweet and train_legacy over .npz shards written here, each at its
+    CLI defaults on a small synthetic set, on the card."""
+    from meant_tpu_torch.cli import (hug_pretrain_mlm, hug_train,
+                                     in_loop_genia, run_other_models,
+                                     train_legacy)
+    small = ["-ne", "1", "-tb", str(BATCH), "--synthetic_n",
+             str(NER_CLI_ROWS), "-fp", d]
+    cli_run("cli.in_loop_genia -js 2", in_loop_genia.main,
+            ["-rid", "smoke", "-js", "2", *small], res)
+    for extra in ([], ["--fixed_loss"]):
+        cli_run(" ".join(["cli.hug_pretrain_mlm", *extra]),
+                hug_pretrain_mlm.main,
+                ["-rid", "smoke", "-b", str(BATCH), *small, *extra], res)
+    cli_run("cli.hug_train -t classification -mn bertweet", hug_train.main,
+            ["-rid", "smoke", "-t", "classification", "-mn", "bertweet",
+             *small], res)
+    out = cli_run("cli.run_other_models -mn meant_tweet",
+                  run_other_models.main,
+                  ["-rid", "smoke", "-mn", "meant_tweet", *small], res)
+    if out["trainer"].seed != 42:
+        fail("run_other_models did not pin seed 42")
+    shards = os.path.join(d, "shards")
+    os.makedirs(shards)
+    write_legacy_shards(shards)
+    cli_run("cli.train_legacy", train_legacy.main,
+            ["-rid", "smoke", "--data_dir", shards, *small], res)
+    torch.cuda.empty_cache()
+
+
+def hf_roberta_state_dict(cfg: dict, seed: int) -> dict:
+    """An HF RobertaModel state dict (no prefix, a pooler) at `cfg`'s
+    geometry with a 130-row position table, drawn N(0, 0.02^2) on the card
+    from `seed` (norm weights around 1), as CPU tensors."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, ff = cfg["hidden_size"], 4 * cfg["hidden_size"]
+
+    def draw(*shape, base=0.0):
+        return (base + 0.02 * torch.randn(shape, generator=gen,
+                                          device="cuda")).cpu()
+
+    sd = {"embeddings.word_embeddings.weight": draw(cfg["vocab_size"], d),
+          "embeddings.position_embeddings.weight": draw(130, d),
+          "embeddings.token_type_embeddings.weight": draw(1, d),
+          "embeddings.LayerNorm.weight": draw(d, base=1.0),
+          "embeddings.LayerNorm.bias": draw(d),
+          "pooler.dense.weight": draw(d, d), "pooler.dense.bias": draw(d)}
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"encoder.layer.{i}."
+        for name, (n_out, n_in) in (
+                ("attention.self.query", (d, d)),
+                ("attention.self.key", (d, d)),
+                ("attention.self.value", (d, d)),
+                ("attention.output.dense", (d, d)),
+                ("intermediate.dense", (ff, d)), ("output.dense", (d, ff))):
+            sd[f"{p}{name}.weight"] = draw(n_out, n_in)
+            sd[f"{p}{name}.bias"] = draw(n_out)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"{p}{name}.weight"] = draw(d, base=1.0)
+            sd[f"{p}{name}.bias"] = draw(d)
+    return sd
+
+
+def port_key(hf_key: str) -> str:
+    for a, b in HF_TO_PORT:
+        hf_key = hf_key.replace(a, b)
+    return hf_key
+
+
+def check_grafted(model, file_sd: dict, keys: dict, label: str) -> int:
+    """Every `keys` entry (file key -> model key) of the model equals the
+    file's tensor bit for bit (a bf16 tensor widened to fp32). Returns how
+    many were held."""
+    own = model.state_dict()
+    for src, dst in keys.items():
+        want = file_sd[src].to(device=own[dst].device, dtype=torch.float32)
+        if not torch.equal(own[dst], want):
+            fail(f"{label}: {dst} is not the file's {src}")
+    print(f"{label}: {len(keys)} grafted tensors equal the file's bit for "
+          f"bit before the first step", flush=True)
+    return len(keys)
+
+
+def roberta_tweet_pretrained(res, d: str) -> int:
+    """cli.hug_train -mn roberta_tweet -nc 15 --pretrained true -cl DIR at
+    the config's widths, from a roberta_tweet.bin written here (`roberta.`
+    keys, a 130-row position table, a pooler the model has not): the
+    backbone equals the file bit for bit before the first step, one epoch
+    trains with one A1 a step and saves. Returns the parameter count."""
+    from meant_tpu_torch.cli import hug_train
+    from meant_tpu_torch.cli.in_loop_genia import finish
+    sd = {f"roberta.{k}": v
+          for k, v in hf_roberta_state_dict(ROBERTA_TWEET, 7).items()}
+    path = os.path.join(d, "roberta_tweet.bin")
+    t0 = time.perf_counter()
+    torch.save(sd, path)
+    write_s = time.perf_counter() - t0
+    argv = ["-rid", "smoke", "-mn", "roberta_tweet", "-nc", "15",
+            "--pretrained", "true", "-cl", d, "-tb", str(BATCH), "-ne", "1",
+            "--synthetic_n", str(NER_CLI_ROWS), "-fp", d]
+    t0 = time.perf_counter()
+    _, trainer, test_loader, nl = hug_train.prepare(argv)
+    trainer._init_state()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    held = check_grafted(trainer.model, sd, {
+        k: port_key(k) for k in sd if "pooler" not in k},
+        "hug_train --pretrained (roberta_tweet.bin)")
+    del sd
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = cli_run("cli.hug_train -mn roberta_tweet",
+                  lambda _: finish(trainer, test_loader, nl), None, res)
+    peak = torch.cuda.max_memory_allocated()
+    if out["checkpoint"] is None or not os.path.exists(out["checkpoint"]):
+        fail("hug_train -mn roberta_tweet saved no checkpoint")
+    steps = trainer.optimizer.step_count
+    batch = to_card(next(iter(trainer.train_data)))
+    res["roberta_tweet"] = {
+        "n_params": n_params, "grafted": held, "peak_memory_bytes": peak,
+        "bin_write_s": write_s, "graft_load_s": load_s, "steps": steps,
+        "step_ms": host_ms(lambda: trainer.train_step(batch)),
+        "step_profile": profile_calls(lambda: trainer.train_step(batch), 1,
+                                      "step")}
+    print(f"hug_train -mn roberta_tweet: {n_params} parameters, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, the .bin written in {write_s:.1f} s "
+          f"and grafted in {load_s:.1f} s, a step "
+          f"{res['roberta_tweet']['step_ms']:.3f} ms (host clock)",
+          flush=True)
+    del out, trainer, batch
+    torch.cuda.empty_cache()
+    return n_params
+
+
+def write_safetensors(path: str, tensors: dict):
+    """The safetensors format, written here (no package): an 8-byte
+    little-endian header length, the JSON header (dtype, shape, byte
+    range of each tensor, padded with spaces to 8 bytes), the raw bytes."""
+    import struct
+    names = {torch.float32: "F32", torch.bfloat16: "BF16"}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.contiguous().cpu()
+        raw = (t.view(torch.uint16) if t.dtype == torch.bfloat16
+               else t).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def write_bertweet_cache(root: str, sd: dict, shards: int = 3):
+    """vinai/bertweet-base in the hub layout: refs/main naming a snapshot
+    with config.json, `shards` safetensors files and their index."""
+    mdir = os.path.join(root, "models--vinai--bertweet-base")
+    snap = os.path.join(mdir, "snapshots", "smoke")
+    os.makedirs(snap)
+    os.makedirs(os.path.join(mdir, "refs"))
+    with open(os.path.join(mdir, "refs", "main"), "w") as f:
+        f.write("smoke")
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump(BERTWEET, f)
+    keys = sorted(sd)
+    per = -(-len(keys) // shards)
+    weight_map = {}
+    for i in range(shards):
+        fname = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        part = {k: sd[k] for k in keys[i * per:(i + 1) * per]}
+        write_safetensors(os.path.join(snap, fname), part)
+        weight_map.update({k: fname for k in part})
+    with open(os.path.join(snap, "model.safetensors.index.json"), "w") as f:
+        json.dump({"weight_map": weight_map}, f)
+
+
+def hf_cache_grafts(res, d: str):
+    """A hub-layout vinai/bertweet-base written here (3 safetensors shards,
+    the word table in bf16) grafted by cli.in_loop_train --hf_cache into -mn
+    bertweet --num_heads 12 (the whole backbone) and -mn meant (the
+    embedding): bit for bit before the first step, then one epoch (one A1
+    a step, no flash kernel at s=128)."""
+    from meant_tpu_torch.cli import in_loop_train
+    sd = hf_roberta_state_dict(BERTWEET, 8)
+    words = "embeddings.word_embeddings.weight"
+    sd[words] = sd[words].to(torch.bfloat16)
+    root = os.path.join(d, "hub")
+    write_bertweet_cache(root, sd)
+    flows = {
+        "bertweet": (["-mn", "bertweet", "--num_heads", "12"],
+                     {k: "bertweet." + port_key(k) for k in sd}),
+        "meant": (["-mn", "meant"],
+                  {k: "embedding." + port_key(k)[len("embeddings."):]
+                   for k in sd if k.startswith("embeddings.")})}
+    for name, (extra, keys) in flows.items():
+        argv = ["-rid", "smoke", *extra, "--hf_cache", root, "-ne", "1",
+                "-tb", str(BATCH), "--synthetic_n", str(CACHE_ROWS), "-fp",
+                d, "-lrst", "constant"]
+        trainer = in_loop_train.prepare(argv)
+        trainer._init_state()
+        held = check_grafted(trainer.model, sd, keys,
+                             f"in_loop_train -mn {name} --hf_cache")
+
+        def train(_, trainer=trainer):
+            results = trainer.train()
+            results["trainer"] = trainer
+            return results
+
+        label = f"cli.in_loop_train -mn {name} --hf_cache"
+        cli_run(label, train, None, res)
+        res[label]["grafted"] = held
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def run_ner(record) -> dict:
+    """Phase 14: bench.py's ner cell through ner_trainer; hug_train -mn
+    roberta_tweet at 1024 x 24 from a pretrained .bin; tweet7's CRF; the
+    other harnesses; the hub cache grafted by --hf_cache; A1 at the two new
+    parameter counts, clipped and with no norm. Returns what the timing
+    rows report."""
+    t0 = time.perf_counter()
+    res = {}
+    record["ner"] = res
+    ner = res.setdefault("bench_ner", {})
+    launches = learn_ner(ner)
+    cli = res.setdefault("cli", {})
+    with tempfile.TemporaryDirectory() as d:
+        n_tweet = roberta_tweet_pretrained(cli, d)
+        tweet7_crf(cli, d)
+        checkpoint_resume(cli, d)
+        other_harnesses(cli, d)
+        hf_cache_grafts(cli, d)
+    out = {"a1": {}}
+    for name, n, steps in (("ner", ner["n_params"], launches),
+                           ("roberta_tweet", n_tweet,
+                            cli["roberta_tweet"]["steps"])):
+        err = max(check_adamw(res.setdefault(f"a1 {name}", {}), n),
+                  check_adamw(res.setdefault(f"a1 {name} no clip", {}), n,
+                              clip=False))
+        out["a1"][name] = (n, steps, err)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"phase ner: {res['wall_s']:.1f} s", flush=True)
+    return out
+
+
 # ---- phase 7: timing ---------------------------------------------------
 
 def attention_cost(c, backward: bool = False) -> tuple:
@@ -3331,7 +3806,7 @@ def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches,
 
 def time_kernels(record, errors, launches_by_shape, bwd_errors,
                  train_counts, a1_err, n_params, paper, pretrain, zoo,
-                 hf_vqa):
+                 hf_vqa, ner):
     """The resident rows (R1 + K1, K2, R1) at the flagship's two shapes, at
     the paper generation's s=128, at the pretrainers' BH=128 shapes, at
     meant_tweet_price's s=128, meant_mosi's s=50 (xPos on 30 features,
@@ -3385,20 +3860,26 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
                           zoo["timesformer"]["A1"], zoo["a1_err"], gen))
     for name, (count, launches, err) in hf_vqa["a1"].items():
         rows.append(adamw_row(f"adamw[{name}]", count, launches, err, gen))
+    for name, (count, launches, err) in ner["a1"].items():
+        # the NER trainer's A1 runs with no norm (clip_norm=None)
+        rows.append(adamw_row(f"adamw[{name}]", count, launches, err, gen,
+                              clip=False))
     record["kernels"] = rows
     return rows
 
 
-def adamw_row(name, n_params, launches, err, gen, mu_bf16=False):
-    """A1 over n_params (with a bf16 first moment when mu_bf16): its ms,
-    its plain version's and torch.optim.AdamW(fused=True)'s (fp32
-    moments: torch has no bf16 one)."""
+def adamw_row(name, n_params, launches, err, gen, mu_bf16=False,
+              clip=True):
+    """A1 over n_params (with a bf16 first moment when mu_bf16; with no
+    norm, as the NER trainer runs it, when not clip): its ms, its plain
+    version's and torch.optim.AdamW(fused=True)'s (fp32 moments: torch has
+    no bf16 one)."""
     from meant_tpu_torch.ops.adamw import (adamw_reference, update_scalars,
                                            adamw_update)
     p, g, m, v = adamw_case(n_params, gen)
     if mu_bf16:
         m = m.to(torch.bfloat16)
-    norm = torch.linalg.vector_norm(g)
+    norm = torch.linalg.vector_norm(g) if clip else None
     h = update_scalars(coupled=False, mu_bf16=mu_bf16,
                        **{k: v_ for k, v_ in ADAMW_ARGS.items()
                           if k != "max_norm"})
@@ -3417,7 +3898,7 @@ def adamw_row(name, n_params, launches, err, gen, mu_bf16=False):
         "scripts/probe_fused_adamw.py:59", launches, err, ms, plain_ms,
         library_ms, (24 if mu_bf16 else 28) * n_params, 20 * n_params,
         PEAK_FP32_FLOPS, params=n_params, dtype="float32",
-        m_dtype="bfloat16" if mu_bf16 else "float32")
+        m_dtype="bfloat16" if mu_bf16 else "float32", clipped=clip)
     del p, g, m, v, param, library
     torch.cuda.empty_cache()
     return row
@@ -3668,9 +4149,10 @@ def main(argv=None) -> int:
     zoo = run_zoo(record)
     shapes = run_shapes(record, record["n_params"])
     hf_vqa = run_hf_vqa(record)
+    ner = run_ner(record)
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
                         a1_err, record["n_params"], paper, pretrain, zoo,
-                        hf_vqa)
+                        hf_vqa, ner)
     at = [r["name"] for r in rows].index("adamw")
     rows[at:at] = time_long_kernels(long_errors, long_counts)  # before A1
     rows += time_shapes(shapes, record["n_params"])

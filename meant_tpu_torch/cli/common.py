@@ -7,6 +7,8 @@ JAX CLI."""
 from __future__ import annotations
 
 import argparse
+import json
+import os
 
 import numpy as np
 import torch
@@ -103,9 +105,14 @@ def base_parser() -> argparse.ArgumentParser:
     p.add_argument("--logits_head", type=str2bool, nargs="?", const=True,
                    default=False,
                    help="classifier emits logits instead of sigmoid outputs")
-    for flag in ("--buckets", "--hf_cache"):
-        p.add_argument(flag, type=str, default=None,
-                       help="not ported yet: raises if given")
+    p.add_argument("--buckets", type=str, default=None,
+                   help="not ported yet: raises if given")
+    p.add_argument("--hf_cache", type=str, default=None,
+                   help="local HuggingFace cache (hub layout or snapshot "
+                        "directory): initialise from its weights as the "
+                        "reference's from_pretrained flow does "
+                        "(utils/hf_cache.hf_graft); nothing is downloaded, "
+                        "and a missing cache raises")
     p.add_argument("--fsdp", type=str2bool, nargs="?", const=True,
                    default=False, help="not ported yet: raises if set")
     p.add_argument("--mu_bf16", type=str2bool, nargs="?", const=True,
@@ -139,7 +146,7 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-UNPORTED_FLAGS = ("buckets", "hf_cache", "fsdp")
+UNPORTED_FLAGS = ("buckets", "fsdp")
 # the models that take --scan_layers / --remat
 # (meant_tpu/cli/common.py:221-230)
 SCAN_MODELS = ("meant", "meant_src", "meant_vision", "meant_tweet",
@@ -163,6 +170,30 @@ def reject_stack_flags(args, harness: str) -> None:
     if getattr(args, "scan_layers", False) or getattr(args, "remat", False):
         raise SystemExit(f"--scan_layers/--remat are not supported by the "
                          f"{harness} harness (no meant-family towers)")
+
+
+def split_train_val_test(data: dict):
+    """(train, val, test) of a dict of arrays in contiguous slices, as the
+    JAX package splits the NER sets: the first n // 10 rows (at least 1)
+    validate, the next as many test, the rest train; on a set too small
+    for three slices the val slice doubles as test."""
+    n = len(next(iter(data.values())))
+    n_val = max(n // 10, 1)
+    n_test = n_val if n > 2 * n_val else 0
+    val = {k: v[:n_val] for k, v in data.items()}
+    test = ({k: v[n_val:n_val + n_test] for k, v in data.items()}
+            if n_test else val)
+    train = {k: v[n_val + n_test:] for k, v in data.items()}
+    return train, val, test
+
+
+def load_config(name: str) -> dict:
+    """A model configuration of the package's `configs/<name>.json` (a
+    copy of the JAX package's, the reference's `src/hug/configs`)."""
+    path = os.path.join(os.path.dirname(__file__), "..", "configs",
+                        f"{name}.json")
+    with open(path) as f:
+        return json.load(f)
 
 
 # the positional --model_name values; train.classify.model_inputs refuses

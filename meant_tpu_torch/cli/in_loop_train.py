@@ -11,13 +11,19 @@ Data (`cli.common.dataset_arrays`): with --data_dir, the TempStock-small
 generation reads. Without it, the paper generation gets a synthetic
 TempStock-shaped set and meant_src a synthetic kwargs-family set
 (`--synthetic_n` rows). Either is split 60/20/20 as the reference splits.
-`-p true -ptm PATH` grafts the encoder towers and the embedding of a
-pretraining checkpoint (`cli.pretrain_mlm`, `cli.pretrain_mim`) into the
-fresh model before the first step (`train.checkpoint.graft`).
+`--hf_cache DIR` initialises the model from a local HuggingFace cache
+(`utils.hf_cache.hf_graft`: bertweet's whole backbone into `-mn bertweet`,
+ViLT's and VisualBERT's checkpoints with bertweet's word table into `vilt`
+and `vl_bert`, bertweet's embedding into the meant family; a missing cache
+raises FileNotFoundError, a head count other than the model's a
+ValueError). `-p true -ptm PATH` then grafts the encoder towers and the
+embedding of a pretraining checkpoint (`cli.pretrain_mlm`,
+`cli.pretrain_mim`) over that (`train.checkpoint.graft`); both land
+before the first step.
 `--remat {full,dots}` and `--scan_layers` reach the meant-family towers
 (nn/stack.py); another `-mn` refuses them. `--mu_bf16` stores the first
-Adam moment in bf16 (A1's bf16-m variant). --buckets, --hf_cache and
---fsdp are not ported yet and raise.
+Adam moment in bf16 (A1's bf16-m variant). --buckets and --fsdp are not
+ported yet and raise.
 The run trains on the card unless --device names another device, saves the
 checkpoint after training and evaluates the test split.
 """
@@ -34,12 +40,14 @@ from meant_tpu_torch.data.datasets import split_arrays
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import meant_trainer
+from meant_tpu_torch.utils.hf_cache import hf_graft
 
 
 def prepare(argv=None) -> meant_trainer:
-    """The CLI's trainer, its model built and, with `-p true -ptm PATH`,
-    the checkpoint's towers and embedding grafted in as its `init_params`
-    (loaded when training starts)."""
+    """The CLI's trainer, its model built and, with `--hf_cache` and
+    `-p true -ptm PATH`, the cache's weights and then the checkpoint's
+    towers and embedding grafted in as its `init_params` (loaded when
+    training starts)."""
     args = base_parser().parse_args(argv)
     refuse_unported(args)
     if args.image_only and args.language_only:
@@ -65,10 +73,18 @@ def prepare(argv=None) -> meant_trainer:
         "test_model": args.test_model, "seed": args.seed,
         "mu_dtype": torch.bfloat16 if args.mu_bf16 else None,
     })
+    if args.hf_cache:
+        # the reference's from_pretrained init, from a local cache
+        sd = model.state_dict()
+        trainer.init_params = {**sd, **hf_graft(
+            args.model_name, sd, args.num_encoders, args.num_heads,
+            cache_dir=args.hf_cache)}
+        print(f"initialized {args.model_name} from local HF cache "
+              f"{args.hf_cache}")
     if args.pretrained and args.pretrained_model:
         restored = ckpt.restore(args.pretrained_model, trainer.device)
-        trainer.init_params = ckpt.graft(model.state_dict(),
-                                         restored["params"])
+        trainer.init_params = ckpt.graft(
+            trainer.init_params or model.state_dict(), restored["params"])
     return trainer
 
 

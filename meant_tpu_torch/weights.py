@@ -20,7 +20,8 @@ numpy arrays and returns the port's `state_dict`:
   and Flax `nn.Embed`'s `embedding`) become `<name>.weight`; `freqs`
   buffers, `temp_embedding`, the cls tokens and embeddings
   (`txt_classtkn`, `img_classtkn`, `cls_token`, `cls_emb`), the
-  TimeSformer's `pos_emb` and the tied MLM head's `decoder_bias` copy as
+  TimeSformer's `pos_emb`, the tied MLM head's `decoder_bias` and the
+  CRF's `transitions`, `start_transitions` and `end_transitions` copy as
   they are.
 * `languageEncoders_3` becomes `languageEncoders.3` (a ModuleList), and a
   TimeSformer layer's `time_attn_3` (and its other components) becomes
@@ -54,9 +55,11 @@ _EMBED_TABLES = ("word_embeddings", "position_embeddings",
                  "visual_token_type_embeddings")
 # leaves whose torch key is their JAX path: rotary buffers, the temporal
 # encoder's positional parameter, the cls tokens and embeddings, the
-# TimeSformer's positional parameter and the tied MLM head's bias
+# TimeSformer's positional parameter, the tied MLM head's bias and the
+# CRF's transition scores
 _AS_THEY_ARE = ("freqs", "temp_embedding", "txt_classtkn", "img_classtkn",
-                "cls_token", "cls_emb", "pos_emb", "decoder_bias")
+                "cls_token", "cls_emb", "pos_emb", "decoder_bias",
+                "transitions", "start_transitions", "end_transitions")
 _TOWERS = ("languageEncoders", "visionEncoders")
 _LIST_RE = re.compile(r"^(languageEncoders|visionEncoders)_(\d+)$")
 _TS_RE = re.compile(r"^(%s)_(\d+)$" % "|".join(TS_COMPONENTS))

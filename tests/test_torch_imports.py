@@ -1,5 +1,7 @@
 """Import hygiene of the port: no module of meant_tpu_torch and not
-chip_smoke.py imports jax, flax, optax or anything of meant_tpu."""
+chip_smoke.py imports jax, flax, optax, safetensors, transformers or
+anything of meant_tpu (the card's machine has neither safetensors nor
+transformers: the port reads the safetensors format itself)."""
 
 import ast
 from pathlib import Path
@@ -7,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "meant_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "meant_tpu", "safetensors",
+             "transformers")
 FILES = sorted((ROOT / "meant_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 

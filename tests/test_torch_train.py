@@ -261,7 +261,18 @@ def test_nan_loss_raises(monkeypatch):
                                   ["--buckets", "128,512"],
                                   ["-mn", "meantTweetPrice"],
                                   ["--hf_cache", "somewhere"]])
-def test_train_cli_refuses_what_is_not_ported(flag):
+def test_train_cli_refuses_what_is_not_ported(flag, tmp_path):
+    if flag[0] == "--hf_cache":
+        # ported: a cache that is not there raises in both packages (JAX's
+        # CLI raises from its hf_graft, called here with the CLI's
+        # arguments: its CLI first spends some 10 s initialising a model)
+        from meant_tpu.utils.hf_cache import hf_graft as j_hf_graft
+        missing = str(tmp_path / flag[1])
+        with pytest.raises(FileNotFoundError, match="no local cache"):
+            in_loop_train.main(TINY + ["-rid", "x", "--hf_cache", missing])
+        with pytest.raises(FileNotFoundError, match="no local cache"):
+            j_hf_graft("meant_src", {}, 1, cache_dir=missing)
+        return
     with pytest.raises(NotImplementedError):
         in_loop_train.main(TINY + ["-rid", "x"] + flag)
 
