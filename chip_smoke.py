@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, run in the order 1-6, 9, 10, 11, 12, 13, 14, 7, 8; any failure
+Phases, run in the order 1-6, 9-15, 7, 8; any failure
 raises and the script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
@@ -207,6 +207,31 @@ raises and the script exits non-zero:
               and -mn meant, bit for bit, then one epoch each; A1 against
               its plain version at the two new parameter counts, clipped
               and with no norm.
+15. buckets -- the host data path at the flagship's width (fixed_proj=
+              True), bench.py's src_bucketed geometry: R1 + K1 and R1 + K2
+              at s=256 and 384 causal xPos, BH=640, fp32 and bf16, against
+              their plain versions; 256 rows (16 replicated) of 64-512
+              tokens drawn from RandomState(7) through BucketedLoader(
+              shuffle=True), buckets 128 / 256 / 384 / 512 (rows and steps
+              per bucket asserted; a bucket that cannot fill a batch
+              fails), two epochs of meant_trainer.train() with exactly 24
+              R1, 12 K1 and 12 K2 at the bucket's s and 12 each at 196 and
+              1 A1 a step, the loss finite and falling over the second
+              epoch; the same rows at s=512 only beside them (samples/s);
+              one profiled step of each bucket and of its rows at s=512
+              (busy, wall, idle share); a step under
+              utils.observability.profile_trace, whose trace must name K1
+              and K2; checkpoint.save(block=False) then an A1 step at once:
+              the file holds the pre-step parameters and moments bit for
+              bit; each bucket's step gradients at 2 encoders against the
+              plain attention; cli.in_loop_train -mn meant --flash true
+              --seq_len 128 --data_dir --buckets 32,64,96,128 on 80
+              TempStock-small rows of 10-128 tokens (exact launches by
+              bucket, the background save restoring bit for bit, the
+              confusion PNG drawn or skipped as matplotlib is present)
+              and cli.eval; Prefetcher(workers=4) over charts read from an
+              np.memmap equal to workers=1, a worker's error raised in the
+              consumer; the native collate library built.
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
@@ -220,7 +245,8 @@ raises and the script exits non-zero:
               meant's, the pretrainers', meant_timesformer's and phase
               13's parameter counts, and with no norm at phase 14's; phase
               12's shapes, and A1 with a bf16 first moment); R1 + K1 and K2 also at meant_vqa's s=40 and
-              s=196 (BH=512) and the VQA CLI's s=24;
+              s=196 (BH=512), the VQA CLI's s=24 and phase 15's s=256
+              and 384 (BH=640);
               R1 has rows of its own at each shape. Beside the event time
               of the resident rows, their device time with the host out of
               the way (at s=128 a call launches less work than the host
@@ -500,15 +526,16 @@ RESIDENT_CASES = (("text", "text", SEQ, MAIN_BH),
                   ("text_s24_bh128", "text", VQA_CLI_SEQ, PRETRAIN_BH))
 
 
-def check_kernel(record):
+def check_kernel(record, cases=RESIDENT_CASES, key="kernel_vs_plain"):
     """R1 + K1 (flash_mha's resident forward) against flash_mha_reference
-    at the main paths' shapes and the masked text case, fp32 and bf16."""
+    at the main paths' shapes and the masked text case (or at `cases`,
+    recorded under `key`), fp32 and bf16."""
     from meant_tpu_torch.ops.flash.kernel import K1_BF16_REL_L2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     errors, rels = {}, {}
-    for case, kind, s, bh in RESIDENT_CASES:
+    for case, kind, s, bh in cases:
         for dtype in (torch.float32, torch.bfloat16):
             c = attention_case(kind, dtype, gen, s=s, bh=bh)
             out = run_kernel(c)
@@ -534,8 +561,8 @@ def check_kernel(record):
                      f"max abs err {err})")
             errors[name], rels[name] = err, rel
             del c, out, ref
-    record["kernel_vs_plain_max_abs_err"] = errors
-    record["kernel_vs_plain_rel_l2"] = rels
+    record[f"{key}_max_abs_err"] = errors
+    record[f"{key}_rel_l2"] = rels
     return errors
 
 
@@ -570,14 +597,15 @@ def run_bwd_plain(c):
                                    causal=c["causal"])
 
 
-def check_backward(record):
+def check_backward(record, cases=RESIDENT_CASES, key="k2_vs_plain"):
     """K2 against flash_mha_bwd_reference at the main paths' shapes (and the
-    masked text case), fp32 and bf16, gradient by gradient."""
+    masked text case; or at `cases`, recorded under `key`), fp32 and bf16,
+    gradient by gradient."""
     from meant_tpu_torch.ops.flash.kernel import (BWD_BF16_ATOL,
                                                   BWD_BF16_REL_L2)
     gen = torch.Generator(device="cuda").manual_seed(2)
     errors, rels = {}, {}
-    for case, kind, s, bh in RESIDENT_CASES:
+    for case, kind, s, bh in cases:
         for dtype in (torch.float32, torch.bfloat16):
             c = backward_case(kind, dtype, gen, s=s, bh=bh)
             got = run_bwd_kernel(c)
@@ -615,8 +643,8 @@ def check_backward(record):
                 worst = max(worst, err)
             errors[name] = worst
             del c, got, want
-    record["k2_vs_plain_max_abs_err"] = errors
-    record["k2_vs_plain_rel_l2"] = rels
+    record[f"{key}_max_abs_err"] = errors
+    record[f"{key}_rel_l2"] = rels
     return errors
 
 
@@ -1447,15 +1475,24 @@ def learn_paper(res):
     return train["launches"]
 
 
-def write_tempstock(path: str, n: int, seed: int, seq: int = PAPER_SEQ):
+def write_tempstock(path: str, n: int, seed: int, seq: int = PAPER_SEQ,
+                    min_len: int = None):
     """A TempStock-small set at full shape in its layout: graphs_5.npy (n,
     5, 4, 224, 224) fp32, tweets_5.npy (n, 5, seq) int64 (128 tokens a day
     unless `seq` says otherwise) with trailing pad id 1 where
     attention_masks_5.npy is 0, macds_5.npy (n, 5, 4) and
-    y_resampled_5.npy (n,)."""
+    y_resampled_5.npy (n,). Each day holds 1-seq tokens, or with `min_len`
+    each row's last day min_len-seq tokens and its other days
+    min_len up to that many (a row's content length spread evenly)."""
     import os
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(1, seq + 1, size=(n, LAG))
+    if min_len is None:
+        lengths = rng.integers(1, seq + 1, size=(n, LAG))
+    else:
+        top = rng.integers(min_len, seq + 1, size=(n, 1))
+        lengths = np.minimum(rng.integers(min_len, seq + 1, size=(n, LAG)),
+                             top)
+        lengths[:, -1] = top[:, 0]
     masks = (np.arange(seq) < lengths[..., None]).astype(np.float32)
     tweets = np.where(masks > 0, rng.integers(2, 64000, (n, LAG, seq)), 1)
     arrays = {
@@ -3711,6 +3748,480 @@ def run_ner(record) -> dict:
     return out
 
 
+# ---- phase 15: length-bucketed training and the host data path ----------
+
+# bench.py's src_bucketed cell (bench.py:242-292): the flagship fed by the
+# BucketedLoader at b=16 over n=256 rows (16 rows replicated) whose
+# content lengths are drawn uniform 64-512 from RandomState(7)
+# (meant_tpu_torch/configs/length_hist_uniform64_512.json), buckets 128 /
+# 256 / 384 / 512; the text tower runs causal xPos at the bucket's length.
+BUCKETS = (128, 256, 384, 512)
+BUCKET_ROWS = 256
+BUCKET_EPOCHS = 2          # the loss must fall over the second
+BUCKET_GRAD_ENCODERS = 2   # the plain attention's step at 12 is not needed
+BUCKET_CASES = (("text_s256", "text", 256, MAIN_BH),
+                ("text_s384", "text", 384, MAIN_BH))
+# the CLI on 80 TempStock-small rows whose longest day holds 10-128 tokens:
+# 48 training rows over four buckets of 32 tokens, batches of 4
+BUCKET_CLI_ARGS = ["--buckets", "32,64,96,128"]
+BUCKET_CLI_BATCH = 4
+BUCKET_CLI_MIN_LEN = 10
+PREFETCH_ROWS = 64         # charts read from a memmap: 193 MB
+PREFETCH_WORKERS = 4
+
+
+def bucketed_rows() -> dict:
+    """bench.py's src_bucketed rows: the learn phase's 16 rows replicated
+    to BUCKET_ROWS, with `attention_masks` of RandomState(7)'s lengths on
+    every day. meant_src reads `attention_mask`, which these rows lack, as
+    bench.py's do: the flash path drops the mask either way."""
+    base = train_batch(BATCH, seed=1)
+    del base["attention_mask"]
+    data = {k: np.repeat(v, BUCKET_ROWS // BATCH, axis=0)
+            for k, v in base.items()}
+    lengths = np.random.RandomState(7).randint(64, SEQ + 1,
+                                               size=BUCKET_ROWS)
+    data["attention_masks"] = np.ascontiguousarray(np.broadcast_to(
+        (np.arange(SEQ)[None, None, :] < lengths[:, None, None]),
+        (BUCKET_ROWS, LAG, SEQ))).astype(np.float32)
+    return data
+
+
+def bucket_step_want(s: int, encoders: int = ENCODERS) -> dict:
+    """The launches of one training step at text length s: R1, K1 and K2
+    once per encoder of each tower (text at s causal xPos, charts at 196),
+    one A1."""
+    shapes = {shape_key(s, True): encoders,
+              shape_key(N_PATCHES, False): encoders}
+    return {"R1": 2 * encoders, "K1": 2 * encoders, "K2": 2 * encoders,
+            "A1": 1, "K3": 0, "K4": 0, "K5": 0, "K1_by_shape": shapes,
+            "K2_by_shape": dict(shapes),
+            "R1_by_shape": {f"s{s}": encoders, f"s{N_PATCHES}": encoders}}
+
+
+def count_delta(before: dict, after: dict) -> dict:
+    """read_counts() after minus before, by-shape entries that moved only."""
+    out = {}
+    for k, v in after.items():
+        if isinstance(v, dict):
+            moved = {kk: n - before[k].get(kk, 0) for kk, n in v.items()}
+            out[k] = {kk: n for kk, n in moved.items() if n}
+        else:
+            out[k] = v - before[k]
+    return out
+
+
+def counted_steps(trainer, log: list):
+    """trainer.train_step, synchronized, appending (s, ms, launches) of
+    each step to `log`."""
+    step = trainer.train_step
+
+    def counted(batch):
+        s = batch["input_ids"].shape[-1]
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        log.append((s, (time.perf_counter() - t0) * 1e3,
+                    count_delta(before, read_counts())))
+        return out
+    return counted
+
+
+def check_step_log(log, label):
+    for i, (s, _, got) in enumerate(log):
+        want = bucket_step_want(s)
+        if got != want:
+            fail(f"{label}: step {i} at s={s} launched {got}, want {want}")
+
+
+def bucket_batch(data, rows, s):
+    """The rows `rows` of `data` with the sequence arrays cut to s."""
+    return {k: (v[rows][..., :s] if k in ("input_ids", "attention_masks")
+                else v[rows]) for k, v in data.items()}
+
+
+def bucketed_epochs(res, data):
+    """BUCKET_EPOCHS epochs of meant_trainer.train() on BucketedLoader(
+    shuffle=True): rows and steps per bucket, exact launches by shape each
+    step, a finite loss falling over the second epoch; beside the second
+    epoch's samples/s, those of the same rows at s=512 only (every step
+    then costs what a 512-bucket step costs). Returns the trainer, the
+    loader and the epochs' launch counts."""
+    from meant_tpu_torch.data.loader import BucketedLoader
+    from meant_tpu_torch.train.classify import meant_trainer
+    loader = BucketedLoader(data, BATCH, buckets=BUCKETS, shuffle=True)
+    rows_by = {b: len(ix) for b, ix in loader.index.items()}
+    steps_by = {b: n // BATCH for b, n in rows_by.items()}
+    lengths = data["attention_masks"].sum(-1).max(-1)
+    want_rows = {b: sum(1 for n in lengths
+                        if n <= b and not any(n <= c for c in BUCKETS
+                                              if c < b))
+                 for b in BUCKETS}
+    if rows_by != want_rows:
+        fail(f"BucketedLoader's rows by bucket {rows_by}, want {want_rows}")
+    # a bucket too thin for one batch would drop out of the epoch, and the
+    # length mix measured would not be the one labelled (bench.py:279-287)
+    thin = {b: n for b, n in rows_by.items() if n < BATCH}
+    if thin or sorted(rows_by) != list(BUCKETS):
+        fail(f"buckets {thin} cannot fill one batch of {BATCH} (rows by "
+             f"bucket {rows_by})")
+    print(f"BucketedLoader: rows by bucket {rows_by}, steps by bucket "
+          f"{steps_by} ({len(loader)} a epoch)", flush=True)
+    model = build_flagship(flash=True, fixed_proj=True)
+    log = []
+    with tempfile.TemporaryDirectory() as d:
+        trainer = meant_trainer({
+            "model": model, "model_name": "meant_src",
+            "train_loader": loader, "epochs": BUCKET_EPOCHS,
+            "lrst": "constant", "lr": LEARN_LR, "seed": 0,
+            "test_model": False, "file_path": d, "run_id": "buckets"})
+        trainer.train_step = counted_steps(trainer, log)
+        reset_counts()
+        t0 = time.perf_counter()
+        results = trainer.train()
+        epochs_s = time.perf_counter() - t0
+        counts = read_counts()
+    del trainer.train_step           # the class's own method again
+    check_step_log(log, "the bucketed epochs")
+    per_epoch = len(loader)
+    for b in BUCKETS:
+        n = sum(1 for s, _, _ in log if s == b)
+        if n != steps_by[b] * BUCKET_EPOCHS:
+            fail(f"bucket {b} ran {n} steps, want "
+                 f"{steps_by[b] * BUCKET_EPOCHS}")
+    losses = [h["train_loss"] for h in results["history"]]
+    print(f"bucketed epochs: {len(log)} steps in {epochs_s:.1f} s, epoch "
+          f"losses {losses}; launches {counts}", flush=True)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"the bucketed epochs' loss is not finite and falling: "
+             f"{losses}")
+    second = log[per_epoch:]
+    ms_by = {b: statistics.median(ms for s, ms, _ in second if s == b)
+             for b in BUCKETS}
+    bucketed_rate = BATCH * len(second) / sum(ms for _, ms, _ in second) \
+        * 1e3
+    full_rate = BATCH / ms_by[SEQ] * 1e3     # the work bucketing saves
+    print(f"second bucketed epoch: {bucketed_rate:.2f} samples/s (host "
+          f"clock, synchronized steps; median step ms by bucket {ms_by}); "
+          f"the same rows at s=512 only: {full_rate:.2f} samples/s; "
+          f"{bucketed_rate / full_rate:.2f}x", flush=True)
+    res.update({"rows_by_bucket": rows_by, "steps_by_bucket": steps_by,
+                "epoch_losses": losses, "launches": counts,
+                "step_ms_median_by_bucket": ms_by,
+                "bucketed_samples_per_s": bucketed_rate,
+                "s512_only_samples_per_s": full_rate,
+                "step_log": [(s, ms) for s, ms, _ in log]})
+    return trainer, loader, counts
+
+
+def profile_buckets(trainer, loader, data, res):
+    """One profiled step of each bucket and of the same rows at s=512, and
+    one step under the port's profile_trace, whose trace must name K1 and
+    K2."""
+    from meant_tpu_torch.utils.observability import profile_trace
+    prof = {}
+    for b in BUCKETS:
+        rows = loader.index[b][:BATCH]
+        for s in ((b, SEQ) if b != SEQ else (SEQ,)):
+            batch = to_card(bucket_batch(data, rows, s))
+            print(f"bucket {b} rows at s={s}:", flush=True)
+            p = profile_calls(lambda: trainer.train_step(batch), 1,
+                              "step")
+            prof[f"bucket{b}_s{s}"] = {
+                k: p[k] for k in ("wall_ms_per_step",
+                                  "device_busy_ms_per_step",
+                                  "device_idle_share",
+                                  "by_kind_ms_per_step")}
+    res["profile"] = prof
+    batch = to_card(bucket_batch(data, loader.index[256][:BATCH], 256))
+    with tempfile.TemporaryDirectory() as d:
+        with profile_trace(d):
+            trainer.train_step(batch)
+        files = [f for f in os.listdir(d) if f.endswith(".json")]
+        if len(files) != 1:
+            fail(f"profile_trace wrote {files}")
+        with open(os.path.join(d, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kinds = {_kind(e.get("name", "")) for e in events}
+    named = [k for k in ("flash_fwd (K1)", "flash_bwd (K2)") if k in kinds]
+    print(f"profile_trace: {len(events)} events, names {named}", flush=True)
+    if len(named) != 2:
+        fail(f"profile_trace's trace names {named} of K1 and K2")
+    res["trace_events"] = len(events)
+
+
+def background_save(trainer, batch, res):
+    """save(block=False), one more A1 step at once, wait_for_saves: the
+    checkpoint holds the parameters and moments of before the step, bit
+    for bit."""
+    from meant_tpu_torch.train import checkpoint as ckpt
+    opt = trainer.optimizer
+    before = {"params": {k: v.detach().clone() for k, v in
+                         trainer.model.state_dict().items()},
+              "m": opt.m.clone(), "v": opt.v.clone()}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "checkpoint")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(path, {"params": trainer.model.state_dict(),
+                         "opt_state": opt.state_dict()}, block=False,
+                  lane="params")
+        return_ms = (time.perf_counter() - t0) * 1e3
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.wait_for_saves()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        saved = ckpt.restore(path)
+    same = (all(torch.equal(saved["params"][k], v.cpu())
+                for k, v in before["params"].items())
+            and torch.equal(saved["opt_state"]["m"], before["m"].cpu())
+            and torch.equal(saved["opt_state"]["v"], before["v"].cpu()))
+    moved = not torch.equal(opt.m, before["m"])
+    print(f"background save: returned in {return_ms:.1f} ms (host "
+          f"snapshot), written {wait_ms:.1f} ms after the next step; the "
+          f"checkpoint is the pre-step state bit for bit: {same}; the step "
+          f"moved the moments: {moved}", flush=True)
+    if not (same and moved):
+        fail("the background save does not hold the state of before the "
+             "next A1 step")
+    res["background_save"] = {"return_ms": return_ms, "wait_ms": wait_ms}
+
+
+def buckets_through_cli(res):
+    """cli.in_loop_train -mn meant --flash true --data_dir --buckets on
+    TempStock-small rows of 10-128 tokens: R1 + K1 and K2 at each bucket
+    that got a batch, exactly; the background save restores to the
+    trained parameters bit for bit; the confusion PNG drawn, or skipped
+    where matplotlib is missing; cli.eval gives the test confusion."""
+    import importlib.util
+    from meant_tpu_torch.cli import eval as eval_cli
+    from meant_tpu_torch.cli import in_loop_train
+    from meant_tpu_torch.data.loader import BucketedLoader
+    from meant_tpu_torch.train import checkpoint as ckpt
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "data")
+        os.makedirs(data)
+        write_tempstock(data, PAPER_DATA_ROWS, seed=17,
+                        min_len=BUCKET_CLI_MIN_LEN)
+        argv = PAPER_ARGV + ["--data_dir", data, "-ne", "1", "-tb",
+                             str(BUCKET_CLI_BATCH), "-fp", d, "-lrst",
+                             "constant", "-l", str(LEARN_LR)] \
+            + BUCKET_CLI_ARGS
+        reset_counts()
+        results = in_loop_train.main(argv)
+        counts = read_counts()
+        trainer = results["trainer"]
+        loader = trainer.train_loader
+        if not isinstance(loader, BucketedLoader):
+            fail(f"--buckets gave the trainer a {type(loader).__name__}")
+        steps_by = {b: len(ix) // BUCKET_CLI_BATCH
+                    for b, ix in loader.index.items()}
+        steps = sum(steps_by.values())
+        forwards = len(trainer.val_loader) + len(trainer.test_loader)
+        text = {shape_key(b, True): ENCODERS * n
+                for b, n in steps_by.items() if n}
+        want_k2 = dict(text, **{shape_key(N_PATCHES, False):
+                                ENCODERS * steps})
+        want_k1 = dict(want_k2)
+        want_k1[shape_key(PAPER_SEQ, True)] = \
+            want_k1.get(shape_key(PAPER_SEQ, True), 0) + ENCODERS * forwards
+        want_k1[shape_key(N_PATCHES, False)] += ENCODERS * forwards
+        got = {"K1": counts["K1_by_shape"], "K2": counts["K2_by_shape"],
+               "A1": counts["A1"]}
+        print(f"cli.in_loop_train --buckets: steps by bucket {steps_by}, "
+              f"{forwards} evaluation forwards at s={PAPER_SEQ}; launches "
+              f"{got}", flush=True)
+        if (got != {"K1": want_k1, "K2": want_k2, "A1": steps}
+                or counts["K3"] or counts["K4"] or counts["K5"]
+                or counts["R1"] != counts["K1"] or len(text) < 2):
+            fail(f"the bucketed CLI launched {counts}, want K1 {want_k1}, "
+                 f"K2 {want_k2}, A1 {steps}")
+        if results["checkpoint"] is None:
+            fail("the bucketed CLI saved no checkpoint")
+        saved = ckpt.restore(results["checkpoint"], "cuda")["params"]
+        live = trainer.model.state_dict()
+        if set(saved) != set(live) or not all(
+                torch.equal(saved[k], v) for k, v in live.items()):
+            fail("the background save does not restore to the trained "
+                 "parameters")
+        png = os.path.join(d, "output_files", trainer.dataset, "plots",
+                           f"confusion_meant_{trainer.run_id}.png")
+        plotted = os.path.exists(png)
+        if plotted != (importlib.util.find_spec("matplotlib") is not None):
+            fail(f"confusion PNG written: {plotted}, matplotlib present: "
+                 f"{not plotted}")
+        metrics = eval_cli.main(argv + ["-ptm", results["checkpoint"]])
+        if metrics["confusion"] != results["test"]["confusion"]:
+            fail(f"cli.eval's confusion {metrics['confusion']} is not the "
+                 f"trainer's {results['test']['confusion']}")
+    print(f"cli.in_loop_train --buckets: checkpoint restores bit for bit, "
+          f"confusion PNG {'written' if plotted else 'skipped'}, cli.eval "
+          f"gives the test confusion {metrics['confusion']}", flush=True)
+    res["cli"] = {"steps_by_bucket": steps_by, "launches": counts,
+                  "png": plotted, "test": results["test"]}
+    del trainer, results
+    torch.cuda.empty_cache()
+
+
+def prefetch_memmap(res):
+    """Prefetcher(workers=4) over a loader of charts read from an
+    np.memmap delivers workers=1's batches in its order, bit for bit on
+    the card; an error raised in a worker reaches the consumer."""
+    from meant_tpu_torch.data.loader import ArrayLoader, Prefetcher
+    rng = np.random.RandomState(3)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graphs.npy")
+        np.save(path, rng.randn(PREFETCH_ROWS, LAG, 3, IMAGE, IMAGE).astype(
+            np.float32))
+        arrays = {"pixels": np.load(path, mmap_mode="r"),
+                  "input_ids": rng.randint(2, 64000, (PREFETCH_ROWS, LAG,
+                                                      SEQ)).astype(np.int32),
+                  "y": rng.randint(0, 2, PREFETCH_ROWS).astype(np.int32)}
+
+        def epoch(workers):
+            loader = ArrayLoader(arrays, BATCH, shuffle=True, seed=5)
+            t0 = time.perf_counter()
+            out = [{k: v.cpu() for k, v in b.items()}
+                   for b in Prefetcher(loader, "cuda", workers=workers)]
+            return out, (time.perf_counter() - t0) * 1e3
+
+        one, one_ms = epoch(1)
+        many, many_ms = epoch(PREFETCH_WORKERS)
+    same = len(one) == len(many) == PREFETCH_ROWS // BATCH and all(
+        a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        for a, b in zip(one, many))
+
+    class Broken:
+        def __len__(self):
+            return 3
+
+        def __iter__(self):
+            yield {"x": np.zeros(4, np.float32)}
+            yield {"x": np.array(["not a number"], dtype=object)}
+            yield {"x": np.zeros(4, np.float32)}
+
+    got, raised = [], None
+    try:
+        for b in Prefetcher(Broken(), "cuda", workers=PREFETCH_WORKERS):
+            got.append(b)
+    except TypeError as e:
+        raised = e
+    print(f"Prefetcher over a memmap: workers={PREFETCH_WORKERS} "
+          f"{'equal to' if same else 'DIFFERS from'} workers=1 over "
+          f"{len(one)} batches ({many_ms:.1f} vs {one_ms:.1f} ms an epoch); "
+          f"a worker's error reached the consumer after {len(got)} "
+          f"batch(es): {raised!r}", flush=True)
+    if not same or raised is None or len(got) != 1:
+        fail("Prefetcher(workers>1) does not deliver workers=1's batches "
+             "in order, or swallows a worker's error")
+    res["prefetch"] = {"workers": PREFETCH_WORKERS, "ms": many_ms,
+                       "workers1_ms": one_ms}
+
+
+def native_library(res):
+    """The data path's C++ library builds and loads on this machine, and
+    its tokenizer gives the numpy path's ids on space-split text."""
+    from meant_tpu_torch import native
+    if not native.available():
+        fail("the native collate library does not build")
+    texts = [f"w{i} tok{i % 7} $AAPL {'x' * (i % 5)}" for i in range(2000)]
+    t0 = time.perf_counter()
+    ids, mask = native.fnv1a_tokenize(texts, PAPER_SEQ, 64001)
+    lib_ms = (time.perf_counter() - t0) * 1e3
+    lib = native._lib
+    native._lib = None                # the numpy path, once
+    try:
+        native._tried = True
+        t0 = time.perf_counter()
+        ref = native.fnv1a_tokenize(texts, PAPER_SEQ, 64001)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        native._lib = lib
+    if not (np.array_equal(ids, ref[0]) and np.array_equal(mask, ref[1])):
+        fail("the native tokenizer differs from its numpy path on "
+             "space-split text")
+    print(f"native library {native.library_path().name}: built; "
+          f"{len(texts)} texts tokenized in {lib_ms:.2f} ms (numpy path "
+          f"{numpy_ms:.2f} ms), the same ids", flush=True)
+    res["native"] = {"library_ms": lib_ms, "numpy_ms": numpy_ms}
+
+
+def run_buckets(record) -> dict:
+    """Phase 15: R1 + K1 and R1 + K2 at the new bucket lengths, bucketed
+    epochs of the flagship, profiles, a background save against the next
+    A1 step, each bucket's gradients against the plain attention, the CLI
+    with --buckets, the threaded Prefetcher and the native library."""
+    t0 = time.perf_counter()
+    res, marks = {}, {}
+    record["buckets"] = res
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t0 - sum(marks.values())
+
+    errors = check_kernel(res, BUCKET_CASES, "kernel_vs_plain")
+    bwd_errors = check_backward(res, BUCKET_CASES, "k2_vs_plain")
+    mark("kernel checks")
+    data = bucketed_rows()
+    trainer, loader, counts = bucketed_epochs(res, data)
+    mark("bucketed epochs")
+    profile_buckets(trainer, loader, data, res)
+    mark("profiles")
+    background_save(trainer, to_card(bucket_batch(
+        data, loader.index[384][:BATCH], 384)), res)
+    del trainer
+    torch.cuda.empty_cache()
+    mark("background save")
+    res["step_gradients"] = {}
+    model = build_flagship(flash=True, fixed_proj=True,
+                           num_encoders=BUCKET_GRAD_ENCODERS)
+    plain = build_flagship(flash=False, fixed_proj=True,
+                           num_encoders=BUCKET_GRAD_ENCODERS)
+    want = {k: v for k, v in bucket_step_want(
+        SEQ, BUCKET_GRAD_ENCODERS).items() if k in ("R1", "K1", "K2")}
+    for b in BUCKETS:
+        res["step_gradients"][b] = compare_step_gradients(
+            model, to_card(bucket_batch(data, loader.index[b][:GRAD_ROWS],
+                                        b)), want, lambda: plain,
+            f"bucket s={b} step at {BUCKET_GRAD_ENCODERS} encoders")
+    del model, plain
+    torch.cuda.empty_cache()
+    mark("gradients")
+    buckets_through_cli(res)
+    mark("CLI")
+    prefetch_memmap(res)
+    native_library(res)
+    mark("prefetch and native")
+    res["wall_s"] = time.perf_counter() - t0
+    res["wall_s_by_part"] = marks
+    print(f"phase buckets: {res['wall_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in marks.items()) + ")",
+          flush=True)
+    return {"errors": errors, "bwd_errors": bwd_errors, "counts": counts}
+
+
+def time_buckets(buckets) -> list:
+    """The resident rows at the new bucket lengths, s=256 and 384 causal
+    xPos at BH=640, with the bucketed epochs' launches."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rows = []
+    counts = buckets["counts"]
+    for case, kind, s, bh in BUCKET_CASES:
+        c = backward_case(kind, torch.bfloat16, gen, s=s, bh=bh)
+        key = shape_key(s, True)
+        rows += resident_rows(
+            c, f"s{s} causal xPos bucket", counts["K1_by_shape"].get(key, 0),
+            counts["K2_by_shape"].get(key, 0),
+            counts["R1_by_shape"].get(f"s{s}", 0),
+            buckets["errors"][f"{case}/bfloat16"],
+            buckets["bwd_errors"][f"{case}/bfloat16"],
+            buckets["bwd_errors"][f"{case}/bfloat16/rot"])
+        del c
+    return rows
+
+
 # ---- phase 7: timing ---------------------------------------------------
 
 def attention_cost(c, backward: bool = False) -> tuple:
@@ -4150,12 +4661,14 @@ def main(argv=None) -> int:
     shapes = run_shapes(record, record["n_params"])
     hf_vqa = run_hf_vqa(record)
     ner = run_ner(record)
+    buckets = run_buckets(record)
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
                         a1_err, record["n_params"], paper, pretrain, zoo,
                         hf_vqa, ner)
     at = [r["name"] for r in rows].index("adamw")
     rows[at:at] = time_long_kernels(long_errors, long_counts)  # before A1
     rows += time_shapes(shapes, record["n_params"])
+    rows += time_buckets(buckets)
     record["kernels"] = rows
     time_requests(predictor, chunk, record)
     record["profile"] = profile_calls(lambda: predictor.forward(chunk),

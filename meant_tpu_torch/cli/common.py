@@ -146,7 +146,8 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-UNPORTED_FLAGS = ("buckets", "fsdp")
+# --fsdp waits for the parallel layouts (ROADMAP §1 item 4)
+UNPORTED_FLAGS = ("fsdp",)
 # the models that take --scan_layers / --remat
 # (meant_tpu/cli/common.py:221-230)
 SCAN_MODELS = ("meant", "meant_src", "meant_vision", "meant_tweet",
@@ -160,8 +161,8 @@ def refuse_unported(args) -> None:
     for name in UNPORTED_FLAGS:
         if getattr(args, name, None):
             raise NotImplementedError(
-                f"--{name} is not ported to meant_tpu_torch yet (see "
-                f"ROADMAP)")
+                f"--{name} is not ported to meant_tpu_torch yet (the "
+                f"parallel layouts, ROADMAP §1 item 4)")
 
 
 def reject_stack_flags(args, harness: str) -> None:

@@ -40,8 +40,8 @@ from meant_tpu_torch.cli.common import (base_parser, load_config,
                                         split_train_val_test)
 from meant_tpu_torch.cli.in_loop_genia import (finish, load_data,
                                                optimizer_keys)
-from meant_tpu_torch.data.datasets import fnv1a_tokenize
 from meant_tpu_torch.data.loader import ArrayLoader
+from meant_tpu_torch.native import fnv1a_tokenize
 from meant_tpu_torch.train.ner import TokenClassifier, ner_trainer
 from meant_tpu_torch.utils.port import import_hf_roberta
 from meant_tpu_torch.weights import state_dict_from_jax

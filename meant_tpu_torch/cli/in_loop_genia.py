@@ -27,8 +27,8 @@ import torch
 
 from meant_tpu_torch.cli.common import (base_parser, reject_stack_flags,
                                         split_train_val_test)
-from meant_tpu_torch.data.datasets import fnv1a_tokenize
 from meant_tpu_torch.data.loader import ArrayLoader
+from meant_tpu_torch.native import fnv1a_tokenize
 from meant_tpu_torch.train.ner import (TokenClassifier, align_labels,
                                        join_examples, ner_trainer)
 

@@ -20,10 +20,16 @@ ValueError). `-p true -ptm PATH` then grafts the encoder towers and the
 embedding of a pretraining checkpoint (`cli.pretrain_mlm`,
 `cli.pretrain_mim`) over that (`train.checkpoint.graft`); both land
 before the first step.
+`--buckets 128,256,...` trains on length-bucketed batches
+(`data.loader.BucketedLoader`, built as the JAX CLI builds it: each batch
+from one bucket, tweets / input_ids / attention_masks cut to its length,
+shuffled); the kwargs family's mask is `attention_mask`, which the port
+buckets and cuts with the rest (the JAX CLI gives that family no
+`attention_masks` and fails).
 `--remat {full,dots}` and `--scan_layers` reach the meant-family towers
 (nn/stack.py); another `-mn` refuses them. `--mu_bf16` stores the first
-Adam moment in bf16 (A1's bf16-m variant). --buckets and --fsdp are not
-ported yet and raise.
+Adam moment in bf16 (A1's bf16-m variant). --fsdp is not ported yet and
+raises.
 The run trains on the card unless --device names another device, saves the
 checkpoint after training and evaluates the test split.
 """
@@ -37,10 +43,28 @@ import torch
 from meant_tpu_torch.cli.common import (base_parser, build_model,
                                         dataset_arrays, refuse_unported)
 from meant_tpu_torch.data.datasets import split_arrays
-from meant_tpu_torch.data.loader import ArrayLoader
+from meant_tpu_torch.data.loader import ArrayLoader, BucketedLoader
 from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import meant_trainer
 from meant_tpu_torch.utils.hf_cache import hf_graft
+
+
+def train_loader(args, train: dict):
+    """The training batches: with --buckets a shuffled `BucketedLoader`
+    (meant_tpu/cli/in_loop_train.py:49-59), else a shuffled
+    `ArrayLoader`."""
+    if not args.buckets:
+        return ArrayLoader(train, args.train_batch_size, shuffle=True)
+    seq_keys, length_key = ("tweets", "input_ids", "attention_masks"), \
+        "attention_masks"
+    if "attention_mask" in train:              # the kwargs family's set
+        seq_keys, length_key = seq_keys + ("attention_mask",), \
+            "attention_mask"
+    return BucketedLoader(train, args.train_batch_size,
+                          buckets=tuple(int(x)
+                                        for x in args.buckets.split(",")),
+                          shuffle=True, seq_keys=seq_keys,
+                          length_key=length_key)
 
 
 def prepare(argv=None) -> meant_trainer:
@@ -59,7 +83,7 @@ def prepare(argv=None) -> meant_trainer:
     trainer = meant_trainer({
         "model": model, "model_name": args.model_name,
         "dataset": args.dataset,
-        "train_loader": ArrayLoader(train, bs, shuffle=True),
+        "train_loader": train_loader(args, train),
         "val_loader": ArrayLoader(val, bs, drop_remainder=False),
         "test_loader": ArrayLoader(test, bs, drop_remainder=False),
         "epochs": args.num_epochs, "epoch": args.epoch,

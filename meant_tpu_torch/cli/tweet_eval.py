@@ -23,9 +23,10 @@ import torch
 
 from meant_tpu_torch.cli.common import (base_parser, refuse_unported,
                                         reject_stack_flags)
-from meant_tpu_torch.data.datasets import fnv1a_tokenize, read_csv_texts
+from meant_tpu_torch.data.datasets import read_csv_texts
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.models import bertweet_wrapper
+from meant_tpu_torch.native import fnv1a_tokenize
 from meant_tpu_torch.train.text_classify import text_classifier_trainer
 
 

@@ -11,8 +11,12 @@ Semantics kept from the JAX package (and its reference):
   * per-epoch validation, early stop with patience 5 on val macro-F1, with
     the reference's `prev_f1 = inf` start (the first epoch counts as no
     improvement);
-  * a checkpoint after training (`train/checkpoint.py`), then an optional
-    test pass.
+  * a checkpoint after training, written in the background
+    (`train/checkpoint.py`, lanes "params" and "opt") while the optional
+    test pass runs and its confusion matrix is drawn to
+    `{file_path}/output_files/{dataset}/plots/confusion_{model}_{run}.png`
+    ("confusion-matrix plot skipped: ..." where matplotlib is missing);
+    then the writes are waited for.
 
 The price baselines `mlp` and `lstm` (PER_DAY_MODELS) give one output
 per lag step (b, lag, c); JAX's trainer cannot take those (its loss
@@ -28,8 +32,8 @@ bits JAX's dropout draws, so runs agree with the JAX trainer only with
 dropout off. `mu_dtype` (a bf16 first moment) and `accumulation_steps`
 (optax.MultiSteps: the running mean of k micro-steps' gradients, one
 update every k-th, leftovers carried into the next epoch) ride on the
-optimizer (`train/optim.py`). Data-parallel meshes, FSDP and the
-confusion-matrix plot are not ported yet (see ROADMAP).
+optimizer (`train/optim.py`). Data-parallel meshes and FSDP are not
+ported yet (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from meant_tpu_torch.data.loader import Prefetcher
@@ -264,11 +269,31 @@ class meant_trainer:
                     prev_f1 = val_f1_macro
             self.history.append(record)
 
-        results = {"history": self.history,
-                   "checkpoint": self.save(final_epoch + 1)}
+        # the checkpoint writes in the background while the test pass runs
+        checkpoint = self.save(final_epoch + 1, block=False)
+        results = {"history": self.history}
         if self.test_model and self.test_loader is not None:
             print("Testing...")
             _, _, results["test"] = self.evaluate(self.test_loader, "test")
+            # confusion-matrix artifact (`src/trainer.py:316-331`)
+            try:
+                from meant_tpu_torch.utils.observability import \
+                    save_confusion_matrix
+                save_confusion_matrix(
+                    np.asarray(results["test"]["confusion"]),
+                    os.path.join(self.file_path, "output_files",
+                                 self.dataset, "plots",
+                                 f"confusion_{self.model_name}_"
+                                 f"{self.run_id}.png"),
+                    title=f"{self.model_name} {self.dataset}")
+            except Exception as e:
+                print(f"confusion-matrix plot skipped: {e}")
+        try:
+            ckpt.wait_for_saves()   # the files are whole before returning
+        except Exception as e:
+            print(f"Your filepath is invalid. Save has failed: {e}")
+            checkpoint = None
+        results["checkpoint"] = checkpoint
         return results
 
     def evaluate(self, loader, set_name: str):
@@ -300,19 +325,24 @@ class meant_trainer:
                 os.path.join(self.file_path, "optimizers", self.model_name,
                              name))
 
-    def save(self, epoch: int) -> Optional[str]:
+    def save(self, epoch: int, block: bool = True) -> Optional[str]:
         """Model params under models/ and optimizer state under
-        optimizers/; returns the params path, or None when the write
-        failed (the reference tolerates a failed save)."""
+        optimizers/, on the lanes "params" and "opt" so the two writes
+        overlap; returns the params path, or None when a write failed (the
+        reference tolerates a failed save). block=False returns once both
+        are snapshotted to host memory; `checkpoint.wait_for_saves` is the
+        barrier."""
         path, opt_path = self._paths(epoch)
         step = self.optimizer.step_count if self.optimizer else 0
         try:
             ckpt.save(path, {"params": self.model.state_dict(),
-                             "step": step})
+                             "step": step}, block=False, lane="params")
             if self.optimizer is not None:
                 ckpt.save(opt_path, {"opt_state": self.optimizer.state_dict(),
-                                     "step": step})
-        except OSError as e:
+                                     "step": step}, block=block, lane="opt")
+            if block:
+                ckpt.wait_for_saves()
+        except Exception as e:
             print(f"Your filepath is invalid. Save has failed: {e}")
             return None
         return path

@@ -16,6 +16,11 @@ bars of ops/flash/kernel.py, set from H100 readings (PERF.md): K1 at
 K1_BF16_REL_L2, K3 at BF16_REL_L2; K3's lse within LSE_ATOL absolute. R1: bit for bit `_rotate`. A1: max relative
 error 1e-6 (both sides round every operation to fp32 alike).
 
+The host data path: R1 + K1 and R1 + K2 at the bucket lengths s=256 and
+384; a background checkpoint save against the next A1 step (the file
+holds the state before it, bit for bit); Prefetcher(workers=3) giving
+workers=1's batches in order.
+
 The serving and memory levers on a narrow meant_src (dim 192 in 2 heads of
 96, 2 + 2 encoders): the int8 product int32-equal to its plain version;
 int8 serving within JAX's bars of bf16 (atol 0.05, argmax agreement 0.9)
@@ -920,3 +925,81 @@ def test_narrow_src_trainer_extras_launch_a1_as_optax(cuda, extra):
     k = extra.get("accumulation_steps", 1)
     assert fused_adamw.launches == a1 + 4 // k
     assert trainer.optimizer.m.dtype == extra.get("mu_dtype", torch.float32)
+
+
+# ---- length-bucketed training and the host data path --------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["xpos_causal", "masked"])
+@pytest.mark.parametrize("s", [256, 384])
+def test_bucket_lengths_match_plain(cuda, dtype, case, s):
+    """R1 + K1 and R1 + K2 at the middle bucket lengths of --buckets
+    128,256,384,512 (causal xPos, as the text tower runs them), against
+    the plain versions at the bars above."""
+    q, k, v, tables, mask, causal = _k1_case(cuda, dtype, case, s)
+    out = _resident_fwd(q, k, v, tables, mask, causal)
+    ref = flash_mha_reference(q, k, v, mask, *tables, scale=0.1,
+                              causal=causal)
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+        rel = (out.float() - ref.float()).norm() / ref.float().norm()
+        assert rel <= K1_BF16_REL_L2, f"rel L2 {rel}"
+    gen = torch.Generator(device=cuda).manual_seed(2000 + s)
+    q, k, v, do, tables, mask, causal = _bwd_case(cuda, dtype, case, s, gen)
+    got = _resident_bwd(q, k, v, do, tables, mask, causal)
+    want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
+                                   causal=causal)
+    _assert_grads_close(got, want, dtype)
+
+
+def test_background_save_holds_the_state_before_the_next_a1_step(
+        cuda, tmp_path):
+    """checkpoint.save(block=False) of a narrow meant_src trainer's params
+    and moments, then an A1 step at once: after wait_for_saves the file
+    holds the state of before the step, bit for bit."""
+    import numpy as np
+    from meant_tpu_torch.train import checkpoint as ckpt
+    model = _narrow_src(cuda)
+    rows = dict(_src_rows(4, 64, seed=7), y=np.array([0, 1] * 2, np.int32))
+    trainer = meant_trainer({"model": model, "model_name": "meant_src",
+                             "train_loader": ArrayLoader(rows, 4),
+                             "lr": 1e-3, "lrst": "constant"})
+    batch = {k: host_tensor(v).to(cuda) for k, v in rows.items()}
+    trainer.train_step(batch)
+    opt = trainer.optimizer
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    m, v = opt.m.clone(), opt.v.clone()
+    path = str(tmp_path / "ckpt")
+    a1 = fused_adamw.launches
+    ckpt.save(path, {"params": model.state_dict(),
+                     "opt_state": opt.state_dict()}, block=False)
+    trainer.train_step(batch)
+    ckpt.wait_for_saves()
+    assert fused_adamw.launches == a1 + 1
+    assert not torch.equal(opt.m, m)
+    saved = ckpt.restore(path)
+    for key, value in before.items():
+        assert torch.equal(saved["params"][key], value.cpu()), key
+    assert torch.equal(saved["opt_state"]["m"], m.cpu())
+    assert torch.equal(saved["opt_state"]["v"], v.cpu())
+
+
+def test_prefetcher_workers_deliver_in_order_on_the_card(cuda):
+    """Prefetcher(workers=3) on the card gives workers=1's batches, in
+    order and bit for bit."""
+    from meant_tpu_torch.data.loader import Prefetcher
+    rows = dict(_src_rows(40, 64, seed=9))
+
+    def epoch(workers):
+        return [{k: t.cpu() for k, t in b.items()} for b in Prefetcher(
+            ArrayLoader(rows, 4, shuffle=True, seed=2), cuda,
+            workers=workers)]
+
+    one, three = epoch(1), epoch(3)
+    assert len(one) == len(three) == 10
+    for a, b in zip(one, three):
+        assert all(torch.equal(a[k], b[k]) for k in a)

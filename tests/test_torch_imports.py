@@ -1,7 +1,8 @@
 """Import hygiene of the port: no module of meant_tpu_torch and not
-chip_smoke.py imports jax, flax, optax, safetensors, transformers or
-anything of meant_tpu (the card's machine has neither safetensors nor
-transformers: the port reads the safetensors format itself)."""
+chip_smoke.py imports jax, flax, optax, safetensors, transformers, pandas
+or anything of meant_tpu (the card's machine has neither safetensors,
+transformers nor pandas: the port reads the safetensors format and its
+`.csv` files itself)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "meant_tpu", "safetensors",
-             "transformers")
+             "transformers", "pandas")
 FILES = sorted((ROOT / "meant_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -31,6 +32,21 @@ def _imported_roots(path: Path):
 
 def test_port_has_sources():
     assert len(FILES) > 10 and (ROOT / "chip_smoke.py").exists()
+
+
+# the host data path: numpy, the standard library and g++ only
+HOST_MODULES = ["native/__init__.py", "utils/observability.py",
+                "data/macd.py", "data/smote.py",
+                "data_engineering/__init__.py", "data_engineering/dataprep.py",
+                "data_engineering/fetchers.py",
+                "data_engineering/image_prep.py",
+                "data_engineering/mosi_prep.py",
+                "data_engineering/prepare_vqa.py", "data_engineering/snes.py",
+                "data_engineering/stocknet_prep.py"]
+
+
+def test_host_data_modules_are_checked():
+    assert {ROOT / "meant_tpu_torch" / m for m in HOST_MODULES} <= set(FILES)
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -240,7 +240,7 @@ def test_early_stop_patience_five_with_prev_f1_inf(f1s, stop, monkeypatch):
     scripted = iter(f1s)
     monkeypatch.setattr(trainer, "evaluate",
                         lambda loader, name: (next(scripted), 0.0, {}))
-    monkeypatch.setattr(trainer, "save", lambda epoch: None)
+    monkeypatch.setattr(trainer, "save", lambda epoch, block=True: None)
     history = trainer.train()["history"]
     assert len(history) == (len(f1s) if stop is None else stop + 1)
 
@@ -272,6 +272,19 @@ def test_train_cli_refuses_what_is_not_ported(flag, tmp_path):
             in_loop_train.main(TINY + ["-rid", "x", "--hf_cache", missing])
         with pytest.raises(FileNotFoundError, match="no local cache"):
             j_hf_graft("meant_src", {}, 1, cache_dir=missing)
+        return
+    if flag[0] == "--buckets":
+        # ported: the trainer gets a shuffled BucketedLoader whose buckets
+        # resolve as JAX's do on the same rows (both past s=12: [12]); the
+        # kwargs family's mask is `attention_mask`
+        from meant_tpu.data.loader import BucketedLoader as JBucketed
+        from meant_tpu_torch.data.loader import BucketedLoader
+        trainer = in_loop_train.prepare(TINY + ["-rid", "x"] + flag)
+        loader = trainer.train_loader
+        assert isinstance(loader, BucketedLoader) and loader.shuffle
+        want = JBucketed(loader.arrays, 4, buckets=(128, 512),
+                         length_key="attention_mask")
+        assert loader.buckets == want.buckets == [12]
         return
     with pytest.raises(NotImplementedError):
         in_loop_train.main(TINY + ["-rid", "x"] + flag)
