@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, run in the order 1-6, 9-15, 7, 8; any failure
+Phases, run in the order 1-6, 9-16, 7, 8; any failure
 raises and the script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
@@ -232,6 +232,38 @@ raises and the script exits non-zero:
               and cli.eval; Prefetcher(workers=4) over charts read from an
               np.memmap equal to workers=1, a worker's error raised in the
               consumer; the native collate library built.
+16. layouts -- the parallel layouts at one card, over a world-1 NCCL
+              process group started in this process: the flagship
+              (fixed_proj=True, batch 16) trained 3 steps by the plain
+              meant_trainer, with make_mesh() and with fsdp=True from the
+              same weights under torch.use_deterministic_algorithms, each
+              with exactly 24 R1, 12 K1 at s=512 and 12 at s=196, 24 K2
+              and 1 A1 a step, the losses and parameters bit for bit the
+              plain run's;
+              Predictor(tensor_parallel=True) on a (1, 1) (data, model)
+              mesh answering one 16-row request with exactly 24 R1 + 24
+              K1, bit for bit the plain Predictor; ring_attend at one
+              rank bit for bit flash_mha(force_online=True); then 4 ranks
+              of src4096's attention ((10, 8, 4096, 96) bf16, causal, xPos
+              at global positions, chunks of 1024) played in this process
+              by shifts that index the chunks: exactly 16 R1 + 16 K3
+              forward and 16 R1 + 16 K4 + 16 K5 backward at (80, 1024,
+              96), the lse cotangent nonzero at the 9 chunks at or before
+              each rank's own but rank 0's lone diagonal one (whose lse its
+              output does not depend on); the output against the unsplit
+              R1 + K3, the
+              plain ring in fp32 and the ring's plain engine at
+              BF16_REL_L2, the gradients against the plain engine at
+              RING_PLAIN_GRAD_REL_L2 (its own forward's out and lse carry
+              K3's bf16 difference into the backward) and against the
+              plain backward on the kernels' forward at BWD_BF16_REL_L2,
+              the fp32 case against the plain ring at
+              FP32_RTOL / FP32_ATOL; the played ring's forward and backward
+              times beside the unsplit R1 + K3 and R1 + K4 + K5, and the
+              world-1 all_reduce, reduce_scatter and all_gather of the
+              flagship's flat buffer; R1 + K3, R1, K4 and K5 against
+              their plain versions at the ring's chunk shape (BH=16,
+              s=1024, not causal).
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
@@ -246,7 +278,8 @@ raises and the script exits non-zero:
               13's parameter counts, and with no norm at phase 14's; phase
               12's shapes, and A1 with a bf16 first moment); R1 + K1 and K2 also at meant_vqa's s=40 and
               s=196 (BH=512), the VQA CLI's s=24 and phase 15's s=256
-              and 384 (BH=640);
+              and 384 (BH=640); R1 + K3, R1, K4 and K5 at phase 16's
+              ring chunk (BH=80, s=1024, not causal);
               R1 has rows of its own at each shape. Beside the event time
               of the resident rows, their device time with the host out of
               the way (at s=128 a call launches less work than the host
@@ -739,8 +772,10 @@ def run_online_dkdv_plain(c):
     return flash_mha_bwd_online_dkdv_reference(*args, **kw)
 
 
-def long_case(kind, dtype, gen, bh, **shape):
-    """One text-tower launch of src4096 (s=4096, causal xPos) with dO;
+def long_case(kind, dtype, gen, bh, s=LONG_SEQ, **shape):
+    """One text-tower launch of src4096 (s=4096, causal xPos; or the
+    length s given, and kind "vision" for a launch that is not causal)
+    with dO;
     `text_masked` has a padding mask of a random length per batch row (at
     least one key). A batch row with every key masked is checked by
     tests/test_torch_cuda.py with the pixel rotary: under causal xPos at
@@ -748,7 +783,7 @@ def long_case(kind, dtype, gen, bh, **shape):
     of a dS entry moves an element by 0.6 (PERF.md). lse and delta for the
     backward come from the plain forward and carry a non-zero lse
     cotangent: delta = rowsum(dO * out) - g_lse."""
-    c = backward_case(kind, dtype, gen, s=LONG_SEQ, bh=bh, **shape)
+    c = backward_case(kind, dtype, gen, s=s, bh=bh, **shape)
     out, lse = run_online_plain(c)
     g_lse = torch.randn(lse.shape, generator=gen, device="cuda")
     c.update(out=out, lse=lse,
@@ -4222,6 +4257,435 @@ def time_buckets(buckets) -> list:
     return rows
 
 
+# ---- phase 16: the parallel layouts at one card ----------------------
+
+LAYOUT_STEPS = 3
+LAYOUT_STEP = {"K1": 24, "R1": 24, "K2": 24, "A1": 1}
+LAYOUT_K1_BY_SHAPE = {shape_key(SEQ, True): ENCODERS,
+                      shape_key(N_PATCHES, False): ENCODERS}
+# The world-1 layouts must equal the plain paths bit for bit: every
+# collective is a copy and the arithmetic is the plain path's (the norm
+# under FSDP is sqrt(|g|^2), which is |g| in binary floating point). The
+# flagship's step itself repeats bit for bit only under
+# torch.use_deterministic_algorithms: the default CUDA backward of the
+# position and token-type embeddings (many repeats of few rows) sums in
+# no fixed order (tools/step_determinism.py), so phase 16a runs in that
+# mode.
+RING_RANKS = 4             # the played ring: src4096's text attention
+RING_CHUNK = LONG_SEQ // RING_RANKS
+RING_BH = LONG_TIME_BH     # (10, 8, 4096, 96): 80 (b*lag, head) rows
+RING_TIME_ITERS = 3
+
+
+def layout_runs(res):
+    """Phase 16a: the flagship (fixed_proj=True) trained LAYOUT_STEPS steps
+    by the plain meant_trainer, with a world-1 data-parallel mesh and with
+    fsdp=True, from the same weights on the same replayed batch, under
+    deterministic algorithms: each with phase 4's launches a step (K1 by
+    shape too) and the losses and parameters of the plain run bit for
+    bit."""
+    from meant_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    host = train_batch(BATCH, seed=1)
+    runs = {}
+    ways = {"plain": {}, "mesh": {"mesh": mesh},
+            "fsdp": {"mesh": mesh, "fsdp": True}}
+
+    def run(way):
+        extra = ways[way]
+        model = build_flagship(flash=True, fixed_proj=True)
+        out, trainer, _ = train_steps(model, host, LAYOUT_STEPS, LAYOUT_STEP,
+                                      f"layout {way}", falling=False,
+                                      **extra)
+        want = {k: n * LAYOUT_STEPS for k, n in LAYOUT_K1_BY_SHAPE.items()}
+        if out["launches"]["K1_by_shape"] != want:
+            fail(f"layout {way}: K1 launched "
+                 f"{out['launches']['K1_by_shape']}, want {want}")
+        trainer.optimizer.gather()
+        runs[way] = (out["losses"], trainer.optimizer.flat_p[
+            :trainer.optimizer.n].clone(), trainer.optimizer.m.numel())
+        res[way] = {k: out[k] for k in ("losses", "step_ms_median",
+                                        "peak_memory_bytes")}
+        res[way]["m_local"] = runs[way][2]
+        del model, trainer, out
+        torch.cuda.empty_cache()
+
+    kept = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for way in ways:
+            run(way)
+    finally:
+        torch.use_deterministic_algorithms(kept)
+    losses, params, _ = runs["plain"]
+    for way in ("mesh", "fsdp"):
+        got_losses, got, _ = runs[way]
+        exact = got_losses == losses and torch.equal(got, params)
+        rel = rel_l2(got, params)
+        res[way].update(bit_for_bit=exact, params_rel_l2=rel)
+        print(f"layout {way} at one rank vs plain: losses {got_losses} "
+              f"vs {losses}, params rel L2 {rel:.3e}, bit for bit "
+              f"{exact}", flush=True)
+        if not exact:
+            fail(f"layout {way} differs from the plain trainer: params "
+                 f"rel L2 {rel}, losses {got_losses} vs {losses}")
+    return mesh
+
+
+def layout_serving(res):
+    """Phase 16b: Predictor(tensor_parallel=True) on a (1, 1) (data,
+    model) mesh answers one 16-row request through 24 R1 + 24 K1, with the
+    plain Predictor's probabilities."""
+    from meant_tpu_torch.parallel import make_mesh
+    from meant_tpu_torch.serve import Predictor
+    chunk = request_batch(BATCH, seed=3)
+    plain = Predictor(build_flagship(flash=True, fixed_proj=True), "meant_src",
+                      batch_size=BATCH)
+    want = plain.forward(chunk).float()
+    del plain
+    torch.cuda.empty_cache()
+    model = build_flagship(flash=True, fixed_proj=True)
+    tp = Predictor(model, "meant_src", batch_size=BATCH,
+                   mesh=make_mesh(("data", "model"), (1, 1)),
+                   tensor_parallel=True)
+    reset_counts()
+    got = tp.forward(chunk).float()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, {"K1": 24, "R1": 24}, "tensor-parallel request")
+    exact = torch.equal(got, want)
+    err = (got - want).abs().max().item()
+    res["tp"] = {"bit_for_bit": exact, "max_abs_err": err,
+                 "launches": counts,
+                 "heads_per_rank": model.languageEncoders[0].attn.num_heads}
+    print(f"tensor-parallel Predictor at (1, 1) vs plain: max abs err "
+          f"{err:.3e}, bit for bit {exact}; launches {counts}", flush=True)
+    if not exact:
+        fail(f"tensor-parallel serving differs from the plain Predictor "
+             f"(max abs err {err})")
+    del tp, model
+    torch.cuda.empty_cache()
+
+
+# The played ring's gradients against the ring's plain engine: its
+# backward takes its own forward's out and lse, whose K3 difference (held
+# to BF16_REL_L2) reaches every chunk's dO and lse cotangent through the
+# combine, so the gradients are held to BF16_REL_L2 there; against the
+# plain backward on the kernels' forward (R1 + K3's out and lse), which
+# leaves K4 and K5 the one difference, to their own BWD_BF16_REL_L2.
+RING_PLAIN_GRAD_REL_L2 = 5e-3
+
+
+class _PlainOnline(torch.autograd.Function):
+    """The streaming path's plain versions with its autograd Function's
+    arithmetic: the ring's plain engine; with `kernel_forward` the forward
+    is R1 + K3 and only the backward (K4 + K5's) is plain."""
+
+    @staticmethod
+    def forward(ctx, kernel_forward, q, k, v, kmask, qcos, qsin, kcos,
+                ksin, scale, causal):
+        from meant_tpu_torch.ops.flash import flash_mha_online_reference
+        from meant_tpu_torch.ops.flash.kernel import flash_fwd_lse_op
+        if kernel_forward:
+            out, lse = flash_fwd_lse_op(q, k, v, kmask, qcos, qsin, kcos,
+                                        ksin, scale, causal)
+        else:
+            out, lse = flash_mha_online_reference(
+                q, k, v, kmask, qcos, qsin, kcos, ksin, scale=scale,
+                causal=causal)
+        ctx.save_for_backward(q, k, v, kmask, qcos, qsin, kcos, ksin, out,
+                              lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        from meant_tpu_torch.ops.flash.kernel import (
+            flash_mha_bwd_online_reference)
+        q, k, v, kmask, qcos, qsin, kcos, ksin, out, lse = ctx.saved_tensors
+        delta = (g.float() * out.float()).sum(-1) - g_lse.float()
+        grads = flash_mha_bwd_online_reference(
+            q, k, v, g, lse, delta, kmask, qcos, qsin, kcos, ksin,
+            scale=ctx.scale, causal=ctx.causal)
+        return (None, *grads, None, None, None, None, None, None, None)
+
+
+def plain_engine(kernel_forward: bool):
+    """flash_mha(..., return_lse=True) as `_PlainOnline` computes it."""
+    def engine(q, k, v, *, scale, causal, attention_mask, qcos, qsin, kcos,
+               ksin, **_):
+        out, lse = _PlainOnline.apply(kernel_forward, q, k, v,
+                                      attention_mask, qcos, qsin, kcos, ksin,
+                                      scale, causal)
+        return out, lse[..., None]
+    return engine
+
+
+def ring_case(dtype, gen):
+    """src4096's text attention, (10, 8, 4096, 96) q/k/v, a dO, the
+    whole sequence's causal xPos tables, scale 1/sqrt(768)."""
+    from meant_tpu_torch.ops import lang_freqs
+    from meant_tpu_torch.ops.flash.flash_attention import _tables
+    shape = (LONG_BATCH * LAG, HEADS, LONG_SEQ, HEAD_DIM)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    return dict(q=q, k=k, v=v, do=do, scale=1.0 / DIM ** 0.5,
+                tables=_tables(LONG_SEQ, HEAD_DIM,
+                               lang_freqs(HEAD_DIM // 2, device="cuda"),
+                               True, 512.0))
+
+
+def played_ring(c, dense=False, grad=False):
+    """The ring of RING_RANKS ranks played in this process: each rank's
+    body (`ring_flash_local`, or the dense `ring_attention_local` on q and
+    k rotated at global positions) gets a shift that hands it chunk (idx -
+    i) mod n of k, v and the mask at step i. Returns the whole output
+    (the ranks' chunks in order) and the leaves (q, k, v)."""
+    from meant_tpu_torch.ops.flash.kernel import _rotate
+    from meant_tpu_torch.ops.ring import (ring_attention_local,
+                                          ring_flash_local)
+    n, s_loc = RING_RANKS, RING_CHUNK
+    leaves = [c[t].detach().requires_grad_(grad) for t in ("q", "k", "v")]
+    q, k, v = leaves
+    tables = c["tables"]
+    if dense:
+        q = _rotate(q, tables[0], tables[1])
+        k = _rotate(k, tables[2], tables[3])
+    rows = [slice(j * s_loc, (j + 1) * s_loc) for j in range(n)]
+    mask = torch.ones((q.shape[0], LONG_SEQ), device="cuda")
+    held = [(k[:, :, r], v[:, :, r], mask[:, r]) for r in rows]
+    outs = []
+    for idx in range(n):
+        kw = dict(scale=c["scale"], causal=True, index=idx, size=n,
+                  shift=lambda i, _, idx=idx: held[(idx - i) % n])
+        if dense:
+            out = ring_attention_local(q[:, :, rows[idx]], *held[idx], **kw)
+        else:
+            out = ring_flash_local(
+                q[:, :, rows[idx]], *held[idx], **kw,
+                tables=lambda j: tuple(t[rows[j]] for t in tables))
+        outs.append(out)
+    return torch.cat(outs, dim=2), leaves
+
+
+def _with_engine(engine, fn):
+    """fn() with `engine` as the ring's per-chunk flash_mha."""
+    import meant_tpu_torch.ops.ring as ring
+    kept = ring.flash_mha
+    ring.flash_mha = engine
+    try:
+        return fn()
+    finally:
+        ring.flash_mha = kept
+
+
+def layout_ring(res, mesh):
+    """Phase 16c: ring_attend at one rank over NCCL bit for bit
+    flash_mha(force_online=True); the ring of RING_RANKS ranks played in
+    one process at src4096's attention, bf16: 16 R1 + 16 K3 forward and
+    16 R1 + 16 K4 + 16 K5 backward at (80, 1024, 96), the output against
+    the unsplit R1 + K3, the plain ring in fp32 and the ring's plain
+    engine at BF16_REL_L2, the gradients against the plain engine at
+    RING_PLAIN_GRAD_REL_L2 and against the plain backward on the kernels'
+    forward at BWD_BF16_REL_L2, the same case in fp32 against the plain
+    ring at FP32_RTOL / FP32_ATOL;
+    then the timings. Returns the counts for the kernel rows."""
+    from meant_tpu_torch.ops.flash import flash_mha
+    from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2,
+                                                  BWD_BF16_REL_L2)
+    from meant_tpu_torch.ops.ring import ring_attend
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    # 1. one rank over NCCL: the ring is flash_mha
+    c = ring_case(torch.bfloat16, gen)
+    q, k, v = (c[t][:2] for t in ("q", "k", "v"))
+    got = ring_attend(q, k, v, mesh=mesh, scale=c["scale"], causal=True,
+                      use_flash=True)
+    want = flash_mha(q, k, v, scale=c["scale"], causal=True,
+                     force_online=True)
+    if not torch.equal(got, want):
+        fail("ring_attend at one rank differs from flash_mha(force_online"
+             f"=True): max abs err {(got - want).abs().max().item()}")
+    res["ring_world1_bit_for_bit"] = True
+    print("ring_attend at one rank over NCCL: bit for bit "
+          "flash_mha(force_online=True)", flush=True)
+    del q, k, v, got, want
+    # 2. the played ring: forward, then backward from dO
+    lse_grads = []
+
+    def watched(*args, **kw):
+        out, lse = flash_mha(*args, **kw)
+        if lse.requires_grad:
+            lse.register_hook(
+                lambda g: lse_grads.append(g.abs().max().item()))
+        return out, lse
+
+    reset_counts()
+    out, leaves = _with_engine(watched, lambda: played_ring(c, grad=True))
+    torch.cuda.synchronize()
+    fwd = read_counts()
+    reset_counts()
+    out.backward(c["do"])
+    torch.cuda.synchronize()
+    bwd = read_counts()
+    n2 = RING_RANKS ** 2
+    check_counts(fwd, {"R1": n2, "K3": n2}, "played ring forward")
+    check_counts(bwd, {"R1": n2, "K4": n2, "K5": n2}, "played ring backward")
+    chunk = f"s{RING_CHUNK}"
+    if fwd["R1_by_shape"] != {chunk: n2} or bwd["R1_by_shape"] != {
+            chunk: n2}:
+        fail(f"played ring R1 by shape {fwd['R1_by_shape']}, "
+             f"{bwd['R1_by_shape']}")
+    live = sum(g > 0 for g in lse_grads)
+    # nonzero at the chunks at or before each rank's own, n (n + 1) / 2 of
+    # n^2, but rank 0's lone diagonal chunk: its output does not depend on
+    # that chunk's lse
+    want_live = RING_RANKS * (RING_RANKS + 1) // 2 - 1
+    print(f"played ring: {len(lse_grads)} lse cotangents, {live} of them "
+          f"nonzero (want {n2}, {want_live})", flush=True)
+    if len(lse_grads) != n2 or live != want_live:
+        fail(f"lse cotangents {lse_grads}: want {n2}, {want_live} of them "
+             f"nonzero")
+    grads = [t.grad for t in leaves]
+    whole = flash_mha(c["q"], c["k"], c["v"], scale=c["scale"],
+                      causal=True, force_online=True, qcos=c["tables"][0],
+                      qsin=c["tables"][1], kcos=c["tables"][2],
+                      ksin=c["tables"][3])
+    c32 = {**c, **{t: c[t].float() for t in ("q", "k", "v", "do")}}
+    plain_ring, _ = played_ring(c32, dense=True)
+    checks = {"out_vs_unsplit": rel_l2(out, whole),
+              "out_vs_plain_ring_fp32": rel_l2(out, plain_ring)}
+    del whole
+    torch.cuda.empty_cache()
+    bars = {"out_vs_unsplit": BF16_REL_L2,
+            "out_vs_plain_ring_fp32": BF16_REL_L2,
+            "out_vs_plain_engine": BF16_REL_L2}
+    for tag, kernel_forward, bar in (
+            ("plain_engine", False, RING_PLAIN_GRAD_REL_L2),
+            ("plain_backward", True, BWD_BF16_REL_L2)):
+        plain_out, plain_leaves = _with_engine(
+            plain_engine(kernel_forward), lambda: played_ring(c, grad=True))
+        plain_out.backward(c["do"])
+        for name, a, b in zip(("dq", "dk", "dv"), grads,
+                              (t.grad for t in plain_leaves)):
+            checks[f"{name}_vs_{tag}"] = rel_l2(a, b)
+            bars[f"{name}_vs_{tag}"] = bar
+        if not kernel_forward:
+            checks["out_vs_plain_engine"] = rel_l2(out, plain_out)
+        del plain_out, plain_leaves
+        torch.cuda.empty_cache()
+    for name, rel in checks.items():
+        ok = rel <= bars[name] and bool(torch.isfinite(out).all())
+        print(f"played ring bf16 {name}: rel L2 {rel:.3e} (bar "
+              f"{bars[name]}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"played ring {name}: rel L2 {rel} > {bars[name]}")
+    # 3. the same case in fp32 through the kernels' fp32 bodies
+    with torch.no_grad():
+        out32, _ = played_ring(c32)
+        ok = torch.allclose(out32, plain_ring, rtol=FP32_RTOL,
+                            atol=FP32_ATOL)
+    err32 = (out32 - plain_ring).abs().max().item()
+    print(f"played ring fp32 vs plain ring: max abs err {err32:.3e} "
+          f"(rtol {FP32_RTOL}, atol {FP32_ATOL}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail(f"played ring in fp32 differs from the plain ring (max abs "
+             f"err {err32})")
+    res["ring"] = {"rel_l2": checks, "fp32_max_abs_err": err32,
+                   "forward_launches": fwd, "backward_launches": bwd,
+                   "lse_cotangent_max": lse_grads}
+    del out, leaves, grads, plain_ring, out32, c32
+    torch.cuda.empty_cache()
+    time_ring(res, c)
+    return {name: fwd[name] + bwd[name] for name in ("R1", "K3", "K4",
+                                                     "K5")}
+
+
+def time_ring(res, c):
+    """The played ring's forward and backward against the unsplit R1 +
+    K3 and R1 + K4 + K5 at (80, 4096, 96), and the world-1 collectives of
+    the flagship's flat buffer, on the card."""
+    from meant_tpu_torch.ops.flash import flash_mha
+    card = card_line()
+    tables = dict(zip(("qcos", "qsin", "kcos", "ksin"), c["tables"]))
+
+    def ring_fwd():
+        with torch.no_grad():
+            played_ring(c)
+
+    def ring_fwd_bwd():
+        out, _ = played_ring(c, grad=True)
+        out.backward(c["do"])
+
+    def whole_fwd():
+        with torch.no_grad():
+            flash_mha(c["q"], c["k"], c["v"], scale=c["scale"], causal=True,
+                      force_online=True, **tables)
+
+    def whole_fwd_bwd():
+        leaves = [c[t].detach().requires_grad_() for t in ("q", "k", "v")]
+        out = flash_mha(*leaves, scale=c["scale"], causal=True,
+                        force_online=True, **tables)
+        out.backward(c["do"])
+
+    t = {name: event_ms(fn, iters=RING_TIME_ITERS, warmup=1)
+         for name, fn in (("ring_fwd", ring_fwd),
+                          ("ring_fwd_bwd", ring_fwd_bwd),
+                          ("whole_fwd", whole_fwd),
+                          ("whole_fwd_bwd", whole_fwd_bwd))}
+    t["ring_bwd"] = t["ring_fwd_bwd"] - t["ring_fwd"]
+    t["whole_bwd"] = t["whole_fwd_bwd"] - t["whole_fwd"]
+    print(f"played ring of {RING_RANKS} at (80, 4096, 96) bf16 causal "
+          f"xPos: forward {t['ring_fwd']:.4f} ms, backward "
+          f"{t['ring_bwd']:.4f} ms; unsplit R1 + K3 {t['whole_fwd']:.4f} "
+          f"ms, R1 + K4 + K5 {t['whole_bwd']:.4f} ms (backward as forward "
+          f"+ backward less forward) on {card}", flush=True)
+    import torch.distributed as dist
+    n = res["n_params"]
+    flat = torch.zeros(n, device="cuda")
+    other = torch.zeros(n, device="cuda")
+    for name, fn in (("all_reduce", lambda: dist.all_reduce(flat)),
+                     ("reduce_scatter", lambda: dist.reduce_scatter_tensor(
+                         other, flat)),
+                     ("all_gather", lambda: dist.all_gather_into_tensor(
+                         other, flat))):
+        t[name] = event_ms(fn, iters=10)
+        print(f"world-1 NCCL {name} of the flagship's flat buffer ({n} "
+              f"fp32): {t[name]:.4f} ms on {card}", flush=True)
+    res["ms"] = t
+    del flat, other
+    torch.cuda.empty_cache()
+
+
+def run_layouts(record) -> dict:
+    """Phase 16: data parallel and FSDP of the flagship, tensor-parallel
+    serving and ring attention, at one card; the ring's kernels checked at
+    their chunk shape against their plain versions."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    res = {"n_params": record["n_params"]}
+    record["layouts"] = res
+    mesh = layout_runs(res)
+    layout_serving(res)
+    counts = layout_ring(res, mesh)
+    errors = check_long_kernels(res, kinds=("vision",), tag="ring",
+                                s=RING_CHUNK)
+    dist.destroy_process_group()
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"phase layouts: {res['wall_s']:.1f} s", flush=True)
+    return {"errors": errors, "counts": counts}
+
+
+def time_layouts(layouts) -> list:
+    """R1 + K3, R1, K4 and K5 at the ring's chunk shape (80, 1024, 96), a
+    chunk of earlier keys (not causal; 12 of the ring's 16 launches), with
+    the played ring's launches."""
+    return time_long_kernels(layouts["errors"], layouts["counts"],
+                             bh=RING_BH, tag="ring", kind="vision",
+                             label=f"ring chunk s{RING_CHUNK}",
+                             s=RING_CHUNK)
+
+
 # ---- phase 7: timing ---------------------------------------------------
 
 def attention_cost(c, backward: bool = False) -> tuple:
@@ -4459,15 +4923,16 @@ def plain_ms_fitting(fn, big, small, iters: int):
 
 def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
                       small_bh=LONG_CHECK_BH, tag="long",
-                      label="s4096 causal xPos", **shape):
+                      label="s4096 causal xPos", kind="text", **shape):
     """R1 + K3, R1, K4 and K5 at the main path's launch (BH=80, s=4096,
-    bf16, causal xPos; or the BH and head dim given): ms per launch,
+    bf16, causal xPos; or the BH, head dim, length and `long_case` kind
+    given): ms per launch,
     bound, plain version, and the yardstick: rotation + causal SDPA (R1 +
     K3 together; K3 alone beside it), its backward (R1, K4 and K5
     together); R1 has no single PyTorch call of its own."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    big = long_case("text", torch.bfloat16, gen, bh, **shape)
-    small = long_case("text", torch.bfloat16, gen, small_bh, **shape)
+    big = long_case(kind, torch.bfloat16, gen, bh, **shape)
+    small = long_case(kind, torch.bfloat16, gen, small_bh, **shape)
     rotate_case(big)
     shape, rows = list(big["q"].shape), []
     library_fwd = event_ms(lambda: run_library(big), iters=10)
@@ -4478,14 +4943,15 @@ def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
     plans = (
         ("K3", "flash_fwd_online", "meant_tpu_torch/csrc/flash_fwd.cu",
          "meant_tpu/ops/flash/kernel.py:127", run_online_kernel,
-         run_online_plain, f"{tag}_text/bfloat16/out", library_fwd, 10),
+         run_online_plain, f"{tag}_{kind}/bfloat16/out", library_fwd, 10),
         ("K4", "flash_bwd_dq", "meant_tpu_torch/csrc/flash_bwd_online.cu",
          "meant_tpu/ops/flash/kernel.py:456", run_online_dq_kernel,
-         run_online_dq_plain, f"{tag}_text/bfloat16/dq", library_bwd, 5),
+         run_online_dq_plain, f"{tag}_{kind}/bfloat16/dq", library_bwd, 5),
         ("K5", "flash_bwd_dkdv", "meant_tpu_torch/csrc/flash_bwd_online.cu",
          "meant_tpu/ops/flash/kernel.py:527", run_online_dkdv_kernel,
-         run_online_dkdv_plain, (f"{tag}_text/bfloat16/dk",
-                                 f"{tag}_text/bfloat16/dv"), library_bwd, 5))
+         run_online_dkdv_plain, (f"{tag}_{kind}/bfloat16/dk",
+                                 f"{tag}_{kind}/bfloat16/dv"), library_bwd,
+         5))
     for (kernel, name, source, replaces, run, plain, err_keys, library_ms,
          iters) in plans:
         ms = event_ms(lambda: run(big), iters=iters)
@@ -4495,7 +4961,7 @@ def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
                                             iters=iters)
             print(f"streaming forward at {label}: R1 + K3 "
                   f"{ms:.4f} ms (K3 alone {extra['k3_alone_ms']:.4f} ms) "
-                  f"against rotation + causal SDPA's {library_ms:.4f} ms "
+                  f"against rotation + SDPA's {library_ms:.4f} ms "
                   f"({ms / library_ms:.2f}x)", flush=True)
         plain_ms, plain_bh = plain_ms_fitting(plain, big, small, iters=2)
         torch.cuda.empty_cache()
@@ -4515,7 +4981,7 @@ def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
         f"rotate_qk[{label}]",
         "meant_tpu_torch/csrc/flash_bwd_online.cu",
         "meant_tpu/ops/flash/kernel.py:152", long_counts["R1"],
-        long_errors[f"{tag}_text/bfloat16/rot"],
+        long_errors[f"{tag}_{kind}/bfloat16/rot"],
         event_ms(lambda: rotate_case(big), iters=20),
         event_ms(lambda: rotate_plain(big), iters=5), None, nbytes, flops,
         PEAK_FP32_FLOPS, shape=shape, dtype="bfloat16",
@@ -4662,6 +5128,7 @@ def main(argv=None) -> int:
     hf_vqa = run_hf_vqa(record)
     ner = run_ner(record)
     buckets = run_buckets(record)
+    layouts = run_layouts(record)
     rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
                         a1_err, record["n_params"], paper, pretrain, zoo,
                         hf_vqa, ner)
@@ -4669,6 +5136,7 @@ def main(argv=None) -> int:
     rows[at:at] = time_long_kernels(long_errors, long_counts)  # before A1
     rows += time_shapes(shapes, record["n_params"])
     rows += time_buckets(buckets)
+    rows += time_layouts(layouts)
     record["kernels"] = rows
     time_requests(predictor, chunk, record)
     record["profile"] = profile_calls(lambda: predictor.forward(chunk),

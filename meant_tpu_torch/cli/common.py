@@ -9,6 +9,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ from meant_tpu_torch import models
 from meant_tpu_torch.data.datasets import (load_tempstock_small,
                                            synthetic_tempstock)
 from meant_tpu_torch.device import resolve_device
+from meant_tpu_torch.parallel.mesh import make_mesh, rank_zero
 from meant_tpu_torch.train.classify import KWARGS_MODELS, POSITIONAL_MODELS
 
 
@@ -33,7 +35,8 @@ def str2bool(v):
 def base_parser() -> argparse.ArgumentParser:
     """The reference's flag set under the JAX package's names
     (meant_tpu/cli/common.py), plus --device. Flags of slices not ported
-    yet are accepted by the parser and refused by `refuse_unported`."""
+    yet (UNPORTED_FLAGS) are accepted by the parser and refused by
+    `refuse_unported`."""
     p = argparse.ArgumentParser()
     # learning-rate schedule and optimizer
     p.add_argument("-t0", "--t0", type=int, default=7)
@@ -114,7 +117,10 @@ def base_parser() -> argparse.ArgumentParser:
                         "(utils/hf_cache.hf_graft); nothing is downloaded, "
                         "and a missing cache raises")
     p.add_argument("--fsdp", type=str2bool, nargs="?", const=True,
-                   default=False, help="not ported yet: raises if set")
+                   default=False,
+                   help="shard the parameters and Adam moments over the "
+                        "data axis (ZeRO over the optimizer's flat "
+                        "buffers; the classification trainer)")
     p.add_argument("--mu_bf16", type=str2bool, nargs="?", const=True,
                    default=False,
                    help="store the first Adam moment in bf16 (the trainer's "
@@ -146,13 +152,28 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-# --fsdp waits for the parallel layouts (ROADMAP §1 item 4)
-UNPORTED_FLAGS = ("fsdp",)
+# flags of slices not ported yet (none at present)
+UNPORTED_FLAGS = ()
 # the models that take --scan_layers / --remat
 # (meant_tpu/cli/common.py:221-230)
 SCAN_MODELS = ("meant", "meant_src", "meant_vision", "meant_tweet",
                "meant_tweet_no_lag", "meantPrice", "meant_vqa",
                "meant_timesformer", "meant_mean_pooling", "meant_mosi")
+
+
+def cli_mesh(args):
+    """The mesh a training CLI runs on: the world's data-parallel mesh
+    under torchrun (WORLD_SIZE set) or with --fsdp, else None (one
+    process, no process group). Ranks other than 0 print nothing (their
+    standard output is discarded); rank 0 prints and saves. Call it
+    before building the model: on the card it selects this rank's
+    device."""
+    if "WORLD_SIZE" not in os.environ and not getattr(args, "fsdp", False):
+        return None
+    mesh = make_mesh(device=getattr(args, "device", None))
+    if not rank_zero():
+        sys.stdout = open(os.devnull, "w")
+    return mesh
 
 
 def refuse_unported(args) -> None:

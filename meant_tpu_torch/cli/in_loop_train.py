@@ -28,8 +28,11 @@ buckets and cuts with the rest (the JAX CLI gives that family no
 `attention_masks` and fails).
 `--remat {full,dots}` and `--scan_layers` reach the meant-family towers
 (nn/stack.py); another `-mn` refuses them. `--mu_bf16` stores the first
-Adam moment in bf16 (A1's bf16-m variant). --fsdp is not ported yet and
-raises.
+Adam moment in bf16 (A1's bf16-m variant). Under `torchrun
+--nproc_per_node N` it trains data parallel over the N ranks (each takes
+its rows of every global batch of -tb rows); `--fsdp` also shards the
+parameters and Adam moments over them (and runs at one rank without
+torchrun); rank 0 prints and saves.
 The run trains on the card unless --device names another device, saves the
 checkpoint after training and evaluates the test split.
 """
@@ -41,7 +44,8 @@ import time
 import torch
 
 from meant_tpu_torch.cli.common import (base_parser, build_model,
-                                        dataset_arrays, refuse_unported)
+                                        cli_mesh, dataset_arrays,
+                                        refuse_unported)
 from meant_tpu_torch.data.datasets import split_arrays
 from meant_tpu_torch.data.loader import ArrayLoader, BucketedLoader
 from meant_tpu_torch.train import checkpoint as ckpt
@@ -77,6 +81,7 @@ def prepare(argv=None) -> meant_trainer:
     if args.image_only and args.language_only:
         raise AssertionError(
             "Cannot be an image only AND a language only task")
+    mesh = cli_mesh(args)
     model = build_model(args)
     train, val, test = split_arrays(dataset_arrays(args))
     bs = args.train_batch_size
@@ -96,6 +101,7 @@ def prepare(argv=None) -> meant_trainer:
         "tmax": args.tmax, "early_stopping": args.early_stopping,
         "test_model": args.test_model, "seed": args.seed,
         "mu_dtype": torch.bfloat16 if args.mu_bf16 else None,
+        "mesh": mesh, "fsdp": args.fsdp,
     })
     if args.hf_cache:
         # the reference's from_pretrained init, from a local cache

@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from meant_tpu_torch.cli.common import base_parser, refuse_unported
+from meant_tpu_torch.cli.common import base_parser, cli_mesh, refuse_unported
 from meant_tpu_torch.cli.pretrain_mlm import split
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.data.masking import mask_image
@@ -76,6 +76,7 @@ def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     images = load_images(args)
     inputs, labels = mask_image(images, seed=0)
+    mesh = cli_mesh(args)
     model = build_model(args, images.shape)
     train, val = split({"input_ids": inputs, "labels": labels},
                        args.train_batch_size)
@@ -89,7 +90,7 @@ def main(argv=None) -> dict:
         "lrst": args.learning_rate_scheduler_type, "t0": args.t0,
         "tmax": args.tmax, "optimizer": args.optimizer,
         "file_path": args.file_path, "run_id": args.run_id,
-        "num_encoders": args.num_encoders, "seed": args.seed,
+        "num_encoders": args.num_encoders, "seed": args.seed, "mesh": mesh,
         "masked_only": args.masked_only,
     })
     t0 = time.time()

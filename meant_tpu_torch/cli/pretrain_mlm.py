@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from meant_tpu_torch.cli.common import base_parser, refuse_unported
+from meant_tpu_torch.cli.common import base_parser, cli_mesh, refuse_unported
 from meant_tpu_torch.data.datasets import hash_tokenize, read_csv_texts
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.data.masking import mask_tokens
@@ -98,6 +98,7 @@ def main(argv=None) -> dict:
     and the trainer."""
     args = base_parser().parse_args(argv)
     data = mlm_arrays(load_text(args), args)
+    mesh = cli_mesh(args)
     model = build_model(args)
     train, val = split(data, args.train_batch_size)
     trainer = mlm_pretrainer({
@@ -110,7 +111,7 @@ def main(argv=None) -> dict:
         "lrst": args.learning_rate_scheduler_type, "t0": args.t0,
         "tmax": args.tmax, "optimizer": args.optimizer,
         "file_path": args.file_path, "run_id": args.run_id,
-        "num_encoders": args.num_encoders, "seed": args.seed,
+        "num_encoders": args.num_encoders, "seed": args.seed, "mesh": mesh,
         "gather_masked": not args.full_mlm_head,
     })
     t0 = time.time()

@@ -21,7 +21,8 @@ import os
 import numpy as np
 import torch
 
-from meant_tpu_torch.cli.common import (base_parser, refuse_unported,
+from meant_tpu_torch.cli.common import (base_parser, cli_mesh,
+                                        refuse_unported,
                                         reject_stack_flags)
 from meant_tpu_torch.data.datasets import read_csv_texts
 from meant_tpu_torch.data.loader import ArrayLoader
@@ -55,6 +56,7 @@ def main(argv=None) -> dict:
     args = base_parser().parse_args(argv)
     reject_stack_flags(args, "tweet_eval")
     refuse_unported(args)
+    mesh = cli_mesh(args)
     data = load_data(args)
     model = bertweet_wrapper(
         input_dim=args.text_dim, output_dim=args.num_classes,
@@ -70,7 +72,7 @@ def main(argv=None) -> dict:
         "lr": args.learning_rate, "decay": args.decay,
         "lrst": args.learning_rate_scheduler_type,
         "optimizer": args.optimizer, "loss": "Cross Entropy",
-        "seed": args.seed,
+        "seed": args.seed, "mesh": mesh,
     })
     hist = trainer.train()
     print(f"mean step latency: "

@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from meant_tpu_torch.cli.common import base_parser, refuse_unported
+from meant_tpu_torch.cli.common import base_parser, cli_mesh, refuse_unported
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.models import EmbeddingConfig, meant_vqa
 from meant_tpu_torch.train.vqa import vqa_trainer
@@ -92,6 +92,7 @@ def main(argv=None) -> dict:
     args = base_parser().parse_args(argv)
     data = load_vqa(args)
     train, val, test = split(data, args.train_batch_size)
+    mesh = cli_mesh(args)
     model = build_model(args)
     bs = args.train_batch_size
     trainer = vqa_trainer({
@@ -106,7 +107,7 @@ def main(argv=None) -> dict:
         "tmax": args.tmax, "early_stopping": args.early_stopping,
         "test_model": args.test_model, "file_path": args.file_path,
         "run_id": args.run_id, "num_encoders": args.num_encoders,
-        "seed": args.seed,
+        "seed": args.seed, "mesh": mesh,
     })
     t0 = time.time()
     results = trainer.train()

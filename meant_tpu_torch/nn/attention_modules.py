@@ -22,6 +22,8 @@ from torch import nn
 from meant_tpu_torch import ops
 from meant_tpu_torch.nn.layers import Dense, Linear
 from meant_tpu_torch.ops.flash import flash_attention
+from meant_tpu_torch.ops.flash.flash_attention import _tables
+from meant_tpu_torch.ops.ring import make_ring_attention
 
 
 class _QKVO(nn.Module):
@@ -45,24 +47,66 @@ class XPosAttention(_QKVO):
     """Language MHA with xPos rotary on the leading `rot_dim` features of
     each head (48 unless named, fewer when the head is narrower; MOSI's
     encoder rotates 30), scale 1/sqrt(dim), additive -1e9 padding mask;
-    causal unless `causal=False`."""
+    causal unless `causal=False`.
+
+    Sequence-parallel ring attention (`ops/ring.py`): given `ring_mesh`,
+    the sequence is split over its axis `ring_axis`, x is this rank's
+    chunk and so is the output; K/V travel around the ring. JAX rotates q
+    and k at global positions before its shard_map; a rank here sees only
+    its chunk, so it rotates at positions rank * s_loc ... (rank + 1) *
+    s_loc - 1 of the n * s_loc sequence. The ring overrides `flash`;
+    `ring_flash` runs each chunk through the flash kernels, whose R1
+    rotates with the chunks' rows of the whole sequence's tables."""
 
     def __init__(self, num_heads: int, dim: int, init_style: str = "torch",
                  flash: bool = False, causal: bool = True,
-                 rot_dim: Optional[int] = None,
+                 rot_dim: Optional[int] = None, ring_mesh=None,
+                 ring_axis: str = "data", ring_flash: bool = False,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__(dim, init_style, dtype, device)
         self.num_heads = num_heads
         self.rot_dim = min(rot_dim or 48, dim // num_heads)
         self.scale = 1.0 / math.sqrt(dim)
         self.flash, self.causal = flash, causal
+        self.ring_mesh, self.ring_axis = ring_mesh, ring_axis
+        self.ring_flash = ring_flash
         self.register_buffer("freqs", ops.lang_freqs(self.rot_dim,
                                                      device=device))
+
+    def _ring(self, q, k, v, attention_mask):
+        n = self.ring_mesh[self.ring_axis].size()
+        rank = self.ring_mesh.get_local_rank(self.ring_axis)
+        s_loc = q.shape[2]
+        mask = attention_mask
+        if mask is None:
+            mask = torch.ones((q.shape[0], s_loc), device=q.device)
+        tables = None
+        if self.ring_flash:
+            key = ("ring", n * s_loc, q.shape[-1], self.freqs.device)
+            if key not in self.rotation_tables:
+                with torch.inference_mode(False):
+                    self.rotation_tables[key] = _tables(
+                        n * s_loc, q.shape[-1], self.freqs, True, 512.0)
+            whole = self.rotation_tables[key]
+
+            def tables(chunk):
+                rows = slice(chunk * s_loc, (chunk + 1) * s_loc)
+                return tuple(t[rows] for t in whole)
+        else:
+            q, k = ops.rotate_queries_and_keys(
+                q, k, self.freqs, rot_dim=self.rot_dim, offset=rank * s_loc,
+                seq_len=n * s_loc)
+        return make_ring_attention(
+            self.ring_mesh, scale=self.scale, causal=self.causal,
+            axis=self.ring_axis, use_flash=self.ring_flash,
+            tables=tables)(q, k, v.to(q.dtype), mask.to(torch.float32))
 
     def forward(self, x, attention_mask=None):
         h = self.num_heads
         q, k, v = (ops.split_heads(p(x), h) for p in (self.q, self.k, self.v))
-        if self.flash:
+        if self.ring_mesh is not None:
+            out = self._ring(q, k, v, attention_mask)
+        elif self.flash:
             out = flash_attention(q, k, v, scale=self.scale,
                                   causal=self.causal,
                                   attention_mask=attention_mask,

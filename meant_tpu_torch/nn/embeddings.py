@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
@@ -29,6 +30,24 @@ def clamped_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     out = F.embedding(ids.clamp(0, rows - 1), table)
     if torch.is_grad_enabled() and table.requires_grad:
         out = torch.where((ids >= rows)[..., None], out.detach(), out)
+    return out
+
+
+def lookup_words(embedding: nn.Module, ids: torch.Tensor) -> torch.Tensor:
+    """`clamped_lookup` of the word table, or, where tensor-parallel
+    serving cut it on the vocab axis (`embedding.vocab_shard` = (group,
+    first row, whole vocab), parallel/sharding_rules.py), the rows this
+    rank owns, zero elsewhere, summed over the group."""
+    shard = getattr(embedding, "vocab_shard", None)
+    if shard is None:
+        return clamped_lookup(embedding.weight, ids)
+    group, start, vocab = shard
+    rows = embedding.weight.shape[0]
+    local = ids.clamp(0, vocab - 1) - start
+    inside = (local >= 0) & (local < rows)
+    out = F.embedding(local.clamp(0, rows - 1), embedding.weight)
+    out = torch.where(inside[..., None], out, 0.0)
+    torch.distributed.all_reduce(out, group=group)
     return out
 
 
@@ -64,7 +83,7 @@ class RobertaEmbeddings(SeededInit, nn.Module):
         position_ids = torch.cumsum(mask, dim=-1) * mask + self.padding_idx
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (clamped_lookup(self.word_embeddings.weight, input_ids)
+        x = (lookup_words(self.word_embeddings, input_ids)
              + clamped_lookup(self.position_embeddings.weight, position_ids)
              + clamped_lookup(self.token_type_embeddings.weight,
                               token_type_ids))

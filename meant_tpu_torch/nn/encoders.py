@@ -50,21 +50,27 @@ class _Block(nn.Module):
 
 
 class LanguageEncoder(_Block):
-    """ff_dropout defaults to the reference's nn.Dropout() p=0.5; `causal`
-    and `rot_dim` reach the xPos attention (MOSI rotates 30 features)."""
+    """ff_dropout defaults to the reference's nn.Dropout() p=0.5; `causal`,
+    `rot_dim` and the ring options (`ring_mesh`, `ring_axis`,
+    `ring_flash`: x and the output are this rank's chunk of a sequence
+    split over the mesh axis) reach the xPos attention (MOSI rotates 30
+    features)."""
 
     def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
                  ff_dropout: float = 0.5, norm: str = "rms",
                  ff_norm2: Optional[str] = None, init_style: str = "torch",
                  flash: bool = False, mask_in_flash: bool = False,
                  causal: bool = True, rot_dim: Optional[int] = None,
+                 ring_mesh=None, ring_axis: str = "data",
+                 ring_flash: bool = False,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__(dim, norm, ff_norm2, init_style, dtype, device)
         self.flash, self.mask_in_flash = flash, mask_in_flash
         self.attn = XPosAttention(num_heads, dim, init_style=init_style,
                                   flash=flash, causal=causal,
-                                  rot_dim=rot_dim, dtype=dtype,
-                                  device=device)
+                                  rot_dim=rot_dim, ring_mesh=ring_mesh,
+                                  ring_axis=ring_axis, ring_flash=ring_flash,
+                                  dtype=dtype, device=device)
         self.drop1 = nn.Dropout(dropout)
         self.drop2 = nn.Dropout(ff_dropout)
 

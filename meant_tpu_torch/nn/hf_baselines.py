@@ -29,7 +29,7 @@ from torch import nn
 
 from meant_tpu_torch.device import resolve_device
 from meant_tpu_torch.nn.attention_modules import MultiHeadDotProductAttention
-from meant_tpu_torch.nn.embeddings import clamped_lookup
+from meant_tpu_torch.nn.embeddings import clamped_lookup, lookup_words
 from meant_tpu_torch.nn.layers import (Dense, FlaxLayerNorm, SeededInit,
                                        gelu)
 from meant_tpu_torch.nn.roberta import RobertaLayer, padding_mask, seeded
@@ -135,7 +135,7 @@ class BertTextEmbeddings(nn.Module):
                              f"{pos.shape[0]} rows (max_position_embeddings)")
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (clamped_lookup(self.word_embeddings.weight, input_ids)
+        x = (lookup_words(self.word_embeddings, input_ids)
              + pos[None, :s]
              + clamped_lookup(self.token_type_embeddings.weight,
                               token_type_ids))

@@ -92,12 +92,16 @@ def rotate_queries_or_keys(t: torch.Tensor, freqs: torch.Tensor
 
 def rotate_queries_and_keys(q: torch.Tensor, k: torch.Tensor,
                             freqs: torch.Tensor, rot_dim: int,
-                            scale_base: float = 512.0):
+                            scale_base: float = 512.0, offset: int = 0,
+                            seq_len: Optional[int] = None):
     """xPos rotation: q scaled by `scale`, k by `scale ** -1`, shared angles
-    from q's length."""
-    positions = torch.arange(q.shape[-2], device=q.device)
-    angles = rope_angles(positions, freqs)
-    scale = xpos_scale(rot_dim, positions, scale_base)
+    from q's length. A chunk of a longer sequence (ring attention) passes
+    its first position `offset` and the whole length `seq_len`: its rows of
+    the whole sequence's angles and scale rotate it."""
+    s = q.shape[-2]
+    positions = torch.arange(seq_len or s, device=q.device)
+    angles = rope_angles(positions, freqs)[offset:offset + s]
+    scale = xpos_scale(rot_dim, positions, scale_base)[offset:offset + s]
     return (apply_rotary(q, angles, scale=scale),
             apply_rotary(k, angles, scale=scale ** -1))
 

@@ -5,8 +5,15 @@ meant_tpu/serve.py).
 padded by repeating its first row and the padded rows are dropped from the
 result. `checkpoint_path` restores the params of a checkpoint the port's
 trainer wrote (`train/checkpoint.py`). `quantize="int8"` runs every wide
-Linear through the int8 product (`nn/quant.py`). Mesh and tensor-parallel
-serving are not ported yet (ROADMAP §1 item 10).
+Linear through the int8 product (`nn/quant.py`).
+
+With a `mesh` (parallel/mesh.py) the params are rank 0's on every rank
+(broadcast once), or with `tensor_parallel=True` cut by the megatron rules
+over the mesh's 'model' axis (parallel/sharding_rules.py: the attention
+runs on each rank's heads, the flash kernels on plain local tensors). A
+request's rows split over the mesh's leading axis where the batch size
+divides by it, and are otherwise computed whole on every rank (JAX's
+rule); the probabilities come back whole on every rank.
 
 `export_forward` writes the fixed-shape forward, fp32/bf16 or int8, as a
 `torch.export` program whose inputs are the params (a state_dict of the
@@ -26,11 +33,16 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
 from meant_tpu_torch.data.loader import host_tensor
 from meant_tpu_torch.device import resolve_device
 from meant_tpu_torch.nn.quant import int8_inference
+from meant_tpu_torch.parallel.mesh import (axis_size, make_mesh,
+                                           replicate_tree, shard_batch)
+from meant_tpu_torch.parallel.sharding_rules import parallelize_model
 from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import model_inputs
 
@@ -51,25 +63,42 @@ class Predictor:
     The model serves the weights it holds (JAX weights can be loaded into
     it with `weights.load_jax_params`), or those of `checkpoint_path`, a
     checkpoint of the port's trainer for the same architecture. It is moved
-    to `device` (the card unless named) and put in eval mode."""
+    to `device` (the card unless named) and put in eval mode. `mesh` and
+    `tensor_parallel` as the module's notes say (a world-sized data mesh
+    is made for tensor_parallel=True without one, as JAX defaults to
+    `make_mesh()`); tensor-parallel serving cuts the model's parameters in
+    place and does not take int8."""
 
     def __init__(self, model: nn.Module, model_name: str,
                  checkpoint_path: Optional[str] = None, batch_size: int = 32,
                  device=None, mesh=None, tensor_parallel: bool = False,
                  quantize: Optional[str] = None):
-        if mesh is not None or tensor_parallel:
-            raise NotImplementedError(
-                "Predictor(mesh=, tensor_parallel=) is not ported to "
-                "meant_tpu_torch yet (ROADMAP §1 item 10, parallel layouts)")
         _check_quantize(quantize)
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh "
+                            f"(parallel.make_mesh), got {type(mesh)}")
+        if tensor_parallel and quantize is not None:
+            raise NotImplementedError("tensor-parallel serving takes no "
+                                      "int8 (ROADMAP §3)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         if checkpoint_path is not None:
             self.model.load_state_dict(
                 ckpt.restore(checkpoint_path, self.device)["params"])
+        if tensor_parallel and mesh is None:
+            mesh = make_mesh(device=self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            replicate_tree(self.model.state_dict(), mesh)
+            if tensor_parallel:
+                parallelize_model(self.model, mesh)
         self.model_name = model_name
         self.batch_size = batch_size
         self.quantize = quantize
+        # rows split over the leading axis where the batch divides
+        self.data = mesh.mesh_dim_names[0] if mesh is not None else None
+        self.split = (mesh is not None
+                      and batch_size % axis_size(mesh, self.data) == 0)
 
     def _device_batch(self, batch: Dict[str, np.ndarray]):
         return {k: host_tensor(v).to(self.device, non_blocking=True)
@@ -78,11 +107,20 @@ class Predictor:
     @torch.inference_mode()
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """One fixed-size batch through the model; returns the device
-        tensor of probabilities."""
+        tensor of probabilities (whole on every rank under a mesh)."""
+        if self.split:
+            batch = shard_batch(batch, self.mesh)
         args, kwargs = model_inputs(self.model_name,
                                     self._device_batch(batch))
         with _quant_context(self.quantize):
-            return self.model(*args, **kwargs)
+            out = self.model(*args, **kwargs)
+        if not self.split:
+            return out
+        whole = out.new_empty((axis_size(self.mesh, self.data)
+                               * out.shape[0], *out.shape[1:]))
+        torch.distributed.all_gather_into_tensor(
+            whole, out.contiguous(), group=self.mesh.get_group(self.data))
+        return whole
 
     def __call__(self, batch: Dict[str, np.ndarray]) -> np.ndarray:
         n = len(next(iter(batch.values())))

@@ -32,8 +32,17 @@ bits JAX's dropout draws, so runs agree with the JAX trainer only with
 dropout off. `mu_dtype` (a bf16 first moment) and `accumulation_steps`
 (optax.MultiSteps: the running mean of k micro-steps' gradients, one
 update every k-th, leftovers carried into the next epoch) ride on the
-optimizer (`train/optim.py`). Data-parallel meshes and FSDP are not
-ported yet (see ROADMAP).
+optimizer (`train/optim.py`).
+
+`mesh` (a DeviceMesh, parallel/mesh.py) trains data parallel over its
+leading axis: each rank takes its rows of every global batch (which must
+divide over the axis, as JAX's device_put requires), the flat gradient is
+averaged over the axis before the clip and A1, and the losses, confusion
+matrices and eval outputs are reduced to the global batch's. `fsdp=True`
+shards the parameters and both moments over that axis too (ZeRO over
+FlatAdam's flat buffers; a world-sized mesh is made when none is given).
+Checkpoints hold the whole state whatever the layout; rank 0 writes them
+(train/layout.py).
 """
 
 from __future__ import annotations
@@ -47,7 +56,9 @@ import numpy as np
 import torch
 
 from meant_tpu_torch.data.loader import Prefetcher
+from meant_tpu_torch.parallel.mesh import rank_zero
 from meant_tpu_torch.train import checkpoint as ckpt
+from meant_tpu_torch.train.layout import DataLayout, weighted_mean
 from meant_tpu_torch.train.optim import build_optimizer
 from meant_tpu_torch.utils.metrics import F1Metrics, confusion_delta
 
@@ -110,12 +121,16 @@ def row_outputs(model_name: str, out: torch.Tensor) -> torch.Tensor:
     return out[:, -1] if model_name in PER_DAY_MODELS else out
 
 
+def _nll(out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(out.to(torch.float32), dim=-1)
+    return -logp.gather(-1, labels.to(torch.int64)[:, None]).squeeze(-1)
+
+
 def sigmoid_ce_loss(out: torch.Tensor, labels: torch.Tensor,
                     weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """CrossEntropy over the model's sigmoid outputs (reference
     convention), in fp32."""
-    logp = torch.log_softmax(out.to(torch.float32), dim=-1)
-    nll = -logp.gather(-1, labels.to(torch.int64)[:, None]).squeeze(-1)
+    nll = _nll(out, labels)
     if weight is None:
         return nll.mean()
     return (nll * weight).sum() / torch.clamp(weight.sum(), min=1.0)
@@ -138,13 +153,9 @@ class meant_trainer:
     num_classes, lag, file_path, run_id, num_encoders, optimizer / lr /
     decay / beta_1 / beta_2 / lr_scheduler (or lrst) / t0 / tmax,
     early_stopping, test_model, seed, init_params (a state_dict), mu_dtype
-    (None or torch.bfloat16), accumulation_steps."""
+    (None or torch.bfloat16), accumulation_steps, mesh, fsdp."""
 
     def __init__(self, p: Dict[str, Any]):
-        for key in ("mesh", "fsdp"):
-            if p.get(key):
-                raise NotImplementedError(f"{key} is not yet ported to "
-                                          f"meant_tpu_torch (see ROADMAP)")
         self.model = p["model"]
         self.model_name = p["model_name"]
         self.dataset = p.get("dataset", "Tempstock")
@@ -162,6 +173,8 @@ class meant_trainer:
         self.seed = p.get("seed", 0)
         self.init_params = p.get("init_params")
         self.device = next(self.model.parameters()).device
+        self.layout = DataLayout(p.get("mesh"), p.get("fsdp", False),
+                                 self.device)
         self._opt_kwargs = dict(
             optimizer=p.get("optimizer", "AdamW"),
             learning_rate=p.get("lr", 5e-5), decay=p.get("decay", 0.0),
@@ -170,15 +183,20 @@ class meant_trainer:
             t0=p.get("t0", 7), tmax=p.get("tmax", 10),
             steps_per_epoch=max(len(self.train_loader), 1),
             mu_dtype=p.get("mu_dtype"),
-            accumulation_steps=p.get("accumulation_steps", 1))
+            accumulation_steps=p.get("accumulation_steps", 1),
+            **self.layout.optimizer_kwargs())
         self.optimizer = None
         self.history = []
 
     # ---- setup -----------------------------------------------------------
     def _apply_init_params(self) -> None:
+        if self.optimizer is not None:
+            self.optimizer.gather()     # FSDP: the parameters whole
         if self.init_params is not None:
             self.model.load_state_dict(self.init_params)
             self.init_params = None
+            if self.optimizer is not None:
+                self.optimizer.take_params()
 
     def _init_state(self) -> None:
         """Load `init_params`, seed dropout, build the optimizer (which
@@ -191,11 +209,12 @@ class meant_trainer:
     # ---- steps -----------------------------------------------------------
     def train_step(self, batch: Dict[str, torch.Tensor]) -> tuple:
         """One optimizer step (a micro-step under accumulation) on a device
-        batch; returns the loss and the confusion delta as device tensors
-        (no host sync)."""
+        batch (this rank's rows under a mesh); returns the global batch's
+        loss and confusion delta as device tensors (no host sync)."""
         if self.optimizer is None:
             self._init_state()
         self.model.train()
+        self.optimizer.gather()
         self.optimizer.zero_grad()
         args, kwargs = model_inputs(self.model_name, batch)
         out = row_outputs(self.model_name,
@@ -204,25 +223,28 @@ class meant_trainer:
         loss.backward()
         self.optimizer.step()
         out = out.detach()
-        return loss.detach(), confusion_delta(out, batch["y"],
-                                              self.num_classes)
+        return (self.layout.mean(loss.detach()),
+                self.layout.sum(confusion_delta(out, batch["y"],
+                                                self.num_classes)))
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> tuple:
         """Loss, confusion matrix (padded rows excluded) and outputs of one
-        device batch with a `_weight` vector."""
+        device batch with a `_weight` vector (under a mesh: the global
+        batch's loss and confusion matrix, this rank's outputs)."""
+        self._apply_init_params()
         self.model.eval()
         c = self.num_classes
         labels, weight = batch["y"].to(torch.int64), batch["_weight"]
         args, kwargs = model_inputs(self.model_name, batch)
         out = row_outputs(self.model_name,
                           self.model(*args, **kwargs))
-        loss = sigmoid_ce_loss(out, labels, weight)
+        loss = weighted_mean(_nll(out, labels), weight, self.layout)
         real = weight > 0
         idx = torch.where(real, labels, c) * c + out.argmax(dim=-1)
         cm = torch.zeros((c + 1) * c, dtype=torch.int64, device=out.device)
         cm.index_add_(0, idx, real.to(torch.int64))
-        return loss, cm.reshape(c + 1, c)[:c], out
+        return loss, self.layout.sum(cm.reshape(c + 1, c)[:c]), out
 
     # ---- loops -----------------------------------------------------------
     def train(self) -> dict:
@@ -236,7 +258,8 @@ class meant_trainer:
             t0 = time.time()
             train_metrics = F1Metrics(self.num_classes, "train", self.device)
             losses = []
-            for batch in Prefetcher(self.train_loader, self.device):
+            for batch in Prefetcher(self.layout.rows(self.train_loader),
+                                    self.device):
                 loss, cm = self.train_step(batch)
                 train_metrics.update_cm(cm)
                 losses.append(loss)
@@ -301,7 +324,7 @@ class meant_trainer:
         metrics = F1Metrics(self.num_classes, set_name, self.device)
         # scores for AUROC stay on the device; one fetch per evaluation
         scores, labels, weights = [], [], []
-        for batch in Prefetcher(loader, self.device):
+        for batch in Prefetcher(self.layout.rows(loader), self.device):
             _, cm, out = self.eval_step(batch)
             metrics.update_cm(cm)
             if self.num_classes == 2:
@@ -309,10 +332,12 @@ class meant_trainer:
                 labels.append(batch["y"])
                 weights.append(batch["_weight"])
         if scores:
-            real = torch.cat(weights) > 0
+            gather = self.layout.gather
+            real = gather(torch.cat(weights)) > 0
             metrics._scores.append(
-                torch.cat(scores)[real].float().cpu().numpy())
-            metrics._labels.append(torch.cat(labels)[real].cpu().numpy())
+                gather(torch.cat(scores))[real].float().cpu().numpy())
+            metrics._labels.append(
+                gather(torch.cat(labels))[real].cpu().numpy())
         f1_macro, f1_micro = metrics.show()
         return f1_macro, f1_micro, metrics.compute()
 
@@ -334,12 +359,18 @@ class meant_trainer:
         barrier."""
         path, opt_path = self._paths(epoch)
         step = self.optimizer.step_count if self.optimizer else 0
+        self._apply_init_params()
+        # every rank gathers (FSDP); rank 0 writes
+        opt_state = (self.optimizer.state_dict() if self.optimizer
+                     else None)
+        if not rank_zero():
+            return path
         try:
             ckpt.save(path, {"params": self.model.state_dict(),
                              "step": step}, block=False, lane="params")
-            if self.optimizer is not None:
-                ckpt.save(opt_path, {"opt_state": self.optimizer.state_dict(),
-                                     "step": step}, block=block, lane="opt")
+            if opt_state is not None:
+                ckpt.save(opt_path, {"opt_state": opt_state, "step": step},
+                          block=block, lane="opt")
             if block:
                 ckpt.wait_for_saves()
         except Exception as e:

@@ -16,6 +16,22 @@ The JAX package stores the rotary `freqs` tables as params and masks them
 out of the update; in the port they are buffers, not parameters, so the
 optimizer never sees them and the mask is implicit.
 
+Across ranks (`group`, the data axis of a mesh, parallel/mesh.py), the
+flat buffers set the layouts:
+  * data parallel: the flat gradient is summed over the group with one
+    all_reduce and divided by its size before the clip and A1 (JAX's psum
+    over `data`), so the clip sees the global norm;
+  * `shard=True` (FSDP, ZeRO over the flat buffers): each rank keeps its
+    1/n slice of the parameters and of both moments (padded to a multiple
+    of n). `gather()` all-gathers the parameters into the flat buffer
+    before a forward; `step` reduce-scatters the flat gradient, forms the
+    global norm from an all_reduce of the slices' squared norms, runs A1
+    on the local slice and frees the gathered parameter and gradient
+    buffers (their storage, which the parameters' views keep pointing
+    at). State at rest is (P + 2P)/n, plus the transient gather, as JAX
+    accounts it (parallel/fsdp.py there). `state_dict` gathers the moments
+    whole, so a checkpoint does not depend on the layout.
+
 Two options of the JAX trainer ride on `FlatAdam`:
   * `mu_dtype=torch.bfloat16` (--mu_bf16, optax's `mu_dtype`): the first
     moment is stored in bf16; A1's bf16-m variant reads and widens it,
@@ -36,6 +52,7 @@ import math
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from meant_tpu_torch.ops.adamw import MU_DTYPE, adamw_update
@@ -82,6 +99,9 @@ class FlatAdam:
     do not set the gradients to None). The global norm is a device scalar,
     so a step has no host sync. With `accumulation_steps` k > 1, `step`
     applies an update on every k-th call only (see the module's notes).
+    With `group` the gradient is averaged over its ranks; with `shard`
+    the state is split over them too (the module's notes): then call
+    `gather()` before any forward that reads the parameters.
     """
 
     def __init__(self, params: Iterable[nn.Parameter],
@@ -90,7 +110,8 @@ class FlatAdam:
                  weight_decay: float = 0.0,
                  clip_norm: Optional[float] = 1.0,
                  mu_dtype: Optional[torch.dtype] = None,
-                 accumulation_steps: int = 1):
+                 accumulation_steps: int = 1, group=None,
+                 shard: bool = False):
         self.params = [p for p in params if p.requires_grad]
         if not self.params:
             raise ValueError("no trainable parameters")
@@ -109,15 +130,24 @@ class FlatAdam:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.clip_norm = weight_decay, clip_norm
         self.accumulation_steps = accumulation_steps
-        n = sum(p.numel() for p in self.params)
-        self.flat_p = torch.empty(n, dtype=torch.float32, device=device)
+        if shard and group is None:
+            raise ValueError("shard=True needs the group to shard over")
+        self.group, self.shard = group, shard
+        self.world = 1 if group is None else dist.get_world_size(group)
+        self.n = n = sum(p.numel() for p in self.params)
+        # the slice each rank keeps under shard (the last one padded)
+        self.chunk = -(-n // self.world) if shard else n
+        total = self.chunk * self.world if shard else n
+        self.flat_p = torch.zeros(total, dtype=torch.float32, device=device)
         self.flat_g = torch.zeros_like(self.flat_p)
-        self.m = torch.zeros_like(self.flat_p, dtype=mu_dtype)
-        self.v = torch.zeros_like(self.flat_p)
+        local = dict(dtype=torch.float32, device=device)
+        self.m = torch.zeros(self.chunk, **dict(local, dtype=mu_dtype
+                                                or torch.float32))
+        self.v = torch.zeros(self.chunk, **local)
         self.step_count = 0     # applied updates
         # the running mean of the micro-steps' gradients and their count
-        self.acc = (torch.zeros_like(self.flat_p) if accumulation_steps > 1
-                    else None)
+        self.acc = (torch.zeros(self.chunk, **local)
+                    if accumulation_steps > 1 else None)
         self.mini_step = 0
         offset = 0
         with torch.no_grad():
@@ -127,14 +157,66 @@ class FlatAdam:
                 p.data = self.flat_p[offset:offset + k].view_as(p)
                 p.grad = self.flat_g[offset:offset + k].view_as(p)
                 offset += k
+            if group is not None:       # replicated: rank 0's values
+                dist.broadcast(self.flat_p, dist.get_global_rank(group, 0),
+                               group=group)
+        if shard:
+            start = dist.get_rank(group) * self.chunk
+            self.p_local = self.flat_p[start:start + self.chunk].clone()
+            self.g_local = torch.zeros_like(self.p_local)
+            self.release()
+
+    def gather(self) -> None:
+        """Under shard, all-gather the parameters into the flat buffer the
+        parameters view (a no-op while it is gathered, or without
+        shard)."""
+        storage = self.flat_p.untyped_storage()
+        if not self.shard or storage.size():
+            return
+        storage.resize_(self.flat_p.numel() * self.flat_p.element_size())
+        dist.all_gather_into_tensor(self.flat_p, self.p_local,
+                                    group=self.group)
+
+    def take_params(self) -> None:
+        """Under shard, keep this rank's slice of parameters loaded into
+        the gathered buffer (a no-op without shard, where the parameters
+        are the buffer)."""
+        if self.shard:
+            start = dist.get_rank(self.group) * self.chunk
+            self.p_local.copy_(self.flat_p[start:start + self.chunk])
+
+    def release(self) -> None:
+        """Under shard, free the gathered parameters and the flat gradient
+        (the views into them stay, pointing at no memory until `gather`
+        and `zero_grad`)."""
+        for t in (self.flat_p, self.flat_g):
+            t.untyped_storage().resize_(0)
 
     def zero_grad(self) -> None:
+        storage = self.flat_g.untyped_storage()
+        if not storage.size():
+            storage.resize_(self.flat_g.numel() * self.flat_g.element_size())
         self.flat_g.zero_()
+
+    def _reduce_gradient(self) -> torch.Tensor:
+        """This rank's gradient to update from: the flat gradient averaged
+        over the group (its slice of it under shard)."""
+        if self.group is None:
+            return self.flat_g
+        if self.shard:
+            g = self.g_local
+            dist.reduce_scatter_tensor(g, self.flat_g, group=self.group)
+        else:
+            g = self.flat_g
+            dist.all_reduce(g, group=self.group)
+        return g.div_(self.world)
 
     def step(self) -> bool:
         """One micro-step; returns whether it applied an update (always,
         without accumulation)."""
-        g = self.flat_g
+        g = self._reduce_gradient()
+        if self.shard:
+            self.release()
         if self.acc is not None:
             self.acc.add_((g - self.acc) / (self.mini_step + 1))
             self.mini_step += 1
@@ -145,8 +227,13 @@ class FlatAdam:
         norm = None
         if self.clip_norm is not None:
             norm = torch.linalg.vector_norm(g)
+            if self.shard:      # sqrt(fl(x * x)) == x: exact at world 1
+                norm = norm.square()
+                dist.all_reduce(norm, group=self.group)
+                norm = norm.sqrt()
         self.step_count += 1
-        adamw_update(self.flat_p, g, self.m, self.v,
+        adamw_update(self.p_local if self.shard else self.flat_p, g, self.m,
+                     self.v,
                      lr=self.schedule(self.step_count - 1), b1=self.b1,
                      b2=self.b2, eps=self.eps,
                      weight_decay=self.weight_decay, step=self.step_count,
@@ -156,19 +243,37 @@ class FlatAdam:
             self.acc.zero_()
         return True
 
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """A state slice gathered whole (all ranks call it under shard)."""
+        if not self.shard:
+            return t
+        out = t.new_empty(self.chunk * self.world)
+        dist.all_gather_into_tensor(out, t, group=self.group)
+        return out[:self.n]
+
+    def _mine(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a whole state tensor."""
+        if not self.shard:
+            return t
+        start = dist.get_rank(self.group) * self.chunk
+        return torch.nn.functional.pad(t, (0, self.chunk * self.world
+                                           - self.n))[start:start
+                                                      + self.chunk]
+
     def state_dict(self) -> dict:
-        state = {"m": self.m, "v": self.v, "step": self.step_count}
+        state = {"m": self._whole(self.m), "v": self._whole(self.v),
+                 "step": self.step_count}
         if self.acc is not None:
-            state.update(acc=self.acc, mini_step=self.mini_step)
+            state.update(acc=self._whole(self.acc), mini_step=self.mini_step)
         return state
 
     def load_state_dict(self, state: dict) -> None:
-        self.m.copy_(state["m"])
-        self.v.copy_(state["v"])
+        self.m.copy_(self._mine(state["m"]))
+        self.v.copy_(self._mine(state["v"]))
         self.step_count = int(state["step"])
         if self.acc is not None:
             if "acc" in state:
-                self.acc.copy_(state["acc"])
+                self.acc.copy_(self._mine(state["acc"]))
                 self.mini_step = int(state["mini_step"])
             else:
                 self.acc.zero_()
@@ -183,16 +288,19 @@ def build_optimizer(params: Iterable[nn.Parameter], optimizer: str = "AdamW",
                     warmup_steps: int = 0, total_steps: int = 0,
                     clip_norm: Optional[float] = 1.0,
                     mu_dtype: Optional[torch.dtype] = None,
-                    accumulation_steps: int = 1) -> FlatAdam:
+                    accumulation_steps: int = 1, group=None,
+                    shard: bool = False) -> FlatAdam:
     """The trainer's optimizer, as the JAX package's build_optimizer builds
     it (clip, then AdamW or Adam, on an epoch schedule), with the first
     moment stored in `mu_dtype` (None or fp32, or torch.bfloat16 for
     optax's mu_dtype=jnp.bfloat16) and, for accumulation_steps > 1, the
-    trainer's optax.MultiSteps wrapper."""
+    trainer's optax.MultiSteps wrapper; `group` and `shard` as FlatAdam
+    takes them."""
     if optimizer not in ("AdamW", "Adam"):
         raise ValueError("This type of optimizer is not supported.")
     sched = epoch_schedule(lr_scheduler, learning_rate, t0, tmax,
                            steps_per_epoch, warmup_steps, total_steps)
     return FlatAdam(params, sched, coupled=optimizer == "Adam", b1=beta_1,
                     b2=beta_2, weight_decay=decay, clip_norm=clip_norm,
-                    mu_dtype=mu_dtype, accumulation_steps=accumulation_steps)
+                    mu_dtype=mu_dtype, accumulation_steps=accumulation_steps,
+                    group=group, shard=shard)

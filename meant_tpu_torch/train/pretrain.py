@@ -20,7 +20,9 @@ Semantics kept from the JAX package (and its reference):
 
 Dropout draws from the default generator of the model's device, seeded
 from `seed` when the trainer builds its optimizer, as `meant_trainer` does.
-`mesh` and `fsdp` are not ported yet and raise.
+`mesh` and `fsdp` train data parallel and sharded as `meant_trainer` does
+(train/layout.py); a loss over a count of positions (MLM, MIM
+masked_only) divides by the global batch's count.
 """
 
 from __future__ import annotations
@@ -33,14 +35,19 @@ import torch
 
 from meant_tpu_torch.data.loader import Prefetcher
 from meant_tpu_torch.data.masking import IGNORE_INDEX
+from meant_tpu_torch.parallel.mesh import rank_zero
 from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import seed_dropout
+from meant_tpu_torch.train.layout import DataLayout, global_ratio
 from meant_tpu_torch.train.optim import build_optimizer
 
 
-def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
+             layout: Optional[DataLayout] = None) -> torch.Tensor:
     """CE over the vocabulary, ignore_index=-100: the mean over the
-    non-ignored positions (torch CrossEntropyLoss), in fp32."""
+    non-ignored positions (torch CrossEntropyLoss), in fp32; under a
+    `layout`, this rank's share of the global batch's mean
+    (`global_ratio`)."""
     vocab = logits.shape[-1]
     logits = logits.reshape(-1, vocab).to(torch.float32)
     labels = labels.reshape(-1)
@@ -48,7 +55,7 @@ def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     safe = torch.where(valid, labels, 0).to(torch.int64)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, safe[:, None]).squeeze(-1)
-    return (nll * valid).sum() / torch.clamp(valid.sum(), min=1)
+    return global_ratio((nll * valid).sum(), valid.sum(), layout)
 
 
 def default_gather_capacity(seq_len: int) -> int:
@@ -70,18 +77,20 @@ def masked_positions(labels: torch.Tensor, capacity: int):
 
 
 def mim_l1_loss(pred: torch.Tensor, labels: torch.Tensor,
-                masked_only: bool = False) -> torch.Tensor:
+                masked_only: bool = False,
+                layout: Optional[DataLayout] = None) -> torch.Tensor:
     """The reference's `nn.L1Loss()(out, labels[:, 0:3])`: the labels hold
     -100 at the unmasked pixels and L1Loss has no ignore_index, so most of
     the objective pulls the reconstruction toward -100 (DEFECTS #30).
-    `masked_only=True` takes the L1 over the masked pixels only."""
+    `masked_only=True` takes the L1 over the masked pixels only (under a
+    `layout`, this rank's share of the global batch's, `global_ratio`)."""
     target = labels[:, 0:3].to(torch.float32)
     pred = pred.to(torch.float32)
     if not masked_only:
         return (pred - target).abs().mean()
     valid = target != IGNORE_INDEX
     diff = (pred - torch.where(valid, target, pred)).abs()
-    return diff.sum() / torch.clamp(valid.sum(), min=1)
+    return global_ratio(diff.sum(), valid.sum(), layout)
 
 
 class _BasePretrainer:
@@ -89,15 +98,12 @@ class _BasePretrainer:
     device), model_name, dataset, train_data, val_data, epochs, patience,
     file_path, run_id, num_encoders, seed, optimizer / lr / decay / beta_1
     / beta_2 / lrst / t0 / tmax / warmup_steps / total_steps / clip_norm,
-    init_params (a partial state_dict that overrides the fresh init)."""
+    init_params (a partial state_dict that overrides the fresh init), mesh,
+    fsdp."""
 
     kind = "mlm"
 
     def __init__(self, p: Dict[str, Any]):
-        for key in ("mesh", "fsdp"):
-            if p.get(key):
-                raise NotImplementedError(f"{key} is not yet ported to "
-                                          f"meant_tpu_torch (see ROADMAP)")
         self.model = p["model"]
         self.model_name = p.get("model_name", self.kind)
         self.dataset = p.get("dataset", "pretrain")
@@ -111,6 +117,8 @@ class _BasePretrainer:
         self.seed = p.get("seed", 0)
         self.init_params = p.get("init_params")
         self.device = next(self.model.parameters()).device
+        self.layout = DataLayout(p.get("mesh"), p.get("fsdp", False),
+                                 self.device)
         self._opt_kwargs = dict(
             optimizer=p.get("optimizer", "AdamW"),
             learning_rate=p.get("lr", 5e-5), decay=p.get("decay", 0.0),
@@ -120,7 +128,8 @@ class _BasePretrainer:
             steps_per_epoch=max(len(self.train_data), 1),
             warmup_steps=p.get("warmup_steps", 0),
             total_steps=p.get("total_steps", 0),
-            clip_norm=p.get("clip_norm", 1.0))
+            clip_norm=p.get("clip_norm", 1.0),
+            **self.layout.optimizer_kwargs())
         self.optimizer = None
         self.checkpoint: Optional[str] = None
         self.history = []
@@ -148,25 +157,30 @@ class _BasePretrainer:
                                          **self._opt_kwargs)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The objective of one device batch in the model's current mode."""
+        """The objective of one device batch in the model's current mode
+        (under a mesh: this rank's share of the global batch's)."""
         return self._loss(self._apply(batch), batch)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One optimizer step on a device batch; returns the loss as a
-        device tensor (no host sync)."""
+        """One optimizer step on a device batch (this rank's rows under a
+        mesh); returns the global batch's loss as a device tensor (no host
+        sync)."""
         if self.optimizer is None:
             self._init_state()
         self.model.train()
+        self.optimizer.gather()
         self.optimizer.zero_grad()
         loss = self.loss(batch)
         loss.backward()
         self.optimizer.step()
-        return loss.detach()
+        return self.layout.mean(loss.detach())
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.optimizer is not None:
+            self.optimizer.gather()
         self.model.eval()
-        return self.loss(batch)
+        return self.layout.mean(self.loss(batch))
 
     # ---- loop ------------------------------------------------------------
     def train(self) -> list:
@@ -178,16 +192,16 @@ class _BasePretrainer:
         for ep in range(self.num_epochs):
             final_epoch = ep
             t0 = time.time()
-            losses = [self.train_step(batch)
-                      for batch in Prefetcher(self.train_data, self.device)]
+            losses = [self.train_step(batch) for batch in Prefetcher(
+                self.layout.rows(self.train_data), self.device)]
             train_loss = float(torch.stack(losses).mean())   # one fetch
             print("epoch length:", str(time.time() - t0))
             rec = {"epoch": ep, "train_loss": train_loss}
             self.history.append(rec)
             if self.val_data is None:
                 continue
-            vals = [self.eval_step(batch)
-                    for batch in Prefetcher(self.val_data, self.device)]
+            vals = [self.eval_step(batch) for batch in Prefetcher(
+                self.layout.rows(self.val_data), self.device)]
             val_loss = float(torch.stack(vals).sum()) if vals else 0.0
             rec["val_loss"] = val_loss
             if val_loss >= prev_val_loss:
@@ -210,10 +224,13 @@ class _BasePretrainer:
         opt_path = os.path.join(self.file_path, "optimizers",
                                 self.model_name, name)
         step = self.optimizer.step_count
+        self.optimizer.gather()
+        opt_state = self.optimizer.state_dict()   # every rank gathers
+        if not rank_zero():
+            return path
         try:
             ckpt.save(path, {"params": self.model.state_dict(), "step": step})
-            ckpt.save(opt_path, {"opt_state": self.optimizer.state_dict(),
-                                 "step": step})
+            ckpt.save(opt_path, {"opt_state": opt_state, "step": step})
         except OSError as e:
             print(f"Save failed: {e}")
             return None
@@ -244,9 +261,9 @@ class mlm_pretrainer(_BasePretrainer):
 
     def _loss(self, out, batch):
         if not self.gather_masked:
-            return mlm_loss(out, batch["labels"])
+            return mlm_loss(out, batch["labels"], self.layout)
         logits, sel, overflow = out
-        loss = mlm_loss(logits, sel)
+        loss = mlm_loss(logits, sel, self.layout)
         return torch.where(overflow, torch.full_like(loss, float("nan")),
                            loss)
 
@@ -266,4 +283,4 @@ class mim_pretrainer(_BasePretrainer):
 
     def _loss(self, out, batch):
         return mim_l1_loss(out, batch["labels"],
-                           masked_only=self.masked_only)
+                           masked_only=self.masked_only, layout=self.layout)

@@ -14,8 +14,8 @@ Semantics kept from the JAX package (and its reference):
 
 Batches hold input_ids (b, s) and labels y. Dropout draws from the default
 generator of the model's device, seeded from `seed` when the trainer
-builds its optimizer. `mesh` and `fsdp` are not ported yet (ROADMAP,
-parallel layouts) and raise.
+builds its optimizer. `mesh` and `fsdp` train data parallel and sharded
+as `meant_trainer` does (train/layout.py).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from meant_tpu_torch.data.loader import Prefetcher
 from meant_tpu_torch.train.classify import seed_dropout, sigmoid_ce_loss
+from meant_tpu_torch.train.layout import DataLayout
 from meant_tpu_torch.train.optim import build_optimizer
 from meant_tpu_torch.utils.metrics import F1Metrics, confusion_delta
 
@@ -47,15 +48,10 @@ class text_classifier_trainer:
     """params: dict with the JAX trainer's keys: model (built on its
     device), train_loader, num_classes, epochs, loss ("Binary Cross
     Entropy", the default, or another name for the cross entropy), seed,
-    optimizer / lr / decay / lrst. JAX's trainer also takes a val_loader,
-    which it never reads; this one does not take it."""
+    optimizer / lr / decay / lrst, mesh, fsdp. JAX's trainer also takes a
+    val_loader, which it never reads; this one does not take it."""
 
     def __init__(self, p: Dict[str, Any]):
-        for key in ("mesh", "fsdp"):
-            if p.get(key):
-                raise NotImplementedError(
-                    f"{key} is not yet ported to meant_tpu_torch (see "
-                    f"ROADMAP, parallel layouts)")
         self.model = p["model"]
         self.loader = p["train_loader"]
         self.num_classes = p.get("num_classes", 2)
@@ -63,11 +59,14 @@ class text_classifier_trainer:
         self.loss_name = p.get("loss", "Binary Cross Entropy")
         self.seed = p.get("seed", 0)
         self.device = next(self.model.parameters()).device
+        self.layout = DataLayout(p.get("mesh"), p.get("fsdp", False),
+                                 self.device)
         self._opt_kwargs = dict(
             optimizer=p.get("optimizer", "AdamW"),
             learning_rate=p.get("lr", 5e-5), decay=p.get("decay", 0.0),
             lr_scheduler=p.get("lrst", "constant"),
-            steps_per_epoch=max(len(self.loader), 1))
+            steps_per_epoch=max(len(self.loader), 1),
+            **self.layout.optimizer_kwargs())
         self.optimizer = None
         self.latencies = []
         self.history = []
@@ -78,26 +77,29 @@ class text_classifier_trainer:
         return sigmoid_ce_loss(out, labels)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> tuple:
-        """One optimizer step on a device batch; the loss and the confusion
-        delta stay on the device."""
+        """One optimizer step on a device batch (this rank's rows under a
+        mesh); the global batch's loss and confusion delta stay on the
+        device."""
         if self.optimizer is None:
             seed_dropout(self.device, self.seed)
             self.optimizer = build_optimizer(self.model.parameters(),
                                              **self._opt_kwargs)
         self.model.train()
+        self.optimizer.gather()
         self.optimizer.zero_grad()
         out = self.model(batch["input_ids"])
         loss = self.loss(out, batch["y"])
         loss.backward()
         self.optimizer.step()
-        return loss.detach(), confusion_delta(out.detach(), batch["y"],
-                                              self.num_classes)
+        return self.layout.mean(loss.detach()), self.layout.sum(
+            confusion_delta(out.detach(), batch["y"], self.num_classes))
 
     def train(self) -> list:
         for ep in range(self.num_epochs):
             metrics = F1Metrics(self.num_classes, "train", self.device)
             losses = []
-            for batch in Prefetcher(self.loader, self.device):
+            for batch in Prefetcher(self.layout.rows(self.loader),
+                                    self.device):
                 t0 = time.perf_counter()
                 loss, cm = self.train_step(batch)
                 losses.append(float(loss))   # the fetch closes the step

@@ -18,7 +18,7 @@ Batches hold language_input_ids, pixel_values, attention_mask, pixel_mask
 (read by no model) and labels (soft targets). Dropout draws from the
 default generator of the model's device, seeded from `seed` when the
 trainer builds its optimizer, as `meant_trainer` does. `mesh` and `fsdp`
-are not ported yet (ROADMAP, parallel layouts) and raise.
+train data parallel and sharded as `meant_trainer` does (train/layout.py).
 """
 
 from __future__ import annotations
@@ -30,8 +30,10 @@ from typing import Any, Dict, Optional
 import torch
 
 from meant_tpu_torch.data.loader import Prefetcher
+from meant_tpu_torch.parallel.mesh import rank_zero
 from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import seed_dropout
+from meant_tpu_torch.train.layout import DataLayout
 from meant_tpu_torch.train.optim import build_optimizer
 from meant_tpu_torch.utils.metrics import F1Metrics, confusion_delta
 
@@ -48,14 +50,9 @@ class vqa_trainer:
     epochs, num_classes, optimizer / lr / decay / beta_1 / beta_2 / lrst /
     t0 / tmax, early_stopping, test_model, file_path, run_id, num_encoders,
     seed, init_params (a partial state_dict that overrides the fresh
-    init)."""
+    init), mesh, fsdp."""
 
     def __init__(self, p: Dict[str, Any]):
-        for key in ("mesh", "fsdp"):
-            if p.get(key):
-                raise NotImplementedError(
-                    f"{key} is not yet ported to meant_tpu_torch (see "
-                    f"ROADMAP, parallel layouts)")
         self.model = p["model"]
         self.model_name = p.get("model_name", "meant_vqa")
         self.dataset = p.get("dataset", "vqa")
@@ -72,13 +69,16 @@ class vqa_trainer:
         self.seed = p.get("seed", 0)
         self.init_params = p.get("init_params")
         self.device = next(self.model.parameters()).device
+        self.layout = DataLayout(p.get("mesh"), p.get("fsdp", False),
+                                 self.device)
         self._opt_kwargs = dict(
             optimizer=p.get("optimizer", "AdamW"),
             learning_rate=p.get("lr", 5e-5), decay=p.get("decay", 0.0),
             beta_1=p.get("beta_1", 0.9), beta_2=p.get("beta_2", 0.999),
             lr_scheduler=p.get("lrst", "cosine_warm"), t0=p.get("t0", 7),
             tmax=p.get("tmax", 10),
-            steps_per_epoch=max(len(self.train_loader), 1))
+            steps_per_epoch=max(len(self.train_loader), 1),
+            **self.layout.optimizer_kwargs())
         self.optimizer = None
         self.checkpoint: Optional[str] = None
         self.history = []
@@ -103,11 +103,13 @@ class vqa_trainer:
                                          **self._opt_kwargs)
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> tuple:
-        """One optimizer step on a device batch; the loss and the confusion
-        delta stay on the device."""
+        """One optimizer step on a device batch (this rank's rows under a
+        mesh); the global batch's loss and confusion delta stay on the
+        device."""
         if self.optimizer is None:
             self._init_state()
         self.model.train()
+        self.optimizer.gather()
         self.optimizer.zero_grad()
         args, kwargs = self._forward_args(batch)
         out = self.model(*args, **kwargs)
@@ -115,21 +117,24 @@ class vqa_trainer:
         loss = soft_target_ce(out, targets)
         loss.backward()
         self.optimizer.step()
-        return loss.detach(), confusion_delta(
-            out.detach(), targets.argmax(dim=-1), self.num_classes)
+        return self.layout.mean(loss.detach()), self.layout.sum(
+            confusion_delta(out.detach(), targets.argmax(dim=-1),
+                            self.num_classes))
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> tuple:
+        if self.optimizer is not None:
+            self.optimizer.gather()
         self.model.eval()
         args, kwargs = self._forward_args(batch)
         out = self.model(*args, **kwargs)
-        return (soft_target_ce(out, batch["labels"]),
-                confusion_delta(out, batch["labels"].argmax(dim=-1),
-                                self.num_classes))
+        return (self.layout.mean(soft_target_ce(out, batch["labels"])),
+                self.layout.sum(confusion_delta(
+                    out, batch["labels"].argmax(dim=-1), self.num_classes)))
 
     def _metrics(self, loader, set_name: str) -> F1Metrics:
         metrics = F1Metrics(self.num_classes, set_name, self.device)
-        for batch in Prefetcher(loader, self.device):
+        for batch in Prefetcher(self.layout.rows(loader), self.device):
             metrics.update_cm(self.eval_step(batch)[1])
         return metrics
 
@@ -144,7 +149,8 @@ class vqa_trainer:
             t0 = time.time()
             metrics = F1Metrics(self.num_classes, "train", self.device)
             losses = []
-            for batch in Prefetcher(self.train_loader, self.device):
+            for batch in Prefetcher(self.layout.rows(self.train_loader),
+                                    self.device):
                 loss, cm = self.train_step(batch)
                 metrics.update_cm(cm)
                 losses.append(loss)
@@ -183,6 +189,9 @@ class vqa_trainer:
         name = ckpt.checkpoint_name(self.model_name, self.num_encoders,
                                     self.dataset, self.run_id, epoch)
         path = os.path.join(self.file_path, "models", self.model_name, name)
+        self.optimizer.gather()
+        if not rank_zero():
+            return path
         try:
             ckpt.save(path, {"params": self.model.state_dict(),
                              "step": self.optimizer.step_count})

@@ -383,7 +383,8 @@ def test_pretrainers_refuse_stack_levers_and_need_the_card(monkeypatch,
     """The levers are ported (nn/stack.py): each pretrainer builds with
     remat="full" and with scan_layers=True (so "dots") and, in training
     mode at one seed, computes bit for bit what it computes without them,
-    outputs and gradients. The card and mesh refusals stay."""
+    outputs and gradients. The card refusal stays; a mesh and fsdp are
+    taken (a one-rank gloo group in this process, ended here)."""
     lang = _mlm_batch()
     imgs = host_tensor(_mim_batch()["input_ids"])
     for lever in (dict(remat="full"), dict(scan_layers=True)):
@@ -413,8 +414,13 @@ def test_pretrainers_refuse_stack_levers_and_need_the_card(monkeypatch,
         models.meant_language_pretrainer(**LANG)
     with pytest.raises(RuntimeError, match="CUDA"):
         models.meant_vision_pretrainer(**VISION)
-    model = _p_language()
-    for key in ("mesh", "fsdp"):
-        with pytest.raises(NotImplementedError):
-            pretrain.mlm_pretrainer({"model": model, "train_data": [],
-                                     key: True})
+    from meant_tpu_torch.parallel import make_mesh
+    try:
+        for key in ("mesh", "fsdp"):
+            value = make_mesh(device="cpu") if key == "mesh" else True
+            trainer = pretrain.mlm_pretrainer({"model": _p_language(),
+                                               "train_data": [], key: value})
+            assert trainer.layout.size == 1
+            assert trainer.layout.fsdp == (key == "fsdp")
+    finally:
+        torch.distributed.destroy_process_group()

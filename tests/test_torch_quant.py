@@ -323,10 +323,13 @@ def test_int8_rounding_amplifies_ulp_noise(name):
 
 
 def test_unknown_quantize_and_mesh_are_refused():
+    """An unknown mode, a mesh that is not a DeviceMesh, and int8 under
+    tensor-parallel serving (which cuts the layers int8 reads) raise."""
     model = CASES["meant"][1](device="cpu")
     with pytest.raises(ValueError):
         Predictor(model, "meant", device="cpu", quantize="fp4")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Predictor(model, "meant", device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Predictor(model, "meant", device="cpu", tensor_parallel=True)
+    with pytest.raises(NotImplementedError, match="int8"):
+        Predictor(model, "meant", device="cpu", tensor_parallel=True,
+                  quantize="int8")

@@ -60,10 +60,15 @@ def test_serve_cli_takes_and_ignores_mu_bf16():
 
 @pytest.mark.parametrize("flag", [["--fsdp"]])
 def test_serve_cli_refuses_what_is_not_ported(flag):
+    """Every flag of the shared parser is ported: --fsdp, a training
+    layout, is taken and ignored by the serving CLI, as JAX's ignores it
+    (the same probabilities)."""
     argv = ["-rid", "0", "-mn", "meant_src", "--device", "cpu",
-            "--seq_len", "12", "--image_size", "32", "-nec", "1"] + flag
-    with pytest.raises(NotImplementedError):
-        serve_cli.main(argv)
+            "--seq_len", "12", "--image_size", "32", "-nec", "1",
+            "--text_dim", "32", "--image_dim", "32", "--vocab_size", "128",
+            "--num_heads", "4", "--synthetic_n", "4", "--serve_batch", "4"]
+    np.testing.assert_array_equal(serve_cli.main(argv + flag),
+                                  serve_cli.main(argv))
 
 
 def test_predictor_refuses_checkpoint_path(tmp_path):

@@ -262,6 +262,23 @@ def test_nan_loss_raises(monkeypatch):
                                   ["-mn", "meantTweetPrice"],
                                   ["--hf_cache", "somewhere"]])
 def test_train_cli_refuses_what_is_not_ported(flag, tmp_path):
+    if flag[0] == "--fsdp":
+        # ported: without torchrun the CLI trains FSDP over a one-rank
+        # mesh (a gloo group in this process, ended here), its moments
+        # whole on the one rank, and saves; no flag is left unported
+        from meant_tpu_torch.cli.common import UNPORTED_FLAGS
+        assert UNPORTED_FLAGS == ()
+        try:
+            results = in_loop_train.main(TINY + ["-rid", "x", "-ne", "1",
+                                                 "-fp", str(tmp_path)]
+                                         + flag)
+            opt = results["trainer"].optimizer
+            assert opt.shard and opt.m.numel() == opt.n
+            assert np.isfinite(results["history"][0]["train_loss"])
+            assert results["checkpoint"] is not None
+        finally:
+            torch.distributed.destroy_process_group()
+        return
     if flag[0] == "--hf_cache":
         # ported: a cache that is not there raises in both packages (JAX's
         # CLI raises from its hf_graft, called here with the CLI's
@@ -292,11 +309,35 @@ def test_train_cli_refuses_what_is_not_ported(flag, tmp_path):
 
 @pytest.mark.parametrize("key", ["mesh", "fsdp"])
 def test_trainer_refuses_what_is_not_ported(key):
+    """Both are ported: at one rank (a gloo group in this process, ended
+    here) every collective is a copy, so two steps give the plain
+    trainer's losses, parameters and moments bit for bit."""
+    from meant_tpu_torch.parallel import make_mesh
     args = base_parser().parse_args(TINY + ["-rid", "x"])
-    loader = ArrayLoader(synthetic_batch(args, 4), 4)
-    with pytest.raises(NotImplementedError):
-        meant_trainer({"model": build_model(args), "model_name": "meant_src",
-                       "train_loader": loader, key: True})
+    data = synthetic_batch(args, 4)
+    runs = []
+    try:
+        for extra in ({}, {"mesh": make_mesh(device="cpu")}
+                      if key == "mesh" else {"fsdp": True}):
+            model = build_model(args)
+            trainer = meant_trainer({"model": model,
+                                     "model_name": "meant_src",
+                                     "train_loader": ArrayLoader(data, 4),
+                                     **extra})
+            losses = [trainer.train_step({k: host_tensor(v) for k, v in
+                                          data.items()})[0].item()
+                      for _ in range(2)]
+            trainer.optimizer.gather()
+            runs.append((losses, model.state_dict(),
+                         trainer.optimizer.state_dict()))
+    finally:
+        torch.distributed.destroy_process_group()
+    (losses, params, opt), (got_losses, got_params, got_opt) = runs
+    assert got_losses == losses
+    for name, p in params.items():
+        assert torch.equal(got_params[name], p), name
+    for name in ("m", "v"):
+        assert torch.equal(got_opt[name], opt[name]), name
 
 
 def test_train_cli_mu_bf16_trains_with_a_bf16_first_moment(tmp_path):
