@@ -4277,46 +4277,55 @@ RING_BH = LONG_TIME_BH     # (10, 8, 4096, 96): 80 (b*lag, head) rows
 RING_TIME_ITERS = 3
 
 
+def layout_run(res, way, host, model=None, **extra):
+    """The flagship (fixed_proj=True; `model` if given) trained
+    LAYOUT_STEPS steps on the replayed batch `host` by meant_trainer with
+    the trainer parameters `extra`, with phase 4's launches a step (K1 by
+    shape too); records res[way] and returns (losses, the flat
+    parameters, the moments' local size)."""
+    model = model or build_flagship(flash=True, fixed_proj=True)
+    out, trainer, _ = train_steps(model, host, LAYOUT_STEPS, LAYOUT_STEP,
+                                  f"layout {way}", falling=False, **extra)
+    want = {k: n * LAYOUT_STEPS for k, n in LAYOUT_K1_BY_SHAPE.items()}
+    if out["launches"]["K1_by_shape"] != want:
+        fail(f"layout {way}: K1 launched "
+             f"{out['launches']['K1_by_shape']}, want {want}")
+    trainer.optimizer.gather()
+    run = (out["losses"], trainer.optimizer.flat_p[
+        :trainer.optimizer.n].clone(), trainer.optimizer.m.numel())
+    res[way] = {k: out[k] for k in ("losses", "step_ms_median",
+                                    "peak_memory_bytes")}
+    res[way]["m_local"] = run[2]
+    del model, trainer, out
+    torch.cuda.empty_cache()
+    return run
+
+
+def deterministic(fn):
+    """fn() under torch.use_deterministic_algorithms (warn only)."""
+    kept = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(kept)
+
+
 def layout_runs(res):
     """Phase 16a: the flagship (fixed_proj=True) trained LAYOUT_STEPS steps
     by the plain meant_trainer, with a world-1 data-parallel mesh and with
     fsdp=True, from the same weights on the same replayed batch, under
     deterministic algorithms: each with phase 4's launches a step (K1 by
     shape too) and the losses and parameters of the plain run bit for
-    bit."""
+    bit. Returns the mesh, the batch and the plain run."""
     from meant_tpu_torch.parallel import make_mesh
     mesh = make_mesh()
     host = train_batch(BATCH, seed=1)
-    runs = {}
     ways = {"plain": {}, "mesh": {"mesh": mesh},
             "fsdp": {"mesh": mesh, "fsdp": True}}
-
-    def run(way):
-        extra = ways[way]
-        model = build_flagship(flash=True, fixed_proj=True)
-        out, trainer, _ = train_steps(model, host, LAYOUT_STEPS, LAYOUT_STEP,
-                                      f"layout {way}", falling=False,
-                                      **extra)
-        want = {k: n * LAYOUT_STEPS for k, n in LAYOUT_K1_BY_SHAPE.items()}
-        if out["launches"]["K1_by_shape"] != want:
-            fail(f"layout {way}: K1 launched "
-                 f"{out['launches']['K1_by_shape']}, want {want}")
-        trainer.optimizer.gather()
-        runs[way] = (out["losses"], trainer.optimizer.flat_p[
-            :trainer.optimizer.n].clone(), trainer.optimizer.m.numel())
-        res[way] = {k: out[k] for k in ("losses", "step_ms_median",
-                                        "peak_memory_bytes")}
-        res[way]["m_local"] = runs[way][2]
-        del model, trainer, out
-        torch.cuda.empty_cache()
-
-    kept = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        for way in ways:
-            run(way)
-    finally:
-        torch.use_deterministic_algorithms(kept)
+    runs = deterministic(lambda: {
+        way: layout_run(res, way, host, **extra)
+        for way, extra in ways.items()})
     losses, params, _ = runs["plain"]
     for way in ("mesh", "fsdp"):
         got_losses, got, _ = runs[way]
@@ -4329,40 +4338,51 @@ def layout_runs(res):
         if not exact:
             fail(f"layout {way} differs from the plain trainer: params "
                  f"rel L2 {rel}, losses {got_losses} vs {losses}")
-    return mesh
+    return mesh, host, runs["plain"]
 
 
 def layout_serving(res):
     """Phase 16b: Predictor(tensor_parallel=True) on a (1, 1) (data,
-    model) mesh answers one 16-row request through 24 R1 + 24 K1, with the
-    plain Predictor's probabilities."""
+    model) mesh answers one 16-row request through 24 R1 + 24 K1, bit for
+    bit the plain Predictor whose row-parallel Linears add their bias
+    after the product (`bias_behind`, as 16d), and within twice that
+    Predictor's distance of the plain one's probabilities."""
     from meant_tpu_torch.parallel import make_mesh
     from meant_tpu_torch.serve import Predictor
     chunk = request_batch(BATCH, seed=3)
-    plain = Predictor(build_flagship(flash=True, fixed_proj=True), "meant_src",
-                      batch_size=BATCH)
-    want = plain.forward(chunk).float()
-    del plain
-    torch.cuda.empty_cache()
+    mesh = make_mesh(("data", "model"), (1, 1))
+    want = {}
+    for name, shape in (("plain", lambda m: m),
+                        ("bias_behind", lambda m: bias_behind(m, mesh))):
+        plain = Predictor(shape(build_flagship(flash=True, fixed_proj=True)),
+                          "meant_src", batch_size=BATCH)
+        want[name] = plain.forward(chunk).float()
+        del plain
+        torch.cuda.empty_cache()
     model = build_flagship(flash=True, fixed_proj=True)
-    tp = Predictor(model, "meant_src", batch_size=BATCH,
-                   mesh=make_mesh(("data", "model"), (1, 1)),
+    tp = Predictor(model, "meant_src", batch_size=BATCH, mesh=mesh,
                    tensor_parallel=True)
     reset_counts()
     got = tp.forward(chunk).float()
     torch.cuda.synchronize()
     counts = read_counts()
     check_counts(counts, {"K1": 24, "R1": 24}, "tensor-parallel request")
-    exact = torch.equal(got, want)
-    err = (got - want).abs().max().item()
-    res["tp"] = {"bit_for_bit": exact, "max_abs_err": err,
+    exact = torch.equal(got, want["bias_behind"])
+    err = (got - want["plain"]).abs().max().item()
+    behind = (want["bias_behind"] - want["plain"]).abs().max().item()
+    res["tp"] = {"bit_for_bit_bias_behind": exact,
+                 "max_abs_err_vs_plain": err,
+                 "bias_behind_max_abs_err_vs_plain": behind,
                  "launches": counts,
                  "heads_per_rank": model.languageEncoders[0].attn.num_heads}
-    print(f"tensor-parallel Predictor at (1, 1) vs plain: max abs err "
-          f"{err:.3e}, bit for bit {exact}; launches {counts}", flush=True)
-    if not exact:
+    print(f"tensor-parallel Predictor at (1, 1): bit for bit the plain "
+          f"Predictor with its row biases after the product: {exact}; max "
+          f"abs err vs the plain Predictor {err:.3e} (that Predictor's "
+          f"{behind:.3e}); launches {counts}", flush=True)
+    if not exact or err > 2 * behind:
         fail(f"tensor-parallel serving differs from the plain Predictor "
-             f"(max abs err {err})")
+             f"with its row biases after the product (max abs err vs "
+             f"plain {err}, the rerun's {behind})")
     del tp, model
     torch.cuda.empty_cache()
 
@@ -4657,33 +4677,332 @@ def time_ring(res, c):
     torch.cuda.empty_cache()
 
 
+# ---- phases 16d-16f: tensor-parallel training and int8, the pipeline ----
+
+# 16d: tensor parallelism at a (1, 1) (data, model) mesh changes the
+# association of two sums against the plain step: a row-parallel layer adds
+# its bias after the sum over the model axis (F.linear(x, w) + b, where the
+# plain Linear's F.linear(x, w, b) adds it inside the product's epilogue in
+# fp32 before the one rounding to bf16), and the clip's norm^2 is summed
+# from sharded and replicated parts (at one model rank every entry counts
+# on rank 0 and sqrt(fl(n * n)) == n, so the norm itself is exact). So the
+# TP step is held bit for bit to the plain step rerun with its row-parallel
+# biases added after the product (`bias_behind`), and its distance from
+# the plain step to at most twice that rerun's (the one change of
+# rounding). The plain step rerun under default (nondeterministic)
+# algorithms is recorded beside them.
+TP_TRAIN_MESH = (1, 1)
+# 16f: the flagship's language tower (12 LanguageEncoders, 768 wide, 8
+# heads of 96, causal xPos, bf16) with a key mask (the kernels take it),
+# over 80 sequences of 512 (16 rows x lag 5), played as 4 stages of 3
+# layers at 4 and 8 microbatches (BH = 160 and 80), against the sequential
+# stack on the same kernels. A microbatch's rows go through the same
+# per-row arithmetic (the products at other row counts), so the output and
+# the input's gradient are held to the kernels' own bars, BF16_REL_L2 and
+# BWD_BF16_REL_L2; a weight's gradient is the fp32 sum over the
+# microbatches of bf16 products, each rounded to bf16 (2^-9 relative)
+# where the sequential stack rounds one product over all rows, so the
+# parameters' gradients are held to one bf16 step, 2^-8.
+PIPE_STAGES = 4
+PIPE_MICROBATCHES = (4, 8)
+PIPE_ROWS = BATCH * LAG
+PIPE_PARAM_GRAD_REL_L2 = 2.0 ** -8
+PIPE_TIME_ITERS = 3
+PIPE_CASES = tuple((f"text_bh{PIPE_ROWS // m * HEADS}", "text", SEQ,
+                    PIPE_ROWS // m * HEADS) for m in PIPE_MICROBATCHES)
+
+
+def bias_behind(model, mesh):
+    """The plain model whose row-parallel Linears (the tensor-parallel
+    rules' Shard(1) weights on `mesh`) add their bias after the product,
+    as tensor parallelism adds it after the sum: the plain path with 16d's
+    association."""
+    import torch.nn.functional as F
+    from meant_tpu_torch.nn.layers import Linear
+    from meant_tpu_torch.parallel import param_shardings
+    from meant_tpu_torch.parallel.sharding_rules import _model_shard
+    specs = param_shardings(model, mesh)
+    for name, m in model.named_modules():
+        if not isinstance(m, Linear):
+            continue
+        shard = _model_shard(specs[f"{name}.weight"], mesh)
+        if shard is not None and shard.dim == 1:
+            def forward(x, m=m):
+                dt = m.dtype or torch.promote_types(x.dtype, m.weight.dtype)
+                y = F.linear(x.to(dt), m.weight.to(dt))
+                return y if m.bias is None else y + m.bias.to(dt)
+            m.forward = forward
+    return model
+
+
+def layout_tp_train(res, host, plain):
+    """Phase 16d: the flagship cut by `parallelize_model` over a (1, 1)
+    (data, model) mesh, trained LAYOUT_STEPS steps by meant_trainer on
+    that mesh (FlatAdam with the tensor-parallel norm), with phase 4's
+    launches a step, under deterministic algorithms: bit for bit the plain
+    step with its row-parallel biases after the product, and within twice
+    that rerun's distance of the plain step (TP_TRAIN_MESH's notes)."""
+    from meant_tpu_torch.parallel import make_mesh, parallelize_model
+    mesh = make_mesh(("data", "model"), TP_TRAIN_MESH)
+
+    def tp_run():
+        model = parallelize_model(build_flagship(flash=True,
+                                                 fixed_proj=True), mesh)
+        return layout_run(res, "tp_train", host, model=model, mesh=mesh)
+
+    def behind_run():
+        model = bias_behind(build_flagship(flash=True, fixed_proj=True),
+                            mesh)
+        return layout_run(res, "plain_bias_behind", host, model=model)
+
+    tp = deterministic(tp_run)
+    behind = deterministic(behind_run)
+    rerun = layout_run(res, "plain_default_algorithms", host)
+    losses, params, _ = plain
+    dists = {name: rel_l2(run[1], params)
+            for name, run in (("tp", tp), ("plain_bias_behind", behind),
+                              ("plain_default_algorithms", rerun))}
+    exact = tp[0] == behind[0] and torch.equal(tp[1], behind[1])
+    res["tp_train"].update(bit_for_bit_bias_behind=exact,
+                           params_rel_l2_vs_plain=dists)
+    print(f"tensor-parallel training at {TP_TRAIN_MESH}: losses {tp[0]}; "
+          f"bit for bit the plain step with its row biases after the "
+          f"product: {exact}; params rel L2 vs the plain step: TP "
+          f"{dists['tp']:.3e}, the bias-behind rerun "
+          f"{dists['plain_bias_behind']:.3e}, a default-algorithms rerun "
+          f"{dists['plain_default_algorithms']:.3e}; plain losses {losses}",
+          flush=True)
+    if not exact:
+        fail(f"tensor-parallel training differs from the plain step with "
+             f"its row biases after the product: losses {tp[0]} vs "
+             f"{behind[0]}, params rel L2 {rel_l2(tp[1], behind[1])}")
+    if dists["tp"] > 2 * dists["plain_bias_behind"]:
+        fail(f"tensor-parallel training is {dists['tp']} from the plain "
+             f"step, more than twice the rerun's "
+             f"{dists['plain_bias_behind']}")
+    return mesh
+
+
+def layout_tp_int8(res, mesh):
+    """Phase 16e: Predictor(tensor_parallel=True, quantize="int8") on the
+    (1, 1) mesh answers one 16-row request through 24 R1 + 24 K1 with the
+    plain int8 Predictor's probabilities and int8 products, bit for bit."""
+    from meant_tpu_torch.serve import Predictor
+    chunk = request_batch(BATCH, seed=3)
+    plain = Predictor(build_flagship(flash=True, fixed_proj=True),
+                      "meant_src", batch_size=BATCH, quantize="int8")
+    reset_int8_counts()
+    want = plain.forward(chunk).float()
+    want_products = int8_counts()
+    del plain
+    torch.cuda.empty_cache()
+    tp = Predictor(build_flagship(flash=True, fixed_proj=True), "meant_src",
+                   batch_size=BATCH, mesh=mesh, tensor_parallel=True,
+                   quantize="int8")
+    reset_counts()
+    reset_int8_counts()
+    got = tp.forward(chunk).float()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    products = int8_counts()
+    check_counts(counts, {"K1": 24, "R1": 24}, "tensor-parallel int8 request")
+    exact = torch.equal(got, want)
+    err = (got - want).abs().max().item()
+    res["tp_int8"] = {"bit_for_bit": exact, "max_abs_err": err,
+                      "launches": counts,
+                      "int8_products": sum(products.values()),
+                      "int8_products_plain": sum(want_products.values())}
+    print(f"tensor-parallel int8 Predictor at {TP_TRAIN_MESH} vs plain "
+          f"int8: max abs err {err:.3e}, bit for bit {exact}; int8 "
+          f"products {sum(products.values())} (plain "
+          f"{sum(want_products.values())}); launches {counts}", flush=True)
+    if not exact or products != want_products or not products:
+        fail(f"tensor-parallel int8 serving differs from the plain int8 "
+             f"Predictor (max abs err {err}; products {products} vs "
+             f"{want_products})")
+    del tp
+    torch.cuda.empty_cache()
+
+
+def pipe_tower():
+    """The flagship's language tower (its weights from seed 0), the key
+    mask handed to the kernels, dropout off."""
+    tower = build_flagship(flash=True, fixed_proj=True).languageEncoders
+    for enc in tower:
+        enc.mask_in_flash = True
+    return tower.eval()
+
+
+def pipe_inputs(gen):
+    """80 sequences of 512 x 768 bf16 hidden states, key masks of lengths
+    uniform in [256, 512], and a dO."""
+    shape = (PIPE_ROWS, SEQ, DIM)
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    lengths = torch.randint(SEQ // 2, SEQ + 1, (PIPE_ROWS,), generator=gen,
+                            device="cuda")
+    mask = (torch.arange(SEQ, device="cuda")[None, :]
+            < lengths[:, None]).to(torch.float32)
+    do = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    return x, mask, do
+
+
+def pipe_pass(tower, x, mask, do=None, **kw):
+    """The tower over (x, mask): sequential without `kw`, else
+    `pipeline_apply(..., **kw)` of its stacked layers; with `do` the
+    backward too. Returns (output, the input's gradient, the parameters'
+    gradients by name)."""
+    from meant_tpu_torch.parallel import pipeline_apply, stack_layer_params
+    leaf = x.detach().requires_grad_(do is not None)
+    with torch.set_grad_enabled(do is not None):
+        if kw:
+            template = tower[0]
+
+            def layer(params, state):
+                h, m = state
+                return torch.func.functional_call(template, params,
+                                                  (h, m)), m
+            out, _ = pipeline_apply(layer, stack_layer_params(list(tower)),
+                                    (leaf, mask), **kw)
+        else:
+            out = leaf
+            for enc in tower:
+                out = enc(out, mask)
+    if do is None:
+        return out, None, None
+    out.backward(do)
+    grads = {n: p.grad for n, p in tower.named_parameters()}
+    for p in tower.parameters():
+        p.grad = None
+    return out.detach(), leaf.grad, grads
+
+
+def layout_pipeline(res):
+    """Phase 16f: the tower (`pipe_tower`) played as PIPE_STAGES stages at
+    each of PIPE_MICROBATCHES, and over a real one-rank ("pipe",) mesh at
+    4, forward and backward from one dO, against the sequential stack on
+    the same kernels (PIPE_STAGES' notes), with exactly (m + n - 1) * 12
+    launches each of R1, K1 and K2 when played (m * 12 over the one-rank
+    mesh); then the timings. Returns the played runs' launches by BH."""
+    from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2,
+                                                  BWD_BF16_REL_L2)
+    from meant_tpu_torch.parallel import make_mesh
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tower = pipe_tower()
+    x, mask, do = pipe_inputs(gen)
+    want = pipe_pass(tower, x, mask, do)
+    layers = len(tower)
+    pipe = make_mesh(("pipe",))
+    runs = [(f"played m={m}", dict(stages=PIPE_STAGES, microbatches=m),
+             (m + PIPE_STAGES - 1) * layers, PIPE_ROWS // m * HEADS)
+            for m in PIPE_MICROBATCHES]
+    runs.append(("one-rank mesh m=4", dict(mesh=pipe, microbatches=4),
+                 4 * layers, PIPE_ROWS // 4 * HEADS))
+    by_bh, checks = {}, {}
+    for label, kw, n, bh in runs:
+        reset_counts()
+        got = pipe_pass(tower, x, mask, do, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check_counts(counts, {"R1": n, "K1": n, "K2": n},
+                     f"pipeline {label}")
+        if label.startswith("played"):
+            by_bh[bh] = counts
+        rel = {"out": rel_l2(got[0], want[0]),
+               "dx": rel_l2(got[1], want[1]),
+               "params": max(rel_l2(g, want[2][k])
+                             for k, g in got[2].items())}
+        bars = {"out": BF16_REL_L2, "dx": BWD_BF16_REL_L2,
+                "params": PIPE_PARAM_GRAD_REL_L2}
+        ok = (all(rel[k] <= bars[k] for k in rel)
+              and bool(torch.isfinite(got[0]).all()))
+        checks[label] = {"rel_l2": rel, "bars": bars, "launches": counts}
+        print(f"pipeline {label} vs the sequential stack: output rel L2 "
+              f"{rel['out']:.3e} (bar {bars['out']}), input gradient "
+              f"{rel['dx']:.3e} (bar {bars['dx']}), worst parameter "
+              f"gradient {rel['params']:.3e} (bar {bars['params']}); "
+              f"{n} launches each of R1, K1, K2 "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"pipeline {label} differs from the sequential stack: "
+                 f"{rel}")
+        del got
+        torch.cuda.empty_cache()
+    del want
+    torch.cuda.empty_cache()
+    card = card_line()
+    ms = {}
+    for label, kw in [("sequential", {})] + [
+            (f"played m={m}", dict(stages=PIPE_STAGES, microbatches=m))
+            for m in PIPE_MICROBATCHES]:
+        fwd = event_ms(lambda: pipe_pass(tower, x, mask, **kw),
+                       iters=PIPE_TIME_ITERS, warmup=1)
+        both = event_ms(lambda: pipe_pass(tower, x, mask, do, **kw),
+                        iters=PIPE_TIME_ITERS, warmup=1)
+        ms[label] = {"fwd": fwd, "fwd_bwd": both, "bwd": both - fwd}
+        print(f"{label} tower of {layers} at ({PIPE_ROWS}, {SEQ}, {DIM}) "
+              f"bf16: forward {fwd:.4f} ms, forward + backward "
+              f"{both:.4f} ms on {card}", flush=True)
+    res["pipeline"] = {"checks": checks, "ms": ms}
+    del tower, x, mask, do
+    torch.cuda.empty_cache()
+    return by_bh
+
+
 def run_layouts(record) -> dict:
-    """Phase 16: data parallel and FSDP of the flagship, tensor-parallel
-    serving and ring attention, at one card; the ring's kernels checked at
-    their chunk shape against their plain versions."""
+    """Phase 16: data parallel and FSDP of the flagship (16a),
+    tensor-parallel serving (16b) and ring attention (16c), at one card;
+    the ring's kernels checked at their chunk shape against their plain
+    versions; then R1 + K1 and K2 at the pipeline's microbatch shapes
+    against their plain versions, tensor-parallel training (16d) and int8
+    serving (16e) at (1, 1), and the GPipe pipeline (16f)."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     res = {"n_params": record["n_params"]}
     record["layouts"] = res
-    mesh = layout_runs(res)
+    mesh, host, plain = layout_runs(res)
     layout_serving(res)
     counts = layout_ring(res, mesh)
     errors = check_long_kernels(res, kinds=("vision",), tag="ring",
                                 s=RING_CHUNK)
+    res["wall_s_16abc"] = time.perf_counter() - t0
+    pipe_errors = check_kernel(res, PIPE_CASES, "pipe_kernel_vs_plain")
+    pipe_bwd_errors = check_backward(res, PIPE_CASES, "pipe_k2_vs_plain")
+    tp_mesh = layout_tp_train(res, host, plain)
+    layout_tp_int8(res, tp_mesh)
+    pipe_counts = layout_pipeline(res)
     dist.destroy_process_group()
     res["wall_s"] = time.perf_counter() - t0
-    print(f"phase layouts: {res['wall_s']:.1f} s", flush=True)
-    return {"errors": errors, "counts": counts}
+    print(f"phase layouts: {res['wall_s']:.1f} s (16a-16c "
+          f"{res['wall_s_16abc']:.1f} s)", flush=True)
+    return {"errors": errors, "counts": counts, "pipe_errors": pipe_errors,
+            "pipe_bwd_errors": pipe_bwd_errors, "pipe_counts": pipe_counts}
 
 
 def time_layouts(layouts) -> list:
     """R1 + K3, R1, K4 and K5 at the ring's chunk shape (80, 1024, 96), a
     chunk of earlier keys (not causal; 12 of the ring's 16 launches), with
-    the played ring's launches."""
-    return time_long_kernels(layouts["errors"], layouts["counts"],
+    the played ring's launches; then the resident rows (R1 + K1, K2, R1)
+    at the pipeline's microbatch shapes (160 and 80, 512, 96) causal xPos,
+    with the played pipeline's launches at each."""
+    rows = time_long_kernels(layouts["errors"], layouts["counts"],
                              bh=RING_BH, tag="ring", kind="vision",
                              label=f"ring chunk s{RING_CHUNK}",
                              s=RING_CHUNK)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    key = shape_key(SEQ, True)
+    for case, kind, s, bh in PIPE_CASES:
+        counts = layouts["pipe_counts"][bh]
+        c = backward_case(kind, torch.bfloat16, gen, s=s, bh=bh)
+        rows += resident_rows(
+            c, f"s{s} causal xPos BH{bh} pipeline",
+            counts["K1_by_shape"].get(key, 0),
+            counts["K2_by_shape"].get(key, 0),
+            counts["R1_by_shape"].get(f"s{s}", 0),
+            layouts["pipe_errors"][f"{case}/bfloat16"],
+            layouts["pipe_bwd_errors"][f"{case}/bfloat16"],
+            layouts["pipe_bwd_errors"][f"{case}/bfloat16/rot"])
+        del c
+    return rows
 
 
 # ---- phase 7: timing ---------------------------------------------------

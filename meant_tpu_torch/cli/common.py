@@ -34,9 +34,7 @@ def str2bool(v):
 
 def base_parser() -> argparse.ArgumentParser:
     """The reference's flag set under the JAX package's names
-    (meant_tpu/cli/common.py), plus --device. Flags of slices not ported
-    yet (UNPORTED_FLAGS) are accepted by the parser and refused by
-    `refuse_unported`."""
+    (meant_tpu/cli/common.py), plus --device."""
     p = argparse.ArgumentParser()
     # learning-rate schedule and optimizer
     p.add_argument("-t0", "--t0", type=int, default=7)
@@ -152,8 +150,6 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flags of slices not ported yet (none at present)
-UNPORTED_FLAGS = ()
 # the models that take --scan_layers / --remat
 # (meant_tpu/cli/common.py:221-230)
 SCAN_MODELS = ("meant", "meant_src", "meant_vision", "meant_tweet",
@@ -174,16 +170,6 @@ def cli_mesh(args):
     if not rank_zero():
         sys.stdout = open(os.devnull, "w")
     return mesh
-
-
-def refuse_unported(args) -> None:
-    """Raise for any flag of a slice that is not ported yet, rather than
-    ignore it: a run must never claim a configuration it did not use."""
-    for name in UNPORTED_FLAGS:
-        if getattr(args, name, None):
-            raise NotImplementedError(
-                f"--{name} is not ported to meant_tpu_torch yet (the "
-                f"parallel layouts, ROADMAP §1 item 4)")
 
 
 def reject_stack_flags(args, harness: str) -> None:
@@ -321,7 +307,6 @@ def build_model(args, device=None):
                          f"{'/'.join(SCAN_MODELS)} (got --model_name {name})")
     if name not in KWARGS_MODELS + PAPER_MODELS:
         raise NotImplementedError(f"model {name} is not supported")
-    refuse_unported(args)
     if isinstance(args.flash, str):
         if args.flash.lower() == "auto":
             args.flash = args.seq_len >= 256

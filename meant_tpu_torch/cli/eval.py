@@ -9,7 +9,7 @@ metrics.
 from __future__ import annotations
 
 from meant_tpu_torch.cli.common import (base_parser, build_model,
-                                        dataset_arrays, refuse_unported)
+                                        dataset_arrays)
 from meant_tpu_torch.data.datasets import split_arrays
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.train.classify import meant_trainer
@@ -17,7 +17,6 @@ from meant_tpu_torch.train.classify import meant_trainer
 
 def main(argv=None) -> dict:
     args = base_parser().parse_args(argv)
-    refuse_unported(args)
     model = build_model(args)
     _, _, test = split_arrays(dataset_arrays(args))
     loader = ArrayLoader(test, args.train_batch_size, drop_remainder=False)

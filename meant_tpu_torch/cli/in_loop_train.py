@@ -44,8 +44,7 @@ import time
 import torch
 
 from meant_tpu_torch.cli.common import (base_parser, build_model,
-                                        cli_mesh, dataset_arrays,
-                                        refuse_unported)
+                                        cli_mesh, dataset_arrays)
 from meant_tpu_torch.data.datasets import split_arrays
 from meant_tpu_torch.data.loader import ArrayLoader, BucketedLoader
 from meant_tpu_torch.train import checkpoint as ckpt
@@ -77,7 +76,6 @@ def prepare(argv=None) -> meant_trainer:
     towers and embedding grafted in as its `init_params` (loaded when
     training starts)."""
     args = base_parser().parse_args(argv)
-    refuse_unported(args)
     if args.image_only and args.language_only:
         raise AssertionError(
             "Cannot be an image only AND a language only task")

@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from meant_tpu_torch.cli.common import base_parser, cli_mesh, refuse_unported
+from meant_tpu_torch.cli.common import base_parser, cli_mesh
 from meant_tpu_torch.cli.pretrain_mlm import split
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.data.masking import mask_image
@@ -59,7 +59,6 @@ def load_images(args) -> np.ndarray:
 def build_model(args, images_shape: tuple) -> meant_vision_pretrainer:
     """The harness's model for images of `images_shape` (n, c, H, W) on
     args.device (the card unless named)."""
-    refuse_unported(args)
     _, channels, height, width = images_shape
     return meant_vision_pretrainer(
         num_encoders=args.num_encoders, patch_res=16, channels=channels,

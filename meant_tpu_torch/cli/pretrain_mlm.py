@@ -30,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from meant_tpu_torch.cli.common import base_parser, cli_mesh, refuse_unported
+from meant_tpu_torch.cli.common import base_parser, cli_mesh
 from meant_tpu_torch.data.datasets import hash_tokenize, read_csv_texts
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.data.masking import mask_tokens
@@ -82,7 +82,6 @@ def mlm_arrays(texts: list, args) -> dict:
 
 def build_model(args) -> meant_language_pretrainer:
     """The harness's model on args.device (the card unless named)."""
-    refuse_unported(args)
     emb = EmbeddingConfig(vocab_size=args.vocab_size,
                           hidden_size=args.text_dim)
     return meant_language_pretrainer(

@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from meant_tpu_torch.cli.common import (base_parser, cli_mesh,
-                                        refuse_unported,
                                         reject_stack_flags)
 from meant_tpu_torch.data.datasets import read_csv_texts
 from meant_tpu_torch.data.loader import ArrayLoader
@@ -55,7 +54,6 @@ def main(argv=None) -> dict:
     """Fine-tune as the CLI does; returns the history and the trainer."""
     args = base_parser().parse_args(argv)
     reject_stack_flags(args, "tweet_eval")
-    refuse_unported(args)
     mesh = cli_mesh(args)
     data = load_data(args)
     model = bertweet_wrapper(

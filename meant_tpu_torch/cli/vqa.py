@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from meant_tpu_torch.cli.common import base_parser, cli_mesh, refuse_unported
+from meant_tpu_torch.cli.common import base_parser, cli_mesh
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.models import EmbeddingConfig, meant_vqa
 from meant_tpu_torch.train.vqa import vqa_trainer
@@ -73,7 +73,6 @@ def split(data: dict, batch_size: int) -> tuple:
 def build_model(args) -> meant_vqa:
     """The harness's model on args.device (the card unless named), with
     the raw --flash string as JAX passes it."""
-    refuse_unported(args)
     size = args.image_size
     emb = EmbeddingConfig(vocab_size=args.vocab_size,
                           hidden_size=args.text_dim)

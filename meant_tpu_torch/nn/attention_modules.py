@@ -38,6 +38,9 @@ class _QKVO(nn.Module):
         self.k = Linear(dim, dim, **kw)
         self.v = Linear(dim, dim, **kw)
         self.multi_mad = Linear(dim, dim, **kw)
+        # tensor parallelism's copy_in, run once on the module's input
+        # (parallel/sharding_rules.py), or None
+        self.parallel_input = None
         self.rotation_tables: dict = {}
         self.register_load_state_dict_post_hook(
             lambda module, _: module.rotation_tables.clear())
@@ -103,6 +106,8 @@ class XPosAttention(_QKVO):
 
     def forward(self, x, attention_mask=None):
         h = self.num_heads
+        if self.parallel_input is not None:
+            x = self.parallel_input(x)
         q, k, v = (ops.split_heads(p(x), h) for p in (self.q, self.k, self.v))
         if self.ring_mesh is not None:
             out = self._ring(q, k, v, attention_mask)
@@ -137,6 +142,8 @@ class RotaryAttention(_QKVO):
 
     def forward(self, x):
         h = self.num_heads
+        if self.parallel_input is not None:
+            x = self.parallel_input(x)
         q, k, v = (ops.split_heads(p(x), h) for p in (self.q, self.k, self.v))
         if self.flash:
             out = flash_attention(q, k, v, scale=self.scale, causal=False,

@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
@@ -34,21 +33,25 @@ def clamped_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def lookup_words(embedding: nn.Module, ids: torch.Tensor) -> torch.Tensor:
-    """`clamped_lookup` of the word table, or, where tensor-parallel
-    serving cut it on the vocab axis (`embedding.vocab_shard` = (group,
-    first row, whole vocab), parallel/sharding_rules.py), the rows this
-    rank owns, zero elsewhere, summed over the group."""
+    """`clamped_lookup` of the word table, or, where tensor parallelism
+    cut it on the vocab axis (`embedding.vocab_shard` = (group, first row,
+    whole vocab), parallel/sharding_rules.py), the rows this rank owns,
+    zero elsewhere, summed over the group by reduce_out: the rows it does
+    not own get a zero gradient here, and ids past the vocab read its last
+    row and pass it no gradient, as `clamped_lookup`."""
     shard = getattr(embedding, "vocab_shard", None)
     if shard is None:
         return clamped_lookup(embedding.weight, ids)
+    from meant_tpu_torch.parallel.sharding_rules import reduce_out
     group, start, vocab = shard
     rows = embedding.weight.shape[0]
     local = ids.clamp(0, vocab - 1) - start
     inside = (local >= 0) & (local < rows)
     out = F.embedding(local.clamp(0, rows - 1), embedding.weight)
     out = torch.where(inside[..., None], out, 0.0)
-    torch.distributed.all_reduce(out, group=group)
-    return out
+    if torch.is_grad_enabled() and embedding.weight.requires_grad:
+        out = torch.where((ids >= vocab)[..., None], out.detach(), out)
+    return reduce_out(out, group)
 
 
 class RobertaEmbeddings(SeededInit, nn.Module):

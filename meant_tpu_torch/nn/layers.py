@@ -48,7 +48,10 @@ class Linear(SeededInit, nn.Module):
     computes through `int8_dense`, as JAX's interceptor catches every Flax
     `nn.Dense`; `quantize=False` is for the projections JAX builds from
     other modules (the attention's `DenseGeneral`, the LSTM cell's gates),
-    which it leaves in floating point."""
+    which it leaves in floating point. A layer cut by
+    `parallel.sharding_rules.parallelize_model` holds its slice and its
+    collectives in `parallel` (a `LinearParallel`); a row-parallel one adds
+    its bias after the sum over the model axis."""
 
     def __init__(self, features: int, in_features: int,
                  init_style: str = "torch",
@@ -59,6 +62,10 @@ class Linear(SeededInit, nn.Module):
             raise ValueError(f"unknown init_style {init_style!r}")
         self.init_style = init_style
         self.dtype, self.quantize = dtype, quantize
+        # the whole layer's width, which the int8 rule reads (a
+        # column-parallel slice holds features / tp rows)
+        self.features = features
+        self.parallel = None
         self.weight = nn.Parameter(torch.empty(
             (features, in_features), dtype=torch.float32, device=device))
         self.bias = (nn.Parameter(torch.empty(
@@ -86,11 +93,23 @@ class Linear(SeededInit, nn.Module):
 
     def forward(self, x):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        tp = self.parallel
+        row = tp is not None and tp.row
+        if tp is not None:
+            x = tp.enter(x)
         if (self.quantize and int8_active()
-                and self.weight.shape[0] >= MIN_FEATURES):
-            return int8_dense(x, self.weight, self.bias, out_dtype=dt)
+                and self.features >= MIN_FEATURES):
+            if row:     # int8_dense sums over the group, then the bias
+                return int8_dense(x, self.weight, self.bias, out_dtype=dt,
+                                  group=tp.group)
+            y = int8_dense(x, self.weight, self.bias, out_dtype=dt)
+            return y if tp is None else tp.leave(y)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        y = F.linear(x.to(dt), self.weight.to(dt), None if row else bias)
+        if tp is None:
+            return y
+        y = tp.leave(y)
+        return y + bias if row and bias is not None else y
 
 
 def Dense(features: int, in_features: int, **kw) -> Linear:

@@ -7,7 +7,9 @@ more output features computes
     y = (q_int8(x) @ q_int8(W)^T) * (s_x * s_W) + b
 
 with symmetric 127-level scales: s_x = amax(|x|) / 127 + 1e-12 over the
-whole tensor (padded batch rows included), s_W the same per output channel
+whole tensor (padded batch rows included, and the rows of the other ranks
+where a Predictor splits the batch over a mesh; the feature slices of the
+other ranks in a row-parallel layer), s_W the same per output channel
 (the amax over dim 1 of the (out, in) weight), q(t) = clip(round(t / s),
 -127, 127) with round half to even, all in fp32, the result cast to the
 layer's compute dtype. The JAX package intercepts exactly the Flax `Dense`
@@ -32,6 +34,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.distributed
 import torch.nn.functional as F
 
 # Dense layers narrower than this stay in floating point: the classifier
@@ -41,6 +44,8 @@ MIN_FEATURES = 32
 _MIN_ROWS, _MULTIPLE = 17, 8
 
 _active = False
+# the process group a served batch's rows are split over, or None
+_batch_group = None
 # int8 products launched (`int8_matmul`), by (rows, k, n) before padding
 products: dict = {}
 
@@ -51,14 +56,19 @@ def int8_active() -> bool:
 
 
 @contextlib.contextmanager
-def int8_inference():
-    """Context: every Linear of MIN_FEATURES or more features runs int8."""
-    global _active
-    before, _active = _active, True
+def int8_inference(batch_group=None):
+    """Context: every Linear of MIN_FEATURES or more features runs int8.
+    `batch_group`: the ranks the batch's rows are split over (the
+    Predictor's data axis), over which the per-tensor activation amax is
+    taken, so that each rank quantizes with the whole batch's scale as
+    JAX's amax over a sharded batch does."""
+    global _active, _batch_group
+    before = _active, _batch_group
+    _active, _batch_group = True, batch_group
     try:
         yield
     finally:
-        _active = before
+        _active, _batch_group = before
 
 
 def quantized_apply(model, *args, **kwargs):
@@ -67,9 +77,13 @@ def quantized_apply(model, *args, **kwargs):
         return model(*args, **kwargs)
 
 
-def _amax_scale(x: torch.Tensor, dim=None) -> torch.Tensor:
+def _amax_scale(x: torch.Tensor, dim=None, groups=()) -> torch.Tensor:
     a = x.to(torch.float32).abs()
     s = a.amax() if dim is None else a.amax(dim=dim, keepdim=True)
+    for group in groups:        # the whole tensor's amax: the ranks' max
+        if group is not None:
+            torch.distributed.all_reduce(
+                s, op=torch.distributed.ReduceOp.MAX, group=group)
     return s / 127.0 + 1e-12
 
 
@@ -112,15 +126,24 @@ def int8_matmul_reference(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def int8_dense(x: torch.Tensor, weight: torch.Tensor, bias=None,
-               out_dtype=None) -> torch.Tensor:
+               out_dtype=None, group=None) -> torch.Tensor:
     """x (..., k), weight (n, k) as the port's Linear holds it -> (..., n)
-    through the int8 product, the scales and bias applied in fp32."""
-    sx = _amax_scale(x)                       # per tensor, dynamic
-    sw = _amax_scale(weight, dim=1)           # per output channel, (n, 1)
+    through the int8 product, the scales and bias applied in fp32. With
+    `group` the layer is row-parallel over it: x and the weight hold this
+    rank's slice of the k features, so the activation amax and the
+    per-channel weight amax are maxima over the group before quantizing,
+    and the dequantized partial products are summed over it (reduce_out)
+    before the bias. The activation amax is also the maximum over the
+    context's batch group (`int8_inference`)."""
+    sx = _amax_scale(x, groups=(_batch_group, group))  # per tensor
+    sw = _amax_scale(weight, dim=1, groups=(group,))   # per channel (n, 1)
     lead = x.shape[:-1]
     acc = int8_matmul(_to_int8(x, sx).reshape(-1, x.shape[-1]),
                       _to_int8(weight, sw))
     y = acc.to(torch.float32) * (sx * sw.reshape(1, -1))
+    if group is not None:
+        from meant_tpu_torch.parallel.sharding_rules import reduce_out
+        y = reduce_out(y, group)
     if bias is not None:
         y = y + bias.to(torch.float32)
     return y.reshape(*lead, weight.shape[0]).to(out_dtype or x.dtype)

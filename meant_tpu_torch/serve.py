@@ -51,8 +51,8 @@ def _check_quantize(quantize: Optional[str]) -> None:
         raise ValueError(f"unsupported quantize mode {quantize!r}")
 
 
-def _quant_context(quantize: Optional[str]):
-    return (int8_inference() if quantize == "int8"
+def _quant_context(quantize: Optional[str], batch_group=None):
+    return (int8_inference(batch_group) if quantize == "int8"
             else contextlib.nullcontext())
 
 
@@ -67,7 +67,8 @@ class Predictor:
     `tensor_parallel` as the module's notes say (a world-sized data mesh
     is made for tensor_parallel=True without one, as JAX defaults to
     `make_mesh()`); tensor-parallel serving cuts the model's parameters in
-    place and does not take int8."""
+    place, and composes with int8 (a row-parallel layer's amaxes are
+    maxima over the model axis, nn/quant.py)."""
 
     def __init__(self, model: nn.Module, model_name: str,
                  checkpoint_path: Optional[str] = None, batch_size: int = 32,
@@ -77,9 +78,6 @@ class Predictor:
         if mesh is not None and not isinstance(mesh, DeviceMesh):
             raise TypeError(f"mesh must be a DeviceMesh "
                             f"(parallel.make_mesh), got {type(mesh)}")
-        if tensor_parallel and quantize is not None:
-            raise NotImplementedError("tensor-parallel serving takes no "
-                                      "int8 (ROADMAP §3)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         if checkpoint_path is not None:
@@ -112,7 +110,8 @@ class Predictor:
             batch = shard_batch(batch, self.mesh)
         args, kwargs = model_inputs(self.model_name,
                                     self._device_batch(batch))
-        with _quant_context(self.quantize):
+        with _quant_context(self.quantize, self.mesh.get_group(self.data)
+                            if self.split else None):
             out = self.model(*args, **kwargs)
         if not self.split:
             return out

@@ -26,7 +26,22 @@ FILE):
   the output gathered and the gradients summed over the ranks against
   the unsplit R1 + K3 and R1 + K4 + K5 (relative L2; the output at
   `BF16_REL_L2`), and both paths' forward and backward ms (CUDA events;
-  backward as forward + backward less forward).
+  backward as forward + backward less forward);
+- `tp_train`: the flagship cut by `parallelize_model` and trained STEPS
+  steps as `dp` is, on a (1, N) (data, model) mesh, and at N = 4 also dp
+  x tp and fsdp x tp on (2, 2): the losses against the plain trainer at
+  rank 0 (largest relative difference), the median step ms, samples/s
+  and every rank's peak memory;
+- `tp_int8`: `Predictor(tensor_parallel=True, quantize="int8")` at (1, N)
+  against the plain int8 Predictor at rank 0 (max abs probability
+  difference, held to PROBS_ATOL as `tp` is);
+- `pipe`: chip_smoke's pipeline case (the flagship's language tower, 80
+  sequences of 512 with a key mask, one dO) over a real ("pipe",) mesh
+  of N stages at 4 and 8 microbatches, P2P between the cards: the
+  output and the input's gradient against the sequential stack at rank
+  0 (relative L2, held to BF16_REL_L2 and BWD_BF16_REL_L2 as chip_smoke
+  holds the played pipeline), and both paths' forward and forward +
+  backward ms.
 
 The kernels must be built first (`cuda_build.build_all`); run it with
 the repository's root as the working directory.
@@ -53,9 +68,11 @@ def _cs():
     return chip_smoke
 
 
-def _steps(cs, mesh, fsdp, host, steps):
-    from meant_tpu_torch.parallel import shard_batch
+def _steps(cs, mesh, fsdp, host, steps, tp=False):
+    from meant_tpu_torch.parallel import parallelize_model, shard_batch
     model = cs.build_flagship(flash=True, fixed_proj=True)
+    if tp:
+        parallelize_model(model, mesh)
     for m in model.modules():      # the ranks' draws are not one run's
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
@@ -71,9 +88,16 @@ def _steps(cs, mesh, fsdp, host, steps):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
+    peak = torch.tensor([torch.cuda.max_memory_allocated()], device="cuda")
+    peaks = peak.new_empty(dist.get_world_size() if mesh is not None else 1)
+    if mesh is not None:
+        dist.all_gather_into_tensor(peaks, peak)
+    else:
+        peaks = peak
     out = {"losses": losses, "step_ms_median": statistics.median(times[1:]),
            "samples_per_s": 16 / statistics.median(times[1:]) * 1e3,
-           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "peak_memory_bytes": int(peak.item()),
+           "peak_memory_bytes_by_rank": peaks.tolist(),
            "m_local": trainer.optimizer.m.numel()}
     del trainer, model
     torch.cuda.empty_cache()
@@ -96,21 +120,40 @@ def layouts(cs, mesh, steps) -> dict:
     return res
 
 
-def serving(cs, n) -> dict:
+def tp_training(cs, n, steps, plain) -> dict:
+    """`tp_train`: (1, n), and dp x tp and fsdp x tp at (2, 2) on 4."""
+    from meant_tpu_torch.parallel import make_mesh
+    host = cs.train_batch(cs.BATCH, seed=1)
+    shapes = {"tp": ((1, n), False)}
+    if n == 4:
+        shapes.update(dp_tp=((2, 2), False), fsdp_tp=((2, 2), True))
+    res = {}
+    for name, (shape, fsdp) in shapes.items():
+        mesh = make_mesh(("data", "model"), shape)
+        res[name] = _steps(cs, mesh, fsdp, host, steps, tp=True)
+        res[name]["mesh"] = list(shape)
+        if plain is not None:
+            res[name]["loss_rel_vs_plain"] = _rel(res[name]["losses"],
+                                                  plain["losses"])
+    return res
+
+
+def serving(cs, n, quantize=None) -> dict:
     from meant_tpu_torch.parallel import make_mesh
     from meant_tpu_torch.serve import Predictor
     chunk = cs.request_batch(cs.BATCH, seed=3)
     tp = Predictor(cs.build_flagship(flash=True, fixed_proj=True),
                    "meant_src", batch_size=cs.BATCH,
                    mesh=make_mesh(("data", "model"), (1, n)),
-                   tensor_parallel=True)
+                   tensor_parallel=True, quantize=quantize)
     res = {"request_ms": cs.event_ms(lambda: tp.forward(chunk), iters=5)}
     got = tp.forward(chunk).float()
     del tp
     torch.cuda.empty_cache()
     if dist.get_rank() == 0:
         plain = Predictor(cs.build_flagship(flash=True, fixed_proj=True),
-                          "meant_src", batch_size=cs.BATCH)
+                          "meant_src", batch_size=cs.BATCH,
+                          quantize=quantize)
         want = plain.forward(chunk).float()
         res["plain_request_ms"] = cs.event_ms(lambda: plain.forward(chunk),
                                               iters=5)
@@ -193,6 +236,48 @@ def ring(cs, mesh, n) -> dict:
     return res
 
 
+def pipe(cs, n) -> dict:
+    """`pipe`: the tower over a ("pipe",) mesh of n stages (P2P), at each
+    of chip_smoke's PIPE_MICROBATCHES, against the sequential stack."""
+    from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2,
+                                                  BWD_BF16_REL_L2)
+    from meant_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(("pipe",))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tower = cs.pipe_tower()
+    x, mask, do = cs.pipe_inputs(gen)
+    res = {}
+    want = (cs.pipe_pass(tower, x, mask, do) if dist.get_rank() == 0
+            else None)
+    for m in cs.PIPE_MICROBATCHES:
+        kw = dict(mesh=mesh, microbatches=m)
+        got = cs.pipe_pass(tower, x, mask, do, **kw)
+        r = {}
+        if want is not None:
+            r.update(out_rel_l2=cs.rel_l2(got[0], want[0]),
+                     dx_rel_l2=cs.rel_l2(got[1], want[1]))
+            r["ok"] = (r["out_rel_l2"] <= BF16_REL_L2
+                       and r["dx_rel_l2"] <= BWD_BF16_REL_L2)
+        del got
+        for name, fn in (("fwd", lambda: cs.pipe_pass(tower, x, mask, **kw)),
+                         ("fwd_bwd", lambda: cs.pipe_pass(tower, x, mask, do,
+                                                          **kw))):
+            dist.barrier()
+            r[f"{name}_ms"] = cs.event_ms(fn, iters=3, warmup=1)
+        res[f"m{m}"] = r
+    del want
+    if dist.get_rank() == 0:
+        for name, fn in (("fwd", lambda: cs.pipe_pass(tower, x, mask)),
+                         ("fwd_bwd", lambda: cs.pipe_pass(tower, x, mask,
+                                                          do))):
+            res[f"sequential_{name}_ms"] = cs.event_ms(fn, iters=3,
+                                                       warmup=1)
+    dist.barrier()
+    del tower
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None)
@@ -207,10 +292,16 @@ def main(argv=None) -> int:
     res["layouts"] = layouts(cs, mesh, args.steps)
     res["tp"] = serving(cs, n)
     res["ring"] = ring(cs, mesh, n)
+    res["tp_train"] = tp_training(cs, n, args.steps,
+                                  res["layouts"].get("plain"))
+    res["tp_int8"] = serving(cs, n, quantize="int8")
+    res["pipe"] = pipe(cs, n)
     res["wall_s"] = time.perf_counter() - t0
     ok = bool(res["ring"]["ok"])
     if dist.get_rank() == 0:
-        ok = ok and bool(res["tp"]["ok"])
+        ok = (ok and bool(res["tp"]["ok"]) and bool(res["tp_int8"]["ok"])
+              and all(r["ok"] for k, r in res["pipe"].items()
+                      if isinstance(r, dict)))
         print(json.dumps(res, default=str), flush=True)
         if args.out:
             with open(args.out, "w") as f:

@@ -41,6 +41,10 @@ averaged over the axis before the clip and A1, and the losses, confusion
 matrices and eval outputs are reduced to the global batch's. `fsdp=True`
 shards the parameters and both moments over that axis too (ZeRO over
 FlatAdam's flat buffers; a world-sized mesh is made when none is given).
+A model cut by `parallel.parallelize_model` over the same mesh's 'model'
+axis trains tensor parallel (dp x tp, fsdp x tp, or a hybrid mesh whose
+leading axis is 'dcn'); every rank seeds its dropout from `seed`, so the
+replicated parts draw the same masks across the model axis.
 Checkpoints hold the whole state whatever the layout; rank 0 writes them
 (train/layout.py).
 """

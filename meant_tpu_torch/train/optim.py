@@ -30,7 +30,17 @@ flat buffers set the layouts:
     buffers (their storage, which the parameters' views keep pointing
     at). State at rest is (P + 2P)/n, plus the transient gather, as JAX
     accounts it (parallel/fsdp.py there). `state_dict` gathers the moments
-    whole, so a checkpoint does not depend on the layout.
+    whole, so a checkpoint does not depend on the layout;
+  * tensor parallel (parameters `parallelize_model` cut, which carry the
+    model axis' group as `MODEL_GROUP`): each rank's flat buffers hold
+    its slices of the sharded parameters and whole copies of the
+    replicated ones, and A1 updates them as they are. The clip's norm^2
+    is the sum over the model axis of the sharded entries' squares plus
+    the replicated entries' squares once: the axis' rank 0 counts every
+    entry it holds, the others only their sharded ones (a mask, sliced
+    with the buffers under `shard`), and the squared norms are summed
+    over the data group (under `shard`) and the model group. At a model
+    axis of one rank every entry counts and the norm is |g| bit for bit.
 
 Two options of the JAX trainer ride on `FlatAdam`:
   * `mu_dtype=torch.bfloat16` (--mu_bf16, optax's `mu_dtype`): the first
@@ -101,7 +111,9 @@ class FlatAdam:
     applies an update on every k-th call only (see the module's notes).
     With `group` the gradient is averaged over its ranks; with `shard`
     the state is split over them too (the module's notes): then call
-    `gather()` before any forward that reads the parameters.
+    `gather()` before any forward that reads the parameters. Parameters
+    cut by tensor parallelism are found by their mark, and the norm is
+    the global one (the module's notes).
     """
 
     def __init__(self, params: Iterable[nn.Parameter],
@@ -145,6 +157,7 @@ class FlatAdam:
                                                 or torch.float32))
         self.v = torch.zeros(self.chunk, **local)
         self.step_count = 0     # applied updates
+        self.last_norm = None   # the clip's global norm at the last update
         # the running mean of the micro-steps' gradients and their count
         self.acc = (torch.zeros(self.chunk, **local)
                     if accumulation_steps > 1 else None)
@@ -160,11 +173,39 @@ class FlatAdam:
             if group is not None:       # replicated: rank 0's values
                 dist.broadcast(self.flat_p, dist.get_global_rank(group, 0),
                                group=group)
+        self.model_group, self.norm_mask = self._norm_split(total)
         if shard:
             start = dist.get_rank(group) * self.chunk
             self.p_local = self.flat_p[start:start + self.chunk].clone()
             self.g_local = torch.zeros_like(self.p_local)
+            if self.norm_mask is not None:
+                self.norm_mask = self.norm_mask[start:start
+                                                + self.chunk].clone()
             self.release()
+
+    def _norm_split(self, total: int):
+        """The model axis' group of the tensor-parallel parameters (None
+        without any) and, on its ranks other than 0, the mask of the flat
+        entries the clip's norm counts there: the sharded ones."""
+        from meant_tpu_torch.parallel.sharding_rules import MODEL_GROUP
+        groups = {id(g): g for g in (getattr(p, MODEL_GROUP, None)
+                                     for p in self.params) if g is not None}
+        if not groups:
+            return None, None
+        if len(groups) > 1:
+            raise ValueError("tensor-parallel parameters of more than one "
+                             "model axis")
+        model_group = next(iter(groups.values()))
+        if dist.get_rank(model_group) == 0:
+            return model_group, None
+        mask = torch.zeros(total, dtype=torch.bool,
+                           device=self.flat_p.device)
+        offset = 0
+        for p in self.params:
+            if getattr(p, MODEL_GROUP, None) is not None:
+                mask[offset:offset + p.numel()] = True
+            offset += p.numel()
+        return model_group, mask
 
     def gather(self) -> None:
         """Under shard, all-gather the parameters into the flat buffer the
@@ -226,11 +267,18 @@ class FlatAdam:
             g = self.acc
         norm = None
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(g)
-            if self.shard:      # sqrt(fl(x * x)) == x: exact at world 1
+            norm = torch.linalg.vector_norm(
+                g if self.norm_mask is None else torch.where(self.norm_mask,
+                                                             g, 0.0))
+            if self.shard or self.model_group is not None:
+                # sqrt(fl(x * x)) == x: exact at world 1
                 norm = norm.square()
-                dist.all_reduce(norm, group=self.group)
+                if self.shard:
+                    dist.all_reduce(norm, group=self.group)
+                if self.model_group is not None:
+                    dist.all_reduce(norm, group=self.model_group)
                 norm = norm.sqrt()
+        self.last_norm = norm
         self.step_count += 1
         adamw_update(self.p_local if self.shard else self.flat_p, g, self.m,
                      self.v,

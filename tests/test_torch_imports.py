@@ -49,6 +49,17 @@ def test_host_data_modules_are_checked():
     assert {ROOT / "meant_tpu_torch" / m for m in HOST_MODULES} <= set(FILES)
 
 
+# the parallel layouts, the GPipe pipeline among them
+PARALLEL_MODULES = ["parallel/mesh.py", "parallel/sharding_rules.py",
+                    "parallel/fsdp.py", "parallel/pipeline.py",
+                    "ops/ring.py", "train/layout.py"]
+
+
+def test_parallel_modules_are_checked():
+    assert {ROOT / "meant_tpu_torch" / m
+            for m in PARALLEL_MODULES} <= set(FILES)
+
+
 @pytest.mark.parametrize("path", FILES,
                          ids=[str(p.relative_to(ROOT)) for p in FILES])
 def test_no_jax_or_reference_imports(path):

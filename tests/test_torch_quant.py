@@ -323,13 +323,22 @@ def test_int8_rounding_amplifies_ulp_noise(name):
 
 
 def test_unknown_quantize_and_mesh_are_refused():
-    """An unknown mode, a mesh that is not a DeviceMesh, and int8 under
-    tensor-parallel serving (which cuts the layers int8 reads) raise."""
+    """An unknown mode and a mesh that is not a DeviceMesh raise; int8
+    composes with tensor-parallel serving, at one rank (a world-1 gloo
+    group started here and ended after) equal to the plain int8
+    Predictor."""
     model = CASES["meant"][1](device="cpu")
     with pytest.raises(ValueError):
         Predictor(model, "meant", device="cpu", quantize="fp4")
     with pytest.raises(TypeError, match="DeviceMesh"):
         Predictor(model, "meant", device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="int8"):
-        Predictor(model, "meant", device="cpu", tensor_parallel=True,
-                  quantize="int8")
+    batch = CASES["meant"][2]()
+    want = Predictor(model, "meant", batch_size=B, device="cpu",
+                     quantize="int8")(batch)
+    try:
+        got = Predictor(CASES["meant"][1](device="cpu"), "meant",
+                        batch_size=B, device="cpu", tensor_parallel=True,
+                        quantize="int8")(batch)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_array_equal(got, want)

@@ -347,3 +347,236 @@ def fsdp_ranks(rank, world, state_dict, batches):
                       tuple(m.get_coordinate()))
                      for m in (mesh, grid, hybrid)]
     return out
+
+
+# ---- tensor-parallel training, int8 and the pipeline (world 4) ----------
+
+# __graft_entry__.py's dp x tp `meant` (8 heads of 8) at lag 2, and its
+# meant_timesformer dp x tp case (scanned, remat "dots")
+TP_GEOM = dict(text_dim=64, image_dim=64, price_dim=4, height=32, width=32,
+               patch_res=16, lag=2, num_classes=2, num_heads=8,
+               num_encoders=2, channels=4)
+TP_EMB = dict(vocab_size=100, hidden_size=64, max_position_embeddings=40,
+              dropout=0.0)
+TS_GEOM = dict(text_dim=64, image_dim=64, price_dim=4, height=32, width=32,
+               patch_res=16, lag=2, num_classes=2, num_heads=4,
+               num_encoders=2, channels=3, seq_len=16, scan_layers=True,
+               remat="dots")
+TS_EMB = dict(vocab_size=128, hidden_size=64, max_position_embeddings=40,
+              dropout=0.0)
+TP_ROWS = 8
+# one FlatAdam step with the clip engaged (the models' first gradients have
+# norms 0.58 and 1.7)
+TP_OPT = dict(lr=1e-3, weight_decay=0.01, clip_norm=0.1)
+
+
+def tp_meant_batch(seed: int = 11) -> dict:
+    rng = np.random.RandomState(seed)
+    masks = np.ones((TP_ROWS, 2, 16), np.float32)
+    masks[::3, :, 12:] = 0.0
+    return {"tweets": rng.randint(2, 100, (TP_ROWS, 2, 16)).astype(np.int32),
+            "graphs": rng.randn(TP_ROWS, 2, 4, 32, 32).astype(np.float32),
+            "attention_masks": masks,
+            "y": (np.arange(TP_ROWS) % 2).astype(np.int32)}
+
+
+def ts_batch(seed: int = 7) -> dict:
+    rng = np.random.RandomState(seed)
+    return {"input_ids": rng.randint(2, 128, (TP_ROWS, 2, 16)).astype(
+                np.int32),
+            "pixels": rng.randn(TP_ROWS, 2, 3, 32, 32).astype(np.float32),
+            "prices": rng.randn(TP_ROWS, 2, 4).astype(np.float32),
+            "attention_mask": np.ones((TP_ROWS, 2, 16), np.float32),
+            "y": rng.randint(0, 2, TP_ROWS).astype(np.int32)}
+
+
+def tp_model(name: str, state_dict, dropout: bool = False):
+    """`meant` or `meant_timesformer` at the TP geometry, with the given
+    weights, in training mode (dropout off unless `dropout`)."""
+    from meant_tpu_torch.models import (EmbeddingConfig, meant,
+                                        meant_timesformer)
+    if name == "meant":
+        model = meant(embedding=EmbeddingConfig(**TP_EMB), device="cpu",
+                      **TP_GEOM)
+    else:
+        model = meant_timesformer(embedding=EmbeddingConfig(**TS_EMB),
+                                  device="cpu", **TS_GEOM)
+    model.load_state_dict(state_dict)
+    model.train()
+    return model if dropout else no_dropout(model)
+
+
+def _loss(name, model, batch):
+    from meant_tpu_torch.train.classify import model_inputs, sigmoid_ce_loss
+    args, kwargs = model_inputs(name, batch)
+    return sigmoid_ce_loss(model(*args, **kwargs), batch["y"])
+
+
+def tp_step(name, state_dict, batch, mesh=None, fsdp=False, dropout=False):
+    """One forward and backward of `name`'s loss on this rank's rows and
+    one FlatAdam step (TP_OPT), the model cut by `parallelize_model` over
+    the mesh's 'model' axis, its data axis the mesh's leading one (None:
+    one process). Returns the loss, the gradients averaged over the data
+    axis and the step's update, each parameter gathered whole."""
+    from meant_tpu_torch.parallel import (param_shardings, parallelize_model,
+                                          shard_batch)
+    from meant_tpu_torch.parallel.mesh import axis_size
+    from meant_tpu_torch.parallel.sharding_rules import (AXIS, MODEL_GROUP,
+                                                         _model_shard)
+    from meant_tpu_torch.train.classify import seed_dropout
+    from meant_tpu_torch.train.optim import FlatAdam
+    model = tp_model(name, state_dict, dropout)
+    group, n = None, 1
+    dims = {}
+    if mesh is not None:
+        dims = {k: _model_shard(v, mesh)
+                for k, v in param_shardings(model, mesh).items()}
+        parallelize_model(model, mesh)
+        data = mesh.mesh_dim_names[0]
+        group, n = mesh.get_group(data), axis_size(mesh, data)
+        batch = shard_batch(batch, mesh)
+    opt = FlatAdam(model.parameters(), lambda step: TP_OPT["lr"],
+                   coupled=False, weight_decay=TP_OPT["weight_decay"],
+                   clip_norm=TP_OPT["clip_norm"], group=group, shard=fsdp)
+    opt.gather()
+    opt.zero_grad()
+    seed_dropout(torch.device("cpu"), 0)
+    loss = _loss(name, model, _tensors(batch))
+    loss.backward()
+    flat_g, loss = opt.flat_g.clone(), loss.detach().clone()
+    if group is not None:
+        dist.all_reduce(flat_g, group=group)
+        dist.all_reduce(loss, group=group)
+        flat_g, loss = flat_g / n, loss / n
+    before = opt.flat_p[:opt.n].clone()
+    opt.step()
+    opt.gather()
+    update = opt.flat_p[:opt.n] - before
+
+    def whole(flat):
+        out, offset = {}, 0
+        for pname, p in model.named_parameters():
+            t = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+            g = getattr(p, MODEL_GROUP, None)
+            if g is not None:
+                parts = [torch.empty_like(t) for _ in range(mesh[AXIS].size())]
+                dist.all_gather(parts, t.contiguous(), group=g)
+                t = torch.cat(parts, dim=dims[pname].dim)
+            out[pname] = t.clone()
+        return out
+    return {"loss": loss.item(), "grads": whole(flat_g),
+            "update": whole(update), "norm": opt.last_norm.item()}
+
+
+def _mlp_layer(params, x):
+    return x + torch.tanh(x @ params["w1"] + params["b1"]) @ params["w2"]
+
+
+def language_layer(encoder):
+    """layer_fn of a LanguageEncoder stack: (h, mask) -> (h', mask)."""
+    def layer(params, state):
+        h, mask = state
+        return torch.func.functional_call(encoder, params, (h, mask)), mask
+    return layer
+
+
+def language_encoder():
+    from meant_tpu_torch.nn.encoders import LanguageEncoder
+    return LanguageEncoder(64, 4, ff_dropout=0.0, rot_dim=8,
+                           device="cpu").eval()
+
+
+def pipe_run(layer_fn, stacked: dict, x, loss, mesh=None, **kw):
+    """pipeline_apply's output and the gradients of `loss(output)` at the
+    stacked parameters (None: forward only)."""
+    from meant_tpu_torch.parallel import pipeline_apply
+    leaves = {k: v.clone().requires_grad_(loss is not None)
+              for k, v in stacked.items()}
+    out = pipeline_apply(layer_fn, leaves, x, mesh=mesh, **kw)
+    if loss is None:
+        return out, None
+    loss(out).backward()
+    return out, {k: v.grad for k, v in leaves.items()}
+
+
+def mlp_trees(n_layers: int = 8, d: int = 16, seed: int = 0) -> list:
+    """tests/test_pipeline.py's MLP layers, numpy from one seed."""
+    rng = np.random.RandomState(seed)
+    return [{"w1": rng.randn(d, 2 * d).astype(np.float32) * 0.1,
+             "b1": rng.randn(2 * d).astype(np.float32) * 0.1,
+             "w2": rng.randn(2 * d, d).astype(np.float32) * 0.1}
+            for _ in range(n_layers)]
+
+
+def stacked_tensors(trees: list) -> dict:
+    return {k: torch.tensor(np.stack([t[k] for t in trees])) for k in trees[0]}
+
+
+def pipe_inputs() -> dict:
+    """The P2P pipeline's inputs: 8 MLP layers and a (16, 16) x; 8
+    LanguageEncoders (width 64, 4 heads, the port's init from seeds 0-7)
+    and (8, 8, 64) hidden states with a key mask."""
+    from meant_tpu_torch.nn.layers import init_weights
+    rng = np.random.RandomState(20)
+    mask = (rng.rand(8, 8) > 0.3).astype(np.float32)
+    mask[:, 0] = 1.0
+    trees = []
+    for i in range(8):
+        enc = language_encoder()
+        init_weights(enc, torch.Generator().manual_seed(i))
+        trees.append({k: p.detach().numpy()
+                      for k, p in enc.named_parameters()})
+    return {"mlp_stack": stacked_tensors(mlp_trees(seed=4)),
+            "mlp_x": rng.randn(16, 16).astype(np.float32),
+            "lang_stack": stacked_tensors(trees),
+            "lang_h": rng.randn(8, 8, 64).astype(np.float32),
+            "lang_mask": mask}
+
+
+def pipe_case(case: str, d: dict, mesh=None, stages=None):
+    """The P2P run's case `case` ("mlp": microbatches 8, loss sum(out^2);
+    "lang": microbatches 4, loss mean(h^2)) over `mesh` or played in
+    `stages` stages: (output, gradients at the stacked parameters)."""
+    if case == "mlp":
+        return pipe_run(_mlp_layer, d["mlp_stack"], torch.tensor(d["mlp_x"]),
+                        lambda o: o.square().sum(), mesh=mesh, stages=stages,
+                        microbatches=8)
+    x = (torch.tensor(d["lang_h"]), torch.tensor(d["lang_mask"]))
+    return pipe_run(language_layer(language_encoder()), d["lang_stack"], x,
+                    lambda o: o[0].square().mean(), mesh=mesh,
+                    stages=stages, microbatches=4)
+
+
+def tp_ranks(rank, world, inputs):
+    """World 4: `meant` dp x tp (2, 2), fsdp x tp (2, 2) and on the hybrid
+    (dcn, model) mesh of 2 nodes of 2; meant_timesformer dp x tp with scan
+    and remat; `meant` at (1, 4) with dropout on; the int8 Predictor at
+    (1, 4) and (2, 2); the pipeline over a ("pipe",) mesh of 4 stages (the
+    MLP stack and the LanguageEncoder stack, forward and gradients)."""
+    from meant_tpu_torch.parallel import make_hybrid_mesh
+    from meant_tpu_torch.serve import Predictor
+    d = torch.load(inputs, weights_only=False)
+    grid = _mesh(("data", "model"), (2, 2))
+    out = {"dp_tp": tp_step("meant", d["meant"], d["meant_batch"], grid),
+           "fsdp_tp": tp_step("meant", d["meant"], d["meant_batch"], grid,
+                              fsdp=True)}
+    hybrid = make_hybrid_mesh(device="cpu", timeout=RENDEZVOUS)
+    out["hybrid"] = tp_step("meant", d["meant"], d["meant_batch"], hybrid)
+    out["hybrid_axes"] = hybrid.mesh_dim_names
+    out["ts_dp_tp"] = tp_step("meant_timesformer", d["ts"], d["ts_batch"],
+                              grid)
+    line = _mesh(("data", "model"), (1, 4))
+    out["dropout_tp"] = tp_step("meant", d["meant"], d["meant_batch"], line,
+                                dropout=True)
+    rows = {k: v for k, v in d["meant_batch"].items() if k != "y"}
+    for tag, mesh in (("1x4", line), ("2x2", grid)):
+        model = tp_model("meant", d["meant"]).eval()
+        out[f"int8_{tag}"] = Predictor(model, "meant", batch_size=TP_ROWS,
+                                       device="cpu", mesh=mesh,
+                                       tensor_parallel=True,
+                                       quantize="int8")(rows)
+    pipe = _mesh(("pipe",))
+    for case in ("mlp", "lang"):
+        out[f"pipe_{case}"] = pipe_case(case, d, mesh=pipe)
+    return out
