@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Phases, run in the order 1-6, 9-16, 7, 8; any failure
+Phases, run in the order 1-6, 9-17, 7, 8; any failure
 raises and the script exits non-zero:
 
 1. build   -- nvcc builds every kernel of the serving, training and
@@ -264,6 +264,31 @@ raises and the script exits non-zero:
               flagship's flat buffer; R1 + K3, R1, K4 and K5 against
               their plain versions at the ring's chunk shape (BH=16,
               s=1024, not causal).
+17. head dims -- the flash path at every head dim: odd d, where the
+              rotation pairs lane d-1 with lane 0 and the backwards'
+              adjoint wraps, and d past 128, which the wide bodies of
+              csrc/flash_wide.cuh take (the contraction streamed over the
+              width, the output in groups of 64-column chunks on a grid
+              axis). R1 + K1 and K2 through flash_mha at d = 7, 95, 130,
+              192, 256, 257, 384 and 768 (s=200, BH=16, causal xPos with a
+              key mask, and plain), one launch of each a call, fp32 and
+              bf16 at the bars in force, R1 bit for bit at the padded
+              width, and at an odd
+              d the wrap term of column d-1 of dq and dk reproduced; R1 +
+              K3, K4 and K5 through flash_mha(return_lse=True) at d = 95,
+              192 and 384 (s=4096, BH=4). meant_src --num_heads 4 (768
+              wide, 4 heads of 192) serves 40 rows against flash=False
+              (24 R1 + 24 K1 a request), one step's gradients against the
+              plain attention and 5 steps (24 R1, 24 K1, 24 K2, 1 A1 a
+              step, falling loss); --num_heads 2 and 1 (d = 384, 768) a
+              request and 2 steps each (at 768 the s=512 text tower
+              streams, as JAX's rule routes it: R1 + K3, R1 + K4 + K5);
+              src4096 at 4 heads and 2 encoders a request (2 K3, 2 K1, 4
+              R1) and 2 steps; --text_dim 760 (8 heads of 95) a request
+              against flash=False, one step's gradients and 2 steps; the
+              4-rank ring played at (10, 4, 4096, 192). Rows of the
+              kernel line at d = 192 (s=512, 196, 4096), 384 (s=512), 768
+              (s=196) and 95 (s=512).
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
@@ -463,7 +488,7 @@ def attention_case(kind: str, dtype, gen, s=None, bh=BATCH * LAG * HEADS,
         tables = (*identity_tables(s, d, "cuda"),
                   *identity_tables(s_k, d, "cuda"))
         return dict(q=q, k=k, v=v, tables=tables, mask=None, scale=1.0,
-                    causal=False, s=s, s_k=s_k)
+                    causal=False, s=s, s_k=s_k, kind=kind)
     if kind == "vision":
         freqs, xpos, causal = pixel_freqs(d // 2, device="cuda"), False, False
     else:
@@ -477,7 +502,7 @@ def attention_case(kind: str, dtype, gen, s=None, bh=BATCH * LAG * HEADS,
         mask = (torch.arange(s, device="cuda")[None, :]
                 < lengths[:, None]).to(torch.float32)
     return dict(q=q, k=k, v=v, tables=tables, mask=mask, scale=scale,
-                causal=causal, s=s, s_k=s)
+                causal=causal, s=s, s_k=s, kind=kind)
 
 
 def flat(t):
@@ -510,13 +535,16 @@ def run_plain(c):
 
 
 def run_library(c):
-    """Yardstick only: the rotation in PyTorch, then torch's fused SDPA."""
+    """Yardstick only: the rotation in PyTorch (the lanes' rotate-half at
+    an odd head dim), then torch's fused SDPA."""
+    from meant_tpu_torch.ops.flash.kernel import rotate_half_lanes
     from meant_tpu_torch.ops.rotary import rotate_half
     qcos, qsin, kcos, ksin = c["tables"]
+    half = rotate_half_lanes if c["q"].shape[-1] % 2 else rotate_half
 
     def rot(t, cos, sin):
         tf = t.to(torch.float32)
-        return (tf * cos + rotate_half(tf) * sin).to(t.dtype)
+        return (tf * cos + half(tf) * sin).to(t.dtype)
 
     return torch.nn.functional.scaled_dot_product_attention(
         rot(c["q"], qcos, qsin), rot(c["k"], kcos, ksin), c["v"],
@@ -526,6 +554,35 @@ def run_library(c):
 def rel_l2(out, ref) -> float:
     ref = ref.float()
     return ((out.float() - ref).norm() / ref.norm()).item()
+
+
+def hold(kernel, label, g, a, b, dtype, out_bar, unit=1.0):
+    """One output of a kernel against its plain version at the bars in
+    force: fp32 FP32_RTOL / FP32_ATOL; bf16 BF16_TOL per element (the
+    gradients' absolute part BWD_BF16_ATOL) and a relative L2 bar
+    (`out_bar` for out, BWD_BF16_REL_L2 for a gradient); absolute parts
+    times `unit`. Returns (max abs err, rel L2)."""
+    from meant_tpu_torch.ops.flash.kernel import (BWD_BF16_ATOL,
+                                                  BWD_BF16_REL_L2)
+    err = (a.float() - b.float()).abs().max().item()
+    rel = rel_l2(a, b)
+    if dtype == torch.float32:
+        ok = torch.allclose(a, b, rtol=FP32_RTOL, atol=FP32_ATOL * unit)
+    elif g == "out":
+        ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
+                             atol=BF16_TOL * unit) and rel <= out_bar)
+    else:
+        ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
+                             atol=BWD_BF16_ATOL * unit)
+              and rel <= BWD_BF16_REL_L2)
+    ok = ok and bool(torch.isfinite(a).all())
+    print(f"{kernel} vs plain {label} {g}: max_abs_err {err:.3e} rel_l2 "
+          f"{rel:.3e} (|ref| max {b.abs().max().item():.3e}, atol unit "
+          f"{unit:.3g}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{kernel} disagrees with its plain version ({label} {g}, max "
+             f"abs err {err}, rel L2 {rel})")
+    return err, rel
 
 
 # The resident cases of phase 2: (name, attention_case kind, s, BH), the
@@ -799,8 +856,7 @@ def check_long_kernels(record, bh=LONG_CHECK_BH, kinds=("text",
     the BH, kinds and head dim given): out at BF16_REL_L2 (and, in bf16,
     at K3_TILED_REL_L2 against the plain version in K3's tiled order), the
     gradients at K2's bars, lse within LSE_ATOL, R1 bit for bit."""
-    from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
-                                                  BWD_BF16_REL_L2,
+    from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2,
                                                   K3_TILED_REL_L2, LSE_ATOL)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     errors, rels = {}, {}
@@ -845,28 +901,9 @@ def check_long_kernels(record, bh=LONG_CHECK_BH, kinds=("text",
                      f"{rot_err})")
             errors[f"{name}/rot"] = rot_err
             for g, a in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv)):
-                b = want[g]
-                err = (a.float() - b.float()).abs().max().item()
-                rel = rel_l2(a, b)
-                if dtype == torch.float32:
-                    ok = torch.allclose(a, b, rtol=FP32_RTOL, atol=FP32_ATOL)
-                elif g == "out":
-                    ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
-                                         atol=BF16_TOL)
-                          and rel <= BF16_REL_L2)
-                else:
-                    ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
-                                         atol=BWD_BF16_ATOL)
-                          and rel <= BWD_BF16_REL_L2)
-                ok = ok and bool(torch.isfinite(a).all())
                 kernel = {"out": "K3", "dq": "K4"}.get(g, "K5")
-                print(f"{kernel} vs plain {name} {g}: max_abs_err {err:.3e} "
-                      f"rel_l2 {rel:.3e} {'ok' if ok else 'FAIL'}",
-                      flush=True)
-                if not ok:
-                    fail(f"{kernel} disagrees with its plain version ({name} "
-                         f"{g}, max abs err {err}, rel L2 {rel})")
-                errors[f"{name}/{g}"], rels[f"{name}/{g}"] = err, rel
+                errors[f"{name}/{g}"], rels[f"{name}/{g}"] = hold(
+                    kernel, name, g, a, want[g], dtype, BF16_REL_L2)
             del c, out, lse, rotated, dq, dk, dv, want
             torch.cuda.empty_cache()
     record[f"{tag}_kernels_vs_plain_max_abs_err"] = errors
@@ -925,15 +962,18 @@ def check_adamw(record, n: int, clip: bool = True) -> float:
 
 # ---- phase 3: the slice ------------------------------------------------
 
-def build_flagship(seq: int = SEQ, **kw):
+def build_flagship(seq: int = SEQ, text_dim: int = DIM, **kw):
     """The flagship meant_src; at seq > 512 the fusion projection is
-    max(512, seq) wide, as bench.py's build_src makes it."""
+    max(512, seq) wide, as bench.py's build_src makes it; text_dim widens
+    or narrows the language tower and its embedding (--text_dim)."""
     from meant_tpu_torch.models import EmbeddingConfig, meant_src
     kw.setdefault("num_encoders", ENCODERS)
     kw.setdefault("num_heads", HEADS)
-    return meant_src(text_dim=DIM, image_dim=DIM, price_dim=5, height=IMAGE,
-                     width=IMAGE, patch_res=PATCH, lag=LAG, num_classes=2,
-                     embedding=EmbeddingConfig(), channels=3,
+    return meant_src(text_dim=text_dim, image_dim=DIM, price_dim=5,
+                     height=IMAGE, width=IMAGE, patch_res=PATCH, lag=LAG,
+                     num_classes=2,
+                     embedding=EmbeddingConfig(hidden_size=text_dim),
+                     channels=3,
                      seq_len=max(SEQ, seq), dtype=torch.bfloat16,
                      device="cuda", seed=0, **kw)
 
@@ -2602,9 +2642,7 @@ def check_shapes(record) -> dict:
     and bf16, at the bars in force (fp32 FP32_RTOL / FP32_ATOL; bf16: K1's
     and K2's; the absolute parts in `group_unit`); R1 bit for bit where d
     is one of the kernels' own."""
-    from meant_tpu_torch.ops.flash.kernel import (BWD_BF16_ATOL,
-                                                  BWD_BF16_REL_L2, HEAD_DIMS,
-                                                  K1_BF16_REL_L2)
+    from meant_tpu_torch.ops.flash.kernel import HEAD_DIMS, K1_BF16_REL_L2
     gen = torch.Generator(device="cuda").manual_seed(12)
     errors, rels = {}, {}
     for name, *_ in SHAPE_CASES:
@@ -2626,30 +2664,10 @@ def check_shapes(record) -> dict:
                     fail(f"R1 differs from _rotate ({label})")
                 errors[f"{label}/rot"] = rot_err
             for g, a, b in zip(("out", "dq", "dk", "dv"), got, want):
-                err = (a.float() - b.float()).abs().max().item()
-                rel = rel_l2(a, b)
-                unit = group_unit(name, b)
-                if dtype == torch.float32:
-                    ok = torch.allclose(a, b, rtol=FP32_RTOL,
-                                        atol=FP32_ATOL * unit)
-                elif g == "out":
-                    ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
-                                         atol=BF16_TOL * unit)
-                          and rel <= K1_BF16_REL_L2)
-                else:
-                    ok = (torch.allclose(a.float(), b.float(), rtol=BF16_TOL,
-                                         atol=BWD_BF16_ATOL * unit)
-                          and rel <= BWD_BF16_REL_L2)
-                ok = ok and bool(torch.isfinite(a).all())
                 kernel = "R1 + K1" if g == "out" else "R1 + K2"
-                print(f"{kernel} vs plain {label} {g}: max_abs_err {err:.3e}"
-                      f" rel_l2 {rel:.3e} (|ref| max "
-                      f"{b.abs().max().item():.3e}, atol unit {unit:.3g}) "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
-                if not ok:
-                    fail(f"{kernel} disagrees with its plain version "
-                         f"({label} {g}, max abs err {err}, rel L2 {rel})")
-                errors[f"{label}/{g}"], rels[f"{label}/{g}"] = err, rel
+                errors[f"{label}/{g}"], rels[f"{label}/{g}"] = hold(
+                    kernel, label, g, a, b, dtype, K1_BF16_REL_L2,
+                    group_unit(name, b))
             del c, got, want
             torch.cuda.empty_cache()
     record["shapes_vs_plain_max_abs_err"] = errors
@@ -2671,11 +2689,31 @@ def count_new_hgmma() -> dict:
     return counts
 
 
+def src_launches(heads: int, train: bool) -> dict:
+    """The launches of one meant_src forward (or training step) at the
+    flagship's width and `heads` heads: each tower's 12 encoders take the
+    path `uses_online` picks at its length and head dim, as JAX's rule
+    does (resident: R1 + K1, and K2; streaming: R1 + K3, and R1 + K4 + K5;
+    at d = 768 the text tower's s=512 streams). 24 R1 + 24 K1 a forward,
+    24 R1, 24 K1, 24 K2 and 1 A1 a step up to d = 384."""
+    from meant_tpu_torch.ops.flash import uses_online
+    want = {"A1": 1} if train else {}
+    for s in (SEQ, N_PATCHES):
+        if uses_online(s, DIM // heads):
+            names = ("R1", "K3") + (("R1", "K4", "K5") if train else ())
+        else:
+            names = ("R1", "K1") + (("K2",) if train else ())
+        for name in names:
+            want[name] = want.get(name, 0) + ENCODERS
+    return want
+
+
 def serve_src_heads(res, heads: int, rows: int, compare: bool):
     """build_model(-mn meant_src --num_heads heads --flash true) at the
-    flagship's width serves `rows` rows in requests of BATCH (exactly 24 R1
-    + 24 K1 a request); with `compare`, the towers and probabilities of one
-    request against the same weights at flash=False."""
+    flagship's width serves `rows` rows in requests of BATCH (exactly
+    `src_launches` a request: 24 R1 + 24 K1 up to d = 384); with `compare`,
+    the towers and probabilities of one request against the same weights
+    at flash=False."""
     from meant_tpu_torch.serve import Predictor
     label = f"meant_src --num_heads {heads}"
     args = ("--seq_len", str(SEQ), "--num_heads", str(heads), "--flash")
@@ -2689,9 +2727,10 @@ def serve_src_heads(res, heads: int, rows: int, compare: bool):
     probs = predictor(batch)
     torch.cuda.synchronize()
     counts = read_counts()
-    want = -(-rows // BATCH) * 2 * ENCODERS
+    want = {name: -(-rows // BATCH) * n
+            for name, n in src_launches(heads, False).items()}
     print(f"served {label}: {rows} rows, launches {counts}", flush=True)
-    check_counts(counts, {"K1": want, "R1": want}, f"serving {label}")
+    check_counts(counts, want, f"serving {label}")
     if (probs.shape != (rows, 2) or not np.isfinite(probs).all()
             or not ((probs > 0) & (probs < 1)).all()):
         fail(f"bad {label} probabilities {probs.shape}")
@@ -2717,19 +2756,20 @@ def run_src_heads(res, heads: int, rows: int, steps: int, grads: bool):
     the CLI's build_model, then the flagship at fixed_proj=True (the
     trained configuration): with `grads`, the served towers against
     flash=False and one step's gradients against the plain attention;
-    `steps` trainer steps with exactly 24 R1, 24 K1, 24 K2 and 1 A1 a step
-    (a falling loss past 2 steps)."""
+    `steps` trainer steps with exactly `src_launches` a step (24 R1, 24 K1,
+    24 K2 and 1 A1 up to d = 384; a falling loss past 2 steps)."""
     serve = serve_src_heads(res, heads, rows, compare=grads)
     model = build_flagship(flash=True, fixed_proj=True, num_heads=heads)
+    step = src_launches(heads, True)
     if grads:
         res["step_gradients"] = compare_step_gradients(
             model, to_card(train_batch(GRAD_ROWS, seed=6)),
-            {k: n for k, n in STEP.items() if k != "A1"},
+            {k: n for k, n in step.items() if k != "A1"},
             lambda: build_flagship(flash=False, fixed_proj=True,
                                    num_heads=heads),
             f"meant_src --num_heads {heads} train step")
     res["train"], _, _ = train_steps(
-        model, train_batch(BATCH, seed=7), steps, STEP,
+        model, train_batch(BATCH, seed=7), steps, step,
         f"learn meant_src --num_heads {heads}", falling=steps > 2)
     del model
     torch.cuda.empty_cache()
@@ -2908,16 +2948,16 @@ def run_accumulation(res):
     return res["train"]["launches"]
 
 
-def run_long_heads6(res):
-    """src4096 at --num_heads 6 (d = 128) with LONG_GRAD_ENCODERS encoders a
-    tower, the streaming path at d = 128 from the user's entry points: one
-    request of LONG_BATCH rows through Predictor (exactly 2 K3 + 2 K1 + 4
-    R1) and 2 trainer steps (2 K3, 2 K1, 6 R1, 2 K4, 2 K5, 2 K2 and 1 A1 a
-    step)."""
+def run_long_heads(res, heads: int = SRC6_HEADS):
+    """src4096 at --num_heads `heads` (6: d = 128; 4: d = 192) with
+    LONG_GRAD_ENCODERS encoders a tower, the streaming path at that head
+    dim from the user's entry points: one request of LONG_BATCH rows
+    through Predictor (exactly 2 K3 + 2 K1 + 4 R1) and 2 trainer steps (2
+    K3, 2 K1, 6 R1, 2 K4, 2 K5, 2 K2 and 1 A1 a step)."""
     from meant_tpu_torch.serve import Predictor
     n = LONG_GRAD_ENCODERS
     model = build_flagship(LONG_SEQ, flash=True, fixed_proj=True,
-                           num_heads=SRC6_HEADS, num_encoders=n)
+                           num_heads=heads, num_encoders=n)
     predictor = Predictor(model, "meant_src", batch_size=LONG_BATCH)
     rows = request_batch(LONG_BATCH, seed=50, seq=LONG_SEQ)
     predictor(rows)     # warm-up
@@ -2926,18 +2966,18 @@ def run_long_heads6(res):
     probs = predictor(rows)
     torch.cuda.synchronize()
     counts = read_counts()
-    print(f"served src4096 --num_heads {SRC6_HEADS} at {n} encoders: "
+    print(f"served src4096 --num_heads {heads} at {n} encoders: "
           f"launches {counts}", flush=True)
     check_counts(counts, {"K3": n, "K1": n, "R1": 2 * n},
-                 f"serving src4096 at {SRC6_HEADS} heads")
+                 f"serving src4096 at {heads} heads")
     if not (np.isfinite(probs).all() and ((probs > 0) & (probs < 1)).all()):
-        fail(f"bad src4096 probabilities at {SRC6_HEADS} heads")
+        fail(f"bad src4096 probabilities at {heads} heads")
     res["serve_launches"] = counts
     del predictor
     res["train"], _, _ = train_steps(
         model, train_batch(LONG_BATCH, seed=51, seq=LONG_SEQ), 2,
         {"K3": n, "K1": n, "R1": 3 * n, "K4": n, "K5": n, "K2": n, "A1": 1},
-        f"learn src4096 --num_heads {SRC6_HEADS}", falling=False)
+        f"learn src4096 --num_heads {heads}", falling=False)
     del model
     torch.cuda.empty_cache()
     return {"R1": counts["R1"] + res["train"]["launches"]["R1"],
@@ -2954,7 +2994,7 @@ def time_shapes(out, n_params) -> list:
     heads (BH = 60, d = 128) with the launches of that drive; A1 with a
     bf16 first moment at the flagship's count."""
     gen = torch.Generator(device="cuda").manual_seed(15)
-    errors, rows = out["errors"], []
+    rows = []
     for name, label, (serve, steps) in (
             ("text_d64", "s512 causal xPos d64", out["src12"]),
             ("vision_d64", "s196 pixel rotary d64", out["src12"]),
@@ -2964,14 +3004,10 @@ def time_shapes(out, n_params) -> list:
         c = shape_case(name, torch.bfloat16, gen)
         d = c["q"].shape[-1]
         key = shape_key(c["s"], c["causal"], c["s_k"], d)
-        bf16 = f"{name}/bfloat16"
         rows += resident_rows(
             c, label, serve["K1_by_shape"].get(key, 0),
             steps["K2_by_shape"].get(key, 0),
-            steps["R1_by_shape"].get(r1_key(c["s"], c["s_k"], d), 0),
-            errors[f"{bf16}/out"],
-            max(errors[f"{bf16}/{g}"] for g in ("dq", "dk", "dv")),
-            errors[f"{bf16}/rot"])
+            steps["R1_by_shape"].get(r1_key(c["s"], c["s_k"], d), 0))
         del c
     rows += time_long_kernels(out["long_errors"], out["long6"],
                               bh=LONG6_BH, small_bh=SRC6_HEADS,
@@ -3016,17 +3052,17 @@ def run_shapes(record, n_params: int) -> dict:
     res = {"n_params": n_params}
     record["shapes"] = res
     res["hgmma"] = count_new_hgmma()
-    out = {"errors": check_shapes(res)}
-    out["long_errors"] = check_long_kernels(
+    check_shapes(res)
+    out = {"long_errors": check_long_kernels(
         res, bh=LONG6_BH, kinds=("text",), tag="long_d128", seed=13, d=128,
-        heads=SRC6_HEADS)
+        heads=SRC6_HEADS)}
     out["src12"] = run_src_heads(res.setdefault("src_heads12", {}),
                                  SRC12_HEADS, REQUEST_ROWS, SRC12_STEPS, True)
     out["src6"] = run_src_heads(res.setdefault("src_heads6", {}),
                                 SRC6_HEADS, BATCH, 2, False)
     out["timesformer"] = run_timesformer_256(
         res.setdefault("timesformer_256", {}))
-    out["long6"] = run_long_heads6(res.setdefault("long_heads6", {}))
+    out["long6"] = run_long_heads(res.setdefault("long_heads6", {}))
     mu = res.setdefault("mu_bf16", {"n_params": n_params})
     out["mu_bf16"] = run_mu_bf16(mu)
     out["a1_bf16_err"] = mu["a1_err"]
@@ -4196,8 +4232,8 @@ def run_buckets(record) -> dict:
     def mark(name):
         marks[name] = time.perf_counter() - t0 - sum(marks.values())
 
-    errors = check_kernel(res, BUCKET_CASES, "kernel_vs_plain")
-    bwd_errors = check_backward(res, BUCKET_CASES, "k2_vs_plain")
+    check_kernel(res, BUCKET_CASES, "kernel_vs_plain")
+    check_backward(res, BUCKET_CASES, "k2_vs_plain")
     mark("kernel checks")
     data = bucketed_rows()
     trainer, loader, counts = bucketed_epochs(res, data)
@@ -4234,7 +4270,7 @@ def run_buckets(record) -> dict:
     print(f"phase buckets: {res['wall_s']:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in marks.items()) + ")",
           flush=True)
-    return {"errors": errors, "bwd_errors": bwd_errors, "counts": counts}
+    return {"counts": counts}
 
 
 def time_buckets(buckets) -> list:
@@ -4243,16 +4279,13 @@ def time_buckets(buckets) -> list:
     gen = torch.Generator(device="cuda").manual_seed(4)
     rows = []
     counts = buckets["counts"]
-    for case, kind, s, bh in BUCKET_CASES:
+    for _, kind, s, bh in BUCKET_CASES:
         c = backward_case(kind, torch.bfloat16, gen, s=s, bh=bh)
         key = shape_key(s, True)
         rows += resident_rows(
             c, f"s{s} causal xPos bucket", counts["K1_by_shape"].get(key, 0),
             counts["K2_by_shape"].get(key, 0),
-            counts["R1_by_shape"].get(f"s{s}", 0),
-            buckets["errors"][f"{case}/bfloat16"],
-            buckets["bwd_errors"][f"{case}/bfloat16"],
-            buckets["bwd_errors"][f"{case}/bfloat16/rot"])
+            counts["R1_by_shape"].get(f"s{s}", 0))
         del c
     return rows
 
@@ -4441,17 +4474,18 @@ def plain_engine(kernel_forward: bool):
     return engine
 
 
-def ring_case(dtype, gen):
-    """src4096's text attention, (10, 8, 4096, 96) q/k/v, a dO, the
-    whole sequence's causal xPos tables, scale 1/sqrt(768)."""
+def ring_case(dtype, gen, heads: int = HEADS):
+    """src4096's text attention, (10, 8, 4096, 96) q/k/v (or at `heads`
+    heads of 768 / heads), a dO, the whole sequence's causal xPos tables,
+    scale 1/sqrt(768)."""
     from meant_tpu_torch.ops import lang_freqs
     from meant_tpu_torch.ops.flash.flash_attention import _tables
-    shape = (LONG_BATCH * LAG, HEADS, LONG_SEQ, HEAD_DIM)
+    d = DIM // heads
+    shape = (LONG_BATCH * LAG, heads, LONG_SEQ, d)
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
     return dict(q=q, k=k, v=v, do=do, scale=1.0 / DIM ** 0.5,
-                tables=_tables(LONG_SEQ, HEAD_DIM,
-                               lang_freqs(HEAD_DIM // 2, device="cuda"),
+                tables=_tables(LONG_SEQ, d, lang_freqs(d // 2, device="cuda"),
                                True, 512.0))
 
 
@@ -4965,8 +4999,8 @@ def run_layouts(record) -> dict:
     errors = check_long_kernels(res, kinds=("vision",), tag="ring",
                                 s=RING_CHUNK)
     res["wall_s_16abc"] = time.perf_counter() - t0
-    pipe_errors = check_kernel(res, PIPE_CASES, "pipe_kernel_vs_plain")
-    pipe_bwd_errors = check_backward(res, PIPE_CASES, "pipe_k2_vs_plain")
+    check_kernel(res, PIPE_CASES, "pipe_kernel_vs_plain")
+    check_backward(res, PIPE_CASES, "pipe_k2_vs_plain")
     tp_mesh = layout_tp_train(res, host, plain)
     layout_tp_int8(res, tp_mesh)
     pipe_counts = layout_pipeline(res)
@@ -4974,8 +5008,7 @@ def run_layouts(record) -> dict:
     res["wall_s"] = time.perf_counter() - t0
     print(f"phase layouts: {res['wall_s']:.1f} s (16a-16c "
           f"{res['wall_s_16abc']:.1f} s)", flush=True)
-    return {"errors": errors, "counts": counts, "pipe_errors": pipe_errors,
-            "pipe_bwd_errors": pipe_bwd_errors, "pipe_counts": pipe_counts}
+    return {"errors": errors, "counts": counts, "pipe_counts": pipe_counts}
 
 
 def time_layouts(layouts) -> list:
@@ -4990,18 +5023,445 @@ def time_layouts(layouts) -> list:
                              s=RING_CHUNK)
     gen = torch.Generator(device="cuda").manual_seed(18)
     key = shape_key(SEQ, True)
-    for case, kind, s, bh in PIPE_CASES:
+    for _, kind, s, bh in PIPE_CASES:
         counts = layouts["pipe_counts"][bh]
         c = backward_case(kind, torch.bfloat16, gen, s=s, bh=bh)
         rows += resident_rows(
             c, f"s{s} causal xPos BH{bh} pipeline",
             counts["K1_by_shape"].get(key, 0),
             counts["K2_by_shape"].get(key, 0),
-            counts["R1_by_shape"].get(f"s{s}", 0),
-            layouts["pipe_errors"][f"{case}/bfloat16"],
-            layouts["pipe_bwd_errors"][f"{case}/bfloat16"],
-            layouts["pipe_bwd_errors"][f"{case}/bfloat16/rot"])
+            counts["R1_by_shape"].get(f"s{s}", 0))
         del c
+    return rows
+
+
+# ---- phase 17: every head dim ----------------------------------------------
+
+# The flash path at the head dims the CLI's free --num_heads and --text_dim
+# reach beside 64, 96 and 128: odd d (the lanes' wrap in the rotation and
+# its adjoint) and d past 128 (the wide bodies of csrc/flash_wide.cuh).
+# Kernel level: R1 + K1 and K2 through flash_mha at HD_DIMS, causal xPos
+# with a key mask at s=200 (a ragged tile) and plain (the identity tables,
+# no mask, not causal: the TimeSformer group's form); R1 + K3, K4 and K5 at
+# HD_LONG_CASES: (d, s, BH, heads) at s=4096, BH = 4, and d = 768 at the
+# shape --num_heads 1 streams its s=512 text tower at, (80, 512, 768). BH =
+# 16 and 4: each case under a second.
+HD_DIMS = (7, 95, 130, 192, 256, 257, 384, 768)
+HD_S, HD_BH, HD_HEADS = 200, 16, 4
+HD_LONG_BH = 4
+HD_LONG_CASES = ((95, LONG_SEQ, HD_LONG_BH, HD_HEADS),
+                 (192, LONG_SEQ, HD_LONG_BH, HD_HEADS),
+                 (384, LONG_SEQ, HD_LONG_BH, HD_HEADS),
+                 (768, SEQ, BATCH * LAG, 1))
+SRC4_HEADS = 4             # meant_src --num_heads 4: 4 heads of 192
+SRC4_STEPS = 5
+# d = 384 and 768: one request and 2 steps each, the towers and one step's
+# gradients against flash=False
+WIDE_SERVE_HEADS = (2, 1)
+ODD_DIM, ODD_HEADS = 760, 8   # --text_dim 760: 8 heads of 95
+ODD_STEPS = 2
+RING4_BH = LONG_BATCH * LAG * SRC4_HEADS   # (10, 4, 4096, 192): 40
+
+
+def padded(c):
+    """c's q, k, v, dO and tables as flash_mha hands them to the kernels:
+    (b*h, s, width) at kernel_head_dim(d) with zero columns, the tables
+    padded with the identity; stored as c["p"]."""
+    from meant_tpu_torch.ops.flash.kernel import (_flat, _kernel_tables,
+                                                  kernel_head_dim)
+    d = c["q"].shape[-1]
+    width = kernel_head_dim(d)
+    q, k, v = _flat(width, c["q"], c["k"], c["v"])
+    do = _flat(width, c["do"])[0] if "do" in c else None
+    mask, *tables = _kernel_tables(width, c["mask"], *c["tables"])
+    c["p"] = dict(q=q, k=k, v=v, do=do, mask=mask, tables=tables, d=d,
+                  width=width)
+    return c["p"]
+
+
+def rotate_padded(c):
+    """R1 on the padded q and k with the caller's head dim (c["p"])."""
+    from meant_tpu_torch.ops.flash import rotate_qk
+    p = c["p"]
+    p["qr"], p["kr"] = rotate_qk(p["q"], p["k"], *p["tables"],
+                                 head_dim=p["d"])
+    return p["qr"], p["kr"]
+
+
+def k1_padded(c):
+    """K1 alone on rotate_padded's Qr and Kr."""
+    from meant_tpu_torch.ops.flash import flash_fwd
+    p = c["p"]
+    return flash_fwd(p["qr"], p["kr"], p["v"], p["mask"], scale=c["scale"],
+                     causal=c["causal"], num_heads=c["q"].shape[1])
+
+
+def k2_padded(c):
+    """K2 alone on rotate_padded's Qr and Kr, at the caller's head dim."""
+    from meant_tpu_torch.ops.flash import flash_bwd
+    p = c["p"]
+    return flash_bwd(p["qr"], p["kr"], p["v"], p["do"], p["mask"],
+                     *p["tables"], scale=c["scale"], causal=c["causal"],
+                     num_heads=c["q"].shape[1], head_dim=p["d"])
+
+
+def check_r1_padded(c, label) -> float:
+    """R1 at the padded width against `_rotate` at the caller's d: bit for
+    bit on the first d columns (the lanes' wrap at an odd d included), zero
+    on the rest."""
+    padded(c)
+    d = c["p"]["d"]
+    got = rotate_padded(c)
+    err = 0.0
+    for a, b in zip(got, rotate_plain(c)):
+        err = max(err, (a[..., :d].float() - b.float()).abs().max().item(),
+                  a[..., d:].float().abs().max().item() if a.shape[-1] > d
+                  else 0.0)
+    print(f"R1 vs plain {label}: max_abs_err {err:.3e} (bar 0) "
+          f"{'ok' if err == 0 else 'FAIL'}", flush=True)
+    if err != 0:
+        fail(f"R1 differs from _rotate ({label}, max abs err {err})")
+    return err
+
+
+def nowrap_bwd(c):
+    """The plain backward without the lanes' wrap at an odd d: the inputs
+    padded by one zero column (pairs stay whole), sliced back."""
+    from meant_tpu_torch.ops.flash import flash_mha_bwd_reference
+    from meant_tpu_torch.ops.flash.kernel import _kernel_tables
+    pad = torch.nn.functional.pad
+    d = c["q"].shape[-1]
+    _, *tables = _kernel_tables(d + 1, None, *c["tables"])
+    grads = flash_mha_bwd_reference(
+        *(pad(c[n], (0, 1)) for n in ("q", "k", "v", "do")), c["mask"],
+        *tables, scale=c["scale"], causal=c["causal"])
+    return [t[..., :d] for t in grads]
+
+
+def check_head_dims(res) -> dict:
+    """R1 + K1 and K2 through flash_mha (one launch of each a call) at
+    HD_DIMS against flash_mha_reference and flash_mha_bwd_reference, fp32
+    and bf16, causal xPos with a key mask and plain; R1 bit for bit at the
+    padded width; at an odd d the wrap term of column d-1 of dq and dk (the
+    plain backward's, against its value without the wrap) reproduced."""
+    from meant_tpu_torch.ops.flash.kernel import K1_BF16_REL_L2
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    errors, rels, wrap = {}, {}, {}
+    for d in HD_DIMS:
+        for kind in ("text_masked", "group"):
+            for dtype in (torch.float32, torch.bfloat16):
+                c = backward_case(kind, dtype, gen, s=HD_S, bh=HD_BH, d=d,
+                                  heads=HD_HEADS)
+                form = "plain" if kind == "group" else "xpos_masked"
+                label = f"d{d}_{form}/{str(dtype).split('.')[-1]}"
+                reset_counts()
+                got = run_autograd(c)
+                torch.cuda.synchronize()
+                check_counts(read_counts(), {"R1": 1, "K1": 1, "K2": 1},
+                             f"flash_mha at {label}")
+                want = [run_plain(c), *run_bwd_plain(c)]
+                unit = group_unit(kind, want[1])
+                for g, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+                    kernel = "R1 + K1" if g == "out" else "R1 + K2"
+                    errors[f"{label}/{g}"], rels[f"{label}/{g}"] = hold(
+                        kernel, label, g, a, b, dtype, K1_BF16_REL_L2, unit)
+                errors[f"{label}/rot"] = check_r1_padded(c, label)
+                if d % 2 and kind != "group":
+                    nowrap = nowrap_bwd(c)
+                    for i, g in ((0, "dq"), (1, "dk")):
+                        term = (want[1 + i][..., d - 1].float()
+                                - nowrap[i][..., d - 1].float()).abs().max()
+                        err = (got[1 + i][..., d - 1].float()
+                               - want[1 + i][..., d - 1].float()).abs().max()
+                        wrap[f"{label}/{g}"] = {"term": term.item(),
+                                                "err": err.item()}
+                        ok = term.item() > 10 * max(err.item(), 1e-30)
+                        print(f"wrap term {label} {g}[:, d-1]: max "
+                              f"|sin0 g0| {term.item():.3e}, kernel's "
+                              f"column vs plain's {err.item():.3e} "
+                              f"{'ok' if ok else 'FAIL'}", flush=True)
+                        if not ok:
+                            fail(f"the wrap term of {g} at {label} is not "
+                                 f"reproduced ({term.item()} vs "
+                                 f"{err.item()})")
+                del c, got, want
+                torch.cuda.empty_cache()
+    res["head_dims_vs_plain_max_abs_err"] = errors
+    res["head_dims_vs_plain_rel_l2"] = rels
+    res["wrap"] = wrap
+    return errors
+
+
+def run_online_autograd(c):
+    """flash_mha(return_lse=True) forward (R1 + K3) and its autograd
+    backward (R1 + K4 + K5) with cotangents (dO, g_lse): (out, lse, dq, dk,
+    dv)."""
+    from meant_tpu_torch.ops.flash import flash_mha
+    qcos, qsin, kcos, ksin = c["tables"]
+    leaves = [c[n].detach().requires_grad_(True) for n in "qkv"]
+    out, lse = flash_mha(*leaves, scale=c["scale"], causal=c["causal"],
+                         attention_mask=c["mask"], qcos=qcos, qsin=qsin,
+                         kcos=kcos, ksin=ksin, return_lse=True)
+    grads = torch.autograd.grad((out, lse), leaves,
+                                (c["do"], c["g_lse"][..., None]))
+    return (out.detach(), lse.detach()[..., 0], *grads)
+
+
+def check_head_dims_long(res) -> dict:
+    """R1 + K3 (out, lse), R1 + K4 + K5 through flash_mha(return_lse=True)
+    and autograd at HD_LONG_CASES, causal xPos with and
+    without a key mask, fp32 and bf16: out at BF16_REL_L2 (and at
+    K3_TILED_REL_L2 against K3's tiled order), lse within LSE_ATOL, the
+    gradients at K2's bars against the plain backward fed the kernels' lse
+    and delta = rowsum(dO * out) - g_lse; R1 bit for bit."""
+    from meant_tpu_torch.ops.flash.kernel import (
+        BF16_REL_L2, K3_TILED_REL_L2, LSE_ATOL,
+        flash_mha_bwd_online_reference)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    errors, rels = {}, {}
+    for d, s, bh, heads in HD_LONG_CASES:
+        tag = f"long_d{d}" if s == LONG_SEQ else f"long_d{d}_s{s}"
+        for kind in ("text", "text_masked"):
+            for dtype in (torch.float32, torch.bfloat16):
+                c = backward_case(kind, dtype, gen, s=s, bh=bh, d=d,
+                                  heads=heads)
+                c["g_lse"] = torch.randn(c["q"].shape[:3], generator=gen,
+                                         device="cuda")
+                label = f"{tag}_{kind}/{str(dtype).split('.')[-1]}"
+                reset_counts()
+                out, lse, *grads = run_online_autograd(c)
+                torch.cuda.synchronize()
+                check_counts(read_counts(),
+                             {"R1": 2, "K3": 1, "K4": 1, "K5": 1},
+                             f"flash_mha(return_lse=True) at {label}")
+                ref, ref_lse = run_online_plain(c)
+                lse_err = (lse - ref_lse).abs().max().item()
+                ok = lse_err <= LSE_ATOL and bool(torch.isfinite(lse).all())
+                print(f"R1 + K3 vs plain {label} lse: max_abs_err "
+                      f"{lse_err:.3e} (bar {LSE_ATOL}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"K3's lse disagrees with its plain version "
+                         f"({label}, max abs err {lse_err})")
+                errors[f"{label}/lse"] = lse_err
+                errors[f"{label}/out"], rels[f"{label}/out"] = hold(
+                    "R1 + K3", label, "out", out, ref, dtype, BF16_REL_L2)
+                if dtype == torch.bfloat16:
+                    rel = rel_l2(out, run_online_tiled_plain(c))
+                    print(f"R1 + K3 vs plain in K3's tiled order {label} "
+                          f"out: rel_l2 {rel:.3e} (bar {K3_TILED_REL_L2}) "
+                          f"{'ok' if rel <= K3_TILED_REL_L2 else 'FAIL'}",
+                          flush=True)
+                    if rel > K3_TILED_REL_L2:
+                        fail(f"K3 disagrees with its tiled plain version "
+                             f"({label}, rel L2 {rel})")
+                    rels[f"{label}/out_tiled"] = rel
+                del ref
+                delta = (c["do"].float() * out.float()).sum(-1) - c["g_lse"]
+                want = flash_mha_bwd_online_reference(
+                    c["q"], c["k"], c["v"], c["do"], lse, delta, c["mask"],
+                    *c["tables"], scale=c["scale"], causal=c["causal"])
+                for g, a, b in zip(("dq", "dk", "dv"), grads, want):
+                    kernel = "R1 + K4" if g == "dq" else "R1 + K5"
+                    errors[f"{label}/{g}"], rels[f"{label}/{g}"] = hold(
+                        kernel, label, g, a, b, dtype, BF16_REL_L2)
+                errors[f"{label}/rot"] = check_r1_padded(c, label)
+                del c, out, lse, grads, want
+                torch.cuda.empty_cache()
+    res["long_head_dims_vs_plain_max_abs_err"] = errors
+    res["long_head_dims_vs_plain_rel_l2"] = rels
+    return errors
+
+
+def run_odd_width(res):
+    """build_model(-mn meant_src --text_dim 760 --flash true) at s=512: a
+    language tower of 8 heads of 95 (R1 and K1 at width 128, K2 on the wide
+    body, whose adjoint wraps), the vision tower at 96. One request of
+    BATCH rows (exactly 24 R1 + 24 K1) against the same weights at
+    flash=False; at fixed_proj=True one step's gradients against the plain
+    attention and ODD_STEPS trainer steps (24 R1, 24 K1, 24 K2, 1 A1 a
+    step)."""
+    from meant_tpu_torch.serve import Predictor
+    args = ("--seq_len", str(SEQ), "--text_dim", str(ODD_DIM), "--flash")
+    model = build_zoo("meant_src", *args, "true")
+    predictor = Predictor(model, "meant_src", batch_size=BATCH)
+    chunk = request_batch(BATCH, seed=70)
+    predictor(chunk)        # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    probs = predictor(chunk)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"served --text_dim {ODD_DIM}: launches {counts}", flush=True)
+    check_counts(counts, {"K1": 2 * ENCODERS, "R1": 2 * ENCODERS},
+                 f"serving --text_dim {ODD_DIM}")
+    if not (np.isfinite(probs).all() and ((probs > 0) & (probs < 1)).all()):
+        fail(f"bad --text_dim {ODD_DIM} probabilities")
+    plain = build_zoo("meant_src", *args, "false")
+    plain.load_state_dict(model.state_dict())
+    compare_slice(f"text_dim{ODD_DIM}",
+                  towers_and_probs(model, predictor, chunk),
+                  towers_and_probs(plain, Predictor(plain, "meant_src",
+                                                    batch_size=BATCH), chunk),
+                  res)
+    res["serve_launches"] = counts
+    del model, plain, predictor
+    torch.cuda.empty_cache()
+    model = build_flagship(flash=True, fixed_proj=True, text_dim=ODD_DIM)
+    res["step_gradients"] = compare_step_gradients(
+        model, to_card(train_batch(GRAD_ROWS, seed=71)),
+        {k: n for k, n in STEP.items() if k != "A1"},
+        lambda: build_flagship(flash=False, fixed_proj=True,
+                               text_dim=ODD_DIM),
+        f"meant_src --text_dim {ODD_DIM} train step")
+    res["train"], _, _ = train_steps(
+        model, train_batch(BATCH, seed=72), ODD_STEPS, STEP,
+        f"learn meant_src --text_dim {ODD_DIM}", falling=False)
+    del model
+    torch.cuda.empty_cache()
+    return counts, res["train"]["launches"]
+
+
+def ring_head_dim(res):
+    """The ring of RING_RANKS ranks played in one process at src4096's
+    text attention at 4 heads of 192, bf16: 16 R1 + 16 K3 forward and 16
+    R1 + 16 K4 + 16 K5 backward at (40, 1024, 192); the output against the
+    unsplit R1 + K3 at BF16_REL_L2, the gradients against the plain
+    backward on the kernels' forward at BWD_BF16_REL_L2; then both timed
+    against the unsplit call."""
+    from meant_tpu_torch.ops.flash import flash_mha
+    from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2,
+                                                  BWD_BF16_REL_L2)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    c = ring_case(torch.bfloat16, gen, heads=SRC4_HEADS)
+    reset_counts()
+    out, leaves = played_ring(c, grad=True)
+    torch.cuda.synchronize()
+    fwd = read_counts()
+    reset_counts()
+    out.backward(c["do"])
+    torch.cuda.synchronize()
+    bwd = read_counts()
+    n2 = RING_RANKS ** 2
+    check_counts(fwd, {"R1": n2, "K3": n2}, "played ring forward at d=192")
+    check_counts(bwd, {"R1": n2, "K4": n2, "K5": n2},
+                 "played ring backward at d=192")
+    tables = dict(zip(("qcos", "qsin", "kcos", "ksin"), c["tables"]))
+    with torch.no_grad():
+        whole = flash_mha(c["q"], c["k"], c["v"], scale=c["scale"],
+                          causal=True, force_online=True, **tables)
+    checks = {"out_vs_unsplit": rel_l2(out, whole)}
+    bars = {"out_vs_unsplit": BF16_REL_L2}
+    del whole
+    plain_out, plain_leaves = _with_engine(plain_engine(True),
+                                           lambda: played_ring(c, grad=True))
+    plain_out.backward(c["do"])
+    for name, a, b in zip(("dq", "dk", "dv"), (t.grad for t in leaves),
+                          (t.grad for t in plain_leaves)):
+        checks[f"{name}_vs_plain_backward"] = rel_l2(a, b)
+        bars[f"{name}_vs_plain_backward"] = BWD_BF16_REL_L2
+    del plain_out, plain_leaves
+    torch.cuda.empty_cache()
+    for name, rel in checks.items():
+        ok = rel <= bars[name] and bool(torch.isfinite(out).all())
+        print(f"played ring d=192 bf16 {name}: rel L2 {rel:.3e} (bar "
+              f"{bars[name]}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"played ring at d=192 {name}: rel L2 {rel} > {bars[name]}")
+
+    def ring_fwd_bwd():
+        o, _ = played_ring(c, grad=True)
+        o.backward(c["do"])
+
+    def whole_fwd_bwd():
+        lv = [c[t].detach().requires_grad_() for t in ("q", "k", "v")]
+        o = flash_mha(*lv, scale=c["scale"], causal=True, force_online=True,
+                      **tables)
+        o.backward(c["do"])
+
+    t = {name: event_ms(fn, iters=RING_TIME_ITERS, warmup=1)
+         for name, fn in (("ring_fwd_bwd", ring_fwd_bwd),
+                          ("whole_fwd_bwd", whole_fwd_bwd))}
+    print(f"played ring of {RING_RANKS} at ({RING4_BH}, 4096, 192) bf16 "
+          f"causal xPos: forward + backward {t['ring_fwd_bwd']:.4f} ms; "
+          f"unsplit {t['whole_fwd_bwd']:.4f} ms on {card_line()}",
+          flush=True)
+    res["ring"] = {"rel_l2": checks, "forward_launches": fwd,
+                   "backward_launches": bwd, "ms": t}
+    del out, leaves, c
+    torch.cuda.empty_cache()
+
+
+def run_head_dims(record) -> dict:
+    """Phase 17: the flash path at every head dim. The kernels at HD_DIMS
+    and HD_LONG_CASES against their plain versions; meant_src --num_heads
+    4 (d = 192) served, one step's gradients and SRC4_STEPS steps at the
+    flagship's width; --num_heads 2 and 1 (d = 384, 768) the same with two
+    steps; src4096 at 4 heads; --text_dim 760 (d = 95); the played ring at
+    d = 192."""
+    t0 = time.perf_counter()
+    res = {}
+    record["head_dims"] = res
+    check_head_dims(res)
+    out = {"long_errors": check_head_dims_long(res)}
+    out["src4"] = run_src_heads(res.setdefault("src_heads4", {}),
+                                SRC4_HEADS, REQUEST_ROWS, SRC4_STEPS, True)
+    for heads in WIDE_SERVE_HEADS:
+        out[f"src{heads}"] = run_src_heads(
+            res.setdefault(f"src_heads{heads}", {}), heads, BATCH, 2, True)
+    out["long4"] = run_long_heads(res.setdefault("long_heads4", {}),
+                                  SRC4_HEADS)
+    out["odd"] = run_odd_width(res.setdefault("text_dim760", {}))
+    ring_head_dim(res)
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"phase head_dims: {res['wall_s']:.1f} s", flush=True)
+    return out
+
+
+def time_head_dims(out) -> list:
+    """The rows of the new head dims, each with the launches of the run
+    that reaches it: R1 + K1, K2 and R1 at d = 192 (s=512 causal xPos and
+    s=196 pixel rotary, BH = 320: meant_src --num_heads 4), d = 384 (s=512,
+    BH = 160: --num_heads 2), d = 768 (s=196, BH = 80: --num_heads 1, whose
+    s=512 text tower streams, as JAX routes it) and d = 95 (s=512, BH =
+    640: --text_dim 760; K1 and R1 at width 128, K2 on the wide body);
+    R1 + K3, R1, K4 and K5 at src4096's launch at 4 heads (BH = 40, d =
+    192) and at --num_heads 1's streaming s=512 text tower (BH = 80, d =
+    768)."""
+    from meant_tpu_torch.ops.flash.kernel import kernel_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    rows = []
+    for kind, s, heads, label, (serve, steps) in (
+            ("text", SEQ, SRC4_HEADS, "s512 causal xPos d192", out["src4"]),
+            ("vision", N_PATCHES, SRC4_HEADS, "s196 pixel rotary d192",
+             out["src4"]),
+            ("text", SEQ, 2, "s512 causal xPos d384", out["src2"]),
+            ("vision", N_PATCHES, 1, "s196 pixel rotary d768", out["src1"]),
+            ("text", SEQ, ODD_HEADS, "s512 causal xPos d95 (--text_dim 760)",
+             out["odd"])):
+        d = (ODD_DIM if heads == ODD_HEADS else DIM) // heads
+        c = backward_case(kind, torch.bfloat16, gen, s=s,
+                          bh=BATCH * LAG * heads, d=d, heads=heads)
+        width = kernel_head_dim(d)
+        key = shape_key(s, c["causal"], s, width)
+        rows += resident_rows(
+            c, label, serve["K1_by_shape"].get(key, 0),
+            steps["K2_by_shape"].get(key, 0),
+            steps["R1_by_shape"].get(r1_key(s, s, width), 0))
+        del c
+        torch.cuda.empty_cache()
+    rows += time_long_kernels(out["long_errors"], out["long4"],
+                              bh=LONG_BATCH * LAG * SRC4_HEADS,
+                              small_bh=SRC4_HEADS, tag="long_d192",
+                              label="s4096 causal xPos d192", d=192,
+                              heads=SRC4_HEADS)
+    serve, steps = out["src1"]
+    rows += time_long_kernels(
+        out["long_errors"],
+        {"K3": serve["K3"], "K4": steps["K4"], "K5": steps["K5"],
+         "R1": steps["R1_by_shape"].get(r1_key(SEQ, SEQ, DIM), 0)},
+        bh=BATCH * LAG, small_bh=BATCH * LAG, tag=f"long_d{DIM}_s{SEQ}",
+        label=f"s{SEQ} causal xPos d{DIM} streaming", s=SEQ, d=DIM, heads=1)
     return rows
 
 
@@ -5047,24 +5507,44 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms,
             **extra}
 
 
-def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches,
-                  fwd_err, bwd_err, rot_err) -> list:
+def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches) -> list:
     """The three rows of one resident shape: R1 + K1 (K1 alone beside it)
     against rotation + SDPA, K2 (R1 + K2 beside it) against the SDPA
     backward, and R1; each with its launches on the main path, its error
-    against the plain version, its bound and its plain version's time."""
+    against the plain version on the row's own inputs (out, dq, dk and dv
+    through flash_mha and autograd held by `hold` at the bars in force, R1
+    bit for bit), its bound, its plain version's time, and the source of
+    the body its launch ran (the wrapper's `last_source`). A head dim the
+    kernels take only padded (`kernel_head_dim`) times K1, K2 and R1 alone
+    on the padded inputs, as flash_mha hands them over."""
+    from meant_tpu_torch.ops.flash import flash_bwd, flash_fwd
+    from meant_tpu_torch.ops.flash.kernel import (K1_BF16_REL_L2,
+                                                  kernel_head_dim)
+    got = run_autograd(c)
+    want = [run_plain(c), *run_bwd_plain(c)]
+    unit = group_unit(c["kind"], want[1])
+    err = {g: hold("R1 + K1" if g == "out" else "R1 + K2", label, g, a, b,
+                   c["q"].dtype, K1_BF16_REL_L2, unit)[0]
+           for g, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+    rot_err = check_r1_padded(c, label)
+    del got, want
     rows = []
+    if kernel_head_dim(c["q"].shape[-1]) != c["q"].shape[-1]:
+        padded(c)
+        rotate, k1, k2 = rotate_padded, k1_padded, k2_padded
+    else:
+        rotate, k1, k2 = rotate_case, run_k1, run_bwd_k2
     nbytes, flops = attention_cost(c)
     with_r1 = event_ms(lambda: run_kernel(c), iters=20)
-    rotate_case(c)
-    k1_ms = event_ms(lambda: run_k1(c), iters=20)
+    rotate(c)
+    k1_ms = event_ms(lambda: k1(c), iters=20)
     library_ms = event_ms(lambda: run_library(c), iters=20)
     print(f"resident forward at {label}: R1 + K1 {with_r1:.4f} ms "
           f"(K1 alone {k1_ms:.4f} ms) against rotation + SDPA's "
           f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)", flush=True)
     rows.append(kernel_row(
-        f"flash_fwd[{label}]", "meant_tpu_torch/csrc/flash_fwd.cu",
-        "meant_tpu/ops/flash/kernel.py:89", fwd_launches, fwd_err, with_r1,
+        f"flash_fwd[{label}]", flash_fwd.last_source,
+        "meant_tpu/ops/flash/kernel.py:89", fwd_launches, err["out"], with_r1,
         event_ms(lambda: run_plain(c), iters=5), library_ms, nbytes, flops,
         PEAK_BF16_FLOPS, shape=list(c["q"].shape), s_k=c["s_k"],
         dtype="bfloat16", k1_alone_ms=k1_ms,
@@ -5072,12 +5552,14 @@ def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches,
     nbytes, flops = attention_cost(c, backward=True)
     library = run_library_bwd(c)
     library_ms = event_ms(library, iters=10)
-    rotate_case(c)
-    k2_ms = event_ms(lambda: run_bwd_k2(c), iters=10)
-    with_r1 = event_ms(lambda: run_bwd_kernel(c), iters=10)
+    rotate(c)
+    k2_ms = event_ms(lambda: k2(c), iters=10)
+    k2_source = flash_bwd.last_source
+    with_r1 = event_ms(lambda: (rotate(c), k2(c)), iters=10)
     rows.append(kernel_row(
-        f"flash_bwd[{label}]", "meant_tpu_torch/csrc/flash_bwd.cu",
-        "meant_tpu/ops/flash/kernel.py:321", bwd_launches, bwd_err, k2_ms,
+        f"flash_bwd[{label}]", k2_source,
+        "meant_tpu/ops/flash/kernel.py:321", bwd_launches,
+        max(err[g] for g in ("dq", "dk", "dv")), k2_ms,
         event_ms(lambda: run_bwd_plain(c), iters=3), library_ms, nbytes,
         flops, PEAK_BF16_FLOPS, shape=list(c["q"].shape), s_k=c["s_k"],
         dtype="bfloat16", r1_plus_k2_ms=with_r1))
@@ -5085,7 +5567,7 @@ def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches,
           f"{with_r1:.4f} ms against the SDPA backward's "
           f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)", flush=True)
     nbytes, flops = rotation_cost(c)
-    r1_ms = event_ms(lambda: rotate_case(c), iters=20)
+    r1_ms = event_ms(lambda: rotate(c), iters=20)
     print(f"rotation pass at {label}: R1 {r1_ms:.4f} ms", flush=True)
     rows.append(kernel_row(
         f"rotate_qk[{label}]", "meant_tpu_torch/csrc/flash_bwd_online.cu",
@@ -5098,9 +5580,8 @@ def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches,
     return rows
 
 
-def time_kernels(record, errors, launches_by_shape, bwd_errors,
-                 train_counts, a1_err, n_params, paper, pretrain, zoo,
-                 hf_vqa, ner):
+def time_kernels(record, launches_by_shape, train_counts, a1_err, n_params,
+                 paper, pretrain, zoo, hf_vqa, ner):
     """The resident rows (R1 + K1, K2, R1) at the flagship's two shapes, at
     the paper generation's s=128, at the pretrainers' BH=128 shapes, at
     meant_tweet_price's s=128, meant_mosi's s=50 (xPos on 30 features,
@@ -5139,9 +5620,7 @@ def time_kernels(record, errors, launches_by_shape, bwd_errors,
         rows += resident_rows(
             c, label, fwd_by_shape.get(key, 0),
             steps["K2_by_shape"].get(key, 0),
-            steps["R1_by_shape"].get(f"s{c['s']}", 0),
-            errors[f"{case}/bfloat16"], bwd_errors[f"{case}/bfloat16"],
-            bwd_errors[f"{case}/bfloat16/rot"])
+            steps["R1_by_shape"].get(f"s{c['s']}", 0))
 
     rows.append(adamw_row("adamw", n_params, train_counts["A1"], a1_err,
                           gen))
@@ -5260,20 +5739,20 @@ def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
     del library
     torch.cuda.empty_cache()
     plans = (
-        ("K3", "flash_fwd_online", "meant_tpu_torch/csrc/flash_fwd.cu",
-         "meant_tpu/ops/flash/kernel.py:127", run_online_kernel,
-         run_online_plain, f"{tag}_{kind}/bfloat16/out", library_fwd, 10),
-        ("K4", "flash_bwd_dq", "meant_tpu_torch/csrc/flash_bwd_online.cu",
-         "meant_tpu/ops/flash/kernel.py:456", run_online_dq_kernel,
-         run_online_dq_plain, f"{tag}_{kind}/bfloat16/dq", library_bwd, 5),
-        ("K5", "flash_bwd_dkdv", "meant_tpu_torch/csrc/flash_bwd_online.cu",
-         "meant_tpu/ops/flash/kernel.py:527", run_online_dkdv_kernel,
-         run_online_dkdv_plain, (f"{tag}_{kind}/bfloat16/dk",
-                                 f"{tag}_{kind}/bfloat16/dv"), library_bwd,
-         5))
-    for (kernel, name, source, replaces, run, plain, err_keys, library_ms,
+        ("K3", "flash_fwd_online", "meant_tpu/ops/flash/kernel.py:127",
+         run_online_kernel, run_online_plain, f"{tag}_{kind}/bfloat16/out",
+         library_fwd, 10),
+        ("K4", "flash_bwd_dq", "meant_tpu/ops/flash/kernel.py:456",
+         run_online_dq_kernel, run_online_dq_plain,
+         f"{tag}_{kind}/bfloat16/dq", library_bwd, 5),
+        ("K5", "flash_bwd_dkdv", "meant_tpu/ops/flash/kernel.py:527",
+         run_online_dkdv_kernel, run_online_dkdv_plain,
+         (f"{tag}_{kind}/bfloat16/dk", f"{tag}_{kind}/bfloat16/dv"),
+         library_bwd, 5))
+    for (kernel, name, replaces, run, plain, err_keys, library_ms,
          iters) in plans:
         ms = event_ms(lambda: run(big), iters=iters)
+        source = wrappers()[kernel].last_source
         extra = {}
         if kernel == "K3":     # the row is R1 + K3; K3 alone beside it
             extra["k3_alone_ms"] = event_ms(lambda: run_online_k3(big),
@@ -5432,8 +5911,8 @@ def main(argv=None) -> int:
     record["hgmma"] = {name: count_hgmma(name) for name in WGMMA_LIBRARIES}
     record["hgmma"]["K1"] = count_hgmma("flash_fwd", "flash_fwd_wgmma_kernel")
 
-    errors = check_kernel(record)
-    bwd_errors = check_backward(record)
+    check_kernel(record)
+    check_backward(record)
     long_errors = check_long_kernels(record)
     predictor, chunk, by_shape = run_slice(record)
     a1_err = check_adamw(record, record["n_params"])
@@ -5448,14 +5927,15 @@ def main(argv=None) -> int:
     ner = run_ner(record)
     buckets = run_buckets(record)
     layouts = run_layouts(record)
-    rows = time_kernels(record, errors, by_shape, bwd_errors, train_counts,
-                        a1_err, record["n_params"], paper, pretrain, zoo,
-                        hf_vqa, ner)
+    head_dims = run_head_dims(record)
+    rows = time_kernels(record, by_shape, train_counts, a1_err,
+                        record["n_params"], paper, pretrain, zoo, hf_vqa, ner)
     at = [r["name"] for r in rows].index("adamw")
     rows[at:at] = time_long_kernels(long_errors, long_counts)  # before A1
     rows += time_shapes(shapes, record["n_params"])
     rows += time_buckets(buckets)
     rows += time_layouts(layouts)
+    rows += time_head_dims(head_dims)
     record["kernels"] = rows
     time_requests(predictor, chunk, record)
     record["profile"] = profile_calls(lambda: predictor.forward(chunk),

@@ -107,7 +107,9 @@ def base_parser() -> argparse.ArgumentParser:
                    default=False,
                    help="classifier emits logits instead of sigmoid outputs")
     p.add_argument("--buckets", type=str, default=None,
-                   help="not ported yet: raises if given")
+                   help="comma-separated length buckets for bucketed "
+                        "training batches (e.g. 128,256,384,512) — the "
+                        "static-shape equivalent of dynamic padding")
     p.add_argument("--hf_cache", type=str, default=None,
                    help="local HuggingFace cache (hub layout or snapshot "
                         "directory): initialise from its weights as the "

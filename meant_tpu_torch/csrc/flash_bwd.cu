@@ -50,8 +50,12 @@
 //     statistics from device memory, which keeps its tiles within a
 //     block's shared memory at D = 128.
 // Head dims 64, 96 and 128 are instantiated (the wrapper pads any other
-// even d up to 128). q has s_q rows and k s_k keys: the dq kernel's grid
-// walks q tiles, the dk/dv kernel's k tiles.
+// even d up to 128). Past 128, and at an odd head dim, whose adjoint wraps
+// column d-1 onto column 0 as the JAX kernel's lane rotate-half does, both
+// kernels take the wide bodies of flash_wide.cuh at the padded width (a
+// multiple of 64), still one dq launch and one dk/dv launch. q has s_q rows
+// and k s_k keys: the dq kernel's grid walks q tiles, the dk/dv kernel's k
+// tiles.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the main
 // path's shapes (BH = 640, d = 96, bf16): the launch must read q, k, v, dO
@@ -68,6 +72,7 @@
 
 #include "flash_bwd_wgmma.cuh"
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -392,17 +397,19 @@ cudaError_t launch_bf16(const bwd::Args& a, void* dq, void* dk, void* dv) {
 
 // dtype: 0 = float32, 1 = bfloat16. qr (q rotated by R1), dout, dq:
 // (bh, seq_q, d); kr (k rotated by R1), v, dk, dv: (bh, seq_k, d); all
-// contiguous, d = 64, 96 or 128; stats: (3, bh, seq_q) fp32 scratch;
-// tables: (seq_q | seq_k, d) fp32, read by the rotation's adjoint; kmask:
-// (mask_rows, seq_k) fp32 or null.
+// contiguous, d = 64, 96, 128 or a multiple of 64, head_dim <= d the
+// caller's head dim (an odd one wraps the adjoint); stats: (3, bh, seq_q)
+// fp32 scratch; tables: (seq_q | seq_k, d) fp32, read by the rotation's
+// adjoint; kmask: (mask_rows, seq_k) fp32 or null.
 extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
                                const void* v, const void* dout, void* dq,
                                void* dk, void* dv, void* stats,
                                const void* qcos, const void* qsin,
                                const void* kcos, const void* ksin,
                                const void* kmask, int mask_rows, int bh,
-                               int seq_q, int seq_k, int d, int num_heads,
-                               float scale, int causal, void* stream) {
+                               int seq_q, int seq_k, int d, int head_dim,
+                               int num_heads, float scale, int causal,
+                               void* stream) {
   if (bh <= 0 || bh > 65535 || seq_q <= 0 || seq_k <= 0 ||
       (dtype != 0 && dtype != 1) || (seq_q + kTile - 1) / kTile > 65535 ||
       (seq_k + kTile - 1) / kTile > 65535)
@@ -414,8 +421,21 @@ extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
                     f(qcos), f(qsin), f(kcos), f(ksin), f(kmask), mask_rows,
                     bh, seq_q, seq_k, num_heads, scale, causal,
                     static_cast<cudaStream_t>(stream)};
-  return (int)dispatch_head_dim(d, [&](auto head_dim) {
-    constexpr int D = decltype(head_dim)::value;
+  if (wide::takes_wide(d, head_dim, true)) {
+    const wide::Args w{qr,      kr,      v,       dout,      st,
+                       nullptr, nullptr, f(qcos), f(qsin),   f(kcos),
+                       f(ksin), f(kmask), mask_rows, bh,     seq_q,
+                       seq_k,   d,       head_dim, num_heads, scale,
+                       causal,  static_cast<cudaStream_t>(stream)};
+    cudaError_t err = dtype == 0 ? wide::launch_dq<float, true>(w, dq)
+                                 : wide::launch_dq<bf16, true>(w, dq);
+    if (err != cudaSuccess) return (int)err;
+    return (int)(dtype == 0 ? wide::launch_dkdv<float, true>(w, dk, dv)
+                            : wide::launch_dkdv<bf16, true>(w, dk, dv));
+  }
+  if (head_dim <= 0 || head_dim > d) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_head_dim(d, [&](auto built) {
+    constexpr int D = decltype(built)::value;
     return dtype == 0 ? launch_fp32<D>(a, dq, dk, dv, st)
                       : launch_bf16<D>(a, dq, dk, dv);
   });

@@ -48,7 +48,12 @@
 // memory, which keeps its tiles within a block's shared memory at D = 128.
 // Rows past s_q and keys past s_k get P = 0 and are never written. Head
 // dims 64, 96 and 128 are instantiated (the wrapper pads any other even d
-// up to 128); q has s_q rows and k s_k keys, as in the resident kernels.
+// up to 128); past 128, and at an odd head dim (whose adjoint wraps), K4
+// and K5 take the wide bodies of flash_wide.cuh. The rotation pass takes
+// any width that is a multiple of 8, the caller's head dim d beside it: at
+// an odd d, column d-1 pairs with column 0 as the JAX kernels' lane
+// rotate-half pairs them (x[d-1] cos - x[0] sin). q has s_q rows and k s_k
+// keys, as in the resident kernels.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s) at the main
 // path's shapes (text tower of src4096: BH = 80, s = 4096, d = 96, bf16,
@@ -64,6 +69,7 @@
 
 #include "flash_bwd_wgmma.cuh"
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
@@ -82,30 +88,37 @@ struct alignas(16) Pack8 {
 
 // Qr = T(rot(q)) and Kr = T(rot(k)), eight elements a thread: q_vec
 // vectors of q and k_vec of k, q_table_vec per (s_q, d) table of q and
-// k_table_vec per (s_k, d) table of k.
+// k_table_vec per (s_k, d) table of k, row_vec per row (d / 8). At an odd
+// head_dim the vector holding column head_dim - 1 reads its row's column 0
+// as that column's partner.
 template <typename T>
 __global__ void __launch_bounds__(256) rotate_qk_kernel(
     const T* __restrict__ q, const T* __restrict__ k, T* __restrict__ qr,
     T* __restrict__ kr, const float* __restrict__ qcos,
     const float* __restrict__ qsin, const float* __restrict__ kcos,
     const float* __restrict__ ksin, long long q_vec, long long k_vec,
-    int q_table_vec, int k_table_vec) {
+    int q_table_vec, int k_table_vec, int row_vec, int head_dim) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= q_vec + k_vec) return;
   const bool is_k = i >= q_vec;
   const long long e = is_k ? i - q_vec : i;
   const int tv = (int)(e % (is_k ? k_table_vec : q_table_vec));
+  const int col = (tv % row_vec) * 8;  // the vector's first column
   const Pack8<T> x = reinterpret_cast<const Pack8<T>*>(is_k ? k : q)[e];
   const Pack8<float> cs =
       reinterpret_cast<const Pack8<float>*>(is_k ? kcos : qcos)[tv];
   const Pack8<float> sn =
       reinterpret_cast<const Pack8<float>*>(is_k ? ksin : qsin)[tv];
+  float wrap_x = 0.f;  // column 0 of the row, partner of column head_dim - 1
+  if ((head_dim & 1) && col < head_dim && head_dim <= col + 8)
+    wrap_x = to_f<T>((is_k ? k : q)[e * 8 - col]);
   Pack8<T> y;
 #pragma unroll
   for (int c = 0; c < 8; c += 2) {
     const float x0 = to_f<T>(x.v[c]), x1 = to_f<T>(x.v[c + 1]);
+    const float partner = col + c + 1 == head_dim ? wrap_x : x1;
     y.v[c] = from_f<T>(
-        __fadd_rn(__fmul_rn(x0, cs.v[c]), __fmul_rn(-x1, sn.v[c])));
+        __fadd_rn(__fmul_rn(x0, cs.v[c]), __fmul_rn(-partner, sn.v[c])));
     y.v[c + 1] = from_f<T>(
         __fadd_rn(__fmul_rn(x1, cs.v[c + 1]), __fmul_rn(x0, sn.v[c + 1])));
   }
@@ -383,7 +396,8 @@ template <typename T>
 cudaError_t launch_rotate(const void* q, const void* k, void* qr, void* kr,
                           const void* qcos, const void* qsin,
                           const void* kcos, const void* ksin, int bh,
-                          int seq_q, int seq_k, int d, cudaStream_t stream) {
+                          int seq_q, int seq_k, int d, int head_dim,
+                          cudaStream_t stream) {
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(qr) | reinterpret_cast<uintptr_t>(kr) |
@@ -397,7 +411,7 @@ cudaError_t launch_rotate(const void* q, const void* k, void* qr, void* kr,
   rotate_qk_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<T*>(qr),
       static_cast<T*>(kr), f(qcos), f(qsin), f(kcos), f(ksin), q_vec, k_vec,
-      seq_q * (d / 8), seq_k * (d / 8));
+      seq_q * (d / 8), seq_k * (d / 8), d / 8, head_dim);
   return cudaGetLastError();
 }
 
@@ -417,28 +431,43 @@ bwd::Args make_args(const void* qr, const void* kr, const void* v,
                    static_cast<cudaStream_t>(stream)};
 }
 
+// The wide bodies' arguments (flash_wide.cuh): row_a the rows' lse, row_b
+// their delta.
+wide::Args wide_args(const bwd::Args& a, int d, int head_dim) {
+  return wide::Args{a.qr,      a.kr,       a.v,      a.dout,      a.row_m,
+                    a.row_delta, nullptr,  a.qcos,   a.qsin,      a.kcos,
+                    a.ksin,    a.kmask,    a.mask_rows, a.bh,     a.seq_q,
+                    a.seq_k,   d,          head_dim, a.num_heads, a.scale,
+                    a.causal,  a.stream};
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, its rotation qr, dout and dq:
-// (bh, seq_q, d); k, kr, v, dk, dv: (bh, seq_k, d); all contiguous, d =
-// 64, 96 or 128; lse, delta: (bh, seq_q) fp32; tables: (seq_q | seq_k, d)
-// fp32; kmask: (mask_rows, seq_k) fp32 or null.
+// (bh, seq_q, d); k, kr, v, dk, dv: (bh, seq_k, d); all contiguous; d = 64,
+// 96, 128 or a multiple of 64 for K4 and K5, any multiple of 8 for the
+// rotation pass; head_dim <= d the caller's head dim (an odd one wraps);
+// lse, delta: (bh, seq_q) fp32; tables: (seq_q | seq_k, d) fp32; kmask:
+// (mask_rows, seq_k) fp32 or null.
 
 // The rotation pass: qr = T(rot(q)), kr = T(rot(k)).
 extern "C" int meant_rotate_qk(int dtype, const void* q, const void* k,
                                void* qr, void* kr, const void* qcos,
                                const void* qsin, const void* kcos,
                                const void* ksin, int bh, int seq_q,
-                               int seq_k, int d, void* stream) {
-  if (bh <= 0 || seq_q <= 0 || seq_k <= 0 ||
-      (d != 64 && d != 96 && d != 128) || (dtype != 0 && dtype != 1))
+                               int seq_k, int d, int head_dim,
+                               void* stream) {
+  if (bh <= 0 || seq_q <= 0 || seq_k <= 0 || d <= 0 || d % 8 != 0 ||
+      head_dim <= 0 || head_dim > d || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 0
                    ? launch_rotate<float>(q, k, qr, kr, qcos, qsin, kcos,
-                                          ksin, bh, seq_q, seq_k, d, s)
+                                          ksin, bh, seq_q, seq_k, d,
+                                          head_dim, s)
                    : launch_rotate<bf16>(q, k, qr, kr, qcos, qsin, kcos,
-                                         ksin, bh, seq_q, seq_k, d, s));
+                                         ksin, bh, seq_q, seq_k, d, head_dim,
+                                         s));
 }
 
 // K4: dq, from the rotated qr and kr; the adjoint reads qcos and qsin.
@@ -449,14 +478,21 @@ extern "C" int meant_flash_bwd_dq(int dtype, const void* qr, const void* kr,
                                   const void* qsin, const void* kcos,
                                   const void* ksin, const void* kmask,
                                   int mask_rows, int bh, int seq_q,
-                                  int seq_k, int d, int num_heads,
-                                  float scale, int causal, void* stream) {
+                                  int seq_k, int d, int head_dim,
+                                  int num_heads, float scale, int causal,
+                                  void* stream) {
   const bwd::Args a = make_args(qr, kr, v, dout, lse, delta, qcos, qsin,
                                 kcos, ksin, kmask, mask_rows, bh, seq_q,
                                 seq_k, num_heads, scale, causal, stream);
-  if (invalid(dtype, a)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_head_dim(d, [&](auto head_dim) {
-    constexpr int D = decltype(head_dim)::value;
+  if (invalid(dtype, a) || head_dim <= 0 || head_dim > d)
+    return (int)cudaErrorInvalidValue;
+  if (wide::takes_wide(d, head_dim, true)) {
+    const wide::Args w = wide_args(a, d, head_dim);
+    return (int)(dtype == 0 ? wide::launch_dq<float, false>(w, dq)
+                            : wide::launch_dq<bf16, false>(w, dq));
+  }
+  return (int)dispatch_head_dim(d, [&](auto built) {
+    constexpr int D = decltype(built)::value;
     return dtype == 0 ? launch_dq_fp32<D>(a, dq) : launch_dq_bf16<D>(a, dq);
   });
 }
@@ -469,14 +505,21 @@ extern "C" int meant_flash_bwd_dkdv(int dtype, const void* qr, const void* kr,
                                     const void* qsin, const void* kcos,
                                     const void* ksin, const void* kmask,
                                     int mask_rows, int bh, int seq_q,
-                                    int seq_k, int d, int num_heads,
-                                    float scale, int causal, void* stream) {
+                                    int seq_k, int d, int head_dim,
+                                    int num_heads, float scale, int causal,
+                                    void* stream) {
   const bwd::Args a = make_args(qr, kr, v, dout, lse, delta, qcos, qsin,
                                 kcos, ksin, kmask, mask_rows, bh, seq_q,
                                 seq_k, num_heads, scale, causal, stream);
-  if (invalid(dtype, a)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_head_dim(d, [&](auto head_dim) {
-    constexpr int D = decltype(head_dim)::value;
+  if (invalid(dtype, a) || head_dim <= 0 || head_dim > d)
+    return (int)cudaErrorInvalidValue;
+  if (wide::takes_wide(d, head_dim, true)) {
+    const wide::Args w = wide_args(a, d, head_dim);
+    return (int)(dtype == 0 ? wide::launch_dkdv<float, false>(w, dk, dv)
+                            : wide::launch_dkdv<bf16, false>(w, dk, dv));
+  }
+  return (int)dispatch_head_dim(d, [&](auto built) {
+    constexpr int D = decltype(built)::value;
     return dtype == 0 ? launch_dkdv_fp32<D>(a, dk, dv)
                       : launch_dkdv_bf16<D>(a, dk, dv);
   });

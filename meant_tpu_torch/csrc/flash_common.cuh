@@ -174,9 +174,11 @@ __device__ __forceinline__ void stats_tile(
       }
 }
 
-// The head dims the kernels are instantiated for: f(integral_constant<D>)
-// for d = D, else cudaErrorInvalidValue (the wrapper pads any other even d
-// up to 128 to the next of them).
+// The head dims the wgmma and fp32 bodies are instantiated for:
+// f(integral_constant<D>) for d = D, else cudaErrorInvalidValue. The
+// wrapper pads any other even d up to 128 to the next of them; every other
+// width runs the wide bodies (flash_wide.cuh), which the launchers pick
+// before they get here.
 template <typename F>
 cudaError_t dispatch_head_dim(int d, F&& f) {
   switch (d) {

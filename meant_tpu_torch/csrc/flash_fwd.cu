@@ -67,15 +67,20 @@
 // TF32; an online softmax, P in fp32 either way.
 // Head dims: both bodies are templates on D, built for 64, 96 and 128 (a
 // [64][D] tile is D / 32 TMA boxes; O += P V is m64nDk16); the wrapper pads
-// any other even d up to 128 with zero columns. q and k lengths are
-// separate (s_q rows of q, s_k keys; causal keeps col <= row, both from 0,
-// as the reference does): the grid walks q, the ring walks k.
+// any other even d up to 128 with zero columns, and an odd d or one past
+// 128 to a multiple of 64, which (but for 64 and 128 themselves) takes the
+// wide body of flash_wide.cuh: the same function, the contraction streamed
+// over the width and the output cut into 64-column chunks on a grid axis.
+// q and k lengths are separate (s_q rows of q, s_k keys; causal keeps col
+// <= row, both from 0, as the reference does): the grid walks q, the ring
+// walks k.
 //
 // C interface (loaded with ctypes): meant_flash_fwd (K1) and
 // meant_flash_fwd_lse (K3) return the cudaError_t of the launch (0 on
 // success); they never synchronise.
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -598,12 +603,22 @@ cudaError_t launch_bf16(const FwdArgs& a) {
   return cudaGetLastError();
 }
 
-// K1 (kLse false) or K3 at a.d's instantiation, fp32 (dtype 0) or bf16.
+// K1 (kLse false) or K3 at a.d's instantiation, fp32 (dtype 0) or bf16; at
+// any other multiple of 64, the wide body.
 template <bool kLse>
 cudaError_t launch(int dtype, int d, const FwdArgs& a) {
   if (a.bh <= 0 || a.bh > 65535 || a.seq_q <= 0 || a.seq_k <= 0 ||
       (dtype != 0 && dtype != 1) || (a.seq_q + kBlockQ - 1) / kBlockQ > 65535)
     return cudaErrorInvalidValue;
+  if (wide::takes_wide(d, d, false)) {
+    const wide::Args w{a.qr,      a.kr,        a.v,     nullptr, nullptr,
+                       nullptr,   nullptr,     nullptr, nullptr, nullptr,
+                       nullptr,   a.kmask,     a.mask_rows, a.bh, a.seq_q,
+                       a.seq_k,   d,           d,       a.num_heads, a.scale,
+                       a.causal,  a.stream};
+    return dtype == 0 ? wide::launch_fwd<float, !kLse>(w, a.o, a.lse)
+                      : wide::launch_fwd<bf16, !kLse>(w, a.o, a.lse);
+  }
   return dispatch_head_dim(d, [&](auto head_dim) {
     constexpr int D = decltype(head_dim)::value;
     if (dtype == 0) return launch_fp32<D, kLse>(a);
@@ -617,8 +632,8 @@ cudaError_t launch(int dtype, int d, const FwdArgs& a) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. qr (q rotated by R1), o: (bh, seq_q, d);
-// kr (k rotated by R1), v: (bh, seq_k, d); all contiguous; d = 64, 96 or
-// 128; kmask: (mask_rows, seq_k) fp32 or null.
+// kr (k rotated by R1), v: (bh, seq_k, d); all contiguous; d = 64, 96, 128
+// or a multiple of 64; kmask: (mask_rows, seq_k) fp32 or null.
 // K1: the output only.
 extern "C" int meant_flash_fwd(int dtype, const void* qr, const void* kr,
                                const void* v, void* o, const void* kmask,

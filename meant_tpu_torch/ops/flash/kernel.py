@@ -23,13 +23,26 @@ activation checkpointing sees one operator it can re-run.
 
 Shapes the kernels take: q (b, h, s_q, d) and k, v (b, h, s_k, d), the q
 and k lengths separate (causal keeps col <= row, both counted from 0, as
-the JAX kernels do), at head dims 64, 96 and 128 (`HEAD_DIMS`). On the card
-any other even d up to 128 is zero-padded to the next of them (q, k and v
-get zero columns, the tables cos = 1 and sin = 0 there, `scale` stays the
-caller's, the output is sliced back): exact, since the rotation's pairs
-stay whole and the padded lanes add zero to every score. An odd d, or one
-past 128, raises a ValueError on the card (ROADMAP §1); the CPU path takes
-any shape, as JAX does.
+the JAX kernels do), at any head dim d >= 1. The wgmma bodies are built for
+64, 96 and 128 (`HEAD_DIMS`); on the card any other even d up to 128 is
+zero-padded to the next of them, and an odd d or one past 128 to the next
+multiple of 64 (`kernel_head_dim`): q, k and v get zero columns, the tables
+cos = 1 and sin = 0 there, `scale` stays the caller's, the output is
+sliced back. That is exact: the padded lanes add zero to every score. A
+padded width that is not one of HEAD_DIMS (d > 128) runs the wide bodies of
+csrc/flash_wide.cuh, which stream the contraction over the width and cut
+the output into groups of 64-column chunks on a grid axis; so do the
+backwards (K2, K4, K5) at an odd d, whose adjoint wraps. Every call is one
+launch of each kernel at any d.
+
+At an odd d the rotation pairs lanes as the JAX kernels' `_rotate_half_lanes`
+(meant_tpu/ops/flash/kernel.py:63-71) does, wrapping: lane d-1 pairs with
+lane 0 (`rotate_half_lanes`). R1 takes the caller's d beside the padded
+width for that, and the backwards' adjoint gives column d-1 of dq and dk
+the term sin[0] g[0] of the wrap, which the forward has no counterpart of
+where the tables' sin is 0 in column d-1: at an odd d the JAX flash
+backward is not the gradient of its own forward there, and the port
+reproduces it (ROADMAP §3).
 
 Left out on purpose (TPU-only in the JAX package): SPMD partitioning,
 interpret mode, `block_q` / `block_k`, the VMEM sizing of the blocks and
@@ -44,10 +57,10 @@ from typing import Optional
 
 import torch
 
-from meant_tpu_torch.cuda_build import KernelLauncher
-from meant_tpu_torch.ops.rotary import rotate_half
+from meant_tpu_torch.cuda_build import KernelLauncher, load_library
 
-HEAD_DIMS = (64, 96, 128)      # the head dims csrc/flash_*.cu build
+HEAD_DIMS = (64, 96, 128)      # the head dims the wgmma bodies are built for
+WIDE_COLS = 64                 # the wide bodies' slice and chunk width
 # The JAX package's routing constants (meant_tpu/ops/flash/kernel.py:56-60,
 # 990): K/V stay resident up to K_RESIDENT_LIMIT keys, and the resident
 # backward's VMEM model must leave room for a DEFAULT_BLOCK_Q-row q block.
@@ -119,21 +132,36 @@ def uses_online(s_k: int, d: int, force_online: Optional[bool] = None,
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim a call at head dim d runs at on the card: the least of
-    HEAD_DIMS at or above d (the wrapper pads q, k, v and the tables up to
-    it). Raises for an odd d or one past 128."""
-    if d % 2 or not 0 < d <= HEAD_DIMS[-1]:
-        raise ValueError(
-            f"the flash kernels take an even head dim up to {HEAD_DIMS[-1]} "
-            f"(zero-padded to one of {HEAD_DIMS}), got {d} (ROADMAP §1: "
-            f"flash kernels at odd head dims and past 128)")
-    return next(k for k in HEAD_DIMS if k >= d)
+    """The width a call at head dim d runs at on the card (the wrapper pads
+    q, k, v and the tables up to it): for an even d up to 128 the least of
+    HEAD_DIMS at or above it, as before; for an odd d or one past 128 the
+    least multiple of WIDE_COLS at or above it. Raises for d <= 0."""
+    if d <= 0:
+        raise ValueError(f"a head dim must be positive, got {d}")
+    if d % 2 == 0 and d <= HEAD_DIMS[-1]:
+        return next(k for k in HEAD_DIMS if k >= d)
+    return -(-d // WIDE_COLS) * WIDE_COLS
+
+
+def _kernel_width(d: int) -> bool:
+    """Whether the kernels take tensors d wide: one of HEAD_DIMS or a
+    multiple of WIDE_COLS."""
+    return d in HEAD_DIMS or (d > 0 and d % WIDE_COLS == 0)
+
+
+def _head_dim(head_dim, d: int) -> int:
+    """The caller's head dim of a launch on tensors d wide (d when None)."""
+    head_dim = d if head_dim is None else int(head_dim)
+    if not 0 < head_dim <= d:
+        raise ValueError(f"head_dim {head_dim} must be in [1, {d}]")
+    return head_dim
 
 
 def _check_launch_inputs(q, k, q_like=None, k_like=None, tables=(),
                          kmask=None, num_heads=1, rows=None):
     """What the kernels refuse: q (BH, s_q, d) and k (BH, s_k, d) of one
-    dtype, fp32 or bf16, d one of HEAD_DIMS; every tensor in `q_like` of
+    dtype, fp32 or bf16, d one of HEAD_DIMS or a multiple of WIDE_COLS
+    (`_kernel_width`); every tensor in `q_like` of
     q's shape and `k_like` of k's, in their dtype; tables, when given,
     (qcos, qsin, kcos, ksin) as (s_q, d) and (s_k, d) fp32; every tensor in
     `rows` (per-row statistics) (BH, s_q) fp32; kmask (b | 1, s_k) fp32 or
@@ -142,9 +170,9 @@ def _check_launch_inputs(q, k, q_like=None, k_like=None, tables=(),
     bh, s_q, d = q.shape
     s_k = k.shape[1]
     _dtype_code(q)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernels are built for head dims "
-                         f"{HEAD_DIMS}, got {d}")
+    if not _kernel_width(d):
+        raise ValueError(f"flash kernels take widths {HEAD_DIMS} or "
+                         f"multiples of {WIDE_COLS}, got {d}")
     like = [(name, t, q.shape) for name, t in (q_like or {}).items()]
     like += [(name, t, (bh, s_k, d))
              for name, t in {"k": k, **(k_like or {})}.items()]
@@ -180,49 +208,75 @@ def _check_launch_inputs(q, k, q_like=None, k_like=None, tables=(),
     return mask_rows
 
 
-class FlashForward(KernelLauncher):
+WIDE_SOURCE = "meant_tpu_torch/csrc/flash_wide.cuh"
+
+
+class _FlashLauncher(KernelLauncher):
+    """A flash kernel's wrapper. Each launch runs one of two bodies, as
+    `takes_wide` in csrc/flash_wide.cuh decides: the wgmma body of
+    `source` or the wide body. `last_source` names the source of the body
+    that the last launch ran, as the library reports it."""
+
+    source = ""
+    backward = False
+    last_source: Optional[str] = None
+
+    def _launch_flash(self, device, *args, shape, head_dim) -> None:
+        self._launch(device, *args, shape=shape)
+        wide = load_library(self.library).meant_flash_takes_wide(
+            shape[2], head_dim, int(self.backward))
+        self.last_source = WIDE_SOURCE if wide else self.source
+
+
+class FlashForward(_FlashLauncher):
     """K1: ctypes wrapper of `meant_flash_fwd` (csrc/flash_fwd.cu)."""
 
     symbol, library = "meant_flash_fwd", "flash_fwd"
+    source = "meant_tpu_torch/csrc/flash_fwd.cu"
     argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
     def __call__(self, qr, kr, v, kmask, *, scale: float, causal: bool,
                  num_heads: int) -> torch.Tensor:
         """qr (q rotated by R1): (BH, s_q, d); kr (k rotated by R1), v:
-        (BH, s_k, d); CUDA, contiguous, fp32 or bf16, d one of HEAD_DIMS;
-        kmask (b | 1, s_k) fp32 or None. Returns (BH, s_q, d). Launches
-        are keyed (s_q, s_k, d, causal)."""
+        (BH, s_k, d); CUDA, contiguous, fp32 or bf16, d a kernel width
+        (`_kernel_width`); kmask (b | 1, s_k) fp32 or None. Returns (BH,
+        s_q, d). Launches are keyed (s_q, s_k, d, causal)."""
         bh, s_q, d = qr.shape
         s_k = kr.shape[1]
         mask_rows = _check_launch_inputs(qr, kr, k_like={"v": v},
                                          kmask=kmask, num_heads=num_heads)
         out = torch.empty_like(qr)
-        self._launch(
+        self._launch_flash(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), out.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
             s_q, s_k, d, num_heads, float(scale), int(bool(causal)),
-            shape=(s_q, s_k, d, bool(causal)))
+            shape=(s_q, s_k, d, bool(causal)), head_dim=d)
         return out
 
 
-class FlashBackward(KernelLauncher):
+class FlashBackward(_FlashLauncher):
     """K2: ctypes wrapper of `meant_flash_bwd` (csrc/flash_bwd.cu), one
     call = its dq kernel then its dk/dv kernel on the current stream."""
 
     symbol, library = "meant_flash_bwd", "flash_bwd"
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+    source, backward = "meant_tpu_torch/csrc/flash_bwd.cu", True
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
     def __call__(self, qr, kr, v, do, kmask, qcos, qsin, kcos, ksin, *,
-                 scale: float, causal: bool, num_heads: int) -> tuple:
+                 scale: float, causal: bool, num_heads: int,
+                 head_dim: Optional[int] = None) -> tuple:
         """qr (q rotated by R1), do: (BH, s_q, d); kr (k rotated by R1),
         v: (BH, s_k, d); CUDA, contiguous, fp32 or bf16; tables (s_q | s_k,
         d) fp32, read only by the rotation's adjoint; kmask as for the
-        forward. Returns (dq, dk, dv) shaped as q, k, v."""
+        forward; head_dim the caller's d before padding (d when None; an
+        odd one wraps the adjoint). Returns (dq, dk, dv) shaped as q, k,
+        v."""
         bh, s_q, d = qr.shape
         s_k = kr.shape[1]
+        head_dim = _head_dim(head_dim, d)
         mask_rows = _check_launch_inputs(
             qr, kr, q_like={"do": do}, k_like={"v": v},
             tables=(qcos, qsin, kcos, ksin), kmask=kmask,
@@ -233,21 +287,23 @@ class FlashBackward(KernelLauncher):
         # read by the dk/dv kernel)
         stats = torch.empty((3, bh, s_q), dtype=torch.float32,
                             device=qr.device)
-        self._launch(
+        self._launch_flash(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), stats.data_ptr(), qcos.data_ptr(),
             qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
-            s_q, s_k, d, num_heads, float(scale), int(bool(causal)),
-            shape=(s_q, s_k, d, bool(causal)))
+            s_q, s_k, d, head_dim, num_heads, float(scale),
+            int(bool(causal)), shape=(s_q, s_k, d, bool(causal)),
+            head_dim=head_dim)
         return dq, dk, dv
 
 
-class FlashForwardOnline(KernelLauncher):
+class FlashForwardOnline(_FlashLauncher):
     """K3: ctypes wrapper of `meant_flash_fwd_lse` (csrc/flash_fwd.cu)."""
 
     symbol, library = "meant_flash_fwd_lse", "flash_fwd"
+    source = "meant_tpu_torch/csrc/flash_fwd.cu"
     argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -261,12 +317,12 @@ class FlashForwardOnline(KernelLauncher):
                                          kmask=kmask, num_heads=num_heads)
         out = torch.empty_like(qr)
         lse = torch.empty((bh, s_q), dtype=torch.float32, device=qr.device)
-        self._launch(
+        self._launch_flash(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
             s_q, s_k, d, num_heads, float(scale), int(bool(causal)),
-            shape=(s_q, s_k, d, bool(causal)))
+            shape=(s_q, s_k, d, bool(causal)), head_dim=d)
         return out, lse
 
 
@@ -277,53 +333,63 @@ class RotateQK(KernelLauncher):
     and k."""
 
     symbol, library = "meant_rotate_qk", "flash_bwd_online"
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                 + [ctypes.c_void_p])
 
-    def __call__(self, q, k, qcos, qsin, kcos, ksin) -> tuple:
+    def __call__(self, q, k, qcos, qsin, kcos, ksin,
+                 head_dim: Optional[int] = None) -> tuple:
         """q: (BH, s_q, d), k: (BH, s_k, d) CUDA, contiguous, fp32 or
-        bf16; tables (s_q | s_k, d) fp32. Returns (qr, kr): q and k rotated
-        in fp32 and rounded to their dtype, bit for bit `_rotate`'s.
-        Launches are keyed (s_q, s_k, d)."""
+        bf16; tables (s_q | s_k, d) fp32; head_dim the caller's d before
+        padding (d when None): at an odd one, column head_dim - 1 pairs
+        with column 0. Returns (qr, kr): q and k rotated in fp32 and
+        rounded to their dtype, bit for bit `_rotate`'s on the first
+        head_dim columns (zero past them, where q and k are zero and the
+        tables the identity). Launches are keyed (s_q, s_k, d)."""
         bh, s_q, d = q.shape
         s_k = k.shape[1]
         _check_launch_inputs(q, k, tables=(qcos, qsin, kcos, ksin))
+        head_dim = _head_dim(head_dim, d)
         qr, kr = torch.empty_like(q), torch.empty_like(k)
         self._launch(
             q.device, _dtype_code(q), q.data_ptr(), k.data_ptr(),
             qr.data_ptr(), kr.data_ptr(), qcos.data_ptr(), qsin.data_ptr(),
-            kcos.data_ptr(), ksin.data_ptr(), bh, s_q, s_k, d,
+            kcos.data_ptr(), ksin.data_ptr(), bh, s_q, s_k, d, head_dim,
             shape=(s_q, s_k, d))
         return qr, kr
 
 
-class _FlashBackwardOnline(KernelLauncher):
+class _FlashBackwardOnline(_FlashLauncher):
     """K4 and K5 take the same inputs: qr (q rotated by R1) and do, (BH,
     s_q, d), kr (k rotated by R1) and v, (BH, s_k, d), CUDA, contiguous,
     fp32 or bf16; lse and delta (BH, s_q) fp32; tables and kmask as for
-    the forward (the tables serve the rotation's adjoint)."""
+    the forward (the tables serve the rotation's adjoint); head_dim as
+    K2's."""
 
     library = "flash_bwd_online"
+    source, backward = "meant_tpu_torch/csrc/flash_bwd_online.cu", True
     outputs = ()     # which of q and k each gradient is shaped as
 
     def __call__(self, qr, kr, v, do, lse, delta, kmask, qcos, qsin, kcos,
-                 ksin, *, scale: float, causal: bool, num_heads: int):
+                 ksin, *, scale: float, causal: bool, num_heads: int,
+                 head_dim: Optional[int] = None):
         bh, s_q, d = qr.shape
         s_k = kr.shape[1]
+        head_dim = _head_dim(head_dim, d)
         mask_rows = _check_launch_inputs(
             qr, kr, q_like={"do": do}, k_like={"v": v},
             tables=(qcos, qsin, kcos, ksin), kmask=kmask,
             num_heads=num_heads, rows={"lse": lse, "delta": delta})
         grads = [torch.empty_like(qr if o == "q" else kr)
                  for o in self.outputs]
-        self._launch(
+        self._launch_flash(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             *(g.data_ptr() for g in grads), qcos.data_ptr(),
             qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
-            s_q, s_k, d, num_heads, float(scale), int(bool(causal)),
-            shape=(s_q, s_k, d, bool(causal)))
+            s_q, s_k, d, head_dim, num_heads, float(scale),
+            int(bool(causal)), shape=(s_q, s_k, d, bool(causal)),
+            head_dim=head_dim)
         return grads
 
 
@@ -332,7 +398,7 @@ class FlashBackwardDQ(_FlashBackwardOnline):
     (csrc/flash_bwd_online.cu). Returns [dq]."""
 
     symbol, outputs = "meant_flash_bwd_dq", ("q",)
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -341,7 +407,7 @@ class FlashBackwardDKDV(_FlashBackwardOnline):
     (csrc/flash_bwd_online.cu). Returns [dk, dv]."""
 
     symbol, outputs = "meant_flash_bwd_dkdv", ("k", "k")
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -359,10 +425,23 @@ def identity_tables(s: int, d: int, device) -> tuple:
             torch.zeros((s, d), dtype=torch.float32, device=device))
 
 
+def rotate_half_lanes(x):
+    """The JAX kernels' lane rotate-half (`_rotate_half_lanes`,
+    meant_tpu/ops/flash/kernel.py:63-71) on the last axis of d lanes:
+    out[2i] = -x[(2i+1) mod d], out[2i+1] = x[2i]. At an even d this is the
+    interleaved pairwise rotate_half, bit for bit; at an odd d lane d-1
+    pairs with lane 0 (out[d-1] = -x[0]), as the two wrapping rolls give."""
+    d = x.shape[-1]
+    left = torch.roll(x, -1, dims=-1)    # left[j] = x[(j + 1) % d]
+    right = torch.roll(x, 1, dims=-1)    # right[j] = x[(j - 1) % d]
+    even = torch.arange(d, device=x.device) % 2 == 0
+    return torch.where(even, -left, right)
+
+
 def _rotate(t, cos, sin):
-    """x*cos + rotate_half(x)*sin in fp32, rounded to t's dtype."""
+    """x*cos + rotate_half_lanes(x)*sin in fp32, rounded to t's dtype."""
     tf = t.to(torch.float32)
-    return (tf * cos + rotate_half(tf) * sin).to(t.dtype)
+    return (tf * cos + rotate_half_lanes(tf) * sin).to(t.dtype)
 
 
 def flash_mha_reference(q, k, v, kmask, qcos, qsin, kcos, ksin, *,
@@ -401,8 +480,13 @@ def _scores(qr, kr, kmask, scale, causal):
 
 
 def _adjoint(g, cos, sin):
-    """The rotation's adjoint cos*g - rotate_half(sin*g)."""
-    return cos * g - rotate_half(sin * g)
+    """The rotation's adjoint as the JAX kernels write it, cos*g -
+    rotate_half_lanes(sin*g) (kernel.py:378-379, :523, :609). At an odd d
+    the lanes wrap: column d-1 takes cos*g + sin[0]*g[0], a term the
+    forward's rotation has no counterpart of where sin is 0 in column d-1
+    (every table the models build), so there this is not the forward's
+    adjoint: the reference's behaviour, kept."""
+    return cos * g - rotate_half_lanes(sin * g)
 
 
 def flash_mha_bwd_reference(q, k, v, do, kmask, qcos, qsin, kcos, ksin, *,
@@ -411,7 +495,7 @@ def flash_mha_bwd_reference(q, k, v, do, kmask, qcos, qsin, kcos, ksin, *,
     `_bwd_kernel` (meant_tpu/ops/flash/kernel.py:321-390): P recomputed in
     fp32; dV from P rounded to the input dtype; delta = rowsum(P * dP); dS
     rounded to the input dtype before the dQ/dK products; the rotation's
-    adjoint cos*g - rotate_half(sin*g) applied after them. q/do: (b, h,
+    adjoint cos*g - rotate_half_lanes(sin*g) applied after them. q/do: (b, h,
     s_q, d), k/v: (b, h, s_k, d); kmask (b | 1, s_k) or None. Returns (dq,
     dk, dv) in q's dtype."""
     f32 = torch.float32
@@ -587,12 +671,12 @@ def _flash_fwd_cuda(q, k, v, kmask, qcos, qsin, kcos, ksin, scale, causal):
     """R1 (q and k rotated once), then K1: out (b, h, s_q, d) and the
     (b*h, s_q | s_k, d) Qr and Kr that K2 takes, of (b, h, s_q, d) q and
     (b, h, s_k, d) k, v; kmask (b | 1, s_k) fp32 or None; tables (s_q |
-    s_k, d) fp32. Any even d up to 128 runs padded (`kernel_head_dim`)."""
+    s_k, d) fp32. Any d runs padded to `kernel_head_dim(d)`."""
     b, h, s_q, d = q.shape
     dk = kernel_head_dim(d)
     q, k, v = _flat(dk, q, k, v)
     kmask, *tables = _kernel_tables(dk, kmask, qcos, qsin, kcos, ksin)
-    qr, kr = rotate_qk(q, k, *tables)
+    qr, kr = rotate_qk(q, k, *tables, head_dim=d)
     out = flash_fwd(qr, kr, v, kmask, scale=scale, causal=causal,
                     num_heads=h)
     return (_unpad(d, out).reshape(b, h, s_q, d), _unpad(d, qr),
@@ -621,8 +705,9 @@ def _flash_fwd_lse_cuda(q, k, v, kmask, qcos, qsin, kcos, ksin, scale,
     dk = kernel_head_dim(d)
     q, k, v = _flat(dk, q, k, v)
     kmask, *tables = _kernel_tables(dk, kmask, qcos, qsin, kcos, ksin)
-    out, lse = flash_fwd_online(*rotate_qk(q, k, *tables), v, kmask,
-                                scale=scale, causal=causal, num_heads=h)
+    out, lse = flash_fwd_online(*rotate_qk(q, k, *tables, head_dim=d), v,
+                                kmask, scale=scale, causal=causal,
+                                num_heads=h)
     return _unpad(d, out).reshape(b, h, s_q, d), lse.reshape(b, h, s_q)
 
 
@@ -664,10 +749,10 @@ def _backward_online(q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
     q_shape, k_shape = q.shape, k.shape
     q, k, v, do = _flat(dk, q, k, v, do)
     kmask, *tables = _kernel_tables(dk, kmask, qcos, qsin, kcos, ksin)
-    args = (*rotate_qk(q, k, *tables), v, do,
+    args = (*rotate_qk(q, k, *tables, head_dim=d), v, do,
             lse.reshape(b * h, s_q).contiguous(),
             delta.reshape(b * h, s_q).contiguous(), kmask, *tables)
-    kw = dict(scale=scale, causal=causal, num_heads=h)
+    kw = dict(scale=scale, causal=causal, num_heads=h, head_dim=d)
     (dq,) = flash_bwd_dq(*args, **kw)
     dk_, dv = flash_bwd_dkdv(*args, **kw)
     return (_unpad(d, dq).reshape(q_shape), _unpad(d, dk_).reshape(k_shape),
@@ -738,7 +823,7 @@ class _FlashAttention(torch.autograd.Function):
             grads = flash_bwd(qr, kr, v, do,
                               *_kernel_tables(dk, kmask, qcos, qsin, kcos,
                                               ksin),
-                              num_heads=h, **kw)
+                              num_heads=h, head_dim=d, **kw)
             grads = [_unpad(d, g).reshape(shape)
                      for g, shape in zip(grads, shapes)]
         return (*grads, None, None, None, None, None, None, None)
@@ -752,7 +837,7 @@ def flash_mha(q, k, v, *, scale: float, causal: bool = False,
     the tables are (s_q, d) (qcos, qsin) and (s_k, d) (kcos, ksin) fp32
     (identity rotation when None); attention_mask: (b | 1, s_k) of {0, 1};
     causal keeps col <= row, both counted from 0, as the JAX package does.
-    On the card d is any even head dim up to 128 (`kernel_head_dim`).
+    On the card d is any head dim >= 1, padded to `kernel_head_dim(d)`.
     `uses_online(s_k, d, force_online, return_lse)` picks the path as the
     JAX package picks it: resident (R1 + K1 forward, K2 backward on the
     forward's Qr and Kr) or streaming (R1 + K3 forward, R1 + K4 + K5

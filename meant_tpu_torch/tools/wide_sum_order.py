@@ -1,0 +1,213 @@
+"""The order of the wide bodies' sums over the head dim, on the card.
+
+    python -m meant_tpu_torch.tools.wide_sum_order     (from the repo root)
+
+The wide bodies (csrc/flash_wide.cuh) form S = Qr Kr^T and dP = dO V^T
+over the whole head dim before P and dS are rounded to bf16. At d = 768 a
+small change in those fp32 sums flips the rounding of single dS entries,
+and one flip moves a dq element by some 0.025, past the gradients'
+element bar (2e-2 + 2e-2 |ref|) where the element is small. This builds
+the backwards' wide bodies with three orders of that sum (`dp_mm`), runs
+them at chip_smoke.py's two d = 768 cases, and holds their gradients to
+the plain versions; then it holds plain versions that sum in other
+orders to the plain version itself:
+
+* fma_chain: scalar FMAs in column order (the source as it is);
+* tensor_cores: mma.sync m16n8k16 chained through one fp32 accumulator;
+* k16_from_zero: each k16 step's mma.sync into zero, added in fp32;
+* plain_fp64: the plain version with S and dP summed in fp64;
+* plain_k16: the plain version with S and dP summed from exact 16-column
+  partials, added in column order in fp32.
+
+The cases: K4 + K5 at (80, 512, 768) causal xPos with a key mask
+(check_head_dims_long's, the shape --num_heads 1 streams its text tower
+at) and K2 at (80, 196, 768) pixel rotary (time_head_dims' row for
+--num_heads 1's charts), bf16, made as chip_smoke.py makes them.
+"""
+
+from __future__ import annotations
+
+import json
+
+import torch
+
+import chip_smoke
+from meant_tpu_torch import cuda_build
+from meant_tpu_torch.ops.flash import kernel
+from meant_tpu_torch.tools.k2_faults import patched_sources, use_sources
+
+_SIGNATURE = ("__device__ __forceinline__ void dp_mm(float (&c)[NT][4], "
+              "const bf16* A,\n" + " " * 38 + "int lda, const bf16* B, "
+              "int ldb) {")
+
+# the bodies of dp_mm's bf16 overload for the other orders
+BODIES = {
+    "tensor_cores": """
+  warp_mm<NT, K>(c, A, lda, B, ldb);
+}
+""",
+    "k16_from_zero": """
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < K / 16; ++kc) {
+    const bf16* a = A + g * lda + kc * 16 + 2 * t;
+    const uint32_t af[4] = {ld_pair(a), ld_pair(a + 8 * lda), ld_pair(a + 8),
+                            ld_pair(a + 8 * lda + 8)};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bf16* b = B + (j * 8 + g) * ldb + kc * 16 + 2 * t;
+      float step[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(step, af, ld_pair(b), ld_pair(b + 8));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] = __fadd_rn(c[j][e], step[e]);
+    }
+  }
+}
+"""}
+# the libraries of the backwards, which the orders are built into (the
+# streaming case's plain backward takes the kernels' own lse and delta)
+LIBRARIES = {"flash_bwd": ("flash_bwd",),
+             "flash_bwd_online": ("rotate_qk", "flash_bwd_dq",
+                                  "flash_bwd_dkdv")}
+
+
+def order_patch(order: str) -> list:
+    """(file, old, new) replacing the body of dp_mm's bf16 overload."""
+    text = (cuda_build.PACKAGE_DIR / "csrc" / "flash_wide.cuh").read_text()
+    start = text.index(_SIGNATURE) + len(_SIGNATURE)
+    end = text.index("\n}\n", start) + 3
+    return [("flash_wide.cuh", text[start:end], BODIES[order])]
+
+
+def use_order(order: str) -> None:
+    """Build and load the backwards' libraries with `order` from now
+    on."""
+    root = (patched_sources(order, {order: order_patch(order)})
+            if order in BODIES else cuda_build.PACKAGE_DIR)
+    for library, names in LIBRARIES.items():
+        use_sources(root, library, [getattr(kernel, n) for n in names])
+
+
+def cases():
+    """chip_smoke.py's two d = 768 cases, from its seeds and its order of
+    draws."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for d, s, bh, heads in chip_smoke.HD_LONG_CASES:
+        for kind in ("text", "text_masked"):
+            for dtype in (torch.float32, torch.bfloat16):
+                c = chip_smoke.backward_case(kind, dtype, gen, s=s, bh=bh,
+                                             d=d, heads=heads)
+                c["g_lse"] = torch.randn(c["q"].shape[:3], generator=gen,
+                                         device="cuda")
+                if (d, kind, dtype) == (768, "text_masked", torch.bfloat16):
+                    streaming = c
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for kind, s, heads in (("text", chip_smoke.SEQ, 4),
+                           ("vision", chip_smoke.N_PATCHES, 4),
+                           ("text", chip_smoke.SEQ, 2),
+                           ("vision", chip_smoke.N_PATCHES, 1)):
+        d = chip_smoke.DIM // heads
+        c = chip_smoke.backward_case(
+            kind, torch.bfloat16, gen, s=s,
+            bh=chip_smoke.BATCH * chip_smoke.LAG * heads, d=d, heads=heads)
+    return {"k4_k5 (80, 512, 768) masked": streaming,
+            "k2 (80, 196, 768) pixel": c}
+
+
+def errors(a, b) -> dict:
+    """rel L2, max abs error and the elements past the gradients' element
+    bar."""
+    a, b = a.double(), b.double()
+    bar = kernel.BWD_BF16_ATOL + chip_smoke.BF16_TOL * b.abs()
+    past = (a - b).abs() > bar
+    return {"rel_l2": ((a - b).norm() / b.norm()).item(),
+            "max_abs": (a - b).abs().max().item(),
+            "past_element_bar": int(past.sum())}
+
+
+def kernel_grads(name, c):
+    """(dq, dk, dv) through the kernels and the plain versions' (dq, dk,
+    dv) on the same inputs (the streaming case's plain backward fed the
+    kernels' lse and delta), and the lse and delta used."""
+    if name.startswith("k4"):
+        out, lse, *got = chip_smoke.run_online_autograd(c)
+        delta = (c["do"].float() * out.float()).sum(-1) - c["g_lse"]
+        want = kernel.flash_mha_bwd_online_reference(
+            c["q"], c["k"], c["v"], c["do"], lse, delta, c["mask"],
+            *c["tables"], scale=c["scale"], causal=c["causal"])
+        return got, want, (lse, delta)
+    got = chip_smoke.run_autograd(c)[1:]
+    return got, chip_smoke.run_bwd_plain(c), None
+
+
+def product(order: str):
+    f32, f64 = torch.float32, torch.float64
+
+    def plain(a, b):
+        return torch.matmul(a.to(f32), b.to(f32).transpose(-1, -2))
+
+    def fp64(a, b):
+        return torch.matmul(a.to(f64), b.to(f64).transpose(-1, -2)).to(f32)
+
+    def k16(a, b):
+        acc = None
+        for k0 in range(0, a.shape[-1], 16):
+            part = fp64(a[..., k0:k0 + 16], b[..., k0:k0 + 16])
+            acc = part if acc is None else acc + part
+        return acc
+
+    return {"plain": plain, "plain_fp64": fp64, "plain_k16": k16}[order]
+
+
+def plain_dq(c, order: str, stats) -> torch.Tensor:
+    """The plain version's dq, step by step as flash_mha_bwd_reference (K2)
+    or flash_mha_bwd_online_dq_reference (K4, `stats` = (lse, delta)),
+    with S and dP summed in `order`."""
+    f32, dt = torch.float32, c["q"].dtype
+    mm = product(order)
+    qcos, qsin, kcos, ksin = c["tables"]
+    qr = kernel._rotate(c["q"], qcos, qsin)
+    kr = kernel._rotate(c["k"], kcos, ksin)
+    scores = mm(qr, kr) * c["scale"]
+    if c["causal"]:
+        n = scores.shape[-1]
+        scores = scores.masked_fill(
+            torch.ones(n, n, dtype=torch.bool, device="cuda").triu(1),
+            float("-inf"))
+    if c["mask"] is not None:
+        scores = scores + ((1.0 - c["mask"]) * -1e9)[:, None, None, :]
+    dp = mm(c["do"], c["v"])
+    if stats is None:
+        p = torch.softmax(scores, dim=-1)
+        delta = torch.sum(p * dp, dim=-1, keepdim=True)
+    else:
+        p = torch.exp(scores - stats[0][..., None])
+        delta = stats[1][..., None]
+    ds = (p * (dp - delta) * c["scale"]).to(dt).to(f32)
+    return kernel._adjoint(torch.matmul(ds, kr.to(f32)), qcos,
+                           qsin).to(dt)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("wide_sum_order runs on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    made = cases()
+    for order in ("fma_chain", "tensor_cores", "k16_from_zero"):
+        use_order(order)
+        for name, c in made.items():
+            got, want, _ = kernel_grads(name, c)
+            res = {g: errors(a, b)
+                   for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+            print(f"{order} {name}: {json.dumps(res)}", flush=True)
+    use_order("fma_chain")
+    for name, c in made.items():
+        _, want, stats = kernel_grads(name, c)
+        for order in ("plain_fp64", "plain_k16"):
+            res = errors(plain_dq(c, order, stats), want[0])
+            print(f"{order} {name} dq: {json.dumps(res)}", flush=True)
+    print(chip_smoke.card_line(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,8 @@
 forward (K1), the flash backward (K2), the streaming flash forward (K3), the
 rotation pass (R1) in front of K1, K3 and the streaming dQ (K4) and dK/dV
 (K5) backward, and the fused AdamW (A1), its bf16-m variant included; at
-head dims 64 and 128 and 48 (padded), with more keys than queries (the
+head dims 64 and 128 and 48 (padded), at odd head dims and past 128 (the
+wide bodies, the odd-d wrap of the adjoint), with more keys than queries (the
 TimeSformer's groups), and a narrow paper-generation `meant` and
 meant_src trainer (accumulation, a bf16 first moment) through them.
 These tests need an NVIDIA card and nvcc; elsewhere they skip. On the
@@ -867,11 +868,71 @@ def test_online_kernels_at_head_dims_and_lengths(cuda, dtype, lengths, d):
                          dv.reshape(v.shape)], want, dtype)
 
 
-@pytest.mark.parametrize("d", [0, 7, 130])
-def test_flash_mha_refuses_odd_and_wide_head_dims_on_the_card(cuda, d):
-    q = torch.zeros(1, 1, 8, max(d, 1), device=cuda)
-    with pytest.raises(ValueError, match="ROADMAP"):
+def test_flash_mha_refuses_a_head_dim_below_one_on_the_card(cuda):
+    q = torch.zeros(1, 1, 8, 0, device=cuda)
+    with pytest.raises(ValueError, match="positive"):
         flash_mha(q, q, q, scale=1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["masked", "plain"])
+@pytest.mark.parametrize("s_q,s_k", [(65, 65), (130, 70), (70, 200)])
+@pytest.mark.parametrize("d", [1, 7, 63, 95, 130, 192, 257])
+def test_odd_and_wide_head_dims_match_plain(cuda, dtype, case, s_q, s_k, d):
+    """flash_mha at an odd head dim (the lanes' wrap in R1 and in the
+    backwards' adjoint) and past 128 (the wide bodies): R1 + K1 and K2,
+    one launch each, against the plain versions; causal with a key mask,
+    and plain."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + s_q + s_k)
+    q, k, v, do, tables, mask, causal = _shape_case(cuda, dtype, d, s_q,
+                                                    s_k, case, gen)
+    before = (rotate_qk.launches, flash_fwd.launches, flash_bwd.launches)
+    out, grads = _autograd_path(q, k, v, do, tables, mask, causal)
+    torch.cuda.synchronize()
+    assert (rotate_qk.launches, flash_fwd.launches, flash_bwd.launches) == \
+        tuple(b + 1 for b in before)
+    ref = flash_mha_reference(q, k, v, mask, *tables, scale=0.1,
+                              causal=causal)
+    _assert_out_close(out, ref, dtype, K1_BF16_REL_L2)
+    want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
+                                   causal=causal)
+    _assert_grads_close(grads, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [(65, 65), (4096, 4096), (256, 257)])
+@pytest.mark.parametrize("d", [7, 95, 192, 384])
+def test_online_kernels_at_odd_and_wide_head_dims(cuda, dtype, lengths, d):
+    """R1 + K3 and R1 + K4 + K5 through flash_mha(return_lse=True) at odd
+    head dims and past 128: out and lse at K3's bars, the gradients (an
+    lse cotangent included) at K2's against the plain backward fed the
+    kernels' lse and delta."""
+    s_q, s_k = lengths
+    gen = torch.Generator(device=cuda).manual_seed(d + s_q + s_k)
+    q, k, v, do, tables, mask, causal = _shape_case(
+        cuda, dtype, d, s_q, s_k, "xpos_causal" if s_q == s_k else "plain",
+        gen)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (rotate_qk.launches, flash_fwd_online.launches,
+              flash_bwd_dq.launches, flash_bwd_dkdv.launches)
+    out, lse = flash_mha(*leaves, scale=0.1, causal=causal,
+                         attention_mask=mask, qcos=tables[0], qsin=tables[1],
+                         kcos=tables[2], ksin=tables[3], return_lse=True)
+    g_lse = torch.randn(lse.shape, generator=gen, device=cuda)
+    grads = torch.autograd.grad((out, lse), leaves, (do, g_lse))
+    torch.cuda.synchronize()
+    assert (rotate_qk.launches, flash_fwd_online.launches,
+            flash_bwd_dq.launches, flash_bwd_dkdv.launches) == (
+        before[0] + 2, *(n + 1 for n in before[1:]))
+    ref, ref_lse = flash_mha_online_reference(q, k, v, mask, *tables,
+                                              scale=0.1, causal=causal)
+    _assert_out_close(out.detach(), ref, dtype)
+    assert (lse[..., 0] - ref_lse).abs().max() <= LSE_ATOL
+    delta = (do.float() * out.detach().float()).sum(-1) - g_lse[..., 0]
+    want = flash_mha_bwd_online_reference(q, k, v, do, lse.detach()[..., 0],
+                                          delta, mask, *tables, scale=0.1,
+                                          causal=causal)
+    _assert_grads_close(grads, want, dtype)
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 1027, 1 << 20])
