@@ -2677,7 +2677,8 @@ def check_shapes(record) -> dict:
 
 def count_new_hgmma() -> dict:
     """wgmma in every instantiation at head dims 64 and 128: K1, K3 (the
-    forward body), K2's two kernels and K4 + K5."""
+    forward body), K2's two kernels and K4 + K5; and in K4's and K5's own
+    at 192 and 256 (the streaming backward past d = 128), each apart."""
     counts = {}
     for d in (64, 128):
         for label, lib, function in (
@@ -2686,6 +2687,11 @@ def count_new_hgmma() -> dict:
                 ("K2", "flash_bwd", f"ILb1ELi{d}E"),
                 ("K4+K5", "flash_bwd_online", f"ILb0ELi{d}E")):
             counts[f"{label} d{d}"] = count_hgmma(lib, function)
+    for d in WIDE_WGMMA_DIMS:
+        for label, kernel in (("K4", "dq"), ("K5", "dkdv")):
+            function = f"flash_bwd_{kernel}_wgmma_kernelILb0ELi{d}E"
+            counts[f"{label} d{d}"] = count_hgmma("flash_bwd_online",
+                                                  function)
     return counts
 
 
@@ -5052,9 +5058,14 @@ HD_LONG_BH = 4
 HD_LONG_CASES = ((95, LONG_SEQ, HD_LONG_BH, HD_HEADS),
                  (192, LONG_SEQ, HD_LONG_BH, HD_HEADS),
                  (384, LONG_SEQ, HD_LONG_BH, HD_HEADS),
-                 (768, SEQ, BATCH * LAG, 1))
+                 (768, SEQ, BATCH * LAG, 1),
+                 (256, LONG_SEQ, HD_LONG_BH, HD_HEADS))
 SRC4_HEADS = 4             # meant_src --num_heads 4: 4 heads of 192
 SRC4_STEPS = 5
+SRC3_HEADS = 3             # meant_src --num_heads 3: 3 heads of 256
+FULL_STEPS = 3             # src4096 at 4 heads, 12 + 12 encoders: the
+                           # median of steps 2-3
+WIDE_WGMMA_DIMS = (192, 256)   # K4's and K5's wgmma bodies past d = 128
 # d = 384 and 768: one request and 2 steps each, the towers and one step's
 # gradients against flash=False
 WIDE_SERVE_HEADS = (2, 1)
@@ -5328,7 +5339,8 @@ def ring_head_dim(res):
     R1 + 16 K4 + 16 K5 backward at (40, 1024, 192); the output against the
     unsplit R1 + K3 at BF16_REL_L2, the gradients against the plain
     backward on the kernels' forward at BWD_BF16_REL_L2; then both timed
-    against the unsplit call."""
+    against the unsplit call. Returns the launches for the chunk's kernel
+    rows."""
     from meant_tpu_torch.ops.flash import flash_mha
     from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2,
                                                   BWD_BF16_REL_L2)
@@ -5390,6 +5402,25 @@ def ring_head_dim(res):
                    "backward_launches": bwd, "ms": t}
     del out, leaves, c
     torch.cuda.empty_cache()
+    return {name: fwd[name] + bwd[name] for name in ("R1", "K3", "K4",
+                                                     "K5")}
+
+
+def learn_long_heads_full(res, heads: int = SRC4_HEADS):
+    """src4096 at --num_heads `heads` at full depth (ENCODERS encoders a
+    tower) and batch LONG_BATCH, the flash path alone (no plain
+    comparison): FULL_STEPS trainer steps, exactly 12 K3, 12 K1, 36 R1,
+    12 K4, 12 K5, 12 K2 and 1 A1 a step, and the median step time."""
+    model = build_flagship(LONG_SEQ, flash=True, fixed_proj=True,
+                           num_heads=heads)
+    res["train"], _, _ = train_steps(
+        model, train_batch(LONG_BATCH, seed=53, seq=LONG_SEQ), FULL_STEPS,
+        {"K1": ENCODERS, "K2": ENCODERS, "K3": ENCODERS, "R1": 3 * ENCODERS,
+         "K4": ENCODERS, "K5": ENCODERS, "A1": 1},
+        f"learn src4096 --num_heads {heads} at {ENCODERS} encoders",
+        falling=False)
+    del model
+    torch.cuda.empty_cache()
 
 
 def run_head_dims(record) -> dict:
@@ -5397,8 +5428,13 @@ def run_head_dims(record) -> dict:
     and HD_LONG_CASES against their plain versions; meant_src --num_heads
     4 (d = 192) served, one step's gradients and SRC4_STEPS steps at the
     flagship's width; --num_heads 2 and 1 (d = 384, 768) the same with two
-    steps; src4096 at 4 heads; --text_dim 760 (d = 95); the played ring at
-    d = 192."""
+    steps; src4096 at 4 and 3 heads (d = 192, 256: K4 and K5 on their
+    wgmma bodies), and at 4 heads one full-depth step timed; --text_dim
+    760 (d = 95); the played ring at d = 192. R1, K3, K4 and K5 against
+    their plain versions at the shapes the main path launches them at
+    past d = 128: the ring's chunk (40, 1024, 192) and src4096's (40, 4096,
+    192) and (30, 4096, 256), with and without a key mask, whose errors
+    time_head_dims' rows print."""
     t0 = time.perf_counter()
     res = {}
     record["head_dims"] = res
@@ -5411,8 +5447,20 @@ def run_head_dims(record) -> dict:
             res.setdefault(f"src_heads{heads}", {}), heads, BATCH, 2, True)
     out["long4"] = run_long_heads(res.setdefault("long_heads4", {}),
                                   SRC4_HEADS)
+    out["long3"] = run_long_heads(res.setdefault("long_heads3", {}),
+                                  SRC3_HEADS)
+    learn_long_heads_full(res.setdefault("long_heads4_full", {}))
     out["odd"] = run_odd_width(res.setdefault("text_dim760", {}))
-    ring_head_dim(res)
+    out["ring4"] = ring_head_dim(res)
+    out["ring_errors"] = check_long_kernels(
+        res, bh=RING4_BH, kinds=("vision",), tag="ring_d192", s=RING_CHUNK,
+        d=192, heads=SRC4_HEADS)
+    out["src4096_errors"] = {
+        **check_long_kernels(res, bh=RING4_BH, tag="src4096_d192", seed=21,
+                             d=192, heads=SRC4_HEADS),
+        **check_long_kernels(res, bh=LONG_BATCH * LAG * SRC3_HEADS,
+                             tag="src4096_d256", seed=22, d=256,
+                             heads=SRC3_HEADS)}
     res["wall_s"] = time.perf_counter() - t0
     print(f"phase head_dims: {res['wall_s']:.1f} s", flush=True)
     return out
@@ -5426,8 +5474,10 @@ def time_head_dims(out) -> list:
     s=512 text tower streams, as JAX routes it) and d = 95 (s=512, BH =
     640: --text_dim 760; K1 and R1 at width 128, K2 on the wide body);
     R1 + K3, R1, K4 and K5 at src4096's launch at 4 heads (BH = 40, d =
-    192) and at --num_heads 1's streaming s=512 text tower (BH = 80, d =
-    768)."""
+    192) and 3 heads (BH = 30, d = 256), at the played ring's chunk at 4
+    heads (40, 1024, 192, not causal) and at --num_heads 1's streaming
+    s=512 text tower (BH = 80, d = 768); each streaming row's error is its
+    kernels' against their plain versions at the row's own shape."""
     from meant_tpu_torch.ops.flash.kernel import kernel_head_dim
     gen = torch.Generator(device="cuda").manual_seed(20)
     rows = []
@@ -5450,11 +5500,20 @@ def time_head_dims(out) -> list:
             steps["R1_by_shape"].get(r1_key(s, s, width), 0))
         del c
         torch.cuda.empty_cache()
-    rows += time_long_kernels(out["long_errors"], out["long4"],
-                              bh=LONG_BATCH * LAG * SRC4_HEADS,
-                              small_bh=SRC4_HEADS, tag="long_d192",
+    rows += time_long_kernels(out["src4096_errors"], out["long4"],
+                              bh=RING4_BH, small_bh=SRC4_HEADS,
+                              tag="src4096_d192",
                               label="s4096 causal xPos d192", d=192,
                               heads=SRC4_HEADS)
+    rows += time_long_kernels(out["src4096_errors"], out["long3"],
+                              bh=LONG_BATCH * LAG * SRC3_HEADS,
+                              small_bh=SRC3_HEADS, tag="src4096_d256",
+                              label="s4096 causal xPos d256", d=256,
+                              heads=SRC3_HEADS)
+    rows += time_long_kernels(out["ring_errors"], out["ring4"],
+                              bh=RING4_BH, tag="ring_d192", kind="vision",
+                              label=f"ring chunk s{RING_CHUNK} d192",
+                              s=RING_CHUNK, d=192, heads=SRC4_HEADS)
     serve, steps = out["src1"]
     rows += time_long_kernels(
         out["long_errors"],
@@ -5774,6 +5833,15 @@ def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
                           if kernel == "K3" else
                           "backward of rotation + scaled_dot_product_"
                           "attention (dq, dk, dv: K4 and K5 together)")))
+    k4, k5 = rows[1], rows[2]
+    k5["k4_k5_ms"] = event_ms(lambda: (run_online_dq_kernel(big),
+                                       run_online_dkdv_kernel(big)), iters=5)
+    k5["k4_k5_bound_ms"] = k4["bound_ms"] + k5["bound_ms"]
+    print(f"K4 + K5 at {label}: {k5['k4_k5_ms']:.4f} ms together (K4 "
+          f"{k4['ms']:.4f} + K5 {k5['ms']:.4f} apart; bound "
+          f"{k5['k4_k5_bound_ms']:.4f} ms) against the SDPA backward's "
+          f"{library_bwd:.4f} ms ({k5['k4_k5_ms'] / library_bwd:.2f}x); "
+          f"bodies {k4['source']}, {k5['source']}", flush=True)
     nbytes, flops = rotation_cost(big)
     rows.insert(1, kernel_row(
         f"rotate_qk[{label}]",
@@ -5904,10 +5972,15 @@ def main(argv=None) -> int:
     record["build_s"] = time.perf_counter() - t0
     record["nvcc_log"] = logs
     print(f"phase build: {record['build_s']:.1f} s", flush=True)
-    for name, log in logs.items():
+    for name, log in logs.items():     # ptxas -v: registers and spills
+        function = ""                    # of each entry function
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line or (
+                    "Function properties for" in line):
+                function = (line.split("'")[1] if "'" in line
+                            else line.split()[-1])
+            elif "registers" in line or "spill" in line:
+                print(f"  {name}: {function}: {line.strip()}")
     record["hgmma"] = {name: count_hgmma(name) for name in WGMMA_LIBRARIES}
     record["hgmma"]["K1"] = count_hgmma("flash_fwd", "flash_fwd_wgmma_kernel")
 

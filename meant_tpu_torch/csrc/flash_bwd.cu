@@ -421,7 +421,7 @@ extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
                     f(qcos), f(qsin), f(kcos), f(ksin), f(kmask), mask_rows,
                     bh, seq_q, seq_k, num_heads, scale, causal,
                     static_cast<cudaStream_t>(stream)};
-  if (wide::takes_wide(d, head_dim, true)) {
+  if (wide::takes_wide(wide::kK2, dtype, d, head_dim)) {
     const wide::Args w{qr,      kr,      v,       dout,      st,
                        nullptr, nullptr, f(qcos), f(qsin),   f(kcos),
                        f(ksin), f(kmask), mask_rows, bh,     seq_q,

@@ -47,8 +47,11 @@
 // the same Qr and Kr; K5's reads the rows' lse and delta from device
 // memory, which keeps its tiles within a block's shared memory at D = 128.
 // Rows past s_q and keys past s_k get P = 0 and are never written. Head
-// dims 64, 96 and 128 are instantiated (the wrapper pads any other even d
-// up to 128); past 128, and at an odd head dim (whose adjoint wraps), K4
+// dims 64, 96 and 128 are instantiated in both dtypes (the wrapper pads any
+// other even d up to 128 to the next of them), and in bf16 also 192 and
+// 256, the padded widths of every even d in (128, 256]: the wgmma bodies at
+// two consumer warpgroups (flash_bwd_wgmma.cuh says how). In fp32 past
+// 128, in bf16 past 256, and at an odd head dim (whose adjoint wraps), K4
 // and K5 take the wide bodies of flash_wide.cuh. The rotation pass takes
 // any width that is a multiple of 8, the caller's head dim d beside it: at
 // an odd d, column d-1 pairs with column 0 as the JAX kernels' lane
@@ -60,6 +63,8 @@
 // causal): K4 runs three products over the causal triangle (S, dP, dS Kr),
 // 386.5 GFLOP, 0.39 ms; K5 four (S, dP, P^T dO, dS^T Qr), 515.4 GFLOP,
 // 0.52 ms; both are bound by operations (each moves some 0.3 GB, 0.1 ms).
+// src4096 at --num_heads 4 launches them at (40, 4096, 192) and at 3
+// heads at (30, 4096, 256): the same operations, the same bounds.
 // The rotation pass is bound by bytes: q and k read, Qr and Kr written,
 // the four tables read, 258 MB, 0.077 ms.
 //
@@ -486,11 +491,15 @@ extern "C" int meant_flash_bwd_dq(int dtype, const void* qr, const void* kr,
                                 seq_k, num_heads, scale, causal, stream);
   if (invalid(dtype, a) || head_dim <= 0 || head_dim > d)
     return (int)cudaErrorInvalidValue;
-  if (wide::takes_wide(d, head_dim, true)) {
+  if (wide::takes_wide(wide::kK4, dtype, d, head_dim)) {
     const wide::Args w = wide_args(a, d, head_dim);
     return (int)(dtype == 0 ? wide::launch_dq<float, false>(w, dq)
                             : wide::launch_dq<bf16, false>(w, dq));
   }
+  // past 128 only bf16 at 192 and 256 has a wgmma body; fp32 there is
+  // refused by dispatch_head_dim if takes_wide ever lets it through
+  if (dtype == 1 && d == 192) return (int)launch_dq_bf16<192>(a, dq);
+  if (dtype == 1 && d == 256) return (int)launch_dq_bf16<256>(a, dq);
   return (int)dispatch_head_dim(d, [&](auto built) {
     constexpr int D = decltype(built)::value;
     return dtype == 0 ? launch_dq_fp32<D>(a, dq) : launch_dq_bf16<D>(a, dq);
@@ -513,11 +522,14 @@ extern "C" int meant_flash_bwd_dkdv(int dtype, const void* qr, const void* kr,
                                 seq_k, num_heads, scale, causal, stream);
   if (invalid(dtype, a) || head_dim <= 0 || head_dim > d)
     return (int)cudaErrorInvalidValue;
-  if (wide::takes_wide(d, head_dim, true)) {
+  if (wide::takes_wide(wide::kK5, dtype, d, head_dim)) {
     const wide::Args w = wide_args(a, d, head_dim);
     return (int)(dtype == 0 ? wide::launch_dkdv<float, false>(w, dk, dv)
                             : wide::launch_dkdv<bf16, false>(w, dk, dv));
   }
+  // past 128 only bf16 at 192 and 256 has a wgmma body (as in K4)
+  if (dtype == 1 && d == 192) return (int)launch_dkdv_bf16<192>(a, dk, dv);
+  if (dtype == 1 && d == 256) return (int)launch_dkdv_bf16<256>(a, dk, dv);
   return (int)dispatch_head_dim(d, [&](auto built) {
     constexpr int D = decltype(built)::value;
     return dtype == 0 ? launch_dkdv_fp32<D>(a, dk, dv)

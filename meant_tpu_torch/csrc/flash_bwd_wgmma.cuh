@@ -17,28 +17,64 @@
 // The rotation's adjoint is applied once in each epilogue. Every output
 // element has one writer, no atomics: the result is deterministic.
 //
-// A block is one consumer warpgroup and one producer warp. The producer
-// brings the block's own two tiles, then the streamed ones, through TMA
-// (hopper.cuh) into a ring of kStages stages, each with a full and an
+// A block is its consumer warpgroups and a producer (Layout below). The
+// producer brings the block's own two tiles, then the streamed ones,
+// through TMA (hopper.cuh) into a ring of stages, each with a full and an
 // empty mbarrier; the dk/dv producer also stages the streamed rows'
 // statistics, read one tile ahead. The consumers run wgmma: S and dP with
-// both operands K-major in shared memory (m64n64k16); then dQr += dS Kr,
-// dV += T(P^T) dO and dKr += dS^T Qr with A in registers -- the score
-// accumulator rounded to bf16 in place is the A fragment, exactly where
-// the reference rounds P and dS -- and B the streamed row-major tile read
-// MN-major through the transpose bit (m64nDk16). Between the products
-// the consumers issue more instructions than the tensor cores need cycles,
-// so only the diagonal and ragged tiles mask element by element; every
-// other tile takes the key mask as a per-column bias (the same arithmetic,
-// rounded operation by operation as the reference rounds it). The grid is
-// (tile, bh): a head's blocks run together and share its streamed tiles in
-// L2, those with the most tiles to walk first. Rows past s_q and keys past
-// s_k get P = 0 and are never written; a key tile that no causal q row
-// reaches (s_k > s_q) writes zeros. Both kernels are templates on the head
-// dim D (64, 96 or 128): a [64][D] tile is D / 32 TMA boxes and the
-// gradient products are m64nDk16. At D = 128 the dk/dv kernel holds two
-// 64 x 128 fp32 accumulators (128 registers a thread) beside S and dP, and
-// spills where ptxas says so (chip_smoke.py prints its report).
+// both operands K-major in shared memory (m64n64k16, summed in k16 steps
+// into one fp32 accumulator); then dQr += dS Kr, dV += T(P^T) dO and dKr
+// += dS^T Qr with A in registers -- the score accumulator rounded to bf16
+// in place is the A fragment, exactly where the reference rounds P and dS
+// -- and B the streamed row-major tile read MN-major through the transpose
+// bit (m64nNk16, N the gradient columns a warpgroup holds). Between the
+// products the consumers issue more instructions than the tensor cores
+// need cycles, so only the diagonal and ragged tiles mask element by
+// element; every other tile takes the key mask as a per-column bias (the
+// same arithmetic, rounded operation by operation as the reference rounds
+// it). The grid is (tile, bh): a head's blocks run together and share its
+// streamed tiles in L2, those with the most tiles to walk first. Rows past
+// s_q and keys past s_k get P = 0 and are never written; a key tile that
+// no causal q row reaches (s_k > s_q) writes zeros.
+//
+// Both kernels are templates on the head dim D, a [64][D] tile being D / 32
+// TMA boxes: 64, 96 and 128 for K2, K4 and K5; 192 and 256 for K4 and K5
+// alone, the streaming backward past d = 128 (K2 there, K4 and K5 at an odd
+// d or in fp32, and every width past 256 take flash_wide.cuh). They
+// replace meant_tpu/ops/flash/kernel.py:_bwd_dq_kernel (K4) and
+// _bwd_dkdv_kernel (K5) at those widths too. The layouts:
+//   * D <= 128: one consumer warpgroup and a producer warp, three stages.
+//     At D = 128 the dk/dv kernel holds two 64 x 128 fp32 accumulators
+//     (128 registers a thread) beside S and dP.
+//   * K4 at D = 192: the same block; dQ is 96 registers a thread, S and dP
+//     32 each, within the 255 a thread of a 160-thread block may hold. Eight
+//     tiles of 24 KB: three stages.
+//   * K4 at D = 256 and K5 at 192 and 256: two consumer warpgroups that
+//     split the D columns of dQ (of dK and dV): 64 registers of dQ, 96 of
+//     dK and dV at 192, 128 at 256. Each forms the tile's whole S and dP
+//     (S^T and dP^T) itself, which costs K5 1.5x its tensor work (K4 at
+//     256: 5/3) and needs no exchange. The other split -- one warpgroup
+//     forms S^T, the other dP^T, and they swap halves through shared
+//     memory -- saves those products but puts a barrier between the
+//     warpgroups on every tile. Chosen the first: K5 at (40, 4096, 192)
+//     reads 1.63 ms against 1.56 for the one-warpgroup d = 96 body on the
+//     same work (80, 4096, 96), so the repeated products cost about 5%.
+//     The producer is then a whole warpgroup, since setmaxnreg moves
+//     registers a warpgroup at a time: of the 168 a thread the block
+//     launches with (65,536 / 384), the producer keeps 24 and each consumer
+//     thread takes 240. Three stages at 192 (~197 KB), two at 256 (six
+//     tiles of 32 KB, ~198 KB). ptxas: K4 at 192 204 registers, the others
+//     168 at launch, none spills (chip_smoke.py prints the report).
+// Bound on an H100 SXM at src4096's launch at --num_heads 4, (40, 4096,
+// 192) bf16 causal: K4 386.5 GFLOP, 0.39 ms, K5 515.4 GFLOP, 0.52 ms, both
+// bound by operations (the same products as at (80, 4096, 96)); at
+// --num_heads 3, (30, 4096, 256), the same. They read K4 1.08 / 1.22 ms
+// and K5 1.63 / 1.47 ms there (PERF.md).
+// The order of the sums of S and dP (k16 steps on the tensor cores) is not
+// the plain versions' column order. tools/wide_sum_order.py holds that
+// order to the gradients' element bar at the widths these bodies take: 0
+// elements past it at d = 192 and 256 (at s=4096 and at the ring's chunk),
+// where at d = 768 such sums put single dq elements past it (PERF.md).
 
 #pragma once
 
@@ -50,32 +86,55 @@ namespace bwd {
 
 constexpr int kTile = hopper::kRows;     // q rows (dq) or keys (dk/dv)
 constexpr int kStages = 3;               // ring of streamed tiles
-constexpr int kConsumers = 128;          // one warpgroup
-constexpr int kBlock = kConsumers + 32;  // and the producer warp
+constexpr int kWarpgroup = 128;          // threads of a warpgroup
 constexpr int kNs = kTile / 8;           // n8 blocks of a score
+// setmaxnreg's registers a thread in a block of two consumer warpgroups
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+
+// The stages of the ring at head dim D (the layouts above).
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return D <= 192 ? kStages : 2;
+}
+
+// The block of the dq (kDkdv false) or dk/dv kernel at head dim D (the
+// layouts above): kWGs consumer warpgroups, warpgroup wg holding the
+// gradients' columns [wg * kCols, (wg + 1) * kCols), then the producer, a
+// warp beside one consumer warpgroup and a whole warpgroup beside two.
+template <int D, bool kDkdv>
+struct Layout {
+  static constexpr int kWGs = D <= 128 || (D == 192 && !kDkdv) ? 1 : 2;
+  static constexpr int kCols = D / kWGs;
+  static constexpr int kColBytes =
+      kCols / hopper::kBoxCols * hopper::kBoxBytes;
+  static constexpr int kConsumers = kWarpgroup * kWGs;
+  static constexpr int kBlock = kConsumers + (kWGs == 1 ? 32 : kWarpgroup);
+};
 
 // Tiles first, each at a multiple of 1024 bytes from the aligned start.
 template <int D>
 struct DqSmem {
   static constexpr int kTileBytes = hopper::tile_bytes<D>();
-  uint8_t q[kTileBytes];           // this block's Qr rows
-  uint8_t dout[kTileBytes];        // and their dO
-  uint8_t k[kStages][kTileBytes];  // the ring: Kr
-  uint8_t v[kStages][kTileBytes];  // and V
-  uint64_t fixed_full, full[kStages], empty[kStages];
+  static constexpr int kN = stages<D>();
+  uint8_t q[kTileBytes];       // this block's Qr rows
+  uint8_t dout[kTileBytes];    // and their dO
+  uint8_t k[kN][kTileBytes];   // the ring: Kr
+  uint8_t v[kN][kTileBytes];   // and V
+  uint64_t fixed_full, full[kN], empty[kN];
 };
 
 template <int D>
 struct DkdvSmem {
   static constexpr int kTileBytes = hopper::tile_bytes<D>();
-  uint8_t k[kTileBytes];              // this block's Kr rows
-  uint8_t v[kTileBytes];              // and their V
-  uint8_t q[kStages][kTileBytes];     // the ring: Qr
-  uint8_t dout[kStages][kTileBytes];  // dO
-  float m[kStages][kTile];            // and the rows' lse (or m),
-  float delta[kStages][kTile];        // delta
-  float il[kStages][kTile];           // and 1/l (K2 only)
-  uint64_t fixed_full, full[kStages], empty[kStages];
+  static constexpr int kN = stages<D>();
+  uint8_t k[kTileBytes];         // this block's Kr rows
+  uint8_t v[kTileBytes];         // and their V
+  uint8_t q[kN][kTileBytes];     // the ring: Qr
+  uint8_t dout[kN][kTileBytes];  // dO
+  float m[kN][kTile];            // and the rows' lse (or m),
+  float delta[kN][kTile];        // delta
+  float il[kN][kTile];           // and 1/l (K2 only)
+  uint64_t fixed_full, full[kN], empty[kN];
 };
 
 // dS = T(p * (dp - delta) * scale) for two neighbouring columns, rounded to
@@ -173,10 +232,12 @@ __device__ __forceinline__ void dkdv_tile_p_ds(
 }
 
 // dq (K4; K2's dq and statistics when kStats). Grid (q tiles, bh); block
-// kBlock threads. K4 reads row_m = lse and row_delta; K2 writes row_m = m,
-// row_il = 1/l and row_delta = delta of every row below seq_q.
+// Layout<D, false>::kBlock threads. K4 reads row_m = lse and row_delta; K2
+// writes row_m = m, row_il = 1/l and row_delta = delta of every row below
+// seq_q.
 template <bool kStats, int D>
-__global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
+__global__ void __launch_bounds__((Layout<D, false>::kBlock), 1)
+    flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
@@ -187,8 +248,11 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
     int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
     int causal) {
   using namespace hopper;
-  constexpr int kNd = D / 8;               // n8 blocks of a gradient
+  using L = Layout<D, false>;
+  static_assert(!kStats || L::kWGs == 1, "K2's pass: one warpgroup");
+  constexpr int kNd = L::kCols / 8;        // n8 blocks of this dQ share
   constexpr int kTileBytes = tile_bytes<D>();
+  constexpr int kN = stages<D>();
   extern __shared__ uint8_t smem_raw[];
   DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
   const int n_tq = (seq_q + kTile - 1) / kTile;
@@ -199,22 +263,23 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
   constexpr int kPasses = kStats ? 2 : 1;  // K2 walks the tiles twice
   if (threadIdx.x == 0) {
     mbar_init(&sm.fixed_full, 1);
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < kN; ++st) {
       mbar_init(&sm.full[st], 1);
-      mbar_init(&sm.empty[st], kConsumers);
+      mbar_init(&sm.empty[st], L::kConsumers);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {  // the producer: one thread issues TMA
-    if (threadIdx.x == kConsumers) {
+  if (threadIdx.x >= L::kConsumers) {  // the producer: one thread issues TMA
+    if constexpr (L::kWGs > 1) setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == L::kConsumers) {
       mbar_arrive_expect_tx(&sm.fixed_full, 2 * kTileBytes);
       tma_load_tile<D>(sm.q, &tm_q, &sm.fixed_full, q0, bh);
       tma_load_tile<D>(sm.dout, &tm_do, &sm.fixed_full, q0, bh);
       for (int it = 0; it < kPasses * n_tiles; ++it) {
-        const int st = it % kStages, k0 = (it % n_tiles) * kTile;
-        if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
+        const int st = it % kN, k0 = (it % n_tiles) * kTile;
+        if (it >= kN) mbar_wait(&sm.empty[st], (it / kN - 1) & 1);
         mbar_arrive_expect_tx(&sm.full[st], 2 * kTileBytes);
         tma_load_tile<D>(sm.k[st], &tm_k, &sm.full[st], k0, bh);
         tma_load_tile<D>(sm.v[st], &tm_v, &sm.full[st], k0, bh);
@@ -222,8 +287,12 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
     }
     return;
   }
+  if constexpr (L::kWGs > 1) setmaxnreg_inc<kConsumerRegs>();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // this warpgroup's dQ columns start wg * kCols in (wg_bytes into a tile)
+  const int wg = L::kWGs == 1 ? 0 : threadIdx.x / kWarpgroup;
+  const int wg_bytes = wg * L::kColBytes;
+  const int warp = (threadIdx.x % kWarpgroup) / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
   const float* km = nullptr;
@@ -258,8 +327,8 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     float dsum[2] = {0.f, 0.f};
     for (int it = 0; it < n_tiles; ++it, ++ring) {
-      const int st = ring % kStages, k0 = it * kTile;
-      mbar_wait(&sm.full[st], (ring / kStages) & 1);
+      const int st = ring % kN, k0 = it * kTile;
+      mbar_wait(&sm.full[st], (ring / kN) & 1);
       scores(st);
       mbar_arrive(&sm.empty[st]);  // the products have read the stage
       if (dq_edge(causal, it, qt, k0, seq_k))
@@ -293,8 +362,8 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
   }
 
   for (int it = 0; it < n_tiles; ++it, ++ring) {
-    const int st = ring % kStages, k0 = it * kTile;
-    mbar_wait(&sm.full[st], (ring / kStages) & 1);
+    const int st = ring % kN, k0 = it * kTile;
+    mbar_wait(&sm.full[st], (ring / kN) & 1);
     scores(st);
     uint32_t ds[kTile / 16][4];  // A fragments of dS, one per 16 keys
     if (dq_edge(causal, it, qt, k0, seq_k))
@@ -306,8 +375,8 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_m64nNk16_rs<D, kMNMajor>(dq_acc, ds[kk],
-                                     mnmajor_desc(sm.k[st], kk));
+      wgmma_m64nNk16_rs<L::kCols, kMNMajor>(
+          dq_acc, ds[kk], mnmajor_desc(sm.k[st] + wg_bytes, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq_acc);
@@ -323,15 +392,17 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dq_wgmma_kernel(
     const float* sr = qsin + (size_t)row[h] * D;
 #pragma unroll
     for (int j = 0; j < kNd; ++j)
-      store_adjoint<bf16>(out, cr, sr, j * 8 + 2 * t, dq_acc[4 * j + 2 * h],
-                          dq_acc[4 * j + 2 * h + 1]);
+      store_adjoint<bf16>(out, cr, sr, wg * L::kCols + j * 8 + 2 * t,
+                          dq_acc[4 * j + 2 * h], dq_acc[4 * j + 2 * h + 1]);
   }
 }
 
-// dk and dv (K5; K2's when kStats). Grid (k tiles, bh); block kBlock
-// threads. Reads row_m (K5: lse; K2: m), row_delta and, for K2, row_il.
+// dk and dv (K5; K2's when kStats). Grid (k tiles, bh); block
+// Layout<D, true>::kBlock threads. Reads row_m (K5: lse; K2: m), row_delta
+// and, for K2, row_il.
 template <bool kStats, int D>
-__global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
+__global__ void __launch_bounds__((Layout<D, true>::kBlock), 1)
+    flash_bwd_dkdv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v,
@@ -343,8 +414,11 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
     int causal) {
   using namespace hopper;
-  constexpr int kNd = D / 8;               // n8 blocks of a gradient
+  using L = Layout<D, true>;
+  static_assert(!kStats || L::kWGs == 1, "K2's pass: one warpgroup");
+  constexpr int kNd = L::kCols / 8;        // n8 blocks of this dK, dV share
   constexpr int kTileBytes = tile_bytes<D>();
+  constexpr int kN = stages<D>();
   extern __shared__ uint8_t smem_raw[];
   DkdvSmem<D>& sm = aligned_smem<DkdvSmem<D>>(smem_raw);
   const int n_tq = (seq_q + kTile - 1) / kTile;
@@ -355,16 +429,20 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
   const int q_first = causal ? kt : 0, n_tiles = max(0, n_tq - q_first);
   if (threadIdx.x == 0) {
     mbar_init(&sm.fixed_full, 1);
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < kN; ++st) {
       mbar_init(&sm.full[st], 32);  // the producer warp's lanes
-      mbar_init(&sm.empty[st], kConsumers);
+      mbar_init(&sm.empty[st], L::kConsumers);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {  // the producer warp
-    const int lane = threadIdx.x - kConsumers;
+  if (threadIdx.x >= L::kConsumers) {  // the producer warp
+    if constexpr (L::kWGs > 1) {       // (the first of its warpgroup)
+      setmaxnreg_dec<kProducerRegs>();
+      if (threadIdx.x >= L::kConsumers + 32) return;
+    }
+    const int lane = threadIdx.x - L::kConsumers;
     if (lane == 0) {
       mbar_arrive_expect_tx(&sm.fixed_full, 2 * kTileBytes);
       tma_load_tile<D>(sm.k, &tm_k, &sm.fixed_full, k0, bh);
@@ -385,8 +463,8 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     };
     fetch(0);
     for (int it = 0; it < n_tiles; ++it) {
-      const int st = it % kStages, q0 = (q_first + it) * kTile;
-      if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
+      const int st = it % kN, q0 = (q_first + it) * kTile;
+      if (it >= kN) mbar_wait(&sm.empty[st], (it / kN - 1) & 1);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         sm.m[st][lane + 32 * r] = rm[r];
@@ -405,7 +483,13 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     return;
   }
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if constexpr (L::kWGs > 1) setmaxnreg_inc<kConsumerRegs>();
+
+  // this warpgroup's dK and dV columns start wg * kCols in (wg_bytes into
+  // a tile); both warpgroups hold the same 64 keys
+  const int wg = L::kWGs == 1 ? 0 : threadIdx.x / kWarpgroup;
+  const int wg_bytes = wg * L::kColBytes;
+  const int warp = (threadIdx.x % kWarpgroup) / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
   const float* km = nullptr;
@@ -424,8 +508,8 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
   zero_regs(dp);
   mbar_wait(&sm.fixed_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % kStages, q0 = (q_first + it) * kTile;
-    mbar_wait(&sm.full[st], (it / kStages) & 1);
+    const int st = it % kN, q0 = (q_first + it) * kTile;
+    mbar_wait(&sm.full[st], (it / kN) & 1);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)  // S^T: rows keys, columns q
@@ -451,12 +535,12 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_m64nNk16_rs<D, kMNMajor>(dv_acc, pt[kk],
-                                     mnmajor_desc(sm.dout[st], kk));
+      wgmma_m64nNk16_rs<L::kCols, kMNMajor>(
+          dv_acc, pt[kk], mnmajor_desc(sm.dout[st] + wg_bytes, kk));
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_m64nNk16_rs<D, kMNMajor>(dk_acc, dst[kk],
-                                     mnmajor_desc(sm.q[st], kk));
+      wgmma_m64nNk16_rs<L::kCols, kMNMajor>(
+          dk_acc, dst[kk], mnmajor_desc(sm.q[st] + wg_bytes, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dv_acc);
@@ -475,7 +559,7 @@ __global__ void __launch_bounds__(kBlock, 1) flash_bwd_dkdv_wgmma_kernel(
     const float* sr = ksin + (size_t)key[h] * D;
 #pragma unroll
     for (int j = 0; j < kNd; ++j) {
-      const int c = j * 8 + 2 * t;
+      const int c = wg * L::kCols + j * 8 + 2 * t;
       dv_row[c] = from_f<bf16>(dv_acc[4 * j + 2 * h]);
       dv_row[c + 1] = from_f<bf16>(dv_acc[4 * j + 2 * h + 1]);
       store_adjoint<bf16>(dk_row, cr, sr, c, dk_acc[4 * j + 2 * h],
@@ -517,7 +601,7 @@ cudaError_t launch_dq(const CUtensorMap (&m)[4], const Args& a, void* dq) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_q + kTile - 1) / kTile, a.bh);
-  kernel<<<grid, kBlock, bytes, a.stream>>>(
+  kernel<<<grid, Layout<D, false>::kBlock, bytes, a.stream>>>(
       m[0], m[1], m[2], m[3], a.row_m, a.row_il, a.row_delta,
       static_cast<bf16*>(dq), a.qcos, a.qsin, a.kmask, a.mask_rows, a.seq_q,
       a.seq_k, a.num_heads, a.scale, a.causal);
@@ -533,7 +617,7 @@ cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const Args& a, void* dk,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_k + kTile - 1) / kTile, a.bh);
-  kernel<<<grid, kBlock, bytes, a.stream>>>(
+  kernel<<<grid, Layout<D, true>::kBlock, bytes, a.stream>>>(
       m[0], m[1], m[2], m[3], a.row_m, a.row_il, a.row_delta,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.kcos, a.ksin,
       a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale,

@@ -174,11 +174,12 @@ __device__ __forceinline__ void stats_tile(
       }
 }
 
-// The head dims the wgmma and fp32 bodies are instantiated for:
-// f(integral_constant<D>) for d = D, else cudaErrorInvalidValue. The
-// wrapper pads any other even d up to 128 to the next of them; every other
-// width runs the wide bodies (flash_wide.cuh), which the launchers pick
-// before they get here.
+// The head dims the wgmma and fp32 bodies of every kernel are
+// instantiated for: f(integral_constant<D>) for d = D, else
+// cudaErrorInvalidValue. The wrapper pads any other even d up to 128 to the
+// next of them; K4 and K5 in bf16 also take 192 and 256, which their
+// launchers pick before they get here, as they pick the wide bodies
+// (flash_wide.cuh) for every other width.
 template <typename F>
 cudaError_t dispatch_head_dim(int d, F&& f) {
   switch (d) {

@@ -610,7 +610,7 @@ cudaError_t launch(int dtype, int d, const FwdArgs& a) {
   if (a.bh <= 0 || a.bh > 65535 || a.seq_q <= 0 || a.seq_k <= 0 ||
       (dtype != 0 && dtype != 1) || (a.seq_q + kBlockQ - 1) / kBlockQ > 65535)
     return cudaErrorInvalidValue;
-  if (wide::takes_wide(d, d, false)) {
+  if (wide::takes_wide(kLse ? wide::kK3 : wide::kK1, dtype, d, d)) {
     const wide::Args w{a.qr,      a.kr,        a.v,     nullptr, nullptr,
                        nullptr,   nullptr,     nullptr, nullptr, nullptr,
                        nullptr,   a.kmask,     a.mask_rows, a.bh, a.seq_q,

@@ -1,6 +1,7 @@
 // The flash kernels at the head dims the wgmma bodies are not built for:
-// past 128, and (in the backwards) any odd head dim. One body per kernel,
-// templated on the dtype (fp32 or bf16) and not on the head dim:
+// K1, K2 and K3 past 128, K4 and K5 in fp32 past 128 and in bf16 past 256,
+// and (in the backwards) any odd head dim (takes_wide below). One body per
+// kernel, templated on the dtype (fp32 or bf16) and not on the head dim:
 //   * fwd_kernel<T, true>:   K1 (flash_fwd.cu), a statistics pass, then P
 //                            normalised and rounded before P V;
 //   * fwd_kernel<T, false>:  K3 (flash_fwd.cu), one online pass, P rounded
@@ -39,10 +40,13 @@
 // (tools/wide_sum_order.py; PERF.md);
 // P and dS are rounded to the input dtype into shared memory, where the
 // products that follow read them. The other route -- wgmma bodies
-// instantiated at D = 160-256 with the accumulators split over two
-// consumer warpgroups -- does not reach d = 384 or 768, which meant_src
-// --num_heads 2 and 1 give; this one body covers every width, simply and
-// not fast (PERF.md has its times).
+// instantiated at D = 192 and 256 with the accumulators split over two
+// consumer warpgroups -- is taken for K4 and K5 in bf16 at an even head
+// dim (flash_bwd_wgmma.cuh), where tools/wide_sum_order.py finds their
+// tensor-core sums within the element bar. It does not reach d = 384 or
+// 768 (meant_src --num_heads 2 and 1), which keep these chains for the
+// rounding reason above; this one body covers every width, simply and not
+// fast (PERF.md has its times).
 //
 // The rotation's adjoint at an odd head dim d wraps as the JAX kernels'
 // lane rotate-half does (meant_tpu/ops/flash/kernel.py:63-71, :378-379,
@@ -753,12 +757,20 @@ cudaError_t launch_dkdv(const Args& a, void* dk, void* dv) {
   });
 }
 
-// Whether a call at padded width dp and head dim head_dim takes these
-// bodies: dp not one the wgmma bodies are built for, or (backwards, whose
-// adjoint wraps) an odd head dim.
-inline bool takes_wide(int dp, int head_dim, bool backward) {
-  const bool built = dp == 64 || dp == 96 || dp == 128;
-  return !built || (backward && (head_dim & 1));
+// The kernels, as the launchers name them to takes_wide.
+enum Kernel { kK1 = 1, kK2, kK3, kK4, kK5 };
+
+// Whether a launch of `kernel` in `dtype` (0 fp32, 1 bf16) at padded width
+// dp and head dim head_dim takes these bodies: the backwards at an odd head
+// dim (their adjoint wraps); every kernel at a dp the wgmma and fp32 bodies
+// are not built for. Those are 64, 96 and 128, and for K4 and K5 in bf16
+// also 192 and 256 (the streaming backward's bodies at two consumer
+// warpgroups, flash_bwd_wgmma.cuh).
+inline bool takes_wide(Kernel kernel, int dtype, int dp, int head_dim) {
+  const bool streaming_bwd = kernel == kK4 || kernel == kK5;
+  if ((kernel == kK2 || streaming_bwd) && (head_dim & 1)) return true;
+  if (dp == 64 || dp == 96 || dp == 128) return false;
+  return !(streaming_bwd && dtype == 1 && (dp == 192 || dp == 256));
 }
 
 }  // namespace wide
@@ -766,6 +778,10 @@ inline bool takes_wide(int dp, int head_dim, bool backward) {
 
 // takes_wide for the launchers in Python, which name the body a launch ran
 // (each library that includes this header exports its own copy).
-extern "C" int meant_flash_takes_wide(int dp, int head_dim, int backward) {
-  return meant::wide::takes_wide(dp, head_dim, backward != 0) ? 1 : 0;
+extern "C" int meant_flash_takes_wide(int kernel, int dtype, int dp,
+                                      int head_dim) {
+  return meant::wide::takes_wide(static_cast<meant::wide::Kernel>(kernel),
+                                 dtype, dp, head_dim)
+             ? 1
+             : 0;
 }

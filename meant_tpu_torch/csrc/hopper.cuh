@@ -4,9 +4,9 @@
 // the host code that encodes one, and warpgroup matrix products (wgmma) on
 // operands in shared memory laid out with the 64-byte swizzle.
 //
-// Tile layout. A [64 rows][D columns] bf16 tile (D = 64, 96 or 128, the
-// head dim) lives in shared memory as D / 32 boxes of [64][32] (4096 bytes
-// each, columns 0-31, 32-63, ...),
+// Tile layout. A [64 rows][D columns] bf16 tile (D = 64, 96, 128, 192 or
+// 256, the head dim) lives in shared memory as D / 32 boxes of [64][32]
+// (4096 bytes each, columns 0-31, 32-63, ...),
 // each written by one TMA load with CU_TENSOR_MAP_SWIZZLE_64B: rows of 64
 // bytes, the 16-byte chunk c of row r stored at chunk c ^ ((r >> 1) & 3).
 // wgmma reads the same bytes two ways (its descriptor's 64-byte swizzle):
@@ -16,7 +16,9 @@
 //   * MN-major (the 64 rows are the depth K, the columns are N): 32 columns
 //     per box, boxes 4096 bytes apart (LBO), eight-row groups 512 bytes
 //     apart (SBO); the k-th 16-row step starts k * 1024 bytes in, and the
-//     product's transpose-B bit is set.
+//     product's transpose-B bit is set; the columns from a box boundary
+//     on (a warpgroup's share of the gradient's columns) start that many
+//     boxes in.
 // So one copy of a row-major tile serves as both Q K^T's K-major operand
 // and P V's (or dS K's) MN-major operand; no transposed copy is written.
 //
@@ -45,7 +47,8 @@ constexpr int kBoxBytes = kRows * kBoxCols * 2;
 // [64][D] tile: D / 32 boxes.
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  static_assert(D == 64 || D == 96 || D == 128, "head dim 64, 96 or 128");
+  static_assert(D == 64 || D == 96 || D == 128 || D == 192 || D == 256,
+                "head dim 64, 96, 128, 192 or 256");
   return D / kBoxCols * kBoxBytes;
 }
 
@@ -71,6 +74,20 @@ template <int N>
 __device__ __forceinline__ void zero_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// The registers a thread of the issuing warpgroup may hold from here on:
+// setmaxnreg gives them back to the block's pool (dec) or takes them from
+// it (inc), waiting until the pool has them. Every warp of the warpgroup
+// executes it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- mbarriers --------------------------------------------------------------
@@ -218,7 +235,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
 // D (64 x N, fp32) += A * B, A (64 x 16 bf16) in registers as four
 // mma.sync-style A fragments, B (16 x N) in shared memory: K-major
 // (TransB = kKMajor) or MN-major (kMNMajor) as its descriptor says. One
-// instruction per N the head dims need (64, 96, 128).
+// instruction per N the bodies need (64, 96, 128, 192).
 template <int TransB>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                    const uint32_t (&a)[4],
@@ -298,18 +315,60 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "n"(TransB));
 }
 
-// The product above at N = the head dim D.
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n192k16_rs(float (&d)[96],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TransB));
+}
+
+// The product above at N = the columns of a gradient a warpgroup holds.
 template <int N, int TransB>
 __device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[N / 2],
                                                   const uint32_t (&a)[4],
                                                   uint64_t b) {
-  static_assert(N == 64 || N == 96 || N == 128, "no wgmma for this N");
+  static_assert(N == 64 || N == 96 || N == 128 || N == 192,
+                "no wgmma for this N");
   if constexpr (N == 64)
     wgmma_m64n64k16_rs<TransB>(d, a, b);
   else if constexpr (N == 96)
     wgmma_m64n96k16_rs<TransB>(d, a, b);
-  else
+  else if constexpr (N == 128)
     wgmma_m64n128k16_rs<TransB>(d, a, b);
+  else
+    wgmma_m64n192k16_rs<TransB>(d, a, b);
 }
 
 // ---- tensor maps (host) -------------------------------------------------------

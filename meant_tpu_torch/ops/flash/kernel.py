@@ -32,8 +32,11 @@ sliced back. That is exact: the padded lanes add zero to every score. A
 padded width that is not one of HEAD_DIMS (d > 128) runs the wide bodies of
 csrc/flash_wide.cuh, which stream the contraction over the width and cut
 the output into groups of 64-column chunks on a grid axis; so do the
-backwards (K2, K4, K5) at an odd d, whose adjoint wraps. Every call is one
-launch of each kernel at any d.
+backwards (K2, K4, K5) at an odd d, whose adjoint wraps. The exception is
+the streaming backward in bf16 at an even d padded to 192 or 256 (d in
+(128, 256]): K4 and K5 run wgmma bodies built at those widths, two consumer
+warpgroups splitting the gradients' columns (csrc/flash_bwd_wgmma.cuh).
+Every call is one launch of each kernel at any d.
 
 At an odd d the rotation pairs lanes as the JAX kernels' `_rotate_half_lanes`
 (meant_tpu/ops/flash/kernel.py:63-71) does, wrapping: lane d-1 pairs with
@@ -213,25 +216,27 @@ WIDE_SOURCE = "meant_tpu_torch/csrc/flash_wide.cuh"
 
 class _FlashLauncher(KernelLauncher):
     """A flash kernel's wrapper. Each launch runs one of two bodies, as
-    `takes_wide` in csrc/flash_wide.cuh decides: the wgmma body of
-    `source` or the wide body. `last_source` names the source of the body
-    that the last launch ran, as the library reports it."""
+    `takes_wide` in csrc/flash_wide.cuh decides for this kernel (`kernel`,
+    1-5 for K1-K5), its dtype, width and head dim: the wgmma or fp32 body
+    of `source` or the wide body. `last_source` names the source of the
+    body that the last launch ran, as the library reports it. The first
+    argument of every launch is the dtype's code."""
 
     source = ""
-    backward = False
+    kernel = 0
     last_source: Optional[str] = None
 
     def _launch_flash(self, device, *args, shape, head_dim) -> None:
         self._launch(device, *args, shape=shape)
         wide = load_library(self.library).meant_flash_takes_wide(
-            shape[2], head_dim, int(self.backward))
+            self.kernel, args[0], shape[2], head_dim)
         self.last_source = WIDE_SOURCE if wide else self.source
 
 
 class FlashForward(_FlashLauncher):
     """K1: ctypes wrapper of `meant_flash_fwd` (csrc/flash_fwd.cu)."""
 
-    symbol, library = "meant_flash_fwd", "flash_fwd"
+    symbol, library, kernel = "meant_flash_fwd", "flash_fwd", 1
     source = "meant_tpu_torch/csrc/flash_fwd.cu"
     argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -260,8 +265,8 @@ class FlashBackward(_FlashLauncher):
     """K2: ctypes wrapper of `meant_flash_bwd` (csrc/flash_bwd.cu), one
     call = its dq kernel then its dk/dv kernel on the current stream."""
 
-    symbol, library = "meant_flash_bwd", "flash_bwd"
-    source, backward = "meant_tpu_torch/csrc/flash_bwd.cu", True
+    symbol, library, kernel = "meant_flash_bwd", "flash_bwd", 2
+    source = "meant_tpu_torch/csrc/flash_bwd.cu"
     argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -302,7 +307,7 @@ class FlashBackward(_FlashLauncher):
 class FlashForwardOnline(_FlashLauncher):
     """K3: ctypes wrapper of `meant_flash_fwd_lse` (csrc/flash_fwd.cu)."""
 
-    symbol, library = "meant_flash_fwd_lse", "flash_fwd"
+    symbol, library, kernel = "meant_flash_fwd_lse", "flash_fwd", 3
     source = "meant_tpu_torch/csrc/flash_fwd.cu"
     argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -366,7 +371,7 @@ class _FlashBackwardOnline(_FlashLauncher):
     K2's."""
 
     library = "flash_bwd_online"
-    source, backward = "meant_tpu_torch/csrc/flash_bwd_online.cu", True
+    source = "meant_tpu_torch/csrc/flash_bwd_online.cu"
     outputs = ()     # which of q and k each gradient is shaped as
 
     def __call__(self, qr, kr, v, do, lse, delta, kmask, qcos, qsin, kcos,
@@ -397,7 +402,7 @@ class FlashBackwardDQ(_FlashBackwardOnline):
     """K4: ctypes wrapper of `meant_flash_bwd_dq`
     (csrc/flash_bwd_online.cu). Returns [dq]."""
 
-    symbol, outputs = "meant_flash_bwd_dq", ("q",)
+    symbol, outputs, kernel = "meant_flash_bwd_dq", ("q",), 4
     argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
@@ -406,7 +411,7 @@ class FlashBackwardDKDV(_FlashBackwardOnline):
     """K5: ctypes wrapper of `meant_flash_bwd_dkdv`
     (csrc/flash_bwd_online.cu). Returns [dk, dv]."""
 
-    symbol, outputs = "meant_flash_bwd_dkdv", ("k", "k")
+    symbol, outputs, kernel = "meant_flash_bwd_dkdv", ("k", "k"), 5
     argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 

@@ -31,8 +31,8 @@ FAULTS = {
     "ds_round_to_zero": DS_ROUND_TO_ZERO,
     "dq_transpose_bit": [
         ("flash_bwd_wgmma.cuh",
-         "wgmma_m64nNk16_rs<D, kMNMajor>(dq_acc, ds[kk],",
-         "wgmma_m64nNk16_rs<D, kKMajor>(dq_acc, ds[kk],")],
+         "wgmma_m64nNk16_rs<L::kCols, kMNMajor>(\n          dq_acc, ds[kk],",
+         "wgmma_m64nNk16_rs<L::kCols, kKMajor>(\n          dq_acc, ds[kk],")],
 }
 
 

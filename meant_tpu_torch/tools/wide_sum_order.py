@@ -19,10 +19,22 @@ orders to the plain version itself:
 * plain_k16: the plain version with S and dP summed from exact 16-column
   partials, added in column order in fp32.
 
-The cases: K4 + K5 at (80, 512, 768) causal xPos with a key mask
-(check_head_dims_long's, the shape --num_heads 1 streams its text tower
-at) and K2 at (80, 196, 768) pixel rotary (time_head_dims' row for
---num_heads 1's charts), bf16, made as chip_smoke.py makes them.
+The cases, bf16, made as chip_smoke.py makes them:
+
+* K4 + K5 at (80, 512, 768) causal xPos with a key mask
+  (check_head_dims_long's, the shape --num_heads 1 streams its text tower
+  at) and K2 at (80, 196, 768) pixel rotary (time_head_dims' row for
+  --num_heads 1's charts);
+* K4 + K5 at the streaming widths 192 and 256: check_head_dims_long's
+  (4, 4096, 192) and (4, 4096, 256) causal xPos with a key mask,
+  src4096's launch at --num_heads 4, (40, 4096, 192) causal xPos
+  (time_long_kernels'), and the played ring's chunk at that width, (40,
+  1024, 192) pixel rotary, not causal.
+
+Each line names the body that K4 and K5 ran (the wrappers' last_source):
+where the wgmma bodies of csrc/flash_bwd_wgmma.cuh take a width (bf16 at
+192 and 256), the patch of dp_mm does not reach it, and all three orders
+read that body's own tensor-core sums.
 """
 
 from __future__ import annotations
@@ -88,9 +100,21 @@ def use_order(order: str) -> None:
         use_sources(root, library, [getattr(kernel, n) for n in names])
 
 
+# check_head_dims_long's masked bf16 case at each of these widths
+STREAMING = {768: "k4_k5 (80, 512, 768) masked",
+             192: "k4_k5 (4, 4096, 192) masked",
+             256: "k4_k5 (4, 4096, 256) masked"}
+# time_long_kernels' launches at d = 192 (its seed, its order of draws):
+# (name, long_case kind, BH, s)
+LAUNCHES = (("k4_k5 (40, 4096, 192) src4096", "text",
+             chip_smoke.RING4_BH, chip_smoke.LONG_SEQ),
+            ("k4_k5 (40, 1024, 192) ring chunk", "vision",
+             chip_smoke.RING4_BH, chip_smoke.RING_CHUNK))
+
+
 def cases():
-    """chip_smoke.py's two d = 768 cases, from its seeds and its order of
-    draws."""
+    """chip_smoke.py's cases, from its seeds and its order of draws."""
+    made = {}
     gen = torch.Generator(device="cuda").manual_seed(18)
     for d, s, bh, heads in chip_smoke.HD_LONG_CASES:
         for kind in ("text", "text_masked"):
@@ -99,8 +123,9 @@ def cases():
                                              d=d, heads=heads)
                 c["g_lse"] = torch.randn(c["q"].shape[:3], generator=gen,
                                          device="cuda")
-                if (d, kind, dtype) == (768, "text_masked", torch.bfloat16):
-                    streaming = c
+                if (kind, dtype) == ("text_masked", torch.bfloat16) and (
+                        d in STREAMING):
+                    made[STREAMING[d]] = c
     gen = torch.Generator(device="cuda").manual_seed(20)
     for kind, s, heads in (("text", chip_smoke.SEQ, 4),
                            ("vision", chip_smoke.N_PATCHES, 4),
@@ -110,8 +135,15 @@ def cases():
         c = chip_smoke.backward_case(
             kind, torch.bfloat16, gen, s=s,
             bh=chip_smoke.BATCH * chip_smoke.LAG * heads, d=d, heads=heads)
-    return {"k4_k5 (80, 512, 768) masked": streaming,
-            "k2 (80, 196, 768) pixel": c}
+    made["k2 (80, 196, 768) pixel"] = c
+    for name, kind, bh, s in LAUNCHES:
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        c = chip_smoke.backward_case(kind, torch.bfloat16, gen, s=s, bh=bh,
+                                     d=192, heads=chip_smoke.SRC4_HEADS)
+        c["g_lse"] = torch.randn(c["q"].shape[:3], generator=gen,
+                                 device="cuda")
+        made[name] = c
+    return made
 
 
 def errors(a, b) -> dict:
@@ -199,13 +231,19 @@ def main() -> None:
             got, want, _ = kernel_grads(name, c)
             res = {g: errors(a, b)
                    for g, a, b in zip(("dq", "dk", "dv"), got, want)}
+            res["body"] = [kernel.flash_bwd_dq.last_source,
+                           kernel.flash_bwd_dkdv.last_source] if (
+                name.startswith("k4")) else kernel.flash_bwd.last_source
             print(f"{order} {name}: {json.dumps(res)}", flush=True)
+            del got, want
+            torch.cuda.empty_cache()
     use_order("fma_chain")
     for name, c in made.items():
         _, want, stats = kernel_grads(name, c)
         for order in ("plain_fp64", "plain_k16"):
             res = errors(plain_dq(c, order, stats), want[0])
             print(f"{order} {name} dq: {json.dumps(res)}", flush=True)
+            torch.cuda.empty_cache()
     print(chip_smoke.card_line(), flush=True)
 
 

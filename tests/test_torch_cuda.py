@@ -50,7 +50,7 @@ from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
 from meant_tpu_torch.ops.flash.flash_attention import _tables
 from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
                                               BWD_BF16_REL_L2, K1_BF16_REL_L2,
-                                              LSE_ATOL, _rotate)
+                                              LSE_ATOL, WIDE_SOURCE, _rotate)
 from meant_tpu_torch.tools.k45_masked_row import errors as fp64_errors
 from meant_tpu_torch.tools.k45_masked_row import grads_fp64
 from meant_tpu_torch.train.classify import meant_trainer
@@ -901,11 +901,12 @@ def test_odd_and_wide_head_dims_match_plain(cuda, dtype, case, s_q, s_k, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lengths", [(65, 65), (4096, 4096), (256, 257)])
-@pytest.mark.parametrize("d", [7, 95, 192, 384])
+@pytest.mark.parametrize("d", [7, 95, 160, 192, 256, 384])
 def test_online_kernels_at_odd_and_wide_head_dims(cuda, dtype, lengths, d):
     """R1 + K3 and R1 + K4 + K5 through flash_mha(return_lse=True) at odd
-    head dims and past 128: out and lse at K3's bars, the gradients (an
-    lse cotangent included) at K2's against the plain backward fed the
+    head dims and past 128 (K4 and K5 in bf16 at d = 160, 192 and 256 on
+    their wgmma bodies): out and lse at K3's bars, the gradients (an lse
+    cotangent included) at K2's against the plain backward fed the
     kernels' lse and delta."""
     s_q, s_k = lengths
     gen = torch.Generator(device=cuda).manual_seed(d + s_q + s_k)
@@ -933,6 +934,30 @@ def test_online_kernels_at_odd_and_wide_head_dims(cuda, dtype, lengths, d):
                                           delta, mask, *tables, scale=0.1,
                                           causal=causal)
     _assert_grads_close(grads, want, dtype)
+
+
+@pytest.mark.parametrize("d,dtype,wgmma", [
+    (192, torch.bfloat16, True), (256, torch.bfloat16, True),
+    (191, torch.bfloat16, False), (384, torch.bfloat16, False),
+    (192, torch.float32, False), (256, torch.float32, False)])
+def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
+    """K4's and K5's last_source: their wgmma bodies (the library's own
+    source) in bf16 at an even d padded to 192 or 256; the wide body at an
+    odd d (the adjoint's wrap), past 256 and in fp32. K3 past 128 stays on
+    the wide body."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, do, tables, mask, causal = _shape_case(
+        cuda, dtype, d, 130, 130, "xpos_causal", gen)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_mha(*leaves, scale=0.1, causal=causal, attention_mask=mask,
+                    qcos=tables[0], qsin=tables[1], kcos=tables[2],
+                    ksin=tables[3], force_online=True)
+    torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    for launcher in (flash_bwd_dq, flash_bwd_dkdv):
+        want = launcher.source if wgmma else WIDE_SOURCE
+        assert launcher.last_source == want, launcher.symbol
+    assert flash_fwd_online.last_source == WIDE_SOURCE
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 1027, 1 << 20])
