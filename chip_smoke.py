@@ -269,7 +269,9 @@ raises and the script exits non-zero:
               adjoint wraps, and d past 128, which the wide bodies of
               csrc/flash_wide.cuh take (the contraction streamed over the
               width, the output in groups of 64-column chunks on a grid
-              axis). R1 + K1 and K2 through flash_mha at d = 7, 95, 130,
+              axis) but for K2-K5 in bf16 at 192 and 256, which run wgmma
+              bodies built at those widths (HGMMA counted in each). R1 +
+              K1 and K2 through flash_mha at d = 7, 95, 130,
               192, 256, 257, 384 and 768 (s=200, BH=16, causal xPos with a
               key mask, and plain), one launch of each a call, fp32 and
               bf16 at the bars in force, R1 bit for bit at the padded
@@ -285,10 +287,12 @@ raises and the script exits non-zero:
               streams, as JAX's rule routes it: R1 + K3, R1 + K4 + K5);
               src4096 at 4 heads and 2 encoders a request (2 K3, 2 K1, 4
               R1) and 2 steps; --text_dim 760 (8 heads of 95) a request
-              against flash=False, one step's gradients and 2 steps; the
-              4-rank ring played at (10, 4, 4096, 192). Rows of the
-              kernel line at d = 192 (s=512, 196, 4096), 384 (s=512), 768
-              (s=196) and 95 (s=512).
+              against flash=False, one step's gradients and 2 steps;
+              --num_heads 3 (d = 256) a request and 2 steps; the 4-rank
+              ring played at (10, 4, 4096, 192); R1 + K3, K4 and K5 at the
+              main path's shapes past 128. Rows of the kernel line at d =
+              192 (s=512, 196, 4096), 256 (s=512, 196, 4096), 384 (s=512),
+              768 (s=196) and 95 (s=512).
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
@@ -2677,8 +2681,9 @@ def check_shapes(record) -> dict:
 
 def count_new_hgmma() -> dict:
     """wgmma in every instantiation at head dims 64 and 128: K1, K3 (the
-    forward body), K2's two kernels and K4 + K5; and in K4's and K5's own
-    at 192 and 256 (the streaming backward past d = 128), each apart."""
+    forward body), K2's two kernels and K4 + K5; and at 192 and 256 (the
+    bf16 bodies past d = 128) in K3's, K2's dq and dk/dv and K4's and K5's
+    own, each apart."""
     counts = {}
     for d in (64, 128):
         for label, lib, function in (
@@ -2688,10 +2693,15 @@ def count_new_hgmma() -> dict:
                 ("K4+K5", "flash_bwd_online", f"ILb0ELi{d}E")):
             counts[f"{label} d{d}"] = count_hgmma(lib, function)
     for d in WIDE_WGMMA_DIMS:
-        for label, kernel in (("K4", "dq"), ("K5", "dkdv")):
-            function = f"flash_bwd_{kernel}_wgmma_kernelILb0ELi{d}E"
-            counts[f"{label} d{d}"] = count_hgmma("flash_bwd_online",
-                                                  function)
+        counts[f"K3 d{d}"] = count_hgmma(
+            "flash_fwd", f"flash_fwd_lse_wgmma_kernelILi{d}E")
+        for label, lib, kernel, stats in (
+                ("K2 dq", "flash_bwd", "dq", 1),
+                ("K2 dk/dv", "flash_bwd", "dkdv", 1),
+                ("K4", "flash_bwd_online", "dq", 0),
+                ("K5", "flash_bwd_online", "dkdv", 0)):
+            function = f"flash_bwd_{kernel}_wgmma_kernelILb{stats}ELi{d}E"
+            counts[f"{label} d{d}"] = count_hgmma(lib, function)
     return counts
 
 
@@ -2988,7 +2998,8 @@ def run_long_heads(res, heads: int = SRC6_HEADS):
     torch.cuda.empty_cache()
     return {"R1": counts["R1"] + res["train"]["launches"]["R1"],
             **{k: res["train"]["launches"][k] for k in ("K4", "K5")},
-            "K3": counts["K3"] + res["train"]["launches"]["K3"]}
+            "K3": counts["K3"] + res["train"]["launches"]["K3"],
+            "serve": counts, "steps": res["train"]["launches"]}
 
 
 def time_shapes(out, n_params) -> list:
@@ -5065,7 +5076,7 @@ SRC4_STEPS = 5
 SRC3_HEADS = 3             # meant_src --num_heads 3: 3 heads of 256
 FULL_STEPS = 3             # src4096 at 4 heads, 12 + 12 encoders: the
                            # median of steps 2-3
-WIDE_WGMMA_DIMS = (192, 256)   # K4's and K5's wgmma bodies past d = 128
+WIDE_WGMMA_DIMS = (192, 256)   # K2-K5's bf16 wgmma bodies past d = 128
 # d = 384 and 768: one request and 2 steps each, the towers and one step's
 # gradients against flash=False
 WIDE_SERVE_HEADS = (2, 1)
@@ -5430,7 +5441,9 @@ def run_head_dims(record) -> dict:
     flagship's width; --num_heads 2 and 1 (d = 384, 768) the same with two
     steps; src4096 at 4 and 3 heads (d = 192, 256: K4 and K5 on their
     wgmma bodies), and at 4 heads one full-depth step timed; --text_dim
-    760 (d = 95); the played ring at d = 192. R1, K3, K4 and K5 against
+    760 (d = 95); --num_heads 3 (d = 256) served and 2 steps, the launches
+    of the d = 256 resident rows; the played ring at d = 192. R1, K3, K4
+    and K5 against
     their plain versions at the shapes the main path launches them at
     past d = 128: the ring's chunk (40, 1024, 192) and src4096's (40, 4096,
     192) and (30, 4096, 256), with and without a key mask, whose errors
@@ -5445,6 +5458,8 @@ def run_head_dims(record) -> dict:
     for heads in WIDE_SERVE_HEADS:
         out[f"src{heads}"] = run_src_heads(
             res.setdefault(f"src_heads{heads}", {}), heads, BATCH, 2, True)
+    out["src3"] = run_src_heads(res.setdefault("src_heads3", {}), SRC3_HEADS,
+                                BATCH, 2, False)
     out["long4"] = run_long_heads(res.setdefault("long_heads4", {}),
                                   SRC4_HEADS)
     out["long3"] = run_long_heads(res.setdefault("long_heads3", {}),
@@ -5469,10 +5484,12 @@ def run_head_dims(record) -> dict:
 def time_head_dims(out) -> list:
     """The rows of the new head dims, each with the launches of the run
     that reaches it: R1 + K1, K2 and R1 at d = 192 (s=512 causal xPos and
-    s=196 pixel rotary, BH = 320: meant_src --num_heads 4), d = 384 (s=512,
-    BH = 160: --num_heads 2), d = 768 (s=196, BH = 80: --num_heads 1, whose
-    s=512 text tower streams, as JAX routes it) and d = 95 (s=512, BH =
-    640: --text_dim 760; K1 and R1 at width 128, K2 on the wide body);
+    s=196 pixel rotary, BH = 320: meant_src --num_heads 4), d = 256 (s=512,
+    BH = 240: --num_heads 3; s=196, BH = 30: src4096's vision tower at 3
+    heads), d = 384 (s=512, BH = 160: --num_heads 2), d = 768 (s=196, BH
+    = 80: --num_heads 1, whose s=512 text tower streams, as JAX routes it)
+    and d = 95 (s=512, BH = 640: --text_dim 760; K1 and R1 at width 128,
+    K2 on the wide body);
     R1 + K3, R1, K4 and K5 at src4096's launch at 4 heads (BH = 40, d =
     192) and 3 heads (BH = 30, d = 256), at the played ring's chunk at 4
     heads (40, 1024, 192, not causal) and at --num_heads 1's streaming
@@ -5481,17 +5498,24 @@ def time_head_dims(out) -> list:
     from meant_tpu_torch.ops.flash.kernel import kernel_head_dim
     gen = torch.Generator(device="cuda").manual_seed(20)
     rows = []
-    for kind, s, heads, label, (serve, steps) in (
-            ("text", SEQ, SRC4_HEADS, "s512 causal xPos d192", out["src4"]),
+    long3 = (out["long3"]["serve"], out["long3"]["steps"])
+    for kind, s, heads, label, (serve, steps), batch in (
+            ("text", SEQ, SRC4_HEADS, "s512 causal xPos d192", out["src4"],
+             BATCH),
             ("vision", N_PATCHES, SRC4_HEADS, "s196 pixel rotary d192",
-             out["src4"]),
-            ("text", SEQ, 2, "s512 causal xPos d384", out["src2"]),
-            ("vision", N_PATCHES, 1, "s196 pixel rotary d768", out["src1"]),
+             out["src4"], BATCH),
+            ("text", SEQ, 2, "s512 causal xPos d384", out["src2"], BATCH),
+            ("vision", N_PATCHES, 1, "s196 pixel rotary d768", out["src1"],
+             BATCH),
             ("text", SEQ, ODD_HEADS, "s512 causal xPos d95 (--text_dim 760)",
-             out["odd"])):
+             out["odd"], BATCH),
+            ("text", SEQ, SRC3_HEADS, "s512 causal xPos d256", out["src3"],
+             BATCH),
+            ("vision", N_PATCHES, SRC3_HEADS,
+             "s196 pixel rotary d256 (src4096)", long3, LONG_BATCH)):
         d = (ODD_DIM if heads == ODD_HEADS else DIM) // heads
         c = backward_case(kind, torch.bfloat16, gen, s=s,
-                          bh=BATCH * LAG * heads, d=d, heads=heads)
+                          bh=batch * LAG * heads, d=d, heads=heads)
         width = kernel_head_dim(d)
         key = shape_key(s, c["causal"], s, width)
         rows += resident_rows(

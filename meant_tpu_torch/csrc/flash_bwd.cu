@@ -50,12 +50,17 @@
 //     statistics from device memory, which keeps its tiles within a
 //     block's shared memory at D = 128.
 // Head dims 64, 96 and 128 are instantiated (the wrapper pads any other
-// even d up to 128). Past 128, and at an odd head dim, whose adjoint wraps
-// column d-1 onto column 0 as the JAX kernel's lane rotate-half does, both
-// kernels take the wide bodies of flash_wide.cuh at the padded width (a
-// multiple of 64), still one dq launch and one dk/dv launch. q has s_q rows
-// and k s_k keys: the dq kernel's grid walks q tiles, the dk/dv kernel's k
-// tiles.
+// even d up to 128), and in bf16 also 192 and 256, the padded widths of
+// every even d in (128, 256] (meant_src --num_heads 4 and 3): the same
+// wgmma bodies, the dq kernel one consumer warpgroup at 192 and two
+// splitting dQ's columns at 256, the dk/dv kernel two at both, each
+// warpgroup forming the tile's whole S and dP (the layouts and their
+// bounds: flash_bwd_wgmma.cuh). Past 256, in fp32 past 128, and at an odd
+// head dim, whose adjoint wraps column d-1 onto column 0 as the JAX
+// kernel's lane rotate-half does, both kernels take the wide bodies of
+// flash_wide.cuh at the padded width (a multiple of 64), still one dq
+// launch and one dk/dv launch. q has s_q rows and k s_k keys: the dq
+// kernel's grid walks q tiles, the dk/dv kernel's k tiles.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the main
 // path's shapes (BH = 640, d = 96, bf16): the launch must read q, k, v, dO
@@ -434,6 +439,10 @@ extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
                             : wide::launch_dkdv<bf16, true>(w, dk, dv));
   }
   if (head_dim <= 0 || head_dim > d) return (int)cudaErrorInvalidValue;
+  // past 128 only bf16 at 192 and 256 has a wgmma body (takes_wide sends
+  // fp32 and an odd head dim there to the wide bodies)
+  if (dtype == 1 && d == 192) return (int)launch_bf16<192>(a, dq, dk, dv);
+  if (dtype == 1 && d == 256) return (int)launch_bf16<256>(a, dq, dk, dv);
   return (int)dispatch_head_dim(d, [&](auto built) {
     constexpr int D = decltype(built)::value;
     return dtype == 0 ? launch_fp32<D>(a, dq, dk, dv, st)

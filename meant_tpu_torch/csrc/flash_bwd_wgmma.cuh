@@ -38,22 +38,26 @@
 // no causal q row reaches (s_k > s_q) writes zeros.
 //
 // Both kernels are templates on the head dim D, a [64][D] tile being D / 32
-// TMA boxes: 64, 96 and 128 for K2, K4 and K5; 192 and 256 for K4 and K5
-// alone, the streaming backward past d = 128 (K2 there, K4 and K5 at an odd
-// d or in fp32, and every width past 256 take flash_wide.cuh). They
-// replace meant_tpu/ops/flash/kernel.py:_bwd_dq_kernel (K4) and
-// _bwd_dkdv_kernel (K5) at those widths too. The layouts:
+// TMA boxes: 64, 96, 128, 192 and 256 for K2, K4 and K5 (past 128 in bf16
+// at an even d; an odd d, fp32 past 128 and every width past 256 take
+// flash_wide.cuh). At 192 and 256 they replace
+// meant_tpu/ops/flash/kernel.py:_bwd_kernel (K2), _bwd_dq_kernel (K4) and
+// _bwd_dkdv_kernel (K5) as at the narrower widths. The layouts:
 //   * D <= 128: one consumer warpgroup and a producer warp, three stages.
 //     At D = 128 the dk/dv kernel holds two 64 x 128 fp32 accumulators
 //     (128 registers a thread) beside S and dP.
-//   * K4 at D = 192: the same block; dQ is 96 registers a thread, S and dP
-//     32 each, within the 255 a thread of a 160-thread block may hold. Eight
-//     tiles of 24 KB: three stages.
-//   * K4 at D = 256 and K5 at 192 and 256: two consumer warpgroups that
-//     split the D columns of dQ (of dK and dV): 64 registers of dQ, 96 of
-//     dK and dV at 192, 128 at 256. Each forms the tile's whole S and dP
-//     (S^T and dP^T) itself, which costs K5 1.5x its tensor work (K4 at
-//     256: 5/3) and needs no exchange. The other split -- one warpgroup
+//   * the dq kernel (K4, K2's) at D = 192: the same block; dQ is 96
+//     registers a thread, S and dP 32 each, within the 255 a thread of a
+//     160-thread block may hold. Eight tiles of 24 KB: three stages.
+//   * the dq kernel at D = 256 and the dk/dv kernel (K5, K2's) at 192 and
+//     256: two consumer warpgroups that split the D columns of dQ (of dK
+//     and dV): 64 registers of dQ, 96 of dK and dV at 192, 128 at 256. Each
+//     forms the tile's whole S and dP (S^T and dP^T) itself, which costs
+//     K5 1.5x its tensor work (K4 at 256: 5/3) and needs no exchange; so K2's
+//     statistics pass runs in each dq warpgroup on its own (m, l and delta
+//     depend on S and dP alone: the same values in both), and the first
+//     writes them; the dk/dv producer stages them once for both warpgroups
+//     (DkdvSmem). The other split -- one warpgroup
 //     forms S^T, the other dP^T, and they swap halves through shared
 //     memory -- saves those products but puts a barrier between the
 //     warpgroups on every tile. Chosen the first: K5 at (40, 4096, 192)
@@ -69,12 +73,16 @@
 // 192) bf16 causal: K4 386.5 GFLOP, 0.39 ms, K5 515.4 GFLOP, 0.52 ms, both
 // bound by operations (the same products as at (80, 4096, 96)); at
 // --num_heads 3, (30, 4096, 256), the same. They read K4 1.08 / 1.22 ms
-// and K5 1.63 / 1.47 ms there (PERF.md).
+// and K5 1.63 / 1.47 ms there (PERF.md). K2 at meant_src --num_heads 4's
+// (320, 512, 192) causal and --num_heads 3's (240, 512, 256) must move 442
+// MB (0.132 ms) for 80.7 GFLOP of products (0.082 ms), at (320, 196, 192)
+// 169 MB (0.051 ms): bound by bytes, as at d = 96 (flash_bwd.cu).
 // The order of the sums of S and dP (k16 steps on the tensor cores) is not
 // the plain versions' column order. tools/wide_sum_order.py holds that
 // order to the gradients' element bar at the widths these bodies take: 0
-// elements past it at d = 192 and 256 (at s=4096 and at the ring's chunk),
-// where at d = 768 such sums put single dq elements past it (PERF.md).
+// elements past it at d = 192 and 256 (K4 + K5 at s=4096 and at the ring's
+// chunk, K2 at s=512 and 196), where at d = 768 such sums put single dq
+// elements past it (PERF.md).
 
 #pragma once
 
@@ -249,7 +257,6 @@ __global__ void __launch_bounds__((Layout<D, false>::kBlock), 1)
     int causal) {
   using namespace hopper;
   using L = Layout<D, false>;
-  static_assert(!kStats || L::kWGs == 1, "K2's pass: one warpgroup");
   constexpr int kNd = L::kCols / 8;        // n8 blocks of this dQ share
   constexpr int kTileBytes = tile_bytes<D>();
   constexpr int kN = stages<D>();
@@ -324,6 +331,9 @@ __global__ void __launch_bounds__((Layout<D, false>::kBlock), 1)
   int ring = 0;  // tiles taken from the ring so far
   mbar_wait(&sm.fixed_full, 0);
   if constexpr (kStats) {
+    // every warpgroup forms the rows' whole S and dP, so each finds the
+    // same m, l and delta for its rows without an exchange; the first
+    // writes them
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     float dsum[2] = {0.f, 0.f};
     for (int it = 0; it < n_tiles; ++it, ++ring) {
@@ -344,7 +354,7 @@ __global__ void __launch_bounds__((Layout<D, false>::kBlock), 1)
       row_m[h] = (m[h] == -INFINITY) ? 0.f : m[h];
       row_il[h] = lt > 0.f ? 1.0f / lt : 0.f;
       row_delta[h] = row_sum(dsum[h]) * row_il[h];
-      if (t == 0 && row[h] < seq_q) {
+      if (wg == 0 && t == 0 && row[h] < seq_q) {
         const size_t i = (size_t)bh * seq_q + row[h];
         row_m_g[i] = row_m[h];
         row_il_g[i] = row_il[h];
@@ -415,7 +425,6 @@ __global__ void __launch_bounds__((Layout<D, true>::kBlock), 1)
     int causal) {
   using namespace hopper;
   using L = Layout<D, true>;
-  static_assert(!kStats || L::kWGs == 1, "K2's pass: one warpgroup");
   constexpr int kNd = L::kCols / 8;        // n8 blocks of this dK, dV share
   constexpr int kTileBytes = tile_bytes<D>();
   constexpr int kN = stages<D>();

@@ -71,6 +71,26 @@
 // 128 to a multiple of 64, which (but for 64 and 128 themselves) takes the
 // wide body of flash_wide.cuh: the same function, the contraction streamed
 // over the width and the output cut into 64-column chunks on a grid axis.
+// K3 in bf16 also has wgmma instantiations at D = 192 and 256, the padded
+// widths of every d in (128, 256] (src4096 at --num_heads 4 and 3, and the
+// played ring's chunk); they replace _fwd_online_kernel there as at 96.
+// Bound at src4096's launches, (40, 4096, 192) and (30, 4096, 256) bf16
+// causal: two products over the causal triangle, 257.8 GFLOP (0.26 ms),
+// against 252 MB of qr, kr, v, o and lse (0.075 ms): by operations, as at
+// d = 96. The registers set the layout: O for 64 rows is 96 fp32 registers
+// a thread at 192 and 128 at 256 (the m64n256k16 product), beside S (32)
+// and P (16). Each consumer warpgroup holds all of O for its 64 rows, so no
+// product is repeated; the alternative, two warpgroups splitting O's
+// columns and each forming the rows' whole S (1.5x the tensor work), read
+// 1.23 / 1.02 ms against 0.97 / 0.85 for one warpgroup at (40, 4096, 192) /
+// (30, 4096, 256) (tools/k23_variants.py --kernels K3wide; PERF.md). At
+// 192 two such warpgroups a block (128 q rows, 288 threads; ptxas 168
+// registers) read 0.74: one warpgroup's softmax runs while the other's
+// products do. At 256 two read 1.39, with the two stages that fit beside
+// two Qr tiles, and one warpgroup (230 registers) with three stages reads
+// 0.82 against 0.85 with two. Shared memory: three stages of Kr + V and
+// the Qr tiles, 192 KB at 192 (two groups) and 224 KB at 256, within the
+// 227 KB a block may have. fp32 and K1 keep the wide body past 128.
 // q and k lengths are separate (s_q rows of q, s_k keys; causal keeps col
 // <= row, both from 0, as the reference does): the grid walks q, the ring
 // walks k.
@@ -248,6 +268,15 @@ constexpr int kResGroups = 1;                      // K1
 constexpr int kResStages = 2;
 constexpr int kFwdGroups = 1;                      // K3
 constexpr int kFwdStages = 2;
+// K3 at D = 192 and 256 (the layouts in the note above): q-row groups of
+// 64 a block, each one consumer warpgroup holding all of O's columns
+// (kWideFwdSplit warpgroups a group would split them), and ring stages.
+template <int D>
+constexpr int wide_fwd_groups() {
+  return D <= 192 ? 2 : 1;
+}
+constexpr int kWideFwdSplit = 1;
+constexpr int kWideFwdStages = 3;
 constexpr int kNs = kBlockK / 8;                   // n8 blocks of a score
 static_assert(kBlockQ == hopper::kRows && kBlockK == hopper::kRows,
               "a q or k tile is one [64][D] TMA tile");
@@ -358,8 +387,10 @@ __device__ __forceinline__ void fwd_tile_p_normalised(
 
 // The body of K1 (kStats: a statistics pass, then P normalised; out only)
 // and K3 (one online pass; out and lse) at head dim D. Grid (q blocks of 64
-// kGroups rows, bh); block 128 kGroups + 32 threads.
-template <bool kStats, int D, int kGroups, int kStages>
+// kGroups rows, bh); block 128 kGroups kSplit + 32 threads: kSplit
+// warpgroups a group of 64 q rows, warpgroup `part` holding O's columns
+// [part D / kSplit, (part + 1) D / kSplit), each forming the rows' whole S.
+template <bool kStats, int D, int kGroups, int kStages, int kSplit>
 __device__ __forceinline__ void fwd_wgmma(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     bf16* __restrict__ o, float* __restrict__ lse,
@@ -368,7 +399,11 @@ __device__ __forceinline__ void fwd_wgmma(
   using namespace hopper;
   constexpr int kBlockRows = kBlockQ * kGroups;
   constexpr int kPasses = kStats ? 2 : 1;
-  constexpr int kNo = D / 8;                        // n8 blocks of the output
+  constexpr int kOCols = D / kSplit;                // O's columns a warpgroup
+  constexpr int kNo = kOCols / 8;                   // holds, n8 blocks of them
+  constexpr int kOColBytes = kOCols / kBoxCols * kBoxBytes;
+  constexpr int kConsumers = 128 * kGroups * kSplit;
+  static_assert(kOCols % kBoxCols == 0, "a warpgroup's columns are boxes");
   constexpr int kTileBytes = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
   auto& sm = aligned_smem<FwdSmem<D, kGroups, kStages>>(smem_raw);
@@ -383,14 +418,14 @@ __device__ __forceinline__ void fwd_wgmma(
     mbar_init(&sm.fixed_full, 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(&sm.full[st], 1);
-      mbar_init(&sm.empty[st], 128 * groups);
+      mbar_init(&sm.empty[st], 128 * kSplit * groups);
     }
     fence_barrier_init();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 128 * kGroups) {  // the producer: one thread
-    if (threadIdx.x == 128 * kGroups) {
+  if (threadIdx.x >= kConsumers) {  // the producer: one thread
+    if (threadIdx.x == kConsumers) {
       mbar_arrive_expect_tx(&sm.fixed_full, groups * kTileBytes);
       for (int w = 0; w < groups; ++w)
         tma_load_tile<D>(sm.q[w], tm_q, &sm.fixed_full, q0 + w * kBlockQ,
@@ -407,7 +442,9 @@ __device__ __forceinline__ void fwd_wgmma(
     return;
   }
 
-  const int wg = threadIdx.x / 128;
+  // this warpgroup's q-row group and its part of O's columns
+  const int wg = threadIdx.x / 128 / kSplit;
+  const int part = threadIdx.x / 128 % kSplit;
   if (wg >= groups) return;  // every row of this warpgroup is past seq_q
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -492,8 +529,8 @@ __device__ __forceinline__ void fwd_wgmma(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockK / 16; ++kk)
-        wgmma_m64nNk16_rs<D, kMNMajor>(o_acc, pa[kk],
-                                       mnmajor_desc(sm.v[st], kk));
+        wgmma_m64nNk16_rs<kOCols, kMNMajor>(
+            o_acc, pa[kk], mnmajor_desc(sm.v[st] + part * kOColBytes, kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o_acc);
@@ -507,12 +544,13 @@ __device__ __forceinline__ void fwd_wgmma(
     const float lt = kStats ? 1.f : row_sum(l[h]);
     if (row[h] >= seq_q) continue;
     const float inv = kStats ? 1.f : (lt > 0.f ? 1.0f / lt : 0.f);
-    bf16* out = o + ((size_t)bh * seq_q + row[h]) * D + 2 * t;
+    bf16* out =
+        o + ((size_t)bh * seq_q + row[h]) * D + part * kOCols + 2 * t;
 #pragma unroll
     for (int j = 0; j < kNo; ++j)
       *reinterpret_cast<uint32_t*>(out + j * 8) =
           pack_pair(o_acc[4 * j + 2 * h] * inv, o_acc[4 * j + 2 * h + 1] * inv);
-    if (!kStats && t == 0)
+    if (!kStats && part == 0 && t == 0)
       lse[(size_t)bh * seq_q + row[h]] = row_lse(m[h], lt);
   }
 }
@@ -526,21 +564,21 @@ __device__ __forceinline__ void fwd_wgmma(
       int causal
 
 // K1: the output (lse unused, null).
-template <int D, int kGroups, int kStages>
-__global__ void __launch_bounds__(128 * kGroups + 32, 1)
+template <int D, int kGroups, int kStages, int kSplit>
+__global__ void __launch_bounds__(128 * kGroups * kSplit + 32, 1)
     flash_fwd_wgmma_kernel(FWD_WGMMA_PARAMS) {
-  fwd_wgmma<true, D, kGroups, kStages>(&tm_q, &tm_k, &tm_v, o, lse, kmask,
-                                       mask_rows, seq_q, seq_k, num_heads,
-                                       scale, causal);
+  fwd_wgmma<true, D, kGroups, kStages, kSplit>(
+      &tm_q, &tm_k, &tm_v, o, lse, kmask, mask_rows, seq_q, seq_k,
+      num_heads, scale, causal);
 }
 
 // K3: the output and lse.
-template <int D, int kGroups, int kStages>
-__global__ void __launch_bounds__(128 * kGroups + 32, 1)
+template <int D, int kGroups, int kStages, int kSplit>
+__global__ void __launch_bounds__(128 * kGroups * kSplit + 32, 1)
     flash_fwd_lse_wgmma_kernel(FWD_WGMMA_PARAMS) {
-  fwd_wgmma<false, D, kGroups, kStages>(&tm_q, &tm_k, &tm_v, o, lse, kmask,
-                                        mask_rows, seq_q, seq_k, num_heads,
-                                        scale, causal);
+  fwd_wgmma<false, D, kGroups, kStages, kSplit>(
+      &tm_q, &tm_k, &tm_v, o, lse, kmask, mask_rows, seq_q, seq_k,
+      num_heads, scale, causal);
 }
 
 #undef FWD_WGMMA_PARAMS
@@ -578,7 +616,7 @@ cudaError_t launch_fp32(const FwdArgs& a) {
 }
 
 // K1 (kLse false) or K3 in bf16.
-template <int D, bool kLse, int kGroups, int kStages>
+template <int D, bool kLse, int kGroups, int kStages, int kSplit = 1>
 cudaError_t launch_bf16(const FwdArgs& a) {
   CUtensorMap m[3];
   if (!hopper::make_map(&m[0], a.qr, a.bh, a.seq_q, D) ||
@@ -586,25 +624,27 @@ cudaError_t launch_bf16(const FwdArgs& a) {
       !hopper::make_map(&m[2], a.v, a.bh, a.seq_k, D))
     return cudaErrorInvalidValue;
   constexpr int bytes = hopper::smem_bytes<FwdSmem<D, kGroups, kStages>>();
+  static_assert(bytes <= 232448, "a block's shared memory");
   const auto kernel = [] {
     if constexpr (kLse)
-      return flash_fwd_lse_wgmma_kernel<D, kGroups, kStages>;
+      return flash_fwd_lse_wgmma_kernel<D, kGroups, kStages, kSplit>;
     else
-      return flash_fwd_wgmma_kernel<D, kGroups, kStages>;
+      return flash_fwd_wgmma_kernel<D, kGroups, kStages, kSplit>;
   }();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int rows = kBlockQ * kGroups;
   const dim3 grid((a.seq_q + rows - 1) / rows, a.bh);
-  kernel<<<grid, 128 * kGroups + 32, bytes, a.stream>>>(
+  kernel<<<grid, 128 * kGroups * kSplit + 32, bytes, a.stream>>>(
       m[0], m[1], m[2], static_cast<bf16*>(a.o), a.lse, a.kmask,
       a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-// K1 (kLse false) or K3 at a.d's instantiation, fp32 (dtype 0) or bf16; at
-// any other multiple of 64, the wide body.
+// K1 (kLse false) or K3 at a.d's instantiation, fp32 (dtype 0) or bf16
+// (K3 in bf16 also at 192 and 256); at any other multiple of 64, the wide
+// body.
 template <bool kLse>
 cudaError_t launch(int dtype, int d, const FwdArgs& a) {
   if (a.bh <= 0 || a.bh > 65535 || a.seq_q <= 0 || a.seq_k <= 0 ||
@@ -618,6 +658,16 @@ cudaError_t launch(int dtype, int d, const FwdArgs& a) {
                        a.causal,  a.stream};
     return dtype == 0 ? wide::launch_fwd<float, !kLse>(w, a.o, a.lse)
                       : wide::launch_fwd<bf16, !kLse>(w, a.o, a.lse);
+  }
+  // past 128 only K3 in bf16 has a wgmma body (takes_wide sends the rest to
+  // the wide body)
+  if constexpr (kLse) {
+    if (dtype == 1 && d == 192)
+      return launch_bf16<192, true, wide_fwd_groups<192>(), kWideFwdStages,
+                         kWideFwdSplit>(a);
+    if (dtype == 1 && d == 256)
+      return launch_bf16<256, true, wide_fwd_groups<256>(), kWideFwdStages,
+                         kWideFwdSplit>(a);
   }
   return dispatch_head_dim(d, [&](auto head_dim) {
     constexpr int D = decltype(head_dim)::value;

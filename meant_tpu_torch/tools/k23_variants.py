@@ -1,7 +1,7 @@
 """Where K3's and K2's time goes, on the card: the shipped bf16 kernels
 against variants built from patched copies of csrc/.
 
-    python -m meant_tpu_torch.tools.k23_variants [--kernels K3 K2]
+    python -m meant_tpu_torch.tools.k23_variants [--kernels K3 K2 K3wide]
 
 K3 alone (on R1's Qr and Kr) at src4096's launch (BH=80, s=4096, bf16,
 causal xPos; chip_smoke.py's long case), and K2 alone at the flagship's
@@ -22,6 +22,21 @@ backward cases), with CUDA events, one line per variant:
   which reads the fp32 tables (wrong results: timing only);
 * K2 two_stages: a ring of two stages instead of three, in the wgmma
   bodies K2 shares with K4 and K5 (tools/k45_variants.py's patches).
+
+K3wide: K3 alone at src4096's launches past d = 128, (40, 4096, 192) at
+--num_heads 4 and (30, 4096, 256) at 3 (causal xPos), on the forward's
+wgmma body at those widths:
+
+* shipped: one consumer warpgroup for each 64 q rows, holding all of
+  O's columns; two of them a block (128 q rows) at 192, one at 256; a
+  ring of three stages;
+* one_group: one such warpgroup a block at both widths;
+* split_columns: two consumer warpgroups for the block's 64 q rows, each
+  holding half of O's columns and forming the rows' whole S (1.5x the
+  tensor work);
+* two_stages: a ring of two stages;
+* two_groups_two_stages: two q-row groups a block at both widths, two
+  stages (three do not fit beside two groups at 256).
 """
 
 from __future__ import annotations
@@ -53,6 +68,18 @@ K3_VARIANTS = {
         (FWD, "p[e] = (kEdge && x == -INFINITY) ? 0.f : expf(x - m_use[h]);",
          "p[e] = (kEdge && x == -INFINITY) ? 0.f : (x - m_use[h]);")],
 }
+_ONE_GROUP = (FWD, "return D <= 192 ? 2 : 1;", "return 1;")
+_TWO_STAGES = (FWD, "constexpr int kWideFwdStages = 3;",
+               "constexpr int kWideFwdStages = 2;")
+K3_WIDE_VARIANTS = {
+    "shipped": [],
+    "one_group": [_ONE_GROUP],
+    "split_columns": [_ONE_GROUP, (FWD, "constexpr int kWideFwdSplit = 1;",
+                                   "constexpr int kWideFwdSplit = 2;")],
+    "two_stages": [_TWO_STAGES],
+    "two_groups_two_stages": [
+        (FWD, "return D <= 192 ? 2 : 1;", "return 2;"), _TWO_STAGES],
+}
 K2_VARIANTS = dict(BWD_VARIANTS, plain_epilogue=[
     ("flash_common.cuh", "float g0, float g1) {\n  out[c] = from_f<T>(",
      "float g0, float g1) {\n  if (true) {\n    out[c] = from_f<T>(g0);\n"
@@ -67,7 +94,7 @@ def _variant(kernel_name: str, name: str, patches, library: str, launchers):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", nargs="+", choices=("K3", "K2"),
+    ap.add_argument("--kernels", nargs="+", choices=("K3", "K2", "K3wide"),
                     default=("K3", "K2"))
     kernels = ap.parse_args(argv).kernels
     if not torch.cuda.is_available():
@@ -78,6 +105,8 @@ def main(argv=None) -> None:
         time_k3(gen, card)
     if "K2" in kernels:
         time_k2(gen, card)
+    if "K3wide" in kernels:
+        time_k3_wide(gen, card)
 
 
 def time_k3(gen, card) -> None:
@@ -94,6 +123,34 @@ def time_k3(gen, card) -> None:
               flush=True)
     del c
     torch.cuda.empty_cache()
+
+
+def time_k3_wide(gen, card) -> None:
+    rows = chip_smoke.LONG_BATCH * chip_smoke.LAG
+    cases = [chip_smoke.long_case("text", torch.bfloat16, gen, rows * heads,
+                                  d=d, heads=heads)
+             for d, heads in ((192, chip_smoke.SRC4_HEADS),
+                              (256, chip_smoke.SRC3_HEADS))]
+    for c in cases:
+        chip_smoke.rotate_case(c)
+    shipped = []
+    for name, patches in K3_WIDE_VARIANTS.items():
+        _variant("k3wide", name, patches, "flash_fwd",
+                 [kernel.flash_fwd, kernel.flash_fwd_online])
+        for i, c in enumerate(cases):
+            out, lse = chip_smoke.run_online_k3(c)
+            if name == "shipped":
+                shipped.append((out, lse))
+            ms = chip_smoke.event_ms(lambda: chip_smoke.run_online_k3(c),
+                                     iters=30)
+            print(json.dumps({
+                "kernel": "K3", "variant": name, "shape": list(c["q"].shape),
+                "ms": ms, "body": kernel.flash_fwd_online.last_source,
+                "out_vs_plain_rel_l2": chip_smoke.rel_l2(out, c["out"]),
+                "out_max_abs_vs_shipped": (out.float() - shipped[i][0]
+                                           .float()).abs().max().item(),
+                "lse_max_abs_vs_shipped": (lse - shipped[i][1]).abs().max()
+                .item(), "card": card}), flush=True)
 
 
 def time_k2(gen, card) -> None:

@@ -1,19 +1,28 @@
-"""K4 and K5 at the streaming widths, and one src4096 `--num_heads 4`
-training run at full depth, of one tree of the repo, on the card.
+"""The flash kernels past d = 128 and two `--num_heads 4` training runs,
+of one tree of the repo, on the card.
 
     python meant_tpu_torch/tools/k45_compare.py --root DIR --out FILE
 
 Imports `chip_smoke` and `meant_tpu_torch` from DIR (a checkout, such as
 the parent commit unpacked with `git archive` into a git-ignored
-directory), builds its kernels there, and writes to FILE (JSON): K4, K5
-and the two together (ms per launch by CUDA events, and the body each
-ran) at the shapes `chip_smoke` launches them at, from its constants:
-src4096 at 4 heads (40, 4096, 192) causal xPos, the played ring's chunk
-(40, 1024, 192) pixel rotary, src4096 at 3 heads (30, 4096, 256) and at 8
-(80, 4096, 96); then src4096 at `--num_heads 4`, 12 + 12 encoders, batch
-2, trained through `chip_smoke.learn_long_heads_full` (3 steps, the
-median of steps 2-3, with its launch counts), or the same run in a tree
-that predates it. Run it as a file (not with -m) so that DIR's package is
+directory), builds its kernels there, and writes to FILE (JSON), ms per
+launch by CUDA events and the body each ran, at the shapes `chip_smoke`
+launches them at, from its constants:
+
+* K3 alone, R1 + K3, K4, K5 and K4 + K5 at src4096 at 4 heads (40, 4096,
+  192) causal xPos, the played ring's chunk (40, 1024, 192) pixel rotary,
+  src4096 at 3 heads (30, 4096, 256) and at 8 (80, 4096, 96);
+* K2 alone (on R1's Qr and Kr) at meant_src --num_heads 4's (320, 512,
+  192) causal xPos and (320, 196, 192) pixel rotary, and at d = 256:
+  src4096 --num_heads 3's vision tower (30, 196, 256) and --num_heads 3's
+  text tower (240, 512, 256);
+
+then src4096 at `--num_heads 4`, 12 + 12 encoders, batch 2, trained
+through `chip_smoke.learn_long_heads_full` (3 steps, the median of steps
+2-3, with its launch counts), or the same run in a tree that predates it;
+then the flagship at `--num_heads 4` (s=512, batch 16, fixed_proj=True,
+as `chip_smoke.run_src_heads` trains it) for SRC4_STEPS steps, the median
+of steps 2 on. Run it as a file (not with -m) so that DIR's package is
 the one imported; compare two trees within one card call, in turns
 (parent, change, change, parent).
 """
@@ -33,6 +42,27 @@ def shapes(cs) -> list:
         heads = cs.DIM // d
         rows.append((cs.LONG_BATCH * cs.LAG * heads, s, d, heads, kind))
     return rows
+
+
+def resident_shapes(cs) -> list:
+    """(BH, s, d, heads, chip_smoke.backward_case kind) of each K2
+    reading."""
+    return [(cs.BATCH * cs.LAG * 4, cs.SEQ, 192, 4, "text"),
+            (cs.BATCH * cs.LAG * 4, cs.N_PATCHES, 192, 4, "vision"),
+            (cs.LONG_BATCH * cs.LAG * 3, cs.N_PATCHES, 256, 3, "vision"),
+            (cs.BATCH * cs.LAG * 3, cs.SEQ, 256, 3, "text")]
+
+
+def src_heads_step(cs) -> dict:
+    """The flagship at --num_heads 4, s=512, trained as run_src_heads
+    trains it (train_steps at fixed_proj=True, batch 16, seed 7)."""
+    model = cs.build_flagship(flash=True, fixed_proj=True, num_heads=4)
+    train, _, _ = cs.train_steps(
+        model, cs.train_batch(cs.BATCH, seed=7), cs.SRC4_STEPS,
+        cs.src_launches(4, True), "learn meant_src --num_heads 4",
+        falling=False)
+    del model
+    return train
 
 
 def full_step(cs) -> dict:
@@ -59,6 +89,7 @@ def main() -> None:
     ap.add_argument("--out", required=True)
     args = ap.parse_args()
     root = os.path.abspath(args.root)
+    out = os.path.abspath(args.out)
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
@@ -75,20 +106,40 @@ def main() -> None:
         cs.rotate_case(c)
         key = f"({bh}, {s}, {d})"
         res[key] = {
+            "K3": cs.event_ms(lambda: cs.run_online_k3(c), iters=10),
+            "R1+K3": cs.event_ms(lambda: cs.run_online_kernel(c), iters=10),
             "K4": cs.event_ms(lambda: cs.run_online_dq_kernel(c), iters=10),
             "K5": cs.event_ms(lambda: cs.run_online_dkdv_kernel(c),
                               iters=10),
             "K4+K5": cs.event_ms(lambda: (cs.run_online_dq_kernel(c),
                                           cs.run_online_dkdv_kernel(c)),
                                  iters=10),
-            "body": [cs.wrappers()[k].last_source for k in ("K4", "K5")]}
+            "body": [cs.wrappers()[k].last_source
+                     for k in ("K3", "K4", "K5")]}
+        print(args.root, key, json.dumps(res[key]), flush=True)
+        del c
+        torch.cuda.empty_cache()
+    for bh, s, d, heads, kind in resident_shapes(cs):
+        c = cs.backward_case(kind, torch.bfloat16, gen, s=s, bh=bh, d=d,
+                             heads=heads)
+        cs.rotate_case(c)
+        key = f"K2 ({bh}, {s}, {d})"
+        res[key] = {"K2": cs.event_ms(lambda: cs.run_bwd_k2(c), iters=10),
+                    "body": cs.wrappers()["K2"].last_source}
         print(args.root, key, json.dumps(res[key]), flush=True)
         del c
         torch.cuda.empty_cache()
     train = full_step(cs)
     res["step_ms"] = train["step_ms"]
     res["step_ms_median"] = train["step_ms_median"]
-    with open(args.out, "w") as f:
+    torch.cuda.empty_cache()
+    train = src_heads_step(cs)
+    res["src_heads4_step_ms"] = train["step_ms"]
+    res["src_heads4_step_ms_median"] = train["step_ms_median"]
+    print(args.root, "steps", json.dumps(
+        {k: res[k] for k in ("step_ms_median",
+                             "src_heads4_step_ms_median")}), flush=True)
+    with open(out, "w") as f:
         json.dump(res, f, indent=1)
 
 

@@ -29,16 +29,29 @@ The cases, bf16, made as chip_smoke.py makes them:
   (4, 4096, 192) and (4, 4096, 256) causal xPos with a key mask,
   src4096's launch at --num_heads 4, (40, 4096, 192) causal xPos
   (time_long_kernels'), and the played ring's chunk at that width, (40,
-  1024, 192) pixel rotary, not causal.
+  1024, 192) pixel rotary, not causal;
+* K3 (out and lse, from R1's Qr and Kr) at src4096's launches at
+  --num_heads 4 and 3, (40, 4096, 192) and (30, 4096, 256) causal xPos,
+  each with and without a key mask, and at the ring's chunk (40, 1024,
+  192), not causal; out held to the element bar 2e-2 + 2e-2 |ref|,
+  BF16_REL_L2 and, against K3's tiled plain version, K3_TILED_REL_L2;
+  lse to LSE_ATOL;
+* K2 at meant_src --num_heads 4's launches (320, 512, 192) causal xPos
+  with a key mask and (320, 196, 192) pixel rotary, and at d = 256:
+  src4096 --num_heads 3's vision tower (30, 196, 256) and meant_src
+  --num_heads 3's text tower (240, 512, 256) causal xPos with a key mask.
 
-Each line names the body that K4 and K5 ran (the wrappers' last_source):
-where the wgmma bodies of csrc/flash_bwd_wgmma.cuh take a width (bf16 at
-192 and 256), the patch of dp_mm does not reach it, and all three orders
-read that body's own tensor-core sums.
+`--cases` runs only the cases whose name holds one of the words given
+(`k3`, `k2`, `192`, ...). Each line names the body its kernels ran (the
+wrappers' last_source): where a wgmma body takes a width (csrc/
+flash_fwd.cu, flash_bwd.cu, flash_bwd_wgmma.cuh: bf16 at 192 and 256),
+the patch of dp_mm does not reach it, and all three orders read that
+body's own tensor-core sums.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import torch
@@ -76,9 +89,11 @@ BODIES = {
   }
 }
 """}
-# the libraries of the backwards, which the orders are built into (the
-# streaming case's plain backward takes the kernels' own lse and delta)
-LIBRARIES = {"flash_bwd": ("flash_bwd",),
+# the libraries of the forwards and backwards, which the orders are built
+# into (the streaming case's plain backward takes the kernels' own lse and
+# delta)
+LIBRARIES = {"flash_fwd": ("flash_fwd", "flash_fwd_online"),
+             "flash_bwd": ("flash_bwd",),
              "flash_bwd_online": ("rotate_qk", "flash_bwd_dq",
                                   "flash_bwd_dkdv")}
 
@@ -111,9 +126,36 @@ LAUNCHES = (("k4_k5 (40, 4096, 192) src4096", "text",
             ("k4_k5 (40, 1024, 192) ring chunk", "vision",
              chip_smoke.RING4_BH, chip_smoke.RING_CHUNK))
 
+# K3 at the main path's streaming launches past d = 128: (name, long_case
+# kind, BH, s, d, heads)
+_SRC4, _SRC3 = chip_smoke.SRC4_HEADS, chip_smoke.SRC3_HEADS
+_LONG_ROWS = chip_smoke.LONG_BATCH * chip_smoke.LAG
+K3_CASES = tuple(
+    (f"k3 ({_LONG_ROWS * heads}, {chip_smoke.LONG_SEQ}, {d}) src4096"
+     + (" masked" if kind == "text_masked" else ""), kind,
+     _LONG_ROWS * heads, chip_smoke.LONG_SEQ, d, heads)
+    for d, heads in ((192, _SRC4), (256, _SRC3))
+    for kind in ("text", "text_masked")) + (
+    (f"k3 ({_LONG_ROWS * _SRC4}, {chip_smoke.RING_CHUNK}, 192) ring chunk",
+     "vision", _LONG_ROWS * _SRC4, chip_smoke.RING_CHUNK, 192, _SRC4),)
+# K2 at the resident launches past d = 128: (name, backward_case kind, BH,
+# s, d, heads)
+_ROWS = chip_smoke.BATCH * chip_smoke.LAG
+K2_CASES = (
+    (f"k2 ({_ROWS * _SRC4}, {chip_smoke.SEQ}, 192) masked", "text_masked",
+     _ROWS * _SRC4, chip_smoke.SEQ, 192, _SRC4),
+    (f"k2 ({_ROWS * _SRC4}, {chip_smoke.N_PATCHES}, 192) pixel", "vision",
+     _ROWS * _SRC4, chip_smoke.N_PATCHES, 192, _SRC4),
+    (f"k2 ({_LONG_ROWS * _SRC3}, {chip_smoke.N_PATCHES}, 256) pixel",
+     "vision", _LONG_ROWS * _SRC3, chip_smoke.N_PATCHES, 256, _SRC3),
+    (f"k2 ({_ROWS * _SRC3}, {chip_smoke.SEQ}, 256) masked", "text_masked",
+     _ROWS * _SRC3, chip_smoke.SEQ, 256, _SRC3))
 
-def cases():
-    """chip_smoke.py's cases, from its seeds and its order of draws."""
+
+def cases(words=None):
+    """chip_smoke.py's cases, from its seeds and its order of draws (K3's
+    and the new K2 cases at its shapes, from seed 19), those whose name
+    holds one of `words` (all without)."""
     made = {}
     gen = torch.Generator(device="cuda").manual_seed(18)
     for d, s, bh, heads in chip_smoke.HD_LONG_CASES:
@@ -143,6 +185,15 @@ def cases():
         c["g_lse"] = torch.randn(c["q"].shape[:3], generator=gen,
                                  device="cuda")
         made[name] = c
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for name, kind, bh, s, d, heads in K3_CASES:
+        made[name] = chip_smoke.long_case(kind, torch.bfloat16, gen, bh, s=s,
+                                          d=d, heads=heads)
+    for name, kind, bh, s, d, heads in K2_CASES:
+        made[name] = chip_smoke.backward_case(kind, torch.bfloat16, gen, s=s,
+                                              bh=bh, d=d, heads=heads)
+    if words:
+        made = {n: c for n, c in made.items() if any(w in n for w in words)}
     return made
 
 
@@ -155,6 +206,25 @@ def errors(a, b) -> dict:
     return {"rel_l2": ((a - b).norm() / b.norm()).item(),
             "max_abs": (a - b).abs().max().item(),
             "past_element_bar": int(past.sum())}
+
+
+def k3_errors(c) -> dict:
+    """R1 + K3's out against the plain version (the element bar, and
+    whether BF16_REL_L2 holds) and against its tiled order
+    (K3_TILED_REL_L2), lse's max abs error (LSE_ATOL), and the body K3
+    ran."""
+    out, lse = chip_smoke.run_online_kernel(c)
+    res = {"out": errors(out, c["out"])}
+    res["out"]["within_rel_l2_bar"] = (
+        res["out"]["rel_l2"] <= kernel.BF16_REL_L2)
+    tiled = chip_smoke.rel_l2(out, chip_smoke.run_online_tiled_plain(c))
+    res["out_tiled"] = {"rel_l2": tiled,
+                        "within_bar": tiled <= kernel.K3_TILED_REL_L2}
+    lse_err = (lse - c["lse"]).abs().max().item()
+    res["lse"] = {"max_abs": lse_err, "within_bar": lse_err <=
+                  kernel.LSE_ATOL}
+    res["body"] = kernel.flash_fwd_online.last_source
+    return res
 
 
 def kernel_grads(name, c):
@@ -220,14 +290,23 @@ def plain_dq(c, order: str, stats) -> torch.Tensor:
                            qsin).to(dt)
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cases", nargs="+", default=None,
+                    help="run the cases whose name holds one of these")
+    words = ap.parse_args(argv).cases
     if not torch.cuda.is_available():
         raise SystemExit("wide_sum_order runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    made = cases()
+    made = cases(words)
     for order in ("fma_chain", "tensor_cores", "k16_from_zero"):
         use_order(order)
         for name, c in made.items():
+            if name.startswith("k3"):
+                print(f"{order} {name}: {json.dumps(k3_errors(c))}",
+                      flush=True)
+                torch.cuda.empty_cache()
+                continue
             got, want, _ = kernel_grads(name, c)
             res = {g: errors(a, b)
                    for g, a, b in zip(("dq", "dk", "dv"), got, want)}
@@ -239,6 +318,8 @@ def main() -> None:
             torch.cuda.empty_cache()
     use_order("fma_chain")
     for name, c in made.items():
+        if name.startswith("k3"):
+            continue
         _, want, stats = kernel_grads(name, c)
         for order in ("plain_fp64", "plain_k16"):
             res = errors(plain_dq(c, order, stats), want[0])

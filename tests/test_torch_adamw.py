@@ -42,6 +42,10 @@ from meant_tpu_torch.ops.adamw import (adamw_reference, adamw_update,
                                        fused_adamw, update_scalars)
 from meant_tpu_torch.train.optim import build_optimizer, epoch_schedule
 
+import torch_threads
+
+torch_threads.share_cores()
+
 RTOL, ATOL = 1e-6, 1e-9
 PROBE = Path(__file__).resolve().parents[1] / "scripts" / \
     "probe_fused_adamw.py"

@@ -26,6 +26,10 @@ from meant_tpu_torch.data.loader import BucketedLoader
 from meant_tpu_torch.models import EmbeddingConfig, meant_src
 from meant_tpu_torch.weights import load_jax_params
 
+import torch_threads
+
+torch_threads.share_cores()
+
 GEOM = dict(text_dim=64, image_dim=64, price_dim=5, height=32, width=32,
             patch_res=16, lag=5, num_classes=2, num_heads=2, num_encoders=2,
             channels=3, seq_len=32)

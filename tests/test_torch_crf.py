@@ -23,6 +23,10 @@ from meant_tpu_torch.cli.common import load_config
 from meant_tpu_torch.nn.crf import CRF, CRFTokenClassifier, bio_constraint_mask
 from meant_tpu_torch.weights import load_jax_params
 
+import torch_threads
+
+torch_threads.share_cores()
+
 B, S, T = 4, 12, 5
 ID2LABEL = {0: "B-a", 1: "I-a", 2: "B-b", 3: "I-b", 4: "O"}
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -45,7 +49,7 @@ def _inputs(seed=0):
 
 @pytest.fixture(scope="module")
 def crfs():
-    params = jax.tree.map(np.asarray, JCRF(T).init(
+    params = jax.tree.map(np.asarray, jax.jit(JCRF(T).init)(
         jax.random.PRNGKey(0), *map(jnp.asarray, _inputs()))["params"])
     # transitions large enough that the constraint and the path matter
     params = jax.tree.map(lambda a: a * 50.0, params)
@@ -99,9 +103,9 @@ def test_viterbi_matches_jax(crfs, constrained, tie):
         port = CRF(T, device="cpu")
         load_jax_params(port, params)
     cm = bio_constraint_mask(ID2LABEL) if constrained else None
-    want_path, want_score = JCRF(T).apply(
-        {"params": params}, jnp.asarray(emis), jnp.asarray(mask),
-        constraint_mask=cm, method=JCRF.viterbi)
+    want_path, want_score = jax.jit(lambda p, e, m: JCRF(T).apply(
+        {"params": p}, e, m, constraint_mask=cm, method=JCRF.viterbi))(
+        params, jnp.asarray(emis), jnp.asarray(mask))
     path, score = port.viterbi(torch.as_tensor(emis), torch.as_tensor(mask),
                                constraint_mask=cm)
     np.testing.assert_array_equal(path.numpy(), np.asarray(want_path))

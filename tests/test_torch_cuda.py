@@ -48,12 +48,17 @@ from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
                                        flash_mha_online_reference,
                                        flash_mha_reference, rotate_qk)
 from meant_tpu_torch.ops.flash.flash_attention import _tables
-from meant_tpu_torch.ops.flash.kernel import (BF16_REL_L2, BWD_BF16_ATOL,
-                                              BWD_BF16_REL_L2, K1_BF16_REL_L2,
-                                              LSE_ATOL, WIDE_SOURCE, _rotate)
+from meant_tpu_torch.ops.flash.kernel import (
+    BF16_REL_L2, BWD_BF16_ATOL, BWD_BF16_REL_L2, K1_BF16_REL_L2,
+    K3_TILED_REL_L2, LSE_ATOL, WIDE_SOURCE, _rotate,
+    flash_mha_online_tiled_reference)
 from meant_tpu_torch.tools.k45_masked_row import errors as fp64_errors
 from meant_tpu_torch.tools.k45_masked_row import grads_fp64
 from meant_tpu_torch.train.classify import meant_trainer
+
+import torch_threads
+
+torch_threads.share_cores()
 
 pytestmark = pytest.mark.cuda
 
@@ -943,8 +948,9 @@ def test_online_kernels_at_odd_and_wide_head_dims(cuda, dtype, lengths, d):
 def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
     """K4's and K5's last_source: their wgmma bodies (the library's own
     source) in bf16 at an even d padded to 192 or 256; the wide body at an
-    odd d (the adjoint's wrap), past 256 and in fp32. K3 past 128 stays on
-    the wide body."""
+    odd d (the adjoint's wrap), past 256 and in fp32. K3 runs its wgmma
+    body in bf16 at a padded width of 192 or 256, an odd d included (a
+    forward has no adjoint), and the wide body in fp32 and past 256."""
     gen = torch.Generator(device=cuda).manual_seed(d)
     q, k, v, do, tables, mask, causal = _shape_case(
         cuda, dtype, d, 130, 130, "xpos_causal", gen)
@@ -957,7 +963,90 @@ def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
     for launcher in (flash_bwd_dq, flash_bwd_dkdv):
         want = launcher.source if wgmma else WIDE_SOURCE
         assert launcher.last_source == want, launcher.symbol
-    assert flash_fwd_online.last_source == WIDE_SOURCE
+    k3_wgmma = dtype == torch.bfloat16 and d <= 256
+    assert flash_fwd_online.last_source == (
+        flash_fwd_online.source if k3_wgmma else WIDE_SOURCE)
+
+
+@pytest.mark.parametrize("d,dtype,wgmma", [
+    (160, torch.bfloat16, True), (192, torch.bfloat16, True),
+    (200, torch.bfloat16, True), (256, torch.bfloat16, True),
+    (191, torch.bfloat16, False), (384, torch.bfloat16, False),
+    (192, torch.float32, False), (256, torch.float32, False)])
+def test_resident_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
+    """K2's last_source: its wgmma bodies (csrc/flash_bwd.cu) in bf16 at an
+    even d padded to 192 or 256; the wide body at an odd d (the adjoint's
+    wrap), past 256 and in fp32. K1 keeps the wide body past 128."""
+    gen = torch.Generator(device=cuda).manual_seed(d + 1)
+    q, k, v, do, tables, mask, causal = _shape_case(
+        cuda, dtype, d, 130, 130, "masked", gen)
+    _autograd_path(q, k, v, do, tables, mask, causal)
+    torch.cuda.synchronize()
+    assert flash_bwd.last_source == (flash_bwd.source if wgmma
+                                     else WIDE_SOURCE)
+    assert flash_fwd.last_source == WIDE_SOURCE
+
+
+@pytest.mark.parametrize("case", ["masked", "pixel"])
+@pytest.mark.parametrize("lengths", [(65, 65), (196, 196), (512, 512),
+                                     (130, 70), (70, 200)])
+@pytest.mark.parametrize("d", [160, 192, 200, 256])
+def test_k2_wgmma_bodies_past_128_match_plain(cuda, case, lengths, d):
+    """K2 in bf16 at even head dims padded to 192 and 256 (its wgmma
+    bodies: the dq kernel's statistics pass on one or two consumer
+    warpgroups) through flash_mha and autograd, one launch of R1, K1 and
+    K2 a call: the gradients against flash_mha_bwd_reference at K2's bars,
+    out against flash_mha_reference at K1's."""
+    s_q, s_k = lengths
+    gen = torch.Generator(device=cuda).manual_seed(d * 1000 + s_q + s_k)
+    q, k, v, do, tables, mask, causal = _shape_case(
+        cuda, torch.bfloat16, d, s_q, s_k, case, gen)
+    before = (rotate_qk.launches, flash_fwd.launches, flash_bwd.launches)
+    out, grads = _autograd_path(q, k, v, do, tables, mask, causal)
+    torch.cuda.synchronize()
+    assert (rotate_qk.launches, flash_fwd.launches, flash_bwd.launches) == \
+        tuple(b + 1 for b in before)
+    assert flash_bwd.last_source == flash_bwd.source
+    ref = flash_mha_reference(q, k, v, mask, *tables, scale=0.1,
+                              causal=causal)
+    _assert_out_close(out, ref, torch.bfloat16, K1_BF16_REL_L2)
+    want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
+                                   causal=causal)
+    _assert_grads_close(grads, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["xpos_causal", "masked", "pixel"])
+@pytest.mark.parametrize("lengths", [(65, 65), (1024, 1024), (4096, 4096),
+                                     (256, 257)])
+@pytest.mark.parametrize("d", [160, 192, 200, 256])
+def test_k3_wgmma_body_past_128_matches_plain(cuda, case, lengths, d):
+    """R1 + K3 in bf16 at even head dims padded to 192 and 256 (the
+    forward's wgmma body at those widths) through flash_mha(return_lse=
+    True), one launch each: out at K3's bars against
+    flash_mha_online_reference and at K3_TILED_REL_L2 against its tiled
+    order, lse within LSE_ATOL."""
+    s_q, s_k = lengths
+    gen = torch.Generator(device=cuda).manual_seed(d * 7 + s_q + s_k)
+    q, k, v, _, tables, mask, causal = _shape_case(
+        cuda, torch.bfloat16, d, s_q, s_k, case, gen)
+    before = (rotate_qk.launches, flash_fwd_online.launches)
+    with torch.no_grad():
+        out, lse = flash_mha(q, k, v, scale=0.1, causal=causal,
+                             attention_mask=mask, qcos=tables[0],
+                             qsin=tables[1], kcos=tables[2], ksin=tables[3],
+                             return_lse=True)
+    torch.cuda.synchronize()
+    assert (rotate_qk.launches, flash_fwd_online.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert flash_fwd_online.last_source == flash_fwd_online.source
+    ref, ref_lse = flash_mha_online_reference(q, k, v, mask, *tables,
+                                              scale=0.1, causal=causal)
+    _assert_out_close(out, ref, torch.bfloat16)
+    assert (lse[..., 0] - ref_lse).abs().max() <= LSE_ATOL
+    tiled = flash_mha_online_tiled_reference(q, k, v, mask, *tables,
+                                             scale=0.1, causal=causal)[0]
+    rel = (out.float() - tiled.float()).norm() / tiled.float().norm()
+    assert rel <= K3_TILED_REL_L2, f"rel L2 {rel} against the tiled order"
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 1027, 1 << 20])

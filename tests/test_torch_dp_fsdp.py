@@ -44,6 +44,10 @@ from meant_tpu_torch.weights import state_dict_from_jax
 
 import torch_ranks as R
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 class _NoDropout:
     """The JAX model with dropout off inside the JAX trainer's step."""

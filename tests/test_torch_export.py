@@ -22,6 +22,10 @@ from meant_tpu_torch.cli import serve as serve_cli
 from meant_tpu_torch.models import EmbeddingConfig, meant_src
 from meant_tpu_torch.serve import Predictor, export_forward, load_exported
 
+import torch_threads
+
+torch_threads.share_cores()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOM = dict(text_dim=64, image_dim=64, price_dim=5, height=32, width=32,
             patch_res=16, lag=3, num_classes=2, num_heads=2, num_encoders=2,

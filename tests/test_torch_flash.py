@@ -15,6 +15,10 @@ from meant_tpu_torch.ops.flash import (flash_attention, flash_fwd,
                                        flash_mha, flash_mha_reference)
 from meant_tpu_torch.ops.flash.kernel import identity_tables
 
+import torch_threads
+
+torch_threads.share_cores()
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

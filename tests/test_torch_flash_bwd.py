@@ -28,6 +28,10 @@ from meant_tpu_torch.ops.flash import (flash_attention, flash_bwd,
 from meant_tpu_torch.ops.flash.flash_attention import _tables
 from meant_tpu_torch.ops.flash.kernel import identity_tables
 
+import torch_threads
+
+torch_threads.share_cores()
+
 D = 96
 
 

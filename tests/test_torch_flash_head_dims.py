@@ -42,6 +42,10 @@ from meant_tpu_torch.ops.flash.kernel import rotate_half_lanes
 from meant_tpu_torch.ops.rotary import rotate_half
 from meant_tpu_torch.weights import state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 RTOL, ATOL = 1e-4, 1e-5
 B, H, S = 1, 2, 16
 
@@ -121,7 +125,8 @@ def test_attention_modules_with_flash_at_odd_head_dims(module, width, heads):
     jcls, tcls = (JXPos, XPosAttention) if module == "xpos" else (
         JRotary, RotaryAttention)
     jm = jcls(num_heads=heads, dim=width, flash=True)
-    params = jax.tree.map(np.asarray, jcls(num_heads=heads, dim=width).init(
+    params = jax.tree.map(np.asarray, jax.jit(
+        jcls(num_heads=heads, dim=width).init)(
         jax.random.PRNGKey(1), jnp.asarray(x))["params"])
 
     def loss(p, x_):

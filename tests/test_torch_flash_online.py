@@ -43,6 +43,10 @@ from meant_tpu_torch.ops.flash.kernel import (
 from meant_tpu_torch.train.classify import sigmoid_ce_loss
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 D = 96
 RTOL, ATOL = 1e-4, 1e-5
 COUNTERS = (flash_fwd, flash_fwd_online, flash_bwd_dq, flash_bwd_dkdv)
@@ -332,7 +336,8 @@ def test_xpos_attention_s3200_matches_jax():
     x = (rng.randn(1, s, dim) * 0.5).astype(np.float32)
     dy = rng.randn(1, s, dim).astype(np.float32)
     jm = JXPos(num_heads=1, dim=dim, flash=True)
-    params = jax.tree.map(np.asarray, JXPos(num_heads=1, dim=dim).init(
+    params = jax.tree.map(np.asarray, jax.jit(
+        JXPos(num_heads=1, dim=dim).init)(
         jax.random.PRNGKey(3), jnp.asarray(x[:, :8]))["params"])
 
     def loss(p, x_):

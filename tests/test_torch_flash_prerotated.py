@@ -40,6 +40,10 @@ from meant_tpu.ops.flash import kernel as jkernel
 from meant_tpu.ops.flash.flash_attention import _tables as j_tables
 from meant_tpu_torch.ops.flash.kernel import _adjoint, _rotate
 
+import torch_threads
+
+torch_threads.share_cores()
+
 D = 96
 S = 200
 B, H = 2, 2                      # kmask rows, heads: BH = 4

@@ -32,6 +32,10 @@ from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv, flash_bwd_dq,
                                        flash_fwd_online, rotate_qk)
 from meant_tpu_torch.ops.flash.kernel import _rotate, identity_tables
 
+import torch_threads
+
+torch_threads.share_cores()
+
 D = 96
 BH = 3
 DTYPES = {"float32": (jnp.float32, torch.float32),

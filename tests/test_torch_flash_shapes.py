@@ -36,6 +36,10 @@ from meant_tpu_torch.ops.flash.kernel import (_adjoint, _flat,
                                               flash_mha_reference,
                                               kernel_head_dim)
 
+import torch_threads
+
+torch_threads.share_cores()
+
 RTOL, ATOL = 1e-4, 1e-5
 B, H = 2, 2
 

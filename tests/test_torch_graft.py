@@ -28,6 +28,10 @@ from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train import pretrain
 from meant_tpu_torch.weights import state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 # flags both packages' parsers take; the port's runs add --device cpu
 WIDTHS = ["-nec", "2", "--seq_len", "12", "--image_size", "32",
           "--text_dim", "32", "--image_dim", "32", "--num_heads", "4",

@@ -42,6 +42,10 @@ from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import model_inputs
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 B, S, D, H, VOCAB, IMG = 2, 16, 64, 4, 200, 64
 SMALL = dict(input_dim=D, vocab_size=VOCAB, num_layers=2, num_heads=H)
 
@@ -103,10 +107,10 @@ def test_patch_conv_matches_flax_conv(hw):
     from flax import linen as nn
     x = np.random.RandomState(17).randn(B, 4, *hw).astype(np.float32)
     jm = nn.Conv(D, (32, 32), strides=(32, 32))
-    params = _np(jm.init(jax.random.PRNGKey(0), x.transpose(0, 2, 3, 1))
-                 ["params"])
-    want = np.asarray(jm.apply({"params": params},
-                               x.transpose(0, 2, 3, 1))).transpose(0, 3, 1, 2)
+    params = _np(jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                  x.transpose(0, 2, 3, 1))["params"])
+    want = np.asarray(jax.jit(lambda p, x_: jm.apply({"params": p}, x_))(
+        params, x.transpose(0, 2, 3, 1))).transpose(0, 3, 1, 2)
     holder = torch.nn.Module()
     holder.patch_projection = PH.Conv(D, 4, 32, device="cpu")
     load_jax_params(holder, {"patch_projection": params})
@@ -276,8 +280,9 @@ def _jax_cli_params(name, argv):
     batch = j_synthetic_batch(jargs)
     a, kw = j_model_inputs(name, {k: jnp.asarray(v)
                                   for k, v in batch.items()})
-    return jm, _np(jm.init(jax.random.PRNGKey(0), *a, **kw)["params"]), \
-        batch
+    params = jax.jit(lambda key: jm.init(key, *a, **kw))(
+        jax.random.PRNGKey(0))["params"]
+    return jm, _np(params), batch
 
 
 @pytest.mark.parametrize("name", HF_NAMES)
@@ -289,7 +294,8 @@ def test_build_model_matches_jax_cli(name):
     jm, params, batch = _jax_cli_params(name, argv)
     a, kw = j_model_inputs(name, {k: jnp.asarray(v)
                                   for k, v in batch.items()})
-    want = np.asarray(jm.apply({"params": params}, *a, **kw))
+    want = np.asarray(jax.jit(lambda p: jm.apply({"params": p}, *a, **kw))(
+        params))
     port = build_model(base_parser().parse_args(argv + ["--device", "cpu"]))
     assert type(port).__name__ == type(jm).__name__
     load_jax_params(port, params)

@@ -41,6 +41,10 @@ from meant_tpu_torch.nn import hf_baselines, roberta
 from meant_tpu_torch.utils import hf_cache, port
 from meant_tpu_torch.weights import state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 transformers = pytest.importorskip("transformers")
 safetensors_torch = pytest.importorskip("safetensors.torch")
 

@@ -21,6 +21,10 @@ from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import sigmoid_ce_loss
 from meant_tpu_torch.utils import metrics as tm
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 @pytest.mark.parametrize("num_classes", [2, 3])
 def test_metrics_match_jax(num_classes):

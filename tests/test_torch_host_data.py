@@ -37,6 +37,10 @@ from meant_tpu_torch.data_engineering import (dataprep, image_prep,
 from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.classify import meant_trainer
 
+import torch_threads
+
+torch_threads.share_cores()
+
 # meant_tpu.data's __init__ binds the name `smote` to the function
 j_smote = importlib.import_module("meant_tpu.data.smote")
 

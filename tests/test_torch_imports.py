@@ -9,6 +9,10 @@ from pathlib import Path
 
 import pytest
 
+import torch_threads
+
+torch_threads.share_cores()
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "meant_tpu", "safetensors",
              "transformers", "pandas")

@@ -32,6 +32,10 @@ from meant_tpu_torch.nn.encoders import TemporalEncoder
 from meant_tpu_torch.train.classify import sigmoid_ce_loss
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 D, HEADS, ENC, B, S, LAG = 192, 2, 2, 2, 48, 5
 CHART = dict(height=32, width=32, patch_res=16)
 EMB = dict(vocab_size=100, hidden_size=D, max_position_embeddings=40,
@@ -342,8 +346,8 @@ def test_temporal_encoder_styles_match_jax(style, dtype):
     tdt = None if dtype == "float32" else torch.bfloat16
     jm = JTemporalEncoder(dim, heads, LAG, style=style, dtype=jdt)
     jx = jnp.asarray(x, jdt or jnp.float32)
-    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(4),
-                                              jx)["params"])
+    params = jax.tree.map(np.asarray, jax.jit(jm.init)(
+        jax.random.PRNGKey(4), jx)["params"])
     want = jax.jit(lambda p: jm.apply({"params": p}, jx))(params)
     tm = TemporalEncoder(dim, heads, LAG, style=style, dtype=tdt,
                          device="cpu").eval()

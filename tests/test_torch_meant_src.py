@@ -22,6 +22,10 @@ from meant_tpu_torch.models import EmbeddingConfig, meant_src
 from meant_tpu_torch.nn.embeddings import RobertaEmbeddings, clamped_lookup
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 GEOM = dict(text_dim=192, image_dim=192, price_dim=5, height=32, width=32,
             patch_res=16, lag=5, num_classes=2, num_heads=2, num_encoders=2,
             channels=3, seq_len=48)
@@ -45,7 +49,7 @@ def _jax_run(fixed_proj, dtype=None):
     model = JMeantSrc(embedding=JEmb(**EMB), fixed_proj=fixed_proj,
                       dtype=dtype, **GEOM)
     batch = {k: jnp.asarray(v) for k, v in _batch().items()}
-    params = model.init(jax.random.PRNGKey(1), **batch)["params"]
+    params = jax.jit(model.init)(jax.random.PRNGKey(1), **batch)["params"]
     out, state = jax.jit(lambda p, b: model.apply(
         {"params": p}, **b, capture_intermediates=True))(params, batch)
     inter = state["intermediates"]
@@ -160,7 +164,7 @@ def test_position_ids_clamp_to_last_row_like_jax():
     clamps them to row 39; the port clamps the same way."""
     ids = np.random.RandomState(3).randint(2, 100, (2, S)).astype(np.int32)
     jm = JRoberta(vocab_size=100, hidden_size=192, max_position_embeddings=40)
-    jp = jm.init(jax.random.PRNGKey(2), jnp.asarray(ids))["params"]
+    jp = jax.jit(jm.init)(jax.random.PRNGKey(2), jnp.asarray(ids))["params"]
     j_out = np.asarray(jax.jit(lambda p, x: jm.apply({"params": p}, x))(
         jp, jnp.asarray(ids)))
     tm = RobertaEmbeddings(vocab_size=100, hidden_size=192,

@@ -14,6 +14,10 @@ from meant_tpu_torch import native
 from meant_tpu_torch.cli import hug_train, in_loop_genia, tweet_eval
 from meant_tpu_torch.data import datasets
 
+import torch_threads
+
+torch_threads.share_cores()
+
 TEXTS = ["", "one", "  two  spaced   words ", "a\tb", "line\nbreak here",
          "tab\t and\r\nCRLF", "\t\n", "w12 w7 w12 w999 " * 20,
          "naïve café, déjà-vu!", "$AAPL to the moon 🚀 #stocks"]

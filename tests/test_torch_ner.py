@@ -27,6 +27,10 @@ from meant_tpu_torch.data.loader import ArrayLoader, host_tensor
 from meant_tpu_torch.train import ner
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 GEOMETRY = dict(num_labels=5, vocab_size=200, hidden_size=32, num_layers=2,
                 num_heads=4, dropout=0.0)
 B, S = 4, 16

@@ -42,6 +42,10 @@ from meant_tpu_torch.cli import (checkpoint_train, common, hug_pretrain_mlm,
 from meant_tpu_torch.data.datasets import synthetic_tempstock
 from meant_tpu_torch.nn.crf import bio_constraint_mask
 
+import torch_threads
+
+torch_threads.share_cores()
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(os.listdir(os.path.join(ROOT, "meant_tpu", "configs")))
 TINY = ["-nec", "2", "--seq_len", "16", "--text_dim", "32", "--num_heads",

@@ -16,6 +16,10 @@ import torch
 from meant_tpu.utils import observability as j_obs
 from meant_tpu_torch.utils import observability as obs
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 @pytest.mark.parametrize("alpha", [0.0, 0.5, 0.9])
 def test_ema_smooth_matches_jax(alpha):

@@ -12,6 +12,10 @@ from meant_tpu.ops.flash.flash_attention import _tables as j_tables
 from meant_tpu_torch import ops as tops
 from meant_tpu_torch.ops.flash.flash_attention import _tables as t_tables
 
+import torch_threads
+
+torch_threads.share_cores()
+
 RTOL, ATOL = 1e-5, 1e-6
 
 
@@ -161,12 +165,13 @@ def test_temporal_attention_module(variant, dim):
 
     x = _rand(3, 5, dim, seed=20)
     jm = JTA(8, dim, variant=variant, init_style="xavier")
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
     tm = TemporalAttention(8, dim, variant=variant, init_style="xavier")
     tm.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray,
                                                         params)))
     with torch.no_grad():
         t = tm(torch.as_tensor(x))
-    j = jm.apply({"params": params}, jnp.asarray(x))
+    j = jax.jit(lambda p, x_: jm.apply({"params": p}, x_))(params,
+                                                          jnp.asarray(x))
     assert t.shape == j.shape
     _close(t, j, rtol=1e-5, atol=1e-5)

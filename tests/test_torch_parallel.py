@@ -37,6 +37,10 @@ from meant_tpu_torch.weights import state_dict_from_jax
 
 import torch_ranks as R
 
+import torch_threads
+
+torch_threads.share_cores()
+
 
 class _Mesh:
     """A stand-in for a DeviceMesh: its axis names and sizes, rank 0."""

@@ -34,6 +34,10 @@ from meant_tpu_torch.weights import state_dict_from_jax
 
 import torch_ranks as R
 
+import torch_threads
+
+torch_threads.share_cores()
+
 STAGES = 8
 
 

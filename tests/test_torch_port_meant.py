@@ -32,6 +32,10 @@ from meant_tpu_torch import models
 from meant_tpu_torch.utils import port as tport
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 D, LAG = 16, 3
 
 

@@ -35,6 +35,10 @@ from meant_tpu_torch.data.loader import host_tensor
 from meant_tpu_torch.train import pretrain
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 D, HEADS, ENC, B, S, VOCAB, SIZE = 192, 2, 2, 2, 48, 100, 64
 EMB = dict(vocab_size=VOCAB, hidden_size=D, dropout=0.0)
 LANG = dict(num_encoders=ENC, text_dim=D, num_heads=HEADS, ff_dropout=0.0)

@@ -44,6 +44,10 @@ from meant_tpu_torch.nn.layers import Linear
 from meant_tpu_torch.serve import Predictor
 from meant_tpu_torch.weights import load_jax_params
 
+import torch_threads
+
+torch_threads.share_cores()
+
 D, ENC, S, LAG, B = 64, 2, 12, 3, 6
 EMB = dict(vocab_size=100, hidden_size=D, max_position_embeddings=40,
            dropout=0.0)
@@ -121,7 +125,8 @@ def test_quantizes_wide_layers_only_as_jax():
             return fnn.Dense(2, name="head")(fnn.Dense(128, name="wide")(x))
 
     x = np.random.RandomState(1).randn(8, 64).astype(np.float32)
-    params = M().init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = jax.jit(M().init)(jax.random.PRNGKey(0), jnp.asarray(x))[
+        "params"]
     wide, head = Linear(128, 64, device="cpu"), Linear(2, 128, device="cpu")
     with torch.no_grad():
         for mod, name in ((wide, "wide"), (head, "head")):
@@ -247,12 +252,26 @@ def _jax_params(name, jmodel, batch):
                                 **kwargs)["params"], args, kwargs
 
 
+@pytest.fixture(scope="module")
+def jax_case():
+    """JAX's model, the batch and `_jax_params` of a CASES name, drawn once
+    for the file's cases of that name."""
+    made = {}
+
+    def get(name):
+        if name not in made:
+            jfactory, _, make_batch, _ = CASES[name]
+            batch, jmodel = make_batch(), jfactory()
+            made[name] = (jmodel, batch, *_jax_params(name, jmodel, batch))
+        return made[name]
+
+    return get
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_int8_predictor_matches_jax(name):
-    jfactory, pfactory, make_batch, key = CASES[name]
-    batch = make_batch()
-    jmodel = jfactory()
-    params, _, _ = _jax_params(name, jmodel, batch)
+def test_int8_predictor_matches_jax(name, jax_case):
+    _, pfactory, _, key = CASES[name]
+    jmodel, batch, params, _, _ = jax_case(name)
     serve_jax = JPredictor(jmodel, name, params=params, batch_size=B,
                            quantize="int8")
     want = serve_jax(batch)
@@ -272,15 +291,13 @@ def test_int8_predictor_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_int8_quantizes_the_layers_jax_quantizes(name):
+def test_int8_quantizes_the_layers_jax_quantizes(name, jax_case):
     """One int8 forward runs one int8 product for each `nn.Dense` call of
     32 or more features that JAX's interceptor catches: the raw Dense
     layers quantize, the attention's DenseGeneral projections, the
     embeddings and the narrow heads do not."""
-    jfactory, pfactory, make_batch, _ = CASES[name]
-    batch = make_batch()
-    jmodel = jfactory()
-    params, args, kwargs = _jax_params(name, jmodel, batch)
+    pfactory = CASES[name][1]
+    jmodel, batch, params, args, kwargs = jax_case(name)
     caught = []
 
     def count(next_fun, a, kw, context):
@@ -290,8 +307,9 @@ def test_int8_quantizes_the_layers_jax_quantizes(name):
             caught.append(mod.name)
         return next_fun(*a, **kw)
 
-    with fnn.intercept_methods(count):
-        jmodel.apply({"params": params}, *args, **kwargs)
+    with fnn.intercept_methods(count):      # caught while jit traces
+        jax.jit(lambda p: jmodel.apply({"params": p}, *args, **kwargs))(
+            params)
     port = pfactory(device="cpu").eval()
     load_jax_params(port, jax.tree.map(np.asarray, params))
     from meant_tpu_torch.train.classify import model_inputs

@@ -31,6 +31,10 @@ from meant_tpu_torch.weights import state_dict_from_jax
 
 import torch_ranks
 
+import torch_threads
+
+torch_threads.share_cores()
+
 B, H, S, D = 2, 4, 256, 32
 SCALE = 1.0 / np.sqrt(D)
 WORLD = 4

@@ -22,6 +22,10 @@ from meant_tpu.nn import roberta as J
 from meant_tpu_torch.nn import roberta as P
 from meant_tpu_torch.weights import load_jax_params
 
+import torch_threads
+
+torch_threads.share_cores()
+
 B, S, D, H, VOCAB = 2, 20, 64, 4, 200
 SMALL = dict(input_dim=D, vocab_size=VOCAB, num_layers=2, num_heads=H)
 BF16_ATOL = 2e-2

@@ -10,6 +10,10 @@ from meant_tpu_torch.models import EmbeddingConfig, meant_src
 from meant_tpu_torch.serve import Predictor
 from meant_tpu_torch.train import checkpoint as ckpt
 
+import torch_threads
+
+torch_threads.share_cores()
+
 GEOM = dict(text_dim=32, image_dim=32, price_dim=5, height=32, width=32,
             patch_res=16, lag=5, num_classes=2, num_heads=4, num_encoders=1,
             channels=3, seq_len=16)

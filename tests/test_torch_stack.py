@@ -30,6 +30,10 @@ from meant_tpu_torch.nn import stack
 from meant_tpu_torch.train.classify import seed_dropout
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 D, ENC, S, LAG, B = 64, 2, 12, 3, 2
 EMB = dict(vocab_size=100, hidden_size=D, max_position_embeddings=40,
            dropout=0.0)

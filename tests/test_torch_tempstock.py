@@ -24,6 +24,10 @@ from meant_tpu_torch.data.datasets import (load_tempstock_small,
 from meant_tpu_torch.serve import Predictor
 from meant_tpu_torch.train.classify import POSITIONAL_MODELS, model_inputs
 
+import torch_threads
+
+torch_threads.share_cores()
+
 TINY = ["-nec", "1", "--seq_len", "12", "--image_size", "32", "--text_dim",
         "32", "--image_dim", "32", "--vocab_size", "128", "--num_heads",
         "4", "-tb", "4", "--device", "cpu"]

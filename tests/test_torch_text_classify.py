@@ -30,6 +30,10 @@ from meant_tpu_torch.train.text_classify import (bce_loss,
                                                  text_classifier_trainer)
 from meant_tpu_torch.weights import load_jax_params
 
+import torch_threads
+
+torch_threads.share_cores()
+
 SMALL = dict(input_dim=64, output_dim=3, vocab_size=200, num_layers=2,
              num_heads=4)
 CLI = ["-nec", "1", "--seq_len", "12", "--text_dim", "32", "--num_heads",
@@ -79,8 +83,9 @@ def test_first_step_loss_matches_jax_at_shared_weights():
     jm = JBertweet(**SMALL)
     params = jax.tree.map(np.asarray, jax.jit(jm.init)(
         jax.random.PRNGKey(0), ids)["params"])
-    want = float(j_ce(jm.apply({"params": params}, jnp.asarray(ids)),
-                      jnp.asarray(y)))
+    want = float(jax.jit(lambda p, i: j_ce(jm.apply({"params": p}, i),
+                                           jnp.asarray(y)))(
+        params, jnp.asarray(ids)))
     model = bertweet_wrapper(device="cpu", **SMALL)
     load_jax_params(model, params)
     for m in model.modules():

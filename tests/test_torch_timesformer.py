@@ -37,6 +37,10 @@ from meant_tpu_torch.nn import timesformer as pts
 from meant_tpu_torch.train.classify import sigmoid_ce_loss
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 B, LAG = 2, 5
 
 
@@ -48,7 +52,8 @@ def _jax(module, *args, method_kwargs=None, **kwargs):
     a = [jnp.asarray(x) for x in args]
     kw = {k: jnp.asarray(v) for k, v in kwargs.items()}
     extra = method_kwargs or {}
-    params = module.init(jax.random.PRNGKey(5), *a, **kw, **extra)["params"]
+    params = jax.jit(lambda key, *t, **k: module.init(key, *t, **k, **extra))(
+        jax.random.PRNGKey(5), *a, **kw)["params"]
     out = jax.jit(lambda p: module.apply({"params": p}, *a, **kw,
                                          **extra))(params)
     return _np(params), np.asarray(out, np.float32)
@@ -140,12 +145,19 @@ def test_ts_attention_flash_groups_of_257_keys_gradients_match_jax():
     rot = jops.axial_rotary_sincos(16, 16, 16)
     call = dict(group_size=256, num_groups=2, group_axis_first=True)
     jm = jts.TSAttention(32, dim_head=16, heads=2, flash=True)
-    params = jm.init(jax.random.PRNGKey(7), jnp.asarray(x), rot_sincos=rot,
-                     **call)["params"]
-    out, vjp = jax.vjp(lambda p, xx: jm.apply({"params": p}, xx,
-                                              rot_sincos=rot, **call),
-                       params, jnp.asarray(x))
-    g_params, g_x = vjp(jnp.asarray(dout))
+    params = jax.jit(lambda key, xx: jm.init(key, xx, rot_sincos=rot,
+                                             **call))(
+        jax.random.PRNGKey(7), jnp.asarray(x))["params"]
+
+    @jax.jit
+    def forward_and_vjp(p, xx, g):
+        out, vjp = jax.vjp(lambda p_, x_: jm.apply({"params": p_}, x_,
+                                                   rot_sincos=rot, **call),
+                           p, xx)
+        return (out, *vjp(g))
+
+    out, g_params, g_x = forward_and_vjp(params, jnp.asarray(x),
+                                         jnp.asarray(dout))
     module = pts.TSAttention(32, dim_head=16, heads=2, flash=True,
                              device="cpu")
     load_jax_params(module, _np(params))
@@ -317,7 +329,7 @@ def test_meant_timesformer_step_gradients_match_jax_grad():
     y = np.array([1, 0], np.int32)
     jm = J.meant_timesformer(embedding=JEMB, flash=True, **GEOM)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    params = jm.init(jax.random.PRNGKey(6), **jb)["params"]
+    params = jax.jit(jm.init)(jax.random.PRNGKey(6), **jb)["params"]
 
     def loss_fn(p):
         return j_loss(jm.apply({"params": p}, **jb), jnp.asarray(y))

@@ -47,6 +47,10 @@ from meant_tpu_torch.weights import state_dict_from_jax
 
 import torch_ranks as R
 
+import torch_threads
+
+torch_threads.share_cores()
+
 GRAD_ATOL = 1e-4
 NORM_RTOL = 1e-4
 STEP_REL_L2 = 1e-5

@@ -52,6 +52,10 @@ from meant_tpu_torch.serve import Predictor
 from meant_tpu_torch.train.classify import meant_trainer, sigmoid_ce_loss
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 GEOM = dict(text_dim=64, image_dim=64, price_dim=5, height=32, width=32,
             patch_res=16, lag=5, num_classes=2, num_heads=2, num_encoders=2,
             channels=3, seq_len=16)

@@ -43,6 +43,10 @@ from meant_tpu_torch.train import checkpoint as ckpt
 from meant_tpu_torch.train.vqa import soft_target_ce, vqa_trainer
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 B, S, D, H, VOCAB, IMG, NC = 2, 24, 64, 4, 200, 64, 10
 GEOM = (D, D, 4, IMG, IMG, 16, 1, NC)
 KW = dict(num_heads=H, num_encoders=2, ff_dropout=0.0)

@@ -42,6 +42,10 @@ from meant_tpu_torch.train.classify import (model_inputs, row_outputs,
                                             sigmoid_ce_loss)
 from meant_tpu_torch.weights import load_jax_params, state_dict_from_jax
 
+import torch_threads
+
+torch_threads.share_cores()
+
 B, LAG, S = 2, 5, 48
 JEMB = J.EmbeddingConfig(vocab_size=100, hidden_size=192,
                          max_position_embeddings=40, dropout=0.0)
@@ -57,7 +61,7 @@ def _jax(module, *args, **kwargs):
     """JAX params (numpy) and output of `module` on numpy inputs."""
     a = [jnp.asarray(x) for x in args]
     kw = {k: jnp.asarray(v) for k, v in kwargs.items()}
-    params = module.init(jax.random.PRNGKey(3), *a, **kw)["params"]
+    params = jax.jit(module.init)(jax.random.PRNGKey(3), *a, **kw)["params"]
     out = jax.jit(lambda p: module.apply({"params": p}, *a, **kw))(params)
     return _np(params), np.asarray(out, np.float32)
 
@@ -238,8 +242,8 @@ def test_tweet_price_step_gradients_match_jax_grad():
     kw = dict(num_heads=2, num_encoders=2, flash=True)
     jm = J.meantTweetPrice(192, 5, LAG, 2, embedding=JEMB, **kw)
     ja = (jnp.asarray(tweets), jnp.asarray(prices))
-    params = jm.init(jax.random.PRNGKey(4), *ja,
-                     attention_mask=jnp.asarray(mask))["params"]
+    params = jax.jit(jm.init)(jax.random.PRNGKey(4), *ja,
+                              attention_mask=jnp.asarray(mask))["params"]
 
     def loss_fn(p):
         return j_loss(jm.apply({"params": p}, *ja,
@@ -286,8 +290,10 @@ def test_build_model_matches_jax_cli(name):
     batch = j_synthetic_batch(jargs)
     a, kw = j_model_inputs(name, {k: jnp.asarray(v)
                                   for k, v in batch.items()})
-    params = jm.init(jax.random.PRNGKey(0), *a, **kw)["params"]
-    want = np.asarray(jm.apply({"params": params}, *a, **kw))
+    params = jax.jit(lambda key: jm.init(key, *a, **kw))(
+        jax.random.PRNGKey(0))["params"]
+    want = np.asarray(jax.jit(lambda p: jm.apply({"params": p}, *a, **kw))(
+        params))
     port = build_model(base_parser().parse_args(argv + ["--device", "cpu"]))
     load_jax_params(port, _np(params))
     port.eval()
