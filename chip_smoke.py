@@ -269,8 +269,10 @@ raises and the script exits non-zero:
               adjoint wraps, and d past 128, which the wide bodies of
               csrc/flash_wide.cuh take (the contraction streamed over the
               width, the output in groups of 64-column chunks on a grid
-              axis) but for K2-K5 in bf16 at 192 and 256, which run wgmma
-              bodies built at those widths (HGMMA counted in each). R1 +
+              axis) but in bf16 for every kernel at 192 and 256 and for
+              K1 and K3 at 384 and 768 (their sliced ring), which run
+              wgmma bodies built at those widths (HGMMA counted in each,
+              in phase 12). R1 +
               K1 and K2 through flash_mha at d = 7, 95, 130,
               192, 256, 257, 384 and 768 (s=200, BH=16, causal xPos with a
               key mask, and plain), one launch of each a call, fp32 and
@@ -326,6 +328,7 @@ DIR/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -425,18 +428,23 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _sass_sections(path: str) -> tuple:
+    """The SASS of the library at `path` by cuobjdump, one section per
+    kernel function, its mangled name on the first line (read once)."""
+    from meant_tpu_torch.cuda_build import find_nvcc
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return tuple(sass.split("Function : ")[1:])
+
+
 def count_hgmma(name: str, function: str = "") -> int:
     """wgmma instructions (HGMMA) in the SASS of the built csrc/<name>.cu,
     or only in its kernel functions whose (mangled) name holds `function`,
     by cuobjdump; fails when there are none."""
-    import os
-    from meant_tpu_torch.cuda_build import _library_path, find_nvcc
-    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_library_path(name))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    # one section per kernel function, its mangled name on the first line
-    sections = [sec for sec in sass.split("Function : ")[1:]
+    from meant_tpu_torch.cuda_build import _library_path
+    sections = [sec for sec in _sass_sections(str(_library_path(name)))
                 if function in sec.split("\n", 1)[0]]
     n = sum("HGMMA" in line for sec in sections for line in sec.splitlines())
     where = f"{name} {function}".strip()
@@ -2683,7 +2691,8 @@ def count_new_hgmma() -> dict:
     """wgmma in every instantiation at head dims 64 and 128: K1, K3 (the
     forward body), K2's two kernels and K4 + K5; and at 192 and 256 (the
     bf16 bodies past d = 128) in K3's, K2's dq and dk/dv and K4's and K5's
-    own, each apart."""
+    own, each apart; K1's at 192, 256, 384 and 768 and K3's at 384 and 768
+    (the forwards' body, on its sliced ring past 256), each apart."""
     counts = {}
     for d in (64, 128):
         for label, lib, function in (
@@ -2702,6 +2711,12 @@ def count_new_hgmma() -> dict:
                 ("K5", "flash_bwd_online", "dkdv", 0)):
             function = f"flash_bwd_{kernel}_wgmma_kernelILb{stats}ELi{d}E"
             counts[f"{label} d{d}"] = count_hgmma(lib, function)
+    for label, function, widths in (
+            ("K1", "flash_fwd_wgmma_kernel", FWD_WGMMA_DIMS),
+            ("K3", "flash_fwd_lse_wgmma_kernel", SLICED_DIMS)):
+        for d in widths:
+            counts[f"{label} d{d}"] = count_hgmma(
+                "flash_fwd", f"{function}ILi{d}E")
     return counts
 
 
@@ -5056,7 +5071,10 @@ def time_layouts(layouts) -> list:
 
 # The flash path at the head dims the CLI's free --num_heads and --text_dim
 # reach beside 64, 96 and 128: odd d (the lanes' wrap in the rotation and
-# its adjoint) and d past 128 (the wide bodies of csrc/flash_wide.cuh).
+# its adjoint) and d past 128 (the wgmma bodies built at 192 and 256, and
+# for K1 and K3 at 384 and 768; the wide bodies of csrc/flash_wide.cuh at
+# the other widths, in fp32, and for the backwards at an odd d or past
+# 256).
 # Kernel level: R1 + K1 and K2 through flash_mha at HD_DIMS, causal xPos
 # with a key mask at s=200 (a ragged tile) and plain (the identity tables,
 # no mask, not causal: the TimeSformer group's form); R1 + K3, K4 and K5 at
@@ -5077,6 +5095,8 @@ SRC3_HEADS = 3             # meant_src --num_heads 3: 3 heads of 256
 FULL_STEPS = 3             # src4096 at 4 heads, 12 + 12 encoders: the
                            # median of steps 2-3
 WIDE_WGMMA_DIMS = (192, 256)   # K2-K5's bf16 wgmma bodies past d = 128
+SLICED_DIMS = (384, 768)       # K1's and K3's sliced ring
+FWD_WGMMA_DIMS = WIDE_WGMMA_DIMS + SLICED_DIMS   # K1's past d = 128
 # d = 384 and 768: one request and 2 steps each, the towers and one step's
 # gradients against flash=False
 WIDE_SERVE_HEADS = (2, 1)
@@ -5165,10 +5185,11 @@ def check_head_dims(res) -> dict:
     HD_DIMS against flash_mha_reference and flash_mha_bwd_reference, fp32
     and bf16, causal xPos with a key mask and plain; R1 bit for bit at the
     padded width; at an odd d the wrap term of column d-1 of dq and dk (the
-    plain backward's, against its value without the wrap) reproduced."""
+    plain backward's, against its value without the wrap) reproduced.
+    Records the body each launch ran."""
     from meant_tpu_torch.ops.flash.kernel import K1_BF16_REL_L2
     gen = torch.Generator(device="cuda").manual_seed(17)
-    errors, rels, wrap = {}, {}, {}
+    errors, rels, wrap, bodies = {}, {}, {}, {}
     for d in HD_DIMS:
         for kind in ("text_masked", "group"):
             for dtype in (torch.float32, torch.bfloat16):
@@ -5188,6 +5209,8 @@ def check_head_dims(res) -> dict:
                     errors[f"{label}/{g}"], rels[f"{label}/{g}"] = hold(
                         kernel, label, g, a, b, dtype, K1_BF16_REL_L2, unit)
                 errors[f"{label}/rot"] = check_r1_padded(c, label)
+                bodies[label] = {k: wrappers()[k].last_source
+                                 for k in ("K1", "K2")}
                 if d % 2 and kind != "group":
                     nowrap = nowrap_bwd(c)
                     for i, g in ((0, "dq"), (1, "dk")):
@@ -5211,6 +5234,7 @@ def check_head_dims(res) -> dict:
     res["head_dims_vs_plain_max_abs_err"] = errors
     res["head_dims_vs_plain_rel_l2"] = rels
     res["wrap"] = wrap
+    res["head_dims_bodies"] = bodies
     return errors
 
 
@@ -5235,12 +5259,13 @@ def check_head_dims_long(res) -> dict:
     without a key mask, fp32 and bf16: out at BF16_REL_L2 (and at
     K3_TILED_REL_L2 against K3's tiled order), lse within LSE_ATOL, the
     gradients at K2's bars against the plain backward fed the kernels' lse
-    and delta = rowsum(dO * out) - g_lse; R1 bit for bit."""
+    and delta = rowsum(dO * out) - g_lse; R1 bit for bit. Records the body
+    each launch ran."""
     from meant_tpu_torch.ops.flash.kernel import (
         BF16_REL_L2, K3_TILED_REL_L2, LSE_ATOL,
         flash_mha_bwd_online_reference)
     gen = torch.Generator(device="cuda").manual_seed(18)
-    errors, rels = {}, {}
+    errors, rels, bodies = {}, {}, {}
     for d, s, bh, heads in HD_LONG_CASES:
         tag = f"long_d{d}" if s == LONG_SEQ else f"long_d{d}_s{s}"
         for kind in ("text", "text_masked"):
@@ -5288,10 +5313,13 @@ def check_head_dims_long(res) -> dict:
                     errors[f"{label}/{g}"], rels[f"{label}/{g}"] = hold(
                         kernel, label, g, a, b, dtype, BF16_REL_L2)
                 errors[f"{label}/rot"] = check_r1_padded(c, label)
+                bodies[label] = {k: wrappers()[k].last_source
+                                 for k in ("K3", "K4", "K5")}
                 del c, out, lse, grads, want
                 torch.cuda.empty_cache()
     res["long_head_dims_vs_plain_max_abs_err"] = errors
     res["long_head_dims_vs_plain_rel_l2"] = rels
+    res["long_head_dims_bodies"] = bodies
     return errors
 
 

@@ -68,29 +68,49 @@
 // Head dims: both bodies are templates on D, built for 64, 96 and 128 (a
 // [64][D] tile is D / 32 TMA boxes; O += P V is m64nDk16); the wrapper pads
 // any other even d up to 128 with zero columns, and an odd d or one past
-// 128 to a multiple of 64, which (but for 64 and 128 themselves) takes the
-// wide body of flash_wide.cuh: the same function, the contraction streamed
-// over the width and the output cut into 64-column chunks on a grid axis.
-// K3 in bf16 also has wgmma instantiations at D = 192 and 256, the padded
-// widths of every d in (128, 256] (src4096 at --num_heads 4 and 3, and the
-// played ring's chunk); they replace _fwd_online_kernel there as at 96.
-// Bound at src4096's launches, (40, 4096, 192) and (30, 4096, 256) bf16
-// causal: two products over the causal triangle, 257.8 GFLOP (0.26 ms),
-// against 252 MB of qr, kr, v, o and lse (0.075 ms): by operations, as at
-// d = 96. The registers set the layout: O for 64 rows is 96 fp32 registers
-// a thread at 192 and 128 at 256 (the m64n256k16 product), beside S (32)
-// and P (16). Each consumer warpgroup holds all of O for its 64 rows, so no
-// product is repeated; the alternative, two warpgroups splitting O's
-// columns and each forming the rows' whole S (1.5x the tensor work), read
-// 1.23 / 1.02 ms against 0.97 / 0.85 for one warpgroup at (40, 4096, 192) /
-// (30, 4096, 256) (tools/k23_variants.py --kernels K3wide; PERF.md). At
-// 192 two such warpgroups a block (128 q rows, 288 threads; ptxas 168
-// registers) read 0.74: one warpgroup's softmax runs while the other's
-// products do. At 256 two read 1.39, with the two stages that fit beside
-// two Qr tiles, and one warpgroup (230 registers) with three stages reads
-// 0.82 against 0.85 with two. Shared memory: three stages of Kr + V and
-// the Qr tiles, 192 KB at 192 (two groups) and 224 KB at 256, within the
-// 227 KB a block may have. fp32 and K1 keep the wide body past 128.
+// 128 to a multiple of 64. In bf16 the wgmma body is also built at 192 and
+// 256 (the padded widths of every d in (128, 256]: meant_src --num_heads 4
+// and 3, src4096 at those heads, the played ring's chunk) and at 384 and
+// 768 (--num_heads 2 and 1) for both kernels; fp32 past 128 and every
+// other padded width past 256 take the wide body of flash_wide.cuh (the
+// same function, the contraction streamed over the width on FMA chains,
+// the output cut into 64-column chunks on a grid axis).
+// At 192 and 256 the registers set the layout: O for 64 rows is 96 fp32
+// registers a thread at 192 and 128 at 256 (the m64n256k16 product),
+// beside S (32) and P (16). Each consumer warpgroup holds all of O for its
+// 64 rows, so no product is repeated; the alternative, two warpgroups
+// splitting O's columns and each forming the rows' whole S (1.5x the
+// tensor work), read 1.23 / 1.02 ms against 0.97 / 0.85 for K3 with one
+// warpgroup at (40, 4096, 192) / (30, 4096, 256) (tools/k23_variants.py
+// --kernels K3wide; PERF.md). At 192 two such warpgroups a block (128 q
+// rows, 288 threads) let one warpgroup's softmax run while the other's
+// products do; at 256 one warpgroup with three stages (224 KB of shared
+// memory, 230 registers for K3) beats two with the two stages that fit
+// beside two Qr tiles. K1 takes the same groups, with two stages (1-3%
+// faster than three: tools/k1_variants.py --widths). Bound of K3 at
+// src4096's launches, (40, 4096, 192) and (30, 4096, 256) bf16 causal: two
+// products over the causal triangle, 257.8 GFLOP (0.26 ms), against 252 MB
+// (0.075 ms): by operations, as at d = 96; of K1 at (320, 512, 192) the
+// 0.0756 ms of its bytes.
+// At 384 and 768 O for 64 rows is 192 / 384 registers a thread, more than
+// a warpgroup holds, and a [64][768] Kr tile is 96 KB: the sliced ring.
+// O's columns are cut into groups of 384 on the grid's first axis (beside
+// the q block, so a q block's groups run together and share its Qr and Kr
+// in L2: one group at 384, two at 768). A block is one q-row group of 64
+// and two consumer warpgroups, each holding 192 of the group's columns (96
+// registers) and forming the rows' whole S over every column of D, from
+// the resident Qr tile (48 KB at 384, 96 KB at 768) and Kr streamed
+// through the ring in 384-column slices; the stage after a tile's slices
+// carries the group's 384 columns of V. A slice is released as soon as the
+// products of the next one are under way (wgmma_wait<1>). The stages are
+// 48 KB: three fit at 384, two at 768. S is formed once per warpgroup (and
+// twice in K1, whose statistics pass walks Kr again): at (80, 196, 768)
+// some 80 GFLOP on the tensor cores against the 0.0295 ms bytes bound.
+// One warpgroup a block holding 192 columns (192-column groups and slices,
+// five 24 KB stages) read its Kr twice as often from L2: K1 alone at (80,
+// 196, 768) 0.328 ms against 0.194, K3 at (80, 512, 768) 0.457 against
+// 0.283, K1 at (160, 512, 384) 0.343 against 0.292 (with two q-row groups
+// a block; one read 0.525; tools/k1_variants.py --widths; PERF.md).
 // q and k lengths are separate (s_q rows of q, s_k keys; causal keeps col
 // <= row, both from 0, as the reference does): the grid walks q, the ring
 // walks k.
@@ -277,6 +297,14 @@ constexpr int wide_fwd_groups() {
 }
 constexpr int kWideFwdSplit = 1;
 constexpr int kWideFwdStages = 3;
+// K1 at D = 192 and 256: K3's groups and split, and its own stages.
+constexpr int kWideResStages = 2;
+// K1 and K3 at D = 384 and 768, the sliced ring (the note above): the
+// columns of O a consumer warpgroup holds, and the warpgroups a block of
+// 64 q rows (each holding kSlicedCols of the block's kSlicedCols *
+// kSlicedSplit columns).
+constexpr int kSlicedCols = 192;
+constexpr int kSlicedSplit = 2;
 constexpr int kNs = kBlockK / 8;                   // n8 blocks of a score
 static_assert(kBlockQ == hopper::kRows && kBlockK == hopper::kRows,
               "a q or k tile is one [64][D] TMA tile");
@@ -290,6 +318,31 @@ struct FwdSmem {
   uint8_t v[kStages][kTileBytes];  // and V
   uint64_t fixed_full, full[kStages], empty[kStages];
 };
+
+// The sliced ring (D past 256): each stage holds W columns of one [64]-key
+// tile, a slice of Kr's width or the block's columns of V.
+template <int D, int W, int kGroups, int kStages>
+struct FwdSlicedSmem {
+  uint8_t q[kGroups][hopper::tile_bytes<D>()];  // the block's Qr rows
+  uint8_t ring[kStages][hopper::tile_bytes<W>()];
+  uint64_t fixed_full, full[kStages], empty[kStages];
+};
+
+// The shared memory of a forward block at D holding kBlockCols of O's
+// columns.
+template <int D, int kGroups, int kStages, int kBlockCols>
+using FwdSmemOf =
+    std::conditional_t<(D > 256),
+                       FwdSlicedSmem<D, kBlockCols, kGroups, kStages>,
+                       FwdSmem<D, kGroups, kStages>>;
+
+// The ring stages a sliced block at D takes: as many W-column stages as
+// fit beside its kGroups Qr tiles.
+template <int D, int kGroups, int W>
+constexpr int sliced_stages() {
+  return (232448 - 2048 - kGroups * hopper::tile_bytes<D>()) /
+         hopper::tile_bytes<W>();
+}
 
 // Whether a tile masks element by element: the diagonal of q tile qt, or
 // the ragged tile.
@@ -387,10 +440,16 @@ __device__ __forceinline__ void fwd_tile_p_normalised(
 
 // The body of K1 (kStats: a statistics pass, then P normalised; out only)
 // and K3 (one online pass; out and lse) at head dim D. Grid (q blocks of 64
-// kGroups rows, bh); block 128 kGroups kSplit + 32 threads: kSplit
-// warpgroups a group of 64 q rows, warpgroup `part` holding O's columns
-// [part D / kSplit, (part + 1) D / kSplit), each forming the rows' whole S.
-template <bool kStats, int D, int kGroups, int kStages, int kSplit>
+// kGroups rows times D / (kOCols kSplit) column groups, bh); block 128
+// kGroups kSplit + 32 threads: kSplit warpgroups a group of 64 q rows,
+// warpgroup `part` holding kOCols of O's columns (D / kSplit, the whole
+// width split, up to 256; past 256 kSlicedCols of the block's column
+// group), each forming the rows' whole S. Up to 256 a ring stage holds a
+// whole [64][D] tile of Kr and of V; past 256 (the sliced ring) one slice
+// of W = kOCols kSplit columns, the tile's D / W slices of Kr in turn, then
+// (in the pass that forms P V) its block's W columns of V.
+template <bool kStats, int D, int kGroups, int kStages, int kSplit,
+          int kOCols = D / kSplit>
 __device__ __forceinline__ void fwd_wgmma(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     bf16* __restrict__ o, float* __restrict__ lse,
@@ -399,17 +458,28 @@ __device__ __forceinline__ void fwd_wgmma(
   using namespace hopper;
   constexpr int kBlockRows = kBlockQ * kGroups;
   constexpr int kPasses = kStats ? 2 : 1;
-  constexpr int kOCols = D / kSplit;                // O's columns a warpgroup
-  constexpr int kNo = kOCols / 8;                   // holds, n8 blocks of them
+  constexpr bool kSliced = D > 256;
+  constexpr int kW = kOCols * kSplit;               // O's columns a block
+  constexpr int kColGroups = D / kW;                // holds; blocks a row
+  constexpr int kSlices = kSliced ? D / kW : 1;     // Kr stages a tile
+  constexpr int kNo = kOCols / 8;                   // n8 blocks of O
   constexpr int kOColBytes = kOCols / kBoxCols * kBoxBytes;
   constexpr int kConsumers = 128 * kGroups * kSplit;
   static_assert(kOCols % kBoxCols == 0, "a warpgroup's columns are boxes");
-  constexpr int kTileBytes = tile_bytes<D>();
+  static_assert(kColGroups * kW == D && (kSliced || kColGroups == 1),
+                "the blocks of a row group cover O's columns");
+  static_assert(!kSliced || kStages >= 2,
+                "a tile's next slice arrives before its last is released");
+  // a slice; up to 256 each of a stage's two tiles (Kr, V)
+  constexpr int kStageBytes = tile_bytes<kW>();
   extern __shared__ uint8_t smem_raw[];
-  auto& sm = aligned_smem<FwdSmem<D, kGroups, kStages>>(smem_raw);
+  auto& sm = aligned_smem<FwdSmemOf<D, kGroups, kStages, kW>>(smem_raw);
   const int n_t = (seq_k + kBlockK - 1) / kBlockK;
   const int n_b = (seq_q + kBlockRows - 1) / kBlockRows;
-  const int bh = blockIdx.y, q0 = (n_b - 1 - (int)blockIdx.x) * kBlockRows;
+  // a q block's column groups run side by side, sharing its Qr and Kr
+  const int col_group = (int)blockIdx.x % kColGroups;
+  const int bh = blockIdx.y;
+  const int q0 = (n_b - 1 - (int)blockIdx.x / kColGroups) * kBlockRows;
   // the warpgroups whose rows start below seq_q; a causal walk ends at the
   // last one's diagonal tile (or at the last k tile)
   const int groups = min(kGroups, (seq_q - q0 + kBlockQ - 1) / kBlockQ);
@@ -426,23 +496,40 @@ __device__ __forceinline__ void fwd_wgmma(
 
   if (threadIdx.x >= kConsumers) {  // the producer: one thread
     if (threadIdx.x == kConsumers) {
-      mbar_arrive_expect_tx(&sm.fixed_full, groups * kTileBytes);
+      mbar_arrive_expect_tx(&sm.fixed_full, groups * tile_bytes<D>());
       for (int w = 0; w < groups; ++w)
         tma_load_tile<D>(sm.q[w], tm_q, &sm.fixed_full, q0 + w * kBlockQ,
                          bh);
-      for (int it = 0; it < kPasses * n_tiles; ++it) {
-        const int st = it % kStages, k0 = (it % n_tiles) * kBlockK;
-        const bool with_v = !kStats || it >= n_tiles;  // K1's pass 1: Kr
-        if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
-        mbar_arrive_expect_tx(&sm.full[st], (with_v ? 2 : 1) * kTileBytes);
-        tma_load_tile<D>(sm.k[st], tm_k, &sm.full[st], k0, bh);
-        if (with_v) tma_load_tile<D>(sm.v[st], tm_v, &sm.full[st], k0, bh);
+      if constexpr (kSliced) {
+        int n = 0;  // stages filled
+        const auto fill = [&](const CUtensorMap* tm, int col0, int k0) {
+          const int st = n % kStages;
+          if (n >= kStages) mbar_wait(&sm.empty[st], (n / kStages - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[st], kStageBytes);
+          tma_load_cols<kW>(sm.ring[st], tm, &sm.full[st], col0, k0, bh);
+          ++n;
+        };
+        for (int it = 0; it < kPasses * n_tiles; ++it) {
+          const int k0 = (it % n_tiles) * kBlockK;
+          for (int j = 0; j < kSlices; ++j) fill(tm_k, j * kW, k0);
+          if (!kStats || it >= n_tiles) fill(tm_v, col_group * kW, k0);
+        }
+      } else {
+        for (int it = 0; it < kPasses * n_tiles; ++it) {
+          const int st = it % kStages, k0 = (it % n_tiles) * kBlockK;
+          const bool with_v = !kStats || it >= n_tiles;  // K1's pass 1: Kr
+          if (it >= kStages) mbar_wait(&sm.empty[st], (it / kStages - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[st],
+                                (with_v ? 2 : 1) * kStageBytes);
+          tma_load_tile<D>(sm.k[st], tm_k, &sm.full[st], k0, bh);
+          if (with_v) tma_load_tile<D>(sm.v[st], tm_v, &sm.full[st], k0, bh);
+        }
       }
     }
     return;
   }
 
-  // this warpgroup's q-row group and its part of O's columns
+  // this warpgroup's q-row group and its part of the block's columns
   const int wg = threadIdx.x / 128 / kSplit;
   const int part = threadIdx.x / 128 % kSplit;
   if (wg >= groups) return;  // every row of this warpgroup is past seq_q
@@ -461,32 +548,66 @@ __device__ __forceinline__ void fwd_wgmma(
   zero_regs(o_acc);
   zero_regs(s);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  // S = Qr Kr^T of the tile in stage st
+  int ring = 0;  // stages taken from the ring so far
+  // the next stage, once it has arrived
+  const auto take = [&]() {
+    const int st = ring % kStages;
+    mbar_wait(&sm.full[st], (ring / kStages) & 1);
+    ++ring;
+    return st;
+  };
+  const auto release = [&](int st) { mbar_arrive(&sm.empty[st]); };
+  // S = Qr Kr^T of the next tile: from stage st, which the caller took;
+  // in the sliced ring from the tile's kSlices stages, each taken here and
+  // released once the products of the next one are under way
   const auto scores = [&](int st) {
     wgmma_fence();
+    if constexpr (kSliced) {
+      int prev = 0;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(s, kmajor_desc(sm.q[wg], kk),
-                         kmajor_desc(sm.k[st], kk), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
+      for (int j = 0; j < kSlices; ++j) {
+        const int cur = take();
+#pragma unroll
+        for (int kk = 0; kk < kW / 16; ++kk)
+          wgmma_m64n64k16_ss(s, kmajor_desc(sm.q[wg], j * (kW / 16) + kk),
+                             kmajor_desc(sm.ring[cur], kk), j > 0 || kk > 0);
+        wgmma_commit();
+        if (j > 0) {
+          wgmma_wait<1>();
+          release(prev);
+        }
+        prev = cur;
+      }
+      wgmma_wait<0>();
+      release(prev);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss(s, kmajor_desc(sm.q[wg], kk),
+                           kmajor_desc(sm.k[st], kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
     fence_regs(s);
   };
-  int ring = 0;  // tiles taken from the ring so far
   float row_m[2], row_il[2];
   mbar_wait(&sm.fixed_full, 0);
   if constexpr (kStats) {
     // pass 1: each row's max and denominator
     float unused[2];
-    for (int it = 0; it < n_tiles; ++it, ++ring) {
-      const int st = ring % kStages, k0 = it * kBlockK;
-      mbar_wait(&sm.full[st], (ring / kStages) & 1);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * kBlockK;
       if (it >= own_tiles) {  // past this warpgroup's diagonal
-        mbar_arrive(&sm.empty[st]);
+        for (int j = 0; j < kSlices; ++j) release(take());
         continue;
       }
-      scores(st);
-      mbar_arrive(&sm.empty[st]);  // the product has read the stage
+      if constexpr (kSliced) {
+        scores(0);
+      } else {
+        const int st = take();
+        scores(st);
+        release(st);  // the product has read the stage
+      }
       if (edge_tile(causal, it, qt, k0, seq_k))
         stats_tile<true, false>(s, s, m, l, unused, row, k0, t, seq_k,
                                 causal, km, scale);
@@ -502,55 +623,65 @@ __device__ __forceinline__ void fwd_wgmma(
     }
   }
 
-  for (int it = 0; it < n_tiles; ++it, ++ring) {
-    const int st = ring % kStages, k0 = it * kBlockK;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kBlockK;
     // a stage is released only after it arrived, also where this
     // warpgroup skips it (a causal tile past its diagonal)
-    mbar_wait(&sm.full[st], (ring / kStages) & 1);
-    if (it < own_tiles) {
-      scores(st);
-      uint32_t pa[kBlockK / 16][4];  // A fragments of P, one per 16 keys
-      const bool edge = edge_tile(causal, it, qt, k0, seq_k);
-      if constexpr (kStats) {
-        if (edge)
-          fwd_tile_p_normalised<true>(pa, s, row_m, row_il, row, k0, t,
-                                      seq_k, causal, km, scale);
-        else
-          fwd_tile_p_normalised<false>(pa, s, row_m, row_il, row, k0, t,
-                                       seq_k, causal, km, scale);
-      } else {
-        if (edge)
-          fwd_tile_p<true, kNo>(pa, s, o_acc, m, l, row, k0, t, seq_k,
-                                causal, km, scale);
-        else
-          fwd_tile_p<false, kNo>(pa, s, o_acc, m, l, row, k0, t, seq_k,
-                                 causal, km, scale);
-      }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk)
-        wgmma_m64nNk16_rs<kOCols, kMNMajor>(
-            o_acc, pa[kk], mnmajor_desc(sm.v[st] + part * kOColBytes, kk));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o_acc);
-      fence_regs(pa);
+    if (it >= own_tiles) {
+      for (int j = 0; j < (kSliced ? kSlices + 1 : 1); ++j) release(take());
+      continue;
     }
-    mbar_arrive(&sm.empty[st]);
+    int st = kSliced ? 0 : take();
+    scores(st);
+    uint32_t pa[kBlockK / 16][4];  // A fragments of P, one per 16 keys
+    const bool edge = edge_tile(causal, it, qt, k0, seq_k);
+    if constexpr (kStats) {
+      if (edge)
+        fwd_tile_p_normalised<true>(pa, s, row_m, row_il, row, k0, t, seq_k,
+                                    causal, km, scale);
+      else
+        fwd_tile_p_normalised<false>(pa, s, row_m, row_il, row, k0, t,
+                                     seq_k, causal, km, scale);
+    } else {
+      if (edge)
+        fwd_tile_p<true, kNo>(pa, s, o_acc, m, l, row, k0, t, seq_k, causal,
+                              km, scale);
+      else
+        fwd_tile_p<false, kNo>(pa, s, o_acc, m, l, row, k0, t, seq_k,
+                               causal, km, scale);
+    }
+    const uint8_t* v_cols;  // the tile's V, from this warpgroup's columns
+    if constexpr (kSliced) {
+      st = take();
+      v_cols = sm.ring[st] + part * kOColBytes;
+    } else {
+      v_cols = sm.v[st] + part * kOColBytes;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk)
+      wgmma_m64nNk16_rs<kOCols, kMNMajor>(o_acc, pa[kk],
+                                          mnmajor_desc(v_cols, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    fence_regs(pa);
+    release(st);
   }
 
+  // this warpgroup's first column of O
+  const int col0 = col_group * kW + part * kOCols;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float lt = kStats ? 1.f : row_sum(l[h]);
     if (row[h] >= seq_q) continue;
     const float inv = kStats ? 1.f : (lt > 0.f ? 1.0f / lt : 0.f);
-    bf16* out =
-        o + ((size_t)bh * seq_q + row[h]) * D + part * kOCols + 2 * t;
+    bf16* out = o + ((size_t)bh * seq_q + row[h]) * D + col0 + 2 * t;
 #pragma unroll
     for (int j = 0; j < kNo; ++j)
       *reinterpret_cast<uint32_t*>(out + j * 8) =
           pack_pair(o_acc[4 * j + 2 * h] * inv, o_acc[4 * j + 2 * h + 1] * inv);
-    if (!kStats && part == 0 && t == 0)
+    if (!kStats && col0 == 0 && t == 0)
       lse[(size_t)bh * seq_q + row[h]] = row_lse(m[h], lt);
   }
 }
@@ -564,19 +695,19 @@ __device__ __forceinline__ void fwd_wgmma(
       int causal
 
 // K1: the output (lse unused, null).
-template <int D, int kGroups, int kStages, int kSplit>
+template <int D, int kGroups, int kStages, int kSplit, int kOCols>
 __global__ void __launch_bounds__(128 * kGroups * kSplit + 32, 1)
     flash_fwd_wgmma_kernel(FWD_WGMMA_PARAMS) {
-  fwd_wgmma<true, D, kGroups, kStages, kSplit>(
+  fwd_wgmma<true, D, kGroups, kStages, kSplit, kOCols>(
       &tm_q, &tm_k, &tm_v, o, lse, kmask, mask_rows, seq_q, seq_k,
       num_heads, scale, causal);
 }
 
 // K3: the output and lse.
-template <int D, int kGroups, int kStages, int kSplit>
+template <int D, int kGroups, int kStages, int kSplit, int kOCols>
 __global__ void __launch_bounds__(128 * kGroups * kSplit + 32, 1)
     flash_fwd_lse_wgmma_kernel(FWD_WGMMA_PARAMS) {
-  fwd_wgmma<false, D, kGroups, kStages, kSplit>(
+  fwd_wgmma<false, D, kGroups, kStages, kSplit, kOCols>(
       &tm_q, &tm_k, &tm_v, o, lse, kmask, mask_rows, seq_q, seq_k,
       num_heads, scale, causal);
 }
@@ -615,35 +746,48 @@ cudaError_t launch_fp32(const FwdArgs& a) {
   return cudaGetLastError();
 }
 
-// K1 (kLse false) or K3 in bf16.
-template <int D, bool kLse, int kGroups, int kStages, int kSplit = 1>
+// K1 (kLse false) or K3 in bf16; kOCols of O's columns a consumer
+// warpgroup.
+template <int D, bool kLse, int kGroups, int kStages, int kSplit = 1,
+          int kOCols = D / kSplit>
 cudaError_t launch_bf16(const FwdArgs& a) {
   CUtensorMap m[3];
   if (!hopper::make_map(&m[0], a.qr, a.bh, a.seq_q, D) ||
       !hopper::make_map(&m[1], a.kr, a.bh, a.seq_k, D) ||
       !hopper::make_map(&m[2], a.v, a.bh, a.seq_k, D))
     return cudaErrorInvalidValue;
-  constexpr int bytes = hopper::smem_bytes<FwdSmem<D, kGroups, kStages>>();
+  constexpr int kW = kOCols * kSplit;
+  constexpr int bytes =
+      hopper::smem_bytes<FwdSmemOf<D, kGroups, kStages, kW>>();
   static_assert(bytes <= 232448, "a block's shared memory");
   const auto kernel = [] {
     if constexpr (kLse)
-      return flash_fwd_lse_wgmma_kernel<D, kGroups, kStages, kSplit>;
+      return flash_fwd_lse_wgmma_kernel<D, kGroups, kStages, kSplit, kOCols>;
     else
-      return flash_fwd_wgmma_kernel<D, kGroups, kStages, kSplit>;
+      return flash_fwd_wgmma_kernel<D, kGroups, kStages, kSplit, kOCols>;
   }();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const int rows = kBlockQ * kGroups;
-  const dim3 grid((a.seq_q + rows - 1) / rows, a.bh);
+  const dim3 grid((a.seq_q + rows - 1) / rows * (D / kW), a.bh);
   kernel<<<grid, 128 * kGroups * kSplit + 32, bytes, a.stream>>>(
       m[0], m[1], m[2], static_cast<bf16*>(a.o), a.lse, a.kmask,
       a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale, a.causal);
   return cudaGetLastError();
 }
 
+// K1 or K3 in bf16 at D = 384 or 768, on the sliced ring.
+template <int D, bool kLse>
+cudaError_t launch_sliced(const FwdArgs& a) {
+  constexpr int kGroups = 1;  // q-row groups of 64 a block
+  return launch_bf16<D, kLse, kGroups,
+                     sliced_stages<D, kGroups, kSlicedCols * kSlicedSplit>(),
+                     kSlicedSplit, kSlicedCols>(a);
+}
+
 // K1 (kLse false) or K3 at a.d's instantiation, fp32 (dtype 0) or bf16
-// (K3 in bf16 also at 192 and 256); at any other multiple of 64, the wide
+// (also at 192, 256, 384 and 768); at any other multiple of 64, the wide
 // body.
 template <bool kLse>
 cudaError_t launch(int dtype, int d, const FwdArgs& a) {
@@ -659,15 +803,26 @@ cudaError_t launch(int dtype, int d, const FwdArgs& a) {
     return dtype == 0 ? wide::launch_fwd<float, !kLse>(w, a.o, a.lse)
                       : wide::launch_fwd<bf16, !kLse>(w, a.o, a.lse);
   }
-  // past 128 only K3 in bf16 has a wgmma body (takes_wide sends the rest to
-  // the wide body)
-  if constexpr (kLse) {
-    if (dtype == 1 && d == 192)
-      return launch_bf16<192, true, wide_fwd_groups<192>(), kWideFwdStages,
-                         kWideFwdSplit>(a);
-    if (dtype == 1 && d == 256)
-      return launch_bf16<256, true, wide_fwd_groups<256>(), kWideFwdStages,
-                         kWideFwdSplit>(a);
+  // past 128 (takes_wide sends fp32 and the other widths to the wide body)
+  switch (dtype == 1 ? d : 0) {
+    case 192:
+      if constexpr (kLse)
+        return launch_bf16<192, true, wide_fwd_groups<192>(), kWideFwdStages,
+                           kWideFwdSplit>(a);
+      else
+        return launch_bf16<192, false, wide_fwd_groups<192>(),
+                           kWideResStages, kWideFwdSplit>(a);
+    case 256:
+      if constexpr (kLse)
+        return launch_bf16<256, true, wide_fwd_groups<256>(), kWideFwdStages,
+                           kWideFwdSplit>(a);
+      else
+        return launch_bf16<256, false, wide_fwd_groups<256>(),
+                           kWideResStages, kWideFwdSplit>(a);
+    case 384:
+      return launch_sliced<384, kLse>(a);
+    case 768:
+      return launch_sliced<768, kLse>(a);
   }
   return dispatch_head_dim(d, [&](auto head_dim) {
     constexpr int D = decltype(head_dim)::value;

@@ -1,5 +1,6 @@
 // The flash kernels at the head dims the wgmma bodies are not built for:
-// K1 past 128, K2-K5 in fp32 past 128 and in bf16 past 256, and (in the
+// every kernel in fp32 past 128, K2, K4 and K5 in bf16 past 256, K1 and K3
+// in bf16 at the widths past 256 other than 384 and 768, and (in the
 // backwards) any odd head dim (takes_wide below). One body per
 // kernel, templated on the dtype (fp32 or bf16) and not on the head dim:
 //   * fwd_kernel<T, true>:   K1 (flash_fwd.cu), a statistics pass, then P
@@ -40,14 +41,14 @@
 // (tools/wide_sum_order.py; PERF.md);
 // P and dS are rounded to the input dtype into shared memory, where the
 // products that follow read them. The other route -- wgmma bodies
-// instantiated at D = 192 and 256 -- is taken for K3 in bf16
-// (flash_fwd.cu) and for K2, K4 and K5 in bf16 at an even head dim
-// (flash_bwd_wgmma.cuh), where tools/wide_sum_order.py finds their
-// tensor-core sums within the element bars. It does not reach d = 384 or
-// 768 (meant_src --num_heads 2 and 1), which keep these chains for the
-// rounding reason above, nor K1 past 128 (the next kernel to move); this
-// one body covers every width, simply and not fast (PERF.md has its
-// times).
+// instantiated at D = 192 and 256 -- is taken in bf16 by K1 and K3
+// (flash_fwd.cu) and by K2, K4 and K5 at an even head dim
+// (flash_bwd_wgmma.cuh), and at D = 384 and 768 by K1 and K3 (the
+// forwards' body on a ring of column slices), where
+// tools/wide_sum_order.py finds their tensor-core sums within the element
+// bars. The backwards at d = 384 and 768 (meant_src --num_heads 2 and 1)
+// keep these chains for the rounding reason above; this one body covers
+// every width, simply and not fast (PERF.md has its times).
 //
 // The rotation's adjoint at an odd head dim d wraps as the JAX kernels'
 // lane rotate-half does (meant_tpu/ops/flash/kernel.py:63-71, :378-379,
@@ -764,14 +765,19 @@ enum Kernel { kK1 = 1, kK2, kK3, kK4, kK5 };
 // Whether a launch of `kernel` in `dtype` (0 fp32, 1 bf16) at padded width
 // dp and head dim head_dim takes these bodies: the backwards at an odd head
 // dim (their adjoint wraps); every kernel at a dp the wgmma and fp32 bodies
-// are not built for. Those are 64, 96 and 128, and for K2-K5 in bf16 also
-// 192 and 256 (the forward's body in flash_fwd.cu, the backwards' in
-// flash_bwd_wgmma.cuh); K1 keeps these bodies past 128.
+// are not built for. Those are 64, 96 and 128; in bf16 also 192 and 256
+// for every kernel (the forwards' body in flash_fwd.cu, the backwards' in
+// flash_bwd_wgmma.cuh), and 384 and 768 for the forwards K1 and K3 (the
+// forwards' body on its sliced ring; an odd d padded there too, since the
+// forwards have no adjoint). fp32 past 128, the backwards past 256 and
+// every other width past 256 (320, 448, ..., 704) keep these bodies.
 inline bool takes_wide(Kernel kernel, int dtype, int dp, int head_dim) {
   const bool backward = kernel == kK2 || kernel == kK4 || kernel == kK5;
   if (backward && (head_dim & 1)) return true;
   if (dp == 64 || dp == 96 || dp == 128) return false;
-  return !(kernel != kK1 && dtype == 1 && (dp == 192 || dp == 256));
+  if (dtype != 1) return true;
+  if (dp == 192 || dp == 256) return false;
+  return backward || !(dp == 384 || dp == 768);
 }
 
 }  // namespace wide

@@ -5,8 +5,9 @@
 // operands in shared memory laid out with the 64-byte swizzle.
 //
 // Tile layout. A [64 rows][D columns] bf16 tile (D = 64, 96, 128, 192 or
-// 256, the head dim) lives in shared memory as D / 32 boxes of [64][32]
-// (4096 bytes each, columns 0-31, 32-63, ...),
+// 256, the head dim; 384 or 768 for the forward's Qr, whose Kr and V come
+// in 192- or 384-column slices) lives in shared memory as D / 32 boxes of
+// [64][32] (4096 bytes each, columns 0-31, 32-63, ...),
 // each written by one TMA load with CU_TENSOR_MAP_SWIZZLE_64B: rows of 64
 // bytes, the 16-byte chunk c of row r stored at chunk c ^ ((r >> 1) & 3).
 // wgmma reads the same bytes two ways (its descriptor's 64-byte swizzle):
@@ -43,12 +44,13 @@ constexpr int kRows = 64;                  // rows of a tile
 constexpr int kBoxCols = 32;               // bf16 columns of a box (64 B)
 constexpr int kBoxBytes = kRows * kBoxCols * 2;
 
-// The head dims the bodies are instantiated for, and the bytes of one
-// [64][D] tile: D / 32 boxes.
+// The widths of the tiles the bodies hold (the head dims they are
+// instantiated for), and the bytes of one [64][D] tile: D / 32 boxes.
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  static_assert(D == 64 || D == 96 || D == 128 || D == 192 || D == 256,
-                "head dim 64, 96, 128, 192 or 256");
+  static_assert(D == 64 || D == 96 || D == 128 || D == 192 || D == 256 ||
+                    D == 384 || D == 768,
+                "tile width 64, 96, 128, 192, 256, 384 or 768");
   return D / kBoxCols * kBoxBytes;
 }
 
@@ -149,6 +151,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Rows [row0, row0 + 64) and columns [col0, col0 + W) of head `bh` of a
+// (bh, seq, d) bf16 tensor as one [64][W] tile (W / 32 boxes);
+// tile_bytes<W>() bytes counted on `bar`.
+template <int W>
+__device__ __forceinline__ void tma_load_cols(uint8_t* tile,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int col0,
+                                              int row0, int bh) {
+#pragma unroll
+  for (int b = 0; b < W / kBoxCols; ++b)
+    tma_load_3d(tile + b * kBoxBytes, map, bar, col0 + b * kBoxCols, row0,
+                bh);
+}
+
 // Rows [row0, row0 + 64) of head `bh` of a (bh, seq, D) bf16 tensor as one
 // tile (D / 32 boxes); tile_bytes<D>() bytes counted on `bar`.
 template <int D>
@@ -156,9 +172,7 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* tile,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int row0,
                                               int bh) {
-#pragma unroll
-  for (int b = 0; b < D / kBoxCols; ++b)
-    tma_load_3d(tile + b * kBoxBytes, map, bar, b * kBoxCols, row0, bh);
+  tma_load_cols<D>(tile, map, bar, 0, row0, bh);
 }
 
 // ---- wgmma ------------------------------------------------------------------

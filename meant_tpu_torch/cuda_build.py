@@ -19,7 +19,7 @@ import shutil
 import subprocess
 from collections import Counter
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -44,37 +44,48 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
+def _library_path(name: str, csrc: Optional[Path] = None,
+                  build: Optional[Path] = None) -> Path:
+    csrc, build = csrc or CSRC_DIR, build or BUILD_DIR
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return build / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names: Iterable[str]) -> Dict[str, str]:
+def build_all(names: Iterable[str],
+              trees: Optional[Iterable[tuple]] = None) -> Dict[str, str]:
     """Build csrc/<name>.cu for every name not built yet, one nvcc each,
     all started together. Returns nvcc's output per name (with the -Xptxas
     -v register/shared-memory report; "" when there was nothing to build);
-    raises if any nvcc fails, after all of them have ended."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    raises if any nvcc fails, after all of them have ended. `trees`, (csrc,
+    build) directory pairs, builds each name in each of them instead of
+    the package's own (patched copies of csrc/); the output is then keyed
+    "<csrc>:<name>"."""
+    trees = list(trees) if trees is not None else [(CSRC_DIR, BUILD_DIR)]
+    own = trees == [(CSRC_DIR, BUILD_DIR)]
     logs: Dict[str, str] = {}
     running = {}
-    for name in names:
-        out = _library_path(name)
-        if out.exists():
-            logs[name] = ""
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        running[name] = (out, tmp, subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC_DIR / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for csrc, build in trees:
+        Path(build).mkdir(parents=True, exist_ok=True)
+        for name in names:
+            key = name if own else f"{csrc}:{name}"
+            out = _library_path(name, Path(csrc), Path(build))
+            if out.exists():
+                logs[key] = ""
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            running[key] = (out, tmp, subprocess.Popen(
+                [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(Path(csrc) / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
     failed = []
     for name, (out, tmp, proc) in running.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for csrc/{name}.cu (exit "
+            failed.append(f"nvcc failed for {name} (exit "
                           f"{proc.returncode}):\n{logs[name]}")
         else:
             os.replace(tmp, out)

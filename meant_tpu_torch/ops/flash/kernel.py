@@ -32,13 +32,16 @@ sliced back. That is exact: the padded lanes add zero to every score. A
 padded width that is not one of HEAD_DIMS (d > 128) runs the wide bodies of
 csrc/flash_wide.cuh, which stream the contraction over the width and cut
 the output into groups of 64-column chunks on a grid axis; so do the
-backwards (K2, K4, K5) at an odd d, whose adjoint wraps. The exception is
-bf16 at a padded width of 192 or 256 (d in (128, 256]): there K3 runs the
-forward's wgmma body built at that width (csrc/flash_fwd.cu), and K2, K4
-and K5 at an even d the backwards' (csrc/flash_bwd_wgmma.cuh, one or two
-consumer warpgroups splitting the gradients' columns); K1, fp32 and every
-width past 256 stay on the wide bodies. Every call is one launch of each
-kernel at any d.
+backwards (K2, K4, K5) at an odd d, whose adjoint wraps. The exceptions
+are in bf16: at a padded width of 192 or 256 (d in (128, 256]) K1 and K3
+run the forwards' wgmma body built at that width (csrc/flash_fwd.cu), and
+K2, K4 and K5 at an even d the backwards' (csrc/flash_bwd_wgmma.cuh, one
+or two consumer warpgroups splitting the gradients' columns); at 384 and
+768 (d in (320, 384] and (704, 768]) K1 and K3 run the forwards' body on
+its sliced ring (O's columns in groups of 192 on a grid axis, Kr streamed
+in 192-column slices). fp32 past 128, the backwards past 256 and the
+forwards at the other widths past 256 stay on the wide bodies. Every call
+is one launch of each kernel at any d.
 
 At an odd d the rotation pairs lanes as the JAX kernels' `_rotate_half_lanes`
 (meant_tpu/ops/flash/kernel.py:63-71) does, wrapping: lane d-1 pairs with

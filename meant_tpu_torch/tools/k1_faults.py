@@ -34,13 +34,13 @@ SOURCE = "flash_fwd.cu"
 FAULTS = {
     "shipped": [],
     "p_running_max": [
-        (SOURCE, "fwd_wgmma<true, D, kGroups, kStages>(&tm_q,",
-         "fwd_wgmma<false, D, kGroups, kStages>(&tm_q,"),
-        (SOURCE, "if (!kStats && t == 0)\n      lse[",
-         "if (!kStats && t == 0 && lse != nullptr)\n      lse[")],
+        (SOURCE, "fwd_wgmma<true, D, kGroups, kStages, kSplit, kOCols>(",
+         "fwd_wgmma<false, D, kGroups, kStages, kSplit, kOCols>("),
+        (SOURCE, "if (!kStats && col0 == 0 && t == 0)\n      lse[",
+         "if (!kStats && col0 == 0 && t == 0 && lse != nullptr)\n      lse[")],
     "v_kmajor": [
-        (SOURCE, "wgmma_m64nNk16_rs<D, kMNMajor>(o_acc, pa[kk],",
-         "wgmma_m64nNk16_rs<D, kKMajor>(o_acc, pa[kk],")],
+        (SOURCE, "wgmma_m64nNk16_rs<kOCols, kMNMajor>(o_acc, pa[kk],",
+         "wgmma_m64nNk16_rs<kOCols, kKMajor>(o_acc, pa[kk],")],
     "stats_no_diagonal": [
         (SOURCE, "if (it >= own_tiles) {  // past this warpgroup's diagonal",
          "if (it >= own_tiles - causal) {")],

@@ -93,8 +93,8 @@ _NORMALISED = """  float m_use[2], l_old[2];
 FAULTS = {
     "shipped": [],
     "v_kmajor": [
-        (SOURCE, "wgmma_m64nNk16_rs<D, kMNMajor>(o_acc, pa[kk],",
-         "wgmma_m64nNk16_rs<D, kKMajor>(o_acc, pa[kk],")],
+        (SOURCE, "wgmma_m64nNk16_rs<kOCols, kMNMajor>(o_acc, pa[kk],",
+         "wgmma_m64nNk16_rs<kOCols, kKMajor>(o_acc, pa[kk],")],
     "p_normalised": [
         (SOURCE, _RUNNING_MAX, _NORMALISED),
         (SOURCE, "(lt > 0.f ? 1.0f / lt : 0.f)", "1.f")],

@@ -1,5 +1,5 @@
-"""The flash kernels past d = 128 and two `--num_heads 4` training runs,
-of one tree of the repo, on the card.
+"""The flash kernels past d = 128, two `--num_heads 4` training runs and
+the `--num_heads 2` and 1 requests, of one tree of the repo, on the card.
 
     python meant_tpu_torch/tools/k45_compare.py --root DIR --out FILE
 
@@ -16,13 +16,22 @@ launches them at, from its constants:
   192) causal xPos and (320, 196, 192) pixel rotary, and at d = 256:
   src4096 --num_heads 3's vision tower (30, 196, 256) and --num_heads 3's
   text tower (240, 512, 256);
+* R1 + K1 and K1 alone at meant_src's resident launches past d = 128,
+  (320, 512, 192), (320, 196, 192), (240, 512, 256), (160, 512, 384) and
+  (80, 196, 768), and at the flagship's (640, 512 / 196, 96) (causal xPos
+  at s=512, pixel rotary at 196), and R1 + K3
+  and K3 alone at --num_heads 1's streaming text tower (80, 512, 768),
+  each beside rotation + SDPA (the yardstick, in the same run);
 
 then src4096 at `--num_heads 4`, 12 + 12 encoders, batch 2, trained
 through `chip_smoke.learn_long_heads_full` (3 steps, the median of steps
 2-3, with its launch counts), or the same run in a tree that predates it;
 then the flagship at `--num_heads 4` (s=512, batch 16, fixed_proj=True,
 as `chip_smoke.run_src_heads` trains it) for SRC4_STEPS steps, the median
-of steps 2 on. Run it as a file (not with -m) so that DIR's package is
+of steps 2 on; then a 16-row request of meant_src at `--num_heads 2` and
+1 (build_model with --flash true, `chip_smoke.time_requests`: the median
+of 7 and the forward's device time). Run it as a file (not with -m) so
+that DIR's package is
 the one imported; compare two trees within one card call, in turns
 (parent, change, change, parent).
 """
@@ -51,6 +60,62 @@ def resident_shapes(cs) -> list:
             (cs.BATCH * cs.LAG * 4, cs.N_PATCHES, 192, 4, "vision"),
             (cs.LONG_BATCH * cs.LAG * 3, cs.N_PATCHES, 256, 3, "vision"),
             (cs.BATCH * cs.LAG * 3, cs.SEQ, 256, 3, "text")]
+
+
+def forward_shapes(cs) -> list:
+    """(kernel, BH, s, d, heads, kind) of each forward reading: K1 at the
+    resident launches past d = 128 and at the flagship's (d = 96), K3 at
+    --num_heads 1's text tower."""
+    rows = cs.BATCH * cs.LAG
+    return [("K1", rows * heads, s, cs.DIM // heads, heads, kind)
+            for heads, s, kind in ((4, cs.SEQ, "text"),
+                                   (4, cs.N_PATCHES, "vision"),
+                                   (3, cs.SEQ, "text"), (2, cs.SEQ, "text"),
+                                   (1, cs.N_PATCHES, "vision"),
+                                   (cs.HEADS, cs.SEQ, "text"),
+                                   (cs.HEADS, cs.N_PATCHES, "vision"))] + [
+        ("K3", rows, cs.SEQ, cs.DIM, 1, "text")]
+
+
+def forward_readings(cs, gen, root) -> dict:
+    """R1 + K1 (or R1 + K3), the kernel alone and rotation + SDPA at
+    forward_shapes, ms, with the body each ran."""
+    import torch
+    res = {}
+    for kernel, bh, s, d, heads, kind in forward_shapes(cs):
+        c = cs.attention_case(kind, torch.bfloat16, gen, s=s, bh=bh, d=d,
+                              heads=heads)
+        cs.rotate_case(c)
+        both, alone = {"K1": (cs.run_kernel, cs.run_k1),
+                       "K3": (cs.run_online_kernel,
+                              cs.run_online_k3)}[kernel]
+        key = f"{kernel} ({bh}, {s}, {d})"
+        res[key] = {f"R1+{kernel}": cs.event_ms(lambda: both(c), iters=20),
+                    kernel: cs.event_ms(lambda: alone(c), iters=20),
+                    "library": cs.event_ms(lambda: cs.run_library(c),
+                                           iters=20),
+                    "body": cs.wrappers()[kernel].last_source}
+        print(root, key, json.dumps(res[key]), flush=True)
+        del c
+        torch.cuda.empty_cache()
+    return res
+
+
+def request_ms(cs, heads: int) -> dict:
+    """A BATCH-row request of meant_src --num_heads `heads` as build_model
+    makes it (--flash true), timed by chip_smoke.time_requests."""
+    import torch
+    from meant_tpu_torch.serve import Predictor
+    model = cs.build_zoo("meant_src", "--seq_len", str(cs.SEQ),
+                         "--num_heads", str(heads), "--flash", "true")
+    predictor = Predictor(model, "meant_src", batch_size=cs.BATCH)
+    rec = {}
+    cs.time_requests(predictor, cs.request_batch(cs.BATCH, seed=40 + heads),
+                     rec, label=f"meant_src --num_heads {heads}")
+    del model, predictor
+    torch.cuda.empty_cache()
+    return {k: rec[k] for k in ("request_ms", "request_ms_median",
+                                "forward_device_ms")}
 
 
 def src_heads_step(cs) -> dict:
@@ -129,6 +194,7 @@ def main() -> None:
         print(args.root, key, json.dumps(res[key]), flush=True)
         del c
         torch.cuda.empty_cache()
+    res.update(forward_readings(cs, gen, args.root))
     train = full_step(cs)
     res["step_ms"] = train["step_ms"]
     res["step_ms_median"] = train["step_ms_median"]
@@ -136,9 +202,14 @@ def main() -> None:
     train = src_heads_step(cs)
     res["src_heads4_step_ms"] = train["step_ms"]
     res["src_heads4_step_ms_median"] = train["step_ms_median"]
-    print(args.root, "steps", json.dumps(
-        {k: res[k] for k in ("step_ms_median",
-                             "src_heads4_step_ms_median")}), flush=True)
+    for heads in (2, 1):
+        res[f"src_heads{heads}_request"] = request_ms(cs, heads)
+    print(args.root, "steps and requests", json.dumps(
+        {"step_ms_median": res["step_ms_median"],
+         "src_heads4_step_ms_median": res["src_heads4_step_ms_median"],
+         **{f"src_heads{h}_request_ms_median":
+            res[f"src_heads{h}_request"]["request_ms_median"]
+            for h in (2, 1)}}), flush=True)
     with open(out, "w") as f:
         json.dump(res, f, indent=1)
 

@@ -39,14 +39,24 @@ The cases, bf16, made as chip_smoke.py makes them:
 * K2 at meant_src --num_heads 4's launches (320, 512, 192) causal xPos
   with a key mask and (320, 196, 192) pixel rotary, and at d = 256:
   src4096 --num_heads 3's vision tower (30, 196, 256) and meant_src
-  --num_heads 3's text tower (240, 512, 256) causal xPos with a key mask.
+  --num_heads 3's text tower (240, 512, 256) causal xPos with a key mask;
+  at d = 384 (--num_heads 2) its (160, 512, 384) causal xPos with a key
+  mask and (160, 196, 384) pixel rotary, and K4 + K5 at
+  check_head_dims_long's (4, 4096, 384) with a key mask;
+* K1 (R1 + K1 through flash_mha, out only) at the resident launches past
+  d = 128: (320, 512, 192), (240, 512, 256) and (160, 512, 384) causal
+  xPos with a key mask, (320, 196, 192) and (80, 196, 768) pixel rotary;
+  out held to the element bar and K1_BF16_REL_L2;
+* K3 at --num_heads 1's streaming text tower (80, 512, 768) causal xPos
+  with a key mask and at check_head_dims_long's (4, 4096, 384) with a key
+  mask, at K3's bars as above.
 
 `--cases` runs only the cases whose name holds one of the words given
-(`k3`, `k2`, `192`, ...). Each line names the body its kernels ran (the
-wrappers' last_source): where a wgmma body takes a width (csrc/
-flash_fwd.cu, flash_bwd.cu, flash_bwd_wgmma.cuh: bf16 at 192 and 256),
-the patch of dp_mm does not reach it, and all three orders read that
-body's own tensor-core sums.
+(`k1`, `k3`, `k2`, `192`, ...). Each line names the body its kernels ran
+(the wrappers' last_source): where a wgmma body takes a width (csrc/
+flash_fwd.cu, flash_bwd.cu, flash_bwd_wgmma.cuh: bf16 at 192 and 256,
+and K1's and K3's at 384 and 768), the patch of dp_mm does not reach it,
+and all three orders read that body's own tensor-core sums.
 """
 
 from __future__ import annotations
@@ -118,7 +128,8 @@ def use_order(order: str) -> None:
 # check_head_dims_long's masked bf16 case at each of these widths
 STREAMING = {768: "k4_k5 (80, 512, 768) masked",
              192: "k4_k5 (4, 4096, 192) masked",
-             256: "k4_k5 (4, 4096, 256) masked"}
+             256: "k4_k5 (4, 4096, 256) masked",
+             384: "k4_k5 (4, 4096, 384) masked"}
 # time_long_kernels' launches at d = 192 (its seed, its order of draws):
 # (name, long_case kind, BH, s)
 LAUNCHES = (("k4_k5 (40, 4096, 192) src4096", "text",
@@ -130,6 +141,8 @@ LAUNCHES = (("k4_k5 (40, 4096, 192) src4096", "text",
 # kind, BH, s, d, heads)
 _SRC4, _SRC3 = chip_smoke.SRC4_HEADS, chip_smoke.SRC3_HEADS
 _LONG_ROWS = chip_smoke.LONG_BATCH * chip_smoke.LAG
+_ROWS = chip_smoke.BATCH * chip_smoke.LAG
+_SEQ, _HD_BH = chip_smoke.SEQ, chip_smoke.HD_LONG_BH
 K3_CASES = tuple(
     (f"k3 ({_LONG_ROWS * heads}, {chip_smoke.LONG_SEQ}, {d}) src4096"
      + (" masked" if kind == "text_masked" else ""), kind,
@@ -137,10 +150,13 @@ K3_CASES = tuple(
     for d, heads in ((192, _SRC4), (256, _SRC3))
     for kind in ("text", "text_masked")) + (
     (f"k3 ({_LONG_ROWS * _SRC4}, {chip_smoke.RING_CHUNK}, 192) ring chunk",
-     "vision", _LONG_ROWS * _SRC4, chip_smoke.RING_CHUNK, 192, _SRC4),)
+     "vision", _LONG_ROWS * _SRC4, chip_smoke.RING_CHUNK, 192, _SRC4),
+    (f"k3 ({_ROWS}, {_SEQ}, 768) masked", "text_masked", _ROWS, _SEQ, 768,
+     1),
+    (f"k3 ({_HD_BH}, {chip_smoke.LONG_SEQ}, 384) masked", "text_masked",
+     _HD_BH, chip_smoke.LONG_SEQ, 384, chip_smoke.HD_HEADS))
 # K2 at the resident launches past d = 128: (name, backward_case kind, BH,
 # s, d, heads)
-_ROWS = chip_smoke.BATCH * chip_smoke.LAG
 K2_CASES = (
     (f"k2 ({_ROWS * _SRC4}, {chip_smoke.SEQ}, 192) masked", "text_masked",
      _ROWS * _SRC4, chip_smoke.SEQ, 192, _SRC4),
@@ -149,13 +165,28 @@ K2_CASES = (
     (f"k2 ({_LONG_ROWS * _SRC3}, {chip_smoke.N_PATCHES}, 256) pixel",
      "vision", _LONG_ROWS * _SRC3, chip_smoke.N_PATCHES, 256, _SRC3),
     (f"k2 ({_ROWS * _SRC3}, {chip_smoke.SEQ}, 256) masked", "text_masked",
-     _ROWS * _SRC3, chip_smoke.SEQ, 256, _SRC3))
+     _ROWS * _SRC3, chip_smoke.SEQ, 256, _SRC3),
+    (f"k2 ({_ROWS * 2}, {_SEQ}, 384) masked", "text_masked", _ROWS * 2, _SEQ,
+     384, 2),
+    (f"k2 ({_ROWS * 2}, {chip_smoke.N_PATCHES}, 384) pixel", "vision",
+     _ROWS * 2, chip_smoke.N_PATCHES, 384, 2))
+# K1 at the resident launches past d = 128: (name, backward_case kind, BH,
+# s, d, heads)
+K1_CASES = tuple(
+    (f"k1 ({_ROWS * heads}, {s}, {chip_smoke.DIM // heads}) "
+     + ("masked" if kind == "text_masked" else "pixel"), kind,
+     _ROWS * heads, s, chip_smoke.DIM // heads, heads)
+    for kind, s, heads in (("text_masked", _SEQ, _SRC4),
+                           ("text_masked", _SEQ, _SRC3),
+                           ("text_masked", _SEQ, 2),
+                           ("vision", chip_smoke.N_PATCHES, _SRC4),
+                           ("vision", chip_smoke.N_PATCHES, 1)))
 
 
 def cases(words=None):
     """chip_smoke.py's cases, from its seeds and its order of draws (K3's
-    and the new K2 cases at its shapes, from seed 19), those whose name
-    holds one of `words` (all without)."""
+    and the new K2 cases at its shapes, from seed 19; K1's from seed 23),
+    those whose name holds one of `words` (all without)."""
     made = {}
     gen = torch.Generator(device="cuda").manual_seed(18)
     for d, s, bh, heads in chip_smoke.HD_LONG_CASES:
@@ -192,6 +223,10 @@ def cases(words=None):
     for name, kind, bh, s, d, heads in K2_CASES:
         made[name] = chip_smoke.backward_case(kind, torch.bfloat16, gen, s=s,
                                               bh=bh, d=d, heads=heads)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for name, kind, bh, s, d, heads in K1_CASES:
+        made[name] = chip_smoke.attention_case(kind, torch.bfloat16, gen,
+                                               s=s, bh=bh, d=d, heads=heads)
     if words:
         made = {n: c for n, c in made.items() if any(w in n for w in words)}
     return made
@@ -224,6 +259,16 @@ def k3_errors(c) -> dict:
     res["lse"] = {"max_abs": lse_err, "within_bar": lse_err <=
                   kernel.LSE_ATOL}
     res["body"] = kernel.flash_fwd_online.last_source
+    return res
+
+
+def k1_errors(c) -> dict:
+    """R1 + K1's out through flash_mha against the plain version (the
+    element bar, and whether K1_BF16_REL_L2 holds), and the body K1
+    ran."""
+    res = errors(chip_smoke.run_kernel(c), chip_smoke.run_plain(c))
+    res["within_rel_l2_bar"] = res["rel_l2"] <= kernel.K1_BF16_REL_L2
+    res["body"] = kernel.flash_fwd.last_source
     return res
 
 
@@ -302,9 +347,9 @@ def main(argv=None) -> None:
     for order in ("fma_chain", "tensor_cores", "k16_from_zero"):
         use_order(order)
         for name, c in made.items():
-            if name.startswith("k3"):
-                print(f"{order} {name}: {json.dumps(k3_errors(c))}",
-                      flush=True)
+            if name.startswith(("k1", "k3")):
+                res = (k1_errors if name.startswith("k1") else k3_errors)(c)
+                print(f"{order} {name}: {json.dumps(res)}", flush=True)
                 torch.cuda.empty_cache()
                 continue
             got, want, _ = kernel_grads(name, c)
@@ -318,7 +363,7 @@ def main(argv=None) -> None:
             torch.cuda.empty_cache()
     use_order("fma_chain")
     for name, c in made.items():
-        if name.startswith("k3"):
+        if name.startswith(("k1", "k3")):
             continue
         _, want, stats = kernel_grads(name, c)
         for order in ("plain_fp64", "plain_k16"):

@@ -50,8 +50,8 @@ from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
 from meant_tpu_torch.ops.flash.flash_attention import _tables
 from meant_tpu_torch.ops.flash.kernel import (
     BF16_REL_L2, BWD_BF16_ATOL, BWD_BF16_REL_L2, K1_BF16_REL_L2,
-    K3_TILED_REL_L2, LSE_ATOL, WIDE_SOURCE, _rotate,
-    flash_mha_online_tiled_reference)
+    K3_TILED_REL_L2, LSE_ATOL, WIDE_SOURCE, _flat, _kernel_tables,
+    _rotate, flash_mha_online_tiled_reference, kernel_head_dim)
 from meant_tpu_torch.tools.k45_masked_row import errors as fp64_errors
 from meant_tpu_torch.tools.k45_masked_row import grads_fp64
 from meant_tpu_torch.train.classify import meant_trainer
@@ -941,16 +941,27 @@ def test_online_kernels_at_odd_and_wide_head_dims(cuda, dtype, lengths, d):
     _assert_grads_close(grads, want, dtype)
 
 
+# The padded widths past 128 at which K1 and K3 run the forwards' wgmma
+# body in bf16 (csrc/flash_fwd.cu; the wide body at the others and in fp32).
+FWD_WGMMA_WIDTHS = (192, 256, 384, 768)
+
+
+def _fwd_wgmma(d, dtype) -> bool:
+    return dtype == torch.bfloat16 and kernel_head_dim(d) in FWD_WGMMA_WIDTHS
+
+
 @pytest.mark.parametrize("d,dtype,wgmma", [
     (192, torch.bfloat16, True), (256, torch.bfloat16, True),
     (191, torch.bfloat16, False), (384, torch.bfloat16, False),
+    (320, torch.bfloat16, False),
     (192, torch.float32, False), (256, torch.float32, False)])
 def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
     """K4's and K5's last_source: their wgmma bodies (the library's own
     source) in bf16 at an even d padded to 192 or 256; the wide body at an
     odd d (the adjoint's wrap), past 256 and in fp32. K3 runs its wgmma
-    body in bf16 at a padded width of 192 or 256, an odd d included (a
-    forward has no adjoint), and the wide body in fp32 and past 256."""
+    body in bf16 at a padded width of 192, 256, 384 or 768, an odd d
+    included (a forward has no adjoint), and the wide body in fp32 and at
+    the other widths past 256 (320)."""
     gen = torch.Generator(device=cuda).manual_seed(d)
     q, k, v, do, tables, mask, causal = _shape_case(
         cuda, dtype, d, 130, 130, "xpos_causal", gen)
@@ -963,20 +974,22 @@ def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
     for launcher in (flash_bwd_dq, flash_bwd_dkdv):
         want = launcher.source if wgmma else WIDE_SOURCE
         assert launcher.last_source == want, launcher.symbol
-    k3_wgmma = dtype == torch.bfloat16 and d <= 256
     assert flash_fwd_online.last_source == (
-        flash_fwd_online.source if k3_wgmma else WIDE_SOURCE)
+        flash_fwd_online.source if _fwd_wgmma(d, dtype) else WIDE_SOURCE)
 
 
 @pytest.mark.parametrize("d,dtype,wgmma", [
     (160, torch.bfloat16, True), (192, torch.bfloat16, True),
     (200, torch.bfloat16, True), (256, torch.bfloat16, True),
     (191, torch.bfloat16, False), (384, torch.bfloat16, False),
+    (320, torch.bfloat16, False),
     (192, torch.float32, False), (256, torch.float32, False)])
 def test_resident_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
     """K2's last_source: its wgmma bodies (csrc/flash_bwd.cu) in bf16 at an
     even d padded to 192 or 256; the wide body at an odd d (the adjoint's
-    wrap), past 256 and in fp32. K1 keeps the wide body past 128."""
+    wrap), past 256 and in fp32. K1 runs the forwards' wgmma body
+    (csrc/flash_fwd.cu) in bf16 at a padded width of 192, 256 or 384 (an
+    odd d included), and the wide body in fp32 and at 320."""
     gen = torch.Generator(device=cuda).manual_seed(d + 1)
     q, k, v, do, tables, mask, causal = _shape_case(
         cuda, dtype, d, 130, 130, "masked", gen)
@@ -984,7 +997,39 @@ def test_resident_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
     torch.cuda.synchronize()
     assert flash_bwd.last_source == (flash_bwd.source if wgmma
                                      else WIDE_SOURCE)
-    assert flash_fwd.last_source == WIDE_SOURCE
+    assert flash_fwd.last_source == (
+        flash_fwd.source if _fwd_wgmma(d, dtype) else WIDE_SOURCE)
+
+
+@pytest.mark.parametrize("case", ["masked", "pixel"])
+@pytest.mark.parametrize("lengths", [(65, 65), (196, 196), (512, 512),
+                                     (130, 70), (70, 200)])
+@pytest.mark.parametrize("d", [160, 192, 200, 256, 384, 768])
+def test_k1_wgmma_body_past_128_matches_plain(cuda, case, lengths, d):
+    """R1 + K1 in bf16 at even head dims padded to 192, 256, 384 and 768
+    (the forwards' wgmma body; on its sliced ring past 256), one launch of
+    each a call on the inputs padded as flash_mha pads them (at d = 768
+    and 512 keys flash_mha itself streams, as JAX routes it): out against
+    flash_mha_reference at K1's bars."""
+    s_q, s_k = lengths
+    gen = torch.Generator(device=cuda).manual_seed(d * 11 + s_q + s_k)
+    q, k, v, _, tables, mask, causal = _shape_case(
+        cuda, torch.bfloat16, d, s_q, s_k, case, gen)
+    width = kernel_head_dim(d)
+    qp, kp, vp = _flat(width, q, k, v)
+    kmask, *ptables = _kernel_tables(width, mask, *tables)
+    before = (rotate_qk.launches, flash_fwd.launches)
+    qr, kr = rotate_qk(qp, kp, *ptables, head_dim=d)
+    out = flash_fwd(qr, kr, vp, kmask, scale=0.1, causal=causal,
+                    num_heads=q.shape[1])
+    torch.cuda.synchronize()
+    assert (rotate_qk.launches, flash_fwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert flash_fwd.last_source == flash_fwd.source
+    out = out[..., :d].reshape(q.shape)
+    ref = flash_mha_reference(q, k, v, mask, *tables, scale=0.1,
+                              causal=causal)
+    _assert_out_close(out, ref, torch.bfloat16, K1_BF16_REL_L2)
 
 
 @pytest.mark.parametrize("case", ["masked", "pixel"])
@@ -1018,11 +1063,12 @@ def test_k2_wgmma_bodies_past_128_match_plain(cuda, case, lengths, d):
 @pytest.mark.parametrize("case", ["xpos_causal", "masked", "pixel"])
 @pytest.mark.parametrize("lengths", [(65, 65), (1024, 1024), (4096, 4096),
                                      (256, 257)])
-@pytest.mark.parametrize("d", [160, 192, 200, 256])
+@pytest.mark.parametrize("d", [160, 192, 200, 256, 384, 768])
 def test_k3_wgmma_body_past_128_matches_plain(cuda, case, lengths, d):
-    """R1 + K3 in bf16 at even head dims padded to 192 and 256 (the
-    forward's wgmma body at those widths) through flash_mha(return_lse=
-    True), one launch each: out at K3's bars against
+    """R1 + K3 in bf16 at even head dims padded to 192, 256, 384 and 768
+    (the forwards' wgmma body at those widths, on its sliced ring past
+    256) through flash_mha(return_lse=True), one launch each: out at K3's
+    bars against
     flash_mha_online_reference and at K3_TILED_REL_L2 against its tiled
     order, lse within LSE_ATOL."""
     s_q, s_k = lengths

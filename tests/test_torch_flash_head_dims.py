@@ -3,10 +3,11 @@ odd head dims and head dims past 128.
 
 * `flash_mha` forward and `jax.grad` through JAX's Pallas kernels
   (interpret mode, as tests/test_torch_flash_shapes.py runs them) at head
-  dims 7, 95, 130, 192, 256 and 384: plain, and causal with xPos tables
-  and a key mask; on the resident path and forced onto the streaming one;
-  and at 160 on the streaming one (160, 192 and 256 are the widths whose
-  K4 and K5 run the wgmma bodies on the card, held there to these plain
+  dims 7, 95, 130, 192, 256, 384 and 768: plain, and causal with xPos
+  tables and a key mask; on the resident path and forced onto the
+  streaming one; and at 160 on the streaming one (160, 192 and 256 are
+  the widths whose K4 and K5 run the wgmma bodies on the card, and 192,
+  256, 384 and 768 those whose K1 and K3 do, held there to these plain
   versions). The bars of test_torch_flash.py: rtol 1e-4 / atol 1e-5.
 * `XPosAttention` and `RotaryAttention` with flash=True at width 190 in 2
   heads and 760 in 8 (d = 95): output and the gradients of the input and
@@ -95,7 +96,7 @@ def _port_grads(q, k, v, do, kw, mask, **extra):
 
 @pytest.mark.parametrize("path", ["resident", "streaming"])
 @pytest.mark.parametrize("variant", ["plain", "causal_xpos"])
-@pytest.mark.parametrize("d", [7, 95, 130, 192, 256, 384])
+@pytest.mark.parametrize("d", [7, 95, 130, 192, 256, 384, 768])
 def test_flash_mha_matches_pallas_at_every_head_dim(d, variant, path):
     (q, k, v, do), kw, mask = _case(d, variant, seed=d)
     extra = {"force_online": path == "streaming"}
