@@ -2692,7 +2692,9 @@ def count_new_hgmma() -> dict:
     forward body), K2's two kernels and K4 + K5; and at 192 and 256 (the
     bf16 bodies past d = 128) in K3's, K2's dq and dk/dv and K4's and K5's
     own, each apart; K1's at 192, 256, 384 and 768 and K3's at 384 and 768
-    (the forwards' body, on its sliced ring past 256), each apart."""
+    (the forwards' body, on its sliced ring past 256), each apart; K2's
+    sliced dq and dk/dv kernels at 384 and its chain body's products at
+    768."""
     counts = {}
     for d in (64, 128):
         for label, lib, function in (
@@ -2717,6 +2719,11 @@ def count_new_hgmma() -> dict:
         for d in widths:
             counts[f"{label} d{d}"] = count_hgmma(
                 "flash_fwd", f"{function}ILi{d}E")
+    for label, kernel in (("K2 dq", "dq"), ("K2 dk/dv", "dkdv")):
+        counts[f"{label} d384"] = count_hgmma(
+            "flash_bwd", f"flash_bwd_{kernel}_sliced_kernelILi384E")
+    counts["K2 chain products d768"] = count_hgmma("flash_bwd",
+                                                   "chain_products_kernel")
     return counts
 
 
@@ -5238,6 +5245,54 @@ def check_head_dims(res) -> dict:
     return errors
 
 
+# K2 past d = 256 at the main path's launches: --num_heads 2's text tower
+# (160, 512, 384) causal xPos with a key mask and charts (160, 196, 384),
+# --num_heads 1's charts (80, 196, 768) pixel rotary
+WIDE_K2_CASES = (("text_masked", SEQ, 2), ("vision", N_PATCHES, 2),
+                 ("vision", N_PATCHES, 1))
+
+
+def check_wide_k2(res) -> dict:
+    """R1 + K1 and K2 through flash_mha and autograd at WIDE_K2_CASES in
+    bf16 (one launch of each a call) against flash_mha_reference and
+    flash_mha_bwd_reference at the bars in force (K2: 2e-2 + 2e-2 |ref| an
+    element, BWD_BF16_REL_L2 a gradient); records the elements past the
+    element bar (none may be) and the body K2 ran."""
+    from meant_tpu_torch.ops.flash.kernel import (BWD_BF16_ATOL,
+                                                  K1_BF16_REL_L2)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    errors, rels, past, bodies = {}, {}, {}, {}
+    for kind, s, heads in WIDE_K2_CASES:
+        d = DIM // heads
+        c = backward_case(kind, torch.bfloat16, gen, s=s,
+                          bh=BATCH * LAG * heads, d=d, heads=heads)
+        label = f"({BATCH * LAG * heads}, {s}, {d}) {kind}"
+        reset_counts()
+        got = run_autograd(c)
+        torch.cuda.synchronize()
+        check_counts(read_counts(), {"R1": 1, "K1": 1, "K2": 1},
+                     f"flash_mha at {label}")
+        bodies[label] = wrappers()["K2"].last_source
+        want = [run_plain(c), *run_bwd_plain(c)]
+        for g, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+            errors[f"{label}/{g}"], rels[f"{label}/{g}"] = hold(
+                "R1 + K1" if g == "out" else "R1 + K2", label, g, a, b,
+                torch.bfloat16, K1_BF16_REL_L2)
+            if g != "out":
+                past[f"{label}/{g}"] = int(
+                    ((a.float() - b.float()).abs()
+                     > BWD_BF16_ATOL + BF16_TOL * b.float().abs()).sum())
+        del c, got, want
+        torch.cuda.empty_cache()
+    print(f"K2 past d = 256 at the main path's launches: bodies {bodies}, "
+          f"elements past the element bar {past}", flush=True)
+    res["wide_k2_vs_plain_max_abs_err"] = errors
+    res["wide_k2_vs_plain_rel_l2"] = rels
+    res["wide_k2_past_element_bar"] = past
+    res["wide_k2_bodies"] = bodies
+    return errors
+
+
 def run_online_autograd(c):
     """flash_mha(return_lse=True) forward (R1 + K3) and its autograd
     backward (R1 + K4 + K5) with cotangents (dO, g_lse): (out, lse, dq, dk,
@@ -5480,6 +5535,7 @@ def run_head_dims(record) -> dict:
     res = {}
     record["head_dims"] = res
     check_head_dims(res)
+    check_wide_k2(res)
     out = {"long_errors": check_head_dims_long(res)}
     out["src4"] = run_src_heads(res.setdefault("src_heads4", {}),
                                 SRC4_HEADS, REQUEST_ROWS, SRC4_STEPS, True)
@@ -5514,8 +5570,9 @@ def time_head_dims(out) -> list:
     that reaches it: R1 + K1, K2 and R1 at d = 192 (s=512 causal xPos and
     s=196 pixel rotary, BH = 320: meant_src --num_heads 4), d = 256 (s=512,
     BH = 240: --num_heads 3; s=196, BH = 30: src4096's vision tower at 3
-    heads), d = 384 (s=512, BH = 160: --num_heads 2), d = 768 (s=196, BH
-    = 80: --num_heads 1, whose s=512 text tower streams, as JAX routes it)
+    heads), d = 384 (s=512 and s=196, BH = 160: --num_heads 2), d = 768
+    (s=196, BH = 80: --num_heads 1, whose s=512 text tower streams, as JAX
+    routes it)
     and d = 95 (s=512, BH = 640: --text_dim 760; K1 and R1 at width 128,
     K2 on the wide body);
     R1 + K3, R1, K4 and K5 at src4096's launch at 4 heads (BH = 40, d =
@@ -5534,6 +5591,8 @@ def time_head_dims(out) -> list:
              out["src4"], BATCH),
             ("text", SEQ, 2, "s512 causal xPos d384", out["src2"], BATCH),
             ("vision", N_PATCHES, 1, "s196 pixel rotary d768", out["src1"],
+             BATCH),
+            ("vision", N_PATCHES, 2, "s196 pixel rotary d384", out["src2"],
              BATCH),
             ("text", SEQ, ODD_HEADS, "s512 causal xPos d95 (--text_dim 760)",
              out["odd"], BATCH),
@@ -5629,7 +5688,8 @@ def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches) -> list:
     kernels take only padded (`kernel_head_dim`) times K1, K2 and R1 alone
     on the padded inputs, as flash_mha hands them over."""
     from meant_tpu_torch.ops.flash import flash_bwd, flash_fwd
-    from meant_tpu_torch.ops.flash.kernel import (K1_BF16_REL_L2,
+    from meant_tpu_torch.ops.flash.kernel import (CHAIN_SOURCE,
+                                                  K1_BF16_REL_L2,
                                                   kernel_head_dim)
     got = run_autograd(c)
     want = [run_plain(c), *run_bwd_plain(c)]
@@ -5667,13 +5727,19 @@ def resident_rows(c, label, fwd_launches, bwd_launches, r1_launches) -> list:
     k2_ms = event_ms(lambda: k2(c), iters=10)
     k2_source = flash_bwd.last_source
     with_r1 = event_ms(lambda: (rotate(c), k2(c)), iters=10)
+    chain = {}
+    if k2_source == CHAIN_SOURCE:
+        # the bound stays the function's (all five products at the bf16
+        # tensor peak); beside it, the floor of the body's own design,
+        # which sums S and dP (two of the five) by fp32 FMA chains
+        chain = dict(chain_floor_ms=2 / 5 * flops / PEAK_FP32_FLOPS * 1e3)
     rows.append(kernel_row(
         f"flash_bwd[{label}]", k2_source,
         "meant_tpu/ops/flash/kernel.py:321", bwd_launches,
         max(err[g] for g in ("dq", "dk", "dv")), k2_ms,
         event_ms(lambda: run_bwd_plain(c), iters=3), library_ms, nbytes,
         flops, PEAK_BF16_FLOPS, shape=list(c["q"].shape), s_k=c["s_k"],
-        dtype="bfloat16", r1_plus_k2_ms=with_r1))
+        dtype="bfloat16", r1_plus_k2_ms=with_r1, **chain))
     print(f"resident backward at {label}: K2 {k2_ms:.4f} ms, R1 + K2 "
           f"{with_r1:.4f} ms against the SDPA backward's "
           f"{library_ms:.4f} ms ({with_r1 / library_ms:.2f}x)", flush=True)

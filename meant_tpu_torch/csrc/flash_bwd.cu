@@ -55,12 +55,18 @@
 // wgmma bodies, the dq kernel one consumer warpgroup at 192 and two
 // splitting dQ's columns at 256, the dk/dv kernel two at both, each
 // warpgroup forming the tile's whole S and dP (the layouts and their
-// bounds: flash_bwd_wgmma.cuh). Past 256, in fp32 past 128, and at an odd
-// head dim, whose adjoint wraps column d-1 onto column 0 as the JAX
-// kernel's lane rotate-half does, both kernels take the wide bodies of
-// flash_wide.cuh at the padded width (a multiple of 64), still one dq
-// launch and one dk/dv launch. q has s_q rows and k s_k keys: the dq
-// kernel's grid walks q tiles, the dk/dv kernel's k tiles.
+// bounds: flash_bwd_wgmma.cuh). In bf16 at 384 (meant_src --num_heads 2)
+// the sliced kernels of flash_bwd_wgmma.cuh: the streamed tiles in
+// 192-column slices, dQ in two warpgroups of 192 columns, dK and dV in
+// column groups of 192 on the grid. In bf16 at 768 (--num_heads 1) the
+// chain body of flash_bwd_chain.cuh: S and dP on fp32 FMA chains in column
+// order (the wide body's bits), formed once per tile pair, the products
+// on wgmma; three launches a call. In fp32 past 128, at the other widths
+// past 256 and at an odd head dim, whose adjoint wraps column d-1 onto
+// column 0 as the JAX kernel's lane rotate-half does, both kernels take
+// the wide bodies of flash_wide.cuh at the padded width (a multiple of
+// 64), still one dq launch and one dk/dv launch. q has s_q rows and k s_k
+// keys: the dq kernel's grid walks q tiles, the dk/dv kernel's k tiles.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the main
 // path's shapes (BH = 640, d = 96, bf16): the launch must read q, k, v, dO
@@ -75,6 +81,7 @@
 // C interface (loaded with ctypes): meant_flash_bwd returns the
 // cudaError_t of the launches (0 on success); it never synchronises.
 
+#include "flash_bwd_chain.cuh"
 #include "flash_bwd_wgmma.cuh"
 #include "flash_common.cuh"
 #include "flash_wide.cuh"
@@ -398,18 +405,40 @@ cudaError_t launch_bf16(const bwd::Args& a, void* dq, void* dk, void* dv) {
   return bwd::launch_dkdv<true, D>(m, a, dk, dv);
 }
 
+// bf16 at D = 384: the sliced kernels
+template <int D>
+cudaError_t launch_sliced(const bwd::Args& a, void* dq, void* dk, void* dv) {
+  CUtensorMap m[4];
+  if (!bwd::make_maps<D>(m, a)) return cudaErrorInvalidValue;
+  cudaError_t err = bwd::launch_dq_sliced<D>(m, a, dq);
+  if (err != cudaSuccess) return err;
+  return bwd::launch_dkdv_sliced<D>(m, a, dk, dv);
+}
+
 }  // namespace
+
+// The bytes of scratch a call with these arguments needs beside stats: the
+// chain body's (bf16 at d = 768), else 0.
+extern "C" long long meant_flash_bwd_scratch_bytes(int dtype, int d,
+                                                   int head_dim, int bh,
+                                                   int seq_q, int seq_k) {
+  if (!wide::takes_chain(wide::kK2, dtype, d, head_dim)) return 0;
+  return (long long)chain::scratch_bytes(bh, seq_q, seq_k);
+}
 
 // dtype: 0 = float32, 1 = bfloat16. qr (q rotated by R1), dout, dq:
 // (bh, seq_q, d); kr (k rotated by R1), v, dk, dv: (bh, seq_k, d); all
 // contiguous, d = 64, 96, 128 or a multiple of 64, head_dim <= d the
 // caller's head dim (an odd one wraps the adjoint); stats: (3, bh, seq_q)
-// fp32 scratch; tables: (seq_q | seq_k, d) fp32, read by the rotation's
-// adjoint; kmask: (mask_rows, seq_k) fp32 or null.
+// fp32, the rows' m, 1/l and delta (written, then read); scratch:
+// meant_flash_bwd_scratch_bytes of device memory (null when that is 0);
+// tables: (seq_q | seq_k, d) fp32, read by the rotation's adjoint; kmask:
+// (mask_rows, seq_k) fp32 or null.
 extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
                                const void* v, const void* dout, void* dq,
                                void* dk, void* dv, void* stats,
-                               const void* qcos, const void* qsin,
+                               void* scratch, const void* qcos,
+                               const void* qsin,
                                const void* kcos, const void* ksin,
                                const void* kmask, int mask_rows, int bh,
                                int seq_q, int seq_k, int d, int head_dim,
@@ -439,10 +468,17 @@ extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
                             : wide::launch_dkdv<bf16, true>(w, dk, dv));
   }
   if (head_dim <= 0 || head_dim > d) return (int)cudaErrorInvalidValue;
-  // past 128 only bf16 at 192 and 256 has a wgmma body (takes_wide sends
-  // fp32 and an odd head dim there to the wide bodies)
+  if (wide::takes_chain(wide::kK2, dtype, d, head_dim))
+    return (int)chain::launch(qr, kr, v, dout, dq, dk, dv, st, scratch,
+                              f(qcos), f(qsin), f(kcos), f(ksin), f(kmask),
+                              mask_rows, bh, seq_q, seq_k, num_heads, scale,
+                              causal, static_cast<cudaStream_t>(stream));
+  // past 128 only bf16 at 192, 256 and 384 has a wgmma body, and at 768
+  // the chain body (takes_wide sends fp32 and an odd head dim there to the
+  // wide bodies)
   if (dtype == 1 && d == 192) return (int)launch_bf16<192>(a, dq, dk, dv);
   if (dtype == 1 && d == 256) return (int)launch_bf16<256>(a, dq, dk, dv);
+  if (dtype == 1 && d == 384) return (int)launch_sliced<384>(a, dq, dk, dv);
   return (int)dispatch_head_dim(d, [&](auto built) {
     constexpr int D = decltype(built)::value;
     return dtype == 0 ? launch_fp32<D>(a, dq, dk, dv, st)

@@ -39,10 +39,12 @@
 //
 // Both kernels are templates on the head dim D, a [64][D] tile being D / 32
 // TMA boxes: 64, 96, 128, 192 and 256 for K2, K4 and K5 (past 128 in bf16
-// at an even d; an odd d, fp32 past 128 and every width past 256 take
-// flash_wide.cuh). At 192 and 256 they replace
-// meant_tpu/ops/flash/kernel.py:_bwd_kernel (K2), _bwd_dq_kernel (K4) and
-// _bwd_dkdv_kernel (K5) as at the narrower widths. The layouts:
+// at an even d), and past 256 their sliced forms (below) at 384 for K2; an
+// odd d, fp32 past 128, K4 and K5 past 256 and K2 at the other widths past
+// 256 take flash_wide.cuh (K2 at 768 flash_bwd_chain.cuh). At 192, 256 and
+// 384 they replace meant_tpu/ops/flash/kernel.py:_bwd_kernel (K2),
+// _bwd_dq_kernel (K4) and _bwd_dkdv_kernel (K5) as at the narrower
+// widths. The layouts:
 //   * D <= 128: one consumer warpgroup and a producer warp, three stages.
 //     At D = 128 the dk/dv kernel holds two 64 x 128 fp32 accumulators
 //     (128 registers a thread) beside S and dP.
@@ -69,6 +71,22 @@
 //     thread takes 240. Three stages at 192 (~197 KB), two at 256 (six
 //     tiles of 32 KB, ~198 KB). ptxas: K4 at 192 204 registers, the others
 //     168 at launch, none spills (chip_smoke.py prints the report).
+//   * past 256 (the sliced kernels, SlicedLayout): neither a block's
+//     resident [64][384] tile pair beside whole streamed tiles nor dK + dV
+//     for 64 keys (192 KB of fp32) fits, so the streamed tiles come in
+//     kSliceCols-column slices through the ring (five stages of 24 KB beside
+//     the two resident 48 KB tiles), each released once the products of the
+//     next are under way (sliced_scores), as the forwards' sliced ring does
+//     (flash_fwd.cu). The dq kernel holds dQ in two consumer warpgroups of
+//     192 columns (96 registers each beside S and dP) and keeps the Kr
+//     slices for dQ += dS Kr; the dk/dv kernel holds kSlicedDkdvCols columns
+//     of dK and dV a block (the D = 192 dk/dv layout, S^T and dP^T formed
+//     over all 384 columns), the column groups on the grid, and keeps the Qr
+//     and dO slices of its columns. At (160, 512, 384) 96-column slices
+//     (nine stages) read the same as 192 (1.136 against 1.138 ms), and 96
+//     columns a dk/dv block (one consumer warpgroup, four groups) 1.36x
+//     slower (tools/k23_variants.py --kernels K2wide; PERF.md). ptxas: 168
+//     registers at launch for both kernels, no spills.
 // Bound on an H100 SXM at src4096's launch at --num_heads 4, (40, 4096,
 // 192) bf16 causal: K4 386.5 GFLOP, 0.39 ms, K5 515.4 GFLOP, 0.52 ms, both
 // bound by operations (the same products as at (80, 4096, 96)); at
@@ -76,13 +94,17 @@
 // and K5 1.63 / 1.47 ms there (PERF.md). K2 at meant_src --num_heads 4's
 // (320, 512, 192) causal and --num_heads 3's (240, 512, 256) must move 442
 // MB (0.132 ms) for 80.7 GFLOP of products (0.082 ms), at (320, 196, 192)
-// 169 MB (0.051 ms): bound by bytes, as at d = 96 (flash_bwd.cu).
+// 169 MB (0.051 ms): bound by bytes, as at d = 96 (flash_bwd.cu); so is K2
+// at --num_heads 2's (160, 512, 384), 443 MB (0.132 ms) for 80.8 GFLOP,
+// where the sliced kernels form S and dP 8 times over (each dq warpgroup
+// twice, each dk/dv warpgroup once in each of two column groups).
 // The order of the sums of S and dP (k16 steps on the tensor cores) is not
 // the plain versions' column order. tools/wide_sum_order.py holds that
 // order to the gradients' element bar at the widths these bodies take: 0
 // elements past it at d = 192 and 256 (K4 + K5 at s=4096 and at the ring's
-// chunk, K2 at s=512 and 196), where at d = 768 such sums put single dq
-// elements past it (PERF.md).
+// chunk, K2 at s=512 and 196) and at 384 (K2 at s=512 masked and 196, K4
+// + K5 at s=4096), where at d = 768 such sums put single dq elements past
+// it (PERF.md).
 
 #pragma once
 
@@ -157,6 +179,13 @@ __device__ __forceinline__ uint32_t ds_pair(float p0, float p1, float dp0,
 __device__ __forceinline__ bool dq_edge(int causal, int tile, int qt, int k0,
                                         int seq_k) {
   return (causal && tile == qt) || k0 + kTile > seq_k;
+}
+
+// Whether a dk/dv tile masks element by element: the diagonal (the first
+// q tile of a causal walk), or ragged in q or in keys.
+__device__ __forceinline__ bool dkdv_edge(int causal, int it, int q0, int k0,
+                                          int seq_q, int seq_k) {
+  return (causal && it == 0) || q0 + kTile > seq_q || k0 + kTile > seq_k;
 }
 
 // P = exp(score - m), times 1/l for K2 (p_of, flash_common.cuh); K2's
@@ -533,7 +562,7 @@ __global__ void __launch_bounds__((Layout<D, true>::kBlock), 1)
     fence_regs(s);
     fence_regs(dp);
     uint32_t pt[kTile / 16][4], dst[kTile / 16][4];  // T(P^T), dS^T
-    if ((causal && it == 0) || q0 + kTile > seq_q || k0 + kTile > seq_k)
+    if (dkdv_edge(causal, it, q0, k0, seq_q, seq_k))
       dkdv_tile_p_ds<true, kStats>(pt, dst, s, dp, key, key_bias, sm.m[st],
                                    sm.il[st], sm.delta[st], q0, t, seq_q,
                                    seq_k, causal, km, scale);
@@ -574,6 +603,475 @@ __global__ void __launch_bounds__((Layout<D, true>::kBlock), 1)
       store_adjoint<bf16>(dk_row, cr, sr, c, dk_acc[4 * j + 2 * h],
                           dk_acc[4 * j + 2 * h + 1]);
     }
+  }
+}
+
+// ---- past 256: the sliced ring ---------------------------------------------
+
+// The width of a ring stage past 256: Kr and V (dq kernel) or Qr and dO
+// (dk/dv kernel) stream in slices of kSliceCols columns; and the gradients'
+// columns a dk/dv block holds (a group of them on the grid's first axis).
+constexpr int kSliceCols = 192;
+constexpr int kSlicedDkdvCols = 192;
+
+// The block of a sliced kernel at D: the dq kernel holds all of dQ's D
+// columns, the dk/dv kernel kSlicedDkdvCols of dK's and dV's, in
+// consumer warpgroups of 192 (dq) or 96 (dk/dv) columns and a producer:
+// a warp beside one consumer warpgroup, a warpgroup beside two (setmaxnreg
+// moves registers a warpgroup at a time).
+template <int D, bool kDkdv>
+struct SlicedLayout {
+  static constexpr int kBlockCols = kDkdv ? kSlicedDkdvCols : D;
+  static constexpr int kGroups = D / kBlockCols;  // blocks a tile, on the grid
+  static constexpr int kCols = kDkdv ? 96 : 192;  // a consumer warpgroup's
+  static constexpr int kWGs = kBlockCols / kCols;
+  static constexpr int kSlices = D / kSliceCols;  // stages a streamed tile
+  // a warpgroup's columns as products of kPartCols, each within one slice
+  static constexpr int kPartCols = kCols < kSliceCols ? kCols : kSliceCols;
+  static constexpr int kParts = kCols / kPartCols;
+  static constexpr int kConsumers = kWarpgroup * kWGs;
+  static constexpr int kBlock = kConsumers + (kWGs == 1 ? 32 : kWarpgroup);
+  static_assert(D % kSliceCols == 0 && D % kBlockCols == 0 &&
+                    kBlockCols % kCols == 0 &&
+                    kSliceCols % kPartCols == 0 && kCols % kPartCols == 0,
+                "slices, groups and warpgroups tile the columns");
+};
+
+// The block's two resident [64][D] tiles, then the ring of slices; in the
+// dk/dv kernel each stage also carries the statistics of the streamed q
+// rows (written with the block's first kept Qr slice).
+template <int D, int kN>
+struct SlicedSmem {
+  uint8_t a[hopper::tile_bytes<D>()];   // dq: Qr rows; dk/dv: Kr rows
+  uint8_t b[hopper::tile_bytes<D>()];   // dq: dO; dk/dv: V
+  uint8_t ring[kN][hopper::tile_bytes<kSliceCols>()];
+  float m[kN][kTile], delta[kN][kTile], il[kN][kTile];
+  uint64_t fixed_full, full[kN], empty[kN];
+};
+
+// As many stages as fit beside the two resident tiles.
+template <int D>
+__host__ __device__ constexpr int sliced_stages() {
+  return (232448 - 4096 - 2 * hopper::tile_bytes<D>()) /
+         (hopper::tile_bytes<kSliceCols>() + 3 * kTile * 4);
+}
+
+// The slice that holds column c of a streamed tile, and c's byte offset
+// within it (c a multiple of 32).
+__host__ __device__ constexpr int slice_of(int c) { return c / kSliceCols; }
+__host__ __device__ constexpr int slice_bytes_at(int c) {
+  return c % kSliceCols / hopper::kBoxCols * hopper::kBoxBytes;
+}
+
+// S (or S^T) and dP (dP^T) of one tile pair over every column of D: the
+// streamed tile's kSlices slices taken from the ring in order against the
+// resident tile a, then its partner's against b (the j-th slice taken
+// from stage (taken before + j) % kN). A slice is released once the
+// products of the next are under way, but for the slices [keep_lo,
+// keep_hi] of the streamed tile (and of its partner's with keep_b), which
+// the caller releases. `take` and `release` run the ring.
+template <int D, typename Take, typename Release>
+__device__ __forceinline__ void sliced_scores(
+    float (&s)[4 * kNs], float (&dp)[4 * kNs], const uint8_t* a,
+    const uint8_t* b, uint8_t (*ring)[hopper::tile_bytes<kSliceCols>()],
+    int keep_lo, int keep_hi, bool keep_b, Take&& take, Release&& release) {
+  using namespace hopper;
+  constexpr int kSlices = D / kSliceCols, kSteps = kSliceCols / 16;
+  int prev = -1;
+  bool prev_kept = false;
+  // the products of slice j into acc, from resident tile res
+  const auto step = [&](float(&acc)[4 * kNs], const uint8_t* res, int j,
+                        bool keep) {
+    const int cur = take();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+      wgmma_m64n64k16_ss(acc, kmajor_desc(res, j * kSteps + kk),
+                         kmajor_desc(ring[cur], kk), j > 0 || kk > 0);
+    wgmma_commit();
+    if (prev >= 0) {
+      wgmma_wait<1>();
+      if (!prev_kept) release(prev);
+    }
+    prev = cur;
+    prev_kept = keep && j >= keep_lo && j <= keep_hi;
+  };
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < kSlices; ++j) step(s, a, j, true);
+#pragma unroll
+  for (int j = 0; j < kSlices; ++j) step(dp, b, j, keep_b);
+  wgmma_wait<0>();
+  if (!prev_kept) release(prev);
+  fence_regs(s);
+  fence_regs(dp);
+}
+
+// K2's dq and statistics past 256. Grid (q tiles, bh); block
+// SlicedLayout<D, false>::kBlock threads: two consumer warpgroups, each
+// holding 192 of dQ's columns and forming the rows' whole S and dP, and a
+// producer warpgroup whose first thread streams Kr's and V's slices of
+// each key tile (twice for K2: the statistics pass, then dS). Every
+// warpgroup needs every Kr slice for S; each keeps its own for dQ += dS
+// Kr, so the Kr slices are released after that product, the V slices one
+// product behind.
+template <int D>
+__global__ void __launch_bounds__((SlicedLayout<D, false>::kBlock), 1)
+    flash_bwd_dq_sliced_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do, float* __restrict__ row_m_g,
+    float* __restrict__ row_il_g, float* __restrict__ row_delta_g,
+    bf16* __restrict__ dq, const float* __restrict__ qcos,
+    const float* __restrict__ qsin, const float* __restrict__ kmask,
+    int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
+    int causal) {
+  using namespace hopper;
+  using L = SlicedLayout<D, false>;
+  constexpr int kN = sliced_stages<D>();
+  constexpr int kSlices = L::kSlices, kNd = L::kPartCols / 8;
+  constexpr int kStageBytes = tile_bytes<kSliceCols>();
+  static_assert(kN >= 2 * kSlices, "a tile's slices fit the ring at once");
+  extern __shared__ uint8_t smem_raw[];
+  SlicedSmem<D, kN>& sm = aligned_smem<SlicedSmem<D, kN>>(smem_raw);
+  const int n_tq = (seq_q + kTile - 1) / kTile;
+  const int n_tk = (seq_k + kTile - 1) / kTile;
+  const int bh = blockIdx.y, qt = n_tq - 1 - (int)blockIdx.x;
+  const int q0 = qt * kTile;
+  const int n_tiles = causal ? min(qt + 1, n_tk) : n_tk;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.fixed_full, 1);
+    for (int st = 0; st < kN; ++st) {
+      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.empty[st], L::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= L::kConsumers) {  // the producer: one thread
+    if constexpr (L::kWGs > 1) setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == L::kConsumers) {
+      mbar_arrive_expect_tx(&sm.fixed_full, 2 * tile_bytes<D>());
+      tma_load_tile<D>(sm.a, &tm_q, &sm.fixed_full, q0, bh);
+      tma_load_tile<D>(sm.b, &tm_do, &sm.fixed_full, q0, bh);
+      int n = 0;  // stages filled
+      for (int it = 0; it < 2 * n_tiles; ++it) {
+        const int k0 = (it % n_tiles) * kTile;
+        for (int j = 0; j < 2 * kSlices; ++j, ++n) {
+          const int st = n % kN;
+          if (n >= kN) mbar_wait(&sm.empty[st], (n / kN - 1) & 1);
+          mbar_arrive_expect_tx(&sm.full[st], kStageBytes);
+          tma_load_cols<kSliceCols>(sm.ring[st], j < kSlices ? &tm_k : &tm_v,
+                                    &sm.full[st], (j % kSlices) * kSliceCols,
+                                    k0, bh);
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (L::kWGs > 1) setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = threadIdx.x / kWarpgroup;
+  const int warp = (threadIdx.x % kWarpgroup) / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
+  float dq_acc[L::kParts][4 * kNd], s[4 * kNs], dp[4 * kNs];
+#pragma unroll
+  for (int p = 0; p < L::kParts; ++p) zero_regs(dq_acc[p]);
+  zero_regs(s);
+  zero_regs(dp);
+  int ring = 0;  // stages taken so far
+  const auto take = [&]() {
+    const int st = ring % kN;
+    mbar_wait(&sm.full[st], (ring / kN) & 1);
+    ++ring;
+    return st;
+  };
+  const auto release = [&](int st) { mbar_arrive(&sm.empty[st]); };
+
+  float row_m[2], row_il[2], row_delta[2];
+  mbar_wait(&sm.fixed_full, 0);
+  {
+    // each warpgroup finds the same m, l and delta; the first writes them
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float dsum[2] = {0.f, 0.f};
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * kTile;
+      sliced_scores<D>(s, dp, sm.a, sm.b, sm.ring, kSlices, kSlices, false,
+                       take, release);
+      if (dq_edge(causal, it, qt, k0, seq_k))
+        stats_tile<true, true>(s, dp, m, l, dsum, row, k0, t, seq_k, causal,
+                               km, scale);
+      else
+        stats_tile<false, true>(s, dp, m, l, dsum, row, k0, t, seq_k,
+                                causal, km, scale);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float lt = row_sum(l[h]);
+      row_m[h] = (m[h] == -INFINITY) ? 0.f : m[h];
+      row_il[h] = lt > 0.f ? 1.0f / lt : 0.f;
+      row_delta[h] = row_sum(dsum[h]) * row_il[h];
+      if (wg == 0 && t == 0 && row[h] < seq_q) {
+        const size_t i = (size_t)bh * seq_q + row[h];
+        row_m_g[i] = row_m[h];
+        row_il_g[i] = row_il[h];
+        row_delta_g[i] = row_delta[h];
+      }
+    }
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kTile;
+    // keep every Kr slice for dQ += dS Kr; slice j is in stage kr_st(j)
+    const int base = ring;
+    const auto kr_st = [&](int j) { return (base + j) % kN; };
+    sliced_scores<D>(s, dp, sm.a, sm.b, sm.ring, 0, kSlices - 1, false,
+                     take, release);
+    uint32_t ds[kTile / 16][4];
+    if (dq_edge(causal, it, qt, k0, seq_k))
+      dq_tile_ds<true, true>(ds, s, dp, row, row_m, row_il, row_delta, k0,
+                             t, seq_k, causal, km, scale);
+    else
+      dq_tile_ds<false, true>(ds, s, dp, row, row_m, row_il, row_delta, k0,
+                              t, seq_k, causal, km, scale);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < L::kParts; ++p) {
+      const int c = wg * L::kCols + p * L::kPartCols;
+      const uint8_t* kr = sm.ring[kr_st(slice_of(c))] + slice_bytes_at(c);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        wgmma_m64nNk16_rs<L::kPartCols, kMNMajor>(dq_acc[p], ds[kk],
+                                                  mnmajor_desc(kr, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < L::kParts; ++p) fence_regs(dq_acc[p]);
+    fence_regs(ds);
+#pragma unroll
+    for (int j = 0; j < kSlices; ++j) release(kr_st(j));
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= seq_q) continue;
+    bf16* out = dq + ((size_t)bh * seq_q + row[h]) * D;
+    const float* cr = qcos + (size_t)row[h] * D;
+    const float* sr = qsin + (size_t)row[h] * D;
+#pragma unroll
+    for (int p = 0; p < L::kParts; ++p)
+#pragma unroll
+      for (int j = 0; j < kNd; ++j)
+        store_adjoint<bf16>(out, cr, sr,
+                            wg * L::kCols + p * L::kPartCols + j * 8 + 2 * t,
+                            dq_acc[p][4 * j + 2 * h],
+                            dq_acc[p][4 * j + 2 * h + 1]);
+  }
+}
+
+// K2's dk and dv past 256. Grid (k tiles x column groups,
+// bh), a key tile's groups side by side; block SlicedLayout<D,
+// true>::kBlock threads: consumer warpgroups of 96 of the group's columns
+// of dK and dV, each forming the tile pair's whole S^T and dP^T from the
+// resident Kr and V and the streamed Qr and dO slices, and a producer warp
+// (of a warpgroup) that stages the streamed rows' statistics with the
+// block's first kept Qr slice. The slices that hold the group's columns
+// are kept for dV += T(P^T) dO and dK += dS^T Qr; the others are released
+// one product behind.
+template <int D>
+__global__ void __launch_bounds__((SlicedLayout<D, true>::kBlock), 1)
+    flash_bwd_dkdv_sliced_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const float* __restrict__ row_m_g, const float* __restrict__ row_il_g,
+    const float* __restrict__ row_delta_g, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, const float* __restrict__ kcos,
+    const float* __restrict__ ksin, const float* __restrict__ kmask,
+    int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
+    int causal) {
+  using namespace hopper;
+  using L = SlicedLayout<D, true>;
+  constexpr int kN = sliced_stages<D>();
+  constexpr int kSlices = L::kSlices, kNd = L::kPartCols / 8;
+  constexpr int kStageBytes = tile_bytes<kSliceCols>();
+  static_assert(kN >= 2 * kSlices, "a tile's slices fit the ring at once");
+  extern __shared__ uint8_t smem_raw[];
+  SlicedSmem<D, kN>& sm = aligned_smem<SlicedSmem<D, kN>>(smem_raw);
+  const int n_tq = (seq_q + kTile - 1) / kTile;
+  const int bh = blockIdx.y;
+  const int kt = (int)blockIdx.x / L::kGroups;
+  const int c0 = (int)blockIdx.x % L::kGroups * L::kBlockCols;
+  const int k0 = kt * kTile;
+  // the slices holding this block's columns, kept for the products; the
+  // statistics ride with the first
+  const int keep_lo = slice_of(c0), keep_hi = slice_of(c0 + L::kBlockCols - 1);
+  const int q_first = causal ? kt : 0, n_tiles = max(0, n_tq - q_first);
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.fixed_full, 1);
+    for (int st = 0; st < kN; ++st) {
+      mbar_init(&sm.full[st], 32);  // the producer warp's lanes
+      mbar_init(&sm.empty[st], L::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= L::kConsumers) {  // the producer warp
+    if constexpr (L::kWGs > 1) {
+      setmaxnreg_dec<kProducerRegs>();
+      if (threadIdx.x >= L::kConsumers + 32) return;
+    }
+    const int lane = threadIdx.x - L::kConsumers;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.fixed_full, 2 * tile_bytes<D>());
+      tma_load_tile<D>(sm.a, &tm_k, &sm.fixed_full, k0, bh);
+      tma_load_tile<D>(sm.b, &tm_v, &sm.fixed_full, k0, bh);
+    }
+    float rm[2], rd[2], ril[2];
+    const auto fetch = [&](int it) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = (q_first + it) * kTile + lane + 32 * r;
+        const size_t gi = (size_t)bh * seq_q + i;
+        rm[r] = i < seq_q ? row_m_g[gi] : 0.f;
+        rd[r] = i < seq_q ? row_delta_g[gi] : 0.f;
+        ril[r] = i < seq_q ? row_il_g[gi] : 0.f;
+      }
+    };
+    fetch(0);
+    int n = 0;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int q0 = (q_first + it) * kTile;
+      for (int j = 0; j < 2 * kSlices; ++j, ++n) {
+        const int st = n % kN;
+        if (n >= kN) mbar_wait(&sm.empty[st], (n / kN - 1) & 1);
+        if (j == keep_lo) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            sm.m[st][lane + 32 * r] = rm[r];
+            sm.delta[st][lane + 32 * r] = rd[r];
+            sm.il[st][lane + 32 * r] = ril[r];
+          }
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&sm.full[st], kStageBytes);
+          tma_load_cols<kSliceCols>(
+              sm.ring[st], j < kSlices ? &tm_q : &tm_do, &sm.full[st],
+              (j % kSlices) * kSliceCols, q0, bh);
+        } else {
+          mbar_arrive(&sm.full[st]);
+        }
+      }
+      if (it + 1 < n_tiles) fetch(it + 1);
+    }
+    return;
+  }
+  if constexpr (L::kWGs > 1) setmaxnreg_inc<kConsumerRegs>();
+
+  const int wg = threadIdx.x / kWarpgroup;
+  const int warp = (threadIdx.x % kWarpgroup) / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const float* km = nullptr;
+  if (kmask != nullptr)
+    km = kmask + (size_t)(mask_rows == 1 ? 0 : bh / num_heads) * seq_k;
+  float key_bias[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (km != nullptr && key[h] < seq_k)
+      key_bias[h] = (1.0f - km[key[h]]) * -1e9f;
+  float dv_acc[L::kParts][4 * kNd], dk_acc[L::kParts][4 * kNd];
+  float s[4 * kNs], dp[4 * kNs];
+#pragma unroll
+  for (int p = 0; p < L::kParts; ++p) {
+    zero_regs(dv_acc[p]);
+    zero_regs(dk_acc[p]);
+  }
+  zero_regs(s);
+  zero_regs(dp);
+  int ring = 0;
+  const auto take = [&]() {
+    const int st = ring % kN;
+    mbar_wait(&sm.full[st], (ring / kN) & 1);
+    ++ring;
+    return st;
+  };
+  const auto release = [&](int st) { mbar_arrive(&sm.empty[st]); };
+  mbar_wait(&sm.fixed_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (q_first + it) * kTile;
+    // S^T = Kr Qr^T, dP^T = V dO^T; the j-th slice taken is in stage
+    // slice_st(j) (Qr's kSlices, then dO's)
+    const int base = ring;
+    const auto slice_st = [&](int j) { return (base + j) % kN; };
+    sliced_scores<D>(s, dp, sm.a, sm.b, sm.ring, keep_lo, keep_hi, true,
+                     take, release);
+    const int st = slice_st(keep_lo);  // the tile's statistics
+    uint32_t pt[kTile / 16][4], dst[kTile / 16][4];
+    if (dkdv_edge(causal, it, q0, k0, seq_q, seq_k))
+      dkdv_tile_p_ds<true, true>(pt, dst, s, dp, key, key_bias, sm.m[st],
+                                 sm.il[st], sm.delta[st], q0, t, seq_q,
+                                 seq_k, causal, km, scale);
+    else
+      dkdv_tile_p_ds<false, true>(pt, dst, s, dp, key, key_bias, sm.m[st],
+                                  sm.il[st], sm.delta[st], q0, t, seq_q,
+                                  seq_k, causal, km, scale);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < L::kParts; ++p) {
+      const int c = c0 + wg * L::kCols + p * L::kPartCols;
+      const uint8_t* dout =
+          sm.ring[slice_st(kSlices + slice_of(c))] + slice_bytes_at(c);
+      const uint8_t* qr = sm.ring[slice_st(slice_of(c))] + slice_bytes_at(c);
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        wgmma_m64nNk16_rs<L::kPartCols, kMNMajor>(dv_acc[p], pt[kk],
+                                                  mnmajor_desc(dout, kk));
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        wgmma_m64nNk16_rs<L::kPartCols, kMNMajor>(dk_acc[p], dst[kk],
+                                                  mnmajor_desc(qr, kk));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < L::kParts; ++p) {
+      fence_regs(dv_acc[p]);
+      fence_regs(dk_acc[p]);
+    }
+    fence_regs(pt);
+    fence_regs(dst);
+    for (int j = keep_lo; j <= keep_hi; ++j) {
+      release(slice_st(j));
+      release(slice_st(kSlices + j));
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= seq_k) continue;
+    bf16* dv_row = dv + ((size_t)bh * seq_k + key[h]) * D;
+    bf16* dk_row = dk + ((size_t)bh * seq_k + key[h]) * D;
+    const float* cr = kcos + (size_t)key[h] * D;
+    const float* sr = ksin + (size_t)key[h] * D;
+#pragma unroll
+    for (int p = 0; p < L::kParts; ++p)
+#pragma unroll
+      for (int j = 0; j < kNd; ++j) {
+        const int c = c0 + wg * L::kCols + p * L::kPartCols + j * 8 + 2 * t;
+        dv_row[c] = from_f<bf16>(dv_acc[p][4 * j + 2 * h]);
+        dv_row[c + 1] = from_f<bf16>(dv_acc[p][4 * j + 2 * h + 1]);
+        store_adjoint<bf16>(dk_row, cr, sr, c, dk_acc[p][4 * j + 2 * h],
+                            dk_acc[p][4 * j + 2 * h + 1]);
+      }
   }
 }
 
@@ -627,6 +1125,43 @@ cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const Args& a, void* dk,
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_k + kTile - 1) / kTile, a.bh);
   kernel<<<grid, Layout<D, true>::kBlock, bytes, a.stream>>>(
+      m[0], m[1], m[2], m[3], a.row_m, a.row_il, a.row_delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.kcos, a.ksin,
+      a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale,
+      a.causal);
+  return cudaGetLastError();
+}
+
+// K2's sliced kernels (D past 256) on the same arguments and maps.
+template <int D>
+cudaError_t launch_dq_sliced(const CUtensorMap (&m)[4], const Args& a,
+                             void* dq) {
+  constexpr int bytes = hopper::smem_bytes<SlicedSmem<D, sliced_stages<D>()>>();
+  static_assert(bytes <= 232448, "a block's shared memory");
+  const auto kernel = flash_bwd_dq_sliced_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq_q + kTile - 1) / kTile, a.bh);
+  kernel<<<grid, SlicedLayout<D, false>::kBlock, bytes, a.stream>>>(
+      m[0], m[1], m[2], m[3], a.row_m, a.row_il, a.row_delta,
+      static_cast<bf16*>(dq), a.qcos, a.qsin, a.kmask, a.mask_rows, a.seq_q,
+      a.seq_k, a.num_heads, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkdv_sliced(const CUtensorMap (&m)[4], const Args& a,
+                               void* dk, void* dv) {
+  using L = SlicedLayout<D, true>;
+  constexpr int bytes = hopper::smem_bytes<SlicedSmem<D, sliced_stages<D>()>>();
+  static_assert(bytes <= 232448, "a block's shared memory");
+  const auto kernel = flash_bwd_dkdv_sliced_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.seq_k + kTile - 1) / kTile * L::kGroups, a.bh);
+  kernel<<<grid, L::kBlock, bytes, a.stream>>>(
       m[0], m[1], m[2], m[3], a.row_m, a.row_il, a.row_delta,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.kcos, a.ksin,
       a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale,

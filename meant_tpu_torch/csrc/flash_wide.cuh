@@ -1,5 +1,5 @@
 // The flash kernels at the head dims the wgmma bodies are not built for:
-// every kernel in fp32 past 128, K2, K4 and K5 in bf16 past 256, K1 and K3
+// every kernel in fp32 past 128, K4 and K5 in bf16 past 256, K1, K2 and K3
 // in bf16 at the widths past 256 other than 384 and 768, and (in the
 // backwards) any odd head dim (takes_wide below). One body per
 // kernel, templated on the dtype (fp32 or bf16) and not on the head dim:
@@ -43,12 +43,15 @@
 // products that follow read them. The other route -- wgmma bodies
 // instantiated at D = 192 and 256 -- is taken in bf16 by K1 and K3
 // (flash_fwd.cu) and by K2, K4 and K5 at an even head dim
-// (flash_bwd_wgmma.cuh), and at D = 384 and 768 by K1 and K3 (the
-// forwards' body on a ring of column slices), where
-// tools/wide_sum_order.py finds their tensor-core sums within the element
-// bars. The backwards at d = 384 and 768 (meant_src --num_heads 2 and 1)
-// keep these chains for the rounding reason above; this one body covers
-// every width, simply and not fast (PERF.md has its times).
+// (flash_bwd_wgmma.cuh), at D = 384 and 768 by K1 and K3 (the forwards'
+// body on a ring of column slices) and at 384 by K2 (the backwards'
+// sliced kernels), where tools/wide_sum_order.py finds their tensor-core
+// sums within the element bars. K2 in bf16 at 768 (meant_src --num_heads
+// 1's charts) runs the chain body (flash_bwd_chain.cuh): these chains,
+// formed once per tile pair where this body forms them 14 times, and the
+// products on wgmma, P, dS and the statistics bit for bit this body's.
+// K4 and K5 at 384 and 768 keep this body; it covers every width, simply
+// and not fast (PERF.md has its times).
 //
 // The rotation's adjoint at an odd head dim d wraps as the JAX kernels'
 // lane rotate-half does (meant_tpu/ops/flash/kernel.py:63-71, :378-379,
@@ -767,28 +770,39 @@ enum Kernel { kK1 = 1, kK2, kK3, kK4, kK5 };
 // dim (their adjoint wraps); every kernel at a dp the wgmma and fp32 bodies
 // are not built for. Those are 64, 96 and 128; in bf16 also 192 and 256
 // for every kernel (the forwards' body in flash_fwd.cu, the backwards' in
-// flash_bwd_wgmma.cuh), and 384 and 768 for the forwards K1 and K3 (the
+// flash_bwd_wgmma.cuh), 384 and 768 for the forwards K1 and K3 (the
 // forwards' body on its sliced ring; an odd d padded there too, since the
-// forwards have no adjoint). fp32 past 128, the backwards past 256 and
-// every other width past 256 (320, 448, ..., 704) keep these bodies.
+// forwards have no adjoint) and for K2 (at 384 the backwards' sliced
+// kernels, at 768 the chain body of flash_bwd_chain.cuh: takes_chain).
+// fp32 past 128, K4 and K5 past 256 and every other width past 256 (320,
+// 448, ..., 704) keep these bodies.
 inline bool takes_wide(Kernel kernel, int dtype, int dp, int head_dim) {
   const bool backward = kernel == kK2 || kernel == kK4 || kernel == kK5;
   if (backward && (head_dim & 1)) return true;
   if (dp == 64 || dp == 96 || dp == 128) return false;
   if (dtype != 1) return true;
   if (dp == 192 || dp == 256) return false;
-  return backward || !(dp == 384 || dp == 768);
+  if (dp == 384 || dp == 768) return kernel == kK4 || kernel == kK5;
+  return true;
+}
+
+// Whether a launch that takes_wide leaves to the other bodies runs K2's
+// chain body (flash_bwd_chain.cuh): bf16 at dp = 768.
+inline bool takes_chain(Kernel kernel, int dtype, int dp, int head_dim) {
+  return kernel == kK2 && dtype == 1 && dp == 768 &&
+         !takes_wide(kernel, dtype, dp, head_dim);
 }
 
 }  // namespace wide
 }  // namespace meant
 
-// takes_wide for the launchers in Python, which name the body a launch ran
-// (each library that includes this header exports its own copy).
-extern "C" int meant_flash_takes_wide(int kernel, int dtype, int dp,
-                                      int head_dim) {
-  return meant::wide::takes_wide(static_cast<meant::wide::Kernel>(kernel),
-                                 dtype, dp, head_dim)
-             ? 1
-             : 0;
+// The body a launch runs, for the launchers in Python, which name it: 1
+// these wide bodies, 2 K2's chain body, 0 the library's own wgmma or fp32
+// body (each library that includes this header exports its own copy).
+extern "C" int meant_flash_body(int kernel, int dtype, int dp,
+                                int head_dim) {
+  using namespace meant::wide;
+  const auto k = static_cast<Kernel>(kernel);
+  if (takes_wide(k, dtype, dp, head_dim)) return 1;
+  return takes_chain(k, dtype, dp, head_dim) ? 2 : 0;
 }

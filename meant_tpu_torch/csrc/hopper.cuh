@@ -440,22 +440,51 @@ __device__ __forceinline__ void wgmma_m64nNk16_rs(float (&d)[N / 2],
 
 // ---- tensor maps (host) -------------------------------------------------------
 
-inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
+// The driver function `name` (CUDA 12.0's), or null.
+inline void* driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      name, &p, 12000, cudaEnableDefault, &found);
 #else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found);
 #endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? p
+                                                                    : nullptr;
+}
+
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const auto fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(
+      driver_entry("cuTensorMapEncodeTiled"));
   return fn;
+}
+
+// Makes the context of the device memory at ptr current in the calling
+// thread where none is: the tensor-map encoder needs a current context,
+// and a launch can come from a thread that has made none current (the
+// autograd engine's worker of the first device, where a library's first
+// encoding returned CUDA_ERROR_INVALID_CONTEXT; PERF.md).
+inline void ensure_context(const void* ptr) {
+  using CtxGet = CUresult (*)(CUcontext*);
+  using CtxSet = CUresult (*)(CUcontext);
+  using PtrAttr = CUresult (*)(void*, CUpointer_attribute, CUdeviceptr);
+  static const auto get =
+      reinterpret_cast<CtxGet>(driver_entry("cuCtxGetCurrent"));
+  static const auto set =
+      reinterpret_cast<CtxSet>(driver_entry("cuCtxSetCurrent"));
+  static const auto attr =
+      reinterpret_cast<PtrAttr>(driver_entry("cuPointerGetAttribute"));
+  CUcontext cur = nullptr;
+  if (get == nullptr || set == nullptr || attr == nullptr ||
+      (get(&cur) == CUDA_SUCCESS && cur != nullptr))
+    return;
+  CUcontext ctx = nullptr;
+  if (attr(&ctx, CU_POINTER_ATTRIBUTE_CONTEXT,
+           reinterpret_cast<CUdeviceptr>(ptr)) == CUDA_SUCCESS &&
+      ctx != nullptr)
+    set(ctx);
 }
 
 // A (bh, seq, d) bf16 tensor as a 3-D tensor map of [64 rows][32 columns]
@@ -465,6 +494,7 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int bh, int seq,
   const auto encode = tensor_map_encoder();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
     return false;
+  ensure_context(ptr);
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)seq,
                               (cuuint64_t)bh};
   const cuuint64_t strides[2] = {

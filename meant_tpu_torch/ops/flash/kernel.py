@@ -39,9 +39,13 @@ K2, K4 and K5 at an even d the backwards' (csrc/flash_bwd_wgmma.cuh, one
 or two consumer warpgroups splitting the gradients' columns); at 384 and
 768 (d in (320, 384] and (704, 768]) K1 and K3 run the forwards' body on
 its sliced ring (O's columns in groups of 192 on a grid axis, Kr streamed
-in 192-column slices). fp32 past 128, the backwards past 256 and the
-forwards at the other widths past 256 stay on the wide bodies. Every call
-is one launch of each kernel at any d.
+in 192-column slices), and K2 at an even d the backwards' sliced kernels
+at 384 (csrc/flash_bwd_wgmma.cuh) and its chain body at 768
+(csrc/flash_bwd_chain.cuh: S and dP on fp32 FMA chains in column order,
+the wide body's bits, formed once per tile pair; the products on wgmma).
+fp32 past 128, K4 and K5 past 256 and the forwards at the other widths
+past 256 stay on the wide bodies. Every call is one launch of each kernel
+at any d, but K2's chain body, three launches a call.
 
 At an odd d the rotation pairs lanes as the JAX kernels' `_rotate_half_lanes`
 (meant_tpu/ops/flash/kernel.py:63-71) does, wrapping: lane d-1 pairs with
@@ -217,15 +221,17 @@ def _check_launch_inputs(q, k, q_like=None, k_like=None, tables=(),
 
 
 WIDE_SOURCE = "meant_tpu_torch/csrc/flash_wide.cuh"
+CHAIN_SOURCE = "meant_tpu_torch/csrc/flash_bwd_chain.cuh"
 
 
 class _FlashLauncher(KernelLauncher):
-    """A flash kernel's wrapper. Each launch runs one of two bodies, as
-    `takes_wide` in csrc/flash_wide.cuh decides for this kernel (`kernel`,
-    1-5 for K1-K5), its dtype, width and head dim: the wgmma or fp32 body
-    of `source` or the wide body. `last_source` names the source of the
-    body that the last launch ran, as the library reports it. The first
-    argument of every launch is the dtype's code."""
+    """A flash kernel's wrapper. Each launch runs one of its bodies, as
+    `meant_flash_body` in csrc/flash_wide.cuh (over `takes_wide` and
+    `takes_chain`) decides for this kernel (`kernel`, 1-5 for K1-K5), its
+    dtype, width and head dim: the wgmma or fp32 body of `source`, the
+    wide body, or K2's chain body at 768. `last_source` names the source of
+    the body that the last launch ran, as the library reports it. The
+    first argument of every launch is the dtype's code."""
 
     source = ""
     kernel = 0
@@ -233,9 +239,9 @@ class _FlashLauncher(KernelLauncher):
 
     def _launch_flash(self, device, *args, shape, head_dim) -> None:
         self._launch(device, *args, shape=shape)
-        wide = load_library(self.library).meant_flash_takes_wide(
+        body = load_library(self.library).meant_flash_body(
             self.kernel, args[0], shape[2], head_dim)
-        self.last_source = WIDE_SOURCE if wide else self.source
+        self.last_source = (self.source, WIDE_SOURCE, CHAIN_SOURCE)[body]
 
 
 class FlashForward(_FlashLauncher):
@@ -268,12 +274,31 @@ class FlashForward(_FlashLauncher):
 
 class FlashBackward(_FlashLauncher):
     """K2: ctypes wrapper of `meant_flash_bwd` (csrc/flash_bwd.cu), one
-    call = its dq kernel then its dk/dv kernel on the current stream."""
+    call = its dq kernel then its dk/dv kernel on the current stream (in
+    bf16 at a padded width of 768, the chain body's three launches:
+    csrc/flash_bwd_chain.cuh)."""
 
     symbol, library, kernel = "meant_flash_bwd", "flash_bwd", 2
     source = "meant_tpu_torch/csrc/flash_bwd.cu"
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+    def _function(self):
+        # the scratch size's entry point is looked up with the launch's,
+        # once a library is loaded
+        if self._fn is None:
+            fn = load_library(self.library).meant_flash_bwd_scratch_bytes
+            fn.argtypes = [ctypes.c_int] * 6
+            fn.restype = ctypes.c_longlong
+            self._scratch_fn = fn
+        return super()._function()
+
+    def scratch_bytes(self, dtype_code: int, d: int, head_dim: int, bh: int,
+                      s_q: int, s_k: int) -> int:
+        """The device scratch a launch needs beside its statistics, as the
+        library reports it (the chain body's; else 0)."""
+        self._function()
+        return int(self._scratch_fn(dtype_code, d, head_dim, bh, s_q, s_k))
 
     def __call__(self, qr, kr, v, do, kmask, qcos, qsin, kcos, ksin, *,
                  scale: float, causal: bool, num_heads: int,
@@ -293,14 +318,20 @@ class FlashBackward(_FlashLauncher):
             num_heads=num_heads)
         dq = torch.empty_like(qr)
         dk, dv = torch.empty_like(kr), torch.empty_like(kr)
-        # per row: max, 1/denominator, delta (written by the dq kernel,
-        # read by the dk/dv kernel)
+        # per row: max, 1/denominator, delta (written by the statistics
+        # pass, read by the dk/dv kernel)
         stats = torch.empty((3, bh, s_q), dtype=torch.float32,
                             device=qr.device)
+        nbytes = self.scratch_bytes(_dtype_code(qr), d, head_dim, bh, s_q,
+                                    s_k)
+        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=qr.device)
+                   if nbytes else None)
         self._launch_flash(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), qcos.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            qcos.data_ptr(),
             qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
             s_q, s_k, d, head_dim, num_heads, float(scale),

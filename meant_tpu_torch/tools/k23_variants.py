@@ -1,7 +1,8 @@
 """Where K3's and K2's time goes, on the card: the shipped bf16 kernels
 against variants built from patched copies of csrc/.
 
-    python -m meant_tpu_torch.tools.k23_variants [--kernels K3 K2 K3wide]
+    python -m meant_tpu_torch.tools.k23_variants [--kernels K3 K2 K3wide
+                                                  K2wide]
 
 K3 alone (on R1's Qr and Kr) at src4096's launch (BH=80, s=4096, bf16,
 causal xPos; chip_smoke.py's long case), and K2 alone at the flagship's
@@ -37,6 +38,18 @@ wgmma body at those widths:
 * two_stages: a ring of two stages;
 * two_groups_two_stages: two q-row groups a block at both widths, two
   stages (three do not fit beside two groups at 256).
+
+K2wide: K2 alone at --num_heads 2's launches, (160, 512, 384) causal xPos
+and (160, 196, 384) pixel rotary, on the sliced kernels
+(csrc/flash_bwd_wgmma.cuh; all variants built at once):
+
+* shipped: Kr and V (Qr and dO) stream in 192-column slices, five stages;
+  the dk/dv kernel holds 192 columns of dK and dV a block (two consumer
+  warpgroups of 96, two column groups on the grid);
+* slices_96: 96-column slices (nine stages, a deeper ring);
+* dkdv_96: the dk/dv kernel holds 96 columns a block (one consumer
+  warpgroup and a producer warp; four column groups);
+* slices_96_dkdv_96: both.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ import json
 import torch
 
 import chip_smoke
+from meant_tpu_torch import cuda_build
 from meant_tpu_torch.ops.flash import kernel
 from meant_tpu_torch.tools.k2_faults import patched_sources, use_sources
 from meant_tpu_torch.tools.k45_variants import BWD_VARIANTS
@@ -80,6 +94,16 @@ K3_WIDE_VARIANTS = {
     "two_groups_two_stages": [
         (FWD, "return D <= 192 ? 2 : 1;", "return 2;"), _TWO_STAGES],
 }
+_SLICES_96 = ("flash_bwd_wgmma.cuh", "constexpr int kSliceCols = 192;",
+              "constexpr int kSliceCols = 96;")
+_DKDV_96 = ("flash_bwd_wgmma.cuh", "constexpr int kSlicedDkdvCols = 192;",
+            "constexpr int kSlicedDkdvCols = 96;")
+K2_WIDE_VARIANTS = {
+    "shipped": [],
+    "slices_96": [_SLICES_96],
+    "dkdv_96": [_DKDV_96],
+    "slices_96_dkdv_96": [_SLICES_96, _DKDV_96],
+}
 K2_VARIANTS = dict(BWD_VARIANTS, plain_epilogue=[
     ("flash_common.cuh", "float g0, float g1) {\n  out[c] = from_f<T>(",
      "float g0, float g1) {\n  if (true) {\n    out[c] = from_f<T>(g0);\n"
@@ -94,7 +118,8 @@ def _variant(kernel_name: str, name: str, patches, library: str, launchers):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", nargs="+", choices=("K3", "K2", "K3wide"),
+    ap.add_argument("--kernels", nargs="+",
+                    choices=("K3", "K2", "K3wide", "K2wide"),
                     default=("K3", "K2"))
     kernels = ap.parse_args(argv).kernels
     if not torch.cuda.is_available():
@@ -107,6 +132,8 @@ def main(argv=None) -> None:
         time_k2(gen, card)
     if "K3wide" in kernels:
         time_k3_wide(gen, card)
+    if "K2wide" in kernels:
+        time_k2_wide(gen, card)
 
 
 def time_k3(gen, card) -> None:
@@ -166,6 +193,39 @@ def time_k2(gen, card) -> None:
             print(json.dumps({"kernel": "K2", "variant": name, "shape":
                               list(c["q"].shape), "ms": ms, "card": card}),
                   flush=True)
+
+
+
+def time_k2_wide(gen, card) -> None:
+    rows = chip_smoke.BATCH * chip_smoke.LAG * 2
+    cases = [chip_smoke.backward_case(kind, torch.bfloat16, gen, s=s,
+                                      bh=rows, d=384, heads=2)
+             for kind, s in (("text", chip_smoke.SEQ),
+                             ("vision", chip_smoke.N_PATCHES))]
+    for c in cases:
+        chip_smoke.rotate_case(c)
+    roots = {name: patched_sources(f"k2wide_{name}",
+                                   {f"k2wide_{name}": patches})
+             for name, patches in K2_WIDE_VARIANTS.items()}
+    cuda_build.build_all(["flash_bwd"], [(r / "csrc", r / "_build")
+                                         for r in roots.values()])
+    shipped = []
+    for name in K2_WIDE_VARIANTS:
+        use_sources(roots[name], "flash_bwd", [kernel.flash_bwd])
+        for i, c in enumerate(cases):
+            grads = chip_smoke.run_bwd_k2(c)
+            if name == "shipped":
+                shipped.append(grads)
+            ms = chip_smoke.event_ms(lambda: chip_smoke.run_bwd_k2(c),
+                                     iters=20)
+            print(json.dumps({
+                "kernel": "K2", "variant": name, "shape":
+                list(c["q"].shape), "ms": ms,
+                "body": kernel.flash_bwd.last_source,
+                "max_abs_vs_shipped": max(
+                    (a.float() - b.float()).abs().max().item()
+                    for a, b in zip(grads, shipped[i])),
+                "card": card}), flush=True)
 
 
 if __name__ == "__main__":

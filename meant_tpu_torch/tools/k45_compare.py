@@ -13,27 +13,30 @@ launches them at, from its constants:
   192) causal xPos, the played ring's chunk (40, 1024, 192) pixel rotary,
   src4096 at 3 heads (30, 4096, 256) and at 8 (80, 4096, 96);
 * K2 alone (on R1's Qr and Kr) at meant_src --num_heads 4's (320, 512,
-  192) causal xPos and (320, 196, 192) pixel rotary, and at d = 256:
+  192) causal xPos and (320, 196, 192) pixel rotary, at d = 256:
   src4096 --num_heads 3's vision tower (30, 196, 256) and --num_heads 3's
-  text tower (240, 512, 256);
+  text tower (240, 512, 256), at d = 384: --num_heads 2's (160, 512, 384)
+  causal xPos and (160, 196, 384) pixel rotary, and at d = 768:
+  --num_heads 1's charts (80, 196, 768), beside the SDPA backward, and at
+  the flagship's (640, 512 / 196, 96);
 * R1 + K1 and K1 alone at meant_src's resident launches past d = 128,
-  (320, 512, 192), (320, 196, 192), (240, 512, 256), (160, 512, 384) and
-  (80, 196, 768), and at the flagship's (640, 512 / 196, 96) (causal xPos
-  at s=512, pixel rotary at 196), and R1 + K3
+  (320, 512, 192), (320, 196, 192), (240, 512, 256), (160, 512, 384),
+  (160, 196, 384) and (80, 196, 768), and at the flagship's (640, 512 /
+  196, 96) (causal xPos at s=512, pixel rotary at 196), and R1 + K3
   and K3 alone at --num_heads 1's streaming text tower (80, 512, 768),
   each beside rotation + SDPA (the yardstick, in the same run);
 
-then src4096 at `--num_heads 4`, 12 + 12 encoders, batch 2, trained
-through `chip_smoke.learn_long_heads_full` (3 steps, the median of steps
-2-3, with its launch counts), or the same run in a tree that predates it;
-then the flagship at `--num_heads 4` (s=512, batch 16, fixed_proj=True,
-as `chip_smoke.run_src_heads` trains it) for SRC4_STEPS steps, the median
-of steps 2 on; then a 16-row request of meant_src at `--num_heads 2` and
-1 (build_model with --flash true, `chip_smoke.time_requests`: the median
-of 7 and the forward's device time). Run it as a file (not with -m) so
-that DIR's package is
-the one imported; compare two trees within one card call, in turns
-(parent, change, change, parent).
+then (unless `--kernels_only`) src4096 at `--num_heads 4`, 12 + 12
+encoders, batch 2, trained through `chip_smoke.learn_long_heads_full` (3
+steps, the median of steps 2-3, with its launch counts), or the same run
+in a tree that predates it; then the flagship at `--num_heads 4`, 2 and 1
+(s=512, batch 16, fixed_proj=True, as `chip_smoke.run_src_heads` trains
+it) for SRC4_STEPS steps, the median of steps 2 on; then a 16-row request
+of meant_src at `--num_heads 2` and 1 (build_model with --flash true,
+`chip_smoke.time_requests`: the median of 7 and the forward's device
+time). Run it as a file (not with -m) so that DIR's package is the one
+imported; compare two trees within one card call, in turns (parent,
+change, change, parent).
 """
 import argparse
 import json
@@ -56,10 +59,16 @@ def shapes(cs) -> list:
 def resident_shapes(cs) -> list:
     """(BH, s, d, heads, chip_smoke.backward_case kind) of each K2
     reading."""
-    return [(cs.BATCH * cs.LAG * 4, cs.SEQ, 192, 4, "text"),
-            (cs.BATCH * cs.LAG * 4, cs.N_PATCHES, 192, 4, "vision"),
+    rows = cs.BATCH * cs.LAG
+    return [(rows * 4, cs.SEQ, 192, 4, "text"),
+            (rows * 4, cs.N_PATCHES, 192, 4, "vision"),
             (cs.LONG_BATCH * cs.LAG * 3, cs.N_PATCHES, 256, 3, "vision"),
-            (cs.BATCH * cs.LAG * 3, cs.SEQ, 256, 3, "text")]
+            (rows * 3, cs.SEQ, 256, 3, "text"),
+            (rows * 2, cs.SEQ, 384, 2, "text"),
+            (rows * 2, cs.N_PATCHES, 384, 2, "vision"),
+            (rows, cs.N_PATCHES, 768, 1, "vision"),
+            (rows * cs.HEADS, cs.SEQ, cs.HEAD_DIM, cs.HEADS, "text"),
+            (rows * cs.HEADS, cs.N_PATCHES, cs.HEAD_DIM, cs.HEADS, "vision")]
 
 
 def forward_shapes(cs) -> list:
@@ -71,6 +80,7 @@ def forward_shapes(cs) -> list:
             for heads, s, kind in ((4, cs.SEQ, "text"),
                                    (4, cs.N_PATCHES, "vision"),
                                    (3, cs.SEQ, "text"), (2, cs.SEQ, "text"),
+                                   (2, cs.N_PATCHES, "vision"),
                                    (1, cs.N_PATCHES, "vision"),
                                    (cs.HEADS, cs.SEQ, "text"),
                                    (cs.HEADS, cs.N_PATCHES, "vision"))] + [
@@ -118,15 +128,17 @@ def request_ms(cs, heads: int) -> dict:
                                 "forward_device_ms")}
 
 
-def src_heads_step(cs) -> dict:
-    """The flagship at --num_heads 4, s=512, trained as run_src_heads
+def src_heads_step(cs, heads: int = 4) -> dict:
+    """The flagship at --num_heads `heads`, s=512, trained as run_src_heads
     trains it (train_steps at fixed_proj=True, batch 16, seed 7)."""
-    model = cs.build_flagship(flash=True, fixed_proj=True, num_heads=4)
+    import torch
+    model = cs.build_flagship(flash=True, fixed_proj=True, num_heads=heads)
     train, _, _ = cs.train_steps(
         model, cs.train_batch(cs.BATCH, seed=7), cs.SRC4_STEPS,
-        cs.src_launches(4, True), "learn meant_src --num_heads 4",
+        cs.src_launches(heads, True), f"learn meant_src --num_heads {heads}",
         falling=False)
     del model
+    torch.cuda.empty_cache()
     return train
 
 
@@ -152,6 +164,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--kernels_only", action="store_true",
+                    help="the kernels' readings, no step or request")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     out = os.path.abspath(args.out)
@@ -190,23 +204,30 @@ def main() -> None:
         cs.rotate_case(c)
         key = f"K2 ({bh}, {s}, {d})"
         res[key] = {"K2": cs.event_ms(lambda: cs.run_bwd_k2(c), iters=10),
-                    "body": cs.wrappers()["K2"].last_source}
+                    "body": cs.wrappers()["K2"].last_source,
+                    "library": cs.event_ms(cs.run_library_bwd(c), iters=10)}
         print(args.root, key, json.dumps(res[key]), flush=True)
         del c
         torch.cuda.empty_cache()
     res.update(forward_readings(cs, gen, args.root))
+    if args.kernels_only:
+        with open(out, "w") as f:
+            json.dump(res, f, indent=1)
+        return
     train = full_step(cs)
     res["step_ms"] = train["step_ms"]
     res["step_ms_median"] = train["step_ms_median"]
     torch.cuda.empty_cache()
-    train = src_heads_step(cs)
-    res["src_heads4_step_ms"] = train["step_ms"]
-    res["src_heads4_step_ms_median"] = train["step_ms_median"]
+    for heads in (4, 2, 1):
+        train = src_heads_step(cs, heads)
+        res[f"src_heads{heads}_step_ms"] = train["step_ms"]
+        res[f"src_heads{heads}_step_ms_median"] = train["step_ms_median"]
     for heads in (2, 1):
         res[f"src_heads{heads}_request"] = request_ms(cs, heads)
     print(args.root, "steps and requests", json.dumps(
         {"step_ms_median": res["step_ms_median"],
-         "src_heads4_step_ms_median": res["src_heads4_step_ms_median"],
+         **{f"src_heads{h}_step_ms_median":
+            res[f"src_heads{h}_step_ms_median"] for h in (4, 2, 1)},
          **{f"src_heads{h}_request_ms_median":
             res[f"src_heads{h}_request"]["request_ms_median"]
             for h in (2, 1)}}), flush=True)

@@ -34,8 +34,8 @@ BWD_VARIANTS = {
         (SOURCE, "return (causal && tile == qt) || k0 + kTile > seq_k;",
          "return true;"),
         (SOURCE,
-         "if ((causal && it == 0) || q0 + kTile > seq_q || k0 + kTile > seq_k)",
-         "if (true)")],
+         "return (causal && it == 0) || q0 + kTile > seq_q || k0 + kTile > "
+         "seq_k;", "return true;")],
     "no_exp": [
         ("flash_common.cuh", "const float e = expf(__fsub_rn(sc, m));",
          "const float e = __fsub_rn(sc, m);")],

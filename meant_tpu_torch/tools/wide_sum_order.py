@@ -55,8 +55,19 @@ The cases, bf16, made as chip_smoke.py makes them:
 (`k1`, `k3`, `k2`, `192`, ...). Each line names the body its kernels ran
 (the wrappers' last_source): where a wgmma body takes a width (csrc/
 flash_fwd.cu, flash_bwd.cu, flash_bwd_wgmma.cuh: bf16 at 192 and 256,
-and K1's and K3's at 384 and 768), the patch of dp_mm does not reach it,
-and all three orders read that body's own tensor-core sums.
+K1's and K3's at 384 and 768, and K2's at 384) or K2's chain body takes
+768 (csrc/flash_bwd_chain.cuh, whose own FMA chains sum in column order),
+the patch of dp_mm does not reach it, and all three orders read that
+body's own sums.
+
+`--cases chain` (also run without `--cases`) holds the chain body to the
+wide body it replaced: it builds a patched flash_bwd whose takes_wide
+still sends K2 in bf16 at 768 to the wide body (`WIDE_K2_768`), runs K2
+alone on both at (80, 196, 768) pixel rotary (the case above) and at
+chip_smoke.py phase 17's masked d = 768 case (check_head_dims' (16, 200,
+768) causal xPos with a key mask), and compares the statistics planes m,
+1/l and delta bit for bit and dq, dk, dv at the element bar (each body's
+also against the plain version).
 """
 
 from __future__ import annotations
@@ -106,6 +117,14 @@ LIBRARIES = {"flash_fwd": ("flash_fwd", "flash_fwd_online"),
              "flash_bwd": ("flash_bwd",),
              "flash_bwd_online": ("rotate_qk", "flash_bwd_dq",
                                   "flash_bwd_dkdv")}
+
+
+# K2 in bf16 at 768 back on the wide body
+WIDE_K2_768 = [(
+    "flash_wide.cuh",
+    "if (dp == 384 || dp == 768) return kernel == kK4 || kernel == kK5;",
+    "if (dp == 384 || dp == 768)\n"
+    "    return kernel == kK4 || kernel == kK5 || (kernel == kK2 && dp == 768);")]
 
 
 def order_patch(order: str) -> list:
@@ -335,6 +354,91 @@ def plain_dq(c, order: str, stats) -> torch.Tensor:
                            qsin).to(dt)
 
 
+def phase17_case(d: int, kind: str, dtype):
+    """check_head_dims' case at head dim d, kind and dtype: its seed and
+    its order of draws."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for dd in chip_smoke.HD_DIMS:
+        for kk in ("text_masked", "group"):
+            for dt in (torch.float32, torch.bfloat16):
+                c = chip_smoke.backward_case(
+                    kk, dt, gen, s=chip_smoke.HD_S, bh=chip_smoke.HD_BH,
+                    d=dd, heads=chip_smoke.HD_HEADS)
+                if (dd, kk, dt) == (d, kind, dtype):
+                    return c
+    raise ValueError(f"no phase 17 case at d={d}, {kind}")
+
+
+def k2_alone(c):
+    """K2 alone on c's padded, rotated inputs, launched through the
+    wrapper's entry point with a statistics buffer of its own (the wrapper
+    keeps its own internal): (dq, dk, dv) as (b, h, s, d), the statistics
+    planes m, 1/l and delta, and the body it ran."""
+    p, fb = c["p"], kernel.flash_bwd
+    qr, kr = p["qr"], p["kr"]
+    bh, s_q, d = qr.shape
+    s_k = kr.shape[1]
+    code = kernel._dtype_code(qr)
+    stats = torch.empty((3, bh, s_q), dtype=torch.float32, device="cuda")
+    grads = (torch.empty_like(qr), torch.empty_like(kr),
+             torch.empty_like(kr))
+    nbytes = fb.scratch_bytes(code, d, p["d"], bh, s_q, s_k)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+               if nbytes else None)
+    mask = p["mask"]
+    fb._launch_flash(
+        qr.device, code, qr.data_ptr(), kr.data_ptr(), p["v"].data_ptr(),
+        p["do"].data_ptr(), *(g.data_ptr() for g in grads),
+        stats.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        *(t.data_ptr() for t in p["tables"]),
+        mask.data_ptr() if mask is not None else None,
+        mask.shape[0] if mask is not None else 0, bh, s_q, s_k, d, p["d"],
+        c["q"].shape[1], float(c["scale"]), int(bool(c["causal"])),
+        shape=(s_q, s_k, d, bool(c["causal"])), head_dim=p["d"])
+    torch.cuda.synchronize()
+    grads = [g[..., :p["d"]].reshape(c[n].shape) for g, n in
+             zip(grads, "qkv")]
+    return grads, stats, kernel.flash_bwd.last_source
+
+
+def chain_vs_wide(made) -> None:
+    """K2's chain body against the wide body at d = 768 (the module's
+    note)."""
+    pairs = {"k2 (80, 196, 768) pixel": made.get("k2 (80, 196, 768) pixel"),
+             "k2 phase17 (16, 200, 768) masked": phase17_case(
+                 768, "text_masked", torch.bfloat16)}
+    if pairs["k2 (80, 196, 768) pixel"] is None:
+        pairs["k2 (80, 196, 768) pixel"] = cases(["(80, 196, 768)"])[
+            "k2 (80, 196, 768) pixel"]
+    runs = {}
+    wide_root = patched_sources("wide_k2_768", {"wide_k2_768": WIDE_K2_768})
+    for body, root in (("chain", cuda_build.PACKAGE_DIR),
+                       ("wide", wide_root)):
+        use_sources(root, "flash_bwd", [kernel.flash_bwd])
+        for name, c in pairs.items():
+            chip_smoke.padded(c)
+            chip_smoke.rotate_padded(c)
+            runs[body, name] = k2_alone(c)
+    use_sources(cuda_build.PACKAGE_DIR, "flash_bwd", [kernel.flash_bwd])
+    for name, c in pairs.items():
+        (cg, cst, csrc), (wg, wst, wsrc) = runs["chain", name], runs[
+            "wide", name]
+        want = chip_smoke.run_bwd_plain(c)
+        res = {"bodies": [csrc, wsrc],
+               "stats_equal_bits": {
+                   plane: bool(torch.equal(cst[i].view(torch.int32),
+                                           wst[i].view(torch.int32)))
+                   for i, plane in enumerate(("m", "1/l", "delta"))},
+               "stats_max_abs": (cst - wst).abs().max().item()}
+        for g, a, b, ref in zip(("dq", "dk", "dv"), cg, wg, want):
+            res[g] = {"chain_vs_wide": errors(a, b),
+                      "chain_vs_plain": errors(a, ref),
+                      "wide_vs_plain": errors(b, ref)}
+        print(f"chain_vs_wide {name}: {json.dumps(res)}", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cases", nargs="+", default=None,
@@ -344,6 +448,11 @@ def main(argv=None) -> None:
         raise SystemExit("wide_sum_order runs on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     made = cases(words)
+    if not words or "chain" in words:
+        chain_vs_wide(made)
+    if not made:
+        print(chip_smoke.card_line(), flush=True)
+        return
     for order in ("fma_chain", "tensor_cores", "k16_from_zero"):
         use_order(order)
         for name, c in made.items():

@@ -32,6 +32,11 @@ encoder, its gradients those of remat off (1e-3 relative L2 per
 parameter where not bit for bit).
 """
 
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -49,9 +54,10 @@ from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
                                        flash_mha_reference, rotate_qk)
 from meant_tpu_torch.ops.flash.flash_attention import _tables
 from meant_tpu_torch.ops.flash.kernel import (
-    BF16_REL_L2, BWD_BF16_ATOL, BWD_BF16_REL_L2, K1_BF16_REL_L2,
-    K3_TILED_REL_L2, LSE_ATOL, WIDE_SOURCE, _flat, _kernel_tables,
-    _rotate, flash_mha_online_tiled_reference, kernel_head_dim)
+    BF16_REL_L2, BWD_BF16_ATOL, BWD_BF16_REL_L2, CHAIN_SOURCE,
+    K1_BF16_REL_L2, K3_TILED_REL_L2, LSE_ATOL, WIDE_SOURCE, _flat,
+    _kernel_tables, _rotate, flash_mha_online_tiled_reference,
+    kernel_head_dim)
 from meant_tpu_torch.tools.k45_masked_row import errors as fp64_errors
 from meant_tpu_torch.tools.k45_masked_row import grads_fp64
 from meant_tpu_torch.train.classify import meant_trainer
@@ -978,25 +984,32 @@ def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
         flash_fwd_online.source if _fwd_wgmma(d, dtype) else WIDE_SOURCE)
 
 
-@pytest.mark.parametrize("d,dtype,wgmma", [
-    (160, torch.bfloat16, True), (192, torch.bfloat16, True),
-    (200, torch.bfloat16, True), (256, torch.bfloat16, True),
-    (191, torch.bfloat16, False), (384, torch.bfloat16, False),
-    (320, torch.bfloat16, False),
-    (192, torch.float32, False), (256, torch.float32, False)])
-def test_resident_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
+@pytest.mark.parametrize("d,dtype,body", [
+    (160, torch.bfloat16, "wgmma"), (192, torch.bfloat16, "wgmma"),
+    (200, torch.bfloat16, "wgmma"), (256, torch.bfloat16, "wgmma"),
+    (191, torch.bfloat16, "wide"), (384, torch.bfloat16, "wgmma"),
+    (320, torch.bfloat16, "wide"),
+    (192, torch.float32, "wide"), (256, torch.float32, "wide"),
+    (330, torch.bfloat16, "wgmma"), (383, torch.bfloat16, "wide"),
+    (384, torch.float32, "wide"), (704, torch.bfloat16, "wide"),
+    (768, torch.bfloat16, "chain"), (760, torch.bfloat16, "chain"),
+    (767, torch.bfloat16, "wide"), (768, torch.float32, "wide")])
+def test_resident_backward_names_the_body_it_ran(cuda, d, dtype, body):
     """K2's last_source: its wgmma bodies (csrc/flash_bwd.cu) in bf16 at an
-    even d padded to 192 or 256; the wide body at an odd d (the adjoint's
-    wrap), past 256 and in fp32. K1 runs the forwards' wgmma body
-    (csrc/flash_fwd.cu) in bf16 at a padded width of 192, 256 or 384 (an
-    odd d included), and the wide body in fp32 and at 320."""
+    even d padded to 192, 256 or 384 (the sliced kernels), its chain body
+    (csrc/flash_bwd_chain.cuh) in bf16 at an even d padded to 768; the wide
+    body at an odd d (the adjoint's wrap), at the other widths past 256
+    and in fp32. K1 runs the forwards' wgmma body (csrc/flash_fwd.cu) in
+    bf16 at a padded width of 192, 256, 384 or 768 (an odd d included),
+    and the wide body in fp32 and at 320 and 704."""
     gen = torch.Generator(device=cuda).manual_seed(d + 1)
     q, k, v, do, tables, mask, causal = _shape_case(
         cuda, dtype, d, 130, 130, "masked", gen)
     _autograd_path(q, k, v, do, tables, mask, causal)
     torch.cuda.synchronize()
-    assert flash_bwd.last_source == (flash_bwd.source if wgmma
-                                     else WIDE_SOURCE)
+    assert flash_bwd.last_source == {"wgmma": flash_bwd.source,
+                                     "wide": WIDE_SOURCE,
+                                     "chain": CHAIN_SOURCE}[body]
     assert flash_fwd.last_source == (
         flash_fwd.source if _fwd_wgmma(d, dtype) else WIDE_SOURCE)
 
@@ -1032,16 +1045,23 @@ def test_k1_wgmma_body_past_128_matches_plain(cuda, case, lengths, d):
     _assert_out_close(out, ref, torch.bfloat16, K1_BF16_REL_L2)
 
 
+_K2_LENGTHS = ((65, 65), (196, 196), (512, 512), (130, 70), (70, 200))
+
+
 @pytest.mark.parametrize("case", ["masked", "pixel"])
-@pytest.mark.parametrize("lengths", [(65, 65), (196, 196), (512, 512),
-                                     (130, 70), (70, 200)])
-@pytest.mark.parametrize("d", [160, 192, 200, 256])
-def test_k2_wgmma_bodies_past_128_match_plain(cuda, case, lengths, d):
+@pytest.mark.parametrize("d,lengths", [
+    (d, lengths) for d in (160, 192, 200, 256, 330, 384, 760, 768)
+    for lengths in _K2_LENGTHS
+    # flash_mha streams 512 keys at d past 704, as JAX routes it
+    if d <= 704 or lengths != (512, 512)])
+def test_k2_wgmma_bodies_past_128_match_plain(cuda, case, d, lengths):
     """K2 in bf16 at even head dims padded to 192 and 256 (its wgmma
     bodies: the dq kernel's statistics pass on one or two consumer
-    warpgroups) through flash_mha and autograd, one launch of R1, K1 and
-    K2 a call: the gradients against flash_mha_bwd_reference at K2's bars,
-    out against flash_mha_reference at K1's."""
+    warpgroups), 384 (the sliced kernels: Kr and V, or Qr and dO, in
+    192-column slices) and 768 (the chain body: S and dP on FMA chains,
+    the products on wgmma) through flash_mha and autograd, one launch of
+    R1, K1 and K2 a call: the gradients against flash_mha_bwd_reference at
+    K2's bars, out against flash_mha_reference at K1's."""
     s_q, s_k = lengths
     gen = torch.Generator(device=cuda).manual_seed(d * 1000 + s_q + s_k)
     q, k, v, do, tables, mask, causal = _shape_case(
@@ -1051,7 +1071,8 @@ def test_k2_wgmma_bodies_past_128_match_plain(cuda, case, lengths, d):
     torch.cuda.synchronize()
     assert (rotate_qk.launches, flash_fwd.launches, flash_bwd.launches) == \
         tuple(b + 1 for b in before)
-    assert flash_bwd.last_source == flash_bwd.source
+    assert flash_bwd.last_source == (
+        CHAIN_SOURCE if kernel_head_dim(d) == 768 else flash_bwd.source)
     ref = flash_mha_reference(q, k, v, mask, *tables, scale=0.1,
                               causal=causal)
     _assert_out_close(out, ref, torch.bfloat16, K1_BF16_REL_L2)
@@ -1093,6 +1114,31 @@ def test_k3_wgmma_body_past_128_matches_plain(cuda, case, lengths, d):
                                              scale=0.1, causal=causal)[0]
     rel = (out.float() - tiled.float()).norm() / tiled.float().norm()
     assert rel <= K3_TILED_REL_L2, f"rel L2 {rel} against the tiled order"
+
+
+@pytest.mark.parametrize("d", [96, 384, 768])
+def test_first_backward_launch_from_the_autograd_thread(cuda, d):
+    """A fresh process whose first K2 launch comes from the autograd
+    engine's worker thread, where no context is current until a launcher
+    makes the tensors' one current (the tensor maps' encoder needs it; the
+    sliced kernels at 384 raised there before): finite gradients."""
+    code = textwrap.dedent(f"""
+        import torch
+        from meant_tpu_torch.ops.flash import flash_bwd, flash_mha
+        q, k, v = (torch.randn(2, 2, 130, {d}, device="cuda",
+                               dtype=torch.bfloat16, requires_grad=True)
+                   for _ in range(3))
+        out = flash_mha(q, k, v, scale=0.1, causal=True)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        assert flash_bwd.launches == 1
+        assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr[-2000:]
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 1027, 1 << 20])
