@@ -269,10 +269,12 @@ raises and the script exits non-zero:
               adjoint wraps, and d past 128, which the wide bodies of
               csrc/flash_wide.cuh take (the contraction streamed over the
               width, the output in groups of 64-column chunks on a grid
-              axis) but in bf16 for every kernel at 192 and 256 and for
-              K1 and K3 at 384 and 768 (their sliced ring), which run
-              wgmma bodies built at those widths (HGMMA counted in each,
-              in phase 12). R1 +
+              axis) but in bf16 for every kernel at 192, 256 and 384 and
+              for K1 and K3 at 768 (their sliced ring), which run wgmma
+              bodies built at those widths (HGMMA counted in each, in
+              phase 12), and for K2, K4 and K5 at 768 (an even d), which
+              run the chain body (S and dP on fp32 FMA chains, the
+              products on wgmma; K4 + K5 one call on the main path). R1 +
               K1 and K2 through flash_mha at d = 7, 95, 130,
               192, 256, 257, 384 and 768 (s=200, BH=16, causal xPos with a
               key mask, and plain), one launch of each a call, fp32 and
@@ -287,14 +289,18 @@ raises and the script exits non-zero:
               step, falling loss); --num_heads 2 and 1 (d = 384, 768) a
               request and 2 steps each (at 768 the s=512 text tower
               streams, as JAX's rule routes it: R1 + K3, R1 + K4 + K5);
-              src4096 at 4 heads and 2 encoders a request (2 K3, 2 K1, 4
-              R1) and 2 steps; --text_dim 760 (8 heads of 95) a request
+              src4096 at 4, 3 and 2 heads and 2 encoders a request (2 K3,
+              2 K1, 4 R1) and 2 steps, at 4 and 2 heads 3 steps at full
+              depth (12 K3, K4, K5 a step); --text_dim 760 (8 heads of 95) a request
               against flash=False, one step's gradients and 2 steps;
               --num_heads 3 (d = 256) a request and 2 steps; the 4-rank
               ring played at (10, 4, 4096, 192); R1 + K3, K4 and K5 at the
-              main path's shapes past 128. Rows of the kernel line at d =
-              192 (s=512, 196, 4096), 256 (s=512, 196, 4096), 384 (s=512),
-              768 (s=196) and 95 (s=512).
+              main path's shapes past 128 ((20, 4096, 384) among them),
+              K4 + K5 in one call on the chain body at (80, 512, 768),
+              with and without a key mask, bit for bit K4 and K5 apart.
+              Rows of the kernel line at d = 192 (s=512, 196,
+              4096), 256 (s=512, 196, 4096), 384 (s=512, 196, 4096), 768
+              (s=196, 512) and 95 (s=512).
 7. timing  -- median request time, and each kernel's time per launch
               beside its bound, its plain version's time and one PyTorch
               call that computes the same (a yardstick the port never
@@ -821,6 +827,17 @@ def run_online_dkdv_kernel(c):
     return [g.reshape(c["k"].shape) for g in grads]
 
 
+def run_online_k45(c):
+    """K4 + K5 as the main path launches them (`_backward_online`): one
+    call (`flash_bwd_dq_dkdv`), which forms S and dP once where the chain
+    body takes them and else launches K4, then K5; returns (dq, dk, dv),
+    each (b, h, s, d)."""
+    from meant_tpu_torch.ops.flash import flash_bwd_dq_dkdv
+    grads = flash_bwd_dq_dkdv(*_online_bwd_args(c), scale=c["scale"],
+                              causal=c["causal"], num_heads=c["q"].shape[1])
+    return [g.reshape(c[n].shape) for g, n in zip(grads, "qkk")]
+
+
 def _online_plain_args(c):
     return ((c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"],
              c["mask"], *c["tables"]),
@@ -880,7 +897,6 @@ def check_long_kernels(record, bh=LONG_CHECK_BH, kinds=("text",
             rotated = (c["qr"], c["kr"])
             dq = run_online_dq_kernel(c)
             dk, dv = run_online_dkdv_kernel(c)
-            torch.cuda.synchronize()
             want = {"out": c["out"], "dq": run_online_dq_plain(c)}
             want["dk"], want["dv"] = run_online_dkdv_plain(c)
             torch.cuda.synchronize()
@@ -2692,9 +2708,9 @@ def count_new_hgmma() -> dict:
     forward body), K2's two kernels and K4 + K5; and at 192 and 256 (the
     bf16 bodies past d = 128) in K3's, K2's dq and dk/dv and K4's and K5's
     own, each apart; K1's at 192, 256, 384 and 768 and K3's at 384 and 768
-    (the forwards' body, on its sliced ring past 256), each apart; K2's
-    sliced dq and dk/dv kernels at 384 and its chain body's products at
-    768."""
+    (the forwards' body, on its sliced ring past 256), each apart; the
+    sliced dq and dk/dv kernels at 384 of K2 and of K4 and K5, and the
+    chain body's products at 768 in K2's library and in K4's and K5's."""
     counts = {}
     for d in (64, 128):
         for label, lib, function in (
@@ -2719,11 +2735,16 @@ def count_new_hgmma() -> dict:
         for d in widths:
             counts[f"{label} d{d}"] = count_hgmma(
                 "flash_fwd", f"{function}ILi{d}E")
-    for label, kernel in (("K2 dq", "dq"), ("K2 dk/dv", "dkdv")):
+    for label, lib, kernel, stats in (
+            ("K2 dq", "flash_bwd", "dq", 1),
+            ("K2 dk/dv", "flash_bwd", "dkdv", 1),
+            ("K4", "flash_bwd_online", "dq", 0),
+            ("K5", "flash_bwd_online", "dkdv", 0)):
         counts[f"{label} d384"] = count_hgmma(
-            "flash_bwd", f"flash_bwd_{kernel}_sliced_kernelILi384E")
-    counts["K2 chain products d768"] = count_hgmma("flash_bwd",
-                                                   "chain_products_kernel")
+            lib, f"flash_bwd_{kernel}_sliced_kernelILb{stats}ELi384E")
+    for label, lib in (("K2", "flash_bwd"), ("K4+K5", "flash_bwd_online")):
+        counts[f"{label} chain products d768"] = count_hgmma(
+            lib, "chain_products_kernel")
     return counts
 
 
@@ -5099,8 +5120,9 @@ HD_LONG_CASES = ((95, LONG_SEQ, HD_LONG_BH, HD_HEADS),
 SRC4_HEADS = 4             # meant_src --num_heads 4: 4 heads of 192
 SRC4_STEPS = 5
 SRC3_HEADS = 3             # meant_src --num_heads 3: 3 heads of 256
-FULL_STEPS = 3             # src4096 at 4 heads, 12 + 12 encoders: the
-                           # median of steps 2-3
+SRC2_HEADS = 2             # meant_src --num_heads 2: 2 heads of 384
+FULL_STEPS = 3             # src4096 at 4 and 2 heads, 12 + 12 encoders:
+                           # the median of steps 2-3
 WIDE_WGMMA_DIMS = (192, 256)   # K2-K5's bf16 wgmma bodies past d = 128
 SLICED_DIMS = (384, 768)       # K1's and K3's sliced ring
 FWD_WGMMA_DIMS = WIDE_WGMMA_DIMS + SLICED_DIMS   # K1's past d = 128
@@ -5378,6 +5400,40 @@ def check_head_dims_long(res) -> dict:
     return errors
 
 
+def check_k45_chain_call(res, d=DIM, s=SEQ, bh=BATCH * LAG, heads=1):
+    """K4 + K5 in one call where the chain body takes it (bf16, d = 768:
+    --num_heads 1's streaming text tower, (80, 512, 768) causal xPos), with
+    and without a key mask: the call runs the chain body, counts one launch
+    of K4 and one of K5, and is bit for bit K4 and K5 apart (each of which
+    forms S and dP itself)."""
+    from meant_tpu_torch.ops.flash.kernel import CHAIN_SOURCE
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    same = {}
+    for kind in ("text", "text_masked"):
+        c = long_case(kind, torch.bfloat16, gen, bh, s=s, d=d, heads=heads)
+        rotate_case(c)
+        name = f"(BH {bh}, s {s}, d {d}) {kind}"
+        reset_counts()
+        joint = run_online_k45(c)
+        torch.cuda.synchronize()
+        check_counts(read_counts(), {"K4": 1, "K5": 1},
+                     f"K4 + K5 in one call at {name}")
+        bodies = {k: wrappers()[k].last_source for k in ("K4", "K5")}
+        if set(bodies.values()) != {CHAIN_SOURCE}:
+            fail(f"K4 + K5 at {name} ran {bodies}, not the chain body")
+        apart = (run_online_dq_kernel(c), *run_online_dkdv_kernel(c))
+        torch.cuda.synchronize()
+        same[kind] = all(torch.equal(a, b) for a, b in zip(joint, apart))
+        print(f"K4 + K5 in one call (chain body) vs K4 and K5 apart at "
+              f"{name}: {'bit for bit' if same[kind] else 'FAIL'}",
+              flush=True)
+        if not same[kind]:
+            fail(f"K4 + K5 in one call differ from K4 and K5 apart ({name})")
+        del c, joint, apart
+        torch.cuda.empty_cache()
+    res["k45_chain_call_equals_apart"] = same
+
+
 def run_odd_width(res):
     """build_model(-mn meant_src --text_dim 760 --flash true) at s=512: a
     language tower of 8 heads of 95 (R1 and K1 at width 128, K2 on the wide
@@ -5522,15 +5578,16 @@ def run_head_dims(record) -> dict:
     and HD_LONG_CASES against their plain versions; meant_src --num_heads
     4 (d = 192) served, one step's gradients and SRC4_STEPS steps at the
     flagship's width; --num_heads 2 and 1 (d = 384, 768) the same with two
-    steps; src4096 at 4 and 3 heads (d = 192, 256: K4 and K5 on their
-    wgmma bodies), and at 4 heads one full-depth step timed; --text_dim
+    steps; src4096 at 4, 3 and 2 heads (d = 192, 256, 384: K4 and K5 on
+    their wgmma bodies), and at 4 and 2 heads full-depth steps timed;
+    --text_dim
     760 (d = 95); --num_heads 3 (d = 256) served and 2 steps, the launches
     of the d = 256 resident rows; the played ring at d = 192. R1, K3, K4
     and K5 against
     their plain versions at the shapes the main path launches them at
     past d = 128: the ring's chunk (40, 1024, 192) and src4096's (40, 4096,
-    192) and (30, 4096, 256), with and without a key mask, whose errors
-    time_head_dims' rows print."""
+    192), (30, 4096, 256) and (20, 4096, 384), with and without a key
+    mask, whose errors time_head_dims' rows print."""
     t0 = time.perf_counter()
     res = {}
     record["head_dims"] = res
@@ -5548,7 +5605,11 @@ def run_head_dims(record) -> dict:
                                   SRC4_HEADS)
     out["long3"] = run_long_heads(res.setdefault("long_heads3", {}),
                                   SRC3_HEADS)
+    out["long2"] = run_long_heads(res.setdefault("long_heads2", {}),
+                                  SRC2_HEADS)
     learn_long_heads_full(res.setdefault("long_heads4_full", {}))
+    learn_long_heads_full(res.setdefault("long_heads2_full", {}),
+                          SRC2_HEADS)
     out["odd"] = run_odd_width(res.setdefault("text_dim760", {}))
     out["ring4"] = ring_head_dim(res)
     out["ring_errors"] = check_long_kernels(
@@ -5559,7 +5620,11 @@ def run_head_dims(record) -> dict:
                              d=192, heads=SRC4_HEADS),
         **check_long_kernels(res, bh=LONG_BATCH * LAG * SRC3_HEADS,
                              tag="src4096_d256", seed=22, d=256,
-                             heads=SRC3_HEADS)}
+                             heads=SRC3_HEADS),
+        **check_long_kernels(res, bh=LONG_BATCH * LAG * SRC2_HEADS,
+                             tag="src4096_d384", seed=25, d=384,
+                             heads=SRC2_HEADS)}
+    check_k45_chain_call(res)
     res["wall_s"] = time.perf_counter() - t0
     print(f"phase head_dims: {res['wall_s']:.1f} s", flush=True)
     return out
@@ -5576,7 +5641,8 @@ def time_head_dims(out) -> list:
     and d = 95 (s=512, BH = 640: --text_dim 760; K1 and R1 at width 128,
     K2 on the wide body);
     R1 + K3, R1, K4 and K5 at src4096's launch at 4 heads (BH = 40, d =
-    192) and 3 heads (BH = 30, d = 256), at the played ring's chunk at 4
+    192), 3 heads (BH = 30, d = 256) and 2 heads (BH = 20, d = 384), at
+    the played ring's chunk at 4
     heads (40, 1024, 192, not causal) and at --num_heads 1's streaming
     s=512 text tower (BH = 80, d = 768); each streaming row's error is its
     kernels' against their plain versions at the row's own shape."""
@@ -5621,6 +5687,11 @@ def time_head_dims(out) -> list:
                               small_bh=SRC3_HEADS, tag="src4096_d256",
                               label="s4096 causal xPos d256", d=256,
                               heads=SRC3_HEADS)
+    rows += time_long_kernels(out["src4096_errors"], out["long2"],
+                              bh=LONG_BATCH * LAG * SRC2_HEADS,
+                              small_bh=SRC2_HEADS, tag="src4096_d384",
+                              label="s4096 causal xPos d384", d=384,
+                              heads=SRC2_HEADS)
     rows += time_long_kernels(out["ring_errors"], out["ring4"],
                               bh=RING4_BH, tag="ring_d192", kind="vision",
                               label=f"ring chunk s{RING_CHUNK} d192",
@@ -5859,18 +5930,19 @@ def long_cost(c, kernel: str) -> tuple:
     read once and each output written once: K3 reads qr, kr, v and writes o
     and lse (its tables are on R1's row); K4 reads qr, kr, v, dO, lse,
     delta and the q tables (the adjoint's) and writes dq; K5 reads the same
-    and writes dk, dv; the tables counted as four. Products over the
-    causal triangle: 2 (K3: S, PV), 3 (K4: S, dP, dS Kr), 4 (K5: S, dP,
-    P^T dO, dS^T Qr)."""
+    and writes dk, dv; K4 + K5 in one call ("K4+K5", the chain body's)
+    reads them once and writes dq, dk, dv; the tables counted as four.
+    Products over the causal triangle: 2 (K3: S, PV), 3 (K4: S, dP, dS
+    Kr), 4 (K5: S, dP, P^T dO, dS^T Qr), 5 (K4+K5: S and dP once)."""
     q = c["q"]
     bh, s, d = q.shape[0] * q.shape[1], c["s"], q.shape[-1]
-    tensors = {"K3": 4, "K4": 5, "K5": 6}[kernel]
-    rows = {"K3": 1, "K4": 2, "K5": 2}[kernel]
+    tensors = {"K3": 4, "K4": 5, "K5": 6, "K4+K5": 7}[kernel]
+    rows = {"K3": 1, "K4": 2, "K5": 2, "K4+K5": 2}[kernel]
     tables = 0 if kernel == "K3" else sum(t.numel() * 4 for t in c["tables"])
     nbytes = tensors * q.numel() * q.element_size() + rows * bh * s * 4
     nbytes += tables
     pairs = s * (s + 1) // 2 if c["causal"] else s * s
-    products = {"K3": 2, "K4": 3, "K5": 4}[kernel]
+    products = {"K3": 2, "K4": 3, "K5": 4, "K4+K5": 5}[kernel]
     return nbytes, products * 2 * bh * pairs * d
 
 
@@ -5905,6 +5977,7 @@ def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
     bound, plain version, and the yardstick: rotation + causal SDPA (R1 +
     K3 together; K3 alone beside it), its backward (R1, K4 and K5
     together); R1 has no single PyTorch call of its own."""
+    from meant_tpu_torch.ops.flash.kernel import CHAIN_SOURCE
     gen = torch.Generator(device="cuda").manual_seed(9)
     big = long_case(kind, torch.bfloat16, gen, bh, **shape)
     small = long_case(kind, torch.bfloat16, gen, small_bh, **shape)
@@ -5952,9 +6025,23 @@ def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
                           "backward of rotation + scaled_dot_product_"
                           "attention (dq, dk, dv: K4 and K5 together)")))
     k4, k5 = rows[1], rows[2]
-    k5["k4_k5_ms"] = event_ms(lambda: (run_online_dq_kernel(big),
-                                       run_online_dkdv_kernel(big)), iters=5)
+    # K4 + K5 as the main path launches them: one call on the chain body
+    k5["k4_k5_ms"] = event_ms(lambda: run_online_k45(big), iters=5)
     k5["k4_k5_bound_ms"] = k4["bound_ms"] + k5["bound_ms"]
+    if k4["source"] == CHAIN_SOURCE:
+        # one call: its inputs read once, the three gradients written, the
+        # five products; beside that bound the chain body's own floor: S
+        # and dP of every tile pair it forms (the causal triangle's) summed
+        # by fp32 FMAs, once for K4 or K5 alone and once for both
+        nbytes, flops = long_cost(big, "K4+K5")
+        k5["k4_k5_bound_ms"] = max(nbytes / PEAK_BYTES_PER_S,
+                                   flops / PEAK_BF16_FLOPS) * 1e3
+        n = -(-big["s"] // 64)
+        pairs = n * (n + 1) // 2 if big["causal"] else n * n
+        fmas = 2 * shape[0] * shape[1] * pairs * 64 * 64 * shape[-1]
+        floor = 2 * fmas / PEAK_FP32_FLOPS * 1e3
+        k4["chain_floor_ms"] = k5["chain_floor_ms"] = floor
+        k5["k4_k5_chain_floor_ms"] = floor
     print(f"K4 + K5 at {label}: {k5['k4_k5_ms']:.4f} ms together (K4 "
           f"{k4['ms']:.4f} + K5 {k5['ms']:.4f} apart; bound "
           f"{k5['k4_k5_bound_ms']:.4f} ms) against the SDPA backward's "
@@ -5970,7 +6057,7 @@ def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
         event_ms(lambda: rotate_plain(big), iters=5), None, nbytes, flops,
         PEAK_FP32_FLOPS, shape=shape, dtype="bfloat16",
         library_call=None))
-    backward = sum(r["ms"] for r in rows[1:4])
+    backward = rows[1]["ms"] + k5["k4_k5_ms"]
     print(f"streaming backward at {label}: R1 + K4 + K5 "
           f"{backward:.4f} ms against the SDPA backward's "
           f"{library_bwd:.4f} ms ({backward / library_bwd:.2f}x)",

@@ -410,9 +410,9 @@ template <int D>
 cudaError_t launch_sliced(const bwd::Args& a, void* dq, void* dk, void* dv) {
   CUtensorMap m[4];
   if (!bwd::make_maps<D>(m, a)) return cudaErrorInvalidValue;
-  cudaError_t err = bwd::launch_dq_sliced<D>(m, a, dq);
+  cudaError_t err = bwd::launch_dq_sliced<true, D>(m, a, dq);
   if (err != cudaSuccess) return err;
-  return bwd::launch_dkdv_sliced<D>(m, a, dk, dv);
+  return bwd::launch_dkdv_sliced<true, D>(m, a, dk, dv);
 }
 
 }  // namespace
@@ -469,10 +469,7 @@ extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
   }
   if (head_dim <= 0 || head_dim > d) return (int)cudaErrorInvalidValue;
   if (wide::takes_chain(wide::kK2, dtype, d, head_dim))
-    return (int)chain::launch(qr, kr, v, dout, dq, dk, dv, st, scratch,
-                              f(qcos), f(qsin), f(kcos), f(ksin), f(kmask),
-                              mask_rows, bh, seq_q, seq_k, num_heads, scale,
-                              causal, static_cast<cudaStream_t>(stream));
+    return (int)chain::launch<true>(a, dq, dk, dv, scratch, chain::kAll);
   // past 128 only bf16 at 192, 256 and 384 has a wgmma body, and at 768
   // the chain body (takes_wide sends fp32 and an odd head dim there to the
   // wide bodies)

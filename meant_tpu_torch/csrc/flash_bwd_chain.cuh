@@ -1,22 +1,26 @@
-// The resident backward K2 in bf16 at a padded width of 768 (meant_src
-// --num_heads 1) on Hopper (sm_90a): the chain body. It replaces
-// meant_tpu/ops/flash/kernel.py:_bwd_kernel there as flash_bwd.cu's other
+// The backwards in bf16 at a padded width of 768 (meant_src --num_heads 1)
+// on Hopper (sm_90a): the chain body. It replaces
+// meant_tpu/ops/flash/kernel.py:_bwd_kernel (K2, the resident backward, on
+// --num_heads 1's charts) and _bwd_dq_kernel / _bwd_dkdv_kernel (K4 + K5,
+// the streaming backward, on its s=512 text tower, which JAX's rule streams
+// at d = 768) there, as flash_bwd.cu's and flash_bwd_online.cu's other
 // bodies do at the other widths, and computes what they compute.
 //
 // Why a body of its own. At d = 768 the sums of S = Qr Kr^T and dP = dO V^T
 // decide single roundings of dS, and one flipped rounding moves a dq
 // element by some 0.025, past the gradients' element bar: summed on the
-// tensor cores K2 at (80, 196, 768) puts 7 dq elements past it, as does the
-// plain version summed in fp64 against itself (tools/wide_sum_order.py;
-// PERF.md). So each S and dP element is the wide body's fp32 FMA chain over
-// the columns 0..767 in order (flash_wide.cuh, dp_mm), and P, dS and the
-// row statistics m, 1/l and delta are bit for bit the wide body's. What
-// changes is that each is formed once per (q tile, key tile), where the
-// wide body formed them 14 times (each of its 4 dq column groups twice, each
-// of its 6 dk/dv groups once), on FMAs fed from fp32 operands in shared
+// tensor cores K2 at (80, 196, 768) puts 7 dq elements past it, K4 + K5 at
+// (80, 512, 768) 1 dq and 1 dk element, as does the plain version summed in
+// fp64 against itself (tools/wide_sum_order.py; PERF.md). So each S and dP
+// element is the wide body's fp32 FMA chain over the columns 0..767 in
+// order (flash_wide.cuh, dp_mm), and P, dS and K2's row statistics m, 1/l
+// and delta are bit for bit the wide body's. What changes is that each is
+// formed once per (q tile, key tile), where the wide bodies formed them 14
+// times for K2 (each of its 4 dq column groups twice, each of its 6 dk/dv
+// groups once) and 10 for K4 + K5, on FMAs fed from fp32 operands in shared
 // memory, and that the three products over keys run on wgmma.
 //
-// A K2 call is three launches, in order on the caller's stream:
+// A call is three launches, in order on the caller's stream:
 //   1. chain_scores_kernel, one block per (key tile, q tile, bh) pair in the
 //      causal triangle: S and dP of the pair, 64 x 64 each, into the fp32
 //      scratch. The 128 threads each hold an 8 x 8 micro-tile of S (threads
@@ -27,14 +31,18 @@
 //      (double-buffered). A warp whose 32 rows lie past s_q, and a thread
 //      whose 8 keys lie past s_k, skips the chains (their scores are masked).
 //   2. chain_ds_kernel, one block per (q tile, bh), 4 warps of 16 rows in
-//      the wide body's fragment layout (warp_mm's): the statistics pass
-//      (stats_tile, online over the key tiles in order, then row_sum) reads
-//      the pair's S and dP from the scratch and gives m, 1/l and delta with
-//      the wide body's order of operations; it writes them to the (3, bh,
-//      s_q) planes. Then P = exp(S - m) (1/l) and dS = P (dP - delta) scale,
-//      rounded to bf16 as the wide body rounds them, into the scratch as the
-//      A fragments of the products: dS for dQ, and through a transpose in
-//      shared memory dS^T for dK and T(P)^T for dV.
+//      the wide body's fragment layout (warp_mm's). K2 (kStats): the
+//      statistics pass (stats_tile, online over the key tiles in order, then
+//      row_sum) reads the pair's S and dP from the scratch and gives m, 1/l
+//      and delta with the wide body's order of operations; it writes them to
+//      the (3, bh, s_q) planes, and P = exp(S - m) (1/l). K4 + K5: no pass;
+//      the rows' lse (the forward's, K3) and delta = rowsum(dO o O) - g_lse
+//      are read from (bh, s_q) planes, and P = exp(S - lse), as the wide K4
+//      and K5 form it. Then dS = P (dP - delta) scale, P and dS rounded to
+//      bf16 as the wide body rounds them, into the scratch as the A
+//      fragments of the products: dS for dQ, and through a transpose in
+//      shared memory dS^T for dK and T(P)^T for dV (only the planes the
+//      call's jobs read).
 //   3. chain_products_kernel, one block per (job, 384-column group, bh): dQ
 //      = dS Kr over the key tiles, dK = dS^T Qr and dV = T(P)^T dO over the
 //      q tiles (causal: up to / from the diagonal). Two consumer
@@ -42,20 +50,28 @@
 //      from the scratch one tile ahead) and B the streamed row-major tile
 //      read MN-major, through a TMA ring (hopper.cuh) a producer warp fills;
 //      the rotation's adjoint in the epilogue of dQ and dK.
-// The scratch (scratch_bytes) holds, per pair, S and dP in fp32 (32
-// KB, read back twice by step 2, mostly from L2) and the three fragment
-// tiles (24 KB). The chain step (1) and the products (3) do not depend on
-// where P comes from; the streaming backward K4 + K5 (P = exp(S - lse),
-// delta given) would take them with a P/dS step of its own.
+// A K2 call and the main path's K4 + K5 call (meant_flash_bwd_online) run
+// the jobs of all three gradients from one formation of S and dP; K4 alone
+// runs the dQ jobs, K5 alone the dK and dV jobs, each forming S and dP
+// itself. The scratch (scratch_bytes) holds, per pair, S and dP in fp32
+// (32 KB, read back by step 2, mostly from L2) and the three fragment tiles
+// (24 KB).
 //
-// Bound at --num_heads 1's (80, 196, 768) pixel rotary: 51 MB of inputs,
-// outputs and tables (0.051 ms at 3.35 TB/s) and, where the tensor cores
-// would take 23.6 GFLOP, S and dP summed by scalar FMAs: 2 x 80 x 196^2 x
-// 768 = 4.72e9 FMAs, 9.44e9 operations, 0.141 ms at the 67 TFLOP/s fp32
-// peak (PERF.md names that floor beside the bytes).
+// Bounds, at 3.35 TB/s and the 67 TFLOP/s fp32 peak (PERF.md names the
+// chains' floor beside the bytes). K2 at --num_heads 1's (80, 196, 768)
+// pixel rotary: 51 MB of inputs, outputs and tables (0.051 ms) and, where
+// the tensor cores would take 23.6 GFLOP, S and dP summed by scalar FMAs:
+// 2 x 80 x 196^2 x 768 = 4.72e9 FMAs, 9.44e9 operations, 0.141 ms. K4 + K5
+// at its text tower's (80, 512, 768) causal xPos, one call: Qr, Kr, V and
+// dO read once, dQ, dK and dV written, lse, delta and the tables, 447 MB
+// (0.133 ms; K4 alone 96 MB, K5 alone 115 MB), five products of 8.1e10
+// operations (0.082 ms at 989 TFLOP/s), and the chains over the 36 tile
+// pairs of the causal triangle, 2 x 80 x 36 x 64^2 x 768 = 1.81e10 FMAs,
+// 0.54 ms, once for both.
 
 #pragma once
 
+#include "flash_bwd_wgmma.cuh"
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -98,6 +114,10 @@ struct Scratch {
         dst(ds + pairs * kFragWords),
         pt(dst + pairs * kFragWords) {}
 };
+
+// The gradients a call forms: dQ (K4's), dK and dV (K5's), or all three
+// (K2, and K4 + K5 in one call).
+enum Jobs { kDq = 1, kDkdv = 2, kAll = 3 };
 
 // ---- 1. S and dP on FMA chains ----------------------------------------------
 
@@ -233,14 +253,19 @@ __device__ __forceinline__ uint4 frag_t(const bf16* tile, int kk, int warp,
                     pair(r + 8, c + 8));
 }
 
-// Grid (q tiles, bh); block kThreads (4 warps of 16 q rows). stats: the
-// (3, bh, s_q) planes m, 1/l, delta.
+// Grid (q tiles, bh); block kThreads (4 warps of 16 q rows). kStats (K2):
+// the statistics pass writes the rows' m, 1/l and delta to row_m, row_il
+// and row_delta; else (K4 + K5) row_m holds the rows' lse and row_delta
+// their delta, and P = exp(S - lse). jobs: the fragment planes to write
+// (kDq: dS; kDkdv: dS^T and T(P)^T).
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads) chain_ds_kernel(
     const float* __restrict__ sd, uint32_t* __restrict__ ds_f,
     uint32_t* __restrict__ dst_f, uint32_t* __restrict__ pt_f,
-    float* __restrict__ stats, const float* __restrict__ kmask,
+    float* __restrict__ row_m_g, float* __restrict__ row_il_g,
+    float* __restrict__ row_delta_g, const float* __restrict__ kmask,
     int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
-    int causal) {
+    int causal, int jobs) {
   constexpr int kLd = kTile + 8;
   __shared__ bf16 p_s[kTile][kLd], ds_s[kTile][kLd];  // [q][key]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -255,30 +280,40 @@ __global__ void __launch_bounds__(kThreads) chain_ds_kernel(
   const int n_tiles = causal ? min(n_tk, qt + 1) : n_tk;
   const size_t pair0 = ((size_t)bh * n_tq + qt) * n_tk;
   float s[4 * kNs], dp[4 * kNs];
-
-  // the statistics pass, as the wide body's dq kernel runs it
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float dsum[2] = {0.f, 0.f};
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const float* pair = sd + (pair0 + tile) * kPairFloats;
-    read_frag(s, pair, warp, g, t);
-    read_frag(dp, pair + kTile * kTile, warp, g, t);
-    stats_tile<true, true>(s, dp, m, l, dsum, row, tile * kTile, t, seq_k,
-                           causal, km, scale);
-  }
-  float m_row[2], il_row[2], delta[2];
-  const size_t plane = (size_t)gridDim.y * seq_q;
+  float m_row[2], il_row[2] = {1.f, 1.f}, delta[2];
+  if constexpr (kStats) {
+    // the statistics pass, as the wide body's dq kernel runs it
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float dsum[2] = {0.f, 0.f};
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      const float* pair = sd + (pair0 + tile) * kPairFloats;
+      read_frag(s, pair, warp, g, t);
+      read_frag(dp, pair + kTile * kTile, warp, g, t);
+      stats_tile<true, true>(s, dp, m, l, dsum, row, tile * kTile, t, seq_k,
+                             causal, km, scale);
+    }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float lt = row_sum(l[h]);
-    m_row[h] = (m[h] == -INFINITY) ? 0.f : m[h];
-    il_row[h] = lt > 0.f ? 1.0f / lt : 0.f;
-    delta[h] = row_sum(dsum[h]) * il_row[h];
-    if (t == 0 && row[h] < seq_q) {
+    for (int h = 0; h < 2; ++h) {
+      const float lt = row_sum(l[h]);
+      m_row[h] = (m[h] == -INFINITY) ? 0.f : m[h];
+      il_row[h] = lt > 0.f ? 1.0f / lt : 0.f;
+      delta[h] = row_sum(dsum[h]) * il_row[h];
+      if (t == 0 && row[h] < seq_q) {
+        const size_t i = (size_t)bh * seq_q + row[h];
+        row_m_g[i] = m_row[h];
+        row_il_g[i] = il_row[h];
+        row_delta_g[i] = delta[h];
+      }
+    }
+  } else {
+    // the forward's lse and the given delta, as the wide K4 and K5 read
+    // them
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool valid = row[h] < seq_q;
       const size_t i = (size_t)bh * seq_q + row[h];
-      stats[i] = m_row[h];
-      stats[plane + i] = il_row[h];
-      stats[2 * plane + i] = delta[h];
+      m_row[h] = valid ? row_m_g[i] : 0.f;
+      delta[h] = valid ? row_delta_g[i] : 0.f;
     }
   }
 
@@ -299,9 +334,11 @@ __global__ void __launch_bounds__(kThreads) chain_ds_kernel(
           const int col = j * 8 + 2 * t + e;
           const float sc = masked_score(s[4 * j + 2 * h + e], scale, row[h],
                                         k0 + col, seq_k, causal, km);
-          const float pe = (sc == -INFINITY || row[h] >= seq_q)
-                               ? 0.f
-                               : expf(sc - m_row[h]) * il_row[h];
+          const float pe =
+              (sc == -INFINITY || row[h] >= seq_q)
+                  ? 0.f
+                  : (kStats ? expf(sc - m_row[h]) * il_row[h]
+                            : expf(sc - m_row[h]));
           pv[e] = pe;
           dv[e] = pe * (dp[4 * j + 2 * h + e] - delta[h]) * scale;
         }
@@ -312,11 +349,14 @@ __global__ void __launch_bounds__(kThreads) chain_ds_kernel(
         *reinterpret_cast<__nv_bfloat162*>(&ds_s[r][c]) = db;
         frag[j >> 1][(j & 1) * 2 + h] = *reinterpret_cast<const uint32_t*>(&db);
       }
-    uint4* out = reinterpret_cast<uint4*>(ds_f + p * kFragWords);
+    if (jobs & kDq) {
+      uint4* out = reinterpret_cast<uint4*>(ds_f + p * kFragWords);
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk)
-      out[kk * kThreads + threadIdx.x] =
-          make_uint4(frag[kk][0], frag[kk][1], frag[kk][2], frag[kk][3]);
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        out[kk * kThreads + threadIdx.x] =
+            make_uint4(frag[kk][0], frag[kk][1], frag[kk][2], frag[kk][3]);
+    }
+    if (!(jobs & kDkdv)) continue;
     __syncthreads();  // P and dS of the pair in shared memory
     uint4* out_dst = reinterpret_cast<uint4*>(dst_f + p * kFragWords);
     uint4* out_pt = reinterpret_cast<uint4*>(pt_f + p * kFragWords);
@@ -338,7 +378,7 @@ struct ProductSmem {
   uint64_t full[kStages], empty[kStages];
 };
 
-// Grid ((n_tq + 2 n_tk) kGroups, bh); block kProductBlock. Job j = x /
+// Grid (jobs kGroups, bh); block kProductBlock. Job j = job0 + x /
 // kGroups: dQ of q tile j (j < n_tq), then dK, then dV of each key tile;
 // the block holds the job's rows and kGroupCols columns from (x % kGroups)
 // kGroupCols, warpgroup wg kWgCols of them.
@@ -351,7 +391,7 @@ __global__ void __launch_bounds__(kProductBlock, 1) chain_products_kernel(
     bf16* __restrict__ dk, bf16* __restrict__ dv,
     const float* __restrict__ qcos, const float* __restrict__ qsin,
     const float* __restrict__ kcos, const float* __restrict__ ksin,
-    int seq_q, int seq_k, int causal) {
+    int seq_q, int seq_k, int causal, int job0) {
   using namespace hopper;
   constexpr int kNd = kWgCols / 8;
   extern __shared__ uint8_t smem_raw[];
@@ -359,7 +399,7 @@ __global__ void __launch_bounds__(kProductBlock, 1) chain_products_kernel(
   const int n_tq = (seq_q + kTile - 1) / kTile;
   const int n_tk = (seq_k + kTile - 1) / kTile;
   const int bh = blockIdx.y;
-  const int job = (int)blockIdx.x / kGroups;
+  const int job = job0 + (int)blockIdx.x / kGroups;
   const int c0 = (int)blockIdx.x % kGroups * kGroupCols;
   // kind 0: dQ (rows q tile r, over key tiles); 1: dK; 2: dV (rows key
   // tile r, over q tiles)
@@ -457,34 +497,34 @@ __global__ void __launch_bounds__(kProductBlock, 1) chain_products_kernel(
 
 // ---- launch (host) -------------------------------------------------------------
 
-// K2 at 768 in bf16: qr, kr, v, dout (bh, seq, 768); stats (3, bh, seq_q)
-// fp32; scratch of scratch_bytes(bh, seq_q, seq_k).
-inline cudaError_t launch(const void* qr, const void* kr, const void* v,
-                          const void* dout, void* dq, void* dk, void* dv,
-                          float* stats, void* scratch, const float* qcos,
-                          const float* qsin, const float* kcos,
-                          const float* ksin, const float* kmask,
-                          int mask_rows, int bh, int seq_q, int seq_k,
-                          int num_heads, float scale, int causal,
-                          cudaStream_t stream) {
-  if (scratch == nullptr) return cudaErrorInvalidValue;
-  const int n_tq = (seq_q + kTile - 1) / kTile;
-  const int n_tk = (seq_k + kTile - 1) / kTile;
-  const Scratch sc(scratch, (size_t)bh * n_tq * n_tk);
+// One call: K2 (kStats; a's row_m, row_il and row_delta the (3, bh, s_q)
+// planes it writes, jobs kAll) or K4 and K5 (a's row_m the rows' lse,
+// row_delta their delta; jobs kDq, kDkdv or kAll: both from one formation
+// of S and dP). qr, kr, v, dout (bh, seq, 768) bf16; scratch of
+// scratch_bytes(bh, seq_q, seq_k).
+template <bool kStats>
+cudaError_t launch(const bwd::Args& a, void* dq, void* dk, void* dv,
+                   void* scratch, int jobs) {
+  if (scratch == nullptr || jobs < kDq || jobs > kAll)
+    return cudaErrorInvalidValue;
+  const int n_tq = (a.seq_q + kTile - 1) / kTile;
+  const int n_tk = (a.seq_k + kTile - 1) / kTile;
+  const Scratch sc(scratch, (size_t)a.bh * n_tq * n_tk);
   const auto b = [](const void* p) { return static_cast<const bf16*>(p); };
-  chain_scores_kernel<<<dim3(n_tk, n_tq, bh), kThreads, 0, stream>>>(
-      b(qr), b(kr), b(v), b(dout), sc.sd, seq_q, seq_k, causal);
+  chain_scores_kernel<<<dim3(n_tk, n_tq, a.bh), kThreads, 0, a.stream>>>(
+      b(a.qr), b(a.kr), b(a.v), b(a.dout), sc.sd, a.seq_q, a.seq_k,
+      a.causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  chain_ds_kernel<<<dim3(n_tq, bh), kThreads, 0, stream>>>(
-      sc.sd, sc.ds, sc.dst, sc.pt, stats, kmask, mask_rows, seq_q, seq_k,
-      num_heads, scale, causal);
+  chain_ds_kernel<kStats><<<dim3(n_tq, a.bh), kThreads, 0, a.stream>>>(
+      sc.sd, sc.ds, sc.dst, sc.pt, a.row_m, a.row_il, a.row_delta, a.kmask,
+      a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale, a.causal, jobs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   CUtensorMap m[3];
-  if (!hopper::make_map(&m[0], qr, bh, seq_q, kD) ||
-      !hopper::make_map(&m[1], kr, bh, seq_k, kD) ||
-      !hopper::make_map(&m[2], dout, bh, seq_q, kD))
+  if (!hopper::make_map(&m[0], a.qr, a.bh, a.seq_q, kD) ||
+      !hopper::make_map(&m[1], a.kr, a.bh, a.seq_k, kD) ||
+      !hopper::make_map(&m[2], a.dout, a.bh, a.seq_q, kD))
     return cudaErrorInvalidValue;
   constexpr int bytes = hopper::smem_bytes<ProductSmem>();
   static_assert(bytes <= 232448, "a block's shared memory");
@@ -492,11 +532,14 @@ inline cudaError_t launch(const void* qr, const void* kr, const void* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return err;
-  chain_products_kernel<<<dim3((n_tq + 2 * n_tk) * kGroups, bh),
-                          kProductBlock, bytes, stream>>>(
+  // the jobs in order: dQ of each q tile, then dK and dV of each key tile
+  const int job0 = jobs & kDq ? 0 : n_tq;
+  const int n_jobs = (jobs & kDq ? n_tq : 0) + (jobs & kDkdv ? 2 * n_tk : 0);
+  chain_products_kernel<<<dim3(n_jobs * kGroups, a.bh), kProductBlock, bytes,
+                          a.stream>>>(
       m[0], m[1], m[2], sc.ds, sc.dst, sc.pt, static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), qcos, qsin, kcos, ksin,
-      seq_q, seq_k, causal);
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.qcos, a.qsin, a.kcos,
+      a.ksin, a.seq_q, a.seq_k, a.causal, job0);
   return cudaGetLastError();
 }
 

@@ -50,10 +50,20 @@
 // dims 64, 96 and 128 are instantiated in both dtypes (the wrapper pads any
 // other even d up to 128 to the next of them), and in bf16 also 192 and
 // 256, the padded widths of every even d in (128, 256]: the wgmma bodies at
-// two consumer warpgroups (flash_bwd_wgmma.cuh says how). In fp32 past
-// 128, in bf16 past 256, and at an odd head dim (whose adjoint wraps), K4
-// and K5 take the wide bodies of flash_wide.cuh. The rotation pass takes
-// any width that is a multiple of 8, the caller's head dim d beside it: at
+// two consumer warpgroups (flash_bwd_wgmma.cuh says how); at 384 (d in
+// (320, 384], src4096 --num_heads 2) the sliced kernels of
+// flash_bwd_wgmma.cuh without the statistics pass (Kr / V or Qr / dO
+// streamed in 192-column slices, dK and dV in column groups of 192 on the
+// grid); at 768 (d in (704, 768], --num_heads 1's streaming text tower) the
+// chain body of flash_bwd_chain.cuh with P = exp(S - lse): S and dP on
+// fp32 FMA chains in column order into a scratch the wrapper allocates
+// (meant_flash_bwd_online_scratch_bytes), P and dS as the wide bodies
+// form them, the products on wgmma. K4 or K5 alone there forms S and dP
+// itself; meant_flash_bwd_online, the main path's one call at every width,
+// forms them once for dQ, dK and dV there. In fp32 past 128, at the other
+// widths past 256, and at an odd head dim (whose adjoint wraps), K4 and K5
+// take the wide bodies of flash_wide.cuh. The rotation pass takes any
+// width that is a multiple of 8, the caller's head dim d beside it: at
 // an odd d, column d-1 pairs with column 0 as the JAX kernels' lane
 // rotate-half pairs them (x[d-1] cos - x[0] sin). q has s_q rows and k s_k
 // keys, as in the resident kernels.
@@ -63,15 +73,22 @@
 // causal): K4 runs three products over the causal triangle (S, dP, dS Kr),
 // 386.5 GFLOP, 0.39 ms; K5 four (S, dP, P^T dO, dS^T Qr), 515.4 GFLOP,
 // 0.52 ms; both are bound by operations (each moves some 0.3 GB, 0.1 ms).
-// src4096 at --num_heads 4 launches them at (40, 4096, 192) and at 3
-// heads at (30, 4096, 256): the same operations, the same bounds.
+// src4096 at --num_heads 4 launches them at (40, 4096, 192), at 3 heads at
+// (30, 4096, 256) and at 2 at (20, 4096, 384): the same operations, the
+// same bounds. --num_heads 1 streams its s=512 text tower at (80, 512,
+// 768): K4 alone 96 MB and K5 alone 115 MB (0.096 and 0.115 ms, bound by
+// bytes), the one call that forms S and dP once for both 447 MB (0.133
+// ms: Qr, Kr, V, dO read once, dQ, dK, dV written); the chain body sums S
+// and dP by scalar FMAs there, 80 x 36 tile pairs x 64 x 64 x 768 x 2 =
+// 1.81e10 FMAs, 0.54 ms at the 67 TFLOP/s fp32 peak, its floor (PERF.md).
 // The rotation pass is bound by bytes: q and k read, Qr and Kr written,
 // the four tables read, 258 MB, 0.077 ms.
 //
-// C interface (loaded with ctypes): meant_rotate_qk, meant_flash_bwd_dq and
-// meant_flash_bwd_dkdv return the cudaError_t of the launch (0 on
-// success); they never synchronise.
+// C interface (loaded with ctypes): meant_rotate_qk, meant_flash_bwd_dq,
+// meant_flash_bwd_dkdv and meant_flash_bwd_online return the cudaError_t
+// of the launch (0 on success); they never synchronise.
 
+#include "flash_bwd_chain.cuh"
 #include "flash_bwd_wgmma.cuh"
 #include "flash_common.cuh"
 #include "flash_wide.cuh"
@@ -387,14 +404,20 @@ template <int D>
 cudaError_t launch_dq_bf16(const bwd::Args& a, void* dq) {
   CUtensorMap m[4];
   if (!bwd::make_maps<D>(m, a)) return cudaErrorInvalidValue;
-  return bwd::launch_dq<false, D>(m, a, dq);
+  if constexpr (D == 384)
+    return bwd::launch_dq_sliced<false, D>(m, a, dq);
+  else
+    return bwd::launch_dq<false, D>(m, a, dq);
 }
 
 template <int D>
 cudaError_t launch_dkdv_bf16(const bwd::Args& a, void* dk, void* dv) {
   CUtensorMap m[4];
   if (!bwd::make_maps<D>(m, a)) return cudaErrorInvalidValue;
-  return bwd::launch_dkdv<false, D>(m, a, dk, dv);
+  if constexpr (D == 384)
+    return bwd::launch_dkdv_sliced<false, D>(m, a, dk, dv);
+  else
+    return bwd::launch_dkdv<false, D>(m, a, dk, dv);
 }
 
 template <typename T>
@@ -452,8 +475,20 @@ wide::Args wide_args(const bwd::Args& a, int d, int head_dim) {
 // (bh, seq_q, d); k, kr, v, dk, dv: (bh, seq_k, d); all contiguous; d = 64,
 // 96, 128 or a multiple of 64 for K4 and K5, any multiple of 8 for the
 // rotation pass; head_dim <= d the caller's head dim (an odd one wraps);
-// lse, delta: (bh, seq_q) fp32; tables: (seq_q | seq_k, d) fp32; kmask:
-// (mask_rows, seq_k) fp32 or null.
+// lse, delta: (bh, seq_q) fp32; scratch: meant_flash_bwd_online_scratch_bytes
+// of device memory (the chain body's at d = 768 in bf16; null when that is
+// 0); tables: (seq_q | seq_k, d) fp32; kmask: (mask_rows, seq_k) fp32 or
+// null.
+
+// The bytes of scratch a K4, K5 or K4 + K5 call with these arguments
+// needs: the chain body's (bf16 at d = 768, an even head dim), else 0.
+extern "C" long long meant_flash_bwd_online_scratch_bytes(int dtype, int d,
+                                                          int head_dim,
+                                                          int bh, int seq_q,
+                                                          int seq_k) {
+  if (!wide::takes_chain(wide::kK4, dtype, d, head_dim)) return 0;
+  return (long long)chain::scratch_bytes(bh, seq_q, seq_k);
+}
 
 // The rotation pass: qr = T(rot(q)), kr = T(rot(k)).
 extern "C" int meant_rotate_qk(int dtype, const void* q, const void* k,
@@ -479,7 +514,7 @@ extern "C" int meant_rotate_qk(int dtype, const void* q, const void* k,
 extern "C" int meant_flash_bwd_dq(int dtype, const void* qr, const void* kr,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
-                                  void* dq, const void* qcos,
+                                  void* dq, void* scratch, const void* qcos,
                                   const void* qsin, const void* kcos,
                                   const void* ksin, const void* kmask,
                                   int mask_rows, int bh, int seq_q,
@@ -496,10 +531,15 @@ extern "C" int meant_flash_bwd_dq(int dtype, const void* qr, const void* kr,
     return (int)(dtype == 0 ? wide::launch_dq<float, false>(w, dq)
                             : wide::launch_dq<bf16, false>(w, dq));
   }
-  // past 128 only bf16 at 192 and 256 has a wgmma body; fp32 there is
-  // refused by dispatch_head_dim if takes_wide ever lets it through
+  if (wide::takes_chain(wide::kK4, dtype, d, head_dim))
+    return (int)chain::launch<false>(a, dq, nullptr, nullptr, scratch,
+                                     chain::kDq);
+  // past 128 only bf16 at 192, 256 and 384 has a wgmma body (at 768 the
+  // chain body); fp32 there is refused by dispatch_head_dim if takes_wide
+  // ever lets it through
   if (dtype == 1 && d == 192) return (int)launch_dq_bf16<192>(a, dq);
   if (dtype == 1 && d == 256) return (int)launch_dq_bf16<256>(a, dq);
+  if (dtype == 1 && d == 384) return (int)launch_dq_bf16<384>(a, dq);
   return (int)dispatch_head_dim(d, [&](auto built) {
     constexpr int D = decltype(built)::value;
     return dtype == 0 ? launch_dq_fp32<D>(a, dq) : launch_dq_bf16<D>(a, dq);
@@ -510,7 +550,8 @@ extern "C" int meant_flash_bwd_dq(int dtype, const void* qr, const void* kr,
 extern "C" int meant_flash_bwd_dkdv(int dtype, const void* qr, const void* kr,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
-                                    void* dk, void* dv, const void* qcos,
+                                    void* dk, void* dv, void* scratch,
+                                    const void* qcos,
                                     const void* qsin, const void* kcos,
                                     const void* ksin, const void* kmask,
                                     int mask_rows, int bh, int seq_q,
@@ -527,12 +568,50 @@ extern "C" int meant_flash_bwd_dkdv(int dtype, const void* qr, const void* kr,
     return (int)(dtype == 0 ? wide::launch_dkdv<float, false>(w, dk, dv)
                             : wide::launch_dkdv<bf16, false>(w, dk, dv));
   }
-  // past 128 only bf16 at 192 and 256 has a wgmma body (as in K4)
+  if (wide::takes_chain(wide::kK5, dtype, d, head_dim))
+    return (int)chain::launch<false>(a, nullptr, dk, dv, scratch,
+                                     chain::kDkdv);
+  // past 128 only bf16 at 192, 256 and 384 has a wgmma body (as in K4)
   if (dtype == 1 && d == 192) return (int)launch_dkdv_bf16<192>(a, dk, dv);
   if (dtype == 1 && d == 256) return (int)launch_dkdv_bf16<256>(a, dk, dv);
+  if (dtype == 1 && d == 384) return (int)launch_dkdv_bf16<384>(a, dk, dv);
   return (int)dispatch_head_dim(d, [&](auto built) {
     constexpr int D = decltype(built)::value;
     return dtype == 0 ? launch_dkdv_fp32<D>(a, dk, dv)
                       : launch_dkdv_bf16<D>(a, dk, dv);
   });
+}
+
+// K4 + K5 in one call, the streaming backward's entry on the main path:
+// where the chain body takes them (bf16, d = 768, an even head dim) S and
+// dP are formed once for dq, dk and dv, then the products of all three;
+// at every other width K4's launch, then K5's.
+extern "C" int meant_flash_bwd_online(int dtype, const void* qr,
+                                      const void* kr, const void* v,
+                                      const void* dout, const void* lse,
+                                      const void* delta, void* dq, void* dk,
+                                      void* dv, void* scratch,
+                                      const void* qcos, const void* qsin,
+                                      const void* kcos, const void* ksin,
+                                      const void* kmask, int mask_rows,
+                                      int bh, int seq_q, int seq_k, int d,
+                                      int head_dim, int num_heads,
+                                      float scale, int causal, void* stream) {
+  if (!wide::takes_chain(wide::kK4, dtype, d, head_dim)) {
+    const int err = meant_flash_bwd_dq(
+        dtype, qr, kr, v, dout, lse, delta, dq, scratch, qcos, qsin, kcos,
+        ksin, kmask, mask_rows, bh, seq_q, seq_k, d, head_dim, num_heads,
+        scale, causal, stream);
+    if (err) return err;
+    return meant_flash_bwd_dkdv(
+        dtype, qr, kr, v, dout, lse, delta, dk, dv, scratch, qcos, qsin,
+        kcos, ksin, kmask, mask_rows, bh, seq_q, seq_k, d, head_dim,
+        num_heads, scale, causal, stream);
+  }
+  const bwd::Args a = make_args(qr, kr, v, dout, lse, delta, qcos, qsin,
+                                kcos, ksin, kmask, mask_rows, bh, seq_q,
+                                seq_k, num_heads, scale, causal, stream);
+  if (invalid(dtype, a) || head_dim <= 0 || head_dim > d)
+    return (int)cudaErrorInvalidValue;
+  return (int)chain::launch<false>(a, dq, dk, dv, scratch, chain::kAll);
 }

@@ -39,12 +39,12 @@
 //
 // Both kernels are templates on the head dim D, a [64][D] tile being D / 32
 // TMA boxes: 64, 96, 128, 192 and 256 for K2, K4 and K5 (past 128 in bf16
-// at an even d), and past 256 their sliced forms (below) at 384 for K2; an
-// odd d, fp32 past 128, K4 and K5 past 256 and K2 at the other widths past
-// 256 take flash_wide.cuh (K2 at 768 flash_bwd_chain.cuh). At 192, 256 and
-// 384 they replace meant_tpu/ops/flash/kernel.py:_bwd_kernel (K2),
-// _bwd_dq_kernel (K4) and _bwd_dkdv_kernel (K5) as at the narrower
-// widths. The layouts:
+// at an even d), and past 256 their sliced forms (below) at 384, with and
+// without the statistics pass; an odd d, fp32 past 128 and the other
+// widths past 256 take flash_wide.cuh (768 in bf16
+// flash_bwd_chain.cuh). At 192, 256 and 384 they replace
+// meant_tpu/ops/flash/kernel.py:_bwd_kernel (K2), _bwd_dq_kernel (K4) and
+// _bwd_dkdv_kernel (K5) as at the narrower widths. The layouts:
 //   * D <= 128: one consumer warpgroup and a producer warp, three stages.
 //     At D = 128 the dk/dv kernel holds two 64 x 128 fp32 accumulators
 //     (128 registers a thread) beside S and dP.
@@ -85,8 +85,13 @@
 //     and dO slices of its columns. At (160, 512, 384) 96-column slices
 //     (nine stages) read the same as 192 (1.136 against 1.138 ms), and 96
 //     columns a dk/dv block (one consumer warpgroup, four groups) 1.36x
-//     slower (tools/k23_variants.py --kernels K2wide; PERF.md). ptxas: 168
-//     registers at launch for both kernels, no spills.
+//     slower (tools/k23_variants.py --kernels K2wide; PERF.md). K2 runs
+//     them with its statistics pass (the dq kernel walks the key tiles
+//     twice and writes m, 1/l and delta); K4 and K5 (src4096 --num_heads
+//     2's (20, 4096, 384)) without: the dq kernel walks the key tiles once
+//     with row_m = lse and the given delta, the dk/dv producer stages lse
+//     and delta with each q tile. ptxas: 168 registers at launch for
+//     both kernels, no spills.
 // Bound on an H100 SXM at src4096's launch at --num_heads 4, (40, 4096,
 // 192) bf16 causal: K4 386.5 GFLOP, 0.39 ms, K5 515.4 GFLOP, 0.52 ms, both
 // bound by operations (the same products as at (80, 4096, 96)); at
@@ -97,7 +102,13 @@
 // 169 MB (0.051 ms): bound by bytes, as at d = 96 (flash_bwd.cu); so is K2
 // at --num_heads 2's (160, 512, 384), 443 MB (0.132 ms) for 80.8 GFLOP,
 // where the sliced kernels form S and dP 8 times over (each dq warpgroup
-// twice, each dk/dv warpgroup once in each of two column groups).
+// twice, each dk/dv warpgroup once in each of two column groups). K4 and K5
+// at src4096 --num_heads 2's (20, 4096, 384) causal: the products of (40,
+// 4096, 192), K4 386.5 GFLOP (0.39094 ms), K5 515.4 GFLOP (0.52126 ms),
+// bound by operations; there the sliced dq kernel forms S and dP in each
+// of its two warpgroups (5/3 of K4's products on the tensor cores), the
+// dk/dv kernel S^T and dP^T in each warpgroup of each of two column groups
+// (10/4 of K5's).
 // The order of the sums of S and dP (k16 steps on the tensor cores) is not
 // the plain versions' column order. tools/wide_sum_order.py holds that
 // order to the gradients' element bar at the widths these bodies take: 0
@@ -706,15 +717,16 @@ __device__ __forceinline__ void sliced_scores(
   fence_regs(dp);
 }
 
-// K2's dq and statistics past 256. Grid (q tiles, bh); block
-// SlicedLayout<D, false>::kBlock threads: two consumer warpgroups, each
-// holding 192 of dQ's columns and forming the rows' whole S and dP, and a
-// producer warpgroup whose first thread streams Kr's and V's slices of
-// each key tile (twice for K2: the statistics pass, then dS). Every
-// warpgroup needs every Kr slice for S; each keeps its own for dQ += dS
-// Kr, so the Kr slices are released after that product, the V slices one
-// product behind.
-template <int D>
+// dq past 256 (K4; K2's dq and statistics when kStats). Grid (q tiles,
+// bh); block SlicedLayout<D, false>::kBlock threads: two consumer
+// warpgroups, each holding 192 of dQ's columns and forming the rows' whole
+// S and dP, and a producer warpgroup whose first thread streams Kr's and
+// V's slices of each key tile (twice for K2: the statistics pass, then dS;
+// once for K4, which reads row_m = lse and row_delta). Every warpgroup
+// needs every Kr slice for S; each keeps its own for dQ += dS Kr, so the
+// Kr slices are released after that product, the V slices one product
+// behind.
+template <bool kStats, int D>
 __global__ void __launch_bounds__((SlicedLayout<D, false>::kBlock), 1)
     flash_bwd_dq_sliced_kernel(
     const __grid_constant__ CUtensorMap tm_q,
@@ -756,7 +768,7 @@ __global__ void __launch_bounds__((SlicedLayout<D, false>::kBlock), 1)
       tma_load_tile<D>(sm.a, &tm_q, &sm.fixed_full, q0, bh);
       tma_load_tile<D>(sm.b, &tm_do, &sm.fixed_full, q0, bh);
       int n = 0;  // stages filled
-      for (int it = 0; it < 2 * n_tiles; ++it) {
+      for (int it = 0; it < (kStats ? 2 : 1) * n_tiles; ++it) {
         const int k0 = (it % n_tiles) * kTile;
         for (int j = 0; j < 2 * kSlices; ++j, ++n) {
           const int st = n % kN;
@@ -793,9 +805,9 @@ __global__ void __launch_bounds__((SlicedLayout<D, false>::kBlock), 1)
   };
   const auto release = [&](int st) { mbar_arrive(&sm.empty[st]); };
 
-  float row_m[2], row_il[2], row_delta[2];
+  float row_m[2], row_il[2] = {1.f, 1.f}, row_delta[2];
   mbar_wait(&sm.fixed_full, 0);
-  {
+  if constexpr (kStats) {
     // each warpgroup finds the same m, l and delta; the first writes them
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     float dsum[2] = {0.f, 0.f};
@@ -823,6 +835,14 @@ __global__ void __launch_bounds__((SlicedLayout<D, false>::kBlock), 1)
         row_delta_g[i] = row_delta[h];
       }
     }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool valid = row[h] < seq_q;
+      const size_t i = (size_t)bh * seq_q + row[h];
+      row_m[h] = valid ? row_m_g[i] : 0.f;
+      row_delta[h] = valid ? row_delta_g[i] : 0.f;
+    }
   }
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -834,11 +854,11 @@ __global__ void __launch_bounds__((SlicedLayout<D, false>::kBlock), 1)
                      take, release);
     uint32_t ds[kTile / 16][4];
     if (dq_edge(causal, it, qt, k0, seq_k))
-      dq_tile_ds<true, true>(ds, s, dp, row, row_m, row_il, row_delta, k0,
-                             t, seq_k, causal, km, scale);
+      dq_tile_ds<true, kStats>(ds, s, dp, row, row_m, row_il, row_delta,
+                               k0, t, seq_k, causal, km, scale);
     else
-      dq_tile_ds<false, true>(ds, s, dp, row, row_m, row_il, row_delta, k0,
-                              t, seq_k, causal, km, scale);
+      dq_tile_ds<false, kStats>(ds, s, dp, row, row_m, row_il, row_delta,
+                                k0, t, seq_k, causal, km, scale);
     wgmma_fence();
 #pragma unroll
     for (int p = 0; p < L::kParts; ++p) {
@@ -875,16 +895,16 @@ __global__ void __launch_bounds__((SlicedLayout<D, false>::kBlock), 1)
   }
 }
 
-// K2's dk and dv past 256. Grid (k tiles x column groups,
-// bh), a key tile's groups side by side; block SlicedLayout<D,
+// dk and dv past 256 (K5; K2's when kStats). Grid (k tiles x column
+// groups, bh), a key tile's groups side by side; block SlicedLayout<D,
 // true>::kBlock threads: consumer warpgroups of 96 of the group's columns
 // of dK and dV, each forming the tile pair's whole S^T and dP^T from the
 // resident Kr and V and the streamed Qr and dO slices, and a producer warp
-// (of a warpgroup) that stages the streamed rows' statistics with the
-// block's first kept Qr slice. The slices that hold the group's columns
-// are kept for dV += T(P^T) dO and dK += dS^T Qr; the others are released
-// one product behind.
-template <int D>
+// (of a warpgroup) that stages the streamed rows' statistics (K5: lse and
+// delta; K2: m, 1/l and delta) with the block's first kept Qr slice. The
+// slices that hold the group's columns are kept for dV += T(P^T) dO and
+// dK += dS^T Qr; the others are released one product behind.
+template <bool kStats, int D>
 __global__ void __launch_bounds__((SlicedLayout<D, true>::kBlock), 1)
     flash_bwd_dkdv_sliced_kernel(
     const __grid_constant__ CUtensorMap tm_q,
@@ -943,7 +963,7 @@ __global__ void __launch_bounds__((SlicedLayout<D, true>::kBlock), 1)
         const size_t gi = (size_t)bh * seq_q + i;
         rm[r] = i < seq_q ? row_m_g[gi] : 0.f;
         rd[r] = i < seq_q ? row_delta_g[gi] : 0.f;
-        ril[r] = i < seq_q ? row_il_g[gi] : 0.f;
+        if (kStats) ril[r] = i < seq_q ? row_il_g[gi] : 0.f;
       }
     };
     fetch(0);
@@ -958,7 +978,7 @@ __global__ void __launch_bounds__((SlicedLayout<D, true>::kBlock), 1)
           for (int r = 0; r < 2; ++r) {
             sm.m[st][lane + 32 * r] = rm[r];
             sm.delta[st][lane + 32 * r] = rd[r];
-            sm.il[st][lane + 32 * r] = ril[r];
+            if (kStats) sm.il[st][lane + 32 * r] = ril[r];
           }
         }
         if (lane == 0) {
@@ -1017,13 +1037,13 @@ __global__ void __launch_bounds__((SlicedLayout<D, true>::kBlock), 1)
     const int st = slice_st(keep_lo);  // the tile's statistics
     uint32_t pt[kTile / 16][4], dst[kTile / 16][4];
     if (dkdv_edge(causal, it, q0, k0, seq_q, seq_k))
-      dkdv_tile_p_ds<true, true>(pt, dst, s, dp, key, key_bias, sm.m[st],
-                                 sm.il[st], sm.delta[st], q0, t, seq_q,
-                                 seq_k, causal, km, scale);
+      dkdv_tile_p_ds<true, kStats>(pt, dst, s, dp, key, key_bias,
+                                   sm.m[st], sm.il[st], sm.delta[st], q0, t,
+                                   seq_q, seq_k, causal, km, scale);
     else
-      dkdv_tile_p_ds<false, true>(pt, dst, s, dp, key, key_bias, sm.m[st],
-                                  sm.il[st], sm.delta[st], q0, t, seq_q,
-                                  seq_k, causal, km, scale);
+      dkdv_tile_p_ds<false, kStats>(pt, dst, s, dp, key, key_bias,
+                                    sm.m[st], sm.il[st], sm.delta[st], q0,
+                                    t, seq_q, seq_k, causal, km, scale);
     wgmma_fence();
 #pragma unroll
     for (int p = 0; p < L::kParts; ++p) {
@@ -1132,13 +1152,14 @@ cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const Args& a, void* dk,
   return cudaGetLastError();
 }
 
-// K2's sliced kernels (D past 256) on the same arguments and maps.
-template <int D>
+// The sliced kernels (D past 256; K2's with kStats, K4's and K5's without)
+// on the same arguments and maps.
+template <bool kStats, int D>
 cudaError_t launch_dq_sliced(const CUtensorMap (&m)[4], const Args& a,
                              void* dq) {
   constexpr int bytes = hopper::smem_bytes<SlicedSmem<D, sliced_stages<D>()>>();
   static_assert(bytes <= 232448, "a block's shared memory");
-  const auto kernel = flash_bwd_dq_sliced_kernel<D>;
+  const auto kernel = flash_bwd_dq_sliced_kernel<kStats, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -1150,13 +1171,13 @@ cudaError_t launch_dq_sliced(const CUtensorMap (&m)[4], const Args& a,
   return cudaGetLastError();
 }
 
-template <int D>
+template <bool kStats, int D>
 cudaError_t launch_dkdv_sliced(const CUtensorMap (&m)[4], const Args& a,
                                void* dk, void* dv) {
   using L = SlicedLayout<D, true>;
   constexpr int bytes = hopper::smem_bytes<SlicedSmem<D, sliced_stages<D>()>>();
   static_assert(bytes <= 232448, "a block's shared memory");
-  const auto kernel = flash_bwd_dkdv_sliced_kernel<D>;
+  const auto kernel = flash_bwd_dkdv_sliced_kernel<kStats, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;

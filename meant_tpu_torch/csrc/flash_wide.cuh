@@ -1,7 +1,7 @@
 // The flash kernels at the head dims the wgmma bodies are not built for:
-// every kernel in fp32 past 128, K4 and K5 in bf16 past 256, K1, K2 and K3
-// in bf16 at the widths past 256 other than 384 and 768, and (in the
-// backwards) any odd head dim (takes_wide below). One body per
+// every kernel in fp32 past 128, every kernel in bf16 at the widths past
+// 256 other than 384 and 768, and (in the backwards) any odd head dim
+// (takes_wide below). One body per
 // kernel, templated on the dtype (fp32 or bf16) and not on the head dim:
 //   * fwd_kernel<T, true>:   K1 (flash_fwd.cu), a statistics pass, then P
 //                            normalised and rounded before P V;
@@ -44,14 +44,15 @@
 // instantiated at D = 192 and 256 -- is taken in bf16 by K1 and K3
 // (flash_fwd.cu) and by K2, K4 and K5 at an even head dim
 // (flash_bwd_wgmma.cuh), at D = 384 and 768 by K1 and K3 (the forwards'
-// body on a ring of column slices) and at 384 by K2 (the backwards'
-// sliced kernels), where tools/wide_sum_order.py finds their tensor-core
-// sums within the element bars. K2 in bf16 at 768 (meant_src --num_heads
-// 1's charts) runs the chain body (flash_bwd_chain.cuh): these chains,
-// formed once per tile pair where this body forms them 14 times, and the
-// products on wgmma, P, dS and the statistics bit for bit this body's.
-// K4 and K5 at 384 and 768 keep this body; it covers every width, simply
-// and not fast (PERF.md has its times).
+// body on a ring of column slices) and at 384 by K2, K4 and K5 (the
+// backwards' sliced kernels), where tools/wide_sum_order.py finds their
+// tensor-core sums within the element bars. The backwards in bf16 at 768
+// (meant_src --num_heads 1: K2 on its charts, K4 + K5 on its streaming
+// text tower) run the chain body (flash_bwd_chain.cuh): these chains,
+// formed once per tile pair where this body forms them 14 times for K2 and
+// 10 for K4 + K5 (4 dq groups, 6 dk/dv groups), and the products on
+// wgmma; P, dS and K2's statistics bit for bit this body's. This body
+// covers every width, simply and not fast (PERF.md has its times).
 //
 // The rotation's adjoint at an odd head dim d wraps as the JAX kernels'
 // lane rotate-half does (meant_tpu/ops/flash/kernel.py:63-71, :378-379,
@@ -770,26 +771,33 @@ enum Kernel { kK1 = 1, kK2, kK3, kK4, kK5 };
 // dim (their adjoint wraps); every kernel at a dp the wgmma and fp32 bodies
 // are not built for. Those are 64, 96 and 128; in bf16 also 192 and 256
 // for every kernel (the forwards' body in flash_fwd.cu, the backwards' in
-// flash_bwd_wgmma.cuh), 384 and 768 for the forwards K1 and K3 (the
-// forwards' body on its sliced ring; an odd d padded there too, since the
-// forwards have no adjoint) and for K2 (at 384 the backwards' sliced
-// kernels, at 768 the chain body of flash_bwd_chain.cuh: takes_chain).
-// fp32 past 128, K4 and K5 past 256 and every other width past 256 (320,
-// 448, ..., 704) keep these bodies.
+// flash_bwd_wgmma.cuh), and 384 and 768 for every kernel: the forwards K1
+// and K3 on the forwards' sliced ring (an odd d padded there too, since the
+// forwards have no adjoint); the backwards K2 (replacing
+// meant_tpu/ops/flash/kernel.py:_bwd_kernel), K4 (_bwd_dq_kernel) and K5
+// (_bwd_dkdv_kernel) at 384 on the backwards' sliced kernels
+// (flash_bwd_wgmma.cuh; bound by operations at src4096's (20, 4096, 384):
+// K4 0.39 ms, K5 0.52 ms), at 768 on the chain body of flash_bwd_chain.cuh
+// (takes_chain: S and dP on fp32 FMA chains in column order, these bodies'
+// bits; beside the bytes bound, the chains' floor at the fp32 peak:
+// PERF.md). fp32 past 128 and every other width past 256 (320, 448, ...,
+// 704) keep these bodies.
 inline bool takes_wide(Kernel kernel, int dtype, int dp, int head_dim) {
   const bool backward = kernel == kK2 || kernel == kK4 || kernel == kK5;
   if (backward && (head_dim & 1)) return true;
   if (dp == 64 || dp == 96 || dp == 128) return false;
   if (dtype != 1) return true;
   if (dp == 192 || dp == 256) return false;
-  if (dp == 384 || dp == 768) return kernel == kK4 || kernel == kK5;
+  if (dp == 384 || dp == 768) return false;
   return true;
 }
 
-// Whether a launch that takes_wide leaves to the other bodies runs K2's
-// chain body (flash_bwd_chain.cuh): bf16 at dp = 768.
+// Whether a launch that takes_wide leaves to the other bodies runs the
+// chain body (flash_bwd_chain.cuh): the backwards K2, K4 and K5 in bf16 at
+// dp = 768.
 inline bool takes_chain(Kernel kernel, int dtype, int dp, int head_dim) {
-  return kernel == kK2 && dtype == 1 && dp == 768 &&
+  const bool backward = kernel == kK2 || kernel == kK4 || kernel == kK5;
+  return backward && dtype == 1 && dp == 768 &&
          !takes_wide(kernel, dtype, dp, head_dim);
 }
 
@@ -797,8 +805,9 @@ inline bool takes_chain(Kernel kernel, int dtype, int dp, int head_dim) {
 }  // namespace meant
 
 // The body a launch runs, for the launchers in Python, which name it: 1
-// these wide bodies, 2 K2's chain body, 0 the library's own wgmma or fp32
-// body (each library that includes this header exports its own copy).
+// these wide bodies, 2 the backwards' chain body, 0 the library's own
+// wgmma or fp32 body (each library that includes this header exports its
+// own copy).
 extern "C" int meant_flash_body(int kernel, int dtype, int dp,
                                 int head_dim) {
   using namespace meant::wide;

@@ -39,13 +39,15 @@ K2, K4 and K5 at an even d the backwards' (csrc/flash_bwd_wgmma.cuh, one
 or two consumer warpgroups splitting the gradients' columns); at 384 and
 768 (d in (320, 384] and (704, 768]) K1 and K3 run the forwards' body on
 its sliced ring (O's columns in groups of 192 on a grid axis, Kr streamed
-in 192-column slices), and K2 at an even d the backwards' sliced kernels
-at 384 (csrc/flash_bwd_wgmma.cuh) and its chain body at 768
+in 192-column slices), and K2, K4 and K5 at an even d the backwards'
+sliced kernels at 384 (csrc/flash_bwd_wgmma.cuh) and the chain body at 768
 (csrc/flash_bwd_chain.cuh: S and dP on fp32 FMA chains in column order,
-the wide body's bits, formed once per tile pair; the products on wgmma).
-fp32 past 128, K4 and K5 past 256 and the forwards at the other widths
-past 256 stay on the wide bodies. Every call is one launch of each kernel
-at any d, but K2's chain body, three launches a call.
+the wide body's bits, formed once per tile pair; the products on wgmma;
+on the streaming path K4 + K5 in one call, `flash_bwd_dq_dkdv`, which
+forms S and dP once for dq, dk and dv). fp32 past 128 and every kernel at
+the other widths past 256 stay on the wide bodies. Every call is one
+launch of each kernel at any d, but the chain body's, three launches a
+call.
 
 At an odd d the rotation pairs lanes as the JAX kernels' `_rotate_half_lanes`
 (meant_tpu/ops/flash/kernel.py:63-71) does, wrapping: lane d-1 pairs with
@@ -229,19 +231,69 @@ class _FlashLauncher(KernelLauncher):
     `meant_flash_body` in csrc/flash_wide.cuh (over `takes_wide` and
     `takes_chain`) decides for this kernel (`kernel`, 1-5 for K1-K5), its
     dtype, width and head dim: the wgmma or fp32 body of `source`, the
-    wide body, or K2's chain body at 768. `last_source` names the source of
-    the body that the last launch ran, as the library reports it. The
-    first argument of every launch is the dtype's code."""
+    wide body, or the backwards' chain body at 768. `last_source` names
+    the source of the body that the last launch ran, as the library
+    reports it. The first argument of every launch is the dtype's code.
+    A backward whose body needs a device scratch names the library's entry
+    that sizes it (`scratch_symbol`). The library's answers depend on
+    their arguments alone and are kept, so a repeated launch asks
+    nothing but the launch itself."""
 
     source = ""
     kernel = 0
+    scratch_symbol = ""
     last_source: Optional[str] = None
+
+    def __init__(self):
+        super().__init__()
+        self._bodies: dict = {}
+        self._scratch_sizes: dict = {}
+
+    def body(self, dtype_code: int, d: int, head_dim: int) -> str:
+        """The source of the body a launch at (dtype, width d, head_dim)
+        runs, as the library reports it."""
+        key = (dtype_code, d, head_dim)
+        self._function()
+        if key not in self._bodies:
+            body = load_library(self.library).meant_flash_body(
+                self.kernel, *key)
+            self._bodies[key] = (self.source, WIDE_SOURCE, CHAIN_SOURCE)[body]
+        return self._bodies[key]
 
     def _launch_flash(self, device, *args, shape, head_dim) -> None:
         self._launch(device, *args, shape=shape)
-        body = load_library(self.library).meant_flash_body(
-            self.kernel, args[0], shape[2], head_dim)
-        self.last_source = (self.source, WIDE_SOURCE, CHAIN_SOURCE)[body]
+        self.last_source = self.body(args[0], shape[2], head_dim)
+
+    def _function(self):
+        # the scratch size's entry point is looked up with the launch's,
+        # once a library is loaded; what the last one answered is dropped
+        if self._fn is None:
+            self._bodies.clear()
+            self._scratch_sizes.clear()
+            if self.scratch_symbol:
+                fn = getattr(load_library(self.library), self.scratch_symbol)
+                fn.argtypes = [ctypes.c_int] * 6
+                fn.restype = ctypes.c_longlong
+                self._scratch_fn = fn
+        return super()._function()
+
+    def scratch_bytes(self, dtype_code: int, d: int, head_dim: int, bh: int,
+                      s_q: int, s_k: int) -> int:
+        """The device scratch a launch needs beside its statistics, as the
+        library reports it (the chain body's; else 0)."""
+        key = (dtype_code, d, head_dim, bh, s_q, s_k)
+        self._function()
+        if key not in self._scratch_sizes:
+            self._scratch_sizes[key] = int(self._scratch_fn(*key))
+        return self._scratch_sizes[key]
+
+    def _scratch(self, qr, d: int, head_dim: int, s_k: int):
+        """The scratch of a launch on qr (BH, s_q, d), or None."""
+        bh, s_q = qr.shape[:2]
+        nbytes = self.scratch_bytes(_dtype_code(qr), d, head_dim, bh, s_q,
+                                    s_k)
+        return (torch.empty(nbytes, dtype=torch.uint8, device=qr.device)
+                if nbytes else None)
 
 
 class FlashForward(_FlashLauncher):
@@ -280,25 +332,9 @@ class FlashBackward(_FlashLauncher):
 
     symbol, library, kernel = "meant_flash_bwd", "flash_bwd", 2
     source = "meant_tpu_torch/csrc/flash_bwd.cu"
+    scratch_symbol = "meant_flash_bwd_scratch_bytes"
     argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-
-    def _function(self):
-        # the scratch size's entry point is looked up with the launch's,
-        # once a library is loaded
-        if self._fn is None:
-            fn = load_library(self.library).meant_flash_bwd_scratch_bytes
-            fn.argtypes = [ctypes.c_int] * 6
-            fn.restype = ctypes.c_longlong
-            self._scratch_fn = fn
-        return super()._function()
-
-    def scratch_bytes(self, dtype_code: int, d: int, head_dim: int, bh: int,
-                      s_q: int, s_k: int) -> int:
-        """The device scratch a launch needs beside its statistics, as the
-        library reports it (the chain body's; else 0)."""
-        self._function()
-        return int(self._scratch_fn(dtype_code, d, head_dim, bh, s_q, s_k))
 
     def __call__(self, qr, kr, v, do, kmask, qcos, qsin, kcos, ksin, *,
                  scale: float, causal: bool, num_heads: int,
@@ -322,10 +358,7 @@ class FlashBackward(_FlashLauncher):
         # pass, read by the dk/dv kernel)
         stats = torch.empty((3, bh, s_q), dtype=torch.float32,
                             device=qr.device)
-        nbytes = self.scratch_bytes(_dtype_code(qr), d, head_dim, bh, s_q,
-                                    s_k)
-        scratch = (torch.empty(nbytes, dtype=torch.uint8, device=qr.device)
-                   if nbytes else None)
+        scratch = self._scratch(qr, d, head_dim, s_k)
         self._launch_flash(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -404,10 +437,18 @@ class _FlashBackwardOnline(_FlashLauncher):
     s_q, d), kr (k rotated by R1) and v, (BH, s_k, d), CUDA, contiguous,
     fp32 or bf16; lse and delta (BH, s_q) fp32; tables and kmask as for
     the forward (the tables serve the rotation's adjoint); head_dim as
-    K2's."""
+    K2's. Past d = 256 in bf16 at an even head dim they replace
+    `_bwd_dq_kernel` and `_bwd_dkdv_kernel` (meant_tpu/ops/flash/
+    kernel.py:456, :527) on the sliced kernels of
+    csrc/flash_bwd_wgmma.cuh at 384 (bound by operations at src4096's
+    (20, 4096, 384): K4 0.39 ms, K5 0.52 ms) and on the chain body of
+    csrc/flash_bwd_chain.cuh at 768, which takes a device scratch the
+    wrapper allocates (bound by bytes at --num_heads 1's (80, 512, 768):
+    0.096 + 0.115 ms; the chains' fp32 floor 0.54 ms, PERF.md)."""
 
     library = "flash_bwd_online"
     source = "meant_tpu_torch/csrc/flash_bwd_online.cu"
+    scratch_symbol = "meant_flash_bwd_online_scratch_bytes"
     outputs = ()     # which of q and k each gradient is shaped as
 
     def __call__(self, qr, kr, v, do, lse, delta, kmask, qcos, qsin, kcos,
@@ -422,10 +463,13 @@ class _FlashBackwardOnline(_FlashLauncher):
             num_heads=num_heads, rows={"lse": lse, "delta": delta})
         grads = [torch.empty_like(qr if o == "q" else kr)
                  for o in self.outputs]
+        scratch = self._scratch(qr, d, head_dim, s_k)
         self._launch_flash(
             qr.device, _dtype_code(qr), qr.data_ptr(), kr.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(g.data_ptr() for g in grads), qcos.data_ptr(),
+            *(g.data_ptr() for g in grads),
+            scratch.data_ptr() if scratch is not None else None,
+            qcos.data_ptr(),
             qsin.data_ptr(), kcos.data_ptr(), ksin.data_ptr(),
             kmask.data_ptr() if kmask is not None else None, mask_rows, bh,
             s_q, s_k, d, head_dim, num_heads, float(scale),
@@ -439,7 +483,7 @@ class FlashBackwardDQ(_FlashBackwardOnline):
     (csrc/flash_bwd_online.cu). Returns [dq]."""
 
     symbol, outputs, kernel = "meant_flash_bwd_dq", ("q",), 4
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -448,8 +492,33 @@ class FlashBackwardDKDV(_FlashBackwardOnline):
     (csrc/flash_bwd_online.cu). Returns [dk, dv]."""
 
     symbol, outputs, kernel = "meant_flash_bwd_dkdv", ("k", "k"), 5
-    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+class FlashBackwardDQDKDV(_FlashBackwardOnline):
+    """K4 + K5 in one call, the streaming backward on the main path: ctypes
+    wrapper of `meant_flash_bwd_online` (csrc/flash_bwd_online.cu), which
+    replaces `_bwd_dq_kernel` and `_bwd_dkdv_kernel` together. Where the
+    chain body takes them (bf16 at a padded width of 768, an even head
+    dim) S and dP are formed once for dq, dk and dv, then the three
+    products (bound by bytes at --num_heads 1's (80, 512, 768): 447 MB,
+    0.133 ms; the chains' fp32 floor, formed once, 0.54 ms); at every
+    other width the library launches K4, then K5. A call counts as one
+    launch of K4 (`flash_bwd_dq`) and one of K5 (`flash_bwd_dkdv`), and
+    names each one's body as theirs. Returns [dq, dk, dv]."""
+
+    symbol, outputs, kernel = "meant_flash_bwd_online", ("q", "k", "k"), 4
+    argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+    def _launch_flash(self, device, *args, shape, head_dim) -> None:
+        super()._launch_flash(device, *args, shape=shape, head_dim=head_dim)
+        for launcher in (flash_bwd_dq, flash_bwd_dkdv):
+            launcher.launches += 1
+            launcher.launches_by_shape[shape] += 1
+            launcher.last_source = launcher.body(args[0], shape[2],
+                                                 head_dim)
 
 
 flash_fwd = FlashForward()
@@ -457,6 +526,7 @@ flash_bwd = FlashBackward()
 flash_fwd_online = FlashForwardOnline()
 flash_bwd_dq = FlashBackwardDQ()
 flash_bwd_dkdv = FlashBackwardDKDV()
+flash_bwd_dq_dkdv = FlashBackwardDQDKDV()
 rotate_qk = RotateQK()
 
 
@@ -778,9 +848,10 @@ flash_fwd_lse_op = torch.ops.meant_tpu_torch.flash_fwd_lse.default
 
 def _backward_online(q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
                      scale, causal):
-    """R1 (q and k rotated once), then K4 and K5 on the card; their plain
-    versions on the CPU. q, do (b, h, s_q, d), k, v (b, h, s_k, d) in and
-    gradients of their shapes out; lse, delta (b, h, s_q) fp32."""
+    """R1 (q and k rotated once), then K4 and K5 on the card in one call
+    (`flash_bwd_dq_dkdv`); their plain versions on the CPU. q, do (b, h,
+    s_q, d), k, v (b, h, s_k, d) in and gradients of their shapes out;
+    lse, delta (b, h, s_q) fp32."""
     if q.device.type == "cpu":
         return flash_mha_bwd_online_reference(
             q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
@@ -794,8 +865,7 @@ def _backward_online(q, k, v, do, lse, delta, kmask, qcos, qsin, kcos, ksin,
             lse.reshape(b * h, s_q).contiguous(),
             delta.reshape(b * h, s_q).contiguous(), kmask, *tables)
     kw = dict(scale=scale, causal=causal, num_heads=h, head_dim=d)
-    (dq,) = flash_bwd_dq(*args, **kw)
-    dk_, dv = flash_bwd_dkdv(*args, **kw)
+    dq, dk_, dv = flash_bwd_dq_dkdv(*args, **kw)
     return (_unpad(d, dq).reshape(q_shape), _unpad(d, dk_).reshape(k_shape),
             _unpad(d, dv).reshape(k_shape))
 

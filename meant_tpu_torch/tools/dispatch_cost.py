@@ -9,7 +9,8 @@ in turns (parent, change, change, parent). It prints one JSON line with the
 card's name and power limit and:
 
 - `flash_call_us`: host time per `flash_mha` call (bf16, BH=8, s=128,
-  causal, the xPos tables), inference and forward + backward, where the
+  causal, the xPos tables), inference and forward + backward, resident and
+  streaming (`force_online=True`: R1 + K3, then R1 + K4 + K5), where the
   kernels take less time than the host takes to enqueue them, so the number
   is the dispatch path's cost;
 - `meant_step_ms`, `mlm_step_ms`, `mim_step_ms`: the median host time of a
@@ -51,8 +52,12 @@ def flash_call_us(calls: int = 2000) -> dict:
     def train():
         flash_mha(*grads, **kw).backward(do)
 
+    def train_streaming():
+        flash_mha(*grads, force_online=True, **kw).backward(do)
+
     out = {}
-    for name, fn in (("inference", infer), ("forward_backward", train)):
+    for name, fn in (("inference", infer), ("forward_backward", train),
+                     ("streaming_forward_backward", train_streaming)):
         for _ in range(50):
             fn()
         torch.cuda.synchronize()

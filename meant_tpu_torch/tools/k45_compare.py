@@ -34,7 +34,17 @@ in a tree that predates it; then the flagship at `--num_heads 4`, 2 and 1
 it) for SRC4_STEPS steps, the median of steps 2 on; then a 16-row request
 of meant_src at `--num_heads 2` and 1 (build_model with --flash true,
 `chip_smoke.time_requests`: the median of 7 and the forward's device
-time). Run it as a file (not with -m) so that DIR's package is the one
+time). `--steps_only` takes the steps and requests alone.
+
+`--past_256` takes instead the streaming backward past d = 256 and the
+steps that launch it: K4, K5 and K4 + K5 as the main path launches them
+(`chip_smoke.run_online_k45` where the tree has it, else the two calls)
+beside the SDPA backward at --num_heads 1's text tower (80, 512, 768)
+and src4096 --num_heads 2's (20, 4096, 384), causal xPos; the flagship's
+`--num_heads 1` training step (as above); and src4096 at `--num_heads 2`
+at full depth (`chip_smoke.learn_long_heads_full`).
+
+Run it as a file (not with -m) so that DIR's package is the one
 imported; compare two trees within one card call, in turns (parent,
 change, change, parent).
 """
@@ -54,6 +64,52 @@ def shapes(cs) -> list:
         heads = cs.DIM // d
         rows.append((cs.LONG_BATCH * cs.LAG * heads, s, d, heads, kind))
     return rows
+
+
+def past_256_shapes(cs) -> list:
+    """(BH, s, d, heads, kind) of the streaming launches past d = 256:
+    --num_heads 1's text tower and src4096's at --num_heads 2."""
+    return [(cs.BATCH * cs.LAG, cs.SEQ, cs.DIM, 1, "text"),
+            (cs.LONG_BATCH * cs.LAG * 2, cs.LONG_SEQ, cs.DIM // 2, 2,
+             "text")]
+
+
+def past_256(cs, gen, root) -> dict:
+    """K4, K5, K4 + K5 (as the main path launches them) and the SDPA
+    backward at past_256_shapes, ms, with the bodies they ran; then the
+    --num_heads 1 step and src4096's full-depth step at 2 heads."""
+    import torch
+    res = {}
+    both = getattr(cs, "run_online_k45", None) or (
+        lambda c: (cs.run_online_dq_kernel(c), cs.run_online_dkdv_kernel(c)))
+    for bh, s, d, heads, kind in past_256_shapes(cs):
+        c = cs.long_case(kind, torch.bfloat16, gen, bh, s=s, d=d,
+                         heads=heads)
+        cs.rotate_case(c)
+        key = f"({bh}, {s}, {d})"
+        library = cs.run_library_bwd(c)
+        res[key] = {
+            "K4": cs.event_ms(lambda: cs.run_online_dq_kernel(c), iters=10),
+            "K5": cs.event_ms(lambda: cs.run_online_dkdv_kernel(c),
+                              iters=10),
+            "K4+K5": cs.event_ms(lambda: both(c), iters=10),
+            "library": cs.event_ms(library, iters=5),
+            "body": [cs.wrappers()[k].last_source for k in ("K4", "K5")]}
+        print(root, key, json.dumps(res[key]), flush=True)
+        del c, library
+        torch.cuda.empty_cache()
+    train = src_heads_step(cs, 1)
+    res["src_heads1_step_ms"] = train["step_ms"]
+    res["src_heads1_step_ms_median"] = train["step_ms_median"]
+    torch.cuda.empty_cache()
+    full = {}
+    cs.learn_long_heads_full(full, 2)
+    res["src4096_heads2_step_ms"] = full["train"]["step_ms"]
+    res["src4096_heads2_step_ms_median"] = full["train"]["step_ms_median"]
+    print(root, "steps", json.dumps(
+        {k: res[k] for k in ("src_heads1_step_ms_median",
+                             "src4096_heads2_step_ms_median")}), flush=True)
+    return res
 
 
 def resident_shapes(cs) -> list:
@@ -160,25 +216,11 @@ def full_step(cs) -> dict:
     return train
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", required=True)
-    ap.add_argument("--out", required=True)
-    ap.add_argument("--kernels_only", action="store_true",
-                    help="the kernels' readings, no step or request")
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
-    out = os.path.abspath(args.out)
-    sys.path.insert(0, root)
-    os.chdir(root)
+def kernel_readings(cs, gen, root) -> dict:
+    """K3, R1 + K3, K4, K5 and K4 + K5 at `shapes`, K2 at
+    `resident_shapes` and the forwards at `forward_shapes`."""
     import torch
-
-    import chip_smoke as cs
-    from meant_tpu_torch.cuda_build import build_all
-
-    build_all(cs.KERNELS)
-    res = {"root": args.root, "card": cs.card_line()}
-    gen = torch.Generator(device="cuda").manual_seed(9)
+    res = {}
     for bh, s, d, heads, kind in shapes(cs):
         c = cs.long_case(kind, torch.bfloat16, gen, bh, s=s, d=d,
                          heads=heads)
@@ -195,7 +237,7 @@ def main() -> None:
                                  iters=10),
             "body": [cs.wrappers()[k].last_source
                      for k in ("K3", "K4", "K5")]}
-        print(args.root, key, json.dumps(res[key]), flush=True)
+        print(root, key, json.dumps(res[key]), flush=True)
         del c
         torch.cuda.empty_cache()
     for bh, s, d, heads, kind in resident_shapes(cs):
@@ -206,10 +248,44 @@ def main() -> None:
         res[key] = {"K2": cs.event_ms(lambda: cs.run_bwd_k2(c), iters=10),
                     "body": cs.wrappers()["K2"].last_source,
                     "library": cs.event_ms(cs.run_library_bwd(c), iters=10)}
-        print(args.root, key, json.dumps(res[key]), flush=True)
+        print(root, key, json.dumps(res[key]), flush=True)
         del c
         torch.cuda.empty_cache()
-    res.update(forward_readings(cs, gen, args.root))
+    res.update(forward_readings(cs, gen, root))
+    return res
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--kernels_only", action="store_true",
+                    help="the kernels' readings, no step or request")
+    ap.add_argument("--past_256", action="store_true",
+                    help="only the streaming backward past d = 256 and "
+                         "the steps that launch it")
+    ap.add_argument("--steps_only", action="store_true",
+                    help="the steps and requests, no kernel reading")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    out = os.path.abspath(args.out)
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import torch
+
+    import chip_smoke as cs
+    from meant_tpu_torch.cuda_build import build_all
+
+    build_all(cs.KERNELS)
+    res = {"root": args.root, "card": cs.card_line()}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    if args.past_256:
+        res.update(past_256(cs, gen, args.root))
+        with open(out, "w") as f:
+            json.dump(res, f, indent=1)
+        return
+    if not args.steps_only:
+        res.update(kernel_readings(cs, gen, args.root))
     if args.kernels_only:
         with open(out, "w") as f:
             json.dump(res, f, indent=1)

@@ -54,20 +54,27 @@ The cases, bf16, made as chip_smoke.py makes them:
 `--cases` runs only the cases whose name holds one of the words given
 (`k1`, `k3`, `k2`, `192`, ...). Each line names the body its kernels ran
 (the wrappers' last_source): where a wgmma body takes a width (csrc/
-flash_fwd.cu, flash_bwd.cu, flash_bwd_wgmma.cuh: bf16 at 192 and 256,
-K1's and K3's at 384 and 768, and K2's at 384) or K2's chain body takes
-768 (csrc/flash_bwd_chain.cuh, whose own FMA chains sum in column order),
+flash_fwd.cu, flash_bwd.cu, flash_bwd_wgmma.cuh: bf16 at 192, 256 and
+384, K1's and K3's at 768) or the backwards' chain body takes 768
+(csrc/flash_bwd_chain.cuh, whose own FMA chains sum in column order),
 the patch of dp_mm does not reach it, and all three orders read that
 body's own sums.
 
 `--cases chain` (also run without `--cases`) holds the chain body to the
 wide body it replaced: it builds a patched flash_bwd whose takes_wide
-still sends K2 in bf16 at 768 to the wide body (`WIDE_K2_768`), runs K2
+sends K2 in bf16 at 768 to the wide body again (`WIDE_K2_768`), runs K2
 alone on both at (80, 196, 768) pixel rotary (the case above) and at
 chip_smoke.py phase 17's masked d = 768 case (check_head_dims' (16, 200,
 768) causal xPos with a key mask), and compares the statistics planes m,
 1/l and delta bit for bit and dq, dk, dv at the element bar (each body's
-also against the plain version).
+also against the plain version). Then it holds K4 + K5's chain call (the
+main path's, S and dP formed once) to the wide K4 and K5 at (80, 512,
+768) causal xPos with a key mask (the case above), on one lse and delta
+from the plain forward: P and dS bit for bit over the tile pairs the
+causal walk forms (the chain's decoded from its scratch; the wide ones
+from a patched tree, `WIDE_K45_PS`, whose K4 writes its dS into dq and
+whose K5 writes its T(P)^T and dS^T into dv and dk), and dq, dk, dv at
+the element bar against the wide body (`WIDE_K45`) and the plain version.
 """
 
 from __future__ import annotations
@@ -116,15 +123,55 @@ BODIES = {
 LIBRARIES = {"flash_fwd": ("flash_fwd", "flash_fwd_online"),
              "flash_bwd": ("flash_bwd",),
              "flash_bwd_online": ("rotate_qk", "flash_bwd_dq",
-                                  "flash_bwd_dkdv")}
+                                  "flash_bwd_dkdv", "flash_bwd_dq_dkdv")}
 
 
+# takes_wide's line for the widths past 256 that other bodies take
+_PAST_256 = "if (dp == 384 || dp == 768) return false;"
 # K2 in bf16 at 768 back on the wide body
-WIDE_K2_768 = [(
-    "flash_wide.cuh",
-    "if (dp == 384 || dp == 768) return kernel == kK4 || kernel == kK5;",
-    "if (dp == 384 || dp == 768)\n"
-    "    return kernel == kK4 || kernel == kK5 || (kernel == kK2 && dp == 768);")]
+WIDE_K2_768 = [("flash_wide.cuh", _PAST_256,
+                "if (dp == 384 || dp == 768) return kernel == kK2 && dp == 768;")]
+# K4 and K5 in bf16 at 384 and 768 back on the wide body
+WIDE_K45 = [("flash_wide.cuh", _PAST_256,
+             "if (dp == 384 || dp == 768) return kernel == kK4 || kernel == kK5;")]
+# and the wide K4 writing its dS (rows q, columns keys) into dq, the wide
+# K5 its T(P)^T and dS^T (rows keys, columns q) into dv and dk, in place of
+# the gradients (the width must hold the other length)
+WIDE_K45_PS = WIDE_K45 + [
+    ("flash_wide.cuh",
+     """        dsw[(g + 8 * h) * L + col] =
+            from_f<T>(p * (dp_acc[j][e] - delta[h]) * a.scale);
+""",
+     """        dsw[(g + 8 * h) * L + col] =
+            from_f<T>(p * (dp_acc[j][e] - delta[h]) * a.scale);
+        if (!kStats && row[h] < seq_q && k0 + col < seq_k)
+          dq[((size_t)bh * seq_q + row[h]) * dp + k0 + col] =
+              dsw[(g + 8 * h) * L + col];
+"""),
+    ("flash_wide.cuh",
+     """    if (row[h] >= seq_q) continue;
+    T* out = dq + ((size_t)bh * seq_q + row[h]) * dp;""",
+     """    if (!kStats || row[h] >= seq_q) continue;
+    T* out = dq + ((size_t)bh * seq_q + row[h]) * dp;"""),
+    ("flash_wide.cuh",
+     """        pw[(g + 8 * h) * L + qi] = from_f<T>(p);
+        dsw[(g + 8 * h) * L + qi] =
+            from_f<T>(p * (dp_acc[j][e] - st_dl) * a.scale);
+""",
+     """        pw[(g + 8 * h) * L + qi] = from_f<T>(p);
+        dsw[(g + 8 * h) * L + qi] =
+            from_f<T>(p * (dp_acc[j][e] - st_dl) * a.scale);
+        if (!kStats && key[h] < seq_k && valid) {
+          const size_t o = ((size_t)bh * seq_k + key[h]) * dp + q0 + qi;
+          dv[o] = pw[(g + 8 * h) * L + qi];
+          dk[o] = dsw[(g + 8 * h) * L + qi];
+        }
+"""),
+    ("flash_wide.cuh",
+     """    if (key[h] >= seq_k) continue;
+    T* dv_row = dv + ((size_t)bh * seq_k + key[h]) * dp;""",
+     """    if (!kStats || key[h] >= seq_k) continue;
+    T* dv_row = dv + ((size_t)bh * seq_k + key[h]) * dp;""")]
 
 
 def order_patch(order: str) -> list:
@@ -439,6 +486,134 @@ def chain_vs_wide(made) -> None:
     torch.cuda.empty_cache()
 
 
+def _fragment_index():
+    """Row and column of each bf16 of a pair's fragment plane, laid out
+    [k16 step][thread][register][half] as the chain body writes dS (and,
+    through the transpose in its dS step, dS^T and T(P)^T): thread tid's
+    register w of step kk holds row 16 (tid / 32) + (tid % 32) / 4 + 8 (w %
+    2), columns 16 kk + 8 (w / 2) + 2 (tid % 4) and the next."""
+    kk, tid, w, e = torch.meshgrid(*(torch.arange(n) for n in (4, 128, 4, 2)),
+                                   indexing="ij")
+    lane = tid % 32
+    rows = (tid // 32) * 16 + lane // 4 + 8 * (w % 2)
+    cols = kk * 16 + 8 * (w // 2) + 2 * (lane % 4) + e
+    return rows.cuda(), cols.cuda()
+
+
+def chain_planes(scratch, bh, s_q, s_k) -> tuple:
+    """dS (bh, q, key), dS^T and T(P)^T (bh, key, q) as bf16 bits (int16),
+    decoded from a chain call's scratch (csrc/flash_bwd_chain.cuh:
+    Scratch: S and dP in fp32, then the three fragment planes); tiles of a
+    pair the call did not form hold what the scratch held."""
+    n_tq, n_tk = -(-s_q // 64), -(-s_k // 64)
+    pairs = bh * n_tq * n_tk
+    words = scratch.view(torch.int32)[pairs * 2 * 64 * 64:]
+    bits = words[:3 * pairs * 2048].view(torch.int16).view(
+        3, pairs, 4, 128, 4, 2)
+    rows, cols = _fragment_index()
+    tiles = torch.empty((3, pairs, 64, 64), dtype=torch.int16,
+                        device="cuda")
+    tiles[:, :, rows, cols] = bits
+    tiles = tiles.view(3, bh, n_tq, n_tk, 64, 64)
+    ds = tiles[0].permute(0, 1, 3, 2, 4).reshape(bh, n_tq * 64, n_tk * 64)
+    dst, pt = (t.permute(0, 2, 3, 1, 4).reshape(bh, n_tk * 64, n_tq * 64)
+               for t in tiles[1:])
+    return ds[:, :s_q, :s_k], dst[:, :s_k, :s_q], pt[:, :s_k, :s_q]
+
+
+def k45_alone(c, joint: bool):
+    """K4 + K5 on c's padded, rotated inputs (c["p"]) with c's lse and
+    delta: the chain body's one call (`joint`), launched through its
+    wrapper's entry point with a scratch of its own, whose dS, dS^T and
+    T(P)^T it returns decoded; else K4 and K5 apart (whose gradients are
+    the wide body's P and dS in the patched tree that dumps them). Returns
+    (dq, dk, dv) as (bh, s, width), the planes (or None) and the
+    bodies."""
+    p = c["p"]
+    qr, kr = p["qr"], p["kr"]
+    bh, s_q, d = qr.shape
+    s_k = kr.shape[1]
+    mask = p["mask"]
+    args = (qr, kr, p["v"], p["do"], c["lse"].reshape(bh, s_q).contiguous(),
+            c["delta"].reshape(bh, s_q).contiguous(), mask, *p["tables"])
+    kw = dict(scale=c["scale"], causal=c["causal"], num_heads=c["q"].shape[1],
+              head_dim=p["d"])
+    if not joint:
+        (dq,) = kernel.flash_bwd_dq(*args, **kw)
+        dk, dv = kernel.flash_bwd_dkdv(*args, **kw)
+        torch.cuda.synchronize()
+        return (dq, dk, dv), None, [kernel.flash_bwd_dq.last_source,
+                                    kernel.flash_bwd_dkdv.last_source]
+    fb = kernel.flash_bwd_dq_dkdv
+    code = kernel._dtype_code(qr)
+    grads = (torch.empty_like(qr), torch.empty_like(kr), torch.empty_like(kr))
+    scratch = torch.empty(fb.scratch_bytes(code, d, p["d"], bh, s_q, s_k),
+                          dtype=torch.uint8, device="cuda")
+    fb._launch_flash(
+        qr.device, code, *(t.data_ptr() for t in args[:6]),
+        *(g.data_ptr() for g in grads), scratch.data_ptr(),
+        *(t.data_ptr() for t in p["tables"]),
+        mask.data_ptr() if mask is not None else None,
+        mask.shape[0] if mask is not None else 0, bh, s_q, s_k, d, p["d"],
+        kw["num_heads"], float(c["scale"]), int(bool(c["causal"])),
+        shape=(s_q, s_k, d, bool(c["causal"])), head_dim=p["d"])
+    torch.cuda.synchronize()
+    return grads, chain_planes(scratch, bh, s_q, s_k), [fb.last_source]
+
+
+def streaming_chain_vs_wide(c, name) -> None:
+    """K4 + K5's chain call against the wide K4 and K5 at d = 768 on c
+    (the module's note): P and dS bit for bit over the tile pairs the
+    causal walk forms, dq, dk and dv at the element bar (each body's also
+    against the plain version fed the same lse and delta)."""
+    out, lse = chip_smoke.run_online_plain(c)
+    c["lse"] = lse
+    c["delta"] = (c["do"].float() * out.float()).sum(-1) - c["g_lse"]
+    del out
+    chip_smoke.padded(c)
+    chip_smoke.rotate_padded(c)
+    s_q, s_k = c["q"].shape[2], c["k"].shape[2]
+    launchers = [kernel.flash_bwd_dq, kernel.flash_bwd_dkdv,
+                 kernel.flash_bwd_dq_dkdv, kernel.rotate_qk]
+    chain, planes, chain_src = k45_alone(c, joint=True)
+    runs = {}
+    for body, patches in (("wide", WIDE_K45), ("wide_ps", WIDE_K45_PS)):
+        use_sources(patched_sources(body, {body: patches}),
+                    "flash_bwd_online", launchers)
+        runs[body] = k45_alone(c, joint=False)
+    use_sources(cuda_build.PACKAGE_DIR, "flash_bwd_online", launchers)
+    ds, dst, pt = planes
+    (w_dq, w_dk, w_dv), _, _ = runs["wide_ps"]
+    n = torch.arange(max(s_q, s_k), device="cuda") // 64
+    formed = (n[:s_k][None, :] <= n[:s_q][:, None]) if c["causal"] else (
+        torch.ones(s_q, s_k, dtype=torch.bool, device="cuda"))
+    wide_planes = {"dS": w_dq[:, :, :s_k].view(torch.int16),
+                   "dS^T": w_dk[:, :, :s_q].view(torch.int16),
+                   "T(P)^T": w_dv[:, :, :s_q].view(torch.int16)}
+    res = {"bodies": [chain_src, runs["wide"][2]]}
+    for plane, got, mask in (("dS", ds, formed), ("dS^T", dst, formed.T),
+                             ("T(P)^T", pt, formed.T)):
+        differ = (got != wide_planes[plane]) & mask
+        res[f"{plane}_equal_bits"] = not bool(differ.any())
+        res[f"{plane}_elements_differing"] = int(differ.sum())
+    want = kernel.flash_mha_bwd_online_reference(
+        c["q"], c["k"], c["v"], c["do"], c["lse"], c["delta"], c["mask"],
+        *c["tables"], scale=c["scale"], causal=c["causal"])
+    d = c["q"].shape[-1]
+    for g, a, b, ref, shape in zip(("dq", "dk", "dv"), chain,
+                                   runs["wide"][0], want,
+                                   (c["q"].shape, c["k"].shape,
+                                    c["k"].shape)):
+        a = a[..., :d].reshape(shape)
+        b = b[..., :d].reshape(shape)
+        res[g] = {"chain_vs_wide": errors(a, b),
+                  "chain_vs_plain": errors(a, ref),
+                  "wide_vs_plain": errors(b, ref)}
+    print(f"chain_vs_wide {name}: {json.dumps(res)}", flush=True)
+    del runs, chain, planes, want
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cases", nargs="+", default=None,
@@ -450,6 +625,9 @@ def main(argv=None) -> None:
     made = cases(words)
     if not words or "chain" in words:
         chain_vs_wide(made)
+        name = STREAMING[768]
+        streaming_chain_vs_wide(
+            made.get(name) or cases([name.split(" masked")[0]])[name], name)
     if not made:
         print(chip_smoke.card_line(), flush=True)
         return

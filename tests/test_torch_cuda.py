@@ -46,7 +46,8 @@ from meant_tpu_torch.models import EmbeddingConfig, meant
 from meant_tpu_torch.ops import lang_freqs, pixel_freqs
 from meant_tpu_torch.ops.adamw import adamw_update, fused_adamw
 from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
-                                       flash_bwd_dq, flash_fwd,
+                                       flash_bwd_dq, flash_bwd_dq_dkdv,
+                                       flash_fwd,
                                        flash_fwd_online, flash_mha,
                                        flash_mha_bwd_online_reference,
                                        flash_mha_bwd_reference,
@@ -912,11 +913,12 @@ def test_odd_and_wide_head_dims_match_plain(cuda, dtype, case, s_q, s_k, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lengths", [(65, 65), (4096, 4096), (256, 257)])
-@pytest.mark.parametrize("d", [7, 95, 160, 192, 256, 384])
+@pytest.mark.parametrize("d", [7, 95, 160, 192, 256, 384, 768])
 def test_online_kernels_at_odd_and_wide_head_dims(cuda, dtype, lengths, d):
     """R1 + K3 and R1 + K4 + K5 through flash_mha(return_lse=True) at odd
     head dims and past 128 (K4 and K5 in bf16 at d = 160, 192 and 256 on
-    their wgmma bodies): out and lse at K3's bars, the gradients (an lse
+    their wgmma bodies, at 384 on the sliced kernels, at 768 on the chain
+    body in one call): out and lse at K3's bars, the gradients (an lse
     cotangent included) at K2's against the plain backward fed the
     kernels' lse and delta."""
     s_q, s_k = lengths
@@ -956,18 +958,24 @@ def _fwd_wgmma(d, dtype) -> bool:
     return dtype == torch.bfloat16 and kernel_head_dim(d) in FWD_WGMMA_WIDTHS
 
 
-@pytest.mark.parametrize("d,dtype,wgmma", [
-    (192, torch.bfloat16, True), (256, torch.bfloat16, True),
-    (191, torch.bfloat16, False), (384, torch.bfloat16, False),
-    (320, torch.bfloat16, False),
-    (192, torch.float32, False), (256, torch.float32, False)])
-def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
+@pytest.mark.parametrize("d,dtype,body", [
+    (192, torch.bfloat16, "wgmma"), (256, torch.bfloat16, "wgmma"),
+    (191, torch.bfloat16, "wide"), (384, torch.bfloat16, "wgmma"),
+    (330, torch.bfloat16, "wgmma"), (383, torch.bfloat16, "wide"),
+    (320, torch.bfloat16, "wide"), (704, torch.bfloat16, "wide"),
+    (768, torch.bfloat16, "chain"), (760, torch.bfloat16, "chain"),
+    (767, torch.bfloat16, "wide"),
+    (192, torch.float32, "wide"), (256, torch.float32, "wide"),
+    (384, torch.float32, "wide"), (768, torch.float32, "wide")])
+def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, body):
     """K4's and K5's last_source: their wgmma bodies (the library's own
-    source) in bf16 at an even d padded to 192 or 256; the wide body at an
-    odd d (the adjoint's wrap), past 256 and in fp32. K3 runs its wgmma
-    body in bf16 at a padded width of 192, 256, 384 or 768, an odd d
+    source) in bf16 at an even d padded to 192, 256 or 384 (the sliced
+    kernels), the chain body (csrc/flash_bwd_chain.cuh, K4 + K5 in one
+    call) at an even d padded to 768; the wide body at an odd d (the
+    adjoint's wrap), at the other widths past 256 and in fp32. K3 runs its
+    wgmma body in bf16 at a padded width of 192, 256, 384 or 768, an odd d
     included (a forward has no adjoint), and the wide body in fp32 and at
-    the other widths past 256 (320)."""
+    the other widths past 256 (320, 704)."""
     gen = torch.Generator(device=cuda).manual_seed(d)
     q, k, v, do, tables, mask, causal = _shape_case(
         cuda, dtype, d, 130, 130, "xpos_causal", gen)
@@ -975,11 +983,18 @@ def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, wgmma):
     out = flash_mha(*leaves, scale=0.1, causal=causal, attention_mask=mask,
                     qcos=tables[0], qsin=tables[1], kcos=tables[2],
                     ksin=tables[3], force_online=True)
+    before = (flash_bwd_dq.launches, flash_bwd_dkdv.launches,
+              flash_bwd_dq_dkdv.launches)
     torch.autograd.grad(out, leaves, do)
     torch.cuda.synchronize()
     for launcher in (flash_bwd_dq, flash_bwd_dkdv):
-        want = launcher.source if wgmma else WIDE_SOURCE
+        want = {"wgmma": launcher.source, "wide": WIDE_SOURCE,
+                "chain": CHAIN_SOURCE}[body]
         assert launcher.last_source == want, launcher.symbol
+    # one launch of K4 and one of K5, both in one call
+    assert (flash_bwd_dq.launches, flash_bwd_dkdv.launches,
+            flash_bwd_dq_dkdv.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
     assert flash_fwd_online.last_source == (
         flash_fwd_online.source if _fwd_wgmma(d, dtype) else WIDE_SOURCE)
 
@@ -1116,22 +1131,28 @@ def test_k3_wgmma_body_past_128_matches_plain(cuda, case, lengths, d):
     assert rel <= K3_TILED_REL_L2, f"rel L2 {rel} against the tiled order"
 
 
+@pytest.mark.parametrize("online", [False, True])
 @pytest.mark.parametrize("d", [96, 384, 768])
-def test_first_backward_launch_from_the_autograd_thread(cuda, d):
-    """A fresh process whose first K2 launch comes from the autograd
-    engine's worker thread, where no context is current until a launcher
-    makes the tensors' one current (the tensor maps' encoder needs it; the
-    sliced kernels at 384 raised there before): finite gradients."""
+def test_first_backward_launch_from_the_autograd_thread(cuda, d, online):
+    """A fresh process whose first K2 launch (or, streaming, first K4 + K5
+    launch) comes from the autograd engine's worker thread, where no
+    context is current until a launcher makes the tensors' one current (the
+    tensor maps' encoder needs it; the sliced kernels at 384 raised there
+    before): finite gradients, one launch of each backward kernel."""
     code = textwrap.dedent(f"""
         import torch
-        from meant_tpu_torch.ops.flash import flash_bwd, flash_mha
+        from meant_tpu_torch.ops.flash import (flash_bwd, flash_bwd_dkdv,
+                                               flash_bwd_dq, flash_mha)
         q, k, v = (torch.randn(2, 2, 130, {d}, device="cuda",
                                dtype=torch.bfloat16, requires_grad=True)
                    for _ in range(3))
-        out = flash_mha(q, k, v, scale=0.1, causal=True)
+        out = flash_mha(q, k, v, scale=0.1, causal=True,
+                        force_online={online})
         out.float().sum().backward()
         torch.cuda.synchronize()
-        assert flash_bwd.launches == 1
+        launches = (flash_bwd.launches, flash_bwd_dq.launches,
+                    flash_bwd_dkdv.launches)
+        assert launches == ((0, 1, 1) if {online} else (1, 0, 0)), launches
         assert all(bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
         print("ok")
     """)
@@ -1139,6 +1160,62 @@ def test_first_backward_launch_from_the_autograd_thread(cuda, d):
                          cwd=Path(__file__).resolve().parents[1],
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0 and "ok" in res.stdout, res.stderr[-2000:]
+
+
+# The streaming backward's launches past d = 256 on the main path: --num_heads
+# 1's text tower (BH, s, d, heads) = (80, 512, 768), the chain body, and
+# src4096 --num_heads 2's (20, 4096, 384), the sliced kernels.
+PAST_256_LAUNCHES = ((768, 80, 1, 512), (384, 20, 2, 4096))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d,bh,heads,s", PAST_256_LAUNCHES)
+def test_streaming_backward_past_256_matches_plain_at_the_model_shapes(
+        cuda, d, bh, heads, s, masked):
+    """K4 and K5 in bf16 at the main path's launches past d = 256, causal
+    xPos with and without a key mask, on R1's Qr and Kr, the plain
+    forward's lse and a delta that carries an lse cotangent: each against
+    its plain version at K2's bars, naming its body (the chain body at 768,
+    the sliced kernels' library at 384); at 768 K4 + K5 in one call (as
+    the main path launches them: one launch of each counted) bit for bit
+    K4 and K5 apart."""
+    gen = torch.Generator(device=cuda).manual_seed(d + s + masked)
+    b = bh // heads
+    q, k, v, do = (torch.randn(b, heads, s, d, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    tables = _tables(s, d, lang_freqs(d // 2, device=cuda), True, 512.0)
+    mask = None
+    if masked:
+        mask = (torch.rand(b, s, generator=gen, device=cuda) > 0.3).float()
+        mask[:, 0] = 1.0
+    out, lse = flash_mha_online_reference(q, k, v, mask, *tables, scale=0.1,
+                                          causal=True)
+    g_lse = torch.randn(lse.shape, generator=gen, device=cuda)
+    delta = (do.float() * out.float()).sum(-1) - g_lse
+    del out
+    qf, kf, vf, dof = (t.reshape(bh, s, d).contiguous()
+                       for t in (q, k, v, do))
+    qr, kr = rotate_qk(qf, kf, *tables)
+    args = (qr, kr, vf, dof, lse.reshape(bh, s).contiguous(),
+            delta.reshape(bh, s).contiguous(), mask, *tables)
+    kw = dict(scale=0.1, causal=True, num_heads=heads)
+    (dq,) = flash_bwd_dq(*args, **kw)
+    dk, dv = flash_bwd_dkdv(*args, **kw)
+    torch.cuda.synchronize()
+    body = CHAIN_SOURCE if d == 768 else flash_bwd_dq.source
+    assert flash_bwd_dq.last_source == flash_bwd_dkdv.last_source == body
+    want = flash_mha_bwd_online_reference(q, k, v, do, lse, delta, mask,
+                                          *tables, scale=0.1, causal=True)
+    _assert_grads_close([t.reshape(q.shape) for t in (dq, dk, dv)], want,
+                        torch.bfloat16)
+    if d == 768:
+        before = (flash_bwd_dq.launches, flash_bwd_dkdv.launches)
+        joint = flash_bwd_dq_dkdv(*args, **kw)
+        torch.cuda.synchronize()
+        assert (flash_bwd_dq.launches, flash_bwd_dkdv.launches) == (
+            before[0] + 1, before[1] + 1)
+        for a, b_ in zip(joint, (dq, dk, dv)):
+            assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 1027, 1 << 20])

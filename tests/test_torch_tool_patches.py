@@ -45,7 +45,8 @@ def _lists():
              for name, patches in patches_by_name.items()]
     cases += [(f"wide_sum_order.order_patch[{order}]", order)
               for order in wide_sum_order.BODIES]
-    cases.append(("wide_sum_order.WIDE_K2_768", wide_sum_order.WIDE_K2_768))
+    cases += [(f"wide_sum_order.{name}", getattr(wide_sum_order, name))
+              for name in ("WIDE_K2_768", "WIDE_K45", "WIDE_K45_PS")]
     return cases
 
 
