@@ -139,7 +139,8 @@ raises and the script exits non-zero:
 12. shapes -- the head dims and lengths beside the flagship's one length
               at d=96, and the trainer's extras: wgmma (HGMMA) in every
               instantiation at d=64 and 128 (K1, K3, K2's two kernels, K4
-              + K5); R1 + K1 and K2 through flash_mha in fp32 and bf16 at
+              + K5) and in the backwards' odd-d ones (kWrap) at 64-256,
+              each apart; R1 + K1 and K2 through flash_mha in fp32 and bf16 at
               the bars in force against their plain versions at d=64
               (BH=960, s=512 causal xPos and s=196 pixel rotary), d=128
               (BH=480, s=512), d=48 padded to 64 (BH=64, s=128) and the
@@ -218,8 +219,8 @@ raises and the script exits non-zero:
               R1, 12 K1 and 12 K2 at the bucket's s and 12 each at 196 and
               1 A1 a step, the loss finite and falling over the second
               epoch; the same rows at s=512 only beside them (samples/s);
-              one profiled step of each bucket and of its rows at s=512
-              (busy, wall, idle share); a step under
+              one profiled step of each bucket (busy, wall, idle
+              share); a step under
               utils.observability.profile_trace, whose trace must name K1
               and K2; checkpoint.save(block=False) then an A1 step at once:
               the file holds the pre-step parameters and moments bit for
@@ -266,7 +267,9 @@ raises and the script exits non-zero:
               s=1024, not causal).
 17. head dims -- the flash path at every head dim: odd d, where the
               rotation pairs lane d-1 with lane 0 and the backwards'
-              adjoint wraps, and d past 128, which the wide bodies of
+              adjoint wraps (in the epilogues of their own bodies up to a
+              padded width of 256 in bf16, 128 in fp32; d = 95 runs at
+              width 96), and d past 128, which the wide bodies of
               csrc/flash_wide.cuh take (the contraction streamed over the
               width, the output in groups of 64-column chunks on a grid
               axis) but in bf16 for every kernel at 192, 256 and 384 and
@@ -275,8 +278,8 @@ raises and the script exits non-zero:
               phase 12), and for K2, K4 and K5 at 768 (an even d), which
               run the chain body (S and dP on fp32 FMA chains, the
               products on wgmma; K4 + K5 one call on the main path). R1 +
-              K1 and K2 through flash_mha at d = 7, 95, 130,
-              192, 256, 257, 384 and 768 (s=200, BH=16, causal xPos with a
+              K1 and K2 through flash_mha at d = 7, 95, 130, 191,
+              192, 255, 256, 257, 384 and 768 (s=200, BH=16, causal xPos with a
               key mask, and plain), one launch of each a call, fp32 and
               bf16 at the bars in force, R1 bit for bit at the padded
               width, and at an odd
@@ -292,7 +295,9 @@ raises and the script exits non-zero:
               src4096 at 4, 3 and 2 heads and 2 encoders a request (2 K3,
               2 K1, 4 R1) and 2 steps, at 4 and 2 heads 3 steps at full
               depth (12 K3, K4, K5 a step); --text_dim 760 (8 heads of 95) a request
-              against flash=False, one step's gradients and 2 steps;
+              against flash=False, one step's gradients and 2 steps, and
+              src4096 at --text_dim 760 and 2 encoders a request and 2
+              steps (K4 and K5 at (80, 4096, 95), timed in phase 7);
               --num_heads 3 (d = 256) a request and 2 steps; the 4-rank
               ring played at (10, 4, 4096, 192); R1 + K3, K4 and K5 at the
               main path's shapes past 128 ((20, 4096, 384) among them),
@@ -2710,7 +2715,9 @@ def count_new_hgmma() -> dict:
     own, each apart; K1's at 192, 256, 384 and 768 and K3's at 384 and 768
     (the forwards' body, on its sliced ring past 256), each apart; the
     sliced dq and dk/dv kernels at 384 of K2 and of K4 and K5, and the
-    chain body's products at 768 in K2's library and in K4's and K5's."""
+    chain body's products at 768 in K2's library and in K4's and K5's;
+    and the instantiations that wrap an odd head dim's adjoint (kWrap) of
+    K2's dq and dk/dv kernels and K4's and K5's at 64-256, each apart."""
     counts = {}
     for d in (64, 128):
         for label, lib, function in (
@@ -2745,6 +2752,14 @@ def count_new_hgmma() -> dict:
     for label, lib in (("K2", "flash_bwd"), ("K4+K5", "flash_bwd_online")):
         counts[f"{label} chain products d768"] = count_hgmma(
             lib, "chain_products_kernel")
+    for d in (64, 96, 128) + WIDE_WGMMA_DIMS:
+        for label, lib, kernel, stats in (
+                ("K2 dq", "flash_bwd", "dq", 1),
+                ("K2 dk/dv", "flash_bwd", "dkdv", 1),
+                ("K4", "flash_bwd_online", "dq", 0),
+                ("K5", "flash_bwd_online", "dkdv", 0)):
+            counts[f"{label} d{d} odd"] = count_hgmma(
+                lib, f"flash_bwd_{kernel}_wgmma_kernelILb{stats}ELi{d}ELb1E")
     return counts
 
 
@@ -3007,16 +3022,19 @@ def run_accumulation(res):
     return res["train"]["launches"]
 
 
-def run_long_heads(res, heads: int = SRC6_HEADS):
-    """src4096 at --num_heads `heads` (6: d = 128; 4: d = 192) with
+def run_long_heads(res, heads: int = SRC6_HEADS, text_dim: int = DIM):
+    """src4096 at --num_heads `heads` (6: d = 128; 4: d = 192) and
+    --text_dim `text_dim` (760 at 8 heads: d = 95) with
     LONG_GRAD_ENCODERS encoders a tower, the streaming path at that head
     dim from the user's entry points: one request of LONG_BATCH rows
     through Predictor (exactly 2 K3 + 2 K1 + 4 R1) and 2 trainer steps (2
     K3, 2 K1, 6 R1, 2 K4, 2 K5, 2 K2 and 1 A1 a step)."""
     from meant_tpu_torch.serve import Predictor
     n = LONG_GRAD_ENCODERS
-    model = build_flagship(LONG_SEQ, flash=True, fixed_proj=True,
+    model = build_flagship(LONG_SEQ, text_dim, flash=True, fixed_proj=True,
                            num_heads=heads, num_encoders=n)
+    cli = f"--num_heads {heads}" + (
+        f" --text_dim {text_dim}" if text_dim != DIM else "")
     predictor = Predictor(model, "meant_src", batch_size=LONG_BATCH)
     rows = request_batch(LONG_BATCH, seed=50, seq=LONG_SEQ)
     predictor(rows)     # warm-up
@@ -3025,18 +3043,18 @@ def run_long_heads(res, heads: int = SRC6_HEADS):
     probs = predictor(rows)
     torch.cuda.synchronize()
     counts = read_counts()
-    print(f"served src4096 --num_heads {heads} at {n} encoders: "
+    print(f"served src4096 {cli} at {n} encoders: "
           f"launches {counts}", flush=True)
     check_counts(counts, {"K3": n, "K1": n, "R1": 2 * n},
-                 f"serving src4096 at {heads} heads")
+                 f"serving src4096 {cli}")
     if not (np.isfinite(probs).all() and ((probs > 0) & (probs < 1)).all()):
-        fail(f"bad src4096 probabilities at {heads} heads")
+        fail(f"bad src4096 probabilities at {cli}")
     res["serve_launches"] = counts
     del predictor
     res["train"], _, _ = train_steps(
         model, train_batch(LONG_BATCH, seed=51, seq=LONG_SEQ), 2,
         {"K3": n, "K1": n, "R1": 3 * n, "K4": n, "K5": n, "K2": n, "A1": 1},
-        f"learn src4096 --num_heads {heads}", falling=False)
+        f"learn src4096 {cli}", falling=False)
     del model
     torch.cuda.empty_cache()
     return {"R1": counts["R1"] + res["train"]["launches"]["R1"],
@@ -4048,23 +4066,18 @@ def bucketed_epochs(res, data):
 
 
 def profile_buckets(trainer, loader, data, res):
-    """One profiled step of each bucket and of the same rows at s=512, and
-    one step under the port's profile_trace, whose trace must name K1 and
-    K2."""
+    """One profiled step of each bucket (the epochs' samples/s set each
+    beside the same rows at s=512), and one step under the port's
+    profile_trace, whose trace must name K1 and K2."""
     from meant_tpu_torch.utils.observability import profile_trace
     prof = {}
     for b in BUCKETS:
-        rows = loader.index[b][:BATCH]
-        for s in ((b, SEQ) if b != SEQ else (SEQ,)):
-            batch = to_card(bucket_batch(data, rows, s))
-            print(f"bucket {b} rows at s={s}:", flush=True)
-            p = profile_calls(lambda: trainer.train_step(batch), 1,
-                              "step")
-            prof[f"bucket{b}_s{s}"] = {
-                k: p[k] for k in ("wall_ms_per_step",
-                                  "device_busy_ms_per_step",
-                                  "device_idle_share",
-                                  "by_kind_ms_per_step")}
+        batch = to_card(bucket_batch(data, loader.index[b][:BATCH], b))
+        print(f"bucket {b} rows at s={b}:", flush=True)
+        p = profile_calls(lambda: trainer.train_step(batch), 1, "step")
+        prof[f"bucket{b}_s{b}"] = {
+            k: p[k] for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                              "device_idle_share", "by_kind_ms_per_step")}
     res["profile"] = prof
     batch = to_card(bucket_batch(data, loader.index[256][:BATCH], 256))
     with tempfile.TemporaryDirectory() as d:
@@ -5099,17 +5112,20 @@ def time_layouts(layouts) -> list:
 
 # The flash path at the head dims the CLI's free --num_heads and --text_dim
 # reach beside 64, 96 and 128: odd d (the lanes' wrap in the rotation and
-# its adjoint) and d past 128 (the wgmma bodies built at 192 and 256, and
-# for K1 and K3 at 384 and 768; the wide bodies of csrc/flash_wide.cuh at
-# the other widths, in fp32, and for the backwards at an odd d or past
-# 256).
+# its adjoint: in bf16 up to a padded width of 256, in fp32 up to 128, in
+# the epilogues of the backwards' own bodies; 191 and 255 split the dk/dv
+# kernel's columns over two warpgroups, 255 the dq kernel's too) and d past
+# 128 (the wgmma bodies built at 192 and 256, and for K1 and K3 at 384 and
+# 768; the wide bodies of csrc/flash_wide.cuh at the other widths, in fp32,
+# and for the backwards at an odd d past 256 or at an even one past 256
+# but for 384 and 768).
 # Kernel level: R1 + K1 and K2 through flash_mha at HD_DIMS, causal xPos
 # with a key mask at s=200 (a ragged tile) and plain (the identity tables,
 # no mask, not causal: the TimeSformer group's form); R1 + K3, K4 and K5 at
 # HD_LONG_CASES: (d, s, BH, heads) at s=4096, BH = 4, and d = 768 at the
 # shape --num_heads 1 streams its s=512 text tower at, (80, 512, 768). BH =
 # 16 and 4: each case under a second.
-HD_DIMS = (7, 95, 130, 192, 256, 257, 384, 768)
+HD_DIMS = (7, 95, 130, 191, 192, 255, 256, 257, 384, 768)
 HD_S, HD_BH, HD_HEADS = 200, 16, 4
 HD_LONG_BH = 4
 HD_LONG_CASES = ((95, LONG_SEQ, HD_LONG_BH, HD_HEADS),
@@ -5436,12 +5452,12 @@ def check_k45_chain_call(res, d=DIM, s=SEQ, bh=BATCH * LAG, heads=1):
 
 def run_odd_width(res):
     """build_model(-mn meant_src --text_dim 760 --flash true) at s=512: a
-    language tower of 8 heads of 95 (R1 and K1 at width 128, K2 on the wide
-    body, whose adjoint wraps), the vision tower at 96. One request of
-    BATCH rows (exactly 24 R1 + 24 K1) against the same weights at
-    flash=False; at fixed_proj=True one step's gradients against the plain
-    attention and ODD_STEPS trainer steps (24 R1, 24 K1, 24 K2, 1 A1 a
-    step)."""
+    language tower of 8 heads of 95 (R1, K1 and K2 at width 96, K2 on its
+    wgmma body, whose epilogue wraps the adjoint), the vision tower at 96.
+    One request of BATCH rows (exactly 24 R1 + 24 K1) against the same
+    weights at flash=False; at fixed_proj=True one step's gradients
+    against the plain attention and ODD_STEPS trainer steps (24 R1, 24 K1,
+    24 K2, 1 A1 a step)."""
     from meant_tpu_torch.serve import Predictor
     args = ("--seq_len", str(SEQ), "--text_dim", str(ODD_DIM), "--flash")
     model = build_zoo("meant_src", *args, "true")
@@ -5581,7 +5597,8 @@ def run_head_dims(record) -> dict:
     steps; src4096 at 4, 3 and 2 heads (d = 192, 256, 384: K4 and K5 on
     their wgmma bodies), and at 4 and 2 heads full-depth steps timed;
     --text_dim
-    760 (d = 95); --num_heads 3 (d = 256) served and 2 steps, the launches
+    760 (d = 95), and src4096 at --text_dim 760 at 2 encoders; --num_heads
+    3 (d = 256) served and 2 steps, the launches
     of the d = 256 resident rows; the played ring at d = 192. R1, K3, K4
     and K5 against
     their plain versions at the shapes the main path launches them at
@@ -5611,6 +5628,8 @@ def run_head_dims(record) -> dict:
     learn_long_heads_full(res.setdefault("long_heads2_full", {}),
                           SRC2_HEADS)
     out["odd"] = run_odd_width(res.setdefault("text_dim760", {}))
+    out["odd_long"] = run_long_heads(res.setdefault("long_text_dim760", {}),
+                                     ODD_HEADS, ODD_DIM)
     out["ring4"] = ring_head_dim(res)
     out["ring_errors"] = check_long_kernels(
         res, bh=RING4_BH, kinds=("vision",), tag="ring_d192", s=RING_CHUNK,
@@ -5638,8 +5657,8 @@ def time_head_dims(out) -> list:
     heads), d = 384 (s=512 and s=196, BH = 160: --num_heads 2), d = 768
     (s=196, BH = 80: --num_heads 1, whose s=512 text tower streams, as JAX
     routes it)
-    and d = 95 (s=512, BH = 640: --text_dim 760; K1 and R1 at width 128,
-    K2 on the wide body);
+    and d = 95 (s=512, BH = 640: --text_dim 760; K1, K2 and R1 at width
+    96, K2 on its wgmma body);
     R1 + K3, R1, K4 and K5 at src4096's launch at 4 heads (BH = 40, d =
     192), 3 heads (BH = 30, d = 256) and 2 heads (BH = 20, d = 384), at
     the played ring's chunk at 4
@@ -5696,6 +5715,7 @@ def time_head_dims(out) -> list:
                               bh=RING4_BH, tag="ring_d192", kind="vision",
                               label=f"ring chunk s{RING_CHUNK} d192",
                               s=RING_CHUNK, d=192, heads=SRC4_HEADS)
+    rows += time_odd_streaming(out["odd_long"])
     serve, steps = out["src1"]
     rows += time_long_kernels(
         out["long_errors"],
@@ -6063,6 +6083,85 @@ def time_long_kernels(long_errors, long_counts, bh=LONG_TIME_BH,
           f"{library_bwd:.4f} ms ({backward / library_bwd:.2f}x)",
           flush=True)
     del big, small
+    torch.cuda.empty_cache()
+    return rows
+
+
+def odd_online_call(c):
+    """K4's and K5's arguments at an odd head dim as `_backward_online`
+    hands them over: c's inputs padded to the kernels' width (`padded`,
+    `rotate_padded`), the rows' lse and delta, the caller's head dim."""
+    p = c["p"]
+    return ((p["qr"], p["kr"], p["v"], p["do"],
+             flat(c["lse"]).contiguous(), flat(c["delta"]).contiguous(),
+             p["mask"], *p["tables"]),
+            dict(scale=c["scale"], causal=c["causal"],
+                 num_heads=c["q"].shape[1], head_dim=p["d"]))
+
+
+def time_odd_streaming(long_counts) -> list:
+    """K4 and K5 at src4096's text tower under --text_dim 760, (80, 4096,
+    95) causal xPos, bf16, on the inputs flash_mha pads to width 96 (their
+    wgmma bodies, the wrap in the epilogues): each held to its plain
+    version at BH = LONG_CHECK_BH (the element and relative L2 bars), then
+    ms per launch at BH = 80 with its bound, its plain version's time and
+    the SDPA backward's; K4 + K5 in one call (as the main path launches
+    them) beside K5. Launches from src4096's run at --text_dim 760."""
+    from meant_tpu_torch.ops.flash import (flash_bwd_dkdv, flash_bwd_dq,
+                                           flash_bwd_dq_dkdv)
+    from meant_tpu_torch.ops.flash.kernel import BF16_REL_L2
+    d = ODD_DIM // ODD_HEADS
+    label = f"s{LONG_SEQ} causal xPos d{d} (--text_dim {ODD_DIM})"
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    cases = [long_case("text", torch.bfloat16, gen, bh, d=d,
+                       heads=ODD_HEADS)
+             for bh in (LONG_BATCH * LAG * ODD_HEADS, LONG_CHECK_BH)]
+    for c in cases:
+        padded(c)
+        rotate_padded(c)
+    big, small = cases
+    library = run_library_bwd(big)
+    library_ms = event_ms(library, iters=5)
+    del library
+    torch.cuda.empty_cache()
+    rows = []
+    for kernel, name, replaces, fn, plain, grads in (
+            ("K4", "flash_bwd_dq", "meant_tpu/ops/flash/kernel.py:456",
+             flash_bwd_dq, run_online_dq_plain, ("dq",)),
+            ("K5", "flash_bwd_dkdv", "meant_tpu/ops/flash/kernel.py:527",
+             flash_bwd_dkdv, run_online_dkdv_plain, ("dk", "dv"))):
+        args, kw = odd_online_call(small)
+        got = fn(*args, **kw)
+        want = plain(small)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(hold(f"R1 + {kernel}", f"{label} at BH {LONG_CHECK_BH}",
+                       g, a[..., :d].reshape(b.shape), b, torch.bfloat16,
+                       BF16_REL_L2)[0]
+                  for g, a, b in zip(grads, got, want))
+        del got, want
+        args, kw = odd_online_call(big)
+        ms = event_ms(lambda: fn(*args, **kw), iters=5)
+        plain_ms, plain_bh = plain_ms_fitting(plain, big, small, iters=1)
+        torch.cuda.empty_cache()
+        nbytes, flops = long_cost(big, kernel)
+        rows.append(kernel_row(
+            f"{name}[{label}]", fn.last_source, replaces,
+            long_counts[kernel], err, ms, plain_ms, library_ms, nbytes,
+            flops, PEAK_BF16_FLOPS, shape=list(big["q"].shape),
+            width=big["p"]["width"], dtype="bfloat16", plain_bh=plain_bh,
+            library_call="backward of rotation + scaled_dot_product_"
+                         "attention (dq, dk, dv: K4 and K5 together)"))
+    k4, k5 = rows
+    args, kw = odd_online_call(big)
+    k5["k4_k5_ms"] = event_ms(lambda: flash_bwd_dq_dkdv(*args, **kw),
+                              iters=5)
+    k5["k4_k5_bound_ms"] = k4["bound_ms"] + k5["bound_ms"]
+    print(f"K4 + K5 at {label}: {k5['k4_k5_ms']:.4f} ms together (K4 "
+          f"{k4['ms']:.4f} + K5 {k5['ms']:.4f} apart; bound "
+          f"{k5['k4_k5_bound_ms']:.4f} ms) against the SDPA backward's "
+          f"{library_ms:.4f} ms ({k5['k4_k5_ms'] / library_ms:.2f}x); "
+          f"bodies {k4['source']}, {k5['source']}", flush=True)
+    del big, small, cases, args
     torch.cuda.empty_cache()
     return rows
 

@@ -50,9 +50,9 @@
 //     statistics from device memory, which keeps its tiles within a
 //     block's shared memory at D = 128.
 // Head dims 64, 96 and 128 are instantiated (the wrapper pads any other
-// even d up to 128), and in bf16 also 192 and 256, the padded widths of
-// every even d in (128, 256] (meant_src --num_heads 4 and 3): the same
-// wgmma bodies, the dq kernel one consumer warpgroup at 192 and two
+// d up to 128 to the next of them), and in bf16 also 192 and 256, the
+// padded widths of every d in (128, 256] (meant_src --num_heads 4 and 3):
+// the same wgmma bodies, the dq kernel one consumer warpgroup at 192 and two
 // splitting dQ's columns at 256, the dk/dv kernel two at both, each
 // warpgroup forming the tile's whole S and dP (the layouts and their
 // bounds: flash_bwd_wgmma.cuh). In bf16 at 384 (meant_src --num_heads 2)
@@ -61,12 +61,15 @@
 // column groups of 192 on the grid. In bf16 at 768 (--num_heads 1) the
 // chain body of flash_bwd_chain.cuh: S and dP on fp32 FMA chains in column
 // order (the wide body's bits), formed once per tile pair, the products
-// on wgmma; three launches a call. In fp32 past 128, at the other widths
-// past 256 and at an odd head dim, whose adjoint wraps column d-1 onto
-// column 0 as the JAX kernel's lane rotate-half does, both kernels take
-// the wide bodies of flash_wide.cuh at the padded width (a multiple of
-// 64), still one dq launch and one dk/dv launch. q has s_q rows and k s_k
-// keys: the dq kernel's grid walks q tiles, the dk/dv kernel's k tiles.
+// on wgmma; three launches a call. At an odd head dim the adjoint wraps
+// column d-1 onto column 0 as the JAX kernel's lane rotate-half does
+// (store_adjoint_wrap, flash_common.cuh): up to 256 in bf16 and 128 in
+// fp32 in the epilogues of these bodies, whose blocks hold all of a row's
+// columns. In fp32 past 128, at the other widths past 256 and at an odd
+// head dim past 256 both kernels take the wide bodies of flash_wide.cuh at
+// the padded width (a multiple of 64), still one dq launch and one dk/dv
+// launch. q has s_q rows and k s_k keys: the dq kernel's grid walks q
+// tiles, the dk/dv kernel's k tiles.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the main
 // path's shapes (BH = 640, d = 96, bf16): the launch must read q, k, v, dO
@@ -114,14 +117,14 @@ constexpr int dkdv_smem_bytes() {
 
 // ---- fp32: dQ and the row statistics --------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool kWrap>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ qr, const T* __restrict__ kr,
     const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dq,
     float* __restrict__ stats, const float* __restrict__ qcos,
     const float* __restrict__ qsin, const float* __restrict__ kmask,
     int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
-    int causal) {
+    int causal, int head_dim) {
   constexpr int ld = D + Pad<T>::value;       // [row][d] tiles
   constexpr int ldk = kTile + Pad<T>::value;  // [.][key] tiles
   constexpr int kNk = kTile / 8;            // n-tiles over keys
@@ -248,6 +251,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     warp_mm<kNd, kTile>(acc, dsw, ldk, kts, ldk);
   }
 
+  // column 0 of the rows, for the wrap at an odd head dim (kWrap)
+  float g0[2] = {0.f, 0.f};
+  if constexpr (kWrap)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) g0[h] = quad_column0(acc[0][2 * h]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= seq_q) continue;
@@ -255,22 +263,27 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const float* cr = qcos + (size_t)row[h] * D;
     const float* sr = qsin + (size_t)row[h] * D;
 #pragma unroll
-    for (int j = 0; j < kNd; ++j)
-      store_adjoint<T>(out, cr, sr, j * 8 + 2 * t, acc[j][2 * h],
-                       acc[j][2 * h + 1]);
+    for (int j = 0; j < kNd; ++j) {
+      if constexpr (kWrap)
+        store_adjoint_wrap<T>(out, cr, sr, j * 8 + 2 * t, acc[j][2 * h],
+                              acc[j][2 * h + 1], head_dim, g0[h]);
+      else
+        store_adjoint<T>(out, cr, sr, j * 8 + 2 * t, acc[j][2 * h],
+                         acc[j][2 * h + 1]);
+    }
   }
 }
 
 // ---- fp32: dK and dV -------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool kWrap>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const T* __restrict__ qr, const T* __restrict__ kr,
     const T* __restrict__ v, const T* __restrict__ dout, T* __restrict__ dk,
     T* __restrict__ dv, const float* __restrict__ stats,
     const float* __restrict__ kcos, const float* __restrict__ ksin,
     const float* __restrict__ kmask, int mask_rows, int seq_q, int seq_k,
-    int num_heads, float scale, int causal) {
+    int num_heads, float scale, int causal, int head_dim) {
   constexpr int ld = D + Pad<T>::value;
   constexpr int ldk = kTile + Pad<T>::value;
   constexpr int kNq = kTile / 8;  // n-tiles over q rows
@@ -346,6 +359,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     warp_mm<kNd, kTile>(dk_acc, dsw, ldk, qts, ldk);
   }
 
+  // column 0 of the keys, for the wrap at an odd head dim (kWrap)
+  float g0[2] = {0.f, 0.f};
+  if constexpr (kWrap)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) g0[h] = quad_column0(dk_acc[0][2 * h]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= seq_k) continue;
@@ -358,21 +376,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
       const int c = j * 8 + 2 * t;
       dv_row[c] = from_f<T>(dv_acc[j][2 * h]);
       dv_row[c + 1] = from_f<T>(dv_acc[j][2 * h + 1]);
-      store_adjoint<T>(dk_row, cr, sr, c, dk_acc[j][2 * h],
-                       dk_acc[j][2 * h + 1]);
+      if constexpr (kWrap)
+        store_adjoint_wrap<T>(dk_row, cr, sr, c, dk_acc[j][2 * h],
+                              dk_acc[j][2 * h + 1], head_dim, g0[h]);
+      else
+        store_adjoint<T>(dk_row, cr, sr, c, dk_acc[j][2 * h],
+                         dk_acc[j][2 * h + 1]);
     }
   }
 }
 
 // ---- launch --------------------------------------------------------------
 
-template <int D>
-cudaError_t launch_fp32(const bwd::Args& a, void* dq, void* dk, void* dv,
-                        float* stats) {
+template <int D, bool kWrap>
+cudaError_t launch_fp32_body(const bwd::Args& a, void* dq, void* dk,
+                             void* dv, float* stats) {
   constexpr int dq_bytes = dq_smem_bytes<float, D>();
   constexpr int dkdv_bytes = dkdv_smem_bytes<float, D>();
-  const auto dq_kernel = flash_bwd_dq_kernel<float, D>;
-  const auto dkdv_kernel = flash_bwd_dkdv_kernel<float, D>;
+  const auto dq_kernel = flash_bwd_dq_kernel<float, D, kWrap>;
+  const auto dkdv_kernel = flash_bwd_dkdv_kernel<float, D, kWrap>;
   cudaError_t err = cudaFuncSetAttribute(
       dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return err;
@@ -384,15 +406,23 @@ cudaError_t launch_fp32(const bwd::Args& a, void* dq, void* dk, void* dv,
               a.stream>>>(
       f(a.qr), f(a.kr), f(a.v), f(a.dout), static_cast<float*>(dq), stats,
       a.qcos, a.qsin, a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads,
-      a.scale, a.causal);
+      a.scale, a.causal, a.head_dim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkdv_kernel<<<dim3(a.bh, (a.seq_k + kTile - 1) / kTile), kThreads,
                 dkdv_bytes, a.stream>>>(
       f(a.qr), f(a.kr), f(a.v), f(a.dout), static_cast<float*>(dk),
       static_cast<float*>(dv), stats, a.kcos, a.ksin, a.kmask, a.mask_rows,
-      a.seq_q, a.seq_k, a.num_heads, a.scale, a.causal);
+      a.seq_q, a.seq_k, a.num_heads, a.scale, a.causal, a.head_dim);
   return cudaGetLastError();
+}
+
+// at a.head_dim: the kWrap instantiations at an odd one
+template <int D>
+cudaError_t launch_fp32(const bwd::Args& a, void* dq, void* dk, void* dv,
+                        float* stats) {
+  return (a.head_dim & 1) ? launch_fp32_body<D, true>(a, dq, dk, dv, stats)
+                          : launch_fp32_body<D, false>(a, dq, dk, dv, stats);
 }
 
 // a's row statistics are the planes m, 1/l, delta, each (bh, seq_q)
@@ -453,7 +483,7 @@ extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
   const size_t plane = (size_t)bh * seq_q;
   const bwd::Args a{qr, kr, v, dout, st, st + plane, st + 2 * plane,
                     f(qcos), f(qsin), f(kcos), f(ksin), f(kmask), mask_rows,
-                    bh, seq_q, seq_k, num_heads, scale, causal,
+                    bh, seq_q, seq_k, num_heads, scale, causal, head_dim,
                     static_cast<cudaStream_t>(stream)};
   if (wide::takes_wide(wide::kK2, dtype, d, head_dim)) {
     const wide::Args w{qr,      kr,      v,       dout,      st,
@@ -471,8 +501,8 @@ extern "C" int meant_flash_bwd(int dtype, const void* qr, const void* kr,
   if (wide::takes_chain(wide::kK2, dtype, d, head_dim))
     return (int)chain::launch<true>(a, dq, dk, dv, scratch, chain::kAll);
   // past 128 only bf16 at 192, 256 and 384 has a wgmma body, and at 768
-  // the chain body (takes_wide sends fp32 and an odd head dim there to the
-  // wide bodies)
+  // the chain body (takes_wide sends fp32 there, and an odd head dim past
+  // 256, to the wide bodies)
   if (dtype == 1 && d == 192) return (int)launch_bf16<192>(a, dq, dk, dv);
   if (dtype == 1 && d == 256) return (int)launch_bf16<256>(a, dq, dk, dv);
   if (dtype == 1 && d == 384) return (int)launch_sliced<384>(a, dq, dk, dv);

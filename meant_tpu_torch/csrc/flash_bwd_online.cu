@@ -48,8 +48,8 @@
 // memory, which keeps its tiles within a block's shared memory at D = 128.
 // Rows past s_q and keys past s_k get P = 0 and are never written. Head
 // dims 64, 96 and 128 are instantiated in both dtypes (the wrapper pads any
-// other even d up to 128 to the next of them), and in bf16 also 192 and
-// 256, the padded widths of every even d in (128, 256]: the wgmma bodies at
+// other d up to 128 to the next of them), and in bf16 also 192 and 256,
+// the padded widths of every d in (128, 256]: the wgmma bodies at
 // two consumer warpgroups (flash_bwd_wgmma.cuh says how); at 384 (d in
 // (320, 384], src4096 --num_heads 2) the sliced kernels of
 // flash_bwd_wgmma.cuh without the statistics pass (Kr / V or Qr / dO
@@ -60,13 +60,14 @@
 // (meant_flash_bwd_online_scratch_bytes), P and dS as the wide bodies
 // form them, the products on wgmma. K4 or K5 alone there forms S and dP
 // itself; meant_flash_bwd_online, the main path's one call at every width,
-// forms them once for dQ, dK and dV there. In fp32 past 128, at the other
-// widths past 256, and at an odd head dim (whose adjoint wraps), K4 and K5
-// take the wide bodies of flash_wide.cuh. The rotation pass takes any
-// width that is a multiple of 8, the caller's head dim d beside it: at
-// an odd d, column d-1 pairs with column 0 as the JAX kernels' lane
-// rotate-half pairs them (x[d-1] cos - x[0] sin). q has s_q rows and k s_k
-// keys, as in the resident kernels.
+// forms them once for dQ, dK and dV there. At an odd head dim up to 256
+// (128 in fp32) the epilogues of these bodies wrap the adjoint as K2's do
+// (flash_bwd.cu). In fp32 past 128, at the other widths past 256, and at an
+// odd head dim past 256, K4 and K5 take the wide bodies of flash_wide.cuh.
+// The rotation pass takes any width that is a multiple of 8, the caller's
+// head dim d beside it: at an odd d, column d-1 pairs with column 0 as the
+// JAX kernels' lane rotate-half pairs them (x[d-1] cos - x[0] sin). q has
+// s_q rows and k s_k keys, as in the resident kernels.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s) at the main
 // path's shapes (text tower of src4096: BH = 80, s = 4096, d = 96, bf16,
@@ -164,14 +165,14 @@ constexpr int dkdv_smem_bytes() {
 }
 
 // K4: dQ.
-template <typename T, int D>
+template <typename T, int D, bool kWrap>
 __global__ void __launch_bounds__(kThreads) flash_bwd_online_dq_kernel(
     const T* __restrict__ qr, const T* __restrict__ kr, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq,
     const float* __restrict__ qcos, const float* __restrict__ qsin,
     const float* __restrict__ kmask, int mask_rows, int seq_q, int seq_k,
-    int num_heads, float scale, int causal) {
+    int num_heads, float scale, int causal, int head_dim) {
   constexpr int ld = D + Pad<T>::value;       // [row][d] tiles
   constexpr int ldk = kTile + Pad<T>::value;  // [.][key] tiles
   constexpr int kNk = kTile / 8;              // n-tiles over keys
@@ -243,6 +244,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dq_kernel(
     warp_mm<kNd, kTile>(acc, dsw, ldk, kts, ldk);
   }
 
+  // column 0 of the rows, for the wrap at an odd head dim (kWrap)
+  float g0[2] = {0.f, 0.f};
+  if constexpr (kWrap)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) g0[h] = quad_column0(acc[0][2 * h]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= seq_q) continue;
@@ -250,21 +256,26 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dq_kernel(
     const float* cr = qcos + (size_t)row[h] * D;
     const float* sr = qsin + (size_t)row[h] * D;
 #pragma unroll
-    for (int j = 0; j < kNd; ++j)
-      store_adjoint<T>(out, cr, sr, j * 8 + 2 * t, acc[j][2 * h],
-                       acc[j][2 * h + 1]);
+    for (int j = 0; j < kNd; ++j) {
+      if constexpr (kWrap)
+        store_adjoint_wrap<T>(out, cr, sr, j * 8 + 2 * t, acc[j][2 * h],
+                              acc[j][2 * h + 1], head_dim, g0[h]);
+      else
+        store_adjoint<T>(out, cr, sr, j * 8 + 2 * t, acc[j][2 * h],
+                         acc[j][2 * h + 1]);
+    }
   }
 }
 
 // K5: dK and dV.
-template <typename T, int D>
+template <typename T, int D, bool kWrap>
 __global__ void __launch_bounds__(kThreads) flash_bwd_online_dkdv_kernel(
     const T* __restrict__ qr, const T* __restrict__ kr, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     const float* __restrict__ kcos, const float* __restrict__ ksin,
     const float* __restrict__ kmask, int mask_rows, int seq_q, int seq_k,
-    int num_heads, float scale, int causal) {
+    int num_heads, float scale, int causal, int head_dim) {
   constexpr int ld = D + Pad<T>::value;
   constexpr int ldk = kTile + Pad<T>::value;
   constexpr int kNq = kTile / 8;  // n-tiles over q rows
@@ -339,6 +350,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dkdv_kernel(
     warp_mm<kNd, kTile>(dk_acc, dsw, ldk, qts, ldk);
   }
 
+  // column 0 of the keys, for the wrap at an odd head dim (kWrap)
+  float g0[2] = {0.f, 0.f};
+  if constexpr (kWrap)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) g0[h] = quad_column0(dk_acc[0][2 * h]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= seq_k) continue;
@@ -351,8 +367,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_online_dkdv_kernel(
       const int c = j * 8 + 2 * t;
       dv_row[c] = from_f<T>(dv_acc[j][2 * h]);
       dv_row[c + 1] = from_f<T>(dv_acc[j][2 * h + 1]);
-      store_adjoint<T>(dk_row, cr, sr, c, dk_acc[j][2 * h],
-                       dk_acc[j][2 * h + 1]);
+      if constexpr (kWrap)
+        store_adjoint_wrap<T>(dk_row, cr, sr, c, dk_acc[j][2 * h],
+                              dk_acc[j][2 * h + 1], head_dim, g0[h]);
+      else
+        store_adjoint<T>(dk_row, cr, sr, c, dk_acc[j][2 * h],
+                         dk_acc[j][2 * h + 1]);
     }
   }
 }
@@ -366,10 +386,10 @@ bool invalid(int dtype, const bwd::Args& a) {
          (a.seq_k + kTile - 1) / kTile > 65535;
 }
 
-template <int D>
-cudaError_t launch_dq_fp32(const bwd::Args& a, void* dq) {
+template <int D, bool kWrap>
+cudaError_t launch_dq_fp32_body(const bwd::Args& a, void* dq) {
   constexpr int bytes = dq_smem_bytes<float, D>();
-  auto kernel = flash_bwd_online_dq_kernel<float, D>;
+  auto kernel = flash_bwd_online_dq_kernel<float, D, kWrap>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -379,14 +399,14 @@ cudaError_t launch_dq_fp32(const bwd::Args& a, void* dq) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.row_m, a.row_delta, static_cast<float*>(dq), a.qcos, a.qsin,
       a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale,
-      a.causal);
+      a.causal, a.head_dim);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dkdv_fp32(const bwd::Args& a, void* dk, void* dv) {
+template <int D, bool kWrap>
+cudaError_t launch_dkdv_fp32_body(const bwd::Args& a, void* dk, void* dv) {
   constexpr int bytes = dkdv_smem_bytes<float, D>();
-  auto kernel = flash_bwd_online_dkdv_kernel<float, D>;
+  auto kernel = flash_bwd_online_dkdv_kernel<float, D, kWrap>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -396,8 +416,22 @@ cudaError_t launch_dkdv_fp32(const bwd::Args& a, void* dk, void* dv) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.row_m, a.row_delta, static_cast<float*>(dk), static_cast<float*>(dv),
       a.kcos, a.ksin, a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads,
-      a.scale, a.causal);
+      a.scale, a.causal, a.head_dim);
   return cudaGetLastError();
+}
+
+// K4's and K5's fp32 bodies at a.head_dim: the kWrap instantiations at an
+// odd one
+template <int D>
+cudaError_t launch_dq_fp32(const bwd::Args& a, void* dq) {
+  return (a.head_dim & 1) ? launch_dq_fp32_body<D, true>(a, dq)
+                          : launch_dq_fp32_body<D, false>(a, dq);
+}
+
+template <int D>
+cudaError_t launch_dkdv_fp32(const bwd::Args& a, void* dk, void* dv) {
+  return (a.head_dim & 1) ? launch_dkdv_fp32_body<D, true>(a, dk, dv)
+                          : launch_dkdv_fp32_body<D, false>(a, dk, dv);
 }
 
 template <int D>
@@ -448,24 +482,24 @@ bwd::Args make_args(const void* qr, const void* kr, const void* v,
                     const void* qcos, const void* qsin, const void* kcos,
                     const void* ksin, const void* kmask, int mask_rows,
                     int bh, int seq_q, int seq_k, int num_heads, float scale,
-                    int causal, void* stream) {
+                    int causal, int head_dim, void* stream) {
   const auto f = [](const void* p) {
     return const_cast<float*>(static_cast<const float*>(p));
   };
   return bwd::Args{qr,        kr,        v,       dout,    f(lse),
                    nullptr,   f(delta),  f(qcos), f(qsin), f(kcos),
                    f(ksin),   f(kmask),  mask_rows, bh,    seq_q,
-                   seq_k,     num_heads, scale,   causal,
+                   seq_k,     num_heads, scale,   causal,  head_dim,
                    static_cast<cudaStream_t>(stream)};
 }
 
 // The wide bodies' arguments (flash_wide.cuh): row_a the rows' lse, row_b
 // their delta.
-wide::Args wide_args(const bwd::Args& a, int d, int head_dim) {
+wide::Args wide_args(const bwd::Args& a, int d) {
   return wide::Args{a.qr,      a.kr,       a.v,      a.dout,      a.row_m,
                     a.row_delta, nullptr,  a.qcos,   a.qsin,      a.kcos,
                     a.ksin,    a.kmask,    a.mask_rows, a.bh,     a.seq_q,
-                    a.seq_k,   d,          head_dim, a.num_heads, a.scale,
+                    a.seq_k,   d,          a.head_dim, a.num_heads, a.scale,
                     a.causal,  a.stream};
 }
 
@@ -523,11 +557,12 @@ extern "C" int meant_flash_bwd_dq(int dtype, const void* qr, const void* kr,
                                   void* stream) {
   const bwd::Args a = make_args(qr, kr, v, dout, lse, delta, qcos, qsin,
                                 kcos, ksin, kmask, mask_rows, bh, seq_q,
-                                seq_k, num_heads, scale, causal, stream);
+                                seq_k, num_heads, scale, causal, head_dim,
+                                stream);
   if (invalid(dtype, a) || head_dim <= 0 || head_dim > d)
     return (int)cudaErrorInvalidValue;
   if (wide::takes_wide(wide::kK4, dtype, d, head_dim)) {
-    const wide::Args w = wide_args(a, d, head_dim);
+    const wide::Args w = wide_args(a, d);
     return (int)(dtype == 0 ? wide::launch_dq<float, false>(w, dq)
                             : wide::launch_dq<bf16, false>(w, dq));
   }
@@ -560,11 +595,12 @@ extern "C" int meant_flash_bwd_dkdv(int dtype, const void* qr, const void* kr,
                                     void* stream) {
   const bwd::Args a = make_args(qr, kr, v, dout, lse, delta, qcos, qsin,
                                 kcos, ksin, kmask, mask_rows, bh, seq_q,
-                                seq_k, num_heads, scale, causal, stream);
+                                seq_k, num_heads, scale, causal, head_dim,
+                                stream);
   if (invalid(dtype, a) || head_dim <= 0 || head_dim > d)
     return (int)cudaErrorInvalidValue;
   if (wide::takes_wide(wide::kK5, dtype, d, head_dim)) {
-    const wide::Args w = wide_args(a, d, head_dim);
+    const wide::Args w = wide_args(a, d);
     return (int)(dtype == 0 ? wide::launch_dkdv<float, false>(w, dk, dv)
                             : wide::launch_dkdv<bf16, false>(w, dk, dv));
   }
@@ -610,7 +646,8 @@ extern "C" int meant_flash_bwd_online(int dtype, const void* qr,
   }
   const bwd::Args a = make_args(qr, kr, v, dout, lse, delta, qcos, qsin,
                                 kcos, ksin, kmask, mask_rows, bh, seq_q,
-                                seq_k, num_heads, scale, causal, stream);
+                                seq_k, num_heads, scale, causal, head_dim,
+                                stream);
   if (invalid(dtype, a) || head_dim <= 0 || head_dim > d)
     return (int)cudaErrorInvalidValue;
   return (int)chain::launch<false>(a, dq, dk, dv, scratch, chain::kAll);

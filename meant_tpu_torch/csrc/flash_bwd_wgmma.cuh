@@ -38,10 +38,16 @@
 // no causal q row reaches (s_k > s_q) writes zeros.
 //
 // Both kernels are templates on the head dim D, a [64][D] tile being D / 32
-// TMA boxes: 64, 96, 128, 192 and 256 for K2, K4 and K5 (past 128 in bf16
-// at an even d), and past 256 their sliced forms (below) at 384, with and
-// without the statistics pass; an odd d, fp32 past 128 and the other
-// widths past 256 take flash_wide.cuh (768 in bf16
+// TMA boxes: 64, 96, 128, 192 and 256 for K2, K4 and K5 (past 128 in
+// bf16) at any d, an odd one included: a block holds all of a gradient
+// row's columns, so its epilogue applies JAX's wrap of column d-1 onto
+// column 0 (store_adjoint_wrap; wrap_column0 below), in an instantiation
+// of its own (kWrap) that the launchers pick at an odd d: a branch on the
+// head dim in one epilogue moved the even d's registers and cost K2 and K4
+// up to 24% there (PERF.md). Past 256 their sliced forms (below) at 384,
+// with and without the statistics pass, at an even d; an odd d there (the
+// dk/dv column groups are on the grid), fp32 past 128 and the other
+// widths past 256 take flash_wide.cuh (768 in bf16 at an even d
 // flash_bwd_chain.cuh). At 192, 256 and 384 they replace
 // meant_tpu/ops/flash/kernel.py:_bwd_kernel (K2), _bwd_dq_kernel (K4) and
 // _bwd_dkdv_kernel (K5) as at the narrower widths. The layouts:
@@ -152,8 +158,10 @@ struct Layout {
   static constexpr int kBlock = kConsumers + (kWGs == 1 ? 32 : kWarpgroup);
 };
 
-// Tiles first, each at a multiple of 1024 bytes from the aligned start.
-template <int D>
+// Tiles first, each at a multiple of 1024 bytes from the aligned start;
+// the kernels that wrap an odd head dim's adjoint (kWrap) keep column 0 of
+// the tile's rows last (wrap_column0).
+template <int D, bool kWrap>
 struct DqSmem {
   static constexpr int kTileBytes = hopper::tile_bytes<D>();
   static constexpr int kN = stages<D>();
@@ -162,9 +170,10 @@ struct DqSmem {
   uint8_t k[kN][kTileBytes];   // the ring: Kr
   uint8_t v[kN][kTileBytes];   // and V
   uint64_t fixed_full, full[kN], empty[kN];
+  float wrap[kWrap ? kTile : 1];  // column 0 of dQ's rows
 };
 
-template <int D>
+template <int D, bool kWrap>
 struct DkdvSmem {
   static constexpr int kTileBytes = hopper::tile_bytes<D>();
   static constexpr int kN = stages<D>();
@@ -176,6 +185,7 @@ struct DkdvSmem {
   float delta[kN][kTile];        // delta
   float il[kN][kTile];           // and 1/l (K2 only)
   uint64_t fixed_full, full[kN], empty[kN];
+  float wrap[kWrap ? kTile : 1];  // column 0 of dK's rows
 };
 
 // dS = T(p * (dp - delta) * scale) for two neighbouring columns, rounded to
@@ -184,6 +194,40 @@ __device__ __forceinline__ uint32_t ds_pair(float p0, float p1, float dp0,
                                             float dp1, float dl0, float dl1,
                                             float scale) {
   return pack_pair(p0 * (dp0 - dl0) * scale, p1 * (dp1 - dl1) * scale);
+}
+
+// g0[h], column 0 of the gradient row h this thread stores (q row or key
+// 16 warp + g + 8h of the tile), which store_adjoint_wrap takes at an odd
+// head dim (the kernels' kWrap instantiations). acc is the gradient's
+// accumulator (element 2h: row h, column 0 of the warpgroup's columns).
+// One consumer warpgroup holds all of a row's columns, and the quad's
+// lane t = 0 holds column 0 (quad_column0, taken before any lane leaves
+// for a row past the sequence). Two split them (Layout): column 0 is
+// warpgroup 0's, column d-1 warpgroup 1's (d - 1 >= 128, past the 128
+// columns of warpgroup 0 at D = 256 and its 96 at 192), so warpgroup 0
+// writes column 0 to `shared` and warpgroup 1 reads it behind a named
+// barrier of the consumers alone (the producer may have left). Both hold
+// the same rows.
+template <int kWGs, int N>
+__device__ __forceinline__ void wrap_column0(float (&g0)[2],
+                                             const float (&acc)[N], int wg,
+                                             int warp, int lane,
+                                             float* shared) {
+  if constexpr (kWGs == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) g0[h] = quad_column0(acc[2 * h]);
+  } else {
+    const int r = warp * 16 + (lane >> 2);
+    if (wg == 0 && (lane & 3) == 0) {
+      shared[r] = acc[0];
+      shared[r + 8] = acc[2];
+    }
+    hopper::named_barrier_sync(1, kWGs * kWarpgroup);
+    if (wg == 1) {
+      g0[0] = shared[r];
+      g0[1] = shared[r + 8];
+    }
+  }
 }
 
 // Whether a dq tile masks element by element: the diagonal, or ragged.
@@ -282,8 +326,9 @@ __device__ __forceinline__ void dkdv_tile_p_ds(
 // dq (K4; K2's dq and statistics when kStats). Grid (q tiles, bh); block
 // Layout<D, false>::kBlock threads. K4 reads row_m = lse and row_delta; K2
 // writes row_m = m, row_il = 1/l and row_delta = delta of every row below
-// seq_q.
-template <bool kStats, int D>
+// seq_q. kWrap: the instantiation for an odd head_dim, whose epilogue
+// wraps the adjoint (the even one's code is untouched by the wrap).
+template <bool kStats, int D, bool kWrap>
 __global__ void __launch_bounds__((Layout<D, false>::kBlock), 1)
     flash_bwd_dq_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
@@ -294,14 +339,14 @@ __global__ void __launch_bounds__((Layout<D, false>::kBlock), 1)
     bf16* __restrict__ dq, const float* __restrict__ qcos,
     const float* __restrict__ qsin, const float* __restrict__ kmask,
     int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
-    int causal) {
+    int causal, int head_dim) {
   using namespace hopper;
   using L = Layout<D, false>;
   constexpr int kNd = L::kCols / 8;        // n8 blocks of this dQ share
   constexpr int kTileBytes = tile_bytes<D>();
   constexpr int kN = stages<D>();
   extern __shared__ uint8_t smem_raw[];
-  DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
+  DqSmem<D, kWrap>& sm = aligned_smem<DqSmem<D, kWrap>>(smem_raw);
   const int n_tq = (seq_q + kTile - 1) / kTile;
   const int n_tk = (seq_k + kTile - 1) / kTile;
   const int bh = blockIdx.y, qt = n_tq - 1 - (int)blockIdx.x;
@@ -434,6 +479,9 @@ __global__ void __launch_bounds__((Layout<D, false>::kBlock), 1)
     mbar_arrive(&sm.empty[st]);
   }
 
+  float g0[2] = {0.f, 0.f};  // column 0 of the rows, for the wrap
+  if constexpr (kWrap)
+    wrap_column0<L::kWGs>(g0, dq_acc, wg, warp, lane, sm.wrap);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= seq_q) continue;
@@ -441,16 +489,22 @@ __global__ void __launch_bounds__((Layout<D, false>::kBlock), 1)
     const float* cr = qcos + (size_t)row[h] * D;
     const float* sr = qsin + (size_t)row[h] * D;
 #pragma unroll
-    for (int j = 0; j < kNd; ++j)
-      store_adjoint<bf16>(out, cr, sr, wg * L::kCols + j * 8 + 2 * t,
-                          dq_acc[4 * j + 2 * h], dq_acc[4 * j + 2 * h + 1]);
+    for (int j = 0; j < kNd; ++j) {
+      const int c = wg * L::kCols + j * 8 + 2 * t;
+      if constexpr (kWrap)
+        store_adjoint_wrap<bf16>(out, cr, sr, c, dq_acc[4 * j + 2 * h],
+                                 dq_acc[4 * j + 2 * h + 1], head_dim, g0[h]);
+      else
+        store_adjoint<bf16>(out, cr, sr, c, dq_acc[4 * j + 2 * h],
+                            dq_acc[4 * j + 2 * h + 1]);
+    }
   }
 }
 
 // dk and dv (K5; K2's when kStats). Grid (k tiles, bh); block
 // Layout<D, true>::kBlock threads. Reads row_m (K5: lse; K2: m), row_delta
-// and, for K2, row_il.
-template <bool kStats, int D>
+// and, for K2, row_il. kWrap as in the dq kernel.
+template <bool kStats, int D, bool kWrap>
 __global__ void __launch_bounds__((Layout<D, true>::kBlock), 1)
     flash_bwd_dkdv_wgmma_kernel(
     const __grid_constant__ CUtensorMap tm_q,
@@ -462,14 +516,14 @@ __global__ void __launch_bounds__((Layout<D, true>::kBlock), 1)
     bf16* __restrict__ dv, const float* __restrict__ kcos,
     const float* __restrict__ ksin, const float* __restrict__ kmask,
     int mask_rows, int seq_q, int seq_k, int num_heads, float scale,
-    int causal) {
+    int causal, int head_dim) {
   using namespace hopper;
   using L = Layout<D, true>;
   constexpr int kNd = L::kCols / 8;        // n8 blocks of this dK, dV share
   constexpr int kTileBytes = tile_bytes<D>();
   constexpr int kN = stages<D>();
   extern __shared__ uint8_t smem_raw[];
-  DkdvSmem<D>& sm = aligned_smem<DkdvSmem<D>>(smem_raw);
+  DkdvSmem<D, kWrap>& sm = aligned_smem<DkdvSmem<D, kWrap>>(smem_raw);
   const int n_tq = (seq_q + kTile - 1) / kTile;
   const int bh = blockIdx.y, kt = blockIdx.x;  // low k tiles see most rows
   const int k0 = kt * kTile;
@@ -599,6 +653,9 @@ __global__ void __launch_bounds__((Layout<D, true>::kBlock), 1)
     mbar_arrive(&sm.empty[st]);
   }
 
+  float g0[2] = {0.f, 0.f};  // column 0 of the keys, for the wrap
+  if constexpr (kWrap)
+    wrap_column0<L::kWGs>(g0, dk_acc, wg, warp, lane, sm.wrap);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (key[h] >= seq_k) continue;
@@ -611,8 +668,12 @@ __global__ void __launch_bounds__((Layout<D, true>::kBlock), 1)
       const int c = wg * L::kCols + j * 8 + 2 * t;
       dv_row[c] = from_f<bf16>(dv_acc[4 * j + 2 * h]);
       dv_row[c + 1] = from_f<bf16>(dv_acc[4 * j + 2 * h + 1]);
-      store_adjoint<bf16>(dk_row, cr, sr, c, dk_acc[4 * j + 2 * h],
-                          dk_acc[4 * j + 2 * h + 1]);
+      if constexpr (kWrap)
+        store_adjoint_wrap<bf16>(dk_row, cr, sr, c, dk_acc[4 * j + 2 * h],
+                                 dk_acc[4 * j + 2 * h + 1], head_dim, g0[h]);
+      else
+        store_adjoint<bf16>(dk_row, cr, sr, c, dk_acc[4 * j + 2 * h],
+                            dk_acc[4 * j + 2 * h + 1]);
     }
   }
 }
@@ -1108,6 +1169,7 @@ struct Args {
   int mask_rows, bh, seq_q, seq_k, num_heads;
   float scale;
   int causal;
+  int head_dim;  // the caller's d (<= the width): an odd one wraps
   cudaStream_t stream;
 };
 
@@ -1120,10 +1182,11 @@ bool make_maps(CUtensorMap (&m)[4], const Args& a) {
          hopper::make_map(&m[3], a.dout, a.bh, a.seq_q, D);
 }
 
-template <bool kStats, int D>
-cudaError_t launch_dq(const CUtensorMap (&m)[4], const Args& a, void* dq) {
-  constexpr int bytes = hopper::smem_bytes<DqSmem<D>>();
-  const auto kernel = flash_bwd_dq_wgmma_kernel<kStats, D>;
+template <bool kStats, int D, bool kWrap>
+cudaError_t launch_dq_body(const CUtensorMap (&m)[4], const Args& a,
+                           void* dq) {
+  constexpr int bytes = hopper::smem_bytes<DqSmem<D, kWrap>>();
+  const auto kernel = flash_bwd_dq_wgmma_kernel<kStats, D, kWrap>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -1131,15 +1194,15 @@ cudaError_t launch_dq(const CUtensorMap (&m)[4], const Args& a, void* dq) {
   kernel<<<grid, Layout<D, false>::kBlock, bytes, a.stream>>>(
       m[0], m[1], m[2], m[3], a.row_m, a.row_il, a.row_delta,
       static_cast<bf16*>(dq), a.qcos, a.qsin, a.kmask, a.mask_rows, a.seq_q,
-      a.seq_k, a.num_heads, a.scale, a.causal);
+      a.seq_k, a.num_heads, a.scale, a.causal, a.head_dim);
   return cudaGetLastError();
 }
 
-template <bool kStats, int D>
-cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const Args& a, void* dk,
-                        void* dv) {
-  constexpr int bytes = hopper::smem_bytes<DkdvSmem<D>>();
-  const auto kernel = flash_bwd_dkdv_wgmma_kernel<kStats, D>;
+template <bool kStats, int D, bool kWrap>
+cudaError_t launch_dkdv_body(const CUtensorMap (&m)[4], const Args& a,
+                             void* dk, void* dv) {
+  constexpr int bytes = hopper::smem_bytes<DkdvSmem<D, kWrap>>();
+  const auto kernel = flash_bwd_dkdv_wgmma_kernel<kStats, D, kWrap>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -1148,8 +1211,23 @@ cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const Args& a, void* dk,
       m[0], m[1], m[2], m[3], a.row_m, a.row_il, a.row_delta,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.kcos, a.ksin,
       a.kmask, a.mask_rows, a.seq_q, a.seq_k, a.num_heads, a.scale,
-      a.causal);
+      a.causal, a.head_dim);
   return cudaGetLastError();
+}
+
+// The dq and dk/dv kernels at a.head_dim: the kWrap instantiation at an
+// odd one.
+template <bool kStats, int D>
+cudaError_t launch_dq(const CUtensorMap (&m)[4], const Args& a, void* dq) {
+  return (a.head_dim & 1) ? launch_dq_body<kStats, D, true>(m, a, dq)
+                          : launch_dq_body<kStats, D, false>(m, a, dq);
+}
+
+template <bool kStats, int D>
+cudaError_t launch_dkdv(const CUtensorMap (&m)[4], const Args& a, void* dk,
+                        void* dv) {
+  return (a.head_dim & 1) ? launch_dkdv_body<kStats, D, true>(m, a, dk, dv)
+                          : launch_dkdv_body<kStats, D, false>(m, a, dk, dv);
 }
 
 // The sliced kernels (D past 256; K2's with kStats, K4's and K5's without)

@@ -305,4 +305,33 @@ __device__ __forceinline__ void store_adjoint(T* out, const float* cos_row,
                                    __fmul_rn(sin_row[c], g0)));
 }
 
+// The adjoint of the rotation for the pair at columns c, c+1 of a gradient
+// row (store_adjoint), with JAX's wrap at an odd head dim
+// (meant_tpu/ops/flash/kernel.py:_rotate_half_lanes): where c is d-1,
+// H(sin o g)[d-1] = -(sin o g)[0], g0 being column 0's gradient of the
+// same row. At an even head_dim c + 1 (odd) never equals it.
+template <typename T>
+__device__ __forceinline__ void store_adjoint_wrap(T* out, const float* cr,
+                                                   const float* sr, int c,
+                                                   float g_c, float g_c1,
+                                                   int head_dim, float g0) {
+  if (c + 1 == head_dim) {
+    out[c] = from_f<T>(__fadd_rn(__fmul_rn(cr[c], g_c), __fmul_rn(sr[0], g0)));
+    out[c + 1] = from_f<T>(
+        __fsub_rn(__fmul_rn(cr[c + 1], g_c1), __fmul_rn(sr[c], g_c)));
+  } else {
+    store_adjoint<T>(out, cr, sr, c, g_c, g_c1);
+  }
+}
+
+// Column 0 of a gradient row in the warp-level accumulator layouts (the
+// NT product above, mma.sync and wgmma alike): a lane holds columns
+// 8j + 2t and 8j + 2t + 1, t = lane % 4, of rows fixed by its warp and
+// lane / 4, so the row's column 0 is element 0 of the first n8 block of
+// the quad's lane t = 0; c0 is this lane's such element. Every lane of the
+// warp must call it.
+__device__ __forceinline__ float quad_column0(float c0) {
+  return __shfl_sync(0xffffffffu, c0, (threadIdx.x & 31) & ~3);
+}
+
 }  // namespace meant

@@ -1,7 +1,8 @@
 // The flash kernels at the head dims the wgmma bodies are not built for:
 // every kernel in fp32 past 128, every kernel in bf16 at the widths past
-// 256 other than 384 and 768, and (in the backwards) any odd head dim
-// (takes_wide below). One body per
+// 256 other than 384 and 768, and (in the backwards) an odd head dim
+// padded to a width past 256 in bf16 or past 128 in fp32 (takes_wide
+// below). One body per
 // kernel, templated on the dtype (fp32 or bf16) and not on the head dim:
 //   * fwd_kernel<T, true>:   K1 (flash_fwd.cu), a statistics pass, then P
 //                            normalised and rounded before P V;
@@ -42,11 +43,11 @@
 // P and dS are rounded to the input dtype into shared memory, where the
 // products that follow read them. The other route -- wgmma bodies
 // instantiated at D = 192 and 256 -- is taken in bf16 by K1 and K3
-// (flash_fwd.cu) and by K2, K4 and K5 at an even head dim
+// (flash_fwd.cu) and by K2, K4 and K5 at any head dim
 // (flash_bwd_wgmma.cuh), at D = 384 and 768 by K1 and K3 (the forwards'
-// body on a ring of column slices) and at 384 by K2, K4 and K5 (the
-// backwards' sliced kernels), where tools/wide_sum_order.py finds their
-// tensor-core sums within the element bars. The backwards in bf16 at 768
+// body on a ring of column slices) and at 384 by K2, K4 and K5 at an even
+// head dim (the backwards' sliced kernels), where tools/wide_sum_order.py
+// finds their tensor-core sums within the element bars. The backwards in bf16 at 768
 // (meant_src --num_heads 1: K2 on its charts, K4 + K5 on its streaming
 // text tower) run the chain body (flash_bwd_chain.cuh): these chains,
 // formed once per tile pair where this body forms them 14 times for K2 and
@@ -60,7 +61,9 @@
 // cos[d-1] g[d-1] + sin[0] g[0]. Column 0's gradient lives in the first
 // group; a block that stores column d-1 in another group accumulates
 // columns 0-7 as one more n8 block of its product, and each lane takes
-// column 0 from the lane of its row group that holds it (a shuffle).
+// column 0 from the lane of its row group that holds it (a shuffle). The
+// column pair's store is store_adjoint_wrap (flash_common.cuh), which the
+// wgmma and fp32 bodies share.
 //
 // The wrapper (ops/flash/kernel.py) pads q, k, v, dO and the tables to dp,
 // a multiple of 64, with zero columns and the identity rotation; the
@@ -222,23 +225,6 @@ __device__ __forceinline__ void products_over_d(
 template <int N>
 __device__ __forceinline__ float (&flat(float (&x)[N][4]))[4 * N] {
   return reinterpret_cast<float(&)[4 * N]>(x);
-}
-
-// The adjoint of the rotation for the pair at columns c, c+1 of a gradient
-// row (store_adjoint), with JAX's wrap at an odd head dim: where c is d-1,
-// H(sin o g)[d-1] = -(sin o g)[0], g0 being column 0's gradient.
-template <typename T>
-__device__ __forceinline__ void store_adjoint_wrap(T* out, const float* cr,
-                                                   const float* sr, int c,
-                                                   float g_c, float g_c1,
-                                                   int head_dim, float g0) {
-  if (c + 1 == head_dim) {
-    out[c] = from_f<T>(__fadd_rn(__fmul_rn(cr[c], g_c), __fmul_rn(sr[0], g0)));
-    out[c + 1] = from_f<T>(
-        __fsub_rn(__fmul_rn(cr[c + 1], g_c1), __fmul_rn(sr[c], g_c)));
-  } else {
-    store_adjoint<T>(out, cr, sr, c, g_c, g_c1);
-  }
 }
 
 // Whether the block whose chunks start at column c0 and span n chunks
@@ -767,27 +753,35 @@ cudaError_t launch_dkdv(const Args& a, void* dk, void* dv) {
 enum Kernel { kK1 = 1, kK2, kK3, kK4, kK5 };
 
 // Whether a launch of `kernel` in `dtype` (0 fp32, 1 bf16) at padded width
-// dp and head dim head_dim takes these bodies: the backwards at an odd head
-// dim (their adjoint wraps); every kernel at a dp the wgmma and fp32 bodies
-// are not built for. Those are 64, 96 and 128; in bf16 also 192 and 256
-// for every kernel (the forwards' body in flash_fwd.cu, the backwards' in
-// flash_bwd_wgmma.cuh), and 384 and 768 for every kernel: the forwards K1
-// and K3 on the forwards' sliced ring (an odd d padded there too, since the
-// forwards have no adjoint); the backwards K2 (replacing
+// dp and head dim head_dim takes these bodies: every kernel at a dp the
+// wgmma and fp32 bodies are not built for, and the backwards at an odd head
+// dim where a block of those bodies would not hold all of a gradient row's
+// columns, which the adjoint's wrap joins (column d-1 takes column 0's
+// term). The built widths are 64, 96 and 128 in both dtypes, where every
+// body holds a row's columns in one warpgroup and wraps through a
+// shuffle (flash_common.cuh: store_adjoint_wrap, quad_column0); in bf16
+// also 192 and 256 for every kernel (the forwards' body in flash_fwd.cu,
+// the backwards' in flash_bwd_wgmma.cuh, whose two consumer warpgroups
+// pass column 0 through shared memory: wrap_column0), and 384 and 768 for
+// every kernel at an even d: the forwards K1 and K3 on the forwards'
+// sliced ring (an odd d padded there too, since the forwards have no
+// adjoint); the backwards K2 (replacing
 // meant_tpu/ops/flash/kernel.py:_bwd_kernel), K4 (_bwd_dq_kernel) and K5
 // (_bwd_dkdv_kernel) at 384 on the backwards' sliced kernels
 // (flash_bwd_wgmma.cuh; bound by operations at src4096's (20, 4096, 384):
 // K4 0.39 ms, K5 0.52 ms), at 768 on the chain body of flash_bwd_chain.cuh
 // (takes_chain: S and dP on fp32 FMA chains in column order, these bodies'
 // bits; beside the bytes bound, the chains' floor at the fp32 peak:
-// PERF.md). fp32 past 128 and every other width past 256 (320, 448, ...,
-// 704) keep these bodies.
+// PERF.md). These bodies keep fp32 past 128, every other width past 256
+// (320, 448, ..., 704), and the backwards at an odd d padded to 384 (the
+// sliced dk/dv kernel's column groups are on the grid) or 768 (the chain
+// body's epilogue holds no wrap).
 inline bool takes_wide(Kernel kernel, int dtype, int dp, int head_dim) {
   const bool backward = kernel == kK2 || kernel == kK4 || kernel == kK5;
-  if (backward && (head_dim & 1)) return true;
   if (dp == 64 || dp == 96 || dp == 128) return false;
   if (dtype != 1) return true;
   if (dp == 192 || dp == 256) return false;
+  if (backward && (head_dim & 1)) return true;
   if (dp == 384 || dp == 768) return false;
   return true;
 }

@@ -92,6 +92,13 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// Waits at named barrier `id` (1-15; __syncthreads takes 0) until `threads`
+// threads, a multiple of 32, have reached it: a subset of the block, such
+// as its consumer warpgroups once the producer has left.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- mbarriers --------------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

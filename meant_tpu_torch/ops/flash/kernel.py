@@ -24,19 +24,18 @@ activation checkpointing sees one operator it can re-run.
 Shapes the kernels take: q (b, h, s_q, d) and k, v (b, h, s_k, d), the q
 and k lengths separate (causal keeps col <= row, both counted from 0, as
 the JAX kernels do), at any head dim d >= 1. The wgmma bodies are built for
-64, 96 and 128 (`HEAD_DIMS`); on the card any other even d up to 128 is
-zero-padded to the next of them, and an odd d or one past 128 to the next
+64, 96 and 128 (`HEAD_DIMS`); on the card any other d up to 128, odd or
+even, is zero-padded to the next of them, and one past 128 to the next
 multiple of 64 (`kernel_head_dim`): q, k and v get zero columns, the tables
 cos = 1 and sin = 0 there, `scale` stays the caller's, the output is
 sliced back. That is exact: the padded lanes add zero to every score. A
 padded width that is not one of HEAD_DIMS (d > 128) runs the wide bodies of
 csrc/flash_wide.cuh, which stream the contraction over the width and cut
-the output into groups of 64-column chunks on a grid axis; so do the
-backwards (K2, K4, K5) at an odd d, whose adjoint wraps. The exceptions
+the output into groups of 64-column chunks on a grid axis. The exceptions
 are in bf16: at a padded width of 192 or 256 (d in (128, 256]) K1 and K3
 run the forwards' wgmma body built at that width (csrc/flash_fwd.cu), and
-K2, K4 and K5 at an even d the backwards' (csrc/flash_bwd_wgmma.cuh, one
-or two consumer warpgroups splitting the gradients' columns); at 384 and
+K2, K4 and K5 the backwards' (csrc/flash_bwd_wgmma.cuh, one or two
+consumer warpgroups splitting the gradients' columns); at 384 and
 768 (d in (320, 384] and (704, 768]) K1 and K3 run the forwards' body on
 its sliced ring (O's columns in groups of 192 on a grid axis, Kr streamed
 in 192-column slices), and K2, K4 and K5 at an even d the backwards'
@@ -44,17 +43,20 @@ sliced kernels at 384 (csrc/flash_bwd_wgmma.cuh) and the chain body at 768
 (csrc/flash_bwd_chain.cuh: S and dP on fp32 FMA chains in column order,
 the wide body's bits, formed once per tile pair; the products on wgmma;
 on the streaming path K4 + K5 in one call, `flash_bwd_dq_dkdv`, which
-forms S and dP once for dq, dk and dv). fp32 past 128 and every kernel at
-the other widths past 256 stay on the wide bodies. Every call is one
-launch of each kernel at any d, but the chain body's, three launches a
-call.
+forms S and dP once for dq, dk and dv). fp32 past 128, every kernel at
+the other widths past 256, and the backwards at an odd d padded to 384 or
+768 stay on the wide bodies. Every call is one launch of each kernel at
+any d, but the chain body's, three launches a call.
 
 At an odd d the rotation pairs lanes as the JAX kernels' `_rotate_half_lanes`
 (meant_tpu/ops/flash/kernel.py:63-71) does, wrapping: lane d-1 pairs with
 lane 0 (`rotate_half_lanes`). R1 takes the caller's d beside the padded
 width for that, and the backwards' adjoint gives column d-1 of dq and dk
-the term sin[0] g[0] of the wrap, which the forward has no counterpart of
-where the tables' sin is 0 in column d-1: at an odd d the JAX flash
+the term sin[0] g[0] of the wrap (in the epilogue of every body: a
+shuffle within a warp's quad, or a trip through shared memory where two
+warpgroups split the columns; csrc/flash_bwd_wgmma.cuh), which the
+forward has no counterpart of where the tables' sin is 0 in column d-1:
+at an odd d the JAX flash
 backward is not the gradient of its own forward there, and the port
 reproduces it (ROADMAP §3).
 
@@ -147,12 +149,13 @@ def uses_online(s_k: int, d: int, force_online: Optional[bool] = None,
 
 def kernel_head_dim(d: int) -> int:
     """The width a call at head dim d runs at on the card (the wrapper pads
-    q, k, v and the tables up to it): for an even d up to 128 the least of
-    HEAD_DIMS at or above it, as before; for an odd d or one past 128 the
-    least multiple of WIDE_COLS at or above it. Raises for d <= 0."""
+    q, k, v and the tables up to it): for a d up to 128, odd or even, the
+    least of HEAD_DIMS at or above it (95 -> 96, 63 -> 64, 7 -> 64); past
+    128 the least multiple of WIDE_COLS at or above it. Raises for d <=
+    0."""
     if d <= 0:
         raise ValueError(f"a head dim must be positive, got {d}")
-    if d % 2 == 0 and d <= HEAD_DIMS[-1]:
+    if d <= HEAD_DIMS[-1]:
         return next(k for k in HEAD_DIMS if k >= d)
     return -(-d // WIDE_COLS) * WIDE_COLS
 

@@ -44,6 +44,15 @@ and src4096 --num_heads 2's (20, 4096, 384), causal xPos; the flagship's
 `--num_heads 1` training step (as above); and src4096 at `--num_heads 2`
 at full depth (`chip_smoke.learn_long_heads_full`).
 
+`--odd` takes instead the backwards at an odd head dim and the steps
+that launch them: K2 (alone, on R1's padded Qr and Kr), R1 + K2, and
+flash_mha's forward (R1 + K1 with its pads and slices; K1 and R1 alone
+beside it) at `--text_dim 760`'s (640, 512, 95) causal xPos, beside the
+SDPA backward and rotation + SDPA, with a `torch.profiler` table of that
+forward; K4, K5 and K4 + K5 at src4096's (80, 4096, 95) beside the SDPA
+backward; the `--text_dim 760` training step and request at s=512; and
+src4096 at `--text_dim 760` at full depth.
+
 Run it as a file (not with -m) so that DIR's package is the one
 imported; compare two trees within one card call, in turns (parent,
 change, change, parent).
@@ -52,6 +61,128 @@ import argparse
 import json
 import os
 import sys
+
+
+def odd_profile(cs, c, calls: int = 5) -> dict:
+    """torch.profiler over `calls` flash_mha forwards of case c: each
+    operator's device and host time a call, by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cs.run_kernel(c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            cs.run_kernel(c)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total",
+                      getattr(e, "cuda_time_total", 0.0))
+        self_dev = getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+        rows.append({"name": e.key, "count": e.count / calls,
+                     "device_ms": dev / calls / 1e3,
+                     "self_device_ms": self_dev / calls / 1e3,
+                     "host_ms": e.cpu_time_total / calls / 1e3})
+    rows.sort(key=lambda r: -r["self_device_ms"])
+    return {"calls": calls, "rows": rows[:25]}
+
+
+def odd(cs, gen, root) -> dict:
+    """The backwards at an odd head dim (module docstring, `--odd`), ms,
+    with the width each ran at and the bodies."""
+    import torch
+    from meant_tpu_torch.ops.flash import (flash_bwd_dq, flash_bwd_dkdv,
+                                           flash_bwd_dq_dkdv)
+    res = {}
+    heads = cs.ODD_HEADS
+    d = cs.ODD_DIM // heads
+    bh = cs.BATCH * cs.LAG * heads
+    c = cs.backward_case("text", torch.bfloat16, gen, s=cs.SEQ, bh=bh, d=d,
+                         heads=heads)
+    p = cs.padded(c)
+    cs.rotate_padded(c)
+    key = f"K2 ({bh}, {cs.SEQ}, {d})"
+    res[key] = {
+        "width": p["width"],
+        "K2": cs.event_ms(lambda: cs.k2_padded(c), iters=10),
+        "R1+K2": cs.event_ms(lambda: (cs.rotate_padded(c), cs.k2_padded(c)),
+                             iters=10),
+        "library": cs.event_ms(cs.run_library_bwd(c), iters=10),
+        "K2_body": cs.wrappers()["K2"].last_source,
+        "R1+K1": cs.event_ms(lambda: cs.run_kernel(c), iters=20),
+        "K1": cs.event_ms(lambda: cs.k1_padded(c), iters=20),
+        "R1": cs.event_ms(lambda: cs.rotate_padded(c), iters=20),
+        "library_fwd": cs.event_ms(lambda: cs.run_library(c), iters=20)}
+    print(root, key, json.dumps(res[key]), flush=True)
+    res[f"profile flash_mha ({bh}, {cs.SEQ}, {d})"] = prof = odd_profile(
+        cs, c)
+    print(root, "profile", json.dumps(prof["rows"][:12]), flush=True)
+    del c, p
+    torch.cuda.empty_cache()
+    bh = cs.LONG_BATCH * cs.LAG * heads
+    c = cs.long_case("text", torch.bfloat16, gen, bh, s=cs.LONG_SEQ, d=d,
+                     heads=heads)
+    p = cs.padded(c)
+    cs.rotate_padded(c)
+    args = (p["qr"], p["kr"], p["v"], p["do"],
+            cs.flat(c["lse"]).contiguous(), cs.flat(c["delta"]).contiguous(),
+            p["mask"], *p["tables"])
+    kw = dict(scale=c["scale"], causal=c["causal"], num_heads=heads,
+              head_dim=d)
+    key = f"({bh}, {cs.LONG_SEQ}, {d})"
+    res[key] = {
+        "width": p["width"],
+        "K4": cs.event_ms(lambda: flash_bwd_dq(*args, **kw), iters=10),
+        "K5": cs.event_ms(lambda: flash_bwd_dkdv(*args, **kw), iters=10),
+        "K4+K5": cs.event_ms(lambda: flash_bwd_dq_dkdv(*args, **kw),
+                             iters=10),
+        "library": cs.event_ms(cs.run_library_bwd(c), iters=5),
+        "body": [cs.wrappers()[k].last_source for k in ("K4", "K5")]}
+    print(root, key, json.dumps(res[key]), flush=True)
+    del c, p, args
+    torch.cuda.empty_cache()
+    model = cs.build_flagship(flash=True, fixed_proj=True,
+                              text_dim=cs.ODD_DIM)
+    train, _, _ = cs.train_steps(
+        model, cs.train_batch(cs.BATCH, seed=7), cs.SRC4_STEPS, cs.STEP,
+        f"learn meant_src --text_dim {cs.ODD_DIM}", falling=False)
+    res["odd_step_ms"] = train["step_ms"]
+    res["odd_step_ms_median"] = train["step_ms_median"]
+    del model
+    torch.cuda.empty_cache()
+    from meant_tpu_torch.serve import Predictor
+    model = cs.build_zoo("meant_src", "--seq_len", str(cs.SEQ), "--text_dim",
+                         str(cs.ODD_DIM), "--flash", "true")
+    rec = {}
+    cs.time_requests(Predictor(model, "meant_src", batch_size=cs.BATCH),
+                     cs.request_batch(cs.BATCH, seed=70), rec,
+                     label=f"meant_src --text_dim {cs.ODD_DIM}")
+    res["odd_request"] = {k: rec[k] for k in ("request_ms",
+                                              "request_ms_median",
+                                              "forward_device_ms")}
+    del model
+    torch.cuda.empty_cache()
+    model = cs.build_flagship(cs.LONG_SEQ, flash=True, fixed_proj=True,
+                              text_dim=cs.ODD_DIM)
+    e = cs.ENCODERS
+    train, _, _ = cs.train_steps(
+        model, cs.train_batch(cs.LONG_BATCH, seed=53, seq=cs.LONG_SEQ),
+        cs.FULL_STEPS,
+        {"K1": e, "K2": e, "K3": e, "R1": 3 * e, "K4": e, "K5": e, "A1": 1},
+        f"learn src4096 --text_dim {cs.ODD_DIM} at {e} encoders",
+        falling=False)
+    res["odd_src4096_step_ms"] = train["step_ms"]
+    res["odd_src4096_step_ms_median"] = train["step_ms_median"]
+    del model
+    torch.cuda.empty_cache()
+    print(root, "steps", json.dumps(
+        {"odd_step_ms_median": res["odd_step_ms_median"],
+         "odd_request_ms_median": res["odd_request"]["request_ms_median"],
+         "odd_src4096_step_ms_median": res["odd_src4096_step_ms_median"]}),
+        flush=True)
+    return res
 
 
 def shapes(cs) -> list:
@@ -266,9 +397,13 @@ def main() -> None:
                          "the steps that launch it")
     ap.add_argument("--steps_only", action="store_true",
                     help="the steps and requests, no kernel reading")
+    ap.add_argument("--odd", action="store_true",
+                    help="only the backwards at an odd head dim (d = 95) "
+                         "and the steps that launch them")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     out = os.path.abspath(args.out)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     sys.path.insert(0, root)
     os.chdir(root)
     import torch
@@ -276,11 +411,11 @@ def main() -> None:
     import chip_smoke as cs
     from meant_tpu_torch.cuda_build import build_all
 
-    build_all(cs.KERNELS)
-    res = {"root": args.root, "card": cs.card_line()}
+    logs = build_all(cs.KERNELS)
+    res = {"root": args.root, "card": cs.card_line(), "build_log": logs}
     gen = torch.Generator(device="cuda").manual_seed(9)
-    if args.past_256:
-        res.update(past_256(cs, gen, args.root))
+    if args.past_256 or args.odd:
+        res.update((odd if args.odd else past_256)(cs, gen, args.root))
         with open(out, "w") as f:
             json.dump(res, f, indent=1)
         return

@@ -889,12 +889,14 @@ def test_flash_mha_refuses_a_head_dim_below_one_on_the_card(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", ["masked", "plain"])
 @pytest.mark.parametrize("s_q,s_k", [(65, 65), (130, 70), (70, 200)])
-@pytest.mark.parametrize("d", [1, 7, 63, 95, 130, 192, 257])
+@pytest.mark.parametrize("d", [1, 7, 63, 95, 127, 129, 130, 191, 192, 255,
+                               257])
 def test_odd_and_wide_head_dims_match_plain(cuda, dtype, case, s_q, s_k, d):
     """flash_mha at an odd head dim (the lanes' wrap in R1 and in the
-    backwards' adjoint) and past 128 (the wide bodies): R1 + K1 and K2,
-    one launch each, against the plain versions; causal with a key mask,
-    and plain."""
+    backwards' adjoint: in bf16 up to 256 and fp32 up to 128 in the
+    epilogues of K2's own bodies, one or two consumer warpgroups) and past
+    128: R1 + K1 and K2, one launch each, against the plain versions;
+    causal with a key mask, and plain."""
     gen = torch.Generator(device=cuda).manual_seed(d * 1000 + s_q + s_k)
     q, k, v, do, tables, mask, causal = _shape_case(cuda, dtype, d, s_q,
                                                     s_k, case, gen)
@@ -913,14 +915,15 @@ def test_odd_and_wide_head_dims_match_plain(cuda, dtype, case, s_q, s_k, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lengths", [(65, 65), (4096, 4096), (256, 257)])
-@pytest.mark.parametrize("d", [7, 95, 160, 192, 256, 384, 768])
+@pytest.mark.parametrize("d", [7, 95, 127, 129, 160, 191, 192, 255, 256,
+                               384, 768])
 def test_online_kernels_at_odd_and_wide_head_dims(cuda, dtype, lengths, d):
     """R1 + K3 and R1 + K4 + K5 through flash_mha(return_lse=True) at odd
-    head dims and past 128 (K4 and K5 in bf16 at d = 160, 192 and 256 on
-    their wgmma bodies, at 384 on the sliced kernels, at 768 on the chain
-    body in one call): out and lse at K3's bars, the gradients (an lse
-    cotangent included) at K2's against the plain backward fed the
-    kernels' lse and delta."""
+    head dims and past 128 (K4 and K5 in bf16 at d = 129-256 on their
+    wgmma bodies, an odd d wrapping in their epilogues, at 384 on the
+    sliced kernels, at 768 on the chain body in one call): out and lse at
+    K3's bars, the gradients (an lse cotangent included) at K2's against
+    the plain backward fed the kernels' lse and delta."""
     s_q, s_k = lengths
     gen = torch.Generator(device=cuda).manual_seed(d + s_q + s_k)
     q, k, v, do, tables, mask, causal = _shape_case(
@@ -955,12 +958,20 @@ FWD_WGMMA_WIDTHS = (192, 256, 384, 768)
 
 
 def _fwd_wgmma(d, dtype) -> bool:
-    return dtype == torch.bfloat16 and kernel_head_dim(d) in FWD_WGMMA_WIDTHS
+    """Whether K1 and K3 run their own body (csrc/flash_fwd.cu) at d: up
+    to a padded width of 128 in both dtypes, past it in bf16 at
+    FWD_WGMMA_WIDTHS."""
+    width = kernel_head_dim(d)
+    return width <= 128 or (dtype == torch.bfloat16
+                            and width in FWD_WGMMA_WIDTHS)
 
 
 @pytest.mark.parametrize("d,dtype,body", [
     (192, torch.bfloat16, "wgmma"), (256, torch.bfloat16, "wgmma"),
-    (191, torch.bfloat16, "wide"), (384, torch.bfloat16, "wgmma"),
+    (191, torch.bfloat16, "wgmma"), (384, torch.bfloat16, "wgmma"),
+    (95, torch.bfloat16, "wgmma"), (95, torch.float32, "wgmma"),
+    (127, torch.bfloat16, "wgmma"), (129, torch.bfloat16, "wgmma"),
+    (255, torch.bfloat16, "wgmma"), (129, torch.float32, "wide"),
     (330, torch.bfloat16, "wgmma"), (383, torch.bfloat16, "wide"),
     (320, torch.bfloat16, "wide"), (704, torch.bfloat16, "wide"),
     (768, torch.bfloat16, "chain"), (760, torch.bfloat16, "chain"),
@@ -968,11 +979,13 @@ def _fwd_wgmma(d, dtype) -> bool:
     (192, torch.float32, "wide"), (256, torch.float32, "wide"),
     (384, torch.float32, "wide"), (768, torch.float32, "wide")])
 def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, body):
-    """K4's and K5's last_source: their wgmma bodies (the library's own
-    source) in bf16 at an even d padded to 192, 256 or 384 (the sliced
-    kernels), the chain body (csrc/flash_bwd_chain.cuh, K4 + K5 in one
-    call) at an even d padded to 768; the wide body at an odd d (the
-    adjoint's wrap), at the other widths past 256 and in fp32. K3 runs its
+    """K4's and K5's last_source: their own bodies (the library's source:
+    wgmma in bf16, FMA in fp32) at any d padded to 64-128, and in bf16 at
+    any d padded to 192 or 256 (an odd d wrapping in their epilogues) and
+    an even d padded to 384 (the sliced kernels), the chain body
+    (csrc/flash_bwd_chain.cuh, K4 + K5 in one call) at an even d padded to
+    768; the wide body at an odd d padded to 384 or 768, at the other
+    widths past 256 and in fp32 past 128. K3 runs its
     wgmma body in bf16 at a padded width of 192, 256, 384 or 768, an odd d
     included (a forward has no adjoint), and the wide body in fp32 and at
     the other widths past 256 (320, 704)."""
@@ -1002,7 +1015,10 @@ def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, body):
 @pytest.mark.parametrize("d,dtype,body", [
     (160, torch.bfloat16, "wgmma"), (192, torch.bfloat16, "wgmma"),
     (200, torch.bfloat16, "wgmma"), (256, torch.bfloat16, "wgmma"),
-    (191, torch.bfloat16, "wide"), (384, torch.bfloat16, "wgmma"),
+    (191, torch.bfloat16, "wgmma"), (384, torch.bfloat16, "wgmma"),
+    (95, torch.bfloat16, "wgmma"), (95, torch.float32, "wgmma"),
+    (127, torch.bfloat16, "wgmma"), (129, torch.bfloat16, "wgmma"),
+    (255, torch.bfloat16, "wgmma"), (129, torch.float32, "wide"),
     (320, torch.bfloat16, "wide"),
     (192, torch.float32, "wide"), (256, torch.float32, "wide"),
     (330, torch.bfloat16, "wgmma"), (383, torch.bfloat16, "wide"),
@@ -1010,13 +1026,15 @@ def test_streaming_backward_names_the_body_it_ran(cuda, d, dtype, body):
     (768, torch.bfloat16, "chain"), (760, torch.bfloat16, "chain"),
     (767, torch.bfloat16, "wide"), (768, torch.float32, "wide")])
 def test_resident_backward_names_the_body_it_ran(cuda, d, dtype, body):
-    """K2's last_source: its wgmma bodies (csrc/flash_bwd.cu) in bf16 at an
-    even d padded to 192, 256 or 384 (the sliced kernels), its chain body
-    (csrc/flash_bwd_chain.cuh) in bf16 at an even d padded to 768; the wide
-    body at an odd d (the adjoint's wrap), at the other widths past 256
-    and in fp32. K1 runs the forwards' wgmma body (csrc/flash_fwd.cu) in
-    bf16 at a padded width of 192, 256, 384 or 768 (an odd d included),
-    and the wide body in fp32 and at 320 and 704."""
+    """K2's last_source: its own bodies (csrc/flash_bwd.cu: wgmma in bf16,
+    FMA in fp32) at any d padded to 64-128, and in bf16 at any d padded to
+    192 or 256 (an odd d wrapping in their epilogues) and an even d padded
+    to 384 (the sliced kernels), its chain body (csrc/flash_bwd_chain.cuh)
+    in bf16 at an even d padded to 768; the wide body at an odd d padded to
+    384 or 768, at the other widths past 256 and in fp32 past 128. K1
+    runs its own body (csrc/flash_fwd.cu) up to 128 and in bf16 at a
+    padded width of 192, 256, 384 or 768 (an odd d included), and the wide
+    body in fp32 past 128 and at 320 and 704."""
     gen = torch.Generator(device=cuda).manual_seed(d + 1)
     q, k, v, do, tables, mask, causal = _shape_case(
         cuda, dtype, d, 130, 130, "masked", gen)
@@ -1027,6 +1045,72 @@ def test_resident_backward_names_the_body_it_ran(cuda, d, dtype, body):
                                      "chain": CHAIN_SOURCE}[body]
     assert flash_fwd.last_source == (
         flash_fwd.source if _fwd_wgmma(d, dtype) else WIDE_SOURCE)
+
+
+def _nowrap_bwd(q, k, v, do, mask, tables, causal, lse=None, delta=None):
+    """The plain backward without the lanes' wrap at an odd d: every input
+    padded by one zero column (the tables by the identity), so that column
+    d-1 pairs with that column and not with column 0; sliced back. The
+    streaming form when lse and delta are given."""
+    d = q.shape[-1]
+    padded = _flat(d + 1, q, k, v, do)
+    q1, k1, v1, do1 = (t.reshape(*q.shape[:2], t.shape[1], d + 1)
+                       for t in padded)
+    _, *tables1 = _kernel_tables(d + 1, None, *tables)
+    if lse is None:
+        grads = flash_mha_bwd_reference(q1, k1, v1, do1, mask, *tables1,
+                                        scale=0.1, causal=causal)
+    else:
+        grads = flash_mha_bwd_online_reference(
+            q1, k1, v1, do1, lse, delta, mask, *tables1, scale=0.1,
+            causal=causal)
+    return [g[..., :d] for g in grads]
+
+
+@pytest.mark.parametrize("path", ["resident", "streaming"])
+@pytest.mark.parametrize("s", [130, 200])
+@pytest.mark.parametrize("d", [95, 191, 255])
+def test_odd_head_dim_wrap_term_in_the_wgmma_epilogues(cuda, path, s, d):
+    """Column d-1 of dq and dk carries the wrap term sin[0] g[0] at an odd
+    d in bf16 on the backwards' own bodies (K2, or K4 + K5), a ragged last
+    tile (s = 130 or 200) included: one consumer warpgroup at d = 95 (a
+    shuffle within the quad), at 191 the dq kernel one and the dk/dv
+    kernel two, at 255 both two (column 0 through shared memory). The
+    gradients match the plain backward at K2's bars; column d-1 of dq and
+    dk differs from the plain backward without the wrap by more than the
+    element bar, and by more than ten times its own error."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 7 + s)
+    q, k, v, do, tables, mask, causal = _shape_case(
+        cuda, torch.bfloat16, d, s, s, "xpos_causal", gen)
+    if path == "resident":
+        out, grads = _autograd_path(q, k, v, do, tables, mask, causal)
+        assert flash_bwd.last_source == flash_bwd.source
+        want = flash_mha_bwd_reference(q, k, v, do, mask, *tables, scale=0.1,
+                                       causal=causal)
+        nowrap = _nowrap_bwd(q, k, v, do, mask, tables, causal)
+    else:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out, lse = flash_mha(*leaves, scale=0.1, causal=causal,
+                             qcos=tables[0], qsin=tables[1], kcos=tables[2],
+                             ksin=tables[3], return_lse=True)
+        grads = torch.autograd.grad(out, leaves, do)
+        for launcher in (flash_bwd_dq, flash_bwd_dkdv):
+            assert launcher.last_source == launcher.source
+        lse = lse.detach()[..., 0]
+        delta = (do.float() * out.detach().float()).sum(-1)
+        want = flash_mha_bwd_online_reference(q, k, v, do, lse, delta, mask,
+                                              *tables, scale=0.1,
+                                              causal=causal)
+        nowrap = _nowrap_bwd(q, k, v, do, mask, tables, causal, lse, delta)
+    torch.cuda.synchronize()
+    _assert_grads_close(grads, want, torch.bfloat16)
+    for name, got, a, b in zip(("dq", "dk"), grads, want, nowrap):
+        col = got[..., d - 1].float()
+        err = (col - a[..., d - 1].float()).abs().max()
+        off = (col - b[..., d - 1].float()).abs()
+        bar = BWD_BF16_ATOL + 2e-2 * b[..., d - 1].float().abs()
+        assert (off > bar).any(), f"{name}: column d-1 has no wrap term"
+        assert off.max() > 10 * err, f"{name}: {off.max()} vs {err}"
 
 
 @pytest.mark.parametrize("case", ["masked", "pixel"])

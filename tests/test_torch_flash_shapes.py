@@ -6,9 +6,10 @@ queries, on the CPU against the JAX package.
   and 128 and at (s_q, s_k) = (20, 21) and (70, 71): plain, and causal with
   xPos tables of each length and a key mask. The bars of
   test_torch_flash.py: rtol 1e-4 / atol 1e-5.
-* The padding the card's wrapper applies (`kernel_head_dim`: an even d up
-  to 128 goes to the next of 64, 96, 128, any other d to the next multiple
-  of 64, with zero columns and identity table entries) changes nothing: the plain versions on padded inputs,
+* The padding the card's wrapper applies (`kernel_head_dim`: a d up to
+  128, odd or even, goes to the next of 64, 96, 128, one past 128 to the
+  next multiple of 64, with zero columns and identity table entries)
+  changes nothing at an even d: the plain versions on padded inputs,
   sliced back, against the same on the caller's d (fp32 sums of extra
   zero terms: rtol 1e-6 / atol 1e-7).
 * R1's premise at d = 64 and 128 (tests/test_torch_flash_prerotated.py's
@@ -127,13 +128,15 @@ def test_kernel_head_dim_pads_to_the_next_instantiation_exactly(d, padded):
 
 
 @pytest.mark.parametrize("d,width", [(0, None), (-3, None), (7, 64),
-                                     (95, 128), (130, 192), (192, 192),
-                                     (768, 768), (48, 64), (96, 96),
-                                     (128, 128)])
+                                     (95, 96), (63, 64), (127, 128),
+                                     (129, 192), (255, 256), (130, 192),
+                                     (192, 192), (768, 768), (48, 64),
+                                     (96, 96), (128, 128)])
 def test_kernel_head_dim_routes_every_positive_d(d, width):
-    """Every d >= 1 reaches a kernel on the card: an even d up to 128 pads
-    to the next of HEAD_DIMS as before, an odd d or one past 128 to the
-    next multiple of 64 (the wide bodies past 128); only d <= 0 raises."""
+    """Every d >= 1 reaches a kernel on the card: a d up to 128, odd or
+    even, pads to the next of HEAD_DIMS (an odd d's backwards wrap in the
+    epilogues of those bodies), one past 128 to the next multiple of 64;
+    only d <= 0 raises."""
     if width is None:
         with pytest.raises(ValueError, match="positive"):
             kernel_head_dim(d)
