@@ -93,7 +93,13 @@ raises and the script exits non-zero:
               each checkpoint: before the first step the grafted entries
               (embedding and language tower, or vision tower) equal the
               checkpoint's and the rest are the fresh init; one epoch
-              trains with meant's launch counts.
+              trains with meant's launch counts. Then the parquet reader
+              on the host (data/parquet.py): each committed fixture of
+              tests/data/torch_parquet decoded exactly as its texts.json
+              (the JAX harness's texts) holds it, its decode ms printed,
+              and cli.pretrain_mlm at its defaults from the 96-row snappy
+              .parquet (mlm_arrays those of the JSON's texts; the CSV
+              run's launch counts, a finite loss, a checkpoint).
 10. levers -- serving and memory levers at the flagship's width: the
               flagship (fixed_proj=True) served in bf16 and in int8
               (`Predictor(quantize="int8")`): exactly 24 R1 + 24 K1 a
@@ -415,6 +421,12 @@ PAPER_PLAIN_STEPS = 5      # the flash=False step, timed only
 MLM_PARAMS, MIM_PARAMS = 106_644_737, 58_111_488
 PRETRAIN_LR = 5e-5         # the pretraining CLIs' default -l
 PRETRAIN_DATA_ROWS = 80    # 64 train / 16 val rows (n_val = max(n // 10, 16))
+# the parquet reader's committed fixtures (tests/torch_parquet_fixtures.py,
+# which pyarrow writes: the card's machine has none) and texts.json, what
+# the JAX harness's load_text reads from each; cli.pretrain_mlm trains from
+# the 96-row one (80 train / 16 val rows)
+PARQUET_FIXTURES = os.path.join("tests", "data", "torch_parquet")
+PARQUET_CLI = "cli_snappy_96"
 HEAD_LOSS_REL = 1e-3       # gathered vs full MLM head, relative loss error
 # serving and memory levers: int8 against bf16 serving at JAX's own bars
 # (tests/test_quant.py:115-117); an exported program against the live
@@ -1821,37 +1833,90 @@ def write_pretrain_data(path: str, kind: str) -> str:
     return data
 
 
-def pretrain_through_cli(kind: str, d: str) -> tuple:
+def pretrain_through_cli(kind: str, d: str, data: str = None) -> tuple:
     """cli.pretrain_mlm / cli.pretrain_mim -ne 1 at their defaults (so
-    --flash auto: the kernels run, as in the JAX harness) on a file written
-    here; exactly 12 R1 + 12 K1 per forward, 12 K2 and 1 A1 per step.
-    Returns the checkpoint path and the record."""
+    --flash auto: the kernels run, as in the JAX harness) on `data`, or on
+    a file written here; exactly 12 R1 + 12 K1 per forward, 12 K2 and 1 A1
+    per step. Returns the checkpoint path and the record."""
     from meant_tpu_torch.cli import pretrain_mim, pretrain_mlm
     cli = pretrain_mlm if kind == "mlm" else pretrain_mim
+    data = data or write_pretrain_data(d, kind)
     argv = ["-rid", "0", "-nec", str(ENCODERS), "-ne", "1", "-fp", d,
-            "--data_dir", write_pretrain_data(d, kind)]
+            "--data_dir", data]
+    t0 = time.perf_counter()
     reset_counts()
     out = cli.main(argv)
     counts = read_counts()
     trainer = out["trainer"]
     steps = trainer.optimizer.step_count
     forwards = steps + len(trainer.val_data)
+    label = f"cli.pretrain_{kind} on {sorted(os.listdir(data))}"
     check_counts(counts, {"R1": ENCODERS * forwards, "K1": ENCODERS * forwards,
                           "K2": ENCODERS * steps, "A1": steps},
-                 f"cli.pretrain_{kind}'s {steps} steps and "
-                 f"{forwards - steps} evaluation forwards")
-    if out["checkpoint"] is None or not all(
+                 f"{label}'s {steps} steps and {forwards - steps} "
+                 f"evaluation forwards")
+    if out["checkpoint"] is None or not os.path.isfile(
+            out["checkpoint"]) or not all(
             np.isfinite(h["train_loss"]) and np.isfinite(h["val_loss"])
             for h in out["history"]):
-        fail(f"cli.pretrain_{kind}: {out['history']}, checkpoint "
-             f"{out['checkpoint']}")
-    print(f"cli.pretrain_{kind} ({PRETRAIN_DATA_ROWS} rows, defaults): "
-          f"{steps} steps, launches {counts}, history {out['history']}; "
-          f"checkpoint {out['checkpoint']}", flush=True)
+        fail(f"{label}: {out['history']}, checkpoint {out['checkpoint']}")
+    rows = sum(len(loader.arrays["input_ids"])
+               for loader in (trainer.train_data, trainer.val_data))
+    wall = time.perf_counter() - t0
+    print(f"{label} ({rows} rows, defaults): {steps} steps, launches "
+          f"{counts}, history {out['history']}; checkpoint "
+          f"{out['checkpoint']}; {wall:.1f} s", flush=True)
     del trainer, out["trainer"]
     torch.cuda.empty_cache()
-    return out["checkpoint"], {"steps": steps, "launches": counts,
+    return out["checkpoint"], {"rows": rows, "steps": steps,
+                               "launches": counts, "wall_s": wall,
                                "history": out["history"]}
+
+
+def pretrain_from_parquet(d: str) -> dict:
+    """The parquet reader on the card's host: every committed fixture
+    decoded exactly as texts.json holds it (the JAX harness's texts), its
+    decode ms printed with the card; then cli.pretrain_mlm at its defaults
+    from the 96-row fixture, whose mlm_arrays equal those of the JSON's
+    texts, with pretrain_through_cli's launch counts."""
+    from meant_tpu_torch.cli import pretrain_mlm
+    from meant_tpu_torch.cli.common import base_parser
+    from meant_tpu_torch.data.datasets import read_parquet_texts
+    root = os.path.join(ROOT, PARQUET_FIXTURES)
+    with open(os.path.join(root, "texts.json"), encoding="utf-8") as f:
+        want = json.load(f)
+    card = card_line()
+    res = {"decode": {}}
+    for name, texts in want.items():
+        path = os.path.join(root, name, "texts.parquet")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = read_parquet_texts(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+            if got != texts:
+                rows = [i for i, t in enumerate(texts[:len(got)])
+                        if got[i] != t]
+                fail(f"{path} decodes to {len(got)} texts, texts.json "
+                     f"holds {len(texts)}; they differ at rows {rows[:5]}")
+        res["decode"][name] = {"rows": len(got),
+                               "bytes": os.path.getsize(path),
+                               "decode_ms": times}
+        print(f"parquet {name}: {len(got)} texts, {os.path.getsize(path)} "
+              f"bytes, exactly texts.json's; decoded in "
+              f"{min(times):.3f} ms (best of 3) on the host of {card}",
+              flush=True)
+    data = os.path.join(root, PARQUET_CLI)
+    args = base_parser().parse_args(["-rid", "0", "--data_dir", data])
+    got = pretrain_mlm.mlm_arrays(pretrain_mlm.load_text(args), args)
+    ref = pretrain_mlm.mlm_arrays(want[PARQUET_CLI], args)
+    for k in ref:
+        if not np.array_equal(got[k], ref[k]):
+            fail(f"mlm_arrays' {k} from {data} differ from texts.json's")
+    os.makedirs(os.path.join(d, "parquet"))
+    _, res["cli"] = pretrain_through_cli("mlm", os.path.join(d, "parquet"),
+                                         data)
+    return res
 
 
 def finetune_from(checkpoint: str, grafted: tuple, d: str) -> dict:
@@ -1901,7 +1966,8 @@ def finetune_from(checkpoint: str, grafted: tuple, d: str) -> dict:
 
 def run_pretrain(record) -> dict:
     """Phase 9: the MLM and MIM pretrainers at bench.py's geometry, their
-    CLIs, and meant fine-tuned from each CLI's checkpoint."""
+    CLIs, meant fine-tuned from each CLI's checkpoint, and the MLM CLI
+    from a `.parquet` (`pretrain_from_parquet`)."""
     res = {"mlm": {}, "mim": {}}
     record["pretrain"] = res
     out = {}
@@ -1915,6 +1981,7 @@ def run_pretrain(record) -> dict:
             path, res[kind]["cli"] = pretrain_through_cli(kind, d)
             with tempfile.TemporaryDirectory() as ft:   # 2 GB of meant
                 res[kind]["finetune"] = finetune_from(path, grafted, ft)
+        res["mlm"]["parquet"] = pretrain_from_parquet(d)
     return out
 
 

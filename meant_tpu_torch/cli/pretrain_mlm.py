@@ -4,10 +4,15 @@ with the same flag names.
     python -m meant_tpu_torch.cli.pretrain_mlm -rid 0 [--data_dir DIR] \
         [-nec 12] [-ne 10] [-tb 16] [--full_mlm_head] [--device cpu]
 
-Texts: the first column of the first `.csv` in --data_dir (header row
-first; read with the standard library, `data.datasets.read_csv_texts`), or
-synthetic texts when there is no --data_dir. A `.parquet` raises: this
-package has no parquet reader. The texts are hashed into ids
+Texts: the first column of the first `.parquet` or `.csv` in --data_dir,
+in `os.listdir` order as in the JAX harness, or synthetic texts when there
+is no --data_dir. A `.csv` is read with the standard library
+(`data.datasets.read_csv_texts`, header row first); a `.parquet` by
+`data.datasets.read_parquet_texts` (`data/parquet.py`, the standard
+library and numpy: UNCOMPRESSED, SNAPPY and GZIP pages of strings,
+integers, floats and booleans; the first column that is not a pandas
+index; another codec, encoding or type raises NotImplementedError naming
+it). Both read a missing value as "nan". The texts are hashed into ids
 (`hash_tokenize`, BOS/EOS, pad id 1, vocab_size - 2 buckets), masked
 (`mask_tokens`, Bernoulli 0.15, mask id vocab_size - 1, seed = the run id
 when it is a number), and split into `max(n // 10, batch)` validation rows
@@ -31,7 +36,8 @@ import numpy as np
 import torch
 
 from meant_tpu_torch.cli.common import base_parser, cli_mesh
-from meant_tpu_torch.data.datasets import hash_tokenize, read_csv_texts
+from meant_tpu_torch.data.datasets import (hash_tokenize, read_csv_texts,
+                                            read_parquet_texts)
 from meant_tpu_torch.data.loader import ArrayLoader
 from meant_tpu_torch.data.masking import mask_tokens
 from meant_tpu_torch.models import (EmbeddingConfig,
@@ -45,9 +51,7 @@ def load_text(args) -> list:
     if args.data_dir:
         for name in os.listdir(args.data_dir):
             if name.endswith(".parquet"):
-                raise NotImplementedError(
-                    f"{name}: meant_tpu_torch has no parquet reader; give "
-                    f"the texts as a .csv")
+                return read_parquet_texts(os.path.join(args.data_dir, name))
             if name.endswith(".csv"):
                 return read_csv_texts(os.path.join(args.data_dir, name))
         raise FileNotFoundError(f"no parquet/csv in {args.data_dir}")

@@ -12,9 +12,10 @@ splits (counterpart of meant_tpu/data/datasets.py), numpy only.
 * `fnv1a_tokenize` / `hash_tokenize` are the JAX package's FNV-1a hash
   tokenizer, through the port's copy of its C++ library (`native`), so a
   tab or a newline splits no token, as in JAX; `read_csv_texts` reads a
-  column of a `.csv` (the pretraining texts, tweet_eval's text and label)
-  and `read_csv_chunk` a window of a one-column `.csv` with the standard
-  library, as the JAX harnesses read them with pandas.
+  column of a `.csv` (the pretraining texts, tweet_eval's text and label),
+  `read_parquet_texts` one of a `.parquet` (the pretraining texts) and
+  `read_csv_chunk` a window of a one-column `.csv` with the standard
+  library and numpy, as the JAX harnesses read them with pandas.
 * The frame converters (`tempstock_large_from_frame`,
   `stocknet_from_frame`, `djia_from_frame`) take any frame with
   `iterrows()` (a pandas DataFrame) or a list of row mappings, and
@@ -30,6 +31,7 @@ from typing import Dict, List, Tuple, Union
 
 import numpy as np
 
+from meant_tpu_torch.data.parquet import read_column
 from meant_tpu_torch.native import fnv1a_tokenize  # re-exported
 
 
@@ -125,6 +127,19 @@ def read_csv_texts(path: str, column: Union[int, str] = 0) -> List[str]:
     i = column if isinstance(column, int) else rows[0].index(column)
     cells = [row[i] if i < len(row) else "" for row in rows[1:]]
     return ["nan" if c in _CSV_NA else c for c in cells]
+
+
+def read_parquet_texts(path: str, column: int = 0) -> List[str]:
+    """One column of a `.parquet` (the first, or the `column`-th, index
+    columns of the pandas metadata left out) as
+    `pd.read_parquet(path).iloc[:, column].astype(str)` reads it: every
+    row group and page in order, a missing value as "nan", as
+    `read_csv_texts` reads one, an integer column with a null as pandas'
+    float64 strings ("1.0"). Decoded by `data.parquet` with the standard
+    library and numpy: UNCOMPRESSED, SNAPPY and GZIP pages of strings,
+    integers, floats and booleans; what it does not decode raises
+    NotImplementedError naming it."""
+    return read_column(path, column)
 
 
 # ---- frames to arrays (meant_tpu/data/datasets.py:85-186) ---------------

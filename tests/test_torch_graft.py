@@ -1,8 +1,9 @@
 """The pretrain-then-finetune workflow of the port on the CPU: `graft`
 against the JAX package's, the pretraining CLIs (their `--flash` string,
-the CSV reader against pandas, the parquet refusal, the loop and its
-checkpoint), and `pretrain_mlm` / `pretrain_mim` -> `in_loop_train -p true
--ptm` end to end at a tiny width."""
+the CSV reader against pandas, the loop and its checkpoint; the parquet
+reader is tests/test_torch_parquet.py's), and `pretrain_mlm` /
+`pretrain_mim` -> `in_loop_train -p true -ptm` end to end at a tiny
+width."""
 
 import os
 
@@ -173,13 +174,6 @@ def test_csv_reader_equals_pandas(tmp_path):
     got = pretrain_mlm.load_text(args)
     assert got == want
     assert got[1] == "nan" and got[2] == 'a, quoted "x"' and len(got) == 10
-
-
-def test_parquet_is_refused_by_name(tmp_path):
-    (tmp_path / "texts.parquet").write_bytes(b"PAR1")
-    with pytest.raises(NotImplementedError, match="parquet"):
-        pretrain_mlm.main(["-rid", "0", "--data_dir", str(tmp_path)]
-                          + WIDTHS + CPU)
 
 
 def test_mlm_arrays_equal_the_jax_harness(monkeypatch):

@@ -1,10 +1,12 @@
 """Import hygiene of the port: no module of meant_tpu_torch and not
-chip_smoke.py imports jax, flax, optax, safetensors, transformers, pandas
-or anything of meant_tpu (the card's machine has neither safetensors,
-transformers nor pandas: the port reads the safetensors format and its
-`.csv` files itself)."""
+chip_smoke.py imports jax, flax, optax, safetensors, transformers, pandas,
+a parquet library (pyarrow, fastparquet) or a snappy binding (snappy,
+cramjam), or anything of meant_tpu (the card's machine has none of them:
+the port reads the safetensors format, its `.csv` files and its
+`.parquet` files itself)."""
 
 import ast
+import sys
 from pathlib import Path
 
 import pytest
@@ -15,7 +17,8 @@ torch_threads.share_cores()
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "meant_tpu", "safetensors",
-             "transformers", "pandas")
+             "transformers", "pandas", "pyarrow", "fastparquet", "snappy",
+             "cramjam")
 FILES = sorted((ROOT / "meant_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -40,7 +43,7 @@ def test_port_has_sources():
 
 # the host data path: numpy, the standard library and g++ only
 HOST_MODULES = ["native/__init__.py", "utils/observability.py",
-                "data/macd.py", "data/smote.py",
+                "data/macd.py", "data/smote.py", "data/parquet.py",
                 "data_engineering/__init__.py", "data_engineering/dataprep.py",
                 "data_engineering/fetchers.py",
                 "data_engineering/image_prep.py",
@@ -51,6 +54,12 @@ HOST_MODULES = ["native/__init__.py", "utils/observability.py",
 
 def test_host_data_modules_are_checked():
     assert {ROOT / "meant_tpu_torch" / m for m in HOST_MODULES} <= set(FILES)
+
+
+def test_parquet_reader_needs_only_numpy_and_the_standard_library():
+    roots = set(_imported_roots(ROOT / "meant_tpu_torch" / "data" /
+                                "parquet.py"))
+    assert roots - set(sys.stdlib_module_names) == {"numpy"}
 
 
 # the parallel layouts, the GPipe pipeline among them
